@@ -1,0 +1,607 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (qtpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                      # every phase, as a check of the port
+    python3 chip_smoke.py --phases build,kernels
+
+Phases, each printing one JSON line:
+  device   the card's name, count, and nvidia-smi's name and power limit
+  build    nvcc builds every kernel source (in parallel), with the -Xptxas -v
+           register and shared-memory report
+  kernels  K1-K4 against their plain PyTorch versions at the shapes of the
+           main path (TinyLlama-1.1B, batch 8, prompt 128, W4 g128), with
+           times: kernel, plain version, one PyTorch library call where one
+           computes the same function, and the bound from bytes and
+           operations at 3.35 TB/s and 989 TFLOP/s (H100 SXM data sheet)
+  e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
+           the card against the same on the CPU (plain versions)
+  serve    the main path at full width: TinyLlama-1.1B (22 layers, random
+           per-layer weights from a seed), RTN W4 g128 with fused sites, a
+           ContinuousBatcher with the int8 KV cache answering 8 requests of
+           prompt 128 and 32 new tokens; every kernel's launch count is
+           checked against its count per prefill and per decode step; then
+           the host wall time of steady 16-step decode blocks
+  profile  torch.profiler over one warm prefill and one 16-step decode block
+           of the serve cell: host and device time per step, the device busy
+           share and the kernels that take the device time; and the host wall
+           time of three warm prefills without the profiler
+
+The last lines are the nvidia-smi line, the `kernels` JSON line and
+{"ok": true, "device": {...}}. Any failed check raises, and the script then
+exits non-zero without the last line. It needs a CUDA device and the
+qtpu_torch package beside it; it imports nothing of JAX or qtpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+PHASES = ("device", "build", "kernels", "e2e", "serve", "profile")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
+L2_BYTES = 50 * 1024 * 1024
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / BF16_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def cuda_ms(torch, calls, per_call_bytes: float, reps: int = 0, graph: bool = True) -> tuple[float, str]:
+    """Warm per-call device time of `calls` (closures on distinct buffers,
+    used in turn so the 50 MB L2 is exceeded), from CUDA events around a
+    CUDA graph of the calls (no host overhead in the time), or around eager
+    calls when graph=False (for calls that synchronize with the host)."""
+    n = len(calls)
+    reps = reps or max(n, min(200, int(4 * L2_BYTES // max(per_call_bytes, 1)) + 1))
+    for f in calls[: min(n, 3)]:
+        f()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    if not graph:
+        e0.record()
+        for i in range(reps):
+            calls[i % n]()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps, "eager"
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in calls:  # warm on the side stream before capture
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(g):
+        for i in range(reps):
+            calls[i % n]()
+    g.replay()
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(3):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (3 * reps), "graph"
+
+
+def rel_err(torch, got, want) -> float:
+    g, w = got.float(), want.float()
+    return float(torch.linalg.vector_norm(g - w) / (torch.linalg.vector_norm(w) + 1e-6))
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# ----------------------------------------------------------------- phases
+def phase_device(torch, ctx):
+    ctx["name"] = torch.cuda.get_device_name(0)
+    ctx["count"] = torch.cuda.device_count()
+    ctx["smi"] = nvidia_smi_line()
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        raise RuntimeError(f"the kernels are built for sm_90a; this card is sm_{cap[0]}{cap[1]}")
+    emit({"phase": "device", "name": ctx["name"], "count": ctx["count"],
+          "nvidia_smi": ctx["smi"], "torch": torch.__version__, "cuda": torch.version.cuda})
+
+
+def phase_build(torch, ctx):
+    from qtpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    report = _build.build()
+    wall = time.perf_counter() - t0
+    ptxas = {
+        name: [ln.strip() for ln in r["ptxas"].splitlines()
+               if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        for name, r in report.items()
+    }
+    emit({"phase": "build", "wall_s": wall,
+          "seconds": {n: r["seconds"] for n, r in report.items()},
+          "cached": {n: r["cached"] for n, r in report.items()}, "ptxas": ptxas})
+
+
+def _packed(torch, L, K, N, bits, group, gen, dev, symmetric=False):
+    """L layers of a random [K, N] weight packed with quantize_pack."""
+    from qtpu_torch.core.packing import quantize_pack
+
+    parts = [
+        quantize_pack(torch.randn(K, N, generator=gen, device=dev) * 0.02, bits, group, symmetric)
+        for _ in range(L)
+    ]
+    data = torch.stack([p.data for p in parts])
+    scales = torch.stack([p.scales for p in parts])
+    zeros = None if symmetric else torch.stack([p.zeros for p in parts])
+    return data, scales, zeros
+
+
+def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=True):
+    from qtpu_torch.core.packing import dequantize_parts
+    from qtpu_torch.kernels.dequant_matmul import quantized_matmul, quantized_matmul_plain
+
+    meta = (bits, group, K, N)
+    wbytes = K * N * bits / 8 + (K // group) * N * (2 + (0 if symmetric else 1))
+    copies = max(1, min(64, math.ceil(2 * L2_BYTES / wbytes))) if timed else 1
+    data, scales, zeros = _packed(torch, copies, K, N, bits, group, gen, dev, symmetric)
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    z = (lambda i: None) if zeros is None else (lambda i: zeros[i])
+    got = quantized_matmul(x, data[0], scales[0], z(0), meta)
+    want = quantized_matmul_plain(x, data[0], scales[0], z(0), meta)
+    torch.cuda.synchronize()
+    err = rel_err(torch, got, want)
+    row = {"M": M, "K": K, "N": N, "bits": bits, "group": group, "sym": symmetric,
+           "rel_err": err, "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "tol_rel": 2e-2}
+    if err >= 2e-2 or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"K1 disagrees with its plain version: {row}")
+    if not timed:
+        return row
+    nbytes = wbytes + M * K * 2 + M * N * 2
+    flops = 2 * M * K * N
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["ms"], row["timing"] = cuda_ms(
+        torch, [lambda i=i: quantized_matmul(x, data[i], scales[i], z(i), meta)
+                for i in range(copies)], wbytes)
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda i=i: quantized_matmul_plain(x, data[i], scales[i], z(i), meta)
+                for i in range(copies)], wbytes)
+    nlib = max(1, min(copies, math.ceil(2 * L2_BYTES / (K * N * 2))))
+    wd = [dequantize_parts(data[i], scales[i], z(i), bits, group) for i in range(nlib)]
+    row["library_ms"], _ = cuda_ms(torch, [lambda i=i: torch.matmul(x, wd[i])
+                                           for i in range(nlib)], K * N * 2)
+    return row
+
+
+def phase_kernels(torch, ctx):
+    from qtpu_torch.kernels import dequant_matmul as k1
+    from qtpu_torch.kernels import fused_mlp as k4
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    D, F, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, P, g = 8, 128, 128
+    qkv_n = cfg.q_dim + 2 * cfg.kv_dim
+    detail = {}
+
+    # K1 at every main-path shape (W4 g128), then the other packings
+    k1_rows = {
+        "qkv_decode": _k1_case(torch, ctx, gen, dev, B, D, qkv_n, 4, g),
+        "o_decode": _k1_case(torch, ctx, gen, dev, B, cfg.q_dim, D, 4, g),
+        "lm_head_decode": _k1_case(torch, ctx, gen, dev, B, D, V, 4, g),
+        "qkv_prefill": _k1_case(torch, ctx, gen, dev, B * P, D, qkv_n, 4, g),
+        "o_prefill": _k1_case(torch, ctx, gen, dev, B * P, cfg.q_dim, D, 4, g),
+        "gateup_prefill": _k1_case(torch, ctx, gen, dev, B * P, D, 2 * F, 4, g),
+        "down_prefill": _k1_case(torch, ctx, gen, dev, B * P, F, D, 4, g),
+        "lm_head_prefill": _k1_case(torch, ctx, gen, dev, B * P, D, V, 4, g),
+    }
+    for bits in (2, 4, 8):
+        for grp in (64, 128):
+            for sym in (False, True):
+                k1_rows[f"w{bits}g{grp}{'s' if sym else 'a'}_decode"] = _k1_case(
+                    torch, ctx, gen, dev, B, D, qkv_n, bits, grp, sym, timed=False)
+    k1_rows["ragged_m3"] = _k1_case(torch, ctx, gen, dev, 3, D, qkv_n, 4, g, timed=False)
+    k1_rows["ragged_m77"] = _k1_case(torch, ctx, gen, dev, 77, D, qkv_n, 4, g, timed=False)
+    # W2 g32 has 8 packed rows per group: M > 8 takes the GEMV kernel, not mma
+    k1_rows["w2g32a_m77"] = _k1_case(torch, ctx, gen, dev, 77, D, qkv_n, 2, 32, timed=False)
+    detail["dequant_matmul"] = k1_rows
+
+    # K2 / K3 on the serving engine's cache: S = 128 + 32 + 16 rounded to 8
+    S = 176
+    k_all = torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen, device=dev).to(torch.int8)
+    v_all = torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen, device=dev).to(torch.int8)
+    ks_all = torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01
+    vs_all = torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01
+    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=dev)
+    kn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    kc = [t.clone() for t in (k_all, v_all, ks_all, vs_all)]
+    pc = [t.clone() for t in (k_all, v_all, ks_all, vs_all)]
+    k23.cache_band_write(kn, vn, *kc, pos, 3)
+    k23.cache_band_write_plain(kn, vn, *pc, pos, 3)
+    torch.cuda.synchronize()
+    code_diff = max(int((a.int() - b.int()).abs().max()) for a, b in zip(kc[:2], pc[:2]))
+    n_code_diff = sum(int((a != b).sum()) for a, b in zip(kc[:2], pc[:2]))
+    scale_err = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                    for a, b in zip(kc[2:], pc[2:]))
+    k2 = {"code_max_diff": code_diff, "codes_differing": n_code_diff,
+          "scale_max_rel_err": scale_err, "tol": "codes within 1 (rounding ties), scales 1e-6"}
+    if code_diff > 1 or n_code_diff > 4 or scale_err > 1e-6:
+        raise AssertionError(f"K2 disagrees with its plain version: {k2}")
+    row_bytes = B * KV * (2 * hd * 2 + 2 * hd + 2 * 4) + B * 4
+    k2["bound_ms"], k2["bound_by"] = bound(row_bytes, 0)
+    k2["ms"], k2["timing"] = cuda_ms(
+        torch, [lambda l=l: k23.cache_band_write(kn, vn, *kc, pos, l) for l in range(L)],
+        row_bytes)
+    k2["plain_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k23.cache_band_write_plain(kn, vn, *pc, pos, l) for l in range(L)],
+        row_bytes, reps=L, graph=False)
+    k2["library_ms"] = None
+    detail["cache_band_write"] = k2
+
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k3 = {}
+    rows_read = sum(min(int(p), S - 1) + 1 for p in pos.tolist())
+    for window in (0, 64):
+        got = k23.decode_attention(q, k_all, v_all, ks_all, vs_all, pos, 5, window=window)
+        want = k23.decode_attention_plain(q, k_all, v_all, ks_all, vs_all, pos, 5, window=window)
+        torch.cuda.synchronize()
+        # f32 math of the same function: the reference test_pallas_kernels.py holds
+        # the TPU kernel to (rtol/atol 2e-2)
+        want32 = k23.decode_attention_plain(q.float(), k_all, v_all, ks_all, vs_all, pos, 5,
+                                            window=window)
+        torch.cuda.synchronize()
+        # the last row (pos = S, an inactive batch slot) is garbage by contract
+        gt, wt, w32 = got[:-1].float(), want[:-1].float(), want32[:-1]
+        err = rel_err(torch, gt, wt)
+        ok = err < 2e-2 and bool(torch.allclose(gt, w32, rtol=2e-2, atol=2e-2))
+        k3[f"window{window}"] = {"max_abs_err": float((gt - wt).abs().max()), "rel_err": err,
+                                 "max_abs_err_vs_f32": float((gt - w32).abs().max()),
+                                 "tol": "rel 2e-2 vs plain; rtol/atol 2e-2 vs f32 math",
+                                 "finite_inactive_row": bool(torch.isfinite(got[-1].float()).all())}
+        if not ok or not k3[f"window{window}"]["finite_inactive_row"]:
+            raise AssertionError(f"K3 disagrees with its plain version: {k3}")
+    att_bytes = rows_read * KV * (2 * hd + 2 * 4) + 2 * B * H * hd * 2 + B * 4
+    att_flops = rows_read * H * hd * 4
+    k3["bound_ms"], k3["bound_by"] = bound(att_bytes, att_flops)
+    k3["ms"], k3["timing"] = cuda_ms(
+        torch, [lambda l=l: k23.decode_attention(q, k_all, v_all, ks_all, vs_all, pos, l)
+                for l in range(L)], att_bytes)
+    k3["plain_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k23.decode_attention_plain(q, k_all, v_all, ks_all, vs_all, pos, l)
+                for l in range(L)], att_bytes)
+    # yardstick: SDPA over the cache dequantized to bf16 beforehand
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    kd = dequantize_kv(k_all[:4], ks_all[:4])
+    vd = dequantize_kv(v_all[:4], vs_all[:4])
+    mask = k23.cache_mask(pos[:, None], S)[:, None]  # [B, 1, 1, S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k3["library_ms"], _ = cuda_ms(
+        torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l], attn_mask=mask, enable_gqa=True)
+                for l in range(4)], att_bytes)
+    k3["library_call"] = "scaled_dot_product_attention on the cache dequantized to bf16"
+    detail["decode_attention"] = k3
+
+    # K4 over the 22 layers of a TinyLlama MLP, W4 g128
+    gu = _packed(torch, L, D, 2 * F, 4, g, gen, dev)
+    dn = _packed(torch, L, F, D, 4, g, gen, dev)
+    nw = (1.0 + 0.1 * torch.randn(L, D, generator=gen, device=dev)).to(torch.bfloat16)
+    x = torch.randn(B, 1, D, generator=gen, device=dev).to(torch.bfloat16)
+    mgu, md = (4, g, D, 2 * F), (4, g, F, D)
+
+    def mlp(fn, l):
+        return fn(x, nw[l], gu[0][l], gu[1][l], gu[2][l], dn[0][l], dn[1][l], dn[2][l],
+                  mgu, md, eps=cfg.norm_eps)
+
+    got, want = mlp(k4.fused_mlp, 7), mlp(k4.fused_mlp_plain, 7)
+    torch.cuda.synchronize()
+    err = rel_err(torch, got - x, want - x)
+    k4r = {"rel_err_of_mlp_output": err, "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "tol_rel": 3e-2}
+    if err >= 3e-2 or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"K4 disagrees with its plain version: {k4r}")
+    mlp_w = (D * 2 * F + F * D) / 2 + (D // g) * 2 * F * 3 + (F // g) * D * 3
+    mlp_bytes = mlp_w + 2 * B * D * 2 + D * 2
+    k4r["bound_ms"], k4r["bound_by"] = bound(mlp_bytes, 2 * B * (D * 2 * F + F * D))
+    k4r["ms"], k4r["timing"] = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp, l) for l in range(L)],
+                                       mlp_w)
+    k4r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp_plain, l) for l in range(L)],
+                                 mlp_w)
+    k4r["library_ms"] = None
+    detail["fused_mlp"] = k4r
+    emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
+
+    # one entry per kernel, at the work of one decode step (B = 8):
+    # K1 = L x (qkv + o) + lm_head, K2/K3/K4 = L x one layer
+    def step_sum(key):
+        r = k1_rows
+        return L * (r["qkv_decode"][key] + r["o_decode"][key]) + r["lm_head_decode"][key]
+
+    k1_bound = step_sum("bound_ms")
+    ctx["kernel_rows"] = {
+        "dequant_matmul": {
+            "route": "cuda", "source": "qtpu_torch/csrc/dequant_matmul.cu",
+            "replaces": "qtpu/kernels/pallas_dequant_matmul.py:385",
+            "max_abs_err": max(r["max_abs_err"] for r in k1_rows.values()),
+            "ms": step_sum("ms"), "plain_ms": step_sum("plain_ms"), "bound_ms": k1_bound,
+            "bound_by": "bytes", "library_ms": step_sum("library_ms"),
+        },
+        "cache_band_write": {
+            "route": "cuda", "source": "qtpu_torch/csrc/kv_attention.cu",
+            "replaces": "qtpu/kernels/pallas_kv_attention.py:1067",
+            "max_abs_err": float(code_diff),
+            "ms": L * k2["ms"], "plain_ms": L * k2["plain_ms"], "bound_ms": L * k2["bound_ms"],
+            "bound_by": k2["bound_by"], "library_ms": None,
+        },
+        "decode_attention": {
+            "route": "cuda", "source": "qtpu_torch/csrc/kv_attention.cu",
+            "replaces": "qtpu/kernels/pallas_kv_attention.py:1147",
+            "max_abs_err": max(k3[w]["max_abs_err"] for w in ("window0", "window64")),
+            "ms": L * k3["ms"], "plain_ms": L * k3["plain_ms"], "bound_ms": L * k3["bound_ms"],
+            "bound_by": k3["bound_by"], "library_ms": L * k3["library_ms"],
+        },
+        "fused_mlp": {
+            "route": "cuda", "source": "qtpu_torch/csrc/fused_mlp.cu",
+            "replaces": "qtpu/kernels/pallas_fused_mlp.py:221",
+            "max_abs_err": k4r["max_abs_err"],
+            "ms": L * k4r["ms"], "plain_ms": L * k4r["plain_ms"], "bound_ms": L * k4r["bound_ms"],
+            "bound_by": k4r["bound_by"], "library_ms": None,
+        },
+    }
+
+
+def phase_e2e(torch, ctx):
+    """2 layers at TinyLlama widths: the card (kernels) against the CPU
+    (plain versions), same packed weights, prefill + 4 decode steps."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    cfg = TINYLLAMA_1_1B.replace(num_layers=2)
+    params = llama.init_params(cfg, seed=7, device="cpu")
+    params, qmeta = pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 128})
+    params, qmeta = fuse_packed_sites(params, qmeta)
+    B, T, steps = 4, 32, 4
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(3))
+
+    def run(dev, feed=None):
+        p = map_tree(params, lambda t: t.to(dev))
+        cache = init_cache(cfg, B, T + steps + 8, quantized=True, device=dev)
+        logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta)
+        outs = [logits.float().cpu()]
+        toks = []
+        posn = torch.full((B,), T, dtype=torch.int32, device=dev)
+        for i in range(steps):
+            tok = torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[i].to(dev)
+            toks.append(tok.cpu())
+            logits, cache = decode_step(p, tok, posn, cache, cfg, qmeta)
+            outs.append(logits.float().cpu())
+            posn = posn + 1
+        return outs, toks
+
+    # teacher-forced: the card is fed the CPU run's greedy tokens
+    cpu, toks = run("cpu")
+    gpu, _ = run("cuda", toks)
+    errs = [rel_err(torch, a, b) for a, b in zip(gpu, cpu)]
+    top1 = [float((a.argmax(-1) == b.argmax(-1)).float().mean()) for a, b in zip(gpu, cpu)]
+    res = {"phase": "e2e", "layers": 2, "B": B, "prompt": T, "decode_steps": steps,
+           "rel_err_per_step": errs, "top1_agree": top1, "tol_rel": 3e-2}
+    emit(res)
+    if max(errs) >= 3e-2:
+        raise AssertionError(f"card and CPU logits differ: {res}")
+
+
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
+
+
+def _tinyllama_w4(torch, ctx):
+    """TinyLlama-1.1B, all 22 layers, random per-layer weights drawn on the
+    card from seed 0, packed RTN W4 g128 with fused qkv/gateup sites; built
+    once per run and kept in ctx for the phases that follow."""
+    if "tinyllama_w4" not in ctx:
+        from qtpu_torch.models import llama
+        from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+        from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+
+        params = llama.init_params(cfg, seed=0, device="cuda")
+        params, qmeta = pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 128})
+        ctx["tinyllama_w4"] = fuse_packed_sites(params, qmeta)
+        torch.cuda.synchronize()
+    return ctx["tinyllama_w4"]
+
+
+def phase_serve(torch, ctx):
+    import numpy as np
+
+    from qtpu_torch.kernels import dequant_matmul as k1
+    from qtpu_torch.kernels import fused_mlp as k4
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.serve.batching import ContinuousBatcher
+    from qtpu_torch.serve.decode import decode_multi
+
+    t0 = time.perf_counter()
+    params, qmeta = _tinyllama_w4(torch, ctx)
+    setup_s = time.perf_counter() - t0
+    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                            kv_dtype="int8", seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    for _ in range(B):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
+    wrappers = (k1.quantized_matmul, k23.cache_band_write, k23.decode_attention, k4.fused_mlp)
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in wrappers}
+    m = eng.metrics()
+    L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
+    expect = {
+        "quantized_matmul": (2 * L + 1) * steps + (4 * L + 1) * pre,
+        "cache_band_write": L * steps,
+        "decode_attention": L * steps,
+        "fused_mlp": L * steps,
+    }
+    tokens = sum(len(r.output) for r in done)
+    res = {"phase": "serve", "model": "TinyLlama-1.1B", "layers": L, "method": "rtn W4 g128",
+           "kv": "int8", "requests": len(done), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "setup_s": setup_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "decode_steps": steps, "prefill_calls": pre, "launches": counts,
+           "expected_launches": expect, "card": ctx["smi"], "metrics": m}
+    emit(res)
+    if len(done) != B:
+        raise AssertionError(f"{len(done)} of {B} requests finished")
+    for r in done:
+        if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
+    if counts != expect:
+        raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    if steps == 0 or any(c == 0 for c in counts.values()):
+        raise AssertionError("a kernel of the main path never launched")
+    ctx["launches"] = counts
+
+    # steady decode after the run: blocks of 16 greedy steps, all slots
+    # live, host wall time per step (after a synchronize)
+    tok = torch.zeros(B, dtype=torch.int32, device="cuda")
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_multi(params, tok, pos, eng.cache, None, None, cfg, 16, qmeta)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) / 16 * 1e3)
+    emit({"phase": "serve_decode", "batch": B, "ms_per_step": step_ms,
+          "tokens_per_s": [B * 1e3 / t for t in step_ms], "card": ctx["smi"]})
+
+
+def _profiled(torch, fn, n):
+    """torch.profiler over fn() (n steps of work, ending in a synchronize):
+    host wall ms per step, device kernel ms per step, the device busy share
+    (kernel time over wall time) and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # kernels only: an operator's row repeats the device time of its kernels
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms_per_step": wall_us / n / 1e3, "device_ms_per_step": device_us / n / 1e3,
+            "device_busy_share": device_us / wall_us if device_us else None,
+            "top": [{"name": k[:80], "ms_per_step": t / n / 1e3, "calls_per_step": c / n}
+                    for k, t, c in rows[:15]]}
+
+
+def phase_profile(torch, ctx):
+    """Where the serve cell's time goes: torch.profiler over one warm
+    prefill of the 8 prompts and over one 16-step decode block."""
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.serve.decode import decode_multi, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    params, qmeta = _tinyllama_w4(torch, ctx)
+    B, P = SERVE_B, SERVE_PROMPT
+    cache = init_cache(cfg, B, P + SERVE_NEW + 16, quantized=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    logits, cache = prefill(params, ids, cache, cfg, qmeta)  # warm
+    plain_wall_ms = []  # host wall time of a warm prefill without the profiler
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, ids, cache, cfg, qmeta)
+        torch.cuda.synchronize()
+        plain_wall_ms.append((time.perf_counter() - t0) * 1e3)
+    pre = _profiled(torch, lambda: prefill(params, ids, cache, cfg, qmeta), 1)
+    emit({"phase": "profile", "what": "prefill", "batch": B, "prompt": P, **pre,
+          "unprofiled_wall_ms": plain_wall_ms, "card": ctx["smi"]})
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    decode_multi(params, tok, pos, cache, None, None, cfg, 4, qmeta)  # warm
+    n = 16
+    dec = _profiled(torch, lambda: decode_multi(params, tok, pos, cache, None, None, cfg, n,
+                                                qmeta), n)
+    emit({"phase": "profile", "what": "decode", "batch": B, "decode_steps": n, **dec,
+          "card": ctx["smi"]})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated, from {PHASES}")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    for p in phases:
+        if p not in PHASES:
+            ap.error(f"unknown phase {p}; phases: {PHASES}")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 2
+    try:
+        import qtpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the qtpu_torch package is missing ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = {}
+    phase_device(torch, ctx)
+    t_all = time.perf_counter()
+    for p in phases:
+        if p == "device":
+            continue
+        t0 = time.perf_counter()
+        globals()[f"phase_{p}"](torch, ctx)
+        emit({"phase_done": p, "seconds": time.perf_counter() - t0})
+    emit({"phases": phases, "seconds": time.perf_counter() - t_all})
+    print(ctx["smi"], flush=True)
+    if "kernel_rows" in ctx:
+        launches = ctx.get("launches", {})
+        wrapper_of = {"dequant_matmul": "quantized_matmul", "cache_band_write": "cache_band_write",
+                      "decode_attention": "decode_attention", "fused_mlp": "fused_mlp"}
+        emit({"kernels": [
+            {"name": name, "launches": launches.get(wrapper_of[name], 0), **row}
+            for name, row in ctx["kernel_rows"].items()
+        ]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": ctx["name"], "count": ctx["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

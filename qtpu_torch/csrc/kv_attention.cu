@@ -1,0 +1,229 @@
+// K2 and K3: the int8 KV cache of the decode step.
+//
+// K2 (qtpu_kv_band_write) replaces pallas_cache_band_write_stacked
+// (qtpu/kernels/pallas_kv_attention.py:1067): quantize this step's k and v
+// rows per (sequence, kv-head) to symmetric int8 with an f32 scale
+// absmax/127 and write them in place at `pos` into one layer of the stacked
+// [L, B, KV, S, hd] cache. Rows with pos outside [0, S) write nothing.
+// Bound: a few bytes per (b, head); launch latency dominates. Design: one
+// warp per (b, head) reduces the absmax with shuffles and writes hd bytes
+// and one scale; nothing else of the cache is touched (the TPU kernel moved
+// an 8-row band because its DMA unit is a tile).
+//
+// K3 (qtpu_decode_attention) replaces pallas_decode_attention_stacked
+// (pallas_kv_attention.py:1147): GQA decode attention of one query row per
+// head over layer l of the int8 cache, scales folded in as the TPU kernel
+// does (scores = (q . k_int) * ks / sqrt(hd); out = sum (p * vs) v_int).
+// Bound: the bytes of the cache rows up to pos (int8 k and v plus the f32
+// scales). Design: one block per (b, kv-head) serves its G query heads (one
+// warp each), so every cache byte is read once; S is walked in 128-row
+// chunks staged in shared memory with 16-byte loads and an online softmax,
+// so shared memory does not bound S. Rows with pos >= S (inactive batch
+// slots) read rows [0, S) only.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kChunk = 128;  // cache rows per staged chunk
+// Shared memory is 4 * (G*hd + kChunk*(2*hd + 1) + 2*kChunk + G*kChunk) bytes:
+// 161 KB at hd = 128 and G = 32, within the card's 227 KB; hd = 256 would not fit.
+constexpr int kMaxHd = 128;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ void quantize_row(const __nv_bfloat16* src, int8_t* dst, float* scale_out,
+                             int hd, int lane) {
+  float amax = 0.f;
+  for (int i = lane; i < hd; i += 32) amax = fmaxf(amax, fabsf(__bfloat162float(src[i])));
+  amax = warp_max(amax);
+  const float scale = fmaxf(amax / 127.0f, 1e-8f);
+  for (int i = lane; i < hd; i += 32) {
+    float q = rintf(__bfloat162float(src[i]) / scale);  // round half to even
+    q = fminf(fmaxf(q, -127.f), 127.f);
+    dst[i] = (int8_t)q;
+  }
+  if (lane == 0) *scale_out = scale;
+}
+
+// grid B * KV, block 32
+__global__ void band_write_kernel(const __nv_bfloat16* __restrict__ k_new,
+                                  const __nv_bfloat16* __restrict__ v_new,
+                                  int8_t* k_c, int8_t* v_c, float* ks_c, float* vs_c,
+                                  const int* __restrict__ pos, int KV, int S, int hd) {
+  const int b = blockIdx.x / KV;
+  const int h = blockIdx.x - b * KV;
+  const int p = pos[b];
+  if (p < 0 || p >= S) return;
+  const size_t src = ((size_t)b * KV + h) * hd;
+  const size_t row = ((size_t)b * KV + h) * S + p;
+  quantize_row(k_new + src, k_c + row * hd, ks_c + row, hd, threadIdx.x);
+  quantize_row(v_new + src, v_c + row * hd, vs_c + row, hd, threadIdx.x);
+}
+
+// grid B * KV, block G * 32
+__global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const int8_t* __restrict__ k_c,
+                                   const int8_t* __restrict__ v_c,
+                                   const float* __restrict__ ks_c,
+                                   const float* __restrict__ vs_c,
+                                   const int* __restrict__ pos,
+                                   __nv_bfloat16* __restrict__ out, int KV, int G, int S,
+                                   int hd, int window, float sm_scale) {
+  extern __shared__ float sm[];
+  const int HD1 = hd + 1;  // padded K rows: lanes reading one column hit distinct banks
+  float* qs = sm;                         // [G][hd]
+  float* Ks = qs + G * hd;                // [kChunk][hd + 1]
+  float* Vs = Ks + kChunk * HD1;          // [kChunk][hd]
+  float* kss = Vs + kChunk * hd;          // [kChunk]
+  float* vss = kss + kChunk;              // [kChunk]
+  float* pv = vss + kChunk;               // [G][kChunk]
+
+  const int b = blockIdx.x / KV;
+  const int kvh = blockIdx.x - b * KV;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int g = tid / 32;
+  const int lane = tid % 32;
+  const int H = KV * G;
+  const size_t qoff = ((size_t)b * H + (size_t)kvh * G) * hd;
+  for (int i = tid; i < G * hd; i += nthr) qs[i] = __bfloat162float(q[qoff + i]);
+
+  const int p = pos[b];
+  const int hi = min(p, S - 1);
+  const int lo = window > 0 ? max(0, p - window + 1) : 0;
+  const size_t row0 = ((size_t)b * KV + kvh) * S;  // first row of this (b, head)
+
+  constexpr int kPer = kMaxHd / 32;
+  float o[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) o[i] = 0.f;
+  float m = -INFINITY;
+  float l = 0.f;
+
+  for (int s0 = lo; s0 <= hi; s0 += kChunk) {
+    const int n = min(kChunk, hi - s0 + 1);
+    __syncthreads();  // the previous chunk (and qs on the first pass) is settled
+    // 16-byte loads: the chunk's rows are contiguous, hd % 32 == 0
+    const int4* ksrc = reinterpret_cast<const int4*>(k_c + (row0 + s0) * hd);
+    const int4* vsrc = reinterpret_cast<const int4*>(v_c + (row0 + s0) * hd);
+    for (int i = tid; i < n * hd / 16; i += nthr) {
+      const int4 kw = __ldg(ksrc + i);
+      const int4 vw = __ldg(vsrc + i);
+      const int8_t* kb = reinterpret_cast<const int8_t*>(&kw);
+      const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
+      const int s = (16 * i) / hd;
+      const int d = 16 * i - s * hd;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        Ks[s * HD1 + d + t] = (float)kb[t];
+        Vs[s * hd + d + t] = (float)vb[t];
+      }
+    }
+    for (int i = tid; i < n; i += nthr) {
+      kss[i] = ks_c[row0 + s0 + i];
+      vss[i] = vs_c[row0 + s0 + i];
+    }
+    __syncthreads();
+    float sc[kChunk / 32];
+    float cmax = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < kChunk / 32; ++jj) {
+      const int s = lane + 32 * jj;
+      float v = -INFINITY;
+      if (s < n) {
+        float dot = 0.f;
+        for (int d = 0; d < hd; ++d) dot = fmaf(qs[g * hd + d], Ks[s * HD1 + d], dot);
+        v = dot * kss[s] * sm_scale;
+      }
+      sc[jj] = v;
+      cmax = fmaxf(cmax, v);
+    }
+    cmax = warp_max(cmax);
+    const float mnew = fmaxf(m, cmax);
+    const float alpha = expf(m - mnew);  // 0 on the first chunk
+    float psum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kChunk / 32; ++jj) {
+      const int s = lane + 32 * jj;
+      if (s < n) {
+        const float e = expf(sc[jj] - mnew);
+        psum += e;
+        pv[g * kChunk + s] = e * vss[s];
+      }
+    }
+    psum = warp_sum(psum);
+    l = l * alpha + psum;
+    m = mnew;
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) o[i] *= alpha;
+    for (int s = 0; s < n; ++s) {
+      const float w = pv[g * kChunk + s];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int d = lane + 32 * i;
+        if (d < hd) o[i] = fmaf(w, Vs[s * hd + d], o[i]);
+      }
+    }
+  }
+  const float inv = l > 0.f ? 1.0f / l : 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) out[qoff + (size_t)g * hd + d] = __float2bfloat16(o[i] * inv);
+  }
+}
+
+}  // namespace
+
+// k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer [B, KV, S, hd] int8;
+// ks_c/vs_c [B, KV, S] f32; pos [B] int32 on the device.
+extern "C" int qtpu_kv_band_write(const void* k_new, const void* v_new, void* k_c,
+                                  void* v_c, void* ks_c, void* vs_c, const void* pos,
+                                  int B, int KV, int S, int hd, void* stream) {
+  if (B <= 0 || KV <= 0 || S <= 0 || hd <= 0) return -1;
+  band_write_kernel<<<B * KV, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
+      static_cast<int8_t*>(k_c), static_cast<int8_t*>(v_c), static_cast<float*>(ks_c),
+      static_cast<float*>(vs_c), static_cast<const int*>(pos), KV, S, hd);
+  return (int)cudaGetLastError();
+}
+
+// q [B, H, hd] bf16 (H = KV * G); cache layer as in qtpu_kv_band_write;
+// out [B, H, hd] bf16. window 0 = full causal.
+extern "C" int qtpu_decode_attention(const void* q, const void* k_c, const void* v_c,
+                                     const void* ks_c, const void* vs_c, const void* pos,
+                                     void* out, int B, int KV, int G, int S, int hd,
+                                     int window, void* stream) {
+  if (B <= 0 || KV <= 0 || G <= 0 || G > 32 || S <= 0 || hd % 32 != 0 || hd > kMaxHd)
+    return -1;
+  static size_t smem_set = 48 * 1024;
+  const size_t smem =
+      sizeof(float) * ((size_t)G * hd + (size_t)kChunk * (2 * hd + 1) + 2 * kChunk +
+                       (size_t)G * kChunk);
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  decode_attn_kernel<<<B * KV, G * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_c),
+      static_cast<const int8_t*>(v_c), static_cast<const float*>(ks_c),
+      static_cast<const float*>(vs_c), static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), KV, G, S, hd, window, 1.0f / sqrtf((float)hd));
+  return (int)cudaGetLastError();
+}

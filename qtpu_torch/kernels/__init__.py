@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels of the port, each with its plain PyTorch
+version and a launch counter (`<wrapper>.launches`):
+
+  K1 dequant_matmul.quantized_matmul   csrc/dequant_matmul.cu
+  K2 kv_attention.cache_band_write     csrc/kv_attention.cu
+  K3 kv_attention.decode_attention     csrc/kv_attention.cu
+  K4 fused_mlp.fused_mlp               csrc/fused_mlp.cu
+
+Modules are imported by their users; nothing here imports triton or builds
+at import time.
+"""

@@ -1,0 +1,122 @@
+"""Build the CUDA kernels of qtpu_torch/csrc at first use and load them.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface and loaded with `ctypes`. The build
+directory is `build/qtpu_torch/` at the root of the checkout; a library's
+file name carries a hash of its sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Several sources build in
+parallel, one `nvcc` process each (`build`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qtpu_torch"
+SOURCES = ("dequant_matmul", "kv_attention", "fused_mlp")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    cands = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for home in cands:
+        p = Path(home) / "bin" / "nvcc"
+        if home and p.is_file():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile the named sources that are not built yet, all at once.
+    Returns {name: {"seconds", "cached", "ptxas"}}; raises with the
+    compiler's output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report, procs = {}, {}
+    for name in names:
+        lib = _lib_path(name)
+        if lib.is_file():
+            report[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, lib, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib, t0) in procs.items():
+        out, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, lib)
+        report[name] = {"seconds": secs, "cached": False, "ptxas": out}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return report
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed.
+    signatures: {C function: argtypes}; every function returns int."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.is_file():
+            build((name,))
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def require(cond: bool, what: str) -> None:
+    """Wrapper-side argument check: raise on what a kernel does not take."""
+    if not cond:
+        raise ValueError(what)
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel's C entry point reported an error."""
+    if rc == -1:
+        raise ValueError(f"{what}: arguments the kernel does not take")
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float

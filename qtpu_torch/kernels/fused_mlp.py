@@ -1,0 +1,103 @@
+"""K4: one call for a whole packed SwiGLU MLP block (csrc/fused_mlp.cu).
+
+y = x + (silu(h @ Wg) * (h @ Wu)) @ Wd, h = rms_norm(x) * norm_w, with gate
+and up taken from the fused gateup site ([Kp, 2F], columns [gate | up]).
+Replaces pallas_fused_mlp_stacked and pallas_fused_mlp
+(qtpu/kernels/pallas_fused_mlp.py:221, :111): a layer of the stacked
+weights is passed as its W[l] view. A CUDA tensor runs the kernel's two
+phases under one call (one launch in the count); a CPU tensor takes the
+plain version, qtpu's composed `_mlp_block` math.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as Fn
+
+from qtpu_torch.kernels import _build
+from qtpu_torch.kernels._build import F, I, P, require
+from qtpu_torch.kernels.dequant_matmul import check_packed, quantized_matmul_plain, split_k
+from qtpu_torch.models.ops import rms_norm
+
+_SIG = {"qtpu_fused_mlp": [P, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, F, P]}
+
+MAX_M = 32
+
+
+def chains(meta_gu, meta_d) -> bool:
+    """Whether a gateup meta (bits, g, K, 2F) and a down meta (bits, g, F, K)
+    form one MLP that K4 takes (W4 or W8)."""
+    if len(meta_gu) != 4 or len(meta_d) != 4:
+        return False
+    bits, group, K, N2 = meta_gu
+    bits_d, group_d, F_, D = meta_d
+    return (
+        bits == bits_d and group == group_d and N2 == 2 * F_ and D == K
+        and bits in (4, 8) and group > 0 and K % group == 0 and F_ % group == 0
+    )
+
+
+def supported(meta_gu, meta_d, gu, dn) -> bool:
+    """Whether K4 takes this pair of packed sites (asymmetric W4/W8 with
+    chained metas); other packings run the composed path on K1."""
+    keys = {"data", "scales", "zeros"}
+    return (
+        meta_gu is not None and meta_d is not None and chains(meta_gu, meta_d)
+        and isinstance(gu, dict) and set(gu.keys()) == keys
+        and isinstance(dn, dict) and set(dn.keys()) == keys
+    )
+
+
+def fused_mlp_plain(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
+                    meta_gu, meta_d, eps=1e-5):
+    F_ = meta_d[2]
+    h = rms_norm(x, norm_w, eps)
+    gu = quantized_matmul_plain(h, gu_data, gu_scales, gu_zeros, meta_gu)
+    gate, up = gu[..., :F_], gu[..., F_:]
+    act = Fn.silu(gate.float()).to(x.dtype) * up
+    return x + quantized_matmul_plain(act, d_data, d_scales, d_zeros, meta_d)
+
+
+def fused_mlp(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
+              meta_gu, meta_d, eps=1e-5):
+    """x [..., K] bf16 with at most 32 rows -> x + MLP(x), same shape."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, norm_w, gu_data, gu_scales, gu_zeros,
+                               d_data, d_scales, d_zeros, meta_gu, meta_d, eps)
+    require(x.is_cuda, f"unsupported device {x.device}")
+    bits, group, K, _ = meta_gu
+    F_ = meta_d[2]
+    require(chains(meta_gu, meta_d) and gu_zeros is not None and d_zeros is not None,
+            f"fused mlp takes chained asymmetric W4/W8 metas, got {meta_gu}, {meta_d}")
+    require(x.dtype == torch.bfloat16 and x.shape[-1] == K and x.is_contiguous(),
+            "x must be contiguous bf16 [..., K]")
+    M = x.numel() // K
+    require(0 < M <= MAX_M, f"fused mlp is decode-only: M={M} > {MAX_M}")
+    require(norm_w.dtype == torch.bfloat16 and tuple(norm_w.shape) == (K,)
+            and norm_w.is_contiguous() and norm_w.device == x.device,
+            "norm_w must be contiguous bf16 [K]")
+    check_packed(gu_data, gu_scales, gu_zeros, meta_gu, x.device)
+    check_packed(d_data, d_scales, d_zeros, meta_d, x.device)
+    require(x.data_ptr() % 8 == 0 and norm_w.data_ptr() % 8 == 0,
+            "x and norm_w must be 8-byte aligned")
+    dev = x.device
+    act = torch.empty(M, F_, dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    per_a, part_a = split_k(dev, M, K, F_, group, nset=2)
+    per_b, part_b = split_k(dev, M, F_, K, group)
+    lib = _build.load("fused_mlp", _SIG)
+    rc = lib.qtpu_fused_mlp(
+        x.data_ptr(), norm_w.data_ptr(),
+        gu_data.data_ptr(), gu_scales.data_ptr(), gu_zeros.data_ptr(),
+        d_data.data_ptr(), d_scales.data_ptr(), d_zeros.data_ptr(),
+        act.data_ptr(), out.data_ptr(),
+        None if part_a is None else part_a.data_ptr(), per_a,
+        None if part_b is None else part_b.data_ptr(), per_b,
+        M, K, F_, bits, group, float(eps), _build.stream_of(x),
+    )
+    _build.check(rc, "fused_mlp")
+    fused_mlp.launches += 1
+    return out
+
+
+fused_mlp.launches = 0

@@ -1,0 +1,174 @@
+"""Llama-family decoder for serving (port of qtpu/models/llama.py:
+init_params and forward_with_cache).
+
+Param layout as in qtpu, all layers stacked on a leading axis, linears
+[in, out]:
+  embed [V, D]; layers/attn_norm, layers/mlp_norm [L, D]
+  layers/q_proj {"w": [L, D, H*hd]} ... or packed / fused sites
+  (qkv_proj, gateup_proj; qtpu_torch.quant.apply)
+  final_norm [D]; lm_head {"w": [D, V]}
+
+One forward path: a Python loop over layers on zero-copy W[l] views, the
+KV cache updated in place. A decode step (T = 1) on an int8 cache runs per
+layer K1 (qkv), RoPE, K2 (cache write), K3 (attention), K1 (o_proj) plus
+the residual, and K4 (the MLP); prefill runs K1 on every packed site with
+plain attention and cache write (in qtpu those are XLA code too). The
+cacheless `forward` of qtpu, which runs the flash-attention kernel, comes
+with the eval slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as Fn
+
+from qtpu_torch.kernels import fused_mlp as _k4
+from qtpu_torch.kernels.kv_attention import (
+    cache_band_write,
+    cache_mask,
+    cached_attention,
+    decode_attention,
+)
+from qtpu_torch.models.config import ModelConfig
+from qtpu_torch.models.ops import apply_rope, linear, rms_norm, rope_tables
+from qtpu_torch.serve.kvcache import KVCache, cache_layer_write
+
+LAYER_SITES = (
+    "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
+)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.bfloat16) -> dict:
+    """Random-normal params (std 0.02), drawn from a torch.Generator on
+    `device`, so every layer of every site gets its own weights."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D, F, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    Q, KV = cfg.q_dim, cfg.kv_dim
+
+    def w(*shape):
+        t = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):  # one f32 slab at a time bounds the peak memory
+            t[i] = (torch.randn(shape[1:], generator=gen, device=device) * 0.02).to(dtype)
+        return t
+
+    params = {
+        "embed": w(V, D),
+        "layers": {
+            "attn_norm": torch.ones((L, D), dtype=dtype, device=device),
+            "mlp_norm": torch.ones((L, D), dtype=dtype, device=device),
+            "q_proj": {"w": w(L, D, Q)},
+            "k_proj": {"w": w(L, D, KV)},
+            "v_proj": {"w": w(L, D, KV)},
+            "o_proj": {"w": w(L, Q, D)},
+            "gate_proj": {"w": w(L, D, F)},
+            "up_proj": {"w": w(L, D, F)},
+            "down_proj": {"w": w(L, F, D)},
+        },
+        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "lm_head": {"w": w(D, V)},
+    }
+    if cfg.attention_bias:  # Qwen2: bias on q/k/v only
+        for site, n in (("q_proj", Q), ("k_proj", KV), ("v_proj", KV)):
+            params["layers"][site]["b"] = w(L, n)
+    return params
+
+
+def _qkv(h, layers, cfg: ModelConfig, qm, l):
+    B, T = h.shape[:2]
+    Q, KV = cfg.q_dim, cfg.kv_dim
+    if "qkv_proj" in layers:
+        qkv = linear(h, layers["qkv_proj"], qm("qkv_proj"), layer=l)
+        q, k, v = torch.split(qkv, [Q, KV, KV], dim=-1)
+    else:
+        q = linear(h, layers["q_proj"], qm("q_proj"), layer=l)
+        k = linear(h, layers["k_proj"], qm("k_proj"), layer=l)
+        v = linear(h, layers["v_proj"], qm("v_proj"), layer=l)
+    return (
+        q.reshape(B, T, cfg.num_heads, cfg.head_dim),
+        k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
+        v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
+    )
+
+
+def _gate_up(h, layers, cfg: ModelConfig, qm, l):
+    if "gateup_proj" in layers:
+        gu = linear(h, layers["gateup_proj"], qm("gateup_proj"), layer=l)
+        F = cfg.intermediate_size
+        return gu[..., :F], gu[..., F:]
+    return (
+        linear(h, layers["gate_proj"], qm("gate_proj"), layer=l),
+        linear(h, layers["up_proj"], qm("up_proj"), layer=l),
+    )
+
+
+def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool):
+    """norm -> SwiGLU -> residual. A decode step with packed fused
+    gateup/down sites that K4 takes runs K4; the rest composes the ops."""
+    gu, dn = layers.get("gateup_proj"), layers.get("down_proj")
+    mgu, md = qm("gateup_proj"), qm("down_proj")
+    if decode and x.shape[0] * x.shape[1] <= _k4.MAX_M and _k4.supported(mgu, md, gu, dn):
+        return _k4.fused_mlp(
+            x, layers["mlp_norm"][l],
+            gu["data"][l], gu["scales"][l], gu["zeros"][l],
+            dn["data"][l], dn["scales"][l], dn["zeros"][l],
+            mgu, md, eps=cfg.norm_eps,
+        )
+    h = rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps)
+    gate, up = _gate_up(h, layers, cfg, qm, l)
+    act = Fn.silu(gate.float()).to(x.dtype) * up
+    return x + linear(act, layers["down_proj"], qm("down_proj"), layer=l)
+
+
+def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,
+                       qmeta=None, slots=None):
+    """Incremental forward for serving: prefill (T = prompt length) and
+    decode (T = 1). input_ids/positions [B, T] (int); writes K/V into
+    `cache` in place at positions[:, 0] and attends over the cache with a
+    per-sequence causal mask. `slots` [B] (int64) names the cache row of
+    each batch row, for a batch that covers only some of the cache's
+    sequences (the batcher's admissions); such a call takes the prefill
+    path at any T. Returns (logits [B, T, V] f32, cache)."""
+    qmeta_d = dict(qmeta) if qmeta is not None else {}
+    qm = qmeta_d.get
+    B, T = input_ids.shape
+    S = cache.max_len
+    L = cache.num_layers
+    H, hd = cfg.num_heads, cfg.head_dim
+    decode = T == 1 and slots is None
+    if decode and input_ids.is_cuda and not cache.quantized:
+        raise NotImplementedError(
+            "decode on a bf16 KV cache needs pallas_decode_attention_write_bf16, "
+            "which is not ported yet: use the int8 cache (--kv int8)"
+        )
+    x = params["embed"][input_ids]
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
+    start = positions[:, 0].to(torch.int32).contiguous()
+    if not (decode and cache.quantized):
+        mask = cache_mask(positions, S, win)
+    layers = params["layers"]
+    for l in range(L):
+        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+        q, k, v = _qkv(h, layers, cfg, qm, l)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin).contiguous()
+        v = v.contiguous()
+        if decode and cache.quantized:
+            cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
+            attn = decode_attention(
+                q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
+                start, l, window=win,
+            ).reshape(B, 1, H * hd)
+        else:
+            cache_layer_write(cache, l, k, v, start, slots)
+            attn = cached_attention(q, cache.layer(l, slots), mask)
+        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
+        x = _mlp_block(x, layers, l, cfg, qm, decode)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    ends = (positions[:, -1] + 1).to(torch.int32)
+    if slots is None:
+        cache.length = torch.maximum(cache.length, ends)
+    else:
+        cache.length[slots] = torch.maximum(cache.length[slots], ends)
+    return logits, cache

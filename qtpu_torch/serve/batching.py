@@ -1,0 +1,292 @@
+"""Continuous batching engine (port of qtpu/serve/batching.py).
+
+A fixed table of `max_batch` sequence slots over one stacked KV cache.
+Requests join mid-flight: their prompt is prefilled into a free slot (in
+chunks of `prefill_chunk` tokens, up to `prefill_parallel` requests per
+prefill call) while the other slots keep decoding in blocks of
+`decode_block` steps; a slot frees on EOS or max_new_tokens. Sampling runs
+on the device, and only the sampled ids of a block are read back.
+
+Invariants per active slot i with request r:
+  r.output    -- tokens emitted so far (the first is sampled from the
+                 prefill logits at the last real prompt position)
+  input token =  r.output[-1], at position prompt_len + len(output) - 1
+Inactive slots decode with pos = S (the cache length), which the cache
+write skips. A prefill call holds only the admitted requests, as many rows
+as there are, padded to the longest remaining chunk; it writes their K/V
+straight into their slots of the live cache.
+
+qtpu's `warmup()` (compiled-program zoo), per-layer cache layout and
+persistent compilation cache have no counterpart here yet.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from qtpu_torch.serve.decode import decode_multi, mixed_sample, prefill_full
+from qtpu_torch.serve.kvcache import init_cache
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray  # [T] int32
+    max_new_tokens: int = 64
+    temperature: float = 0.0
+    output: list = field(default_factory=list)
+    done: bool = False
+    submitted_at: float = 0.0
+    first_token_at: float = 0.0
+    finished_at: float = 0.0
+
+    @property
+    def ttft(self) -> float:
+        """Time to first token."""
+        return self.first_token_at - self.submitted_at
+
+    @property
+    def tokens_per_second(self) -> float:
+        dt = self.finished_at - self.first_token_at
+        return (len(self.output) - 1) / dt if dt > 0 else float("inf")
+
+
+@dataclass
+class _Prefill:
+    """An in-flight chunked prefill: `done` tokens of `req` are in slot
+    `slot`'s cache."""
+
+    req: Request
+    slot: int
+    done: int = 0
+
+
+class ContinuousBatcher:
+    def __init__(
+        self,
+        params,
+        cfg,
+        qmeta=None,
+        max_batch: int = 8,
+        max_seq_len: int = 1024,
+        kv_dtype: str = "bfloat16",
+        eos_token: int | None = None,
+        seed: int = 0,
+        decode_block: int = 16,
+        prefill_chunk: int = 256,
+        prefill_parallel: int | None = None,
+        device="cuda",
+    ):
+        self.params = params
+        self.cfg = cfg
+        self.arch = cfg.arch
+        self.qmeta = qmeta
+        self.max_batch = max_batch
+        self.max_seq_len = max_seq_len
+        self.eos = eos_token
+        self.device = torch.device(device)
+        self.decode_block = max(1, decode_block)
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.prefill_parallel = max(
+            1, max_batch if prefill_parallel is None else prefill_parallel
+        )
+        # decode blocks may overshoot a slot's last token by block-1 steps;
+        # size the cache so those writes stay in range
+        self.cache = init_cache(
+            cfg, max_batch, max_seq_len + self.decode_block,
+            quantized=(kv_dtype == "int8"), device=self.device,
+        )
+        self.slots: list[Request | None] = [None] * max_batch
+        self.queue: list[Request] = []
+        self.finished: list[Request] = []
+        self.prefilling: list[_Prefill] = []
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._uid = 0
+        self.prefill_calls = 0
+        self.decode_steps = 0
+
+    # ----------------------------------------------------------- client API
+    def submit(self, prompt_ids, max_new_tokens: int = 64, temperature: float = 0.0):
+        req = Request(
+            uid=self._uid,
+            prompt=np.asarray(prompt_ids, np.int32).reshape(-1),
+            max_new_tokens=max_new_tokens,
+            temperature=temperature,
+            submitted_at=time.perf_counter(),
+        )
+        self._uid += 1
+        self.queue.append(req)
+        return req
+
+    def run(self, max_steps: int = 100_000):
+        """Drive until queue and slots drain. Returns finished requests."""
+        steps = 0
+        while (
+            self.queue or self.prefilling or any(s is not None for s in self.slots)
+        ) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self.finished
+
+    @property
+    def active(self) -> list[int]:
+        return [i for i in range(self.max_batch) if self.slots[i] is not None]
+
+    # ------------------------------------------------------------ internals
+    def _tensor(self, a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _start_prefill(self):
+        """Admit queued requests into free slots, up to prefill_parallel
+        in-flight prefills."""
+        while self.queue and len(self.prefilling) < self.prefill_parallel:
+            free = next((i for i in range(self.max_batch) if self.slots[i] is None), None)
+            if free is None:
+                return
+            req = self.queue.pop(0)
+            T = len(req.prompt)
+            if T == 0 or T + req.max_new_tokens > self.max_seq_len:
+                req.done = True
+                req.finished_at = time.perf_counter()
+                self.finished.append(req)
+                continue
+            self.slots[free] = req  # reserved; the first token comes with the last chunk
+            self.prefilling.append(_Prefill(req=req, slot=free, done=0))
+
+    def _prefill_chunk_arrays(self):
+        """This step's admission arrays, one row per in-flight prefill:
+        (ids [P, T], starts [P], slots [P], ns tokens consumed per row,
+        first_cols [P], ptemps [P]). T is the longest remaining prompt,
+        capped at prefill_chunk and so that no row runs past the cache end;
+        shorter rows are padded with token 0 at positions that decode
+        overwrites before it reads them."""
+        pfs = self.prefilling
+        T = min(max(len(pf.req.prompt) - pf.done for pf in pfs), self.prefill_chunk,
+                min(self.cache.max_len - pf.done for pf in pfs))
+        P = len(pfs)
+        ids = np.zeros((P, T), np.int32)
+        starts = np.zeros((P,), np.int32)
+        first_cols = np.zeros((P,), np.int32)
+        ptemps = np.zeros((P,), np.float32)
+        ns = []
+        for r, pf in enumerate(pfs):
+            n = min(len(pf.req.prompt) - pf.done, T)
+            ids[r, :n] = pf.req.prompt[pf.done : pf.done + n]
+            starts[r] = pf.done
+            first_cols[r] = n - 1
+            ptemps[r] = pf.req.temperature
+            ns.append(n)
+        slots = np.asarray([pf.slot for pf in pfs], np.int64)
+        return ids, starts, slots, ns, first_cols, ptemps
+
+    def _prefill(self, ids, starts, slots, first_cols, ptemps):
+        """Prefill the admission rows into their slots of the live cache and
+        sample each row's next token."""
+        logits, self.cache = prefill_full(
+            self.params, self._tensor(ids), self.cache, self.cfg, self.qmeta,
+            start=self._tensor(starts), arch=self.arch,
+            slots=self._tensor(slots, torch.int64),
+        )
+        self.prefill_calls += 1
+        cols = self._tensor(first_cols, torch.int64)
+        row_logits = logits[torch.arange(len(slots), device=self.device), cols]
+        temps = self._tensor(ptemps, torch.float32)
+        return mixed_sample(row_logits, temps, self.generator)
+
+    def _apply_prefill_results(self, ns, firsts):
+        """Advance the in-flight admissions by this chunk; requests whose
+        prompt completed take their sampled first token."""
+        still = []
+        now = time.perf_counter()
+        for r, pf in enumerate(self.prefilling):
+            pf.done += ns[r]
+            if pf.done >= len(pf.req.prompt):
+                pf.req.output.append(int(firsts[r]))
+                pf.req.first_token_at = now
+                self._finish_if_done(pf.slot, pf.req)
+            else:
+                still.append(pf)
+        self.prefilling = still
+
+    def _finish_if_done(self, i, req) -> bool:
+        tok = req.output[-1] if req.output else None
+        hit_eos = self.eos is not None and tok == self.eos
+        total = len(req.prompt) + len(req.output)
+        if hit_eos or len(req.output) >= req.max_new_tokens or total >= self.max_seq_len:
+            req.done = True
+            req.finished_at = time.perf_counter()
+            self.finished.append(req)
+            self.slots[i] = None
+            return True
+        return False
+
+    def step(self):
+        """One engine step: admissions (one prefill chunk) and a decode
+        block for the running slots."""
+        self._start_prefill()
+        mid_prefill = {pf.slot for pf in self.prefilling}
+        active = [i for i in self.active if i not in mid_prefill]
+        if not self.prefilling:
+            if active:
+                self._decode_block(active, self.decode_block)
+            return
+        ids, starts, slots, ns, first_cols, ptemps = self._prefill_chunk_arrays()
+        firsts = self._prefill(ids, starts, slots, first_cols, ptemps)
+        toks = self._decode_block_tokens(active, self.decode_block) if active else None
+        self._apply_prefill_results(ns, firsts.cpu().numpy())
+        if active:
+            self._apply_decode_results(active, toks, self.decode_block)
+
+    def _decode_arrays(self, active):
+        S_cap = self.cache.max_len
+        tokens = np.zeros((self.max_batch,), np.int32)
+        pos = np.full((self.max_batch,), S_cap, np.int32)  # inactive: masked
+        temps = np.zeros((self.max_batch,), np.float32)
+        for i in active:
+            req = self.slots[i]
+            tokens[i] = req.output[-1]
+            pos[i] = len(req.prompt) + len(req.output) - 1
+            temps[i] = req.temperature
+        return tokens, pos, temps, bool(np.any(temps > 0.0))
+
+    def _decode_block_tokens(self, active, block):
+        tokens, pos, temps, sampling = self._decode_arrays(active)
+        toks, self.cache = decode_multi(
+            self.params, self._tensor(tokens), self._tensor(pos), self.cache,
+            self._tensor(temps, torch.float32) if sampling else None,
+            self.generator, self.cfg, block, self.qmeta, arch=self.arch,
+        )
+        self.decode_steps += block
+        return toks.cpu().numpy()
+
+    def _apply_decode_results(self, active, toks_np, block):
+        for i in active:
+            req = self.slots[i]
+            for j in range(block):
+                req.output.append(int(toks_np[i, j]))
+                if self._finish_if_done(i, req):
+                    break
+
+    def _decode_block(self, active, block):
+        """Pure-decode step (no admissions pending): one decode block."""
+        self._apply_decode_results(active, self._decode_block_tokens(active, block), block)
+
+    def metrics(self) -> dict:
+        """Aggregate serving metrics over finished requests, and the
+        engine's counts of prefill calls and decode steps."""
+        done = [r for r in self.finished if r.output]
+        out = {"prefill_calls": self.prefill_calls, "decode_steps": self.decode_steps}
+        if not done:
+            return {"requests": 0, **out}
+        multi = [r.tokens_per_second for r in done if len(r.output) > 1]
+        return {
+            "requests": len(done),
+            "total_tokens": sum(len(r.output) for r in done),
+            "mean_ttft_s": float(np.mean([r.ttft for r in done])),
+            "mean_tokens_per_second": float(np.mean(multi)) if multi else 0.0,
+            **out,
+        }

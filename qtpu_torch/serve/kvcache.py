@@ -1,0 +1,116 @@
+"""KV-cache storage: bf16 or int8 (port of qtpu/serve/kvcache.py).
+
+Layout as in qtpu: k/v [L, B, KV, S, hd] (one head's sequence is a
+contiguous [S, hd] tile), and in int8 mode one f32 scale per (layer,
+sequence, kv-head, position), [L, B, KV, S]. The port updates the cache IN
+PLACE (qtpu's functional updates return new arrays); `forward_with_cache`
+returns the same object it was given.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass
+class KVCache:
+    k: torch.Tensor  # [L, B, KV, S, hd] bf16 or int8
+    v: torch.Tensor
+    k_scale: torch.Tensor | None  # [L, B, KV, S] f32 (int8 mode)
+    v_scale: torch.Tensor | None
+    length: torch.Tensor  # [B] int32, tokens filled per sequence
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def num_layers(self) -> int:
+        return self.k.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    def layer(self, l: int, slots=None):
+        """(k, v, k_scale, v_scale) of layer l: views, or with `slots` [B]
+        a copy of those sequence rows."""
+        def sel(c):
+            if c is None:
+                return None
+            return c[l] if slots is None else c[l][slots]
+        return sel(self.k), sel(self.v), sel(self.k_scale), sel(self.v_scale)
+
+
+def init_cache(
+    cfg, batch: int, max_len: int, dtype=torch.bfloat16, quantized: bool = False,
+    device="cuda",
+) -> KVCache:
+    """Zeroed cache; max_len is rounded up to a multiple of 8 (as in qtpu)."""
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    max_len = max_len + (-max_len) % 8
+    shape = (L, batch, KV, max_len, hd)
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if quantized:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            length=length,
+        )
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        k_scale=None,
+        v_scale=None,
+        length=length,
+    )
+
+
+def quantize_kv(x: torch.Tensor):
+    """[..., hd] -> (int8 values, f32 scale over the trailing head dim)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def cache_layer_write(cache: KVCache, l: int, new_k, new_v, start, slots=None) -> None:
+    """Write new keys/values [B, T, KV, hd] into layer l of the cache, in
+    place, at per-sequence positions `start` [B], into cache rows `slots`
+    [B] (default: row b of the batch is row b of the cache). Rows whose
+    start lies outside the cache write nothing (T = 1: start outside
+    [0, S); T > 1: start >= S, and a start that would run past the end is
+    moved back to S - T, as qtpu's dynamic_update_slice clamps it).
+
+    Inactive rows write back what their clamped positions already hold, so
+    the call never reads the mask on the host (no device synchronization)."""
+    if cache.quantized:
+        write_k, sk = quantize_kv(new_k)  # [B, T, KV, hd], [B, T, KV]
+        write_v, sv = quantize_kv(new_v)
+        pairs = ((cache.k, write_k), (cache.v, write_v),
+                 (cache.k_scale, sk), (cache.v_scale, sv))
+    else:
+        pairs = ((cache.k, new_k.to(cache.k.dtype)), (cache.v, new_v.to(cache.v.dtype)))
+    B, T = new_k.shape[:2]
+    S = cache.max_len
+    start = start.to(torch.int64)
+    active = start < S
+    if T == 1:
+        active &= start >= 0
+    s_eff = torch.clamp(start, 0, max(S - T, 0))
+    idx = s_eff[:, None] + torch.arange(T, device=start.device)[None, :]  # [B, T]
+    rows = torch.arange(B, device=start.device) if slots is None else slots.to(torch.int64)
+    r2 = rows[:, None]
+    for store, new in pairs:
+        layer = store[l]
+        old = layer[r2, :, idx]  # [B, T, KV(, hd)]
+        keep = active.view(B, *([1] * (new.dim() - 1)))
+        layer[r2, :, idx] = torch.where(keep, new, old)
