@@ -8,11 +8,12 @@ Phases, each printing one JSON line:
   device   the card's name, count, and nvidia-smi's name and power limit
   build    nvcc builds every kernel source (in parallel), with the -Xptxas -v
            register and shared-memory report
-  kernels  K1-K4 against their plain PyTorch versions at the shapes of the
-           main path (TinyLlama-1.1B, batch 8, prompt 128, W4 g128), with
-           times: kernel, plain version, one PyTorch library call where one
-           computes the same function, and the bound from bytes and
-           operations at 3.35 TB/s and 989 TFLOP/s (H100 SXM data sheet)
+  kernels  K1-K5 against their plain PyTorch versions at the shapes of the
+           main paths (TinyLlama-1.1B, batch 8, prompt 128, W4 g128; K5 at
+           one layer of an eval block of 2048 tokens), with times: kernel,
+           plain version, one PyTorch library call where one computes the
+           same function, and the bound from bytes and operations at
+           3.35 TB/s and 989 TFLOP/s (H100 SXM data sheet)
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions)
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
@@ -25,6 +26,13 @@ Phases, each printing one JSON line:
            of the serve cell: host and device time per step, the device busy
            share and the kernels that take the device time; and the host wall
            time of three warm prefills without the profiler
+  eval     the quantize-and-evaluate path at full width through
+           `python -m qtpu_torch.bench` (its main() in this process):
+           TinyLlama-1.1B, the byte-level fixture (4 blocks of 2048), raw,
+           RTN W4 g128 fake-quant and packed perplexity, sizes and the
+           serving pseudo-method, with every launch count checked; then the
+           time per warm eval block, a profiler split of a packed block, and
+           a 2-layer eval on the card against the CPU
 
 The last lines are the nvidia-smi line, the `kernels` JSON line and
 {"ok": true, "device": {...}}. Any failed check raises, and the script then
@@ -40,8 +48,9 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "e2e", "serve", "profile")
+PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "eval")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 L2_BYTES = 50 * 1024 * 1024
@@ -328,6 +337,8 @@ def phase_kernels(torch, ctx):
                                  mlp_w)
     k4r["library_ms"] = None
     detail["fused_mlp"] = k4r
+    k5r = _k5_rows(torch, gen, dev, cfg)
+    detail["flash_attention"] = k5r
     emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
 
     # one entry per kernel, at the work of one decode step (B = 8):
@@ -366,7 +377,68 @@ def phase_kernels(torch, ctx):
             "ms": L * k4r["ms"], "plain_ms": L * k4r["plain_ms"], "bound_ms": L * k4r["bound_ms"],
             "bound_by": k4r["bound_by"], "library_ms": None,
         },
+        # K5 at the work of one eval block: L calls at the eval shape
+        "flash_attention": {
+            "route": "cuda", "source": "qtpu_torch/csrc/flash_attention.cu",
+            "replaces": "qtpu/kernels/pallas_flash_attention.py:86",
+            "max_abs_err": max(r["max_abs_err"] for r in k5r["cases"].values()),
+            "ms": L * k5r["ms"], "plain_ms": L * k5r["plain_ms"], "bound_ms": L * k5r["bound_ms"],
+            "bound_by": k5r["bound_by"], "library_ms": L * k5r["library_ms"],
+        },
     }
+
+
+EVAL_BLOCK = 2048  # test_block_size of the eval phase
+
+
+def _k5_rows(torch, gen, dev, cfg):
+    """K5 against its plain version at the eval shape (one layer of a
+    TinyLlama eval block: B 1, H 32, KV 4, S 2048, hd 64) without and with a
+    window of 256, at a ragged S = 1000 and at hd 128 (H 32, KV 8); then
+    times at the eval shape: the kernel, the plain version, SDPA (the
+    yardstick, never on the path) and the bound from this run's shapes."""
+    from qtpu_torch.kernels import flash_attention as k5
+
+    def qkv(H, KV, S, hd):
+        q = (torch.randn(1, H, S, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        k = (torch.randn(1, KV, S, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        v = torch.randn(1, KV, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+        return q, k, v
+
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cases = {}
+    for name, (h, kv, S, d, window) in {
+        "eval_shape": (H, KV, EVAL_BLOCK, hd, 0),
+        "window256": (H, KV, EVAL_BLOCK, hd, 256),
+        "ragged_s1000": (H, KV, 1000, hd, 0),
+        "hd128": (32, 8, EVAL_BLOCK, 128, 0),
+    }.items():
+        q, k, v = qkv(h, kv, S, d)
+        got = k5.flash_attention(q, k, v, window)
+        want = k5.flash_attention_plain(q, k, v, window)
+        torch.cuda.synchronize()
+        err = rel_err(torch, got, want)
+        cases[name] = {"H": h, "KV": kv, "S": S, "hd": d, "window": window, "rel_err": err,
+                       "max_abs_err": float((got.float() - want.float()).abs().max()),
+                       "tol_rel": 2e-2}
+        if err >= 2e-2 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K5 disagrees with its plain version: {cases[name]}")
+    S = EVAL_BLOCK
+    io_bytes = 2 * (2 * H * S * hd + 2 * KV * S * hd)  # q, o and k, v in bf16
+    pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
+    row = {"cases": cases}
+    row["bound_ms"], row["bound_by"] = bound(io_bytes, 4 * H * hd * pairs)
+    n = max(1, min(8, math.ceil(2 * L2_BYTES / io_bytes)))
+    sets = [qkv(H, KV, S, hd) for _ in range(n)]
+    row["ms"], row["timing"] = cuda_ms(
+        torch, [lambda s=s: k5.flash_attention(*s, 0) for s in sets], io_bytes)
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda s=s: k5.flash_attention_plain(*s, 0) for s in sets], io_bytes)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda s=s: sdpa(*s, is_causal=True, enable_gqa=True) for s in sets], io_bytes)
+    row["library_call"] = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    return row
 
 
 def phase_e2e(torch, ctx):
@@ -503,10 +575,11 @@ def phase_serve(torch, ctx):
           "tokens_per_s": [B * 1e3 / t for t in step_ms], "card": ctx["smi"]})
 
 
-def _profiled(torch, fn, n):
+def _profiled(torch, fn, n, classify=None):
     """torch.profiler over fn() (n steps of work, ending in a synchronize):
     host wall ms per step, device kernel ms per step, the device busy share
-    (kernel time over wall time) and the top kernels by device time."""
+    (kernel time over wall time) and the top kernels by device time; with
+    `classify` (kernel name -> kind) also the device ms per step by kind."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -520,10 +593,16 @@ def _profiled(torch, fn, n):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    return {"wall_ms_per_step": wall_us / n / 1e3, "device_ms_per_step": device_us / n / 1e3,
-            "device_busy_share": device_us / wall_us if device_us else None,
-            "top": [{"name": k[:80], "ms_per_step": t / n / 1e3, "calls_per_step": c / n}
-                    for k, t, c in rows[:15]]}
+    res = {"wall_ms_per_step": wall_us / n / 1e3, "device_ms_per_step": device_us / n / 1e3,
+           "device_busy_share": device_us / wall_us if device_us else None,
+           "top": [{"name": k[:80], "ms_per_step": t / n / 1e3, "calls_per_step": c / n}
+                   for k, t, c in rows[:15]]}
+    if classify is not None:
+        split = {}
+        for k, t, _ in rows:
+            split[classify(k)] = split.get(classify(k), 0.0) + t / n / 1e3
+        res["device_ms_by_kind"] = split
+    return res
 
 
 def phase_profile(torch, ctx):
@@ -559,6 +638,156 @@ def phase_profile(torch, ctx):
           "card": ctx["smi"]})
 
 
+FIXTURE_DIR = Path(__file__).resolve().parent / "fixtures" / "public_bytes"
+EVAL_BLOCKS = 4
+EVAL_MCFG = {"w_bit": 4, "q_group_size": 128}
+
+
+def _kind_of_kernel(name: str) -> str:
+    """The kind of a profiled kernel in the packed eval block's split."""
+    low = name.lower()
+    if "flash_attn_kernel" in name:
+        return "K5 flash_attention"
+    if "dq_" in name:
+        return "K1 dequant_matmul"
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas")):
+        return "dense GEMM"
+    return "rest"
+
+
+def phase_eval(torch, ctx):
+    """The quantize-and-evaluate path at full width through its normal entry
+    point, `python -m qtpu_torch.bench` (its main() in this process):
+    TinyLlama-1.1B (22 layers, random weights from seed 0), the committed
+    byte-level fixture, 4 test blocks of 2048 tokens, RTN W4 g128 fake-quant
+    and packed eval, and the serving pseudo-method. Checks the perplexities,
+    the size accounting and every kernel's launch count; then the time per
+    warm eval block of raw, fake-quant and packed weights, a profiler split
+    of one warm packed block, and a 2-layer eval on the card against the
+    CPU (plain versions)."""
+    import tempfile
+
+    import numpy as np
+
+    from qtpu_torch.bench import runner
+    from qtpu_torch.bench.__main__ import main as bench_main
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.data.fixture import load_fixture_test
+    from qtpu_torch.eval import evaluate_perplexity
+    from qtpu_torch.kernels import dequant_matmul as k1
+    from qtpu_torch.kernels import flash_attention as k5
+    from qtpu_torch.kernels import fused_mlp as k4
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model, quantize_model
+
+    fixture = f"fixture:{FIXTURE_DIR}"
+    config = {
+        "model_name": "tinyllama-random", "quantization_methods": ["rtn"],
+        "calibration_dataset": fixture, "n_calibration_samples": 4,
+        "calibration_block_size": 512,
+        "test_dataset": fixture, "n_test_samples": EVAL_BLOCKS, "test_block_size": EVAL_BLOCK,
+        "quantization_config": {"rtn": dict(EVAL_MCFG)},
+        "packed_eval": True,
+        "serving": {"benchmark": True, "kv_cache_dtype": "int8", "max_batch_size": 8},
+        "seed": 0, "device": "cuda", "verbose": True,
+    }
+    wrappers = {"dequant_matmul": k1.quantized_matmul, "cache_band_write": k23.cache_band_write,
+                "decode_attention": k23.decode_attention, "fused_mlp": k4.fused_mlp,
+                "flash_attention": k5.flash_attention}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, out_path = Path(tmp) / "config.json", Path(tmp) / "results.json"
+        cfg_path.write_text(json.dumps(config))
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = bench_main([str(cfg_path), "--out", str(out_path)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        saved = json.loads(out_path.read_text())
+
+    L, nb = cfg.num_layers, EVAL_BLOCKS
+    runs = 2  # benchmark_serving: a warm run, then the timed run
+    steps = runner.SERVE_WARM_STEPS + runner.SERVE_STEPS
+    expect = {
+        "dequant_matmul": (4 * L + 1) * nb + runs * (4 * L + 1) + steps * (2 * L + 1),
+        "cache_band_write": steps * L, "decode_attention": steps * L, "fused_mlp": steps * L,
+        "flash_attention": 3 * nb * L,  # raw, fake-quant and packed evals
+    }
+    res = saved["results"]
+    raw, rt, sv = res.get("raw", {}), res.get("rtn", {}), res.get("serving", {})
+    ppl = {"raw": raw.get("perplexity"), "rtn": rt.get("perplexity"),
+           "packed": rt.get("packed_perplexity")}
+    out = {"phase": "eval", "model": "TinyLlama-1.1B", "layers": L, "blocks": nb,
+           "block_size": EVAL_BLOCK, "method": "rtn W4 g128", "rc": rc, "wall_s": wall,
+           "perplexity": ppl, "model_size_mb": rt.get("model_size_mb"),
+           "bits_per_byte": rt.get("bits_per_byte"),
+           "runtime_s": {k: v.get("runtime_seconds") for k, v in res.items()},
+           "serving_tokens_per_s": sv.get("tokens_per_second"),
+           "errors": {k: v.get("error") or v.get("packed_error") for k, v in res.items()},
+           "peak_mem_gib": peak_gib, "launches": counts, "expected_launches": expect,
+           "environment": saved.get("environment"), "card": ctx["smi"]}
+    emit(out)
+    if rc != 0 or any(out["errors"].values()) or set(res) != {"raw", "rtn", "serving"}:
+        raise AssertionError(f"the benchmark run failed: {out['errors']}")
+    if not all(p is not None and math.isfinite(p) for p in ppl.values()):
+        raise AssertionError(f"perplexities not finite: {ppl}")
+    if abs(ppl["packed"] / ppl["rtn"] - 1) >= 1e-2:
+        raise AssertionError(f"packed perplexity not within 1% of fake-quant: {ppl}")
+    if round(out["model_size_mb"], 2) != 68.13 or round(out["bits_per_byte"], 3) != 2.078:
+        raise AssertionError(f"size accounting {out['model_size_mb']} MB, "
+                             f"{out['bits_per_byte']} bits per byte != 68.13 / 2.078")
+    if counts != expect or any(c == 0 for c in counts.values()):
+        raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    if not sv.get("tokens_per_second"):
+        raise AssertionError("the serving pseudo-method measured nothing")
+    ctx["eval_launches"] = counts
+
+    # warm blocks of the same three models, each timed around a synchronize
+    ids = load_fixture_test(str(FIXTURE_DIR))
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    models = {"raw": (params, None), "rtn": (quantize_model(params, "rtn", EVAL_MCFG), None),
+              "packed": fuse_packed_sites(*pack_model(params, "rtn", EVAL_MCFG))}
+    per_block = {}
+    for name, (p, qm) in models.items():
+        evaluate_perplexity(p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_perplexity(p, ids, cfg, n_samples=3, block_size=EVAL_BLOCK, qmeta=qm)
+        per_block[name] = (time.perf_counter() - t0) / 3
+    packed, qmeta = models["packed"]
+    prof = _profiled(torch, lambda: evaluate_perplexity(packed, ids, cfg, n_samples=1,
+                                                        block_size=EVAL_BLOCK, qmeta=qmeta),
+                     1, classify=_kind_of_kernel)
+    del models, params, packed
+    torch.cuda.empty_cache()
+    emit({"phase": "eval_timing", "s_per_block": per_block,
+          "tokens_per_s": {k: EVAL_BLOCK / v for k, v in per_block.items()},
+          "profile_packed_block": prof, "peak_mem_gib_main_run": peak_gib, "card": ctx["smi"]})
+
+    # 2 layers at TinyLlama widths: the card (kernels) against the CPU (plain
+    # versions), one block of the fixture, raw and packed weights
+    cfg2 = cfg.replace(num_layers=2)
+    p2 = llama.init_params(cfg2, seed=7, device="cpu")
+    two = {"raw": (p2, None), "packed": fuse_packed_sites(*pack_model(p2, "rtn", EVAL_MCFG))}
+    ids2 = np.ascontiguousarray(ids[:, :EVAL_BLOCK])
+    cmp = {}
+    for name, (p, qm) in two.items():
+        on_cpu = evaluate_perplexity(p, ids2, cfg2, 1, EVAL_BLOCK, qmeta=qm)
+        on_card = evaluate_perplexity(map_tree(p, lambda t: t.to("cuda")), ids2, cfg2, 1,
+                                      EVAL_BLOCK, qmeta=qm)
+        cmp[name] = {"cpu": on_cpu, "card": on_card, "rel": abs(on_card / on_cpu - 1)}
+    emit({"phase": "eval_e2e", "layers": 2, "block_size": EVAL_BLOCK, "perplexity": cmp,
+          "tol_rel": 1e-2})
+    if not all(c["rel"] < 1e-2 for c in cmp.values()):
+        raise AssertionError(f"card and CPU perplexities differ: {cmp}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -592,11 +821,15 @@ def main(argv=None) -> int:
     emit({"phases": phases, "seconds": time.perf_counter() - t_all})
     print(ctx["smi"], flush=True)
     if "kernel_rows" in ctx:
-        launches = ctx.get("launches", {})
+        # launches: the serve phase's run plus the eval phase's run, each
+        # counted from 0 (K5 runs in eval only)
+        serve = ctx.get("launches", {})
         wrapper_of = {"dequant_matmul": "quantized_matmul", "cache_band_write": "cache_band_write",
-                      "decode_attention": "decode_attention", "fused_mlp": "fused_mlp"}
+                      "decode_attention": "decode_attention", "fused_mlp": "fused_mlp",
+                      "flash_attention": "flash_attention"}
         emit({"kernels": [
-            {"name": name, "launches": launches.get(wrapper_of[name], 0), **row}
+            {"name": name, "launches": serve.get(wrapper_of[name], 0)
+             + ctx.get("eval_launches", {}).get(name, 0), **row}
             for name, row in ctx["kernel_rows"].items()
         ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": ctx["name"], "count": ctx["count"]}})

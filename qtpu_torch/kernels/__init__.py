@@ -5,6 +5,7 @@ version and a launch counter (`<wrapper>.launches`):
   K2 kv_attention.cache_band_write     csrc/kv_attention.cu
   K3 kv_attention.decode_attention     csrc/kv_attention.cu
   K4 fused_mlp.fused_mlp               csrc/fused_mlp.cu
+  K5 flash_attention.flash_attention   csrc/flash_attention.cu
 
 Modules are imported by their users; nothing here imports triton or builds
 at import time.

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qtpu_torch"
-SOURCES = ("dequant_matmul", "kv_attention", "fused_mlp")
+SOURCES = ("dequant_matmul", "kv_attention", "fused_mlp", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -120,3 +120,4 @@ def check(rc: int, what: str) -> None:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L64 = ctypes.c_longlong

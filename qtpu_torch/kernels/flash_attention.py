@@ -1,0 +1,89 @@
+"""K5: causal / sliding-window GQA flash attention (csrc/flash_attention.cu).
+
+`flash_attention` replaces pallas_flash_attention
+(qtpu/kernels/pallas_flash_attention.py:86) at its signature: q [B, H, S,
+hd], k/v [B, KV, S, hd] bf16, window 0 (causal) or > 0 (key k attends to
+query q when q - window < k <= q); returns [B, H, S, hd] in q's dtype. A
+CUDA tensor launches the kernel at any S (the kernel masks its ragged last
+tile); it takes strided views with a contiguous head dim, and its output is
+a [B, H, S, hd] view of a contiguous [B, S, H, hd] tensor, so a caller
+holding [B, S, H, hd] projections passes `.transpose(1, 2)` views and gets
+[B, S, H * hd] back with no copy. Its limits, H % KV == 0 and head_dim 64 or
+128, raise ValueError. A CPU tensor takes `flash_attention_plain`, the f32
+math of the Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from qtpu_torch.kernels import _build
+from qtpu_torch.kernels._build import I, L64, P, require
+
+_SIG = {"qtpu_flash_attention": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P]}
+MASKED = -1e30
+
+
+def attention_mask(S: int, window: int, device) -> torch.Tensor:
+    """[S, S] True where query i attends to key j: j <= i, and j > i -
+    window when window > 0."""
+    i = torch.arange(S, device=device)
+    mask = i[None, :] <= i[:, None]
+    if window > 0:
+        mask &= i[None, :] > i[:, None] - window
+    return mask
+
+
+def flash_attention_plain(q, k, v, window: int = 0):
+    """The kernel's function in f32: q / sqrt(hd), f32 scores, -1e30 for
+    masked keys, softmax, probabilities times v; output in q's dtype."""
+    B, H, S, hd = q.shape
+    rep = H // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    scores = (q.float() / math.sqrt(hd)) @ kf.transpose(-1, -2)
+    scores = scores.masked_fill(~attention_mask(S, window, q.device), MASKED)
+    return (torch.softmax(scores, dim=-1) @ vf).to(q.dtype)
+
+
+def _check(name, t, shape, device):
+    require(t.dtype == torch.bfloat16, f"{name} must be bf16, got {t.dtype}")
+    require(t.dim() == 4 and tuple(t.shape) == shape, f"{name} must be {shape}, got {tuple(t.shape)}")
+    require(t.device == device, f"{name} lies on {t.device}, q on {device}")
+    require(t.stride(3) == 1, f"{name}'s head dim must be contiguous")
+
+
+def flash_attention(q, k, v, window: int = 0):
+    """Causal (window 0) or sliding-window attention, GQA read in place."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window)
+    require(q.is_cuda, f"unsupported device {q.device}")
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    require(KV > 0 and H % KV == 0, f"H={H} must be a multiple of KV={KV}")
+    require(hd in (64, 128), f"head_dim {hd} must be 64 or 128")
+    _check("q", q, (B, H, S, hd), q.device)
+    _check("k", k, (B, KV, S, hd), q.device)
+    _check("v", v, (B, KV, S, hd), q.device)
+    for name, t in (("k", k), ("v", v)):
+        require(all(s % 8 == 0 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0,
+                f"{name} rows must be 16-byte aligned (strides multiples of 8)")
+    require(all(s % 2 == 0 for s in q.stride()[:3]) and q.data_ptr() % 4 == 0,
+            "q rows must be 4-byte aligned (even strides)")
+    out = torch.empty(B, S, H, hd, dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    if S == 0 or B == 0:
+        return out
+    lib = _build.load("flash_attention", _SIG)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    rc = lib.qtpu_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        B, H, KV, S, hd, int(window), _build.stream_of(q),
+    )
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

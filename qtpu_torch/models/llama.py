@@ -1,5 +1,5 @@
-"""Llama-family decoder for serving (port of qtpu/models/llama.py:
-init_params and forward_with_cache).
+"""Llama-family decoder (port of qtpu/models/llama.py: init_params,
+forward and forward_with_cache).
 
 Param layout as in qtpu, all layers stacked on a leading axis, linears
 [in, out]:
@@ -8,13 +8,14 @@ Param layout as in qtpu, all layers stacked on a leading axis, linears
   (qkv_proj, gateup_proj; qtpu_torch.quant.apply)
   final_norm [D]; lm_head {"w": [D, V]}
 
-One forward path: a Python loop over layers on zero-copy W[l] views, the
-KV cache updated in place. A decode step (T = 1) on an int8 cache runs per
-layer K1 (qkv), RoPE, K2 (cache write), K3 (attention), K1 (o_proj) plus
-the residual, and K4 (the MLP); prefill runs K1 on every packed site with
-plain attention and cache write (in qtpu those are XLA code too). The
-cacheless `forward` of qtpu, which runs the flash-attention kernel, comes
-with the eval slice.
+Both forwards are a Python loop over layers on zero-copy W[l] views.
+`forward` (the cacheless full sequence, for perplexity) runs per layer K1
+on every packed site and K5 (flash attention) for the attention.
+`forward_with_cache` updates the KV cache in place: a decode step (T = 1)
+on an int8 cache runs per layer K1 (qkv), RoPE, K2 (cache write), K3
+(attention), K1 (o_proj) plus the residual, and K4 (the MLP); prefill runs
+K1 on every packed site with plain attention and cache write (in qtpu those
+are XLA code too).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from qtpu_torch.kernels.kv_attention import (
     decode_attention,
 )
 from qtpu_torch.models.config import ModelConfig
-from qtpu_torch.models.ops import apply_rope, linear, rms_norm, rope_tables
+from qtpu_torch.models.ops import apply_rope, causal_attention, linear, rms_norm, rope_tables
 from qtpu_torch.serve.kvcache import KVCache, cache_layer_write
 
 LAYER_SITES = (
@@ -40,13 +41,17 @@ LAYER_SITES = (
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.bfloat16) -> dict:
     """Random-normal params (std 0.02), drawn from a torch.Generator on
-    `device`, so every layer of every site gets its own weights."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    `device`, so every layer of every site gets its own weights. On the
+    "meta" device only the shapes are made (for size accounting)."""
+    meta = torch.device(device).type == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     D, F, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
     Q, KV = cfg.q_dim, cfg.kv_dim
 
     def w(*shape):
         t = torch.empty(shape, dtype=dtype, device=device)
+        if meta:
+            return t
         for i in range(shape[0]):  # one f32 slab at a time bounds the peak memory
             t[i] = (torch.randn(shape[1:], generator=gen, device=device) * 0.02).to(dtype)
         return t
@@ -117,6 +122,28 @@ def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool):
     gate, up = _gate_up(h, layers, cfg, qm, l)
     act = Fn.silu(gate.float()).to(x.dtype) * up
     return x + linear(act, layers["down_proj"], qm("down_proj"), layer=l)
+
+
+def forward(params, input_ids, cfg: ModelConfig, qmeta=None):
+    """Full-sequence causal forward: input_ids [B, S] -> logits [B, S, V]
+    f32 (qtpu's `forward` without calibration capture or an attention
+    override). Sliding-window attention applies when the window binds at
+    this S, as in qtpu."""
+    qm = (dict(qmeta) if qmeta is not None else {}).get
+    S = input_ids.shape[1]
+    x = params["embed"][input_ids]
+    cos, sin = rope_tables(torch.arange(S, device=input_ids.device), cfg.head_dim,
+                           cfg.rope_theta)
+    win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
+    layers = params["layers"]
+    for l in range(layers["attn_norm"].shape[0]):
+        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+        q, k, v = _qkv(h, layers, cfg, qm, l)
+        attn = causal_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, window=win)
+        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
+        x = _mlp_block(x, layers, l, cfg, qm, decode=False)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return linear(x, params["lm_head"], qm("lm_head")).float()
 
 
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,

@@ -1,18 +1,22 @@
-"""Shared NN ops: RMSNorm, RoPE and the quantization-aware linear (port of
-qtpu/models/ops.py).
+"""Shared NN ops: RMSNorm, RoPE, full-sequence causal attention and the
+quantization-aware linear (port of qtpu/models/ops.py).
 
 A linear site's params are {"w": dense [K, N]} or packed {"data", "scales",
 "zeros"} (qtpu_torch.core.packing), optionally with a bias "b"; packed sites
 go to the K1 dequant-matmul. The other packed variants of qtpu (input
 "smooth" vectors, GPTQ actorder "perm", POT/APOT "codebook", W8A8 metas)
-belong to later slices of the port and raise here.
+belong to later slices of the port and raise here. `causal_attention`
+runs K5 (flash attention) on CUDA tensors.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from qtpu_torch.kernels.dequant_matmul import quantized_matmul
+from qtpu_torch.kernels.flash_attention import attention_mask, flash_attention
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -38,6 +42,32 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[..., :, None, :]
     s = sin[..., :, None, :]
     return (x.float() * c + rotated.float() * s).to(x.dtype)
+
+
+def causal_attention(q, k, v, window: int = 0):
+    """Full-sequence causal attention with GQA: q [B, S, H, hd], k/v [B, S,
+    KV, hd] -> [B, S, H * hd]; with window > 0 query i sees keys (i -
+    window, i].
+
+    A CUDA tensor runs K5 at any S on `transpose(1, 2)` views (no repeat of
+    the KV heads, no transpose copy, no mask tensor: the kernel masks by
+    position and `window`). A CPU tensor runs qtpu's XLA math (ops.py:147-157):
+    KV heads repeated, f32 scores, -1e30 where the mask is False,
+    probabilities cast to q's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if q.device.type != "cpu":
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window)
+        return out.transpose(1, 2).reshape(B, S, H * hd)
+    mask = attention_mask(S, window, q.device)[None, None]
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(hd)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float()).to(q.dtype)
+    return out.reshape(B, S, H * hd)
 
 
 _LATER = {

@@ -1,1 +1,6 @@
-from qtpu_torch.quant.apply import fuse_packed_sites, pack_model  # noqa: F401
+from qtpu_torch.quant.apply import (  # noqa: F401
+    fold_smooth,
+    fuse_packed_sites,
+    pack_model,
+    quantize_model,
+)

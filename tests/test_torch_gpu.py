@@ -143,3 +143,79 @@ def test_decode_on_bf16_cache_raises(cuda):
     ids = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="pallas_decode_attention_write_bf16"):
         llama.forward_with_cache(params, ids, ids, cache, TINY_TEST)
+
+
+def _bf16_qkv(g, B, H, KV, S, hd, dev):
+    q = (torch.randn(B, H, S, hd, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    k = (torch.randn(B, KV, S, hd, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    v = torch.randn(B, KV, S, hd, generator=g, device=dev).to(torch.bfloat16)
+    return q, k, v
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("S", [1, 77, 256])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_k5_matches_plain(cuda, window, S, hd, G):
+    from qtpu_torch.kernels import flash_attention as k5
+
+    KV = 2
+    q, k, v = _bf16_qkv(_gen(), 2, KV * G, KV, S, hd, cuda)
+    n0 = k5.flash_attention.launches
+    got = k5.flash_attention(q, k, v, window)
+    want = k5.flash_attention_plain(q, k, v, window)
+    want32 = k5.flash_attention_plain(q.float(), k.float(), v.float(), window)
+    torch.cuda.synchronize()
+    assert k5.flash_attention.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _rel(got, want) < 2e-2
+    torch.testing.assert_close(got.float(), want32, rtol=2e-2, atol=2e-2)
+
+
+def test_k5_on_the_views_causal_attention_passes(cuda):
+    """[B, S, H, hd] projections split from one fused qkv output (v is a
+    strided view) give what the CPU path gives."""
+    from qtpu_torch.models.ops import causal_attention
+
+    g = _gen()
+    B, S, H, KV, hd = 2, 300, 8, 2, 64
+    qkv = torch.randn(B, S, (H + 2 * KV) * hd, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = torch.split(qkv, [H * hd, KV * hd, KV * hd], dim=-1)
+    q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
+    got = causal_attention(q.contiguous(), k.contiguous(), v, window=100)
+    want = causal_attention(q.cpu(), k.cpu(), v.cpu(), window=100)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (B, S, H * hd)
+    assert _rel(got.cpu(), want) < 2e-2
+
+
+def test_k5_raises_on_what_it_does_not_take(cuda):
+    from qtpu_torch.kernels import flash_attention as k5
+
+    g = _gen()
+    q, k, v = _bf16_qkv(g, 1, 6, 4, 32, 64, cuda)  # H % KV != 0
+    with pytest.raises(ValueError, match="multiple"):
+        k5.flash_attention(q, k, v)
+    q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 96, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        k5.flash_attention(q, k, v)
+    q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 64, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        k5.flash_attention(q.float(), k, v)
+
+
+def test_forward_on_card_matches_cpu(cuda):
+    """The cacheless forward (K1 on packed fused sites, K5 with the sliding
+    window binding at S = 100 > 8) against the same forward on the CPU."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINY_MISTRAL_TEST as cfg
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+
+    params = llama.init_params(cfg, seed=3, device="cpu")
+    params, qmeta = fuse_packed_sites(*pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 64}))
+    ids = torch.randint(0, cfg.vocab_size, (2, 100), generator=torch.Generator().manual_seed(1))
+    want = llama.forward(params, ids, cfg, qmeta)
+    got = llama.forward(map_tree(params, lambda t: t.to(cuda)), ids.to(cuda), cfg, qmeta)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu(), want) < 3e-2
