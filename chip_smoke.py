@@ -8,12 +8,13 @@ Phases, each printing one JSON line:
   device   the card's name, count, and nvidia-smi's name and power limit
   build    nvcc builds every kernel source (in parallel), with the -Xptxas -v
            register and shared-memory report
-  kernels  K1-K5 against their plain PyTorch versions at the shapes of the
+  kernels  K1-K6 against their plain PyTorch versions at the shapes of the
            main paths (TinyLlama-1.1B, batch 8, prompt 128, W4 g128; K5 at
-           one layer of an eval block of 2048 tokens), with times: kernel,
-           plain version, one PyTorch library call where one computes the
-           same function, and the bound from bytes and operations at
-           3.35 TB/s and 989 TFLOP/s (H100 SXM data sheet)
+           one layer of an eval block of 2048 tokens; K6 at M = 8, 1024 and
+           2048 on every W8A8 site), with times: kernel, plain version, one
+           PyTorch library call where one computes the same function, and
+           the bound from bytes and operations at 3.35 TB/s and 989 TFLOP/s
+           bf16 or 1,979 TOP/s int8 (H100 SXM data sheet)
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions)
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
@@ -33,6 +34,22 @@ Phases, each printing one JSON line:
            serving pseudo-method, with every launch count checked; then the
            time per warm eval block, a profiler split of a packed block, and
            a 2-layer eval on the card against the CPU
+  quant    the calibrated methods at full width through `python -m
+           qtpu_torch.bench` (main() in this process): TinyLlama-1.1B, the
+           fixture's 4 calibration blocks of 512 and 4 test blocks of 2048,
+           AWQ W4 g128, GPTQ W4 g128 with true Hessians, SmoothQuant W8A8
+           (alpha 0.5), packed_eval, and the serving pseudo-method on the
+           SmoothQuant artifact; perplexities, error rows and every launch
+           count checked; then the time of calibration, of AWQ's and
+           SmoothQuant's quantize and of each method's pack (GPTQ's sweep
+           once), a profiler split of warm packed eval blocks,
+           and a 2-layer packed eval on the card against the CPU
+  serve_w8a8  the serving engine at full width on SmoothQuant W8A8
+           (calibrated on the fixture, int8 KV, 8 requests of prompt 128 and
+           32 new tokens) with launch counts checked (K6 on every linear,
+           K2/K3 per decode step, no K1/K4), a profile of one prefill and one
+           16-step decode block, then `python -m qtpu_torch.serve --method
+           smoothquant --a8 --kv int8` (its main())
 
 The last lines are the nvidia-smi line, the `kernels` JSON line and
 {"ok": true, "device": {...}}. Any failed check raises, and the script then
@@ -50,9 +67,10 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "eval")
+PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "eval", "quant", "serve_w8a8")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
+INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
 L2_BYTES = 50 * 1024 * 1024
 
 
@@ -60,9 +78,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    """The least time (ms) for the bytes at the memory rate and the
+    operations at `rate`, and which of the two bounds it."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOP_PER_S * 1e3
+    t_f = ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -198,7 +218,6 @@ def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=
 
 
 def phase_kernels(torch, ctx):
-    from qtpu_torch.kernels import dequant_matmul as k1
     from qtpu_torch.kernels import fused_mlp as k4
     from qtpu_torch.kernels import kv_attention as k23
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
@@ -339,6 +358,8 @@ def phase_kernels(torch, ctx):
     detail["fused_mlp"] = k4r
     k5r = _k5_rows(torch, gen, dev, cfg)
     detail["flash_attention"] = k5r
+    k6r = _k6_rows(torch, gen, dev)
+    detail["w8a8_matmul"] = k6r
     emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
 
     # one entry per kernel, at the work of one decode step (B = 8):
@@ -385,10 +406,91 @@ def phase_kernels(torch, ctx):
             "ms": L * k5r["ms"], "plain_ms": L * k5r["plain_ms"], "bound_ms": L * k5r["bound_ms"],
             "bound_by": k5r["bound_by"], "library_ms": L * k5r["library_ms"],
         },
+        # K6 at the work of one W8A8 eval block (M = 2048): L x (q, k, v, o,
+        # gate, up, down) + lm_head; library: torch._int_mm on x_q
+        "w8a8_matmul": {
+            "route": "cuda", "source": "qtpu_torch/csrc/w8a8_matmul.cu",
+            "replaces": "qtpu/kernels/pallas_int8_matmul.py:58",
+            "max_abs_err": max(r["max_abs_err"] for r in k6r.values()),
+            **{key: _k6_block(k6r, key, L) for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": _k6_bound_by(k6r, L), "library_ms": _k6_block(k6r, "int_mm_ms", L),
+        },
     }
 
 
 EVAL_BLOCK = 2048  # test_block_size of the eval phase
+# K6: (K, N) of TinyLlama-1.1B's W8A8 sites, and the M of each path
+K6_SITES = {"q_o": (2048, 2048), "k_v": (2048, 256), "gate_up": (2048, 5632),
+            "down": (5632, 2048), "lm_head": (2048, 32000)}
+K6_M = {"decode": 8, "prefill": 1024, "eval": EVAL_BLOCK}
+K6_PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}  # calls per layer
+
+
+def _k6_rows(torch, gen, dev):
+    """K6 against its plain version at every W8A8 site of TinyLlama at
+    decode, prefill and eval M (tolerance: the Pallas kernel's test, max
+    |err| / max |ref| < 2e-2), with times: the kernel, the plain version,
+    torch._int_mm on x quantized beforehand and the int8 weight made
+    column-major beforehand (M >= 17 only), torch.matmul on the weight
+    dequantized to bf16 beforehand, and the bound (int8 rate)."""
+    from qtpu_torch.core.packing import dequantize_parts, quantize_pack
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    rows = {}
+    for site, (K, N) in K6_SITES.items():
+        meta = (8, K, K, N)
+        wbytes = K * N + 3 * N
+        copies = max(1, min(64, math.ceil(2 * L2_BYTES / wbytes)))
+        qts = [quantize_pack(torch.randn(K, N, generator=gen, device=dev) * 0.02, 8, K)
+               for _ in range(copies)]
+        w_cm = [qt.data.t().contiguous().t() for qt in qts]  # column-major for _int_mm
+        nlib = max(1, min(copies, math.ceil(2 * L2_BYTES / (K * N * 2))))
+        w_bf = [dequantize_parts(qt.data, qt.scales, qt.zeros, 8, K) for qt in qts[:nlib]]
+        for mname, M in K6_M.items():
+            x = (torch.randn(M, K, generator=gen, device=dev) * 2).to(torch.bfloat16)
+            got = k6.w8a8_matmul(x, qts[0].data, qts[0].scales, qts[0].zeros, meta)
+            want = k6.w8a8_matmul_plain(x, qts[0].data, qts[0].scales, qts[0].zeros, meta)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max() / (want.float().abs().max() + 1e-6))
+            row = {"M": M, "K": K, "N": N, "err_max_over_max_ref": err,
+                   "max_abs_err": float(diff.max()), "rel_err": rel_err(torch, got, want),
+                   "bf16_equal_share": float((got == want).float().mean()), "tol": 2e-2}
+            if err >= 2e-2 or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"K6 disagrees with its plain version: {row}")
+            row["bound_ms"], row["bound_by"] = bound(M * K * 2 + wbytes + M * N * 2,
+                                                     2 * M * K * N, INT8_OP_PER_S)
+            row["ms"], row["timing"] = cuda_ms(
+                torch, [lambda q=q: k6.w8a8_matmul(x, q.data, q.scales, q.zeros, meta)
+                        for q in qts], wbytes)
+            row["plain_ms"], _ = cuda_ms(
+                torch, [lambda q=q: k6.w8a8_matmul_plain(x, q.data, q.scales, q.zeros, meta)
+                        for q in qts], wbytes)
+            row["int_mm_ms"] = None
+            if M >= 17:
+                xq, _ = k6.quantize_activations(x)
+                row["int_mm_ms"], _ = cuda_ms(
+                    torch, [lambda w=w: torch._int_mm(xq, w) for w in w_cm], K * N)
+            row["bf16_matmul_ms"], _ = cuda_ms(
+                torch, [lambda w=w: torch.matmul(x, w) for w in w_bf], K * N * 2)
+            rows[f"{site}_{mname}"] = row
+        del qts, w_cm, w_bf
+    return rows
+
+
+def _k6_block(rows, key, L, m="eval"):
+    """A K6 column summed over the calls of one W8A8 eval block."""
+    return L * sum(n * rows[f"{s}_{m}"][key] for s, n in K6_PER_LAYER.items()) + \
+        rows[f"lm_head_{m}"][key]
+
+
+def _k6_bound_by(rows, L, m="eval"):
+    """Whether operations or bytes bound most of a W8A8 eval block's bound."""
+    ops = L * sum(n * rows[f"{s}_{m}"]["bound_ms"] for s, n in K6_PER_LAYER.items()
+                  if rows[f"{s}_{m}"]["bound_by"] == "operations")
+    if rows[f"lm_head_{m}"]["bound_by"] == "operations":
+        ops += rows[f"lm_head_{m}"]["bound_ms"]
+    return "operations" if ops >= _k6_block(rows, "bound_ms", L, m) / 2 else "bytes"
 
 
 def _k5_rows(torch, gen, dev, cfg):
@@ -507,9 +609,6 @@ def _tinyllama_w4(torch, ctx):
 def phase_serve(torch, ctx):
     import numpy as np
 
-    from qtpu_torch.kernels import dequant_matmul as k1
-    from qtpu_torch.kernels import fused_mlp as k4
-    from qtpu_torch.kernels import kv_attention as k23
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
     from qtpu_torch.serve.batching import ContinuousBatcher
     from qtpu_torch.serve.decode import decode_multi
@@ -523,23 +622,23 @@ def phase_serve(torch, ctx):
     rng = np.random.default_rng(0)
     for _ in range(B):
         eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
-    wrappers = (k1.quantized_matmul, k23.cache_band_write, k23.decode_attention, k4.fused_mlp)
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers:
-        w.launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = _counts()
     m = eng.metrics()
     L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
     expect = {
-        "quantized_matmul": (2 * L + 1) * steps + (4 * L + 1) * pre,
+        "dequant_matmul": (2 * L + 1) * steps + (4 * L + 1) * pre,
         "cache_band_write": L * steps,
         "decode_attention": L * steps,
         "fused_mlp": L * steps,
+        "flash_attention": 0,
+        "w8a8_matmul": 0,
     }
     tokens = sum(len(r.output) for r in done)
     res = {"phase": "serve", "model": "TinyLlama-1.1B", "layers": L, "method": "rtn W4 g128",
@@ -554,11 +653,9 @@ def phase_serve(torch, ctx):
     for r in done:
         if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
             raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
-    if counts != expect:
+    if counts != expect or steps == 0:
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    if steps == 0 or any(c == 0 for c in counts.values()):
-        raise AssertionError("a kernel of the main path never launched")
-    ctx["launches"] = counts
+    ctx.setdefault("path_launches", {})["serve"] = counts
 
     # steady decode after the run: blocks of 16 greedy steps, all slots
     # live, host wall time per step (after a synchronize)
@@ -643,18 +740,6 @@ EVAL_BLOCKS = 4
 EVAL_MCFG = {"w_bit": 4, "q_group_size": 128}
 
 
-def _kind_of_kernel(name: str) -> str:
-    """The kind of a profiled kernel in the packed eval block's split."""
-    low = name.lower()
-    if "flash_attn_kernel" in name:
-        return "K5 flash_attention"
-    if "dq_" in name:
-        return "K1 dequant_matmul"
-    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas")):
-        return "dense GEMM"
-    return "rest"
-
-
 def phase_eval(torch, ctx):
     """The quantize-and-evaluate path at full width through its normal entry
     point, `python -m qtpu_torch.bench` (its main() in this process):
@@ -674,10 +759,6 @@ def phase_eval(torch, ctx):
     from qtpu_torch.convert import map_tree
     from qtpu_torch.data.fixture import load_fixture_test
     from qtpu_torch.eval import evaluate_perplexity
-    from qtpu_torch.kernels import dequant_matmul as k1
-    from qtpu_torch.kernels import flash_attention as k5
-    from qtpu_torch.kernels import fused_mlp as k4
-    from qtpu_torch.kernels import kv_attention as k23
     from qtpu_torch.models import llama
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
     from qtpu_torch.quant.apply import fuse_packed_sites, pack_model, quantize_model
@@ -693,21 +774,17 @@ def phase_eval(torch, ctx):
         "serving": {"benchmark": True, "kv_cache_dtype": "int8", "max_batch_size": 8},
         "seed": 0, "device": "cuda", "verbose": True,
     }
-    wrappers = {"dequant_matmul": k1.quantized_matmul, "cache_band_write": k23.cache_band_write,
-                "decode_attention": k23.decode_attention, "fused_mlp": k4.fused_mlp,
-                "flash_attention": k5.flash_attention}
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path, out_path = Path(tmp) / "config.json", Path(tmp) / "results.json"
         cfg_path.write_text(json.dumps(config))
-        for w in wrappers.values():
-            w.launches = 0
+        _reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rc = bench_main([str(cfg_path), "--out", str(out_path)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {n: w.launches for n, w in wrappers.items()}
+        counts = _counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         saved = json.loads(out_path.read_text())
 
@@ -718,6 +795,7 @@ def phase_eval(torch, ctx):
         "dequant_matmul": (4 * L + 1) * nb + runs * (4 * L + 1) + steps * (2 * L + 1),
         "cache_band_write": steps * L, "decode_attention": steps * L, "fused_mlp": steps * L,
         "flash_attention": 3 * nb * L,  # raw, fake-quant and packed evals
+        "w8a8_matmul": 0,
     }
     res = saved["results"]
     raw, rt, sv = res.get("raw", {}), res.get("rtn", {}), res.get("serving", {})
@@ -742,11 +820,11 @@ def phase_eval(torch, ctx):
     if round(out["model_size_mb"], 2) != 68.13 or round(out["bits_per_byte"], 3) != 2.078:
         raise AssertionError(f"size accounting {out['model_size_mb']} MB, "
                              f"{out['bits_per_byte']} bits per byte != 68.13 / 2.078")
-    if counts != expect or any(c == 0 for c in counts.values()):
+    if counts != expect:
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
     if not sv.get("tokens_per_second"):
         raise AssertionError("the serving pseudo-method measured nothing")
-    ctx["eval_launches"] = counts
+    ctx.setdefault("path_launches", {})["eval"] = counts
 
     # warm blocks of the same three models, each timed around a synchronize
     ids = load_fixture_test(str(FIXTURE_DIR))
@@ -763,7 +841,7 @@ def phase_eval(torch, ctx):
     packed, qmeta = models["packed"]
     prof = _profiled(torch, lambda: evaluate_perplexity(packed, ids, cfg, n_samples=1,
                                                         block_size=EVAL_BLOCK, qmeta=qmeta),
-                     1, classify=_kind_of_kernel)
+                     1, classify=_kind)
     del models, params, packed
     torch.cuda.empty_cache()
     emit({"phase": "eval_timing", "s_per_block": per_block,
@@ -786,6 +864,293 @@ def phase_eval(torch, ctx):
           "tol_rel": 1e-2})
     if not all(c["rel"] < 1e-2 for c in cmp.values()):
         raise AssertionError(f"card and CPU perplexities differ: {cmp}")
+
+
+QUANT_MCFG = {
+    "awq": {"w_bit": 4, "q_group_size": 128},
+    "gptq": {"w_bit": 4, "q_group_size": 128, "error_compensation": True},
+    "smoothquant": {"w_bit": 8, "q_group_size": 128, "alpha": 0.5, "act_quant": True},
+}
+CALIB_BLOCKS, CALIB_BLOCK = 4, 512
+WRAPPERS = {  # kernel -> (module, wrapper name)
+    "dequant_matmul": ("dequant_matmul", "quantized_matmul"),
+    "cache_band_write": ("kv_attention", "cache_band_write"),
+    "decode_attention": ("kv_attention", "decode_attention"),
+    "fused_mlp": ("fused_mlp", "fused_mlp"),
+    "flash_attention": ("flash_attention", "flash_attention"),
+    "w8a8_matmul": ("int8_matmul", "w8a8_matmul"),
+}
+
+
+def _wrappers():
+    import importlib
+
+    return {k: getattr(importlib.import_module(f"qtpu_torch.kernels.{m}"), f)
+            for k, (m, f) in WRAPPERS.items()}
+
+
+def _reset_counts():
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _counts():
+    return {k: w.launches for k, w in _wrappers().items()}
+
+
+def _kind(name: str) -> str:
+    """The kernel of a profiled CUDA kernel's name, for the splits by kind."""
+    for tag, kind in (("w8a8", "K6 w8a8_matmul"), ("flash_attn_kernel", "K5 flash_attention"),
+                      ("band_write", "K2 cache_band_write"), ("decode_attn", "K3 decode_attention"),
+                      ("dq_", "K1 dequant_matmul")):
+        if tag in name:
+            return kind
+    low = name.lower()
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas")):
+        return "dense GEMM"
+    return "rest"
+
+
+def _calib_blocks(cfg, n=CALIB_BLOCKS):
+    from qtpu_torch.data import get_calibration_dataset
+
+    return get_calibration_dataset(None, f"fixture:{FIXTURE_DIR}", None, "validation",
+                                   n_samples=n, block_size=CALIB_BLOCK,
+                                   vocab_size=cfg.vocab_size)
+
+
+def phase_quant(torch, ctx):
+    """The calibrated methods at full width through `python -m
+    qtpu_torch.bench` (main() in this process), then their costs: the
+    calibration, AWQ's and SmoothQuant's quantize, each method's pack
+    (GPTQ's sweep runs once here), warm packed eval blocks with a profiler
+    split, and a 2-layer packed eval on the card against
+    the CPU on the same packed bytes."""
+    import tempfile
+
+    import numpy as np
+
+    from qtpu_torch.bench import runner
+    from qtpu_torch.bench.__main__ import main as bench_main
+    from qtpu_torch.calib import collect_calibration_stats
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.data.fixture import load_fixture_test
+    from qtpu_torch.eval import evaluate_perplexity
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.quant.apply import fold_smooth, fuse_packed_sites, pack_model, quantize_model
+
+    fixture = f"fixture:{FIXTURE_DIR}"
+    methods = list(QUANT_MCFG)
+    config = {
+        "model_name": "tinyllama-random", "quantization_methods": methods,
+        "calibration_dataset": fixture, "n_calibration_samples": CALIB_BLOCKS,
+        "calibration_block_size": CALIB_BLOCK,
+        "test_dataset": fixture, "n_test_samples": EVAL_BLOCKS, "test_block_size": EVAL_BLOCK,
+        "quantization_config": QUANT_MCFG, "packed_eval": True,
+        "serving": {"benchmark": True, "kv_cache_dtype": "int8", "max_batch_size": 8,
+                    "pack_method": "smoothquant"},
+        "seed": 0, "device": "cuda", "verbose": True,
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, out_path = Path(tmp) / "config.json", Path(tmp) / "results.json"
+        cfg_path.write_text(json.dumps(config))
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = bench_main([str(cfg_path), "--out", str(out_path)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        saved = json.loads(out_path.read_text())
+
+    L, nb = cfg.num_layers, EVAL_BLOCKS
+    steps = runner.SERVE_WARM_STEPS + runner.SERVE_STEPS
+    runs = 2  # benchmark_serving: a warm run, then the timed run
+    a8 = 7 * L + 1  # K6 calls per forward of the W8A8 model: 7 linears a layer + lm_head
+    expect = {
+        "dequant_matmul": 2 * nb * (4 * L + 1),  # awq and gptq packed evals (fused sites)
+        "cache_band_write": steps * L, "decode_attention": steps * L, "fused_mlp": 0,
+        # raw, 3 fake-quant and 3 packed evals; two calibrations (gptq needs the Hessians)
+        "flash_attention": 7 * nb * L + 2 * CALIB_BLOCKS * L,
+        "w8a8_matmul": (nb + runs + steps) * a8,
+    }
+    res = saved["results"]
+    ppl = {m: {"fake": res.get(m, {}).get("perplexity"),
+               "packed": res.get(m, {}).get("packed_perplexity")} for m in methods}
+    out = {"phase": "quant", "model": "TinyLlama-1.1B", "layers": L, "blocks": nb,
+           "block_size": EVAL_BLOCK, "calibration": f"{CALIB_BLOCKS} x {CALIB_BLOCK}",
+           "methods": QUANT_MCFG, "rc": rc, "wall_s": wall,
+           "raw_perplexity": res.get("raw", {}).get("perplexity"), "perplexity": ppl,
+           "model_size_mb": {m: res.get(m, {}).get("model_size_mb") for m in methods},
+           "runtime_s": {k: v.get("runtime_seconds") for k, v in res.items()},
+           "serving_tokens_per_s": res.get("serving", {}).get("tokens_per_second"),
+           "errors": {k: v.get("error") or v.get("packed_error") for k, v in res.items()},
+           "peak_mem_gib": peak_gib, "launches": counts, "expected_launches": expect,
+           "card": ctx["smi"]}
+    emit(out)
+    if rc != 0 or any(out["errors"].values()) or set(res) != {"raw", *methods, "serving"}:
+        raise AssertionError(f"the benchmark run failed: {out['errors']}")
+    for m, p in ppl.items():
+        if not all(v is not None and math.isfinite(v) for v in p.values()):
+            raise AssertionError(f"{m}: perplexities not finite: {p}")
+        if abs(p["packed"] / p["fake"] - 1) >= 1e-2:
+            raise AssertionError(f"{m}: packed perplexity not within 1% of fake-quant: {p}")
+    if counts != expect:
+        raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    if not res["serving"].get("tokens_per_second"):
+        raise AssertionError("the serving pseudo-method measured nothing")
+    ctx.setdefault("path_launches", {})["quant"] = counts
+
+    # the costs, each timed on the host around a synchronize
+    ids = load_fixture_test(str(FIXTURE_DIR))
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    calib = _calib_blocks(cfg)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return r
+
+    stats = timed("calibrate_hessian", lambda: collect_calibration_stats(
+        llama.forward, params, calib, cfg, collect_hessian=True))
+    packed, per_block, profiles = {}, {}, {}
+    for m, mcfg in QUANT_MCFG.items():
+        if m != "gptq":  # GPTQ's column sweep is timed once, in its pack
+            timed(f"quantize_{m}", lambda: quantize_model(params, m, mcfg, stats))
+        packed[m] = timed(f"pack_{m}", lambda: fuse_packed_sites(
+            *fold_smooth(*pack_model(params, m, mcfg, stats))))
+        p, qm = packed[m]
+        evaluate_perplexity(p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm)  # warm
+        timed("eval3", lambda: evaluate_perplexity(p, ids, cfg, n_samples=3,
+                                                   block_size=EVAL_BLOCK, qmeta=qm))
+        per_block[m] = times.pop("eval3") / 3
+        profiles[m] = _profiled(torch, lambda: evaluate_perplexity(
+            p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm), 1, classify=_kind)
+    del stats, packed, params
+    torch.cuda.empty_cache()
+    emit({"phase": "quant_timing", "seconds": times, "s_per_packed_block": per_block,
+          "profile_packed_block": profiles, "card": ctx["smi"]})
+
+    # 2 layers at TinyLlama widths: calibrated and packed on the card, then
+    # the same packed bytes evaluated on the card (kernels) and on the CPU
+    # (plain versions), one fixture block
+    cfg2 = cfg.replace(num_layers=2)
+    p2 = llama.init_params(cfg2, seed=7, device="cuda")
+    st2 = collect_calibration_stats(llama.forward, p2, _calib_blocks(cfg2, 2), cfg2,
+                                    collect_hessian=True)
+    ids2 = np.ascontiguousarray(ids[:, :EVAL_BLOCK])
+    cmp = {}
+    for m, mcfg in QUANT_MCFG.items():
+        pk, qm = fuse_packed_sites(*fold_smooth(*pack_model(p2, m, mcfg, st2)))
+        on_card = evaluate_perplexity(pk, ids2, cfg2, 1, EVAL_BLOCK, qmeta=qm)
+        on_cpu = evaluate_perplexity(map_tree(pk, lambda t: t.cpu()), ids2, cfg2, 1, EVAL_BLOCK,
+                                     qmeta=qm)
+        cmp[m] = {"cpu": on_cpu, "card": on_card, "rel": abs(on_card / on_cpu - 1)}
+    emit({"phase": "quant_e2e", "layers": 2, "block_size": EVAL_BLOCK, "perplexity": cmp,
+          "tol_rel": 1e-2})
+    if not all(c["rel"] < 1e-2 for c in cmp.values()):
+        raise AssertionError(f"card and CPU packed perplexities differ: {cmp}")
+
+
+SQ_A8 = QUANT_MCFG["smoothquant"]
+
+
+def phase_serve_w8a8(torch, ctx):
+    """The serving engine at full width on SmoothQuant W8A8: TinyLlama-1.1B
+    (random weights from seed 0) calibrated on the fixture, packed with
+    per-channel W8 and dynamic int8 activations (K6 on every linear),
+    int8 KV, 8 requests of prompt 128 and 32 new tokens; launch counts per
+    prefill call and decode step; a profile of one warm prefill and one
+    16-step decode block; then the serve CLI's main() with --method
+    smoothquant --a8 --kv int8."""
+    import numpy as np
+
+    from qtpu_torch.calib import collect_calibration_stats
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.quant.apply import fold_smooth, fuse_packed_sites, pack_model
+    from qtpu_torch.serve.__main__ import main as serve_main
+    from qtpu_torch.serve.batching import ContinuousBatcher
+    from qtpu_torch.serve.decode import decode_multi, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    stats = collect_calibration_stats(llama.forward, params, _calib_blocks(cfg), cfg)
+    params, qmeta = fuse_packed_sites(*fold_smooth(*pack_model(params, "smoothquant", SQ_A8,
+                                                               stats)))
+    del stats
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if any(len(m) != 5 for _, m in qmeta):
+        raise AssertionError(f"not every site is W8A8: {qmeta}")
+    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                            kv_dtype="int8", seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    for _ in range(B):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    m = eng.metrics()
+    L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
+    expect = {"dequant_matmul": 0, "cache_band_write": L * steps, "decode_attention": L * steps,
+              "fused_mlp": 0, "flash_attention": 0, "w8a8_matmul": (7 * L + 1) * (steps + pre)}
+    tokens = sum(len(r.output) for r in done)
+    emit({"phase": "serve_w8a8", "model": "TinyLlama-1.1B", "layers": L,
+          "method": "smoothquant W8A8 alpha 0.5", "kv": "int8", "requests": len(done),
+          "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall, "setup_s": setup_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "decode_steps": steps,
+          "prefill_calls": pre, "launches": counts, "expected_launches": expect,
+          "card": ctx["smi"], "metrics": m})
+    if len(done) != B:
+        raise AssertionError(f"{len(done)} of {B} requests finished")
+    for r in done:
+        if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
+    if counts != expect or steps == 0:
+        raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    ctx.setdefault("path_launches", {})["serve_w8a8"] = counts
+
+    cache = init_cache(cfg, B, P + SERVE_NEW + 16, quantized=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    logits, cache = prefill(params, ids, cache, cfg, qmeta)  # warm
+    pre_prof = _profiled(torch, lambda: prefill(params, ids, cache, cfg, qmeta), 1,
+                         classify=_kind)
+    emit({"phase": "profile_w8a8", "what": "prefill", "batch": B, "prompt": P, **pre_prof,
+          "card": ctx["smi"]})
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    decode_multi(params, tok, pos, cache, None, None, cfg, 4, qmeta)  # warm
+    n = 16
+    dec = _profiled(torch, lambda: decode_multi(params, tok, pos, cache, None, None, cfg, n,
+                                                qmeta), n, classify=_kind)
+    emit({"phase": "profile_w8a8", "what": "decode", "batch": B, "decode_steps": n, **dec,
+          "card": ctx["smi"]})
+    del eng, cache, params
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    rc = serve_main(["--method", "smoothquant", "--a8", "--kv", "int8"])
+    cli = _counts()
+    emit({"phase": "serve_w8a8_cli", "argv": "--method smoothquant --a8 --kv int8", "rc": rc,
+          "launches": cli})
+    if rc != 0 or cli["w8a8_matmul"] == 0 or cli["dequant_matmul"] != 0:
+        raise AssertionError(f"the serve CLI run failed: rc {rc}, launches {cli}")
 
 
 def main(argv=None) -> int:
@@ -821,15 +1186,11 @@ def main(argv=None) -> int:
     emit({"phases": phases, "seconds": time.perf_counter() - t_all})
     print(ctx["smi"], flush=True)
     if "kernel_rows" in ctx:
-        # launches: the serve phase's run plus the eval phase's run, each
-        # counted from 0 (K5 runs in eval only)
-        serve = ctx.get("launches", {})
-        wrapper_of = {"dequant_matmul": "quantized_matmul", "cache_band_write": "cache_band_write",
-                      "decode_attention": "decode_attention", "fused_mlp": "fused_mlp",
-                      "flash_attention": "flash_attention"}
+        # launches: the sum over the main paths' runs (serve, eval, quant,
+        # serve_w8a8), each counted from 0 just before it
+        paths = ctx.get("path_launches", {}).values()
         emit({"kernels": [
-            {"name": name, "launches": serve.get(wrapper_of[name], 0)
-             + ctx.get("eval_launches", {}).get(name, 0), **row}
+            {"name": name, "launches": sum(c.get(name, 0) for c in paths), **row}
             for name, row in ctx["kernel_rows"].items()
         ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": ctx["name"], "count": ctx["count"]}})

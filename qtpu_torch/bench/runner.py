@@ -1,17 +1,22 @@
 """Config-driven benchmark orchestrator (port of qtpu/bench/runner.py,
-reference benchmark_runner.py:91-743) for the methods raw and rtn.
+reference benchmark_runner.py:91-743) for the methods raw, rtn, awq, gptq
+and smoothquant.
 
 The phases are qtpu's: setup -> raw baseline -> per method (and per w_bit
-of a sweep) quantize + eval with per-method error isolation -> the
-packed-vs-fake audit (`packed_eval`: the really-packed artifact through
-K1/K5) -> the optional serving pseudo-method -> the summary table with
-improvements vs raw -> the reference-schema results JSON. Weights are
-random from the config's seed (torch.Generator, so not qtpu's numbers).
+of a sweep) calibrate if the method needs it, quantize + eval with
+per-method error isolation -> the packed-vs-fake audit (`packed_eval`: the
+really-packed artifact through K1/K5, and K6 for SmoothQuant W8A8) -> the
+optional serving pseudo-method -> the summary table with improvements vs
+raw -> the reference-schema results JSON. Weights are random from the
+config's seed (torch.Generator, so not qtpu's numbers). Calibration
+statistics are collected once and reused; GPTQ with error compensation
+collects them again with the true Hessians when the first collection had
+none (qtpu's rule).
 
 What the port does not have yet is refused by `setup` with
 NotImplementedError naming its slice (`refuse_unported`), never recorded
-as a per-method error row: calibrated methods, a mesh above one device,
-checkpoints, artifacts and trace profiling.
+as a per-method error row: pot/apot, a mesh above one device, checkpoints,
+artifacts and trace profiling.
 
 CLI:  python -m qtpu_torch.bench <config.json> [--out results.json] [--device cpu]
 """
@@ -27,16 +32,23 @@ import numpy as np
 import torch
 
 from qtpu_torch.bench.results import BenchmarkResult
+from qtpu_torch.calib import collect_calibration_stats
 from qtpu_torch.configs import load_config, validate_config
 from qtpu_torch.core.dtypes import MiB, resolve_dtype
 from qtpu_torch.core.sizing import count_params, get_model_size
 from qtpu_torch.data import get_calibration_dataset, get_test_dataset
 from qtpu_torch.eval import evaluate_perplexity
 from qtpu_torch.models import get_arch, get_model_config
-from qtpu_torch.quant.apply import fold_smooth, fuse_packed_sites, pack_model, quantize_model
+from qtpu_torch.quant.apply import (
+    CALIBRATED_METHODS,
+    UNPORTED_METHODS,
+    fold_smooth,
+    fuse_packed_sites,
+    pack_model,
+    quantize_model,
+)
 
 METHODS = ("awq", "gptq", "pot", "apot", "smoothquant", "rtn")
-PORTED_METHODS = ("raw", "rtn")
 # benchmark_serving: one warm run of prefill + SERVE_WARM_STEPS decode
 # steps, then the timed run of prefill + SERVE_STEPS steps
 SERVE_WARM_STEPS = 2
@@ -47,8 +59,8 @@ def refuse_unported(config: dict, device: torch.device) -> None:
     """Raise NotImplementedError, naming the slice of the port, for what a
     validated config asks that the port does not do yet."""
     for m in config["quantization_methods"]:
-        if m not in PORTED_METHODS:
-            raise NotImplementedError(f"method '{m}' is not ported yet (quantizers slice)")
+        if m in UNPORTED_METHODS:
+            raise NotImplementedError(f"method '{m}' is not ported yet (POT/APOT slice)")
     mesh = config.get("mesh") or {}
     tp, pp = int(mesh.get("model", 1)), int(mesh.get("pipe", 1))
     dp = int(mesh.get("data", 1))
@@ -69,9 +81,9 @@ def refuse_unported(config: dict, device: torch.device) -> None:
     scfg = config.get("serving") or {}
     if scfg.get("benchmark", False):
         pm = scfg.get("pack_method", "rtn")
-        if pm != "rtn":
+        if pm in UNPORTED_METHODS:
             raise NotImplementedError(
-                f"serving pack_method '{pm}' is not ported yet (quantizers slice)"
+                f"serving pack_method '{pm}' is not ported yet (POT/APOT slice)"
             )
         if scfg.get("kv_cache_dtype", "int8") != "int8" and device.type == "cuda":
             raise NotImplementedError(
@@ -93,6 +105,7 @@ class QuantizationBenchmark:
         self.params = None
         self.tokenizer = None
         self.calib_samples = None
+        self.stats = None
         self.test_dataset = None
         self.results: dict[str, BenchmarkResult] = {}
 
@@ -135,6 +148,19 @@ class QuantizationBenchmark:
             vocab_size=self.model_cfg.vocab_size,
         )
         self.log("Setup complete!")
+
+    def _prepare_activations(self, need_hessian: bool):
+        """Calibration statistics over the calibration blocks, collected
+        once; again with the true Hessians when they are needed and the
+        first collection had none."""
+        if self.stats is not None and (not need_hessian or self.stats.hessian is not None):
+            return
+        self.log("\nCollecting activation statistics...")
+        self.stats = None  # free the old statistics before the new ones
+        self.stats = collect_calibration_stats(
+            self.arch.forward, self.params, self.calib_samples, self.model_cfg,
+            collect_hessian=need_hessian, verbose=self.verbose,
+        )
 
     # ------------------------------------------------------------ metrics
     def _original_size_bytes(self) -> int:
@@ -195,7 +221,13 @@ class QuantizationBenchmark:
         result = BenchmarkResult(name, mcfg)
         try:
             start = time.time()
-            qparams = quantize_model(self.params, method, mcfg, arch=self.model_cfg.arch)
+            stats = None
+            if method in CALIBRATED_METHODS:
+                need_h = (method == "gptq" and mcfg.get("error_compensation", False)
+                          and mcfg.get("true_hessian", True))
+                self._prepare_activations(need_hessian=need_h)
+                stats = self.stats
+            qparams = quantize_model(self.params, method, mcfg, stats, arch=self.model_cfg.arch)
             self._sync()
             self.log(f"  quantization took {time.time() - start:.2f}s")
             result.perplexity = self._eval(qparams)
@@ -205,7 +237,7 @@ class QuantizationBenchmark:
                             use_zero_point=method not in ("pot", "apot"))
             result.runtime_seconds = time.time() - start
             if self.config.get("packed_eval", False):
-                self._packed_eval(result, method, mcfg)
+                self._packed_eval(result, method, mcfg, stats)
             self.log(f"✓ {result}")
         except Exception as e:
             result.error = str(e)
@@ -214,20 +246,20 @@ class QuantizationBenchmark:
         self.results[name] = result
         return result
 
-    def _packed(self, method: str, mcfg: dict):
+    def _packed(self, method: str, mcfg: dict, stats=None):
         """The serving artifact of a method: pack, fold smooth vectors,
         fuse the sites that share an input."""
         arch = self.model_cfg.arch
-        packed, qmeta = pack_model(self.params, method, mcfg, arch=arch)
+        packed, qmeta = pack_model(self.params, method, mcfg, stats, arch=arch)
         packed, qmeta = fold_smooth(packed, qmeta, arch=arch)
         return fuse_packed_sites(packed, qmeta, arch=arch)
 
-    def _packed_eval(self, result, method, mcfg):
+    def _packed_eval(self, result, method, mcfg, stats=None):
         """Packed-vs-fake audit ("packed_eval": true): the perplexity of the
         really-packed artifact of the same method, through the serving
         path's kernels, recorded as packed_perplexity."""
         try:
-            packed, qmeta = self._packed(method, mcfg)
+            packed, qmeta = self._packed(method, mcfg, stats)
             result.packed_perplexity = self._eval(packed, qmeta=qmeta)
             self.log(f"  packed-vs-fake ppl: {result.packed_perplexity:.4f}"
                      f" vs {result.perplexity:.4f}")
@@ -252,7 +284,10 @@ class QuantizationBenchmark:
         result = BenchmarkResult("serving", {"pack_method": method, **mcfg})
         try:
             start = time.time()
-            packed, qmeta = self._packed(method, mcfg)
+            needs_stats = method in ("awq", "smoothquant")  # qtpu's rule: gptq gets none
+            if needs_stats:
+                self._prepare_activations(need_hessian=False)
+            packed, qmeta = self._packed(method, mcfg, self.stats if needs_stats else None)
             cfg, arch = self.model_cfg, self.model_cfg.arch
             B = int(scfg.get("max_batch_size", 8))
             P = min(128, cfg.max_seq_len // 2)

@@ -7,6 +7,8 @@ device="cpu"; bf16 arrives from JAX as
 `ml_dtypes.bfloat16` and goes through an int16 view. qmeta needs no
 conversion: both packages use the same tuple of (site, (bits, group, K, N)).
 `params_to_numpy` goes the other way, for feeding the port's tensors to qtpu.
+`stats_to_torch` turns calibration statistics (qtpu's CalibStats, or any
+object with its four fields, arrays as numpy) into the port's CalibStats.
 """
 
 from __future__ import annotations
@@ -50,3 +52,16 @@ def params_to_torch(tree, device="cuda"):
 def params_to_numpy(tree):
     """Nested dict of tensors -> nested dict of numpy arrays."""
     return map_tree(tree, to_numpy)
+
+
+def stats_to_torch(stats, device="cuda"):
+    """An object with mean_abs / max_abs / hessian dicts of arrays and
+    n_batches (e.g. qtpu's CalibStats) -> qtpu_torch.calib.CalibStats."""
+    from qtpu_torch.calib.stats import CalibStats
+
+    return CalibStats(
+        mean_abs=params_to_torch(dict(stats.mean_abs), device),
+        max_abs=params_to_torch(dict(stats.max_abs), device),
+        hessian=None if stats.hessian is None else params_to_torch(dict(stats.hessian), device),
+        n_batches=int(stats.n_batches),
+    )

@@ -1,0 +1,426 @@
+// K6: W8A8 matmul, dynamic per-token int8 activations times per-channel
+// int8 weights on the int8 tensor cores.
+//
+// Replaces the TPU kernel pallas_w8a8_matmul
+// (qtpu/kernels/pallas_int8_matmul.py:58), the SmoothQuant W8A8 serving
+// linear. With d = data, the stored value-minus-128 int8 container [K, N]
+// (n contiguous), s bf16 [N] and z uint8 [N]:
+//   sx[m]    = max(max_k |x[m, k]| * (1/127), 1e-8)
+//   xq[m, k] = clamp(rint(x[m, k] / sx[m]), -127, 127)             int8
+//   acc[m, n] = sum_k xq[m, k] * d[k, n]                            int32, exact
+//   y[m, n]  = float(acc + (sum_k xq[m, k]) * (128 - z[n])) * s[n] * sx[m]
+// The zero-point correction is rank 1 because the weight has one group
+// spanning K. |acc| + |correction| <= 2 * 127 * 128 * K < 2^31 for
+// K < 66,000, so the int32 sum never overflows at the widths served.
+//
+// Bound on an H100: at decode (M <= 8) the K*N weight bytes; at prefill and
+// eval (M = 1024-2048) the multiply-adds at the int8 tensor-core rate, or
+// the bytes for narrow N. What the design does about it:
+//  * w8a8_quant_kernel, the first launch of every call: one block per token
+//    row (16-byte loads) computes sx, xq and sum(xq) into a small scratch (int8 [M, Kp] with
+//    Kp = K rounded up to 64 and zero-filled, f32 [M], int32 [M]). The TPU
+//    kernel recomputes the quantization per N tile instead; on the card the
+//    [M, K] int8 round trip is 1/2 of the bf16 x it replaces and lets the
+//    matmul read 1-byte activations. The rounding is that of qtpu's jitted
+//    XLA reference: XLA folds absmax / 127 into a multiply by the f32
+//    reciprocal, x / sx stays a true division, and __float2int_rn rounds
+//    half to even as jnp.round does.
+//  * M > 8: w8a8_mma_kernel, mma.sync m16n8k32 s8 x s8 -> s32. A block owns
+//    128 rows x 64 columns (8 warps as 4 x 2, each 32 x 32); a 64-deep K
+//    stage of xq and of d goes through shared memory, the next stage's
+//    global loads are issued into registers before this stage's products
+//    (one stage of prefetch, no cp.async yet). The B fragment wants 4
+//    consecutive k of one column in each 32-bit register but d is [K, N]
+//    with n contiguous: each thread loads a 4 x 4 byte block (4 rows of one
+//    32-bit word) and transposes it with __byte_perm while staging, so the
+//    stored layout stays the one both packages share.
+//  * M <= 8: w8a8_gemv_kernel, a weight-streaming GEMV: each lane owns 8
+//    columns (one 8-byte load per K row, 256 bytes per warp per row), each
+//    warp a strided set of 4-row groups, transposed with __byte_perm and
+//    multiplied with __dp4a against each row's xq word, read from the
+//    block's slice of xq staged in shared memory. K is also split across
+//    blocks (the caller picks the slice, as K1's split_k does) so the
+//    2048-wide sites fill the SMs and each slice's xq fits the stage; the
+//    slices' int32 sums are added exactly by w8a8_finish_kernel, which
+//    applies the epilogue.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBM = 128;       // mma: rows per block
+constexpr int kBN = 64;        // mma: columns per block
+constexpr int kBK = 64;        // mma: K bytes per stage; Kp is a multiple
+constexpr int kLD = kBK + 16;  // padded shared row, bytes
+constexpr int kGemvThreads = 128;  // gemv: 4 warps
+constexpr int kGemvRows = 8;       // gemv: most rows M
+constexpr int kGemvCols = 256;     // gemv: columns per block (32 lanes x 8)
+constexpr int kGemvUnroll = 4;     // gemv: 4-row groups in flight per warp
+constexpr int kGemvWarps = kGemvThreads / 32;
+// gemv: int32 words of shared memory, the slice's xq (M * split_rows / 4
+// words at most) and then the cross-warp reduction
+constexpr int kGemvSmem = kGemvWarps * kGemvRows * kGemvCols;
+
+struct W8A8Args {
+  const __nv_bfloat16* x;       // [M, K]
+  const int8_t* data;           // [K, N], w_q - 128
+  const __nv_bfloat16* scales;  // [N]
+  const uint8_t* zeros;         // [N]
+  __nv_bfloat16* out;           // [M, N]
+  int8_t* xq;                   // [M, Kp] scratch
+  float* sx;                    // [M] scratch
+  int* sumq;                    // [M] scratch
+  int* part;                    // gemv split K: int32 [splits, M, N], else nullptr
+  int M, K, Kp, N;
+  int split_rows;               // gemv: K rows per blockIdx.y
+};
+
+__device__ __forceinline__ __nv_bfloat16 w8a8_out(const W8A8Args& a, int m, int n, int acc) {
+  const int total = acc + a.sumq[m] * (128 - (int)a.zeros[n]);
+  return __float2bfloat16(((float)total * __bfloat162float(a.scales[n])) * a.sx[m]);
+}
+
+// 4 rows of 4 bytes (r[i] = row i, bytes = columns) -> 4 columns of 4 bytes
+// (c[j] = column j, bytes = rows).
+__device__ __forceinline__ void transpose4x4(const uint32_t* r, uint32_t* c) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Block-wide max (op 0) or sum (op 1) of one value per thread.
+template <typename T, int OP>
+__device__ __forceinline__ T block_reduce(T v, T* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = OP == 0 ? max(v, w) : v + w;
+  }
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) v = OP == 0 ? max(v, scratch[w]) : v + scratch[w];
+  return v;
+}
+
+__device__ __forceinline__ int quant1(float v, float s) {
+  return max(-127, min(127, __float2int_rn(__fdiv_rn(v, s))));
+}
+
+// One block per token row; 16-byte loads of 8 activations where the row
+// is 16-byte aligned, else one activation per thread and step.
+__global__ void __launch_bounds__(kThreads) w8a8_quant_kernel(W8A8Args a) {
+  __shared__ float smax[kThreads / 32];
+  __shared__ int ssum[kThreads / 32];
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* xr = a.x + (size_t)row * a.K;
+  int8_t* qr = a.xq + (size_t)row * a.Kp;
+  const bool vec = a.K % 8 == 0 && reinterpret_cast<uintptr_t>(xr) % 16 == 0;
+  const int nvec = vec ? a.K / 8 : 0;  // 8-wide chunks; the rest one by one
+  float amax = 0.f;
+  for (int c = tid; c < nvec; c += kThreads) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr) + c);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(h[i])));
+  }
+  for (int k = 8 * nvec + tid; k < a.K; k += kThreads) amax = fmaxf(amax, fabsf(__bfloat162float(xr[k])));
+  amax = block_reduce<float, 0>(amax, smax);
+  const float s = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-8f);
+  int sum = 0;
+  for (int c = tid; c < nvec; c += kThreads) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr) + c);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = quant1(__bfloat162float(h[i]), s);
+      sum += q;
+      w[i / 4] |= (uint32_t)(q & 0xff) << (8 * (i % 4));
+    }
+    *reinterpret_cast<uint2*>(qr + 8 * c) = make_uint2(w[0], w[1]);
+  }
+  for (int k = 8 * nvec + tid; k < a.Kp; k += kThreads) {
+    const int q = k < a.K ? quant1(__bfloat162float(xr[k]), s) : 0;  // zero padding to Kp
+    qr[k] = (int8_t)q;
+    sum += q;
+  }
+  sum = block_reduce<int, 1>(sum, ssum);
+  if (tid == 0) {
+    a.sx[row] = s;
+    a.sumq[row] = sum;
+  }
+}
+
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_s32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__global__ void __launch_bounds__(kThreads) w8a8_mma_kernel(W8A8Args a) {
+  __shared__ __align__(16) int8_t as[kBM * kLD];  // [m][k] xq
+  __shared__ __align__(16) int8_t bs[kBN * kLD];  // [n][k] d, transposed
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wm = (warp % 4) * 32;
+  const int wn = (warp / 4) * 32;
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN;
+  // loaders: xq as 2 x 16 bytes a thread; d as one 4 x 4 byte block a thread
+  const int kq = tid / 16;  // 4-row group of the stage, 0..15
+  const int nq = tid % 16;  // 4-column group of the block, 0..15
+  const bool bcol = n0 + 4 * nq < a.N;  // N % 4 == 0
+  uint4 ra[2];
+  uint32_t rb[4];
+
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = tid + r * kThreads;
+      const int m = i / (kBK / 16);
+      const int c = i % (kBK / 16);
+      ra[r] = m0 + m < a.M
+                  ? __ldg(reinterpret_cast<const uint4*>(a.xq + (size_t)(m0 + m) * a.Kp + k0 + 16 * c))
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + 4 * kq + j;
+      rb[j] = bcol && k < a.K
+                  ? __ldg(reinterpret_cast<const unsigned int*>(a.data + (size_t)k * a.N + n0 + 4 * nq))
+                  : 0u;
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = tid + r * kThreads;
+      *reinterpret_cast<uint4*>(as + (i / (kBK / 16)) * kLD + 16 * (i % (kBK / 16))) = ra[r];
+    }
+    uint32_t col[4];
+    transpose4x4(rb, col);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(bs + (4 * nq + j) * kLD + 4 * kq) = col[j];
+  };
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  const int stages = a.Kp / kBK;
+  load(0);
+  store();
+  __syncthreads();
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) load((st + 1) * kBK);  // in flight during the products
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 32) {
+      uint32_t af[2][4];
+      uint32_t bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int8_t* r0 = as + (wm + mi * 16 + g) * kLD + kk + 4 * t;
+        af[mi][0] = ld_s32(r0);
+        af[mi][1] = ld_s32(r0 + 8 * kLD);
+        af[mi][2] = ld_s32(r0 + 16);
+        af[mi][3] = ld_s32(r0 + 8 * kLD + 16);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int8_t* c0 = bs + (wn + ni * 8 + g) * kLD + kk + 4 * t;
+        bf[ni][0] = ld_s32(c0);
+        bf[ni][1] = ld_s32(c0 + 16);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+    }
+    if (st + 1 < stages) {
+      __syncthreads();  // this stage is consumed
+      store();
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + wm + mi * 16 + g + (e >= 2 ? 8 : 0);
+        const int col = n0 + wn + ni * 8 + 2 * t + (e & 1);
+        if (row < a.M && col < a.N) a.out[(size_t)row * a.N + col] = w8a8_out(a, row, col, acc[mi][ni][e]);
+      }
+}
+
+// 4 warps; a lane owns 8 adjacent columns (one 8-byte load per K row), a
+// warp the block's 256 columns, and the warps take the slice's 4-row groups
+// in turn.
+__global__ void __launch_bounds__(kGemvThreads) w8a8_gemv_kernel(W8A8Args a) {
+  constexpr int kWarps = kGemvWarps;
+  // the slice's xq rows while the product runs, then the cross-warp reduction
+  __shared__ __align__(16) int smem[kGemvSmem];
+  auto red = reinterpret_cast<int(*)[kGemvRows][kGemvCols]>(smem);
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int n = blockIdx.x * kGemvCols + 8 * lane;
+  const bool col_ok = n < a.N;
+  // 8-byte loads where every row start is 8-byte aligned; else two 4-byte
+  // loads (N % 4 == 0: a lane's last 4 columns may lie past N)
+  const bool wide = a.N % 8 == 0 && reinterpret_cast<uintptr_t>(a.data) % 8 == 0;
+  const bool hi_ok = n + 4 < a.N;
+  const int kbeg = blockIdx.y * a.split_rows;
+  const int kend = min(a.K, kbeg + a.split_rows);  // both multiples of 4
+  const int words = (kend - kbeg) / 4;  // xq words of one row in the slice
+  for (int i = threadIdx.x; i < a.M * words; i += kGemvThreads) {
+    const int m = i / words;
+    smem[i] = __ldg(reinterpret_cast<const int*>(a.xq + (size_t)m * a.Kp + kbeg) + i - m * words);
+  }
+  __syncthreads();
+  int acc[kGemvRows][8];
+#pragma unroll
+  for (int m = 0; m < kGemvRows; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[m][j] = 0;
+
+  for (int k0 = kbeg + 4 * warp; k0 < kend; k0 += 4 * kWarps * kGemvUnroll) {
+    uint2 w[kGemvUnroll][4];
+#pragma unroll
+    for (int u = 0; u < kGemvUnroll; ++u) {
+      const int k = k0 + u * 4 * kWarps;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t* p = a.data + (size_t)(k + j) * a.N + n;
+        w[u][j] = make_uint2(0u, 0u);
+        if (col_ok && k < kend) {
+          if (wide) {
+            w[u][j] = __ldg(reinterpret_cast<const uint2*>(p));
+          } else {
+            w[u][j].x = __ldg(reinterpret_cast<const unsigned int*>(p));
+            if (hi_ok) w[u][j].y = __ldg(reinterpret_cast<const unsigned int*>(p + 4));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGemvUnroll; ++u) {
+      const int k = k0 + u * 4 * kWarps;
+      if (k >= kend) break;
+      const uint32_t lo[4] = {w[u][0].x, w[u][1].x, w[u][2].x, w[u][3].x};
+      const uint32_t hi[4] = {w[u][0].y, w[u][1].y, w[u][2].y, w[u][3].y};
+      uint32_t c[8];
+      transpose4x4(lo, c);
+      transpose4x4(hi, c + 4);
+#pragma unroll
+      for (int m = 0; m < kGemvRows; ++m) {
+        if (m < a.M) {
+          const int xw = smem[m * words + (k - kbeg) / 4];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[m][j] = __dp4a(xw, (int)c[j], acc[m][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // the staged xq is consumed
+#pragma unroll
+  for (int m = 0; m < kGemvRows; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[warp][m][8 * lane + j] = acc[m][j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kGemvRows * kGemvCols; i += kGemvThreads) {
+    const int m = i / kGemvCols;
+    const int cc = i % kGemvCols;
+    const int col = blockIdx.x * kGemvCols + cc;
+    if (m >= a.M || col >= a.N) continue;
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][m][cc];
+    if (a.part == nullptr) a.out[(size_t)m * a.N + col] = w8a8_out(a, m, col, s);
+    else a.part[((size_t)blockIdx.y * a.M + m) * a.N + col] = s;
+  }
+}
+
+// Adds the K slices' int32 sums of w8a8_gemv_kernel and applies the epilogue.
+__global__ void __launch_bounds__(kThreads) w8a8_finish_kernel(W8A8Args a, int splits) {
+  const size_t mn = (size_t)a.M * a.N;
+  for (size_t o = blockIdx.x * (size_t)kThreads + threadIdx.x; o < mn;
+       o += (size_t)gridDim.x * kThreads) {
+    int s = 0;
+    for (int z = 0; z < splits; ++z) s += a.part[(size_t)z * mn + o];
+    a.out[o] = w8a8_out(a, (int)(o / a.N), (int)(o % a.N), s);
+  }
+}
+
+}  // namespace
+
+// y[M, N] = W8A8(x[M, K], data[K, N], scales[N], zeros[N]) on `stream`.
+// xq: int8 scratch [M, Kp], Kp = K rounded up to 64; sx: f32 [M]; sumq:
+// int32 [M]. For M <= 8, split_rows (a multiple of 4, M * split_rows <=
+// 32768) is the K rows of one block slice, K for no split; with more than
+// one slice `part` is an int32 scratch of slices * M * N. Returns a cudaError_t (0 on success), or -1 for
+// arguments the kernels do not take.
+extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* scales,
+                                const void* zeros, void* out, void* xq, void* sx, void* sumq,
+                                void* part, int split_rows, int M, int K, int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
+  W8A8Args a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.data = static_cast<const int8_t*>(data);
+  a.scales = static_cast<const __nv_bfloat16*>(scales);
+  a.zeros = static_cast<const uint8_t*>(zeros);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.xq = static_cast<int8_t*>(xq);
+  a.sx = static_cast<float*>(sx);
+  a.sumq = static_cast<int*>(sumq);
+  a.M = M;
+  a.K = K;
+  a.Kp = (K + kBK - 1) / kBK * kBK;
+  a.N = N;
+  a.split_rows = split_rows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  w8a8_quant_kernel<<<M, kThreads, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (M > kGemvRows) {
+    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+    w8a8_mma_kernel<<<grid, kThreads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (split_rows <= 0 || split_rows % 4 != 0 || M * (split_rows / 4) > kGemvSmem) return -1;
+  const int splits = (K + split_rows - 1) / split_rows;
+  if (splits > 1 && part == nullptr) return -1;
+  a.part = splits > 1 ? static_cast<int*>(part) : nullptr;
+  dim3 grid((N + kGemvCols - 1) / kGemvCols, splits);
+  w8a8_gemv_kernel<<<grid, kGemvThreads, 0, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const size_t mn = (size_t)M * N;
+  const int blocks = (int)((mn + kThreads - 1) / kThreads < 1024 ? (mn + kThreads - 1) / kThreads : 1024);
+  w8a8_finish_kernel<<<blocks, kThreads, 0, st>>>(a, splits);
+  return (int)cudaGetLastError();
+}

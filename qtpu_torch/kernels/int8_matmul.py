@@ -1,0 +1,123 @@
+"""K6: W8A8 matmul with dynamic per-token int8 activations (SmoothQuant
+W8A8 serving; port of qtpu/kernels/int8_matmul.py and
+pallas_int8_matmul.py).
+
+  x_q = clamp(round(x / sx), -127, 127),  sx = max(max|x| per token / 127, 1e-8)
+  y   = (x_q @ w_q - sum(x_q) * z_w) * s_w * sx
+
+with per-channel asymmetric int8 weights (one group spanning K: meta
+(8, K, K, N)), stored as qtpu stores W8: data = w_q - 128, int8 [K, N];
+scales bf16 [1, N]; zeros uint8 [1, N].
+
+`w8a8_matmul` launches the kernel of csrc/w8a8_matmul.cu on a CUDA tensor
+(it replaces pallas_w8a8_matmul) and takes `w8a8_matmul_plain`, the math of
+qtpu's XLA reference `_w8a8_matmul_ref`, on a CPU tensor. The rounding of
+`quantize_activations` is that of qtpu's jitted reference: XLA folds the
+division by 127 into a multiply by its f32 reciprocal, while x / sx stays
+a true division (tests/test_torch_w8a8.py holds both bit for bit).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from qtpu_torch.kernels import _build
+from qtpu_torch.kernels._build import I, P, require
+from qtpu_torch.kernels.dequant_matmul import _sm_count
+
+_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, I, I, I, I, P]}
+
+GEMV_ROWS = 8  # M <= 8 runs the GEMV kernel, larger M the tensor-core one
+GEMV_COLS = 256  # output columns per GEMV block (4 warps)
+GEMV_STAGE = 32768  # bytes of xq a GEMV block stages: M x its K rows at most
+K_ALIGN = 64  # the activation scratch's row length is K rounded up to this
+
+
+def quantize_activations(x: torch.Tensor):
+    """Per-token (last-axis) symmetric int8: returns (x_q int8, sx f32 [..., 1])."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp(absmax * (1.0 / 127.0), min=1e-8)
+    x_q = torch.clamp(torch.round(xf / sx), -127, 127)
+    return x_q.to(torch.int8), sx
+
+
+def w8a8_matmul_plain(x, data, scales, zeros, meta):
+    """qtpu's `_w8a8_matmul_ref`: the integer product exact in float64
+    (torch.matmul has no int32 path on the card and a slow one on the CPU;
+    every partial sum is an integer below 2^53), the rescale in f32."""
+    bits, group, K, N = meta[:4]
+    if bits != 8 or group != K:
+        raise ValueError("w8a8 path needs per-channel (group=K) int8 weights")
+    x_q, sx = quantize_activations(x)
+    acc = (x_q.double() @ (data.double() + 128)).float()
+    sum_xq = x_q.to(torch.int32).sum(dim=-1, keepdim=True).float()
+    sw = scales.float().reshape(1, N)
+    zw = zeros.to(torch.int32).float().reshape(1, N)
+    return ((acc - sum_xq * zw) * sw * sx).to(x.dtype)
+
+
+def gemv_rows(M: int, K: int, N: int, sms: int) -> int:
+    """K rows of one GEMV block's slice (M <= 8): at least 64 (a multiple of
+    4), enough slices for about four blocks per SM, and at most what the
+    block stages in shared memory (M x rows <= GEMV_STAGE bytes of xq)."""
+    tiles = -(-N // GEMV_COLS)
+    slices = max(1, min(K // 64, -(-4 * sms // tiles)))
+    rows = -(-K // slices)
+    return min(rows + -rows % 4, GEMV_STAGE // M // 4 * 4)
+
+
+def gemv_split(device, M: int, K: int, N: int):
+    """gemv_rows on this card. Returns (rows per slice, the int32 scratch
+    of slices x M x N partial sums, or None for one slice)."""
+    rows = gemv_rows(M, K, N, _sm_count(device.index or 0))
+    slices = -(-K // rows)
+    part = (torch.empty(slices * M * N, dtype=torch.int32, device=device)
+            if slices > 1 else None)
+    return rows, part
+
+
+def w8a8_matmul(x, data, scales, zeros, meta):
+    """y = W8A8(x) for per-channel int8 weights; x [..., K] -> [..., N] in
+    x's dtype (bf16 on the card). meta = (8, K, K, N), a 5-tuple's
+    trailing "a8" tag allowed. One call is one launch in the count (the
+    activation quantization, the product and, at M <= 8 with K split, the
+    finishing pass)."""
+    bits, group, K, N = meta[:4]
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, data, scales, zeros, meta)
+    require(x.is_cuda, f"unsupported device {x.device}")
+    require(bits == 8 and group == K, f"w8a8 takes per-channel int8 weights, got meta {meta}")
+    require(zeros is not None, "w8a8 takes asymmetric weights (zeros)")
+    require(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
+    require(x.shape[-1] == K and x.is_contiguous(), "x must be contiguous [..., K]")
+    require(K % 4 == 0 and N % 4 == 0, f"K={K} and N={N} must be multiples of 4")
+    require(data.dtype == torch.int8 and tuple(data.shape) == (K, N),
+            f"data must be int8 [{K}, {N}], got {data.dtype} {tuple(data.shape)}")
+    require(scales.dtype == torch.bfloat16 and scales.numel() == N, "scales must be bf16 [1, N]")
+    require(zeros.dtype == torch.uint8 and zeros.numel() == N, "zeros must be uint8 [1, N]")
+    for t in (data, scales, zeros):
+        require(t.device == x.device, f"weights on {t.device}, activations on {x.device}")
+        require(t.is_contiguous(), "packed weights must be contiguous")
+    require(data.data_ptr() % 4 == 0, "data must be 4-byte aligned")
+    M = x.numel() // K
+    out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    Kp = -(-K // K_ALIGN) * K_ALIGN
+    xq = torch.empty(M * Kp, dtype=torch.int8, device=x.device)
+    sx = torch.empty(M, dtype=torch.float32, device=x.device)
+    sumq = torch.empty(M, dtype=torch.int32, device=x.device)
+    rows, part = gemv_split(x.device, M, K, N) if M <= GEMV_ROWS else (K, None)
+    lib = _build.load("w8a8_matmul", _SIG)
+    rc = lib.qtpu_w8a8_matmul(
+        x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(),
+        None if part is None else part.data_ptr(), rows, M, K, N, _build.stream_of(x),
+    )
+    _build.check(rc, "w8a8_matmul")
+    w8a8_matmul.launches += 1
+    return out
+
+
+w8a8_matmul.launches = 0

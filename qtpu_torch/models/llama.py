@@ -9,8 +9,11 @@ Param layout as in qtpu, all layers stacked on a leading axis, linears
   final_norm [D]; lm_head {"w": [D, V]}
 
 Both forwards are a Python loop over layers on zero-copy W[l] views.
-`forward` (the cacheless full sequence, for perplexity) runs per layer K1
-on every packed site and K5 (flash attention) for the attention.
+`forward` (the cacheless full sequence, for perplexity and calibration)
+runs per layer K1 on every packed site (K6 on W8A8 sites) and K5 (flash
+attention) for the attention; with `capture` it also returns per input
+site the channel statistics calibration needs (qtpu's capture modes, taken
+explicitly in the loop).
 `forward_with_cache` updates the KV cache in place: a decode step (T = 1)
 on an int8 cache runs per layer K1 (qkv), RoPE, K2 (cache write), K3
 (attention), K1 (o_proj) plus the residual, and K4 (the MLP); prefill runs
@@ -37,6 +40,17 @@ from qtpu_torch.serve.kvcache import KVCache, cache_layer_write
 LAYER_SITES = (
     "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
 )
+# calibration statistics are collected per input site; q/k/v share one
+# input and gate/up another (qtpu/models/llama.py:55-62)
+INPUT_SITES = ("attn_in", "o_in", "mlp_in", "down_in", "head_in")
+SITE_OF_INPUT = {
+    "attn_in": ("q_proj", "k_proj", "v_proj"),
+    "o_in": ("o_proj",),
+    "mlp_in": ("gate_proj", "up_proj"),
+    "down_in": ("down_proj",),
+    "head_in": ("lm_head",),
+}
+CAPTURE_MODES = ("none", "stats", "hessian")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.bfloat16) -> dict:
@@ -106,9 +120,10 @@ def _gate_up(h, layers, cfg: ModelConfig, qm, l):
     )
 
 
-def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool):
+def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool, tap=None):
     """norm -> SwiGLU -> residual. A decode step with packed fused
-    gateup/down sites that K4 takes runs K4; the rest composes the ops."""
+    gateup/down sites that K4 takes runs K4; the rest composes the ops.
+    tap(site, tensor), when given, sees the MLP's two linear inputs."""
     gu, dn = layers.get("gateup_proj"), layers.get("down_proj")
     mgu, md = qm("gateup_proj"), qm("down_proj")
     if decode and x.shape[0] * x.shape[1] <= _k4.MAX_M and _k4.supported(mgu, md, gu, dn):
@@ -119,16 +134,54 @@ def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool):
             mgu, md, eps=cfg.norm_eps,
         )
     h = rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps)
+    if tap is not None:
+        tap("mlp_in", h)
     gate, up = _gate_up(h, layers, cfg, qm, l)
     act = Fn.silu(gate.float()).to(x.dtype) * up
+    if tap is not None:
+        tap("down_in", act)
     return x + linear(act, layers["down_proj"], qm("down_proj"), layer=l)
 
 
-def forward(params, input_ids, cfg: ModelConfig, qmeta=None):
+def _channel_stats(x: torch.Tensor, capture: str) -> dict:
+    """mean|x| and max|x| per trailing channel in f32 (qtpu's
+    `ops.channel_stats`), and with capture="hessian" also XᵀX over the
+    flattened tokens (`ops.input_hessian`, a plain f32 product)."""
+    xf = x.reshape(-1, x.shape[-1]).float()
+    a = xf.abs()
+    out = {"mean_abs": a.mean(dim=0), "max_abs": a.amax(dim=0)}
+    if capture == "hessian":
+        out["hessian"] = xf.T @ xf
+    return out
+
+
+class _Capture:
+    """Per-layer statistics of the input sites, stacked on a leading [L]
+    axis as qtpu's scan stacks them (head_in has none)."""
+
+    def __init__(self, capture: str, num_layers: int):
+        self.capture, self.L, self.stats = capture, num_layers, {}
+
+    def add(self, site: str, l: int, x: torch.Tensor):
+        st = _channel_stats(x, self.capture)
+        if site not in self.stats:
+            self.stats[site] = {k: v.new_empty((self.L, *v.shape)) for k, v in st.items()}
+        for k, v in st.items():
+            self.stats[site][k][l] = v
+
+
+def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none"):
     """Full-sequence causal forward: input_ids [B, S] -> logits [B, S, V]
-    f32 (qtpu's `forward` without calibration capture or an attention
-    override). Sliding-window attention applies when the window binds at
-    this S, as in qtpu."""
+    f32 (qtpu's `forward` without an attention override). Sliding-window
+    attention applies when the window binds at this S, as in qtpu.
+
+    capture="stats" also returns {input site: {"mean_abs", "max_abs"}},
+    [L, C] per layer site and [C] for head_in, taken where qtpu takes them
+    (after attn_norm, the attention output, after mlp_norm, silu(gate)·up,
+    the final norm); capture="hessian" adds "hessian" XᵀX in f32 ([L, C, C],
+    head_in [C, C]). Returns (logits, stats) then."""
+    if capture not in CAPTURE_MODES:
+        raise ValueError(f"capture must be one of {CAPTURE_MODES}, got {capture!r}")
     qm = (dict(qmeta) if qmeta is not None else {}).get
     S = input_ids.shape[1]
     x = params["embed"][input_ids]
@@ -136,14 +189,26 @@ def forward(params, input_ids, cfg: ModelConfig, qmeta=None):
                            cfg.rope_theta)
     win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
     layers = params["layers"]
-    for l in range(layers["attn_norm"].shape[0]):
+    L = layers["attn_norm"].shape[0]
+    cap = _Capture(capture, L) if capture != "none" else None
+    for l in range(L):
+        tap = None if cap is None else (lambda site, t, l=l: cap.add(site, l, t))
         h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+        if tap is not None:
+            tap("attn_in", h)
         q, k, v = _qkv(h, layers, cfg, qm, l)
         attn = causal_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, window=win)
+        if tap is not None:
+            tap("o_in", attn)
         x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
-        x = _mlp_block(x, layers, l, cfg, qm, decode=False)
+        x = _mlp_block(x, layers, l, cfg, qm, decode=False, tap=tap)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return linear(x, params["lm_head"], qm("lm_head")).float()
+    logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    if cap is None:
+        return logits
+    stats = dict(cap.stats)
+    stats["head_in"] = _channel_stats(x, capture)
+    return logits, stats
 
 
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,

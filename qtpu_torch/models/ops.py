@@ -2,11 +2,11 @@
 quantization-aware linear (port of qtpu/models/ops.py).
 
 A linear site's params are {"w": dense [K, N]} or packed {"data", "scales",
-"zeros"} (qtpu_torch.core.packing), optionally with a bias "b"; packed sites
-go to the K1 dequant-matmul. The other packed variants of qtpu (input
-"smooth" vectors, GPTQ actorder "perm", POT/APOT "codebook", W8A8 metas)
-belong to later slices of the port and raise here. `causal_attention`
-runs K5 (flash attention) on CUDA tensors.
+"zeros"} (qtpu_torch.core.packing), optionally with a bias "b", an input
+"smooth" vector [K] (SmoothQuant / AWQ) and a GPTQ actorder "perm" [K].
+Packed sites go to the K1 dequant-matmul, W8A8 sites (5-tuple metas tagged
+"a8") to K6. POT/APOT "codebook" sites belong to a later slice and raise.
+`causal_attention` runs K5 (flash attention) on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from qtpu_torch.kernels.dequant_matmul import quantized_matmul
 from qtpu_torch.kernels.flash_attention import attention_mask, flash_attention
+from qtpu_torch.kernels.int8_matmul import w8a8_matmul
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -70,27 +71,26 @@ def causal_attention(q, k, v, window: int = 0):
     return out.reshape(B, S, H * hd)
 
 
-_LATER = {
-    "smooth": "SmoothQuant/AWQ input smoothing (quantizers slice)",
-    "perm": "GPTQ actorder packing (quantizers slice)",
-    "codebook": "POT/APOT codebook packing, pallas_codebook_matmul (quantizers slice)",
-}
-
-
 def linear(x: torch.Tensor, p: dict, site_meta=None, layer=None) -> torch.Tensor:
-    """y = x @ W (+ b). layer selects one layer of stacked [L, ...] params as
-    zero-copy views."""
+    """y = maybe_smooth(x)[..., perm] @ W (+ b), qtpu's `ops.linear`. layer
+    selects one layer of stacked [L, ...] params as zero-copy views."""
     if layer is not None:
         p = {k: v[layer] for k, v in p.items()}
-    for key, what in _LATER.items():
-        if key in p:
-            raise NotImplementedError(f"linear site with '{key}': {what} is not ported yet")
-    if site_meta is not None and len(site_meta) == 5:
+    if "codebook" in p:
         raise NotImplementedError(
-            "W8A8 sites (pallas_w8a8_matmul) are not ported yet (quantizers slice)"
+            "linear site with 'codebook': POT/APOT codebook packing, pallas_codebook_matmul, "
+            "is not ported yet (POT/APOT slice)"
         )
+    if "smooth" in p:
+        x = x * p["smooth"].to(x.dtype)
+    if "perm" in p:
+        # actorder GPTQ: weights stored in Hessian-diagonal order, the
+        # activations gathered into the same order (g_idx style)
+        x = x.index_select(-1, p["perm"])
     if "w" in p:
         y = x @ p["w"].to(x.dtype)
+    elif site_meta is not None and len(site_meta) == 5 and site_meta[4] == "a8":
+        y = w8a8_matmul(x, p["data"], p["scales"], p["zeros"], site_meta[:4])
     else:
         y = quantized_matmul(x, p["data"], p["scales"], p.get("zeros"), site_meta)
     if "b" in p:

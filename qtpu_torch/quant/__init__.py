@@ -1,3 +1,10 @@
+from qtpu_torch.quant.rtn import pseudo_quantize, symmetric_fake_quantize  # noqa: F401
+from qtpu_torch.quant.awq import awq_quantize  # noqa: F401
+from qtpu_torch.quant.gptq import gptq_quantize_layer  # noqa: F401
+from qtpu_torch.quant.smoothquant import (  # noqa: F401
+    compute_smoothing_scales,
+    smoothquant_quantize,
+)
 from qtpu_torch.quant.apply import (  # noqa: F401
     fold_smooth,
     fuse_packed_sites,

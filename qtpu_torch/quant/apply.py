@@ -1,37 +1,74 @@
-"""Model-level quantization (port of the RTN branch of qtpu/quant/apply.py:
-`_map_sites`, `quantize_model`, `pack_model`, `fold_smooth`,
-`fuse_packed_sites`).
+"""Model-level quantization (port of qtpu/quant/apply.py for the methods
+rtn, awq, gptq and smoothquant: `_map_sites`, `quantize_model`,
+`pack_model`, `fold_smooth`, `fuse_packed_sites`).
 
-`quantize_model(params, "rtn", mcfg)` fake-quantizes every linear site
-with `pseudo_quantize` in reference orientation: a [K, N] weight is
-quantized as w.T, so its groups run along K, the input dim.
-`pack_model(params, "rtn", mcfg)` packs every linear site of the stacked
-[L, K, N] params with asymmetric per-group RTN (quantize_pack, layer by
-layer, so the bytes equal qtpu's vmapped pack) and returns (packed params,
-qmeta), qmeta being qtpu's sorted tuple of (site, (bits, group, K, N)).
-`fold_smooth` folds per-site input "smooth" vectors into the adjacent
-norms and scales. `fuse_packed_sites` concatenates q/k/v into "qkv_proj"
-and gate/up into "gateup_proj". The other methods (awq, smoothquant, gptq,
-pot, apot) come with the quantizers slice.
+`quantize_model(params, method, mcfg, stats)` fake-quantizes every linear
+site in reference orientation: a [K, N] weight is quantized as w.T, so its
+groups run along K, the input dim. Stacked sites go one layer at a time
+into a preallocated output (bounding the f32 temporaries to one layer),
+except GPTQ's compensated sweep, which advances a chunk of layers in
+lockstep (qtpu's lax.map batch, chunked by qtpu's formula).
+`pack_model(params, method, mcfg, stats)` packs the sites for serving and
+returns (packed params, qmeta), qmeta being qtpu's sorted tuple of
+(site, (bits, group, K, N)), with SmoothQuant's W8A8 sites as
+(8, K, K, N, "a8"). The per-site input vectors are qtpu's: AWQ's
+protection and SmoothQuant's smoothing become an input "smooth" vector,
+GPTQ's actorder a "perm". `fold_smooth` folds the smooth vectors into the
+adjacent norms and scales; `fuse_packed_sites` concatenates q/k/v into
+"qkv_proj" and gate/up into "gateup_proj". pot/apot come with the POT/APOT
+slice and raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from qtpu_torch.core.packing import quantize_pack
+from qtpu_torch.core.packing import pack_int4, quantize_pack
 from qtpu_torch.models import get_arch
-from qtpu_torch.quant.rtn import pseudo_quantize
+from qtpu_torch.quant.awq import _protection_scale_vec, awq_quantize, awq_search_scale_factor
+from qtpu_torch.quant.gptq import (
+    _parity_column_quantize,
+    actorder_perm,
+    build_proxy_hessian,
+    check_packed_export,
+    gptq_column_sweep,
+    gptq_prepare_factor,
+    gptq_prepare_factor_lowrank,
+    gptq_quantize_layer,
+    proxy_hessian_diag,
+)
+from qtpu_torch.quant.rtn import pseudo_quantize, symmetric_fake_quantize
+from qtpu_torch.quant.smoothquant import (
+    compute_smoothing_scales,
+    search_alpha,
+    smooth_weights,
+    smoothing_from_max,
+)
 
-UNPORTED_METHODS = ("awq", "gptq", "pot", "apot", "smoothquant")
+UNPORTED_METHODS = ("pot", "apot")
+CALIBRATED_METHODS = ("awq", "gptq", "smoothquant")
+# qtpu's layer-chunk budget for GPTQ's batched sweep (apply.py:288, :711)
+GPTQ_CHUNK_BYTES = 1.5e9
 
 
-def _map_sites(params: dict, fn, arch) -> dict:
-    """Apply fn(site, w_kn, has_layer_axis) to every linear site's dense
-    weight; extras the function does not produce (biases) carry over."""
+def _input_site_of(linear_site: str, arch) -> str:
+    for in_site, linears in arch.SITE_OF_INPUT.items():
+        if linear_site in linears:
+            return in_site
+    raise KeyError(linear_site)
+
+
+def _gptq_chunk(K: int, N: int) -> int:
+    """Layers per batched GPTQ sweep, qtpu's formula."""
+    return max(1, min(8, int(GPTQ_CHUNK_BYTES // (K * K * 16 + K * N * 16))))
+
+
+def _map_sites(params: dict, fn, arch, stats=None) -> dict:
+    """Apply fn(site, w_kn, has_layer_axis, stats) to every linear site's
+    dense weight; extras the function does not produce (biases) carry over."""
 
     def rebuild(site, old, has_l):
-        out = fn(site, old["w"], has_l)
+        out = fn(site, old["w"], has_l, stats)
         for k in old:
             if k not in out and k != "w":
                 out[k] = old[k]
@@ -47,65 +84,306 @@ def _map_sites(params: dict, fn, arch) -> dict:
     return new
 
 
+def _per_layer(one, w, has_l, out_dtype=None):
+    """one(w_kn [K, N]) for each layer of a stacked [L, K, N] weight, into a
+    preallocated output (out_dtype: the output's, default w's)."""
+    if not has_l:
+        return one(w)
+    out = torch.empty(w.shape, dtype=out_dtype or w.dtype, device=w.device)
+    for l in range(w.shape[0]):
+        out[l] = one(w[l])
+    return out
+
+
 def _not_ported(method: str):
     if method in UNPORTED_METHODS:
-        raise NotImplementedError(f"method '{method}' is not ported yet (quantizers slice)")
+        raise NotImplementedError(f"method '{method}' is not ported yet (POT/APOT slice)")
+
+
+def _need_stats(method: str, stats, what: str):
+    if stats is None:
+        raise ValueError(f"{method} {what}requires calibration stats")
 
 
 def quantize_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "llama") -> dict:
-    """Fake-quantize every linear site of a model with `method` (rtn only).
-    Returns a new params tree; the input is not modified. Stacked sites are
-    quantized one layer at a time into a preallocated output, which bounds
-    the f32 temporaries to one layer's weight."""
+    """Fake-quantize every linear site of a model with `method` (rtn, awq,
+    gptq, smoothquant; awq/gptq/smoothquant need CalibStats). Returns a new
+    params tree; the input is not modified. SmoothQuant's sites also carry
+    the per-input-channel "smooth" vector that keeps the network
+    equivalent."""
     _not_ported(method)
-    if method != "rtn":
-        raise ValueError(f"unknown quantization method '{method}'")
     arch_mod = get_arch(arch)
     w_bit = int(mcfg["w_bit"])
     g = int(mcfg.get("q_group_size", -1))
 
-    def one(w_kn):
-        return pseudo_quantize(w_kn.T, n_bit=w_bit, q_group_size=g).T
+    if method == "rtn":
 
-    def fn(site, w, has_l):
-        if not has_l:
-            return {"w": one(w)}
-        out = torch.empty_like(w)
-        for l in range(w.shape[0]):
-            out[l] = one(w[l])
-        return {"w": out}
+        def fn(site, w, has_l, st):
+            return {"w": _per_layer(lambda wl: pseudo_quantize(wl.T, w_bit, g).T, w, has_l)}
 
-    return _map_sites(params, fn, arch_mod)
+    elif method == "awq":
+        _need_stats(method, stats, "")
+        protect = float(mcfg.get("protect_ratio", 0.01))
+        sf = float(mcfg.get("scale_factor", 1.0))
+        do_search = bool(mcfg.get("search_scale", False))
+
+        def fn(site, w, has_l, st):
+            try:
+                imp = st.importance(_input_site_of(site, arch_mod))
+            except KeyError:
+                return {"w": w}  # no calibration data: keep the weight
+
+            def one(w_kn, imp_l):
+                w_oi = w_kn.T
+                sf_l = awq_search_scale_factor(w_oi, imp_l, w_bit, g, protect) if do_search else sf
+                return awq_quantize(w_oi, imp_l, w_bit, g, protect, sf_l).T
+
+            if not has_l:
+                return {"w": one(w, imp)}
+            out = torch.empty_like(w)
+            for l in range(w.shape[0]):
+                out[l] = one(w[l], imp[l])
+            return {"w": out}
+
+    elif method == "gptq":
+        _need_stats(method, stats, "")
+        comp = bool(mcfg.get("error_compensation", False))
+        actorder = bool(mcfg.get("actorder", False))
+        damp = float(mcfg.get("perp_damp", 0.01))
+        blocksize = int(mcfg.get("blocksize", 128))
+        nsamples = int(mcfg.get("nsamples", 128))
+
+        def fn(site, w, has_l, st):
+            try:
+                in_site = _input_site_of(site, arch_mod)
+                have = in_site in st.mean_abs or (st.hessian is not None and in_site in st.hessian)
+            except KeyError:
+                have = False
+            if not have:  # no stats: symmetric per-group RTN (the reference's fallback)
+                return {"w": _per_layer(lambda wl: symmetric_fake_quantize(wl.T, w_bit, g).T,
+                                        w, has_l)}
+            if not comp:  # parity mode, f32 as qtpu leaves it
+                return {"w": _per_layer(lambda wl: _parity_column_quantize(wl.T, w_bit).T, w,
+                                        has_l, torch.float32)}
+            have_true_h = st.hessian is not None and in_site in st.hessian
+            if have_true_h:
+                hs = st.hessian[in_site]
+            else:
+                mv = st.mean_abs[in_site][:nsamples]  # [S, L, C] | [S, C]
+                hs = mv.transpose(0, 1) if has_l else mv
+            if has_l and not actorder:
+                # prepare + sweep a chunk of layers at a time, the column
+                # loop advancing the whole chunk in lockstep
+                K, N = w.shape[-2:]
+                chunk = _gptq_chunk(K, N)
+                out = torch.empty_like(w)
+                for l0 in range(0, w.shape[0], chunk):
+                    h = hs[l0:l0 + chunk]
+                    if have_true_h:
+                        U = gptq_prepare_factor(h, damp)
+                    elif h.shape[-2] < K:
+                        U = gptq_prepare_factor_lowrank(h, damp)
+                    else:
+                        U = gptq_prepare_factor(build_proxy_hessian(h, damp), damp)
+                    wq = w[l0:l0 + chunk].transpose(-1, -2).float()
+                    out[l0:l0 + chunk] = gptq_column_sweep(wq, U, w_bit, g, blocksize,
+                                                           orig_dtype=w.dtype).transpose(-1, -2)
+                    del U, wq
+                return {"w": out}
+
+            def one(w_kn, h):
+                return gptq_quantize_layer(
+                    w_kn.T, h if have_true_h else None, w_bit, q_group_size=g,
+                    perp_damp=damp, blocksize=blocksize, actorder=actorder,
+                    error_compensation=True, stat_vectors=None if have_true_h else h,
+                ).T
+
+            if not has_l:
+                return {"w": one(w, hs)}
+            out = torch.empty_like(w)
+            for l in range(w.shape[0]):
+                out[l] = one(w[l], hs[l])
+            return {"w": out}
+
+    elif method == "smoothquant":
+        _need_stats(method, stats, "")
+        alpha = mcfg.get("alpha", 0.5)
+        do_search = bool(mcfg.get("search_alpha", False))
+
+        def fn(site, w, has_l, st):
+            try:
+                amax = st.max_abs[_input_site_of(site, arch_mod)]
+            except KeyError:
+                # no activation maxima: RTN without smoothing
+                return {"w": _per_layer(lambda wl: pseudo_quantize(wl.T, w_bit, g).T, w, has_l)}
+
+            def one(w_kn, amax_l):
+                w_oi = w_kn.T
+                a = search_alpha(w_oi, amax_l, w_bit, g) if do_search else alpha
+                s = compute_smoothing_scales(amax_l, w_oi, a)
+                return pseudo_quantize(smooth_weights(w_oi, s), w_bit, g).T, s
+
+            if not has_l:
+                q, s = one(w, amax)
+                return {"w": q, "smooth": s}
+            q = torch.empty_like(w)
+            s = torch.empty(w.shape[:-1], dtype=torch.float32, device=w.device)
+            for l in range(w.shape[0]):
+                q[l], s[l] = one(w[l], amax[l])
+            return {"w": q, "smooth": s}
+
+    else:
+        raise ValueError(f"unknown quantization method '{method}'")
+
+    return _map_sites(params, fn, arch_mod, stats)
+
+
+def _pack_affine(w_kn, w_bit: int, g: int) -> dict:
+    qt = quantize_pack(w_kn, w_bit, g, symmetric=False)
+    return {"data": qt.data, "scales": qt.scales, "zeros": qt.zeros}
+
+
+def _stack(parts: list) -> dict:
+    return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
 
 def pack_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "llama"):
     """Really-pack a model's linear sites for serving. Returns (packed,
-    qmeta). Only method="rtn" is ported."""
+    qmeta). rtn: asymmetric per-group RTN. awq: the protection vector v
+    scales the weight (v ∘ W packed) and 1/v becomes the input smooth.
+    smoothquant: the smoothed weight packed, its smoothing vector the
+    input smooth; sites sharing an input (q/k/v, gate/up) share one vector
+    from the group's weight-column max, so it folds into the norm and the
+    sites fuse; with act_quant (w_bit 8) per-channel W8 sites served W8A8
+    ("a8" metas, K6). gptq: error-compensated integer export, with
+    actorder the column order stored as "perm" (the activations are
+    gathered at serve time)."""
     _not_ported(method)
-    if method != "rtn":
-        raise ValueError(f"pack_model does not support method '{method}'")
     arch_mod = get_arch(arch)
     w_bit = int(mcfg["w_bit"])
     g = int(mcfg.get("q_group_size", 128))
     if g <= 0:
         raise ValueError("packing requires a positive q_group_size")
+    if method not in ("rtn",) + CALIBRATED_METHODS:
+        raise ValueError(f"pack_model does not support method '{method}'")
+    if method in CALIBRATED_METHODS:
+        _need_stats(method, stats, "packing ")
     metas = {}
 
-    def pack_one(w_kn):
-        qt = quantize_pack(w_kn, w_bit, g, symmetric=False)
-        return {"data": qt.data, "scales": qt.scales, "zeros": qt.zeros}
+    # smoothquant: the shared weight-column max of each multi-linear input group
+    group_colmax = {}
+    if method == "smoothquant":
+        for _in, linears in arch_mod.SITE_OF_INPUT.items():
+            members = [n for n in linears if n != "lm_head" and n in params["layers"]]
+            if len(members) < 2:
+                continue
+            cm = torch.stack([params["layers"][n]["w"].abs().amax(dim=-1) for n in members])
+            cm = cm.amax(dim=0)  # [L, K]
+            for n in members:
+                group_colmax[n] = cm
 
-    def fn(site, w, has_l):
-        if has_l:
-            parts = [pack_one(w[l]) for l in range(w.shape[0])]
-            p = {k: torch.stack([pt[k] for pt in parts]) for k in parts[0]}
-        else:
-            p = pack_one(w)
-        metas[site] = (w_bit, g, w.shape[-2], w.shape[-1])
+    def fn(site, w, has_l, st):
+        K, N = w.shape[-2:]
+        if method == "gptq":
+            metas[site] = (w_bit, g, K, N)
+            return _pack_gptq(site, w, has_l, st, mcfg, w_bit, g, arch_mod)
+        smooth = None
+        if method == "rtn":
+            w_eff = w
+        elif method == "awq":
+            protect = float(mcfg.get("protect_ratio", 0.01))
+            sf = float(mcfg.get("scale_factor", 1.0))
+            v = _protection_scale_vec(st.importance(_input_site_of(site, arch_mod)), protect, sf)
+            # y = (x · (1/v)) @ Q(v ∘ W): the protection folds into the input smooth
+            w_eff = w * v[..., :, None]
+            smooth = 1.0 / v
+        else:  # smoothquant
+            amax = st.max_abs[_input_site_of(site, arch_mod)]
+            wmax = group_colmax.get(site)
+            if wmax is None:
+                wmax = w.abs().amax(dim=-1)
+            smooth = smoothing_from_max(amax, wmax, mcfg.get("alpha", 0.5))
+            # smooth_weights(w.T, s).T, elementwise the same, every layer at once
+            w_eff = (w.float() / smooth[..., :, None]).to(w.dtype)
+            if mcfg.get("act_quant", False):
+                # W8A8: per-channel int8 weights (one group spanning K) and
+                # dynamic per-token int8 activations at serve time
+                if w_bit != 8:
+                    raise ValueError("act_quant requires w_bit=8")
+                p = (_stack([_pack_affine(w_eff[l], 8, K) for l in range(w.shape[0])])
+                     if has_l else _pack_affine(w_eff, 8, K))
+                p["smooth"] = smooth
+                metas[site] = (8, K, K, N, "a8")
+                return p
+        p = (_stack([_pack_affine(w_eff[l], w_bit, g) for l in range(w.shape[0])])
+             if has_l else _pack_affine(w_eff, w_bit, g))
+        if smooth is not None:
+            p["smooth"] = smooth
+        metas[site] = (w_bit, g, K, N)
         return p
 
-    packed = _map_sites(params, fn, arch_mod)
+    packed = _map_sites(params, fn, arch_mod, stats)
     return packed, tuple(sorted(metas.items()))
+
+
+def _pack_gptq(site, w, has_l, st, mcfg, w_bit, g, arch_mod) -> dict:
+    """pack_model's gptq branch: error-compensated GPTQ with integer export
+    ([K, N] codes packed as W4 group-halves or biased W8, bf16 scales,
+    uint8 zeros), a chunk of layers per batched sweep."""
+    in_site = _input_site_of(site, arch_mod)
+    damp = float(mcfg.get("perp_damp", 0.01))
+    nsamples = int(mcfg.get("nsamples", 128))
+    actorder = bool(mcfg.get("actorder", False))
+    shards = int(mcfg.get("actorder_shards", 1))
+    K, N = w.shape[-2:]
+    bs = check_packed_export(w_bit, g, int(mcfg.get("blocksize", 128)), actorder, shards, K)
+    have_true_h = st.hessian is not None and in_site in st.hessian
+    if have_true_h:
+        hs = st.hessian[in_site]
+    else:  # stat vectors [S, C] per layer; the proxy Hessian forms per chunk
+        mv = st.mean_abs[in_site][:nsamples]
+        hs = mv.transpose(0, 1) if has_l else mv
+
+    def order(h):
+        d = torch.diagonal(h.float(), dim1=-2, dim2=-1) if have_true_h else proxy_hessian_diag(h, damp)
+        return actorder_perm(d, shards)
+
+    def chunk_pack(w_kn, h):
+        """w_kn [Lc, K, N], h [Lc, C, C] or [Lc, S, C] -> packed leaves."""
+        w_oi = w_kn.transpose(-1, -2).float()
+        perm = None
+        if actorder:
+            perm = order(h)
+            idx = perm.long()
+            w_oi = torch.take_along_dim(w_oi, idx[:, None, :], dim=-1)
+        if have_true_h or h.shape[-2] >= h.shape[-1]:
+            hh = h.float() if have_true_h else build_proxy_hessian(h, damp)
+            if perm is not None:
+                hh = torch.take_along_dim(hh, idx[:, :, None], dim=-2)
+                hh = torch.take_along_dim(hh, idx[:, None, :], dim=-1)
+            U = gptq_prepare_factor(hh, damp)
+        else:
+            vv = h if perm is None else torch.take_along_dim(h, idx[:, None, :], dim=-1)
+            U = gptq_prepare_factor_lowrank(vv, damp)
+        _, q, s_all, z_all = gptq_column_sweep(w_oi, U, w_bit, g, bs, return_ints=True,
+                                               orig_dtype=w.dtype)
+        codes = q.transpose(-1, -2).to(torch.uint8).contiguous()  # [Lc, K, N]
+        if w_bit == 4:
+            data = torch.stack([pack_int4(c, g) for c in codes])
+        else:
+            data = (codes.to(torch.int32) - 128).to(torch.int8)
+        out = {"data": data, "scales": s_all.transpose(-1, -2).to(torch.bfloat16).contiguous(),
+               "zeros": z_all.transpose(-1, -2).to(torch.uint8).contiguous()}
+        if perm is not None:
+            out["perm"] = perm
+        return out
+
+    if not has_l:
+        return {k: v[0] for k, v in chunk_pack(w[None], hs[None]).items()}
+    chunk = _gptq_chunk(K, N)
+    parts = [chunk_pack(w[l0:l0 + chunk], hs[l0:l0 + chunk])
+             for l0 in range(0, w.shape[0], chunk)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 def fold_smooth(packed: dict, qmeta, arch: str = "llama"):
@@ -174,11 +452,16 @@ def fold_smooth(packed: dict, qmeta, arch: str = "llama"):
     return out, qmeta
 
 
+SHARED_KEYS = ("smooth", "perm", "codebook")  # applied to the shared input
+
+
 def fuse_packed_sites(packed: dict, qmeta, arch: str = "llama"):
     """Fuse packed sites that share an input into one wider matmul (llama:
     q/k/v -> qkv_proj, gate/up -> gateup_proj). Sites fuse only when every
-    member is packed with the same keys and the same (bits, group, K).
-    Returns (fused params, fused qmeta)."""
+    member is packed with the same keys and the same (bits, group, K), and
+    the keys applied to the shared input (smooth, perm) are equal across
+    the group: one copy is kept. W8A8 ("a8") sites never fuse. Returns
+    (fused params, fused qmeta)."""
     layers = dict(packed["layers"])
     if not (arch == "llama" and "o_proj" in layers and "gate_proj" in layers):
         return packed, qmeta
@@ -187,6 +470,15 @@ def fuse_packed_sites(packed: dict, qmeta, arch: str = "llama"):
         (("gate_proj", "up_proj"), "gateup_proj"),
     ]
     meta = dict(qmeta)
+
+    def shared_equal(parts, key):
+        present = [key in p for p in parts]
+        if not any(present):
+            return True
+        if not all(present):
+            return False
+        s0 = parts[0][key]
+        return all(p[key].shape == s0.shape and bool(torch.equal(p[key], s0)) for p in parts[1:])
 
     def fusable(names):
         parts = [layers.get(n) for n in names]
@@ -198,8 +490,7 @@ def fuse_packed_sites(packed: dict, qmeta, arch: str = "llama"):
             return False
         if any(meta[n][:3] != meta[names[0]][:3] for n in names[1:]):
             return False
-        # input-side keys (later slices) fuse only when shared; none here
-        return not any(k in parts[0] for k in ("smooth", "perm", "codebook"))
+        return all(shared_equal(parts, key) for key in SHARED_KEYS)
 
     for names, fused_name in fuse_groups:
         if not fusable(names):
@@ -208,8 +499,11 @@ def fuse_packed_sites(packed: dict, qmeta, arch: str = "llama"):
         fused = {
             k: torch.cat([p[k] for p in parts], dim=-1)
             for k in parts[0]
-            if parts[0][k] is not None
+            if k not in SHARED_KEYS and parts[0][k] is not None
         }
+        for shared in SHARED_KEYS:
+            if shared in parts[0]:
+                fused[shared] = parts[0][shared]  # equal across the group
         bits, g, K, _ = meta[names[0]]
         N = sum(meta[n][3] for n in names)
         for n in names:

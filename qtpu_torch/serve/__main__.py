@@ -2,14 +2,19 @@
 to end on random-init weights and random prompts.
 
 Usage:
-  python -m qtpu_torch.serve [--model tiny-test] [--method none|rtn]
+  python -m qtpu_torch.serve [--model tiny-test]
+                             [--method none|rtn|awq|smoothquant|gptq] [--a8]
                              [--w-bit 4] [--group 64] [--kv int8|bfloat16]
                              [--requests 4] [--tokens 16] [--batch 4]
                              [--temperature 0.0] [--device cuda|cpu]
 
-The flags and defaults are qtpu's (`python -m qtpu.serve`). On the card a
-decode step needs the int8 KV cache (--kv int8): the bf16-cache decode
-kernel is not ported yet. --http comes with the engine slice.
+The flags and defaults are qtpu's (`python -m qtpu.serve`). awq,
+smoothquant and gptq calibrate on qtpu's four random batches of 64 ids
+(numpy default_rng(0..3)); --a8 serves SmoothQuant W8A8 (per-channel int8
+weights, dynamic int8 activations, kernel K6). On the card a decode step
+needs the int8 KV cache (--kv int8): the bf16-cache decode kernel is not
+ported yet. pot/apot come with the POT/APOT slice and --http with the
+engine slice; both raise.
 """
 
 import argparse
@@ -22,10 +27,13 @@ import numpy as np
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m qtpu_torch.serve", description=__doc__)
     ap.add_argument("--model", default="tiny-test")
-    ap.add_argument("--method", default="rtn", choices=["none", "rtn"])
+    ap.add_argument("--method", default="rtn",
+                    choices=["none", "rtn", "awq", "smoothquant", "gptq", "pot", "apot"])
     ap.add_argument("--w-bit", type=int, default=4)
     ap.add_argument("--group", type=int, default=64)
     ap.add_argument("--kv", default="bfloat16", choices=["bfloat16", "int8"])
+    ap.add_argument("--a8", action="store_true",
+                    help="W8A8: dynamic int8 activations (smoothquant only)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
@@ -47,12 +55,28 @@ def main(argv=None) -> int:
     params = arch.init_params(cfg, seed=args.seed, device=args.device)
     qmeta = None
     if args.method != "none":
-        from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+        from qtpu_torch.quant.apply import (
+            CALIBRATED_METHODS,
+            fold_smooth,
+            fuse_packed_sites,
+            pack_model,
+        )
 
+        stats = None
+        if args.method in CALIBRATED_METHODS:
+            from qtpu_torch.calib import collect_calibration_stats
+
+            batches = [np.random.default_rng(i).integers(0, cfg.vocab_size, (1, 64),
+                                                         dtype=np.int32) for i in range(4)]
+            stats = collect_calibration_stats(arch.forward, params, batches, cfg)
         mcfg = {"w_bit": args.w_bit, "q_group_size": args.group}
-        params, qmeta = pack_model(params, args.method, mcfg, arch=cfg.arch)
+        if args.a8:
+            mcfg.update({"act_quant": True, "w_bit": 8})
+        params, qmeta = pack_model(params, args.method, mcfg, stats, arch=cfg.arch)
+        params, qmeta = fold_smooth(params, qmeta, arch=cfg.arch)
         params, qmeta = fuse_packed_sites(params, qmeta, arch=cfg.arch)
-        print(f"packed model with {args.method} W{args.w_bit} g{args.group}")
+        a8 = "A8" if any(len(m) == 5 for _, m in qmeta) else ""
+        print(f"packed model with {args.method} W{mcfg['w_bit']}{a8} g{args.group}")
 
     eng = ContinuousBatcher(
         params, cfg, qmeta=qmeta, max_batch=args.batch, max_seq_len=args.max_seq,

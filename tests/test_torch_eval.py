@@ -178,8 +178,8 @@ def test_fold_smooth_equals_qtpu():
 
 def test_quantize_model_refuses_unported_methods():
     p = tllama.init_params(tconfig.TINY_TEST, device="cpu")
-    with pytest.raises(NotImplementedError, match="quantizers slice"):
-        tapply.quantize_model(p, "gptq", MCFG)
+    with pytest.raises(NotImplementedError, match="POT/APOT slice"):
+        tapply.quantize_model(p, "pot", MCFG)
 
 
 # ----------------------------------------------------------------- sizes
@@ -376,7 +376,7 @@ def test_runner_sweeps_w_bit():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"quantization_methods": ["rtn", "awq"]}, "quantizers slice"),
+    ({"quantization_methods": ["rtn", "pot"]}, "POT/APOT slice"),
     ({"mesh": {"data": 2, "model": 1, "pipe": 1}}, "sharding slice"),
     ({"checkpoint_path": "/nonexistent"}, "hf_import slice"),
     ({"save_artifacts": {"dir": "x", "method": "rtn"}}, "checkpoints slice"),

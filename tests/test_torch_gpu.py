@@ -219,3 +219,165 @@ def test_forward_on_card_matches_cpu(cuda):
     got = llama.forward(map_tree(params, lambda t: t.to(cuda)), ids.to(cuda), cfg, qmeta)
     torch.cuda.synchronize()
     assert _rel(got.cpu(), want) < 3e-2
+
+
+def _w8_site(g, K, N, dev):
+    """A per-channel asymmetric W8 site (one group spanning K)."""
+    qt = quantize_pack(torch.randn(K, N, generator=g, device=dev) * 0.05, 8, K)
+    return qt.data, qt.scales, qt.zeros, (8, K, K, N)
+
+
+def _k6_err(got, want):
+    """The Pallas kernel's test metric: max |err| / max |ref|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+
+# decode (M <= 8, the split-K GEMV), prefill and eval (M > 8, int8 mma), at
+# TinyLlama's sites and at ragged K (not a multiple of 64) and N
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 77, 300, 1024, 2048])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (5632, 2048), (1000, 388),
+                                 (256, 132)])
+def test_k6_matches_plain(cuda, M, K, N):
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    data, scales, zeros, meta = _w8_site(g, K, N, cuda)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    x[0] = 0  # an all-zero token: the 1e-8 floor of sx
+    n0 = k6.w8a8_matmul.launches
+    got = k6.w8a8_matmul(x, data, scales, zeros, meta + ("a8",))
+    want = k6.w8a8_matmul_plain(x, data, scales, zeros, meta)
+    torch.cuda.synchronize()
+    assert k6.w8a8_matmul.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _k6_err(got, want) < 2e-2
+    # the same integer sums and rounding: nearly every bf16 output is equal
+    assert float((got == want).float().mean()) >= 0.98
+    assert not bool(got[0].any())
+
+
+@pytest.mark.parametrize("M", [5, 8])
+def test_k6_gemv_slices_bounded_by_the_stage(cuda, M):
+    """N wide enough for one slice per column tile to fill the card, K one
+    4-row group past what a block stages (M x rows <= 32768 bytes of xq):
+    the slice is cut to the stage and a second slice takes the rest."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    K, N = k6.GEMV_STAGE // M // 4 * 4 + 4, 528 * k6.GEMV_COLS
+    rows, part = k6.gemv_split(torch.device(cuda), M, K, N)
+    assert M * rows <= k6.GEMV_STAGE and part is not None
+    g = _gen()
+    data, scales, zeros, meta = _w8_site(g, K, N, cuda)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    got = k6.w8a8_matmul(x, data, scales, zeros, meta)
+    want = k6.w8a8_matmul_plain(x, data, scales, zeros, meta)
+    assert _k6_err(got, want) < 2e-2
+    assert float((got == want).float().mean()) >= 0.98
+
+
+def test_k6_on_strided_batches_and_layer_views(cuda):
+    """x [B, T, K] and a layer view W[l] of stacked [L, K, N] weights."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    K, N = 512, 256
+    sites = [_w8_site(g, K, N, cuda) for _ in range(3)]
+    data = torch.stack([s[0] for s in sites])
+    scales = torch.stack([s[1] for s in sites])
+    zeros = torch.stack([s[2] for s in sites])
+    x = torch.randn(2, 7, K, generator=g, device=cuda).to(torch.bfloat16)
+    got = k6.w8a8_matmul(x, data[1], scales[1], zeros[1], sites[1][3])
+    want = k6.w8a8_matmul_plain(x, data[1], scales[1], zeros[1], sites[1][3])
+    torch.cuda.synchronize()
+    assert got.shape == (2, 7, N) and _k6_err(got, want) < 2e-2
+
+
+def test_k6_raises_on_what_it_does_not_take(cuda):
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    data, scales, zeros, meta = _w8_site(g, 256, 128, cuda)
+    x = torch.randn(4, 512, device=cuda).to(torch.bfloat16)[:, ::2]  # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.w8a8_matmul(x, data, scales, zeros, meta)
+    with pytest.raises(ValueError, match="bf16"):
+        k6.w8a8_matmul(x.contiguous().float(), data, scales, zeros, meta)
+    with pytest.raises(ValueError, match="per-channel"):
+        k6.w8a8_matmul(x.contiguous(), data, scales, zeros, (8, 64, 256, 128))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        d, s, z, m = _w8_site(g, 258, 128, cuda)
+        k6.w8a8_matmul(torch.zeros(2, 258, dtype=torch.bfloat16, device=cuda), d, s, z, m)
+
+
+def _tiny_sq_a8():
+    """tiny-test packed SmoothQuant W8A8 (calibrated on the CPU), folded
+    and fused as the serving path uses it."""
+    from qtpu_torch.calib import collect_calibration_stats
+    from qtpu_torch.models import TINY_TEST, llama
+    from qtpu_torch.quant.apply import fold_smooth, fuse_packed_sites, pack_model
+
+    params = llama.init_params(TINY_TEST, seed=2, device="cpu")
+    ids = [torch.randint(0, TINY_TEST.vocab_size, (1, 64), generator=torch.Generator().manual_seed(i))
+           for i in range(2)]
+    stats = collect_calibration_stats(llama.forward, params, ids, TINY_TEST)
+    mcfg = {"w_bit": 8, "q_group_size": 64, "alpha": 0.5, "act_quant": True}
+    return fuse_packed_sites(*fold_smooth(*pack_model(params, "smoothquant", mcfg, stats)))
+
+
+def test_w8a8_serving_on_card_matches_cpu(cuda):
+    """Prefill + 4 decode steps of a SmoothQuant W8A8 model on the int8 KV
+    cache: K6 on every linear (7 per layer + lm_head per call)."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.kernels import int8_matmul as k6
+    from qtpu_torch.models import TINY_TEST as cfg
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    params, qmeta = _tiny_sq_a8()
+    B, T = 3, 20
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(4))
+
+    def run(dev, feed=None):
+        p = map_tree(params, lambda t: t.to(dev))
+        cache = init_cache(cfg, B, T + 8, quantized=True, device=dev)
+        logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta)
+        outs, toks = [logits.float().cpu()], []
+        pos = torch.full((B,), T, dtype=torch.int32, device=dev)
+        for i in range(4):
+            tok = torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[i].to(dev)
+            toks.append(tok.cpu())
+            logits, cache = decode_step(p, tok, pos, cache, cfg, qmeta)
+            outs.append(logits.float().cpu())
+            pos = pos + 1
+        return outs, toks
+
+    want, toks = run("cpu")
+    n0 = k6.w8a8_matmul.launches
+    got, _ = run("cuda", toks)
+    torch.cuda.synchronize()
+    assert k6.w8a8_matmul.launches - n0 == 5 * (7 * cfg.num_layers + 1)
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 3e-2
+
+
+def test_gptq_sweep_on_card_matches_cpu(cuda):
+    """The batched compensated sweep (torch.linalg on the card) against the
+    CPU on the same weights and Hessians: the loss within 1%."""
+    from qtpu_torch.quant import gptq
+
+    g = torch.Generator().manual_seed(5)
+    L, O, C, T = 3, 96, 256, 1024
+    X = torch.randn(L, T, 16, generator=g) @ torch.randn(16, C, generator=g)
+    X = X + 0.1 * torch.randn(L, T, C, generator=g)
+    H = X.transpose(-1, -2) @ X
+    W = torch.randn(L, O, C, generator=g)
+
+    def run(dev):
+        U = gptq.gptq_prepare_factor(H.to(dev))
+        return gptq.gptq_column_sweep(W.to(dev), U, 4, 64, 128).cpu()
+
+    want, got = run("cpu"), run(cuda)
+    for l in range(L):
+        loss = [float(torch.trace((q[l] - W[l]) @ H[l] @ (q[l] - W[l]).T)) for q in (got, want)]
+        assert abs(loss[0] / loss[1] - 1) < 1e-2

@@ -174,5 +174,5 @@ def test_serve_cli_on_cpu(capsys):
     assert "packed model with rtn W4 g64" in out and "2 requests, 6 tokens" in out
     with pytest.raises(NotImplementedError, match="engine slice"):
         serve_main(["--device", "cpu", "--http", "8080"])
-    with pytest.raises(NotImplementedError, match="quantizers slice"):
-        pack_model(llama.init_params(CFG, device="cpu"), "awq", {"w_bit": 4})
+    with pytest.raises(NotImplementedError, match="POT/APOT slice"):
+        pack_model(llama.init_params(CFG, device="cpu"), "apot", {"w_bit": 4})
