@@ -8,15 +8,17 @@ Phases, each printing one JSON line:
   device   the card's name, count, and nvidia-smi's name and power limit
   build    nvcc builds every kernel source (in parallel), with the -Xptxas -v
            register and shared-memory report
-  kernels  K1-K6 against their plain PyTorch versions at the shapes of the
+  kernels  K1-K8 against their plain PyTorch versions at the shapes of the
            main paths (TinyLlama-1.1B, batch 8, prompt 128, W4 g128; K5 at
            one layer of an eval block of 2048 tokens; K6 at M = 8, 1024 and
-           2048 on every W8A8 site), with times: kernel, plain version, one
+           2048 on every W8A8 site, K7 on every fused codebook site; K8 on
+           the serve cell's bf16 cache), with times: kernel, plain version, one
            PyTorch library call where one computes the same function, and
            the bound from bytes and operations at 3.35 TB/s and 989 TFLOP/s
            bf16 or 1,979 TOP/s int8 (H100 SXM data sheet)
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
-           the card against the same on the CPU (plain versions)
+           the card against the same on the CPU (plain versions), RTN W4 on
+           the int8 KV cache and POT W4 on the bf16 cache
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
@@ -50,6 +52,20 @@ Phases, each printing one JSON line:
            K2/K3 per decode step, no K1/K4), a profile of one prefill and one
            16-step decode block, then `python -m qtpu_torch.serve --method
            smoothquant --a8 --kv int8` (its main())
+  pot_apot the POT/APOT path at full width through `python -m
+           qtpu_torch.bench` (main() in this process): TinyLlama-1.1B, the
+           fixture's 4 test blocks of 2048, POT and APOT W4 g128 fake-quant
+           and packed (K7) perplexity, sizes, and the serving pseudo-method
+           on the POT artifact with the bf16 KV cache (K8), launch counts
+           checked; then each method's quantize and pack time, a profiler
+           split of a packed block, and pot/apot codes of one full-width
+           site on the card against the CPU
+  serve_bf16  the serving engine at full width on POT W4 g128 with fused
+           sites and the bf16 KV cache (8 requests of prompt 128 and 32 new
+           tokens) with launch counts checked (K7 on every linear, K8 per
+           decode step, no K1-K4), a profile of one prefill and one 16-step
+           decode block, then `python -m qtpu_torch.serve --method apot`
+           (its main(), the default bf16 cache)
 
 The last lines are the nvidia-smi line, the `kernels` JSON line and
 {"ok": true, "device": {...}}. Any failed check raises, and the script then
@@ -67,7 +83,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "eval", "quant", "serve_w8a8")
+PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "eval", "quant", "serve_w8a8",
+          "pot_apot", "serve_bf16")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -360,6 +377,10 @@ def phase_kernels(torch, ctx):
     detail["flash_attention"] = k5r
     k6r = _k6_rows(torch, gen, dev)
     detail["w8a8_matmul"] = k6r
+    k7r = _k7_rows(torch, gen, dev)
+    detail["codebook_matmul"] = k7r
+    k8r = _k8_row(torch, gen, dev, cfg)
+    detail["decode_attention_write_bf16"] = k8r
     emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
 
     # one entry per kernel, at the work of one decode step (B = 8):
@@ -414,6 +435,25 @@ def phase_kernels(torch, ctx):
             "max_abs_err": max(r["max_abs_err"] for r in k6r.values()),
             **{key: _k6_block(k6r, key, L) for key in ("ms", "plain_ms", "bound_ms")},
             "bound_by": _k6_bound_by(k6r, L), "library_ms": _k6_block(k6r, "int_mm_ms", L),
+        },
+        # K7 at the work of one decode step of the codebook model (M = 8):
+        # L x (qkv, o, gateup, down) + lm_head; library: torch.matmul on the
+        # weight dequantized to bf16 beforehand
+        "codebook_matmul": {
+            "route": "cuda", "source": "qtpu_torch/csrc/codebook_matmul.cu",
+            "replaces": "qtpu/kernels/pallas_dequant_matmul.py:324",
+            "max_abs_err": max(r["max_abs_err"] for r in k7r.values()),
+            **{key: _k7_step(k7r, key, L) for key in ("ms", "plain_ms", "bound_ms",
+                                                      "library_ms")},
+            "bound_by": "bytes",
+        },
+        # K8 at the work of one decode step: L calls
+        "decode_attention_write_bf16": {
+            "route": "cuda", "source": "qtpu_torch/csrc/kv_attention.cu",
+            "replaces": "qtpu/kernels/pallas_kv_attention.py:262",
+            "max_abs_err": max(k8r[w]["max_abs_err"] for w in ("window0", "window64")),
+            "ms": L * k8r["ms"], "plain_ms": L * k8r["plain_ms"], "bound_ms": L * k8r["bound_ms"],
+            "bound_by": k8r["bound_by"], "library_ms": L * k8r["library_ms"],
         },
     }
 
@@ -493,6 +533,140 @@ def _k6_bound_by(rows, L, m="eval"):
     return "operations" if ops >= _k6_block(rows, "bound_ms", L, m) / 2 else "bytes"
 
 
+# K7: (K, N) of TinyLlama-1.1B's fused codebook sites, their calls per layer
+K7_SITES = {"qkv": (2048, 2560), "o": (2048, 2048), "gateup": (2048, 11264),
+            "down": (5632, 2048), "lm_head": (2048, 32000)}
+K7_M = {"decode": 8, "prefill": 1024, "eval": EVAL_BLOCK}
+K7_GROUP = 128
+
+
+def _codebook_site(torch, gen, dev, K, N, cb, group=K7_GROUP):
+    """A [K, N] codebook site of random int4 codes and scales."""
+    data = torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev).to(torch.int8)
+    scales = (torch.rand(K // group, N, generator=gen, device=dev) * 4e-3 + 1e-3)
+    return data, scales.to(torch.bfloat16), cb
+
+
+def _k7_rows(torch, gen, dev):
+    """K7 against its plain version at every fused codebook site of
+    TinyLlama at decode, prefill and eval M, on the POT levels (exact in
+    bf16), and on the APOT levels (not exact) at one site per M (tolerance:
+    the Pallas kernel's test, relative Frobenius < 2e-2 and atol 5% of the
+    max), with times: the kernel, the plain version, torch.matmul on the
+    weight dequantized to bf16 beforehand (the yardstick), and the bound."""
+    from qtpu_torch.kernels import codebook_matmul as k7
+    from qtpu_torch.quant.apot import full_apot_codebook
+    from qtpu_torch.quant.pot import pot_codebook
+
+    pot_cb = pot_codebook(4, device=dev)
+    apot_cb = torch.from_numpy(full_apot_codebook(4, 2, 16)).to(dev)
+    rows = {}
+
+    def check(name, M, K, N, site, timed, group=K7_GROUP):
+        data, scales, cb = site[0]
+        meta = (4, group, K, N)
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        got = k7.codebook_matmul(x, data, scales, cb, meta)
+        want = k7.codebook_matmul_plain(x, data, scales, cb, meta)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        row = {"M": M, "K": K, "N": N, "group": group, "rel_err": rel_err(torch, got, want),
+               "max_abs_err": float(diff.max()), "max_ref": float(want.float().abs().max()),
+               "tol": "rel 2e-2, atol 5% of max |ref|"}
+        if (row["rel_err"] >= 2e-2 or row["max_abs_err"] > 0.05 * row["max_ref"]
+                or not torch.isfinite(got.float()).all()):
+            raise AssertionError(f"K7 disagrees with its plain version: {name} {row}")
+        rows[name] = row
+        if not timed:
+            return
+        wbytes = K * N / 2 + (K // K7_GROUP) * N * 2 + 64
+        row["bound_ms"], row["bound_by"] = bound(wbytes + M * K * 2 + M * N * 2, 2 * M * K * N)
+        row["ms"], row["timing"] = cuda_ms(
+            torch, [lambda s=s: k7.codebook_matmul(x, *s, meta) for s in site], wbytes)
+        row["plain_ms"], _ = cuda_ms(
+            torch, [lambda s=s: k7.codebook_matmul_plain(x, *s, meta) for s in site], wbytes)
+        nlib = max(1, min(len(site), math.ceil(2 * L2_BYTES / (K * N * 2))))
+        wd = [k7.codebook_weight(*s, meta, torch.bfloat16) for s in site[:nlib]]
+        row["library_ms"], _ = cuda_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wd],
+                                       K * N * 2)
+
+    for sname, (K, N) in K7_SITES.items():
+        wbytes = K * N / 2 + (K // K7_GROUP) * N * 2
+        copies = max(1, min(64, math.ceil(2 * L2_BYTES / wbytes)))
+        site = [_codebook_site(torch, gen, dev, K, N, pot_cb) for _ in range(copies)]
+        for mname, M in K7_M.items():
+            check(f"{sname}_{mname}", M, K, N, site, True)
+        if sname == "gateup":
+            apot_site = [_codebook_site(torch, gen, dev, K, N, apot_cb)]
+            for mname, M in K7_M.items():
+                check(f"{sname}_{mname}_apot", M, K, N, apot_site, False)
+        del site
+    for M in (3, 8, 77, 1024):  # ragged M, and the serve CLI's default group of 64
+        for group in (64, 128):
+            check(f"m{M}_g{group}", M, 2048, 2560,
+                  [_codebook_site(torch, gen, dev, 2048, 2560, pot_cb, group)], False, group)
+    return rows
+
+
+K7_PER_LAYER = ("qkv", "o", "gateup", "down")
+
+
+def _k7_step(rows, key, L, m="decode"):
+    """A K7 column summed over the calls of one decode step (or block)."""
+    return L * sum(rows[f"{s}_{m}"][key] for s in K7_PER_LAYER) + rows[f"lm_head_{m}"][key]
+
+
+def _k8_row(torch, gen, dev, cfg):
+    """K8 against its plain version on the serve cell's bf16 cache (B 8,
+    S 176, one slot inactive at pos = S), with and without a window of 64:
+    the cache after the write equal to the plain write, the output within
+    rtol/atol 3e-2 (the Pallas kernel's test); times over the L layers:
+    kernel, plain version (eager), SDPA on the cache after a plain write
+    (the yardstick) and the bound."""
+    from qtpu_torch.kernels import kv_attention as k8
+
+    B, S, L = SERVE_B, 176, cfg.num_layers
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k_all = torch.randn(L, B, KV, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    v_all = torch.randn(L, B, KV, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=dev)
+    row = {}
+    for window in (0, 64):
+        kc, vc, kp, vp = k_all.clone(), v_all.clone(), k_all.clone(), v_all.clone()
+        got = k8.decode_attention_write_bf16(q, kn, vn, kc, vc, pos, 5, window=window)
+        want = k8.decode_attention_write_bf16_plain(q, kn, vn, kp, vp, pos, 5, window=window)
+        torch.cuda.synchronize()
+        gt, wt = got[:-1].float(), want[:-1].float()  # the inactive slot is garbage by contract
+        r = {"max_abs_err": float((gt - wt).abs().max()), "rel_err": rel_err(torch, gt, wt),
+             "cache_equal": bool(torch.equal(kc, kp) and torch.equal(vc, vp)),
+             "finite_inactive_row": bool(torch.isfinite(got[-1].float()).all()),
+             "tol": "cache equal; rtol/atol 3e-2"}
+        row[f"window{window}"] = r
+        if (not r["cache_equal"] or not r["finite_inactive_row"]
+                or not torch.allclose(gt, wt, rtol=3e-2, atol=3e-2)):
+            raise AssertionError(f"K8 disagrees with its plain version: {row}")
+    rows_read = sum(min(int(p), S - 1) + 1 for p in pos.tolist())
+    active = sum(1 for p in pos.tolist() if p < S)
+    nbytes = rows_read * KV * hd * 2 * 2 + active * KV * hd * 2 * 2 * 2 + 2 * B * H * hd * 2
+    row["bound_ms"], row["bound_by"] = bound(nbytes, rows_read * H * hd * 4)
+    row["ms"], row["timing"] = cuda_ms(
+        torch, [lambda l=l: k8.decode_attention_write_bf16(q, kn, vn, k_all, v_all, pos, l)
+                for l in range(L)], nbytes)
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k8.decode_attention_write_bf16_plain(q, kn, vn, k_all, v_all, pos, l)
+                for l in range(L)], nbytes, reps=L, graph=False)
+    mask = k8.cache_mask(pos[:, None], S)[:, None]  # [B, 1, 1, S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda l=l: sdpa(q[:, :, None], k_all[l], v_all[l], attn_mask=mask,
+                                 enable_gqa=True) for l in range(L)], nbytes)
+    row["library_call"] = "scaled_dot_product_attention(enable_gqa=True) on the written cache"
+    return row
+
+
 def _k5_rows(torch, gen, dev, cfg):
     """K5 against its plain version at the eval shape (one layer of a
     TinyLlama eval block: B 1, H 32, KV 4, S 2048, hd 64) without and with a
@@ -545,7 +719,9 @@ def _k5_rows(torch, gen, dev, cfg):
 
 def phase_e2e(torch, ctx):
     """2 layers at TinyLlama widths: the card (kernels) against the CPU
-    (plain versions), same packed weights, prefill + 4 decode steps."""
+    (plain versions), same packed weights, prefill + 4 decode steps: RTN W4
+    on the int8 KV cache (K1-K4), and POT W4 on the bf16 cache (K7, K8; the
+    POT scale search runs on the card, its bytes go to both)."""
     from qtpu_torch.convert import map_tree
     from qtpu_torch.models import llama
     from qtpu_torch.models.config import TINYLLAMA_1_1B
@@ -554,37 +730,45 @@ def phase_e2e(torch, ctx):
     from qtpu_torch.serve.kvcache import init_cache
 
     cfg = TINYLLAMA_1_1B.replace(num_layers=2)
-    params = llama.init_params(cfg, seed=7, device="cpu")
-    params, qmeta = pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 128})
-    params, qmeta = fuse_packed_sites(params, qmeta)
     B, T, steps = 4, 32, 4
     ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(3))
+    for method, kv, build_dev in (("rtn", "int8", "cpu"), ("pot", "bfloat16", "cuda")):
+        params = llama.init_params(cfg, seed=7, device=build_dev)
+        params, qmeta = fuse_packed_sites(*pack_model(params, method,
+                                                      {"w_bit": 4, "q_group_size": 128}))
+        params = map_tree(params, lambda t: t.cpu())
 
-    def run(dev, feed=None):
-        p = map_tree(params, lambda t: t.to(dev))
-        cache = init_cache(cfg, B, T + steps + 8, quantized=True, device=dev)
-        logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta)
-        outs = [logits.float().cpu()]
-        toks = []
-        posn = torch.full((B,), T, dtype=torch.int32, device=dev)
-        for i in range(steps):
-            tok = torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[i].to(dev)
-            toks.append(tok.cpu())
-            logits, cache = decode_step(p, tok, posn, cache, cfg, qmeta)
-            outs.append(logits.float().cpu())
-            posn = posn + 1
-        return outs, toks
+        def run(dev, feed=None):
+            p = map_tree(params, lambda t: t.to(dev))
+            cache = init_cache(cfg, B, T + steps + 8, quantized=kv == "int8", device=dev)
+            logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta)
+            outs = [logits.float().cpu()]
+            toks = []
+            posn = torch.full((B,), T, dtype=torch.int32, device=dev)
+            for i in range(steps):
+                tok = torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[i].to(dev)
+                toks.append(tok.cpu())
+                logits, cache = decode_step(p, tok, posn, cache, cfg, qmeta)
+                outs.append(logits.float().cpu())
+                posn = posn + 1
+            return outs, toks
 
-    # teacher-forced: the card is fed the CPU run's greedy tokens
-    cpu, toks = run("cpu")
-    gpu, _ = run("cuda", toks)
-    errs = [rel_err(torch, a, b) for a, b in zip(gpu, cpu)]
-    top1 = [float((a.argmax(-1) == b.argmax(-1)).float().mean()) for a, b in zip(gpu, cpu)]
-    res = {"phase": "e2e", "layers": 2, "B": B, "prompt": T, "decode_steps": steps,
-           "rel_err_per_step": errs, "top1_agree": top1, "tol_rel": 3e-2}
-    emit(res)
-    if max(errs) >= 3e-2:
-        raise AssertionError(f"card and CPU logits differ: {res}")
+        # teacher-forced: the card is fed the CPU run's greedy tokens
+        _reset_counts()
+        cpu, toks = run("cpu")
+        gpu, _ = run("cuda", toks)
+        counts = _counts()
+        errs = [rel_err(torch, a, b) for a, b in zip(gpu, cpu)]
+        top1 = [float((a.argmax(-1) == b.argmax(-1)).float().mean()) for a, b in zip(gpu, cpu)]
+        res = {"phase": "e2e", "method": f"{method} W4 g128", "kv": kv, "layers": 2, "B": B,
+               "prompt": T, "decode_steps": steps, "rel_err_per_step": errs, "top1_agree": top1,
+               "launches": counts, "tol_rel": 3e-2}
+        emit(res)
+        if max(errs) >= 3e-2:
+            raise AssertionError(f"card and CPU logits differ: {res}")
+        if method == "pot" and (counts["codebook_matmul"] != (steps + 1) * (4 * 2 + 1)
+                                or counts["decode_attention_write_bf16"] != steps * 2):
+            raise AssertionError(f"the POT bf16 run missed K7/K8: {counts}")
 
 
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
@@ -638,7 +822,7 @@ def phase_serve(torch, ctx):
         "decode_attention": L * steps,
         "fused_mlp": L * steps,
         "flash_attention": 0,
-        "w8a8_matmul": 0,
+        "w8a8_matmul": 0, **NO_CODEBOOK,
     }
     tokens = sum(len(r.output) for r in done)
     res = {"phase": "serve", "model": "TinyLlama-1.1B", "layers": L, "method": "rtn W4 g128",
@@ -795,7 +979,7 @@ def phase_eval(torch, ctx):
         "dequant_matmul": (4 * L + 1) * nb + runs * (4 * L + 1) + steps * (2 * L + 1),
         "cache_band_write": steps * L, "decode_attention": steps * L, "fused_mlp": steps * L,
         "flash_attention": 3 * nb * L,  # raw, fake-quant and packed evals
-        "w8a8_matmul": 0,
+        "w8a8_matmul": 0, **NO_CODEBOOK,
     }
     res = saved["results"]
     raw, rt, sv = res.get("raw", {}), res.get("rtn", {}), res.get("serving", {})
@@ -879,7 +1063,10 @@ WRAPPERS = {  # kernel -> (module, wrapper name)
     "fused_mlp": ("fused_mlp", "fused_mlp"),
     "flash_attention": ("flash_attention", "flash_attention"),
     "w8a8_matmul": ("int8_matmul", "w8a8_matmul"),
+    "codebook_matmul": ("codebook_matmul", "codebook_matmul"),
+    "decode_attention_write_bf16": ("kv_attention", "decode_attention_write_bf16"),
 }
+NO_CODEBOOK = {"codebook_matmul": 0, "decode_attention_write_bf16": 0}  # paths without K7/K8
 
 
 def _wrappers():
@@ -900,9 +1087,12 @@ def _counts():
 
 def _kind(name: str) -> str:
     """The kernel of a profiled CUDA kernel's name, for the splits by kind."""
+    if "dq_" in name and any(t in name for t in (", 3>", "dq_finish<3>", ", true>")):
+        return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
     for tag, kind in (("w8a8", "K6 w8a8_matmul"), ("flash_attn_kernel", "K5 flash_attention"),
-                      ("band_write", "K2 cache_band_write"), ("decode_attn", "K3 decode_attention"),
-                      ("dq_", "K1 dequant_matmul")):
+                      ("band_write", "K2 cache_band_write"),
+                      ("decode_attn_kernel<true>", "K8 decode_attention_write_bf16"),
+                      ("decode_attn", "K3 decode_attention"), ("dq_", "K1 dequant_matmul")):
         if tag in name:
             return kind
     low = name.lower()
@@ -975,7 +1165,7 @@ def phase_quant(torch, ctx):
         "cache_band_write": steps * L, "decode_attention": steps * L, "fused_mlp": 0,
         # raw, 3 fake-quant and 3 packed evals; two calibrations (gptq needs the Hessians)
         "flash_attention": 7 * nb * L + 2 * CALIB_BLOCKS * L,
-        "w8a8_matmul": (nb + runs + steps) * a8,
+        "w8a8_matmul": (nb + runs + steps) * a8, **NO_CODEBOOK,
     }
     res = saved["results"]
     ppl = {m: {"fake": res.get(m, {}).get("perplexity"),
@@ -1108,7 +1298,8 @@ def phase_serve_w8a8(torch, ctx):
     m = eng.metrics()
     L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
     expect = {"dequant_matmul": 0, "cache_band_write": L * steps, "decode_attention": L * steps,
-              "fused_mlp": 0, "flash_attention": 0, "w8a8_matmul": (7 * L + 1) * (steps + pre)}
+              "fused_mlp": 0, "flash_attention": 0, "w8a8_matmul": (7 * L + 1) * (steps + pre),
+              **NO_CODEBOOK}
     tokens = sum(len(r.output) for r in done)
     emit({"phase": "serve_w8a8", "model": "TinyLlama-1.1B", "layers": L,
           "method": "smoothquant W8A8 alpha 0.5", "kv": "int8", "requests": len(done),
@@ -1153,6 +1344,266 @@ def phase_serve_w8a8(torch, ctx):
         raise AssertionError(f"the serve CLI run failed: rc {rc}, launches {cli}")
 
 
+CODEBOOK_MCFG = {"pot": {"w_bit": 4, "q_group_size": 128},
+                 "apot": {"w_bit": 4, "q_group_size": 128, "k": 2}}
+CB_PER_FORWARD = 4 * 22 + 1  # K7 calls per forward of the fused TinyLlama: 4 sites a layer + lm_head
+
+
+def _tinyllama_params_count(cfg) -> int:
+    """Elements of TinyLlama's params, counted from its dimensions."""
+    D, F, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    Q, KV = cfg.q_dim, cfg.kv_dim
+    return 2 * V * D + D + L * (2 * D + D * Q + 2 * D * KV + Q * D + 3 * D * F)
+
+
+def phase_pot_apot(torch, ctx):
+    """The POT/APOT path at full width through `python -m qtpu_torch.bench`
+    (main() in this process): TinyLlama-1.1B (22 layers, random weights
+    from seed 0), the fixture's 4 test blocks of 2048, POT and APOT W4
+    g128 fake-quant and packed eval (K7 on every linear, K5 for the
+    attention) and the serving pseudo-method on the POT artifact with the
+    bf16 KV cache (K8). Checks perplexities, sizes and every launch count;
+    then each method's quantize and pack time, a profiler split of one warm
+    packed block, and pot/apot codes of layer 0's gate_proj on the card
+    against the CPU."""
+    import tempfile
+
+    from qtpu_torch.bench import runner
+    from qtpu_torch.bench.__main__ import main as bench_main
+    from qtpu_torch.core.dtypes import MiB
+    from qtpu_torch.data.fixture import load_fixture_test
+    from qtpu_torch.eval import evaluate_perplexity
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.quant import apot, pot
+    from qtpu_torch.quant.apply import _parity_grid, fuse_packed_sites, pack_model, quantize_model
+
+    fixture = f"fixture:{FIXTURE_DIR}"
+    methods = list(CODEBOOK_MCFG)
+    config = {
+        "model_name": "tinyllama-random", "quantization_methods": methods,
+        "calibration_dataset": fixture, "n_calibration_samples": CALIB_BLOCKS,
+        "calibration_block_size": CALIB_BLOCK,
+        "test_dataset": fixture, "n_test_samples": EVAL_BLOCKS, "test_block_size": EVAL_BLOCK,
+        "quantization_config": CODEBOOK_MCFG, "packed_eval": True,
+        "serving": {"benchmark": True, "kv_cache_dtype": "bfloat16", "max_batch_size": 8,
+                    "pack_method": "pot"},
+        "seed": 0, "device": "cuda", "verbose": True,
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, out_path = Path(tmp) / "config.json", Path(tmp) / "results.json"
+        cfg_path.write_text(json.dumps(config))
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = bench_main([str(cfg_path), "--out", str(out_path)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        saved = json.loads(out_path.read_text())
+
+    L, nb = cfg.num_layers, EVAL_BLOCKS
+    steps = runner.SERVE_WARM_STEPS + runner.SERVE_STEPS
+    runs = 2  # benchmark_serving: a warm run, then the timed run
+    expect = {
+        "dequant_matmul": 0, "cache_band_write": 0, "decode_attention": 0, "fused_mlp": 0,
+        "flash_attention": 5 * nb * L,  # raw, 2 fake-quant and 2 packed evals
+        "w8a8_matmul": 0,
+        "codebook_matmul": (2 * nb + runs + steps) * CB_PER_FORWARD,
+        "decode_attention_write_bf16": steps * L,
+    }
+    res = saved["results"]
+    ppl = {m: {"fake": res.get(m, {}).get("perplexity"),
+               "packed": res.get(m, {}).get("packed_perplexity")} for m in methods}
+    gap = {m: (p["packed"] / p["fake"] - 1) if p["packed"] and p["fake"] else None
+           for m, p in ppl.items()}
+    bits = 4 + 16 / 128  # reference size model without a zero point
+    want_mb = _tinyllama_params_count(cfg) * bits / (8 * MiB)
+    out = {"phase": "pot_apot", "model": "TinyLlama-1.1B", "layers": L, "blocks": nb,
+           "block_size": EVAL_BLOCK, "methods": CODEBOOK_MCFG, "rc": rc, "wall_s": wall,
+           "raw_perplexity": res.get("raw", {}).get("perplexity"), "perplexity": ppl,
+           "packed_vs_fake": gap,
+           "model_size_mb": {m: res.get(m, {}).get("model_size_mb") for m in methods},
+           "expected_size_mb": want_mb,
+           "bits_per_byte": {m: res.get(m, {}).get("bits_per_byte") for m in methods},
+           "runtime_s": {k: v.get("runtime_seconds") for k, v in res.items()},
+           "serving_tokens_per_s": res.get("serving", {}).get("tokens_per_second"),
+           "errors": {k: v.get("error") or v.get("packed_error") for k, v in res.items()},
+           "peak_mem_gib": peak_gib, "launches": counts, "expected_launches": expect,
+           "codebook_per_packed_block": CB_PER_FORWARD, "card": ctx["smi"]}
+    emit(out)
+    if rc != 0 or any(out["errors"].values()) or set(res) != {"raw", *methods, "serving"}:
+        raise AssertionError(f"the benchmark run failed: {out['errors']}")
+    for m, p in ppl.items():
+        if not all(v is not None and math.isfinite(v) for v in p.values()):
+            raise AssertionError(f"{m}: perplexities not finite: {p}")
+    # POT's packed codes are its fake-quant values; APOT packs 16 of fake's 32 levels
+    if abs(gap["pot"]) >= 2e-2 or abs(gap["apot"]) >= 0.25:
+        raise AssertionError(f"packed perplexity too far from fake-quant: {gap}")
+    for m in methods:
+        if (abs(out["model_size_mb"][m] / want_mb - 1) > 1e-9
+                or out["bits_per_byte"][m] != bits / 2):  # bits per bf16 byte pair
+            raise AssertionError(f"{m}: size {out['model_size_mb'][m]} MB, "
+                                 f"{out['bits_per_byte'][m]} bits per byte != {want_mb}, {bits / 2}")
+    if counts != expect:
+        raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    if not res["serving"].get("tokens_per_second"):
+        raise AssertionError("the serving pseudo-method measured nothing")
+    ctx.setdefault("path_launches", {})["pot_apot"] = counts
+
+    # each method's quantize and pack, timed on the host around a synchronize;
+    # the POT artifact is kept for serve_bf16
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    ids = load_fixture_test(str(FIXTURE_DIR))
+    times, per_block, profiles = {}, {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return r
+
+    for m, mcfg in CODEBOOK_MCFG.items():
+        q = timed(f"quantize_{m}", lambda: quantize_model(params, m, mcfg))
+        del q
+        p, qm = timed(f"pack_{m}", lambda: fuse_packed_sites(*pack_model(params, m, mcfg)))
+        evaluate_perplexity(p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm)  # warm
+        timed("eval3", lambda: evaluate_perplexity(p, ids, cfg, n_samples=3,
+                                                   block_size=EVAL_BLOCK, qmeta=qm))
+        per_block[m] = times.pop("eval3") / 3
+        profiles[m] = _profiled(torch, lambda: evaluate_perplexity(
+            p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm), 1, classify=_kind)
+        if m == "pot":
+            ctx["tinyllama_pot"] = (p, qm)
+        del p
+    emit({"phase": "pot_apot_timing", "seconds": times, "s_per_packed_block": per_block,
+          "profile_packed_block": profiles, "card": ctx["smi"]})
+
+    # one full-width site, layer 0's gate_proj [2048, 5632], on the card and
+    # on the CPU: the scale race's decisions are elementwise IEEE operations
+    w = params["layers"]["gate_proj"]["w"][0]
+    del params
+    torch.cuda.empty_cache()
+    K, N = w.shape
+    site = {}
+    for m in methods:
+        gv = _parity_grid(CODEBOOK_MCFG[m], 0.01 if m == "pot" else 0.05,
+                          None if m == "pot" else K * N)
+        fn = (lambda x: pot.pot_quantize_codes(x, 4, 128, grid_values=gv)) if m == "pot" else \
+            (lambda x: apot.apot_quantize_codes(x, 4, 128, grid_values=gv)[:2])
+        t0 = time.perf_counter()
+        c_card, s_card = fn(w)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c_cpu, s_cpu = fn(w.cpu())
+        t_cpu = time.perf_counter() - t0
+        site[m] = {"codes_differing": int((c_card.cpu() != c_cpu).sum()),
+                   "scales_differing": int((s_card.cpu() != s_cpu).sum()),
+                   "codes": c_cpu.numel(), "scales": s_cpu.numel(),
+                   "card_s": t_card, "cpu_s": t_cpu}
+    emit({"phase": "pot_apot_card_vs_cpu", "site": "layer 0 gate_proj", "K": K, "N": N,
+          "group": 128, "results": site, "tol": "at most 0.1% differing", "card": ctx["smi"]})
+    for m, r in site.items():
+        if r["codes_differing"] > 1e-3 * r["codes"] or r["scales_differing"] > 1e-3 * r["scales"]:
+            raise AssertionError(f"{m}: card and CPU codes differ: {r}")
+
+
+def phase_serve_bf16(torch, ctx):
+    """The serving engine at full width on POT W4 g128 with fused sites
+    and the bf16 KV cache: TinyLlama-1.1B (random weights from seed 0), 8
+    requests of prompt 128 and 32 new tokens; launch counts per prefill
+    call and decode step (K7 on every linear, K8 on every layer of a decode
+    step, no K1-K4); a profile of one warm prefill and one 16-step decode
+    block; then the serve CLI's main() with --method apot at its default
+    bf16 cache."""
+    import numpy as np
+
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.__main__ import main as serve_main
+    from qtpu_torch.serve.batching import ContinuousBatcher
+    from qtpu_torch.serve.decode import decode_multi, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    t0 = time.perf_counter()
+    if "tinyllama_pot" not in ctx:
+        params = llama.init_params(cfg, seed=0, device="cuda")
+        ctx["tinyllama_pot"] = fuse_packed_sites(*pack_model(params, "pot",
+                                                              CODEBOOK_MCFG["pot"]))
+        del params
+    params, qmeta = ctx.pop("tinyllama_pot")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                            kv_dtype="bfloat16", seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    for _ in range(B):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    m = eng.metrics()
+    L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
+    expect = {"dequant_matmul": 0, "cache_band_write": 0, "decode_attention": 0, "fused_mlp": 0,
+              "flash_attention": 0, "w8a8_matmul": 0,
+              "codebook_matmul": CB_PER_FORWARD * (steps + pre),
+              "decode_attention_write_bf16": L * steps}
+    tokens = sum(len(r.output) for r in done)
+    emit({"phase": "serve_bf16", "model": "TinyLlama-1.1B", "layers": L,
+          "method": "pot W4 g128", "kv": "bfloat16", "requests": len(done),
+          "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall, "setup_s": setup_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "decode_steps": steps,
+          "prefill_calls": pre, "launches": counts, "expected_launches": expect,
+          "card": ctx["smi"], "metrics": m})
+    if len(done) != B:
+        raise AssertionError(f"{len(done)} of {B} requests finished")
+    for r in done:
+        if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
+    if counts != expect or steps == 0:
+        raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    ctx.setdefault("path_launches", {})["serve_bf16"] = counts
+
+    cache = init_cache(cfg, B, P + SERVE_NEW + 16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    logits, cache = prefill(params, ids, cache, cfg, qmeta)  # warm
+    pre_prof = _profiled(torch, lambda: prefill(params, ids, cache, cfg, qmeta), 1,
+                         classify=_kind)
+    emit({"phase": "profile_bf16", "what": "prefill", "batch": B, "prompt": P, **pre_prof,
+          "card": ctx["smi"]})
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    decode_multi(params, tok, pos, cache, None, None, cfg, 4, qmeta)  # warm
+    n = 16
+    dec = _profiled(torch, lambda: decode_multi(params, tok, pos, cache, None, None, cfg, n,
+                                                qmeta), n, classify=_kind)
+    emit({"phase": "profile_bf16", "what": "decode", "batch": B, "decode_steps": n, **dec,
+          "card": ctx["smi"]})
+    del eng, cache, params
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    rc = serve_main(["--method", "apot"])
+    cli = _counts()
+    emit({"phase": "serve_bf16_cli", "argv": "--method apot", "rc": rc, "launches": cli})
+    if (rc != 0 or cli["codebook_matmul"] == 0 or cli["decode_attention_write_bf16"] == 0
+            or cli["dequant_matmul"] != 0):
+        raise AssertionError(f"the serve CLI run failed: rc {rc}, launches {cli}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1187,7 +1638,7 @@ def main(argv=None) -> int:
     print(ctx["smi"], flush=True)
     if "kernel_rows" in ctx:
         # launches: the sum over the main paths' runs (serve, eval, quant,
-        # serve_w8a8), each counted from 0 just before it
+        # serve_w8a8, pot_apot, serve_bf16), each counted from 0 just before it
         paths = ctx.get("path_launches", {}).values()
         emit({"kernels": [
             {"name": name, "launches": sum(c.get(name, 0) for c in paths), **row}

@@ -1,12 +1,13 @@
 """Config-driven benchmark orchestrator (port of qtpu/bench/runner.py,
-reference benchmark_runner.py:91-743) for the methods raw, rtn, awq, gptq
-and smoothquant.
+reference benchmark_runner.py:91-743) for the methods raw, rtn, awq, gptq,
+pot, apot and smoothquant.
 
 The phases are qtpu's: setup -> raw baseline -> per method (and per w_bit
 of a sweep) calibrate if the method needs it, quantize + eval with
 per-method error isolation -> the packed-vs-fake audit (`packed_eval`: the
-really-packed artifact through K1/K5, and K6 for SmoothQuant W8A8) -> the
-optional serving pseudo-method -> the summary table with improvements vs
+really-packed artifact through K1/K5, K6 for SmoothQuant W8A8 and K7 for
+POT/APOT codebooks) -> the optional serving pseudo-method (int8 or bf16 KV
+cache) -> the summary table with improvements vs
 raw -> the reference-schema results JSON. Weights are random from the
 config's seed (torch.Generator, so not qtpu's numbers). Calibration
 statistics are collected once and reused; GPTQ with error compensation
@@ -15,8 +16,8 @@ none (qtpu's rule).
 
 What the port does not have yet is refused by `setup` with
 NotImplementedError naming its slice (`refuse_unported`), never recorded
-as a per-method error row: pot/apot, a mesh above one device, checkpoints,
-artifacts and trace profiling.
+as a per-method error row: a mesh above one device, checkpoints, artifacts
+and trace profiling.
 
 CLI:  python -m qtpu_torch.bench <config.json> [--out results.json] [--device cpu]
 """
@@ -41,7 +42,6 @@ from qtpu_torch.eval import evaluate_perplexity
 from qtpu_torch.models import get_arch, get_model_config
 from qtpu_torch.quant.apply import (
     CALIBRATED_METHODS,
-    UNPORTED_METHODS,
     fold_smooth,
     fuse_packed_sites,
     pack_model,
@@ -58,9 +58,6 @@ SERVE_STEPS = 32
 def refuse_unported(config: dict, device: torch.device) -> None:
     """Raise NotImplementedError, naming the slice of the port, for what a
     validated config asks that the port does not do yet."""
-    for m in config["quantization_methods"]:
-        if m in UNPORTED_METHODS:
-            raise NotImplementedError(f"method '{m}' is not ported yet (POT/APOT slice)")
     mesh = config.get("mesh") or {}
     tp, pp = int(mesh.get("model", 1)), int(mesh.get("pipe", 1))
     dp = int(mesh.get("data", 1))
@@ -78,18 +75,6 @@ def refuse_unported(config: dict, device: torch.device) -> None:
     ):
         if config.get(key):
             raise NotImplementedError(f"'{key}': {what} is not ported yet")
-    scfg = config.get("serving") or {}
-    if scfg.get("benchmark", False):
-        pm = scfg.get("pack_method", "rtn")
-        if pm in UNPORTED_METHODS:
-            raise NotImplementedError(
-                f"serving pack_method '{pm}' is not ported yet (POT/APOT slice)"
-            )
-        if scfg.get("kv_cache_dtype", "int8") != "int8" and device.type == "cuda":
-            raise NotImplementedError(
-                "serving on a bf16 KV cache needs pallas_decode_attention_write_bf16, "
-                "which is not ported yet: use kv_cache_dtype int8"
-            )
 
 
 class QuantizationBenchmark:
@@ -270,7 +255,8 @@ class QuantizationBenchmark:
 
     def benchmark_serving(self, method: str | None = None):
         """Decode throughput through the packed serving path (prefill, then
-        greedy decode steps on the int8 KV cache), recorded as the 'serving'
+        greedy decode steps on the int8 or bf16 KV cache, kv_cache_dtype),
+        recorded as the 'serving'
         pseudo-method's tokens_per_second: batch / the mean time of one
         decode step over SERVE_STEPS steps after a prefill, timed on the
         host around device synchronizations, after one warm run. Enabled by

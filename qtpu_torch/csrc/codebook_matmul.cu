@@ -1,0 +1,54 @@
+// K7: codebook matmul for POT/APOT W4 weights.
+//
+// Replaces the TPU kernel pallas_codebook_matmul
+// (qtpu/kernels/pallas_dequant_matmul.py:324):
+//   y[M, N] = x[M, K] @ (scales o codebook[codes]),
+// codes int4 in K1's W4 layout (group-halves, excess-8 high nibble), scales
+// bf16 [K/g, N], a level table of at most 16 f32 values. A layer of a
+// stacked weight is its zero-copy view.
+//
+// Bound on an H100: at decode (M = 8) the packed bytes (K*N/2 plus the
+// scales); at prefill and eval (M = 1024-2048) the multiply-adds. The design
+// is K1's with a 16-entry f32 table in shared memory (16 consecutive floats,
+// one bank each, so any lookup pattern of a warp is conflict-free) in place
+// of (q - z):
+//  * M <= 8: the weight-streaming GEMV of dq_core.cuh in its codebook mode
+//    (w = level * scale in f32), K split across lanes and blocks;
+//  * M > 8: dq_mma_kernel of dq_mma.cuh on the tensor cores with the level
+//    rounded to bf16 as the B operand (POT levels are exact in bf16, APOT's
+//    are not) and each group's f32 sum scaled by its f32 scale.
+// The TPU kernel looks the level up with a select chain and multiplies the
+// group's product by the scale; the plain version (qtpu's XLA reference)
+// rounds level * scale to bf16 instead, a difference of the kind K1 has.
+#include "dq_mma.cuh"
+
+using namespace qtpu;
+
+// y[M, N] = x[M, K] @ (scales o cb[codes]); cb: 16 f32 levels on the device
+// (unused entries padded). x must be 16-byte aligned. split_groups and part
+// as in qtpu_dq_matmul (split K only at M <= 8). Returns a cudaError_t (0 on
+// success), or -1 for arguments the kernel does not take.
+extern "C" int qtpu_cb_matmul(const void* x, const void* data, const void* scales,
+                              const void* cb, void* out, void* part, int split_groups,
+                              int M, int K, int N, int group, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || N % 4 != 0 || group <= 0 || group % 4 != 0 ||
+      K % group != 0 || cb == nullptr)
+    return -1;
+  DqArgs a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.data = static_cast<const int8_t*>(data);
+  a.scales = static_cast<const __nv_bfloat16*>(scales);
+  a.cb = static_cast<const float*>(cb);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.part = static_cast<float*>(part);
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.ldw = N;
+  a.group = group;
+  a.split_groups = split_groups;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 8 || (group / 2) % kMmaRows != 0) return launch_dq<4, 8, 8, 3>(a, st);
+  if (split_groups != K / group) return -1;  // the mma path does not split K
+  return launch_dq_mma<4, true>(a, st);
+}

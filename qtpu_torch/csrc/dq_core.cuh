@@ -1,6 +1,9 @@
-// Dequant-matmul core shared by K1 (dequant_matmul.cu) and K4 (fused_mlp.cu).
+// Dequant-matmul core shared by K1 (dequant_matmul.cu), K4 (fused_mlp.cu)
+// and K7 (codebook_matmul.cu).
 //
 // y[m, n] = sum_k x[m, k] * (q[k, n] - z[g(k), n]) * s[g(k), n]
+// and, in the codebook mode (MODE 3, W4 only),
+// y[m, n] = sum_k x[m, k] * cb[q[k, n]] * s[g(k), n]
 //
 // Layout (qtpu.core.packing): the weight is [K, N] packed along K into
 // [K / PK, N] int8 bytes, PK = 8 / BITS. Within each group of g K-rows the
@@ -58,6 +61,7 @@ struct DqArgs {
   const uint8_t* zeros;         // [K / group, ldw] or nullptr (symmetric)
   const __nv_bfloat16* nw;      // MODE 1: rms-norm weight [K]
   const __nv_bfloat16* resid;   // MODE 2: residual [M, N]
+  const float* cb;              // MODE 3: level table [16] f32 (codebook)
   __nv_bfloat16* out;           // [M, N]
   float* part;                  // split K: f32 partial sums [splits][NSET][M][N], else nullptr
   int M, K, N;                  // N: output columns (MODE 1: F of a [K, 2F] weight)
@@ -83,6 +87,8 @@ __device__ __forceinline__ __nv_bfloat16 epilogue(const float* v, const DqArgs& 
 // MODE 1: out = bf16(silu(h @ Wg)) * bf16(h @ Wu), h = bf16(rms_norm(x) * nw),
 //         with gate columns [0, N) and up columns [N, 2N) of one weight.
 // MODE 2: out = bf16(x @ W + resid).
+// MODE 3: out = x @ W with W = cb[q] * s (POT/APOT codebook, zeros unused);
+//         the 16 levels sit in shared memory, each a distinct bank.
 // With a.part set, blockIdx.z sums only its a.split_groups groups of K and
 // writes raw f32 sums; dq_finish adds the splits and applies the epilogue.
 template <int BITS, int TM, int CQ, int MODE>
@@ -94,6 +100,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
   constexpr int Z_SYM = 1 << (BITS - 1);
   extern __shared__ float smem[];
   __shared__ float inv_rms[TM];
+  __shared__ float lut[16];
 
   const int tid = threadIdx.x;
   const int cq = tid % CQ;
@@ -107,6 +114,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
   const int KC = chunk_k(g, kChunkCap);
   float* xs = smem;  // [TM][KC]
 
+  if (MODE == 3 && tid < 16) lut[tid] = a.cb[tid];  // read after the chunk loop's barrier
   if (MODE == 1) {
     const int warp = tid / 32, wl = tid % 32;
     for (int m = warp; m < TM; m += kWarps) {
@@ -193,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
             const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(&sv);
 #pragma unroll
             for (int t = 0; t < 4; ++t) s[set][t] = bf2f(sb[t]);
-            if (a.zeros != nullptr) {
+            if (MODE != 3 && a.zeros != nullptr) {
               const uint32_t zw =
                   __ldg(reinterpret_cast<const unsigned int*>(a.zeros + (size_t)c * a.ldw + col));
 #pragma unroll
@@ -221,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
               } else {
                 q = (int)((b >> (2 * p)) & 3u);
               }
-              w[t] = (float)(q - z[set][t]) * s[set][t];
+              w[t] = MODE == 3 ? lut[q] * s[set][t] : (float)(q - z[set][t]) * s[set][t];
             }
             const float* xr = xs + (c * g + p * R + j - kc0);
 #pragma unroll

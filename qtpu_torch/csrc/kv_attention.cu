@@ -1,4 +1,4 @@
-// K2 and K3: the int8 KV cache of the decode step.
+// K2, K3 and K8: the KV cache of the decode step.
 //
 // K2 (qtpu_kv_band_write) replaces pallas_cache_band_write_stacked
 // (qtpu/kernels/pallas_kv_attention.py:1067): quantize this step's k and v
@@ -20,6 +20,19 @@
 // chunks staged in shared memory with 16-byte loads and an online softmax,
 // so shared memory does not bound S. Rows with pos >= S (inactive batch
 // slots) read rows [0, S) only.
+//
+// K8 (qtpu_decode_attention_write_bf16) replaces
+// pallas_decode_attention_write_bf16 (pallas_kv_attention.py:262): on a bf16
+// cache, write this step's k and v rows in place at pos and attend the G
+// query heads over s <= pos (inside the window when one binds) in one
+// launch per layer. Rows with pos >= S write nothing. Bound: the bytes of the
+// cache rows up to pos (bf16 k and v) plus the written row. Design: K3's
+// kernel without the scales. The block that owns a (sequence, kv-head) writes
+// its new row and stages that row from the new k/v, never reading it back
+// from the cache, so no other block and no second pass is involved. Scores
+// and the softmax are f32; the probabilities are rounded to bf16 for the PV
+// product (the TPU kernel's and the plain version's rounding point, here on
+// the online softmax's unnormalized weights, as K5 does).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,12 +86,16 @@ __global__ void band_write_kernel(const __nv_bfloat16* __restrict__ k_new,
   quantize_row(v_new + src, v_c + row * hd, vs_c + row, hd, threadIdx.x);
 }
 
-// grid B * KV, block G * 32
+// grid B * KV, block G * 32. BF = false: K3 on the int8 cache with its
+// scales (k_new, v_new unused). BF = true: K8 on the bf16 cache, which it
+// writes at pos (ks_c, vs_c unused).
+template <bool BF>
 __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                                   const int8_t* __restrict__ k_c,
-                                   const int8_t* __restrict__ v_c,
+                                   const void* k_cache, const void* v_cache,
                                    const float* __restrict__ ks_c,
                                    const float* __restrict__ vs_c,
+                                   const __nv_bfloat16* __restrict__ k_new,
+                                   const __nv_bfloat16* __restrict__ v_new,
                                    const int* __restrict__ pos,
                                    __nv_bfloat16* __restrict__ out, int KV, int G, int S,
                                    int hd, int window, float sm_scale) {
@@ -105,6 +122,15 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int hi = min(p, S - 1);
   const int lo = window > 0 ? max(0, p - window + 1) : 0;
   const size_t row0 = ((size_t)b * KV + kvh) * S;  // first row of this (b, head)
+  const size_t nrow = ((size_t)b * KV + kvh) * hd;  // this head's new k/v row
+  if (BF && p >= 0 && p < S) {
+    __nv_bfloat16* kw = static_cast<__nv_bfloat16*>(const_cast<void*>(k_cache));
+    __nv_bfloat16* vw = static_cast<__nv_bfloat16*>(const_cast<void*>(v_cache));
+    for (int d = tid; d < hd; d += nthr) {
+      kw[(row0 + p) * hd + d] = k_new[nrow + d];
+      vw[(row0 + p) * hd + d] = v_new[nrow + d];
+    }
+  }
 
   constexpr int kPer = kMaxHd / 32;
   float o[kPer];
@@ -116,25 +142,47 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int s0 = lo; s0 <= hi; s0 += kChunk) {
     const int n = min(kChunk, hi - s0 + 1);
     __syncthreads();  // the previous chunk (and qs on the first pass) is settled
-    // 16-byte loads: the chunk's rows are contiguous, hd % 32 == 0
-    const int4* ksrc = reinterpret_cast<const int4*>(k_c + (row0 + s0) * hd);
-    const int4* vsrc = reinterpret_cast<const int4*>(v_c + (row0 + s0) * hd);
-    for (int i = tid; i < n * hd / 16; i += nthr) {
-      const int4 kw = __ldg(ksrc + i);
-      const int4 vw = __ldg(vsrc + i);
-      const int8_t* kb = reinterpret_cast<const int8_t*>(&kw);
-      const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
-      const int s = (16 * i) / hd;
-      const int d = 16 * i - s * hd;
+    if (BF) {
+      // 16-byte loads of 8 values; the row at pos comes from the new k/v
+      const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(k_cache) + (row0 + s0) * hd;
+      const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(v_cache) + (row0 + s0) * hd;
+      for (int i = tid; i < n * hd / 8; i += nthr) {
+        const int s = (8 * i) / hd;
+        const int d = 8 * i - s * hd;
+        const bool fresh = s0 + s == p;
+        const int4 kw = *reinterpret_cast<const int4*>(fresh ? k_new + nrow + d : kc + 8 * i);
+        const int4 vw = *reinterpret_cast<const int4*>(fresh ? v_new + nrow + d : vc + 8 * i);
+        const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(&kw);
+        const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(&vw);
 #pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        Ks[s * HD1 + d + t] = (float)kb[t];
-        Vs[s * hd + d + t] = (float)vb[t];
+        for (int t = 0; t < 8; ++t) {
+          Ks[s * HD1 + d + t] = __bfloat162float(kb[t]);
+          Vs[s * hd + d + t] = __bfloat162float(vb[t]);
+        }
       }
-    }
-    for (int i = tid; i < n; i += nthr) {
-      kss[i] = ks_c[row0 + s0 + i];
-      vss[i] = vs_c[row0 + s0 + i];
+    } else {
+      // 16-byte loads: the chunk's rows are contiguous, hd % 32 == 0
+      const int4* ksrc = reinterpret_cast<const int4*>(static_cast<const int8_t*>(k_cache) +
+                                                       (row0 + s0) * hd);
+      const int4* vsrc = reinterpret_cast<const int4*>(static_cast<const int8_t*>(v_cache) +
+                                                       (row0 + s0) * hd);
+      for (int i = tid; i < n * hd / 16; i += nthr) {
+        const int4 kw = __ldg(ksrc + i);
+        const int4 vw = __ldg(vsrc + i);
+        const int8_t* kb = reinterpret_cast<const int8_t*>(&kw);
+        const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
+        const int s = (16 * i) / hd;
+        const int d = 16 * i - s * hd;
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+          Ks[s * HD1 + d + t] = (float)kb[t];
+          Vs[s * hd + d + t] = (float)vb[t];
+        }
+      }
+      for (int i = tid; i < n; i += nthr) {
+        kss[i] = ks_c[row0 + s0 + i];
+        vss[i] = vs_c[row0 + s0 + i];
+      }
     }
     __syncthreads();
     float sc[kChunk / 32];
@@ -146,7 +194,7 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
       if (s < n) {
         float dot = 0.f;
         for (int d = 0; d < hd; ++d) dot = fmaf(qs[g * hd + d], Ks[s * HD1 + d], dot);
-        v = dot * kss[s] * sm_scale;
+        v = BF ? dot * sm_scale : dot * kss[s] * sm_scale;
       }
       sc[jj] = v;
       cmax = fmaxf(cmax, v);
@@ -161,7 +209,7 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
       if (s < n) {
         const float e = expf(sc[jj] - mnew);
         psum += e;
-        pv[g * kChunk + s] = e * vss[s];
+        pv[g * kChunk + s] = BF ? __bfloat162float(__float2bfloat16(e)) : e * vss[s];
       }
     }
     psum = warp_sum(psum);
@@ -187,6 +235,30 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <bool BF>
+int launch_attn(const void* q, const void* k_c, const void* v_c, const float* ks_c,
+                const float* vs_c, const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
+                const void* pos, void* out, int B, int KV, int G, int S, int hd, int window,
+                void* stream) {
+  if (B <= 0 || KV <= 0 || G <= 0 || G > 32 || S <= 0 || hd % 32 != 0 || hd > kMaxHd)
+    return -1;
+  static size_t smem_set = 48 * 1024;
+  const size_t smem =
+      sizeof(float) * ((size_t)G * hd + (size_t)kChunk * (2 * hd + 1) + 2 * kChunk +
+                       (size_t)G * kChunk);
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_attn_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  decode_attn_kernel<BF><<<B * KV, G * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), k_c, v_c, ks_c, vs_c, k_new, v_new,
+      static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(out), KV, G, S, hd, window,
+      1.0f / sqrtf((float)hd));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer [B, KV, S, hd] int8;
@@ -208,22 +280,20 @@ extern "C" int qtpu_decode_attention(const void* q, const void* k_c, const void*
                                      const void* ks_c, const void* vs_c, const void* pos,
                                      void* out, int B, int KV, int G, int S, int hd,
                                      int window, void* stream) {
-  if (B <= 0 || KV <= 0 || G <= 0 || G > 32 || S <= 0 || hd % 32 != 0 || hd > kMaxHd)
-    return -1;
-  static size_t smem_set = 48 * 1024;
-  const size_t smem =
-      sizeof(float) * ((size_t)G * hd + (size_t)kChunk * (2 * hd + 1) + 2 * kChunk +
-                       (size_t)G * kChunk);
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  decode_attn_kernel<<<B * KV, G * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_c),
-      static_cast<const int8_t*>(v_c), static_cast<const float*>(ks_c),
-      static_cast<const float*>(vs_c), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), KV, G, S, hd, window, 1.0f / sqrtf((float)hd));
-  return (int)cudaGetLastError();
+  return launch_attn<false>(q, k_c, v_c, static_cast<const float*>(ks_c),
+                            static_cast<const float*>(vs_c), nullptr, nullptr, pos, out, B, KV,
+                            G, S, hd, window, stream);
+}
+
+// K8. q [B, H, hd] bf16; k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer
+// [B, KV, S, hd] bf16, written at pos; pos [B] int32; out [B, H, hd] bf16.
+extern "C" int qtpu_decode_attention_write_bf16(const void* q, const void* k_new,
+                                                const void* v_new, void* k_c, void* v_c,
+                                                const void* pos, void* out, int B, int KV,
+                                                int G, int S, int hd, int window,
+                                                void* stream) {
+  return launch_attn<true>(q, k_c, v_c, nullptr, nullptr,
+                           static_cast<const __nv_bfloat16*>(k_new),
+                           static_cast<const __nv_bfloat16*>(v_new), pos, out, B, KV, G, S, hd,
+                           window, stream);
 }

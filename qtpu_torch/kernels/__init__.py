@@ -6,6 +6,9 @@ version and a launch counter (`<wrapper>.launches`):
   K3 kv_attention.decode_attention     csrc/kv_attention.cu
   K4 fused_mlp.fused_mlp               csrc/fused_mlp.cu
   K5 flash_attention.flash_attention   csrc/flash_attention.cu
+  K6 int8_matmul.w8a8_matmul           csrc/w8a8_matmul.cu
+  K7 codebook_matmul.codebook_matmul   csrc/codebook_matmul.cu
+  K8 kv_attention.decode_attention_write_bf16   csrc/kv_attention.cu
 
 Modules are imported by their users; nothing here imports triton or builds
 at import time.

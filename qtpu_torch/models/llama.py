@@ -16,8 +16,10 @@ site the channel statistics calibration needs (qtpu's capture modes, taken
 explicitly in the loop).
 `forward_with_cache` updates the KV cache in place: a decode step (T = 1)
 on an int8 cache runs per layer K1 (qkv), RoPE, K2 (cache write), K3
-(attention), K1 (o_proj) plus the residual, and K4 (the MLP); prefill runs
-K1 on every packed site with plain attention and cache write (in qtpu those
+(attention), K1 (o_proj) plus the residual, and K4 (the MLP); on a bf16
+cache K8 writes and attends in one launch. POT/APOT codebook sites run K7
+in place of K1 (and of K4, which takes affine sites only). Prefill runs the
+packed sites' kernels with plain attention and cache write (in qtpu those
 are XLA code too).
 """
 
@@ -32,6 +34,7 @@ from qtpu_torch.kernels.kv_attention import (
     cache_mask,
     cached_attention,
     decode_attention,
+    decode_attention_write_bf16,
 )
 from qtpu_torch.models.config import ModelConfig
 from qtpu_torch.models.ops import apply_rope, causal_attention, linear, rms_norm, rope_tables
@@ -227,16 +230,11 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
     L = cache.num_layers
     H, hd = cfg.num_heads, cfg.head_dim
     decode = T == 1 and slots is None
-    if decode and input_ids.is_cuda and not cache.quantized:
-        raise NotImplementedError(
-            "decode on a bf16 KV cache needs pallas_decode_attention_write_bf16, "
-            "which is not ported yet: use the int8 cache (--kv int8)"
-        )
     x = params["embed"][input_ids]
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
     start = positions[:, 0].to(torch.int32).contiguous()
-    if not (decode and cache.quantized):
+    if not decode:
         mask = cache_mask(positions, S, win)
     layers = params["layers"]
     for l in range(L):
@@ -250,6 +248,10 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
             attn = decode_attention(
                 q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
                 start, l, window=win,
+            ).reshape(B, 1, H * hd)
+        elif decode:
+            attn = decode_attention_write_bf16(
+                q[:, 0].contiguous(), k, v, cache.k, cache.v, start, l, window=win,
             ).reshape(B, 1, H * hd)
         else:
             cache_layer_write(cache, l, k, v, start, slots)

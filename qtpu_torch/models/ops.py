@@ -5,7 +5,7 @@ A linear site's params are {"w": dense [K, N]} or packed {"data", "scales",
 "zeros"} (qtpu_torch.core.packing), optionally with a bias "b", an input
 "smooth" vector [K] (SmoothQuant / AWQ) and a GPTQ actorder "perm" [K].
 Packed sites go to the K1 dequant-matmul, W8A8 sites (5-tuple metas tagged
-"a8") to K6. POT/APOT "codebook" sites belong to a later slice and raise.
+"a8") to K6, POT/APOT sites (packed with a "codebook" of levels) to K7.
 `causal_attention` runs K5 (flash attention) on CUDA tensors.
 """
 
@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from qtpu_torch.kernels.codebook_matmul import codebook_matmul
 from qtpu_torch.kernels.dequant_matmul import quantized_matmul
 from qtpu_torch.kernels.flash_attention import attention_mask, flash_attention
 from qtpu_torch.kernels.int8_matmul import w8a8_matmul
@@ -76,11 +77,6 @@ def linear(x: torch.Tensor, p: dict, site_meta=None, layer=None) -> torch.Tensor
     selects one layer of stacked [L, ...] params as zero-copy views."""
     if layer is not None:
         p = {k: v[layer] for k, v in p.items()}
-    if "codebook" in p:
-        raise NotImplementedError(
-            "linear site with 'codebook': POT/APOT codebook packing, pallas_codebook_matmul, "
-            "is not ported yet (POT/APOT slice)"
-        )
     if "smooth" in p:
         x = x * p["smooth"].to(x.dtype)
     if "perm" in p:
@@ -89,6 +85,8 @@ def linear(x: torch.Tensor, p: dict, site_meta=None, layer=None) -> torch.Tensor
         x = x.index_select(-1, p["perm"])
     if "w" in p:
         y = x @ p["w"].to(x.dtype)
+    elif "codebook" in p:
+        y = codebook_matmul(x, p["data"], p["scales"], p["codebook"], site_meta)
     elif site_meta is not None and len(site_meta) == 5 and site_meta[4] == "a8":
         y = w8a8_matmul(x, p["data"], p["scales"], p["zeros"], site_meta[:4])
     else:

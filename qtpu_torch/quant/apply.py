@@ -1,5 +1,5 @@
 """Model-level quantization (port of qtpu/quant/apply.py for the methods
-rtn, awq, gptq and smoothquant: `_map_sites`, `quantize_model`,
+rtn, awq, gptq, pot, apot and smoothquant: `_map_sites`, `quantize_model`,
 `pack_model`, `fold_smooth`, `fuse_packed_sites`).
 
 `quantize_model(params, method, mcfg, stats)` fake-quantizes every linear
@@ -13,18 +13,21 @@ returns (packed params, qmeta), qmeta being qtpu's sorted tuple of
 (site, (bits, group, K, N)), with SmoothQuant's W8A8 sites as
 (8, K, K, N, "a8"). The per-site input vectors are qtpu's: AWQ's
 protection and SmoothQuant's smoothing become an input "smooth" vector,
-GPTQ's actorder a "perm". `fold_smooth` folds the smooth vectors into the
-adjacent norms and scales; `fuse_packed_sites` concatenates q/k/v into
-"qkv_proj" and gate/up into "gateup_proj". pot/apot come with the POT/APOT
-slice and raise.
+GPTQ's actorder a "perm". POT/APOT pack W4 codebook sites: int4 codes in
+the W4 layout, bf16 scales and an f32 "codebook" of levels. `fold_smooth`
+folds the smooth vectors into the adjacent norms and scales;
+`fuse_packed_sites` concatenates q/k/v into "qkv_proj" and gate/up into
+"gateup_proj".
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from qtpu_torch.core.packing import pack_int4, quantize_pack
 from qtpu_torch.models import get_arch
+from qtpu_torch.quant.apot import apot_quantize_codes, apot_quantize_tensor
 from qtpu_torch.quant.awq import _protection_scale_vec, awq_quantize, awq_search_scale_factor
 from qtpu_torch.quant.gptq import (
     _parity_column_quantize,
@@ -37,6 +40,8 @@ from qtpu_torch.quant.gptq import (
     gptq_quantize_layer,
     proxy_hessian_diag,
 )
+from qtpu_torch.quant.parity_grids import PARITY_GRIDS, PARITY_RANGE
+from qtpu_torch.quant.pot import pot_codebook, pot_quantize_codes, pot_quantize_tensor
 from qtpu_torch.quant.rtn import pseudo_quantize, symmetric_fake_quantize
 from qtpu_torch.quant.smoothquant import (
     compute_smoothing_scales,
@@ -45,7 +50,6 @@ from qtpu_torch.quant.smoothquant import (
     smoothing_from_max,
 )
 
-UNPORTED_METHODS = ("pot", "apot")
 CALIBRATED_METHODS = ("awq", "gptq", "smoothquant")
 # qtpu's layer-chunk budget for GPTQ's batched sweep (apply.py:288, :711)
 GPTQ_CHUNK_BYTES = 1.5e9
@@ -84,6 +88,25 @@ def _map_sites(params: dict, fn, arch, stats=None) -> dict:
     return new
 
 
+def _parity_grid(mcfg: dict, default_step: float, n_elements: int | None = None) -> tuple:
+    """The candidate multipliers of the POT/APOT scale search, qtpu's rule:
+    the frozen reference grids (parity_grids) for the reference range and
+    step, where the step defaults to 0.01 (POT) or, for APOT, 0.1 above
+    500k elements of the site and 0.05 otherwise (unless reference_grid is
+    false); np.arange's f32 values for a grid_step / grid_search_range
+    override."""
+    lo, hi = mcfg.get("grid_search_range", [0.01, 2.01])
+    step = mcfg.get("grid_step")
+    if step is None:
+        step = default_step
+        if n_elements is not None and bool(mcfg.get("reference_grid", True)):
+            step = 0.1 if n_elements > 500_000 else 0.05
+    if (float(lo), float(hi)) == PARITY_RANGE and float(step) in PARITY_GRIDS:
+        return PARITY_GRIDS[float(step)]
+    vals = np.arange(float(lo), float(hi), float(step)).astype(np.float32)
+    return tuple(float(v) for v in vals)
+
+
 def _per_layer(one, w, has_l, out_dtype=None):
     """one(w_kn [K, N]) for each layer of a stacked [L, K, N] weight, into a
     preallocated output (out_dtype: the output's, default w's)."""
@@ -95,11 +118,6 @@ def _per_layer(one, w, has_l, out_dtype=None):
     return out
 
 
-def _not_ported(method: str):
-    if method in UNPORTED_METHODS:
-        raise NotImplementedError(f"method '{method}' is not ported yet (POT/APOT slice)")
-
-
 def _need_stats(method: str, stats, what: str):
     if stats is None:
         raise ValueError(f"{method} {what}requires calibration stats")
@@ -107,11 +125,10 @@ def _need_stats(method: str, stats, what: str):
 
 def quantize_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "llama") -> dict:
     """Fake-quantize every linear site of a model with `method` (rtn, awq,
-    gptq, smoothquant; awq/gptq/smoothquant need CalibStats). Returns a new
-    params tree; the input is not modified. SmoothQuant's sites also carry
-    the per-input-channel "smooth" vector that keeps the network
-    equivalent."""
-    _not_ported(method)
+    gptq, pot, apot, smoothquant; awq/gptq/smoothquant need CalibStats).
+    Returns a new params tree; the input is not modified. SmoothQuant's
+    sites also carry the per-input-channel "smooth" vector that keeps the
+    network equivalent."""
     arch_mod = get_arch(arch)
     w_bit = int(mcfg["w_bit"])
     g = int(mcfg.get("q_group_size", -1))
@@ -120,6 +137,22 @@ def quantize_model(params: dict, method: str, mcfg: dict, stats=None, arch: str 
 
         def fn(site, w, has_l, st):
             return {"w": _per_layer(lambda wl: pseudo_quantize(wl.T, w_bit, g).T, w, has_l)}
+
+    elif method == "pot":
+        gv = _parity_grid(mcfg, 0.01)
+
+        def fn(site, w, has_l, st):
+            return {"w": _per_layer(
+                lambda wl: pot_quantize_tensor(wl.T, w_bit, g, grid_values=gv).T, w, has_l)}
+
+    elif method == "apot":
+        k = int(mcfg.get("k", 2))
+
+        def fn(site, w, has_l, st):
+            # the reference grid coarsens per site by its element count
+            gv = _parity_grid(mcfg, 0.05, w.shape[-2] * w.shape[-1])
+            return {"w": _per_layer(
+                lambda wl: apot_quantize_tensor(wl.T, w_bit, g, k, grid_values=gv).T, w, has_l)}
 
     elif method == "awq":
         _need_stats(method, stats, "")
@@ -257,14 +290,15 @@ def pack_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "l
     sites fuse; with act_quant (w_bit 8) per-channel W8 sites served W8A8
     ("a8" metas, K6). gptq: error-compensated integer export, with
     actorder the column order stored as "perm" (the activations are
-    gathered at serve time)."""
-    _not_ported(method)
+    gathered at serve time). pot/apot (W4 only): codebook sites {"data":
+    int4 codes, "scales": bf16 [K/g, N], "codebook": f32 levels}, served by
+    K7."""
     arch_mod = get_arch(arch)
     w_bit = int(mcfg["w_bit"])
     g = int(mcfg.get("q_group_size", 128))
     if g <= 0:
         raise ValueError("packing requires a positive q_group_size")
-    if method not in ("rtn",) + CALIBRATED_METHODS:
+    if method not in ("rtn", "pot", "apot") + CALIBRATED_METHODS:
         raise ValueError(f"pack_model does not support method '{method}'")
     if method in CALIBRATED_METHODS:
         _need_stats(method, stats, "packing ")
@@ -287,6 +321,9 @@ def pack_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "l
         if method == "gptq":
             metas[site] = (w_bit, g, K, N)
             return _pack_gptq(site, w, has_l, st, mcfg, w_bit, g, arch_mod)
+        if method in ("pot", "apot"):
+            metas[site] = (w_bit, g, K, N)
+            return _pack_codebook(method, w, has_l, mcfg, w_bit, g)
         smooth = None
         if method == "rtn":
             w_eff = w
@@ -324,6 +361,28 @@ def pack_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "l
 
     packed = _map_sites(params, fn, arch_mod, stats)
     return packed, tuple(sorted(metas.items()))
+
+
+def _pack_codebook(method, w, has_l, mcfg, w_bit, g) -> dict:
+    """pack_model's pot/apot branch: W4 codes packed as group-halves, bf16
+    scales, the f32 level table ([L, n_levels] stacked, [n_levels] for
+    lm_head), one layer at a time."""
+    if w_bit != 4:
+        raise ValueError("codebook packing supports w_bit=4 only")
+    pot = method == "pot"
+    gv = _parity_grid(mcfg, 0.01 if pot else 0.05,
+                      None if pot else w.shape[-2] * w.shape[-1])
+
+    def one(w_kn):
+        if pot:
+            codes, sc = pot_quantize_codes(w_kn, w_bit, g, grid_values=gv)
+            cb = pot_codebook(w_bit, device=w_kn.device)
+        else:
+            codes, sc, cb = apot_quantize_codes(w_kn, w_bit, g, int(mcfg.get("k", 2)),
+                                                grid_values=gv)
+        return {"data": pack_int4(codes, g), "scales": sc.to(torch.bfloat16), "codebook": cb}
+
+    return _stack([one(w[l]) for l in range(w.shape[0])]) if has_l else one(w)
 
 
 def _pack_gptq(site, w, has_l, st, mcfg, w_bit, g, arch_mod) -> dict:

@@ -3,18 +3,18 @@ to end on random-init weights and random prompts.
 
 Usage:
   python -m qtpu_torch.serve [--model tiny-test]
-                             [--method none|rtn|awq|smoothquant|gptq] [--a8]
-                             [--w-bit 4] [--group 64] [--kv int8|bfloat16]
+                             [--method none|rtn|awq|smoothquant|gptq|pot|apot] [--a8]
+                             [--w-bit 4] [--group 64] [--kv bfloat16|int8]
                              [--requests 4] [--tokens 16] [--batch 4]
                              [--temperature 0.0] [--device cuda|cpu]
 
 The flags and defaults are qtpu's (`python -m qtpu.serve`). awq,
 smoothquant and gptq calibrate on qtpu's four random batches of 64 ids
 (numpy default_rng(0..3)); --a8 serves SmoothQuant W8A8 (per-channel int8
-weights, dynamic int8 activations, kernel K6). On the card a decode step
-needs the int8 KV cache (--kv int8): the bf16-cache decode kernel is not
-ported yet. pot/apot come with the POT/APOT slice and --http with the
-engine slice; both raise.
+weights, dynamic int8 activations, kernel K6); pot and apot pack W4
+codebook sites (kernel K7). The default bf16 KV cache decodes on kernel
+K8, the int8 cache (--kv int8) on K2/K3. --http comes with the engine
+slice and raises.
 """
 
 import argparse

@@ -177,9 +177,13 @@ def test_fold_smooth_equals_qtpu():
 
 
 def test_quantize_model_refuses_unported_methods():
+    """Every qtpu method is ported; an unknown one is refused as qtpu
+    refuses it."""
     p = tllama.init_params(tconfig.TINY_TEST, device="cpu")
-    with pytest.raises(NotImplementedError, match="POT/APOT slice"):
-        tapply.quantize_model(p, "pot", MCFG)
+    with pytest.raises(ValueError, match="unknown quantization method"):
+        tapply.quantize_model(p, "lloyd", MCFG)
+    with pytest.raises(ValueError, match="does not support method"):
+        tapply.pack_model(p, "lloyd", MCFG)
 
 
 # ----------------------------------------------------------------- sizes
@@ -376,7 +380,7 @@ def test_runner_sweeps_w_bit():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"quantization_methods": ["rtn", "pot"]}, "POT/APOT slice"),
+    ({"profile_dir": "x"}, "utils slice"),
     ({"mesh": {"data": 2, "model": 1, "pipe": 1}}, "sharding slice"),
     ({"checkpoint_path": "/nonexistent"}, "hf_import slice"),
     ({"save_artifacts": {"dir": "x", "method": "rtn"}}, "checkpoints slice"),

@@ -134,15 +134,113 @@ def test_k4_matches_plain(cuda, bits, M):
     assert _rel(got - x, want - x) < 3e-2
 
 
+def _pot_site(g, K, N, group, dev, apot=False):
+    """A [K, N] weight packed as a POT (or APOT) codebook site."""
+    from qtpu_torch.core.packing import pack_int4
+    from qtpu_torch.quant import apot, pot
+
+    w = torch.randn(K, N, generator=g, device=dev) * 0.02
+    grid = (0.01, 2.01, 0.25)
+    if apot:
+        codes, sc, cb = apot.apot_quantize_codes(w, 4, group, grid=grid)
+    else:
+        codes, sc = pot.pot_quantize_codes(w, 4, group, grid=grid)
+        cb = pot.pot_codebook(4, device=dev)
+    return pack_int4(codes, group), sc.to(torch.bfloat16), cb
+
+
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("M", [1, 8, 77, 300])
+@pytest.mark.parametrize("apot", [False, True])
+def test_k7_matches_plain(cuda, group, M, apot):
+    from qtpu_torch.kernels import codebook_matmul as k7
+
+    g = _gen()
+    K, N = 512, 384
+    data, sc, cb = _pot_site(g, K, N, group, cuda, apot)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    meta = (4, group, K, N)
+    n0 = k7.codebook_matmul.launches
+    got = k7.codebook_matmul(x, data, sc, cb, meta)
+    want = k7.codebook_matmul_plain(x, data, sc, cb, meta)
+    torch.cuda.synchronize()
+    assert k7.codebook_matmul.launches == n0 + 1
+    # the Pallas kernel's test: relative Frobenius < 2e-2, atol 5% of max
+    assert _rel(got, want) < 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=0.05 * float(want.float().abs().max()))
+
+
+def test_k7_raises_on_what_it_does_not_take(cuda):
+    from qtpu_torch.kernels import codebook_matmul as k7
+
+    data, sc, cb = _pot_site(_gen(), 256, 128, 64, cuda)
+    x = torch.randn(4, 256, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="4-bit"):
+        k7.codebook_matmul(x, data, sc, cb, (8, 64, 256, 128))
+    with pytest.raises(ValueError, match="codebook"):
+        k7.codebook_matmul(x, data, sc, torch.zeros(32, device=cuda), (4, 64, 256, 128))
+    with pytest.raises(ValueError, match="bf16"):
+        k7.codebook_matmul(x.float(), data, sc, cb, (4, 64, 256, 128))
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("S", [40, 200])
+@pytest.mark.parametrize("hd,KV,G", [(64, 4, 4), (64, 4, 8), (128, 1, 32)])
+def test_k8_matches_plain(cuda, window, S, hd, KV, G):
+    g = _gen()
+    L, B = 2, 4
+    H = KV * G
+    k = (torch.randn(L, B, KV, S, hd, generator=g, device=cuda)).to(torch.bfloat16)
+    v = (torch.randn(L, B, KV, S, hd, generator=g, device=cuda)).to(torch.bfloat16)
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(torch.bfloat16)
+    kn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
+    vn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([0, 9, S // 2, S], dtype=torch.int32, device=cuda)  # last: inactive
+    kc, vc, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
+    n0 = k23.decode_attention_write_bf16.launches
+    got = k23.decode_attention_write_bf16(q, kn, vn, kc, vc, pos, 1, window=window)
+    want = k23.decode_attention_write_bf16_plain(q, kn, vn, kp, vp, pos, 1, window=window)
+    torch.cuda.synchronize()
+    assert k23.decode_attention_write_bf16.launches == n0 + 1
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)  # the write, exactly
+    torch.testing.assert_close(got[:-1].float(), want[:-1].float(), rtol=3e-2, atol=3e-2)
+    assert bool(torch.isfinite(got.float()).all())
+
+
 def test_decode_on_bf16_cache_raises(cuda):
+    """A decode step on a bf16 cache runs K8 (once per layer) and agrees
+    with the CPU's plain versions, teacher-forced over 3 steps."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.kernels import codebook_matmul as k7
     from qtpu_torch.models import TINY_TEST, llama
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.decode import decode_step, prefill
     from qtpu_torch.serve.kvcache import init_cache
 
-    params = llama.init_params(TINY_TEST, device="cuda")
-    cache = init_cache(TINY_TEST, 1, 16, device="cuda")
-    ids = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="pallas_decode_attention_write_bf16"):
-        llama.forward_with_cache(params, ids, ids, cache, TINY_TEST)
+    params = llama.init_params(TINY_TEST, device="cpu")
+    params, qmeta = fuse_packed_sites(*pack_model(params, "pot", {"w_bit": 4, "q_group_size": 64,
+                                                                  "grid_step": 0.25}))
+    ids = torch.randint(0, TINY_TEST.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = map_tree(params, lambda t: t.to(dev))
+        cache = init_cache(TINY_TEST, 2, 24, device=dev)
+        logits, cache = prefill(p, ids.to(dev), cache, TINY_TEST, qmeta)
+        res, pos = [logits.float().cpu()], torch.full((2,), 12, dtype=torch.int32, device=dev)
+        n0 = (k23.decode_attention_write_bf16.launches, k7.codebook_matmul.launches)
+        for i in range(3):
+            tok = ids[:, i].to(torch.int32).to(dev)
+            logits, cache = decode_step(p, tok, pos, cache, TINY_TEST, qmeta)
+            res.append(logits.float().cpu())
+            pos = pos + 1
+        if dev == "cuda":
+            L = TINY_TEST.num_layers
+            assert k23.decode_attention_write_bf16.launches - n0[0] == 3 * L
+            assert k7.codebook_matmul.launches - n0[1] == 3 * (4 * L + 1)
+        outs[dev] = res
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert _rel(a, b) < 3e-2
 
 
 def _bf16_qkv(g, B, H, KV, S, hd, dev):

@@ -384,11 +384,16 @@ def test_fuse_keeps_unequal_shared_keys_apart():
 
 @pytest.mark.parametrize("method", ["pot", "apot"])
 def test_pot_apot_raise_naming_their_slice(method):
+    """POT/APOT are ported (tests/test_torch_pot.py holds them to qtpu):
+    fake quantization runs at any width; the refusal left is qtpu's, a
+    codebook pack at another width than 4 bits."""
     p = tllama.init_params(T_CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="POT/APOT slice"):
-        tapply.quantize_model(p, method, {"w_bit": 4, "q_group_size": 64})
-    with pytest.raises(NotImplementedError, match="POT/APOT slice"):
-        tapply.pack_model(p, method, {"w_bit": 4, "q_group_size": 64})
+    q = tapply.quantize_model(p, method, {"w_bit": 4, "q_group_size": 64, "grid_step": 0.25})
+    w, wq = p["layers"]["q_proj"]["w"], q["layers"]["q_proj"]["w"]
+    assert wq.shape == w.shape and wq.dtype == w.dtype and bool(torch.isfinite(wq).all())
+    assert not torch.equal(wq, w)
+    with pytest.raises(ValueError, match="w_bit=4 only"):
+        tapply.pack_model(p, method, {"w_bit": 8, "q_group_size": 64})
 
 
 # ---------------------------------------------------------- end to end
@@ -451,8 +456,9 @@ def test_serve_cli_w8a8_on_cpu(capsys):
         assert serve_main(["--device", "cpu", "--method", method, "--kv", "int8",
                            "--requests", "1", "--tokens", "2"]) == 0
         assert f"packed model with {method} W4 g64" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="POT/APOT slice"):
-        serve_main(["--device", "cpu", "--method", "apot"])
+    assert serve_main(["--device", "cpu", "--method", "apot", "--requests", "1",
+                       "--tokens", "2"]) == 0
+    assert "packed model with apot W4 g64" in capsys.readouterr().out
 
 
 def test_runner_calibrated_methods_on_tiny_test(tmp_path):

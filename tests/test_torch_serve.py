@@ -174,5 +174,8 @@ def test_serve_cli_on_cpu(capsys):
     assert "packed model with rtn W4 g64" in out and "2 requests, 6 tokens" in out
     with pytest.raises(NotImplementedError, match="engine slice"):
         serve_main(["--device", "cpu", "--http", "8080"])
-    with pytest.raises(NotImplementedError, match="POT/APOT slice"):
-        pack_model(llama.init_params(CFG, device="cpu"), "apot", {"w_bit": 4})
+    packed, qmeta = pack_model(llama.init_params(CFG, device="cpu"), "apot", {"w_bit": 4})
+    assert set(packed["layers"]["q_proj"]) == {"data", "scales", "codebook"}
+    assert dict(qmeta)["lm_head"] == (4, 128, CFG.hidden_size, CFG.vocab_size)
+    with pytest.raises(ValueError, match="w_bit=4 only"):  # codebooks are 4-bit
+        pack_model(llama.init_params(CFG, device="cpu"), "pot", {"w_bit": 8})

@@ -1,7 +1,8 @@
 """K6's plain version against qtpu on the CPU: the per-token activation
 quantization bit for bit with qtpu's jitted XLA reference (the rounding
 qtpu's serving path runs), the W8A8 product against `_w8a8_matmul_ref`
-and the Pallas kernel in interpret mode, and the linear op's W8A8 dispatch.
+and the Pallas kernel in interpret mode, and the linear op's W8A8 and
+codebook dispatch.
 """
 
 import jax
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from qtpu.core.packing import pack_int4 as jax_pack_int4
 from qtpu.core.packing import quantize_pack as jax_quantize_pack
 from qtpu.kernels import int8_matmul as jint8
 from qtpu.kernels.pallas_int8_matmul import pallas_w8a8_matmul
@@ -150,6 +152,17 @@ def test_linear_perm_site_matches_qtpu():
 
 
 def test_linear_codebook_site_raises_naming_its_slice():
-    p = {"data": torch.zeros(4, 4, dtype=torch.int8), "codebook": torch.zeros(16)}
-    with pytest.raises(NotImplementedError, match="POT/APOT slice"):
-        ops.linear(torch.zeros(1, 8), p, (4, 8, 8, 4))
+    """A POT codebook site no longer raises: ops.linear runs K7's plain
+    version and equals qtpu's ops.linear on the same packed bytes."""
+    from qtpu.quant.pot import pot_codebook, pot_quantize_codes
+
+    K, N, g = 256, 96, 64
+    x = _x(9, (3, K))
+    w = (np.random.default_rng(10).standard_normal((K, N)) * 0.05).astype(np.float32)
+    codes, sc = pot_quantize_codes(jnp.asarray(w), 4, g, grid=(0.01, 2.01, 0.1))
+    p = {"data": np.asarray(jax_pack_int4(codes, g)),
+         "scales": np.asarray(sc.astype(jnp.bfloat16)), "codebook": np.asarray(pot_codebook(4))}
+    meta = (4, g, K, N)
+    want = jops.linear(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, meta)
+    got = ops.linear(cpu(x), {k: cpu(v) for k, v in p.items()}, meta)
+    assert _err(to_numpy(got), want) < TOL
