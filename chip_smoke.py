@@ -8,17 +8,21 @@ Phases, each printing one JSON line:
   device   the card's name, count, and nvidia-smi's name and power limit
   build    nvcc builds every kernel source (in parallel), with the -Xptxas -v
            register and shared-memory report
-  kernels  K1-K8 against their plain PyTorch versions at the shapes of the
+  kernels  K1-K11 against their plain PyTorch versions at the shapes of the
            main paths (TinyLlama-1.1B, batch 8, prompt 128, W4 g128; K5 at
            one layer of an eval block of 2048 tokens; K6 at M = 8, 1024 and
            2048 on every W8A8 site, K7 on every fused codebook site; K8 on
-           the serve cell's bf16 cache), with times: kernel, plain version, one
-           PyTorch library call where one computes the same function, and
-           the bound from bytes and operations at 3.35 TB/s and 989 TFLOP/s
-           bf16 or 1,979 TOP/s int8 (H100 SXM data sheet)
+           the serve cell's bf16 cache; K9 on Mixtral-8x7B's expert sites at
+           M = 8 and 1024 and one Qwen2-57B-A14B site, K10 at 4 routed slots,
+           K11 on the serve_moe cell's int8 cache), with times: kernel, plain
+           version, one PyTorch library call where one computes the same
+           function, and the bound from bytes and operations at 3.35 TB/s and
+           989 TFLOP/s bf16 or 1,979 TOP/s int8 (H100 SXM data sheet)
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions), RTN W4 on
-           the int8 KV cache and POT W4 on the bf16 cache
+           the int8 KV cache and POT W4 on the bf16 cache; and a 2-layer
+           Mixtral-8x7B-width MoE model, RTN W4 g128, on the int8 cache
+           (batch 4, grouped K9) and the bf16 cache (batch 2, gathered K10)
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
@@ -66,6 +70,15 @@ Phases, each printing one JSON line:
            decode step, no K1-K4), a profile of one prefill and one 16-step
            decode block, then `python -m qtpu_torch.serve --method apot`
            (its main(), the default bf16 cache)
+  serve_moe  the sparse-MoE serving path: Mixtral-8x7B at full width with 8
+           of its 32 layers (random per-layer weights from seed 0), RTN W4
+           g128, a ContinuousBatcher with 8 slots and the int8 KV cache
+           answering 8 requests of prompt 128 and 32 new tokens (K1 on q, k,
+           v, o and lm_head, K9 on the expert sites, K11 per layer of a
+           decode step), then a 2-slot engine answering 2 requests (decode on
+           K10), launch counts checked; a profile of one prefill and one
+           decode step; then `python -m qtpu_torch.serve --model
+           tiny-moe-test --kv int8 --batch 1` (its main())
 
 The last lines are the nvidia-smi line, the `kernels` JSON line and
 {"ok": true, "device": {...}}. Any failed check raises, and the script then
@@ -84,7 +97,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "eval", "quant", "serve_w8a8",
-          "pot_apot", "serve_bf16")
+          "pot_apot", "serve_bf16", "serve_moe")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -381,6 +394,12 @@ def phase_kernels(torch, ctx):
     detail["codebook_matmul"] = k7r
     k8r = _k8_row(torch, gen, dev, cfg)
     detail["decode_attention_write_bf16"] = k8r
+    k9r = _k9_rows(torch, gen, dev)
+    detail["moe_matmul"] = k9r
+    k10r = _k10_rows(torch, gen, dev)
+    detail["moe_gathered_matmul"] = k10r
+    k11r = _k11_row(torch, gen, dev)
+    detail["decode_attention_write"] = k11r
     emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
 
     # one entry per kernel, at the work of one decode step (B = 8):
@@ -454,6 +473,36 @@ def phase_kernels(torch, ctx):
             "max_abs_err": max(k8r[w]["max_abs_err"] for w in ("window0", "window64")),
             "ms": L * k8r["ms"], "plain_ms": L * k8r["plain_ms"], "bound_ms": L * k8r["bound_ms"],
             "bound_by": k8r["bound_by"], "library_ms": L * k8r["library_ms"],
+        },
+        # K9 at the work of one decode step of the serve_moe cell (B = 8, the
+        # grouped route): MOE_LAYERS x (gate, up, down); library: torch.bmm
+        # on the experts dequantized to bf16 beforehand
+        "moe_matmul": {
+            "route": "cuda", "source": "qtpu_torch/csrc/moe_matmul.cu",
+            "replaces": "qtpu/kernels/pallas_moe_matmul.py:40",
+            "max_abs_err": max(r["max_abs_err"] for r in k9r.values()),
+            **{key: _moe_step(k9r, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes",
+        },
+        # K10 at the work of one decode step of the 2-slot engine (4 routed
+        # slots): MOE_LAYERS x (gate, up, down); library: torch.bmm on the
+        # routed experts' bf16 weights gathered beforehand
+        "moe_gathered_matmul": {
+            "route": "cuda", "source": "qtpu_torch/csrc/moe_matmul.cu",
+            "replaces": "qtpu/kernels/pallas_moe_matmul.py:165",
+            "max_abs_err": max(r["max_abs_err"] for r in k10r.values()),
+            **{key: _moe_step(k10r, key, "gathered") for key in ("ms", "plain_ms", "bound_ms",
+                                                                 "library_ms")},
+            "bound_by": "bytes",
+        },
+        # K11 at the work of one decode step of the serve_moe cell: MOE_LAYERS calls
+        "decode_attention_write": {
+            "route": "cuda", "source": "qtpu_torch/csrc/kv_attention.cu",
+            "replaces": "qtpu/kernels/pallas_kv_attention.py:313",
+            "max_abs_err": max(k11r[w]["max_abs_err"] for w in ("window0", "window64")),
+            **{key: MOE_LAYERS * k11r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                       "library_ms")},
+            "bound_by": k11r["bound_by"],
         },
     }
 
@@ -667,6 +716,192 @@ def _k8_row(torch, gen, dev, cfg):
     return row
 
 
+MOE_LAYERS = 8  # serve_moe's depth: 8 of Mixtral-8x7B's 32 layers
+MOE_GROUP = 128
+# K9's cases: (E, K, N, M, per-expert input) of Mixtral-8x7B's expert sites
+# (gate and up share one shape) at decode and prefill M, and one expert site
+# of Qwen2-57B-A14B (64 experts, intermediate 2560)
+K9_CASES = {
+    "gate_up_decode": (8, 4096, 14336, 8, False), "down_decode": (8, 14336, 4096, 8, True),
+    "gate_up_prefill": (8, 4096, 14336, 1024, False),
+    "down_prefill": (8, 14336, 4096, 1024, True),
+    "qwen2_57b_gate_up_decode": (64, 3584, 2560, 8, False),
+    "qwen2_57b_gate_up_prefill": (64, 3584, 2560, 1024, False),
+}
+K10_SLOTS = (1, 6, 3, 6)  # the 2-slot engine's 2 tokens x top-2, a repeated expert
+
+
+def _expert_site(torch, gen, dev, E, K, N, group=MOE_GROUP):
+    """E experts of random [K, N] weights packed RTN W4, [E, ...] leaves."""
+    from qtpu_torch.core.packing import quantize_pack
+
+    parts = [quantize_pack(torch.randn(K, N, generator=gen, device=dev) * 0.02, 4, group)
+             for _ in range(E)]
+    return tuple(torch.stack([getattr(p, f) for p in parts]) for f in ("data", "scales", "zeros"))
+
+
+def _dequant_experts(torch, site):
+    from qtpu_torch.core.packing import dequantize_parts
+
+    return torch.stack([dequantize_parts(site[0][e], site[1][e], site[2][e], 4, MOE_GROUP)
+                        for e in range(site[0].shape[0])])
+
+
+def _k9_rows(torch, gen, dev):
+    """K9 against its plain version at Mixtral-8x7B's expert sites (decode M
+    = 8, prefill M = 1024) and one Qwen2-57B-A14B site (tolerance: K1's,
+    relative error < 2e-2), with times: the kernel, the plain version,
+    torch.bmm on the experts dequantized to bf16 beforehand, and the bound
+    (every expert's packed bytes and all products)."""
+    from qtpu_torch.kernels import moe_matmul as k9
+
+    rows, shape = {}, None
+    for name, (E, K, N, M, per_expert) in K9_CASES.items():
+        if (E, K, N) != shape:  # one site's weights on the card at a time
+            shape, site, wd = (E, K, N), None, None
+            site = _expert_site(torch, gen, dev, E, K, N)
+            wd = _dequant_experts(torch, site)
+        meta = (4, MOE_GROUP, K, N)
+        x = torch.randn(*((E,) if per_expert else ()), M, K, generator=gen, device=dev)
+        x = x.to(torch.bfloat16)
+        got = k9.moe_matmul(x, *site, meta, per_expert_input=per_expert)
+        want = k9.moe_matmul_plain(x, *site, meta, per_expert_input=per_expert)
+        torch.cuda.synchronize()
+        row = {"E": E, "M": M, "K": K, "N": N, "per_expert_input": per_expert,
+               "rel_err": rel_err(torch, got, want),
+               "max_abs_err": float((got.float() - want.float()).abs().max()), "tol_rel": 2e-2}
+        if row["rel_err"] >= 2e-2 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K9 disagrees with its plain version: {name} {row}")
+        wbytes = E * (K * N / 2 + (K // MOE_GROUP) * N * 3)
+        row["bound_ms"], row["bound_by"] = bound(wbytes + x.numel() * 2 + E * M * N * 2,
+                                                 2 * E * M * K * N)
+        row["ms"], row["timing"] = cuda_ms(
+            torch, [lambda: k9.moe_matmul(x, *site, meta, per_expert_input=per_expert)], wbytes)
+        row["plain_ms"], _ = cuda_ms(
+            torch, [lambda: k9.moe_matmul_plain(x, *site, meta, per_expert_input=per_expert)],
+            wbytes)
+        xb = x if per_expert else x.expand(E, M, K)
+        row["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xb, wd)], wd.numel() * 2)
+        rows[name] = row
+    return rows
+
+
+def _k10_rows(torch, gen, dev):
+    """K10 against its plain version at 4 routed slots of Mixtral-8x7B's
+    gate/up and down sites (tolerance: max |err| / max |ref| < 2e-2, the
+    Pallas kernel's test), with times: the kernel, the plain version
+    (eager: it reads the expert ids on the host), torch.bmm on the routed
+    experts' bf16 weights gathered beforehand, and the bound (the distinct
+    routed experts' packed bytes)."""
+    from qtpu_torch.kernels import moe_matmul as k9
+
+    rows = {}
+    eidx = torch.tensor(K10_SLOTS, dtype=torch.int32, device=dev)
+    Gs, distinct = len(K10_SLOTS), len(set(K10_SLOTS))
+    for name, (K, N) in {"gate_up": (4096, 14336), "down": (14336, 4096)}.items():
+        site = _expert_site(torch, gen, dev, 8, K, N)
+        meta = (4, MOE_GROUP, K, N)
+        x = torch.randn(Gs, K, generator=gen, device=dev).to(torch.bfloat16)
+        got = k9.moe_gathered_matmul(x, eidx, *site, meta)
+        want = k9.moe_gathered_matmul_plain(x, eidx, *site, meta)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        row = {"Gs": Gs, "experts": list(K10_SLOTS), "K": K, "N": N,
+               "err_max_over_max_ref": float(diff.max() / (want.float().abs().max() + 1e-6)),
+               "rel_err": rel_err(torch, got, want), "max_abs_err": float(diff.max()),
+               "tol": "max |err| / max |ref| < 2e-2"}
+        if row["err_max_over_max_ref"] >= 2e-2 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K10 disagrees with its plain version: {name} {row}")
+        wbytes = distinct * (K * N / 2 + (K // MOE_GROUP) * N * 3)
+        row["bound_ms"], row["bound_by"] = bound(wbytes + Gs * (K + N) * 2 + Gs * 4,
+                                                 2 * Gs * K * N)
+        row["ms"], row["timing"] = cuda_ms(
+            torch, [lambda: k9.moe_gathered_matmul(x, eidx, *site, meta)], wbytes)
+        row["plain_ms"], _ = cuda_ms(
+            torch, [lambda: k9.moe_gathered_matmul_plain(x, eidx, *site, meta)], wbytes,
+            reps=8, graph=False)
+        wsel = _dequant_experts(torch, site)[eidx.long()]  # [Gs, K, N] bf16
+        row["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(x[:, None], wsel)],
+                                       wsel.numel() * 2)
+        rows[name] = row
+        del site, wsel
+    return rows
+
+
+def _moe_step(rows, key, kind="grouped"):
+    """A K9 (grouped) or K10 (gathered) column summed over the expert
+    matmuls of one decode step of serve_moe's model: gate, up and down on
+    each of its layers."""
+    if kind == "grouped":
+        return MOE_LAYERS * (2 * rows["gate_up_decode"][key] + rows["down_decode"][key])
+    return MOE_LAYERS * (2 * rows["gate_up"][key] + rows["down"][key])
+
+
+def _k11_row(torch, gen, dev):
+    """K11 against its plain version on the serve_moe cell's int8 cache
+    (Mixtral-8x7B: B 8, KV 8, G 4, hd 128, S 176, one slot inactive at
+    pos = S; 32 layers, so the layers cycled exceed the L2), without and
+    with a window of 64: the codes and scales written equal to the plain
+    write's, the output within 2e-2 relative error of the plain version and
+    rtol/atol 2e-2 of f32 math (the Pallas kernel's test);
+    times: kernel, plain version (eager), SDPA(enable_gqa) on the cache
+    dequantized to bf16 beforehand (the yardstick) and the bound."""
+    from qtpu_torch.kernels import kv_attention as k11
+    from qtpu_torch.models.config import MIXTRAL_8X7B as cfg
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    B, S, L = SERVE_B, 176, cfg.num_layers
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cache = [torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen, device=dev).to(torch.int8)
+             for _ in range(2)]
+    cache += [torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01 for _ in range(2)]
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=dev)
+    row = {}
+    for window in (0, 64):
+        kc, pc = [t.clone() for t in cache], [t.clone() for t in cache]
+        got = k11.decode_attention_write(q, kn, vn, *kc, pos, 5, window=window)
+        want = k11.decode_attention_write_plain(q, kn, vn, *pc, pos, 5, window=window)
+        # f32 math of the same function on the written cache: the reference
+        # test_pallas_kernels.py holds the TPU kernel to (rtol/atol 2e-2)
+        want32 = k11.decode_attention_write_plain(q.float(), kn, vn, *pc, pos, 5, window=window)
+        torch.cuda.synchronize()
+        # the last row (pos = S, an inactive batch slot) is garbage by contract
+        gt, wt, w32 = got[:-1].float(), want[:-1].float(), want32[:-1]
+        r = {"max_abs_err": float((gt - wt).abs().max()), "rel_err": rel_err(torch, gt, wt),
+             "max_abs_err_vs_f32": float((gt - w32).abs().max()),
+             "cache_equal": all(bool(torch.equal(a, b)) for a, b in zip(kc, pc)),
+             "finite_inactive_row": bool(torch.isfinite(got[-1].float()).all()),
+             "tol": "codes and scales equal; rel 2e-2 vs plain; rtol/atol 2e-2 vs f32 math"}
+        row[f"window{window}"] = r
+        del kc, pc
+        if (not r["cache_equal"] or not r["finite_inactive_row"] or r["rel_err"] >= 2e-2
+                or not torch.allclose(gt, w32, rtol=2e-2, atol=2e-2)):
+            raise AssertionError(f"K11 disagrees with its plain version: {row}")
+    rows_read = sum(min(int(p), S - 1) + 1 for p in pos.tolist())
+    active = sum(1 for p in pos.tolist() if p < S)
+    nbytes = (rows_read * KV * (2 * hd + 2 * 4) + active * KV * (2 * hd * 2 + 2 * hd + 2 * 4)
+              + 2 * B * H * hd * 2 + B * 4)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, rows_read * H * hd * 4)
+    row["ms"], row["timing"] = cuda_ms(
+        torch, [lambda l=l: k11.decode_attention_write(q, kn, vn, *cache, pos, l)
+                for l in range(L)], nbytes)
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k11.decode_attention_write_plain(q, kn, vn, *cache, pos, l)
+                for l in range(L)], nbytes, reps=L, graph=False)
+    kd = dequantize_kv(cache[0][:4], cache[2][:4])
+    vd = dequantize_kv(cache[1][:4], cache[3][:4])
+    mask = k11.cache_mask(pos[:, None], S)[:, None]  # [B, 1, 1, S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l], attn_mask=mask, enable_gqa=True)
+                for l in range(4)], nbytes)
+    row["library_call"] = "scaled_dot_product_attention(enable_gqa=True) on the cache dequantized to bf16"
+    return row
+
+
 def _k5_rows(torch, gen, dev, cfg):
     """K5 against its plain version at the eval shape (one layer of a
     TinyLlama eval block: B 1, H 32, KV 4, S 2048, hd 64) without and with a
@@ -769,6 +1004,98 @@ def phase_e2e(torch, ctx):
         if method == "pot" and (counts["codebook_matmul"] != (steps + 1) * (4 * 2 + 1)
                                 or counts["decode_attention_write_bf16"] != steps * 2):
             raise AssertionError(f"the POT bf16 run missed K7/K8: {counts}")
+    _moe_e2e(torch)
+
+
+def _dense_of_packed(torch, packed, qmeta):
+    """The packed sites of a model as dense bf16 "w" sites of the same
+    values (`dequantize_parts`, the plain versions' weight), on the CPU."""
+    from qtpu_torch.core.packing import dequantize_parts
+
+    meta = dict(qmeta)
+
+    def site(name, p):
+        if "data" not in p:
+            return {k: v.cpu() for k, v in p.items()}
+        bits, group = meta[name][:2]
+        lead = p["data"].shape[:-2]
+        flat = [t.reshape(-1, *t.shape[-2:]) for t in (p["data"], p["scales"], p["zeros"])]
+        w = torch.stack([dequantize_parts(d, sc, z, bits, group) for d, sc, z in zip(*flat)])
+        out = {"w": w.reshape(*lead, *w.shape[-2:]).cpu()}
+        if "b" in p:
+            out["b"] = p["b"].cpu()
+        return out
+
+    layers = {k: site(k, v) if isinstance(v, dict) else v.cpu()
+              for k, v in packed["layers"].items()}
+    return {"embed": packed["embed"].cpu(), "layers": layers,
+            "final_norm": packed["final_norm"].cpu(),
+            "lm_head": site("lm_head", packed["lm_head"])}
+
+
+def _moe_e2e(torch):
+    """2 layers at Mixtral-8x7B widths, RTN W4 g128, packed on the card:
+    prefill + 4 decode steps on the card (K1, K9 or K10, K11 or K8) against
+    the CPU, which runs the same packed bytes dequantized once to bf16 (the
+    plain versions' x @ dequant(W), the experts as one einsum), teacher-forced
+    on the CPU's greedy tokens. The int8 cache at batch 4 decodes on the
+    grouped route (B * top_k = 8 = E), the bf16 cache at batch 2 on the
+    gathered one."""
+    from qtpu_torch.models import moe
+    from qtpu_torch.models.config import MIXTRAL_8X7B
+    from qtpu_torch.quant.apply import pack_model
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    cfg = MIXTRAL_8X7B.replace(num_layers=2)
+    T, steps = 16, 4
+    packed, qmeta = pack_model(moe.init_params(cfg, seed=7, device="cuda"), "rtn",
+                               {"w_bit": 4, "q_group_size": MOE_GROUP}, arch="moe")
+    dense = _dense_of_packed(torch, packed, qmeta)
+    torch.cuda.empty_cache()
+    for kv, B in (("int8", 4), ("bfloat16", 2)):
+        ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(3))
+
+        def run(p, dev, feed=None):
+            cache = init_cache(cfg, B, T + steps + 8, quantized=kv == "int8", device=dev)
+            logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta, arch="moe")
+            outs, toks = [logits.float().cpu()], []
+            posn = torch.full((B,), T, dtype=torch.int32, device=dev)
+            for i in range(steps):
+                tok = torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[i].to(dev)
+                toks.append(tok.cpu())
+                logits, cache = decode_step(p, tok, posn, cache, cfg, qmeta, arch="moe")
+                outs.append(logits.float().cpu())
+                posn = posn + 1
+            return outs, toks
+
+        t0 = time.perf_counter()
+        cpu, toks = run(dense, "cpu")
+        cpu_s = time.perf_counter() - t0
+        _reset_counts()
+        gpu, _ = run(packed, "cuda", toks)
+        counts = _counts()
+        errs = [rel_err(torch, a, b) for a, b in zip(gpu, cpu)]
+        top1 = [float((a.argmax(-1) == b.argmax(-1)).float().mean()) for a, b in zip(gpu, cpu)]
+        gathered = B * cfg.num_experts_per_tok < cfg.num_experts
+        L = cfg.num_layers
+        expect = {"dequant_matmul": (steps + 1) * (4 * L + 1),
+                  "moe_matmul": 3 * L * (1 if gathered else steps + 1),
+                  "moe_gathered_matmul": 3 * L * steps if gathered else 0,
+                  "decode_attention_write": L * steps if kv == "int8" else 0,
+                  "decode_attention_write_bf16": L * steps if kv != "int8" else 0}
+        res = {"phase": "e2e", "model": "Mixtral-8x7B width", "method": "rtn W4 g128", "kv": kv,
+               "layers": L, "B": B, "prompt": T, "decode_steps": steps,
+               "route": "gathered" if gathered else "grouped", "rel_err_per_step": errs,
+               "top1_agree": top1, "cpu_s": cpu_s, "launches": counts,
+               "expected_launches": expect, "tol_rel": 3e-2}
+        emit(res)
+        if max(errs) >= 3e-2:
+            raise AssertionError(f"card and CPU MoE logits differ: {res}")
+        if any(counts[k] != v for k, v in expect.items()):
+            raise AssertionError(f"the MoE run's launches {counts} != {expect}")
+    del packed, dense
+    torch.cuda.empty_cache()
 
 
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
@@ -1065,8 +1392,13 @@ WRAPPERS = {  # kernel -> (module, wrapper name)
     "w8a8_matmul": ("int8_matmul", "w8a8_matmul"),
     "codebook_matmul": ("codebook_matmul", "codebook_matmul"),
     "decode_attention_write_bf16": ("kv_attention", "decode_attention_write_bf16"),
+    "moe_matmul": ("moe_matmul", "moe_matmul"),
+    "moe_gathered_matmul": ("moe_matmul", "moe_gathered_matmul"),
+    "decode_attention_write": ("kv_attention", "decode_attention_write"),
 }
-NO_CODEBOOK = {"codebook_matmul": 0, "decode_attention_write_bf16": 0}  # paths without K7/K8
+NO_MOE = {"moe_matmul": 0, "moe_gathered_matmul": 0, "decode_attention_write": 0}
+# paths without K7/K8 (nor the MoE kernels K9-K11)
+NO_CODEBOOK = {"codebook_matmul": 0, "decode_attention_write_bf16": 0, **NO_MOE}
 
 
 def _wrappers():
@@ -1089,9 +1421,12 @@ def _kind(name: str) -> str:
     """The kernel of a profiled CUDA kernel's name, for the splits by kind."""
     if "dq_" in name and any(t in name for t in (", 3>", "dq_finish<3>", ", true>")):
         return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
+    if "moe_gemv_kernel" in name and ", 1>" in name:
+        return "K10 moe_gathered_matmul"  # one slot per row tile
     for tag, kind in (("w8a8", "K6 w8a8_matmul"), ("flash_attn_kernel", "K5 flash_attention"),
-                      ("band_write", "K2 cache_band_write"),
-                      ("decode_attn_kernel<true>", "K8 decode_attention_write_bf16"),
+                      ("band_write", "K2 cache_band_write"), ("moe_", "K9 moe_matmul"),
+                      ("decode_attn_kernel<true", "K8 decode_attention_write_bf16"),
+                      ("decode_attn_kernel<false, true>", "K11 decode_attention_write"),
                       ("decode_attn", "K3 decode_attention"), ("dq_", "K1 dequant_matmul")):
         if tag in name:
             return kind
@@ -1412,7 +1747,7 @@ def phase_pot_apot(torch, ctx):
         "flash_attention": 5 * nb * L,  # raw, 2 fake-quant and 2 packed evals
         "w8a8_matmul": 0,
         "codebook_matmul": (2 * nb + runs + steps) * CB_PER_FORWARD,
-        "decode_attention_write_bf16": steps * L,
+        "decode_attention_write_bf16": steps * L, **NO_MOE,
     }
     res = saved["results"]
     ppl = {m: {"fake": res.get(m, {}).get("perplexity"),
@@ -1559,7 +1894,7 @@ def phase_serve_bf16(torch, ctx):
     expect = {"dequant_matmul": 0, "cache_band_write": 0, "decode_attention": 0, "fused_mlp": 0,
               "flash_attention": 0, "w8a8_matmul": 0,
               "codebook_matmul": CB_PER_FORWARD * (steps + pre),
-              "decode_attention_write_bf16": L * steps}
+              "decode_attention_write_bf16": L * steps, **NO_MOE}
     tokens = sum(len(r.output) for r in done)
     emit({"phase": "serve_bf16", "model": "TinyLlama-1.1B", "layers": L,
           "method": "pot W4 g128", "kv": "bfloat16", "requests": len(done),
@@ -1604,6 +1939,136 @@ def phase_serve_bf16(torch, ctx):
         raise AssertionError(f"the serve CLI run failed: rc {rc}, launches {cli}")
 
 
+MOE_PER_STEP = {"dequant_matmul": 4 * MOE_LAYERS + 1, "moe": 3 * MOE_LAYERS,
+                "attention": MOE_LAYERS}  # per forward of serve_moe's model
+
+
+def _moe_engine(torch, params, qmeta, cfg, slots, requests):
+    """A ContinuousBatcher on the int8 cache with `slots` slots answering
+    `requests` prompts of SERVE_PROMPT tokens with SERVE_NEW new tokens each;
+    returns (its result line, the requests done). Launches are counted from 0
+    just before the run."""
+    import numpy as np
+
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    P, new = SERVE_PROMPT, SERVE_NEW
+    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=slots, max_seq_len=P + new,
+                            kv_dtype="int8", seed=0, device="cuda")
+    rng = np.random.default_rng(slots)
+    for _ in range(requests):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    m = eng.metrics()
+    L, steps, pre = MOE_LAYERS, m["decode_steps"], m["prefill_calls"]
+    gathered = slots * cfg.num_experts_per_tok < cfg.num_experts
+    expect = {k: 0 for k in WRAPPERS}
+    expect.update({
+        "dequant_matmul": MOE_PER_STEP["dequant_matmul"] * (steps + pre),
+        "moe_matmul": MOE_PER_STEP["moe"] * (pre if gathered else steps + pre),
+        "moe_gathered_matmul": MOE_PER_STEP["moe"] * steps if gathered else 0,
+        "decode_attention_write": L * steps,
+    })
+    tokens = sum(len(r.output) for r in done)
+    res = {"phase": "serve_moe", "model": "Mixtral-8x7B", "layers": L, "method": "rtn W4 g128",
+           "kv": "int8", "slots": slots, "route": "gathered" if gathered else "grouped",
+           "requests": len(done), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "decode_steps": steps, "prefill_calls": pre, "launches": counts,
+           "expected_launches": expect, "metrics": m}
+    if len(done) != requests:
+        raise AssertionError(f"{len(done)} of {requests} requests finished")
+    for r in done:
+        if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
+    if counts != expect or steps == 0:
+        raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    return res, eng
+
+
+def phase_serve_moe(torch, ctx):
+    """The sparse-MoE serving path at full width: Mixtral-8x7B with 8 of its
+    32 layers (random per-layer weights drawn on the card from seed 0), RTN
+    W4 g128 (the router dense). An 8-slot engine on the int8 cache answers 8
+    requests of prompt 128 and 32 new tokens: per prefill call and decode
+    step K1 33 (q, k, v, o a layer and lm_head) and K9 24 (gate, up, down a
+    layer), K11 8 per decode step. A 2-slot engine answers 2 requests: K10
+    24 a decode step, K9 only at prefill. Then a profile of one warm prefill
+    of 8 prompts and of one decode step, and the serve CLI's main() with
+    --model tiny-moe-test --kv int8 --batch 1."""
+    from qtpu_torch.models import moe
+    from qtpu_torch.models.config import MIXTRAL_8X7B
+    from qtpu_torch.quant.apply import pack_model
+    from qtpu_torch.serve.__main__ import main as serve_main
+    from qtpu_torch.serve.decode import decode_multi, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    cfg = MIXTRAL_8X7B.replace(num_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, qmeta = pack_model(params, "rtn", {"w_bit": 4, "q_group_size": MOE_GROUP},
+                               arch="moe")
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    setup = {"init_s": init_s, "pack_s": pack_s,
+             "setup_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "packed_gib": sum(t.numel() * t.element_size() for site in params["layers"].values()
+                               if isinstance(site, dict) for t in site.values()) / 2**30}
+    paths = ctx.setdefault("path_launches", {})
+    res, eng = _moe_engine(torch, params, qmeta, cfg, SERVE_B, SERVE_B)
+    emit({**res, **setup, "card": ctx["smi"]})
+    paths["serve_moe"] = res["launches"]
+    del eng
+    res2, eng = _moe_engine(torch, params, qmeta, cfg, 2, 2)
+    emit({**res2, "card": ctx["smi"]})
+    paths["serve_moe_2slots"] = res2["launches"]
+    del eng
+    torch.cuda.empty_cache()
+
+    # where a step's time goes: one warm prefill of 8 prompts, one decode step
+    B, P = SERVE_B, SERVE_PROMPT
+    cache = init_cache(cfg, B, P + SERVE_NEW + 16, quantized=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    logits, cache = prefill(params, ids, cache, cfg, qmeta, arch="moe")  # warm
+    pre = _profiled(torch, lambda: prefill(params, ids, cache, cfg, qmeta, arch="moe"), 1,
+                    classify=_kind)
+    emit({"phase": "profile_moe", "what": "prefill", "batch": B, "prompt": P, **pre,
+          "card": ctx["smi"]})
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    decode_multi(params, tok, pos, cache, None, None, cfg, 4, qmeta, arch="moe")  # warm
+    n = 4
+    dec = _profiled(torch, lambda: decode_multi(params, tok, pos, cache, None, None, cfg, n,
+                                                qmeta, arch="moe"), n, classify=_kind)
+    emit({"phase": "profile_moe", "what": "decode", "batch": B, "decode_steps": n, **dec,
+          "card": ctx["smi"]})
+    del cache, params
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    rc = serve_main(["--model", "tiny-moe-test", "--kv", "int8", "--batch", "1"])
+    cli = _counts()
+    emit({"phase": "serve_moe_cli", "argv": "--model tiny-moe-test --kv int8 --batch 1",
+          "rc": rc, "launches": cli})
+    if (rc != 0 or cli["moe_gathered_matmul"] == 0 or cli["decode_attention_write"] == 0
+            or cli["moe_matmul"] == 0):
+        raise AssertionError(f"the serve CLI run failed: rc {rc}, launches {cli}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1638,7 +2103,8 @@ def main(argv=None) -> int:
     print(ctx["smi"], flush=True)
     if "kernel_rows" in ctx:
         # launches: the sum over the main paths' runs (serve, eval, quant,
-        # serve_w8a8, pot_apot, serve_bf16), each counted from 0 just before it
+        # serve_w8a8, pot_apot, serve_bf16, serve_moe's two engines), each
+        # counted from 0 just before it
         paths = ctx.get("path_launches", {}).values()
         emit({"kernels": [
             {"name": name, "launches": sum(c.get(name, 0) for c in paths), **row}

@@ -1,5 +1,5 @@
-// Dequant-matmul core shared by K1 (dequant_matmul.cu), K4 (fused_mlp.cu)
-// and K7 (codebook_matmul.cu).
+// Dequant-matmul core shared by K1 (dequant_matmul.cu), K4 (fused_mlp.cu),
+// K7 (codebook_matmul.cu) and K9/K10 (moe_matmul.cu).
 //
 // y[m, n] = sum_k x[m, k] * (q[k, n] - z[g(k), n]) * s[g(k), n]
 // and, in the codebook mode (MODE 3, W4 only),
@@ -67,7 +67,7 @@ struct DqArgs {
   int M, K, N;                  // N: output columns (MODE 1: F of a [K, 2F] weight)
   int ldw;                      // columns of the packed weight
   int group;
-  int split_groups;             // groups of K per blockIdx.z (all of K when not split)
+  int split_groups;             // groups of K per K slice (all of K when not split)
   float eps;
 };
 
@@ -89,10 +89,12 @@ __device__ __forceinline__ __nv_bfloat16 epilogue(const float* v, const DqArgs& 
 // MODE 2: out = bf16(x @ W + resid).
 // MODE 3: out = x @ W with W = cb[q] * s (POT/APOT codebook, zeros unused);
 //         the 16 levels sit in shared memory, each a distinct bank.
-// With a.part set, blockIdx.z sums only its a.split_groups groups of K and
-// writes raw f32 sums; dq_finish adds the splits and applies the epilogue.
+// With a.part set, K slice `zs` (blockIdx.z for dq_kernel) sums only its
+// a.split_groups groups of K and writes raw f32 sums; dq_finish adds the
+// splits and applies the epilogue. The body is a device function so that the
+// expert kernels of moe_matmul.cu run it on one expert's pointers.
 template <int BITS, int TM, int CQ, int MODE>
-__global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
+__device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
   constexpr int PK = 8 / BITS;
   constexpr int LANES = kThreads / CQ;
   constexpr int BN = 4 * CQ;
@@ -141,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
 #pragma unroll
       for (int t = 0; t < 4; ++t) acc[s][m][t] = 0.f;
 
-  const int kbeg = blockIdx.z * a.split_groups * g;
+  const int kbeg = zs * a.split_groups * g;
   const int kend = min(a.K, kbeg + a.split_groups * g);
   for (int kc0 = kbeg; kc0 < kend; kc0 += KC) {
     const int klen = min(KC, kend - kc0);
@@ -287,11 +289,16 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
     if (a.part != nullptr) {
 #pragma unroll
       for (int s = 0; s < NSET; ++s)
-        a.part[((size_t)(blockIdx.z * NSET + s) * a.M + m0 + m) * a.N + n] = v[s];
+        a.part[((size_t)(zs * NSET + s) * a.M + m0 + m) * a.N + n] = v[s];
     } else {
       a.out[o] = epilogue<MODE>(v, a, o);
     }
   }
+}
+
+template <int BITS, int TM, int CQ, int MODE>
+__global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
+  dq_body<BITS, TM, CQ, MODE>(a, blockIdx.z);
 }
 
 // Sums the split-K partials of dq_kernel and applies the epilogue.

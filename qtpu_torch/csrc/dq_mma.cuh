@@ -1,5 +1,5 @@
-// Tensor-core dequant-matmul for M > 8, shared by K1 (dequant_matmul.cu)
-// and K7 (codebook_matmul.cu).
+// Tensor-core dequant-matmul for M > 8, shared by K1 (dequant_matmul.cu),
+// K7 (codebook_matmul.cu) and K9 (moe_matmul.cu).
 //
 // mma.sync m16n8k16, bf16 in, f32 accumulate. The B operand is the integer
 // code minus the zero point (K1), exact in bf16, or the code's codebook
@@ -32,8 +32,10 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
 
 // 8 warps as 4 (rows) x 2 (columns), each a 32 x 32 tile of 2 x 4 mma tiles.
 // A stage covers 16 packed rows of one group, i.e. PK runs of 16 K values.
+// The body is a device function so that the expert kernel of moe_matmul.cu
+// runs it on one expert's pointers.
 template <int BITS, bool CB>
-__global__ void __launch_bounds__(kThreads) dq_mma_kernel(DqArgs a) {
+__device__ __forceinline__ void dq_mma_body(const DqArgs& a) {
   constexpr int PK = 8 / BITS;
   constexpr int KS = kMmaRows * PK;  // K values per stage
   constexpr int LDS = KS + 8;        // padded smem row, in bf16
@@ -165,6 +167,11 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(DqArgs a) {
         if (row < a.M && col < a.N)
           a.out[(size_t)row * a.N + col] = __float2bfloat16(acc[mi][ni][e]);
       }
+}
+
+template <int BITS, bool CB>
+__global__ void __launch_bounds__(kThreads) dq_mma_kernel(DqArgs a) {
+  dq_mma_body<BITS, CB>(a);
 }
 
 // Launches dq_mma_kernel over the whole of K (no split). Returns the

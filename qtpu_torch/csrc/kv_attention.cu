@@ -1,4 +1,4 @@
-// K2, K3 and K8: the KV cache of the decode step.
+// K2, K3, K8 and K11: the KV cache of the decode step.
 //
 // K2 (qtpu_kv_band_write) replaces pallas_cache_band_write_stacked
 // (qtpu/kernels/pallas_kv_attention.py:1067): quantize this step's k and v
@@ -33,6 +33,18 @@
 // and the softmax are f32; the probabilities are rounded to bf16 for the PV
 // product (the TPU kernel's and the plain version's rounding point, here on
 // the online softmax's unnormalized weights, as K5 does).
+//
+// K11 (qtpu_decode_attention_write) replaces pallas_decode_attention_write
+// (pallas_kv_attention.py:313): on the int8 cache, quantize this step's k and
+// v rows with K2's rounding, write the codes and scales in place at pos and
+// attend over the updated layer in one launch per layer. Rows with pos
+// outside [0, S) write nothing. Bound: the bytes of the cache rows up to pos
+// (int8 k and v plus the f32 scales) and the written row. Design: K3's kernel
+// with K8's write. Two warps of the block that owns a (sequence, kv-head)
+// quantize the new rows into shared memory, the block writes them to the
+// cache and stages the row at pos from shared memory, never reading it back,
+// so no other block and no second pass is involved. The TPU kernel rounds
+// p * v_scale to bf16 before its PV product; here it stays f32, as in K3.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,14 +98,14 @@ __global__ void band_write_kernel(const __nv_bfloat16* __restrict__ k_new,
   quantize_row(v_new + src, v_c + row * hd, vs_c + row, hd, threadIdx.x);
 }
 
-// grid B * KV, block G * 32. BF = false: K3 on the int8 cache with its
-// scales (k_new, v_new unused). BF = true: K8 on the bf16 cache, which it
-// writes at pos (ks_c, vs_c unused).
-template <bool BF>
+// grid B * KV, block G * 32. BF = false, QW = false: K3 on the int8 cache
+// with its scales (k_new, v_new unused). BF = true: K8 on the bf16 cache,
+// which it writes at pos (ks_c, vs_c unused). QW = true: K11 on the int8
+// cache, which it quantizes the new rows into and writes at pos.
+template <bool BF, bool QW>
 __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                                    const void* k_cache, const void* v_cache,
-                                   const float* __restrict__ ks_c,
-                                   const float* __restrict__ vs_c,
+                                   const float* ks_c, const float* vs_c,
                                    const __nv_bfloat16* __restrict__ k_new,
                                    const __nv_bfloat16* __restrict__ v_new,
                                    const int* __restrict__ pos,
@@ -131,6 +143,27 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
       vw[(row0 + p) * hd + d] = v_new[nrow + d];
     }
   }
+  // K11: the new rows' codes and scales, quantized by warps 0 and 1 (warp 0
+  // alone when G = 1), then written at pos
+  __shared__ __align__(16) int8_t newq[2][kMaxHd];
+  __shared__ float newsc[2];
+  if (QW) {
+    for (int r = g; r < 2; r += G)
+      quantize_row((r == 0 ? k_new : v_new) + nrow, newq[r], &newsc[r], hd, lane);
+    __syncthreads();
+    if (p >= 0 && p < S) {
+      int8_t* kw = static_cast<int8_t*>(const_cast<void*>(k_cache));
+      int8_t* vw = static_cast<int8_t*>(const_cast<void*>(v_cache));
+      for (int d = tid; d < hd; d += nthr) {
+        kw[(row0 + p) * hd + d] = newq[0][d];
+        vw[(row0 + p) * hd + d] = newq[1][d];
+      }
+      if (tid == 0) {
+        const_cast<float*>(ks_c)[row0 + p] = newsc[0];
+        const_cast<float*>(vs_c)[row0 + p] = newsc[1];
+      }
+    }
+  }
 
   constexpr int kPer = kMaxHd / 32;
   float o[kPer];
@@ -166,13 +199,15 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                                                        (row0 + s0) * hd);
       const int4* vsrc = reinterpret_cast<const int4*>(static_cast<const int8_t*>(v_cache) +
                                                        (row0 + s0) * hd);
+      // (K11: the row at pos comes from the new codes in shared memory)
       for (int i = tid; i < n * hd / 16; i += nthr) {
-        const int4 kw = __ldg(ksrc + i);
-        const int4 vw = __ldg(vsrc + i);
-        const int8_t* kb = reinterpret_cast<const int8_t*>(&kw);
-        const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
         const int s = (16 * i) / hd;
         const int d = 16 * i - s * hd;
+        const bool fresh = QW && s0 + s == p;
+        const int4 kw = fresh ? *reinterpret_cast<const int4*>(&newq[0][d]) : __ldg(ksrc + i);
+        const int4 vw = fresh ? *reinterpret_cast<const int4*>(&newq[1][d]) : __ldg(vsrc + i);
+        const int8_t* kb = reinterpret_cast<const int8_t*>(&kw);
+        const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
 #pragma unroll
         for (int t = 0; t < 16; ++t) {
           Ks[s * HD1 + d + t] = (float)kb[t];
@@ -180,8 +215,9 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
       for (int i = tid; i < n; i += nthr) {
-        kss[i] = ks_c[row0 + s0 + i];
-        vss[i] = vs_c[row0 + s0 + i];
+        const bool fresh = QW && s0 + i == p;
+        kss[i] = fresh ? newsc[0] : ks_c[row0 + s0 + i];
+        vss[i] = fresh ? newsc[1] : vs_c[row0 + s0 + i];
       }
     }
     __syncthreads();
@@ -235,7 +271,7 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool BF>
+template <bool BF, bool QW>
 int launch_attn(const void* q, const void* k_c, const void* v_c, const float* ks_c,
                 const float* vs_c, const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
                 const void* pos, void* out, int B, int KV, int G, int S, int hd, int window,
@@ -248,11 +284,11 @@ int launch_attn(const void* q, const void* k_c, const void* v_c, const float* ks
                        (size_t)G * kChunk);
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        decode_attn_kernel<BF, QW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
-  decode_attn_kernel<BF><<<B * KV, G * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  decode_attn_kernel<BF, QW><<<B * KV, G * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), k_c, v_c, ks_c, vs_c, k_new, v_new,
       static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(out), KV, G, S, hd, window,
       1.0f / sqrtf((float)hd));
@@ -280,7 +316,7 @@ extern "C" int qtpu_decode_attention(const void* q, const void* k_c, const void*
                                      const void* ks_c, const void* vs_c, const void* pos,
                                      void* out, int B, int KV, int G, int S, int hd,
                                      int window, void* stream) {
-  return launch_attn<false>(q, k_c, v_c, static_cast<const float*>(ks_c),
+  return launch_attn<false, false>(q, k_c, v_c, static_cast<const float*>(ks_c),
                             static_cast<const float*>(vs_c), nullptr, nullptr, pos, out, B, KV,
                             G, S, hd, window, stream);
 }
@@ -292,8 +328,22 @@ extern "C" int qtpu_decode_attention_write_bf16(const void* q, const void* k_new
                                                 const void* pos, void* out, int B, int KV,
                                                 int G, int S, int hd, int window,
                                                 void* stream) {
-  return launch_attn<true>(q, k_c, v_c, nullptr, nullptr,
+  return launch_attn<true, false>(q, k_c, v_c, nullptr, nullptr,
                            static_cast<const __nv_bfloat16*>(k_new),
                            static_cast<const __nv_bfloat16*>(v_new), pos, out, B, KV, G, S, hd,
                            window, stream);
+}
+
+// K11. q [B, H, hd] bf16; k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer
+// [B, KV, S, hd] int8 and ks_c/vs_c [B, KV, S] f32, written at pos; pos [B]
+// int32; out [B, H, hd] bf16.
+extern "C" int qtpu_decode_attention_write(const void* q, const void* k_new, const void* v_new,
+                                           void* k_c, void* v_c, void* ks_c, void* vs_c,
+                                           const void* pos, void* out, int B, int KV, int G,
+                                           int S, int hd, int window, void* stream) {
+  return launch_attn<false, true>(q, k_c, v_c, static_cast<const float*>(ks_c),
+                                  static_cast<const float*>(vs_c),
+                                  static_cast<const __nv_bfloat16*>(k_new),
+                                  static_cast<const __nv_bfloat16*>(v_new), pos, out, B, KV, G, S,
+                                  hd, window, stream);
 }

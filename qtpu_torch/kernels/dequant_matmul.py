@@ -29,14 +29,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(device, M: int, K: int, N: int, group: int, nset: int = 1):
+def split_k(device, M: int, K: int, N: int, group: int, nset: int = 1, tiles=None):
     """How the GEMV kernel (8 rows x 32 columns per block, csrc/dq_core.cuh)
     splits K: slices of whole groups, at least 256 K values each, enough for
-    about two blocks per SM. Returns (groups per slice, the f32 scratch of
-    slices x nset x M x N partial sums, or None for one slice). The kernel
+    about two blocks per SM. `tiles`: the blocks of one K slice when they are
+    not ceil(N / 32) x ceil(M / 8). Returns (groups per slice, the f32 scratch
+    of slices x nset x M x N partial sums, or None for one slice). The kernel
     takes the split as given."""
     groups = K // group
-    tiles = -(-N // 32) * -(-M // 8)
+    if tiles is None:
+        tiles = -(-N // 32) * -(-M // 8)
     want = -(-2 * _sm_count(device.index or 0) // tiles)
     per = -(-groups // max(1, min(groups, K // 256, want)))
     slices = -(-groups // per)

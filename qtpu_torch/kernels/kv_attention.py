@@ -1,4 +1,5 @@
-"""K2, K3 and K8: the decode step's KV-cache kernels (csrc/kv_attention.cu).
+"""K2, K3, K8 and K11: the decode step's KV-cache kernels
+(csrc/kv_attention.cu).
 
 `cache_band_write` replaces pallas_cache_band_write_stacked and
 `decode_attention` replaces pallas_decode_attention_stacked
@@ -6,6 +7,8 @@
 ([L, B, KV, S, hd] int8, [L, B, KV, S] f32 scales).
 `decode_attention_write_bf16` replaces pallas_decode_attention_write_bf16
 (:262): on the bf16 cache, the row write and the attention in one launch.
+`decode_attention_write` replaces pallas_decode_attention_write (:313): the
+same on the int8 cache, the new rows quantized with K2's rounding.
 Each takes the FULL stacked cache and a layer index and works on the view
 of that layer: writes are in place. A CUDA tensor launches the kernel; a
 CPU tensor takes the plain version, which is the math of qtpu's XLA path
@@ -26,6 +29,7 @@ _SIG = {
     "qtpu_kv_band_write": [P, P, P, P, P, P, P, I, I, I, I, P],
     "qtpu_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "qtpu_decode_attention_write_bf16": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "qtpu_decode_attention_write": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
 
@@ -146,12 +150,37 @@ def decode_attention(q, k_all, v_all, ks_all, vs_all, pos, layer, window=0):
     return out
 
 
-def decode_attention_write_bf16_plain(q, k_new, v_new, k_all, v_all, pos, layer, window=0):
-    cache = KVCache(k=k_all, v=v_all, k_scale=None, v_scale=None, length=None)
+def _write_attend_plain(q, k_new, v_new, cache, layer, pos, window):
     cache_layer_write(cache, layer, k_new, v_new, pos)
-    mask = cache_mask(pos[:, None], k_all.shape[3], window)
+    mask = cache_mask(pos[:, None], cache.max_len, window)
     B, H, hd = q.shape
     return cached_attention(q[:, None], cache.layer(layer), mask).reshape(B, H, hd)
+
+
+def decode_attention_write_bf16_plain(q, k_new, v_new, k_all, v_all, pos, layer, window=0):
+    cache = KVCache(k=k_all, v=v_all, k_scale=None, v_scale=None, length=None)
+    return _write_attend_plain(q, k_new, v_new, cache, layer, pos, window)
+
+
+def _check_decode(q, k_new, v_new, k_all, pos, layer):
+    """Shape, type and device checks of the decode write + attention
+    kernels (K8, K11) on everything but the cache's dtype. Returns
+    (L, B, KV, S, hd, H)."""
+    require(q.is_cuda, f"unsupported device {q.device}")
+    L, B, KV, S, hd = k_all.shape
+    H = q.shape[1]
+    require(q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[0] == B
+            and q.shape[2] == hd and q.is_contiguous(), "q must be contiguous bf16 [B, H, hd]")
+    require(H % KV == 0 and H // KV <= 32, f"H={H} must be a multiple of KV={KV}, G <= 32")
+    require(hd % 32 == 0 and hd <= 128, f"head_dim {hd} must be a multiple of 32, <= 128")
+    require(0 <= layer < L, f"layer {layer} out of range")
+    for t in (k_new, v_new):
+        require(t.dtype == torch.bfloat16 and tuple(t.shape) == (B, 1, KV, hd),
+                "new k/v must be bf16 [B, 1, KV, hd]")
+        require(t.data_ptr() % 16 == 0, "new k/v must be 16-byte aligned")
+        require(t.device == q.device and t.is_contiguous(), "new k/v must be contiguous")
+    require(pos.dtype == torch.int32 and tuple(pos.shape) == (B,), "pos must be int32 [B]")
+    return L, B, KV, S, hd, H
 
 
 def decode_attention_write_bf16(q, k_new, v_new, k_all, v_all, pos, layer, window=0):
@@ -163,23 +192,11 @@ def decode_attention_write_bf16(q, k_new, v_new, k_all, v_all, pos, layer, windo
     if q.device.type == "cpu":
         return decode_attention_write_bf16_plain(q, k_new, v_new, k_all, v_all, pos, layer,
                                                  window)
-    require(q.is_cuda, f"unsupported device {q.device}")
-    L, B, KV, S, hd = k_all.shape
-    H = q.shape[1]
-    require(q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[0] == B
-            and q.shape[2] == hd and q.is_contiguous(), "q must be contiguous bf16 [B, H, hd]")
-    require(H % KV == 0 and H // KV <= 32, f"H={H} must be a multiple of KV={KV}, G <= 32")
-    require(hd % 32 == 0 and hd <= 128, f"head_dim {hd} must be a multiple of 32, <= 128")
-    require(0 <= layer < L, f"layer {layer} out of range")
+    L, B, KV, S, hd, H = _check_decode(q, k_new, v_new, k_all, pos, layer)
     for t in (k_all, v_all):
         require(t.dtype == torch.bfloat16 and tuple(t.shape) == (L, B, KV, S, hd),
                 "cache must be bf16 [L, B, KV, S, hd]")
-    for t in (k_new, v_new):
-        require(t.dtype == torch.bfloat16 and tuple(t.shape) == (B, 1, KV, hd),
-                "new k/v must be bf16 [B, 1, KV, hd]")
-        require(t.data_ptr() % 16 == 0, "new k/v must be 16-byte aligned")
-    require(pos.dtype == torch.int32 and tuple(pos.shape) == (B,), "pos must be int32 [B]")
-    for t in (k_new, v_new, k_all, v_all, pos):
+    for t in (k_all, v_all, pos):
         require(t.device == q.device, f"cache tensors must lie on {q.device}")
         require(t.is_contiguous(), "cache tensors must be contiguous")
     out = torch.empty_like(q)
@@ -194,6 +211,39 @@ def decode_attention_write_bf16(q, k_new, v_new, k_all, v_all, pos, layer, windo
     return out
 
 
+def decode_attention_write_plain(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer,
+                                 window=0):
+    cache = KVCache(k=k_all, v=v_all, k_scale=ks_all, v_scale=vs_all, length=None)
+    return _write_attend_plain(q, k_new, v_new, cache, layer, pos, window)
+
+
+def decode_attention_write(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer,
+                           window=0):
+    """Quantize this step's k/v rows [B, 1, KV, hd] to int8 (K2's rounding,
+    `quantize_kv`) and write codes and scales in place into layer `layer` of
+    the stacked int8 cache at pos [B] (rows with pos outside [0, S) write
+    nothing), then GQA decode attention of q [B, H, hd] over that layer,
+    causal by pos with an optional sliding window. Returns [B, H, hd] bf16."""
+    if q.device.type == "cpu":
+        return decode_attention_write_plain(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos,
+                                            layer, window)
+    _check_decode(q, k_new, v_new, k_all, pos, layer)
+    _check_cache(k_all, v_all, ks_all, vs_all, pos, q.device)
+    out = torch.empty_like(q)
+    L, B, KV, S, hd = k_all.shape
+    lib = _build.load("kv_attention", _SIG)
+    rc = lib.qtpu_decode_attention_write(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all[layer].data_ptr(),
+        v_all[layer].data_ptr(), ks_all[layer].data_ptr(), vs_all[layer].data_ptr(),
+        pos.data_ptr(), out.data_ptr(), B, KV, q.shape[1] // KV, S, hd, int(window),
+        _build.stream_of(q),
+    )
+    _build.check(rc, "decode_attention_write")
+    decode_attention_write.launches += 1
+    return out
+
+
 cache_band_write.launches = 0
 decode_attention.launches = 0
 decode_attention_write_bf16.launches = 0
+decode_attention_write.launches = 0

@@ -1,0 +1,128 @@
+"""K9 and K10: the packed expert matmuls of a sparse-MoE layer
+(csrc/moe_matmul.cu).
+
+`moe_matmul` replaces pallas_moe_quantized_matmul
+(qtpu/kernels/pallas_moe_matmul.py:40): every expert of one layer's packed
+site in one launch, x [M, K] (shared) or [E, M, K] (per_expert_input) ->
+[E, M, N]. `moe_gathered_matmul` replaces pallas_moe_gathered_matmul (:165):
+one routed slot per row, x [Gs, K] with the int32 expert index of each row
+[Gs] -> [Gs, N], the index read by the kernel from device memory, so a decode
+step never waits on the host. The weights are one layer's view [E, Kp, N] of
+the stacked [L, E, ...] leaf (`W[l]`, zero-copy), with scales and zeros
+[E, K/g, N], meta = (bits, group, K, N).
+
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version:
+K1's plain `quantized_matmul_plain` (qtpu's XLA reference: dequantize to the
+activation dtype, then matmul) per expert, stacked, as qtpu's per-expert loop
+(qtpu/models/moe.py:193-200) computes it, and per slot for the gathered form.
+The kernels apply scale and zero in f32, as K1 does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from qtpu_torch.kernels import _build
+from qtpu_torch.kernels._build import I, P, require
+from qtpu_torch.kernels.dequant_matmul import check_packed, quantized_matmul_plain, split_k
+
+_SIG = {
+    "qtpu_moe_grouped": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "qtpu_moe_gathered": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+}
+
+
+def _expert(t, e):
+    return None if t is None else t[e]
+
+
+def moe_matmul_plain(x, data, scales, zeros, meta, per_expert_input=False):
+    return torch.stack([
+        quantized_matmul_plain(x[e] if per_expert_input else x, data[e], scales[e],
+                               _expert(zeros, e), meta)
+        for e in range(data.shape[0])
+    ])
+
+
+def moe_gathered_matmul_plain(x, expert_idx, data, scales, zeros, meta):
+    return torch.cat([
+        quantized_matmul_plain(x[i:i + 1], data[e], scales[e], _expert(zeros, e), meta)
+        for i, e in enumerate(expert_idx.tolist())
+    ])
+
+
+def _check_experts(data, scales, zeros, meta, device):
+    """K1's checks on one expert, and the [E, ...] leaves contiguous."""
+    check_packed(data[0], scales[0], _expert(zeros, 0), meta, device)
+    E = data.shape[0]
+    for t in (data, scales, zeros):
+        if t is not None:
+            require(t.dim() == 3 and t.shape[0] == E and t.is_contiguous(),
+                    "expert weights must be contiguous [E, ...]")
+
+
+def moe_matmul(x, data, scales, zeros, meta, per_expert_input=False):
+    """out[e] = x @ dequant(W[e]) (x[e] with per_expert_input) for every
+    expert of data [E, Kp, N]. Returns [E, M, N] bf16."""
+    if x.device.type == "cpu":
+        return moe_matmul_plain(x, data, scales, zeros, meta, per_expert_input)
+    require(x.is_cuda, f"unsupported device {x.device}")
+    bits, group, K, N = meta
+    E = data.shape[0]
+    require(x.dtype == torch.bfloat16 and x.is_contiguous(), "x must be contiguous bf16")
+    require(x.dim() == (3 if per_expert_input else 2) and x.shape[-1] == K
+            and (not per_expert_input or x.shape[0] == E),
+            f"x must be [{'E, ' if per_expert_input else ''}M, {K}], got {tuple(x.shape)}")
+    require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    _check_experts(data, scales, zeros, meta, x.device)
+    M = x.shape[-2]
+    out = torch.empty(E, M, N, dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    # M <= 8: the GEMV, split over K across all experts' tiles; else the tensor cores
+    per, part = split_k(x.device, M, K, N * E, group) if M <= 8 else (K // group, None)
+    lib = _build.load("moe_matmul", _SIG)
+    rc = lib.qtpu_moe_grouped(
+        x.data_ptr(), data.data_ptr(), scales.data_ptr(),
+        None if zeros is None else zeros.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), per, int(per_expert_input),
+        E, M, K, N, bits, group, _build.stream_of(x),
+    )
+    _build.check(rc, "moe_matmul")
+    moe_matmul.launches += 1
+    return out
+
+
+def moe_gathered_matmul(x, expert_idx, data, scales, zeros, meta):
+    """out[i] = x[i] @ dequant(W[expert_idx[i]]) for each slot i of x [Gs, K];
+    expert_idx [Gs] int32 on x's device. Returns [Gs, N] bf16."""
+    if x.device.type == "cpu":
+        return moe_gathered_matmul_plain(x, expert_idx, data, scales, zeros, meta)
+    require(x.is_cuda, f"unsupported device {x.device}")
+    bits, group, K, N = meta
+    require(x.dtype == torch.bfloat16 and x.dim() == 2 and x.shape[1] == K
+            and x.is_contiguous(), f"x must be contiguous bf16 [Gs, {K}]")
+    require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    Gs = x.shape[0]
+    require(expert_idx.dtype == torch.int32 and tuple(expert_idx.shape) == (Gs,)
+            and expert_idx.device == x.device and expert_idx.is_contiguous(),
+            f"expert_idx must be contiguous int32 [{Gs}] on {x.device}")
+    _check_experts(data, scales, zeros, meta, x.device)
+    out = torch.empty(Gs, N, dtype=torch.bfloat16, device=x.device)
+    if Gs == 0:
+        return out
+    per, part = split_k(x.device, Gs, K, N, group, tiles=-(-N // 32) * Gs)
+    lib = _build.load("moe_matmul", _SIG)
+    rc = lib.qtpu_moe_gathered(
+        x.data_ptr(), expert_idx.data_ptr(), data.data_ptr(), scales.data_ptr(),
+        None if zeros is None else zeros.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), per,
+        data.shape[0], Gs, K, N, bits, group, _build.stream_of(x),
+    )
+    _build.check(rc, "moe_gathered_matmul")
+    moe_gathered_matmul.launches += 1
+    return out
+
+
+moe_matmul.launches = 0
+moe_gathered_matmul.launches = 0

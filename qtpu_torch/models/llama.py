@@ -17,10 +17,11 @@ explicitly in the loop).
 `forward_with_cache` updates the KV cache in place: a decode step (T = 1)
 on an int8 cache runs per layer K1 (qkv), RoPE, K2 (cache write), K3
 (attention), K1 (o_proj) plus the residual, and K4 (the MLP); on a bf16
-cache K8 writes and attends in one launch. POT/APOT codebook sites run K7
-in place of K1 (and of K4, which takes affine sites only). Prefill runs the
-packed sites' kernels with plain attention and cache write (in qtpu those
-are XLA code too).
+cache K8 writes and attends in one launch (`_write_and_attend`, which the
+MoE decoder shares and which runs K11 on its int8 cache). POT/APOT codebook
+sites run K7 in place of K1 (and of K4, which takes affine sites only).
+Prefill runs the packed sites' kernels with plain attention and cache write
+(in qtpu those are XLA code too).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from qtpu_torch.kernels.kv_attention import (
     cache_mask,
     cached_attention,
     decode_attention,
+    decode_attention_write,
     decode_attention_write_bf16,
 )
 from qtpu_torch.models.config import ModelConfig
@@ -214,6 +216,27 @@ def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "non
     return logits, stats
 
 
+def _write_and_attend(q, k, v, cache: KVCache, l: int, start, mask, window: int, slots=None):
+    """KV-cache write and attention for layer l (qtpu's `_write_and_attend`,
+    llama.py:299-356), q [B, T, H, hd], k/v [B, T, KV, hd] -> [B, T, H*hd].
+    A decode step (T = 1, no slots) writes and attends in one launch: K11 on
+    the int8 cache, K8 on the bf16 cache (`start` the position, mask unused).
+    Prefill, and any call with `slots`, writes with `cache_layer_write` and
+    attends with the plain `cached_attention` under `mask`, as qtpu's XLA path
+    does."""
+    B, T, H, hd = q.shape
+    if T == 1 and slots is None:
+        q1 = q[:, 0].contiguous()
+        if cache.quantized:
+            out = decode_attention_write(q1, k, v, cache.k, cache.v, cache.k_scale,
+                                         cache.v_scale, start, l, window=window)
+        else:
+            out = decode_attention_write_bf16(q1, k, v, cache.k, cache.v, start, l, window=window)
+        return out.reshape(B, 1, H * hd)
+    cache_layer_write(cache, l, k, v, start, slots)
+    return cached_attention(q, cache.layer(l, slots), mask)
+
+
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,
                        qmeta=None, slots=None):
     """Incremental forward for serving: prefill (T = prompt length) and
@@ -234,8 +257,7 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
     start = positions[:, 0].to(torch.int32).contiguous()
-    if not decode:
-        mask = cache_mask(positions, S, win)
+    mask = None if decode else cache_mask(positions, S, win)
     layers = params["layers"]
     for l in range(L):
         h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
@@ -243,26 +265,27 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin).contiguous()
         v = v.contiguous()
-        if decode and cache.quantized:
+        if decode and cache.quantized:  # qtpu's cache-carry decode: K2 then K3
             cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
             attn = decode_attention(
                 q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
                 start, l, window=win,
             ).reshape(B, 1, H * hd)
-        elif decode:
-            attn = decode_attention_write_bf16(
-                q[:, 0].contiguous(), k, v, cache.k, cache.v, start, l, window=win,
-            ).reshape(B, 1, H * hd)
         else:
-            cache_layer_write(cache, l, k, v, start, slots)
-            attn = cached_attention(q, cache.layer(l, slots), mask)
+            attn = _write_and_attend(q, k, v, cache, l, start, mask, win, slots)
         x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
         x = _mlp_block(x, layers, l, cfg, qm, decode)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    _advance_length(cache, positions, slots)
+    return logits, cache
+
+
+def _advance_length(cache: KVCache, positions, slots) -> None:
+    """The cache's filled length of each sequence written at positions [B, T]
+    (cache rows `slots` when given), in place."""
     ends = (positions[:, -1] + 1).to(torch.int32)
     if slots is None:
         cache.length = torch.maximum(cache.length, ends)
     else:
         cache.length[slots] = torch.maximum(cache.length[slots], ends)
-    return logits, cache

@@ -1,0 +1,265 @@
+"""Mixtral-style sparse-MoE decoder (port of qtpu/models/moe.py: init_params,
+forward and forward_with_cache): llama attention (shared with
+qtpu_torch.models.llama) and a routed SwiGLU expert MLP.
+
+Param layout as in qtpu, layers stacked on a leading [L] axis: llama's
+attention sites and norms, the router {"w": [L, D, E]} (kept dense when
+packed: PACK_DENSE_SITES), the expert sites exp_gate / exp_up {"w": [L, E,
+D, F]} and exp_down [L, E, F, D] (packed: "data" [L, E, Kp, N], "scales" and
+"zeros" [L, E, K/g, N]); Qwen2-MoE adds an always-on shared expert (sh_gate,
+sh_up [L, D, Fs], sh_down [L, Fs, D]) and its sigmoid gate sh_router
+[L, D, 1]. Absent optional sites are skipped.
+
+The expert MLP takes one of two routes, chosen by shape (the CPU takes the
+card's route, through the kernels' plain versions):
+  * grouped (qtpu's soft dispatch): every expert runs on every token, one
+    K9 launch per packed site for all E experts of the layer, and the top-k
+    routing weights (zero elsewhere) combine the E outputs in f32;
+  * gathered: one slot per routed (token, expert) pair, K10 streaming only
+    the routed experts, the top-k rows combined in f32 -- a decode step
+    (T = 1) with B * top_k < E, no shared expert and packed affine expert
+    sites (qtpu/models/moe.py:234-302).
+Both forwards are a Python loop over layers on zero-copy W[l] views, as in
+qtpu_torch.models.llama; `forward_with_cache` writes and attends through
+llama's `_write_and_attend` (K11 on the int8 cache at decode, K8 on the bf16
+cache). Calibration capture, and expert sites packed by another method than
+RTN, come with the MoE-methods slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as Fn
+
+from qtpu_torch.kernels.kv_attention import cache_mask
+from qtpu_torch.kernels.moe_matmul import moe_gathered_matmul, moe_matmul
+from qtpu_torch.models.config import ModelConfig
+from qtpu_torch.models.llama import _advance_length, _qkv, _write_and_attend
+from qtpu_torch.models.ops import apply_rope, causal_attention, linear, rms_norm, rope_tables
+from qtpu_torch.serve.kvcache import KVCache
+
+LAYER_SITES = (
+    "q_proj", "k_proj", "v_proj", "o_proj", "router", "exp_gate", "exp_up", "exp_down",
+    # Qwen2-MoE only (absent on Mixtral): the shared expert and its sigmoid gate
+    "sh_gate", "sh_up", "sh_down", "sh_router",
+)
+INPUT_SITES = ("attn_in", "o_in", "mlp_in", "exp_down_in", "sh_down_in", "head_in")
+SITE_OF_INPUT = {
+    "attn_in": ("q_proj", "k_proj", "v_proj"),
+    "o_in": ("o_proj",),
+    "mlp_in": ("router", "exp_gate", "exp_up", "sh_gate", "sh_up", "sh_router"),
+    "exp_down_in": ("exp_down",),
+    "sh_down_in": ("sh_down",),
+    "head_in": ("lm_head",),
+}
+# sites with a [L, E, ...] expert axis: the quantizers see a flat L*E layer axis
+EXPERT_SITES = ("exp_gate", "exp_up", "exp_down")
+# input sites whose calibration stats carry a per-expert axis
+EXPERT_INPUT_SITES = ("exp_down_in",)
+# the router ([D, E]) and the shared-expert gate ([D, 1]) stay dense when packed
+PACK_DENSE_SITES = ("router", "sh_router")
+
+MOE_METHODS_SLICE = "MoE-methods slice"
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.bfloat16) -> dict:
+    """Random-normal params (std 0.02) from a torch.Generator on `device`, one
+    f32 matrix at a time (a [D, F] slab of one expert of one layer), so no f32
+    copy of a whole [L, E, D, F] leaf is made. On the "meta" device only the
+    shapes are made."""
+    if cfg.num_experts <= 1:
+        raise ValueError("arch='moe' needs num_experts > 1")
+    meta = torch.device(device).type == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
+    D, F, V, L, E = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers,
+                     cfg.num_experts)
+    Q, KV = cfg.q_dim, cfg.kv_dim
+
+    def w(*shape):
+        t = torch.empty(shape, dtype=dtype, device=device)
+        if meta:
+            return t
+        slabs = t.view(-1, *shape[-2:]) if len(shape) > 2 else t
+        for i in range(slabs.shape[0]):
+            slabs[i] = (torch.randn(slabs.shape[1:], generator=gen, device=device) * 0.02).to(dtype)
+        return t
+
+    layers = {
+        "attn_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "mlp_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "q_proj": {"w": w(L, D, Q)},
+        "k_proj": {"w": w(L, D, KV)},
+        "v_proj": {"w": w(L, D, KV)},
+        "o_proj": {"w": w(L, Q, D)},
+        "router": {"w": w(L, D, E)},
+        "exp_gate": {"w": w(L, E, D, F)},
+        "exp_up": {"w": w(L, E, D, F)},
+        "exp_down": {"w": w(L, E, F, D)},
+    }
+    Fs = cfg.shared_expert_intermediate_size
+    if Fs > 0:  # Qwen2-MoE shared expert + sigmoid gate
+        layers["sh_gate"] = {"w": w(L, D, Fs)}
+        layers["sh_up"] = {"w": w(L, D, Fs)}
+        layers["sh_down"] = {"w": w(L, Fs, D)}
+        layers["sh_router"] = {"w": w(L, D, 1)}
+    if cfg.attention_bias:  # Qwen2: bias on q/k/v only
+        for site, n in (("q_proj", Q), ("k_proj", KV), ("v_proj", KV)):
+            layers[site]["b"] = w(L, n)
+    return {
+        "embed": w(V, D),
+        "layers": layers,
+        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "lm_head": {"w": w(D, V)},
+    }
+
+
+def _at(t, l):
+    return None if t is None else t[l]
+
+
+def _packed_affine(p: dict, meta) -> bool:
+    """A site that K9 and K10 take: packed, 4-field qmeta, no codebook,
+    actorder perm or input smooth."""
+    return ("data" in p and meta is not None and len(meta) == 4
+            and not any(key in p for key in ("codebook", "perm", "smooth")))
+
+
+def _expert_matmul(x, p: dict, meta, per_expert_input: bool, l: int):
+    """x [M, K] (shared input) or [E, M, K] (per-expert input) against layer l
+    of an expert site -> [E, M, N]. A dense site runs one einsum over the
+    experts, a packed affine site K9 (one launch for all E experts)."""
+    if "w" in p and "smooth" not in p:
+        w = p["w"][l].to(x.dtype)
+        return torch.einsum("emk,ekn->emn" if per_expert_input else "mk,ekn->emn", x, w)
+    if not _packed_affine(p, meta):
+        raise NotImplementedError(
+            f"expert sites with {sorted(p)} and qmeta {meta} come with the {MOE_METHODS_SLICE}")
+    return moe_matmul(x, p["data"][l], p["scales"][l], _at(p.get("zeros"), l), meta,
+                      per_expert_input)
+
+
+def _route(h, layers, cfg: ModelConfig, qm, l):
+    """The Mixtral router: softmax over E in f32, top-k, renormalized with
+    norm_topk_prob. Returns (weights [..., k] f32, expert ids [..., k]).
+    jax.lax.top_k breaks ties toward the lower expert, and so does a stable
+    descending sort; torch.topk promises no order on ties."""
+    logits = linear(h, layers["router"], qm("router"), layer=l).float()
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.num_experts_per_tok
+    topv, topi = topv[..., :k], topi[..., :k]
+    if cfg.norm_topk_prob:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    return topv, topi
+
+
+def _routing_weights(h, layers, cfg: ModelConfig, qm, l):
+    """Dense [..., E] f32 combine weights, zero outside each token's top-k."""
+    topv, topi = _route(h, layers, cfg, qm, l)
+    shape = (*h.shape[:-1], cfg.num_experts)
+    return torch.zeros(shape, dtype=torch.float32, device=h.device).scatter(-1, topi, topv)
+
+
+def _gathered_route(layers, cfg: ModelConfig, qm, B: int, T: int) -> bool:
+    return (T == 1 and B * cfg.num_experts_per_tok < cfg.num_experts
+            and "sh_gate" not in layers
+            and all(_packed_affine(layers[s], qm(s)) for s in EXPERT_SITES))
+
+
+def _moe_mlp_gathered(h, layers, cfg: ModelConfig, qm, l):
+    """Decode-time capacity-gathered expert MLP: one K10 slot per routed
+    (token, expert) pair, h [B, 1, D] -> [B, 1, D]. The expert ids stay on
+    the device."""
+    B, T, D = h.shape
+    k = cfg.num_experts_per_tok
+    topv, topi = _route(h, layers, cfg, qm, l)  # [B, 1, k]
+    eidx = topi.reshape(B * k).to(torch.int32)
+    xrows = h.reshape(B, D).repeat_interleave(k, dim=0)  # [Gs, D]
+
+    def gmm(x, site):
+        p = layers[site]
+        return moe_gathered_matmul(x, eidx, p["data"][l], p["scales"][l],
+                                   _at(p.get("zeros"), l), qm(site))
+
+    act = Fn.silu(gmm(xrows, "exp_gate").float()).to(h.dtype) * gmm(xrows, "exp_up")
+    d = gmm(act, "exp_down")  # [Gs, D]
+    out = (topv.reshape(B, k, 1) * d.float().reshape(B, k, D)).sum(dim=1)
+    return out.to(h.dtype).reshape(B, T, D)
+
+
+def _moe_mlp(h, layers, cfg: ModelConfig, qm, l):
+    """Routed expert MLP of layer l: h [B, T, D] -> [B, T, D] (the residual
+    is the caller's)."""
+    B, T, D = h.shape
+    if _gathered_route(layers, cfg, qm, B, T):
+        return _moe_mlp_gathered(h, layers, cfg, qm, l)
+    h2 = h.reshape(B * T, D)
+    route_w = _routing_weights(h2, layers, cfg, qm, l)  # [M, E]
+    g = _expert_matmul(h2, layers["exp_gate"], qm("exp_gate"), False, l)  # [E, M, F]
+    u = _expert_matmul(h2, layers["exp_up"], qm("exp_up"), False, l)
+    act = Fn.silu(g.float()).to(h.dtype) * u
+    d = _expert_matmul(act, layers["exp_down"], qm("exp_down"), True, l)  # [E, M, D]
+    out = torch.einsum("me,emd->md", route_w, d.float()).to(h.dtype)
+    if "sh_gate" in layers:  # Qwen2-MoE always-on shared expert, sigmoid-gated
+        sg = linear(h2, layers["sh_gate"], qm("sh_gate"), layer=l)
+        su = linear(h2, layers["sh_up"], qm("sh_up"), layer=l)
+        sact = Fn.silu(sg.float()).to(h.dtype) * su
+        sd = linear(sact, layers["sh_down"], qm("sh_down"), layer=l)
+        gate = torch.sigmoid(linear(h2, layers["sh_router"], qm("sh_router"), layer=l).float())
+        out = out + (gate * sd.float()).to(h.dtype)
+    return out.reshape(B, T, D)
+
+
+def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none"):
+    """Full-sequence causal forward: input_ids [B, S] -> logits [B, S, V] f32
+    (qtpu's moe `forward` without capture)."""
+    if capture != "none":
+        raise NotImplementedError(
+            f"calibration capture on MoE models (routed expert statistics) comes with the "
+            f"{MOE_METHODS_SLICE}")
+    qm = (dict(qmeta) if qmeta is not None else {}).get
+    S = input_ids.shape[1]
+    x = params["embed"][input_ids]
+    cos, sin = rope_tables(torch.arange(S, device=input_ids.device), cfg.head_dim,
+                           cfg.rope_theta)
+    win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
+    layers = params["layers"]
+    for l in range(layers["attn_norm"].shape[0]):
+        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+        q, k, v = _qkv(h, layers, cfg, qm, l)
+        attn = causal_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, window=win)
+        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
+        x = x + _moe_mlp(rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps), layers, cfg, qm, l)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return linear(x, params["lm_head"], qm("lm_head")).float()
+
+
+def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,
+                       qmeta=None, slots=None):
+    """Incremental forward for serving, the contract of llama's
+    `forward_with_cache`: input_ids/positions [B, T]; writes K/V into `cache`
+    in place at positions[:, 0] (rows `slots` of the cache when given) and
+    attends over it. A decode step runs per layer K1 on q, k, v and o_proj,
+    K11 (int8 cache) or K8 (bf16 cache), and the expert MLP's K9 or K10.
+    Returns (logits [B, T, V] f32, cache)."""
+    qm = (dict(qmeta) if qmeta is not None else {}).get
+    B, T = input_ids.shape
+    S = cache.max_len
+    x = params["embed"][input_ids]
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
+    start = positions[:, 0].to(torch.int32).contiguous()
+    mask = None if T == 1 and slots is None else cache_mask(positions, S, win)
+    layers = params["layers"]
+    for l in range(cache.num_layers):
+        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+        q, k, v = _qkv(h, layers, cfg, qm, l)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin).contiguous()
+        attn = _write_and_attend(q, k, v.contiguous(), cache, l, start, mask, win, slots)
+        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
+        x = x + _moe_mlp(rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps), layers, cfg, qm, l)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    _advance_length(cache, positions, slots)
+    return logits, cache

@@ -17,7 +17,9 @@ GPTQ's actorder a "perm". POT/APOT pack W4 codebook sites: int4 codes in
 the W4 layout, bf16 scales and an f32 "codebook" of levels. `fold_smooth`
 folds the smooth vectors into the adjacent norms and scales;
 `fuse_packed_sites` concatenates q/k/v into "qkv_proj" and gate/up into
-"gateup_proj".
+"gateup_proj". On MoE models (arch "moe", RTN only so far) the expert sites
+are quantized and packed as a flat L*E layer axis into [L, E, ...] leaves,
+and the router stays dense.
 """
 
 from __future__ import annotations
@@ -69,10 +71,20 @@ def _gptq_chunk(K: int, N: int) -> int:
 
 def _map_sites(params: dict, fn, arch, stats=None) -> dict:
     """Apply fn(site, w_kn, has_layer_axis, stats) to every linear site's
-    dense weight; extras the function does not produce (biases) carry over."""
+    dense weight; extras the function does not produce (biases) carry over.
+    Optional sites the model lacks are skipped. MoE expert sites ([L, E, K,
+    N], arch.EXPERT_SITES) are flattened to an [L*E, K, N] layer axis around
+    fn, and every leaf fn produces is reshaped back to [L, E, ...]."""
+    expert_sites = set(getattr(arch, "EXPERT_SITES", ()))
 
     def rebuild(site, old, has_l):
-        out = fn(site, old["w"], has_l, stats)
+        if site in expert_sites:
+            w = old["w"]
+            L, E = w.shape[:2]
+            out = fn(site, w.reshape(L * E, *w.shape[2:]), True, stats)
+            out = {k: v.reshape(L, E, *v.shape[1:]) for k, v in out.items()}
+        else:
+            out = fn(site, old["w"], has_l, stats)
         for k in old:
             if k not in out and k != "w":
                 out[k] = old[k]
@@ -118,6 +130,15 @@ def _per_layer(one, w, has_l, out_dtype=None):
     return out
 
 
+def _refuse_moe_method(method: str, arch: str) -> None:
+    """On MoE models only RTN is ported: the calibrated and codebook methods
+    need routed expert statistics (qtpu's `_expert_stats_view`)."""
+    if arch == "moe" and method != "rtn":
+        raise NotImplementedError(
+            f"{method} on MoE models (routed calibration, expert stats views) comes with the "
+            "MoE-methods slice")
+
+
 def _need_stats(method: str, stats, what: str):
     if stats is None:
         raise ValueError(f"{method} {what}requires calibration stats")
@@ -129,6 +150,7 @@ def quantize_model(params: dict, method: str, mcfg: dict, stats=None, arch: str 
     Returns a new params tree; the input is not modified. SmoothQuant's
     sites also carry the per-input-channel "smooth" vector that keeps the
     network equivalent."""
+    _refuse_moe_method(method, arch)
     arch_mod = get_arch(arch)
     w_bit = int(mcfg["w_bit"])
     g = int(mcfg.get("q_group_size", -1))
@@ -293,6 +315,7 @@ def pack_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "l
     gathered at serve time). pot/apot (W4 only): codebook sites {"data":
     int4 codes, "scales": bf16 [K/g, N], "codebook": f32 levels}, served by
     K7."""
+    _refuse_moe_method(method, arch)
     arch_mod = get_arch(arch)
     w_bit = int(mcfg["w_bit"])
     g = int(mcfg.get("q_group_size", 128))
@@ -317,6 +340,8 @@ def pack_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "l
                 group_colmax[n] = cm
 
     def fn(site, w, has_l, st):
+        if site in getattr(arch_mod, "PACK_DENSE_SITES", ()):
+            return {"w": w}  # the MoE router / shared-expert gate: narrow, kept dense
         K, N = w.shape[-2:]
         if method == "gptq":
             metas[site] = (w_bit, g, K, N)

@@ -8,7 +8,12 @@ Usage:
                              [--requests 4] [--tokens 16] [--batch 4]
                              [--temperature 0.0] [--device cuda|cpu]
 
-The flags and defaults are qtpu's (`python -m qtpu.serve`). awq,
+The flags and defaults are qtpu's (`python -m qtpu.serve`). The MoE
+models (--model tiny-moe-test, tiny-qwen2-moe-test, mixtral-8x7b,
+qwen2-moe-a14b) serve with --method none or rtn: expert matmuls on kernels
+K9 (grouped) and K10 (gathered, decode with batch x top-k below the expert
+count), int8-cache decode on K11; the other methods raise until the
+MoE-methods slice. awq,
 smoothquant and gptq calibrate on qtpu's four random batches of 64 ids
 (numpy default_rng(0..3)); --a8 serves SmoothQuant W8A8 (per-channel int8
 weights, dynamic int8 activations, kernel K6); pot and apot pack W4
@@ -51,6 +56,9 @@ def main(argv=None) -> int:
     from qtpu_torch.serve.batching import ContinuousBatcher
 
     cfg = get_model_config(args.model)
+    if cfg.arch == "moe" and args.method not in ("none", "rtn"):
+        raise NotImplementedError(
+            f"--method {args.method} on MoE models comes with the MoE-methods slice")
     arch = get_arch(cfg.arch)
     params = arch.init_params(cfg, seed=args.seed, device=args.device)
     qmeta = None

@@ -73,7 +73,12 @@ def init_cache(
 def quantize_kv(x: torch.Tensor):
     """[..., hd] -> (int8 values, f32 scale over the trailing head dim)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    # a true division, on every device: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, which moves some scales by an ulp
+    # from the CPU's (and the kernels') absmax / 127; the divisor is filled
+    # on the device, so no host copy waits
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 

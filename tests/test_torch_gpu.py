@@ -14,6 +14,7 @@ from qtpu_torch.core.packing import quantize_pack
 from qtpu_torch.kernels import dequant_matmul as k1
 from qtpu_torch.kernels import fused_mlp as k4
 from qtpu_torch.kernels import kv_attention as k23
+from qtpu_torch.kernels import moe_matmul as k9
 
 pytestmark = pytest.mark.gpu
 
@@ -479,3 +480,179 @@ def test_gptq_sweep_on_card_matches_cpu(cuda):
     for l in range(L):
         loss = [float(torch.trace((q[l] - W[l]) @ H[l] @ (q[l] - W[l]).T)) for q in (got, want)]
         assert abs(loss[0] / loss[1] - 1) < 1e-2
+
+
+# ------------------------------------------------- K9, K10, K11 (sparse MoE)
+def _experts(g, E, K, N, bits, group, dev, sym=False, L=None):
+    """E experts' random [K, N] weights packed ([L, E, ...] with L)."""
+    n = E if L is None else L * E
+    parts = [quantize_pack(torch.randn(K, N, generator=g, device=dev) * 0.02, bits, group, sym)
+             for _ in range(n)]
+    shape = (E,) if L is None else (L, E)
+
+    def stack(f):
+        return torch.stack([f(p) for p in parts]).reshape(*shape, *f(parts[0]).shape)
+
+    return stack(lambda p: p.data), stack(lambda p: p.scales), \
+        None if sym else stack(lambda p: p.zeros)
+
+
+@pytest.mark.parametrize("M", [1, 8, 77, 300])
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("bits,group,sym", [(4, 128, False), (4, 64, True), (8, 64, False),
+                                            (2, 32, False)])  # W2 g32: the GEMV at M > 8
+def test_k9_matches_plain(cuda, M, per_expert, bits, group, sym):
+    g = _gen()
+    E, L, K, N = 4, 3, 512, 384
+    data, scales, zeros = _experts(g, E, K, N, bits, group, cuda, sym, L=L)
+    x = torch.randn(*((E,) if per_expert else ()), M, K, generator=g, device=cuda)
+    x = x.to(torch.bfloat16)
+    meta = (bits, group, K, N)
+    z = None if zeros is None else zeros[1]
+    n0 = k9.moe_matmul.launches
+    got = k9.moe_matmul(x, data[1], scales[1], z, meta, per_expert_input=per_expert)
+    want = k9.moe_matmul_plain(x, data[1], scales[1], z, meta, per_expert_input=per_expert)
+    torch.cuda.synchronize()
+    assert k9.moe_matmul.launches == n0 + 1
+    assert tuple(got.shape) == (E, M, N)
+    assert _rel(got, want) < 2e-2
+
+
+# Mixtral-8x7B's expert sites (E 8: gate/up 4096 x 14336, down 14336 x 4096)
+# at decode and prefill M, and one Qwen2-57B-A14B site (E 64, 3584 x 2560)
+@pytest.mark.parametrize("E,K,N,M,per_expert", [
+    (8, 4096, 14336, 8, False), (8, 14336, 4096, 8, True), (8, 4096, 14336, 1024, False),
+    (8, 14336, 4096, 1024, True), (64, 3584, 2560, 8, False), (64, 2560, 3584, 64, True),
+])
+def test_k9_at_full_width(cuda, E, K, N, M, per_expert):
+    g = _gen()
+    data, scales, zeros = _experts(g, E, K, N, 4, 128, cuda)
+    x = torch.randn(*((E,) if per_expert else ()), M, K, generator=g, device=cuda)
+    x = x.to(torch.bfloat16)
+    meta = (4, 128, K, N)
+    got = k9.moe_matmul(x, data, scales, zeros, meta, per_expert_input=per_expert)
+    want = k9.moe_matmul_plain(x, data, scales, zeros, meta, per_expert_input=per_expert)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.parametrize("Gs", [1, 4, 6, 16])
+@pytest.mark.parametrize("bits,group", [(4, 64), (4, 128), (8, 128), (2, 32)])
+def test_k10_matches_plain(cuda, Gs, bits, group):
+    g = _gen()
+    E, L, K, N = 4, 2, 512, 384
+    data, scales, zeros = _experts(g, E, K, N, bits, group, cuda, L=L)
+    x = torch.randn(Gs, K, generator=g, device=cuda).to(torch.bfloat16)
+    eidx = torch.tensor([2, 0, 2, 3, 1, 2, 3, 3] * 2, dtype=torch.int32, device=cuda)[:Gs]
+    meta = (bits, group, K, N)
+    n0 = k9.moe_gathered_matmul.launches
+    got = k9.moe_gathered_matmul(x, eidx, data[1], scales[1], zeros[1], meta)
+    want = k9.moe_gathered_matmul_plain(x, eidx, data[1], scales[1], zeros[1], meta)
+    torch.cuda.synchronize()
+    assert k9.moe_gathered_matmul.launches == n0 + 1
+    err = float((got.float() - want.float()).abs().max() / (want.float().abs().max() + 1e-6))
+    assert err < 2e-2
+
+
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
+def test_k10_at_full_width(cuda, K, N):
+    g = _gen()
+    data, scales, zeros = _experts(g, 8, K, N, 4, 128, cuda)
+    x = torch.randn(4, K, generator=g, device=cuda).to(torch.bfloat16)
+    eidx = torch.tensor([5, 1, 5, 7], dtype=torch.int32, device=cuda)
+    got = k9.moe_gathered_matmul(x, eidx, data, scales, zeros, (4, 128, K, N))
+    want = k9.moe_gathered_matmul_plain(x, eidx, data, scales, zeros, (4, 128, K, N))
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 2e-2
+
+
+def test_k9_k10_raise_on_what_they_do_not_take(cuda):
+    g = _gen()
+    data, scales, zeros = _experts(g, 2, 256, 128, 4, 64, cuda)
+    x = torch.randn(4, 512, device=cuda).to(torch.bfloat16)[:, ::2]  # not contiguous
+    meta = (4, 64, 256, 128)
+    with pytest.raises(ValueError):
+        k9.moe_matmul(x, data, scales, zeros, meta)
+    with pytest.raises(ValueError):  # per-expert input with another expert count
+        k9.moe_matmul(x.contiguous()[None].expand(3, 4, 256).contiguous(), data, scales, zeros,
+                      meta, per_expert_input=True)
+    with pytest.raises(ValueError):  # expert ids must be int32 on the card
+        k9.moe_gathered_matmul(x.contiguous(), torch.zeros(4, dtype=torch.int64, device=cuda),
+                               data, scales, zeros, meta)
+
+
+@pytest.mark.parametrize("window", [0, 16, 48])
+@pytest.mark.parametrize("S", [40, 176, 200])
+@pytest.mark.parametrize("hd,KV,G", [(64, 4, 4), (128, 8, 4), (64, 2, 1), (128, 1, 32)])
+def test_k11_matches_plain(cuda, window, S, hd, KV, G):
+    """The codes and scales K11 writes equal the plain write's (an inactive
+    slot at pos = S writes nothing); the output within rtol/atol 2e-2 of f32
+    math on the written cache (qtpu's test of the TPU kernel) and within 2e-2
+    relative error of the plain version, which rounds the probabilities and
+    the dequantized cache to bf16."""
+    g = _gen()
+    L, B = 2, 4
+    H = KV * G
+    cache = _cache(g, L, B, KV, S, hd, cuda)
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(torch.bfloat16)
+    kn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
+    vn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([0, 9, S // 2, S], dtype=torch.int32, device=cuda)  # last: inactive
+    kc, pc = [t.clone() for t in cache], [t.clone() for t in cache]
+    n0 = k23.decode_attention_write.launches
+    got = k23.decode_attention_write(q, kn, vn, *kc, pos, 1, window=window)
+    want = k23.decode_attention_write_plain(q, kn, vn, *pc, pos, 1, window=window)
+    torch.cuda.synchronize()
+    assert k23.decode_attention_write.launches == n0 + 1
+    for a, b in zip(kc, pc):
+        assert torch.equal(a, b)
+    want32 = k23.decode_attention_write_plain(q.float(), kn, vn, *pc, pos, 1, window=window)
+    torch.testing.assert_close(got[:-1].float(), want32[:-1], rtol=2e-2, atol=2e-2)
+    assert _rel(got[:-1], want[:-1]) < 2e-2
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.parametrize("kv", ["int8", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_moe_decode_on_card_matches_cpu(cuda, kv, B):
+    """Packed W4 TINY_MOE_TEST, prefill and 3 teacher-forced decode steps on
+    the card against the CPU's plain versions: B = 1 decodes on the gathered
+    route (K10, no host synchronization in the step), B = 4 on the grouped
+    one (K9); K11 (int8) or K8 (bf16) once per layer of a step."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.models.config import TINY_MOE_TEST as cfg
+    from qtpu_torch.models import moe
+    from qtpu_torch.quant.apply import pack_model
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    params, qmeta = pack_model(moe.init_params(cfg, device="cpu"), "rtn",
+                               {"w_bit": 4, "q_group_size": 64}, arch="moe")
+    ids = torch.randint(0, cfg.vocab_size, (B, 12), generator=torch.Generator().manual_seed(2))
+    outs, L = {}, cfg.num_layers
+    for dev in ("cpu", "cuda"):
+        p = map_tree(params, lambda t: t.to(dev))
+        cache = init_cache(cfg, B, 24, quantized=kv == "int8", device=dev)
+        logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta, arch="moe")
+        res, pos = [logits.float().cpu()], torch.full((B,), 12, dtype=torch.int32, device=dev)
+        toks = [ids[:, i].to(torch.int32).to(dev) for i in range(3)]
+        n0 = (k9.moe_matmul.launches, k9.moe_gathered_matmul.launches,
+              k23.decode_attention_write.launches, k23.decode_attention_write_bf16.launches)
+        for i in range(3):
+            if dev == "cuda" and B == 1:
+                torch.cuda.set_sync_debug_mode("error")  # any host synchronization raises
+            try:
+                logits, cache = decode_step(p, toks[i], pos, cache, cfg, qmeta, arch="moe")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            res.append(logits.float().cpu())
+            pos = pos + 1
+        if dev == "cuda":
+            gathered = B * cfg.num_experts_per_tok < cfg.num_experts
+            assert k9.moe_matmul.launches - n0[0] == (0 if gathered else 3 * 3 * L)
+            assert k9.moe_gathered_matmul.launches - n0[1] == (3 * 3 * L if gathered else 0)
+            assert k23.decode_attention_write.launches - n0[2] == (3 * L if kv == "int8" else 0)
+            assert k23.decode_attention_write_bf16.launches - n0[3] == (3 * L if kv != "int8" else 0)
+        outs[dev] = res
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert _rel(a, b) < 3e-2

@@ -1,0 +1,389 @@
+"""The port's sparse-MoE decoder against qtpu on the CPU, on the same
+numpy-made weights, packed bytes and token ids:
+
+  K9  moe_matmul           vs qtpu pallas_moe_quantized_matmul (interpret mode)
+  K10 moe_gathered_matmul  vs qtpu pallas_moe_gathered_matmul (interpret mode)
+  K11 decode_attention_write vs qtpu pallas_decode_attention_write (interpret mode)
+
+and at model level: quantize_model / pack_model on the expert sites, the
+router's routing, forward (raw and packed, Mixtral and Qwen2-MoE),
+greedy decoding on both KV caches, the continuous batcher on the gathered
+(1 slot) and grouped (4 slots) routes, and the serve CLI. qtpu runs on the
+CPU, where its MoE layers take the dense soft-dispatch route and the XLA
+attention path; the port takes the route its card takes, through the
+kernels' plain versions.
+"""
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from qtpu.core.packing import quantize_pack as jax_quantize_pack
+from qtpu.kernels.pallas_kv_attention import pallas_decode_attention_write
+from qtpu.kernels.pallas_moe_matmul import (
+    pallas_moe_gathered_matmul,
+    pallas_moe_quantized_matmul,
+)
+from qtpu.models import moe as jmoe
+from qtpu.models.config import TINY_MOE_TEST as J_MOE
+from qtpu.models.config import TINY_QWEN2_MOE_TEST as J_QWEN
+from qtpu.quant import apply as japply
+from qtpu.serve import decode as jdecode
+from qtpu.serve import kvcache as jkv
+from qtpu_torch.bench import QuantizationBenchmark
+from qtpu_torch.convert import params_to_numpy, params_to_torch, to_numpy, to_torch
+from qtpu_torch.kernels import kv_attention as k11
+from qtpu_torch.kernels import moe_matmul as k9
+from qtpu_torch.models import get_arch
+from qtpu_torch.models import config as tconfig
+from qtpu_torch.models import moe as tmoe
+from qtpu_torch.quant import apply as tapply
+from qtpu_torch.serve import decode as tdecode
+from qtpu_torch.serve import kvcache as tkv
+from qtpu_torch.serve.__main__ import main as serve_main
+from qtpu_torch.serve.batching import ContinuousBatcher
+from test_torch_quant import one_torch_thread  # noqa: F401  (a fixture)
+
+BF16 = ml_dtypes.bfloat16
+LOGIT_TOL = 2e-2  # relative Frobenius error of the f32 logits (bf16 layers, other sum orders)
+RTN4 = {"w_bit": 4, "q_group_size": 64}
+CONFIGS = {"mixtral": (J_MOE, tconfig.TINY_MOE_TEST), "qwen2_moe": (J_QWEN, tconfig.TINY_QWEN2_MOE_TEST)}
+
+
+def cpu(a):
+    return to_torch(np.ascontiguousarray(a), device="cpu")
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-6))
+
+
+def _assert_close(out, ref):
+    """tests/test_pallas_kernels.py's tolerance for K1's Pallas kernel."""
+    o, r = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    assert _rel(o, r) < 2e-2
+    np.testing.assert_allclose(o, r, atol=0.05 * (np.abs(r).max() + 1e-6))
+
+
+def _normal(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+# ------------------------------------------------------------- K9 and K10
+def _experts_np(seed, L, E, K, N, g):
+    """[L, E, ...] packed leaves of numpy-random weights, packed by qtpu."""
+    rng = np.random.default_rng(seed)
+    parts = [[jax_quantize_pack(jnp.asarray(_normal(rng, (K, N), 0.05).astype(BF16)), 4, g)
+              for _ in range(E)] for _ in range(L)]
+    return tuple(np.stack([np.stack([np.asarray(getattr(q, f)) for q in row]) for row in parts])
+                 for f in ("data", "scales", "zeros"))
+
+
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_k9_plain_matches_pallas_grouped(per_expert, stacked):
+    """K9's plain version on layer l's [E, ...] view against qtpu's grouped
+    Pallas kernel on the stacked [L, E, ...] leaf (or the [E, ...] one)."""
+    E, L, M, K, N, g, l = 4, 3, 16, 256, 256, 64, 1
+    data, scales, zeros = _experts_np(5, L, E, K, N, g)
+    rng = np.random.default_rng(6)
+    x = _normal(rng, (E, M, K) if per_expert else (M, K)).astype(BF16)
+    meta = (4, g, K, N)
+    j = (lambda a: jnp.asarray(a)) if stacked else (lambda a: jnp.asarray(a[l]))
+    want = pallas_moe_quantized_matmul(
+        jnp.asarray(x), j(data), j(scales), j(zeros), meta,
+        layer=jnp.int32(l) if stacked else None, per_expert_input=per_expert, interpret=True)
+    td, ts, tz = cpu(data), cpu(scales), cpu(zeros)
+    got = k9.moe_matmul(cpu(x), td[l], ts[l], tz[l], meta, per_expert_input=per_expert)
+    assert tuple(got.shape) == (E, M, N) and got.dtype == torch.bfloat16
+    _assert_close(to_numpy(got), want)
+    assert k9.moe_matmul.launches == 0  # the CPU takes the plain version
+
+
+def test_k10_plain_matches_pallas_gathered():
+    """K10's plain version against qtpu's gathered Pallas kernel, with
+    repeated experts, on a stacked layer and on an [E, ...] leaf: max
+    |err| / max |ref| below qtpu's 2e-2."""
+    E, L, Gs, K, N, g = 4, 3, 6, 128, 256, 64
+    data, scales, zeros = _experts_np(7, L, E, K, N, g)
+    x = _normal(np.random.default_rng(8), (Gs, K)).astype(BF16)
+    eidx = np.array([2, 0, 2, 3, 1, 2], np.int32)
+    meta = (4, g, K, N)
+    td, ts, tz = cpu(data), cpu(scales), cpu(zeros)
+    for l, stacked in ((0, True), (2, True), (1, False)):
+        j = (lambda a: jnp.asarray(a)) if stacked else (lambda a, l=l: jnp.asarray(a[l]))
+        want = np.asarray(pallas_moe_gathered_matmul(
+            jnp.asarray(x), jnp.asarray(eidx), j(data), j(scales), j(zeros), meta,
+            layer=l if stacked else None, interpret=True), np.float32)
+        got = to_numpy(k9.moe_gathered_matmul(cpu(x), cpu(eidx), td[l], ts[l], tz[l], meta))
+        err = np.abs(got.astype(np.float32) - want).max() / (np.abs(want).max() + 1e-6)
+        assert err < 2e-2, (l, err)
+    assert k9.moe_gathered_matmul.launches == 0
+
+
+# ------------------------------------------------------------------ K11
+@pytest.mark.parametrize("window", [0, 48])
+def test_k11_plain_matches_pallas_decode_attention_write(window):
+    """K11's plain version: the int8 codes and f32 scales it writes equal
+    qtpu's XLA cache write bit for bit and the fused kernel's codes, its
+    scales within the kernel's own test's 1e-6 (it may round absmax / 127
+    another way); an inactive slot at pos = S writes nothing and the other
+    layer is untouched; the output within qtpu's 2e-2."""
+    rng = np.random.default_rng(9)
+    L, B, H, KV, hd, S, l = 2, 3, 4, 2, 64, 64, 1
+    q = _normal(rng, (B, H, hd)).astype(BF16)
+    kn, vn = (_normal(rng, (B, 1, KV, hd)).astype(BF16) for _ in range(2))
+    kc, vc = (rng.integers(-127, 128, (L, B, KV, S, hd), dtype=np.int8) for _ in range(2))
+    ksc, vsc = ((rng.random((L, B, KV, S)) * 0.05 + 0.01).astype(np.float32) for _ in range(2))
+    pos = np.array([17, 40, S], np.int32)
+    out_j, ko, vo, kso, vso = pallas_decode_attention_write(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(kc[l]), jnp.asarray(vc[l]),
+        jnp.asarray(ksc[l]), jnp.asarray(vsc[l]), jnp.asarray(pos), window=window, interpret=True)
+    xla = jkv.cache_layer_write(tuple(jnp.asarray(a[l]) for a in (kc, vc, ksc, vsc)),
+                                jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(pos), True)
+    cache = [cpu(a) for a in (kc, vc, ksc, vsc)]
+    out = k11.decode_attention_write(cpu(q), cpu(kn), cpu(vn), *cache, cpu(pos), l, window=window)
+    for got, want in zip(cache, xla):
+        np.testing.assert_array_equal(to_numpy(got[l]), np.asarray(want))
+    for got, want in zip(cache[:2], (ko, vo)):
+        np.testing.assert_array_equal(to_numpy(got[l]), np.asarray(want))
+    for got, want in zip(cache[2:], (kso, vso)):
+        np.testing.assert_allclose(to_numpy(got[l]), np.asarray(want), rtol=1e-6)
+    for got, orig in zip(cache, (kc, vc, ksc, vsc)):
+        np.testing.assert_array_equal(to_numpy(got[0]), orig[0])
+    # qtpu's test holds the kernel to rtol/atol 2e-2 of f32 math on the
+    # written cache; both sides round to bf16 at other points (the kernel
+    # p * v_scale, the plain version the probabilities), so each is held to
+    # that reference, and to each other in relative error
+    mask = k11.cache_mask(cpu(pos)[:, None], S, window)
+    ref = k11.cached_attention(cpu(q).float()[:, None], [c[l] for c in cache], mask)
+    ref = ref.reshape(B, H, hd).numpy()
+    got, pallas = to_numpy(out).astype(np.float32), np.asarray(out_j, np.float32)
+    for o in (got, pallas):
+        np.testing.assert_allclose(o, ref, rtol=2e-2, atol=2e-2)
+    assert _rel(got, pallas) < 2e-2
+    assert k11.decode_attention_write.launches == 0
+
+
+# ----------------------------------------------------------- model level
+def _np_moe_params(cfg, seed=0):
+    """numpy params in qtpu's MoE layout (bf16), norms near 1."""
+    rng = np.random.default_rng(seed)
+    D, F, V, L, E = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers,
+                     cfg.num_experts)
+    Q, KV, Fs = cfg.q_dim, cfg.kv_dim, cfg.shared_expert_intermediate_size
+
+    def w(*shape, scale=0.05):
+        return _normal(rng, shape, scale).astype(BF16)
+
+    def norm(*shape):
+        return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32).astype(BF16)
+
+    layers = {
+        "attn_norm": norm(L, D), "mlp_norm": norm(L, D),
+        "q_proj": {"w": w(L, D, Q)}, "k_proj": {"w": w(L, D, KV)},
+        "v_proj": {"w": w(L, D, KV)}, "o_proj": {"w": w(L, Q, D)},
+        "router": {"w": w(L, D, E, scale=0.2)},
+        "exp_gate": {"w": w(L, E, D, F)}, "exp_up": {"w": w(L, E, D, F)},
+        "exp_down": {"w": w(L, E, F, D)},
+    }
+    if Fs:
+        layers.update({"sh_gate": {"w": w(L, D, Fs)}, "sh_up": {"w": w(L, D, Fs)},
+                       "sh_down": {"w": w(L, Fs, D)}, "sh_router": {"w": w(L, D, 1)}})
+    if cfg.attention_bias:
+        for site, n in (("q_proj", Q), ("k_proj", KV), ("v_proj", KV)):
+            layers[site]["b"] = w(L, n)
+    return {"embed": w(V, D, scale=1.0), "layers": layers, "final_norm": norm(D),
+            "lm_head": {"w": w(D, V)}}
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def model(request):
+    """(qtpu cfg, port cfg, qtpu params, port params, qtpu packed (params,
+    qmeta), port packed), from the same numpy params; the port packs its own."""
+    jcfg, tcfg = CONFIGS[request.param]
+    p = _np_moe_params(tcfg, seed=3)
+    pj = jax.tree_util.tree_map(jnp.asarray, p)
+    pt = params_to_torch(p, device="cpu")
+    return (jcfg, tcfg, pj, pt, japply.pack_model(pj, "rtn", RTN4, arch="moe"),
+            tapply.pack_model(pt, "rtn", RTN4, arch="moe"))
+
+
+def _ids(seed, B, T, V):
+    return np.random.default_rng(seed).integers(0, V, (B, T)).astype(np.int32)
+
+
+def test_pack_model_equals_qtpu(model):
+    """Every packed leaf equals qtpu's byte for byte, the expert leaves are
+    [L, E, ...], the router stays dense and qmeta is qtpu's."""
+    jcfg, tcfg, _, pt, (pj, qj), (pk, qt) = model
+    assert qt == qj and "router" not in dict(qt)
+    L, E = tcfg.num_layers, tcfg.num_experts
+    assert set(pk["layers"]["router"]) == {"w"}
+    for site in tmoe.EXPERT_SITES:
+        assert tuple(pk["layers"][site]["data"].shape[:2]) == (L, E)
+    got, want = params_to_numpy(pk), jax.tree_util.tree_map(np.asarray, pj)
+    assert set(got["layers"]) == set(want["layers"])
+    for site, leaves in want["layers"].items():
+        for k, a in (leaves.items() if isinstance(leaves, dict) else [("", leaves)]):
+            g = got["layers"][site][k] if k else got["layers"][site]
+            np.testing.assert_array_equal(np.asarray(g).view(np.uint8), np.asarray(a).view(np.uint8),
+                                          err_msg=f"{site}/{k}")
+    np.testing.assert_array_equal(got["lm_head"]["data"], want["lm_head"]["data"])
+
+
+def test_quantize_model_rtn_equals_qtpu(model):
+    """Fake-quant RTN over the flattened L*E expert axis, bit for bit."""
+    _, _, pj, pt, _, _ = model
+    want = japply.quantize_model(pj, "rtn", RTN4, arch="moe")
+    got = params_to_numpy(tapply.quantize_model(pt, "rtn", RTN4, arch="moe"))
+    for site in ("exp_gate", "exp_down", "router", "q_proj"):
+        np.testing.assert_array_equal(got["layers"][site]["w"].view(np.uint16),
+                                      np.asarray(want["layers"][site]["w"]).view(np.uint16))
+
+
+def test_routing_equals_qtpu(model):
+    """On identical hidden states the router picks the same top-k experts
+    (ties to the lower index, as jax.lax.top_k) with the same weights."""
+    jcfg, tcfg, pj, pt, _, _ = model
+    h = _normal(np.random.default_rng(11), (2, 24, tcfg.hidden_size)).astype(BF16)
+    lpj = jax.tree_util.tree_map(lambda a: a[1], pj["layers"])
+    want = np.asarray(jmoe._routing_weights(jnp.asarray(h), lpj, jcfg, lambda s: None))
+    got = tmoe._routing_weights(cpu(h), pt["layers"], tcfg, lambda s: None, 1).numpy()
+    np.testing.assert_array_equal(got > 0, want > 0)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    # a tie: equal logits pick the lower experts
+    tie = {"router": {"w": torch.zeros(1, tcfg.hidden_size, tcfg.num_experts)}}
+    _, topi = tmoe._route(torch.ones(3, tcfg.hidden_size), tie, tcfg, lambda s: None, 0)
+    assert topi.tolist() == [list(range(tcfg.num_experts_per_tok))] * 3
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_forward_matches_qtpu(model, packed):
+    jcfg, tcfg, pj, pt, (pkj, qj), (pkt, qt) = model
+    ids = _ids(12, 2, 24, tcfg.vocab_size)
+    if packed:
+        want = jmoe.forward(pkj, jnp.asarray(ids), jcfg, qmeta=qj)
+        got = tmoe.forward(pkt, cpu(ids), tcfg, qmeta=qt)
+    else:
+        want = jmoe.forward(pj, jnp.asarray(ids), jcfg)
+        got = tmoe.forward(pt, cpu(ids), tcfg)
+    assert got.dtype == torch.float32
+    assert _rel(got.numpy(), want) < LOGIT_TOL
+    assert k9.moe_matmul.launches == 0
+
+
+@pytest.mark.parametrize("kv,B", [("int8", 2), ("bfloat16", 1)])
+def test_greedy_generate_matches_qtpu(model, kv, B):
+    """Packed W4 greedy decoding: the same tokens as qtpu's
+    greedy_generate(arch="moe") on each cache. B = 1 takes the gathered
+    route on the Mixtral config (B * top_k = 2 < E = 4), B = 2 the grouped
+    (the batcher's tests take both routes on the int8 cache)."""
+    jcfg, tcfg, _, _, (pkj, qj), (pkt, qt) = model
+    ids = _ids(13 + B, B, 7, tcfg.vocab_size)
+    cj = jkv.init_cache(jcfg, B, 32, quantized=kv == "int8")
+    want, _ = jdecode.greedy_generate(pkj, jnp.asarray(ids), cj, jcfg, n_tokens=6, qmeta=qj,
+                                      arch="moe")
+    ct = tkv.init_cache(tcfg, B, 32, quantized=kv == "int8", device="cpu")
+    got, _ = tdecode.greedy_generate(pkt, cpu(ids), ct, tcfg, 6, qt, arch="moe")
+    assert got.tolist() == np.asarray(want).tolist()
+    assert k11.decode_attention_write.launches == 0
+
+
+@pytest.mark.parametrize("model", ["mixtral"], indirect=True)  # Qwen2-MoE: shared expert
+def test_gathered_route_equals_grouped_route(model, monkeypatch):
+    """A decode step at B * top_k < E takes the gathered route (K10's plain
+    version, the expert ids kept as a tensor) and its logits equal the
+    grouped route's within the logit tolerance."""
+    _, tcfg, _, _, _, (pkt, qt) = model
+    ids = _ids(20, 1, 9, tcfg.vocab_size)
+    calls = []
+    real, route = tmoe.moe_gathered_matmul, tmoe._gathered_route
+
+    def spy(x, eidx, *a):
+        calls.append(type(eidx))
+        return real(x, eidx, *a)
+
+    def step(gathered):
+        monkeypatch.setattr(tmoe, "_gathered_route", lambda *a: gathered and route(*a))
+        cache = tkv.init_cache(tcfg, 1, 16, quantized=True, device="cpu")
+        tdecode.prefill(pkt, cpu(ids[:, :-1]), cache, tcfg, qt, arch="moe")
+        return tdecode.decode_step(pkt, cpu(ids[0, -1:]), torch.tensor([8], dtype=torch.int32),
+                                   cache, tcfg, qt, arch="moe")[0]
+
+    monkeypatch.setattr(tmoe, "moe_gathered_matmul", spy)
+    assert route(pkt["layers"], tcfg, dict(qt).get, 1, 1)
+    assert not route(pkt["layers"], tcfg, dict(qt).get, 2, 1)
+    assert not route(pkt["layers"], tcfg, dict(qt).get, 1, 8)
+    gathered = step(True)
+    assert calls and all(t is torch.Tensor for t in calls) and len(calls) == 3 * tcfg.num_layers
+    assert _rel(gathered.numpy(), step(False).numpy()) < LOGIT_TOL
+
+
+@pytest.fixture(scope="module")
+def qtpu_greedy(model):
+    """qtpu's greedy tokens for three prompts of 9 ids, one at a time on
+    the int8 cache (one compiled program)."""
+    jcfg, tcfg, _, _, (pkj, qj), _ = model
+    prompts = [_ids(30 + i, 1, 9, tcfg.vocab_size)[0] for i in range(3)]
+    expected = []
+    for p in prompts:
+        cj = jkv.init_cache(jcfg, 1, 64, quantized=True)
+        toks, _ = jdecode.greedy_generate(pkj, jnp.asarray(p[None]), cj, jcfg, n_tokens=5,
+                                          qmeta=qj, arch="moe")
+        expected.append(np.asarray(toks)[0].tolist())
+    return prompts, expected
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+def test_batcher_matches_qtpu_greedy(model, qtpu_greedy, slots):
+    """The continuous batcher with 1 slot (decode on the gathered route) and
+    4 slots (grouped) gives each request qtpu's greedy tokens."""
+    _, tcfg, _, _, _, (pkt, qt) = model
+    prompts, expected = qtpu_greedy
+    eng = ContinuousBatcher(pkt, tcfg, qmeta=qt, max_batch=slots, max_seq_len=64,
+                            kv_dtype="int8", decode_block=4, device="cpu")
+    reqs = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    eng.run()
+    for req, exp in zip(reqs, expected):
+        assert req.done and req.output == exp, (req.output, exp)
+
+
+def test_serve_cli_moe_on_cpu(capsys):
+    assert serve_main(["--model", "tiny-moe-test", "--device", "cpu", "--kv", "int8",
+                       "--requests", "2", "--tokens", "3", "--batch", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "packed model with rtn W4 g64" in out and "2 requests, 6 tokens" in out
+
+
+def test_unported_moe_paths_refuse():
+    """What the MoE-methods slice brings raises, naming it; gpt2 and opt
+    still name the model-families slice."""
+    cfg = tconfig.TINY_MOE_TEST
+    p = tmoe.init_params(cfg, seed=0, device="cpu")
+    assert get_arch("moe") is tmoe
+    for method in ("awq", "gptq", "smoothquant", "pot", "apot"):
+        with pytest.raises(NotImplementedError, match="MoE-methods slice"):
+            tapply.pack_model(p, method, {"w_bit": 4}, arch="moe")
+        with pytest.raises(NotImplementedError, match="MoE-methods slice"):
+            tapply.quantize_model(p, method, {"w_bit": 4}, arch="moe")
+    with pytest.raises(NotImplementedError, match="MoE-methods slice"):
+        serve_main(["--model", "tiny-moe-test", "--device", "cpu", "--method", "awq"])
+    with pytest.raises(NotImplementedError, match="MoE-methods slice"):
+        tmoe.forward(p, torch.zeros(1, 4, dtype=torch.long), cfg, capture="stats")
+    bench = QuantizationBenchmark({"model_name": "tiny-moe-test", "quantization_methods": ["rtn"],
+                                   "quantization_config": {"rtn": RTN4},
+                                   "calibration_dataset": "synthetic",
+                                   "test_dataset": "synthetic", "verbose": False}, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE-methods slice"):
+        bench.setup()
+    for arch in ("gpt2", "opt"):
+        with pytest.raises(NotImplementedError, match="model-families slice"):
+            get_arch(arch)
+    shapes = {k: tuple(v["w"].shape) for k, v in p["layers"].items() if isinstance(v, dict)}
+    assert shapes["exp_down"] == (cfg.num_layers, cfg.num_experts, cfg.intermediate_size,
+                                  cfg.hidden_size)
