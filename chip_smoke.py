@@ -8,13 +8,17 @@ Phases, each printing one JSON line:
   device   the card's name, count, and nvidia-smi's name and power limit
   build    nvcc builds every kernel source (in parallel), with the -Xptxas -v
            register and shared-memory report
-  kernels  K1-K11 against their plain PyTorch versions at the shapes of the
+  kernels  K1-K12 against their plain PyTorch versions at the shapes of the
            main paths (TinyLlama-1.1B, batch 8, prompt 128, W4 g128; K5 at
            one layer of an eval block of 2048 tokens; K6 at M = 8, 1024 and
            2048 on every W8A8 site, K7 on every fused codebook site; K8 on
            the serve cell's bf16 cache; K9 on Mixtral-8x7B's expert sites at
            M = 8 and 1024 and one Qwen2-57B-A14B site, K10 at 4 routed slots,
-           K11 on the serve_moe cell's int8 cache), with times: kernel, plain
+           K11 on the serve_moe cell's int8 cache; K1 on GPT-2's 50257-wide
+           lm_head; K12's three entries at the long_ctx cell's layer (S 32768),
+           at Mistral-7B widths with a window of 4096 and at the serve cell's
+           cache, beside K11 on a stacked cache of the same long layer; the
+           one-layer decode attention at GPT-2's serve shape), with times: kernel, plain
            version, one PyTorch library call where one computes the same
            function, and the bound from bytes and operations at 3.35 TB/s and
            989 TFLOP/s bf16 or 1,979 TOP/s int8 (H100 SXM data sheet)
@@ -22,7 +26,12 @@ Phases, each printing one JSON line:
            the card against the same on the CPU (plain versions), RTN W4 on
            the int8 KV cache and POT W4 on the bf16 cache; and a 2-layer
            Mixtral-8x7B-width MoE model, RTN W4 g128, on the int8 cache
-           (batch 4, grouped K9) and the bf16 cache (batch 2, gathered K10)
+           (batch 4, grouped K9) and the bf16 cache (batch 2, gathered K10),
+           with the (token, expert) routes that differ between the card and the
+           CPU counted per layer and a second card run on the CPU's routes; a
+           2-layer TinyLlama-width model on the per-layer int8 cache at S 4096
+           (prefill 128, 8 decode steps, K12 2 a step); 2-layer GPT2_SMALL and
+           OPT_125M-width models, RTN W4, on both caches
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
@@ -33,6 +42,20 @@ Phases, each printing one JSON line:
            of the serve cell: host and device time per step, the device busy
            share and the kernels that take the device time; and the host wall
            time of three warm prefills without the profiler
+  long_ctx long-context decode on the per-layer int8 cache: TinyLlama-1.1B at
+           full width, RTN W4 g128 fused, a ContinuousBatcher with 8 slots and
+           kv_layout="per_layer" sized to S 32768 (max_seq_len 32752,
+           decode_block 16), every layer filled up to S - 80 with seeded
+           random codes and scales drawn from the model's own prefill, 32
+           decode steps (K12 22 a step); K12 against its plain version on every
+           layer of the first step, that step against the plain functions on
+           the card (and the same on the empty cache, the floor), tokens/s, a
+           profile (device time, busy share, K12's share), peak memory
+  serve_gpt2  GPT2_SMALL and OPT_125M at full width, RTN W4 g128, int8 KV, 8
+           requests of prompt 128 and 32 new tokens: tokens/s, TTFT, launches
+           (K1 49 a forward, K2 and the one-layer decode attention 12 a decode
+           step), a profile of a decode step; then `python -m qtpu_torch.serve
+           --model gpt2 --kv int8` (its main())
   eval     the quantize-and-evaluate path at full width through
            `python -m qtpu_torch.bench` (its main() in this process):
            TinyLlama-1.1B, the byte-level fixture (4 blocks of 2048), raw,
@@ -96,8 +119,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "eval", "quant", "serve_w8a8",
-          "pot_apot", "serve_bf16", "serve_moe")
+PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
+          "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16", "serve_moe")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -280,6 +303,12 @@ def phase_kernels(torch, ctx):
     k1_rows["ragged_m77"] = _k1_case(torch, ctx, gen, dev, 77, D, qkv_n, 4, g, timed=False)
     # W2 g32 has 8 packed rows per group: M > 8 takes the GEMV kernel, not mma
     k1_rows["w2g32a_m77"] = _k1_case(torch, ctx, gen, dev, 77, D, qkv_n, 2, 32, timed=False)
+    # GPT-2's tied lm_head, [768, 50257]: N % 4 != 0, the ragged column tail
+    from qtpu_torch.models.config import GPT2_SMALL
+
+    gd, gv = GPT2_SMALL.hidden_size, GPT2_SMALL.vocab_size
+    k1_rows["gpt2_lm_head_decode"] = _k1_case(torch, ctx, gen, dev, B, gd, gv, 4, g)
+    k1_rows["gpt2_lm_head_prefill"] = _k1_case(torch, ctx, gen, dev, B * P, gd, gv, 4, g)
     detail["dequant_matmul"] = k1_rows
 
     # K2 / K3 on the serving engine's cache: S = 128 + 32 + 16 rounded to 8
@@ -400,6 +429,10 @@ def phase_kernels(torch, ctx):
     detail["moe_gathered_matmul"] = k10r
     k11r = _k11_row(torch, gen, dev)
     detail["decode_attention_write"] = k11r
+    k12r = _k12_rows(torch, gen, dev)
+    detail["decode_attention_flash"] = k12r
+    r9 = _row9_row(torch, gen, dev)
+    detail["decode_attention_layer"] = r9
     emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
 
     # one entry per kernel, at the work of one decode step (B = 8):
@@ -503,6 +536,26 @@ def phase_kernels(torch, ctx):
             **{key: MOE_LAYERS * k11r[key] for key in ("ms", "plain_ms", "bound_ms",
                                                        "library_ms")},
             "bound_by": k11r["bound_by"],
+        },
+        # K12 at the work of one decode step of the long_ctx cell: L calls at
+        # B 8, S 32768 (its banded entries' rows are in the phase's detail)
+        "decode_attention_flash": {
+            "route": "cuda", "source": "qtpu_torch/csrc/kv_flash_decode.cu",
+            "replaces": "qtpu/kernels/pallas_kv_attention.py:804",
+            "max_abs_err": max(r["max_abs_err"] for r in k12r.values()),
+            **{key: L * k12r["tinyllama_s32768"][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                                  "library_ms")},
+            "bound_by": k12r["tinyllama_s32768"]["bound_by"],
+        },
+        # the one-layer entry (K3's kernel) at the work of one decode step of
+        # the serve_gpt2 cell: GPT-2's 12 layers at B 8, S 176
+        "decode_attention_layer": {
+            "route": "cuda", "source": "qtpu_torch/csrc/kv_attention.cu",
+            "replaces": "qtpu/kernels/pallas_kv_attention.py:404",
+            "max_abs_err": r9["max_abs_err"],
+            **{key: GPT2_LAYERS * r9[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                      "library_ms")},
+            "bound_by": r9["bound_by"],
         },
     }
 
@@ -952,6 +1005,195 @@ def _k5_rows(torch, gen, dev, cfg):
     return row
 
 
+LONG_S = 32768  # the long_ctx cell's cache: max_seq_len 32752 + decode_block 16
+GPT2_LAYERS = 12  # GPT2_SMALL and OPT_125M
+
+
+def _rows_kept(pos, S, window):
+    """Cache rows K12 reads for these positions: s < pos (the whole of S for
+    pos >= S), and s > pos - window when window > 0."""
+    n = 0
+    for p in pos:
+        hi = max(0, min(p, S))
+        lo = max(0, p - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def _k12_case(torch, gen, dev, B, KV, G, hd, S, pos, window, L=1, layer=0):
+    """K12 against its plain version on one cache layer: the codes and
+    scales written equal, the output within 3e-2 relative error (the Pallas
+    kernels' test tolerance; both sides compute in f32). L > 1 runs the
+    stacked entry on layer `layer`, else the flash entry (S % 2048 == 0) or
+    the banded one. Returns (row, inputs)."""
+    from qtpu_torch.kernels import kv_attention as k12
+
+    cache = [torch.empty(L, B, KV, S, hd, dtype=torch.int8, device=dev).random_(
+        -127, 128, generator=gen) for _ in range(2)]
+    cache += [torch.empty(L, B, KV, S, device=dev).uniform_(0.01, 0.06, generator=gen)
+              for _ in range(2)]
+    q = torch.randn(B, KV * G, hd, generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kc, pc = [t.clone() for t in cache], [t.clone() for t in cache]
+    if L > 1:
+        entry = k12.decode_attention_write_banded_stacked
+        got = entry(q, kn, vn, *kc, pos_t, layer, window=window)
+    else:
+        entry = (k12.decode_attention_flash if S % k12.FLASH_SBLK == 0
+                 else k12.decode_attention_write_banded)
+        got = entry(q, kn, vn, *(t[0] for t in kc), pos_t, window=window)
+    want = k12.flash_decode_plain(q, kn, vn, *(t[layer] for t in pc), pos_t, window=window)
+    torch.cuda.synchronize()
+    row = {"entry": entry.__name__, "B": B, "KV": KV, "G": G, "hd": hd, "S": S, "L": L,
+           "window": window, "pos": pos,
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "rel_err": rel_err(torch, got, want),
+           "cache_equal": all(bool(torch.equal(a, b)) for a, b in zip(kc, pc)),
+           "finite": bool(torch.isfinite(got.float()).all()),
+           "tol": "codes and scales equal; rel 3e-2 vs plain"}
+    del kc, pc
+    if not row["cache_equal"] or not row["finite"] or row["rel_err"] >= 3e-2:
+        raise AssertionError(f"K12 disagrees with its plain version: {row}")
+    rows = _rows_kept(pos, S, window)
+    active = sum(1 for p in pos if 0 <= p < S)
+    H = KV * G
+    row["bytes"] = (rows * KV * (2 * hd + 2 * 4) + active * KV * (2 * hd + 2 * 4)
+                    + 2 * B * KV * hd * 2 + 2 * B * H * hd * 2 + B * 4)
+    row["bound_ms"], row["bound_by"] = bound(row["bytes"], (rows + B) * H * hd * 4)
+    return row, (cache, q, kn, vn, pos_t, entry)
+
+
+def _k12_rows(torch, gen, dev):
+    """K12's three entries against the plain version, with times: the
+    long_ctx cell's layer (TinyLlama B 8, KV 4, G 8, hd 64, S 32768, seven
+    sequences in [S - 64, S) and one inactive at S + 3) on the flash entry;
+    Mistral-7B widths (B 4, KV 8, G 4, hd 128, S 32768, window 4096) on the
+    flash entry; the banded entry and the stacked one at the serve cell's
+    cache (B 8, S 176, 22 layers cycled). Beside each: the plain version
+    (eager), SDPA(enable_gqa) on the cache dequantized to bf16 beforehand
+    (the yardstick), the bound, and for the long cases K11 on a stacked
+    cache of the same layer (what the stacked layout's decode pays there)."""
+    from qtpu_torch.kernels import kv_attention as k12
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    S = LONG_S
+    spread = [S - 64, S - 55, S - 46, S - 37, S - 28, S - 19, S - 1]
+    rows = {}
+    for name, (B, KV, G, hd, pos, window) in {
+        "tinyllama_s32768": (8, 4, 8, 64, spread + [S + 3], 0),
+        "mistral_window4096": (4, 8, 4, 128, spread[:4], 4096),
+    }.items():
+        row, (cache, q, kn, vn, pos_t, entry) = _k12_case(torch, gen, dev, B, KV, G, hd, S, pos,
+                                                          window)
+        one = [t[0] for t in cache]
+        row["ms"], row["timing"] = cuda_ms(
+            torch, [lambda: entry(q, kn, vn, *one, pos_t, window=window)], row["bytes"], reps=20)
+        row["plain_ms"], _ = cuda_ms(
+            torch, [lambda: k12.flash_decode_plain(q, kn, vn, *one, pos_t, window=window)],
+            row["bytes"], reps=3, graph=False)
+        row["k11_stacked_ms"], _ = cuda_ms(
+            torch, [lambda: k12.decode_attention_write(q, kn, vn, *cache, pos_t, 0,
+                                                       window=window)], row["bytes"], reps=5)
+        kd, vd = dequantize_kv(one[0], one[2]), dequantize_kv(one[1], one[3])
+        mask = torch.arange(S, device=dev)[None, :] < pos_t[:, None]
+        if window:
+            mask &= torch.arange(S, device=dev)[None, :] > pos_t[:, None] - window
+        mask = mask[:, None, None, :]
+        row["library_ms"], _ = cuda_ms(
+            torch, [lambda: sdpa(q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True)],
+            row["bytes"], reps=20)
+        row["library_call"] = ("scaled_dot_product_attention(enable_gqa=True) on the cache "
+                               "dequantized to bf16")
+        rows[name] = row
+        del cache, one, kd, vd
+        torch.cuda.empty_cache()
+    # the banded entries at the serve cell's cache: 22 layers cycled
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+
+    L, S = cfg.num_layers, 176
+    pos = [128, 130, 135, 140, 150, 160, 170, S]
+    row, (cache, q, kn, vn, pos_t, entry) = _k12_case(
+        torch, gen, dev, SERVE_B, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+        cfg.head_dim, S, pos, 0, L=L, layer=5)
+    row["ms"], row["timing"] = cuda_ms(
+        torch, [lambda l=l: entry(q, kn, vn, *cache, pos_t, l) for l in range(L)], row["bytes"])
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k12.flash_decode_plain(q, kn, vn, *(t[l] for t in cache), pos_t)
+                for l in range(L)], row["bytes"], reps=L, graph=False)
+    kd, vd = dequantize_kv(cache[0][:4], cache[2][:4]), dequantize_kv(cache[1][:4], cache[3][:4])
+    mask = (torch.arange(S, device=dev)[None, :] < pos_t[:, None])[:, None, None, :]
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l], attn_mask=mask, enable_gqa=True)
+                for l in range(4)], row["bytes"])
+    rows["stacked_s176"] = row
+    # the banded entry checked on a layer of its own, timed on the stacked
+    # cache's 22 layer views (the same kernel; plain and SDPA as above)
+    brow, _ = _k12_case(torch, gen, dev, SERVE_B, cfg.num_kv_heads,
+                        cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, S, pos, 0)
+    banded = k12.decode_attention_write_banded
+    brow["ms"], brow["timing"] = cuda_ms(
+        torch, [lambda l=l: banded(q, kn, vn, *(t[l] for t in cache), pos_t) for l in range(L)],
+        row["bytes"])
+    brow.update(plain_ms=row["plain_ms"], library_ms=row["library_ms"])
+    rows["banded_s176"] = brow
+    return rows
+
+
+def _row9_row(torch, gen, dev):
+    """The one-layer decode attention (pallas_decode_attention's function,
+    K3's kernel on a [1, ...] view) at GPT-2's serve shape: B 8, KV 12, G 1,
+    hd 64, S 176, one slot inactive at pos = S; 12 layers cycled. Within 2e-2
+    of the plain version and rtol/atol 2e-2 of f32 math; the cache is read
+    only. Times: kernel, plain, SDPA on the cache dequantized beforehand,
+    the bound."""
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.models.config import GPT2_SMALL as cfg
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    L, B, S = GPT2_LAYERS, SERVE_B, 176
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cache = [torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen, device=dev).to(torch.int8)
+             for _ in range(2)]
+    cache += [torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01 for _ in range(2)]
+    before = [t.clone() for t in cache]
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=dev)
+    got = k23.decode_attention_layer(q, *(t[3] for t in cache), pos)
+    want = k23.decode_attention_plain(q, *cache, pos, 3)
+    want32 = k23.decode_attention_plain(q.float(), *cache, pos, 3)
+    torch.cuda.synchronize()
+    gt, wt, w32 = got[:-1].float(), want[:-1].float(), want32[:-1]
+    row = {"B": B, "KV": KV, "G": H // KV, "hd": hd, "S": S,
+           "max_abs_err": float((gt - wt).abs().max()), "rel_err": rel_err(torch, gt, wt),
+           "max_abs_err_vs_f32": float((gt - w32).abs().max()),
+           "read_only": all(bool(torch.equal(a, b)) for a, b in zip(cache, before)),
+           "tol": "rel 2e-2 vs plain; rtol/atol 2e-2 vs f32 math"}
+    del before
+    if (row["rel_err"] >= 2e-2 or not row["read_only"]
+            or not torch.allclose(gt, w32, rtol=2e-2, atol=2e-2)):
+        raise AssertionError(f"the one-layer decode attention disagrees: {row}")
+    rows_read = sum(min(int(p), S - 1) + 1 for p in pos.tolist())
+    nbytes = rows_read * KV * (2 * hd + 2 * 4) + 2 * B * H * hd * 2 + B * 4
+    row["bound_ms"], row["bound_by"] = bound(nbytes, rows_read * H * hd * 4)
+    row["ms"], row["timing"] = cuda_ms(
+        torch, [lambda l=l: k23.decode_attention_layer(q, *(t[l] for t in cache), pos)
+                for l in range(L)], nbytes)
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k23.decode_attention_plain(q, *cache, pos, l) for l in range(L)],
+        nbytes)
+    kd, vd = dequantize_kv(cache[0][:4], cache[2][:4]), dequantize_kv(cache[1][:4], cache[3][:4])
+    mask = k23.cache_mask(pos[:, None], S)[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l], attn_mask=mask)
+                for l in range(4)], nbytes)
+    row["library_call"] = "scaled_dot_product_attention on the cache dequantized to bf16"
+    return row
+
+
 def phase_e2e(torch, ctx):
     """2 layers at TinyLlama widths: the card (kernels) against the CPU
     (plain versions), same packed weights, prefill + 4 decode steps: RTN W4
@@ -1004,7 +1246,113 @@ def phase_e2e(torch, ctx):
         if method == "pot" and (counts["codebook_matmul"] != (steps + 1) * (4 * 2 + 1)
                                 or counts["decode_attention_write_bf16"] != steps * 2):
             raise AssertionError(f"the POT bf16 run missed K7/K8: {counts}")
-    _moe_e2e(torch)
+    _long_e2e(torch)
+    _gpt2_opt_e2e(torch)
+    ctx["moe_route_flips"] = _moe_e2e(torch)
+
+
+def _card_vs_cpu(torch, params, cfg, qmeta, arch, ids, steps, make_cache):
+    """Prefill ids [B, T] and `steps` greedy decode steps on the CPU (plain
+    versions), then the same on the card fed the CPU's tokens (teacher-forced),
+    from the same packed bytes. Returns (relative logits error per step,
+    top-1 agreement per step, the launches of the card run)."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.serve.decode import decode_step, prefill
+
+    B, T = ids.shape
+
+    def run(dev, feed=None):
+        p = map_tree(params, lambda t: t.to(dev))
+        cache = make_cache(dev)
+        logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta, arch=arch)
+        outs, toks = [logits.float().cpu()], []
+        posn = torch.full((B,), T, dtype=torch.int32, device=dev)
+        for i in range(steps):
+            tok = torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[i].to(dev)
+            toks.append(tok.cpu())
+            logits, cache = decode_step(p, tok, posn, cache, cfg, qmeta, arch=arch)
+            outs.append(logits.float().cpu())
+            posn = posn + 1
+        return outs, toks
+
+    cpu, toks = run("cpu")
+    _reset_counts()
+    gpu, _ = run("cuda", toks)
+    counts = _counts()
+    errs = [rel_err(torch, a, b) for a, b in zip(gpu, cpu)]
+    top1 = [float((a.argmax(-1) == b.argmax(-1)).float().mean()) for a, b in zip(gpu, cpu)]
+    return errs, top1, counts
+
+
+def _long_e2e(torch):
+    """2 layers at TinyLlama widths, RTN W4 g128 fused, on the per-layer
+    int8 cache at S 4096 (a multiple of 2048: K12 on every layer of a decode
+    step): a prefill of 128 and 8 decode steps on the card against the CPU."""
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.kvcache import init_cache
+
+    cfg = TINYLLAMA_1_1B.replace(num_layers=2)
+    B, T, steps, S = 4, 128, 8, 4096
+    params = llama.init_params(cfg, seed=7, device="cpu")
+    params, qmeta = fuse_packed_sites(*pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 128}))
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(4))
+    errs, top1, counts = _card_vs_cpu(
+        torch, params, cfg, qmeta, "llama", ids, steps,
+        lambda dev: init_cache(cfg, B, S, quantized=True, device=dev, per_layer=True))
+    L = cfg.num_layers
+    expect = {"decode_attention_flash": L * steps, "decode_attention_write": 0,
+              "cache_band_write": 0, "decode_attention": 0, "fused_mlp": L * steps,
+              "dequant_matmul": (2 * L + 1) * steps + 4 * L + 1}
+    res = {"phase": "e2e", "method": "rtn W4 g128", "kv": "int8 per_layer", "S": S, "layers": L,
+           "B": B, "prompt": T, "decode_steps": steps, "rel_err_per_step": errs,
+           "top1_agree": top1, "launches": counts, "expected_launches": expect, "tol_rel": 3e-2}
+    emit(res)
+    if max(errs) >= 3e-2:
+        raise AssertionError(f"card and CPU logits differ on the per-layer cache: {res}")
+    if any(counts[k] != v for k, v in expect.items()):
+        raise AssertionError(f"the per-layer run's launches {counts} != {expect}")
+
+
+def _gpt2_opt_e2e(torch):
+    """2 layers at GPT2_SMALL and OPT_125M widths, RTN W4 g128 (OPT's q/k/v
+    fused): prefill of 32 and 4 decode steps on the card against the CPU, on
+    the int8 cache (K2 and the one-layer decode attention per layer of a
+    step) and the bf16 cache (K8); K1 4 a layer and the lm_head per forward
+    (GPT-2's 50257-wide one on the ragged-N path)."""
+    from qtpu_torch.models import get_arch
+    from qtpu_torch.models.config import GPT2_SMALL, OPT_125M
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.kvcache import init_cache
+
+    B, T, steps = 4, 32, 4
+    for base in (GPT2_SMALL, OPT_125M):
+        cfg, arch = base.replace(num_layers=2), base.arch
+        params = get_arch(arch).init_params(cfg, seed=7, device="cpu")
+        params, qmeta = fuse_packed_sites(
+            *pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 128}, arch=arch), arch=arch)
+        ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(5))
+        L = cfg.num_layers
+        for kv in ("int8", "bfloat16"):
+            quant = kv == "int8"
+            errs, top1, counts = _card_vs_cpu(
+                torch, params, cfg, qmeta, arch, ids, steps,
+                lambda dev: init_cache(cfg, B, T + steps + 8, quantized=quant, device=dev))
+            expect = {k: 0 for k in WRAPPERS}
+            expect.update({"dequant_matmul": (4 * L + 1) * (steps + 1),
+                           "cache_band_write": L * steps if quant else 0,
+                           "decode_attention_layer": L * steps if quant else 0,
+                           "decode_attention_write_bf16": 0 if quant else L * steps})
+            res = {"phase": "e2e", "model": f"{base.arch} width", "method": "rtn W4 g128",
+                   "kv": kv, "layers": L, "B": B, "prompt": T, "decode_steps": steps,
+                   "rel_err_per_step": errs, "top1_agree": top1, "launches": counts,
+                   "expected_launches": expect, "tol_rel": 3e-2}
+            emit(res)
+            if max(errs) >= 3e-2:
+                raise AssertionError(f"card and CPU {arch} logits differ: {res}")
+            if counts != expect:
+                raise AssertionError(f"the {arch} run's launches {counts} != {expect}")
 
 
 def _dense_of_packed(torch, packed, qmeta):
@@ -1049,6 +1397,7 @@ def _moe_e2e(torch):
 
     cfg = MIXTRAL_8X7B.replace(num_layers=2)
     T, steps = 16, 4
+    route, flips_by_kv = moe._route, {}
     packed, qmeta = pack_model(moe.init_params(cfg, seed=7, device="cuda"), "rtn",
                                {"w_bit": 4, "q_group_size": MOE_GROUP}, arch="moe")
     dense = _dense_of_packed(torch, packed, qmeta)
@@ -1070,11 +1419,22 @@ def _moe_e2e(torch):
             return outs, toks
 
         t0 = time.perf_counter()
+        routes_cpu, routes_gpu = [], []
+        moe._route = _route_tap(moe, route, routes_cpu)
         cpu, toks = run(dense, "cpu")
         cpu_s = time.perf_counter() - t0
+        moe._route = _route_tap(moe, route, routes_gpu)
         _reset_counts()
         gpu, _ = run(packed, "cuda", toks)
         counts = _counts()
+        # once more with the CPU's expert ids forced on the card (the card's
+        # own router probabilities at those ids), to split routing from the rest
+        moe._route = _route_tap(moe, route, [], forced=[t for _, t in routes_cpu])
+        forced, _ = run(packed, "cuda", toks)
+        moe._route = route
+        flips = _route_flips(routes_cpu, routes_gpu, cfg.num_layers)
+        flips_by_kv[kv] = flips
+        forced_errs = [rel_err(torch, a, b) for a, b in zip(forced, cpu)]
         errs = [rel_err(torch, a, b) for a, b in zip(gpu, cpu)]
         top1 = [float((a.argmax(-1) == b.argmax(-1)).float().mean()) for a, b in zip(gpu, cpu)]
         gathered = B * cfg.num_experts_per_tok < cfg.num_experts
@@ -1088,7 +1448,10 @@ def _moe_e2e(torch):
                "layers": L, "B": B, "prompt": T, "decode_steps": steps,
                "route": "gathered" if gathered else "grouped", "rel_err_per_step": errs,
                "top1_agree": top1, "cpu_s": cpu_s, "launches": counts,
-               "expected_launches": expect, "tol_rel": 3e-2}
+               "expected_launches": expect, "tol_rel": 3e-2,
+               "route_flips_per_layer": flips,
+               "routes_per_layer": sum(t.numel() for l, t in routes_cpu if l == 0),
+               "forced_routes_rel_err_per_step": forced_errs}
         emit(res)
         if max(errs) >= 3e-2:
             raise AssertionError(f"card and CPU MoE logits differ: {res}")
@@ -1096,6 +1459,43 @@ def _moe_e2e(torch):
             raise AssertionError(f"the MoE run's launches {counts} != {expect}")
     del packed, dense
     torch.cuda.empty_cache()
+    return flips_by_kv
+
+
+def _route_tap(moe, route, log, forced=None):
+    """A stand-in for moe._route that appends (layer, expert ids [.., k] on
+    the CPU) of every call to `log`; with `forced` (the ids of a recorded run,
+    in call order) it routes to those experts instead, weighted by this run's
+    router probabilities at them."""
+    from qtpu_torch.models.ops import linear
+
+    calls = None if forced is None else iter(forced)
+
+    def tapped(h, layers, cfg, qm, l):
+        topv, topi = route(h, layers, cfg, qm, l)
+        if calls is not None:
+            topi = next(calls).to(topi.device).reshape(topi.shape)
+            logits = linear(h, layers["router"], qm("router"), layer=l).float()
+            topv = logits.softmax(dim=-1).gather(-1, topi)
+            if cfg.norm_topk_prob:
+                topv = topv / topv.sum(dim=-1, keepdim=True)
+        log.append((l, topi.cpu()))
+        return topv, topi
+
+    return tapped
+
+
+def _route_flips(a, b, L):
+    """Per layer, the (token, expert) pairs routed in run a and not in run b
+    (as many as the other way round: each token keeps k experts)."""
+    flips = [0] * L
+    for (la, ta), (lb, tb) in zip(a, b, strict=True):
+        if la != lb or ta.numel() != tb.numel():
+            raise AssertionError(f"the runs routed other calls: layer {la} {ta.shape}, {lb} {tb.shape}")
+        ta, tb = ta.reshape(-1, ta.shape[-1]), tb.reshape(-1, tb.shape[-1])
+        for x, y in zip(ta.tolist(), tb.tolist()):
+            flips[la] += len(set(x) - set(y))
+    return flips
 
 
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
@@ -1244,6 +1644,301 @@ def phase_profile(torch, ctx):
                                                 qmeta), n)
     emit({"phase": "profile", "what": "decode", "batch": B, "decode_steps": n, **dec,
           "card": ctx["smi"]})
+
+
+LONG_SEQ, LONG_BLOCK, LONG_FILL, LONG_STEPS = 32752, 16, 80, 32
+LONG_PROMPT = 128  # the prefill whose k/v scales the filled cache's scales are drawn from
+
+
+def _plain_decode_step(torch, params, qmeta, cfg, tok, pos, cache):
+    """One llama decode step through the plain functions, called explicitly
+    on the card (no wrapper, so no kernel): K1's, the rope, K12's on each
+    per-layer buffer (it writes row pos as the kernel does), K4's. The
+    reference the long_ctx cell's first step is held to."""
+    from qtpu_torch.kernels.dequant_matmul import quantized_matmul_plain
+    from qtpu_torch.kernels.fused_mlp import fused_mlp_plain
+    from qtpu_torch.kernels.kv_attention import flash_decode_plain
+    from qtpu_torch.models.ops import apply_rope, rms_norm, rope_tables
+
+    qm, layers = dict(qmeta), params["layers"]
+    B, H, KV, hd = tok.shape[0], cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def lin(x, site, l=None):
+        p = params[site] if l is None else {k: v[l] for k, v in layers[site].items()}
+        return quantized_matmul_plain(x, p["data"], p["scales"], p["zeros"], qm[site])
+
+    x = params["embed"][tok[:, None]]
+    cos, sin = rope_tables(pos[:, None], hd, cfg.rope_theta)
+    for l in range(cfg.num_layers):
+        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+        q, k, v = torch.split(lin(h, "qkv_proj", l), [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+        q = apply_rope(q.reshape(B, 1, H, hd), cos, sin)
+        k = apply_rope(k.reshape(B, 1, KV, hd), cos, sin)
+        attn = flash_decode_plain(q[:, 0], k, v.reshape(B, 1, KV, hd), *cache.layer(l), pos)
+        x = x + lin(attn.reshape(B, 1, H * hd), "o_proj", l)
+        gu, dn = layers["gateup_proj"], layers["down_proj"]
+        x = fused_mlp_plain(x, layers["mlp_norm"][l], gu["data"][l], gu["scales"][l],
+                            gu["zeros"][l], dn["data"][l], dn["scales"][l], dn["zeros"][l],
+                            qm["gateup_proj"], qm["down_proj"], eps=cfg.norm_eps)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lin(x, "lm_head")[:, 0].float()
+
+
+def _k12_checked_step(torch, params, qmeta, cfg, tok, pos, cache):
+    """One decode step through the kernels in which every layer's K12 call
+    is held against flash_decode_plain on the same inputs: the plain version
+    first (it writes row pos, which K12's strict mask keeps out of every
+    read), then the kernel. Returns per layer (relative error of the output,
+    whether the codes and scales K12 wrote at pos equal the plain ones)."""
+    from qtpu_torch.kernels.kv_attention import flash_decode_plain
+    from qtpu_torch.models import llama
+    from qtpu_torch.serve.decode import decode_step
+
+    kernel, per_layer = llama.decode_attention_flash, []
+    rows = torch.arange(tok.shape[0], device=tok.device)
+
+    def at_pos(stores, p):
+        idx = p.to(torch.int64).clamp(0, stores[0].shape[2] - 1)
+        return [t[rows, :, idx].clone() for t in stores]
+
+    def checked(q, k_new, v_new, *rest, window=0):
+        stores, p = rest[:4], rest[4]
+        want = flash_decode_plain(q, k_new, v_new, *stores, p, window=window)
+        written = at_pos(stores, p)
+        got = kernel(q, k_new, v_new, *stores, p, window=window)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(at_pos(stores, p), written))
+        per_layer.append((rel_err(torch, got, want), same))
+        return got
+
+    llama.decode_attention_flash = checked
+    try:
+        decode_step(params, tok, pos, cache, cfg, qmeta)
+    finally:
+        llama.decode_attention_flash = kernel
+    return per_layer
+
+
+def _own_kv_scales(torch, params, qmeta, cfg, B, gen):
+    """A prefill of LONG_PROMPT seeded tokens into a small per-layer int8
+    cache: the k and v scales (absmax / 127 of each written row) this model
+    writes itself, per layer, flattened, and the rms of the values they
+    dequantize to."""
+    from qtpu_torch.serve.decode import prefill
+    from qtpu_torch.serve.kvcache import dequantize_kv, init_cache
+
+    small = init_cache(cfg, B, LONG_PROMPT, quantized=True, device="cuda", per_layer=True)
+    ids = torch.randint(0, cfg.vocab_size, (B, LONG_PROMPT), generator=gen, device="cuda")
+    prefill(params, ids, small, cfg, qmeta)
+    scales, rms = [], []
+    for l in range(cfg.num_layers):
+        scales.append((small.k_scale[l].reshape(-1), small.v_scale[l].reshape(-1)))
+        rms.append([float(dequantize_kv(c, sc, torch.float32).pow(2).mean().sqrt())
+                    for c, sc in ((small.k[l], small.k_scale[l]), (small.v[l], small.v_scale[l]))])
+    return scales, rms
+
+
+def phase_long_ctx(torch, ctx):
+    """Long-context decode on the per-layer int8 cache: TinyLlama-1.1B at
+    full width (22 layers), RTN W4 g128 fused, a ContinuousBatcher with 8
+    slots, kv_layout="per_layer", max_seq_len 32752 and decode_block 16, so
+    S = 32768 (3.14 GB of cache). Every layer is filled up to S - 80 with
+    seeded random codes over +-127 and scales drawn (seeded) from the k and
+    v scales this model writes itself in a prefill of 128 tokens (printed
+    with the rms of those keys and values and of the filled cache's); then
+    32 decode steps through decode_step (K12 22 a step), timed on the host;
+    a profile of 4 more steps (device time, busy share, K12's share); peak
+    memory.
+
+    Checks. K12 against flash_decode_plain on every layer of the first
+    step, on the inputs that layer gives it (3e-2 relative, codes and scales
+    written equal; this comparison does not compound over layers). The first
+    step's logits against the same step through the plain functions on the
+    card, within 5e-2: K1's and K4's f32 scales against their plain
+    versions' bf16 weights put a floor under that comparison at 22 layers,
+    which the phase measures on the still empty cache and prints
+    (zero_cache_rel_err_vs_plain)."""
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.serve.batching import ContinuousBatcher
+    from qtpu_torch.serve.decode import decode_multi, decode_step
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    params, qmeta = _tinyllama_w4(torch, ctx)
+    B, L = SERVE_B, cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=LONG_SEQ,
+                            kv_dtype="int8", decode_block=LONG_BLOCK, kv_layout="per_layer",
+                            seed=0, device="cuda")
+    cache = eng.cache
+    S, fill = cache.max_len, cache.max_len - LONG_FILL
+    if S != LONG_S or not cache.per_layer:
+        raise AssertionError(f"the per-layer cache is S {S} (per_layer {cache.per_layer})")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device="cuda").to(torch.int32)
+    pos = torch.full((B,), fill, dtype=torch.int32, device="cuda")
+    tok_first, pos_first = tok, pos
+    # the floor: the same step on the empty cache (row pos is rewritten below)
+    ref0 = _plain_decode_step(torch, params, qmeta, cfg, tok, pos, cache)
+    err_zero = rel_err(torch, decode_step(params, tok, pos, cache, cfg, qmeta)[0], ref0)
+    own, own_rms = _own_kv_scales(torch, params, qmeta, cfg, B, gen)
+    fill_rms = []
+    for l in range(L):
+        for c, sc, src in ((cache.k[l], cache.k_scale[l], own[l][0]),
+                           (cache.v[l], cache.v_scale[l], own[l][1])):
+            c[:, :, :fill].random_(-127, 128, generator=gen)
+            pick = torch.randint(0, src.numel(), sc[:, :, :fill].shape, generator=gen,
+                                 device="cuda")
+            sc[:, :, :fill] = src[pick]
+        fill_rms.append([float(dequantize_kv(c[:, :, :fill], sc[:, :, :fill], torch.float32)
+                               .pow(2).mean().sqrt())
+                         for c, sc in ((cache.k[l], cache.k_scale[l]),
+                                       (cache.v[l], cache.v_scale[l]))])
+    cache.length.fill_(fill)
+    cache_gb = sum(t.numel() * t.element_size()
+                   for c in (cache.k, cache.v, cache.k_scale, cache.v_scale) for t in c) / 1e9
+    # the reference first: its write of row pos is rewritten by the step
+    ref = _plain_decode_step(torch, params, qmeta, cfg, tok, pos, cache)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = decode_step(params, tok, pos, cache, cfg, qmeta)
+    first = logits.clone()
+    for _ in range(LONG_STEPS - 1):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        pos = pos + 1
+        logits, _ = decode_step(params, tok, pos, cache, cfg, qmeta)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    expect = {k: 0 for k in WRAPPERS}
+    expect.update({"dequant_matmul": (2 * L + 1) * LONG_STEPS, "fused_mlp": L * LONG_STEPS,
+                   "decode_attention_flash": L * LONG_STEPS})
+    err = rel_err(torch, first, ref)
+    # the first step again, K12 held to its plain version layer by layer (the
+    # steps since wrote rows above pos only; this one rewrites row pos)
+    per_layer = _k12_checked_step(torch, params, qmeta, cfg, tok_first, pos_first, cache)
+    k12_errs = [e for e, _ in per_layer]
+    res = {"phase": "long_ctx", "model": "TinyLlama-1.1B", "layers": L, "method": "rtn W4 g128",
+           "kv": "int8 per_layer", "slots": B, "S": S, "filled": fill, "cache_gb": cache_gb,
+           "decode_steps": LONG_STEPS, "wall_s": wall, "tokens_per_s": B * LONG_STEPS / wall,
+           "host_ms_per_step": wall / LONG_STEPS * 1e3,
+           "own_prefill_kv_rms_per_layer": own_rms, "filled_kv_rms_per_layer": fill_rms,
+           "own_prefill_k_scale_mean": float(torch.stack([k.mean() for k, _ in own]).mean()),
+           "own_prefill_v_scale_mean": float(torch.stack([v.mean() for _, v in own]).mean()),
+           "k12_rel_err_per_layer": k12_errs, "tol_rel_k12": 3e-2,
+           "k12_rows_equal": all(same for _, same in per_layer),
+           "first_step_rel_err_vs_plain": err, "tol_rel_plain": 5e-2,
+           "zero_cache_rel_err_vs_plain": err_zero,
+           "finite": bool(torch.isfinite(first).all()), "launches": counts,
+           "expected_launches": expect}
+    ctx.setdefault("path_launches", {})["long_ctx"] = counts
+    if counts != expect:
+        raise AssertionError(f"kernel launches {counts} != expected {expect}: {res}")
+    if len(per_layer) != L or max(k12_errs) >= 3e-2 or not res["k12_rows_equal"]:
+        raise AssertionError(f"K12 disagrees with its plain version inside the step: {res}")
+    if err >= 5e-2 or not res["finite"]:
+        raise AssertionError(f"the long-context step disagrees with the plain one: {res}")
+    n = 4
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    prof = _profiled(torch, lambda: decode_multi(params, tok, pos + 1, cache, None, None, cfg, n,
+                                                 qmeta), n, classify=_kind)
+    k12_ms = prof["device_ms_by_kind"].get("K12 decode_attention_flash", 0.0)
+    emit({**res, "profile": prof, "k12_ms_per_step": k12_ms,
+          "k12_share_of_device": k12_ms / prof["device_ms_per_step"],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": ctx["smi"]})
+    del eng, cache
+    torch.cuda.empty_cache()
+
+
+GPT2_MCFG = {"w_bit": 4, "q_group_size": 128}
+
+
+def phase_serve_gpt2(torch, ctx):
+    """GPT-2 and OPT serving at full width: GPT2_SMALL and OPT_125M (12
+    layers each, random weights from seed 0), RTN W4 g128 (OPT's q/k/v
+    fused), a ContinuousBatcher with 8 slots and the int8 KV cache answering
+    8 requests of prompt 128 and 32 new tokens: K1 49 a forward (4 a layer
+    and the lm_head, GPT-2's 50257 wide), K2 and the one-layer decode
+    attention 12 a decode step, launches checked; a profile of one decode
+    step; then `python -m qtpu_torch.serve --model gpt2 --kv int8` (its
+    main())."""
+    import numpy as np
+
+    from qtpu_torch.models import get_arch
+    from qtpu_torch.models.config import GPT2_SMALL, OPT_125M
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.__main__ import main as serve_main
+    from qtpu_torch.serve.batching import ContinuousBatcher
+    from qtpu_torch.serve.decode import decode_multi, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    paths = ctx.setdefault("path_launches", {})
+    for cfg in (GPT2_SMALL, OPT_125M):
+        arch, L = cfg.arch, cfg.num_layers
+        t0 = time.perf_counter()
+        params = get_arch(arch).init_params(cfg, seed=0, device="cuda")
+        params, qmeta = fuse_packed_sites(*pack_model(params, "rtn", GPT2_MCFG, arch=arch),
+                                          arch=arch)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                kv_dtype="int8", seed=0, device="cuda")
+        rng = np.random.default_rng(0)
+        for _ in range(B):
+            eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32),
+                       max_new_tokens=new)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        m = eng.metrics()
+        steps, pre = m["decode_steps"], m["prefill_calls"]
+        expect = {k: 0 for k in WRAPPERS}
+        expect.update({"dequant_matmul": (4 * L + 1) * (steps + pre),
+                       "cache_band_write": L * steps, "decode_attention_layer": L * steps})
+        tokens = sum(len(r.output) for r in done)
+        res = {"phase": "serve_gpt2", "model": arch, "layers": L, "method": "rtn W4 g128",
+               "kv": "int8", "requests": len(done), "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall, "mean_ttft_s": m.get("mean_ttft_s"),
+               "setup_s": setup_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "decode_steps": steps, "prefill_calls": pre, "launches": counts,
+               "expected_launches": expect, "metrics": m}
+        if len(done) != B:
+            raise AssertionError(f"{len(done)} of {B} requests finished")
+        for r in done:
+            if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
+                raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
+        if counts != expect or steps == 0:
+            raise AssertionError(f"kernel launches {counts} != expected {expect}")
+        paths[f"serve_{arch}"] = counts
+        del eng
+        cache = init_cache(cfg, B, P + new + 16, quantized=True, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+        logits, cache = prefill(params, ids, cache, cfg, qmeta, arch=arch)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+        decode_multi(params, tok, pos, cache, None, None, cfg, 4, qmeta, arch=arch)  # warm
+        n = 4
+        dec = _profiled(torch, lambda: decode_multi(params, tok, pos, cache, None, None, cfg, n,
+                                                    qmeta, arch=arch), n, classify=_kind)
+        emit({**res, "profile_decode": dec, "card": ctx["smi"]})
+        del cache, params
+        torch.cuda.empty_cache()
+
+    _reset_counts()
+    rc = serve_main(["--model", "gpt2", "--kv", "int8", "--requests", "2", "--tokens", "4",
+                     "--batch", "2"])
+    cli = _counts()
+    emit({"phase": "serve_gpt2_cli", "argv": "--model gpt2 --kv int8", "rc": rc, "launches": cli})
+    if rc != 0 or cli["decode_attention_layer"] == 0 or cli["dequant_matmul"] == 0:
+        raise AssertionError(f"the serve CLI run failed: rc {rc}, launches {cli}")
+
 
 
 FIXTURE_DIR = Path(__file__).resolve().parent / "fixtures" / "public_bytes"
@@ -1395,8 +2090,17 @@ WRAPPERS = {  # kernel -> (module, wrapper name)
     "moe_matmul": ("moe_matmul", "moe_matmul"),
     "moe_gathered_matmul": ("moe_matmul", "moe_gathered_matmul"),
     "decode_attention_write": ("kv_attention", "decode_attention_write"),
+    "decode_attention_layer": ("kv_attention", "decode_attention_layer"),
+    "decode_attention_flash": ("kv_attention", "decode_attention_flash"),
+    "decode_attention_write_banded": ("kv_attention", "decode_attention_write_banded"),
+    "decode_attention_write_banded_stacked": ("kv_attention",
+                                              "decode_attention_write_banded_stacked"),
 }
-NO_MOE = {"moe_matmul": 0, "moe_gathered_matmul": 0, "decode_attention_write": 0}
+# the entries of the long-context and GPT-2/OPT paths (K12, the one-layer
+# decode attention), which the earlier paths never launch
+NO_LONG = {"decode_attention_layer": 0, "decode_attention_flash": 0,
+           "decode_attention_write_banded": 0, "decode_attention_write_banded_stacked": 0}
+NO_MOE = {"moe_matmul": 0, "moe_gathered_matmul": 0, "decode_attention_write": 0, **NO_LONG}
 # paths without K7/K8 (nor the MoE kernels K9-K11)
 NO_CODEBOOK = {"codebook_matmul": 0, "decode_attention_write_bf16": 0, **NO_MOE}
 
@@ -1419,15 +2123,19 @@ def _counts():
 
 def _kind(name: str) -> str:
     """The kernel of a profiled CUDA kernel's name, for the splits by kind."""
-    if "dq_" in name and any(t in name for t in (", 3>", "dq_finish<3>", ", true>")):
+    # dq_kernel<BITS, TM, CQ, MODE, VEC>, dq_finish<MODE>, dq_mma_kernel<BITS, CB, VEC>
+    if "dq_" in name and any(t in name for t in (", 3, ", "dq_finish<3>", "dq_mma_kernel<4, true")):
         return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
     if "moe_gemv_kernel" in name and ", 1>" in name:
         return "K10 moe_gathered_matmul"  # one slot per row tile
-    for tag, kind in (("w8a8", "K6 w8a8_matmul"), ("flash_attn_kernel", "K5 flash_attention"),
+    for tag, kind in (("flash_split", "K12 decode_attention_flash"),
+                      ("flash_combine", "K12 decode_attention_flash"),
+                      ("w8a8", "K6 w8a8_matmul"), ("flash_attn_kernel", "K5 flash_attention"),
                       ("band_write", "K2 cache_band_write"), ("moe_", "K9 moe_matmul"),
                       ("decode_attn_kernel<true", "K8 decode_attention_write_bf16"),
                       ("decode_attn_kernel<false, true>", "K11 decode_attention_write"),
-                      ("decode_attn", "K3 decode_attention"), ("dq_", "K1 dequant_matmul")):
+                      ("decode_attn", "K3 decode_attention (and the one-layer entry)"),
+                      ("dq_", "K1 dequant_matmul")):
         if tag in name:
             return kind
     low = name.lower()
@@ -2010,6 +2718,8 @@ def phase_serve_moe(torch, ctx):
     from qtpu_torch.serve.decode import decode_multi, prefill
     from qtpu_torch.serve.kvcache import init_cache
 
+    if "moe_route_flips" in ctx:  # from the 2-layer Mixtral-width e2e
+        emit({"phase": "serve_moe", "e2e_route_flips_per_layer": ctx["moe_route_flips"]})
     cfg = MIXTRAL_8X7B.replace(num_layers=MOE_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2102,9 +2812,10 @@ def main(argv=None) -> int:
     emit({"phases": phases, "seconds": time.perf_counter() - t_all})
     print(ctx["smi"], flush=True)
     if "kernel_rows" in ctx:
-        # launches: the sum over the main paths' runs (serve, eval, quant,
-        # serve_w8a8, pot_apot, serve_bf16, serve_moe's two engines), each
-        # counted from 0 just before it
+        # launches: the sum over the main paths' runs (serve, long_ctx,
+        # serve_gpt2's two models, eval, quant, serve_w8a8, pot_apot,
+        # serve_bf16, serve_moe's two engines), each counted from 0 just
+        # before it
         paths = ctx.get("path_launches", {}).values()
         emit({"kernels": [
             {"name": name, "launches": sum(c.get(name, 0) for c in paths), **row}

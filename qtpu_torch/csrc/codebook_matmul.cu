@@ -24,6 +24,17 @@
 
 using namespace qtpu;
 
+namespace {
+
+// VEC: the vector-load build for N % 4 == 0, else the byte-load build.
+template <bool VEC>
+int cb_dispatch(const DqArgs& a, cudaStream_t st) {
+  if (a.M <= 8 || (a.group / 2) % kMmaRows != 0) return launch_dq<4, 8, 8, 3, VEC>(a, st);
+  if (a.split_groups != a.K / a.group) return -1;  // the mma path does not split K
+  return launch_dq_mma<4, true, VEC>(a, st);
+}
+}  // namespace
+
 // y[M, N] = x[M, K] @ (scales o cb[codes]); cb: 16 f32 levels on the device
 // (unused entries padded). x must be 16-byte aligned. split_groups and part
 // as in qtpu_dq_matmul (split K only at M <= 8). Returns a cudaError_t (0 on
@@ -31,7 +42,7 @@ using namespace qtpu;
 extern "C" int qtpu_cb_matmul(const void* x, const void* data, const void* scales,
                               const void* cb, void* out, void* part, int split_groups,
                               int M, int K, int N, int group, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % 4 != 0 || group <= 0 || group % 4 != 0 ||
+  if (M <= 0 || K <= 0 || N <= 0 || group <= 0 || group % 4 != 0 ||
       K % group != 0 || cb == nullptr)
     return -1;
   DqArgs a{};
@@ -48,7 +59,5 @@ extern "C" int qtpu_cb_matmul(const void* x, const void* data, const void* scale
   a.group = group;
   a.split_groups = split_groups;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 8 || (group / 2) % kMmaRows != 0) return launch_dq<4, 8, 8, 3>(a, st);
-  if (split_groups != K / group) return -1;  // the mma path does not split K
-  return launch_dq_mma<4, true>(a, st);
+  return N % 4 == 0 ? cb_dispatch<true>(a, st) : cb_dispatch<false>(a, st);
 }

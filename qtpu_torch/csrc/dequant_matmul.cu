@@ -19,19 +19,28 @@
 //    its output tile. It needs g / PK packed rows per group to be a
 //    multiple of 16 (W4: g a multiple of 32); other groups take the GEMV
 //    path tiled over M.
-// Ragged M and N edges are masked in the kernels, so no caller pads.
+// Ragged M and N edges are masked in the kernels, so no caller pads; at
+// N % 4 != 0 (GPT-2's lm_head, N 50257) the packed rows are unaligned and
+// a separate build of both kernels (VEC = false) reads each thread's 4
+// columns byte by byte; aligned shapes run the vector-load build (qtpu
+// sends ragged shapes to XLA, qtpu/kernels/dequant_matmul.py:64).
 #include "dq_mma.cuh"
 
 using namespace qtpu;
 
 namespace {
 
-template <int BITS>
+template <int BITS, bool VEC>
 int dq_dispatch(const DqArgs& a, cudaStream_t st) {
   constexpr int PK = 8 / BITS;
-  if (a.M <= 8 || (a.group / PK) % kMmaRows != 0) return launch_dq<BITS, 8, 8, 0>(a, st);
+  if (a.M <= 8 || (a.group / PK) % kMmaRows != 0) return launch_dq<BITS, 8, 8, 0, VEC>(a, st);
   if (a.split_groups != a.K / a.group) return -1;  // the mma path does not split K
-  return launch_dq_mma<BITS, false>(a, st);
+  return launch_dq_mma<BITS, false, VEC>(a, st);
+}
+
+template <int BITS>
+int dq_dispatch(const DqArgs& a, cudaStream_t st) {
+  return a.N % 4 == 0 ? dq_dispatch<BITS, true>(a, st) : dq_dispatch<BITS, false>(a, st);
 }
 }  // namespace
 
@@ -43,7 +52,7 @@ int dq_dispatch(const DqArgs& a, cudaStream_t st) {
 extern "C" int qtpu_dq_matmul(const void* x, const void* data, const void* scales,
                               const void* zeros, void* out, void* part, int split_groups,
                               int M, int K, int N, int bits, int group, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % 4 != 0 || group <= 0 || group % 4 != 0 ||
+  if (M <= 0 || K <= 0 || N <= 0 || group <= 0 || group % 4 != 0 ||
       K % group != 0)
     return -1;
   DqArgs a{};

@@ -21,7 +21,13 @@
 // with kUnroll loads in flight; activations are staged in shared memory (as
 // f32) one K chunk at a time (all of K = 2048 at once for decode tiles);
 // lane partial sums are reduced with warp shuffles and then through shared
-// memory. Where a grid would not fill the card (decode shapes), K is also
+// memory. A ragged N (N % 4 != 0, GPT-2's 50257-wide lm_head) leaves the
+// rows of the packed weight unaligned: the launcher then takes the VEC =
+// false build, whose threads read their 4 columns byte by byte (bf16 by bf16
+// for the scales), the columns past N as 0; only columns below N are
+// written. The aligned build (VEC = true) keeps the vector loads, so ragged
+// support costs aligned shapes nothing. Where a grid would not fill the
+// card (decode shapes), K is also
 // split across blocks: each writes f32 partial sums and a small second
 // launch (dq_finish) adds them and applies the epilogue. This is a
 // weight-streaming GEMV for the 8-row tiles of decode, where the bytes of W
@@ -52,6 +58,33 @@ constexpr int kUnroll = 8;  // packed-row loads a thread keeps in flight
 __device__ __forceinline__ float bf2f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// The 4 adjacent bytes at p, for columns n .. n + 3 of an N-wide row: one
+// 32-bit load in the aligned build (VEC: N and the row pitch are multiples
+// of 4, so n + 3 < N), else byte loads with the columns past N read as 0.
+template <bool VEC>
+__device__ __forceinline__ uint32_t ld_cols4_u8(const int8_t* p, int n, int N) {
+  if constexpr (VEC) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  uint32_t w = 0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    if (n + t < N) w |= (uint32_t)(uint8_t)__ldg(p + t) << (8 * t);
+  return w;
+}
+
+// The same for 4 bf16 values, as f32 (one 8-byte load when VEC).
+template <bool VEC>
+__device__ __forceinline__ void ld_cols4_bf16(const __nv_bfloat16* p, int n, int N, float* out) {
+  if constexpr (VEC) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) out[t] = __bfloat162float(b[t]);
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) out[t] = n + t < N ? __bfloat162float(p[t]) : 0.f;
 }
 
 struct DqArgs {
@@ -93,7 +126,7 @@ __device__ __forceinline__ __nv_bfloat16 epilogue(const float* v, const DqArgs& 
 // a.split_groups groups of K and writes raw f32 sums; dq_finish adds the
 // splits and applies the epilogue. The body is a device function so that the
 // expert kernels of moe_matmul.cu run it on one expert's pointers.
-template <int BITS, int TM, int CQ, int MODE>
+template <int BITS, int TM, int CQ, int MODE, bool VEC = true>
 __device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
   constexpr int PK = 8 / BITS;
   constexpr int LANES = kThreads / CQ;
@@ -187,10 +220,10 @@ __device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
       for (int set = 0; set < NSET; ++set)
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u)
-          words[set][u] = r0 + u < re
-                              ? __ldg(reinterpret_cast<const unsigned int*>(
-                                    a.data + (size_t)(r0 + u) * a.ldw + n0 + set * a.N))
-                              : 0u;
+          words[set][u] =
+              r0 + u < re
+                  ? ld_cols4_u8<VEC>(a.data + (size_t)(r0 + u) * a.ldw + n0 + set * a.N, n0, a.N)
+                  : 0u;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (r0 + u >= re) break;
@@ -199,13 +232,10 @@ __device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
 #pragma unroll
           for (int set = 0; set < NSET; ++set) {
             const int col = n0 + set * a.N;
-            const uint2 sv = __ldg(reinterpret_cast<const uint2*>(a.scales + (size_t)c * a.ldw + col));
-            const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(&sv);
-#pragma unroll
-            for (int t = 0; t < 4; ++t) s[set][t] = bf2f(sb[t]);
+            ld_cols4_bf16<VEC>(a.scales + (size_t)c * a.ldw + col, n0, a.N, s[set]);
             if (MODE != 3 && a.zeros != nullptr) {
-              const uint32_t zw =
-                  __ldg(reinterpret_cast<const unsigned int*>(a.zeros + (size_t)c * a.ldw + col));
+              const uint32_t zw = ld_cols4_u8<VEC>(
+                  reinterpret_cast<const int8_t*>(a.zeros) + (size_t)c * a.ldw + col, n0, a.N);
 #pragma unroll
               for (int t = 0; t < 4; ++t) z[set][t] = (zw >> (8 * t)) & 0xff;
             } else {
@@ -296,9 +326,9 @@ __device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
   }
 }
 
-template <int BITS, int TM, int CQ, int MODE>
+template <int BITS, int TM, int CQ, int MODE, bool VEC>
 __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
-  dq_body<BITS, TM, CQ, MODE>(a, blockIdx.z);
+  dq_body<BITS, TM, CQ, MODE, VEC>(a, blockIdx.z);
 }
 
 // Sums the split-K partials of dq_kernel and applies the epilogue.
@@ -330,27 +360,29 @@ inline size_t dq_smem_bytes(int group) {
 // Launches dq_kernel on `stream` over the slices of K that a.split_groups
 // gives, as the caller chose them (ceil(groups / split_groups) slices; a.part
 // holds slices * NSET * M * N floats when there is more than one), then
-// dq_finish if split. Returns the cudaError_t of the launches, or -1 for
-// arguments it does not take.
-template <int BITS, int TM, int CQ, int MODE>
+// dq_finish if split. VEC = false is the build for N % 4 != 0 (ragged rows).
+// Returns the cudaError_t of the launches, or -1 for arguments it does not
+// take.
+template <int BITS, int TM, int CQ, int MODE, bool VEC = true>
 inline int launch_dq(DqArgs a, cudaStream_t stream) {
   constexpr int BN = 4 * CQ;
   static size_t smem_set = 48 * 1024;  // dynamic shared memory allowed so far
   const size_t smem = dq_smem_bytes<BITS, TM, CQ, MODE>(a.group);
   const int groups = a.K / a.group;
   if (smem > 227 * 1024 || a.split_groups < 1 || a.split_groups > groups) return -1;
+  if (VEC && (a.N % 4 != 0 || a.ldw % 4 != 0)) return -1;
   const int splits = (groups + a.split_groups - 1) / a.split_groups;
   if (splits == 1) a.part = nullptr;
   else if (a.part == nullptr) return -1;
   if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(dq_kernel<BITS, TM, CQ, MODE>,
+    cudaError_t e = cudaFuncSetAttribute(dq_kernel<BITS, TM, CQ, MODE, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
   dim3 grid((a.N + BN - 1) / BN, (a.M + TM - 1) / TM, splits);
-  dq_kernel<BITS, TM, CQ, MODE><<<grid, kThreads, smem, stream>>>(a);
+  dq_kernel<BITS, TM, CQ, MODE, VEC><<<grid, kThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   const size_t mn = (size_t)a.M * a.N;

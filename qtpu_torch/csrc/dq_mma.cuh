@@ -7,7 +7,9 @@
 // group's scale before it joins the accumulator, the per-group f32
 // correction the TPU kernels apply to their output tile. It needs
 // g / PK packed rows per group to be a multiple of 16 (W4: g a multiple of
-// 32); ragged M and N edges are masked.
+// 32); ragged M and N edges are masked (N % 4 != 0 in the VEC = false
+// build, whose unaligned rows are read byte by byte: dq_core.cuh's
+// ld_cols4_u8).
 #pragma once
 
 #include "dq_core.cuh"
@@ -34,7 +36,7 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
 // A stage covers 16 packed rows of one group, i.e. PK runs of 16 K values.
 // The body is a device function so that the expert kernel of moe_matmul.cu
 // runs it on one expert's pointers.
-template <int BITS, bool CB>
+template <int BITS, bool CB, bool VEC = true>
 __device__ __forceinline__ void dq_mma_body(const DqArgs& a) {
   constexpr int PK = 8 / BITS;
   constexpr int KS = kMmaRows * PK;  // K values per stage
@@ -58,7 +60,7 @@ __device__ __forceinline__ void dq_mma_body(const DqArgs& a) {
   // weight loader role: packed row wr of the stage, columns wc .. wc + 3
   const int wr = tid % kMmaRows;
   const int wc = 4 * (tid / kMmaRows);
-  const bool wcol_ok = n0 + wc < a.N;  // N % 4 == 0
+  const bool wcol_ok = n0 + wc < a.N;  // columns past N read as 0 (ragged N)
 
   float acc[2][4][4];
   float grp[2][4][4];
@@ -75,14 +77,14 @@ __device__ __forceinline__ void dq_mma_body(const DqArgs& a) {
     const int c = st / per_group;
     const int j0 = (st - c * per_group) * kMmaRows;
     if (!CB && j0 == 0 && a.zeros != nullptr && wcol_ok) {
-      const uint32_t zw =
-          __ldg(reinterpret_cast<const unsigned int*>(a.zeros + (size_t)c * a.ldw + n0 + wc));
+      const uint32_t zw = ld_cols4_u8<VEC>(
+          reinterpret_cast<const int8_t*>(a.zeros) + (size_t)c * a.ldw + n0 + wc, n0 + wc, a.N);
 #pragma unroll
       for (int t = 0; t < 4; ++t) z[t] = (zw >> (8 * t)) & 0xff;
     }
     const uint32_t word =
-        wcol_ok ? __ldg(reinterpret_cast<const unsigned int*>(
-                      a.data + (size_t)(c * R + j0 + wr) * a.ldw + n0 + wc))
+        wcol_ok ? ld_cols4_u8<VEC>(a.data + (size_t)(c * R + j0 + wr) * a.ldw + n0 + wc, n0 + wc,
+                                   a.N)
                 : 0u;
     __syncthreads();  // the previous stage is consumed
     // x: every row's PK runs of 16 K values, 16 bytes per load
@@ -169,17 +171,19 @@ __device__ __forceinline__ void dq_mma_body(const DqArgs& a) {
       }
 }
 
-template <int BITS, bool CB>
+template <int BITS, bool CB, bool VEC>
 __global__ void __launch_bounds__(kThreads) dq_mma_kernel(DqArgs a) {
-  dq_mma_body<BITS, CB>(a);
+  dq_mma_body<BITS, CB, VEC>(a);
 }
 
-// Launches dq_mma_kernel over the whole of K (no split). Returns the
-// cudaError_t of the launch.
-template <int BITS, bool CB>
+// Launches dq_mma_kernel over the whole of K (no split); VEC as in
+// launch_dq. Returns the cudaError_t of the launch, or -1 for an N the
+// build does not take.
+template <int BITS, bool CB, bool VEC = true>
 inline int launch_dq_mma(const DqArgs& a, cudaStream_t st) {
+  if (VEC && (a.N % 4 != 0 || a.ldw % 4 != 0)) return -1;
   dim3 grid((a.N + kMmaBN - 1) / kMmaBN, (a.M + kMmaBM - 1) / kMmaBM);
-  dq_mma_kernel<BITS, CB><<<grid, kThreads, 0, st>>>(a);
+  dq_mma_kernel<BITS, CB, VEC><<<grid, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

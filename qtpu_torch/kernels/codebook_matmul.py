@@ -47,7 +47,6 @@ def codebook_matmul(x, data, scales, codebook, meta):
     require(bits == 4, f"codebook sites hold 4-bit codes, got bits={bits}")
     require(group > 0 and group % 4 == 0 and K % group == 0,
             f"group {group} must be a multiple of 4 dividing K={K}")
-    require(N % 4 == 0, f"N={N} must be a multiple of 4")
     require(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
     require(x.shape[-1] == K and x.is_contiguous(), "x must be contiguous [..., K]")
     require(data.dtype == torch.int8 and tuple(data.shape) == (K // 2, N),
@@ -59,8 +58,8 @@ def codebook_matmul(x, data, scales, codebook, meta):
     for t in (data, scales, codebook):
         require(t.device == x.device, f"weights on {t.device}, activations on {x.device}")
         require(t.is_contiguous(), "packed weights must be contiguous")
-    require(data.data_ptr() % 8 == 0 and scales.data_ptr() % 8 == 0,
-            "packed weights must be 8-byte aligned")
+    require(N % 4 or (data.data_ptr() % 8 == 0 and scales.data_ptr() % 8 == 0),
+            "packed weights must be 8-byte aligned")  # a ragged N is read byte by byte
     M = x.numel() // K
     out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
     if M == 0:

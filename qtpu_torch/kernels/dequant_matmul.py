@@ -8,7 +8,9 @@ stacked weight is the zero-copy view W[l]); a CPU tensor takes
 `quantized_matmul_plain`, the math of qtpu's XLA reference
 `_quantized_matmul_ref` (dequantize to the activation dtype, then matmul).
 The kernel applies scale and zero in f32 instead of rounding the weight to
-bf16 first, a known source of small differences (PERF.md gives them).
+bf16 first, a known source of small differences (PERF.md gives them). Any N
+is taken: at N % 4 != 0 (GPT-2's 50257-wide lm_head), which qtpu's
+dispatcher sends to XLA, the kernel masks the ragged column tail itself.
 """
 
 from __future__ import annotations
@@ -53,13 +55,15 @@ def quantized_matmul_plain(x, data, scales, zeros, meta):
     return x @ w
 
 
-def check_packed(data, scales, zeros, meta, device):
-    """Shape, dtype, layout and device checks shared by K1 and K4."""
+def check_packed(data, scales, zeros, meta, device, ragged_n: bool = False):
+    """Shape, dtype, layout and device checks shared by K1, K4 and K9/K10;
+    ragged_n: the kernel takes N % 4 != 0 (K1's)."""
     bits, group, K, N = meta
     require(bits in (2, 4, 8), f"bits must be 2, 4 or 8, got {bits}")
     require(group > 0 and group % 4 == 0 and K % group == 0,
             f"group {group} must be a multiple of 4 dividing K={K}")
-    require(N % 4 == 0, f"N={N} must be a multiple of 4")
+    aligned = N % 4 == 0
+    require(ragged_n or aligned, f"N={N} must be a multiple of 4")
     require(data.dtype == torch.int8 and tuple(data.shape) == (K * bits // 8, N),
             f"data must be int8 [{K * bits // 8}, {N}], got {data.dtype} {tuple(data.shape)}")
     require(scales.dtype == torch.bfloat16 and tuple(scales.shape) == (K // group, N),
@@ -72,7 +76,8 @@ def check_packed(data, scales, zeros, meta, device):
     for t in parts:
         require(t.device == device, f"weights on {t.device}, activations on {device}")
         require(t.is_contiguous(), "packed weights must be contiguous")
-        require(t.data_ptr() % 8 == 0, "packed weights must be 8-byte aligned")
+        # rows of 4-column vector loads; a ragged N is read byte by byte
+        require(not aligned or t.data_ptr() % 8 == 0, "packed weights must be 8-byte aligned")
 
 
 def quantized_matmul(x, data, scales, zeros, meta):
@@ -83,7 +88,7 @@ def quantized_matmul(x, data, scales, zeros, meta):
     require(x.is_cuda, f"unsupported device {x.device}")
     require(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
     require(x.shape[-1] == K and x.is_contiguous(), "x must be contiguous [..., K]")
-    check_packed(data, scales, zeros, meta, x.device)
+    check_packed(data, scales, zeros, meta, x.device, ragged_n=True)
     M = x.numel() // K
     out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
     if M == 0:

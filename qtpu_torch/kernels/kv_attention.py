@@ -1,18 +1,28 @@
-"""K2, K3, K8 and K11: the decode step's KV-cache kernels
-(csrc/kv_attention.cu).
+"""K2, K3, K8, K11 and K12: the decode step's KV-cache kernels
+(csrc/kv_attention.cu, csrc/kv_flash_decode.cu).
 
 `cache_band_write` replaces pallas_cache_band_write_stacked and
 `decode_attention` replaces pallas_decode_attention_stacked
 (qtpu/kernels/pallas_kv_attention.py:1067, :1147), on the int8 cache
 ([L, B, KV, S, hd] int8, [L, B, KV, S] f32 scales).
+`decode_attention_layer` replaces pallas_decode_attention (:404): K3's
+kernel on one layer [B, KV, S, hd] of a cache, through a zero-copy [1, ...]
+view.
 `decode_attention_write_bf16` replaces pallas_decode_attention_write_bf16
 (:262): on the bf16 cache, the row write and the attention in one launch.
 `decode_attention_write` replaces pallas_decode_attention_write (:313): the
 same on the int8 cache, the new rows quantized with K2's rounding.
-Each takes the FULL stacked cache and a layer index and works on the view
-of that layer: writes are in place. A CUDA tensor launches the kernel; a
-CPU tensor takes the plain version, which is the math of qtpu's XLA path
-(`cache_layer_write` at T = 1 and `_cached_attention`).
+Each of those takes the FULL stacked cache and a layer index and works on
+the view of that layer: writes are in place.
+K12 (split-S flash decoding) computes one function behind three entries:
+`decode_attention_flash` (pallas_decode_attention_flash, :804, a per-layer
+buffer with S % 2048 == 0), `decode_attention_write_banded` (:554, any S)
+and `decode_attention_write_banded_stacked` (:907, one layer of a stacked
+cache): attention over the cache rows strictly before pos plus a column for
+the UNQUANTIZED new token, then the quantized new rows written at pos.
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version,
+which is the math of qtpu's XLA path (`cache_layer_write` at T = 1 and
+`_cached_attention`) or, for K12, the same function in f32 (`flash_decode_plain`).
 """
 
 from __future__ import annotations
@@ -23,7 +33,8 @@ import torch
 
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import I, P, require
-from qtpu_torch.serve.kvcache import KVCache, cache_layer_write, dequantize_kv, quantize_kv
+from qtpu_torch.kernels.dequant_matmul import _sm_count
+from qtpu_torch.serve.kvcache import KVCache, cache_layer_write, dequantize_kv
 
 _SIG = {
     "qtpu_kv_band_write": [P, P, P, P, P, P, P, I, I, I, I, P],
@@ -31,6 +42,8 @@ _SIG = {
     "qtpu_decode_attention_write_bf16": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "qtpu_decode_attention_write": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
+_FLASH_SIG = {"qtpu_flash_decode": [P] * 10 + [I] * 7 + [P]}
+FLASH_SBLK = 2048  # the S granule of qtpu's flash entry (its 2048-row blocks)
 
 
 def cached_attention(q, layer_kv, mask):
@@ -67,16 +80,17 @@ def cache_mask(positions, S, window=0):
     return mask
 
 
+def _write_rows(k_new, v_new, k_c, v_c, ks_c, vs_c, pos):
+    """The new rows [B, 1, KV, hd] quantized with K2's rounding and written
+    in place into one layer [B, KV, S, hd] at pos [B]; rows with pos outside
+    [0, S) keep what they hold (`cache_layer_write` on a one-layer cache)."""
+    one = KVCache(k=(k_c,), v=(v_c,), k_scale=(ks_c,), v_scale=(vs_c,), length=None)
+    cache_layer_write(one, 0, k_new, v_new, pos)
+
+
 def cache_band_write_plain(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
-    S = k_all.shape[3]
-    qk, sk = quantize_kv(k_new[:, 0])  # [B, KV, hd], [B, KV]
-    qv, sv = quantize_kv(v_new[:, 0])
-    rows = torch.nonzero((pos >= 0) & (pos < S)).flatten()
-    p = pos[rows].long()
-    k_all[layer][rows, :, p] = qk[rows]
-    v_all[layer][rows, :, p] = qv[rows]
-    ks_all[layer][rows, :, p] = sk[rows]
-    vs_all[layer][rows, :, p] = sv[rows]
+    cache = KVCache(k=k_all, v=v_all, k_scale=ks_all, v_scale=vs_all, length=None)
+    cache_layer_write(cache, layer, k_new, v_new, pos)
 
 
 def decode_attention_plain(q, k_all, v_all, ks_all, vs_all, pos, layer, window=0):
@@ -123,13 +137,7 @@ def cache_band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
     cache_band_write.launches += 1
 
 
-def decode_attention(q, k_all, v_all, ks_all, vs_all, pos, layer, window=0):
-    """GQA decode attention of q [B, H, hd] over layer `layer` of the int8
-    stacked cache, causal by pos [B] with an optional sliding window.
-    Returns [B, H, hd] bf16."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_all, v_all, ks_all, vs_all, pos, layer, window)
-    require(q.is_cuda, f"unsupported device {q.device}")
+def _k3(q, k_all, v_all, ks_all, vs_all, pos, layer, window):
     L, B, KV, S, hd = k_all.shape
     H = q.shape[1]
     require(q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[0] == B
@@ -146,7 +154,33 @@ def decode_attention(q, k_all, v_all, ks_all, vs_all, pos, layer, window=0):
         B, KV, H // KV, S, hd, int(window), _build.stream_of(q),
     )
     _build.check(rc, "decode_attention")
+    return out
+
+
+def decode_attention(q, k_all, v_all, ks_all, vs_all, pos, layer, window=0):
+    """GQA decode attention of q [B, H, hd] over layer `layer` of the int8
+    stacked cache, causal by pos [B] with an optional sliding window.
+    Returns [B, H, hd] bf16."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_all, v_all, ks_all, vs_all, pos, layer, window)
+    require(q.is_cuda, f"unsupported device {q.device}")
+    out = _k3(q, k_all, v_all, ks_all, vs_all, pos, layer, window)
     decode_attention.launches += 1
+    return out
+
+
+def decode_attention_layer(q, k_c, v_c, ks_c, vs_c, pos, window=0):
+    """pallas_decode_attention's function: read-only GQA decode attention
+    of q [B, H, hd] over one layer of the int8 cache (k/v [B, KV, S, hd],
+    scales [B, KV, S]), keys s <= pos [B], and s > pos - window when
+    window > 0. K3's kernel on [1, ...] views of the layer (no copy).
+    Returns [B, H, hd] bf16."""
+    one = [t.unsqueeze(0) for t in (k_c, v_c, ks_c, vs_c)]
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, *one, pos, 0, window)
+    require(q.is_cuda, f"unsupported device {q.device}")
+    out = _k3(q, *one, pos, 0, window)
+    decode_attention_layer.launches += 1
     return out
 
 
@@ -243,7 +277,110 @@ def decode_attention_write(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, l
     return out
 
 
+def flash_decode_plain(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0):
+    """K12's function in plain torch, f32 throughout: q [B, H, hd] over one
+    int8 layer (k/v [B, KV, S, hd], scales [B, KV, S]), keys s < pos [B]
+    (and s > pos - window when window > 0), plus one column for the new
+    token, q . k_new / sqrt(hd) with value v_new ([B, 1, KV, hd] bf16), when
+    pos < S; a row with no key at all gives zeros. Then the new rows are
+    written at pos (`_write_rows`). Returns [B, H, hd] bf16."""
+    B, H, hd = q.shape
+    KV, S = k_c.shape[1], k_c.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, KV, G, hd)
+    scores = torch.einsum("bkgd,bksd->bkgs", qf, k_c.float() * ks_c[..., None]) * scale
+    p = pos.to(torch.int64)
+    s_idx = torch.arange(S, device=q.device)
+    keep = s_idx[None, :] < p[:, None]
+    if window > 0:
+        keep &= s_idx[None, :] > p[:, None] - window
+    scores = scores.masked_fill(~keep[:, None, None, :], float("-inf"))
+    s_new = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, 0].float()) * scale
+    s_new = s_new.masked_fill(~(p < S)[:, None, None], float("-inf"))
+    mx = torch.maximum(scores.amax(dim=-1), s_new)
+    mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    e = torch.exp(scores - mx[..., None])
+    e_new = torch.exp(s_new - mx)
+    den = e.sum(dim=-1) + e_new
+    acc = torch.einsum("bkgs,bksd->bkgd", e, v_c.float() * vs_c[..., None])
+    acc = acc + e_new[..., None] * v_new[:, 0].float()[:, :, None, :]
+    out = torch.where(den[..., None] > 0, acc / den[..., None], torch.zeros_like(acc))
+    _write_rows(k_new, v_new, k_c, v_c, ks_c, vs_c, pos)
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def flash_splits(device, B: int, KV: int, S: int) -> int:
+    """Slices of S per (sequence, kv-head) for K12: about four blocks per SM
+    over the B * KV heads (at least the two per SM a launch needs to fill the
+    card), each slice at least 256 rows of the cache."""
+    want = -(-4 * _sm_count(device.index or 0) // (B * KV))
+    return max(1, min(want, -(-S // 256)))
+
+
+def _flash(entry, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window):
+    """K12 on one layer [B, KV, S, hd] of the int8 cache (views of a stacked
+    cache included); counts the launch on `entry`."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window)
+    one = [t.unsqueeze(0) for t in (k_c, v_c, ks_c, vs_c)]
+    _check_decode(q, k_new, v_new, one[0], pos, 0)
+    _check_cache(*one, pos, q.device)
+    B, KV, S, hd = k_c.shape
+    G = q.shape[1] // KV
+    require(hd in (32, 64, 128), f"head_dim {hd} must be 32, 64 or 128")
+    require(window >= 0, "window must be >= 0")
+    nsplit = flash_splits(q.device, B, KV, S)
+    part = torch.empty(B * KV * nsplit * G * (hd + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lib = _build.load("kv_flash_decode", _FLASH_SIG)
+    rc = lib.qtpu_flash_decode(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_c.data_ptr(), v_c.data_ptr(),
+        ks_c.data_ptr(), vs_c.data_ptr(), pos.data_ptr(), part.data_ptr(), out.data_ptr(),
+        B, KV, G, S, hd, int(window), nsplit, _build.stream_of(q),
+    )
+    _build.check(rc, "flash_decode")
+    entry.launches += 1
+    return out
+
+
+def decode_attention_flash(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0):
+    """pallas_decode_attention_flash's contract on a per-layer buffer with
+    S % 2048 == 0: q [B, H, hd] bf16 attends over the int8 cache rows
+    s < pos [B] (window: also s > pos - window) and this step's unquantized
+    k_new/v_new [B, 1, KV, hd]; the new rows are quantized and written in
+    place at pos (nothing for pos outside [0, S)). Returns [B, H, hd] bf16."""
+    if k_c.shape[2] % FLASH_SBLK:
+        raise NotImplementedError(f"flash decode needs S % {FLASH_SBLK} == 0")
+    return _flash(decode_attention_flash, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window)
+
+
+def decode_attention_write_banded(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0):
+    """pallas_decode_attention_write_banded: decode_attention_flash's
+    function at any S % 8 == 0."""
+    if k_c.shape[2] % 8:
+        raise NotImplementedError("decode attention needs S % 8 == 0")
+    return _flash(decode_attention_write_banded, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos,
+                  window)
+
+
+def decode_attention_write_banded_stacked(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos,
+                                          layer, window=0):
+    """pallas_decode_attention_write_banded_stacked: the same on layer
+    `layer` of a stacked cache [L, B, KV, S, hd] (written in place; the
+    other layers untouched)."""
+    if k_all.shape[3] % 8:
+        raise NotImplementedError("decode attention needs S % 8 == 0")
+    require(0 <= layer < k_all.shape[0], f"layer {layer} out of range")
+    return _flash(decode_attention_write_banded_stacked, q, k_new, v_new, k_all[layer],
+                  v_all[layer], ks_all[layer], vs_all[layer], pos, window)
+
+
 cache_band_write.launches = 0
 decode_attention.launches = 0
+decode_attention_layer.launches = 0
+decode_attention_flash.launches = 0
+decode_attention_write_banded.launches = 0
+decode_attention_write_banded_stacked.launches = 0
 decode_attention_write_bf16.launches = 0
 decode_attention_write.launches = 0

@@ -7,14 +7,10 @@ from qtpu_torch.models.config import (  # noqa: F401
 
 
 def get_arch(name: str):
-    """Architecture module for a ModelConfig.arch value (llama and moe so
-    far; gpt2 and opt come with the model-families slice)."""
-    if name == "llama":
-        from qtpu_torch.models import llama
+    """Architecture module for a ModelConfig.arch value: llama, moe, gpt2
+    or opt."""
+    import importlib
 
-        return llama
-    if name == "moe":
-        from qtpu_torch.models import moe
-
-        return moe
-    raise NotImplementedError(f"arch '{name}' is not ported yet (model-families slice)")
+    if name not in ("llama", "moe", "gpt2", "opt"):
+        raise KeyError(f"unknown arch '{name}'")
+    return importlib.import_module(f"qtpu_torch.models.{name}")

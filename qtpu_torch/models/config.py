@@ -1,5 +1,5 @@
 """Model configurations (own copy of qtpu/models/config.py, so the port
-imports nothing of qtpu). Only arch="llama" runs in the port so far."""
+imports nothing of qtpu)."""
 
 from __future__ import annotations
 

@@ -18,7 +18,10 @@ explicitly in the loop).
 on an int8 cache runs per layer K1 (qkv), RoPE, K2 (cache write), K3
 (attention), K1 (o_proj) plus the residual, and K4 (the MLP); on a bf16
 cache K8 writes and attends in one launch (`_write_and_attend`, which the
-MoE decoder shares and which runs K11 on its int8 cache). POT/APOT codebook
+MoE decoder shares and which runs K11 on its int8 cache). On the per-layer
+int8 cache (qtpu's unrolled long-context layout) a decode step writes and
+attends in `_write_and_attend` too: K12 when S % 2048 == 0, K11 on the
+layer's [1, ...] view otherwise, as qtpu dispatches. POT/APOT codebook
 sites run K7 in place of K1 (and of K4, which takes affine sites only).
 Prefill runs the packed sites' kernels with plain attention and cache write
 (in qtpu those are XLA code too).
@@ -31,10 +34,12 @@ import torch.nn.functional as Fn
 
 from qtpu_torch.kernels import fused_mlp as _k4
 from qtpu_torch.kernels.kv_attention import (
+    FLASH_SBLK,
     cache_band_write,
     cache_mask,
     cached_attention,
     decode_attention,
+    decode_attention_flash,
     decode_attention_write,
     decode_attention_write_bf16,
 )
@@ -219,19 +224,25 @@ def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "non
 def _write_and_attend(q, k, v, cache: KVCache, l: int, start, mask, window: int, slots=None):
     """KV-cache write and attention for layer l (qtpu's `_write_and_attend`,
     llama.py:299-356), q [B, T, H, hd], k/v [B, T, KV, hd] -> [B, T, H*hd].
-    A decode step (T = 1, no slots) writes and attends in one launch: K11 on
-    the int8 cache, K8 on the bf16 cache (`start` the position, mask unused).
-    Prefill, and any call with `slots`, writes with `cache_layer_write` and
-    attends with the plain `cached_attention` under `mask`, as qtpu's XLA path
-    does."""
+    A decode step (T = 1, no slots) writes and attends in one call (`start`
+    the position, mask unused): on the int8 cache K11, or K12 for the
+    per-layer layout (qtpu's in-place cache) at S % 2048 == 0, which
+    attends strictly before pos plus the unquantized new token; on the bf16
+    cache K8. A per-layer buffer goes to K11/K8 as a [1, ...] view of layer
+    0. Prefill, and any call with `slots`, writes with `cache_layer_write`
+    and attends with the plain `cached_attention` under `mask`, as qtpu's
+    XLA path does."""
     B, T, H, hd = q.shape
     if T == 1 and slots is None:
         q1 = q[:, 0].contiguous()
-        if cache.quantized:
-            out = decode_attention_write(q1, k, v, cache.k, cache.v, cache.k_scale,
-                                         cache.v_scale, start, l, window=window)
+        k_c, v_c, ks_c, vs_c, li = cache.stacked(l)
+        if cache.quantized and cache.per_layer and cache.max_len % FLASH_SBLK == 0:
+            out = decode_attention_flash(q1, k, v, *cache.layer(l), start, window=window)
+        elif cache.quantized:
+            out = decode_attention_write(q1, k, v, k_c, v_c, ks_c, vs_c, start, li,
+                                         window=window)
         else:
-            out = decode_attention_write_bf16(q1, k, v, cache.k, cache.v, start, l, window=window)
+            out = decode_attention_write_bf16(q1, k, v, k_c, v_c, start, li, window=window)
         return out.reshape(B, 1, H * hd)
     cache_layer_write(cache, l, k, v, start, slots)
     return cached_attention(q, cache.layer(l, slots), mask)
@@ -265,7 +276,8 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin).contiguous()
         v = v.contiguous()
-        if decode and cache.quantized:  # qtpu's cache-carry decode: K2 then K3
+        if decode and cache.quantized and not cache.per_layer:
+            # qtpu's cache-carry decode of the stacked cache: K2 then K3
             cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
             attn = decode_attention(
                 q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,

@@ -1,5 +1,6 @@
-"""Shared NN ops: RMSNorm, RoPE, full-sequence causal attention and the
-quantization-aware linear (port of qtpu/models/ops.py).
+"""Shared NN ops: RMSNorm, LayerNorm, tanh-approximate GELU, RoPE,
+full-sequence causal attention and the quantization-aware linear (port of
+qtpu/models/ops.py).
 
 A linear site's params are {"w": dense [K, N]} or packed {"data", "scales",
 "zeros"} (qtpu_torch.core.packing), optionally with a bias "b", an input
@@ -26,6 +27,22 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with bias in f32 (population variance), cast back to x's
+    dtype, as qtpu's `layer_norm`."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=True): 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):

@@ -17,7 +17,7 @@ GPTQ's actorder a "perm". POT/APOT pack W4 codebook sites: int4 codes in
 the W4 layout, bf16 scales and an f32 "codebook" of levels. `fold_smooth`
 folds the smooth vectors into the adjacent norms and scales;
 `fuse_packed_sites` concatenates q/k/v into "qkv_proj" and gate/up into
-"gateup_proj". On MoE models (arch "moe", RTN only so far) the expert sites
+"gateup_proj" (OPT: q/k/v only). On MoE models (arch "moe", RTN only so far) the expert sites
 are quantized and packed as a flat L*E layer axis into [L, E, ...] leaves,
 and the router stays dense.
 """
@@ -541,18 +541,22 @@ SHARED_KEYS = ("smooth", "perm", "codebook")  # applied to the shared input
 
 def fuse_packed_sites(packed: dict, qmeta, arch: str = "llama"):
     """Fuse packed sites that share an input into one wider matmul (llama:
-    q/k/v -> qkv_proj, gate/up -> gateup_proj). Sites fuse only when every
-    member is packed with the same keys and the same (bits, group, K), and
-    the keys applied to the shared input (smooth, perm) are equal across
+    q/k/v -> qkv_proj, gate/up -> gateup_proj; OPT: q/k/v -> qkv_proj, biases
+    concatenated; GPT-2's c_attn is one site already). Sites fuse only when
+    every member is packed with the same keys and the same (bits, group, K),
+    and the keys applied to the shared input (smooth, perm) are equal across
     the group: one copy is kept. W8A8 ("a8") sites never fuse. Returns
     (fused params, fused qmeta)."""
     layers = dict(packed["layers"])
-    if not (arch == "llama" and "o_proj" in layers and "gate_proj" in layers):
+    if arch == "llama" and "o_proj" in layers and "gate_proj" in layers:
+        fuse_groups = [
+            (("q_proj", "k_proj", "v_proj"), "qkv_proj"),
+            (("gate_proj", "up_proj"), "gateup_proj"),
+        ]
+    elif arch == "opt" and "out_proj" in layers and "fc1" in layers:
+        fuse_groups = [(("q_proj", "k_proj", "v_proj"), "qkv_proj")]
+    else:
         return packed, qmeta
-    fuse_groups = [
-        (("q_proj", "k_proj", "v_proj"), "qkv_proj"),
-        (("gate_proj", "up_proj"), "gateup_proj"),
-    ]
     meta = dict(qmeta)
 
     def shared_equal(parts, key):

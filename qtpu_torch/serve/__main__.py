@@ -8,7 +8,11 @@ Usage:
                              [--requests 4] [--tokens 16] [--batch 4]
                              [--temperature 0.0] [--device cuda|cpu]
 
-The flags and defaults are qtpu's (`python -m qtpu.serve`). The MoE
+The flags and defaults are qtpu's (`python -m qtpu.serve`). GPT-2 and OPT
+(--model gpt2, opt-125m, tiny-gpt2-test, tiny-opt-test) serve with every
+method: packed linears on K1 (OPT's q/k/v fused), int8-cache decode on K2
+and the one-layer decode attention (K3's kernel), bf16-cache decode on K8.
+The MoE
 models (--model tiny-moe-test, tiny-qwen2-moe-test, mixtral-8x7b,
 qwen2-moe-a14b) serve with --method none or rtn: expert matmuls on kernels
 K9 (grouped) and K10 (gathered, decode with batch x top-k below the expert

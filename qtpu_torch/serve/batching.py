@@ -16,8 +16,16 @@ write skips. A prefill call holds only the admitted requests, as many rows
 as there are, padded to the longest remaining chunk; it writes their K/V
 straight into their slots of the live cache.
 
-qtpu's `warmup()` (compiled-program zoo), per-layer cache layout and
-persistent compilation cache have no counterpart here yet.
+kv_layout="per_layer" keeps the cache as L per-layer buffers (qtpu's
+long-context layout), whose int8 decode runs K12 when the cache length S is a
+multiple of 2048. S is max_seq_len + decode_block rounded up to 8, as in
+qtpu, so pick max_seq_len = 2048 k - decode_block (32752 with decode_block
+16 gives S 32768; max_seq_len 32768 gives S 32784, and K11). The per-layer
+layout serves the llama and moe arches; gpt2 and opt raise, as qtpu's layer
+scan over the stacked cache does.
+
+qtpu's `warmup()` (compiled-program zoo) and persistent compilation cache
+have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -80,6 +88,7 @@ class ContinuousBatcher:
         prefill_chunk: int = 256,
         prefill_parallel: int | None = None,
         device="cuda",
+        kv_layout: str | None = None,
     ):
         self.params = params
         self.cfg = cfg
@@ -94,11 +103,15 @@ class ContinuousBatcher:
         self.prefill_parallel = max(
             1, max_batch if prefill_parallel is None else prefill_parallel
         )
+        self.kv_layout = "stacked" if kv_layout is None else kv_layout
+        if self.kv_layout not in ("stacked", "per_layer"):
+            raise ValueError(f"kv_layout must be 'stacked' or 'per_layer', got {kv_layout!r}")
         # decode blocks may overshoot a slot's last token by block-1 steps;
         # size the cache so those writes stay in range
         self.cache = init_cache(
             cfg, max_batch, max_seq_len + self.decode_block,
             quantized=(kv_dtype == "int8"), device=self.device,
+            per_layer=self.kv_layout == "per_layer",
         )
         self.slots: list[Request | None] = [None] * max_batch
         self.queue: list[Request] = []

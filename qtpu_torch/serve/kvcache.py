@@ -2,9 +2,12 @@
 
 Layout as in qtpu: k/v [L, B, KV, S, hd] (one head's sequence is a
 contiguous [S, hd] tile), and in int8 mode one f32 scale per (layer,
-sequence, kv-head, position), [L, B, KV, S]. The port updates the cache IN
-PLACE (qtpu's functional updates return new arrays); `forward_with_cache`
-returns the same object it was given.
+sequence, kv-head, position), [L, B, KV, S]. The per-layer layout
+(`init_cache(per_layer=True)`, qtpu's long-context format) keeps k/v as
+tuples of L [B, KV, S, hd] tensors and the scales as tuples of L
+[B, KV, S]; its int8 decode runs K12 when S % 2048 == 0. The port updates
+the cache IN PLACE (qtpu's functional updates return new arrays);
+`forward_with_cache` returns the same object it was given.
 """
 
 from __future__ import annotations
@@ -16,10 +19,10 @@ import torch
 
 @dataclass
 class KVCache:
-    k: torch.Tensor  # [L, B, KV, S, hd] bf16 or int8
-    v: torch.Tensor
-    k_scale: torch.Tensor | None  # [L, B, KV, S] f32 (int8 mode)
-    v_scale: torch.Tensor | None
+    k: object  # [L, B, KV, S, hd] bf16 or int8, or a tuple of L [B, KV, S, hd]
+    v: object
+    k_scale: object | None  # [L, B, KV, S] f32 (int8 mode), or a tuple of L [B, KV, S]
+    v_scale: object | None
     length: torch.Tensor  # [B] int32, tokens filled per sequence
 
     @property
@@ -27,12 +30,16 @@ class KVCache:
         return self.k_scale is not None
 
     @property
+    def per_layer(self) -> bool:
+        return isinstance(self.k, (tuple, list))
+
+    @property
     def num_layers(self) -> int:
-        return self.k.shape[0]
+        return len(self.k) if self.per_layer else self.k.shape[0]
 
     @property
     def max_len(self) -> int:
-        return self.k.shape[3]
+        return self.k[0].shape[2] if self.per_layer else self.k.shape[3]
 
     def layer(self, l: int, slots=None):
         """(k, v, k_scale, v_scale) of layer l: views, or with `slots` [B]
@@ -43,31 +50,43 @@ class KVCache:
             return c[l] if slots is None else c[l][slots]
         return sel(self.k), sel(self.v), sel(self.k_scale), sel(self.v_scale)
 
+    def stacked(self, l: int):
+        """(k, v, k_scale, v_scale, layer index) in the stacked form the
+        kernels of a stacked cache take: the cache itself and l, or for the
+        per-layer layout layer l's buffers as zero-copy [1, ...] views and
+        index 0."""
+        if not self.per_layer:
+            return self.k, self.v, self.k_scale, self.v_scale, l
+        one = [None if c is None else c.unsqueeze(0) for c in self.layer(l)]
+        return (*one, 0)
+
 
 def init_cache(
     cfg, batch: int, max_len: int, dtype=torch.bfloat16, quantized: bool = False,
-    device="cuda",
+    device="cuda", per_layer: bool = False,
 ) -> KVCache:
-    """Zeroed cache; max_len is rounded up to a multiple of 8 (as in qtpu)."""
+    """Zeroed cache; max_len is rounded up to a multiple of 8 (as in qtpu).
+    per_layer: k/v (and scales) as tuples of L per-layer tensors."""
     L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     max_len = max_len + (-max_len) % 8
-    shape = (L, batch, KV, max_len, hd)
+    shape = (batch, KV, max_len, hd)
+
+    def alloc(shp, dt):
+        if per_layer:
+            return tuple(torch.zeros(shp, dtype=dt, device=device) for _ in range(L))
+        return torch.zeros((L, *shp), dtype=dt, device=device)
+
     length = torch.zeros((batch,), dtype=torch.int32, device=device)
     if quantized:
         return KVCache(
-            k=torch.zeros(shape, dtype=torch.int8, device=device),
-            v=torch.zeros(shape, dtype=torch.int8, device=device),
-            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            k=alloc(shape, torch.int8),
+            v=alloc(shape, torch.int8),
+            k_scale=alloc(shape[:-1], torch.float32),
+            v_scale=alloc(shape[:-1], torch.float32),
             length=length,
         )
-    return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        k_scale=None,
-        v_scale=None,
-        length=length,
-    )
+    return KVCache(k=alloc(shape, dtype), v=alloc(shape, dtype), k_scale=None, v_scale=None,
+                   length=length)
 
 
 def quantize_kv(x: torch.Tensor):

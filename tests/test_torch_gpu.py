@@ -612,13 +612,14 @@ def test_k11_matches_plain(cuda, window, S, hd, KV, G):
     assert bool(torch.isfinite(got.float()).all())
 
 
-@pytest.mark.parametrize("kv", ["int8", "bfloat16"])
+@pytest.mark.parametrize("kv", ["int8", "bfloat16", "int8_per_layer"])
 @pytest.mark.parametrize("B", [1, 4])
 def test_moe_decode_on_card_matches_cpu(cuda, kv, B):
     """Packed W4 TINY_MOE_TEST, prefill and 3 teacher-forced decode steps on
     the card against the CPU's plain versions: B = 1 decodes on the gathered
     route (K10, no host synchronization in the step), B = 4 on the grouped
-    one (K9); K11 (int8) or K8 (bf16) once per layer of a step."""
+    one (K9); once per layer of a step K11 (int8), K8 (bf16), or K12 (the
+    per-layer int8 cache at S 2048, through moe.forward_with_cache)."""
     from qtpu_torch.convert import map_tree
     from qtpu_torch.models.config import TINY_MOE_TEST as cfg
     from qtpu_torch.models import moe
@@ -632,12 +633,15 @@ def test_moe_decode_on_card_matches_cpu(cuda, kv, B):
     outs, L = {}, cfg.num_layers
     for dev in ("cpu", "cuda"):
         p = map_tree(params, lambda t: t.to(dev))
-        cache = init_cache(cfg, B, 24, quantized=kv == "int8", device=dev)
+        per_layer = kv == "int8_per_layer"
+        cache = init_cache(cfg, B, 2048 if per_layer else 24, quantized=kv != "bfloat16",
+                           device=dev, per_layer=per_layer)
         logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta, arch="moe")
         res, pos = [logits.float().cpu()], torch.full((B,), 12, dtype=torch.int32, device=dev)
         toks = [ids[:, i].to(torch.int32).to(dev) for i in range(3)]
         n0 = (k9.moe_matmul.launches, k9.moe_gathered_matmul.launches,
-              k23.decode_attention_write.launches, k23.decode_attention_write_bf16.launches)
+              k23.decode_attention_write.launches, k23.decode_attention_write_bf16.launches,
+              k23.decode_attention_flash.launches)
         for i in range(3):
             if dev == "cuda" and B == 1:
                 torch.cuda.set_sync_debug_mode("error")  # any host synchronization raises
@@ -652,7 +656,219 @@ def test_moe_decode_on_card_matches_cpu(cuda, kv, B):
             assert k9.moe_matmul.launches - n0[0] == (0 if gathered else 3 * 3 * L)
             assert k9.moe_gathered_matmul.launches - n0[1] == (3 * 3 * L if gathered else 0)
             assert k23.decode_attention_write.launches - n0[2] == (3 * L if kv == "int8" else 0)
-            assert k23.decode_attention_write_bf16.launches - n0[3] == (3 * L if kv != "int8" else 0)
+            assert k23.decode_attention_write_bf16.launches - n0[3] == (3 * L if kv == "bfloat16" else 0)
+            assert k23.decode_attention_flash.launches - n0[4] == (3 * L if per_layer else 0)
+        outs[dev] = res
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert _rel(a, b) < 3e-2
+
+
+def _flash_inputs(g, B, KV, G, hd, dev):
+    q = torch.randn(B, KV * G, hd, generator=g, device=dev).to(torch.bfloat16)
+    kn = torch.randn(B, 1, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    vn = torch.randn(B, 1, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    return q, kn, vn
+
+
+@pytest.mark.parametrize("window", [0, 100, 3000])
+@pytest.mark.parametrize("S,hd,KV,G", [(2048, 64, 4, 8), (4096, 128, 8, 4), (2048, 32, 2, 1),
+                                       (2048, 64, 1, 32)])
+def test_k12_flash_matches_plain(cuda, window, S, hd, KV, G):
+    """K12's flash entry on a per-layer buffer: the codes and scales it
+    writes equal the plain version's (an inactive slot at pos >= S writes
+    nothing and attends over all of S without the new token), the output
+    within 2e-2 relative error of the plain version (f32 math, the same
+    function)."""
+    g = _gen()
+    B = 4
+    k, v, ks, vs = (t[0] for t in _cache(g, 1, B, KV, S, hd, cuda))
+    q, kn, vn = _flash_inputs(g, B, KV, G, hd, cuda)
+    pos = torch.tensor([0, 37, S - 1, S + 3], dtype=torch.int32, device=cuda)
+    kc = [t.clone() for t in (k, v, ks, vs)]
+    pc = [t.clone() for t in (k, v, ks, vs)]
+    n0 = k23.decode_attention_flash.launches
+    got = k23.decode_attention_flash(q, kn, vn, *kc, pos, window=window)
+    want = k23.flash_decode_plain(q, kn, vn, *pc, pos, window=window)
+    torch.cuda.synchronize()
+    assert k23.decode_attention_flash.launches == n0 + 1
+    for a, b in zip(kc, pc):
+        assert torch.equal(a, b)
+    assert _rel(got, want) < 2e-2
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.parametrize("S", [40, 176, 264])
+def test_k12_banded_entries_match_plain(cuda, S):
+    """The banded entry at any S % 8 and the stacked one on layer 1 of a
+    3-layer cache (the other layers untouched)."""
+    g = _gen()
+    L, B, KV, G, hd = 3, 4, 4, 8, 64
+    cache = _cache(g, L, B, KV, S, hd, cuda)
+    q, kn, vn = _flash_inputs(g, B, KV, G, hd, cuda)
+    pos = torch.tensor([5, 17, S - 1, S], dtype=torch.int32, device=cuda)
+    kc, pc = [t.clone() for t in cache], [t.clone() for t in cache]
+    got = k23.decode_attention_write_banded_stacked(q, kn, vn, *kc, pos, 1, window=16)
+    want = k23.flash_decode_plain(q, kn, vn, *(t[1] for t in pc), pos, window=16)
+    torch.cuda.synchronize()
+    for a, b, orig in zip(kc, pc, cache):
+        assert torch.equal(a, b)
+        assert torch.equal(a[0], orig[0]) and torch.equal(a[2], orig[2])
+    assert _rel(got, want) < 2e-2
+    one = [t[2].clone() for t in cache]
+    got = k23.decode_attention_write_banded(q, kn, vn, *one, pos)
+    want = k23.flash_decode_plain(q, kn, vn, *(t[2] for t in pc), pos)
+    torch.cuda.synchronize()
+    for a, b in zip(one, (t[2] for t in pc)):
+        assert torch.equal(a, b)
+    assert _rel(got, want) < 2e-2
+
+
+def test_k12_raises_on_what_it_does_not_take(cuda):
+    g = _gen()
+    k, v, ks, vs = (t[0] for t in _cache(g, 1, 2, 2, 2048, 96, cuda))
+    q, kn, vn = _flash_inputs(g, 2, 2, 2, 96, cuda)
+    pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        k23.decode_attention_flash(q, kn, vn, k, v, ks, vs, pos)
+    with pytest.raises(NotImplementedError):  # the flash entry's S granule
+        k23.decode_attention_flash(q, kn, vn, k[:, :, :1024], v, ks, vs, pos)
+    k, v, ks, vs = (t[0] for t in _cache(g, 1, 2, 2, 2048, 64, cuda))
+    q, kn, vn = _flash_inputs(g, 2, 2, 2, 64, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        k23.decode_attention_flash(q, kn, vn, k, v, ks, vs, pos.long())
+
+
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("hd,KV,G", [(64, 12, 1), (64, 4, 8), (128, 8, 4)])
+def test_row9_layer_entry_matches_plain(cuda, window, hd, KV, G):
+    """decode_attention_layer on one layer [B, KV, S, hd] (GPT-2's MHA at
+    hd 64 and G 1 first): read-only, within 2e-2 of the plain version and
+    rtol/atol 2e-2 of f32 math."""
+    g = _gen()
+    B, S = 8, 176
+    k, v, ks, vs = (t[1] for t in _cache(g, 2, B, KV, S, hd, cuda))
+    before = [t.clone() for t in (k, v, ks, vs)]
+    q = torch.randn(B, KV * G, hd, generator=g, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=cuda)
+    n0 = k23.decode_attention_layer.launches
+    got = k23.decode_attention_layer(q, k, v, ks, vs, pos, window=window)
+    want = k23.decode_attention_layer(q.cpu(), *(t.cpu() for t in (k, v, ks, vs)), pos.cpu(),
+                                      window=window)
+    want32 = k23.decode_attention_plain(q.float(), *(t[None] for t in (k, v, ks, vs)), pos, 0,
+                                        window=window)
+    torch.cuda.synchronize()
+    assert k23.decode_attention_layer.launches == n0 + 1
+    for a, b in zip((k, v, ks, vs), before):
+        assert torch.equal(a, b)
+    assert _rel(got[:-1].cpu(), want[:-1]) < 2e-2
+    torch.testing.assert_close(got[:-1].float(), want32[:-1], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("M", [1, 8, 77, 300])
+@pytest.mark.parametrize("bits,group,N", [(4, 128, 50257), (4, 64, 771), (8, 64, 257),
+                                          (2, 32, 385)])
+def test_k1_at_ragged_n_matches_plain(cuda, M, bits, group, N):
+    """K1 at N % 4 != 0 (GPT-2's lm_head first): both the GEMV and the
+    tensor-core path mask the ragged column tail."""
+    g = _gen()
+    K = 768 if N == 50257 else 512
+    qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, bits, group)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    meta = (bits, group, K, N)
+    got = k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta)
+    want = k1.quantized_matmul_plain(x, qt.data, qt.scales, qt.zeros, meta)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.parametrize("M", [1, 77])
+def test_k7_at_ragged_n_matches_plain(cuda, M):
+    from qtpu_torch.kernels import codebook_matmul as k7
+
+    g = _gen()
+    K, N, group = 512, 387, 64
+    data, sc, cb = _pot_site(g, K, N, group, cuda)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    got = k7.codebook_matmul(x, data, sc, cb, (4, group, K, N))
+    want = k7.codebook_matmul_plain(x, data, sc, cb, (4, group, K, N))
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 2e-2
+
+
+def test_per_layer_decode_on_card_matches_cpu(cuda):
+    """TINY_TEST RTN W4 fused on the per-layer int8 cache at S 2048: prefill
+    and 3 teacher-forced decode steps on the card (K12 once per layer of a
+    step, with no host synchronization in the step) against the CPU's plain
+    versions."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINY_TEST as cfg
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    params, qmeta = fuse_packed_sites(*pack_model(llama.init_params(cfg, device="cpu"), "rtn",
+                                                  {"w_bit": 4, "q_group_size": 64}))
+    B, T = 4, 12
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(2))
+    outs, L = {}, cfg.num_layers
+    for dev in ("cpu", "cuda"):
+        p = map_tree(params, lambda t: t.to(dev))
+        cache = init_cache(cfg, B, 2048, quantized=True, device=dev, per_layer=True)
+        logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta)
+        res, pos = [logits.float().cpu()], torch.full((B,), T, dtype=torch.int32, device=dev)
+        toks = [ids[:, i].to(torch.int32).to(dev) for i in range(3)]
+        n0 = k23.decode_attention_flash.launches
+        for i in range(3):
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("error")  # any host synchronization raises
+            try:
+                logits, cache = decode_step(p, toks[i], pos, cache, cfg, qmeta)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            res.append(logits.float().cpu())
+            pos = pos + 1
+        if dev == "cuda":
+            assert k23.decode_attention_flash.launches - n0 == 3 * L
+        outs[dev] = res
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert _rel(a, b) < 3e-2
+
+
+@pytest.mark.parametrize("arch", ["gpt2", "opt"])
+@pytest.mark.parametrize("kv", ["int8", "bfloat16"])
+def test_gpt2_opt_decode_on_card_matches_cpu(cuda, arch, kv):
+    """Packed W4 TINY_GPT2_TEST / TINY_OPT_TEST, prefill and 3 teacher-forced
+    decode steps on the card against the CPU: on the int8 cache K2 and the
+    one-layer entry once per layer of a step, on the bf16 cache K8."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.models import config, get_arch
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    cfg = {"gpt2": config.TINY_GPT2_TEST, "opt": config.TINY_OPT_TEST}[arch]
+    params, qmeta = fuse_packed_sites(
+        *pack_model(get_arch(arch).init_params(cfg, device="cpu"), "rtn",
+                    {"w_bit": 4, "q_group_size": 64}, arch=arch), arch=arch)
+    B, T = 4, 12
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(2))
+    outs, L = {}, cfg.num_layers
+    for dev in ("cpu", "cuda"):
+        p = map_tree(params, lambda t: t.to(dev))
+        cache = init_cache(cfg, B, 24, quantized=kv == "int8", device=dev)
+        logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta, arch=arch)
+        res, pos = [logits.float().cpu()], torch.full((B,), T, dtype=torch.int32, device=dev)
+        n0 = (k23.decode_attention_layer.launches, k23.decode_attention_write_bf16.launches)
+        for i in range(3):
+            logits, cache = decode_step(p, ids[:, i].to(torch.int32).to(dev), pos, cache, cfg,
+                                        qmeta, arch=arch)
+            res.append(logits.float().cpu())
+            pos = pos + 1
+        if dev == "cuda":
+            assert k23.decode_attention_layer.launches - n0[0] == (3 * L if kv == "int8" else 0)
+            assert k23.decode_attention_write_bf16.launches - n0[1] == (3 * L if kv != "int8"
+                                                                          else 0)
         outs[dev] = res
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert _rel(a, b) < 3e-2

@@ -1,8 +1,10 @@
 """The port's model path against qtpu on the same numpy-made weights:
 pack_model + fuse_packed_sites give identical leaves, forward_with_cache
 gives the same prefill and decode logits (dense and W4-packed, int8 and
-bf16 KV cache), and greedy decoding picks qtpu's tokens wherever qtpu's
-top-1/top-2 margin is wider than the logit tolerance."""
+bf16 KV cache; the llama-arch variants Qwen2, with q/k/v biases, and
+Mistral, with a sliding window, on the int8 cache in both layouts), and
+greedy decoding picks qtpu's tokens wherever qtpu's top-1/top-2 margin is
+wider than the logit tolerance."""
 
 import jax
 import jax.numpy as jnp
@@ -11,13 +13,14 @@ import numpy as np
 import pytest
 
 from qtpu.models import llama as jllama
-from qtpu.models.config import TINY_TEST
+from qtpu.models.config import TINY_MISTRAL_TEST, TINY_QWEN2_TEST, TINY_TEST
 from qtpu.quant.apply import fuse_packed_sites as jax_fuse
 from qtpu.quant.apply import pack_model as jax_pack
 from qtpu.serve import decode as jdecode
 from qtpu.serve.kvcache import init_cache as jax_init_cache
 from qtpu_torch.convert import params_to_numpy, params_to_torch, to_numpy, to_torch
 from qtpu_torch.models import llama as tllama
+from qtpu_torch.models import config as tconfig
 from qtpu_torch.models.config import TINY_TEST as T_TINY
 from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
 from qtpu_torch.serve import decode as tdecode
@@ -47,7 +50,7 @@ def _np_params(cfg, seed=0):
     def norm(*shape):
         return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32).astype(BF16)
 
-    return {
+    params = {
         "embed": w(V, D),
         "layers": {
             "attn_norm": norm(L, D), "mlp_norm": norm(L, D),
@@ -59,10 +62,15 @@ def _np_params(cfg, seed=0):
         "final_norm": norm(D),
         "lm_head": {"w": w(D, V)},
     }
+    if cfg.attention_bias:  # Qwen2: q/k/v biases
+        for site, n in (("q_proj", Q), ("k_proj", KV), ("v_proj", KV)):
+            params["layers"][site]["b"] = (rng.standard_normal((L, n)) * 0.5).astype(
+                np.float32).astype(BF16)
+    return params
 
 
-def _both(packed: bool):
-    p = _np_params(CFG)
+def _both(packed: bool, cfg=CFG):
+    p = _np_params(cfg)
     pj = jax.tree_util.tree_map(jnp.asarray, p)
     pt = params_to_torch(p, device="cpu")
     if not packed:
@@ -126,6 +134,39 @@ def test_forward_with_cache_matches_qtpu(packed, kv):
             assert _rel(got, want) < LOGIT_TOL
     else:
         assert _rel(to_numpy(ct.k), np.asarray(cj.k)) < LOGIT_TOL
+
+
+@pytest.mark.parametrize("variant,per_layer", [("qwen2", False), ("qwen2", True),
+                                               ("mistral", False), ("mistral", True)])
+def test_llama_variants_match_qtpu(variant, per_layer):
+    """TINY_QWEN2_TEST (q/k/v biases) and TINY_MISTRAL_TEST (window 8), RTN
+    W4 fused, on the int8 cache: a prefill of 12 and 6 teacher-forced decode
+    steps against qtpu, the stacked cache at S 32 (K2 + K3's plain versions)
+    and the per-layer one at S 2048 (K12's plain version: strictly before
+    pos plus the unquantized new token, where qtpu's CPU path quantizes it
+    first; both within the same tolerance)."""
+    cfg = {"qwen2": TINY_QWEN2_TEST, "mistral": TINY_MISTRAL_TEST}[variant]
+    tcfg = {"qwen2": tconfig.TINY_QWEN2_TEST, "mistral": tconfig.TINY_MISTRAL_TEST}[variant]
+    pj, qj, pt, qt = _both(packed=True, cfg=cfg)
+    assert ("b" in pt["layers"]["qkv_proj"]) == (variant == "qwen2")
+    B, T, steps = 2, 12, 6
+    S = 2048 if per_layer else 32
+    ids = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, T), dtype=np.int32)
+    positions = np.arange(T, dtype=np.int32)[None].repeat(B, 0)
+    cj = jax_init_cache(cfg, B, S, quantized=True, per_layer=per_layer)
+    ct = init_cache(tcfg, B, S, quantized=True, device="cpu", per_layer=per_layer)
+    lj, cj = jllama.forward_with_cache(pj, jnp.asarray(ids), jnp.asarray(positions), cj, cfg, qj)
+    lt, ct = tllama.forward_with_cache(pt, cpu(ids), cpu(positions), ct, tcfg, qt)
+    assert _rel(lt.numpy(), lj) < LOGIT_TOL
+    pos = np.full((B,), T, np.int32)
+    for _ in range(steps):  # past the window of 8
+        tok = np.asarray(jnp.argmax(lj[:, -1], -1)).astype(np.int32)
+        lj, cj = jllama.forward_with_cache(
+            pj, jnp.asarray(tok)[:, None], jnp.asarray(pos)[:, None], cj, cfg, qj)
+        lt, ct = tllama.forward_with_cache(pt, cpu(tok)[:, None], cpu(pos)[:, None], ct, tcfg, qt)
+        assert _rel(lt.numpy(), lj) < LOGIT_TOL
+        pos = pos + 1
+    assert ct.per_layer == per_layer
 
 
 def test_greedy_generate_matches_qtpu():

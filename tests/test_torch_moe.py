@@ -39,6 +39,7 @@ from qtpu_torch.kernels import kv_attention as k11
 from qtpu_torch.kernels import moe_matmul as k9
 from qtpu_torch.models import get_arch
 from qtpu_torch.models import config as tconfig
+from qtpu_torch.models import llama as tllama
 from qtpu_torch.models import moe as tmoe
 from qtpu_torch.quant import apply as tapply
 from qtpu_torch.serve import decode as tdecode
@@ -294,6 +295,45 @@ def test_greedy_generate_matches_qtpu(model, kv, B):
     assert k11.decode_attention_write.launches == 0
 
 
+def test_per_layer_decode_matches_qtpu(model, monkeypatch):
+    """Packed W4, a prefill of 10 and 4 teacher-forced decode steps on the
+    per-layer int8 cache at S 2048, against qtpu's per-layer MoE cache
+    (moe.py:448) on the CPU. qtpu there takes its XLA attention, which
+    quantizes the new token and attends s <= pos; the port takes K12's plain
+    version (s < pos plus the unquantized new token): logits within the 2e-2
+    of tests/test_serve.py:366, caches within it after dequantization."""
+    jcfg, tcfg, _, _, (pkj, qj), (pkt, qt) = model
+    B, P, N, S = 2, 10, 4, 2048
+    ids = _ids(21, B, P, tcfg.vocab_size)
+    positions = np.arange(P, dtype=np.int32)[None].repeat(B, 0)
+    cj = jkv.init_cache(jcfg, B, S, quantized=True, per_layer=True)
+    ct = tkv.init_cache(tcfg, B, S, quantized=True, device="cpu", per_layer=True)
+    lj, cj = jmoe.forward_with_cache(pkj, jnp.asarray(ids), jnp.asarray(positions), cj, jcfg, qj)
+    lt, ct = tmoe.forward_with_cache(pkt, cpu(ids), cpu(positions), ct, tcfg, qt)
+    assert _rel(lt.numpy(), lj) < LOGIT_TOL
+    pos = np.full((B,), P, np.int32)
+    n0, calls = k11.decode_attention_flash.launches, []
+    real = tllama.decode_attention_flash
+    monkeypatch.setattr(tllama, "decode_attention_flash",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    for _ in range(N):
+        tok = np.asarray(jnp.argmax(lj[:, -1], -1)).astype(np.int32)
+        lj, cj = jmoe.forward_with_cache(pkj, jnp.asarray(tok)[:, None],
+                                         jnp.asarray(pos)[:, None], cj, jcfg, qj)
+        lt, ct = tmoe.forward_with_cache(pkt, cpu(tok)[:, None], cpu(pos)[:, None], ct, tcfg, qt)
+        assert _rel(lt.numpy(), lj) < LOGIT_TOL
+        pos = pos + 1
+    assert len(calls) == N * tcfg.num_layers  # K12's entry on every layer of a step
+    assert k11.decode_attention_flash.launches == n0  # CPU tensors: the plain version
+    assert ct.per_layer and cj.per_layer
+    for l in range(tcfg.num_layers):
+        for a, sa, b, sb in ((ct.k[l], ct.k_scale[l], cj.k[l], cj.k_scale[l]),
+                             (ct.v[l], ct.v_scale[l], cj.v[l], cj.v_scale[l])):
+            got = a.numpy().astype(np.float32) * sa.numpy()[..., None]
+            want = np.asarray(b, np.float32) * np.asarray(sb)[..., None]
+            assert _rel(got, want) < LOGIT_TOL
+
+
 @pytest.mark.parametrize("model", ["mixtral"], indirect=True)  # Qwen2-MoE: shared expert
 def test_gathered_route_equals_grouped_route(model, monkeypatch):
     """A decode step at B * top_k < E takes the gathered route (K10's plain
@@ -361,8 +401,9 @@ def test_serve_cli_moe_on_cpu(capsys):
 
 
 def test_unported_moe_paths_refuse():
-    """What the MoE-methods slice brings raises, naming it; gpt2 and opt
-    still name the model-families slice."""
+    """What the MoE-methods slice brings raises, naming it; get_arch gives
+    the ported gpt2 and opt modules and raises KeyError on an unknown arch,
+    as qtpu's does."""
     cfg = tconfig.TINY_MOE_TEST
     p = tmoe.init_params(cfg, seed=0, device="cpu")
     assert get_arch("moe") is tmoe
@@ -382,8 +423,9 @@ def test_unported_moe_paths_refuse():
     with pytest.raises(NotImplementedError, match="MoE-methods slice"):
         bench.setup()
     for arch in ("gpt2", "opt"):
-        with pytest.raises(NotImplementedError, match="model-families slice"):
-            get_arch(arch)
+        assert get_arch(arch).__name__ == f"qtpu_torch.models.{arch}"
+    with pytest.raises(KeyError):
+        get_arch("bert")
     shapes = {k: tuple(v["w"].shape) for k, v in p["layers"].items() if isinstance(v, dict)}
     assert shapes["exp_down"] == (cfg.num_layers, cfg.num_experts, cfg.intermediate_size,
                                   cfg.hidden_size)
