@@ -8,7 +8,7 @@ Phases, each printing one JSON line:
   device   the card's name, count, and nvidia-smi's name and power limit
   build    nvcc builds every kernel source (in parallel), with the -Xptxas -v
            register and shared-memory report
-  kernels  K1-K12 against their plain PyTorch versions at the shapes of the
+  kernels  K1-K13 against their plain PyTorch versions at the shapes of the
            main paths (TinyLlama-1.1B, batch 8, prompt 128, W4 g128; K5 at
            one layer of an eval block of 2048 tokens; K6 at M = 8, 1024 and
            2048 on every W8A8 site, K7 on every fused codebook site; K8 on
@@ -18,7 +18,11 @@ Phases, each printing one JSON line:
            lm_head; K12's three entries at the long_ctx cell's layer (S 32768),
            at Mistral-7B widths with a window of 4096 and at the serve cell's
            cache, beside K11 on a stacked cache of the same long layer; the
-           one-layer decode attention at GPT-2's serve shape), with times: kernel, plain
+           one-layer decode attention at GPT-2's serve shape; K1 with qtpu's
+           norm_w and resid options at the TinyLlama qkv and o sites; K13 at
+           the TinyLlama layer, M 1, 8, 32, W4 and W8, and at a Llama-2-7B
+           layer, M 8, W4, beside the K1 + K4 + K1 chains it replaces), with
+           times: kernel, plain
            version, one PyTorch library call where one computes the same
            function, and the bound from bytes and operations at 3.35 TB/s and
            989 TFLOP/s bf16 or 1,979 TOP/s int8 (H100 SXM data sheet)
@@ -31,7 +35,10 @@ Phases, each printing one JSON line:
            CPU counted per layer and a second card run on the CPU's routes; a
            2-layer TinyLlama-width model on the per-layer int8 cache at S 4096
            (prefill 128, 8 decode steps, K12 2 a step); 2-layer GPT2_SMALL and
-           OPT_125M-width models, RTN W4, on both caches
+           OPT_125M-width models, RTN W4, on both caches; the 2-layer TinyLlama
+           under QTPU_FUSE_NORM_RESID=1 and QTPU_BOUNDARY=1 on both caches; in
+           the Mixtral e2e every kernel call is also held to its plain version
+           and the CPU runs a second time with the weights in f32
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
@@ -56,6 +63,13 @@ Phases, each printing one JSON line:
            (K1 49 a forward, K2 and the one-layer decode attention 12 a decode
            step), a profile of a decode step; then `python -m qtpu_torch.serve
            --model gpt2 --kv int8` (its main())
+  boundary qtpu's layer-boundary decode branches at full width: TinyLlama-1.1B
+           RTN W4 g128 fused, 8 slots, 8 requests of 128 + 32, on the stacked
+           int8 and bf16 caches, each under default, QTPU_FUSE_NORM_RESID=1
+           and QTPU_BOUNDARY=1: tokens/s, TTFT, peak memory, launches per
+           step (K13 22, K11 or K8 22, K1 2 under boundary), a profile (K13's
+           share), a step from one prefill against the default's, and K13
+           held to its plain version on every layer of that step
   eval     the quantize-and-evaluate path at full width through
            `python -m qtpu_torch.bench` (its main() in this process):
            TinyLlama-1.1B, the byte-level fixture (4 blocks of 2048), raw,
@@ -120,7 +134,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
-          "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16", "serve_moe")
+          "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16", "serve_moe")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -433,6 +447,10 @@ def phase_kernels(torch, ctx):
     detail["decode_attention_flash"] = k12r
     r9 = _row9_row(torch, gen, dev)
     detail["decode_attention_layer"] = r9
+    k1o = _k1_option_rows(torch, gen, dev, cfg)
+    detail["dequant_matmul_options"] = k1o
+    k13r = _k13_rows(torch, gen, dev)
+    detail["layer_boundary"] = k13r
     emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
 
     # one entry per kernel, at the work of one decode step (B = 8):
@@ -557,6 +575,27 @@ def phase_kernels(torch, ctx):
                                                       "library_ms")},
             "bound_by": r9["bound_by"],
         },
+        # K13 at the work of one decode step of the boundary cell: L calls at
+        # the TinyLlama layer, M 8, W4 g128 (its other shapes, and the chains
+        # it replaces, are in the phase's detail)
+        "layer_boundary": {
+            "route": "cuda", "source": "qtpu_torch/csrc/layer_boundary.cu",
+            "replaces": "qtpu/kernels/pallas_layer_boundary.py:139",
+            "max_abs_err": max(r["max_abs_err"] for r in k13r.values()),
+            **{key: L * k13r["TinyLlama-1.1B_w4_m8"][key] for key in ("ms", "plain_ms",
+                                                                      "bound_ms")},
+            "bound_by": k13r["TinyLlama-1.1B_w4_m8"]["bound_by"], "library_ms": None,
+        },
+        # K1's options at the work of one decode step of the fuse branch: L
+        # calls each, norm_w at the qkv site and resid at the o site (M 8)
+        **{f"dequant_matmul_{opt}": {
+            "route": "cuda", "source": "qtpu_torch/csrc/dequant_matmul.cu",
+            "replaces": "qtpu/kernels/pallas_dequant_matmul.py:385",
+            "max_abs_err": max(r["max_abs_err"] for r in k1o.values()),
+            **{key: L * k1o[row][key] for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": k1o[row]["bound_by"],
+            "library_ms": None if k1o[row]["library_ms"] is None else L * k1o[row]["library_ms"],
+        } for opt, row in (("norm_w", "norm_w_qkv"), ("resid", "resid_o"))},
     }
 
 
@@ -1194,6 +1233,195 @@ def _row9_row(torch, gen, dev):
     return row
 
 
+K13_GROUP = 128
+# (model, bits, M) of the K13 rows: the TinyLlama layer of the boundary cell
+# at M 1, 8, 32 in W4 and W8, and one Llama-2-7B layer at M 8 in W4
+K13_CASES = (("TinyLlama-1.1B", 4, 1), ("TinyLlama-1.1B", 4, 8), ("TinyLlama-1.1B", 4, 32),
+             ("TinyLlama-1.1B", 8, 1), ("TinyLlama-1.1B", 8, 8), ("TinyLlama-1.1B", 8, 32),
+             ("Llama-2-7B", 4, 8))
+
+
+def _boundary_shapes(cfg):
+    """(K, N) of the o, gateup, down and qkv sites of a layer of cfg."""
+    D, F, Q = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim
+    return ((Q, D), (D, 2 * F), (F, D), (D, Q + 2 * cfg.kv_dim))
+
+
+def _site_bytes(K, N, bits, group):
+    return K * N * bits / 8 + (K // group) * N * 3  # packed codes, bf16 scales, uint8 zeros
+
+
+def _k13_case(torch, gen, dev, name, cfg, bits, M):
+    """K13 at one layer of cfg (layers l and l + 1 of freshly packed stacks,
+    enough copies to exceed L2), against its plain version (relative error
+    of y2 - x and of qkv, 2e-2), with the times of the kernel, the plain
+    version and the chains it replaces on the same views: the composed
+    K1(o) + residual + K4 + rms_norm + K1(qkv) of the default decode step,
+    and K1(o, resid) + K4 + K1(qkv, norm_w) of the fuse branch."""
+    from qtpu_torch.kernels import fused_mlp as k4
+    from qtpu_torch.kernels import layer_boundary as k13
+    from qtpu_torch.kernels.dequant_matmul import quantized_matmul as k1
+    from qtpu_torch.models.ops import rms_norm
+
+    g = K13_GROUP
+    shapes = _boundary_shapes(cfg)
+    D, F, Q, Nq = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim, shapes[3][1]
+    wbytes = sum(_site_bytes(K, N, bits, g) for K, N in shapes)
+    copies = max(1, min(8, math.ceil(2 * L2_BYTES / wbytes)))
+    stacks = [_packed(torch, copies + 1, K, N, bits, g, gen, dev) for K, N in shapes]
+    metas = tuple((bits, g, K, N) for K, N in shapes)
+    attn = torch.randn(M, Q, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(M, D, generator=gen, device=dev).to(torch.bfloat16)
+    mn = (1.0 + 0.1 * torch.randn(copies + 1, D, generator=gen, device=dev)).to(torch.bfloat16)
+    an = (1.0 + 0.1 * torch.randn(copies + 1, D, generator=gen, device=dev)).to(torch.bfloat16)
+
+    def view(k, i):
+        return dict(zip(("data", "scales", "zeros"), (t[i] for t in stacks[k])))
+
+    def call(fn, i):
+        return fn(attn, x, mn[i], an[i + 1], view(0, i), view(1, i), view(2, i), view(3, i + 1),
+                  metas, eps=cfg.norm_eps)
+
+    def chain(i, fuse):
+        o, gu, dn, q = view(0, i), view(1, i), view(2, i), view(3, i + 1)
+        if fuse:
+            y = k1(attn, o["data"], o["scales"], o["zeros"], metas[0], resid=x)
+        else:
+            y = x + k1(attn, o["data"], o["scales"], o["zeros"], metas[0])
+        y2 = k4.fused_mlp(y, mn[i], gu["data"], gu["scales"], gu["zeros"], dn["data"],
+                          dn["scales"], dn["zeros"], metas[1], metas[2], eps=cfg.norm_eps)
+        if fuse:
+            return y2, k1(y2, q["data"], q["scales"], q["zeros"], metas[3], norm_w=an[i + 1],
+                          eps=cfg.norm_eps)
+        return y2, k1(rms_norm(y2, an[i + 1], cfg.norm_eps), q["data"], q["scales"], q["zeros"],
+                      metas[3])
+
+    n0 = k13.layer_boundary.launches
+    y2, qkv = call(k13.layer_boundary, 0)
+    want_y2, want_qkv = call(k13.layer_boundary_plain, 0)
+    torch.cuda.synchronize()
+    if k13.layer_boundary.launches != n0 + 1:
+        raise AssertionError("K13 did not count its launch")
+    err_y, err_q = rel_err(torch, y2.float() - x.float(), want_y2.float() - x.float()), \
+        rel_err(torch, qkv, want_qkv)
+    row = {"model": name, "bits": bits, "group": g, "M": M, "D": D, "F": F, "Q": Q,
+           "Nq": Nq, "grid_blocks": k13._grid(dev.index or 0, bits, g),
+           "rel_err_y2_minus_x": err_y, "rel_err_qkv": err_q,
+           "max_abs_err": max(float((y2.float() - want_y2.float()).abs().max()),
+                              float((qkv.float() - want_qkv.float()).abs().max())),
+           "tol_rel": 2e-2, "weight_mb": wbytes / 1e6}
+    ok = all(bool(torch.isfinite(t.float()).all()) for t in (y2, qkv))
+    if err_y >= 2e-2 or err_q >= 2e-2 or not ok:
+        raise AssertionError(f"K13 disagrees with its plain version: {row}")
+    nbytes = wbytes + M * (Q + D) * 2 + M * (D + Nq) * 2 + 2 * D * 2
+    ops = 2 * M * sum(K * N for K, N in shapes)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+    row["ms"], row["timing"] = cuda_ms(torch, [lambda i=i: call(k13.layer_boundary, i)
+                                               for i in range(copies)], wbytes)
+    row["plain_ms"], _ = cuda_ms(torch, [lambda i=i: call(k13.layer_boundary_plain, i)
+                                         for i in range(copies)], wbytes)
+    row["composed_chain_ms"], _ = cuda_ms(torch, [lambda i=i: chain(i, False)
+                                                  for i in range(copies)], wbytes)
+    row["fuse_chain_ms"], _ = cuda_ms(torch, [lambda i=i: chain(i, True)
+                                              for i in range(copies)], wbytes)
+    row["library_ms"] = None  # no one PyTorch call computes the layer boundary
+    del stacks
+    return row
+
+
+def _k13_rows(torch, gen, dev):
+    from qtpu_torch.models.config import LLAMA2_7B, TINYLLAMA_1_1B
+
+    cfgs = {"TinyLlama-1.1B": TINYLLAMA_1_1B, "Llama-2-7B": LLAMA2_7B}
+    rows = {f"{m}_w{bits}_m{M}": _k13_case(torch, gen, dev, m, cfgs[m], bits, M)
+            for m, bits, M in K13_CASES}
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _k1_option_rows(torch, gen, dev, cfg):
+    """K1 with norm_w at the TinyLlama qkv site and with resid at its o site
+    (M 8, W4 g128), each beside K1 alone on the same input, the composed ops
+    it replaces (rms_norm + K1; K1 + add) and its plain version; library for
+    resid: torch.addmm on the weight dequantized to bf16. Untimed checks at
+    M 1, 8 and 32, W4 and W8, asymmetric and symmetric, both options."""
+    from qtpu_torch.core.packing import dequantize_parts
+    from qtpu_torch.kernels.dequant_matmul import quantized_matmul as k1
+    from qtpu_torch.kernels.dequant_matmul import quantized_matmul_plain
+    from qtpu_torch.models.ops import rms_norm
+
+    D, g, B = cfg.hidden_size, 128, SERVE_B
+    qkv_n = cfg.q_dim + 2 * cfg.kv_dim
+    rows = {}
+    for name, (K, N), opt in (("norm_w_qkv", (D, qkv_n), "norm_w"), ("resid_o", (cfg.q_dim, D), "resid")):
+        wbytes = _site_bytes(K, N, 4, g)
+        copies = max(1, min(64, math.ceil(2 * L2_BYTES / wbytes)))
+        data, scales, zeros = _packed(torch, copies, K, N, 4, g, gen, dev)
+        meta = (4, g, K, N)
+        x = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
+        nw = (1.0 + 0.1 * torch.randn(copies, K, generator=gen, device=dev)).to(torch.bfloat16)
+        r = torch.randn(B, N, generator=gen, device=dev).to(torch.bfloat16)
+
+        def kw(i):
+            return {"norm_w": nw[i], "eps": cfg.norm_eps} if opt == "norm_w" else {"resid": r}
+
+        got = k1(x, data[0], scales[0], zeros[0], meta, **kw(0))
+        want = quantized_matmul_plain(x, data[0], scales[0], zeros[0], meta, **kw(0))
+        torch.cuda.synchronize()
+        err = rel_err(torch, got, want)
+        row = {"M": B, "K": K, "N": N, "bits": 4, "group": g, "option": opt, "rel_err": err,
+               "max_abs_err": float((got.float() - want.float()).abs().max()), "tol_rel": 2e-2}
+        if err >= 2e-2 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K1 with {opt} disagrees with its plain version: {row}")
+        nbytes = wbytes + B * K * 2 + B * N * 2 * (2 if opt == "resid" else 1) + (K * 2 if opt == "norm_w" else 0)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * B * K * N)
+        row["ms"], row["timing"] = cuda_ms(
+            torch, [lambda i=i: k1(x, data[i], scales[i], zeros[i], meta, **kw(i))
+                    for i in range(copies)], wbytes)
+        row["k1_alone_ms"], _ = cuda_ms(
+            torch, [lambda i=i: k1(x, data[i], scales[i], zeros[i], meta) for i in range(copies)],
+            wbytes)
+        if opt == "norm_w":
+            composed = [lambda i=i: k1(rms_norm(x, nw[i], cfg.norm_eps), data[i], scales[i],
+                                       zeros[i], meta) for i in range(copies)]
+        else:
+            composed = [lambda i=i: r + k1(x, data[i], scales[i], zeros[i], meta)
+                        for i in range(copies)]
+        row["composed_ms"], _ = cuda_ms(torch, composed, wbytes)
+        row["plain_ms"], _ = cuda_ms(
+            torch, [lambda i=i: quantized_matmul_plain(x, data[i], scales[i], zeros[i], meta,
+                                                       **kw(i)) for i in range(copies)], wbytes)
+        row["library_ms"] = None
+        if opt == "resid":
+            nlib = max(1, min(copies, math.ceil(2 * L2_BYTES / (K * N * 2))))
+            wd = [dequantize_parts(data[i], scales[i], zeros[i], 4, g) for i in range(nlib)]
+            row["library_ms"], _ = cuda_ms(torch, [lambda i=i: torch.addmm(r, x, wd[i])
+                                                   for i in range(nlib)], K * N * 2)
+            row["library_call"] = "torch.addmm on the weight dequantized to bf16"
+        rows[name] = row
+    # the other packings and row counts the options take (untimed)
+    K, N = D, qkv_n
+    for bits in (4, 8):
+        for sym in (False, True):
+            data, scales, zeros = _packed(torch, 1, K, N, bits, g, gen, dev, sym)
+            z = None if zeros is None else zeros[0]
+            for M in (1, 8, 32):
+                x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+                nw = (1.0 + 0.1 * torch.randn(K, generator=gen, device=dev)).to(torch.bfloat16)
+                r = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+                args = (x, data[0], scales[0], z, (bits, g, K, N))
+                got = k1(*args, norm_w=nw, resid=r, eps=cfg.norm_eps)
+                want = quantized_matmul_plain(*args, norm_w=nw, resid=r, eps=cfg.norm_eps)
+                torch.cuda.synchronize()
+                err = rel_err(torch, got - r, want - r)
+                key = f"both_w{bits}{'s' if sym else 'a'}_m{M}"
+                rows[key] = {"rel_err_minus_resid": err, "tol_rel": 2e-2,
+                             "max_abs_err": float((got.float() - want.float()).abs().max())}
+                if err >= 2e-2 or not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"K1 with both options disagrees: {key} {rows[key]}")
+    return rows
+
+
 def phase_e2e(torch, ctx):
     """2 layers at TinyLlama widths: the card (kernels) against the CPU
     (plain versions), same packed weights, prefill + 4 decode steps: RTN W4
@@ -1248,7 +1476,94 @@ def phase_e2e(torch, ctx):
             raise AssertionError(f"the POT bf16 run missed K7/K8: {counts}")
     _long_e2e(torch)
     _gpt2_opt_e2e(torch)
+    _boundary_e2e(torch)
     ctx["moe_route_flips"] = _moe_e2e(torch)
+
+
+class _env:
+    """Sets environment variables for a with-block and restores them after."""
+
+    def __init__(self, values: dict):
+        self.values, self.saved = values, {}
+
+    def __enter__(self):
+        import os
+
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# qtpu's decode branches of the llama forward, by the switch that turns each on
+BRANCHES = {"default": {}, "fuse": {"QTPU_FUSE_NORM_RESID": "1"}, "boundary": {"QTPU_BOUNDARY": "1"}}
+
+
+def _branch_step_launches(mode, kv, L):
+    """Kernel launches of one decode step of the llama forward on the stacked
+    cache under a branch: default and fuse K1 2L + 1 (qkv, o, lm_head), K2 +
+    K3 (int8) or K8 (bf16) and K4 L each, fuse with the options on its L qkv
+    and L o launches; boundary K1 2 (layer 0's qkv with norm_w, lm_head), K11
+    (int8) or K8 (bf16) and K13 L each."""
+    int8 = kv == "int8"
+    c = {k: 0 for k in WRAPPERS}
+    if mode == "boundary":
+        c.update({"dequant_matmul": 2, "dequant_matmul_norm_w": 1, "layer_boundary": L,
+                  "decode_attention_write" if int8 else "decode_attention_write_bf16": L})
+        return c
+    c.update({"dequant_matmul": 2 * L + 1, "fused_mlp": L})
+    if int8:
+        c.update({"cache_band_write": L, "decode_attention": L})
+    else:
+        c["decode_attention_write_bf16"] = L
+    if mode == "fuse":
+        c.update({"dequant_matmul_norm_w": L, "dequant_matmul_resid": L})
+    return c
+
+
+def _boundary_e2e(torch):
+    """2 layers at TinyLlama widths, RTN W4 g128 fused, under each branch
+    switch on the stacked int8 and bf16 caches: a prefill of 32 and 4 decode
+    steps on the card against the CPU (which takes the same branch through
+    the kernels' plain versions), launches checked."""
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.kvcache import init_cache
+
+    cfg = TINYLLAMA_1_1B.replace(num_layers=2)
+    B, T, steps, L = 4, 32, 4, 2
+    params, qmeta = fuse_packed_sites(*pack_model(llama.init_params(cfg, seed=7, device="cpu"),
+                                                  "rtn", {"w_bit": 4, "q_group_size": 128}))
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(6))
+    for mode in ("fuse", "boundary"):
+        for kv in ("int8", "bfloat16"):
+            quant = kv == "int8"
+            t0 = time.perf_counter()
+            with _env(BRANCHES[mode]):
+                errs, top1, counts = _card_vs_cpu(
+                    torch, params, cfg, qmeta, "llama", ids, steps,
+                    lambda dev: init_cache(cfg, B, T + steps + 8, quantized=quant, device=dev))
+            expect = {k: steps * v for k, v in _branch_step_launches(mode, kv, L).items()}
+            expect["dequant_matmul"] += 4 * L + 1  # the prefill composes
+            res = {"phase": "e2e", "branch": mode, "switch": BRANCHES[mode],
+                   "method": "rtn W4 g128", "kv": kv, "layers": L, "B": B, "prompt": T,
+                   "decode_steps": steps, "rel_err_per_step": errs, "top1_agree": top1,
+                   "launches": counts, "expected_launches": expect, "tol_rel": 3e-2,
+                   "seconds": time.perf_counter() - t0}
+            emit(res)
+            if max(errs) >= 3e-2:
+                raise AssertionError(f"card and CPU logits differ in the {mode} branch: {res}")
+            if counts != expect:
+                raise AssertionError(f"the {mode} branch's launches {counts} != {expect}")
 
 
 def _card_vs_cpu(torch, params, cfg, qmeta, arch, ids, steps, make_cache):
@@ -1356,8 +1671,8 @@ def _gpt2_opt_e2e(torch):
 
 
 def _dense_of_packed(torch, packed, qmeta):
-    """The packed sites of a model as dense bf16 "w" sites of the same
-    values (`dequantize_parts`, the plain versions' weight), on the CPU."""
+    """The packed sites of a model as dense f32 "w" sites of the same values
+    (`dequantize_parts`: (q - z) * s in f32, never rounded), on the CPU."""
     from qtpu_torch.core.packing import dequantize_parts
 
     meta = dict(qmeta)
@@ -1368,7 +1683,8 @@ def _dense_of_packed(torch, packed, qmeta):
         bits, group = meta[name][:2]
         lead = p["data"].shape[:-2]
         flat = [t.reshape(-1, *t.shape[-2:]) for t in (p["data"], p["scales"], p["zeros"])]
-        w = torch.stack([dequantize_parts(d, sc, z, bits, group) for d, sc, z in zip(*flat)])
+        w = torch.stack([dequantize_parts(d, sc, z, bits, group, torch.float32)
+                         for d, sc, z in zip(*flat)])
         out = {"w": w.reshape(*lead, *w.shape[-2:]).cpu()}
         if "b" in p:
             out["b"] = p["b"].cpu()
@@ -1381,6 +1697,83 @@ def _dense_of_packed(torch, packed, qmeta):
             "lm_head": site("lm_head", packed["lm_head"])}
 
 
+class _Held:
+    """While active, every call of K1 (in ops.linear), K9, K10 (in the MoE
+    MLP), K11 and K8 (in llama._write_and_attend) on the card also runs the
+    kernel's plain version on the same inputs (a cache write on clones of
+    the cache) and keeps the relative error of each call, by kernel."""
+
+    def __init__(self, torch):
+        from qtpu_torch.kernels import dequant_matmul as k1
+        from qtpu_torch.kernels import kv_attention as kv
+        from qtpu_torch.kernels import moe_matmul as k9
+        from qtpu_torch.models import llama, moe, ops
+
+        self.torch, self.errs = torch, {}
+        self.targets = [
+            (ops, "quantized_matmul", "K1", k1.quantized_matmul_plain, ()),
+            (moe, "moe_matmul", "K9", k9.moe_matmul_plain, ()),
+            (moe, "moe_gathered_matmul", "K10", k9.moe_gathered_matmul_plain, ()),
+            (llama, "decode_attention_write", "K11", kv.decode_attention_write_plain, (3, 4, 5, 6)),
+            (llama, "decode_attention_write_bf16", "K8", kv.decode_attention_write_bf16_plain, (3, 4)),
+        ]
+        self.saved = []
+
+    def _wrap(self, kernel, name, plain, cache_args):
+        def held(*args, **kw):
+            pargs = [a.clone() if i in cache_args else a for i, a in enumerate(args)]
+            want = plain(*pargs, **kw)
+            got = kernel(*args, **kw)
+            self.errs.setdefault(name, []).append(rel_err(self.torch, got, want))
+            return got
+
+        return held
+
+    def __enter__(self):
+        for mod, attr, name, plain, cache_args in self.targets:
+            kernel = getattr(mod, attr)
+            self.saved.append((mod, attr, kernel))
+            setattr(mod, attr, self._wrap(kernel, name, plain, cache_args))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, kernel in self.saved:
+            setattr(mod, attr, kernel)
+
+
+class _F32Arithmetic:
+    """While active, the llama and MoE forwards run their dense sites as the
+    kernels do their arithmetic: x @ W with W held in f32 ((q - z) * s, never
+    rounded to bf16) and the products summed in f32, cast once; the experts
+    as one f32 einsum. The router, lm_head and norms are unchanged."""
+
+    def __init__(self, torch):
+        from qtpu_torch.models import llama, moe
+
+        def lin32(x, p, site_meta=None, layer=None):
+            if layer is not None:
+                p = {k: v[layer] for k, v in p.items()}
+            y = (x.float() @ p["w"].float()).to(x.dtype)
+            return y + p["b"].to(y.dtype) if "b" in p else y
+
+        def exp32(x, p, meta, per_expert_input, l):
+            eq = "emk,ekn->emn" if per_expert_input else "mk,ekn->emn"
+            return torch.einsum(eq, x.float(), p["w"][l].float()).to(x.dtype)
+
+        self.patches = [(llama, "linear", lin32), (moe, "linear", lin32),
+                        (moe, "_expert_matmul", exp32)]
+        self.saved = []
+
+    def __enter__(self):
+        for mod, attr, fn in self.patches:
+            self.saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, fn)
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
 def _moe_e2e(torch):
     """2 layers at Mixtral-8x7B widths, RTN W4 g128, packed on the card:
     prefill + 4 decode steps on the card (K1, K9 or K10, K11 or K8) against
@@ -1388,7 +1781,14 @@ def _moe_e2e(torch):
     plain versions' x @ dequant(W), the experts as one einsum), teacher-forced
     on the CPU's greedy tokens. The int8 cache at batch 4 decodes on the
     grouped route (B * top_k = 8 = E), the bf16 cache at batch 2 on the
-    gathered one."""
+    gathered one.
+
+    Where the error comes from: in the card run every kernel call is also
+    held against its plain version on the card, on that call's inputs
+    (relative errors by kernel, `_Held`); and the CPU runs a second time with
+    the kernels' arithmetic (weights in f32, `_F32Arithmetic`), against which
+    the card's logits are compared too (cpu_f32_rel_err_per_step)."""
+    from qtpu_torch.convert import map_tree
     from qtpu_torch.models import moe
     from qtpu_torch.models.config import MIXTRAL_8X7B
     from qtpu_torch.quant.apply import pack_model
@@ -1400,7 +1800,9 @@ def _moe_e2e(torch):
     route, flips_by_kv = moe._route, {}
     packed, qmeta = pack_model(moe.init_params(cfg, seed=7, device="cuda"), "rtn",
                                {"w_bit": 4, "q_group_size": MOE_GROUP}, arch="moe")
-    dense = _dense_of_packed(torch, packed, qmeta)
+    dense32 = _dense_of_packed(torch, packed, qmeta)
+    # the plain versions' bf16 weights: the same values cast once, as dequantize_parts casts
+    dense = map_tree(dense32, lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
     torch.cuda.empty_cache()
     for kv, B in (("int8", 4), ("bfloat16", 2)):
         ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(3))
@@ -1425,8 +1827,14 @@ def _moe_e2e(torch):
         cpu_s = time.perf_counter() - t0
         moe._route = _route_tap(moe, route, routes_gpu)
         _reset_counts()
-        gpu, _ = run(packed, "cuda", toks)
+        with _Held(torch) as held:
+            gpu, _ = run(packed, "cuda", toks)
         counts = _counts()
+        t0 = time.perf_counter()
+        moe._route = _route_tap(moe, route, [])
+        with _F32Arithmetic(torch):
+            cpu32, _ = run(dense32, "cpu", toks)
+        cpu32_s = time.perf_counter() - t0
         # once more with the CPU's expert ids forced on the card (the card's
         # own router probabilities at those ids), to split routing from the rest
         moe._route = _route_tap(moe, route, [], forced=[t for _, t in routes_cpu])
@@ -1451,13 +1859,20 @@ def _moe_e2e(torch):
                "expected_launches": expect, "tol_rel": 3e-2,
                "route_flips_per_layer": flips,
                "routes_per_layer": sum(t.numel() for l, t in routes_cpu if l == 0),
-               "forced_routes_rel_err_per_step": forced_errs}
+               "forced_routes_rel_err_per_step": forced_errs,
+               "kernel_vs_plain_rel_err": {
+                   k: {"max": max(v), "mean": sum(v) / len(v), "calls": len(v), "each": v}
+                   for k, v in held.errs.items()},
+               "cpu_f32_rel_err_per_step": [rel_err(torch, a, b) for a, b in zip(gpu, cpu32)],
+               "cpu_f32_vs_cpu_rel_err_per_step": [rel_err(torch, a, b)
+                                                   for a, b in zip(cpu32, cpu)],
+               "cpu_f32_s": cpu32_s}
         emit(res)
         if max(errs) >= 3e-2:
             raise AssertionError(f"card and CPU MoE logits differ: {res}")
         if any(counts[k] != v for k, v in expect.items()):
             raise AssertionError(f"the MoE run's launches {counts} != {expect}")
-    del packed, dense
+    del packed, dense, dense32
     torch.cuda.empty_cache()
     return flips_by_kv
 
@@ -1850,6 +2265,133 @@ def phase_long_ctx(torch, ctx):
     torch.cuda.empty_cache()
 
 
+def _k13_checked_step(torch, params, qmeta, cfg, tok, pos, cache):
+    """One decode step under QTPU_BOUNDARY=1 in which every layer's K13 call
+    is held against layer_boundary_plain on that layer's inputs (the plain
+    version first; neither writes the cache). Returns (the step's logits,
+    per layer (relative error of y2 - x, relative error of qkv))."""
+    from qtpu_torch.kernels.layer_boundary import layer_boundary_plain
+    from qtpu_torch.models import llama
+    from qtpu_torch.serve.decode import decode_step
+
+    kernel, per_layer = llama.layer_boundary, []
+
+    def checked(attn, x, *rest, **kw):
+        want_y2, want_qkv = layer_boundary_plain(attn, x, *rest, **kw)
+        y2, qkv = kernel(attn, x, *rest, **kw)
+        per_layer.append((rel_err(torch, y2.float() - x.float(), want_y2.float() - x.float()),
+                          rel_err(torch, qkv, want_qkv)))
+        return y2, qkv
+
+    llama.layer_boundary = checked
+    try:
+        logits, _ = decode_step(params, tok, pos, cache, cfg, qmeta)
+    finally:
+        llama.layer_boundary = kernel
+    return logits, per_layer
+
+
+def phase_boundary(torch, ctx):
+    """qtpu's layer-boundary decode branches at full width: TinyLlama-1.1B
+    (22 layers), RTN W4 g128 fused, 8 slots answering the serve traffic (8
+    requests of prompt 128 and 32 new tokens, greedy) on the stacked int8 and
+    then bf16 cache, under each branch in one process: default, fuse
+    (QTPU_FUSE_NORM_RESID=1) and boundary (QTPU_BOUNDARY=1). For each:
+    tokens/s, TTFT, peak memory, the launches of the run against their
+    reckoning per prefill and per decode step (`_branch_step_launches`), a
+    profile of 4 decode steps (device and host time, K13's share), and one
+    decode step from the same prefill whose logits are compared with the
+    default branch's (relative error, top-1 agreement; printed), with the
+    engines' greedy tokens' agreement. Checks: the launches; K13 against its
+    plain version on every layer of that step, on the layer's own inputs
+    (2e-2 relative on y2 - x and on qkv); finite logits."""
+    import numpy as np
+
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.serve.batching import ContinuousBatcher
+    from qtpu_torch.serve.decode import decode_multi, decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    params, qmeta = _tinyllama_w4(torch, ctx)
+    B, P, new, L = SERVE_B, SERVE_PROMPT, SERVE_NEW, cfg.num_layers
+    paths = ctx.setdefault("path_launches", {})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    for kv in ("int8", "bfloat16"):
+        quant = kv == "int8"
+        ref_logits = ref_outputs = None
+        for mode, env in BRANCHES.items():
+            with _env(env):
+                eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                        kv_dtype=kv, seed=0, device="cuda")
+                rng = np.random.default_rng(0)
+                for _ in range(B):
+                    eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32),
+                               max_new_tokens=new)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                t0 = time.perf_counter()
+                done = eng.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _counts()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                m = eng.metrics()
+                steps, pre = m["decode_steps"], m["prefill_calls"]
+                per_step = _branch_step_launches(mode, kv, L)
+                expect = {k: steps * v for k, v in per_step.items()}
+                expect["dequant_matmul"] += (4 * L + 1) * pre  # the engine's prefills compose
+                outputs = [r.output for r in sorted(done, key=lambda r: r.uid)]
+                del eng
+                # one decode step from the same prefill, then a profile
+                cache = init_cache(cfg, B, P + new + 16, quantized=quant, device="cuda")
+                logits, cache = prefill(params, ids, cache, cfg, qmeta)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+                per_layer = None
+                if mode == "boundary":
+                    step, per_layer = _k13_checked_step(torch, params, qmeta, cfg, tok, pos, cache)
+                else:
+                    step = decode_step(params, tok, pos, cache, cfg, qmeta)[0]
+                decode_multi(params, tok, pos + 1, cache, None, None, cfg, 2, qmeta)  # warm
+                n = 4
+                prof = _profiled(torch, lambda: decode_multi(params, tok, pos + 1, cache, None, None,
+                                                             cfg, n, qmeta), n, classify=_kind)
+                del cache
+            if ref_logits is None:
+                ref_logits, ref_outputs = step.float(), outputs
+            same = [a == b for o, r in zip(outputs, ref_outputs) for a, b in zip(o, r)]
+            k13_ms = prof["device_ms_by_kind"].get("K13 layer_boundary", 0.0)
+            res = {"phase": "boundary", "model": "TinyLlama-1.1B", "layers": L,
+                   "method": "rtn W4 g128", "kv": kv, "branch": mode, "switch": env,
+                   "requests": len(done), "tokens": sum(len(o) for o in outputs), "wall_s": wall,
+                   "tokens_per_s": sum(len(o) for o in outputs) / wall,
+                   "mean_ttft_s": m.get("mean_ttft_s"), "peak_mem_gib": peak,
+                   "decode_steps": steps, "prefill_calls": pre, "launches": counts,
+                   "expected_launches": expect, "launches_per_decode_step": per_step,
+                   "step_rel_err_vs_default": rel_err(torch, step, ref_logits),
+                   "step_top1_agree_vs_default": float((step.argmax(-1) == ref_logits.argmax(-1))
+                                                       .float().mean()),
+                   "greedy_tokens_agree_vs_default": sum(same) / max(1, len(same)),
+                   "k13_rel_err_per_layer": per_layer, "tol_rel_k13": 2e-2,
+                   "profile_decode": prof, "k13_ms_per_step": k13_ms,
+                   "k13_share_of_device": k13_ms / prof["device_ms_per_step"],
+                   "finite": bool(torch.isfinite(step).all()), "card": ctx["smi"]}
+            emit(res)
+            paths[f"boundary_{kv}_{mode}"] = counts
+            if len(done) != B or any(len(o) != new for o in outputs):
+                raise AssertionError(f"{len(done)} of {B} requests finished: {res}")
+            if counts != expect or steps == 0:
+                raise AssertionError(f"kernel launches {counts} != expected {expect}")
+            if not res["finite"]:
+                raise AssertionError(f"non-finite logits in the {mode} branch: {res}")
+            if mode == "boundary" and (len(per_layer) != L
+                                       or max(max(e) for e in per_layer) >= 2e-2):
+                raise AssertionError(f"K13 disagrees with its plain version inside the step: {res}")
+        torch.cuda.empty_cache()
+
+
 GPT2_MCFG = {"w_bit": 4, "q_group_size": 128}
 
 
@@ -2095,30 +2637,40 @@ WRAPPERS = {  # kernel -> (module, wrapper name)
     "decode_attention_write_banded": ("kv_attention", "decode_attention_write_banded"),
     "decode_attention_write_banded_stacked": ("kv_attention",
                                               "decode_attention_write_banded_stacked"),
+    "layer_boundary": ("layer_boundary", "layer_boundary"),
+    # K1's launches with qtpu's norm_w / resid options (also in dequant_matmul's)
+    "dequant_matmul_norm_w": ("dequant_matmul", "quantized_matmul", "norm_launches"),
+    "dequant_matmul_resid": ("dequant_matmul", "quantized_matmul", "resid_launches"),
 }
+# the kernels of the layer-boundary branches (K13, K1's options), which only
+# the boundary phase's switches turn on
+NO_BOUNDARY = {"layer_boundary": 0, "dequant_matmul_norm_w": 0, "dequant_matmul_resid": 0}
 # the entries of the long-context and GPT-2/OPT paths (K12, the one-layer
 # decode attention), which the earlier paths never launch
 NO_LONG = {"decode_attention_layer": 0, "decode_attention_flash": 0,
-           "decode_attention_write_banded": 0, "decode_attention_write_banded_stacked": 0}
+           "decode_attention_write_banded": 0, "decode_attention_write_banded_stacked": 0,
+           **NO_BOUNDARY}
 NO_MOE = {"moe_matmul": 0, "moe_gathered_matmul": 0, "decode_attention_write": 0, **NO_LONG}
 # paths without K7/K8 (nor the MoE kernels K9-K11)
 NO_CODEBOOK = {"codebook_matmul": 0, "decode_attention_write_bf16": 0, **NO_MOE}
 
 
 def _wrappers():
+    """{kernel: (wrapper, name of its counter)}."""
     import importlib
 
-    return {k: getattr(importlib.import_module(f"qtpu_torch.kernels.{m}"), f)
-            for k, (m, f) in WRAPPERS.items()}
+    return {k: (getattr(importlib.import_module(f"qtpu_torch.kernels.{m}"), f),
+                attr[0] if attr else "launches")
+            for k, (m, f, *attr) in WRAPPERS.items()}
 
 
 def _reset_counts():
-    for w in _wrappers().values():
-        w.launches = 0
+    for w, attr in _wrappers().values():
+        setattr(w, attr, 0)
 
 
 def _counts():
-    return {k: w.launches for k, w in _wrappers().items()}
+    return {k: getattr(w, attr) for k, (w, attr) in _wrappers().items()}
 
 
 def _kind(name: str) -> str:
@@ -2128,7 +2680,8 @@ def _kind(name: str) -> str:
         return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
     if "moe_gemv_kernel" in name and ", 1>" in name:
         return "K10 moe_gathered_matmul"  # one slot per row tile
-    for tag, kind in (("flash_split", "K12 decode_attention_flash"),
+    for tag, kind in (("boundary_kernel", "K13 layer_boundary"),
+                      ("flash_split", "K12 decode_attention_flash"),
                       ("flash_combine", "K12 decode_attention_flash"),
                       ("w8a8", "K6 w8a8_matmul"), ("flash_attn_kernel", "K5 flash_attention"),
                       ("band_write", "K2 cache_band_write"), ("moe_", "K9 moe_matmul"),

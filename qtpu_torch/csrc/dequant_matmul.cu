@@ -19,6 +19,13 @@
 //    its output tile. It needs g / PK packed rows per group to be a
 //    multiple of 16 (W4: g a multiple of 32); other groups take the GEMV
 //    path tiled over M.
+// The options of the TPU kernel (pallas_dequant_matmul.py:385-470): norm_w,
+// x normalized in the launch's prologue (rms in f32 over all of K, each
+// block for its own rows, then rounded to bf16 as the TPU kernel rounds it),
+// and resid, added to the f32 sums in the epilogue and cast once. They run
+// in the GEMV kernel tiled by 8 rows (decode shapes, M <= 32, split K as
+// above), each its own template instance of the core (MODE 4, 2 and 6), so
+// the plain builds compile as before.
 // Ragged M and N edges are masked in the kernels, so no caller pads; at
 // N % 4 != 0 (GPT-2's lm_head, N 50257) the packed rows are unaligned and
 // a separate build of both kernels (VEC = false) reads each thread's 4
@@ -42,19 +49,16 @@ template <int BITS>
 int dq_dispatch(const DqArgs& a, cudaStream_t st) {
   return a.N % 4 == 0 ? dq_dispatch<BITS, true>(a, st) : dq_dispatch<BITS, false>(a, st);
 }
-}  // namespace
 
-// y[M, N] = x[M, K] @ dequant(data, scales, zeros); x must be 16-byte
-// aligned. split_groups: groups of K per block slice, K / group for no split;
-// with more than one slice (M <= 8 only), `part` is an f32 scratch of
-// slices * M * N. Returns a cudaError_t (0 on success), or -1 for arguments
-// the kernel does not take.
-extern "C" int qtpu_dq_matmul(const void* x, const void* data, const void* scales,
-                              const void* zeros, void* out, void* part, int split_groups,
-                              int M, int K, int N, int bits, int group, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || group <= 0 || group % 4 != 0 ||
-      K % group != 0)
-    return -1;
+template <int BITS>
+int dq_option_dispatch(const DqArgs& a, cudaStream_t st) {
+  if (a.nw == nullptr) return launch_dq<BITS, 8, 8, 2>(a, st);
+  if (a.resid == nullptr) return launch_dq<BITS, 8, 8, 4>(a, st);
+  return launch_dq<BITS, 8, 8, 6>(a, st);
+}
+
+DqArgs make_args(const void* x, const void* data, const void* scales, const void* zeros,
+                 void* out, void* part, int split_groups, int M, int K, int N, int group) {
   DqArgs a{};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.data = static_cast<const int8_t*>(data);
@@ -68,11 +72,50 @@ extern "C" int qtpu_dq_matmul(const void* x, const void* data, const void* scale
   a.ldw = N;
   a.group = group;
   a.split_groups = split_groups;
+  return a;
+}
+}  // namespace
+
+// y[M, N] = x[M, K] @ dequant(data, scales, zeros); x must be 16-byte
+// aligned. split_groups: groups of K per block slice, K / group for no split;
+// with more than one slice (M <= 8 only), `part` is an f32 scratch of
+// slices * M * N. Returns a cudaError_t (0 on success), or -1 for arguments
+// the kernel does not take.
+extern "C" int qtpu_dq_matmul(const void* x, const void* data, const void* scales,
+                              const void* zeros, void* out, void* part, int split_groups,
+                              int M, int K, int N, int bits, int group, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || group <= 0 || group % 4 != 0 ||
+      K % group != 0)
+    return -1;
+  const DqArgs a = make_args(x, data, scales, zeros, out, part, split_groups, M, K, N, group);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bits) {
     case 2: return dq_dispatch<2>(a, st);
     case 4: return dq_dispatch<4>(a, st);
     case 8: return dq_dispatch<8>(a, st);
+    default: return -1;
+  }
+}
+
+// qtpu_dq_matmul with the options: y = [resid +] (norm_w ? bf16(rms_norm(x)
+// * norm_w) : x) @ dequant(...), nw [K] and resid [M, N] bf16 (either may be
+// null, not both); M <= 32, N % 4 == 0, nw 8-byte aligned.
+extern "C" int qtpu_dq_matmul_opt(const void* x, const void* data, const void* scales,
+                                  const void* zeros, const void* nw, const void* resid,
+                                  void* out, void* part, int split_groups, int M, int K, int N,
+                                  int bits, int group, float eps, void* stream) {
+  if (M <= 0 || M > 32 || K <= 0 || N <= 0 || N % 4 != 0 || group <= 0 || group % 4 != 0 ||
+      K % group != 0 || (nw == nullptr && resid == nullptr))
+    return -1;
+  DqArgs a = make_args(x, data, scales, zeros, out, part, split_groups, M, K, N, group);
+  a.nw = static_cast<const __nv_bfloat16*>(nw);
+  a.resid = static_cast<const __nv_bfloat16*>(resid);
+  a.eps = eps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: return dq_option_dispatch<2>(a, st);
+    case 4: return dq_option_dispatch<4>(a, st);
+    case 8: return dq_option_dispatch<8>(a, st);
     default: return -1;
   }
 }

@@ -1,5 +1,6 @@
 // Dequant-matmul core shared by K1 (dequant_matmul.cu), K4 (fused_mlp.cu),
-// K7 (codebook_matmul.cu) and K9/K10 (moe_matmul.cu).
+// K7 (codebook_matmul.cu), K9/K10 (moe_matmul.cu) and K13
+// (layer_boundary.cu).
 //
 // y[m, n] = sum_k x[m, k] * (q[k, n] - z[g(k), n]) * s[g(k), n]
 // and, in the codebook mode (MODE 3, W4 only),
@@ -87,13 +88,25 @@ __device__ __forceinline__ void ld_cols4_bf16(const __nv_bfloat16* p, int n, int
   for (int t = 0; t < 4; ++t) out[t] = n + t < N ? __bfloat162float(p[t]) : 0.f;
 }
 
+// What a MODE (below) adds around the dot: an rms-norm prologue on x, the
+// SwiGLU pairing of gate and up columns (two column sets), a residual in the
+// epilogue. Each MODE is its own template instance, so an instance compiles
+// only its own parts.
+template <int MODE>
+struct Mode {
+  static constexpr bool kNorm = MODE == 1 || MODE == 4 || MODE == 6;
+  static constexpr bool kPair = MODE == 1;
+  static constexpr bool kResid = MODE == 2 || MODE == 6;
+  static constexpr int kSets = kPair ? 2 : 1;
+};
+
 struct DqArgs {
   const __nv_bfloat16* x;       // [M, K] activations
   const int8_t* data;           // [K / PK, ldw] packed weight
   const __nv_bfloat16* scales;  // [K / group, ldw]
   const uint8_t* zeros;         // [K / group, ldw] or nullptr (symmetric)
-  const __nv_bfloat16* nw;      // MODE 1: rms-norm weight [K]
-  const __nv_bfloat16* resid;   // MODE 2: residual [M, N]
+  const __nv_bfloat16* nw;      // MODE 1, 4, 6: rms-norm weight [K]
+  const __nv_bfloat16* resid;   // MODE 2, 6: residual [M, N]
   const float* cb;              // MODE 3: level table [16] f32 (codebook)
   __nv_bfloat16* out;           // [M, N]
   float* part;                  // split K: f32 partial sums [splits][NSET][M][N], else nullptr
@@ -107,31 +120,38 @@ struct DqArgs {
 // The output of one element from its f32 sums v[NSET] (see MODE below).
 template <int MODE>
 __device__ __forceinline__ __nv_bfloat16 epilogue(const float* v, const DqArgs& a, size_t o) {
-  if (MODE == 1) {
+  if (Mode<MODE>::kPair) {
     const float gt = v[0];
     const float silu = gt * (1.0f / (1.0f + expf(-gt)));
     return __float2bfloat16(round_bf16(silu) * round_bf16(v[1]));
   }
-  if (MODE == 2) return __float2bfloat16(v[0] + bf2f(a.resid[o]));
+  if (Mode<MODE>::kResid) return __float2bfloat16(v[0] + bf2f(a.resid[o]));
   return __float2bfloat16(v[0]);
 }
 
 // MODE 0: out = x @ W.
 // MODE 1: out = bf16(silu(h @ Wg)) * bf16(h @ Wu), h = bf16(rms_norm(x) * nw),
 //         with gate columns [0, N) and up columns [N, 2N) of one weight.
-// MODE 2: out = bf16(x @ W + resid).
+// MODE 2: out = bf16(x @ W + resid), the residual added in f32.
 // MODE 3: out = x @ W with W = cb[q] * s (POT/APOT codebook, zeros unused);
 //         the 16 levels sit in shared memory, each a distinct bank.
+// MODE 4: out = h @ W, h = bf16(rms_norm(x) * nw) (K1's norm_w option).
+// MODE 6: out = bf16(h @ W + resid), h as in MODE 4 (both K1 options).
+// dq_tile computes the output tile (tn, tm): columns tn * BN .., rows
+// tm * TM ..; dq_body is the tile of the block (blockIdx.x, blockIdx.y).
 // With a.part set, K slice `zs` (blockIdx.z for dq_kernel) sums only its
 // a.split_groups groups of K and writes raw f32 sums; dq_finish adds the
 // splits and applies the epilogue. The body is a device function so that the
-// expert kernels of moe_matmul.cu run it on one expert's pointers.
-template <int BITS, int TM, int CQ, int MODE, bool VEC = true>
-__device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
+// expert kernels of moe_matmul.cu run it on one expert's pointers, and K13's
+// cooperative kernel on the tiles of each of its phases. XC: x is read
+// through L2 (__ldcg) instead of the read-only cache, for an x that other
+// blocks of the same launch wrote (K13).
+template <int BITS, int TM, int CQ, int MODE, bool VEC = true, bool XC = false>
+__device__ __forceinline__ void dq_tile(const DqArgs& a, int tn, int tm, int zs) {
   constexpr int PK = 8 / BITS;
   constexpr int LANES = kThreads / CQ;
   constexpr int BN = 4 * CQ;
-  constexpr int NSET = MODE == 1 ? 2 : 1;
+  constexpr int NSET = Mode<MODE>::kSets;
   constexpr int Z_SYM = 1 << (BITS - 1);
   extern __shared__ float smem[];
   __shared__ float inv_rms[TM];
@@ -140,8 +160,8 @@ __device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
   const int tid = threadIdx.x;
   const int cq = tid % CQ;
   const int lane = tid / CQ;
-  const int m0 = blockIdx.y * TM;
-  const int col0 = blockIdx.x * BN;
+  const int m0 = tm * TM;
+  const int col0 = tn * BN;
   const int n0 = col0 + 4 * cq;  // first of this thread's 4 columns
   const bool col_ok = n0 < a.N;
   const int g = a.group;
@@ -150,7 +170,7 @@ __device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
   float* xs = smem;  // [TM][KC]
 
   if (MODE == 3 && tid < 16) lut[tid] = a.cb[tid];  // read after the chunk loop's barrier
-  if (MODE == 1) {
+  if (Mode<MODE>::kNorm) {
     const int warp = tid / 32, wl = tid % 32;
     for (int m = warp; m < TM; m += kWarps) {
       float ss = 0.f;
@@ -189,11 +209,13 @@ __device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
       for (int kk = 4 * tid; kk < klen; kk += 4 * kThreads) {
         float v[4] = {0.f, 0.f, 0.f, 0.f};
         if (row_ok) {
-          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(xr + kk));
+          uint2 raw;
+          if constexpr (XC) raw = __ldcg(reinterpret_cast<const uint2*>(xr + kk));
+          else raw = __ldg(reinterpret_cast<const uint2*>(xr + kk));
           const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
           for (int t = 0; t < 4; ++t) v[t] = bf2f(xb[t]);
-          if (MODE == 1) {
+          if (Mode<MODE>::kNorm) {
             const uint2 wraw = __ldg(reinterpret_cast<const uint2*>(a.nw + kc0 + kk));
             const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(&wraw);
 #pragma unroll
@@ -326,6 +348,11 @@ __device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
   }
 }
 
+template <int BITS, int TM, int CQ, int MODE, bool VEC = true>
+__device__ __forceinline__ void dq_body(const DqArgs& a, int zs) {
+  dq_tile<BITS, TM, CQ, MODE, VEC>(a, blockIdx.x, blockIdx.y, zs);
+}
+
 template <int BITS, int TM, int CQ, int MODE, bool VEC>
 __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
   dq_body<BITS, TM, CQ, MODE, VEC>(a, blockIdx.z);
@@ -334,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(DqArgs a) {
 // Sums the split-K partials of dq_kernel and applies the epilogue.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads) dq_finish(DqArgs a, int splits) {
-  constexpr int NSET = MODE == 1 ? 2 : 1;
+  constexpr int NSET = Mode<MODE>::kSets;
   const size_t mn = (size_t)a.M * a.N;
   for (size_t o = blockIdx.x * (size_t)kThreads + threadIdx.x; o < mn;
        o += (size_t)gridDim.x * kThreads) {
@@ -351,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) dq_finish(DqArgs a, int splits) {
 
 template <int BITS, int TM, int CQ, int MODE>
 inline size_t dq_smem_bytes(int group) {
-  constexpr int NSET = MODE == 1 ? 2 : 1;
+  constexpr int NSET = Mode<MODE>::kSets;
   const size_t xs = (size_t)TM * chunk_k(group, kChunkCap) * sizeof(float);
   const size_t red = (size_t)kWarps * NSET * TM * 4 * CQ * sizeof(float);
   return xs > red ? xs : red;
@@ -362,9 +389,11 @@ inline size_t dq_smem_bytes(int group) {
 // holds slices * NSET * M * N floats when there is more than one), then
 // dq_finish if split. VEC = false is the build for N % 4 != 0 (ragged rows).
 // Returns the cudaError_t of the launches, or -1 for arguments it does not
-// take.
+// take. static: each library keeps its own record of the shared memory it
+// allowed its own kernel (an inline function's static would be one object
+// across the libraries loaded in a process).
 template <int BITS, int TM, int CQ, int MODE, bool VEC = true>
-inline int launch_dq(DqArgs a, cudaStream_t stream) {
+static inline int launch_dq(DqArgs a, cudaStream_t stream) {
   constexpr int BN = 4 * CQ;
   static size_t smem_set = 48 * 1024;  // dynamic shared memory allowed so far
   const size_t smem = dq_smem_bytes<BITS, TM, CQ, MODE>(a.group);

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qtpu_torch"
 SOURCES = ("dequant_matmul", "kv_attention", "fused_mlp", "flash_attention", "w8a8_matmul",
-           "codebook_matmul", "moe_matmul", "kv_flash_decode")
+           "codebook_matmul", "moe_matmul", "kv_flash_decode", "layer_boundary")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -11,6 +11,15 @@ The kernel applies scale and zero in f32 instead of rounding the weight to
 bf16 first, a known source of small differences (PERF.md gives them). Any N
 is taken: at N % 4 != 0 (GPT-2's 50257-wide lm_head), which qtpu's
 dispatcher sends to XLA, the kernel masks the ragged column tail itself.
+
+The options of pallas_quantized_matmul_stacked (qtpu's
+`quantized_matmul_stacked(..., norm_w, resid, eps)`,
+qtpu/kernels/dequant_matmul.py:69): `norm_w` [K], the layer's rms-norm row,
+normalizes x inside the launch; `resid` [..., N] is added to the f32 sums
+before the one cast. They take decode shapes (at most 32 rows, N % 4 == 0);
+their plain version is qtpu's XLA composition (norm in f32, cast, matmul,
+then `resid + y`). `quantized_matmul.norm_launches` and `.resid_launches`
+count the launches with each option (all are in `.launches`).
 """
 
 from __future__ import annotations
@@ -21,9 +30,12 @@ import torch
 
 from qtpu_torch.core.packing import dequantize_parts
 from qtpu_torch.kernels import _build
-from qtpu_torch.kernels._build import I, P, require
+from qtpu_torch.kernels._build import F, I, P, require
 
-_SIG = {"qtpu_dq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, P]}
+_SIG = {"qtpu_dq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "qtpu_dq_matmul_opt": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]}
+
+OPTION_MAX_M = 32  # rows the options take (decode shapes: the GEMV kernel tiled by 8 rows)
 
 
 @lru_cache(maxsize=None)
@@ -49,10 +61,14 @@ def split_k(device, M: int, K: int, N: int, group: int, nset: int = 1, tiles=Non
     return per, part
 
 
-def quantized_matmul_plain(x, data, scales, zeros, meta):
+def quantized_matmul_plain(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=1e-5):
     bits, group, K, N = meta
-    w = dequantize_parts(data, scales, zeros, bits, group, x.dtype)
-    return x @ w
+    if norm_w is not None:  # qtpu/kernels/dequant_matmul.py:94-97
+        xf = x.float()
+        xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+        x = (xf * norm_w.float()).to(x.dtype)
+    y = x @ dequantize_parts(data, scales, zeros, bits, group, x.dtype)
+    return y if resid is None else resid + y
 
 
 def check_packed(data, scales, zeros, meta, device, ragged_n: bool = False):
@@ -80,32 +96,66 @@ def check_packed(data, scales, zeros, meta, device, ragged_n: bool = False):
         require(not aligned or t.data_ptr() % 8 == 0, "packed weights must be 8-byte aligned")
 
 
-def quantized_matmul(x, data, scales, zeros, meta):
-    """y = x @ dequant(data, scales, zeros); x [..., K] -> [..., N]."""
+def options_supported(meta, M: int) -> bool:
+    """Whether the kernel takes norm_w / resid at this meta and row count."""
+    return len(meta) == 4 and meta[3] % 4 == 0 and 0 < M <= OPTION_MAX_M
+
+
+def quantized_matmul(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=1e-5):
+    """y = [resid +] [rms_norm(x) * norm_w ->] x @ dequant(data, scales,
+    zeros); x [..., K] -> [..., N]; norm_w [K], resid [..., N]."""
     bits, group, K, N = meta
     if x.device.type == "cpu":
-        return quantized_matmul_plain(x, data, scales, zeros, meta)
+        return quantized_matmul_plain(x, data, scales, zeros, meta, norm_w, resid, eps)
     require(x.is_cuda, f"unsupported device {x.device}")
     require(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
     require(x.shape[-1] == K and x.is_contiguous(), "x must be contiguous [..., K]")
-    check_packed(data, scales, zeros, meta, x.device, ragged_n=True)
+    check_packed(data, scales, zeros, meta, x.device, ragged_n=norm_w is None and resid is None)
     M = x.numel() // K
     out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
     require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
-    # M <= 8 runs the GEMV kernel, split over K; larger M the tensor-core one
-    per, part = split_k(x.device, M, K, N, group) if M <= 8 else (K // group, None)
     lib = _build.load("dequant_matmul", _SIG)
-    rc = lib.qtpu_dq_matmul(
-        x.data_ptr(), data.data_ptr(), scales.data_ptr(),
-        None if zeros is None else zeros.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), per,
-        M, K, N, bits, group, _build.stream_of(x),
-    )
+    if norm_w is None and resid is None:
+        # M <= 8 runs the GEMV kernel, split over K; larger M the tensor-core one
+        per, part = split_k(x.device, M, K, N, group) if M <= 8 else (K // group, None)
+        rc = lib.qtpu_dq_matmul(
+            x.data_ptr(), data.data_ptr(), scales.data_ptr(),
+            None if zeros is None else zeros.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), per,
+            M, K, N, bits, group, _build.stream_of(x),
+        )
+    else:
+        require(options_supported(meta, M),
+                f"norm_w/resid take at most {OPTION_MAX_M} rows and N % 4 == 0: M={M}, N={N}")
+        if norm_w is not None:
+            require(norm_w.dtype == torch.bfloat16 and tuple(norm_w.shape) == (K,)
+                    and norm_w.is_contiguous() and norm_w.device == x.device
+                    and norm_w.data_ptr() % 8 == 0,
+                    "norm_w must be contiguous 8-byte aligned bf16 [K]")
+        if resid is not None:
+            require(resid.dtype == torch.bfloat16 and resid.shape == out.shape
+                    and resid.is_contiguous() and resid.device == x.device,
+                    f"resid must be contiguous bf16 {tuple(out.shape)}")
+        per, part = split_k(x.device, M, K, N, group)
+        rc = lib.qtpu_dq_matmul_opt(
+            x.data_ptr(), data.data_ptr(), scales.data_ptr(),
+            None if zeros is None else zeros.data_ptr(),
+            None if norm_w is None else norm_w.data_ptr(),
+            None if resid is None else resid.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), per,
+            M, K, N, bits, group, float(eps), _build.stream_of(x),
+        )
     _build.check(rc, "dequant_matmul")
     quantized_matmul.launches += 1
+    if norm_w is not None:
+        quantized_matmul.norm_launches += 1
+    if resid is not None:
+        quantized_matmul.resid_launches += 1
     return out
 
 
 quantized_matmul.launches = 0
+quantized_matmul.norm_launches = 0
+quantized_matmul.resid_launches = 0

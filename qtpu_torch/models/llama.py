@@ -25,14 +25,38 @@ layer's [1, ...] view otherwise, as qtpu dispatches. POT/APOT codebook
 sites run K7 in place of K1 (and of K4, which takes affine sites only).
 Prefill runs the packed sites' kernels with plain attention and cache write
 (in qtpu those are XLA code too).
+
+Two decode branches of qtpu, off by default, are read from the environment
+on every call under qtpu's names (set to "1"); they apply to a decode step
+(T = 1, no slots) on the stacked cache with at most 32 rows and plain-packed
+fused sites (qkv_proj, o_proj, gateup_proj, down_proj with 4-field metas),
+and otherwise the step composes as above:
+  QTPU_BOUNDARY        qtpu's `_try_boundary_scan` (llama.py:597-680): layer
+                       0's qkv is K1 with its norm_w option; then per layer
+                       RoPE, `_write_and_attend` (K11 on the int8 cache, K8
+                       on bf16) and K13 (o-proj, residual, MLP, residual and
+                       the next layer's norm and qkv in one launch; the last
+                       layer's qkv is computed and not used). Tried first.
+  QTPU_FUSE_NORM_RESID qtpu's `_fused_norm_qkv` / `_o_proj_resid`
+                       (llama.py:526-595): K1 with norm_w for qkv and with
+                       resid for o_proj, around K2/K3 (int8) or K8 (bf16) and
+                       K4. qtpu also takes it at prefill; here its options
+                       are decode-only (M <= 32), so prefill composes.
+qtpu runs both only on a TPU; here they also run on the CPU, through the
+kernels' plain versions, so that they can be tested there.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as Fn
 
 from qtpu_torch.kernels import fused_mlp as _k4
+from qtpu_torch.kernels import layer_boundary as _k13
+from qtpu_torch.kernels.dequant_matmul import options_supported, quantized_matmul
+from qtpu_torch.kernels.layer_boundary import layer_boundary
 from qtpu_torch.kernels.kv_attention import (
     FLASH_SBLK,
     cache_band_write,
@@ -102,20 +126,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.bflo
     return params
 
 
-def _qkv(h, layers, cfg: ModelConfig, qm, l):
-    B, T = h.shape[:2]
-    Q, KV = cfg.q_dim, cfg.kv_dim
-    if "qkv_proj" in layers:
-        qkv = linear(h, layers["qkv_proj"], qm("qkv_proj"), layer=l)
-        q, k, v = torch.split(qkv, [Q, KV, KV], dim=-1)
-    else:
-        q = linear(h, layers["q_proj"], qm("q_proj"), layer=l)
-        k = linear(h, layers["k_proj"], qm("k_proj"), layer=l)
-        v = linear(h, layers["v_proj"], qm("v_proj"), layer=l)
+def _heads(q, k, v, cfg: ModelConfig):
+    B, T = q.shape[:2]
     return (
         q.reshape(B, T, cfg.num_heads, cfg.head_dim),
         k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
         v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
+    )
+
+
+def _split_qkv(qkv, cfg: ModelConfig):
+    return _heads(*torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1), cfg)
+
+
+def _qkv(h, layers, cfg: ModelConfig, qm, l):
+    if "qkv_proj" in layers:
+        return _split_qkv(linear(h, layers["qkv_proj"], qm("qkv_proj"), layer=l), cfg)
+    return _heads(
+        linear(h, layers["q_proj"], qm("q_proj"), layer=l),
+        linear(h, layers["k_proj"], qm("k_proj"), layer=l),
+        linear(h, layers["v_proj"], qm("v_proj"), layer=l),
+        cfg,
     )
 
 
@@ -248,6 +279,95 @@ def _write_and_attend(q, k, v, cache: KVCache, l: int, start, mask, window: int,
     return cached_attention(q, cache.layer(l, slots), mask)
 
 
+BOUNDARY_SITES = ("o_proj", "gateup_proj", "down_proj", "qkv_proj")
+
+
+def _plain_packed(site) -> bool:
+    """qtpu's `_plain_packed` (llama.py:518): a packed site with nothing
+    else (no bias, codebook, actorder perm or smoothing)."""
+    return isinstance(site, dict) and set(site) == {"data", "scales", "zeros"}
+
+
+def _fusable(layers, qm, site: str, M: int) -> bool:
+    """A plain-packed site with a 4-field meta whose K1 launch takes the
+    norm_w / resid options at M rows."""
+    meta = qm(site)
+    return (_plain_packed(layers.get(site)) and meta is not None
+            and options_supported(meta, M))
+
+
+def _at(site: dict, l: int) -> dict:
+    """Layer l's views of a stacked site (an absent zeros stays None)."""
+    return {k: None if v is None else v[l] for k, v in site.items()}
+
+
+def _boundary_applies(layers, qm, cache: KVCache, B: int) -> bool:
+    """QTPU_BOUNDARY=1 on a decode step of the stacked cache whose four
+    sites K13 takes (pallas_layer_boundary_stacked's conditions)."""
+    if os.environ.get("QTPU_BOUNDARY") != "1" or cache.per_layer or B > _k13.MAX_M:
+        return False
+    sites = [layers.get(s) for s in BOUNDARY_SITES]
+    metas = [qm(s) for s in BOUNDARY_SITES]
+    return _k13.supported(metas, sites)
+
+
+def _boundary_layers(x, layers, qm, cache: KVCache, cfg: ModelConfig, cos, sin, start, win):
+    """qtpu's `_try_boundary_scan` body: layer 0's qkv with the attention
+    norm in K1's launch, then per layer RoPE, write + attend, and K13, which
+    returns the residual stream and the next layer's qkv."""
+    L = cache.num_layers
+    eps = cfg.norm_eps
+    sites = [layers[s] for s in BOUNDARY_SITES]
+    metas = tuple(qm(s) for s in BOUNDARY_SITES)
+    o, gu, dn, qp = sites
+    q0 = _at(qp, 0)
+    qkv = quantized_matmul(x, q0["data"], q0["scales"], q0["zeros"], metas[3],
+                           norm_w=layers["attn_norm"][0], eps=eps)
+    for l in range(L):
+        ln = min(l + 1, L - 1)  # the last layer's next qkv is thrown away, as in qtpu
+        q, k, v = _split_qkv(qkv, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin).contiguous()
+        attn = _write_and_attend(q, k, v.contiguous(), cache, l, start, None, win)
+        x, qkv = layer_boundary(attn, x, layers["mlp_norm"][l], layers["attn_norm"][ln],
+                                _at(o, l), _at(gu, l), _at(dn, l), _at(qp, ln), metas, eps)
+    return x
+
+
+def _cached_layer(x, layers, qm, l, cache: KVCache, cfg: ModelConfig, cos, sin, start, mask,
+                  win, slots, decode: bool, fuse):
+    """Layer l of forward_with_cache, composed: norm and qkv (K1 with norm_w
+    when fuse[0]), RoPE, cache write and attention, o_proj and the residual
+    (K1 with resid when fuse[1]), the MLP block."""
+    B, H, hd = x.shape[0], cfg.num_heads, cfg.head_dim
+    if fuse[0]:
+        p = _at(layers["qkv_proj"], l)
+        q, k, v = _split_qkv(quantized_matmul(
+            x, p["data"], p["scales"], p["zeros"], qm("qkv_proj"),
+            norm_w=layers["attn_norm"][l], eps=cfg.norm_eps), cfg)
+    else:
+        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+        q, k, v = _qkv(h, layers, cfg, qm, l)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin).contiguous()
+    v = v.contiguous()
+    if decode and cache.quantized and not cache.per_layer:
+        # qtpu's cache-carry decode of the stacked cache: K2 then K3
+        cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
+        attn = decode_attention(
+            q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
+            start, l, window=win,
+        ).reshape(B, 1, H * hd)
+    else:
+        attn = _write_and_attend(q, k, v, cache, l, start, mask, win, slots)
+    if fuse[1]:
+        p = _at(layers["o_proj"], l)
+        x = quantized_matmul(attn, p["data"], p["scales"], p["zeros"], qm("o_proj"), resid=x)
+    else:
+        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
+    return _mlp_block(x, layers, l, cfg, qm, decode)
+
+
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,
                        qmeta=None, slots=None):
     """Incremental forward for serving: prefill (T = prompt length) and
@@ -256,37 +376,29 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
     per-sequence causal mask. `slots` [B] (int64) names the cache row of
     each batch row, for a batch that covers only some of the cache's
     sequences (the batcher's admissions); such a call takes the prefill
-    path at any T. Returns (logits [B, T, V] f32, cache)."""
+    path at any T. QTPU_BOUNDARY / QTPU_FUSE_NORM_RESID pick qtpu's decode
+    branches (module docstring). Returns (logits [B, T, V] f32, cache)."""
     qmeta_d = dict(qmeta) if qmeta is not None else {}
     qm = qmeta_d.get
     B, T = input_ids.shape
     S = cache.max_len
-    L = cache.num_layers
-    H, hd = cfg.num_heads, cfg.head_dim
     decode = T == 1 and slots is None
     x = params["embed"][input_ids]
-    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
     start = positions[:, 0].to(torch.int32).contiguous()
     mask = None if decode else cache_mask(positions, S, win)
     layers = params["layers"]
-    for l in range(L):
-        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
-        q, k, v = _qkv(h, layers, cfg, qm, l)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin).contiguous()
-        v = v.contiguous()
-        if decode and cache.quantized and not cache.per_layer:
-            # qtpu's cache-carry decode of the stacked cache: K2 then K3
-            cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
-            attn = decode_attention(
-                q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
-                start, l, window=win,
-            ).reshape(B, 1, H * hd)
-        else:
-            attn = _write_and_attend(q, k, v, cache, l, start, mask, win, slots)
-        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
-        x = _mlp_block(x, layers, l, cfg, qm, decode)
+    # qtpu's decode branches: a decode step of the stacked cache, bf16 activations
+    branch = decode and not cache.per_layer and x.dtype == torch.bfloat16
+    if branch and _boundary_applies(layers, qm, cache, B):
+        x = _boundary_layers(x, layers, qm, cache, cfg, cos, sin, start, win)
+    else:
+        fuse = branch and os.environ.get("QTPU_FUSE_NORM_RESID") == "1"
+        fuse = tuple(fuse and _fusable(layers, qm, s, B) for s in ("qkv_proj", "o_proj"))
+        for l in range(cache.num_layers):
+            x = _cached_layer(x, layers, qm, l, cache, cfg, cos, sin, start, mask, win, slots,
+                              decode, fuse)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = linear(x, params["lm_head"], qm("lm_head")).float()
     _advance_length(cache, positions, slots)

@@ -872,3 +872,163 @@ def test_gpt2_opt_decode_on_card_matches_cpu(cuda, arch, kv):
         outs[dev] = res
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert _rel(a, b) < 3e-2
+
+
+def _k1_option_inputs(g, dev, bits, group, sym, M, K=512, N=384):
+    qt = quantize_pack(torch.randn(K, N, generator=g, device=dev) * 0.02, bits, group, sym)
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    nw = (1.0 + 0.1 * torch.randn(K, generator=g, device=dev)).to(torch.bfloat16)
+    r = torch.randn(M, N, generator=g, device=dev).to(torch.bfloat16)
+    return qt, x, nw, r, (bits, group, K, N)
+
+
+@pytest.mark.parametrize("option", ["norm_w", "resid", "both"])
+@pytest.mark.parametrize("bits,group,sym", [(4, 128, False), (4, 64, True), (8, 64, False),
+                                            (2, 32, False)])
+@pytest.mark.parametrize("M", [1, 8, 13, 32])
+def test_k1_options_match_plain(cuda, option, bits, group, sym, M):
+    """K1 with qtpu's norm_w / resid options (MODE 4, 2, 6 of the core; split
+    K at every M up to 32) against the plain composition, rel 2e-2."""
+    qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, bits, group, sym, M)
+    kw = {"norm_w": nw if option != "resid" else None, "resid": r if option != "norm_w" else None}
+    n0 = (k1.quantized_matmul.launches, k1.quantized_matmul.norm_launches,
+          k1.quantized_matmul.resid_launches)
+    got = k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, **kw)
+    want = k1.quantized_matmul_plain(x, qt.data, qt.scales, qt.zeros, meta, **kw)
+    torch.cuda.synchronize()
+    assert (k1.quantized_matmul.launches - n0[0], k1.quantized_matmul.norm_launches - n0[1],
+            k1.quantized_matmul.resid_launches - n0[2]) == (
+        1, int(kw["norm_w"] is not None), int(kw["resid"] is not None))
+    base = r.float() if kw["resid"] is not None else 0.0
+    assert _rel(got.float() - base, want.float() - base) < 2e-2
+
+
+def test_k1_options_raise_on_what_they_do_not_take(cuda):
+    qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, 4, 64, False, 33)
+    with pytest.raises(ValueError):  # over 32 rows
+        k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, norm_w=nw)
+    qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, 4, 64, False, 8, N=386)
+    with pytest.raises(ValueError):  # N % 4 != 0
+        k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, resid=r)
+    qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, 4, 64, False, 8)
+    with pytest.raises(ValueError):  # a residual of another shape
+        k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, resid=r[:, :128])
+
+
+def _k13_inputs(g, dev, bits, group, M, D=256, F=512, Q=256, Nq=512, L=2):
+    from qtpu_torch.core.packing import quantize_pack as qp
+
+    shapes = ((Q, D), (D, 2 * F), (F, D), (D, Nq))
+
+    def site(K, N):
+        parts = [qp(torch.randn(K, N, generator=g, device=dev) * 0.05, bits, group)
+                 for _ in range(L)]
+        return {k: torch.stack([getattr(p, k) for p in parts]) for k in ("data", "scales", "zeros")}
+
+    sites = [site(K, N) for K, N in shapes]
+    metas = tuple((bits, group, K, N) for K, N in shapes)
+    attn = torch.randn(M, Q, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(M, D, generator=g, device=dev).to(torch.bfloat16)
+    norms = (1.0 + 0.1 * torch.randn(2, L, D, generator=g, device=dev)).to(torch.bfloat16)
+    views = [{k: v[0] for k, v in s.items()} for s in sites[:3]] + [
+        {k: v[1] for k, v in sites[3].items()}]
+    return (attn, x, norms[0][0], norms[1][1], *views, metas)
+
+
+@pytest.mark.parametrize("bits,group", [(4, 128), (4, 64), (8, 128)])
+@pytest.mark.parametrize("M", [1, 3, 8, 17, 32])
+def test_k13_matches_plain(cuda, bits, group, M):
+    """K13 against its plain version (layer 0's o/gateup/down, layer 1's
+    qkv): relative 2e-2 on y2 - x and on qkv; one launch."""
+    from qtpu_torch.kernels import layer_boundary as k13
+
+    args = _k13_inputs(_gen(), cuda, bits, group, M)
+    n0 = k13.layer_boundary.launches
+    y2, qkv = k13.layer_boundary(*args)
+    want_y2, want_qkv = k13.layer_boundary_plain(*args)
+    torch.cuda.synchronize()
+    assert k13.layer_boundary.launches == n0 + 1
+    x = args[1].float()
+    assert _rel(y2.float() - x, want_y2.float() - x) < 2e-2
+    assert _rel(qkv, want_qkv) < 2e-2
+
+
+def test_k13_is_deterministic_and_runs_in_a_cuda_graph(cuda):
+    """Partial sums are reduced in a fixed order: two calls give the same
+    bits; the cooperative launch replays from a captured CUDA graph."""
+    from qtpu_torch.kernels import layer_boundary as k13
+
+    args = _k13_inputs(_gen(), cuda, 4, 128, 8)
+    a, b = k13.layer_boundary(*args), k13.layer_boundary(*args)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k13.layer_boundary(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k13.layer_boundary(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(out, a))
+
+
+def test_k13_raises_on_what_it_does_not_take(cuda):
+    from qtpu_torch.kernels import layer_boundary as k13
+
+    args = _k13_inputs(_gen(), cuda, 4, 128, 33)
+    with pytest.raises(ValueError):  # over 32 rows
+        k13.layer_boundary(*args)
+    args = list(_k13_inputs(_gen(), cuda, 4, 128, 8))
+    args[4] = {**args[4], "zeros": None}  # symmetric o_proj
+    with pytest.raises(ValueError):
+        k13.layer_boundary(*args)
+    metas = args[-1]
+    args[4] = _k13_inputs(_gen(), cuda, 4, 128, 8)[4]
+    args[-1] = (metas[0], metas[1], (8,) + metas[2][1:], metas[3])  # mixed bits
+    with pytest.raises(ValueError):
+        k13.layer_boundary(*args)
+
+
+@pytest.mark.parametrize("switch", ["QTPU_FUSE_NORM_RESID", "QTPU_BOUNDARY"])
+@pytest.mark.parametrize("kv", ["int8", "bfloat16"])
+def test_branch_decode_on_card_matches_cpu(cuda, switch, kv, monkeypatch):
+    """TINY_TEST RTN W4 g64 fused under one of qtpu's decode-branch switches:
+    prefill and 3 teacher-forced decode steps on the card (fuse: K1 with
+    norm_w and resid once a layer each; boundary: K1 with norm_w once, K13
+    once a layer) against the CPU, which takes the same branch on the plain
+    versions."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.kernels import layer_boundary as k13
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINY_TEST as cfg
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    monkeypatch.setenv(switch, "1")
+    params, qmeta = fuse_packed_sites(*pack_model(llama.init_params(cfg, device="cpu"), "rtn",
+                                                  {"w_bit": 4, "q_group_size": 64}))
+    B, T = 4, 12
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(2))
+    outs, L = {}, cfg.num_layers
+    for dev in ("cpu", "cuda"):
+        p = map_tree(params, lambda t: t.to(dev))
+        cache = init_cache(cfg, B, 24, quantized=kv == "int8", device=dev)
+        logits, cache = prefill(p, ids.to(dev), cache, cfg, qmeta)
+        res, pos = [logits.float().cpu()], torch.full((B,), T, dtype=torch.int32, device=dev)
+        n0 = (k13.layer_boundary.launches, k1.quantized_matmul.norm_launches,
+              k1.quantized_matmul.resid_launches)
+        for i in range(3):
+            logits, cache = decode_step(p, ids[:, i].to(torch.int32).to(dev), pos, cache, cfg,
+                                        qmeta)
+            res.append(logits.float().cpu())
+            pos = pos + 1
+        if dev == "cuda":
+            got = (k13.layer_boundary.launches - n0[0], k1.quantized_matmul.norm_launches - n0[1],
+                   k1.quantized_matmul.resid_launches - n0[2])
+            assert got == ((3 * L, 3, 0) if switch == "QTPU_BOUNDARY" else (0, 3 * L, 3 * L))
+        outs[dev] = res
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert _rel(a, b) < 3e-2
