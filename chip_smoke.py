@@ -21,11 +21,19 @@ Phases, each printing one JSON line:
            one-layer decode attention at GPT-2's serve shape; K1 with qtpu's
            norm_w and resid options at the TinyLlama qkv and o sites; K13 at
            the TinyLlama layer, M 1, 8, 32, W4 and W8, and at a Llama-2-7B
-           layer, M 8, W4, beside the K1 + K4 + K1 chains it replaces), with
-           times: kernel, plain
+           layer, M 8, W4, beside the K1 + K4 + K1 chains it replaces; K1 and
+           K7 at the five TinyLlama sites at prefill M 1024 and eval M 2048 on
+           the Hopper route, csrc/dq_wgmma.cuh, with K1's earlier mma.sync
+           body timed on the same bytes through K9 with one expert as "was",
+           the route each call took against dq_route's rule, two calls giving
+           the same bits, W2/W4/W8 g64/g128 and ragged M on the route, OPT's
+           q/k/v and lm_head, and the host cost of encoding its tensor maps),
+           with times: kernel, plain
            version, one PyTorch library call where one computes the same
            function, and the bound from bytes and operations at 3.35 TB/s and
-           989 TFLOP/s bf16 or 1,979 TOP/s int8 (H100 SXM data sheet)
+           989 TFLOP/s bf16 or 1,979 TOP/s int8 (H100 SXM data sheet); a
+           kernels_hopper_route line gives each Hopper-route site against
+           torch.matmul on the dequantized weight and its share of the bound
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions), RTN W4 on
            the int8 KV cache and POT W4 on the bf16 cache; and a 2-layer
@@ -37,14 +45,20 @@ Phases, each printing one JSON line:
            (prefill 128, 8 decode steps, K12 2 a step); 2-layer GPT2_SMALL and
            OPT_125M-width models, RTN W4, on both caches; the 2-layer TinyLlama
            under QTPU_FUSE_NORM_RESID=1 and QTPU_BOUNDARY=1 on both caches; in
-           the Mixtral e2e every kernel call is also held to its plain version
-           and the CPU runs a second time with the weights in f32
+           the Mixtral e2e every kernel call is also held to its plain version,
+           the CPU runs a second time with the weights in f32, and a
+           teacher-forced pass holds each half-layer (attention, MoE MLP) on
+           the card, from the CPU run's inputs, to the CPU, to the plain
+           versions on the card and to the f32-weight arithmetic
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
            prompt 128 and 32 new tokens; every kernel's launch count is
-           checked against its count per prefill and per decode step; then
-           the host wall time of steady 16-step decode blocks
+           checked against its count per prefill and per decode step, and
+           every K1 launch of the prefill on the Hopper route (the route
+           counters; so too in eval, pot_apot and serve_bf16 for their eval
+           blocks and prefills); then the host wall time of steady 16-step
+           decode blocks
   profile  torch.profiler over one warm prefill and one 16-step decode block
            of the serve cell: host and device time per step, the device busy
            share and the kernels that take the device time; and the host wall
@@ -247,9 +261,33 @@ def _packed(torch, L, K, N, bits, group, gen, dev, symmetric=False):
     return data, scales, zeros
 
 
-def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=True):
+def _bits_equal(torch, a, b) -> bool:
+    return bool((a.view(torch.int16) == b.view(torch.int16)).all())
+
+
+def _route_taken(torch, wrapper, call):
+    """Runs call() once and returns (its output, the body the wrapper's
+    route counters saw: "wgmma", "mma" or "gemv")."""
+    w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
+    out = call()
+    torch.cuda.synchronize()
+    if wrapper.wgmma_launches > w0:
+        return out, "wgmma"
+    return out, "mma" if wrapper.mma_launches > m0 else "gemv"
+
+
+def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=True,
+             was=False):
+    """K1 against its plain version at one shape (relative 2e-2), the route
+    its counters saw against dq_route's rule, and at M > 8 two calls giving
+    the same bits; timed: the kernel, the plain version, torch.matmul on
+    the weight dequantized to bf16 and the bound; was: the mma.sync body of
+    the earlier route on the same bytes (K9 with one expert and x shared,
+    which runs dq_mma_body<BITS, false>)."""
     from qtpu_torch.core.packing import dequantize_parts
-    from qtpu_torch.kernels.dequant_matmul import quantized_matmul, quantized_matmul_plain
+    from qtpu_torch.kernels import moe_matmul as k9
+    from qtpu_torch.kernels.dequant_matmul import (dq_route, quantized_matmul,
+                                                   quantized_matmul_plain)
 
     meta = (bits, group, K, N)
     wbytes = K * N * bits / 8 + (K // group) * N * (2 + (0 if symmetric else 1))
@@ -257,15 +295,25 @@ def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=
     data, scales, zeros = _packed(torch, copies, K, N, bits, group, gen, dev, symmetric)
     x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
     z = (lambda i: None) if zeros is None else (lambda i: zeros[i])
-    got = quantized_matmul(x, data[0], scales[0], z(0), meta)
+    got, route = _route_taken(torch, quantized_matmul,
+                              lambda: quantized_matmul(x, data[0], scales[0], z(0), meta))
     want = quantized_matmul_plain(x, data[0], scales[0], z(0), meta)
     torch.cuda.synchronize()
     err = rel_err(torch, got, want)
+    ptrs = [t.data_ptr() for t in (data[0], scales[0], z(0)) if t is not None]
     row = {"M": M, "K": K, "N": N, "bits": bits, "group": group, "sym": symmetric,
            "rel_err": err, "max_abs_err": float((got.float() - want.float()).abs().max()),
-           "tol_rel": 2e-2}
+           "tol_rel": 2e-2, "route": route, "rule": dq_route(M, N, bits, group, ptrs)}
     if err >= 2e-2 or not torch.isfinite(got.float()).all():
         raise AssertionError(f"K1 disagrees with its plain version: {row}")
+    if route != row["rule"]:
+        raise AssertionError(f"K1 ran the {route} body where its rule says {row['rule']}: {row}")
+    if M > 8:
+        again = quantized_matmul(x, data[0], scales[0], z(0), meta)
+        torch.cuda.synchronize()
+        row["same_bits_two_calls"] = _bits_equal(torch, got, again)
+        if not row["same_bits_two_calls"]:
+            raise AssertionError(f"K1's two calls differ: {row}")
     if not timed:
         return row
     nbytes = wbytes + M * K * 2 + M * N * 2
@@ -281,7 +329,32 @@ def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=
     wd = [dequantize_parts(data[i], scales[i], z(i), bits, group) for i in range(nlib)]
     row["library_ms"], _ = cuda_ms(torch, [lambda i=i: torch.matmul(x, wd[i])
                                            for i in range(nlib)], K * N * 2)
+    if was:
+        ex = [(data[i][None], scales[i][None], None if zeros is None else zeros[i][None])
+              for i in range(copies)]
+        row["was_ms"], _ = cuda_ms(torch, [lambda e=e: k9.moe_matmul(x, *e, meta) for e in ex],
+                                   wbytes)
+        row["was"] = "dq_mma_body (mma.sync) on the same bytes, through K9 with one expert"
     return row
+
+
+def _map_encode_ns(torch, dev, M, K, N):
+    """The Hopper route's host cost a call: nanoseconds to encode its two
+    tensor maps (qtpu_dq_map_ns, the mean of 1000 encodes), at one shape."""
+    import ctypes
+
+    from qtpu_torch.kernels import _build
+    from qtpu_torch.kernels.dequant_matmul import _SIG
+
+    lib = _build.load("dequant_matmul", _SIG)
+    lib.qtpu_dq_map_ns.argtypes = [_build.P, _build.P] + [_build.I] * 4
+    lib.qtpu_dq_map_ns.restype = ctypes.c_longlong
+    x = torch.zeros(M, K, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(K // 2, N, dtype=torch.int8, device=dev)
+    ns = lib.qtpu_dq_map_ns(x.data_ptr(), w.data_ptr(), M, K, N, 1000)
+    if ns <= 0:
+        raise AssertionError(f"qtpu_dq_map_ns returned {ns}")
+    return {"M": M, "K": K, "N": N, "ns_per_call": ns, "maps": 2}
 
 
 def phase_kernels(torch, ctx):
@@ -302,28 +375,38 @@ def phase_kernels(torch, ctx):
         "qkv_decode": _k1_case(torch, ctx, gen, dev, B, D, qkv_n, 4, g),
         "o_decode": _k1_case(torch, ctx, gen, dev, B, cfg.q_dim, D, 4, g),
         "lm_head_decode": _k1_case(torch, ctx, gen, dev, B, D, V, 4, g),
-        "qkv_prefill": _k1_case(torch, ctx, gen, dev, B * P, D, qkv_n, 4, g),
-        "o_prefill": _k1_case(torch, ctx, gen, dev, B * P, cfg.q_dim, D, 4, g),
-        "gateup_prefill": _k1_case(torch, ctx, gen, dev, B * P, D, 2 * F, 4, g),
-        "down_prefill": _k1_case(torch, ctx, gen, dev, B * P, F, D, 4, g),
-        "lm_head_prefill": _k1_case(torch, ctx, gen, dev, B * P, D, V, 4, g),
     }
+    # the Hopper route's sites: serve prefill (M 1024) and eval block (M 2048)
+    for mname, M in (("prefill", B * P), ("eval", EVAL_BLOCK)):
+        for site, (K, N) in K7_SITES.items():
+            k1_rows[f"{site}_{mname}"] = _k1_case(torch, ctx, gen, dev, M, K, N, 4, g, was=True)
     for bits in (2, 4, 8):
         for grp in (64, 128):
             for sym in (False, True):
-                k1_rows[f"w{bits}g{grp}{'s' if sym else 'a'}_decode"] = _k1_case(
+                tag = f"w{bits}g{grp}{'s' if sym else 'a'}"
+                k1_rows[f"{tag}_decode"] = _k1_case(
                     torch, ctx, gen, dev, B, D, qkv_n, bits, grp, sym, timed=False)
-    k1_rows["ragged_m3"] = _k1_case(torch, ctx, gen, dev, 3, D, qkv_n, 4, g, timed=False)
-    k1_rows["ragged_m77"] = _k1_case(torch, ctx, gen, dev, 77, D, qkv_n, 4, g, timed=False)
-    # W2 g32 has 8 packed rows per group: M > 8 takes the GEMV kernel, not mma
+                k1_rows[f"{tag}_m300"] = _k1_case(
+                    torch, ctx, gen, dev, 300, D, qkv_n, bits, grp, sym, timed=False)
+    for M in (3, 77, 1000):  # ragged M: TMA zero-fills the x box past M
+        k1_rows[f"ragged_m{M}"] = _k1_case(torch, ctx, gen, dev, M, D, qkv_n, 4, g, timed=False)
+    # W2 g32 has 8 packed rows per group: M > 8 takes the GEMV kernel
     k1_rows["w2g32a_m77"] = _k1_case(torch, ctx, gen, dev, 77, D, qkv_n, 2, 32, timed=False)
-    # GPT-2's tied lm_head, [768, 50257]: N % 4 != 0, the ragged column tail
-    from qtpu_torch.models.config import GPT2_SMALL
+    # GPT-2's tied lm_head, [768, 50257]: N % 16 != 0, the mma.sync body at
+    # prefill and the ragged column tail; OPT-125M's fused q/k/v and its
+    # 50272-wide lm_head (N % 16 == 0, a ragged last tile): the Hopper route
+    from qtpu_torch.models.config import GPT2_SMALL, OPT_125M
 
     gd, gv = GPT2_SMALL.hidden_size, GPT2_SMALL.vocab_size
     k1_rows["gpt2_lm_head_decode"] = _k1_case(torch, ctx, gen, dev, B, gd, gv, 4, g)
     k1_rows["gpt2_lm_head_prefill"] = _k1_case(torch, ctx, gen, dev, B * P, gd, gv, 4, g)
+    od, ov = OPT_125M.hidden_size, OPT_125M.vocab_size
+    k1_rows["opt_qkv_prefill"] = _k1_case(torch, ctx, gen, dev, B * P, od, 3 * od, 4, g,
+                                          timed=False)
+    k1_rows["opt_lm_head_prefill"] = _k1_case(torch, ctx, gen, dev, B * P, od, ov, 4, g,
+                                              timed=False)
     detail["dequant_matmul"] = k1_rows
+    detail["wgmma_map_encode"] = _map_encode_ns(torch, dev, B * P, D, qkv_n)
 
     # K2 / K3 on the serving engine's cache: S = 128 + 32 + 16 rounded to 8
     S = 176
@@ -598,6 +681,36 @@ def phase_kernels(torch, ctx):
         } for opt, row in (("norm_w", "norm_w_qkv"), ("resid", "resid_o"))},
     }
 
+    # K1's and K7's Hopper route (csrc/dq_wgmma.cuh) at the work of one
+    # packed eval block (M 2048): L x (qkv, o, gateup, down) + lm_head;
+    # library: torch.matmul on the weight dequantized to bf16 beforehand
+    def block_sum(rows, key):
+        return L * sum(rows[f"{s}_eval"][key] for s in K7_PER_LAYER) + rows["lm_head_eval"][key]
+
+    route_sites = {}
+    for name, rows, line in (("dequant_matmul_wgmma", k1_rows, 385),
+                             ("codebook_matmul_wgmma", k7r, 324)):
+        ctx["kernel_rows"][name] = {
+            "route": "cuda", "source": "qtpu_torch/csrc/dq_wgmma.cuh",
+            "replaces": f"qtpu/kernels/pallas_dequant_matmul.py:{line}",
+            "max_abs_err": max(rows[f"{s}_{m}"]["max_abs_err"]
+                               for s in K7_SITES for m in ("prefill", "eval")),
+            **{key: block_sum(rows, key) for key in ("ms", "plain_ms", "bound_ms",
+                                                     "library_ms")},
+            "bound_by": "operations",
+        }
+        for site in K7_SITES:
+            for m in ("prefill", "eval"):
+                r = rows[f"{site}_{m}"]
+                route_sites[f"{name.split('_')[0]}_{site}_{m}"] = {
+                    "M": r["M"], "ms": r["ms"], "library_ms": r["library_ms"],
+                    "over_library": r["ms"] / r["library_ms"],
+                    "bound_share": r["bound_ms"] / r["ms"], "was_ms": r.get("was_ms"),
+                    "route": r["route"]}
+    worst = max(v["over_library"] for v in route_sites.values())
+    emit({"phase": "kernels_hopper_route", "card": ctx["smi"], "sites": route_sites,
+          "worst_over_library": worst, "aim": "at most 2x torch.matmul at every site"})
+
 
 EVAL_BLOCK = 2048  # test_block_size of the eval phase
 # K6: (K, N) of TinyLlama-1.1B's W8A8 sites, and the M of each path
@@ -707,16 +820,26 @@ def _k7_rows(torch, gen, dev):
         data, scales, cb = site[0]
         meta = (4, group, K, N)
         x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-        got = k7.codebook_matmul(x, data, scales, cb, meta)
+        got, route = _route_taken(torch, k7.codebook_matmul,
+                                  lambda: k7.codebook_matmul(x, data, scales, cb, meta))
         want = k7.codebook_matmul_plain(x, data, scales, cb, meta)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         row = {"M": M, "K": K, "N": N, "group": group, "rel_err": rel_err(torch, got, want),
                "max_abs_err": float(diff.max()), "max_ref": float(want.float().abs().max()),
-               "tol": "rel 2e-2, atol 5% of max |ref|"}
+               "tol": "rel 2e-2, atol 5% of max |ref|", "route": route,
+               "rule": k7.cb_route(M, N, group, (data.data_ptr(), scales.data_ptr()))}
         if (row["rel_err"] >= 2e-2 or row["max_abs_err"] > 0.05 * row["max_ref"]
                 or not torch.isfinite(got.float()).all()):
             raise AssertionError(f"K7 disagrees with its plain version: {name} {row}")
+        if route != row["rule"]:
+            raise AssertionError(f"K7 ran the {route} body where its rule says {row['rule']}")
+        if M > 8:
+            again = k7.codebook_matmul(x, data, scales, cb, meta)
+            torch.cuda.synchronize()
+            row["same_bits_two_calls"] = _bits_equal(torch, got, again)
+            if not row["same_bits_two_calls"]:
+                raise AssertionError(f"K7's two calls differ: {name} {row}")
         rows[name] = row
         if not timed:
             return
@@ -742,7 +865,7 @@ def _k7_rows(torch, gen, dev):
             for mname, M in K7_M.items():
                 check(f"{sname}_{mname}_apot", M, K, N, apot_site, False)
         del site
-    for M in (3, 8, 77, 1024):  # ragged M, and the serve CLI's default group of 64
+    for M in (3, 8, 77, 1000, 1024):  # ragged M, and the serve CLI's default group of 64
         for group in (64, 128):
             check(f"m{M}_g{group}", M, 2048, 2560,
                   [_codebook_site(torch, gen, dev, 2048, 2560, pot_cb, group)], False, group)
@@ -1741,6 +1864,14 @@ class _Held:
             setattr(mod, attr, kernel)
 
 
+class _Plain(_Held):
+    """While active, the card runs the plain versions of the kernels _Held
+    holds (K1, K9, K10, K11, K8) in their place."""
+
+    def _wrap(self, kernel, name, plain, cache_args):
+        return plain
+
+
 class _F32Arithmetic:
     """While active, the llama and MoE forwards run their dense sites as the
     kernels do their arithmetic: x @ W with W held in f32 ((q - z) * s, never
@@ -1872,9 +2003,124 @@ def _moe_e2e(torch):
             raise AssertionError(f"card and CPU MoE logits differ: {res}")
         if any(counts[k] != v for k, v in expect.items()):
             raise AssertionError(f"the MoE run's launches {counts} != {expect}")
+        emit(_moe_teacher_forced(torch, cfg, packed, dense, dense32, qmeta, ids, toks, kv))
     del packed, dense, dense32
     torch.cuda.empty_cache()
     return flips_by_kv
+
+
+MOE_LAYER_BAND = 4.4e-3  # the per-kernel band: K1, K9-K11 and K8 against their plain versions
+
+
+def _moe_teacher_forced(torch, cfg, packed, dense, dense32, qmeta, ids, toks, kv, dev="cuda"):
+    """The MoE e2e teacher-forced half a layer at a time: for each forward
+    (the prefill, then each decode step on the CPU's greedy tokens) and each
+    layer, the card runs the layer's attention half (norm, q/k/v, cache write
+    and attention, o_proj: K1, K11 or K8) from the CPU run's input to the
+    layer and a copy of the CPU's cache before it, and its MoE half (norm,
+    router, experts, combine: K9 or K10) from the CPU run's residual stream
+    after attention, on the packed weights; each half's output, before its
+    bf16 residual add, is held to the CPU's (the plain versions on the same
+    bytes dequantized to bf16), again to the plain versions run on the card,
+    and to the CPU with the weights kept in f32 and the products summed in f32
+    (_F32Arithmetic: the arithmetic the kernels do, exactly). A half off by
+    more than the per-kernel band from the exact arithmetic is a fault in it;
+    halves within it mean the free-running error is the bf16 reference's
+    weight roundings and bf16 roundings of the residual stream compounding
+    over layers and steps. The final norm and lm_head are held the same way."""
+    from dataclasses import replace
+
+    from qtpu_torch.kernels.kv_attention import cache_mask
+    from qtpu_torch.models import moe
+    from qtpu_torch.models.ops import rope_tables
+    from qtpu_torch.serve.decode import _positions
+    from qtpu_torch.serve.kvcache import init_cache
+
+    qm = dict(qmeta).get
+    B, T = ids.shape
+    L = cfg.num_layers
+
+    def attention(p, x, positions, cache, l):
+        """moe.forward_with_cache's attention half of layer l, before the residual add"""
+        S = cache.max_len
+        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
+        start = positions[:, 0].to(torch.int32).contiguous()
+        mask = None if positions.shape[1] == 1 else cache_mask(positions, S, win)
+        lay = p["layers"]
+        h = moe.rms_norm(x, lay["attn_norm"][l], cfg.norm_eps)
+        q, k, v = moe._qkv(h, lay, cfg, qm, l)
+        q = moe.apply_rope(q, cos, sin)
+        k = moe.apply_rope(k, cos, sin).contiguous()
+        attn = moe._write_and_attend(q, k, v.contiguous(), cache, l, start, mask, win, None)
+        return moe.linear(attn, lay["o_proj"], qm("o_proj"), layer=l)
+
+    def mlp(p, x, l):
+        """its MoE half, before the residual add"""
+        lay = p["layers"]
+        return moe._moe_mlp(moe.rms_norm(x, lay["mlp_norm"][l], cfg.norm_eps), lay, cfg, qm, l)
+
+    def head(p, x):
+        x = moe.rms_norm(x, p["final_norm"], cfg.norm_eps)
+        return moe.linear(x, p["lm_head"], qm("lm_head")).float()
+
+    def on_card(cache):
+        return replace(cache, **{f: None if getattr(cache, f) is None
+                                 else getattr(cache, f).to(dev, copy=True)
+                                 for f in ("k", "v", "k_scale", "v_scale", "length")})
+
+    cache = init_cache(cfg, B, T + len(toks) + 8, quantized=kv == "int8", device="cpu")
+    forwards = [(ids, _positions(B, T, None, "cpu"))]
+    forwards += [(t[:, None], torch.full((B, 1), T + i, dtype=torch.int32))
+                 for i, t in enumerate(toks)]
+    # per forward and layer: each half's output on the card (kernels), on the
+    # card with the plain versions, on the CPU; relative errors between them
+    errs = {f"{half}_{pair}": [] for half in ("attention", "moe")
+            for pair in ("card_vs_cpu", "card_plain_vs_cpu", "card_vs_card_plain",
+                         "card_vs_cpu_f32", "cpu_vs_cpu_f32")}
+    head_err = []
+    for tok, positions in forwards:
+        x = dense["embed"][tok]
+        rows = {k: [] for k in errs}
+        for l in range(L):
+            xd, pd = x.to(dev), positions.to(dev)
+            a_card = attention(packed, xd, pd, on_card(cache), l).cpu()
+            with _Plain(torch):
+                a_plain = attention(packed, xd, pd, on_card(cache), l).cpu()
+            with _F32Arithmetic(torch):
+                a_f32 = attention(dense32, x, positions, replace(cache, **{
+                    f: None if getattr(cache, f) is None else getattr(cache, f).clone()
+                    for f in ("k", "v", "k_scale", "v_scale", "length")}), l)
+            a_cpu = attention(dense, x, positions, cache, l)
+            mid = x + a_cpu
+            m_card = mlp(packed, mid.to(dev), l).cpu()
+            with _Plain(torch):
+                m_plain = mlp(packed, mid.to(dev), l).cpu()
+            with _F32Arithmetic(torch):
+                m_f32 = mlp(dense32, mid, l)
+            m_cpu = mlp(dense, mid, l)
+            for half, card, plain, cpu, f32 in (("attention", a_card, a_plain, a_cpu, a_f32),
+                                                ("moe", m_card, m_plain, m_cpu, m_f32)):
+                rows[f"{half}_card_vs_cpu"].append(rel_err(torch, card, cpu))
+                rows[f"{half}_card_plain_vs_cpu"].append(rel_err(torch, plain, cpu))
+                rows[f"{half}_card_vs_card_plain"].append(rel_err(torch, card, plain))
+                rows[f"{half}_card_vs_cpu_f32"].append(rel_err(torch, card, f32))
+                rows[f"{half}_cpu_vs_cpu_f32"].append(rel_err(torch, cpu, f32))
+            x = mid + m_cpu
+        head_err.append(rel_err(torch, head(packed, x.to(dev)).cpu(), head(dense, x)))
+        moe._advance_length(cache, positions, None)
+        for k in errs:
+            errs[k].append(rows[k])
+    def worst(pair):
+        return max(max(max(r) for r in errs[f"{h}_{pair}"]) for h in ("attention", "moe"))
+
+    return {"phase": "e2e_moe_teacher_forced", "kv": kv, "layers": L, "B": B,
+            "forwards": ["prefill"] + [f"step{i + 1}" for i in range(len(toks))],
+            "half_layer_rel_err": errs, "final_norm_lm_head_rel_err": head_err,
+            "worst_half_layer": {p: worst(p) for p in ("card_vs_cpu", "card_vs_cpu_f32",
+                                                       "cpu_vs_cpu_f32", "card_plain_vs_cpu")},
+            "per_kernel_band": MOE_LAYER_BAND,
+            "card_within_band_of_f32_arithmetic": worst("card_vs_cpu_f32") <= MOE_LAYER_BAND}
 
 
 def _route_tap(moe, route, log, forced=None):
@@ -1956,6 +2202,7 @@ def phase_serve(torch, ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    routes = _route_counts()
     m = eng.metrics()
     L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
     expect = {
@@ -1972,7 +2219,7 @@ def phase_serve(torch, ctx):
            "tokens_per_s": tokens / wall, "setup_s": setup_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "decode_steps": steps, "prefill_calls": pre, "launches": counts,
-           "expected_launches": expect, "card": ctx["smi"], "metrics": m}
+           "expected_launches": expect, "routes": routes, "card": ctx["smi"], "metrics": m}
     emit(res)
     if len(done) != B:
         raise AssertionError(f"{len(done)} of {B} requests finished")
@@ -1981,7 +2228,9 @@ def phase_serve(torch, ctx):
             raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
     if counts != expect or steps == 0:
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    ctx.setdefault("path_launches", {})["serve"] = counts
+    # every prefill launch of K1 (88 + 1 a prefill of 8 x 128 rows) took the Hopper route
+    _check_routes("serve", routes, k1=(4 * L + 1) * pre)
+    ctx.setdefault("path_launches", {})["serve"] = {**counts, **routes}
 
     # steady decode after the run: blocks of 16 greedy steps, all slots
     # live, host wall time per step (after a synchronize)
@@ -2225,6 +2474,7 @@ def phase_long_ctx(torch, ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    routes = _route_counts()
     expect = {k: 0 for k in WRAPPERS}
     expect.update({"dequant_matmul": (2 * L + 1) * LONG_STEPS, "fused_mlp": L * LONG_STEPS,
                    "decode_attention_flash": L * LONG_STEPS})
@@ -2246,7 +2496,7 @@ def phase_long_ctx(torch, ctx):
            "zero_cache_rel_err_vs_plain": err_zero,
            "finite": bool(torch.isfinite(first).all()), "launches": counts,
            "expected_launches": expect}
-    ctx.setdefault("path_launches", {})["long_ctx"] = counts
+    ctx.setdefault("path_launches", {})["long_ctx"] = {**counts, **routes}
     if counts != expect:
         raise AssertionError(f"kernel launches {counts} != expected {expect}: {res}")
     if len(per_layer) != L or max(k12_errs) >= 3e-2 or not res["k12_rows_equal"]:
@@ -2336,6 +2586,7 @@ def phase_boundary(torch, ctx):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = _counts()
+                routes = _route_counts()
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 m = eng.metrics()
                 steps, pre = m["decode_steps"], m["prefill_calls"]
@@ -2379,7 +2630,7 @@ def phase_boundary(torch, ctx):
                    "k13_share_of_device": k13_ms / prof["device_ms_per_step"],
                    "finite": bool(torch.isfinite(step).all()), "card": ctx["smi"]}
             emit(res)
-            paths[f"boundary_{kv}_{mode}"] = counts
+            paths[f"boundary_{kv}_{mode}"] = {**counts, **routes}
             if len(done) != B or any(len(o) != new for o in outputs):
                 raise AssertionError(f"{len(done)} of {B} requests finished: {res}")
             if counts != expect or steps == 0:
@@ -2438,6 +2689,7 @@ def phase_serve_gpt2(torch, ctx):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts()
+        routes = _route_counts()
         m = eng.metrics()
         steps, pre = m["decode_steps"], m["prefill_calls"]
         expect = {k: 0 for k in WRAPPERS}
@@ -2457,7 +2709,7 @@ def phase_serve_gpt2(torch, ctx):
                 raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
         if counts != expect or steps == 0:
             raise AssertionError(f"kernel launches {counts} != expected {expect}")
-        paths[f"serve_{arch}"] = counts
+        paths[f"serve_{arch}"] = {**counts, **routes}
         del eng
         cache = init_cache(cfg, B, P + new + 16, quantized=True, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2536,6 +2788,7 @@ def phase_eval(torch, ctx):
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         saved = json.loads(out_path.read_text())
 
+    routes = _route_counts()
     L, nb = cfg.num_layers, EVAL_BLOCKS
     runs = 2  # benchmark_serving: a warm run, then the timed run
     steps = runner.SERVE_WARM_STEPS + runner.SERVE_STEPS
@@ -2557,7 +2810,7 @@ def phase_eval(torch, ctx):
            "serving_tokens_per_s": sv.get("tokens_per_second"),
            "errors": {k: v.get("error") or v.get("packed_error") for k, v in res.items()},
            "peak_mem_gib": peak_gib, "launches": counts, "expected_launches": expect,
-           "environment": saved.get("environment"), "card": ctx["smi"]}
+           "routes": routes, "environment": saved.get("environment"), "card": ctx["smi"]}
     emit(out)
     if rc != 0 or any(out["errors"].values()) or set(res) != {"raw", "rtn", "serving"}:
         raise AssertionError(f"the benchmark run failed: {out['errors']}")
@@ -2572,7 +2825,10 @@ def phase_eval(torch, ctx):
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
     if not sv.get("tokens_per_second"):
         raise AssertionError("the serving pseudo-method measured nothing")
-    ctx.setdefault("path_launches", {})["eval"] = counts
+    # every K1 launch of a packed eval block (M 2048) and of a serving
+    # prefill (M 1024) took the Hopper route
+    _check_routes("eval", routes, k1=(4 * L + 1) * (nb + runs))
+    ctx.setdefault("path_launches", {})["eval"] = {**counts, **routes}
 
     # warm blocks of the same three models, each timed around a synchronize
     ids = load_fixture_test(str(FIXTURE_DIR))
@@ -2642,6 +2898,15 @@ WRAPPERS = {  # kernel -> (module, wrapper name)
     "dequant_matmul_norm_w": ("dequant_matmul", "quantized_matmul", "norm_launches"),
     "dequant_matmul_resid": ("dequant_matmul", "quantized_matmul", "resid_launches"),
 }
+# the route counters of K1 and K7: launches of the Hopper route
+# (csrc/dq_wgmma.cuh) and of the mma.sync body (csrc/dq_mma.cuh), kept apart
+# from WRAPPERS' counts (each such launch is also in its kernel's count)
+ROUTES = {
+    "dequant_matmul_wgmma": ("dequant_matmul", "quantized_matmul", "wgmma_launches"),
+    "dequant_matmul_mma": ("dequant_matmul", "quantized_matmul", "mma_launches"),
+    "codebook_matmul_wgmma": ("codebook_matmul", "codebook_matmul", "wgmma_launches"),
+    "codebook_matmul_mma": ("codebook_matmul", "codebook_matmul", "mma_launches"),
+}
 # the kernels of the layer-boundary branches (K13, K1's options), which only
 # the boundary phase's switches turn on
 NO_BOUNDARY = {"layer_boundary": 0, "dequant_matmul_norm_w": 0, "dequant_matmul_resid": 0}
@@ -2655,28 +2920,44 @@ NO_MOE = {"moe_matmul": 0, "moe_gathered_matmul": 0, "decode_attention_write": 0
 NO_CODEBOOK = {"codebook_matmul": 0, "decode_attention_write_bf16": 0, **NO_MOE}
 
 
-def _wrappers():
-    """{kernel: (wrapper, name of its counter)}."""
+def _wrappers(table=None):
+    """{kernel: (wrapper, name of its counter)} of WRAPPERS (or table)."""
     import importlib
 
     return {k: (getattr(importlib.import_module(f"qtpu_torch.kernels.{m}"), f),
                 attr[0] if attr else "launches")
-            for k, (m, f, *attr) in WRAPPERS.items()}
+            for k, (m, f, *attr) in (WRAPPERS if table is None else table).items()}
 
 
 def _reset_counts():
-    for w, attr in _wrappers().values():
-        setattr(w, attr, 0)
+    for table in (WRAPPERS, ROUTES):
+        for w, attr in _wrappers(table).values():
+            setattr(w, attr, 0)
 
 
 def _counts():
     return {k: getattr(w, attr) for k, (w, attr) in _wrappers().items()}
 
 
+def _route_counts():
+    return {k: getattr(w, attr) for k, (w, attr) in _wrappers(ROUTES).items()}
+
+
+def _check_routes(phase, routes, k1=0, k7=0):
+    """Every K1 (k1) and K7 (k7) launch of a prefill or eval block took the
+    Hopper route, and none the mma.sync body."""
+    expect = {"dequant_matmul_wgmma": k1, "dequant_matmul_mma": 0,
+              "codebook_matmul_wgmma": k7, "codebook_matmul_mma": 0}
+    if routes != expect:
+        raise AssertionError(f"{phase}: route launches {routes} != expected {expect}")
+
+
 def _kind(name: str) -> str:
     """The kernel of a profiled CUDA kernel's name, for the splits by kind."""
-    # dq_kernel<BITS, TM, CQ, MODE, VEC>, dq_finish<MODE>, dq_mma_kernel<BITS, CB, VEC>
-    if "dq_" in name and any(t in name for t in (", 3, ", "dq_finish<3>", "dq_mma_kernel<4, true")):
+    # dq_kernel<BITS, TM, CQ, MODE, VEC>, dq_finish<MODE>, dq_mma_kernel<BITS, CB, VEC>,
+    # dq_wgmma_kernel<BITS, CB, G>
+    if "dq_" in name and any(t in name for t in (", 3, ", "dq_finish<3>", "dq_mma_kernel<4, true",
+                                                  "dq_wgmma_kernel<4, true")):
         return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
     if "moe_gemv_kernel" in name and ", 1>" in name:
         return "K10 moe_gathered_matmul"  # one slot per row tile
@@ -2749,6 +3030,7 @@ def phase_quant(torch, ctx):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts()
+        routes = _route_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         saved = json.loads(out_path.read_text())
 
@@ -2788,7 +3070,7 @@ def phase_quant(torch, ctx):
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
     if not res["serving"].get("tokens_per_second"):
         raise AssertionError("the serving pseudo-method measured nothing")
-    ctx.setdefault("path_launches", {})["quant"] = counts
+    ctx.setdefault("path_launches", {})["quant"] = {**counts, **routes}
 
     # the costs, each timed on the host around a synchronize
     ids = load_fixture_test(str(FIXTURE_DIR))
@@ -2891,6 +3173,7 @@ def phase_serve_w8a8(torch, ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    routes = _route_counts()
     m = eng.metrics()
     L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
     expect = {"dequant_matmul": 0, "cache_band_write": L * steps, "decode_attention": L * steps,
@@ -2910,7 +3193,7 @@ def phase_serve_w8a8(torch, ctx):
             raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
     if counts != expect or steps == 0:
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    ctx.setdefault("path_launches", {})["serve_w8a8"] = counts
+    ctx.setdefault("path_launches", {})["serve_w8a8"] = {**counts, **routes}
 
     cache = init_cache(cfg, B, P + SERVE_NEW + 16, quantized=True, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3003,6 +3286,7 @@ def phase_pot_apot(torch, ctx):
     L, nb = cfg.num_layers, EVAL_BLOCKS
     steps = runner.SERVE_WARM_STEPS + runner.SERVE_STEPS
     runs = 2  # benchmark_serving: a warm run, then the timed run
+    routes = _route_counts()
     expect = {
         "dequant_matmul": 0, "cache_band_write": 0, "decode_attention": 0, "fused_mlp": 0,
         "flash_attention": 5 * nb * L,  # raw, 2 fake-quant and 2 packed evals
@@ -3028,7 +3312,7 @@ def phase_pot_apot(torch, ctx):
            "serving_tokens_per_s": res.get("serving", {}).get("tokens_per_second"),
            "errors": {k: v.get("error") or v.get("packed_error") for k, v in res.items()},
            "peak_mem_gib": peak_gib, "launches": counts, "expected_launches": expect,
-           "codebook_per_packed_block": CB_PER_FORWARD, "card": ctx["smi"]}
+           "routes": routes, "codebook_per_packed_block": CB_PER_FORWARD, "card": ctx["smi"]}
     emit(out)
     if rc != 0 or any(out["errors"].values()) or set(res) != {"raw", *methods, "serving"}:
         raise AssertionError(f"the benchmark run failed: {out['errors']}")
@@ -3047,7 +3331,10 @@ def phase_pot_apot(torch, ctx):
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
     if not res["serving"].get("tokens_per_second"):
         raise AssertionError("the serving pseudo-method measured nothing")
-    ctx.setdefault("path_launches", {})["pot_apot"] = counts
+    # every K7 launch of the packed pot and apot eval blocks and of the
+    # serving prefills took the Hopper route
+    _check_routes("pot_apot", routes, k7=(2 * nb + runs) * CB_PER_FORWARD)
+    ctx.setdefault("path_launches", {})["pot_apot"] = {**counts, **routes}
 
     # each method's quantize and pack, timed on the host around a synchronize;
     # the POT artifact is kept for serve_bf16
@@ -3150,6 +3437,7 @@ def phase_serve_bf16(torch, ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    routes = _route_counts()
     m = eng.metrics()
     L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
     expect = {"dequant_matmul": 0, "cache_band_write": 0, "decode_attention": 0, "fused_mlp": 0,
@@ -3157,7 +3445,7 @@ def phase_serve_bf16(torch, ctx):
               "codebook_matmul": CB_PER_FORWARD * (steps + pre),
               "decode_attention_write_bf16": L * steps, **NO_MOE}
     tokens = sum(len(r.output) for r in done)
-    emit({"phase": "serve_bf16", "model": "TinyLlama-1.1B", "layers": L,
+    emit({"phase": "serve_bf16", "routes": routes, "model": "TinyLlama-1.1B", "layers": L,
           "method": "pot W4 g128", "kv": "bfloat16", "requests": len(done),
           "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall, "setup_s": setup_s,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "decode_steps": steps,
@@ -3170,7 +3458,9 @@ def phase_serve_bf16(torch, ctx):
             raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
     if counts != expect or steps == 0:
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    ctx.setdefault("path_launches", {})["serve_bf16"] = counts
+    # every prefill launch of K7 (89 a prefill of 8 x 128 rows) took the Hopper route
+    _check_routes("serve_bf16", routes, k7=CB_PER_FORWARD * pre)
+    ctx.setdefault("path_launches", {})["serve_bf16"] = {**counts, **routes}
 
     cache = init_cache(cfg, B, P + SERVE_NEW + 16, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3227,6 +3517,7 @@ def _moe_engine(torch, params, qmeta, cfg, slots, requests):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    routes = _route_counts()
     m = eng.metrics()
     L, steps, pre = MOE_LAYERS, m["decode_steps"], m["prefill_calls"]
     gathered = slots * cfg.num_experts_per_tok < cfg.num_experts
@@ -3243,7 +3534,7 @@ def _moe_engine(torch, params, qmeta, cfg, slots, requests):
            "requests": len(done), "tokens": tokens, "wall_s": wall,
            "tokens_per_s": tokens / wall, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "decode_steps": steps, "prefill_calls": pre, "launches": counts,
-           "expected_launches": expect, "metrics": m}
+           "expected_launches": expect, "routes": routes, "metrics": m}
     if len(done) != requests:
         raise AssertionError(f"{len(done)} of {requests} requests finished")
     for r in done:
@@ -3293,11 +3584,11 @@ def phase_serve_moe(torch, ctx):
     paths = ctx.setdefault("path_launches", {})
     res, eng = _moe_engine(torch, params, qmeta, cfg, SERVE_B, SERVE_B)
     emit({**res, **setup, "card": ctx["smi"]})
-    paths["serve_moe"] = res["launches"]
+    paths["serve_moe"] = {**res["launches"], **res["routes"]}
     del eng
     res2, eng = _moe_engine(torch, params, qmeta, cfg, 2, 2)
     emit({**res2, "card": ctx["smi"]})
-    paths["serve_moe_2slots"] = res2["launches"]
+    paths["serve_moe_2slots"] = {**res2["launches"], **res2["routes"]}
     del eng
     torch.cuda.empty_cache()
 

@@ -14,13 +14,18 @@
 // of (q - z):
 //  * M <= 8: the weight-streaming GEMV of dq_core.cuh in its codebook mode
 //    (w = level * scale in f32), K split across lanes and blocks;
-//  * M > 8: dq_mma_kernel of dq_mma.cuh on the tensor cores with the level
-//    rounded to bf16 as the B operand (POT levels are exact in bf16, APOT's
-//    are not) and each group's f32 sum scaled by its f32 scale.
+//  * M > 8, g 64 or 128, N % 16 == 0 and the codes and scales 16-byte
+//    aligned (wgmma_fits): dq_wgmma_kernel of dq_wgmma.cuh (wgmma fed by TMA)
+//    with the level rounded to bf16 as the weight operand (POT levels are
+//    exact in bf16, APOT's are not) and each group's f32 sum scaled by its
+//    f32 scale;
+//  * other M > 8 calls: dq_mma_kernel of dq_mma.cuh, the same arithmetic on
+//    mma.sync with synchronous loads.
 // The TPU kernel looks the level up with a select chain and multiplies the
 // group's product by the scale; the plain version (qtpu's XLA reference)
 // rounds level * scale to bf16 instead, a difference of the kind K1 has.
 #include "dq_mma.cuh"
+#include "dq_wgmma.cuh"
 
 using namespace qtpu;
 
@@ -59,5 +64,6 @@ extern "C" int qtpu_cb_matmul(const void* x, const void* data, const void* scale
   a.group = group;
   a.split_groups = split_groups;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wgmma_fits(a)) return launch_dq_wgmma<4, true>(a, st);
   return N % 4 == 0 ? cb_dispatch<true>(a, st) : cb_dispatch<false>(a, st);
 }

@@ -11,12 +11,16 @@
 //  * M <= 8: the weight-streaming GEMV of dq_core.cuh (each weight byte read
 //    once, dequantized in registers, K split across lanes and blocks so
 //    enough loads are in flight for the narrow decode shapes);
-//  * M > 8: dq_mma_kernel of dq_mma.cuh, on the tensor cores (mma.sync
-//    m16n8k16, bf16 in, f32 accumulate). Its B operand is the integer code
-//    minus the zero point, exact in bf16, so no weight is rounded; each
-//    group's f32 sum is scaled by the group's scale before it joins the
-//    accumulator, the per-group f32 correction the TPU kernel applies to
-//    its output tile. It needs g / PK packed rows per group to be a
+//  * M > 8, g 64 or 128, N % 16 == 0 and x, codes, scales and zeros 16-byte
+//    aligned (wgmma_fits): dq_wgmma_kernel of dq_wgmma.cuh, wgmma fed by TMA
+//    through mbarriers (its note gives the design). Its weight operand is
+//    the integer code minus the zero point, exact in bf16, so no weight is
+//    rounded; each group's f32 sum is scaled by the group's scale before it
+//    joins the accumulator, the per-group f32 correction the TPU kernel
+//    applies to its output tile;
+//  * other M > 8 calls (ragged N, other groups, an unaligned weight):
+//    dq_mma_kernel of dq_mma.cuh, the same arithmetic on mma.sync m16n8k16
+//    with synchronous loads. It needs g / PK packed rows per group to be a
 //    multiple of 16 (W4: g a multiple of 32); other groups take the GEMV
 //    path tiled over M.
 // The options of the TPU kernel (pallas_dequant_matmul.py:385-470): norm_w,
@@ -32,6 +36,7 @@
 // columns byte by byte; aligned shapes run the vector-load build (qtpu
 // sends ragged shapes to XLA, qtpu/kernels/dequant_matmul.py:64).
 #include "dq_mma.cuh"
+#include "dq_wgmma.cuh"
 
 using namespace qtpu;
 
@@ -47,6 +52,7 @@ int dq_dispatch(const DqArgs& a, cudaStream_t st) {
 
 template <int BITS>
 int dq_dispatch(const DqArgs& a, cudaStream_t st) {
+  if (wgmma_fits(a)) return launch_dq_wgmma<BITS, false>(a, st);
   return a.N % 4 == 0 ? dq_dispatch<BITS, true>(a, st) : dq_dispatch<BITS, false>(a, st);
 }
 
@@ -118,4 +124,13 @@ extern "C" int qtpu_dq_matmul_opt(const void* x, const void* data, const void* s
     case 8: return dq_option_dispatch<8>(a, st);
     default: return -1;
   }
+}
+
+// Host nanoseconds to encode the two tensor maps of one wgmma-route call of
+// qtpu_dq_matmul at W4 g128 (x [M, K], data [K / 2, N]), the mean over reps
+// encodes; -1 where the driver has no encoder or the shape is refused.
+extern "C" long long qtpu_dq_map_ns(const void* x, const void* data, int M, int K, int N,
+                                    int reps) {
+  const DqArgs a = make_args(x, data, nullptr, nullptr, nullptr, nullptr, K / 128, M, K, N, 128);
+  return wgmma_map_ns<4>(a, reps);
 }

@@ -10,6 +10,9 @@ reference `_codebook_matmul_ref` (gather the levels, times the f32 scale,
 rounded to the activation dtype, then matmul). The kernel rounds the level
 to bf16 on the tensor cores (M > 8) or keeps level * scale in f32 (M <= 8)
 instead, a known source of small differences (PERF.md gives them).
+The body a launch runs is `cb_route`, K1's rule (`dq_route`) at 4 bits;
+`codebook_matmul.wgmma_launches` and `.mma_launches` count the launches of
+the Hopper route (csrc/dq_wgmma.cuh) and the mma.sync body.
 """
 
 from __future__ import annotations
@@ -19,10 +22,16 @@ import torch
 from qtpu_torch.core.packing import unpack_int4
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import I, P, require
-from qtpu_torch.kernels.dequant_matmul import split_k
+from qtpu_torch.kernels.dequant_matmul import count_route, dq_route, split_k
 
 _SIG = {"qtpu_cb_matmul": [P, P, P, P, P, P, I, I, I, I, I, P]}
 MAX_LEVELS = 16
+
+
+def cb_route(M: int, N: int, group: int, ptrs) -> str:
+    """The body qtpu_cb_matmul runs: K1's rule (`dq_route`) at 4 bits, ptrs
+    the pointers of the codes and the scales."""
+    return dq_route(M, N, 4, group, ptrs)
 
 
 def codebook_weight(data, scales, codebook, meta, dtype):
@@ -69,7 +78,8 @@ def codebook_matmul(x, data, scales, codebook, meta):
     if codebook.numel() < MAX_LEVELS:  # codes index at most the table's levels
         lut = torch.zeros(MAX_LEVELS, dtype=torch.float32, device=x.device)
         lut[: codebook.numel()] = codebook
-    # M <= 8 runs the GEMV kernel, split over K; larger M the tensor-core one
+    route = cb_route(M, N, group, (data.data_ptr(), scales.data_ptr()))
+    # M <= 8 runs the GEMV kernel, split over K; larger M a tensor-core one
     per, part = split_k(x.device, M, K, N, group) if M <= 8 else (K // group, None)
     lib = _build.load("codebook_matmul", _SIG)
     rc = lib.qtpu_cb_matmul(
@@ -78,7 +88,10 @@ def codebook_matmul(x, data, scales, codebook, meta):
     )
     _build.check(rc, "codebook_matmul")
     codebook_matmul.launches += 1
+    count_route(codebook_matmul, route)
     return out
 
 
 codebook_matmul.launches = 0
+codebook_matmul.wgmma_launches = 0
+codebook_matmul.mma_launches = 0

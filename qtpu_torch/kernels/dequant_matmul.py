@@ -20,6 +20,12 @@ before the one cast. They take decode shapes (at most 32 rows, N % 4 == 0);
 their plain version is qtpu's XLA composition (norm in f32, cast, matmul,
 then `resid + y`). `quantized_matmul.norm_launches` and `.resid_launches`
 count the launches with each option (all are in `.launches`).
+
+Which body a launch runs is `dq_route`, the kernel's own rule on the shape
+and the weight's alignment: the GEMV (M <= 8), the Hopper route (wgmma fed
+by TMA, csrc/dq_wgmma.cuh) or the mma.sync body (csrc/dq_mma.cuh) for the
+M > 8 calls the Hopper route does not take. `quantized_matmul.wgmma_launches`
+and `.mma_launches` count the launches of those two (all are in `.launches`).
 """
 
 from __future__ import annotations
@@ -36,6 +42,32 @@ _SIG = {"qtpu_dq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, P],
         "qtpu_dq_matmul_opt": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]}
 
 OPTION_MAX_M = 32  # rows the options take (decode shapes: the GEMV kernel tiled by 8 rows)
+WGMMA_GROUPS = (64, 128)  # one whole group a stage of the Hopper route
+MMA_ROWS = 16  # packed rows a stage of the mma.sync body
+
+
+def dq_route(M: int, N: int, bits: int, group: int, ptrs) -> str:
+    """The body qtpu_dq_matmul (and qtpu_cb_matmul, bits 4) runs for an
+    [M, K] x [K, N] call without options, x 16-byte aligned as the wrappers
+    require; ptrs: the pointers of the packed tensors (codes, scales and the
+    zeros if any). "wgmma" (csrc/dq_wgmma.cuh's wgmma_fits: M > 8, group 64
+    or 128, N % 16 == 0 so TMA and the bulk copies can stride the N-wide
+    rows, every pointer 16-byte aligned), "mma" (csrc/dq_mma.cuh, the other
+    M > 8 calls whose groups hold a multiple of 16 packed rows) or "gemv"
+    (the rest)."""
+    if M <= 8:
+        return "gemv"
+    if group in WGMMA_GROUPS and N % 16 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "mma" if (group * bits // 8) % MMA_ROWS == 0 else "gemv"
+
+
+def count_route(wrapper, route: str) -> None:
+    """Adds one to the wrapper's counter of the route's launches."""
+    if route == "wgmma":
+        wrapper.wgmma_launches += 1
+    elif route == "mma":
+        wrapper.mma_launches += 1
 
 
 @lru_cache(maxsize=None)
@@ -118,7 +150,9 @@ def quantized_matmul(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=
     require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
     lib = _build.load("dequant_matmul", _SIG)
     if norm_w is None and resid is None:
-        # M <= 8 runs the GEMV kernel, split over K; larger M the tensor-core one
+        ptrs = [t.data_ptr() for t in (data, scales, zeros) if t is not None]
+        route = dq_route(M, N, bits, group, ptrs)
+        # M <= 8 runs the GEMV kernel, split over K; larger M a tensor-core one
         per, part = split_k(x.device, M, K, N, group) if M <= 8 else (K // group, None)
         rc = lib.qtpu_dq_matmul(
             x.data_ptr(), data.data_ptr(), scales.data_ptr(),
@@ -149,6 +183,8 @@ def quantized_matmul(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=
         )
     _build.check(rc, "dequant_matmul")
     quantized_matmul.launches += 1
+    if norm_w is None and resid is None:
+        count_route(quantized_matmul, route)
     if norm_w is not None:
         quantized_matmul.norm_launches += 1
     if resid is not None:
@@ -159,3 +195,5 @@ def quantized_matmul(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=
 quantized_matmul.launches = 0
 quantized_matmul.norm_launches = 0
 quantized_matmul.resid_launches = 0
+quantized_matmul.wgmma_launches = 0
+quantized_matmul.mma_launches = 0

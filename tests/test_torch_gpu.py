@@ -36,22 +36,52 @@ def _gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("group", [32, 64, 128])  # W2 g32: the GEMV path at M > 8
-@pytest.mark.parametrize("sym", [False, True])
-@pytest.mark.parametrize("M", [1, 8, 77, 300])
-def test_k1_matches_plain(cuda, bits, group, sym, M):
+# (K, N) of TinyLlama-1.1B's fused W4 g128 sites: the Hopper route's shapes
+# at serve prefill (M 1024) and eval (M 2048)
+TINYLLAMA_SITES = {"qkv": (2048, 2560), "o": (2048, 2048), "gateup": (2048, 11264),
+                   "down": (5632, 2048), "lm_head": (2048, 32000)}
+K1_CASES = (
+    # (bits, group, sym, M, K, N): W2/W4/W8 at every group, GEMV rows, ragged M
+    # (W2 g32: the GEMV path at M > 8; g64/g128 at M > 8: the Hopper route)
+    [(b, g, s, m, 512, 384) for b in (2, 4, 8) for g in (32, 64, 128) for s in (False, True)
+     for m in (1, 8, 77, 300)]
+    + [(4, 128, False, m, k, n) for k, n in TINYLLAMA_SITES.values() for m in (1024, 2048)]
+    + [(4, 128, False, m, 2048, 2560) for m in (77, 1000)]
+    + [(b, g, s, 1024, 2048, 2560) for b in (2, 8) for g in (64, 128) for s in (False, True)]
+)
+
+
+def _route_and_out(wrapper, call):
+    """call()'s output and the body the wrapper's route counters saw."""
+    w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
+    out = call()
+    torch.cuda.synchronize()
+    if wrapper.wgmma_launches > w0:
+        return out, "wgmma"
+    return out, "mma" if wrapper.mma_launches > m0 else "gemv"
+
+
+def _same_bits(a, b):
+    return bool((a.view(torch.int16) == b.view(torch.int16)).all())
+
+
+@pytest.mark.parametrize("bits,group,sym,M,K,N", K1_CASES)
+def test_k1_matches_plain(cuda, bits, group, sym, M, K, N):
     g = _gen()
-    K, N = 512, 384
     qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, bits, group, sym)
     x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
     meta = (bits, group, K, N)
     n0 = k1.quantized_matmul.launches
-    got = k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta)
+    got, route = _route_and_out(
+        k1.quantized_matmul, lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta))
     want = k1.quantized_matmul_plain(x, qt.data, qt.scales, qt.zeros, meta)
     torch.cuda.synchronize()
     assert k1.quantized_matmul.launches == n0 + 1
     assert _rel(got, want) < 2e-2
+    ptrs = [t.data_ptr() for t in (qt.data, qt.scales, qt.zeros) if t is not None]
+    assert route == k1.dq_route(M, N, bits, group, ptrs)
+    if M > 8:  # the tensor-core routes give the same bits call after call
+        assert _same_bits(got, k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta))
 
 
 def test_k1_raises_on_what_it_does_not_take(cuda):
@@ -150,19 +180,26 @@ def _pot_site(g, K, N, group, dev, apot=False):
     return pack_int4(codes, group), sc.to(torch.bfloat16), cb
 
 
-@pytest.mark.parametrize("group", [32, 64, 128])
-@pytest.mark.parametrize("M", [1, 8, 77, 300])
-@pytest.mark.parametrize("apot", [False, True])
-def test_k7_matches_plain(cuda, group, M, apot):
+K7_CASES = (
+    # (group, M, apot, K, N)
+    [(g, m, a, 512, 384) for g in (32, 64, 128) for m in (1, 8, 77, 300) for a in (False, True)]
+    + [(128, m, a, k, n) for k, n in TINYLLAMA_SITES.values() for m in (1024, 2048)
+       for a in (False, True)]
+    + [(g, m, a, 2048, 2560) for g in (64, 128) for m in (77, 1000) for a in (False, True)]
+)
+
+
+@pytest.mark.parametrize("group,M,apot,K,N", K7_CASES)
+def test_k7_matches_plain(cuda, group, M, apot, K, N):
     from qtpu_torch.kernels import codebook_matmul as k7
 
     g = _gen()
-    K, N = 512, 384
     data, sc, cb = _pot_site(g, K, N, group, cuda, apot)
     x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
     meta = (4, group, K, N)
     n0 = k7.codebook_matmul.launches
-    got = k7.codebook_matmul(x, data, sc, cb, meta)
+    got, route = _route_and_out(k7.codebook_matmul,
+                                lambda: k7.codebook_matmul(x, data, sc, cb, meta))
     want = k7.codebook_matmul_plain(x, data, sc, cb, meta)
     torch.cuda.synchronize()
     assert k7.codebook_matmul.launches == n0 + 1
@@ -170,6 +207,69 @@ def test_k7_matches_plain(cuda, group, M, apot):
     assert _rel(got, want) < 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=0.05 * float(want.float().abs().max()))
+    assert route == k7.cb_route(M, N, group, (data.data_ptr(), sc.data_ptr()))
+    if M > 8:
+        assert _same_bits(got, k7.codebook_matmul(x, data, sc, cb, meta))
+
+
+def test_hopper_route_replays_in_a_cuda_graph(cuda):
+    """K1 and K7 on the Hopper route captured in a CUDA graph (the tensor
+    maps are encoded at capture and live in the launch's parameters) give
+    the eager call's bits on replay."""
+    from qtpu_torch.kernels import codebook_matmul as k7
+
+    g = _gen()
+    K, N, M = 2048, 2560, 300
+    qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, 4, 128)
+    data, sc, cb = _pot_site(g, K, N, 128, cuda)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    m1, m7 = (4, 128, K, N), (4, 128, K, N)
+    eager = (k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, m1),
+             k7.codebook_matmul(x, data, sc, cb, m7))
+    w1, w7 = k1.quantized_matmul.wgmma_launches, k7.codebook_matmul.wgmma_launches
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm on a side stream before capture
+        k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, m1)
+        k7.codebook_matmul(x, data, sc, cb, m7)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y1 = k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, m1)
+        y7 = k7.codebook_matmul(x, data, sc, cb, m7)
+    y1.zero_()
+    y7.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert k1.quantized_matmul.wgmma_launches == w1 + 2
+    assert k7.codebook_matmul.wgmma_launches == w7 + 2
+    assert _same_bits(y1, eager[0]) and _same_bits(y7, eager[1])
+
+
+@pytest.mark.parametrize("M,N,group,route", [
+    (300, 384, 128, "wgmma"), (300, 384, 64, "wgmma"),  # the Hopper route
+    (300, 388, 128, "mma"),    # N % 16 != 0: the mma.sync body
+    (300, 384, 256, "mma"),    # a group of 256: the mma.sync body
+    (8, 384, 128, "gemv"),     # decode rows
+])
+def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
+    """The wrapper's route counters agree with the kernel the profiler saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = _gen()
+    K = 512
+    qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, 4, group)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    meta = (4, group, K, N)
+    k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, seen = _route_and_out(
+            k1.quantized_matmul, lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta))
+    names = [e.key for e in prof.key_averages() if "dq_" in e.key]
+    kernel = {"wgmma": "dq_wgmma_kernel", "mma": "dq_mma_kernel", "gemv": "dq_kernel"}[route]
+    assert seen == route
+    assert names and all(kernel in n for n in names if "dq_finish" not in n), names
 
 
 def test_k7_raises_on_what_it_does_not_take(cuda):
