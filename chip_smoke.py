@@ -24,16 +24,22 @@ Phases, each printing one JSON line:
            layer, M 8, W4, beside the K1 + K4 + K1 chains it replaces; K1 and
            K7 at the five TinyLlama sites at prefill M 1024 and eval M 2048 on
            the Hopper route, csrc/dq_wgmma.cuh, with K1's earlier mma.sync
-           body timed on the same bytes through K9 with one expert as "was",
-           the route each call took against dq_route's rule, two calls giving
-           the same bits, W2/W4/W8 g64/g128 and ragged M on the route, OPT's
-           q/k/v and lm_head, and the host cost of encoding its tensor maps),
-           with times: kernel, plain
-           version, one PyTorch library call where one computes the same
-           function, and the bound from bytes and operations at 3.35 TB/s and
-           989 TFLOP/s bf16 or 1,979 TOP/s int8 (H100 SXM data sheet); a
-           kernels_hopper_route line gives each Hopper-route site against
-           torch.matmul on the dequantized weight and its share of the bound
+           body timed on the same bytes through K9's mma.sync entry with one
+           expert as "was", the route each call took against dq_route's rule,
+           two calls giving the same bits, W2/W4/W8 g64/g128 and ragged M on
+           the route, OPT's q/k/v and lm_head, and the host cost of encoding
+           its tensor maps; K9 at M 1024 on the same route with its expert
+           axis and K6 at M 1024 and 2048 on its int8 route, each with the
+           route against its rule (moe_route, w8a8_route), two calls giving
+           the same bits, K6's bits equal to its mma.sync body's, and the
+           mma.sync bodies timed on the same bytes as "was"), with times:
+           kernel, plain version, one PyTorch library call where one
+           computes the same function, and the bound from bytes and
+           operations at 3.35 TB/s and 989 TFLOP/s bf16 or 1,979 TOP/s int8
+           (H100 SXM data sheet); a kernels_hopper_route line gives each
+           Hopper-route site against its library call (torch.matmul on the
+           dequantized weight, torch.bmm on the bf16 experts, torch._int_mm)
+           and its share of the bound
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions), RTN W4 on
            the int8 KV cache and POT W4 on the bf16 cache; and a 2-layer
@@ -57,8 +63,9 @@ Phases, each printing one JSON line:
            checked against its count per prefill and per decode step, and
            every K1 launch of the prefill on the Hopper route (the route
            counters; so too in eval, pot_apot and serve_bf16 for their eval
-           blocks and prefills); then the host wall time of steady 16-step
-           decode blocks
+           blocks and prefills, for K6 in quant and serve_w8a8 and for K9 in
+           serve_moe and the Mixtral e2e); then the host wall time of steady
+           16-step decode blocks
   profile  torch.profiler over one warm prefill and one 16-step decode block
            of the serve cell: host and device time per step, the device busy
            share and the kernels that take the device time; and the host wall
@@ -282,8 +289,8 @@ def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=
     its counters saw against dq_route's rule, and at M > 8 two calls giving
     the same bits; timed: the kernel, the plain version, torch.matmul on
     the weight dequantized to bf16 and the bound; was: the mma.sync body of
-    the earlier route on the same bytes (K9 with one expert and x shared,
-    which runs dq_mma_body<BITS, false>)."""
+    the earlier route on the same bytes (K9's mma.sync entry, moe_matmul_mma,
+    with one expert and x shared, which runs dq_mma_body<BITS, false>)."""
     from qtpu_torch.core.packing import dequantize_parts
     from qtpu_torch.kernels import moe_matmul as k9
     from qtpu_torch.kernels.dequant_matmul import (dq_route, quantized_matmul,
@@ -332,9 +339,9 @@ def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=
     if was:
         ex = [(data[i][None], scales[i][None], None if zeros is None else zeros[i][None])
               for i in range(copies)]
-        row["was_ms"], _ = cuda_ms(torch, [lambda e=e: k9.moe_matmul(x, *e, meta) for e in ex],
+        row["was_ms"], _ = cuda_ms(torch, [lambda e=e: k9.moe_matmul_mma(x, *e, meta) for e in ex],
                                    wbytes)
-        row["was"] = "dq_mma_body (mma.sync) on the same bytes, through K9 with one expert"
+        row["was"] = "dq_mma_body (mma.sync) on the same bytes, K9's moe_matmul_mma, one expert"
     return row
 
 
@@ -707,9 +714,59 @@ def phase_kernels(torch, ctx):
                     "over_library": r["ms"] / r["library_ms"],
                     "bound_share": r["bound_ms"] / r["ms"], "was_ms": r.get("was_ms"),
                     "route": r["route"]}
-    worst = max(v["over_library"] for v in route_sites.values())
+    # K9 with its expert axis on the route (dq_wgmma.cuh) at every M > 8
+    # case, against torch.bmm on the bf16 experts; the work of one serve_moe
+    # prefill (8 x 128 rows): MOE_LAYERS x (gate, up, down)
+    k9_route = {n: r for n, r in k9r.items() if r["M"] > 8}
+    for n, r in k9_route.items():
+        route_sites[f"moe_{n}"] = {
+            "E": r["E"], "M": r["M"], "K": r["K"], "N": r["N"],
+            "per_expert_input": r["per_expert_input"], "route": r["route"], "rule": r["rule"],
+            "rel_err": r["rel_err"], "same_bits_two_calls": r["same_bits_two_calls"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "was_ms": r["was_ms"],
+            "library_ms": r["library_ms"], "over_library": r["ms"] / r["library_ms"],
+            "bound_ms": r["bound_ms"], "bound_share": r["bound_ms"] / r["ms"]}
+    ctx["kernel_rows"]["moe_matmul_wgmma"] = {
+        "route": "cuda", "source": "qtpu_torch/csrc/dq_wgmma.cuh",
+        "replaces": "qtpu/kernels/pallas_moe_matmul.py:40",
+        "max_abs_err": max(r["max_abs_err"] for r in k9_route.values()),
+        **{key: MOE_LAYERS * (2 * k9r["gate_up_prefill"][key] + k9r["down_prefill"][key])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "operations",
+    }
+    # K6 on its int8 route (w8a8_matmul.cu) at the five sites, M 1024 and
+    # 2048, against torch._int_mm on x_q and the bf16 matmul; the work of one
+    # W8A8 prefill (M 1024): L x (q, k, v, o, gate, up, down) + lm_head
+    for site in K6_SITES:
+        for m in ("prefill", "eval"):
+            r = k6r[f"{site}_{m}"]
+            route_sites[f"w8a8_{site}_{m}"] = {
+                "M": r["M"], "K": r["K"], "N": r["N"], "route": r["route"], "rule": r["rule"],
+                "rel_err": r["rel_err"], "same_bits_two_calls": r["same_bits_two_calls"],
+                "bits_equal_mma_body": r["bits_equal_mma_body"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "was_ms": r["was_ms"],
+                "library_ms": r["int_mm_ms"], "bf16_matmul_ms": r["bf16_matmul_ms"],
+                "over_library": r["ms"] / r["int_mm_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "bound_share": r["bound_ms"] / r["ms"]}
+    ctx["kernel_rows"]["w8a8_matmul_wgmma"] = {
+        "route": "cuda", "source": "qtpu_torch/csrc/w8a8_matmul.cu",
+        "replaces": "qtpu/kernels/pallas_int8_matmul.py:58",
+        "max_abs_err": max(k6r[f"{s}_{m}"]["max_abs_err"] for s in K6_SITES
+                           for m in ("prefill", "eval")),
+        **{key: _k6_block(k6r, key, L, "prefill") for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": _k6_bound_by(k6r, L, "prefill"),
+        "library_ms": _k6_block(k6r, "int_mm_ms", L, "prefill"),
+    }
+    worst = {}
+    for name, v in route_sites.items():
+        kernel = name.split("_")[0]
+        worst[kernel] = max(worst.get(kernel, 0.0), v["over_library"])
     emit({"phase": "kernels_hopper_route", "card": ctx["smi"], "sites": route_sites,
-          "worst_over_library": worst, "aim": "at most 2x torch.matmul at every site"})
+          "worst_over_library": worst,
+          "library": {"dequant": "torch.matmul on the dequantized weight",
+                      "codebook": "torch.matmul on the dequantized weight",
+                      "moe": "torch.bmm on the experts dequantized to bf16",
+                      "w8a8": "torch._int_mm on x_q and the column-major int8 weight"}})
 
 
 EVAL_BLOCK = 2048  # test_block_size of the eval phase
@@ -723,9 +780,13 @@ K6_PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}  # calls per layer
 def _k6_rows(torch, gen, dev):
     """K6 against its plain version at every W8A8 site of TinyLlama at
     decode, prefill and eval M (tolerance: the Pallas kernel's test, max
-    |err| / max |ref| < 2e-2), with times: the kernel, the plain version,
-    torch._int_mm on x quantized beforehand and the int8 weight made
-    column-major beforehand (M >= 17 only), torch.matmul on the weight
+    |err| / max |ref| < 2e-2, and relative error < 2e-2), the route its
+    counters saw against w8a8_route's rule, and at M > 8 two calls giving
+    the same bits and the same bits as the mma.sync body (the int32 sums
+    are exact and the epilogue's float order is the body's), with times:
+    the kernel, the plain version, the mma.sync body on the same bytes (M >
+    8, "was"), torch._int_mm on x quantized beforehand and the int8 weight
+    made column-major beforehand (M >= 17 only), torch.matmul on the weight
     dequantized to bf16 beforehand, and the bound (int8 rate)."""
     from qtpu_torch.core.packing import dequantize_parts, quantize_pack
     from qtpu_torch.kernels import int8_matmul as k6
@@ -742,16 +803,32 @@ def _k6_rows(torch, gen, dev):
         w_bf = [dequantize_parts(qt.data, qt.scales, qt.zeros, 8, K) for qt in qts[:nlib]]
         for mname, M in K6_M.items():
             x = (torch.randn(M, K, generator=gen, device=dev) * 2).to(torch.bfloat16)
-            got = k6.w8a8_matmul(x, qts[0].data, qts[0].scales, qts[0].zeros, meta)
-            want = k6.w8a8_matmul_plain(x, qts[0].data, qts[0].scales, qts[0].zeros, meta)
+            q0 = qts[0]
+            got, route = _route_taken(torch, k6.w8a8_matmul,
+                                      lambda: k6.w8a8_matmul(x, q0.data, q0.scales, q0.zeros, meta))
+            want = k6.w8a8_matmul_plain(x, q0.data, q0.scales, q0.zeros, meta)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             err = float(diff.max() / (want.float().abs().max() + 1e-6))
             row = {"M": M, "K": K, "N": N, "err_max_over_max_ref": err,
                    "max_abs_err": float(diff.max()), "rel_err": rel_err(torch, got, want),
-                   "bf16_equal_share": float((got == want).float().mean()), "tol": 2e-2}
-            if err >= 2e-2 or not torch.isfinite(got.float()).all():
+                   "bf16_equal_share": float((got == want).float().mean()), "tol": 2e-2,
+                   "route": route,
+                   "rule": k6.w8a8_route(M, N, (q0.data.data_ptr(), q0.scales.data_ptr()))}
+            if err >= 2e-2 or row["rel_err"] >= 2e-2 or not torch.isfinite(got.float()).all():
                 raise AssertionError(f"K6 disagrees with its plain version: {row}")
+            if route != row["rule"]:
+                raise AssertionError(f"K6 ran the {route} body where its rule says {row['rule']}")
+            if M > 8:
+                again = k6.w8a8_matmul(x, q0.data, q0.scales, q0.zeros, meta)
+                body = k6.w8a8_matmul_mma(x, q0.data, q0.scales, q0.zeros, meta)
+                torch.cuda.synchronize()
+                row["same_bits_two_calls"] = _bits_equal(torch, got, again)
+                row["bits_equal_mma_body"] = _bits_equal(torch, got, body)
+                row["max_abs_diff_mma_body"] = float((got.float() - body.float()).abs().max())
+                if not (row["same_bits_two_calls"] and row["bits_equal_mma_body"]):
+                    raise AssertionError(f"K6's route differs call to call or from its "
+                                         f"mma.sync body: {site} M {M} {row}")
             row["bound_ms"], row["bound_by"] = bound(M * K * 2 + wbytes + M * N * 2,
                                                      2 * M * K * N, INT8_OP_PER_S)
             row["ms"], row["timing"] = cuda_ms(
@@ -760,6 +837,11 @@ def _k6_rows(torch, gen, dev):
             row["plain_ms"], _ = cuda_ms(
                 torch, [lambda q=q: k6.w8a8_matmul_plain(x, q.data, q.scales, q.zeros, meta)
                         for q in qts], wbytes)
+            if M > 8:
+                row["was_ms"], _ = cuda_ms(
+                    torch, [lambda q=q: k6.w8a8_matmul_mma(x, q.data, q.scales, q.zeros, meta)
+                            for q in qts], wbytes)
+                row["was"] = "w8a8_mma_kernel (mma.sync) on the same bytes, w8a8_matmul_mma"
             row["int_mm_ms"] = None
             if M >= 17:
                 xq, _ = k6.quantize_activations(x)
@@ -965,9 +1047,11 @@ def _dequant_experts(torch, site):
 def _k9_rows(torch, gen, dev):
     """K9 against its plain version at Mixtral-8x7B's expert sites (decode M
     = 8, prefill M = 1024) and one Qwen2-57B-A14B site (tolerance: K1's,
-    relative error < 2e-2), with times: the kernel, the plain version,
-    torch.bmm on the experts dequantized to bf16 beforehand, and the bound
-    (every expert's packed bytes and all products)."""
+    relative error < 2e-2), the route its counters saw against moe_route's
+    rule, and at M > 8 two calls giving the same bits, with times: the
+    kernel, the plain version, the mma.sync body on the same bytes (M > 8,
+    "was"), torch.bmm on the experts dequantized to bf16 beforehand, and the
+    bound (every expert's packed bytes and all products)."""
     from qtpu_torch.kernels import moe_matmul as k9
 
     rows, shape = {}, None
@@ -979,14 +1063,26 @@ def _k9_rows(torch, gen, dev):
         meta = (4, MOE_GROUP, K, N)
         x = torch.randn(*((E,) if per_expert else ()), M, K, generator=gen, device=dev)
         x = x.to(torch.bfloat16)
-        got = k9.moe_matmul(x, *site, meta, per_expert_input=per_expert)
+        got, route = _route_taken(
+            torch, k9.moe_matmul,
+            lambda: k9.moe_matmul(x, *site, meta, per_expert_input=per_expert))
         want = k9.moe_matmul_plain(x, *site, meta, per_expert_input=per_expert)
         torch.cuda.synchronize()
+        ptrs = [t.data_ptr() for t in site]
         row = {"E": E, "M": M, "K": K, "N": N, "per_expert_input": per_expert,
                "rel_err": rel_err(torch, got, want),
-               "max_abs_err": float((got.float() - want.float()).abs().max()), "tol_rel": 2e-2}
+               "max_abs_err": float((got.float() - want.float()).abs().max()), "tol_rel": 2e-2,
+               "route": route, "rule": k9.moe_route(M, K, N, 4, MOE_GROUP, ptrs, per_expert)}
         if row["rel_err"] >= 2e-2 or not torch.isfinite(got.float()).all():
             raise AssertionError(f"K9 disagrees with its plain version: {name} {row}")
+        if route != row["rule"]:
+            raise AssertionError(f"K9 ran the {route} body where its rule says {row['rule']}")
+        if M > 8:
+            again = k9.moe_matmul(x, *site, meta, per_expert_input=per_expert)
+            torch.cuda.synchronize()
+            row["same_bits_two_calls"] = _bits_equal(torch, got, again)
+            if not row["same_bits_two_calls"]:
+                raise AssertionError(f"K9's two calls differ: {name} {row}")
         wbytes = E * (K * N / 2 + (K // MOE_GROUP) * N * 3)
         row["bound_ms"], row["bound_by"] = bound(wbytes + x.numel() * 2 + E * M * N * 2,
                                                  2 * E * M * K * N)
@@ -995,6 +1091,11 @@ def _k9_rows(torch, gen, dev):
         row["plain_ms"], _ = cuda_ms(
             torch, [lambda: k9.moe_matmul_plain(x, *site, meta, per_expert_input=per_expert)],
             wbytes)
+        if M > 8:
+            row["was_ms"], _ = cuda_ms(
+                torch, [lambda: k9.moe_matmul_mma(x, *site, meta, per_expert_input=per_expert)],
+                wbytes)
+            row["was"] = "dq_mma_body (mma.sync) per expert on the same bytes, moe_matmul_mma"
         xb = x if per_expert else x.expand(E, M, K)
         row["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xb, wd)], wd.numel() * 2)
         rows[name] = row
@@ -1961,6 +2062,7 @@ def _moe_e2e(torch):
         with _Held(torch) as held:
             gpu, _ = run(packed, "cuda", toks)
         counts = _counts()
+        routes = _route_counts()
         t0 = time.perf_counter()
         moe._route = _route_tap(moe, route, [])
         with _F32Arithmetic(torch):
@@ -1986,7 +2088,7 @@ def _moe_e2e(torch):
         res = {"phase": "e2e", "model": "Mixtral-8x7B width", "method": "rtn W4 g128", "kv": kv,
                "layers": L, "B": B, "prompt": T, "decode_steps": steps,
                "route": "gathered" if gathered else "grouped", "rel_err_per_step": errs,
-               "top1_agree": top1, "cpu_s": cpu_s, "launches": counts,
+               "top1_agree": top1, "cpu_s": cpu_s, "launches": counts, "routes": routes,
                "expected_launches": expect, "tol_rel": 3e-2,
                "route_flips_per_layer": flips,
                "routes_per_layer": sum(t.numel() for l, t in routes_cpu if l == 0),
@@ -2003,6 +2105,8 @@ def _moe_e2e(torch):
             raise AssertionError(f"card and CPU MoE logits differ: {res}")
         if any(counts[k] != v for k, v in expect.items()):
             raise AssertionError(f"the MoE run's launches {counts} != {expect}")
+        # the prefill's K1 and K9 launches (B x 16 rows) took the Hopper route
+        _check_routes(f"e2e MoE {kv}", routes, k1=4 * L + 1, k9=3 * L)
         emit(_moe_teacher_forced(torch, cfg, packed, dense, dense32, qmeta, ids, toks, kv))
     del packed, dense, dense32
     torch.cuda.empty_cache()
@@ -2898,14 +3002,19 @@ WRAPPERS = {  # kernel -> (module, wrapper name)
     "dequant_matmul_norm_w": ("dequant_matmul", "quantized_matmul", "norm_launches"),
     "dequant_matmul_resid": ("dequant_matmul", "quantized_matmul", "resid_launches"),
 }
-# the route counters of K1 and K7: launches of the Hopper route
-# (csrc/dq_wgmma.cuh) and of the mma.sync body (csrc/dq_mma.cuh), kept apart
-# from WRAPPERS' counts (each such launch is also in its kernel's count)
+# the route counters of K1, K7, K9 and K6: launches of the Hopper route
+# (csrc/dq_wgmma.cuh; K6's in csrc/w8a8_matmul.cu) and of the mma.sync body,
+# kept apart from WRAPPERS' counts (each such launch is also in its kernel's
+# count)
 ROUTES = {
     "dequant_matmul_wgmma": ("dequant_matmul", "quantized_matmul", "wgmma_launches"),
     "dequant_matmul_mma": ("dequant_matmul", "quantized_matmul", "mma_launches"),
     "codebook_matmul_wgmma": ("codebook_matmul", "codebook_matmul", "wgmma_launches"),
     "codebook_matmul_mma": ("codebook_matmul", "codebook_matmul", "mma_launches"),
+    "moe_matmul_wgmma": ("moe_matmul", "moe_matmul", "wgmma_launches"),
+    "moe_matmul_mma": ("moe_matmul", "moe_matmul", "mma_launches"),
+    "w8a8_matmul_wgmma": ("int8_matmul", "w8a8_matmul", "wgmma_launches"),
+    "w8a8_matmul_mma": ("int8_matmul", "w8a8_matmul", "mma_launches"),
 }
 # the kernels of the layer-boundary branches (K13, K1's options), which only
 # the boundary phase's switches turn on
@@ -2943,11 +3052,13 @@ def _route_counts():
     return {k: getattr(w, attr) for k, (w, attr) in _wrappers(ROUTES).items()}
 
 
-def _check_routes(phase, routes, k1=0, k7=0):
-    """Every K1 (k1) and K7 (k7) launch of a prefill or eval block took the
-    Hopper route, and none the mma.sync body."""
+def _check_routes(phase, routes, k1=0, k7=0, k9=0, k6=0):
+    """Every K1 (k1), K7 (k7), K9 (k9) and K6 (k6) launch of a prefill or eval
+    block took the Hopper route, and none the mma.sync body."""
     expect = {"dequant_matmul_wgmma": k1, "dequant_matmul_mma": 0,
-              "codebook_matmul_wgmma": k7, "codebook_matmul_mma": 0}
+              "codebook_matmul_wgmma": k7, "codebook_matmul_mma": 0,
+              "moe_matmul_wgmma": k9, "moe_matmul_mma": 0,
+              "w8a8_matmul_wgmma": k6, "w8a8_matmul_mma": 0}
     if routes != expect:
         raise AssertionError(f"{phase}: route launches {routes} != expected {expect}")
 
@@ -2955,7 +3066,9 @@ def _check_routes(phase, routes, k1=0, k7=0):
 def _kind(name: str) -> str:
     """The kernel of a profiled CUDA kernel's name, for the splits by kind."""
     # dq_kernel<BITS, TM, CQ, MODE, VEC>, dq_finish<MODE>, dq_mma_kernel<BITS, CB, VEC>,
-    # dq_wgmma_kernel<BITS, CB, G>
+    # dq_wgmma_kernel<BITS, CB, G, EXPERTS>
+    if "dq_wgmma_kernel<" in name and name.split(">")[0].endswith("true"):
+        return "K9 moe_matmul"  # the Hopper route's expert axis
     if "dq_" in name and any(t in name for t in (", 3, ", "dq_finish<3>", "dq_mma_kernel<4, true",
                                                   "dq_wgmma_kernel<4, true")):
         return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
@@ -3057,7 +3170,7 @@ def phase_quant(torch, ctx):
            "serving_tokens_per_s": res.get("serving", {}).get("tokens_per_second"),
            "errors": {k: v.get("error") or v.get("packed_error") for k, v in res.items()},
            "peak_mem_gib": peak_gib, "launches": counts, "expected_launches": expect,
-           "card": ctx["smi"]}
+           "routes": routes, "card": ctx["smi"]}
     emit(out)
     if rc != 0 or any(out["errors"].values()) or set(res) != {"raw", *methods, "serving"}:
         raise AssertionError(f"the benchmark run failed: {out['errors']}")
@@ -3070,6 +3183,10 @@ def phase_quant(torch, ctx):
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
     if not res["serving"].get("tokens_per_second"):
         raise AssertionError("the serving pseudo-method measured nothing")
+    # every K1 launch of the awq and gptq packed eval blocks (M 2048) and
+    # every K6 launch of the smoothquant eval blocks and serving prefills
+    # (M 1024) took the Hopper route
+    _check_routes("quant", routes, k1=2 * nb * (4 * L + 1), k6=(nb + runs) * a8)
     ctx.setdefault("path_launches", {})["quant"] = {**counts, **routes}
 
     # the costs, each timed on the host around a synchronize
@@ -3180,7 +3297,7 @@ def phase_serve_w8a8(torch, ctx):
               "fused_mlp": 0, "flash_attention": 0, "w8a8_matmul": (7 * L + 1) * (steps + pre),
               **NO_CODEBOOK}
     tokens = sum(len(r.output) for r in done)
-    emit({"phase": "serve_w8a8", "model": "TinyLlama-1.1B", "layers": L,
+    emit({"phase": "serve_w8a8", "routes": routes, "model": "TinyLlama-1.1B", "layers": L,
           "method": "smoothquant W8A8 alpha 0.5", "kv": "int8", "requests": len(done),
           "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall, "setup_s": setup_s,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "decode_steps": steps,
@@ -3193,6 +3310,8 @@ def phase_serve_w8a8(torch, ctx):
             raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
     if counts != expect or steps == 0:
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    # every K6 launch of a prefill (8 x 128 rows) took the Hopper route
+    _check_routes("serve_w8a8", routes, k6=(7 * L + 1) * pre)
     ctx.setdefault("path_launches", {})["serve_w8a8"] = {**counts, **routes}
 
     cache = init_cache(cfg, B, P + SERVE_NEW + 16, quantized=True, device="cuda")
@@ -3542,6 +3661,9 @@ def _moe_engine(torch, params, qmeta, cfg, slots, requests):
             raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
     if counts != expect or steps == 0:
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    # every K1 and K9 launch of a prefill (128 rows a prompt) took the Hopper route
+    _check_routes(f"serve_moe {slots} slots", routes, k1=MOE_PER_STEP["dequant_matmul"] * pre,
+                  k9=MOE_PER_STEP["moe"] * pre)
     return res, eng
 
 

@@ -1,5 +1,6 @@
-// Hopper tensor-core route of K1 (dequant_matmul.cu) and K7
-// (codebook_matmul.cu) for M > 8: wgmma fed by TMA through mbarriers.
+// Hopper tensor-core route of K1 (dequant_matmul.cu), K7
+// (codebook_matmul.cu) and K9 (moe_matmul.cu, the EXPERTS instances) for
+// M > 8: wgmma fed by TMA through mbarriers (the helpers: tma.cuh).
 //
 // Computes what the TPU kernels compute, _dq_matmul_acc and
 // _cb_matmul_kernel (qtpu/kernels/pallas_dequant_matmul.py:68-321):
@@ -79,16 +80,24 @@
 //    group and the pointers' alignment; the wrappers mirror it
 //    (qtpu_torch/kernels/dequant_matmul.py: dq_route) to count launches per
 //    route. A failed encode or launch returns its error, which the wrapper
-//    raises: there is no fallback to another body.
+//    raises: there is no fallback to another body;
+//  * K9's expert axis (EXPERTS, a template parameter, so K1's and K7's
+//    instances compile as they did): the walk spans E x ceil(M / 128) x
+//    ceil(N / 128) tiles, along M first inside one expert's column tile
+//    (wg_expert_tile), and a stage is still one whole group of one expert.
+//    The experts' leaves follow one another, so the weight's map is 2D over
+//    [E K / PK, N] rows and expert e's group s is row e K / g + s of the
+//    scales and zeros; a per-expert x is one 2D map over [E M, K] rows (a
+//    3D map would zero-fill past M inside each expert, but the epilogue
+//    masks those rows anyway), a shared x the [M, K] map of K1.
 // Everything here has internal linkage (an anonymous namespace), so the
 // libraries that include it keep their own kernels and launch records.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (header only: no -lcuda)
-
 #include <chrono>
 
 #include "dq_core.cuh"
+#include "tma.cuh"
 
 namespace qtpu {
 namespace {
@@ -127,71 +136,27 @@ struct WgLayout {
 };
 
 struct WgArgs {
-  const __nv_bfloat16* scales;  // [K / G, N]
-  const uint8_t* zeros;         // [K / G, N] or nullptr (symmetric; unused with CB)
+  const __nv_bfloat16* scales;  // [K / G, N] ([E, K / G, N] with EXPERTS)
+  const uint8_t* zeros;         // the same in uint8, or nullptr (symmetric; unused with CB)
   const float* cb;              // CB: 16 f32 levels
-  __nv_bfloat16* out;           // [M, N]
+  __nv_bfloat16* out;           // [M, N] ([E, M, N] with EXPERTS)
   int M, K, N;
+  // EXPERTS (K9): the experts, x's map rows between two experts' inputs (M,
+  // or 0 for an input all experts share) and the elements between outputs
+  int E, x_rows;
+  long long o_es;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// one arrival for the calling warp once all its lanes are here (the
-// barriers count warps)
-__device__ __forceinline__ void warp_arrive(uint32_t bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0)
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// waits for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16, both addresses 16-byte aligned) completing on bar
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major operand in 128-byte swizzled rows: 8-row
-// core matrices 1024 bytes apart (SBO 64 x 16 B), LBO unused (1), layout 1
-__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
+// K9's tile t of the expert walk (EXPERTS): expert e, column tile nt and
+// row tile mt with t = (e ntn + nt) ntm + mt, along M first inside one
+// expert's column tile, so the blocks that run together read the same
+// weight columns (one of them from device memory, the rest from L2). Sets
+// the tile's first row and column; returns e.
+__device__ __forceinline__ int wg_expert_tile(int tile, int ntn, int ntm, int& m0, int& n0) {
+  const int r = tile / ntm;
+  m0 = (tile - r * ntm) * kWgBM;
+  n0 = (r % ntn) * kWgBN;
+  return r / ntn;
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A from registers (the fragment
@@ -231,11 +196,6 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
 __device__ __forceinline__ void wg_fence_f32(float* d) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_fence_u32(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
@@ -358,12 +318,16 @@ __device__ __forceinline__ void wg_fragments(const uint8_t* ps, const uint8_t* s
 // The loads of group s of the tile at (m0, n0), the block's g-th stage,
 // into ring slot g % RING: x's NA boxes and the packed tile (TMA), the
 // group's scales and zeros of the tile's columns (bulk copies; ncol = the
-// tile's columns below N, a multiple of 16).
+// tile's columns below N, a multiple of 16). m0: the tile's first row in
+// x's map; sg: the group's row among the weight's groups. For K1 and K7 they
+// are the tile's first row and s; for K9 the expert's rows come first (e M
+// + m0 for a per-expert x, and e K / g + s, since the experts' codes, scales
+// and zeros follow one another in their [E, ...] leaves).
 template <int BITS, bool CB, int G>
 __device__ __forceinline__ void wg_issue(const CUtensorMap* tmx, const CUtensorMap* tmw,
                                          const WgArgs& a, uint8_t* xs, uint8_t* ps,
                                          uint8_t* ss, uint64_t* full, int g, int s, int m0,
-                                         int n0, int ncol) {
+                                         int n0, int ncol, int sg) {
   using L = WgLayout<BITS, G, CB>;
   const int slot = g % L::RING;
   const uint32_t bar = smem_u32(full + slot);
@@ -373,10 +337,10 @@ __device__ __forceinline__ void wg_issue(const CUtensorMap* tmx, const CUtensorM
   for (int at = 0; at < L::NA; ++at)
     tma_load_2d(smem_u32(xs + slot * L::XS + at * kWgBM * 128), tmx, bar, s * G + at * kWgAtom,
                 m0);
-  tma_load_2d(smem_u32(ps + slot * L::PS), tmw, bar, n0, s * L::R);
+  tma_load_2d(smem_u32(ps + slot * L::PS), tmw, bar, n0, sg * L::R);
   uint8_t* sz = ss + slot * (kWgBN * 3);  // [128] bf16 scales, then [128] uint8 zeros
-  bulk_load(smem_u32(sz), a.scales + (size_t)s * a.N + n0, ncol * 2, bar);
-  if (zeros) bulk_load(smem_u32(sz + kWgBN * 2), a.zeros + (size_t)s * a.N + n0, ncol, bar);
+  bulk_load(smem_u32(sz), a.scales + (size_t)sg * a.N + n0, ncol * 2, bar);
+  if (zeros) bulk_load(smem_u32(sz + kWgBN * 2), a.zeros + (size_t)sg * a.N + n0, ncol, bar);
 }
 
 // A block is persistent: it walks the 128 x 128 output tiles blockIdx.x,
@@ -388,8 +352,14 @@ __device__ __forceinline__ void wg_issue(const CUtensorMap* tmx, const CUtensorM
 // by all 128 x rows, outT = W[:, cols]T xT, with the dequantized weight as
 // wgmma's A operand in registers and x's tile, K-major as TMA lays it, as B.
 // Barriers a ring slot completes: full (TMA and bulk bytes landed) and
-// xempty (the stage consumed: the 8 consumer warps).
-template <int BITS, bool CB, int G>
+// xempty (the stage consumed: the 8 consumer warps). EXPERTS (K9) adds an
+// expert axis to the walk: E x ceil(M / 128) x ceil(N / 128) tiles, each
+// one expert's (wg_expert_tile); the weight's map spans the experts' rows
+// [E K / PK, N], x's map [E M, K] rows for per-expert inputs (a tile's
+// rows past M read the next expert's rows or TMA's zeros, and the epilogue
+// masks them) or [M, K] for a shared one, and the output pointer moves by
+// the expert's stride.
+template <int BITS, bool CB, int G, bool EXPERTS>
 __global__ void __launch_bounds__(kWgThreads, 1)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                     const __grid_constant__ CUtensorMap tmw, WgArgs a) {
@@ -406,7 +376,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int ntn = (a.N + kWgBN - 1) / kWgBN;  // tiles along N; tile t is (t / ntn, t % ntn)
-  const int ntiles = ntn * ((a.M + kWgBM - 1) / kWgBM);
+  const int ntm = (a.M + kWgBM - 1) / kWgBM;  // EXPERTS: tiles along M (wg_expert_tile)
+  int ntiles = ntn * ((a.M + kWgBM - 1) / kWgBM);
+  if constexpr (EXPERTS) ntiles *= a.E;
   const int stages = a.K / G;
 
   if (tid == 0) {
@@ -434,12 +406,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (tid == 256) {
       int g = 0;
       for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const int m0 = (tile / ntn) * kWgBM;
-        const int n0 = (tile % ntn) * kWgBN;
+        int m0 = (tile / ntn) * kWgBM;
+        int n0 = (tile % ntn) * kWgBN;
+        int xrow = m0, sg0 = 0;  // the tile's first row of x's map, its expert's first group
+        if constexpr (EXPERTS) {
+          const int e = wg_expert_tile(tile, ntn, ntm, m0, n0);
+          xrow = e * a.x_rows + m0;
+          sg0 = e * stages;
+        }
         const int ncol = a.N - n0 < kWgBN ? a.N - n0 : kWgBN;
         for (int s = 0; s < stages; ++s, ++g) {
           if (g >= L::RING) mbar_wait(smem_u32(xempty + g % L::RING), (g / L::RING - 1) & 1);
-          wg_issue<BITS, CB, G>(&tmx, &tmw, a, xs, ps, ss, full, g, s, m0, n0, ncol);
+          wg_issue<BITS, CB, G>(&tmx, &tmw, a, xs, ps, ss, full, g, s, xrow, n0, ncol, sg0 + s);
         }
       }
     }
@@ -461,15 +439,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       roff[i] = r * 128 + ((((nc >> 4) ^ r) & 7) << 4) + (nc & 15);
     }
     // a column is in a tile when below its ncol (a multiple of 16: nc + 1 too)
-    auto in_tile = [&](int tile) { return (tile % ntn) * kWgBN + nc < a.N; };
+    auto in_tile = [&](int tile) {
+      if constexpr (EXPERTS) tile /= ntm;  // the expert walk's column tile is (t / ntm) % ntn
+      return (tile % ntn) * kWgBN + nc < a.N;
+    };
     float acc[64];
     float grp[64];
     uint32_t afr[2][L::KSTEPS][4];
     int g = 0;             // the block's stages so far (ring slot and barrier phase)
     bool staged = false;   // afr[0] holds this tile's first fragments already
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int m0 = (tile / ntn) * kWgBM;
-      const int n0 = (tile % ntn) * kWgBN;
+      int m0 = (tile / ntn) * kWgBM;
+      int n0 = (tile % ntn) * kWgBN;
+      __nv_bfloat16* out = a.out;
+      if constexpr (EXPERTS) out += (size_t)wg_expert_tile(tile, ntn, ntm, m0, n0) * a.o_es;
       const bool in = in_tile(tile);
       const int next = tile + gridDim.x;
 #pragma unroll
@@ -527,7 +510,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           for (int e = 0; e < 2; ++e) {
             const int row = m0 + 8 * jm + 2 * q + e;
             if (row < a.M)
-              *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)row * a.N + n0 + nc) =
+              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * a.N + n0 + nc) =
                   __floats2bfloat162_rn(acc[4 * jm + e], acc[4 * jm + 2 + e]);
           }
         }
@@ -538,80 +521,35 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 // ------------------------------------------------------------------ host
 
-typedef CUresult (*TmapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// An encode error is returned as 0x10000 | CUresult (a driver error, not a
-// cudaError_t); 0x1ffff when the driver has no cuTensorMapEncodeTiled.
-constexpr int kWgEncodeError = 0x10000;
-
-TmapEncodeFn tmap_encoder() {
-  static TmapEncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<TmapEncodeFn>(p);
-  }
-  return fn;
-}
-
-// The current device's SM count (the persistent grid), read once.
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 0;
-  }
-  return sms;
-}
-
-// A 2D row-major [outer, inner] tensor map with box [box_outer, box_inner].
-int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
-              uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
-              CUtensorMapSwizzle swizzle) {
-  const TmapEncodeFn enc = tmap_encoder();
-  if (enc == nullptr) return kWgEncodeError | 0xffff;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (kWgEncodeError | (int)r);
-}
-
 // x's map (bf16 [M, K], 64 x 128 boxes) and the packed weight's ([K / PK,
-// N] bytes, 128 x R boxes), both with the 128-byte swizzle.
+// N] bytes, 128 x R boxes), both with the 128-byte swizzle. With E experts
+// (K9) the weight's map spans the E experts' [K / PK, N] rows one after
+// another, and x's the E inputs' rows when x_rows (= M) is not 0.
 template <int BITS, int G>
-int wg_maps(const DqArgs& a, CUtensorMap* tmx, CUtensorMap* tmw) {
+int wg_maps(const DqArgs& a, int E, int x_rows, CUtensorMap* tmx, CUtensorMap* tmw) {
   using L = WgLayout<BITS, G>;
-  const int rc = encode_2d(tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.K, a.M,
-                           (uint64_t)a.K * 2, kWgAtom, kWgBM, CU_TENSOR_MAP_SWIZZLE_128B);
+  const int rc = encode_2d(tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.K,
+                           x_rows ? (uint64_t)E * x_rows : (uint64_t)a.M, (uint64_t)a.K * 2,
+                           kWgAtom, kWgBM, CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc != 0) return rc;
-  return encode_2d(tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.data, a.N, a.K / L::PK, a.ldw, kWgBN,
-                   L::R, CU_TENSOR_MAP_SWIZZLE_128B);
+  return encode_2d(tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.data, a.N, (uint64_t)E * (a.K / L::PK),
+                   a.ldw, kWgBN, L::R, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int BITS, bool CB, int G>
-int launch_wg(const DqArgs& a, cudaStream_t st) {
+// One launch of the route: K1 and K7 (EXPERTS false, E 1, x_rows 0) or K9's
+// E experts, whose [E, ...] leaves follow one another (x_rows: M for an
+// [E, M, K] input, 0 for a shared [M, K] one).
+template <int BITS, bool CB, int G, bool EXPERTS>
+int launch_wg(const DqArgs& a, int E, int x_rows, cudaStream_t st) {
   using L = WgLayout<BITS, G, CB>;
   static bool smem_set = false;  // this instance's shared-memory attribute
   CUtensorMap tmx, tmw;
-  const int rc = wg_maps<BITS, G>(a, &tmx, &tmw);
+  const int rc = wg_maps<BITS, G>(a, E, x_rows, &tmx, &tmw);
   if (rc != 0) return rc;
   if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dq_wgmma_kernel<BITS, CB, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    const cudaError_t e = cudaFuncSetAttribute(dq_wgmma_kernel<BITS, CB, G, EXPERTS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               L::SMEM);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
@@ -623,11 +561,16 @@ int launch_wg(const DqArgs& a, cudaStream_t st) {
   w.M = a.M;
   w.K = a.K;
   w.N = a.N;
-  const int tiles = ((a.N + kWgBN - 1) / kWgBN) * ((a.M + kWgBM - 1) / kWgBM);
+  w.E = E;
+  w.x_rows = x_rows;
+  w.o_es = (long long)a.M * a.N;
+  const long long tiles =
+      (long long)E * ((a.N + kWgBN - 1) / kWgBN) * ((a.M + kWgBM - 1) / kWgBM);
+  if (tiles > INT32_MAX) return -1;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  dq_wgmma_kernel<BITS, CB, G><<<tiles < sms ? tiles : sms, kWgThreads, L::SMEM, st>>>(tmx, tmw,
-                                                                                      w);
+  dq_wgmma_kernel<BITS, CB, G, EXPERTS>
+      <<<tiles < sms ? (int)tiles : sms, kWgThreads, L::SMEM, st>>>(tmx, tmw, w);
   return (int)cudaGetLastError();
 }
 
@@ -646,7 +589,16 @@ bool wgmma_fits(const DqArgs& a) {
 // Launches the wgmma route for a call wgmma_fits takes.
 template <int BITS, bool CB>
 int launch_dq_wgmma(const DqArgs& a, cudaStream_t st) {
-  return a.group == 64 ? launch_wg<BITS, CB, 64>(a, st) : launch_wg<BITS, CB, 128>(a, st);
+  return a.group == 64 ? launch_wg<BITS, CB, 64, false>(a, 1, 0, st)
+                       : launch_wg<BITS, CB, 128, false>(a, 1, 0, st);
+}
+
+// Launches K9's E experts on the route, a being the first expert's view
+// (wgmma_fits holds on it) and x_rows M for a per-expert input, else 0.
+template <int BITS>
+int launch_moe_wgmma(const DqArgs& a, int E, int x_rows, cudaStream_t st) {
+  return a.group == 64 ? launch_wg<BITS, false, 64, true>(a, E, x_rows, st)
+                       : launch_wg<BITS, false, 128, true>(a, E, x_rows, st);
 }
 
 // Host nanoseconds to encode the two tensor maps of one call (the route's
@@ -657,7 +609,7 @@ long long wgmma_map_ns(const DqArgs& a, int reps) {
   if (tmap_encoder() == nullptr || reps <= 0) return -1;
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i)
-    if (wg_maps<BITS, 128>(a, &tmx, &tmw) != 0) return -1;
+    if (wg_maps<BITS, 128>(a, 1, 0, &tmx, &tmw) != 0) return -1;
   const auto t1 = std::chrono::steady_clock::now();
   return std::chrono::duration_cast<std::chrono::nanoseconds>(t1 - t0).count() / reps;
 }

@@ -14,16 +14,38 @@
 // leaf, scales and zeros [E, K / g, N], in K1's layout (dq_core.cuh).
 // Bound on an H100: at decode the packed bytes of the experts streamed (K9:
 // all E; K10: the routed ones); at prefill (M = 1024) the multiply-adds.
-// Design: K1's kernels with an expert axis. A block finds its expert from
-// blockIdx.z (K9: expert * K slices + slice) or from eidx[row] (K10, one
-// slot per row tile), moves the pointers of x, the weight, the scales and
-// zeros, the output and the split-K scratch by that expert's strides, and
-// runs K1's body on them: the split-K weight-streaming GEMV of dq_core.cuh at
-// M <= 8 (and for every K10 slot), the mma.sync tensor-core body of
-// dq_mma.cuh at M > 8. Indices outside [0, E) leave their rows unwritten.
+// Design: K1's kernels with an expert axis.
+//  * K9 at M > 8 where moe_wgmma_fits holds (K1's wgmma_fits on the first
+//    expert's view, and every stride between experts 16-byte aligned): the
+//    Hopper route of dq_wgmma.cuh with its expert axis (EXPERTS), one
+//    persistent launch over every expert's 128 x 128 tiles, wgmma fed by
+//    TMA (that file's note gives the design);
+//  * otherwise a block finds its expert from blockIdx.z (K9: expert * K
+//    slices + slice) or from eidx[row] (K10, one slot per row tile), moves
+//    the pointers of x, the weight, the scales and zeros, the output and the
+//    split-K scratch by that expert's strides, and runs K1's body on them:
+//    the split-K weight-streaming GEMV of dq_core.cuh at M <= 8 (and for
+//    every K10 slot), the mma.sync tensor-core body of dq_mma.cuh for the
+//    other M > 8 calls. qtpu_moe_grouped_mma runs that mma.sync body on any
+//    M > 8 call, the route's earlier body kept for comparison on the same
+//    bytes; no serving or eval path calls it.
+// Indices outside [0, E) leave their rows unwritten.
 #include "dq_mma.cuh"
+#include "dq_wgmma.cuh"
 
-using namespace qtpu;
+// Using-declarations, not `using namespace qtpu`: the route's helpers live in
+// an anonymous namespace inside qtpu, which would make this file's own
+// anonymous namespace (its kernels) ambiguous in nvcc's launch stubs.
+using qtpu::DqArgs;
+using qtpu::dq_body;
+using qtpu::dq_mma_body;
+using qtpu::dq_smem_bytes;
+using qtpu::kMmaBM;
+using qtpu::kMmaBN;
+using qtpu::kMmaRows;
+using qtpu::kThreads;
+using qtpu::launch_moe_wgmma;
+using qtpu::wgmma_fits;
 
 namespace {
 
@@ -123,15 +145,33 @@ int launch_gemv(DqArgs a, MoeArgs m, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The mma.sync body on every expert: grid (N / 64, M / 128, E).
 template <int BITS>
-int grouped(const DqArgs& a, MoeArgs m, cudaStream_t st) {
-  constexpr int PK = 8 / BITS;
-  if (a.M <= 8 || (a.group / PK) % kMmaRows != 0) return launch_gemv<BITS, 8>(a, m, st);
+int grouped_mma(const DqArgs& a, MoeArgs m, cudaStream_t st) {
   if (a.split_groups != a.K / a.group) return -1;  // the mma path does not split K
   dim3 grid((a.N + kMmaBN - 1) / kMmaBN, (a.M + kMmaBM - 1) / kMmaBM, m.E);
   m.splits = 1;
   moe_mma_kernel<BITS><<<grid, kThreads, 0, st>>>(a, m);
   return (int)cudaGetLastError();
+}
+
+// K9's route rule: K1's wgmma_fits on the first expert's view, and every
+// stride between two experts (x when each has its own, the codes, scales,
+// zeros and output) a multiple of 16 bytes, so each expert's rows start
+// where TMA and the bulk copies read them. N % 16 == 0 and K % g == 0 imply
+// the strides' alignment; the rule checks it all the same. Mirrored by
+// moe_route in qtpu_torch/kernels/moe_matmul.py.
+bool moe_wgmma_fits(const DqArgs& a, const MoeArgs& m) {
+  return wgmma_fits(a) && m.x_es * 2 % 16 == 0 && m.w_es % 16 == 0 && m.s_es * 2 % 16 == 0 &&
+         (a.zeros == nullptr || m.s_es % 16 == 0) && m.o_es * 2 % 16 == 0;
+}
+
+template <int BITS>
+int grouped(const DqArgs& a, MoeArgs m, cudaStream_t st) {
+  constexpr int PK = 8 / BITS;
+  if (a.M <= 8 || (a.group / PK) % kMmaRows != 0) return launch_gemv<BITS, 8>(a, m, st);
+  if (moe_wgmma_fits(a, m)) return launch_moe_wgmma<BITS>(a, m.E, m.x_es != 0 ? a.M : 0, st);
+  return grouped_mma<BITS>(a, m, st);
 }
 
 DqArgs dq_args(const void* x, const void* data, const void* scales, const void* zeros, void* out,
@@ -190,6 +230,25 @@ extern "C" int qtpu_moe_grouped(const void* x, const void* data, const void* sca
     case 2: return grouped<2>(a, m, st);
     case 4: return grouped<4>(a, m, st);
     case 8: return grouped<8>(a, m, st);
+    default: return -1;
+  }
+}
+
+// K9 on the mma.sync body at M > 8 (groups of a multiple of 16 packed rows),
+// whatever the route rule says: the earlier body, kept so that the same bytes
+// can be timed on both. Arguments as for qtpu_moe_grouped, without split K.
+extern "C" int qtpu_moe_grouped_mma(const void* x, const void* data, const void* scales,
+                                    const void* zeros, void* out, int per_expert_input, int E,
+                                    int M, int K, int N, int bits, int group, void* stream) {
+  if (bad_shape(E, M, K, N, group) || M <= 8 || group * bits / 8 % kMmaRows != 0) return -1;
+  const DqArgs a = dq_args(x, data, scales, zeros, out, nullptr, K / group, M, K, N, group);
+  const MoeArgs m = moe_args(nullptr, E, per_expert_input ? (long long)M * K : 0, bits, M, K, N,
+                             group);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: return grouped_mma<2>(a, m, st);
+    case 4: return grouped_mma<4>(a, m, st);
+    case 8: return grouped_mma<8>(a, m, st);
     default: return -1;
   }
 }

@@ -25,7 +25,11 @@
 //    XLA reference: XLA folds absmax / 127 into a multiply by the f32
 //    reciprocal, x / sx stays a true division, and __float2int_rn rounds
 //    half to even as jnp.round does.
-//  * M > 8: w8a8_mma_kernel, mma.sync m16n8k32 s8 x s8 -> s32. A block owns
+//  * M > 8 where w8a8_wgmma_fits holds (N % 16 == 0, the weight and scales
+//    16-byte aligned): w8a8_wgmma_kernel, the Hopper route, below;
+//  * the other M > 8 calls: w8a8_mma_kernel, mma.sync m16n8k32 s8 x s8 -> s32
+//    (qtpu_w8a8_matmul_mma runs it on any M > 8 call, the route's earlier
+//    body kept for comparison on the same bytes). A block owns
 //    128 rows x 64 columns (8 warps as 4 x 2, each 32 x 32); a 64-deep K
 //    stage of xq and of d goes through shared memory, the next stage's
 //    global loads are issued into registers before this stage's products
@@ -43,9 +47,51 @@
 //    2048-wide sites fill the SMs and each slice's xq fits the stage; the
 //    slices' int32 sums are added exactly by w8a8_finish_kernel, which
 //    applies the epilogue.
+//
+// The Hopper route (w8a8_wgmma_kernel), wgmma fed by TMA in the pattern of
+// dq_wgmma.cuh (K1's route) and with its helpers (tma.cuh). A persistent
+// grid (at most one block an SM) walks the 128 x 128 output tiles along M
+// first, so the blocks that run together share the weight's columns through
+// L2 (xq, at most 11.5 MB at the eval block's down site, stays there). A
+// stage is 128 K values: xq's [128 rows, 128] box and the weight's
+// [128 K rows, 128 columns] box, both by TMA with the 128-byte swizzle, into
+// a ring of 6 slots that a producer warpgroup (one thread, setmaxnreg 40)
+// refills as soon as the 8 consumer warps have released a slot.
+//  * 8-bit wgmma reads both shared-memory operands K-major, and d is stored
+//    N-major (the layout both packages share). So the route computes each
+//    tile's transpose, outT = dT xqT ("weight as A", as K1's route): the
+//    weight is wgmma's A operand in registers, xq (K-major, as the
+//    quantization writes it) is B from shared memory. The A fragment holds 4
+//    consecutive K of one weight column a register; a thread's two A rows
+//    are the adjacent columns nc, nc + 1 (the rows' order is ours to choose;
+//    the epilogue undoes it), so one 16-bit shared load reads both columns
+//    of a K row, and two byte_perms a register pair transpose 4 rows into 4
+//    K of each column. Lanes q = 2, 3 of a quad load their 4 rows in the
+//    order 2, 3, 0, 1 (their rows 8 apart from q = 0, 1's share a swizzle
+//    chunk), so a warp's 16-bit loads hit 16 distinct banks; the last
+//    byte_perm's selector undoes the order. The other way, a transpose of
+//    the weight tile inside shared memory into a K-major B operand, was not
+//    taken: it adds a 16 KB read and write a stage to the shared memory
+//    that TMA and wgmma already load, where the fragments cost 32 16-bit
+//    loads and 32 byte_perms a thread a stage.
+//  * Two consumer warpgroups (weight columns 0-63 and 64-127 of the tile)
+//    run wgmma.mma_async m64n128k32 s8 x s8 -> s32 over the stage's 4 K
+//    steps; the next stage's fragments are loaded while the tensor cores
+//    run this one (two buffers of 16 registers), as in K1's route. One group
+//    spans K, so there is no per-group scale: the int32 accumulator runs
+//    over all of K, exact, and the epilogue is w8a8_out's, per row of outT
+//    (s, z of the weight column) and per column (sx, sum(xq) of the token),
+//    in the same float order: the route's bits equal the mma.sync body's.
+//  * TMA zero-fills the boxes past M, Kp and K (the ring's expect_tx counts
+//    whole boxes); the epilogue masks rows >= M and columns >= N. The route
+//    rule (w8a8_wgmma_fits) is mirrored by w8a8_route in
+//    qtpu_torch/kernels/int8_matmul.py; a failed encode or launch returns
+//    its error, which the wrapper raises.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -376,18 +422,270 @@ __global__ void __launch_bounds__(kThreads) w8a8_finish_kernel(W8A8Args a, int s
   }
 }
 
-}  // namespace
+// ------------------------------------------------------ the Hopper route
 
-// y[M, N] = W8A8(x[M, K], data[K, N], scales[N], zeros[N]) on `stream`.
-// xq: int8 scratch [M, Kp], Kp = K rounded up to 64; sx: f32 [M]; sumq:
-// int32 [M]. For M <= 8, split_rows (a multiple of 4, M * split_rows <=
-// 32768) is the K rows of one block slice, K for no split; with more than
-// one slice `part` is an int32 scratch of slices * M * N. Returns a cudaError_t (0 on success), or -1 for
-// arguments the kernels do not take.
-extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* scales,
-                                const void* zeros, void* out, void* xq, void* sx, void* sumq,
-                                void* part, int split_rows, int M, int K, int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
+using qtpu::encode_2d;
+using qtpu::mbar_expect_tx;
+using qtpu::mbar_init;
+using qtpu::mbar_wait;
+using qtpu::sm_count;
+using qtpu::smem_u32;
+using qtpu::tma_load_2d;
+using qtpu::warp_arrive;
+using qtpu::wg_desc;
+using qtpu::wg_fence_u32;
+
+constexpr int kQgBM = 128;            // x rows a tile: the N of each warpgroup's wgmma
+constexpr int kQgBN = 128;            // output columns a tile: two consumer warpgroups of 64
+constexpr int kQgBK = 128;            // K values a stage: one 128-byte swizzled row of xq
+constexpr int kQgThreads = 384;       // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kQgXS = kQgBM * kQgBK;  // bytes of xq a stage
+constexpr int kQgWS = kQgBK * kQgBN;  // bytes of the weight a stage
+constexpr int kQgRing = 6;
+// align slack, the ring's xq and weight slots, then its full and empty barriers
+constexpr int kQgSmem = 1024 + kQgRing * (kQgXS + kQgWS) + kQgRing * 2 * 8;
+static_assert(kQgSmem <= 227 * 1024, "the ring fits a block's shared memory");
+// setmaxnreg budget, as dq_wgmma.cuh's: 2 x 128 x 232 + 128 x 40 = 384 x 168
+constexpr int kQgConsumerRegs = 232;
+constexpr int kQgProducerRegs = 40;
+
+// D[64 x 128] += A[64 x 32] B[32 x 128] in int32: A s8 from registers (the
+// fragment layout of mma.sync m16n8k32's A for each warp's 16 rows), B s8
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The thread's A fragments of the block's g-th stage, once its slot has
+// landed, from the slot's weight tile wt ([128 K rows][128 columns] bytes,
+// 128-byte swizzled by TMA: byte (k, n) at k 128 + ((n / 16) ^ (k % 8)) 16
+// + n % 16). K step t (32 K values): a[t][0] holds column nc at K 32t + 4q
+// .. + 3, a[t][1] column nc + 1 at the same K, a[t][2] and a[t][3] the same
+// at K 32t + 16 + 4q (q = lane % 4). roff: the swizzled offsets of column nc
+// in the thread's 4 rows of a 16-row block, in its load order; sel0, sel1:
+// the byte_perm selectors that put its rows back in K order.
+__device__ __forceinline__ void qg_fragments(const uint8_t* ws, uint64_t* full, int g,
+                                             const uint32_t* roff, uint32_t sel0,
+                                             uint32_t sel1, uint32_t (*a)[4]) {
+  const int slot = g % kQgRing;
+  mbar_wait(smem_u32(full + slot), (g / kQgRing) & 1);
+  const uint8_t* wt = ws + slot * kQgWS;
+#pragma unroll
+  for (int h = 0; h < kQgBK / 16; ++h) {  // K rows 16 h + 4 q + {0, 1, 2, 3}
+    uint32_t r[4];  // byte 0: column nc, byte 1: column nc + 1
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = *reinterpret_cast<const unsigned short*>(wt + h * 16 * 128 + roff[i]);
+    const uint32_t p01 = __byte_perm(r[0], r[1], 0x5140);
+    const uint32_t p23 = __byte_perm(r[2], r[3], 0x5140);
+    a[h >> 1][(h & 1) * 2] = __byte_perm(p01, p23, sel0);
+    a[h >> 1][(h & 1) * 2 + 1] = __byte_perm(p01, p23, sel1);
+  }
+}
+
+// A block is persistent: it walks the 128 x 128 output tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... along M first (tile t is rows (t % ntm) 128,
+// columns (t / ntm) 128), its producer running ahead across tile boundaries.
+// Consumer warpgroup w computes outT rows n0 + 64 w .. + 63 (weight columns)
+// by all 128 token rows, outT = dT xqT, with the weight tile as wgmma's A
+// operand in registers and xq's tile, K-major as TMA lays it, as B.
+__global__ void __launch_bounds__(kQgThreads, 1)
+    w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                      const __grid_constant__ CUtensorMap tmw, W8A8Args a) {
+  extern __shared__ uint8_t qg_smem[];  // aligned to 1024 by hand, as dq_wgmma_kernel's
+  uint8_t* xs = qg_smem + ((1024 - (smem_u32(qg_smem) & 1023)) & 1023);
+  uint8_t* ws = xs + kQgRing * kQgXS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + kQgRing * kQgWS);
+  uint64_t* empty = full + kQgRing;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int ntm = (a.M + kQgBM - 1) / kQgBM;
+  const int ntiles = ntm * ((a.N + kQgBN - 1) / kQgBN);
+  const int stages = (a.Kp + kQgBK - 1) / kQgBK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kQgRing; ++i) {
+      mbar_init(smem_u32(full + i), 1);
+      mbar_init(smem_u32(empty + i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full, refilling a slot as
+    // soon as the 8 consumer warps are done with its stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kQgProducerRegs));
+    if (tid == 256) {
+      int g = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int m0 = (tile % ntm) * kQgBM;
+        const int n0 = (tile / ntm) * kQgBN;
+        for (int s = 0; s < stages; ++s, ++g) {
+          const int slot = g % kQgRing;
+          if (g >= kQgRing) mbar_wait(smem_u32(empty + slot), (g / kQgRing - 1) & 1);
+          const uint32_t bar = smem_u32(full + slot);
+          mbar_expect_tx(bar, kQgXS + kQgWS);
+          tma_load_2d(smem_u32(xs + slot * kQgXS), &tmx, bar, s * kQgBK, m0);
+          tma_load_2d(smem_u32(ws + slot * kQgWS), &tmw, bar, n0, s * kQgBK);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: each loads the next stage's A fragments
+    // while its wgmma runs; the two warpgroups' wgmmas interleave on the
+    // tensor cores
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kQgConsumerRegs));
+    const int lane = tid & 31;
+    const int q = lane & 3;
+    // the thread's weight columns nc, nc + 1 (its warp's A rows lane / 4 and
+    // lane / 4 + 8); lanes q = 2, 3 load their rows 4q + {2, 3, 0, 1}, so the
+    // 4 rows a warp loads at once lie in 4 swizzle chunks (16 banks)
+    const int nc = wg * 64 + ((tid >> 5) & 3) * 16 + 2 * (lane >> 2);
+    const int rot = (q >> 1) * 2;
+    uint32_t roff[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * q + ((i + rot) & 3);
+      roff[i] = r * 128 + ((((nc >> 4) ^ r) & 7) << 4) + (nc & 15);
+    }
+    const uint32_t sel0 = rot ? 0x1054u : 0x5410u;  // bytes 0 (column nc) of rows 0-3
+    const uint32_t sel1 = rot ? 0x3276u : 0x7632u;  // bytes 1 (column nc + 1)
+    int acc[64];
+    uint32_t afr[2][kQgBK / 32][4];
+    int g = 0;            // the block's stages so far (ring slot and barrier phase)
+    bool staged = false;  // afr[0] holds this tile's first fragments already
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int m0 = (tile % ntm) * kQgBM;
+      const int n0 = (tile / ntm) * kQgBN;
+      const int next = tile + gridDim.x;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0;
+      if (!staged) qg_fragments(ws, full, g, roff, sel0, sel1, afr[0]);
+      staged = false;
+      // two stages an iteration, so each one's fragment buffer is a constant
+      // index (a register array indexed at run time would live in local memory)
+      for (int s0 = 0; s0 < stages; s0 += 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int s = s0 + h;
+          if (s >= stages) break;
+          const int slot = (g + s) % kQgRing;
+          const uint32_t xa = smem_u32(xs + slot * kQgXS);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int t = 0; t < kQgBK / 32; ++t)
+            wgmma_s8_m64n128k32(acc, afr[h][t], wg_desc(xa + t * 32));
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          // the next stage's fragments while this one runs on the tensor
+          // cores: this tile's, or the next tile's first when the stage
+          // count is even (its buffer, afr[0], is then free)
+          if (s + 1 < stages) {
+            qg_fragments(ws, full, g + s + 1, roff, sel0, sel1, afr[h ^ 1]);
+          } else if (h == 1 && next < ntiles) {
+            qg_fragments(ws, full, g + s + 1, roff, sel0, sel1, afr[0]);
+            staged = true;
+          }
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          wg_fence_u32<64>(reinterpret_cast<uint32_t*>(acc));
+          wg_fence_u32<kQgBK / 32 * 4>(&afr[h][0][0]);
+          warp_arrive(smem_u32(empty + slot));
+        }
+      }
+      g += stages;
+      // outT fragment: rows lane / 4 and lane / 4 + 8 (columns nc, nc + 1),
+      // columns (token rows) 8 jm + 2 q + {0, 1}; w8a8_out's arithmetic
+      if (n0 + nc < a.N) {  // N % 16 == 0: nc + 1 too
+        const int col = n0 + nc;
+        const float sc0 = __bfloat162float(a.scales[col]);
+        const float sc1 = __bfloat162float(a.scales[col + 1]);
+        const int z0 = 128 - (int)a.zeros[col];
+        const int z1 = 128 - (int)a.zeros[col + 1];
+#pragma unroll
+        for (int jm = 0; jm < 16; ++jm) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = m0 + 8 * jm + 2 * q + e;
+            if (row < a.M) {
+              const int sq = a.sumq[row];
+              const float sx = a.sx[row];
+              const __nv_bfloat16 y0 =
+                  __float2bfloat16(((float)(acc[4 * jm + e] + sq * z0) * sc0) * sx);
+              const __nv_bfloat16 y1 =
+                  __float2bfloat16(((float)(acc[4 * jm + 2 + e] + sq * z1) * sc1) * sx);
+              *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)row * a.N + col) =
+                  __halves2bfloat162(y0, y1);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The route rule: more than 8 rows, N % 16 == 0 (TMA strides the weight's
+// N-byte rows) and the weight and its scales 16-byte aligned; the other
+// M > 8 calls keep w8a8_mma_kernel. Mirrored by w8a8_route in
+// qtpu_torch/kernels/int8_matmul.py.
+bool w8a8_wgmma_fits(const W8A8Args& a) {
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return a.M > kGemvRows && a.N % 16 == 0 && aligned(a.data) && aligned(a.scales);
+}
+
+// xq's map ([M, Kp] bytes, 128 x 128 boxes) and the weight's ([K, N] bytes,
+// 128 x 128 boxes), both with the 128-byte swizzle, encoded per call; then
+// the persistent grid. Returns a cudaError_t, or 0x10000 | CUresult for a
+// failed encode (tma.cuh).
+int launch_w8a8_wgmma(const W8A8Args& a, cudaStream_t st) {
+  static bool smem_set = false;
+  CUtensorMap tmx, tmw;
+  int rc = encode_2d(&tmx, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.xq, a.Kp, a.M, a.Kp, kQgBK, kQgBM,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  rc = encode_2d(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.data, a.N, a.K, a.N, kQgBN, kQgBK,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        w8a8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kQgSmem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const int tiles = ((a.M + kQgBM - 1) / kQgBM) * ((a.N + kQgBN - 1) / kQgBN);
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  w8a8_wgmma_kernel<<<tiles < sms ? tiles : sms, kQgThreads, kQgSmem, st>>>(tmx, tmw, a);
+  return (int)cudaGetLastError();
+}
+
+W8A8Args w8a8_args(const void* x, const void* data, const void* scales, const void* zeros,
+                   void* out, void* xq, void* sx, void* sumq, int M, int K, int N) {
   W8A8Args a{};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.data = static_cast<const int8_t*>(data);
@@ -401,19 +699,42 @@ extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* sca
   a.K = K;
   a.Kp = (K + kBK - 1) / kBK * kBK;
   a.N = N;
+  return a;
+}
+
+// The mma.sync body at M > 8: grid (N / 64, M / 128).
+int launch_w8a8_mma(const W8A8Args& a, cudaStream_t st) {
+  dim3 grid((a.N + kBN - 1) / kBN, (a.M + kBM - 1) / kBM);
+  w8a8_mma_kernel<<<grid, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// y[M, N] = W8A8(x[M, K], data[K, N], scales[N], zeros[N]) on `stream`.
+// xq: int8 scratch [M, Kp], Kp = K rounded up to 64; sx: f32 [M]; sumq:
+// int32 [M]. For M <= 8, split_rows (a multiple of 4, M * split_rows <=
+// 32768) is the K rows of one block slice, K for no split; with more than
+// one slice `part` is an int32 scratch of slices * M * N. M > 8 takes the
+// Hopper route where w8a8_wgmma_fits holds, else the mma.sync body. Returns
+// a cudaError_t (0 on success; 0x10000 | CUresult for a tensor map the
+// driver refused), or -1 for arguments the kernels do not take.
+extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* scales,
+                                const void* zeros, void* out, void* xq, void* sx, void* sumq,
+                                void* part, int split_rows, int M, int K, int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
+  W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, M, K, N);
   a.split_rows = split_rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= kGemvRows &&
+      (split_rows <= 0 || split_rows % 4 != 0 || M * (split_rows / 4) > kGemvSmem))
+    return -1;
+  const int splits = M <= kGemvRows ? (K + split_rows - 1) / split_rows : 1;
+  if (splits > 1 && part == nullptr) return -1;
   w8a8_quant_kernel<<<M, kThreads, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (M > kGemvRows) {
-    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    w8a8_mma_kernel<<<grid, kThreads, 0, st>>>(a);
-    return (int)cudaGetLastError();
-  }
-  if (split_rows <= 0 || split_rows % 4 != 0 || M * (split_rows / 4) > kGemvSmem) return -1;
-  const int splits = (K + split_rows - 1) / split_rows;
-  if (splits > 1 && part == nullptr) return -1;
+  if (M > kGemvRows) return w8a8_wgmma_fits(a) ? launch_w8a8_wgmma(a, st) : launch_w8a8_mma(a, st);
   a.part = splits > 1 ? static_cast<int*>(part) : nullptr;
   dim3 grid((N + kGemvCols - 1) / kGemvCols, splits);
   w8a8_gemv_kernel<<<grid, kGemvThreads, 0, st>>>(a);
@@ -423,4 +744,18 @@ extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* sca
   const int blocks = (int)((mn + kThreads - 1) / kThreads < 1024 ? (mn + kThreads - 1) / kThreads : 1024);
   w8a8_finish_kernel<<<blocks, kThreads, 0, st>>>(a, splits);
   return (int)cudaGetLastError();
+}
+
+// qtpu_w8a8_matmul on the mma.sync body at M > 8, whatever the route rule
+// says: the earlier body, kept so that the same bytes can be timed on both.
+extern "C" int qtpu_w8a8_matmul_mma(const void* x, const void* data, const void* scales,
+                                    const void* zeros, void* out, void* xq, void* sx, void* sumq,
+                                    int M, int K, int N, void* stream) {
+  if (M <= kGemvRows || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
+  const W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, M, K, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  w8a8_quant_kernel<<<M, kThreads, 0, st>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_w8a8_mma(a, st);
 }

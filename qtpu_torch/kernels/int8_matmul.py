@@ -15,6 +15,14 @@ qtpu's XLA reference `_w8a8_matmul_ref`, on a CPU tensor. The rounding of
 `quantize_activations` is that of qtpu's jitted reference: XLA folds the
 division by 127 into a multiply by its f32 reciprocal, while x / sx stays
 a true division (tests/test_torch_w8a8.py holds both bit for bit).
+
+Which body the product runs is `w8a8_route`, the kernel's own rule: the
+GEMV (M <= 8), the Hopper route (int8 wgmma fed by TMA) or the mma.sync
+body for the M > 8 calls the route does not take.
+`w8a8_matmul.wgmma_launches` and `.mma_launches` count the launches of
+those two (all are in `.launches`). `w8a8_matmul_mma` runs the mma.sync body
+on any M > 8 call: the route's earlier body, kept so that chip_smoke.py can
+time and compare both on the same bytes; no serving or eval path calls it.
 """
 
 from __future__ import annotations
@@ -23,14 +31,26 @@ import torch
 
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import I, P, require
-from qtpu_torch.kernels.dequant_matmul import _sm_count
+from qtpu_torch.kernels.dequant_matmul import _sm_count, count_route
 
-_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, I, I, I, I, P]}
+_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+        "qtpu_w8a8_matmul_mma": [P, P, P, P, P, P, P, P, I, I, I, P]}
 
 GEMV_ROWS = 8  # M <= 8 runs the GEMV kernel, larger M the tensor-core one
 GEMV_COLS = 256  # output columns per GEMV block (4 warps)
 GEMV_STAGE = 32768  # bytes of xq a GEMV block stages: M x its K rows at most
 K_ALIGN = 64  # the activation scratch's row length is K rounded up to this
+
+
+def w8a8_route(M: int, N: int, ptrs) -> str:
+    """The body qtpu_w8a8_matmul runs for an [M, K] x [K, N] call; ptrs:
+    the pointers of the weight and its scales. "wgmma" (csrc/w8a8_matmul.cu's
+    w8a8_wgmma_fits: M > 8, N % 16 == 0 so TMA can stride the N-byte rows,
+    both pointers 16-byte aligned), "mma" (the other M > 8 calls) or "gemv"
+    (M <= 8)."""
+    if M <= GEMV_ROWS:
+        return "gemv"
+    return "wgmma" if N % 16 == 0 and all(p % 16 == 0 for p in ptrs) else "mma"
 
 
 def quantize_activations(x: torch.Tensor):
@@ -77,15 +97,9 @@ def gemv_split(device, M: int, K: int, N: int):
     return rows, part
 
 
-def w8a8_matmul(x, data, scales, zeros, meta):
-    """y = W8A8(x) for per-channel int8 weights; x [..., K] -> [..., N] in
-    x's dtype (bf16 on the card). meta = (8, K, K, N), a 5-tuple's
-    trailing "a8" tag allowed. One call is one launch in the count (the
-    activation quantization, the product and, at M <= 8 with K split, the
-    finishing pass)."""
+def _check(x, data, scales, zeros, meta):
+    """The wrapper's checks of a card call: what the kernels take."""
     bits, group, K, N = meta[:4]
-    if x.device.type == "cpu":
-        return w8a8_matmul_plain(x, data, scales, zeros, meta)
     require(x.is_cuda, f"unsupported device {x.device}")
     require(bits == 8 and group == K, f"w8a8 takes per-channel int8 weights, got meta {meta}")
     require(zeros is not None, "w8a8 takes asymmetric weights (zeros)")
@@ -100,14 +114,33 @@ def w8a8_matmul(x, data, scales, zeros, meta):
         require(t.device == x.device, f"weights on {t.device}, activations on {x.device}")
         require(t.is_contiguous(), "packed weights must be contiguous")
     require(data.data_ptr() % 4 == 0, "data must be 4-byte aligned")
+
+
+def _scratch(x, K, N):
+    """The output and the activation quantization's scratch: xq int8
+    [M, Kp], sx f32 [M], sum(xq) int32 [M]."""
     M = x.numel() // K
     out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
+    Kp = -(-K // K_ALIGN) * K_ALIGN
+    return (M, out, torch.empty(M * Kp, dtype=torch.int8, device=x.device),
+            torch.empty(M, dtype=torch.float32, device=x.device),
+            torch.empty(M, dtype=torch.int32, device=x.device))
+
+
+def w8a8_matmul(x, data, scales, zeros, meta):
+    """y = W8A8(x) for per-channel int8 weights; x [..., K] -> [..., N] in
+    x's dtype (bf16 on the card). meta = (8, K, K, N), a 5-tuple's
+    trailing "a8" tag allowed. One call is one launch in the count (the
+    activation quantization, the product and, at M <= 8 with K split, the
+    finishing pass)."""
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, data, scales, zeros, meta)
+    _check(x, data, scales, zeros, meta)
+    K, N = meta[2:4]
+    M, out, xq, sx, sumq = _scratch(x, K, N)
     if M == 0:
         return out
-    Kp = -(-K // K_ALIGN) * K_ALIGN
-    xq = torch.empty(M * Kp, dtype=torch.int8, device=x.device)
-    sx = torch.empty(M, dtype=torch.float32, device=x.device)
-    sumq = torch.empty(M, dtype=torch.int32, device=x.device)
+    route = w8a8_route(M, N, (data.data_ptr(), scales.data_ptr()))
     rows, part = gemv_split(x.device, M, K, N) if M <= GEMV_ROWS else (K, None)
     lib = _build.load("w8a8_matmul", _SIG)
     rc = lib.qtpu_w8a8_matmul(
@@ -117,7 +150,31 @@ def w8a8_matmul(x, data, scales, zeros, meta):
     )
     _build.check(rc, "w8a8_matmul")
     w8a8_matmul.launches += 1
+    count_route(w8a8_matmul, route)
+    return out
+
+
+def w8a8_matmul_mma(x, data, scales, zeros, meta):
+    """w8a8_matmul on the mma.sync body at M > 8 whatever w8a8_route says:
+    the Hopper route's earlier body on the same bytes, for chip_smoke.py's
+    comparisons (its "was" times, the route's bits against these). Card
+    tensors only; counted in its own `.launches`."""
+    require(x.is_cuda, "w8a8_matmul_mma runs on the card only")
+    _check(x, data, scales, zeros, meta)
+    K, N = meta[2:4]
+    M, out, xq, sx, sumq = _scratch(x, K, N)
+    require(M > GEMV_ROWS, f"the mma.sync body takes M > {GEMV_ROWS}, got {M}")
+    lib = _build.load("w8a8_matmul", _SIG)
+    rc = lib.qtpu_w8a8_matmul_mma(
+        x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(), M, K, N, _build.stream_of(x),
+    )
+    _build.check(rc, "w8a8_matmul_mma")
+    w8a8_matmul_mma.launches += 1
     return out
 
 
 w8a8_matmul.launches = 0
+w8a8_matmul.wgmma_launches = 0
+w8a8_matmul.mma_launches = 0
+w8a8_matmul_mma.launches = 0

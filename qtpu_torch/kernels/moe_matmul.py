@@ -16,6 +16,15 @@ K1's plain `quantized_matmul_plain` (qtpu's XLA reference: dequantize to the
 activation dtype, then matmul) per expert, stacked, as qtpu's per-expert loop
 (qtpu/models/moe.py:193-200) computes it, and per slot for the gathered form.
 The kernels apply scale and zero in f32, as K1 does.
+
+Which body K9 launches is `moe_route`, the kernel's own rule: the GEMV
+(M <= 8), the Hopper route of K1 with an expert axis (wgmma fed by TMA,
+csrc/dq_wgmma.cuh) or the mma.sync body per expert for the other M > 8
+calls. `moe_matmul.wgmma_launches` and `.mma_launches` count the launches of
+those two (all are in `.launches`). `moe_matmul_mma` runs the mma.sync body
+on any M > 8 call: the route's earlier body, kept so that chip_smoke.py can
+time both on the same bytes (K1's and K9's "was" times); no serving or eval
+path calls it.
 """
 
 from __future__ import annotations
@@ -24,12 +33,31 @@ import torch
 
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import I, P, require
-from qtpu_torch.kernels.dequant_matmul import check_packed, quantized_matmul_plain, split_k
+from qtpu_torch.kernels.dequant_matmul import (check_packed, count_route, dq_route,
+                                               quantized_matmul_plain, split_k)
 
 _SIG = {
     "qtpu_moe_grouped": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "qtpu_moe_grouped_mma": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     "qtpu_moe_gathered": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 }
+
+
+def moe_route(M: int, K: int, N: int, bits: int, group: int, ptrs,
+              per_expert_input: bool = False) -> str:
+    """The body qtpu_moe_grouped runs for E experts' [M, K] x [K, N] calls
+    of a contiguous [E, ...] leaf, x 16-byte aligned as the wrapper
+    requires; ptrs: the first expert's codes, scales (and zeros if any).
+    K1's rule on the first expert's view (dq_route), and the Hopper route
+    only where every stride between two experts is a multiple of 16 bytes:
+    x's (per_expert_input), the codes', scales', zeros' and output's
+    (csrc/moe_matmul.cu: moe_wgmma_fits)."""
+    route = dq_route(M, N, bits, group, ptrs)
+    if route != "wgmma":
+        return route
+    strides = ((M * K * 2 if per_expert_input else 0), K * bits // 8 * N, K // group * N * 2,
+               K // group * N, M * N * 2)
+    return "wgmma" if all(s % 16 == 0 for s in strides) else "mma"
 
 
 def _expert(t, e):
@@ -51,6 +79,20 @@ def moe_gathered_matmul_plain(x, expert_idx, data, scales, zeros, meta):
     ])
 
 
+def _check_grouped(x, data, scales, zeros, meta, per_expert_input):
+    """The wrapper's checks of a K9 card call; returns (E, M)."""
+    require(x.is_cuda, f"unsupported device {x.device}")
+    K = meta[2]
+    E = data.shape[0]
+    require(x.dtype == torch.bfloat16 and x.is_contiguous(), "x must be contiguous bf16")
+    require(x.dim() == (3 if per_expert_input else 2) and x.shape[-1] == K
+            and (not per_expert_input or x.shape[0] == E),
+            f"x must be [{'E, ' if per_expert_input else ''}M, {K}], got {tuple(x.shape)}")
+    require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    _check_experts(data, scales, zeros, meta, x.device)
+    return E, x.shape[-2]
+
+
 def _check_experts(data, scales, zeros, meta, device):
     """K1's checks on one expert, and the [E, ...] leaves contiguous."""
     check_packed(data[0], scales[0], _expert(zeros, 0), meta, device)
@@ -66,19 +108,13 @@ def moe_matmul(x, data, scales, zeros, meta, per_expert_input=False):
     expert of data [E, Kp, N]. Returns [E, M, N] bf16."""
     if x.device.type == "cpu":
         return moe_matmul_plain(x, data, scales, zeros, meta, per_expert_input)
-    require(x.is_cuda, f"unsupported device {x.device}")
     bits, group, K, N = meta
-    E = data.shape[0]
-    require(x.dtype == torch.bfloat16 and x.is_contiguous(), "x must be contiguous bf16")
-    require(x.dim() == (3 if per_expert_input else 2) and x.shape[-1] == K
-            and (not per_expert_input or x.shape[0] == E),
-            f"x must be [{'E, ' if per_expert_input else ''}M, {K}], got {tuple(x.shape)}")
-    require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
-    _check_experts(data, scales, zeros, meta, x.device)
-    M = x.shape[-2]
+    E, M = _check_grouped(x, data, scales, zeros, meta, per_expert_input)
     out = torch.empty(E, M, N, dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
+    ptrs = [t.data_ptr() for t in (data, scales, zeros) if t is not None]
+    route = moe_route(M, K, N, bits, group, ptrs, per_expert_input)
     # M <= 8: the GEMV, split over K across all experts' tiles; else the tensor cores
     per, part = split_k(x.device, M, K, N * E, group) if M <= 8 else (K // group, None)
     lib = _build.load("moe_matmul", _SIG)
@@ -90,6 +126,28 @@ def moe_matmul(x, data, scales, zeros, meta, per_expert_input=False):
     )
     _build.check(rc, "moe_matmul")
     moe_matmul.launches += 1
+    count_route(moe_matmul, route)
+    return out
+
+
+def moe_matmul_mma(x, data, scales, zeros, meta, per_expert_input=False):
+    """moe_matmul on the mma.sync body at M > 8 whatever moe_route says:
+    the Hopper route's earlier body on the same bytes, for chip_smoke.py's
+    "was" times of K1 and K9. Card tensors only; counted in its own
+    `.launches`."""
+    bits, group, K, N = meta
+    E, M = _check_grouped(x, data, scales, zeros, meta, per_expert_input)
+    require(M > 8 and (group * bits // 8) % 16 == 0,
+            f"the mma.sync body takes M > 8 and groups of 16k packed rows: M={M}, meta {meta}")
+    out = torch.empty(E, M, N, dtype=torch.bfloat16, device=x.device)
+    lib = _build.load("moe_matmul", _SIG)
+    rc = lib.qtpu_moe_grouped_mma(
+        x.data_ptr(), data.data_ptr(), scales.data_ptr(),
+        None if zeros is None else zeros.data_ptr(), out.data_ptr(), int(per_expert_input),
+        E, M, K, N, bits, group, _build.stream_of(x),
+    )
+    _build.check(rc, "moe_matmul_mma")
+    moe_matmul_mma.launches += 1
     return out
 
 
@@ -125,4 +183,7 @@ def moe_gathered_matmul(x, expert_idx, data, scales, zeros, meta):
 
 
 moe_matmul.launches = 0
+moe_matmul.wgmma_launches = 0
+moe_matmul.mma_launches = 0
+moe_matmul_mma.launches = 0
 moe_gathered_matmul.launches = 0

@@ -61,6 +61,25 @@ def _route_and_out(wrapper, call):
     return out, "mma" if wrapper.mma_launches > m0 else "gemv"
 
 
+def _profiled_route(wrapper, call, reps=4):
+    """The route the wrapper's counters saw over `reps` calls of call() (the
+    same one each time, else "mixed") and the names of everything the
+    profiler recorded over them, in one session. Several calls: on the H100,
+    late in a full run of this file, a session sometimes delivers the
+    runtime calls (cudaLaunchKernel, "Activity Buffer Request") but not the
+    record of its first kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    dw, dm = wrapper.wgmma_launches - w0, wrapper.mma_launches - m0
+    seen = {(reps, 0): "wgmma", (0, reps): "mma", (0, 0): "gemv"}.get((dw, dm), "mixed")
+    return seen, [e.key for e in prof.key_averages()]
+
+
 def _same_bits(a, b):
     return bool((a.view(torch.int16) == b.view(torch.int16)).all())
 
@@ -254,8 +273,6 @@ def test_hopper_route_replays_in_a_cuda_graph(cuda):
 ])
 def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
     """The wrapper's route counters agree with the kernel the profiler saw."""
-    from torch.profiler import ProfilerActivity, profile
-
     g = _gen()
     K = 512
     qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, 4, group)
@@ -263,13 +280,42 @@ def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
     meta = (4, group, K, N)
     k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta)  # built and warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, seen = _route_and_out(
-            k1.quantized_matmul, lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta))
-    names = [e.key for e in prof.key_averages() if "dq_" in e.key]
+    seen, keys = _profiled_route(
+        k1.quantized_matmul, lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta))
+    names = [k for k in keys if "dq_" in k]
     kernel = {"wgmma": "dq_wgmma_kernel", "mma": "dq_mma_kernel", "gemv": "dq_kernel"}[route]
     assert seen == route
-    assert names and all(kernel in n for n in names if "dq_finish" not in n), names
+    assert names and all(kernel in n for n in names if "dq_finish" not in n), keys
+
+
+@pytest.mark.parametrize("M,N,route", [
+    (300, 384, "wgmma"),  # the Hopper route
+    (300, 388, "mma"),    # N % 16 != 0: the mma.sync body
+    (8, 384, "gemv"),     # decode rows
+])
+def test_k9_k6_route_counters_name_the_kernel_that_ran(cuda, M, N, route):
+    """The route counters of K9 and K6 agree with the kernel the profiler saw."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    K = 512
+    data, scales, zeros = _experts(g, 2, K, N, 4, 128, cuda)
+    d8, s8, z8, m8 = _w8_site(g, K, N, cuda)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    meta = (4, 128, K, N)
+    calls = {"K9": (k9.moe_matmul, lambda: k9.moe_matmul(x, data, scales, zeros, meta)),
+             "K6": (k6.w8a8_matmul, lambda: k6.w8a8_matmul(x, d8, s8, z8, m8))}
+    kernels = {"K9": {"wgmma": "dq_wgmma_kernel", "mma": "moe_mma_kernel",
+                      "gemv": "moe_gemv_kernel"},
+               "K6": {"wgmma": "w8a8_wgmma_kernel", "mma": "w8a8_mma_kernel",
+                      "gemv": "w8a8_gemv_kernel"}}
+    for name, (wrapper, call) in calls.items():
+        call()  # built and warm
+        torch.cuda.synchronize()
+        seen, keys = _profiled_route(wrapper, call)
+        names = [k for k in keys if any(n in k for n in kernels[name].values())]
+        assert seen == route, name
+        assert names and all(kernels[name][route] in n for n in names), (name, keys)
 
 
 def test_k7_raises_on_what_it_does_not_take(cuda):
@@ -1132,3 +1178,97 @@ def test_branch_decode_on_card_matches_cpu(cuda, switch, kv, monkeypatch):
         outs[dev] = res
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert _rel(a, b) < 3e-2
+
+
+# K9 and K6 at M > 8 on the Hopper route: K9 with the expert axis of
+# csrc/dq_wgmma.cuh, K6 on int8 wgmma fed by TMA (csrc/w8a8_matmul.cu)
+@pytest.mark.parametrize("M", [9, 77, 300, 1024])
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("bits,group,sym", [(4, 128, False), (4, 64, True), (8, 128, False),
+                                            (2, 64, False)])
+def test_k9_hopper_route_matches_plain(cuda, M, per_expert, bits, group, sym):
+    """K9 on the route (E 4 experts of a layer view W[1] of an [L, E, ...]
+    leaf) within 2e-2 of its plain version, the route its counters saw equal
+    to moe_route's rule, two calls the same bits, and near the mma.sync body
+    on the same bytes (both sum each group in f32, in other orders)."""
+    g = _gen()
+    E, L, K, N = 4, 3, 512, 384
+    data, scales, zeros = _experts(g, E, K, N, bits, group, cuda, sym, L=L)
+    x = torch.randn(*((E,) if per_expert else ()), M, K, generator=g, device=cuda)
+    x = x.to(torch.bfloat16)
+    meta = (bits, group, K, N)
+    z = None if zeros is None else zeros[1]
+    got, route = _route_and_out(
+        k9.moe_matmul, lambda: k9.moe_matmul(x, data[1], scales[1], z, meta,
+                                             per_expert_input=per_expert))
+    want = k9.moe_matmul_plain(x, data[1], scales[1], z, meta, per_expert_input=per_expert)
+    body = k9.moe_matmul_mma(x, data[1], scales[1], z, meta, per_expert_input=per_expert)
+    torch.cuda.synchronize()
+    ptrs = [t.data_ptr() for t in (data[1], scales[1], z) if t is not None]
+    assert route == k9.moe_route(M, K, N, bits, group, ptrs, per_expert) == "wgmma"
+    assert _rel(got, want) < 2e-2
+    assert _rel(got, body) < 2e-3
+    assert _same_bits(got, k9.moe_matmul(x, data[1], scales[1], z, meta,
+                                         per_expert_input=per_expert))
+
+
+@pytest.mark.parametrize("M", [9, 77, 300, 1024, 2048])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (5632, 2048), (2048, 5632),
+                                 (1000, 384), (64, 128)])
+def test_k6_hopper_route_bits_equal_mma_body(cuda, M, K, N):
+    """K6 on the route within 2e-2 of its plain version, the route its
+    counters saw equal to w8a8_route's rule, and the same bits as the
+    mma.sync body on the same bytes: the int32 sums are exact and the
+    epilogue's float order is the body's. Ragged K (1000; 64) runs on the
+    zeros TMA fills past K and Kp."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    data, scales, zeros, meta = _w8_site(g, K, N, cuda)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    x[0] = 0  # an all-zero token: the 1e-8 floor of sx
+    got, route = _route_and_out(k6.w8a8_matmul,
+                                lambda: k6.w8a8_matmul(x, data, scales, zeros, meta))
+    want = k6.w8a8_matmul_plain(x, data, scales, zeros, meta)
+    body = k6.w8a8_matmul_mma(x, data, scales, zeros, meta)
+    torch.cuda.synchronize()
+    assert route == k6.w8a8_route(M, N, (data.data_ptr(), scales.data_ptr())) == "wgmma"
+    assert _k6_err(got, want) < 2e-2 and _rel(got, want) < 2e-2
+    assert _same_bits(got, body)
+    assert _same_bits(got, k6.w8a8_matmul(x, data, scales, zeros, meta))
+
+
+def test_k9_k6_hopper_routes_replay_in_a_cuda_graph(cuda):
+    """K9 and K6 on the Hopper route captured in a CUDA graph (the tensor
+    maps are encoded at capture and live in the launch's parameters) give
+    the eager call's bits on replay."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    E, K, N, M = 4, 1024, 512, 300
+    data, scales, zeros = _experts(g, E, K, N, 4, 128, cuda)
+    d8, s8, z8, m8 = _w8_site(g, K, N, cuda)
+    x = torch.randn(E, M, K, generator=g, device=cuda).to(torch.bfloat16)
+    meta = (4, 128, K, N)
+
+    def calls():
+        return (k9.moe_matmul(x, data, scales, zeros, meta, per_expert_input=True),
+                k6.w8a8_matmul(x[0], d8, s8, z8, m8))
+
+    eager = calls()
+    w9, w6 = k9.moe_matmul.wgmma_launches, k6.w8a8_matmul.wgmma_launches
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm on a side stream before capture
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y9, y6 = calls()
+    y9.zero_()
+    y6.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert k9.moe_matmul.wgmma_launches == w9 + 2
+    assert k6.w8a8_matmul.wgmma_launches == w6 + 2
+    assert _same_bits(y9, eager[0]) and _same_bits(y6, eager[1])

@@ -9,8 +9,11 @@ build (`qtpu_torch.kernels._build.build`, in a process of its own), dumps
 each library's SASS with `cuobjdump -sass`, and compares it function by
 function. Prints one JSON line per source: the kernels only the first tree
 has, only the second has, those in both with the same SASS and those that
-differ. Two kernels with the same SASS run the same instructions, so their
-times may differ only by the card's noise. Needs nvcc and cuobjdump (the
+differ, and the pairs of a kernel only the first tree has and one only the
+second has whose SASS is the same ("renamed_same": an instance whose name
+gained a template argument, with the code it had). Two kernels with the
+same SASS run the same instructions, so their times may differ only by the
+card's noise. Needs nvcc and cuobjdump (the
 CUDA toolkit); it imports nothing of JAX or qtpu.
 """
 
@@ -75,11 +78,12 @@ def main() -> int:
         fa = functions(a[src]) if src in a else {}
         fb = functions(b[src]) if src in b else {}
         both = sorted(set(fa) & set(fb))
+        only_a, only_b = sorted(set(fa) - set(fb)), sorted(set(fb) - set(fa))
         print(json.dumps({
-            "source": src, "only_first": sorted(set(fa) - set(fb)),
-            "only_second": sorted(set(fb) - set(fa)),
+            "source": src, "only_first": only_a, "only_second": only_b,
             "same": [f for f in both if fa[f] == fb[f]],
             "different": [f for f in both if fa[f] != fb[f]],
+            "renamed_same": [[f, g] for f in only_a for g in only_b if fa[f] == fb[g]],
         }), flush=True)
     return 0
 
