@@ -32,7 +32,12 @@ Phases, each printing one JSON line:
            axis and K6 at M 1024 and 2048 on its int8 route, each with the
            route against its rule (moe_route, w8a8_route), two calls giving
            the same bits, K6's bits equal to its mma.sync body's, and the
-           mma.sync bodies timed on the same bytes as "was"), with times:
+           mma.sync bodies timed on the same bytes as "was"); K3's kernel
+           (K3, K8, K11, the one-layer entry: a thread-block cluster of
+           `decode_cluster` blocks a (sequence, kv-head)) and K12 on the
+           shared core of csrc/kv_decode_core.cuh, each with its earlier body
+           (the `_simt` entries) timed on the same bytes as "was" and the
+           codes, scales or rows it writes equal to the earlier body's, with times:
            kernel, plain version, one PyTorch library call where one
            computes the same function, and the bound from bytes and
            operations at 3.35 TB/s and 989 TFLOP/s bf16 or 1,979 TOP/s int8
@@ -479,6 +484,11 @@ def phase_kernels(torch, ctx):
     k3["plain_ms"], _ = cuda_ms(
         torch, [lambda l=l: k23.decode_attention_plain(q, k_all, v_all, ks_all, vs_all, pos, l)
                 for l in range(L)], att_bytes)
+    # "was": the earlier body (one block per (sequence, kv-head)) on the same bytes
+    k3["was_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k23.decode_attention_simt(q, k_all, v_all, ks_all, vs_all, pos, l)
+                for l in range(L)], att_bytes)
+    k3["cluster"] = _cluster(torch, k23, B, KV, S)
     # yardstick: SDPA over the cache dequantized to bf16 beforehand
     from qtpu_torch.serve.kvcache import dequantize_kv
 
@@ -571,6 +581,7 @@ def phase_kernels(torch, ctx):
             "max_abs_err": max(k3[w]["max_abs_err"] for w in ("window0", "window64")),
             "ms": L * k3["ms"], "plain_ms": L * k3["plain_ms"], "bound_ms": L * k3["bound_ms"],
             "bound_by": k3["bound_by"], "library_ms": L * k3["library_ms"],
+            "was_ms": L * k3["was_ms"],
         },
         "fused_mlp": {
             "route": "cuda", "source": "qtpu_torch/csrc/fused_mlp.cu",
@@ -614,6 +625,7 @@ def phase_kernels(torch, ctx):
             "max_abs_err": max(k8r[w]["max_abs_err"] for w in ("window0", "window64")),
             "ms": L * k8r["ms"], "plain_ms": L * k8r["plain_ms"], "bound_ms": L * k8r["bound_ms"],
             "bound_by": k8r["bound_by"], "library_ms": L * k8r["library_ms"],
+            "was_ms": L * k8r["was_ms"],
         },
         # K9 at the work of one decode step of the serve_moe cell (B = 8, the
         # grouped route): MOE_LAYERS x (gate, up, down); library: torch.bmm
@@ -642,7 +654,7 @@ def phase_kernels(torch, ctx):
             "replaces": "qtpu/kernels/pallas_kv_attention.py:313",
             "max_abs_err": max(k11r[w]["max_abs_err"] for w in ("window0", "window64")),
             **{key: MOE_LAYERS * k11r[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                       "library_ms")},
+                                                       "library_ms", "was_ms")},
             "bound_by": k11r["bound_by"],
         },
         # K12 at the work of one decode step of the long_ctx cell: L calls at
@@ -652,7 +664,7 @@ def phase_kernels(torch, ctx):
             "replaces": "qtpu/kernels/pallas_kv_attention.py:804",
             "max_abs_err": max(r["max_abs_err"] for r in k12r.values()),
             **{key: L * k12r["tinyllama_s32768"][key] for key in ("ms", "plain_ms", "bound_ms",
-                                                                  "library_ms")},
+                                                                  "library_ms", "was_ms")},
             "bound_by": k12r["tinyllama_s32768"]["bound_by"],
         },
         # the one-layer entry (K3's kernel) at the work of one decode step of
@@ -662,7 +674,7 @@ def phase_kernels(torch, ctx):
             "replaces": "qtpu/kernels/pallas_kv_attention.py:404",
             "max_abs_err": r9["max_abs_err"],
             **{key: GPT2_LAYERS * r9[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                      "library_ms")},
+                                                      "library_ms", "was_ms")},
             "bound_by": r9["bound_by"],
         },
         # K13 at the work of one decode step of the boundary cell: L calls at
@@ -979,19 +991,23 @@ def _k8_row(torch, gen, dev, cfg):
     kn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
     pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=dev)
-    row = {}
+    row = {"cluster": _cluster(torch, k8, B, KV, S)}
     for window in (0, 64):
         kc, vc, kp, vp = k_all.clone(), v_all.clone(), k_all.clone(), v_all.clone()
+        kw, vw = k_all.clone(), v_all.clone()
         got = k8.decode_attention_write_bf16(q, kn, vn, kc, vc, pos, 5, window=window)
         want = k8.decode_attention_write_bf16_plain(q, kn, vn, kp, vp, pos, 5, window=window)
+        k8.decode_attention_write_bf16_simt(q, kn, vn, kw, vw, pos, 5, window=window)
         torch.cuda.synchronize()
         gt, wt = got[:-1].float(), want[:-1].float()  # the inactive slot is garbage by contract
         r = {"max_abs_err": float((gt - wt).abs().max()), "rel_err": rel_err(torch, gt, wt),
              "cache_equal": bool(torch.equal(kc, kp) and torch.equal(vc, vp)),
+             "write_equal_was": bool(torch.equal(kc, kw) and torch.equal(vc, vw)),
              "finite_inactive_row": bool(torch.isfinite(got[-1].float()).all()),
-             "tol": "cache equal; rtol/atol 3e-2"}
+             "tol": "cache equal (and equal to the earlier body's); rtol/atol 3e-2"}
         row[f"window{window}"] = r
-        if (not r["cache_equal"] or not r["finite_inactive_row"]
+        del kw, vw
+        if (not r["cache_equal"] or not r["write_equal_was"] or not r["finite_inactive_row"]
                 or not torch.allclose(gt, wt, rtol=3e-2, atol=3e-2)):
             raise AssertionError(f"K8 disagrees with its plain version: {row}")
     rows_read = sum(min(int(p), S - 1) + 1 for p in pos.tolist())
@@ -1004,6 +1020,9 @@ def _k8_row(torch, gen, dev, cfg):
     row["plain_ms"], _ = cuda_ms(
         torch, [lambda l=l: k8.decode_attention_write_bf16_plain(q, kn, vn, k_all, v_all, pos, l)
                 for l in range(L)], nbytes, reps=L, graph=False)
+    row["was_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k8.decode_attention_write_bf16_simt(q, kn, vn, k_all, v_all, pos, l)
+                for l in range(L)], nbytes)
     mask = k8.cache_mask(pos[:, None], S)[:, None]  # [B, 1, 1, S]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row["library_ms"], _ = cuda_ms(
@@ -1175,11 +1194,15 @@ def _k11_row(torch, gen, dev):
     kn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
     pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=dev)
-    row = {}
+    row = {"cluster": _cluster(torch, k11, B, KV, S)}
     for window in (0, 64):
         kc, pc = [t.clone() for t in cache], [t.clone() for t in cache]
         got = k11.decode_attention_write(q, kn, vn, *kc, pos, 5, window=window)
         want = k11.decode_attention_write_plain(q, kn, vn, *pc, pos, 5, window=window)
+        kw = [t.clone() for t in cache]
+        k11.decode_attention_write_simt(q, kn, vn, *kw, pos, 5, window=window)
+        write_equal_was = all(bool(torch.equal(a, b)) for a, b in zip(kc, kw))
+        del kw
         # f32 math of the same function on the written cache: the reference
         # test_pallas_kernels.py holds the TPU kernel to (rtol/atol 2e-2)
         want32 = k11.decode_attention_write_plain(q.float(), kn, vn, *pc, pos, 5, window=window)
@@ -1189,12 +1212,14 @@ def _k11_row(torch, gen, dev):
         r = {"max_abs_err": float((gt - wt).abs().max()), "rel_err": rel_err(torch, gt, wt),
              "max_abs_err_vs_f32": float((gt - w32).abs().max()),
              "cache_equal": all(bool(torch.equal(a, b)) for a, b in zip(kc, pc)),
+             "write_equal_was": write_equal_was,
              "finite_inactive_row": bool(torch.isfinite(got[-1].float()).all()),
-             "tol": "codes and scales equal; rel 2e-2 vs plain; rtol/atol 2e-2 vs f32 math"}
+             "tol": "codes and scales equal (and equal to the earlier body's); rel 2e-2 vs "
+                    "plain; rtol/atol 2e-2 vs f32 math"}
         row[f"window{window}"] = r
         del kc, pc
-        if (not r["cache_equal"] or not r["finite_inactive_row"] or r["rel_err"] >= 2e-2
-                or not torch.allclose(gt, w32, rtol=2e-2, atol=2e-2)):
+        if (not r["cache_equal"] or not write_equal_was or not r["finite_inactive_row"]
+                or r["rel_err"] >= 2e-2 or not torch.allclose(gt, w32, rtol=2e-2, atol=2e-2)):
             raise AssertionError(f"K11 disagrees with its plain version: {row}")
     rows_read = sum(min(int(p), S - 1) + 1 for p in pos.tolist())
     active = sum(1 for p in pos.tolist() if p < S)
@@ -1207,6 +1232,9 @@ def _k11_row(torch, gen, dev):
     row["plain_ms"], _ = cuda_ms(
         torch, [lambda l=l: k11.decode_attention_write_plain(q, kn, vn, *cache, pos, l)
                 for l in range(L)], nbytes, reps=L, graph=False)
+    row["was_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k11.decode_attention_write_simt(q, kn, vn, *cache, pos, l)
+                for l in range(L)], nbytes)
     kd = dequantize_kv(cache[0][:4], cache[2][:4])
     vd = dequantize_kv(cache[1][:4], cache[3][:4])
     mask = k11.cache_mask(pos[:, None], S)[:, None]  # [B, 1, 1, S]
@@ -1272,6 +1300,11 @@ LONG_S = 32768  # the long_ctx cell's cache: max_seq_len 32752 + decode_block 16
 GPT2_LAYERS = 12  # GPT2_SMALL and OPT_125M
 
 
+def _cluster(torch, mod, B, KV, S):
+    """The cluster size K3's kernel launches with at these shapes."""
+    return mod.decode_cluster(torch.cuda.get_device_properties(0).multi_processor_count, B, KV, S)
+
+
 def _rows_kept(pos, S, window):
     """Cache rows K12 reads for these positions: s < pos (the whole of S for
     pos >= S), and s > pos - window when window > 0."""
@@ -1308,16 +1341,20 @@ def _k12_case(torch, gen, dev, B, KV, G, hd, S, pos, window, L=1, layer=0):
                  else k12.decode_attention_write_banded)
         got = entry(q, kn, vn, *(t[0] for t in kc), pos_t, window=window)
     want = k12.flash_decode_plain(q, kn, vn, *(t[layer] for t in pc), pos_t, window=window)
+    kw = [t[layer].clone() for t in cache]
+    k12.flash_decode_simt(q, kn, vn, *kw, pos_t, window=window)  # the earlier split body
     torch.cuda.synchronize()
     row = {"entry": entry.__name__, "B": B, "KV": KV, "G": G, "hd": hd, "S": S, "L": L,
            "window": window, "pos": pos,
            "max_abs_err": float((got.float() - want.float()).abs().max()),
            "rel_err": rel_err(torch, got, want),
            "cache_equal": all(bool(torch.equal(a, b)) for a, b in zip(kc, pc)),
+           "write_equal_was": all(bool(torch.equal(a[layer], b)) for a, b in zip(kc, kw)),
            "finite": bool(torch.isfinite(got.float()).all()),
-           "tol": "codes and scales equal; rel 3e-2 vs plain"}
-    del kc, pc
-    if not row["cache_equal"] or not row["finite"] or row["rel_err"] >= 3e-2:
+           "tol": "codes and scales equal (and equal to the earlier body's); rel 3e-2 vs plain"}
+    del kc, pc, kw
+    if (not row["cache_equal"] or not row["write_equal_was"] or not row["finite"]
+            or row["rel_err"] >= 3e-2):
         raise AssertionError(f"K12 disagrees with its plain version: {row}")
     rows = _rows_kept(pos, S, window)
     active = sum(1 for p in pos if 0 <= p < S)
@@ -1351,12 +1388,18 @@ def _k12_rows(torch, gen, dev):
     }.items():
         row, (cache, q, kn, vn, pos_t, entry) = _k12_case(torch, gen, dev, B, KV, G, hd, S, pos,
                                                           window)
+        row["blocks_per_sm"] = k12.flash_blocks_per_sm(0, hd)  # the split body's occupancy
+        row["nsplit"] = k12.flash_splits(torch.cuda.get_device_properties(0).multi_processor_count,
+                                         row["blocks_per_sm"], B, KV, min(S, window or S))
         one = [t[0] for t in cache]
         row["ms"], row["timing"] = cuda_ms(
             torch, [lambda: entry(q, kn, vn, *one, pos_t, window=window)], row["bytes"], reps=20)
         row["plain_ms"], _ = cuda_ms(
             torch, [lambda: k12.flash_decode_plain(q, kn, vn, *one, pos_t, window=window)],
             row["bytes"], reps=3, graph=False)
+        row["was_ms"], _ = cuda_ms(
+            torch, [lambda: k12.flash_decode_simt(q, kn, vn, *one, pos_t, window=window)],
+            row["bytes"], reps=20)
         row["k11_stacked_ms"], _ = cuda_ms(
             torch, [lambda: k12.decode_attention_write(q, kn, vn, *cache, pos_t, 0,
                                                        window=window)], row["bytes"], reps=5)
@@ -1386,6 +1429,9 @@ def _k12_rows(torch, gen, dev):
     row["plain_ms"], _ = cuda_ms(
         torch, [lambda l=l: k12.flash_decode_plain(q, kn, vn, *(t[l] for t in cache), pos_t)
                 for l in range(L)], row["bytes"], reps=L, graph=False)
+    row["was_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k12.flash_decode_simt(q, kn, vn, *(t[l] for t in cache), pos_t)
+                for l in range(L)], row["bytes"])
     kd, vd = dequantize_kv(cache[0][:4], cache[2][:4]), dequantize_kv(cache[1][:4], cache[3][:4])
     mask = (torch.arange(S, device=dev)[None, :] < pos_t[:, None])[:, None, None, :]
     row["library_ms"], _ = cuda_ms(
@@ -1400,7 +1446,7 @@ def _k12_rows(torch, gen, dev):
     brow["ms"], brow["timing"] = cuda_ms(
         torch, [lambda l=l: banded(q, kn, vn, *(t[l] for t in cache), pos_t) for l in range(L)],
         row["bytes"])
-    brow.update(plain_ms=row["plain_ms"], library_ms=row["library_ms"])
+    brow.update(plain_ms=row["plain_ms"], library_ms=row["library_ms"], was_ms=row["was_ms"])
     rows["banded_s176"] = brow
     return rows
 
@@ -1447,6 +1493,10 @@ def _row9_row(torch, gen, dev):
     row["plain_ms"], _ = cuda_ms(
         torch, [lambda l=l: k23.decode_attention_plain(q, *cache, pos, l) for l in range(L)],
         nbytes)
+    row["was_ms"], _ = cuda_ms(  # K3's earlier body on the same layer views
+        torch, [lambda l=l: k23.decode_attention_simt(q, *cache, pos, l) for l in range(L)],
+        nbytes)
+    row["cluster"] = _cluster(torch, k23, B, KV, S)
     kd, vd = dequantize_kv(cache[0][:4], cache[2][:4]), dequantize_kv(cache[1][:4], cache[3][:4])
     mask = k23.cache_mask(pos[:, None], S)[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3074,14 +3124,19 @@ def _kind(name: str) -> str:
         return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
     if "moe_gemv_kernel" in name and ", 1>" in name:
         return "K10 moe_gathered_matmul"  # one slot per row tile
+    if "decode_attn" in name:  # K3's kernel: decode_attn[_cluster]_kernel<[HD, ]BF, QW>
+        flags = [a.strip() for a in name.split("<", 1)[-1].split(">")[0].split(",")]
+        flags = [a for a in flags if a in ("true", "false")]
+        if flags[:1] == ["true"]:
+            return "K8 decode_attention_write_bf16"
+        if flags[1:2] == ["true"]:
+            return "K11 decode_attention_write"
+        return "K3 decode_attention (and the one-layer entry)"
     for tag, kind in (("boundary_kernel", "K13 layer_boundary"),
                       ("flash_split", "K12 decode_attention_flash"),
                       ("flash_combine", "K12 decode_attention_flash"),
                       ("w8a8", "K6 w8a8_matmul"), ("flash_attn_kernel", "K5 flash_attention"),
                       ("band_write", "K2 cache_band_write"), ("moe_", "K9 moe_matmul"),
-                      ("decode_attn_kernel<true", "K8 decode_attention_write_bf16"),
-                      ("decode_attn_kernel<false, true>", "K11 decode_attention_write"),
-                      ("decode_attn", "K3 decode_attention (and the one-layer entry)"),
                       ("dq_", "K1 dequant_matmul")):
         if tag in name:
             return kind

@@ -15,10 +15,7 @@
 // head over layer l of the int8 cache, scales folded in as the TPU kernel
 // does (scores = (q . k_int) * ks / sqrt(hd); out = sum (p * vs) v_int).
 // Bound: the bytes of the cache rows up to pos (int8 k and v plus the f32
-// scales). Design: one block per (b, kv-head) serves its G query heads (one
-// warp each), so every cache byte is read once; S is walked in 128-row
-// chunks staged in shared memory with 16-byte loads and an online softmax,
-// so shared memory does not bound S. Rows with pos >= S (inactive batch
+// scales). Design: K3's kernel, below. Rows with pos >= S (inactive batch
 // slots) read rows [0, S) only.
 //
 // K8 (qtpu_decode_attention_write_bf16) replaces
@@ -27,12 +24,11 @@
 // query heads over s <= pos (inside the window when one binds) in one
 // launch per layer. Rows with pos >= S write nothing. Bound: the bytes of the
 // cache rows up to pos (bf16 k and v) plus the written row. Design: K3's
-// kernel without the scales. The block that owns a (sequence, kv-head) writes
-// its new row and stages that row from the new k/v, never reading it back
-// from the cache, so no other block and no second pass is involved. Scores
-// and the softmax are f32; the probabilities are rounded to bf16 for the PV
-// product (the TPU kernel's and the plain version's rounding point, here on
-// the online softmax's unnormalized weights, as K5 does).
+// kernel without the scales, writing the new row and staging it from the
+// new k/v, never reading it back from the cache. Scores and the softmax are
+// f32; the probabilities are rounded to bf16 for the PV product (the TPU
+// kernel's and the plain version's rounding point, here on the online
+// softmax's unnormalized weights, as K5 does).
 //
 // K11 (qtpu_decode_attention_write) replaces pallas_decode_attention_write
 // (pallas_kv_attention.py:313): on the int8 cache, quantize this step's k and
@@ -40,15 +36,34 @@
 // attend over the updated layer in one launch per layer. Rows with pos
 // outside [0, S) write nothing. Bound: the bytes of the cache rows up to pos
 // (int8 k and v plus the f32 scales) and the written row. Design: K3's kernel
-// with K8's write. Two warps of the block that owns a (sequence, kv-head)
-// quantize the new rows into shared memory, the block writes them to the
-// cache and stages the row at pos from shared memory, never reading it back,
-// so no other block and no second pass is involved. The TPU kernel rounds
-// p * v_scale to bf16 before its PV product; here it stays f32, as in K3.
+// with K8's write: two warps quantize the new rows into shared memory, the
+// block writes them to the cache and stages the row at pos from shared
+// memory, never reading it back.
+//
+// Design of K3's kernel (all four modes): the S rows a
+// (sequence, kv-head) attends to are split over the blocks of a thread-block
+// cluster (decode_attn_cluster_kernel), each block one contiguous slice of
+// whole 64-row chunks (kvd_slice; the cluster size is the wrapper's rule,
+// `decode_cluster` in kernels/kv_attention.py: as many blocks as leave each
+// an SM of its own, at most 8, at most one per chunk of S: past that the
+// cluster's fixed costs outgrow the rows a block saves). Each block runs the shared
+// core (kv_decode_core.cuh: raw int8 or bf16 chunks through a cp.async ring,
+// q . k and p . v on mma.sync over the codes converted to bf16 in registers,
+// p * v_scale rounded to bf16 as the TPU kernel does), then the slices'
+// (m, l, acc) are merged through distributed shared memory into the output
+// in the same launch (no scratch, no second launch). The block whose slice
+// holds pos is the one that writes the new row (K8, K11) and stages it from
+// k_new / v_new (K8) or from its own shared memory (K11); no other block
+// reads row pos. The earlier body, decode_attn_kernel (one block per
+// (sequence, kv-head), f32 staging, scalar FMAs), stays behind the `_simt`
+// entries for chip_smoke.py's "was" times; no model path reaches it.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "kv_decode_core.cuh"
 
 namespace {
 
@@ -295,6 +310,186 @@ int launch_attn(const void* q, const void* k_c, const void* v_c, const float* ks
   return (int)cudaGetLastError();
 }
 
+// The slice [*beg, *end) of rank `rank` of a cluster of CL blocks over the
+// rows a sequence at p attends to: s <= min(p, S - 1) (an inactive slot,
+// p >= S, reads [0, S)), and s > p - window when window > 0. Slices are
+// whole chunks but the last, in rank order; `decode_slices` in
+// kernels/kv_attention.py is the same rule in Python.
+__device__ __forceinline__ void kvd_slice(int p, int S, int window, int rank, int CL, int* beg,
+                                          int* end) {
+  const int hi = min(p, S - 1);
+  const int lo = window > 0 ? max(0, p - window + 1) : 0;
+  const int n = max(0, hi - lo + 1);
+  const int per = ((n + CL - 1) / CL + kvd::kRows - 1) / kvd::kRows * kvd::kRows;
+  *beg = lo + rank * per;
+  *end = max(*beg, min(hi + 1, *beg + per));
+}
+
+// grid CL * B * KV in clusters of CL, block kvd::kThreads. Modes as
+// decode_attn_kernel's.
+template <int HD, bool BF, bool QW>
+__global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
+    const __nv_bfloat16* __restrict__ q, const void* k_cache, const void* v_cache,
+    const float* ks_c, const float* vs_c, const __nv_bfloat16* __restrict__ k_new,
+    const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ pos,
+    __nv_bfloat16* __restrict__ out, int KV, int G, int S, int window, float qk_scale, int CL) {
+  extern __shared__ float sm[];
+  unsigned char* base = kvd::align16(sm);
+  __shared__ __align__(16) int8_t newq[2][HD];
+  __shared__ float newsc[2];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int head = blockIdx.x / CL;
+  const int b = head / KV, kvh = head - b * KV;
+  const int tid = threadIdx.x;
+  const int p = pos[b];
+  int s_beg, s_end;
+  kvd_slice(p, S, window, rank, CL, &s_beg, &s_end);
+  const bool writer = (BF || QW) && p >= 0 && p < S && s_beg <= p && p < s_end;
+  const size_t row0 = ((size_t)b * KV + kvh) * S;  // first row of this (b, head)
+  const size_t nrow = ((size_t)b * KV + kvh) * HD;  // this head's new k/v row
+  const size_t qoff = ((size_t)b * KV * G + (size_t)kvh * G) * HD;
+  constexpr int ROW = kvd::Layout<HD, BF>::ROW;
+  kvd::Rows r;
+  r.k = static_cast<const unsigned char*>(k_cache) + row0 * ROW;
+  r.v = static_cast<const unsigned char*>(v_cache) + row0 * ROW;
+  r.ks = BF ? nullptr : ks_c + row0;
+  r.vs = BF ? nullptr : vs_c + row0;
+  r.fresh = writer ? p : -1;
+  if (BF && writer) {
+    __nv_bfloat16* kw = static_cast<__nv_bfloat16*>(const_cast<void*>(k_cache));
+    __nv_bfloat16* vw = static_cast<__nv_bfloat16*>(const_cast<void*>(v_cache));
+    for (int d = tid; d < HD; d += kvd::kThreads) {
+      kw[(row0 + p) * HD + d] = k_new[nrow + d];
+      vw[(row0 + p) * HD + d] = v_new[nrow + d];
+    }
+    r.fresh_k = reinterpret_cast<const unsigned char*>(k_new + nrow);
+    r.fresh_v = reinterpret_cast<const unsigned char*>(v_new + nrow);
+  } else {
+    r.fresh_k = reinterpret_cast<const unsigned char*>(newq[0]);
+    r.fresh_v = reinterpret_cast<const unsigned char*>(newq[1]);
+    r.fresh_scales = newsc;
+  }
+  // K11: the new rows' codes and scales, quantized by warps 0 and 1 while the
+  // ring's first chunks load, then written at pos
+  auto quantize = [&]() {
+    if (!(QW && writer)) return;
+    const int w = tid / 32;
+    if (w < 2) quantize_row((w == 0 ? k_new : v_new) + nrow, newq[w], &newsc[w], HD, tid % 32);
+    __syncthreads();
+    int8_t* kw = static_cast<int8_t*>(const_cast<void*>(k_cache));
+    int8_t* vw = static_cast<int8_t*>(const_cast<void*>(v_cache));
+    for (int d = tid; d < HD; d += kvd::kThreads) {
+      kw[(row0 + p) * HD + d] = newq[0][d];
+      vw[(row0 + p) * HD + d] = newq[1][d];
+    }
+    if (tid == 0) {
+      const_cast<float*>(ks_c)[row0 + p] = newsc[0];
+      const_cast<float*>(vs_c)[row0 + p] = newsc[1];
+    }
+  };
+  kvd::attend<HD, BF>(base, q + qoff, G, r, s_beg, s_end, qk_scale, quantize);
+  float* bacc = reinterpret_cast<float*>(base + kvd::Layout<HD, BF>::BLOCK_OFF);
+  if (CL == 1) {  // one block: its own (m, l, acc) is the result
+    for (int i = tid; i < G * HD; i += kvd::kThreads) {
+      const float lsum = bacc[kvd::kMaxG * HD + kvd::kMaxG + i / HD];
+      out[qoff + i] = __float2bfloat16(lsum > 0.f ? bacc[i] / lsum : 0.f);
+    }
+    return;
+  }
+
+  // the cluster's slices merged through distributed shared memory: rank
+  // `rank` writes every CL-th run of kThreads output elements
+  cluster.sync();  // every block's (m, l, acc) is in its shared memory
+  for (int i = rank * kvd::kThreads + tid; i < G * HD; i += CL * kvd::kThreads) {
+    const int h = i / HD, d = i - h * HD;
+    float mmax = -INFINITY;
+    for (int z = 0; z < CL; ++z) {
+      const float* rb = cluster.map_shared_rank(bacc, z);
+      mmax = fmaxf(mmax, rb[kvd::kMaxG * HD + h]);
+    }
+    float acc = 0.f, lsum = 0.f;
+    if (mmax != -INFINITY) {
+      for (int z = 0; z < CL; ++z) {
+        const float* rb = cluster.map_shared_rank(bacc, z);
+        const float mz = rb[kvd::kMaxG * HD + h];
+        if (mz == -INFINITY) continue;  // an empty slice
+        const float f = exp2f(mz - mmax);
+        acc = fmaf(rb[h * HD + d], f, acc);
+        lsum = fmaf(rb[kvd::kMaxG * HD + kvd::kMaxG + h], f, lsum);
+      }
+    }
+    out[qoff + i] = __float2bfloat16(lsum > 0.f ? acc / lsum : 0.f);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <int HD, bool BF, bool QW>
+int launch_cluster(const void* q, const void* k_c, const void* v_c, const float* ks_c,
+                   const float* vs_c, const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
+                   const void* pos, void* out, int B, int KV, int G, int S, int window,
+                   int cluster, cudaStream_t st) {
+  auto kernel = decode_attn_cluster_kernel<HD, BF, QW>;
+  constexpr int smem = kvd::Layout<HD, BF>::SMEM;
+  static bool smem_set = false;  // this instance's record, in this library
+  if (!smem_set) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(cluster * B * KV));
+  cfg.blockDim = dim3(kvd::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static bool fits[9] = {};  // cluster sizes checked co-resident, this instance
+  if (!fits[cluster]) {
+    int n = 0;
+    cudaError_t e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (n == 0) return -2;  // no cluster of this size fits on the card
+    fits[cluster] = true;
+  }
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q), k_c, v_c, ks_c, vs_c, k_new, v_new,
+      static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(out), KV, G, S, window,
+      kvd::kLog2e / sqrtf((float)HD), cluster);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <bool BF, bool QW>
+int launch_attn_cluster(const void* q, const void* k_c, const void* v_c, const float* ks_c,
+                        const float* vs_c, const __nv_bfloat16* k_new,
+                        const __nv_bfloat16* v_new, const void* pos, void* out, int B, int KV,
+                        int G, int S, int hd, int window, int cluster, void* stream) {
+  if (B <= 0 || KV <= 0 || G <= 0 || G > kvd::kMaxG || S <= 0 || cluster < 1 || cluster > 8 ||
+      (long long)cluster * B * KV > 0x7fffffffLL)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+#define QTPU_KV_CASE(HD)                                                                    \
+  case HD:                                                                                  \
+    return launch_cluster<HD, BF, QW>(q, k_c, v_c, ks_c, vs_c, k_new, v_new, pos, out, B, KV, \
+                                      G, S, window, cluster, st);
+    QTPU_KV_CASE(32)
+    QTPU_KV_CASE(64)
+    QTPU_KV_CASE(96)
+    QTPU_KV_CASE(128)
+#undef QTPU_KV_CASE
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer [B, KV, S, hd] int8;
@@ -311,36 +506,75 @@ extern "C" int qtpu_kv_band_write(const void* k_new, const void* v_new, void* k_
 }
 
 // q [B, H, hd] bf16 (H = KV * G); cache layer as in qtpu_kv_band_write;
-// out [B, H, hd] bf16. window 0 = full causal.
+// out [B, H, hd] bf16. window 0 = full causal. cluster: the blocks of one
+// (sequence, kv-head), 1 to 8. Returns a cudaError_t (0 on success), -1 for
+// arguments the kernel does not take, -2 when no cluster of that size fits.
 extern "C" int qtpu_decode_attention(const void* q, const void* k_c, const void* v_c,
                                      const void* ks_c, const void* vs_c, const void* pos,
                                      void* out, int B, int KV, int G, int S, int hd,
-                                     int window, void* stream) {
+                                     int window, int cluster, void* stream) {
+  return launch_attn_cluster<false, false>(q, k_c, v_c, static_cast<const float*>(ks_c),
+                                           static_cast<const float*>(vs_c), nullptr, nullptr,
+                                           pos, out, B, KV, G, S, hd, window, cluster, stream);
+}
+
+// K8. q [B, H, hd] bf16; k_new/v_new [B, 1, KV, hd] bf16 (16-byte aligned);
+// k_c/v_c one layer [B, KV, S, hd] bf16, written at pos; pos [B] int32; out
+// [B, H, hd] bf16; cluster as in qtpu_decode_attention.
+extern "C" int qtpu_decode_attention_write_bf16(const void* q, const void* k_new,
+                                                const void* v_new, void* k_c, void* v_c,
+                                                const void* pos, void* out, int B, int KV,
+                                                int G, int S, int hd, int window, int cluster,
+                                                void* stream) {
+  return launch_attn_cluster<true, false>(q, k_c, v_c, nullptr, nullptr,
+                                          static_cast<const __nv_bfloat16*>(k_new),
+                                          static_cast<const __nv_bfloat16*>(v_new), pos, out, B,
+                                          KV, G, S, hd, window, cluster, stream);
+}
+
+// K11. q [B, H, hd] bf16; k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer
+// [B, KV, S, hd] int8 and ks_c/vs_c [B, KV, S] f32, written at pos; pos [B]
+// int32; out [B, H, hd] bf16; cluster as in qtpu_decode_attention.
+extern "C" int qtpu_decode_attention_write(const void* q, const void* k_new, const void* v_new,
+                                           void* k_c, void* v_c, void* ks_c, void* vs_c,
+                                           const void* pos, void* out, int B, int KV, int G,
+                                           int S, int hd, int window, int cluster,
+                                           void* stream) {
+  return launch_attn_cluster<false, true>(q, k_c, v_c, static_cast<const float*>(ks_c),
+                                          static_cast<const float*>(vs_c),
+                                          static_cast<const __nv_bfloat16*>(k_new),
+                                          static_cast<const __nv_bfloat16*>(v_new), pos, out, B,
+                                          KV, G, S, hd, window, cluster, stream);
+}
+
+// The earlier body of the three entries above (one block per (sequence,
+// kv-head), chunks staged as f32, scalar FMAs), kept for chip_smoke.py's
+// "was" times; the same arguments without the cluster.
+extern "C" int qtpu_decode_attention_simt(const void* q, const void* k_c, const void* v_c,
+                                          const void* ks_c, const void* vs_c, const void* pos,
+                                          void* out, int B, int KV, int G, int S, int hd,
+                                          int window, void* stream) {
   return launch_attn<false, false>(q, k_c, v_c, static_cast<const float*>(ks_c),
                             static_cast<const float*>(vs_c), nullptr, nullptr, pos, out, B, KV,
                             G, S, hd, window, stream);
 }
 
-// K8. q [B, H, hd] bf16; k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer
-// [B, KV, S, hd] bf16, written at pos; pos [B] int32; out [B, H, hd] bf16.
-extern "C" int qtpu_decode_attention_write_bf16(const void* q, const void* k_new,
-                                                const void* v_new, void* k_c, void* v_c,
-                                                const void* pos, void* out, int B, int KV,
-                                                int G, int S, int hd, int window,
-                                                void* stream) {
+extern "C" int qtpu_decode_attention_write_bf16_simt(const void* q, const void* k_new,
+                                                     const void* v_new, void* k_c, void* v_c,
+                                                     const void* pos, void* out, int B, int KV,
+                                                     int G, int S, int hd, int window,
+                                                     void* stream) {
   return launch_attn<true, false>(q, k_c, v_c, nullptr, nullptr,
                            static_cast<const __nv_bfloat16*>(k_new),
                            static_cast<const __nv_bfloat16*>(v_new), pos, out, B, KV, G, S, hd,
                            window, stream);
 }
 
-// K11. q [B, H, hd] bf16; k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer
-// [B, KV, S, hd] int8 and ks_c/vs_c [B, KV, S] f32, written at pos; pos [B]
-// int32; out [B, H, hd] bf16.
-extern "C" int qtpu_decode_attention_write(const void* q, const void* k_new, const void* v_new,
-                                           void* k_c, void* v_c, void* ks_c, void* vs_c,
-                                           const void* pos, void* out, int B, int KV, int G,
-                                           int S, int hd, int window, void* stream) {
+extern "C" int qtpu_decode_attention_write_simt(const void* q, const void* k_new,
+                                                const void* v_new, void* k_c, void* v_c,
+                                                void* ks_c, void* vs_c, const void* pos,
+                                                void* out, int B, int KV, int G, int S, int hd,
+                                                int window, void* stream) {
   return launch_attn<false, true>(q, k_c, v_c, static_cast<const float*>(ks_c),
                                   static_cast<const float*>(vs_c),
                                   static_cast<const __nv_bfloat16*>(k_new),

@@ -22,16 +22,21 @@
 // (K3's grid) gives 32 blocks at B 8 on 132 SMs and cannot stream that.
 //
 // Design: split-KV flash decoding in two launches.
-//  1. flash_split_kernel, grid (nsplit, KV, B), one warp per query head of
-//     the kv-head (G warps), so every cache byte is read once per block.
-//     Each block takes one contiguous slice of the rows the mask keeps for
-//     its sequence (read from pos on the device: slices of rows outside the
-//     window are never visited, and no host synchronization is needed),
-//     streams it in 64-row chunks staged in shared memory with 16-byte loads
-//     (codes converted to f32 once, rows padded so lanes on distinct rows
-//     read float4 without bank conflicts), keeps an online softmax (m, l)
-//     and the unnormalized output in registers, and writes (acc[hd], m, l)
-//     for each head to an f32 scratch.
+//  1. flash_split_mma_kernel, grid (nsplit, KV, B), 4 warps. Each block
+//     takes one contiguous slice of the rows the mask keeps for its sequence
+//     (read from pos on the device: slices of rows outside the window are
+//     never visited, and no host synchronization is needed) and runs the
+//     shared core on it (kv_decode_core.cuh: raw int8 chunks through a
+//     cp.async ring, two in flight while a third is computed; q . k and
+//     p . v on mma.sync over the codes converted to bf16 in registers, with
+//     p * v_scale rounded to bf16 as the TPU kernel does; every cache byte
+//     read once per block), then writes (acc[hd], m, l) for each head to an
+//     f32 scratch. nsplit is the wrapper's `flash_splits`: at most as many
+//     blocks as the card runs at once (qtpu_flash_split_blocks_per_sm), at
+//     least 512 rows a slice. The earlier body, flash_split_kernel (one warp per query
+//     head, chunks converted to f32 in shared memory and re-read by every
+//     warp, scalar FMAs), stays behind qtpu_flash_decode_simt for
+//     chip_smoke.py's "was" times; no model path reaches it.
 //  2. flash_combine_kernel, grid B * KV: merges the slices, adds the new
 //     token's column from k_new / v_new, normalizes, and writes the new rows'
 //     codes and scales at pos.
@@ -44,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "kv_decode_core.cuh"
 
 namespace {
 
@@ -189,6 +196,44 @@ __global__ void __launch_bounds__(kMaxG * 32) flash_split_kernel(
   }
 }
 
+// grid (nsplit, KV, B), block kvd::kThreads: flash_split_kernel's slices and
+// scratch on the shared core. qk_scale = log2(e) / sqrt(hd); the scratch's m
+// is in natural-log units, as flash_combine_kernel reads it.
+template <int HD>
+__global__ void __launch_bounds__(kvd::kThreads) flash_split_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_c,
+    const int8_t* __restrict__ v_c, const float* __restrict__ ks_c,
+    const float* __restrict__ vs_c, const int* __restrict__ pos, float* __restrict__ part,
+    int KV, int G, int S, int window, float qk_scale) {
+  extern __shared__ __align__(16) float sm[];
+  unsigned char* base = kvd::align16(sm);
+  const int z = blockIdx.x, nsplit = gridDim.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  int lo, hi;
+  kept_rows(pos[b], S, window, &lo, &hi);
+  const int n = max(0, hi - lo);
+  const int per = ((n + nsplit - 1) / nsplit + 15) / 16 * 16;
+  const int s_beg = lo + z * per;
+  const int s_end = max(s_beg, min(hi, s_beg + per));
+  const size_t row0 = ((size_t)b * KV + kvh) * S;  // first row of this (b, kv-head)
+  kvd::Rows r;
+  r.k = reinterpret_cast<const unsigned char*>(k_c + row0 * HD);
+  r.v = reinterpret_cast<const unsigned char*>(v_c + row0 * HD);
+  r.ks = ks_c + row0;
+  r.vs = vs_c + row0;
+  r.fresh = -1;  // the strict mask keeps row pos out of every slice
+  kvd::attend<HD, false>(base, q + ((size_t)b * KV * G + (size_t)kvh * G) * HD, G, r, s_beg,
+                         s_end, qk_scale, [] {});
+  const float* bacc = reinterpret_cast<const float*>(base + kvd::Layout<HD, false>::BLOCK_OFF);
+  const float* bm = bacc + kvd::kMaxG * HD;
+  const float* bl = bm + kvd::kMaxG;
+  float* dst = part + (((size_t)b * KV + kvh) * nsplit + z) * G * (HD + 2);
+  for (int i = threadIdx.x; i < G * (HD + 2); i += kvd::kThreads) {
+    const int h = i / (HD + 2), j = i - h * (HD + 2);
+    dst[i] = j < HD ? bacc[h * HD + j] : j == HD ? bm[h] / kvd::kLog2e : bl[h];
+  }
+}
+
 // K2's rounding of one row of hd values by one warp.
 __device__ __forceinline__ void quantize_row(const __nv_bfloat16* src, int8_t* dst, float* scale_out, int hd,
                              int lane) {
@@ -267,10 +312,60 @@ __global__ void __launch_bounds__(kMaxG * 32) flash_combine_kernel(
   }
 }
 
+// Allows flash_split_mma_kernel<HD> its dynamic shared memory (once: this
+// instance's record, in this library).
+template <int HD>
+cudaError_t allow_split_smem() {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_split_mma_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kvd::Layout<HD, false>::SMEM);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  return cudaSuccess;
+}
+
+template <int HD>
+int split_blocks_per_sm() {
+  cudaError_t e = allow_split_smem<HD>();
+  if (e != cudaSuccess) return -(int)e;
+  int n = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_split_mma_kernel<HD>,
+                                                    kvd::kThreads, kvd::Layout<HD, false>::SMEM);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 template <int HD>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_c, void* v_c, void* ks_c,
            void* vs_c, const void* pos, void* part, void* out, int B, int KV, int G, int S,
            int window, int nsplit, cudaStream_t st) {
+  constexpr int smem = kvd::Layout<HD, false>::SMEM;
+  cudaError_t e0 = allow_split_smem<HD>();
+  if (e0 != cudaSuccess) return (int)e0;
+  const float sm_scale = 1.0f / sqrtf((float)HD);
+  flash_split_mma_kernel<HD><<<dim3(nsplit, KV, B), kvd::kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_c),
+      static_cast<const int8_t*>(v_c), static_cast<const float*>(ks_c),
+      static_cast<const float*>(vs_c), static_cast<const int*>(pos), static_cast<float*>(part),
+      KV, G, S, window, kvd::kLog2e * sm_scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_combine_kernel<HD><<<B * KV, G * 32, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<int8_t*>(k_c),
+      static_cast<int8_t*>(v_c), static_cast<float*>(ks_c), static_cast<float*>(vs_c),
+      static_cast<const int*>(pos), static_cast<const float*>(part),
+      static_cast<__nv_bfloat16*>(out), KV, G, S, nsplit, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// The earlier split body (flash_split_kernel) with the same combine.
+template <int HD>
+int launch_simt(const void* q, const void* k_new, const void* v_new, void* k_c, void* v_c,
+                void* ks_c, void* vs_c, const void* pos, void* part, void* out, int B, int KV,
+                int G, int S, int window, int nsplit, cudaStream_t st) {
   static size_t smem_set = 48 * 1024;
   const size_t smem = sizeof(float) * ((size_t)G * HD + (size_t)kChunk * (HD + 4) +
                                        (size_t)kChunk * HD + 2 * kChunk + (size_t)G * kChunk);
@@ -319,6 +414,40 @@ extern "C" int qtpu_flash_decode(const void* q, const void* k_new, const void* v
                                S, window, nsplit, st);
     case 128: return launch<128>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B, KV, G,
                                  S, window, nsplit, st);
+    default: return -1;
+  }
+}
+
+// qtpu_flash_decode on the earlier split body, for chip_smoke.py's "was"
+// times; the same arguments.
+extern "C" int qtpu_flash_decode_simt(const void* q, const void* k_new, const void* v_new,
+                                      void* k_c, void* v_c, void* ks_c, void* vs_c,
+                                      const void* pos, void* part, void* out, int B, int KV,
+                                      int G, int S, int hd, int window, int nsplit,
+                                      void* stream) {
+  if (B <= 0 || KV <= 0 || G <= 0 || G > kMaxG || S <= 0 || window < 0 || nsplit <= 0 ||
+      nsplit > 65535)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32: return launch_simt<32>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B,
+                                    KV, G, S, window, nsplit, st);
+    case 64: return launch_simt<64>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B,
+                                    KV, G, S, window, nsplit, st);
+    case 128: return launch_simt<128>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B,
+                                      KV, G, S, window, nsplit, st);
+    default: return -1;
+  }
+}
+
+// Blocks of the split body (flash_split_mma_kernel) an SM runs at once at
+// head_dim hd: what K12's split rule (flash_splits) sizes its grid by; a
+// negative cudaError_t on failure, -1 for an hd it does not take.
+extern "C" int qtpu_flash_split_blocks_per_sm(int hd) {
+  switch (hd) {
+    case 32: return split_blocks_per_sm<32>();
+    case 64: return split_blocks_per_sm<64>();
+    case 128: return split_blocks_per_sm<128>();
     default: return -1;
   }
 }

@@ -23,11 +23,19 @@ the UNQUANTIZED new token, then the quantized new rows written at pos.
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version,
 which is the math of qtpu's XLA path (`cache_layer_write` at T = 1 and
 `_cached_attention`) or, for K12, the same function in f32 (`flash_decode_plain`).
+K3's kernel (K3, K8, K11, the one-layer entry) splits each (sequence,
+kv-head) over a thread-block cluster of `decode_cluster` blocks, each taking
+its slice of `decode_slices`; it and K12's split body run the shared core of
+csrc/kv_decode_core.cuh (mma.sync over int8 chunks in a cp.async ring). The
+`*_simt` entries run the earlier bodies on the same arguments, for
+chip_smoke.py's "was" times: card tensors only, counted in their own
+`.launches`; no model path calls them.
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import torch
 
@@ -38,12 +46,51 @@ from qtpu_torch.serve.kvcache import KVCache, cache_layer_write, dequantize_kv
 
 _SIG = {
     "qtpu_kv_band_write": [P, P, P, P, P, P, P, I, I, I, I, P],
-    "qtpu_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "qtpu_decode_attention_write_bf16": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "qtpu_decode_attention_write": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "qtpu_decode_attention": [P] * 7 + [I] * 7 + [P],
+    "qtpu_decode_attention_write_bf16": [P] * 7 + [I] * 7 + [P],
+    "qtpu_decode_attention_write": [P] * 9 + [I] * 7 + [P],
+    "qtpu_decode_attention_simt": [P] * 7 + [I] * 6 + [P],
+    "qtpu_decode_attention_write_bf16_simt": [P] * 7 + [I] * 6 + [P],
+    "qtpu_decode_attention_write_simt": [P] * 9 + [I] * 6 + [P],
 }
-_FLASH_SIG = {"qtpu_flash_decode": [P] * 10 + [I] * 7 + [P]}
+_FLASH_SIG = {"qtpu_flash_decode": [P] * 10 + [I] * 7 + [P],
+              "qtpu_flash_decode_simt": [P] * 10 + [I] * 7 + [P],
+              "qtpu_flash_split_blocks_per_sm": [I]}
 FLASH_SBLK = 2048  # the S granule of qtpu's flash entry (its 2048-row blocks)
+DECODE_CHUNK = 64  # cache rows of a chunk of the shared core (kvd::kRows)
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+def decode_cluster(sm_count: int, B: int, KV: int, S: int) -> int:
+    """Blocks of one (sequence, kv-head) in K3's kernel, one cluster: as many
+    as let B * KV * cluster blocks each have an SM of its own (sm_count of
+    them), at most 8 (the portable cluster size) and at most one per 64-row
+    chunk of S; at least 1. The kernel takes it as given."""
+    return max(1, min(MAX_CLUSTER, sm_count // (B * KV), -(-S // DECODE_CHUNK)))
+
+
+def decode_slices(p: int, S: int, window: int, cluster: int) -> list:
+    """The rows [beg, end) each block of a cluster reads for a sequence at
+    pos p (csrc/kv_attention.cu: kvd_slice): the rows s <= min(p, S - 1)
+    (an inactive slot, p >= S, reads [0, S)), and s > p - window when
+    window > 0, cut into `cluster` slices of whole chunks but the last, in
+    rank order; a slice may be empty (beg == end)."""
+    hi = min(p, S - 1)
+    lo = max(0, p - window + 1) if window > 0 else 0
+    n = max(0, hi - lo + 1)
+    per = -(-n // cluster)  # rows a block, rounded up to whole chunks
+    per = -(-per // DECODE_CHUNK) * DECODE_CHUNK
+    out = []
+    for rank in range(cluster):
+        beg = lo + rank * per
+        out.append((beg, max(beg, min(hi + 1, beg + per))))
+    return out
+
+
+def _launched(rc: int, what: str, cluster: int) -> None:
+    if rc == -2:
+        raise RuntimeError(f"{what}: no cluster of {cluster} blocks fits on the card")
+    _build.check(rc, what)
 
 
 def cached_attention(q, layer_kv, mask):
@@ -113,6 +160,13 @@ def _check_cache(k_all, v_all, ks_all, vs_all, pos, device):
         require(t.is_contiguous(), "cache tensors must be contiguous")
 
 
+def _check_aligned(k, v):
+    """The decode attention core copies cache rows in 16-byte pieces: hd % 16
+    == 0 (the callers' head_dim checks) and 16-byte aligned k / v."""
+    require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+            "k/v cache must be 16-byte aligned")
+
+
 def cache_band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
     """Quantize this step's k/v rows [B, 1, KV, hd] to int8 and write them in
     place into layer `layer` of the stacked cache at `pos` [B]; rows with
@@ -137,7 +191,12 @@ def cache_band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
     cache_band_write.launches += 1
 
 
-def _k3(q, k_all, v_all, ks_all, vs_all, pos, layer, window):
+def _cluster_of(q, B, KV, S, simt):
+    """The cluster argument of K3's kernel (none for the earlier body)."""
+    return [] if simt else [decode_cluster(_sm_count(q.device.index or 0), B, KV, S)]
+
+
+def _k3(q, k_all, v_all, ks_all, vs_all, pos, layer, window, simt=False):
     L, B, KV, S, hd = k_all.shape
     H = q.shape[1]
     require(q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[0] == B
@@ -145,15 +204,18 @@ def _k3(q, k_all, v_all, ks_all, vs_all, pos, layer, window):
     require(H % KV == 0 and H // KV <= 32, f"H={H} must be a multiple of KV={KV}, G <= 32")
     require(hd % 32 == 0 and hd <= 128, f"head_dim {hd} must be a multiple of 32, <= 128")
     _check_cache(k_all, v_all, ks_all, vs_all, pos, q.device)
+    _check_aligned(k_all, v_all)
     require(0 <= layer < L, f"layer {layer} out of range")
     out = torch.empty_like(q)
     lib = _build.load("kv_attention", _SIG)
-    rc = lib.qtpu_decode_attention(
+    cl = _cluster_of(q, B, KV, S, simt)
+    fn = lib.qtpu_decode_attention_simt if simt else lib.qtpu_decode_attention
+    rc = fn(
         q.data_ptr(), k_all[layer].data_ptr(), v_all[layer].data_ptr(),
         ks_all[layer].data_ptr(), vs_all[layer].data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, KV, H // KV, S, hd, int(window), _build.stream_of(q),
+        B, KV, H // KV, S, hd, int(window), *cl, _build.stream_of(q),
     )
-    _build.check(rc, "decode_attention")
+    _launched(rc, "decode_attention", *cl or [1])
     return out
 
 
@@ -181,6 +243,14 @@ def decode_attention_layer(q, k_c, v_c, ks_c, vs_c, pos, window=0):
     require(q.is_cuda, f"unsupported device {q.device}")
     out = _k3(q, *one, pos, 0, window)
     decode_attention_layer.launches += 1
+    return out
+
+
+def decode_attention_simt(q, k_all, v_all, ks_all, vs_all, pos, layer, window=0):
+    """decode_attention on K3's earlier body (card tensors only)."""
+    require(q.is_cuda, f"unsupported device {q.device}")
+    out = _k3(q, k_all, v_all, ks_all, vs_all, pos, layer, window, simt=True)
+    decode_attention_simt.launches += 1
     return out
 
 
@@ -226,6 +296,12 @@ def decode_attention_write_bf16(q, k_new, v_new, k_all, v_all, pos, layer, windo
     if q.device.type == "cpu":
         return decode_attention_write_bf16_plain(q, k_new, v_new, k_all, v_all, pos, layer,
                                                  window)
+    out = _k8(q, k_new, v_new, k_all, v_all, pos, layer, window)
+    decode_attention_write_bf16.launches += 1
+    return out
+
+
+def _k8(q, k_new, v_new, k_all, v_all, pos, layer, window, simt=False):
     L, B, KV, S, hd, H = _check_decode(q, k_new, v_new, k_all, pos, layer)
     for t in (k_all, v_all):
         require(t.dtype == torch.bfloat16 and tuple(t.shape) == (L, B, KV, S, hd),
@@ -233,15 +309,25 @@ def decode_attention_write_bf16(q, k_new, v_new, k_all, v_all, pos, layer, windo
     for t in (k_all, v_all, pos):
         require(t.device == q.device, f"cache tensors must lie on {q.device}")
         require(t.is_contiguous(), "cache tensors must be contiguous")
+    _check_aligned(k_all, v_all)
     out = torch.empty_like(q)
     lib = _build.load("kv_attention", _SIG)
-    rc = lib.qtpu_decode_attention_write_bf16(
+    cl = _cluster_of(q, B, KV, S, simt)
+    fn = (lib.qtpu_decode_attention_write_bf16_simt if simt
+          else lib.qtpu_decode_attention_write_bf16)
+    rc = fn(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all[layer].data_ptr(),
         v_all[layer].data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, KV, H // KV, S, hd, int(window), _build.stream_of(q),
+        B, KV, H // KV, S, hd, int(window), *cl, _build.stream_of(q),
     )
-    _build.check(rc, "decode_attention_write_bf16")
-    decode_attention_write_bf16.launches += 1
+    _launched(rc, "decode_attention_write_bf16", *cl or [1])
+    return out
+
+
+def decode_attention_write_bf16_simt(q, k_new, v_new, k_all, v_all, pos, layer, window=0):
+    """decode_attention_write_bf16 on K8's earlier body (card tensors only)."""
+    out = _k8(q, k_new, v_new, k_all, v_all, pos, layer, window, simt=True)
+    decode_attention_write_bf16_simt.launches += 1
     return out
 
 
@@ -261,19 +347,35 @@ def decode_attention_write(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, l
     if q.device.type == "cpu":
         return decode_attention_write_plain(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos,
                                             layer, window)
+    out = _k11(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer, window)
+    decode_attention_write.launches += 1
+    return out
+
+
+def _k11(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer, window, simt=False):
     _check_decode(q, k_new, v_new, k_all, pos, layer)
     _check_cache(k_all, v_all, ks_all, vs_all, pos, q.device)
+    _check_aligned(k_all, v_all)
     out = torch.empty_like(q)
     L, B, KV, S, hd = k_all.shape
     lib = _build.load("kv_attention", _SIG)
-    rc = lib.qtpu_decode_attention_write(
+    cl = _cluster_of(q, B, KV, S, simt)
+    fn = lib.qtpu_decode_attention_write_simt if simt else lib.qtpu_decode_attention_write
+    rc = fn(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all[layer].data_ptr(),
         v_all[layer].data_ptr(), ks_all[layer].data_ptr(), vs_all[layer].data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, KV, q.shape[1] // KV, S, hd, int(window),
+        pos.data_ptr(), out.data_ptr(), B, KV, q.shape[1] // KV, S, hd, int(window), *cl,
         _build.stream_of(q),
     )
-    _build.check(rc, "decode_attention_write")
-    decode_attention_write.launches += 1
+    _launched(rc, "decode_attention_write", *cl or [1])
+    return out
+
+
+def decode_attention_write_simt(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer,
+                                window=0):
+    """decode_attention_write on K11's earlier body (card tensors only)."""
+    out = _k11(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer, window, simt=True)
+    decode_attention_write_simt.launches += 1
     return out
 
 
@@ -310,31 +412,55 @@ def flash_decode_plain(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0):
     return out.reshape(B, H, hd).to(q.dtype)
 
 
-def flash_splits(device, B: int, KV: int, S: int) -> int:
-    """Slices of S per (sequence, kv-head) for K12: about four blocks per SM
-    over the B * KV heads (at least the two per SM a launch needs to fill the
-    card), each slice at least 256 rows of the cache."""
-    want = -(-4 * _sm_count(device.index or 0) // (B * KV))
-    return max(1, min(want, -(-S // 256)))
+FLASH_MIN_ROWS = 512  # rows of a K12 slice at least: 8 chunks of the shared core
 
 
-def _flash(entry, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window):
+def flash_splits(sm_count: int, blocks_per_sm: int, B: int, KV: int, rows: int) -> int:
+    """Slices per (sequence, kv-head) for K12: at most as many blocks as the
+    card runs at once, about four per SM (fewer where fewer fit:
+    blocks_per_sm is the split body's occupancy) over the B * KV heads, so no
+    second wave and no SM with a block more than another runs late; and each
+    slice at least 512 rows, so a block's set-up and merge stay small beside
+    its chunks. rows: what a sequence reads, S (or the window when one is
+    narrower)."""
+    per_sm = min(4, blocks_per_sm)
+    return max(1, min(sm_count * per_sm // (B * KV), -(-rows // FLASH_MIN_ROWS)))
+
+
+@lru_cache(maxsize=None)
+def flash_blocks_per_sm(index: int, hd: int) -> int:
+    """Blocks of K12's split body an SM of card `index` runs at once at
+    head_dim hd."""
+    with torch.cuda.device(index):
+        n = _build.load("kv_flash_decode", _FLASH_SIG).qtpu_flash_split_blocks_per_sm(hd)
+    require(n > 0, f"no block of K12's split body fits an SM at head_dim {hd} ({n})")
+    return n
+
+
+def _flash(entry, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window, simt=False):
     """K12 on one layer [B, KV, S, hd] of the int8 cache (views of a stacked
-    cache included); counts the launch on `entry`."""
-    if q.device.type == "cpu":
+    cache included); counts the launch on `entry`; simt: the earlier split
+    body."""
+    if q.device.type == "cpu" and not simt:
         return flash_decode_plain(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window)
     one = [t.unsqueeze(0) for t in (k_c, v_c, ks_c, vs_c)]
     _check_decode(q, k_new, v_new, one[0], pos, 0)
     _check_cache(*one, pos, q.device)
+    _check_aligned(k_c, v_c)
     B, KV, S, hd = k_c.shape
     G = q.shape[1] // KV
     require(hd in (32, 64, 128), f"head_dim {hd} must be 32, 64 or 128")
     require(window >= 0, "window must be >= 0")
-    nsplit = flash_splits(q.device, B, KV, S)
+    sms = _sm_count(q.device.index or 0)
+    if simt:  # the earlier body's own split: about four blocks an SM, 256 rows a slice
+        nsplit = max(1, min(-(-4 * sms // (B * KV)), -(-S // 256)))
+    else:
+        rows = min(S, window) if window > 0 else S
+        nsplit = flash_splits(sms, flash_blocks_per_sm(q.device.index or 0, hd), B, KV, rows)
     part = torch.empty(B * KV * nsplit * G * (hd + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lib = _build.load("kv_flash_decode", _FLASH_SIG)
-    rc = lib.qtpu_flash_decode(
+    rc = (lib.qtpu_flash_decode_simt if simt else lib.qtpu_flash_decode)(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_c.data_ptr(), v_c.data_ptr(),
         ks_c.data_ptr(), vs_c.data_ptr(), pos.data_ptr(), part.data_ptr(), out.data_ptr(),
         B, KV, G, S, hd, int(window), nsplit, _build.stream_of(q),
@@ -353,6 +479,14 @@ def decode_attention_flash(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0)
     if k_c.shape[2] % FLASH_SBLK:
         raise NotImplementedError(f"flash decode needs S % {FLASH_SBLK} == 0")
     return _flash(decode_attention_flash, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window)
+
+
+def flash_decode_simt(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0):
+    """K12 on one layer at any S % 8 == 0, on the earlier split body with its
+    own split count (card tensors only)."""
+    require(k_c.shape[2] % 8 == 0, "decode attention needs S % 8 == 0")
+    return _flash(flash_decode_simt, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window,
+                  simt=True)
 
 
 def decode_attention_write_banded(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0):
@@ -384,3 +518,7 @@ decode_attention_write_banded.launches = 0
 decode_attention_write_banded_stacked.launches = 0
 decode_attention_write_bf16.launches = 0
 decode_attention_write.launches = 0
+decode_attention_simt.launches = 0
+decode_attention_write_bf16_simt.launches = 0
+decode_attention_write_simt.launches = 0
+flash_decode_simt.launches = 0

@@ -140,16 +140,30 @@ def test_k2_matches_plain(cuda):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("S", [40, 200])
-@pytest.mark.parametrize("hd,KV,G", [(64, 4, 4), (128, 4, 4), (128, 1, 32)])
+# (hd, KV, G) of the decode attention cases: G in {1, 8, 32} at hd 64 and 128
+DECODE_HEADS = [(64, 4, 4), (128, 4, 4), (128, 1, 32), (64, 2, 1), (128, 8, 1), (64, 4, 8),
+                (128, 2, 8), (64, 1, 32)]
+# S of 2 and 3 64-row chunks beside the ragged ones
+DECODE_S = [40, 128, 192, 200]
+
+
+def _boundary_pos(S, last):
+    """pos of 8 sequences: the first rows, pos on a 64-row chunk (and
+    slice) boundary and one row past it (where S reaches them), S - 1, and
+    `last` (S or more: an inactive slot)."""
+    return [0, 9, S // 2, *(min(p, S - 1) for p in (63, 64, 65)), S - 1, last]
+
+
+@pytest.mark.parametrize("window", [0, 16, 100])
+@pytest.mark.parametrize("S", DECODE_S)
+@pytest.mark.parametrize("hd,KV,G", DECODE_HEADS)
 def test_k3_matches_plain(cuda, window, S, hd, KV, G):
     g = _gen()
-    L, B = 2, 4
+    L, B = 2, 8
     H = KV * G
     cache = _cache(g, L, B, KV, S, hd, cuda)
     q = torch.randn(B, H, hd, generator=g, device=cuda).to(torch.bfloat16)
-    pos = torch.tensor([0, 9, S // 2, S - 1], dtype=torch.int32, device=cuda)
+    pos = torch.tensor(_boundary_pos(S, S), dtype=torch.int32, device=cuda)  # last: inactive
     got = k23.decode_attention(q, *cache, pos, 1, window=window)
     want = k23.decode_attention_plain(q, *cache, pos, 1, window=window)
     want32 = k23.decode_attention_plain(q.float(), *cache, pos, 1, window=window)
@@ -331,19 +345,19 @@ def test_k7_raises_on_what_it_does_not_take(cuda):
         k7.codebook_matmul(x.float(), data, sc, cb, (4, 64, 256, 128))
 
 
-@pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("S", [40, 200])
-@pytest.mark.parametrize("hd,KV,G", [(64, 4, 4), (64, 4, 8), (128, 1, 32)])
+@pytest.mark.parametrize("window", [0, 16, 100])
+@pytest.mark.parametrize("S", DECODE_S)
+@pytest.mark.parametrize("hd,KV,G", DECODE_HEADS)
 def test_k8_matches_plain(cuda, window, S, hd, KV, G):
     g = _gen()
-    L, B = 2, 4
+    L, B = 2, 8
     H = KV * G
     k = (torch.randn(L, B, KV, S, hd, generator=g, device=cuda)).to(torch.bfloat16)
     v = (torch.randn(L, B, KV, S, hd, generator=g, device=cuda)).to(torch.bfloat16)
     q = torch.randn(B, H, hd, generator=g, device=cuda).to(torch.bfloat16)
     kn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
     vn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
-    pos = torch.tensor([0, 9, S // 2, S], dtype=torch.int32, device=cuda)  # last: inactive
+    pos = torch.tensor(_boundary_pos(S, S), dtype=torch.int32, device=cuda)  # last: inactive
     kc, vc, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
     n0 = k23.decode_attention_write_bf16.launches
     got = k23.decode_attention_write_bf16(q, kn, vn, kc, vc, pos, 1, window=window)
@@ -728,8 +742,9 @@ def test_k9_k10_raise_on_what_they_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("window", [0, 16, 48])
-@pytest.mark.parametrize("S", [40, 176, 200])
-@pytest.mark.parametrize("hd,KV,G", [(64, 4, 4), (128, 8, 4), (64, 2, 1), (128, 1, 32)])
+@pytest.mark.parametrize("S", [40, 128, 176, 192, 200])
+@pytest.mark.parametrize("hd,KV,G", [(64, 4, 4), (128, 8, 4), (64, 2, 1), (128, 1, 32),
+                                     (128, 8, 1), (64, 4, 8), (128, 2, 8), (64, 1, 32)])
 def test_k11_matches_plain(cuda, window, S, hd, KV, G):
     """The codes and scales K11 writes equal the plain write's (an inactive
     slot at pos = S writes nothing); the output within rtol/atol 2e-2 of f32
@@ -737,13 +752,13 @@ def test_k11_matches_plain(cuda, window, S, hd, KV, G):
     relative error of the plain version, which rounds the probabilities and
     the dequantized cache to bf16."""
     g = _gen()
-    L, B = 2, 4
+    L, B = 2, 8
     H = KV * G
     cache = _cache(g, L, B, KV, S, hd, cuda)
     q = torch.randn(B, H, hd, generator=g, device=cuda).to(torch.bfloat16)
     kn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
     vn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
-    pos = torch.tensor([0, 9, S // 2, S], dtype=torch.int32, device=cuda)  # last: inactive
+    pos = torch.tensor(_boundary_pos(S, S), dtype=torch.int32, device=cuda)  # last: inactive
     kc, pc = [t.clone() for t in cache], [t.clone() for t in cache]
     n0 = k23.decode_attention_write.launches
     got = k23.decode_attention_write(q, kn, vn, *kc, pos, 1, window=window)
@@ -816,9 +831,10 @@ def _flash_inputs(g, B, KV, G, hd, dev):
     return q, kn, vn
 
 
-@pytest.mark.parametrize("window", [0, 100, 3000])
+@pytest.mark.parametrize("window", [0, 100, 3000, 64])
 @pytest.mark.parametrize("S,hd,KV,G", [(2048, 64, 4, 8), (4096, 128, 8, 4), (2048, 32, 2, 1),
-                                       (2048, 64, 1, 32)])
+                                       (2048, 64, 1, 32), (2048, 64, 2, 1), (2048, 128, 2, 1),
+                                       (2048, 128, 2, 8), (2048, 128, 1, 32)])
 def test_k12_flash_matches_plain(cuda, window, S, hd, KV, G):
     """K12's flash entry on a per-layer buffer: the codes and scales it
     writes equal the plain version's (an inactive slot at pos >= S writes
@@ -826,10 +842,13 @@ def test_k12_flash_matches_plain(cuda, window, S, hd, KV, G):
     within 2e-2 relative error of the plain version (f32 math, the same
     function)."""
     g = _gen()
-    B = 4
+    B = 8
     k, v, ks, vs = (t[0] for t in _cache(g, 1, B, KV, S, hd, cuda))
     q, kn, vn = _flash_inputs(g, B, KV, G, hd, cuda)
-    pos = torch.tensor([0, 37, S - 1, S + 3], dtype=torch.int32, device=cuda)
+    # the first rows, pos on a chunk or slice boundary and past it, the last
+    # row, an inactive slot
+    pos = torch.tensor([0, 37, 64, 65, S // 2, S // 2 + 1, S - 1, S + 3], dtype=torch.int32,
+                       device=cuda)
     kc = [t.clone() for t in (k, v, ks, vs)]
     pc = [t.clone() for t in (k, v, ks, vs)]
     n0 = k23.decode_attention_flash.launches
@@ -843,7 +862,7 @@ def test_k12_flash_matches_plain(cuda, window, S, hd, KV, G):
     assert bool(torch.isfinite(got.float()).all())
 
 
-@pytest.mark.parametrize("S", [40, 176, 264])
+@pytest.mark.parametrize("S", [40, 128, 176, 192, 264])
 def test_k12_banded_entries_match_plain(cuda, S):
     """The banded entry at any S % 8 and the stacked one on layer 1 of a
     3-layer cache (the other layers untouched)."""
@@ -884,18 +903,21 @@ def test_k12_raises_on_what_it_does_not_take(cuda):
         k23.decode_attention_flash(q, kn, vn, k, v, ks, vs, pos.long())
 
 
-@pytest.mark.parametrize("window", [0, 64])
-@pytest.mark.parametrize("hd,KV,G", [(64, 12, 1), (64, 4, 8), (128, 8, 4)])
-def test_row9_layer_entry_matches_plain(cuda, window, hd, KV, G):
+@pytest.mark.parametrize("window", [0, 64, 1])
+@pytest.mark.parametrize("S", [176, 128, 192])
+@pytest.mark.parametrize("hd,KV,G", [(64, 12, 1), (64, 4, 8), (128, 8, 4), (128, 2, 1),
+                                     (128, 2, 8), (64, 1, 32), (128, 1, 32)])
+def test_row9_layer_entry_matches_plain(cuda, window, S, hd, KV, G):
     """decode_attention_layer on one layer [B, KV, S, hd] (GPT-2's MHA at
     hd 64 and G 1 first): read-only, within 2e-2 of the plain version and
     rtol/atol 2e-2 of f32 math."""
     g = _gen()
-    B, S = 8, 176
+    B = 8
     k, v, ks, vs = (t[1] for t in _cache(g, 2, B, KV, S, hd, cuda))
     before = [t.clone() for t in (k, v, ks, vs)]
     q = torch.randn(B, KV * G, hd, generator=g, device=cuda).to(torch.bfloat16)
-    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([*(min(p, S - 1) for p in (63, 64, 65, 127, 128, 170)), S - 1, S],
+                       dtype=torch.int32, device=cuda)
     n0 = k23.decode_attention_layer.launches
     got = k23.decode_attention_layer(q, k, v, ks, vs, pos, window=window)
     want = k23.decode_attention_layer(q.cpu(), *(t.cpu() for t in (k, v, ks, vs)), pos.cpu(),
@@ -908,6 +930,38 @@ def test_row9_layer_entry_matches_plain(cuda, window, hd, KV, G):
         assert torch.equal(a, b)
     assert _rel(got[:-1].cpu(), want[:-1]) < 2e-2
     torch.testing.assert_close(got[:-1].float(), want32[:-1], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("hd,KV,G", [(64, 4, 8), (128, 8, 4), (64, 12, 1), (128, 1, 32)])
+def test_new_and_earlier_decode_bodies_write_the_same_rows(cuda, hd, KV, G):
+    """K3's kernel (K11 on the int8 cache, K8 on the bf16 one) and K12 write
+    the same codes, scales and rows as their earlier bodies (the `_simt`
+    entries chip_smoke.py times as "was"), and both outputs agree."""
+    g = _gen()
+    L, B, S = 2, 8, 200
+    cache = _cache(g, L, B, KV, S, hd, cuda)
+    q, kn, vn = _flash_inputs(g, B, KV, G, hd, cuda)
+    pos = torch.tensor(_boundary_pos(S, S + 3), dtype=torch.int32, device=cuda)
+    new, old = [t.clone() for t in cache], [t.clone() for t in cache]
+    got = k23.decode_attention_write(q, kn, vn, *new, pos, 1, window=48)
+    was = k23.decode_attention_write_simt(q, kn, vn, *old, pos, 1, window=48)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(new, old))
+    assert _rel(got[:-1], was[:-1]) < 2e-2
+    kb, vb = (torch.randn(L, B, KV, S, hd, generator=g, device=cuda).to(torch.bfloat16)
+              for _ in range(2))
+    new, old = [kb.clone(), vb.clone()], [kb.clone(), vb.clone()]
+    got = k23.decode_attention_write_bf16(q, kn, vn, *new, pos, 0)
+    was = k23.decode_attention_write_bf16_simt(q, kn, vn, *old, pos, 0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(new, old))
+    assert _rel(got[:-1], was[:-1]) < 2e-2
+    new, old = [t[0].clone() for t in cache], [t[0].clone() for t in cache]
+    got = k23.decode_attention_write_banded(q, kn, vn, *new, pos, window=100)
+    was = k23.flash_decode_simt(q, kn, vn, *old, pos, window=100)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(new, old))
+    assert _rel(got, was) < 2e-2
 
 
 @pytest.mark.parametrize("M", [1, 8, 77, 300])
