@@ -37,14 +37,25 @@ Phases, each printing one JSON line:
            `decode_cluster` blocks a (sequence, kv-head)) and K12 on the
            shared core of csrc/kv_decode_core.cuh, each with its earlier body
            (the `_simt` entries) timed on the same bytes as "was" and the
-           codes, scales or rows it writes equal to the earlier body's, with times:
+           codes, scales or rows it writes equal to the earlier body's; the
+           tensor-core decode GEMV (csrc/dq_gemv_tc.cuh) of K1 (every decode
+           site, and with its norm_w / resid options), K7, K9 and K4 and K5's
+           Hopper body (wgmma fed by TMA; eval shape and Mistral-7B's hd 128),
+           each on the route its rule names (gemv_route, flash_route) and
+           beside its earlier body on the same bytes as "was"
+           (quantized_matmul_simt, codebook_matmul_simt, moe_matmul_simt,
+           fused_mlp_simt, flash_attention_mma), with times:
            kernel, plain version, one PyTorch library call where one
            computes the same function, and the bound from bytes and
            operations at 3.35 TB/s and 989 TFLOP/s bf16 or 1,979 TOP/s int8
            (H100 SXM data sheet); a kernels_hopper_route line gives each
            Hopper-route site against its library call (torch.matmul on the
            dequantized weight, torch.bmm on the bf16 experts, torch._int_mm)
-           and its share of the bound
+           and its share of the bound, a kernels_decode_gemv_k5 line each
+           decode GEMV site and K5 shape against its earlier body, its bound
+           and its library call; the serving and eval phases check that every
+           decode launch of K1, K7, K9 and K4 took the tensor-core GEMV (but
+           GPT-2's 50257-wide lm_head) and every K5 launch its Hopper body
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions), RTN W4 on
            the int8 KV cache and POT W4 on the bf16 cache; and a 2-layer
@@ -279,13 +290,24 @@ def _bits_equal(torch, a, b) -> bool:
 
 def _route_taken(torch, wrapper, call):
     """Runs call() once and returns (its output, the body the wrapper's
-    route counters saw: "wgmma", "mma" or "gemv")."""
+    route counters saw: "wgmma", "mma", "gemv_tc" or "gemv")."""
     w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
+    t0 = getattr(wrapper, "gemv_tc_launches", 0)  # K6 has no tensor-core GEMV
     out = call()
     torch.cuda.synchronize()
     if wrapper.wgmma_launches > w0:
         return out, "wgmma"
+    if getattr(wrapper, "gemv_tc_launches", 0) > t0:
+        return out, "gemv_tc"
     return out, "mma" if wrapper.mma_launches > m0 else "gemv"
+
+
+def _rule(route, M, K, N, bits, group, ptrs):
+    """A wrapper's rule (dq_route, cb_route, moe_route), refined at M <= 8 by
+    gemv_route (the tensor-core GEMV or dq_core's)."""
+    from qtpu_torch.kernels.dequant_matmul import gemv_route
+
+    return gemv_route(M, K, N, bits, group, ptrs) if route == "gemv" else route
 
 
 def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=True,
@@ -299,7 +321,7 @@ def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=
     from qtpu_torch.core.packing import dequantize_parts
     from qtpu_torch.kernels import moe_matmul as k9
     from qtpu_torch.kernels.dequant_matmul import (dq_route, quantized_matmul,
-                                                   quantized_matmul_plain)
+                                                   quantized_matmul_plain, quantized_matmul_simt)
 
     meta = (bits, group, K, N)
     wbytes = K * N * bits / 8 + (K // group) * N * (2 + (0 if symmetric else 1))
@@ -315,12 +337,13 @@ def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=
     ptrs = [t.data_ptr() for t in (data[0], scales[0], z(0)) if t is not None]
     row = {"M": M, "K": K, "N": N, "bits": bits, "group": group, "sym": symmetric,
            "rel_err": err, "max_abs_err": float((got.float() - want.float()).abs().max()),
-           "tol_rel": 2e-2, "route": route, "rule": dq_route(M, N, bits, group, ptrs)}
+           "tol_rel": 2e-2, "route": route,
+           "rule": _rule(dq_route(M, N, bits, group, ptrs), M, K, N, bits, group, ptrs)}
     if err >= 2e-2 or not torch.isfinite(got.float()).all():
         raise AssertionError(f"K1 disagrees with its plain version: {row}")
     if route != row["rule"]:
         raise AssertionError(f"K1 ran the {route} body where its rule says {row['rule']}: {row}")
-    if M > 8:
+    if M > 8 or route == "gemv_tc":
         again = quantized_matmul(x, data[0], scales[0], z(0), meta)
         torch.cuda.synchronize()
         row["same_bits_two_calls"] = _bits_equal(torch, got, again)
@@ -341,12 +364,17 @@ def _k1_case(torch, ctx, gen, dev, M, K, N, bits, group, symmetric=False, timed=
     wd = [dequantize_parts(data[i], scales[i], z(i), bits, group) for i in range(nlib)]
     row["library_ms"], _ = cuda_ms(torch, [lambda i=i: torch.matmul(x, wd[i])
                                            for i in range(nlib)], K * N * 2)
-    if was:
+    if was and M > 8:
         ex = [(data[i][None], scales[i][None], None if zeros is None else zeros[i][None])
               for i in range(copies)]
         row["was_ms"], _ = cuda_ms(torch, [lambda e=e: k9.moe_matmul_mma(x, *e, meta) for e in ex],
                                    wbytes)
         row["was"] = "dq_mma_body (mma.sync) on the same bytes, K9's moe_matmul_mma, one expert"
+    elif was:
+        row["was_ms"], _ = cuda_ms(
+            torch, [lambda i=i: quantized_matmul_simt(x, data[i], scales[i], z(i), meta)
+                    for i in range(copies)], wbytes)
+        row["was"] = "dq_core's SIMT GEMV on the same bytes, quantized_matmul_simt"
     return row
 
 
@@ -382,12 +410,16 @@ def phase_kernels(torch, ctx):
     qkv_n = cfg.q_dim + 2 * cfg.kv_dim
     detail = {}
 
-    # K1 at every main-path shape (W4 g128), then the other packings
+    # K1 at every main-path shape (W4 g128), then the other packings; at
+    # decode the tensor-core GEMV with dq_core's GEMV on the same bytes as "was"
     k1_rows = {
-        "qkv_decode": _k1_case(torch, ctx, gen, dev, B, D, qkv_n, 4, g),
-        "o_decode": _k1_case(torch, ctx, gen, dev, B, cfg.q_dim, D, 4, g),
-        "lm_head_decode": _k1_case(torch, ctx, gen, dev, B, D, V, 4, g),
+        "qkv_decode": _k1_case(torch, ctx, gen, dev, B, D, qkv_n, 4, g, was=True),
+        "o_decode": _k1_case(torch, ctx, gen, dev, B, cfg.q_dim, D, 4, g, was=True),
+        "lm_head_decode": _k1_case(torch, ctx, gen, dev, B, D, V, 4, g, was=True),
     }
+    for site in ("gateup", "down"):  # K1 at K4's sites: the unfused decode calls of K7's shapes
+        K_, N_ = K7_SITES[site]
+        k1_rows[f"{site}_decode"] = _k1_case(torch, ctx, gen, dev, B, K_, N_, 4, g, was=True)
     # the Hopper route's sites: serve prefill (M 1024) and eval block (M 2048)
     for mname, M in (("prefill", B * P), ("eval", EVAL_BLOCK)):
         for site, (K, N) in K7_SITES.items():
@@ -411,6 +443,8 @@ def phase_kernels(torch, ctx):
 
     gd, gv = GPT2_SMALL.hidden_size, GPT2_SMALL.vocab_size
     k1_rows["gpt2_lm_head_decode"] = _k1_case(torch, ctx, gen, dev, B, gd, gv, 4, g)
+    k1_rows["opt_lm_head_decode"] = _k1_case(torch, ctx, gen, dev, B, OPT_125M.hidden_size,
+                                             OPT_125M.vocab_size, 4, g, was=True)
     k1_rows["gpt2_lm_head_prefill"] = _k1_case(torch, ctx, gen, dev, B * P, gd, gv, 4, g)
     od, ov = OPT_125M.hidden_size, OPT_125M.vocab_size
     k1_rows["opt_qkv_prefill"] = _k1_case(torch, ctx, gen, dev, B * P, od, 3 * od, 4, g,
@@ -513,13 +547,20 @@ def phase_kernels(torch, ctx):
         return fn(x, nw[l], gu[0][l], gu[1][l], gu[2][l], dn[0][l], dn[1][l], dn[2][l],
                   mgu, md, eps=cfg.norm_eps)
 
+    t0 = k4.fused_mlp.gemv_tc_launches
     got, want = mlp(k4.fused_mlp, 7), mlp(k4.fused_mlp_plain, 7)
+    was = mlp(k4.fused_mlp_simt, 7)
     torch.cuda.synchronize()
     err = rel_err(torch, got - x, want - x)
     k4r = {"rel_err_of_mlp_output": err, "max_abs_err": float((got.float() - want.float()).abs().max()),
-           "tol_rel": 3e-2}
+           "tol_rel": 3e-2, "rel_err_vs_was": rel_err(torch, got - x, was - x),
+           "route": "gemv_tc" if k4.fused_mlp.gemv_tc_launches > t0 else "gemv",
+           "rule": k4.mlp_route(B, mgu, md, [t[l].data_ptr() for t in gu for l in (7,)],
+                                [t[l].data_ptr() for t in dn for l in (7,)])}
     if err >= 3e-2 or not torch.isfinite(got.float()).all():
         raise AssertionError(f"K4 disagrees with its plain version: {k4r}")
+    if k4r["route"] != k4r["rule"] or k4r["route"] != "gemv_tc":
+        raise AssertionError(f"K4 ran the {k4r['route']} body, its rule says {k4r['rule']}")
     mlp_w = (D * 2 * F + F * D) / 2 + (D // g) * 2 * F * 3 + (F // g) * D * 3
     mlp_bytes = mlp_w + 2 * B * D * 2 + D * 2
     k4r["bound_ms"], k4r["bound_by"] = bound(mlp_bytes, 2 * B * (D * 2 * F + F * D))
@@ -527,6 +568,9 @@ def phase_kernels(torch, ctx):
                                        mlp_w)
     k4r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp_plain, l) for l in range(L)],
                                  mlp_w)
+    k4r["was_ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp_simt, l) for l in range(L)],
+                               mlp_w)
+    k4r["was"] = "dq_core's SIMT GEMV on the same bytes, fused_mlp_simt"
     k4r["library_ms"] = None
     detail["fused_mlp"] = k4r
     k5r = _k5_rows(torch, gen, dev, cfg)
@@ -567,6 +611,7 @@ def phase_kernels(torch, ctx):
             "max_abs_err": max(r["max_abs_err"] for r in k1_rows.values()),
             "ms": step_sum("ms"), "plain_ms": step_sum("plain_ms"), "bound_ms": k1_bound,
             "bound_by": "bytes", "library_ms": step_sum("library_ms"),
+            "was_ms": step_sum("was_ms"),
         },
         "cache_band_write": {
             "route": "cuda", "source": "qtpu_torch/csrc/kv_attention.cu",
@@ -588,7 +633,7 @@ def phase_kernels(torch, ctx):
             "replaces": "qtpu/kernels/pallas_fused_mlp.py:221",
             "max_abs_err": k4r["max_abs_err"],
             "ms": L * k4r["ms"], "plain_ms": L * k4r["plain_ms"], "bound_ms": L * k4r["bound_ms"],
-            "bound_by": k4r["bound_by"], "library_ms": None,
+            "bound_by": k4r["bound_by"], "library_ms": None, "was_ms": L * k4r["was_ms"],
         },
         # K5 at the work of one eval block: L calls at the eval shape
         "flash_attention": {
@@ -597,6 +642,7 @@ def phase_kernels(torch, ctx):
             "max_abs_err": max(r["max_abs_err"] for r in k5r["cases"].values()),
             "ms": L * k5r["ms"], "plain_ms": L * k5r["plain_ms"], "bound_ms": L * k5r["bound_ms"],
             "bound_by": k5r["bound_by"], "library_ms": L * k5r["library_ms"],
+            "was_ms": L * k5r["was_ms"],
         },
         # K6 at the work of one W8A8 eval block (M = 2048): L x (q, k, v, o,
         # gate, up, down) + lm_head; library: torch._int_mm on x_q
@@ -615,7 +661,7 @@ def phase_kernels(torch, ctx):
             "replaces": "qtpu/kernels/pallas_dequant_matmul.py:324",
             "max_abs_err": max(r["max_abs_err"] for r in k7r.values()),
             **{key: _k7_step(k7r, key, L) for key in ("ms", "plain_ms", "bound_ms",
-                                                      "library_ms")},
+                                                      "library_ms", "was_ms")},
             "bound_by": "bytes",
         },
         # K8 at the work of one decode step: L calls
@@ -634,7 +680,8 @@ def phase_kernels(torch, ctx):
             "route": "cuda", "source": "qtpu_torch/csrc/moe_matmul.cu",
             "replaces": "qtpu/kernels/pallas_moe_matmul.py:40",
             "max_abs_err": max(r["max_abs_err"] for r in k9r.values()),
-            **{key: _moe_step(k9r, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **{key: _moe_step(k9r, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                    "was_ms")},
             "bound_by": "bytes",
         },
         # K10 at the work of one decode step of the 2-slot engine (4 routed
@@ -694,7 +741,7 @@ def phase_kernels(torch, ctx):
             "route": "cuda", "source": "qtpu_torch/csrc/dequant_matmul.cu",
             "replaces": "qtpu/kernels/pallas_dequant_matmul.py:385",
             "max_abs_err": max(r["max_abs_err"] for r in k1o.values()),
-            **{key: L * k1o[row][key] for key in ("ms", "plain_ms", "bound_ms")},
+            **{key: L * k1o[row][key] for key in ("ms", "plain_ms", "bound_ms", "was_ms")},
             "bound_by": k1o[row]["bound_by"],
             "library_ms": None if k1o[row]["library_ms"] is None else L * k1o[row]["library_ms"],
         } for opt, row in (("norm_w", "norm_w_qkv"), ("resid", "resid_o"))},
@@ -773,6 +820,31 @@ def phase_kernels(torch, ctx):
     for name, v in route_sites.items():
         kernel = name.split("_")[0]
         worst[kernel] = max(worst.get(kernel, 0.0), v["over_library"])
+    # the tensor-core decode GEMV (csrc/dq_gemv_tc.cuh) at every M <= 8 site
+    # timed, and K5's Hopper body, each beside its earlier body on the same
+    # bytes ("was"), its bound and its library call
+    tc_sites = {}
+    for kernel, rows in (("K1", {k: v for k, v in k1_rows.items() if k.endswith("_decode")}),
+                         ("K7", {k: v for k, v in k7r.items() if k.endswith("_decode")}),
+                         ("K9", {k: v for k, v in k9r.items() if v["M"] <= 8}),
+                         ("K4", {"layer": k4r}),
+                         ("K1_options", {k: v for k, v in k1o.items() if "ms" in v})):
+        for name, r in rows.items():
+            if "ms" not in r:
+                continue
+            tc_sites[f"{kernel}_{name}"] = {
+                "route": r.get("route"), "ms": r["ms"], "was_ms": r.get("was_ms"),
+                "bound_ms": r["bound_ms"], "library_ms": r.get("library_ms"),
+                "over_library": r["ms"] / r["library_ms"] if r.get("library_ms") else None,
+                "over_was": r["ms"] / r["was_ms"] if r.get("was_ms") else None,
+                "bound_share": r["bound_ms"] / r["ms"]}
+    for key, r in (("K5_eval", k5r), ("K5_mistral_hd128", k5r["mistral_hd128"])):
+        tc_sites[key] = {"route": "wgmma", "ms": r["ms"], "was_ms": r["was_ms"],
+                         "bound_ms": r["bound_ms"], "library_ms": r["library_ms"],
+                         "over_library": r["ms"] / r["library_ms"],
+                         "over_was": r["ms"] / r["was_ms"], "bound_share": r["bound_ms"] / r["ms"],
+                         "tflops": r["tflops"]}
+    emit({"phase": "kernels_decode_gemv_k5", "card": ctx["smi"], "sites": tc_sites})
     emit({"phase": "kernels_hopper_route", "card": ctx["smi"], "sites": route_sites,
           "worst_over_library": worst,
           "library": {"dequant": "torch.matmul on the dequantized weight",
@@ -922,13 +994,14 @@ def _k7_rows(torch, gen, dev):
         row = {"M": M, "K": K, "N": N, "group": group, "rel_err": rel_err(torch, got, want),
                "max_abs_err": float(diff.max()), "max_ref": float(want.float().abs().max()),
                "tol": "rel 2e-2, atol 5% of max |ref|", "route": route,
-               "rule": k7.cb_route(M, N, group, (data.data_ptr(), scales.data_ptr()))}
+               "rule": _rule(k7.cb_route(M, N, group, (data.data_ptr(), scales.data_ptr())),
+                             M, K, N, 4, group, (data.data_ptr(), scales.data_ptr()))}
         if (row["rel_err"] >= 2e-2 or row["max_abs_err"] > 0.05 * row["max_ref"]
                 or not torch.isfinite(got.float()).all()):
             raise AssertionError(f"K7 disagrees with its plain version: {name} {row}")
         if route != row["rule"]:
             raise AssertionError(f"K7 ran the {route} body where its rule says {row['rule']}")
-        if M > 8:
+        if M > 8 or route == "gemv_tc":
             again = k7.codebook_matmul(x, data, scales, cb, meta)
             torch.cuda.synchronize()
             row["same_bits_two_calls"] = _bits_equal(torch, got, again)
@@ -943,6 +1016,9 @@ def _k7_rows(torch, gen, dev):
             torch, [lambda s=s: k7.codebook_matmul(x, *s, meta) for s in site], wbytes)
         row["plain_ms"], _ = cuda_ms(
             torch, [lambda s=s: k7.codebook_matmul_plain(x, *s, meta) for s in site], wbytes)
+        if M <= 8:  # "was": dq_core's SIMT GEMV on the same bytes
+            row["was_ms"], _ = cuda_ms(
+                torch, [lambda s=s: k7.codebook_matmul_simt(x, *s, meta) for s in site], wbytes)
         nlib = max(1, min(len(site), math.ceil(2 * L2_BYTES / (K * N * 2))))
         wd = [k7.codebook_weight(*s, meta, torch.bfloat16) for s in site[:nlib]]
         row["library_ms"], _ = cuda_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wd],
@@ -1091,12 +1167,14 @@ def _k9_rows(torch, gen, dev):
         row = {"E": E, "M": M, "K": K, "N": N, "per_expert_input": per_expert,
                "rel_err": rel_err(torch, got, want),
                "max_abs_err": float((got.float() - want.float()).abs().max()), "tol_rel": 2e-2,
-               "route": route, "rule": k9.moe_route(M, K, N, 4, MOE_GROUP, ptrs, per_expert)}
+               "route": route,
+               "rule": _rule(k9.moe_route(M, K, N, 4, MOE_GROUP, ptrs, per_expert), M, K, N, 4,
+                             MOE_GROUP, ptrs)}
         if row["rel_err"] >= 2e-2 or not torch.isfinite(got.float()).all():
             raise AssertionError(f"K9 disagrees with its plain version: {name} {row}")
         if route != row["rule"]:
             raise AssertionError(f"K9 ran the {route} body where its rule says {row['rule']}")
-        if M > 8:
+        if M > 8 or route == "gemv_tc":
             again = k9.moe_matmul(x, *site, meta, per_expert_input=per_expert)
             torch.cuda.synchronize()
             row["same_bits_two_calls"] = _bits_equal(torch, got, again)
@@ -1115,6 +1193,11 @@ def _k9_rows(torch, gen, dev):
                 torch, [lambda: k9.moe_matmul_mma(x, *site, meta, per_expert_input=per_expert)],
                 wbytes)
             row["was"] = "dq_mma_body (mma.sync) per expert on the same bytes, moe_matmul_mma"
+        else:
+            row["was_ms"], _ = cuda_ms(
+                torch, [lambda: k9.moe_matmul_simt(x, *site, meta, per_expert_input=per_expert)],
+                wbytes)
+            row["was"] = "dq_core's SIMT GEMV on the same bytes, moe_matmul_simt"
         xb = x if per_expert else x.expand(E, M, K)
         row["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xb, wd)], wd.numel() * 2)
         rows[name] = row
@@ -1249,8 +1332,11 @@ def _k11_row(torch, gen, dev):
 def _k5_rows(torch, gen, dev, cfg):
     """K5 against its plain version at the eval shape (one layer of a
     TinyLlama eval block: B 1, H 32, KV 4, S 2048, hd 64) without and with a
-    window of 256, at a ragged S = 1000 and at hd 128 (H 32, KV 8); then
-    times at the eval shape: the kernel, the plain version, SDPA (the
+    window of 256, at a ragged S = 1000 and at Mistral-7B's widths (hd 128,
+    H 32, KV 8, S 2048, and its window of 4096 at S 4100); each on the route
+    flash_route names (the Hopper body) and near the mma.sync body; then
+    times at the eval shape and the Mistral-7B shape: the kernel, its
+    mma.sync body on the same bytes ("was"), the plain version, SDPA (the
     yardstick, never on the path) and the bound from this run's shapes."""
     from qtpu_torch.kernels import flash_attention as k5
 
@@ -1267,32 +1353,53 @@ def _k5_rows(torch, gen, dev, cfg):
         "window256": (H, KV, EVAL_BLOCK, hd, 256),
         "ragged_s1000": (H, KV, 1000, hd, 0),
         "hd128": (32, 8, EVAL_BLOCK, 128, 0),
+        "mistral_window4096_s4100": (32, 8, 4100, 128, 4096),
     }.items():
         q, k, v = qkv(h, kv, S, d)
+        w0 = k5.flash_attention.wgmma_launches
         got = k5.flash_attention(q, k, v, window)
+        route = "wgmma" if k5.flash_attention.wgmma_launches > w0 else "mma"
         want = k5.flash_attention_plain(q, k, v, window)
+        was = k5.flash_attention_mma(q, k, v, window)
         torch.cuda.synchronize()
         err = rel_err(torch, got, want)
         cases[name] = {"H": h, "KV": kv, "S": S, "hd": d, "window": window, "rel_err": err,
                        "max_abs_err": float((got.float() - want.float()).abs().max()),
+                       "rel_err_vs_mma_body": rel_err(torch, got, was), "route": route,
+                       "rule": k5.flash_route(d, [t.data_ptr() for t in (q, k, v)],
+                                              [s for t in (q, k, v) for s in t.stride()[:3]]),
                        "tol_rel": 2e-2}
         if err >= 2e-2 or not torch.isfinite(got.float()).all():
             raise AssertionError(f"K5 disagrees with its plain version: {cases[name]}")
-    S = EVAL_BLOCK
-    io_bytes = 2 * (2 * H * S * hd + 2 * KV * S * hd)  # q, o and k, v in bf16
-    pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
+        if route != cases[name]["rule"] or route != "wgmma":
+            raise AssertionError(f"K5 ran the {route} body: {cases[name]}")
     row = {"cases": cases}
-    row["bound_ms"], row["bound_by"] = bound(io_bytes, 4 * H * hd * pairs)
-    n = max(1, min(8, math.ceil(2 * L2_BYTES / io_bytes)))
-    sets = [qkv(H, KV, S, hd) for _ in range(n)]
-    row["ms"], row["timing"] = cuda_ms(
-        torch, [lambda s=s: k5.flash_attention(*s, 0) for s in sets], io_bytes)
-    row["plain_ms"], _ = cuda_ms(
-        torch, [lambda s=s: k5.flash_attention_plain(*s, 0) for s in sets], io_bytes)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row["library_ms"], _ = cuda_ms(
-        torch, [lambda s=s: sdpa(*s, is_causal=True, enable_gqa=True) for s in sets], io_bytes)
-    row["library_call"] = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    for key, (h, kv, S, d) in (("eval", (H, KV, EVAL_BLOCK, hd)),
+                               ("mistral_hd128", (32, 8, EVAL_BLOCK, 128))):
+        io_bytes = 2 * (2 * h * S * d + 2 * kv * S * d)  # q, o and k, v in bf16
+        pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
+        r = {"H": h, "KV": kv, "S": S, "hd": d}
+        r["bound_ms"], r["bound_by"] = bound(io_bytes, 4 * h * d * pairs)
+        n = max(1, min(8, math.ceil(2 * L2_BYTES / io_bytes)))
+        sets = [qkv(h, kv, S, d) for _ in range(n)]
+        r["ms"], r["timing"] = cuda_ms(
+            torch, [lambda s=s: k5.flash_attention(*s, 0) for s in sets], io_bytes)
+        r["was_ms"], _ = cuda_ms(
+            torch, [lambda s=s: k5.flash_attention_mma(*s, 0) for s in sets], io_bytes)
+        r["was"] = "the mma.sync body on the same bytes, flash_attention_mma"
+        r["plain_ms"], _ = cuda_ms(
+            torch, [lambda s=s: k5.flash_attention_plain(*s, 0) for s in sets], io_bytes)
+        r["library_ms"], _ = cuda_ms(
+            torch, [lambda s=s: sdpa(*s, is_causal=True, enable_gqa=True) for s in sets],
+            io_bytes)
+        r["library_call"] = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+        r["tflops"] = 4 * h * d * pairs / (r["ms"] * 1e-3) / 1e12
+        if key == "eval":
+            row.update(r)
+        else:
+            row[key] = r
+        del sets
     return row
 
 
@@ -1621,7 +1728,7 @@ def _k1_option_rows(torch, gen, dev, cfg):
     M 1, 8 and 32, W4 and W8, asymmetric and symmetric, both options."""
     from qtpu_torch.core.packing import dequantize_parts
     from qtpu_torch.kernels.dequant_matmul import quantized_matmul as k1
-    from qtpu_torch.kernels.dequant_matmul import quantized_matmul_plain
+    from qtpu_torch.kernels.dequant_matmul import quantized_matmul_plain, quantized_matmul_simt
     from qtpu_torch.models.ops import rms_norm
 
     D, g, B = cfg.hidden_size, 128, SERVE_B
@@ -1652,6 +1759,10 @@ def _k1_option_rows(torch, gen, dev, cfg):
         row["ms"], row["timing"] = cuda_ms(
             torch, [lambda i=i: k1(x, data[i], scales[i], zeros[i], meta, **kw(i))
                     for i in range(copies)], wbytes)
+        row["was_ms"], _ = cuda_ms(
+            torch, [lambda i=i: quantized_matmul_simt(x, data[i], scales[i], zeros[i], meta,
+                                                      **kw(i)) for i in range(copies)], wbytes)
+        row["was"] = "dq_core's SIMT GEMV on the same bytes, quantized_matmul_simt"
         row["k1_alone_ms"], _ = cuda_ms(
             torch, [lambda i=i: k1(x, data[i], scales[i], zeros[i], meta) for i in range(copies)],
             wbytes)
@@ -2157,6 +2268,7 @@ def _moe_e2e(torch):
             raise AssertionError(f"the MoE run's launches {counts} != {expect}")
         # the prefill's K1 and K9 launches (B x 16 rows) took the Hopper route
         _check_routes(f"e2e MoE {kv}", routes, k1=4 * L + 1, k9=3 * L)
+        _check_gemv(f"e2e MoE {kv}", counts, routes)
         emit(_moe_teacher_forced(torch, cfg, packed, dense, dense32, qmeta, ids, toks, kv))
     del packed, dense, dense32
     torch.cuda.empty_cache()
@@ -2384,6 +2496,8 @@ def phase_serve(torch, ctx):
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
     # every prefill launch of K1 (88 + 1 a prefill of 8 x 128 rows) took the Hopper route
     _check_routes("serve", routes, k1=(4 * L + 1) * pre)
+    # and every decode launch of K1 and K4 took the tensor-core GEMV
+    _check_gemv("serve", counts, routes)
     ctx.setdefault("path_launches", {})["serve"] = {**counts, **routes}
 
     # steady decode after the run: blocks of 16 greedy steps, all slots
@@ -2653,6 +2767,7 @@ def phase_long_ctx(torch, ctx):
     ctx.setdefault("path_launches", {})["long_ctx"] = {**counts, **routes}
     if counts != expect:
         raise AssertionError(f"kernel launches {counts} != expected {expect}: {res}")
+    _check_gemv("long_ctx", counts, routes)  # K1 and K4 on the tensor-core GEMV
     if len(per_layer) != L or max(k12_errs) >= 3e-2 or not res["k12_rows_equal"]:
         raise AssertionError(f"K12 disagrees with its plain version inside the step: {res}")
     if err >= 5e-2 or not res["finite"]:
@@ -2789,6 +2904,7 @@ def phase_boundary(torch, ctx):
                 raise AssertionError(f"{len(done)} of {B} requests finished: {res}")
             if counts != expect or steps == 0:
                 raise AssertionError(f"kernel launches {counts} != expected {expect}")
+            _check_gemv(f"boundary {mode} {kv}", counts, routes)
             if not res["finite"]:
                 raise AssertionError(f"non-finite logits in the {mode} branch: {res}")
             if mode == "boundary" and (len(per_layer) != L
@@ -2863,6 +2979,9 @@ def phase_serve_gpt2(torch, ctx):
                 raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
         if counts != expect or steps == 0:
             raise AssertionError(f"kernel launches {counts} != expected {expect}")
+        # every decode launch of K1 took the tensor-core GEMV but GPT-2's
+        # 50257-wide lm_head (dq_core's GEMV, one a decode step)
+        _check_gemv(f"serve_{arch}", counts, routes, ragged_k1=steps if arch == "gpt2" else 0)
         paths[f"serve_{arch}"] = {**counts, **routes}
         del eng
         cache = init_cache(cfg, B, P + new + 16, quantized=True, device="cuda")
@@ -2982,6 +3101,9 @@ def phase_eval(torch, ctx):
     # every K1 launch of a packed eval block (M 2048) and of a serving
     # prefill (M 1024) took the Hopper route
     _check_routes("eval", routes, k1=(4 * L + 1) * (nb + runs))
+    # every K5 launch took its Hopper body, every serving decode launch the
+    # tensor-core GEMV
+    _check_gemv("eval", counts, routes)
     ctx.setdefault("path_launches", {})["eval"] = {**counts, **routes}
 
     # warm blocks of the same three models, each timed around a synchronize
@@ -3065,6 +3187,18 @@ ROUTES = {
     "moe_matmul_mma": ("moe_matmul", "moe_matmul", "mma_launches"),
     "w8a8_matmul_wgmma": ("int8_matmul", "w8a8_matmul", "wgmma_launches"),
     "w8a8_matmul_mma": ("int8_matmul", "w8a8_matmul", "mma_launches"),
+    # the decode GEMVs of K1, K7, K9 and K4: the tensor-core body
+    # (csrc/dq_gemv_tc.cuh) and dq_core's SIMT body; K5's two bodies
+    "dequant_matmul_gemv_tc": ("dequant_matmul", "quantized_matmul", "gemv_tc_launches"),
+    "dequant_matmul_gemv": ("dequant_matmul", "quantized_matmul", "gemv_launches"),
+    "codebook_matmul_gemv_tc": ("codebook_matmul", "codebook_matmul", "gemv_tc_launches"),
+    "codebook_matmul_gemv": ("codebook_matmul", "codebook_matmul", "gemv_launches"),
+    "moe_matmul_gemv_tc": ("moe_matmul", "moe_matmul", "gemv_tc_launches"),
+    "moe_matmul_gemv": ("moe_matmul", "moe_matmul", "gemv_launches"),
+    "fused_mlp_gemv_tc": ("fused_mlp", "fused_mlp", "gemv_tc_launches"),
+    "fused_mlp_gemv": ("fused_mlp", "fused_mlp", "gemv_launches"),
+    "flash_attention_wgmma": ("flash_attention", "flash_attention", "wgmma_launches"),
+    "flash_attention_mma": ("flash_attention", "flash_attention", "mma_launches"),
 }
 # the kernels of the layer-boundary branches (K13, K1's options), which only
 # the boundary phase's switches turn on
@@ -3109,16 +3243,40 @@ def _check_routes(phase, routes, k1=0, k7=0, k9=0, k6=0):
               "codebook_matmul_wgmma": k7, "codebook_matmul_mma": 0,
               "moe_matmul_wgmma": k9, "moe_matmul_mma": 0,
               "w8a8_matmul_wgmma": k6, "w8a8_matmul_mma": 0}
-    if routes != expect:
-        raise AssertionError(f"{phase}: route launches {routes} != expected {expect}")
+    got = {k: routes[k] for k in expect}
+    if got != expect:
+        raise AssertionError(f"{phase}: route launches {got} != expected {expect}")
+
+
+def _check_gemv(phase, counts, routes, ragged_k1=0):
+    """Every M <= 8 launch of K1, K7, K9 and K4 of a run (those not on the
+    Hopper route or the mma.sync body) took the tensor-core GEMV, but
+    ragged_k1 K1 launches at GPT-2's 50257-wide lm_head (dq_core's GEMV);
+    and every K5 launch took its Hopper body. Returns the GEMV launches."""
+    seen = {}
+    for kernel in ("dequant_matmul", "codebook_matmul", "moe_matmul", "fused_mlp"):
+        gemv = counts[kernel] - routes.get(f"{kernel}_wgmma", 0) - routes.get(f"{kernel}_mma", 0)
+        want = {"tc": gemv - (ragged_k1 if kernel == "dequant_matmul" else 0),
+                "simt": ragged_k1 if kernel == "dequant_matmul" else 0}
+        got = {"tc": routes[f"{kernel}_gemv_tc"], "simt": routes[f"{kernel}_gemv"]}
+        if got != want:
+            raise AssertionError(f"{phase}: {kernel}'s GEMV launches {got} != expected {want}")
+        seen[kernel] = got
+    k5 = {"wgmma": routes["flash_attention_wgmma"], "mma": routes["flash_attention_mma"]}
+    if k5 != {"wgmma": counts["flash_attention"], "mma": 0}:
+        raise AssertionError(f"{phase}: K5's launches {k5} of {counts['flash_attention']}")
+    return seen
 
 
 def _kind(name: str) -> str:
     """The kernel of a profiled CUDA kernel's name, for the splits by kind."""
     # dq_kernel<BITS, TM, CQ, MODE, VEC>, dq_finish<MODE>, dq_mma_kernel<BITS, CB, VEC>,
-    # dq_wgmma_kernel<BITS, CB, G, EXPERTS>
-    if "dq_wgmma_kernel<" in name and name.split(">")[0].endswith("true"):
-        return "K9 moe_matmul"  # the Hopper route's expert axis
+    # dq_wgmma_kernel<BITS, CB, G, EXPERTS>, dq_gemv_tc_kernel<BITS, MODE, EXPERTS>
+    if (("dq_wgmma_kernel<" in name or "dq_gemv_tc_kernel<" in name)
+            and name.split(">")[0].endswith("true")):
+        return "K9 moe_matmul"  # the expert axis of the Hopper route or the tensor-core GEMV
+    if "dq_gemv_tc_kernel<" in name and name.split(">")[0].replace(" ", "").split(",")[1] == "3":
+        return "K7 codebook_matmul"
     if "dq_" in name and any(t in name for t in (", 3, ", "dq_finish<3>", "dq_mma_kernel<4, true",
                                                   "dq_wgmma_kernel<4, true")):
         return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
@@ -3136,6 +3294,7 @@ def _kind(name: str) -> str:
                       ("flash_split", "K12 decode_attention_flash"),
                       ("flash_combine", "K12 decode_attention_flash"),
                       ("w8a8", "K6 w8a8_matmul"), ("flash_attn_kernel", "K5 flash_attention"),
+                      ("flash_wgmma_kernel", "K5 flash_attention"),
                       ("band_write", "K2 cache_band_write"), ("moe_", "K9 moe_matmul"),
                       ("dq_", "K1 dequant_matmul")):
         if tag in name:
@@ -3242,6 +3401,7 @@ def phase_quant(torch, ctx):
     # every K6 launch of the smoothquant eval blocks and serving prefills
     # (M 1024) took the Hopper route
     _check_routes("quant", routes, k1=2 * nb * (4 * L + 1), k6=(nb + runs) * a8)
+    _check_gemv("quant", counts, routes)
     ctx.setdefault("path_launches", {})["quant"] = {**counts, **routes}
 
     # the costs, each timed on the host around a synchronize
@@ -3508,6 +3668,7 @@ def phase_pot_apot(torch, ctx):
     # every K7 launch of the packed pot and apot eval blocks and of the
     # serving prefills took the Hopper route
     _check_routes("pot_apot", routes, k7=(2 * nb + runs) * CB_PER_FORWARD)
+    _check_gemv("pot_apot", counts, routes)
     ctx.setdefault("path_launches", {})["pot_apot"] = {**counts, **routes}
 
     # each method's quantize and pack, timed on the host around a synchronize;
@@ -3634,6 +3795,7 @@ def phase_serve_bf16(torch, ctx):
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
     # every prefill launch of K7 (89 a prefill of 8 x 128 rows) took the Hopper route
     _check_routes("serve_bf16", routes, k7=CB_PER_FORWARD * pre)
+    _check_gemv("serve_bf16", counts, routes)
     ctx.setdefault("path_launches", {})["serve_bf16"] = {**counts, **routes}
 
     cache = init_cache(cfg, B, P + SERVE_NEW + 16, device="cuda")
@@ -3719,6 +3881,8 @@ def _moe_engine(torch, params, qmeta, cfg, slots, requests):
     # every K1 and K9 launch of a prefill (128 rows a prompt) took the Hopper route
     _check_routes(f"serve_moe {slots} slots", routes, k1=MOE_PER_STEP["dequant_matmul"] * pre,
                   k9=MOE_PER_STEP["moe"] * pre)
+    # and every decode launch of K1 and K9 the tensor-core GEMV
+    _check_gemv(f"serve_moe {slots} slots", counts, routes)
     return res, eng
 
 

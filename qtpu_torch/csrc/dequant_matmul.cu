@@ -8,9 +8,14 @@
 // Bound on an H100: at decode (M = 8) the packed weight bytes (W4: K*N/2
 // plus the group scales and zeros); at prefill (M = 1024) the multiply-adds.
 // What the design does about it, by the M it is given:
-//  * M <= 8: the weight-streaming GEMV of dq_core.cuh (each weight byte read
-//    once, dequantized in registers, K split across lanes and blocks so
-//    enough loads are in flight for the narrow decode shapes);
+//  * M <= 8, W4/W8, g 64 or 128, N % 16 == 0 and the codes, scales and zeros
+//    16-byte aligned (gemv_tc_fits, with the wrapper's split of K over a
+//    thread-block cluster): the tensor-core GEMV of dq_gemv_tc.cuh (its note
+//    gives the design), one launch a call;
+//  * other M <= 8 calls (W2, other groups, ragged N, unaligned tensors): the
+//    weight-streaming GEMV of dq_core.cuh (each weight byte read once,
+//    dequantized in registers, K split across lanes and blocks so enough
+//    loads are in flight for the narrow decode shapes);
 //  * M > 8, g 64 or 128, N % 16 == 0 and x, codes, scales and zeros 16-byte
 //    aligned (wgmma_fits): dq_wgmma_kernel of dq_wgmma.cuh, wgmma fed by TMA
 //    through mbarriers (its note gives the design). Its weight operand is
@@ -27,14 +32,16 @@
 // x normalized in the launch's prologue (rms in f32 over all of K, each
 // block for its own rows, then rounded to bf16 as the TPU kernel rounds it),
 // and resid, added to the f32 sums in the epilogue and cast once. They run
-// in the GEMV kernel tiled by 8 rows (decode shapes, M <= 32, split K as
-// above), each its own template instance of the core (MODE 4, 2 and 6), so
+// in the tensor-core GEMV where it takes the call (M <= 8, MODE 4, 2 and 6
+// of dq_gemv_tc.cuh), else in dq_core's GEMV tiled by 8 rows (decode shapes,
+// M <= 32, split K as above), each its own template instance of the core, so
 // the plain builds compile as before.
 // Ragged M and N edges are masked in the kernels, so no caller pads; at
 // N % 4 != 0 (GPT-2's lm_head, N 50257) the packed rows are unaligned and
 // a separate build of both kernels (VEC = false) reads each thread's 4
 // columns byte by byte; aligned shapes run the vector-load build (qtpu
 // sends ragged shapes to XLA, qtpu/kernels/dequant_matmul.py:64).
+#include "dq_gemv_tc.cuh"
 #include "dq_mma.cuh"
 #include "dq_wgmma.cuh"
 
@@ -85,16 +92,21 @@ DqArgs make_args(const void* x, const void* data, const void* scales, const void
 // y[M, N] = x[M, K] @ dequant(data, scales, zeros); x must be 16-byte
 // aligned. split_groups: groups of K per block slice, K / group for no split;
 // with more than one slice (M <= 8 only), `part` is an f32 scratch of
-// slices * M * N. Returns a cudaError_t (0 on success), or -1 for arguments
-// the kernel does not take.
+// slices * M * N. cluster > 0 (M <= 8): the tensor-core GEMV with K split
+// into `cluster` slices of split_groups groups (part unused); -1 where
+// gemv_tc_fits refuses the call. cluster 0: the other bodies (dq_core's GEMV
+// at M <= 8). Returns a cudaError_t (0 on success), or -1 for arguments the
+// kernel does not take.
 extern "C" int qtpu_dq_matmul(const void* x, const void* data, const void* scales,
                               const void* zeros, void* out, void* part, int split_groups,
-                              int M, int K, int N, int bits, int group, void* stream) {
+                              int cluster, int M, int K, int N, int bits, int group,
+                              void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || group <= 0 || group % 4 != 0 ||
       K % group != 0)
     return -1;
   const DqArgs a = make_args(x, data, scales, zeros, out, part, split_groups, M, K, N, group);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster > 0) return gemv_tc<0>(a, bits, cluster, split_groups, st);
   switch (bits) {
     case 2: return dq_dispatch<2>(a, st);
     case 4: return dq_dispatch<4>(a, st);
@@ -105,11 +117,12 @@ extern "C" int qtpu_dq_matmul(const void* x, const void* data, const void* scale
 
 // qtpu_dq_matmul with the options: y = [resid +] (norm_w ? bf16(rms_norm(x)
 // * norm_w) : x) @ dequant(...), nw [K] and resid [M, N] bf16 (either may be
-// null, not both); M <= 32, N % 4 == 0, nw 8-byte aligned.
+// null, not both); M <= 32, N % 4 == 0, nw 8-byte aligned. cluster as in
+// qtpu_dq_matmul (the tensor-core GEMV's MODE 2, 4 or 6 at M <= 8).
 extern "C" int qtpu_dq_matmul_opt(const void* x, const void* data, const void* scales,
                                   const void* zeros, const void* nw, const void* resid,
-                                  void* out, void* part, int split_groups, int M, int K, int N,
-                                  int bits, int group, float eps, void* stream) {
+                                  void* out, void* part, int split_groups, int cluster, int M,
+                                  int K, int N, int bits, int group, float eps, void* stream) {
   if (M <= 0 || M > 32 || K <= 0 || N <= 0 || N % 4 != 0 || group <= 0 || group % 4 != 0 ||
       K % group != 0 || (nw == nullptr && resid == nullptr))
     return -1;
@@ -118,6 +131,11 @@ extern "C" int qtpu_dq_matmul_opt(const void* x, const void* data, const void* s
   a.resid = static_cast<const __nv_bfloat16*>(resid);
   a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster > 0) {
+    if (nw == nullptr) return gemv_tc<2>(a, bits, cluster, split_groups, st);
+    if (resid == nullptr) return gemv_tc<4>(a, bits, cluster, split_groups, st);
+    return gemv_tc<6>(a, bits, cluster, split_groups, st);
+  }
   switch (bits) {
     case 2: return dq_option_dispatch<2>(a, st);
     case 4: return dq_option_dispatch<4>(a, st);

@@ -35,9 +35,41 @@
 // no stores), so any S works. Strided q/k/v/o are read in place (element
 // strides for batch, head and position; the head dim must be contiguous),
 // so the caller's [B, S, H, hd] projections need no copy.
+//
+// The Hopper body (flash_wgmma_kernel, the one calls take where
+// flash_wgmma_fits holds: q, k and v 16-byte aligned with strides of whole
+// 16-byte units). mma.sync reaches a fraction of the card's bf16 rate; only
+// wgmma reaches it. The body follows K1's route (dq_wgmma.cuh, tma.cuh):
+//  * a block owns 128 query rows of one (batch, q head), two consumer
+//    warpgroups of 64 rows each, and a producer warpgroup whose one thread
+//    loads Q once and keeps the K and V tiles of 128 keys in flight by TMA
+//    (4D tensor maps over the strided [B, H|KV, S, hd] views, the 128-byte
+//    swizzle, 64 head-dim columns a box) in a ring of 2 (hd 128) or 3 (hd 64)
+//    stages, refilled as soon as both warpgroups release a stage (an
+//    mbarrier of 8 warp arrivals); setmaxnreg gives the consumers 232
+//    registers and the producer 40, as on the route;
+//  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
+//    K-major as TMA lays them (wg_desc); the scores are in the accumulator
+//    layout of mma.sync's C, so the online softmax (log2 domain, the mask
+//    only on tiles that cross the diagonal or the window's edge, -1e30, f32
+//    m and l, the l == 0 guard) is the mma.sync body's, row max and sum over
+//    the 4 lanes of a row, exp2 on the special function unit; the two
+//    warpgroups take turns to issue S (two named barriers), so that one's
+//    softmax runs while the other's products occupy the tensor cores;
+//  * O += P V is wgmma m64n{hd}k16 with P as register A fragments (S's
+//    accumulator of two 8-key blocks is P's A fragment of 16 keys, rounded
+//    to bf16) and V read through a descriptor of the MN-major (transposed)
+//    128-byte swizzled layout: V stays [key][d] as TMA writes it;
+//  * the tile range (the window's first tile to the diagonal), the longest
+//    query blocks first, ragged S (TMA zero-fills boxes past S; the stores
+//    are masked) are the mma.sync body's.
+// qtpu_flash_attention_mma keeps the mma.sync body reachable for any call it
+// takes, for comparison on the same bytes; no eval path calls it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -298,20 +330,438 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// ------------------------------------------------------ the Hopper body
+
+constexpr int kWBQ = 128;  // query rows a block: two consumer warpgroups of 64
+constexpr int kWBK = 128;  // keys a tile
+constexpr int kWThreads = 384;
+constexpr int kWConsumerRegs = 232;
+constexpr int kWProducerRegs = 40;
+
+template <int HD>
+struct FaLayout {
+  static constexpr int NC = HD / 64;          // 64-column (128-byte) chunks of a row
+  static constexpr int QB = NC * kWBQ * 128;  // Q tile
+  static constexpr int TB = NC * kWBK * 128;  // a K or V tile
+  static constexpr int RING = HD == 64 ? 3 : 2;
+  static constexpr int SMEM = 1024 + QB + RING * 2 * TB + 8 * (1 + 2 * RING);
+};
+
+// A tensor map's coordinate order: the head dim first, then the position,
+// head and batch dimensions sorted by stride (pos_* give each one's place).
+struct FaMaps {
+  int pos_s, pos_h, pos_b;
+};
+
+__device__ __forceinline__ void fa_tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the rows from `row` of head h, batch b, columns c0 .. c0 + 63, in the map's order
+__device__ __forceinline__ void fa_load(uint32_t dst, const CUtensorMap* map, const FaMaps& o,
+                                        uint32_t bar, int c0, int row, int h, int b) {
+  int c[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) c[i] = i == o.pos_s ? row : (i == o.pos_h ? h : b);
+  fa_tma_load_4d(dst, map, bar, c0, c[0], c[1], c[2]);
+}
+
+// wgmma descriptor of an MN-major operand in 128-byte swizzled rows (V as
+// B of P V: rows are keys, 128 bytes of 64 d each): 8-row groups 1024 bytes
+// apart (SBO), 64-column chunks `lbo` bytes apart (LBO), layout 1
+__device__ __forceinline__ uint64_t fa_desc_mn(uint32_t saddr, uint32_t lbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void fa_wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, " "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void fa_wgmma_rs_n64_t(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, " "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void fa_wgmma_rs_n128_t(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, " "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <int HD>
+__device__ __forceinline__ void fa_pv(float* o, const uint32_t* p, uint64_t db, int acc) {
+  if constexpr (HD == 64) fa_wgmma_rs_n64_t(o, p, db, acc);
+  else fa_wgmma_rs_n128_t(o, p, db, acc);
+}
+
+// exp2 on the special function unit (denormal results flushed to 0)
+__device__ __forceinline__ float fa_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers of 256 threads (two warpgroups): the consumers take turns
+// to issue S = Q K^T, so one warpgroup's softmax runs under the other's products
+__device__ __forceinline__ void fa_bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void fa_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fa_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// grid (ceil(S / 128), H, B), block 384 (consumer warpgroups 0 and 1,
+// producer warpgroup 2), FaLayout<HD>::SMEM bytes of dynamic shared memory.
+template <int HD>
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                       const __grid_constant__ CUtensorMap tmk,
+                       const __grid_constant__ CUtensorMap tmv, FaMaps qo, FaMaps ko,
+                       FlashArgs a) {
+  using L = FaLayout<HD>;
+  extern __shared__ uint8_t fa_smem[];  // aligned to 1024 by hand (an __align__ here would move
+                                        // the dynamic shared memory of the mma.sync body)
+  uint8_t* qs = fa_smem + ((1024 - (qtpu::smem_u32(fa_smem) & 1023)) & 1023);
+  uint8_t* ks = qs + L::QB;              // [RING][NC][128 keys][128 B]
+  uint8_t* vs = ks + L::RING * L::TB;    // the same for V
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + L::RING * L::TB);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + L::RING;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int qblk = gridDim.x - 1 - blockIdx.x;  // the longest key loops first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / a.G;
+  const int q0 = qblk * kWBQ;
+  const int last_q = min(q0 + kWBQ, a.S) - 1;
+  const int kt_end = last_q / kWBK;
+  const int kt_begin = a.window > 0 ? max(q0 - a.window + 1, 0) / kWBK : 0;
+
+  if (tid == 0) {
+    qtpu::mbar_init(qtpu::smem_u32(qbar), 1);
+#pragma unroll
+    for (int i = 0; i < L::RING; ++i) {
+      qtpu::mbar_init(qtpu::smem_u32(full + i), 1);
+      qtpu::mbar_init(qtpu::smem_u32(empty + i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: Q once, then K and V tile by tile into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWProducerRegs));
+    if (tid == 256) {
+      const uint32_t qb = qtpu::smem_u32(qbar);
+      qtpu::mbar_expect_tx(qb, L::QB);
+#pragma unroll
+      for (int c = 0; c < L::NC; ++c)
+        fa_load(qtpu::smem_u32(qs + c * kWBQ * 128), &tmq, qo, qb, 64 * c, q0, h, b);
+      for (int kt = kt_begin; kt <= kt_end; ++kt) {
+        const int i = kt - kt_begin;
+        const int slot = i % L::RING;
+        if (i >= L::RING) qtpu::mbar_wait(qtpu::smem_u32(empty + slot), (i / L::RING - 1) & 1);
+        const uint32_t fb = qtpu::smem_u32(full + slot);
+        qtpu::mbar_expect_tx(fb, 2 * L::TB);
+#pragma unroll
+        for (int c = 0; c < L::NC; ++c) {
+          fa_load(qtpu::smem_u32(ks + slot * L::TB + c * kWBK * 128), &tmk, ko, fb, 64 * c,
+                  kt * kWBK, kvh, b);
+          fa_load(qtpu::smem_u32(vs + slot * L::TB + c * kWBK * 128), &tmv, ko, fb, 64 * c,
+                  kt * kWBK, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 query rows each
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWConsumerRegs));
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int q0w = q0 + 64 * wg;
+  const int row0 = q0w + 16 * ((tid >> 5) & 3) + (lane >> 2);  // c0/c1's row; row0 + 8: c2/c3's
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kMasked, kMasked};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+  const uint32_t qa = qtpu::smem_u32(qs) + wg * 64 * 128;
+  qtpu::mbar_wait(qtpu::smem_u32(qbar), 0);
+  if (wg == 1) fa_bar_arrive(1);  // warpgroup 0 issues its first product first
+
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int i = kt - kt_begin;
+    const int slot = i % L::RING;
+    qtpu::mbar_wait(qtpu::smem_u32(full + slot), (i / L::RING) & 1);
+    const uint32_t kb = qtpu::smem_u32(ks + slot * L::TB);
+    const uint32_t vb = qtpu::smem_u32(vs + slot * L::TB);
+    const int k0 = kt * kWBK;
+
+    float s[64];  // no initial value: the first product ignores it (scale-d 0)
+    fa_bar_sync(1 + wg);  // this warpgroup's turn on the tensor cores
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kWBK * 128 + (kk % 4) * 32;
+      fa_wgmma_ss_n128(s, qtpu::wg_desc(qa + (kk / 4) * kWBQ * 128 + (kk % 4) * 32),
+                       qtpu::wg_desc(kb + off), kk > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the other warpgroup's turn (warpgroup 1 owes none after its last tile:
+    // each barrier completes as often as it is waited on)
+    if (wg == 0 || kt < kt_end) fa_bar_arrive(2 - wg);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fa_fence<64>(s);
+
+    // the mask where the tile crosses the diagonal or the window's edge for
+    // a row of this warpgroup (keys past S lie past the diagonal): those
+    // tiles are scaled into the log2 domain and masked here; the others stay
+    // raw, their maximum scaled once (the scale is positive) and each
+    // probability one FFMA and one exp2. Row maxima in two partial chains each.
+    const bool masked = k0 + kWBK - 1 > q0w || (a.window > 0 && k0 <= q0w + 63 - a.window);
+    float sc = a.scale_log2;
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < kWBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + (e >= 2 ? 8 : 0);
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const float x = s[4 * j + e] * sc;
+          s[4 * j + e] =
+              key > row || (a.window > 0 && key <= row - a.window) ? kMasked : x;
+        }
+      }
+      sc = 1.f;
+    }
+    float mx[2][2] = {{kMasked, kMasked}, {kMasked, kMasked}};
+#pragma unroll
+    for (int j = 0; j < kWBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[j & 1][e >> 1] = fmaxf(mx[j & 1][e >> 1], s[4 * j + e]);
+    float mn[2], nmn[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mn[r] = fmaxf(mx[0][r], mx[1][r]);
+      mn[r] = fmaxf(mn[r], __shfl_xor_sync(0xffffffffu, mn[r], 1));
+      mn[r] = fmaxf(mn[r], __shfl_xor_sync(0xffffffffu, mn[r], 2));
+      mn[r] = fmaxf(m[r], mn[r] * sc);
+      alpha[r] = fa_exp2(m[r] - mn[r]);
+      m[r] = mn[r];
+      nmn[r] = -mn[r];
+    }
+    uint32_t pf[kWBK / 16][4];
+    float ls[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // the tile's row sums, two partial chains
+#pragma unroll
+    for (int j = 0; j < kWBK / 8; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pv[e] = fa_exp2(fmaf(s[4 * j + e], sc, nmn[e >> 1]));
+        ls[j & 1][e >> 1] += pv[e];
+      }
+      // keys 8j .. 8j + 7 are half of P's A fragment of keys 16 (j / 2) ..
+      pf[j / 2][2 * (j & 1)] = pack_bf16(pv[0], pv[1]);
+      pf[j / 2][2 * (j & 1) + 1] = pack_bf16(pv[2], pv[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + (ls[0][r] + ls[1][r]);
+    // the output rescaled where a row's maximum moved (any lane of the warp)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+    }
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kWBK / 16; ++kk)
+      fa_pv<HD>(o, pf[kk], fa_desc_mn(vb + kk * 16 * 128, kWBK * 128), 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fa_fence<HD / 2>(o);
+    qtpu::wg_fence_u32<kWBK / 4>(&pf[0][0]);
+    qtpu::warp_arrive(qtpu::smem_u32(empty + slot));  // K and V of the stage are consumed
+  }
+
+  __nv_bfloat16* op = a.o + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= a.S) continue;
+    const float inv = 1.0f / (l[r] == 0.f ? 1.f : l[r]);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(op + (long long)row * a.o_ss + 8 * j + 2 * t) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// The 4D map of a [B, heads, S, hd] view with element strides (sb, sh, ss)
+// (the head dim contiguous), boxes of 64 columns x `rows` positions, the
+// 128-byte swizzle; its dimensions after the head dim are sorted by stride.
+int fa_map(CUtensorMap* map, FaMaps* order, const void* base, int B, int heads, int S, int hd,
+           long long sb, long long sh, long long ss, int rows) {
+  const qtpu::TmapEncodeFn enc = qtpu::tmap_encoder();
+  if (enc == nullptr) return qtpu::kWgEncodeError | 0xffff;
+  long long dim[3] = {S, heads, B}, str[3] = {ss, sh, sb};
+  int box[3] = {rows, 1, 1}, idx[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)  // sort by stride
+    for (int j = i + 1; j < 3; ++j)
+      if (str[idx[j]] < str[idx[i]]) {
+        const int tmp = idx[i];
+        idx[i] = idx[j];
+        idx[j] = tmp;
+      }
+  cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t boxes[4] = {64, 0, 0, 0};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    dims[1 + i] = (cuuint64_t)dim[idx[i]];
+    strides[i] = (cuuint64_t)str[idx[i]] * 2;
+    boxes[1 + i] = (cuuint32_t)box[idx[i]];
+    if (idx[i] == 0) order->pos_s = i;
+    if (idx[i] == 1) order->pos_h = i;
+    if (idx[i] == 2) order->pos_b = i;
+  }
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                         strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (qtpu::kWgEncodeError | (int)r);
+}
+
+// The Hopper body's rule: q, k and v 16-byte aligned with strides of whole
+// 16-byte units below 2^39 elements (TMA's), hd 64 or 128. Mirrored by
+// flash_route in qtpu_torch/kernels/flash_attention.py.
+bool flash_wgmma_fits(const void* q, const void* k, const void* v, const long long* strides9,
+                      int hd) {
+  if ((hd != 64 && hd != 128) || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16))
+    return false;
+  for (int i = 0; i < 9; ++i)
+    if (strides9[i] % 8 != 0 || strides9[i] <= 0 || strides9[i] >= (1LL << 39)) return false;
+  return true;
+}
+
+template <int HD>
+int launch_flash_wgmma(const void* q, const void* k, const void* v, const FlashArgs& a, int B,
+                       int H, int KV, cudaStream_t st) {
+  using L = FaLayout<HD>;
+  static bool smem_set = false;
+  CUtensorMap tmq, tmk, tmv;
+  FaMaps qo{}, ko{}, vo{};
+  int rc = fa_map(&tmq, &qo, q, B, H, a.S, HD, a.q_sb, a.q_sh, a.q_ss, kWBQ);
+  if (rc == 0) rc = fa_map(&tmk, &ko, k, B, KV, a.S, HD, a.k_sb, a.k_sh, a.k_ss, kWBK);
+  if (rc == 0) rc = fa_map(&tmv, &vo, v, B, KV, a.S, HD, a.v_sb, a.v_sh, a.v_ss, kWBK);
+  if (rc != 0) return rc;
+  if (ko.pos_s != vo.pos_s || ko.pos_h != vo.pos_h || ko.pos_b != vo.pos_b) return -1;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  dim3 grid((a.S + kWBQ - 1) / kWBQ, H, B);
+  flash_wgmma_kernel<HD><<<grid, kWThreads, L::SMEM, st>>>(tmq, tmk, tmv, qo, ko, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// o = attention(q, k, v) with the strides given in elements (the head dim
-// is contiguous in all four). q/o need even strides and 4-byte alignment;
-// k/v strides that are multiples of 8 and 16-byte alignment (16-byte row
-// loads). Returns a cudaError_t (0 on success), or -1 for arguments the
-// kernel does not take.
-extern "C" int qtpu_flash_attention(
-    const void* q, const void* k, const void* v, void* o,
-    long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss,
-    long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss,
-    int B, int H, int KV, int S, int hd, int window, void* stream) {
+namespace {
+
+// The mma.sync body, or the Hopper body (wgmma: the caller has checked
+// flash_wgmma_fits), on the arguments qtpu_flash_attention takes.
+int flash_attention(const void* q, const void* k, const void* v, void* o,
+                    long long q_sb, long long q_sh, long long q_ss,
+                    long long k_sb, long long k_sh, long long k_ss,
+                    long long v_sb, long long v_sh, long long v_ss,
+                    long long o_sb, long long o_sh, long long o_ss,
+                    int B, int H, int KV, int S, int hd, int window, bool wgmma, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || (hd != 64 && hd != 128) ||
       B > 65535 || H > 65535)
     return -1;
@@ -336,6 +786,9 @@ extern "C" int qtpu_flash_attention(
   a.window = window;
   a.scale_log2 = kLog2e / sqrtf((float)hd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wgmma)
+    return hd == 64 ? launch_flash_wgmma<64>(q, k, v, a, B, H, KV, st)
+                    : launch_flash_wgmma<128>(q, k, v, a, B, H, KV, st);
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   if (hd == 64) {
     flash_attn_kernel<64><<<grid, kThreads, smem_bytes<64>(), st>>>(a);
@@ -347,4 +800,39 @@ extern "C" int qtpu_flash_attention(
     flash_attn_kernel<128><<<grid, kThreads, smem_bytes<128>(), st>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// o = attention(q, k, v) with the strides given in elements (the head dim
+// is contiguous in all four). q/o need even strides and 4-byte alignment;
+// k/v strides that are multiples of 8 and 16-byte alignment (16-byte row
+// loads). The Hopper body runs where flash_wgmma_fits holds (q too 16-byte
+// aligned with strides that are multiples of 8), the mma.sync body
+// elsewhere. Returns a cudaError_t (0 on success), or -1 for arguments the
+// kernel does not take; an encode error of a tensor map as 0x10000 | CUresult.
+extern "C" int qtpu_flash_attention(
+    const void* q, const void* k, const void* v, void* o,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    int B, int H, int KV, int S, int hd, int window, void* stream) {
+  const long long s9[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+  const bool wgmma = flash_wgmma_fits(q, k, v, s9, hd);
+  return flash_attention(q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                         o_sb, o_sh, o_ss, B, H, KV, S, hd, window, wgmma, stream);
+}
+
+// qtpu_flash_attention on the mma.sync body whatever the rule says: the
+// earlier body on the same bytes, for comparison. Same arguments.
+extern "C" int qtpu_flash_attention_mma(
+    const void* q, const void* k, const void* v, void* o,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    int B, int H, int KV, int S, int hd, int window, void* stream) {
+  return flash_attention(q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                         o_sb, o_sh, o_ss, B, H, KV, S, hd, window, false, stream);
 }

@@ -13,13 +13,17 @@
 //      the act is rounded to bf16 exactly where the TPU kernel rounds it;
 //   B: the down projection over act with an f32 accumulator, the residual
 //      added in f32 and the result cast to bf16 once (K1's device code).
-// Each phase splits K across blocks as the caller asks (where its grid would
-// not fill the card; then a small launch adds the f32 partial sums), so one
-// call is two to four launches.
+// Where both phases fit the tensor-core GEMV (dq_gemv_tc.cuh: W4/W8, g 64
+// or 128, M <= 8, widths and pointers aligned; the caller passes each
+// phase's cluster), a phase is one launch of it, MODE 1 and MODE 2, its K
+// split over a thread-block cluster, and the call two launches. Otherwise
+// each phase runs dq_core's GEMV and splits K across blocks as the caller
+// asks (where its grid would not fill the card; then a small launch adds the
+// f32 partial sums), so one call is two to four launches.
 // Bound on an H100: the packed bytes of the three weights (about 18 MB a
 // layer at TinyLlama W4 g128); the act round trip is M*F*2 bytes (90 KB at
 // M = 8), small beside them. Every weight byte is read once per call.
-#include "dq_core.cuh"
+#include "dq_gemv_tc.cuh"
 
 using namespace qtpu;
 
@@ -35,13 +39,17 @@ static int mlp_dispatch(const DqArgs& a, const DqArgs& b, cudaStream_t st) {
 // bf16 scratch; out [M, K] bf16. Phase A takes split_a groups of K per
 // block slice (with more than one slice, part_a is an f32 scratch of
 // slices * 2 * M * F), phase B split_b groups of F (part_b of slices * M * K).
-// Returns a cudaError_t, or -1 for arguments the kernel does not take.
+// cluster_a, cluster_b > 0: both phases on the tensor-core GEMV, K split
+// into that many slices of split_a / split_b groups (parts unused); both 0:
+// dq_core's GEMV. Returns a cudaError_t, or -1 for arguments the kernel does
+// not take.
 extern "C" int qtpu_fused_mlp(const void* x, const void* nw, const void* gu_data,
                               const void* gu_scales, const void* gu_zeros,
                               const void* d_data, const void* d_scales,
                               const void* d_zeros, void* act, void* out, void* part_a,
-                              int split_a, void* part_b, int split_b, int M, int K,
-                              int F, int bits, int group, float eps, void* stream) {
+                              int split_a, void* part_b, int split_b, int cluster_a,
+                              int cluster_b, int M, int K, int F, int bits, int group,
+                              float eps, void* stream) {
   if (M <= 0 || M > 32 || K % 4 != 0 || F % 4 != 0 || group <= 0 || group % 4 != 0 ||
       K % group != 0 || F % group != 0 || gu_zeros == nullptr || d_zeros == nullptr)
     return -1;
@@ -75,6 +83,13 @@ extern "C" int qtpu_fused_mlp(const void* x, const void* nw, const void* gu_data
   b.group = group;
   b.split_groups = split_b;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster_a > 0 || cluster_b > 0) {
+    if (cluster_a <= 0 || cluster_b <= 0 || !gemv_tc_fits(a, bits, cluster_a, split_a) ||
+        !gemv_tc_fits(b, bits, cluster_b, split_b))
+      return -1;
+    const int e = gemv_tc<1>(a, bits, cluster_a, split_a, st);
+    return e != 0 ? e : gemv_tc<2>(b, bits, cluster_b, split_b, st);
+  }
   switch (bits) {
     case 4: return mlp_dispatch<4>(a, b, st);
     case 8: return mlp_dispatch<8>(a, b, st);

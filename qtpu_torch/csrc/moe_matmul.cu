@@ -15,6 +15,11 @@
 // Bound on an H100: at decode the packed bytes of the experts streamed (K9:
 // all E; K10: the routed ones); at prefill (M = 1024) the multiply-adds.
 // Design: K1's kernels with an expert axis.
+//  * K9 at M <= 8 where moe_gemv_tc_fits holds (K1's gemv_tc_fits on the
+//    first expert's view, and every stride between experts 16-byte aligned;
+//    the wrapper passes the cluster): the tensor-core GEMV of dq_gemv_tc.cuh
+//    with its expert axis (blockIdx.y), one launch over every expert's
+//    column strips and K slices;
 //  * K9 at M > 8 where moe_wgmma_fits holds (K1's wgmma_fits on the first
 //    expert's view, and every stride between experts 16-byte aligned): the
 //    Hopper route of dq_wgmma.cuh with its expert axis (EXPERTS), one
@@ -24,12 +29,13 @@
 //    slices + slice) or from eidx[row] (K10, one slot per row tile), moves
 //    the pointers of x, the weight, the scales and zeros, the output and the
 //    split-K scratch by that expert's strides, and runs K1's body on them:
-//    the split-K weight-streaming GEMV of dq_core.cuh at M <= 8 (and for
-//    every K10 slot), the mma.sync tensor-core body of dq_mma.cuh for the
-//    other M > 8 calls. qtpu_moe_grouped_mma runs that mma.sync body on any
+//    the split-K weight-streaming GEMV of dq_core.cuh at the other M <= 8
+//    calls (and for every K10 slot), the mma.sync tensor-core body of
+//    dq_mma.cuh for the other M > 8 calls. qtpu_moe_grouped_mma runs that mma.sync body on any
 //    M > 8 call, the route's earlier body kept for comparison on the same
 //    bytes; no serving or eval path calls it.
 // Indices outside [0, E) leave their rows unwritten.
+#include "dq_gemv_tc.cuh"
 #include "dq_mma.cuh"
 #include "dq_wgmma.cuh"
 
@@ -44,7 +50,10 @@ using qtpu::kMmaBM;
 using qtpu::kMmaBN;
 using qtpu::kMmaRows;
 using qtpu::kThreads;
+using qtpu::gemv_tc_fits;
+using qtpu::launch_gemv_tc;
 using qtpu::launch_moe_wgmma;
+using qtpu::TcArgs;
 using qtpu::wgmma_fits;
 
 namespace {
@@ -166,6 +175,22 @@ bool moe_wgmma_fits(const DqArgs& a, const MoeArgs& m) {
          (a.zeros == nullptr || m.s_es % 16 == 0) && m.o_es * 2 % 16 == 0;
 }
 
+// K9's rule at M <= 8: K1's gemv_tc_fits on the first expert's view and
+// every stride between two experts a multiple of 16 bytes (8 for x, which
+// is staged with 8-byte loads). Mirrored by moe_route / gemv_route.
+bool moe_gemv_tc_fits(const DqArgs& a, const MoeArgs& m, int bits, int cluster,
+                      int slice_groups) {
+  return gemv_tc_fits(a, bits, cluster, slice_groups) && m.x_es * 2 % 8 == 0 &&
+         m.w_es % 16 == 0 && m.s_es * 2 % 16 == 0 && (a.zeros == nullptr || m.s_es % 16 == 0);
+}
+
+template <int BITS>
+int grouped_gemv_tc(const DqArgs& a, const MoeArgs& m, int cluster, cudaStream_t st) {
+  if (!moe_gemv_tc_fits(a, m, BITS, cluster, a.split_groups)) return -1;
+  const TcArgs t{m.E, cluster, a.split_groups, m.x_es, m.w_es, m.s_es, m.o_es};
+  return launch_gemv_tc<BITS, 0, true>(a, t, st);
+}
+
 template <int BITS>
 int grouped(const DqArgs& a, MoeArgs m, cudaStream_t st) {
   constexpr int PK = 8 / BITS;
@@ -216,16 +241,24 @@ MoeArgs moe_args(const void* eidx, int E, long long x_es, int bits, int M, int K
 // int8; scales [E, K/group, N] bf16; zeros the same in uint8 or nullptr
 // (symmetric); out [E, M, N] bf16. split_groups: groups of K per slice (M <= 8
 // only; K / group for none), `part` then an f32 scratch of E * slices * M * N.
-// Returns a cudaError_t (0 on success), or -1 for arguments it does not take.
+// cluster > 0 (M <= 8, W4/W8): the tensor-core GEMV, K split into `cluster`
+// slices of split_groups groups (part unused), -1 where its rule refuses the
+// call. Returns a cudaError_t (0 on success), or -1 for arguments it does not
+// take.
 extern "C" int qtpu_moe_grouped(const void* x, const void* data, const void* scales,
                                 const void* zeros, void* out, void* part, int split_groups,
-                                int per_expert_input, int E, int M, int K, int N, int bits,
-                                int group, void* stream) {
+                                int cluster, int per_expert_input, int E, int M, int K, int N,
+                                int bits, int group, void* stream) {
   if (bad_shape(E, M, K, N, group)) return -1;
   const DqArgs a = dq_args(x, data, scales, zeros, out, part, split_groups, M, K, N, group);
   const MoeArgs m = moe_args(nullptr, E, per_expert_input ? (long long)M * K : 0, bits, M, K, N,
                              group);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster > 0) {
+    if (bits == 4) return grouped_gemv_tc<4>(a, m, cluster, st);
+    if (bits == 8) return grouped_gemv_tc<8>(a, m, cluster, st);
+    return -1;
+  }
   switch (bits) {
     case 2: return grouped<2>(a, m, st);
     case 4: return grouped<4>(a, m, st);

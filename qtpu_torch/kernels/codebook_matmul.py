@@ -12,7 +12,12 @@ to bf16 on the tensor cores (M > 8) or keeps level * scale in f32 (M <= 8)
 instead, a known source of small differences (PERF.md gives them).
 The body a launch runs is `cb_route`, K1's rule (`dq_route`) at 4 bits;
 `codebook_matmul.wgmma_launches` and `.mma_launches` count the launches of
-the Hopper route (csrc/dq_wgmma.cuh) and the mma.sync body.
+the Hopper route (csrc/dq_wgmma.cuh) and the mma.sync body. At M <= 8 K1's
+`gemv_route` picks the tensor-core GEMV (csrc/dq_gemv_tc.cuh, its codebook
+mode: the level rounded to bf16, as on the Hopper route;
+`.gemv_tc_launches`) or dq_core's GEMV (`.gemv_launches`);
+`codebook_matmul_simt` runs dq_core's GEMV whatever the rule says, the
+earlier body for chip_smoke.py's "was" times.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import torch
 from qtpu_torch.core.packing import unpack_int4
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import I, P, require
-from qtpu_torch.kernels.dequant_matmul import count_route, dq_route, split_k
+from qtpu_torch.kernels.dequant_matmul import (count_gemv, dq_route, gemv_route, gemv_tc_split,
+                                               split_k)
 
-_SIG = {"qtpu_cb_matmul": [P, P, P, P, P, P, I, I, I, I, I, P]}
+_SIG = {"qtpu_cb_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, P]}
 MAX_LEVELS = 16
 
 
@@ -47,11 +53,10 @@ def codebook_matmul_plain(x, data, scales, codebook, meta):
     return x @ codebook_weight(data, scales, codebook, meta, x.dtype)
 
 
-def codebook_matmul(x, data, scales, codebook, meta):
-    """y = x @ (scales o codebook[codes]); x [..., K] -> [..., N]."""
+def _launch(x, data, scales, codebook, meta, simt: bool):
+    """One launch of csrc/codebook_matmul.cu on card tensors; returns (out,
+    the body it ran). simt: dq_core's GEMV at M <= 8 whatever gemv_route says."""
     bits, group, K, N = meta
-    if x.device.type == "cpu":
-        return codebook_matmul_plain(x, data, scales, codebook, meta)
     require(x.is_cuda, f"unsupported device {x.device}")
     require(bits == 4, f"codebook sites hold 4-bit codes, got bits={bits}")
     require(group > 0 and group % 4 == 0 and K % group == 0,
@@ -72,26 +77,57 @@ def codebook_matmul(x, data, scales, codebook, meta):
     M = x.numel() // K
     out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
     if M == 0:
-        return out
+        return out, None
     require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
     lut = codebook
     if codebook.numel() < MAX_LEVELS:  # codes index at most the table's levels
         lut = torch.zeros(MAX_LEVELS, dtype=torch.float32, device=x.device)
         lut[: codebook.numel()] = codebook
-    route = cb_route(M, N, group, (data.data_ptr(), scales.data_ptr()))
-    # M <= 8 runs the GEMV kernel, split over K; larger M a tensor-core one
-    per, part = split_k(x.device, M, K, N, group) if M <= 8 else (K // group, None)
+    ptrs = (data.data_ptr(), scales.data_ptr())
+    route = cb_route(M, N, group, ptrs)
+    if route == "gemv" and not simt:
+        route = gemv_route(M, K, N, 4, group, ptrs)
+    cluster = 0
+    if route == "gemv_tc":  # one launch, K split over a thread-block cluster
+        cluster, per = gemv_tc_split(x.device, K, N, group)
+        part = None
+    elif M <= 8:  # dq_core's GEMV, split over K
+        per, part = split_k(x.device, M, K, N, group)
+    else:  # a tensor-core body over all of K
+        per, part = K // group, None
     lib = _build.load("codebook_matmul", _SIG)
     rc = lib.qtpu_cb_matmul(
         x.data_ptr(), data.data_ptr(), scales.data_ptr(), lut.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), per, M, K, N, group, _build.stream_of(x),
+        None if part is None else part.data_ptr(), per, cluster, M, K, N, group,
+        _build.stream_of(x),
     )
     _build.check(rc, "codebook_matmul")
-    codebook_matmul.launches += 1
-    count_route(codebook_matmul, route)
+    return out, route
+
+
+def codebook_matmul(x, data, scales, codebook, meta):
+    """y = x @ (scales o codebook[codes]); x [..., K] -> [..., N]."""
+    if x.device.type == "cpu":
+        return codebook_matmul_plain(x, data, scales, codebook, meta)
+    out, route = _launch(x, data, scales, codebook, meta, simt=False)
+    if route is not None:
+        codebook_matmul.launches += 1
+        count_gemv(codebook_matmul, route)
+    return out
+
+
+def codebook_matmul_simt(x, data, scales, codebook, meta):
+    """codebook_matmul with dq_core's SIMT GEMV at M <= 8 whatever gemv_route
+    says: the earlier body on the same bytes, for chip_smoke.py's "was"
+    times. Card tensors only; counted in its own `.launches`."""
+    out, _ = _launch(x, data, scales, codebook, meta, simt=True)
+    codebook_matmul_simt.launches += 1
     return out
 
 
 codebook_matmul.launches = 0
 codebook_matmul.wgmma_launches = 0
 codebook_matmul.mma_launches = 0
+codebook_matmul.gemv_tc_launches = 0
+codebook_matmul.gemv_launches = 0
+codebook_matmul_simt.launches = 0

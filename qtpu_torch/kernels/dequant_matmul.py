@@ -26,6 +26,13 @@ and the weight's alignment: the GEMV (M <= 8), the Hopper route (wgmma fed
 by TMA, csrc/dq_wgmma.cuh) or the mma.sync body (csrc/dq_mma.cuh) for the
 M > 8 calls the Hopper route does not take. `quantized_matmul.wgmma_launches`
 and `.mma_launches` count the launches of those two (all are in `.launches`).
+At M <= 8 `gemv_route` picks between the tensor-core GEMV (mma.sync fed by a
+cp.async ring, K split over a thread-block cluster by `gemv_split`,
+csrc/dq_gemv_tc.cuh; `.gemv_tc_launches`) and dq_core's SIMT GEMV for the
+calls it does not take (`.gemv_launches`); the options count there too.
+`quantized_matmul_simt` runs dq_core's GEMV whatever `gemv_route` says: the
+earlier body on the same bytes, for chip_smoke.py's "was" times; no serving
+or eval path calls it.
 """
 
 from __future__ import annotations
@@ -38,12 +45,21 @@ from qtpu_torch.core.packing import dequantize_parts
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import F, I, P, require
 
-_SIG = {"qtpu_dq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, P],
-        "qtpu_dq_matmul_opt": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]}
+_SIG = {"qtpu_dq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+        "qtpu_dq_matmul_opt": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]}
 
 OPTION_MAX_M = 32  # rows the options take (decode shapes: the GEMV kernel tiled by 8 rows)
 WGMMA_GROUPS = (64, 128)  # one whole group a stage of the Hopper route
 MMA_ROWS = 16  # packed rows a stage of the mma.sync body
+# the tensor-core GEMV (csrc/dq_gemv_tc.cuh): its bits and groups, the
+# output columns of a block, the K values of x a block may stage and the
+# slice it aims at, the largest cluster
+GEMV_TC_BITS = (4, 8)
+GEMV_TC_GROUPS = (64, 128)
+GEMV_TC_COLS = 128
+GEMV_TC_X_CAP = 4096
+GEMV_TC_X_WANT = 2048
+GEMV_TC_CLUSTERS = tuple(range(1, 9))  # blocks a cluster (8: the portable most)
 
 
 def dq_route(M: int, N: int, bits: int, group: int, ptrs) -> str:
@@ -62,6 +78,45 @@ def dq_route(M: int, N: int, bits: int, group: int, ptrs) -> str:
     return "mma" if (group * bits // 8) % MMA_ROWS == 0 else "gemv"
 
 
+def gemv_split(sms: int, tiles: int, groups: int, group: int):
+    """How the tensor-core GEMV splits K: (cluster, groups a slice), the
+    blocks of one column strip (a thread-block cluster of 1 to 8) each taking
+    a slice of whole groups, every group in one slice and no slice empty,
+    x's slice at most GEMV_TC_X_CAP K values. The smallest cluster of 1, 2, 4
+    or 8 whose tiles x cluster blocks reach 2 an SM with slices of at most
+    GEMV_TC_X_WANT values (tools/exp_decode_gemv.py's sweep: more blocks or
+    uneven slices cost more than they hide), else the largest cluster that
+    fits; tiles: the column strips of all experts. None where none fits."""
+    def fits(c):
+        per = -(-groups // c)
+        return per * (c - 1) < groups and per * group <= GEMV_TC_X_CAP, per
+
+    for c in (1, 2, 4, 8):
+        ok, per = fits(c)
+        if ok and tiles * c >= 2 * sms and per * group <= GEMV_TC_X_WANT:
+            return c, per
+    for c in reversed(GEMV_TC_CLUSTERS):
+        ok, per = fits(c)
+        if ok:
+            return c, per
+    return None
+
+
+def gemv_route(M: int, K: int, N: int, bits: int, group: int, ptrs, ldw=None) -> str:
+    """The GEMV a call of at most 8 rows runs (csrc/dq_gemv_tc.cuh's
+    gemv_tc_fits; x 16-byte aligned as the wrappers require): "gemv_tc", the
+    tensor-core GEMV, at W4 or W8, group 64 or 128, N and the row pitch ldw
+    (N unless the weight holds two column sets) multiples of 16, every
+    pointer in ptrs (codes, scales, zeros) 16-byte aligned and a split of K
+    that gemv_split finds; else "gemv", dq_core's GEMV (W2, other groups,
+    ragged N, unaligned tensors)."""
+    ldw = N if ldw is None else ldw
+    ok = (0 < M <= 8 and bits in GEMV_TC_BITS and group in GEMV_TC_GROUPS and N % 16 == 0
+          and ldw % 16 == 0 and K % group == 0 and all(p % 16 == 0 for p in ptrs)
+          and gemv_split(1, 1, K // group, group) is not None)
+    return "gemv_tc" if ok else "gemv"
+
+
 def count_route(wrapper, route: str) -> None:
     """Adds one to the wrapper's counter of the route's launches."""
     if route == "wgmma":
@@ -70,9 +125,28 @@ def count_route(wrapper, route: str) -> None:
         wrapper.mma_launches += 1
 
 
+def count_gemv(wrapper, route: str) -> None:
+    """count_route, and for K1, K7, K9 and K4 the GEMVs' counters too:
+    `.gemv_tc_launches` (csrc/dq_gemv_tc.cuh) and `.gemv_launches` (dq_core)."""
+    if route == "gemv_tc":
+        wrapper.gemv_tc_launches += 1
+    elif route == "gemv":
+        wrapper.gemv_launches += 1
+    else:
+        count_route(wrapper, route)
+
+
 @lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gemv_tc_split(device, K: int, N: int, group: int, tiles=None):
+    """gemv_split on the device's SM count; tiles defaults to the call's
+    column strips, ceil(N / 128)."""
+    if tiles is None:
+        tiles = -(-N // GEMV_TC_COLS)
+    return gemv_split(_sm_count(device.index or 0), tiles, K // group, group)
 
 
 def split_k(device, M: int, K: int, N: int, group: int, nset: int = 1, tiles=None):
@@ -133,12 +207,10 @@ def options_supported(meta, M: int) -> bool:
     return len(meta) == 4 and meta[3] % 4 == 0 and 0 < M <= OPTION_MAX_M
 
 
-def quantized_matmul(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=1e-5):
-    """y = [resid +] [rms_norm(x) * norm_w ->] x @ dequant(data, scales,
-    zeros); x [..., K] -> [..., N]; norm_w [K], resid [..., N]."""
+def _launch(x, data, scales, zeros, meta, norm_w, resid, eps, simt: bool):
+    """One launch of csrc/dequant_matmul.cu on card tensors; returns (out,
+    the body it ran). simt: dq_core's GEMV at M <= 8 whatever gemv_route says."""
     bits, group, K, N = meta
-    if x.device.type == "cpu":
-        return quantized_matmul_plain(x, data, scales, zeros, meta, norm_w, resid, eps)
     require(x.is_cuda, f"unsupported device {x.device}")
     require(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
     require(x.shape[-1] == K and x.is_contiguous(), "x must be contiguous [..., K]")
@@ -146,21 +218,12 @@ def quantized_matmul(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=
     M = x.numel() // K
     out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
     if M == 0:
-        return out
+        return out, None
     require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
     lib = _build.load("dequant_matmul", _SIG)
-    if norm_w is None and resid is None:
-        ptrs = [t.data_ptr() for t in (data, scales, zeros) if t is not None]
-        route = dq_route(M, N, bits, group, ptrs)
-        # M <= 8 runs the GEMV kernel, split over K; larger M a tensor-core one
-        per, part = split_k(x.device, M, K, N, group) if M <= 8 else (K // group, None)
-        rc = lib.qtpu_dq_matmul(
-            x.data_ptr(), data.data_ptr(), scales.data_ptr(),
-            None if zeros is None else zeros.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(), per,
-            M, K, N, bits, group, _build.stream_of(x),
-        )
-    else:
+    ptrs = [t.data_ptr() for t in (data, scales, zeros) if t is not None]
+    route = dq_route(M, N, bits, group, ptrs)
+    if norm_w is not None or resid is not None:
         require(options_supported(meta, M),
                 f"norm_w/resid take at most {OPTION_MAX_M} rows and N % 4 == 0: M={M}, N={N}")
         if norm_w is not None:
@@ -172,23 +235,62 @@ def quantized_matmul(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=
             require(resid.dtype == torch.bfloat16 and resid.shape == out.shape
                     and resid.is_contiguous() and resid.device == x.device,
                     f"resid must be contiguous bf16 {tuple(out.shape)}")
+        route = "gemv"
+    if route == "gemv" and not simt:
+        route = gemv_route(M, K, N, bits, group, ptrs)
+    cluster = 0
+    if route == "gemv_tc":
+        # one launch: K split over a thread-block cluster
+        cluster, per = gemv_tc_split(x.device, K, N, group)
+        part = None
+    elif M <= 8 or norm_w is not None or resid is not None:
+        # dq_core's GEMV, split over K (with a second launch adding the splits)
         per, part = split_k(x.device, M, K, N, group)
+    else:
+        per, part = K // group, None  # a tensor-core body over all of K
+    common = (None if zeros is None else zeros.data_ptr(),)
+    if norm_w is None and resid is None:
+        rc = lib.qtpu_dq_matmul(
+            x.data_ptr(), data.data_ptr(), scales.data_ptr(), *common, out.data_ptr(),
+            None if part is None else part.data_ptr(), per, cluster,
+            M, K, N, bits, group, _build.stream_of(x),
+        )
+    else:
         rc = lib.qtpu_dq_matmul_opt(
-            x.data_ptr(), data.data_ptr(), scales.data_ptr(),
-            None if zeros is None else zeros.data_ptr(),
+            x.data_ptr(), data.data_ptr(), scales.data_ptr(), *common,
             None if norm_w is None else norm_w.data_ptr(),
             None if resid is None else resid.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(), per,
+            None if part is None else part.data_ptr(), per, cluster,
             M, K, N, bits, group, float(eps), _build.stream_of(x),
         )
     _build.check(rc, "dequant_matmul")
+    return out, route
+
+
+def quantized_matmul(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=1e-5):
+    """y = [resid +] [rms_norm(x) * norm_w ->] x @ dequant(data, scales,
+    zeros); x [..., K] -> [..., N]; norm_w [K], resid [..., N]."""
+    if x.device.type == "cpu":
+        return quantized_matmul_plain(x, data, scales, zeros, meta, norm_w, resid, eps)
+    out, route = _launch(x, data, scales, zeros, meta, norm_w, resid, eps, simt=False)
+    if route is None:
+        return out
     quantized_matmul.launches += 1
-    if norm_w is None and resid is None:
-        count_route(quantized_matmul, route)
+    count_gemv(quantized_matmul, route)
     if norm_w is not None:
         quantized_matmul.norm_launches += 1
     if resid is not None:
         quantized_matmul.resid_launches += 1
+    return out
+
+
+def quantized_matmul_simt(x, data, scales, zeros, meta, norm_w=None, resid=None, eps=1e-5):
+    """quantized_matmul with dq_core's SIMT GEMV at M <= 8 whatever
+    gemv_route says: the tensor-core GEMV's earlier body on the same bytes,
+    for chip_smoke.py's "was" times. Card tensors only; counted in its own
+    `.launches`."""
+    out, _ = _launch(x, data, scales, zeros, meta, norm_w, resid, eps, simt=True)
+    quantized_matmul_simt.launches += 1
     return out
 
 
@@ -197,3 +299,6 @@ quantized_matmul.norm_launches = 0
 quantized_matmul.resid_launches = 0
 quantized_matmul.wgmma_launches = 0
 quantized_matmul.mma_launches = 0
+quantized_matmul.gemv_tc_launches = 0
+quantized_matmul.gemv_launches = 0
+quantized_matmul_simt.launches = 0

@@ -11,6 +11,15 @@ holding [B, S, H, hd] projections passes `.transpose(1, 2)` views and gets
 [B, S, H * hd] back with no copy. Its limits, H % KV == 0 and head_dim 64 or
 128, raise ValueError. A CPU tensor takes `flash_attention_plain`, the f32
 math of the Pallas kernel.
+
+Which body a launch runs is `flash_route`, the kernel's own rule
+(flash_wgmma_fits): "wgmma", the Hopper body (wgmma fed by TMA), where q,
+k and v are 16-byte aligned with strides of whole 16-byte units; "mma", the
+mma.sync body, for the rest (a q at 4-byte alignment or odd multiples of 2
+elements). `flash_attention.wgmma_launches` and `.mma_launches` count them.
+`flash_attention_mma` runs the mma.sync body whatever the rule says: the
+earlier body on the same bytes, for chip_smoke.py's "was" times; no eval
+path calls it.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ import torch
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import I, L64, P, require
 
-_SIG = {"qtpu_flash_attention": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P]}
+_SIG = {"qtpu_flash_attention": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P],
+        "qtpu_flash_attention_mma": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P]}
 MASKED = -1e30
 
 
@@ -55,10 +65,63 @@ def _check(name, t, shape, device):
     require(t.stride(3) == 1, f"{name}'s head dim must be contiguous")
 
 
+WGMMA_BQ = 128  # query rows a block of the Hopper body (two warpgroups of 64)
+WGMMA_BK = 128  # keys a tile of the Hopper body
+
+
+def flash_tiles(q0: int, S: int, window: int, bq: int = WGMMA_BQ, bk: int = WGMMA_BK):
+    """The key tiles a block of query rows q0 .. q0 + bq - 1 visits (the
+    kernels' kt_begin .. kt_end): from the window's first tile (0 when
+    causal) to the diagonal's."""
+    begin = max(q0 - window + 1, 0) // bk if window > 0 else 0
+    return range(begin, (min(q0 + bq, S) - 1) // bk + 1)
+
+
+def flash_tile_masked(k0: int, q0w: int, window: int, rows: int = 64,
+                      bk: int = WGMMA_BK) -> bool:
+    """Whether the rows q0w .. q0w + rows - 1 (a warpgroup of the Hopper
+    body) mask the tile of keys k0 .. k0 + bk - 1: it crosses the diagonal
+    or the window's edge; every other tile is taken whole."""
+    return k0 + bk - 1 > q0w or (window > 0 and k0 <= q0w + rows - 1 - window)
+
+
+def flash_route(hd: int, ptrs, strides) -> str:
+    """The body qtpu_flash_attention runs for a call the wrapper takes: ptrs
+    the data pointers of q, k and v, strides their batch, head and position
+    strides in elements. "wgmma" where every pointer is 16-byte aligned and
+    every stride a positive multiple of 8 below 2^39 (TMA's tensor maps), at
+    head_dim 64 or 128; else "mma"."""
+    ok = (hd in (64, 128) and all(p % 16 == 0 for p in ptrs)
+          and all(s % 8 == 0 and 0 < s < 1 << 39 for s in strides))
+    return "wgmma" if ok else "mma"
+
+
 def flash_attention(q, k, v, window: int = 0):
     """Causal (window 0) or sliding-window attention, GQA read in place."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window)
+    out, route = _launch(q, k, v, window, "qtpu_flash_attention")
+    if route is not None:
+        flash_attention.launches += 1
+        if route == "wgmma":
+            flash_attention.wgmma_launches += 1
+        else:
+            flash_attention.mma_launches += 1
+    return out
+
+
+def flash_attention_mma(q, k, v, window: int = 0):
+    """flash_attention on the mma.sync body whatever flash_route says: the
+    Hopper body's earlier body on the same bytes, for chip_smoke.py's "was"
+    times. Card tensors only; counted in its own `.launches`."""
+    out, _ = _launch(q, k, v, window, "qtpu_flash_attention_mma")
+    flash_attention_mma.launches += 1
+    return out
+
+
+def _launch(q, k, v, window, entry):
+    """One launch of the C entry on card tensors; returns (out, the body
+    flash_route names, None for an empty call)."""
     require(q.is_cuda, f"unsupported device {q.device}")
     B, H, S, hd = q.shape
     KV = k.shape[1]
@@ -74,16 +137,19 @@ def flash_attention(q, k, v, window: int = 0):
             "q rows must be 4-byte aligned (even strides)")
     out = torch.empty(B, S, H, hd, dtype=torch.bfloat16, device=q.device).transpose(1, 2)
     if S == 0 or B == 0:
-        return out
+        return out, None
     lib = _build.load("flash_attention", _SIG)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    rc = lib.qtpu_flash_attention(
+    route = flash_route(hd, [t.data_ptr() for t in (q, k, v)], strides[:9])
+    rc = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
         B, H, KV, S, hd, int(window), _build.stream_of(q),
     )
     _build.check(rc, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return out, route
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0
+flash_attention.mma_launches = 0
+flash_attention_mma.launches = 0

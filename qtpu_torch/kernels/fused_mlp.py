@@ -6,7 +6,12 @@ Replaces pallas_fused_mlp_stacked and pallas_fused_mlp
 (qtpu/kernels/pallas_fused_mlp.py:221, :111): a layer of the stacked
 weights is passed as its W[l] view. A CUDA tensor runs the kernel's two
 phases under one call (one launch in the count); a CPU tensor takes the
-plain version, qtpu's composed `_mlp_block` math.
+plain version, qtpu's composed `_mlp_block` math. `mlp_route` names the
+body: "gemv_tc" where K1's `gemv_route` takes both phases (the tensor-core
+GEMV of csrc/dq_gemv_tc.cuh, one launch a phase, K split over a
+thread-block cluster; `fused_mlp.gemv_tc_launches`), else "gemv" (dq_core's
+GEMV, `.gemv_launches`); `fused_mlp_simt` runs dq_core's GEMV whatever the
+rule says, the earlier body for chip_smoke.py's "was" times.
 """
 
 from __future__ import annotations
@@ -16,10 +21,11 @@ import torch.nn.functional as Fn
 
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import F, I, P, require
-from qtpu_torch.kernels.dequant_matmul import check_packed, quantized_matmul_plain, split_k
+from qtpu_torch.kernels.dequant_matmul import (check_packed, count_gemv, gemv_route,
+                                               gemv_tc_split, quantized_matmul_plain, split_k)
 from qtpu_torch.models.ops import rms_norm
 
-_SIG = {"qtpu_fused_mlp": [P, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, F, P]}
+_SIG = {"qtpu_fused_mlp": [P, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, F, P]}
 
 MAX_M = 32
 
@@ -58,12 +64,44 @@ def fused_mlp_plain(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d
     return x + quantized_matmul_plain(act, d_data, d_scales, d_zeros, meta_d)
 
 
+def mlp_route(M: int, meta_gu, meta_d, gu_ptrs, d_ptrs) -> str:
+    """The body of both phases: "gemv_tc" where gemv_route takes phase A (the
+    gate and up column sets of F columns each, row pitch 2F) and phase B
+    (the down site), else "gemv". ptrs: each site's codes, scales, zeros."""
+    bits, group, K, _ = meta_gu
+    F_ = meta_d[2]
+    a = gemv_route(M, K, F_, bits, group, gu_ptrs, ldw=2 * F_)
+    b = gemv_route(M, F_, K, bits, group, d_ptrs)
+    return "gemv_tc" if a == b == "gemv_tc" else "gemv"
+
+
 def fused_mlp(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
               meta_gu, meta_d, eps=1e-5):
     """x [..., K] bf16 with at most 32 rows -> x + MLP(x), same shape."""
     if x.device.type == "cpu":
         return fused_mlp_plain(x, norm_w, gu_data, gu_scales, gu_zeros,
                                d_data, d_scales, d_zeros, meta_gu, meta_d, eps)
+    out, route = _launch(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
+                         meta_gu, meta_d, eps, simt=False)
+    fused_mlp.launches += 1
+    count_gemv(fused_mlp, route)
+    return out
+
+
+def fused_mlp_simt(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
+                   meta_gu, meta_d, eps=1e-5):
+    """fused_mlp on dq_core's SIMT GEMV whatever mlp_route says: the earlier
+    body on the same bytes, for chip_smoke.py's "was" times. Card tensors
+    only; counted in its own `.launches`."""
+    out, _ = _launch(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
+                     meta_gu, meta_d, eps, simt=True)
+    fused_mlp_simt.launches += 1
+    return out
+
+
+def _launch(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
+            meta_gu, meta_d, eps, simt: bool):
+    """K4's two phases on card tensors; returns (out, the body they ran)."""
     require(x.is_cuda, f"unsupported device {x.device}")
     bits, group, K, _ = meta_gu
     F_ = meta_d[2]
@@ -83,8 +121,17 @@ def fused_mlp(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros
     dev = x.device
     act = torch.empty(M, F_, dtype=torch.bfloat16, device=dev)
     out = torch.empty_like(x)
-    per_a, part_a = split_k(dev, M, K, F_, group, nset=2)
-    per_b, part_b = split_k(dev, M, F_, K, group)
+    route = "gemv" if simt else mlp_route(
+        M, meta_gu, meta_d, [t.data_ptr() for t in (gu_data, gu_scales, gu_zeros)],
+        [t.data_ptr() for t in (d_data, d_scales, d_zeros)])
+    if route == "gemv_tc":  # one launch a phase, K split over a thread-block cluster
+        cl_a, per_a = gemv_tc_split(dev, K, F_, group)
+        cl_b, per_b = gemv_tc_split(dev, F_, K, group)
+        part_a = part_b = None
+    else:  # dq_core's GEMV, split over K (a second launch adding the splits)
+        cl_a = cl_b = 0
+        per_a, part_a = split_k(dev, M, K, F_, group, nset=2)
+        per_b, part_b = split_k(dev, M, F_, K, group)
     lib = _build.load("fused_mlp", _SIG)
     rc = lib.qtpu_fused_mlp(
         x.data_ptr(), norm_w.data_ptr(),
@@ -92,12 +139,14 @@ def fused_mlp(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros
         d_data.data_ptr(), d_scales.data_ptr(), d_zeros.data_ptr(),
         act.data_ptr(), out.data_ptr(),
         None if part_a is None else part_a.data_ptr(), per_a,
-        None if part_b is None else part_b.data_ptr(), per_b,
+        None if part_b is None else part_b.data_ptr(), per_b, cl_a, cl_b,
         M, K, F_, bits, group, float(eps), _build.stream_of(x),
     )
     _build.check(rc, "fused_mlp")
-    fused_mlp.launches += 1
-    return out
+    return out, route
 
 
 fused_mlp.launches = 0
+fused_mlp.gemv_tc_launches = 0
+fused_mlp.gemv_launches = 0
+fused_mlp_simt.launches = 0

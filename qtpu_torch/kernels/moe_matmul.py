@@ -24,7 +24,11 @@ calls. `moe_matmul.wgmma_launches` and `.mma_launches` count the launches of
 those two (all are in `.launches`). `moe_matmul_mma` runs the mma.sync body
 on any M > 8 call: the route's earlier body, kept so that chip_smoke.py can
 time both on the same bytes (K1's and K9's "was" times); no serving or eval
-path calls it.
+path calls it. At M <= 8 K1's `gemv_route` picks the tensor-core GEMV with
+an expert axis (csrc/dq_gemv_tc.cuh, one launch over every expert's column
+strips and K slices; `moe_matmul.gemv_tc_launches`) or dq_core's GEMV
+(`.gemv_launches`); `moe_matmul_simt` runs dq_core's GEMV whatever the rule
+says, the earlier body for the "was" times.
 """
 
 from __future__ import annotations
@@ -33,11 +37,12 @@ import torch
 
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import I, P, require
-from qtpu_torch.kernels.dequant_matmul import (check_packed, count_route, dq_route,
+from qtpu_torch.kernels.dequant_matmul import (GEMV_TC_COLS, check_packed, count_gemv,
+                                               dq_route, gemv_route, gemv_tc_split,
                                                quantized_matmul_plain, split_k)
 
 _SIG = {
-    "qtpu_moe_grouped": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "qtpu_moe_grouped": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "qtpu_moe_grouped_mma": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     "qtpu_moe_gathered": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 }
@@ -51,7 +56,9 @@ def moe_route(M: int, K: int, N: int, bits: int, group: int, ptrs,
     K1's rule on the first expert's view (dq_route), and the Hopper route
     only where every stride between two experts is a multiple of 16 bytes:
     x's (per_expert_input), the codes', scales', zeros' and output's
-    (csrc/moe_matmul.cu: moe_wgmma_fits)."""
+    (csrc/moe_matmul.cu: moe_wgmma_fits). At M <= 8 the GEMV ("gemv"),
+    which `gemv_route` refines (every stride between experts is then 16-byte
+    aligned: N % 16 == 0 and whole groups)."""
     route = dq_route(M, N, bits, group, ptrs)
     if route != "wgmma":
         return route
@@ -103,30 +110,56 @@ def _check_experts(data, scales, zeros, meta, device):
                     "expert weights must be contiguous [E, ...]")
 
 
+def _grouped(x, data, scales, zeros, meta, per_expert_input, simt: bool):
+    """One launch of K9 on card tensors; returns (out, the body it ran).
+    simt: dq_core's GEMV at M <= 8 whatever gemv_route says."""
+    bits, group, K, N = meta
+    E, M = _check_grouped(x, data, scales, zeros, meta, per_expert_input)
+    out = torch.empty(E, M, N, dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out, None
+    ptrs = [t.data_ptr() for t in (data, scales, zeros) if t is not None]
+    route = moe_route(M, K, N, bits, group, ptrs, per_expert_input)
+    if route == "gemv" and not simt:
+        route = gemv_route(M, K, N, bits, group, ptrs)
+    cluster = 0
+    if route == "gemv_tc":  # one launch over every expert's strips, K over a cluster
+        cluster, per = gemv_tc_split(x.device, K, N, group, tiles=-(-N // GEMV_TC_COLS) * E)
+        part = None
+    elif M <= 8:  # dq_core's GEMV, split over K across all experts' tiles
+        per, part = split_k(x.device, M, K, N * E, group)
+    else:  # the tensor cores over all of K
+        per, part = K // group, None
+    lib = _build.load("moe_matmul", _SIG)
+    rc = lib.qtpu_moe_grouped(
+        x.data_ptr(), data.data_ptr(), scales.data_ptr(),
+        None if zeros is None else zeros.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), per, cluster, int(per_expert_input),
+        E, M, K, N, bits, group, _build.stream_of(x),
+    )
+    _build.check(rc, "moe_matmul")
+    return out, route
+
+
 def moe_matmul(x, data, scales, zeros, meta, per_expert_input=False):
     """out[e] = x @ dequant(W[e]) (x[e] with per_expert_input) for every
     expert of data [E, Kp, N]. Returns [E, M, N] bf16."""
     if x.device.type == "cpu":
         return moe_matmul_plain(x, data, scales, zeros, meta, per_expert_input)
-    bits, group, K, N = meta
-    E, M = _check_grouped(x, data, scales, zeros, meta, per_expert_input)
-    out = torch.empty(E, M, N, dtype=torch.bfloat16, device=x.device)
-    if M == 0:
-        return out
-    ptrs = [t.data_ptr() for t in (data, scales, zeros) if t is not None]
-    route = moe_route(M, K, N, bits, group, ptrs, per_expert_input)
-    # M <= 8: the GEMV, split over K across all experts' tiles; else the tensor cores
-    per, part = split_k(x.device, M, K, N * E, group) if M <= 8 else (K // group, None)
-    lib = _build.load("moe_matmul", _SIG)
-    rc = lib.qtpu_moe_grouped(
-        x.data_ptr(), data.data_ptr(), scales.data_ptr(),
-        None if zeros is None else zeros.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), per, int(per_expert_input),
-        E, M, K, N, bits, group, _build.stream_of(x),
-    )
-    _build.check(rc, "moe_matmul")
-    moe_matmul.launches += 1
-    count_route(moe_matmul, route)
+    out, route = _grouped(x, data, scales, zeros, meta, per_expert_input, simt=False)
+    if route is not None:
+        moe_matmul.launches += 1
+        count_gemv(moe_matmul, route)
+    return out
+
+
+def moe_matmul_simt(x, data, scales, zeros, meta, per_expert_input=False):
+    """moe_matmul with dq_core's SIMT GEMV at M <= 8 whatever gemv_route
+    says: the tensor-core GEMV's earlier body on the same bytes, for
+    chip_smoke.py's "was" times. Card tensors only; counted in its own
+    `.launches`."""
+    out, _ = _grouped(x, data, scales, zeros, meta, per_expert_input, simt=True)
+    moe_matmul_simt.launches += 1
     return out
 
 
@@ -185,5 +218,8 @@ def moe_gathered_matmul(x, expert_idx, data, scales, zeros, meta):
 moe_matmul.launches = 0
 moe_matmul.wgmma_launches = 0
 moe_matmul.mma_launches = 0
+moe_matmul.gemv_tc_launches = 0
+moe_matmul.gemv_launches = 0
 moe_matmul_mma.launches = 0
+moe_matmul_simt.launches = 0
 moe_gathered_matmul.launches = 0

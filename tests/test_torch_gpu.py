@@ -52,13 +52,22 @@ K1_CASES = (
 
 
 def _route_and_out(wrapper, call):
-    """call()'s output and the body the wrapper's route counters saw."""
+    """call()'s output and the body the wrapper's route counters saw
+    ("gemv_tc": the tensor-core GEMV, for the wrappers that count it)."""
     w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
+    t0 = getattr(wrapper, "gemv_tc_launches", 0)
     out = call()
     torch.cuda.synchronize()
     if wrapper.wgmma_launches > w0:
         return out, "wgmma"
+    if getattr(wrapper, "gemv_tc_launches", 0) > t0:
+        return out, "gemv_tc"
     return out, "mma" if wrapper.mma_launches > m0 else "gemv"
+
+
+def _rule(route, M, K, N, bits, group, ptrs):
+    """K1's rule (dq_route), refined at M <= 8 by gemv_route."""
+    return k1.gemv_route(M, K, N, bits, group, ptrs) if route == "gemv" else route
 
 
 def _profiled_route(wrapper, call, reps=4):
@@ -71,12 +80,15 @@ def _profiled_route(wrapper, call, reps=4):
     from torch.profiler import ProfilerActivity, profile
 
     w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
+    t0 = getattr(wrapper, "gemv_tc_launches", 0)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             call()
         torch.cuda.synchronize()
     dw, dm = wrapper.wgmma_launches - w0, wrapper.mma_launches - m0
-    seen = {(reps, 0): "wgmma", (0, reps): "mma", (0, 0): "gemv"}.get((dw, dm), "mixed")
+    dt = getattr(wrapper, "gemv_tc_launches", 0) - t0
+    seen = {(reps, 0, 0): "wgmma", (0, reps, 0): "mma", (0, 0, reps): "gemv_tc",
+            (0, 0, 0): "gemv"}.get((dw, dm, dt), "mixed")
     return seen, [e.key for e in prof.key_averages()]
 
 
@@ -98,8 +110,8 @@ def test_k1_matches_plain(cuda, bits, group, sym, M, K, N):
     assert k1.quantized_matmul.launches == n0 + 1
     assert _rel(got, want) < 2e-2
     ptrs = [t.data_ptr() for t in (qt.data, qt.scales, qt.zeros) if t is not None]
-    assert route == k1.dq_route(M, N, bits, group, ptrs)
-    if M > 8:  # the tensor-core routes give the same bits call after call
+    assert route == _rule(k1.dq_route(M, N, bits, group, ptrs), M, K, N, bits, group, ptrs)
+    if M > 8 or route == "gemv_tc":  # the tensor-core routes give the same bits call after call
         assert _same_bits(got, k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta))
 
 
@@ -240,8 +252,9 @@ def test_k7_matches_plain(cuda, group, M, apot, K, N):
     assert _rel(got, want) < 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=0.05 * float(want.float().abs().max()))
-    assert route == k7.cb_route(M, N, group, (data.data_ptr(), sc.data_ptr()))
-    if M > 8:
+    ptrs = (data.data_ptr(), sc.data_ptr())
+    assert route == _rule(k7.cb_route(M, N, group, ptrs), M, K, N, 4, group, ptrs)
+    if M > 8 or route == "gemv_tc":
         assert _same_bits(got, k7.codebook_matmul(x, data, sc, cb, meta))
 
 
@@ -283,7 +296,8 @@ def test_hopper_route_replays_in_a_cuda_graph(cuda):
     (300, 384, 128, "wgmma"), (300, 384, 64, "wgmma"),  # the Hopper route
     (300, 388, 128, "mma"),    # N % 16 != 0: the mma.sync body
     (300, 384, 256, "mma"),    # a group of 256: the mma.sync body
-    (8, 384, 128, "gemv"),     # decode rows
+    (8, 384, 128, "gemv_tc"),  # decode rows: the tensor-core GEMV
+    (8, 388, 128, "gemv"),     # decode rows it does not take (N % 16 != 0): dq_core
 ])
 def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
     """The wrapper's route counters agree with the kernel the profiler saw."""
@@ -297,7 +311,8 @@ def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
     seen, keys = _profiled_route(
         k1.quantized_matmul, lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta))
     names = [k for k in keys if "dq_" in k]
-    kernel = {"wgmma": "dq_wgmma_kernel", "mma": "dq_mma_kernel", "gemv": "dq_kernel"}[route]
+    kernel = {"wgmma": "dq_wgmma_kernel", "mma": "dq_mma_kernel", "gemv": "dq_kernel",
+              "gemv_tc": "dq_gemv_tc_kernel"}[route]
     assert seen == route
     assert names and all(kernel in n for n in names if "dq_finish" not in n), keys
 
@@ -305,7 +320,8 @@ def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
 @pytest.mark.parametrize("M,N,route", [
     (300, 384, "wgmma"),  # the Hopper route
     (300, 388, "mma"),    # N % 16 != 0: the mma.sync body
-    (8, 384, "gemv"),     # decode rows
+    (8, 384, "gemv"),     # decode rows (K9: the tensor-core GEMV)
+    (8, 388, "gemv"),     # decode rows the tensor-core GEMV does not take
 ])
 def test_k9_k6_route_counters_name_the_kernel_that_ran(cuda, M, N, route):
     """The route counters of K9 and K6 agree with the kernel the profiler saw."""
@@ -320,16 +336,17 @@ def test_k9_k6_route_counters_name_the_kernel_that_ran(cuda, M, N, route):
     calls = {"K9": (k9.moe_matmul, lambda: k9.moe_matmul(x, data, scales, zeros, meta)),
              "K6": (k6.w8a8_matmul, lambda: k6.w8a8_matmul(x, d8, s8, z8, m8))}
     kernels = {"K9": {"wgmma": "dq_wgmma_kernel", "mma": "moe_mma_kernel",
-                      "gemv": "moe_gemv_kernel"},
+                      "gemv": "moe_gemv_kernel", "gemv_tc": "dq_gemv_tc_kernel"},
                "K6": {"wgmma": "w8a8_wgmma_kernel", "mma": "w8a8_mma_kernel",
                       "gemv": "w8a8_gemv_kernel"}}
     for name, (wrapper, call) in calls.items():
         call()  # built and warm
         torch.cuda.synchronize()
         seen, keys = _profiled_route(wrapper, call)
+        want = "gemv_tc" if name == "K9" and route == "gemv" and N % 16 == 0 else route
         names = [k for k in keys if any(n in k for n in kernels[name].values())]
-        assert seen == route, name
-        assert names and all(kernels[name][route] in n for n in names), (name, keys)
+        assert seen == want, name
+        assert names and all(kernels[name][want] in n for n in names), (name, keys)
 
 
 def test_k7_raises_on_what_it_does_not_take(cuda):
@@ -1326,3 +1343,232 @@ def test_k9_k6_hopper_routes_replay_in_a_cuda_graph(cuda):
     assert k9.moe_matmul.wgmma_launches == w9 + 2
     assert k6.w8a8_matmul.wgmma_launches == w6 + 2
     assert _same_bits(y9, eager[0]) and _same_bits(y6, eager[1])
+
+
+# ------------------------------------------- the tensor-core decode GEMV (dq_gemv_tc.cuh)
+
+GEMV_TC_PACKINGS = [(4, 128, False), (4, 64, True), (8, 128, False), (8, 64, True)]
+
+
+@pytest.mark.parametrize("M", [1, 3, 5, 8])
+@pytest.mark.parametrize("bits,group,sym", GEMV_TC_PACKINGS)
+@pytest.mark.parametrize("K,N", [(512, 384), (2048, 2560), (5632, 2048), (768, 50272)])
+def test_gemv_tc_k1_matches_plain_and_the_earlier_body(cuda, M, bits, group, sym, K, N):
+    """K1 at M <= 8 on the tensor-core GEMV (route counter, then the plain
+    version within K1's tolerance, the earlier body's f32 arithmetic closer
+    still, and the same bits call after call)."""
+    g = _gen()
+    qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, bits, group, sym)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    meta = (bits, group, K, N)
+    call = lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta)  # noqa: E731
+    got, route = _route_and_out(k1.quantized_matmul, call)
+    assert route == "gemv_tc"
+    want = k1.quantized_matmul_plain(x, qt.data, qt.scales, qt.zeros, meta)
+    was = k1.quantized_matmul_simt(x, qt.data, qt.scales, qt.zeros, meta)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 2e-2
+    assert _rel(got, was) < 5e-3
+    assert _same_bits(got, call())
+
+
+@pytest.mark.parametrize("option", ["norm_w", "resid", "both"])
+@pytest.mark.parametrize("bits,group,sym", GEMV_TC_PACKINGS)
+@pytest.mark.parametrize("M", [1, 8])
+def test_gemv_tc_k1_options_match_plain(cuda, option, bits, group, sym, M):
+    """K1's norm_w / resid (MODE 4, 2, 6) on the tensor-core GEMV."""
+    qt, x, nw, resid, meta = _k1_option_inputs(_gen(), cuda, bits, group, sym, M)
+    kw = {"norm_w": nw if option != "resid" else None,
+          "resid": resid if option != "norm_w" else None}
+    got, route = _route_and_out(
+        k1.quantized_matmul, lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, **kw))
+    want = k1.quantized_matmul_plain(x, qt.data, qt.scales, qt.zeros, meta, **kw)
+    was = k1.quantized_matmul_simt(x, qt.data, qt.scales, qt.zeros, meta, **kw)
+    torch.cuda.synchronize()
+    assert route == "gemv_tc"
+    assert _rel(got, want) < 2e-2 and _rel(got, was) < 5e-3
+
+
+@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("apot", [False, True])
+@pytest.mark.parametrize("K,N", [(512, 384), (2048, 11264)])
+def test_gemv_tc_k7_matches_plain(cuda, M, group, apot, K, N):
+    """K7's codebook mode (MODE 3) on the tensor-core GEMV: the Pallas
+    kernel's tolerance (relative 2e-2, atol 5% of max)."""
+    from qtpu_torch.kernels import codebook_matmul as k7
+
+    g = _gen()
+    data, sc, cb = _pot_site(g, K, N, group, cuda, apot)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    meta = (4, group, K, N)
+    got, route = _route_and_out(k7.codebook_matmul,
+                                lambda: k7.codebook_matmul(x, data, sc, cb, meta))
+    want = k7.codebook_matmul_plain(x, data, sc, cb, meta)
+    torch.cuda.synchronize()
+    assert route == "gemv_tc"
+    assert _rel(got, want) < 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=0.05 * float(want.float().abs().max()))
+    assert _same_bits(got, k7.codebook_matmul(x, data, sc, cb, meta))
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("bits,group,sym", GEMV_TC_PACKINGS)
+@pytest.mark.parametrize("E,K,N", [(3, 512, 384), (8, 1024, 2048)])
+def test_gemv_tc_k9_matches_plain(cuda, M, per_expert, bits, group, sym, E, K, N):
+    """K9 at decode rows on the tensor-core GEMV with its expert axis."""
+    g = _gen()
+    data, scales, zeros = _experts(g, E, K, N, bits, group, cuda, sym)
+    x = torch.randn(*((E,) if per_expert else ()), M, K, generator=g, device=cuda)
+    x = x.to(torch.bfloat16)
+    meta = (bits, group, K, N)
+    call = lambda: k9.moe_matmul(x, data, scales, zeros, meta, per_expert)  # noqa: E731
+    got, route = _route_and_out(k9.moe_matmul, call)
+    want = k9.moe_matmul_plain(x, data, scales, zeros, meta, per_expert)
+    was = k9.moe_matmul_simt(x, data, scales, zeros, meta, per_expert)
+    torch.cuda.synchronize()
+    assert route == "gemv_tc"
+    assert _rel(got, want) < 2e-2 and _rel(got, was) < 5e-3
+    assert _same_bits(got, call())
+
+
+@pytest.mark.parametrize("bits,group", [(4, 128), (4, 64), (8, 128), (8, 64)])
+@pytest.mark.parametrize("M", [1, 5, 8])
+@pytest.mark.parametrize("D,F", [(512, 1024), (2048, 5632)])
+def test_gemv_tc_k4_matches_plain(cuda, bits, group, M, D, F):
+    """K4's two phases (MODE 1: norm prologue and the SwiGLU pair; MODE 2:
+    the residual) on the tensor-core GEMV."""
+    g = _gen()
+    gu = quantize_pack(torch.randn(D, 2 * F, generator=g, device=cuda) * 0.05, bits, group)
+    dn = quantize_pack(torch.randn(F, D, generator=g, device=cuda) * 0.05, bits, group)
+    nw = (1.0 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(torch.bfloat16)
+    x = torch.randn(M, 1, D, generator=g, device=cuda).to(torch.bfloat16)
+    args = (x, nw, gu.data, gu.scales, gu.zeros, dn.data, dn.scales, dn.zeros,
+            (bits, group, D, 2 * F), (bits, group, F, D))
+    t0 = k4.fused_mlp.gemv_tc_launches
+    got, want, was = k4.fused_mlp(*args), k4.fused_mlp_plain(*args), k4.fused_mlp_simt(*args)
+    torch.cuda.synchronize()
+    assert k4.fused_mlp.gemv_tc_launches == t0 + 1
+    assert _rel(got - x, want - x) < 3e-2
+    assert _rel(got - x, was - x) < 5e-3
+
+
+def test_gemv_tc_replays_in_a_cuda_graph_without_a_host_sync(cuda):
+    """K1, K7, K9 and K4 on the tensor-core GEMV captured in a CUDA graph
+    give the eager bits on replay, and make no host sync."""
+    from qtpu_torch.kernels import codebook_matmul as k7
+
+    g = _gen()
+    K, N, F = 1024, 2048, 1024
+    qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, 4, 128)
+    data, sc, cb = _pot_site(g, K, N, 128, cuda)
+    ex = _experts(g, 4, K, N, 4, 128, cuda)
+    gu = quantize_pack(torch.randn(K, 2 * F, generator=g, device=cuda) * 0.05, 4, 128)
+    dn = quantize_pack(torch.randn(F, K, generator=g, device=cuda) * 0.05, 4, 128)
+    nw = torch.ones(K, dtype=torch.bfloat16, device=cuda)
+    x = torch.randn(8, K, generator=g, device=cuda).to(torch.bfloat16)
+    m = (4, 128, K, N)
+    calls = [lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, m),
+             lambda: k7.codebook_matmul(x, data, sc, cb, m),
+             lambda: k9.moe_matmul(x, *ex, m),
+             lambda: k4.fused_mlp(x[:, None], nw, gu.data, gu.scales, gu.zeros, dn.data,
+                                  dn.scales, dn.zeros, (4, 128, K, 2 * F), (4, 128, F, K))]
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for c in calls:
+                c()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [c() for c in calls]
+        for o in outs:
+            o.zero_()
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(outs, eager))
+
+
+# ------------------------------------------------------------ K5's Hopper body
+
+@pytest.mark.parametrize("window", [0, 4096, 300])
+@pytest.mark.parametrize("S", [2048, 1000, 4100])
+@pytest.mark.parametrize("hd,H,KV", [(64, 32, 4), (128, 32, 8), (64, 12, 12)])
+def test_k5_hopper_body_matches_plain_and_the_mma_body(cuda, window, S, hd, H, KV):
+    """K5 on wgmma fed by TMA at the eval widths (TinyLlama, Mistral-7B
+    with its 4096 window, GPT-2), ragged S: the route counter, the plain
+    version (relative 2e-2) and the f32 math (rtol/atol 2e-2, the Pallas
+    kernel's test), and the mma.sync body within 1e-2."""
+    from qtpu_torch.kernels import flash_attention as k5
+
+    q, k, v = _bf16_qkv(_gen(), 1, H, KV, S, hd, cuda)
+    w0 = k5.flash_attention.wgmma_launches
+    got = k5.flash_attention(q, k, v, window)
+    assert k5.flash_attention.wgmma_launches == w0 + 1
+    want = k5.flash_attention_plain(q, k, v, window)
+    was = k5.flash_attention_mma(q, k, v, window)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 2e-2 and _rel(got, was) < 1e-2
+    want32 = k5.flash_attention_plain(q.float(), k.float(), v.float(), window)
+    torch.testing.assert_close(got.float(), want32, rtol=2e-2, atol=2e-2)
+    assert _same_bits(got, k5.flash_attention(q, k, v, window))
+
+
+def test_k5_routes_and_their_counters(cuda):
+    """A q the Hopper body does not take (4-byte aligned) runs the mma.sync
+    body and counts it; the profiler sees the kernel each counter names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qtpu_torch.kernels import flash_attention as k5
+
+    g = _gen()
+    q, k, v = _bf16_qkv(g, 1, 8, 2, 300, 64, cuda)
+    buf = torch.empty(q.numel() + 2, dtype=torch.bfloat16, device=cuda)
+    qm = buf[2:].view(q.shape)  # 4-byte aligned, not 16
+    qm.copy_(q)
+    assert k5.flash_route(64, [t.data_ptr() for t in (qm, k, v)],
+                          [s for t in (qm, k, v) for s in t.stride()[:3]]) == "mma"
+    for qq, route, kernel in ((q, "wgmma", "flash_wgmma_kernel"), (qm, "mma", "flash_attn_kernel")):
+        k5.flash_attention(qq, k, v)
+        torch.cuda.synchronize()
+        c0 = getattr(k5.flash_attention, f"{route}_launches")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                out = k5.flash_attention(qq, k, v)
+            torch.cuda.synchronize()
+        assert getattr(k5.flash_attention, f"{route}_launches") == c0 + 4
+        names = [e.key for e in prof.key_averages() if "flash" in e.key]
+        assert names and all(kernel in n for n in names), names
+        assert _rel(out, k5.flash_attention_plain(q, k, v)) < 2e-2
+
+
+def test_k5_hopper_body_replays_in_a_cuda_graph_without_a_host_sync(cuda):
+    from qtpu_torch.kernels import flash_attention as k5
+
+    q, k, v = _bf16_qkv(_gen(), 2, 8, 2, 700, 128, cuda)
+    eager = k5.flash_attention(q, k, v, 256)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k5.flash_attention(q, k, v, 256)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = k5.flash_attention(q, k, v, 256)
+        out.zero_()
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert _same_bits(out, eager)
