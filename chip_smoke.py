@@ -44,7 +44,11 @@ Phases, each printing one JSON line:
            each on the route its rule names (gemv_route, flash_route) and
            beside its earlier body on the same bytes as "was"
            (quantized_matmul_simt, codebook_matmul_simt, moe_matmul_simt,
-           fused_mlp_simt, flash_attention_mma), with times:
+           fused_mlp_simt, flash_attention_mma); K6 at M <= 8 on its own
+           tensor-core GEMV (one launch, csrc/w8a8_matmul.cu) with the dp4a
+           body's three launches (w8a8_matmul_dp4a) as "was" and its bits
+           equal at M 1, 3 and 8, and K13's phases on the tensor-core step
+           with the dq_core tiles (layer_boundary_dq) as "was"; with times:
            kernel, plain version, one PyTorch library call where one
            computes the same function, and the bound from bytes and
            operations at 3.35 TB/s and 989 TFLOP/s bf16 or 1,979 TOP/s int8
@@ -52,10 +56,12 @@ Phases, each printing one JSON line:
            Hopper-route site against its library call (torch.matmul on the
            dequantized weight, torch.bmm on the bf16 experts, torch._int_mm)
            and its share of the bound, a kernels_decode_gemv_k5 line each
-           decode GEMV site and K5 shape against its earlier body, its bound
-           and its library call; the serving and eval phases check that every
-           decode launch of K1, K7, K9 and K4 took the tensor-core GEMV (but
-           GPT-2's 50257-wide lm_head) and every K5 launch its Hopper body
+           decode GEMV site (K6's and K13's too) and K5 shape against its
+           earlier body, its bound and its library call (K13: the default
+           chain); the serving and eval phases check that every decode
+           launch of K1, K7, K9, K4 and K6 took the tensor-core GEMV (but
+           GPT-2's 50257-wide lm_head), every K13 launch its tensor-core
+           tiles and every K5 launch its Hopper body
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions), RTN W4 on
            the int8 KV cache and POT W4 on the bf16 cache; and a 2-layer
@@ -105,8 +111,9 @@ Phases, each printing one JSON line:
            int8 and bf16 caches, each under default, QTPU_FUSE_NORM_RESID=1
            and QTPU_BOUNDARY=1: tokens/s, TTFT, peak memory, launches per
            step (K13 22, K11 or K8 22, K1 2 under boundary), a profile (K13's
-           share), a step from one prefill against the default's, and K13
-           held to its plain version on every layer of that step
+           share), a step from one prefill against the default's, K13
+           held to its plain version on every layer of that step, and every
+           K13 launch on its tensor-core tiles
   eval     the quantize-and-evaluate path at full width through
            `python -m qtpu_torch.bench` (its main() in this process):
            TinyLlama-1.1B, the byte-level fixture (4 blocks of 2048), raw,
@@ -127,8 +134,10 @@ Phases, each printing one JSON line:
   serve_w8a8  the serving engine at full width on SmoothQuant W8A8
            (calibrated on the fixture, int8 KV, 8 requests of prompt 128 and
            32 new tokens) with launch counts checked (K6 on every linear,
-           K2/K3 per decode step, no K1/K4), a profile of one prefill and one
-           16-step decode block, then `python -m qtpu_torch.serve --method
+           every decode launch on its tensor-core GEMV, K2/K3 per decode
+           step, no K1/K4), a profile of one prefill and one 16-step decode
+           block (with the CUDA kernel launches a step), then `python -m
+           qtpu_torch.serve --method
            smoothquant --a8 --kv int8` (its main())
   pot_apot the POT/APOT path at full width through `python -m
            qtpu_torch.bench` (main() in this process): TinyLlama-1.1B, the
@@ -292,7 +301,7 @@ def _route_taken(torch, wrapper, call):
     """Runs call() once and returns (its output, the body the wrapper's
     route counters saw: "wgmma", "mma", "gemv_tc" or "gemv")."""
     w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
-    t0 = getattr(wrapper, "gemv_tc_launches", 0)  # K6 has no tensor-core GEMV
+    t0 = getattr(wrapper, "gemv_tc_launches", 0)
     out = call()
     torch.cuda.synchronize()
     if wrapper.wgmma_launches > w0:
@@ -732,8 +741,20 @@ def phase_kernels(torch, ctx):
             "replaces": "qtpu/kernels/pallas_layer_boundary.py:139",
             "max_abs_err": max(r["max_abs_err"] for r in k13r.values()),
             **{key: L * k13r["TinyLlama-1.1B_w4_m8"][key] for key in ("ms", "plain_ms",
-                                                                      "bound_ms")},
+                                                                      "bound_ms", "was_ms")},
             "bound_by": k13r["TinyLlama-1.1B_w4_m8"]["bound_by"], "library_ms": None,
+        },
+        # K6's tensor-core GEMV at the work of one W8A8 decode step (M 8): L x
+        # (q, k, v, o, gate, up, down) + lm_head; was: the dp4a GEMV's three
+        # launches; library: torch.matmul on the weight dequantized to bf16
+        "w8a8_matmul_gemv_tc": {
+            "route": "cuda", "source": "qtpu_torch/csrc/w8a8_matmul.cu",
+            "replaces": "qtpu/kernels/pallas_int8_matmul.py:58",
+            "max_abs_err": max(k6r[f"{s}_decode"]["max_abs_err"] for s in K6_SITES),
+            **{key: _k6_block(k6r, key, L, "decode") for key in ("ms", "plain_ms", "bound_ms",
+                                                                 "was_ms")},
+            "bound_by": _k6_bound_by(k6r, L, "decode"),
+            "library_ms": _k6_block(k6r, "bf16_matmul_ms", L, "decode"),
         },
         # K1's options at the work of one decode step of the fuse branch: L
         # calls each, norm_w at the qkv site and resid at the o site (M 8)
@@ -802,7 +823,7 @@ def phase_kernels(torch, ctx):
             route_sites[f"w8a8_{site}_{m}"] = {
                 "M": r["M"], "K": r["K"], "N": r["N"], "route": r["route"], "rule": r["rule"],
                 "rel_err": r["rel_err"], "same_bits_two_calls": r["same_bits_two_calls"],
-                "bits_equal_mma_body": r["bits_equal_mma_body"],
+                "bits_equal_mma_body": r["bits_equal_earlier_body"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "was_ms": r["was_ms"],
                 "library_ms": r["int_mm_ms"], "bf16_matmul_ms": r["bf16_matmul_ms"],
                 "over_library": r["ms"] / r["int_mm_ms"], "bound_ms": r["bound_ms"],
@@ -825,6 +846,10 @@ def phase_kernels(torch, ctx):
     # bytes ("was"), its bound and its library call
     tc_sites = {}
     for kernel, rows in (("K1", {k: v for k, v in k1_rows.items() if k.endswith("_decode")}),
+                         ("K6", {k: {**v, "library_ms": v["bf16_matmul_ms"]}
+                                 for k, v in k6r.items() if k.endswith("_decode")}),
+                         ("K13", {k: {**v, "library_ms": v["composed_chain_ms"]}
+                                  for k, v in k13r.items()}),
                          ("K7", {k: v for k, v in k7r.items() if k.endswith("_decode")}),
                          ("K9", {k: v for k, v in k9r.items() if v["M"] <= 8}),
                          ("K4", {"layer": k4r}),
@@ -865,13 +890,14 @@ def _k6_rows(torch, gen, dev):
     """K6 against its plain version at every W8A8 site of TinyLlama at
     decode, prefill and eval M (tolerance: the Pallas kernel's test, max
     |err| / max |ref| < 2e-2, and relative error < 2e-2), the route its
-    counters saw against w8a8_route's rule, and at M > 8 two calls giving
-    the same bits and the same bits as the mma.sync body (the int32 sums
-    are exact and the epilogue's float order is the body's), with times:
-    the kernel, the plain version, the mma.sync body on the same bytes (M >
-    8, "was"), torch._int_mm on x quantized beforehand and the int8 weight
-    made column-major beforehand (M >= 17 only), torch.matmul on the weight
-    dequantized to bf16 beforehand, and the bound (int8 rate)."""
+    counters saw against w8a8_route's rule (at M <= 8 refined by
+    w8a8_gemv_route), two calls giving the same bits and the same bits as
+    the earlier body (M > 8: the mma.sync body; M <= 8: the dp4a GEMV, at
+    M 1 and 3 too): the int32 sums are exact and the epilogue's float order
+    is the body's. Times: the kernel, the plain version, the earlier body on
+    the same bytes ("was"), torch._int_mm on x quantized beforehand and the
+    int8 weight made column-major beforehand (M >= 17 only), torch.matmul on
+    the weight dequantized to bf16 beforehand, and the bound (int8 rate)."""
     from qtpu_torch.core.packing import dequantize_parts, quantize_pack
     from qtpu_torch.kernels import int8_matmul as k6
 
@@ -894,25 +920,33 @@ def _k6_rows(torch, gen, dev):
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             err = float(diff.max() / (want.float().abs().max() + 1e-6))
+            rule = k6.w8a8_route(M, N, (q0.data.data_ptr(), q0.scales.data_ptr()))
+            if rule == "gemv":
+                rule = k6.w8a8_gemv_route(M, K, N, (x.data_ptr(), q0.data.data_ptr()))
             row = {"M": M, "K": K, "N": N, "err_max_over_max_ref": err,
                    "max_abs_err": float(diff.max()), "rel_err": rel_err(torch, got, want),
                    "bf16_equal_share": float((got == want).float().mean()), "tol": 2e-2,
-                   "route": route,
-                   "rule": k6.w8a8_route(M, N, (q0.data.data_ptr(), q0.scales.data_ptr()))}
+                   "route": route, "rule": rule}
             if err >= 2e-2 or row["rel_err"] >= 2e-2 or not torch.isfinite(got.float()).all():
                 raise AssertionError(f"K6 disagrees with its plain version: {row}")
             if route != row["rule"]:
                 raise AssertionError(f"K6 ran the {route} body where its rule says {row['rule']}")
-            if M > 8:
-                again = k6.w8a8_matmul(x, q0.data, q0.scales, q0.zeros, meta)
-                body = k6.w8a8_matmul_mma(x, q0.data, q0.scales, q0.zeros, meta)
-                torch.cuda.synchronize()
-                row["same_bits_two_calls"] = _bits_equal(torch, got, again)
-                row["bits_equal_mma_body"] = _bits_equal(torch, got, body)
-                row["max_abs_diff_mma_body"] = float((got.float() - body.float()).abs().max())
-                if not (row["same_bits_two_calls"] and row["bits_equal_mma_body"]):
-                    raise AssertionError(f"K6's route differs call to call or from its "
-                                         f"mma.sync body: {site} M {M} {row}")
+            earlier = k6.w8a8_matmul_mma if M > 8 else k6.w8a8_matmul_dp4a
+            again = k6.w8a8_matmul(x, q0.data, q0.scales, q0.zeros, meta)
+            body = earlier(x, q0.data, q0.scales, q0.zeros, meta)
+            torch.cuda.synchronize()
+            row["same_bits_two_calls"] = _bits_equal(torch, got, again)
+            row["bits_equal_earlier_body"] = _bits_equal(torch, got, body)
+            row["max_abs_diff_earlier_body"] = float((got.float() - body.float()).abs().max())
+            if M <= 8:  # the dp4a body's bits at M 1 and 3 as well
+                for m in (1, 3):
+                    y = k6.w8a8_matmul(x[:m], q0.data, q0.scales, q0.zeros, meta)
+                    y0 = k6.w8a8_matmul_dp4a(x[:m], q0.data, q0.scales, q0.zeros, meta)
+                    torch.cuda.synchronize()
+                    row[f"bits_equal_earlier_body_m{m}"] = _bits_equal(torch, y, y0)
+            if not all(v for k, v in row.items() if k.startswith(("same_bits", "bits_equal"))):
+                raise AssertionError(f"K6 differs call to call or from its earlier body: "
+                                     f"{site} M {M} {row}")
             row["bound_ms"], row["bound_by"] = bound(M * K * 2 + wbytes + M * N * 2,
                                                      2 * M * K * N, INT8_OP_PER_S)
             row["ms"], row["timing"] = cuda_ms(
@@ -921,11 +955,12 @@ def _k6_rows(torch, gen, dev):
             row["plain_ms"], _ = cuda_ms(
                 torch, [lambda q=q: k6.w8a8_matmul_plain(x, q.data, q.scales, q.zeros, meta)
                         for q in qts], wbytes)
-            if M > 8:
-                row["was_ms"], _ = cuda_ms(
-                    torch, [lambda q=q: k6.w8a8_matmul_mma(x, q.data, q.scales, q.zeros, meta)
-                            for q in qts], wbytes)
-                row["was"] = "w8a8_mma_kernel (mma.sync) on the same bytes, w8a8_matmul_mma"
+            row["was_ms"], _ = cuda_ms(
+                torch, [lambda q=q: earlier(x, q.data, q.scales, q.zeros, meta) for q in qts],
+                wbytes)
+            row["was"] = ("w8a8_mma_kernel (mma.sync) on the same bytes, w8a8_matmul_mma"
+                          if M > 8 else "the dp4a GEMV's three launches on the same bytes, "
+                                        "w8a8_matmul_dp4a")
             row["int_mm_ms"] = None
             if M >= 17:
                 xq, _ = k6.quantize_activations(x)
@@ -1635,10 +1670,13 @@ def _site_bytes(K, N, bits, group):
 def _k13_case(torch, gen, dev, name, cfg, bits, M):
     """K13 at one layer of cfg (layers l and l + 1 of freshly packed stacks,
     enough copies to exceed L2), against its plain version (relative error
-    of y2 - x and of qkv, 2e-2), with the times of the kernel, the plain
-    version and the chains it replaces on the same views: the composed
-    K1(o) + residual + K4 + rms_norm + K1(qkv) of the default decode step,
-    and K1(o, resid) + K4 + K1(qkv, norm_w) of the fuse branch."""
+    of y2 - x and of qkv, 2e-2), the tiles its counters saw against
+    boundary_route's rule, two calls giving the same bits, with the times of
+    the kernel, the plain version, its earlier body on the same views (the
+    dq_core tiles, layer_boundary_dq: "was") and the chains it replaces: the
+    composed K1(o) + residual + K4 + rms_norm + K1(qkv) of the default
+    decode step, and K1(o, resid) + K4 + K1(qkv, norm_w) of the fuse
+    branch."""
     from qtpu_torch.kernels import fused_mlp as k4
     from qtpu_torch.kernels import layer_boundary as k13
     from qtpu_torch.kernels.dequant_matmul import quantized_matmul as k1
@@ -1677,23 +1715,40 @@ def _k13_case(torch, gen, dev, name, cfg, bits, M):
         return y2, k1(rms_norm(y2, an[i + 1], cfg.norm_eps), q["data"], q["scales"], q["zeros"],
                       metas[3])
 
-    n0 = k13.layer_boundary.launches
+    n0, t0 = k13.layer_boundary.launches, k13.layer_boundary.gemv_tc_launches
     y2, qkv = call(k13.layer_boundary, 0)
     want_y2, want_qkv = call(k13.layer_boundary_plain, 0)
+    again = call(k13.layer_boundary, 0)
+    was_y2, was_qkv = call(k13.layer_boundary_dq, 0)
     torch.cuda.synchronize()
-    if k13.layer_boundary.launches != n0 + 1:
-        raise AssertionError("K13 did not count its launch")
+    if k13.layer_boundary.launches != n0 + 2:
+        raise AssertionError("K13 did not count its launches")
+    route = "gemv_tc" if k13.layer_boundary.gemv_tc_launches == t0 + 2 else "gemv"
+    ptrs = [attn.data_ptr()] + [t[0].data_ptr() for t in stacks[0] + stacks[1] + stacks[2]] + \
+        [t[1].data_ptr() for t in stacks[3]]
     err_y, err_q = rel_err(torch, y2.float() - x.float(), want_y2.float() - x.float()), \
         rel_err(torch, qkv, want_qkv)
+    tc = route == "gemv_tc"
     row = {"model": name, "bits": bits, "group": g, "M": M, "D": D, "F": F, "Q": Q,
-           "Nq": Nq, "grid_blocks": k13._grid(dev.index or 0, bits, g),
+           "Nq": Nq, "route": route, "rule": k13.boundary_route(metas, ptrs),
+           "grid_blocks": k13._grid(dev.index or 0, bits, g, tc),
+           "grid_blocks_was": k13._grid(dev.index or 0, bits, g, False),
+           "plan": k13.plan(metas, M, k13._grid(dev.index or 0, bits, g, tc), tc),
            "rel_err_y2_minus_x": err_y, "rel_err_qkv": err_q,
+           "rel_err_vs_was": max(rel_err(torch, y2.float() - x.float(),
+                                         was_y2.float() - x.float()),
+                                 rel_err(torch, qkv, was_qkv)),
+           "same_bits_two_calls": _bits_equal(torch, y2, again[0])
+           and _bits_equal(torch, qkv, again[1]),
            "max_abs_err": max(float((y2.float() - want_y2.float()).abs().max()),
                               float((qkv.float() - want_qkv.float()).abs().max())),
            "tol_rel": 2e-2, "weight_mb": wbytes / 1e6}
     ok = all(bool(torch.isfinite(t.float()).all()) for t in (y2, qkv))
-    if err_y >= 2e-2 or err_q >= 2e-2 or not ok:
-        raise AssertionError(f"K13 disagrees with its plain version: {row}")
+    if err_y >= 2e-2 or err_q >= 2e-2 or row["rel_err_vs_was"] >= 2e-2 or not ok:
+        raise AssertionError(f"K13 disagrees with its plain version or its earlier body: {row}")
+    if route != row["rule"] or route != "gemv_tc" or not row["same_bits_two_calls"]:
+        raise AssertionError(f"K13 ran the {route} tiles where its rule says {row['rule']}, "
+                             f"or differs call to call: {row}")
     nbytes = wbytes + M * (Q + D) * 2 + M * (D + Nq) * 2 + 2 * D * 2
     ops = 2 * M * sum(K * N for K, N in shapes)
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
@@ -1701,6 +1756,9 @@ def _k13_case(torch, gen, dev, name, cfg, bits, M):
                                                for i in range(copies)], wbytes)
     row["plain_ms"], _ = cuda_ms(torch, [lambda i=i: call(k13.layer_boundary_plain, i)
                                          for i in range(copies)], wbytes)
+    row["was_ms"], _ = cuda_ms(torch, [lambda i=i: call(k13.layer_boundary_dq, i)
+                                       for i in range(copies)], wbytes)
+    row["was"] = "the dq_core tiles (dq_tile) on the same views, layer_boundary_dq"
     row["composed_chain_ms"], _ = cuda_ms(torch, [lambda i=i: chain(i, False)
                                                   for i in range(copies)], wbytes)
     row["fuse_chain_ms"], _ = cuda_ms(torch, [lambda i=i: chain(i, True)
@@ -2518,8 +2576,9 @@ def phase_serve(torch, ctx):
 def _profiled(torch, fn, n, classify=None):
     """torch.profiler over fn() (n steps of work, ending in a synchronize):
     host wall ms per step, device kernel ms per step, the device busy share
-    (kernel time over wall time) and the top kernels by device time; with
-    `classify` (kernel name -> kind) also the device ms per step by kind."""
+    (kernel time over wall time), the CUDA kernel launches per step and the
+    top kernels by device time; with `classify` (kernel name -> kind) also
+    the device ms and the launches per step by kind."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2535,13 +2594,16 @@ def _profiled(torch, fn, n, classify=None):
     rows.sort(key=lambda r: -r[1])
     res = {"wall_ms_per_step": wall_us / n / 1e3, "device_ms_per_step": device_us / n / 1e3,
            "device_busy_share": device_us / wall_us if device_us else None,
+           "kernel_launches_per_step": sum(r[2] for r in rows) / n,
            "top": [{"name": k[:80], "ms_per_step": t / n / 1e3, "calls_per_step": c / n}
                    for k, t, c in rows[:15]]}
     if classify is not None:
-        split = {}
-        for k, t, _ in rows:
+        split, calls = {}, {}
+        for k, t, c in rows:
             split[classify(k)] = split.get(classify(k), 0.0) + t / n / 1e3
+            calls[classify(k)] = calls.get(classify(k), 0) + c / n
         res["device_ms_by_kind"] = split
+        res["kernel_launches_by_kind"] = calls
     return res
 
 
@@ -3199,6 +3261,12 @@ ROUTES = {
     "fused_mlp_gemv": ("fused_mlp", "fused_mlp", "gemv_launches"),
     "flash_attention_wgmma": ("flash_attention", "flash_attention", "wgmma_launches"),
     "flash_attention_mma": ("flash_attention", "flash_attention", "mma_launches"),
+    # K6's decode GEMV (tensor-core or dp4a body) and K13's tiles (the
+    # tensor-core step or dq_core's)
+    "w8a8_matmul_gemv_tc": ("int8_matmul", "w8a8_matmul", "gemv_tc_launches"),
+    "w8a8_matmul_gemv": ("int8_matmul", "w8a8_matmul", "gemv_launches"),
+    "layer_boundary_gemv_tc": ("layer_boundary", "layer_boundary", "gemv_tc_launches"),
+    "layer_boundary_gemv": ("layer_boundary", "layer_boundary", "gemv_launches"),
 }
 # the kernels of the layer-boundary branches (K13, K1's options), which only
 # the boundary phase's switches turn on
@@ -3249,12 +3317,14 @@ def _check_routes(phase, routes, k1=0, k7=0, k9=0, k6=0):
 
 
 def _check_gemv(phase, counts, routes, ragged_k1=0):
-    """Every M <= 8 launch of K1, K7, K9 and K4 of a run (those not on the
-    Hopper route or the mma.sync body) took the tensor-core GEMV, but
+    """Every M <= 8 launch of K1, K7, K9, K4 and K6 of a run (those not on
+    the Hopper route or the mma.sync body) took the tensor-core GEMV, but
     ragged_k1 K1 launches at GPT-2's 50257-wide lm_head (dq_core's GEMV);
-    and every K5 launch took its Hopper body. Returns the GEMV launches."""
+    every K13 launch took the tensor-core tiles; and every K5 launch took
+    its Hopper body. Returns the GEMV launches."""
     seen = {}
-    for kernel in ("dequant_matmul", "codebook_matmul", "moe_matmul", "fused_mlp"):
+    for kernel in ("dequant_matmul", "codebook_matmul", "moe_matmul", "fused_mlp",
+                   "w8a8_matmul"):
         gemv = counts[kernel] - routes.get(f"{kernel}_wgmma", 0) - routes.get(f"{kernel}_mma", 0)
         want = {"tc": gemv - (ragged_k1 if kernel == "dequant_matmul" else 0),
                 "simt": ragged_k1 if kernel == "dequant_matmul" else 0}
@@ -3262,6 +3332,10 @@ def _check_gemv(phase, counts, routes, ragged_k1=0):
         if got != want:
             raise AssertionError(f"{phase}: {kernel}'s GEMV launches {got} != expected {want}")
         seen[kernel] = got
+    k13 = {"tc": routes["layer_boundary_gemv_tc"], "simt": routes["layer_boundary_gemv"]}
+    if k13 != {"tc": counts["layer_boundary"], "simt": 0}:
+        raise AssertionError(f"{phase}: K13's launches {k13} of {counts['layer_boundary']}")
+    seen["layer_boundary"] = k13
     k5 = {"wgmma": routes["flash_attention_wgmma"], "mma": routes["flash_attention_mma"]}
     if k5 != {"wgmma": counts["flash_attention"], "mma": 0}:
         raise AssertionError(f"{phase}: K5's launches {k5} of {counts['flash_attention']}")
@@ -3525,8 +3599,13 @@ def phase_serve_w8a8(torch, ctx):
             raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
     if counts != expect or steps == 0:
         raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    # every K6 launch of a prefill (8 x 128 rows) took the Hopper route
+    # every K6 launch of a prefill (8 x 128 rows) took the Hopper route, and
+    # every one of a decode step the tensor-core GEMV
     _check_routes("serve_w8a8", routes, k6=(7 * L + 1) * pre)
+    _check_gemv("serve_w8a8", counts, routes)
+    if routes["w8a8_matmul_gemv_tc"] != (7 * L + 1) * steps:
+        raise AssertionError(f"serve_w8a8: {routes['w8a8_matmul_gemv_tc']} K6 decode launches "
+                             f"on the tensor-core GEMV, not {(7 * L + 1) * steps}")
     ctx.setdefault("path_launches", {})["serve_w8a8"] = {**counts, **routes}
 
     cache = init_cache(cfg, B, P + SERVE_NEW + 16, quantized=True, device="cuda")

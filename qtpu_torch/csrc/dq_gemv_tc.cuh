@@ -3,7 +3,9 @@
 // (moe_matmul.cu) on Hopper's tensor cores: one launch a call, the weight
 // streamed by 16-byte cp.async into a per-lane shared-memory ring, the
 // products on mma.sync m16n8k16 (bf16 in, f32 out), K split over a
-// thread-block cluster merged through distributed shared memory.
+// thread-block cluster merged through distributed shared memory. Its block
+// body, gtc_block, also runs the matmul phases of K13 (layer_boundary.cu),
+// one call a tile between that kernel's grid barriers.
 //
 // Computes what dq_core.cuh's dq_tile computes (its note gives the layout
 // and the MODEs), y = sum over groups c of s_c o (x_c @ B_c), with B_c the
@@ -68,7 +70,8 @@
 //    shape, the group, the bits and the alignment; the other M <= 8 calls
 //    keep dq_core's GEMV.
 // Everything here has internal linkage (an anonymous namespace), so each
-// library that includes it keeps its own kernels and launch records.
+// library that includes it keeps its own kernels and launch records; K6's
+// decode GEMV (w8a8_matmul.cu) uses its cp.async helpers.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -207,37 +210,36 @@ __device__ __forceinline__ void gtc_step(const uint4* w, uint32_t b0, uint32_t b
   }
 }
 
-// grid (cluster x column strips, E), cluster (cluster, 1, 1), block
-// TcLayout::THREADS; dynamic shared memory TcLayout::smem(slice of K).
-template <int BITS, int MODE, bool EXPERTS>
-__global__ void __launch_bounds__(TcLayout<BITS, MODE>::THREADS, 512 / TcLayout<BITS, MODE>::THREADS)
-    dq_gemv_tc_kernel(DqArgs a, TcArgs t) {
+// Where gtc_block leaves the block's sums, from the base of its shared memory.
+template <int BITS, int MODE>
+__device__ __forceinline__ float* gtc_sums(uint8_t* base) {
+  return reinterpret_cast<float*>(base + TcLayout<BITS, MODE>::A_BYTES +
+                                  TcLayout<BITS, MODE>::HDR_BYTES);
+}
+
+// One block's share of a call: the kTcCols output columns from n0 (of the
+// packed rows' column set, K4's pair: both sets) over the K slice [kbase,
+// kbase + ksl) of whole groups, x's slice staged with a row pitch of `pitch`
+// bf16 (at least ksl + 8). On return the block's f32 sums (NSET x 1024, the
+// warps' layout: see the epilogue below) are in TcLayout's `sums`, not yet
+// visible to the other threads (the caller synchronizes). The cluster kernel
+// below runs one per block; K13's phases (layer_boundary.cu) run one per
+// tile of a grid-barrier phase, so a block's shared memory is reused from one
+// call to the next once every thread is past the caller's barrier.
+template <int BITS, int MODE>
+__device__ __forceinline__ void gtc_block(const DqArgs& a, int n0, int kbase, int ksl, int pitch,
+                                          uint8_t* base) {
   using L = TcLayout<BITS, MODE>;
-  namespace cg = cooperative_groups;
   constexpr int PK = 8 / BITS;
   constexpr int T = L::THREADS;
-  extern __shared__ uint8_t gtc_smem[];  // aligned to 16 by hand (an __align__ here would move
-                                         // the dynamic shared memory of every kernel in the file)
-  uint8_t* base = gtc_smem + ((16 - (gtc_smem_u32(gtc_smem) & 15)) & 15);
   uint8_t* ring = base;                             // [RING][RPL][T] uint4, then the warps' sums
   uint8_t* hdr = ring + L::A_BYTES;                 // [2][3][T] uint4: zeros, scales (2)
-  float* sums = reinterpret_cast<float*>(hdr + L::HDR_BYTES);  // [NSET][1024]
+  float* sums = gtc_sums<BITS, MODE>(base);         // [NSET][1024]
   float* inv_rms = sums + L::NSET * 1024;           // [8]
   uint32_t* tab = reinterpret_cast<uint32_t*>(inv_rms + 16);   // MODE 3: [256][32]
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<uint8_t*>(tab) +
                                                        L::TAB_BYTES);  // [8][pitch]
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int strip = blockIdx.x / t.cluster;
-  if constexpr (EXPERTS) {
-    const int e = blockIdx.y;
-    a.x += (size_t)e * t.x_es;
-    a.data += (size_t)e * t.w_es;
-    a.scales += (size_t)e * t.s_es;
-    if (a.zeros != nullptr) a.zeros += (size_t)e * t.s_es;
-    a.out += (size_t)e * t.o_es;
-  }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -245,18 +247,11 @@ __global__ void __launch_bounds__(TcLayout<BITS, MODE>::THREADS, 512 / TcLayout<
   const int wis = warp % kTcWarps;
   const int lg = lane >> 2;
   const int lt = lane & 3;
-  const int n0 = strip * kTcCols;
   const int col = n0 + 16 * lg;        // the lane's first column
   const bool in = col < a.N;           // N % 16 == 0: all 16 columns or none
   const int wcol = set * a.N + col;    // its column in the packed rows (K4's pair: up at N)
   const int g = a.group;
   const int spg = g / 16;              // steps a group
-  const int groups = a.K / g;
-  const int gb = rank * t.slice_groups;
-  const int ge = min(groups, gb + t.slice_groups);
-  const int kbase = gb * g;
-  const int ksl = ge > gb ? (ge - gb) * g : 0;  // the block's K values
-  const int pitch = t.slice_groups * g + 8;     // x row pitch in bf16 (16 bytes of padding)
   const int nsteps = ksl / 16;
   const int per = (nsteps + kTcWarps - 1) / kTcWarps;
   const int ws = min(nsteps, wis * per);
@@ -422,7 +417,7 @@ __global__ void __launch_bounds__(TcLayout<BITS, MODE>::THREADS, 512 / TcLayout<
   if (we > ws) flush();
   gtc_wait<0>();
 
-  // ---- the warps' sums, then the cluster's
+  // ---- the warps' sums, the block's
   __syncthreads();  // every warp is done with the ring (the sums reuse it)
   float* red = reinterpret_cast<float*>(ring);  // [NSET][kTcWarps][1024]
 #pragma unroll
@@ -438,6 +433,38 @@ __global__ void __launch_bounds__(TcLayout<BITS, MODE>::THREADS, 512 / TcLayout<
     for (int w = 0; w < kTcWarps; ++w) v += red[(st * kTcWarps + w) * 1024 + o];
     sums[idx] = v;
   }
+}
+
+// grid (cluster x column strips, E), cluster (cluster, 1, 1), block
+// TcLayout::THREADS; dynamic shared memory TcLayout::smem(slice of K).
+template <int BITS, int MODE, bool EXPERTS>
+__global__ void __launch_bounds__(TcLayout<BITS, MODE>::THREADS, 512 / TcLayout<BITS, MODE>::THREADS)
+    dq_gemv_tc_kernel(DqArgs a, TcArgs t) {
+  using L = TcLayout<BITS, MODE>;
+  namespace cg = cooperative_groups;
+  extern __shared__ uint8_t gtc_smem[];  // aligned to 16 by hand (an __align__ here would move
+                                         // the dynamic shared memory of every kernel in the file)
+  uint8_t* base = gtc_smem + ((16 - (gtc_smem_u32(gtc_smem) & 15)) & 15);
+  float* sums = gtc_sums<BITS, MODE>(base);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int strip = blockIdx.x / t.cluster;
+  if constexpr (EXPERTS) {
+    const int e = blockIdx.y;
+    a.x += (size_t)e * t.x_es;
+    a.data += (size_t)e * t.w_es;
+    a.scales += (size_t)e * t.s_es;
+    if (a.zeros != nullptr) a.zeros += (size_t)e * t.s_es;
+    a.out += (size_t)e * t.o_es;
+  }
+  const int tid = threadIdx.x;
+  const int n0 = strip * kTcCols;
+  const int groups = a.K / a.group;
+  const int gb = rank * t.slice_groups;
+  const int ge = min(groups, gb + t.slice_groups);
+  const int ksl = ge > gb ? (ge - gb) * a.group : 0;  // the block's K values
+  gtc_block<BITS, MODE>(a, n0, gb * a.group, ksl, t.slice_groups * a.group + 8, base);
   cluster.sync();  // every block's sums are in its shared memory
   const int share = (1024 + t.cluster - 1) / t.cluster;  // outputs whose epilogue it writes
   const int oend = min(1024, (rank + 1) * share);

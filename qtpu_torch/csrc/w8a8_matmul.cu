@@ -38,7 +38,13 @@
 //    with n contiguous: each thread loads a 4 x 4 byte block (4 rows of one
 //    32-bit word) and transposes it with __byte_perm while staging, so the
 //    stored layout stays the one both packages share.
-//  * M <= 8: w8a8_gemv_kernel, a weight-streaming GEMV: each lane owns 8
+//  * M <= 8 where w8a8_gemv_tc_fits holds (N % 16 == 0, K % 32 == 0, x and
+//    the weight 16-byte aligned, the wrapper's split of K over a
+//    thread-block cluster): w8a8_gemv_tc_kernel, one launch on the int8
+//    tensor cores, below the dp4a body;
+//  * the other M <= 8 calls (and qtpu_w8a8_matmul with cluster 0, the
+//    earlier body kept for comparison on the same bytes, three launches):
+//    w8a8_gemv_kernel, a weight-streaming GEMV: each lane owns 8
 //    columns (one 8-byte load per K row, 256 bytes per warp per row), each
 //    warp a strided set of 4-row groups, transposed with __byte_perm and
 //    multiplied with __dp4a against each row's xq word, read from the
@@ -47,6 +53,19 @@
 //    2048-wide sites fill the SMs and each slice's xq fits the stage; the
 //    slices' int32 sums are added exactly by w8a8_finish_kernel, which
 //    applies the epilogue.
+//
+// The tensor-core GEMV (w8a8_gemv_tc_kernel) follows dq_gemv_tc.cuh (K1's
+// decode GEMV) and shares its cp.async helpers. Bound at decode: the K N
+// weight bytes (TinyLlama's q/o site 4.2 MB, 1.3 us at 3.35 TB/s). The dp4a
+// body pays three launches a call (quantize, GEMV, finish), an [M, Kp] xq
+// and a split-K int32 round trip, and a 4 x 4 byte transpose plus 8 dp4a a
+// lane for every 32 bytes. Here one launch does it all: a block quantizes
+// its own slice of x (the cluster agrees on sx through distributed shared
+// memory), mma.sync m16n8k32 multiplies a 16-column x 32-K tile of the
+// weight by all 8 rows of xq (a lane spends half a byte_perm a weight byte
+// and 1/16 of an mma), the weight streams by 16-byte cp.async into a per-lane
+// shared ring (2 steps, 256 bytes a lane, in flight), and the cluster adds
+// its blocks' int32 sums through distributed shared memory.
 //
 // The Hopper route (w8a8_wgmma_kernel), wgmma fed by TMA in the pattern of
 // dq_wgmma.cuh (K1's route) and with its helpers (tma.cuh). A persistent
@@ -91,6 +110,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dq_gemv_tc.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -123,9 +143,15 @@ struct W8A8Args {
   int split_rows;               // gemv: K rows per blockIdx.y
 };
 
+// y = float(acc + Σxq (128 - z)) s sx, in this float order everywhere.
+__device__ __forceinline__ __nv_bfloat16 w8a8_y(int acc, int sumq, float sx, __nv_bfloat16 s,
+                                                uint8_t z) {
+  const int total = acc + sumq * (128 - (int)z);
+  return __float2bfloat16(((float)total * __bfloat162float(s)) * sx);
+}
+
 __device__ __forceinline__ __nv_bfloat16 w8a8_out(const W8A8Args& a, int m, int n, int acc) {
-  const int total = acc + a.sumq[m] * (128 - (int)a.zeros[n]);
-  return __float2bfloat16(((float)total * __bfloat162float(a.scales[n])) * a.sx[m]);
+  return w8a8_y(acc, a.sumq[m], a.sx[m], a.scales[n], a.zeros[n]);
 }
 
 // 4 rows of 4 bytes (r[i] = row i, bytes = columns) -> 4 columns of 4 bytes
@@ -422,6 +448,286 @@ __global__ void __launch_bounds__(kThreads) w8a8_finish_kernel(W8A8Args a, int s
   }
 }
 
+// ------------------------------------ the decode GEMV on the tensor cores
+
+using qtpu::gtc_commit;
+using qtpu::gtc_cp16;
+using qtpu::gtc_smem_u32;
+using qtpu::gtc_wait;
+using qtpu::kTcCols;
+using qtpu::kTcMaxCluster;
+using qtpu::kTcWarps;
+using qtpu::kTcXCap;
+
+constexpr int kW8TcK = 32;                    // K rows a step: one mma.sync m16n8k32
+constexpr int kW8TcThreads = 32 * kTcWarps;   // 4 warps, each over all kTcCols columns
+constexpr int kW8TcRing = 3;                  // steps a lane's ring holds (2 in flight)
+constexpr int kW8TcRingBytes = kW8TcRing * 8 * 16 * kW8TcThreads;  // 8 rows x 16 bytes a lane
+static_assert(kW8TcRingBytes >= kTcWarps * 1024 * 4, "the warps' sums reuse the ring");
+
+// xq's row pitch in shared memory, bytes: rows 32 bytes apart modulo 128,
+// so the 8-byte B loads of a warp (rows lane / 4, 32 bytes each) fill the
+// 32 banks twice without a conflict
+__host__ __device__ inline int w8tc_pitch(int slice) { return (slice + 127) / 128 * 128 + 32; }
+
+// Dynamic shared memory for a K slice of `slice` rows: the align slack, the
+// ring, x's slice (bf16), xq's (int8), the block's int32 sums [1024], then
+// Σxq, the absmax and sx of its 8 rows.
+inline int w8tc_smem(int slice) {
+  return 16 + kW8TcRingBytes + 8 * slice * 2 + 8 * w8tc_pitch(slice) + 4096 + 3 * 8 * 4;
+}
+
+// The 8 mmas of one step: w[8] the lane's 8 K rows (16 columns each), b0/b1
+// its B fragment. mma i takes columns 2 i and 2 i + 1 of the lane's 16 as
+// A rows g and g + 8: two byte_perms of a row pair put column c's bytes of
+// rows (0, 1) next to column c + 1's, two more make the 4 K rows of each
+// column one register (the A fragment's 4 consecutive K of one row).
+__device__ __forceinline__ void w8tc_step(const uint4* w, uint32_t b0, uint32_t b1,
+                                          int (*acc)[4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t sel = (i & 1) ? 0x7362u : 0x5140u;  // bytes 2 (i % 2), + 1 of two words
+    uint32_t wd[8];  // word i / 2 of each row: columns 4 (i / 2) .. + 3
+#pragma unroll
+    for (int r = 0; r < 8; ++r) wd[r] = reinterpret_cast<const uint32_t*>(&w[r])[i >> 1];
+    const uint32_t p01 = __byte_perm(wd[0], wd[1], sel);  // [r0 c, r1 c, r0 c+1, r1 c+1]
+    const uint32_t p23 = __byte_perm(wd[2], wd[3], sel);
+    const uint32_t p45 = __byte_perm(wd[4], wd[5], sel);
+    const uint32_t p67 = __byte_perm(wd[6], wd[7], sel);
+    const uint32_t af[4] = {__byte_perm(p01, p23, 0x5410u),   // column 2i, rows 0-3
+                            __byte_perm(p01, p23, 0x7632u),   // column 2i + 1, rows 0-3
+                            __byte_perm(p45, p67, 0x5410u),   // column 2i, rows 4-7
+                            __byte_perm(p45, p67, 0x7632u)};  // column 2i + 1, rows 4-7
+    const uint32_t bf[2] = {b0, b1};
+    mma_s8(acc[i], af, bf);
+  }
+}
+
+// The M <= 8 call in one launch: grid (cluster x ceil(N / 128)), cluster
+// (cluster, 1, 1), block kW8TcThreads; a.split_rows: the K rows of a slice.
+// A block owns 128 output columns and one K slice; the cluster's blocks
+// cover all of K for their columns. Each block stages its slice of x, takes
+// its rows' absmax, and the cluster's maxima meet through distributed
+// shared memory, so every block quantizes its slice with the same sx as
+// w8a8_quant_kernel (the max is order-free; the same reciprocal multiply,
+// true division and rounding). The products run over its slice: lane (g, t)
+// of a warp reads K rows 8 t .. 8 t + 7 of the step's 32 (its A fragment's
+// K 4 t .. 4 t + 3 and 16 + 4 t ..; the K order inside a step is ours, and
+// B follows it: xq row g's 8 bytes at 8 t, one 8-byte load) and columns
+// 16 g .. 16 g + 15. The warps' and then the cluster's int32 sums, and Σxq,
+// are exact, so the epilogue (w8a8_y, w8a8_out's float order) gives the
+// dp4a body's bits.
+__global__ void __launch_bounds__(kW8TcThreads, 4) w8a8_gemv_tc_kernel(W8A8Args a, int cluster) {
+  namespace cg = cooperative_groups;
+  constexpr int T = kW8TcThreads;
+  extern __shared__ uint8_t w8tc_smem_raw[];  // aligned to 16 by hand, as qg_smem
+  uint8_t* ring = w8tc_smem_raw + ((16 - (gtc_smem_u32(w8tc_smem_raw) & 15)) & 15);
+  const int slice = a.split_rows;
+  const int pitch = w8tc_pitch(slice);
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(ring + kW8TcRingBytes);  // [8][slice]
+  int8_t* xq = reinterpret_cast<int8_t*>(xb + 8 * slice);                        // [8][pitch]
+  int* sums = reinterpret_cast<int*>(xq + 8 * pitch);                            // [1024]
+  int* rsum = sums + 1024;                               // [8] Σxq of the slice
+  float* rmax = reinterpret_cast<float*>(rsum + 8);      // [8] absmax of the slice
+  float* rsx = rmax + 8;                                 // [8] sx
+
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int n0 = (blockIdx.x / cluster) * kTcCols;
+  const int kbase = rank * slice;
+  const int ksl = max(0, min(a.K, kbase + slice) - kbase);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int lg = lane >> 2;
+  const int lt = lane & 3;
+  const int col = n0 + 16 * lg;  // the lane's first column
+  const bool in = col < a.N;     // N % 16 == 0: all 16 columns or none
+  const int nsteps = ksl / kW8TcK;
+  const int per = (nsteps + kTcWarps - 1) / kTcWarps;
+  const int ws = min(nsteps, warp * per);
+  const int we = min(nsteps, ws + per);
+
+  // ---- the weight's ring: step s's 8 rows of the lane into slot (s - ws) % RING
+  auto issue = [&](int s, int slot) {
+    const int8_t* src = a.data + (size_t)(kbase + kW8TcK * s + 8 * lt) * a.N + col;
+    const uint32_t dst = gtc_smem_u32(ring) + (uint32_t)(slot * 8 * T + tid) * 16;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) gtc_cp16(dst + r * T * 16, in ? src + (size_t)r * a.N : a.data, in);
+  };
+  // ---- x's slice by cp.async (its own group, first), under the ring's first loads
+  const int chunks = ksl / 8;
+  for (int i = tid; i < 8 * chunks; i += T) {
+    const int m = i / chunks;
+    const int k = 8 * (i - m * chunks);
+    const bool ok = m < a.M;
+    gtc_cp16(gtc_smem_u32(xb + m * slice + k), ok ? a.x + (size_t)m * a.K + kbase + k : a.x, ok);
+  }
+  gtc_commit();
+#pragma unroll
+  for (int p = 0; p < kW8TcRing - 1; ++p) {
+    if (ws + p < we) issue(ws + p, p);
+    gtc_commit();
+  }
+  gtc_wait<kW8TcRing - 1>();  // x's group (not the ring's)
+  __syncthreads();
+
+  // ---- sx: the rows' absmax over the slice, then over the cluster
+  for (int m = warp; m < 8; m += kTcWarps) {
+    float amax = 0.f;
+    const uint4* xr = reinterpret_cast<const uint4*>(xb + m * slice);
+    for (int c = lane; c < chunks; c += 32) {
+      const uint4 v = xr[c];
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(h[i])));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (lane == 0) rmax[m] = amax;
+  }
+  cl.sync();  // every block's maxima are in its shared memory
+  if (tid < 8) {
+    float mx[kTcMaxCluster];  // the blocks' maxima, loaded together
+#pragma unroll
+    for (int z = 0; z < kTcMaxCluster; ++z)
+      mx[z] = z < cluster ? cl.map_shared_rank(rmax, z)[tid] : 0.f;
+    float amax = 0.f;
+#pragma unroll
+    for (int z = 0; z < kTcMaxCluster; ++z) amax = fmaxf(amax, mx[z]);
+    rsx[tid] = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-8f);
+  }
+  __syncthreads();
+  // ---- xq of the slice (quant1, as w8a8_quant_kernel) and its rows' Σxq
+  for (int m = warp; m < 8; m += kTcWarps) {
+    const float s = rsx[m];
+    const uint4* xr = reinterpret_cast<const uint4*>(xb + m * slice);
+    int sum = 0;
+    for (int c = lane; c < chunks; c += 32) {
+      const uint4 v = xr[c];
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+      uint32_t q4[2] = {0u, 0u};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = quant1(__bfloat162float(h[i]), s);
+        sum += q;
+        q4[i / 4] |= (uint32_t)(q & 0xff) << (8 * (i % 4));
+      }
+      *reinterpret_cast<uint2*>(xq + m * pitch + 8 * c) = make_uint2(q4[0], q4[1]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) rsum[m] = sum;
+  }
+  __syncthreads();
+
+  // ---- the warp's steps
+  int acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0;
+  const int8_t* xrow = xq + lg * pitch + 8 * lt;  // B's column: row lg of xq
+  for (int s = ws; s < we; ++s) {
+    const int it = s - ws;
+    gtc_wait<kW8TcRing - 2>();  // step s's copies have landed
+    uint4 w[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      w[r] = *reinterpret_cast<const uint4*>(ring + ((it % kW8TcRing) * 8 * T + r * T + tid) * 16);
+    // refill the slot step s - 1 used, RING - 1 steps ahead
+    if (s + kW8TcRing - 1 < we) issue(s + kW8TcRing - 1, (it + kW8TcRing - 1) % kW8TcRing);
+    gtc_commit();
+    const uint2 b = *reinterpret_cast<const uint2*>(xrow + kW8TcK * s);
+    w8tc_step(w, b.x, b.y, acc);
+  }
+  gtc_wait<0>();
+
+  // ---- the warps' sums, the block's, then the cluster's
+  __syncthreads();  // every warp is done with the ring (the sums reuse it)
+  int* red = reinterpret_cast<int*>(ring);  // [kTcWarps][1024]
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[(warp * 8 + i) * 128 + e * 32 + lane] = acc[i][e];
+  __syncthreads();
+  for (int o = tid; o < 1024; o += T) {
+    int v = 0;
+#pragma unroll
+    for (int w = 0; w < kTcWarps; ++w) v += red[w * 1024 + o];
+    sums[o] = v;
+  }
+  cl.sync();  // every block's sums are in its shared memory
+  const int share = (1024 + cluster - 1) / cluster;  // outputs whose epilogue it writes
+  const int oend = min(1024, (rank + 1) * share);
+  for (int o = rank * share + tid; o < oend; o += T) {
+    // o = (i 4 + e) 32 + lane: column 16 (lane / 4) + 2 i + e / 2, row 2 (lane % 4) + e % 2
+    const int ln = o & 31;
+    const int i = o >> 7;
+    const int e = (o >> 5) & 3;
+    const int n = n0 + 16 * (ln >> 2) + 2 * i + (e >> 1);
+    const int m = 2 * (ln & 3) + (e & 1);
+    if (m >= a.M || n >= a.N) continue;
+    int part[kTcMaxCluster], sq[kTcMaxCluster];  // the blocks' sums, loaded together
+#pragma unroll
+    for (int z = 0; z < kTcMaxCluster; ++z) {
+      part[z] = z < cluster ? cl.map_shared_rank(sums, z)[o] : 0;
+      sq[z] = z < cluster ? cl.map_shared_rank(rsum, z)[m] : 0;
+    }
+    int total = 0, sumq = 0;
+#pragma unroll
+    for (int z = 0; z < kTcMaxCluster; ++z) {
+      total += part[z];
+      sumq += sq[z];
+    }
+    a.out[(size_t)m * a.N + n] = w8a8_y(total, sumq, rsx[m], a.scales[n], a.zeros[n]);
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+}
+
+// The rule of the tensor-core GEMV: 1 to 8 rows, N % 16 == 0 (16-byte loads
+// of 16 columns), K % 32 == 0 (whole steps), x and the weight 16-byte aligned
+// (cp.async), and a split of K into `cluster` (1 to 8) slices of split_rows
+// (a multiple of 32, at most kTcXCap) that covers K with no slice empty. The
+// other M <= 8 calls keep the dp4a body. Mirrored by w8a8_gemv_route and
+// w8a8_gemv_split in qtpu_torch/kernels/int8_matmul.py.
+bool w8a8_gemv_tc_fits(const W8A8Args& a, int cluster) {
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int slice = a.split_rows;
+  if (a.M < 1 || a.M > kGemvRows || a.N % 16 != 0 || a.K % kW8TcK != 0) return false;
+  if (cluster < 1 || cluster > kTcMaxCluster || slice < kW8TcK || slice % kW8TcK != 0 ||
+      slice > kTcXCap || (long long)slice * cluster < a.K ||
+      (long long)slice * (cluster - 1) >= a.K)
+    return false;
+  return aligned(a.x) && aligned(a.data);
+}
+
+int launch_w8a8_gemv_tc(const W8A8Args& a, int cluster, cudaStream_t st) {
+  static bool smem_set = false;  // this kernel's record, in this library
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        w8a8_gemv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, w8tc_smem(kTcXCap));
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const int strips = (a.N + kTcCols - 1) / kTcCols;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(strips * cluster));
+  cfg.blockDim = dim3(kW8TcThreads);
+  cfg.dynamicSmemBytes = w8tc_smem(a.split_rows);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, w8a8_gemv_tc_kernel, a, cluster);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------ the Hopper route
 
 using qtpu::encode_2d;
@@ -712,20 +1018,26 @@ int launch_w8a8_mma(const W8A8Args& a, cudaStream_t st) {
 }  // namespace
 
 // y[M, N] = W8A8(x[M, K], data[K, N], scales[N], zeros[N]) on `stream`.
-// xq: int8 scratch [M, Kp], Kp = K rounded up to 64; sx: f32 [M]; sumq:
-// int32 [M]. For M <= 8, split_rows (a multiple of 4, M * split_rows <=
-// 32768) is the K rows of one block slice, K for no split; with more than
-// one slice `part` is an int32 scratch of slices * M * N. M > 8 takes the
+// cluster > 0 (M <= 8): the tensor-core GEMV in one launch, K split over a
+// thread-block cluster of `cluster` blocks of split_rows K rows each
+// (w8a8_gemv_tc_fits must hold; no scratch is read). Otherwise xq: int8
+// scratch [M, Kp], Kp = K rounded up to 64; sx: f32 [M]; sumq: int32 [M];
+// for M <= 8 the dp4a body, split_rows (a multiple of 4, M * split_rows <=
+// 32768) the K rows of one block slice, K for no split, and with more than
+// one slice `part` an int32 scratch of slices * M * N. M > 8 takes the
 // Hopper route where w8a8_wgmma_fits holds, else the mma.sync body. Returns
 // a cudaError_t (0 on success; 0x10000 | CUresult for a tensor map the
 // driver refused), or -1 for arguments the kernels do not take.
 extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* scales,
                                 const void* zeros, void* out, void* xq, void* sx, void* sumq,
-                                void* part, int split_rows, int M, int K, int N, void* stream) {
+                                void* part, int split_rows, int cluster, int M, int K, int N,
+                                void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
   W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, M, K, N);
   a.split_rows = split_rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster > 0)
+    return w8a8_gemv_tc_fits(a, cluster) ? launch_w8a8_gemv_tc(a, cluster, st) : -1;
   if (M <= kGemvRows &&
       (split_rows <= 0 || split_rows % 4 != 0 || M * (split_rows / 4) > kGemvSmem))
     return -1;

@@ -78,14 +78,14 @@ def dq_route(M: int, N: int, bits: int, group: int, ptrs) -> str:
     return "mma" if (group * bits // 8) % MMA_ROWS == 0 else "gemv"
 
 
-def gemv_split(sms: int, tiles: int, groups: int, group: int):
+def gemv_split(sms: int, tiles: int, groups: int, group: int, per_sm: int = 2):
     """How the tensor-core GEMV splits K: (cluster, groups a slice), the
     blocks of one column strip (a thread-block cluster of 1 to 8) each taking
     a slice of whole groups, every group in one slice and no slice empty,
     x's slice at most GEMV_TC_X_CAP K values. The smallest cluster of 1, 2, 4
-    or 8 whose tiles x cluster blocks reach 2 an SM with slices of at most
-    GEMV_TC_X_WANT values (tools/exp_decode_gemv.py's sweep: more blocks or
-    uneven slices cost more than they hide), else the largest cluster that
+    or 8 whose tiles x cluster blocks reach per_sm an SM with slices of at
+    most GEMV_TC_X_WANT values (tools/exp_decode_gemv.py's sweep: more blocks
+    or uneven slices cost more than they hide), else the largest cluster that
     fits; tiles: the column strips of all experts. None where none fits."""
     def fits(c):
         per = -(-groups // c)
@@ -93,7 +93,7 @@ def gemv_split(sms: int, tiles: int, groups: int, group: int):
 
     for c in (1, 2, 4, 8):
         ok, per = fits(c)
-        if ok and tiles * c >= 2 * sms and per * group <= GEMV_TC_X_WANT:
+        if ok and tiles * c >= per_sm * sms and per * group <= GEMV_TC_X_WANT:
             return c, per
     for c in reversed(GEMV_TC_CLUSTERS):
         ok, per = fits(c)

@@ -23,6 +23,14 @@ body for the M > 8 calls the route does not take.
 those two (all are in `.launches`). `w8a8_matmul_mma` runs the mma.sync body
 on any M > 8 call: the route's earlier body, kept so that chip_smoke.py can
 time and compare both on the same bytes; no serving or eval path calls it.
+At M <= 8 `w8a8_gemv_route` picks between the tensor-core GEMV (one launch:
+int8 mma.sync fed by a cp.async ring, x quantized inside, K split over a
+thread-block cluster by `w8a8_gemv_split`; `.gemv_tc_launches`) and the
+dp4a GEMV for the calls it does not take (quantize, GEMV and, with K split
+by `gemv_split`, a finishing launch; `.gemv_launches`).
+`w8a8_matmul_dp4a` runs the dp4a GEMV whatever `w8a8_gemv_route` says: the
+earlier body on the same bytes, for chip_smoke.py's "was" times and bit
+checks; no serving or eval path calls it.
 """
 
 from __future__ import annotations
@@ -31,15 +39,17 @@ import torch
 
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import I, P, require
-from qtpu_torch.kernels.dequant_matmul import _sm_count, count_route
+from qtpu_torch.kernels.dequant_matmul import GEMV_TC_COLS, _sm_count, count_gemv
+from qtpu_torch.kernels.dequant_matmul import gemv_split as _cluster_split
 
-_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "qtpu_w8a8_matmul_mma": [P, P, P, P, P, P, P, P, I, I, I, P]}
 
 GEMV_ROWS = 8  # M <= 8 runs the GEMV kernel, larger M the tensor-core one
 GEMV_COLS = 256  # output columns per GEMV block (4 warps)
 GEMV_STAGE = 32768  # bytes of xq a GEMV block stages: M x its K rows at most
 K_ALIGN = 64  # the activation scratch's row length is K rounded up to this
+GEMV_TC_STEP = 32  # the tensor-core GEMV's K rows a step (one mma.sync m16n8k32)
 
 
 def w8a8_route(M: int, N: int, ptrs) -> str:
@@ -51,6 +61,32 @@ def w8a8_route(M: int, N: int, ptrs) -> str:
     if M <= GEMV_ROWS:
         return "gemv"
     return "wgmma" if N % 16 == 0 and all(p % 16 == 0 for p in ptrs) else "mma"
+
+
+def w8a8_gemv_split(sms: int, N: int, K: int):
+    """How the tensor-core GEMV splits K: (cluster, K rows a slice), K1's
+    rule (dequant_matmul.gemv_split) over steps of 32 K rows in place of
+    groups: the smallest cluster of 1, 2, 4 or 8 whose ceil(N / 128) x
+    cluster blocks reach one an SM with slices of at most 2048 rows, else
+    the largest cluster (at most 8, the portable size) that covers K with
+    slices of at most 4096 rows, no slice empty. None where none fits. One
+    block an SM, not K1's two: a block holds x's slice twice (bf16, then
+    int8) beside its 48 KB ring, so two fit an SM at TinyLlama's lm_head,
+    where K1's rule would take a cluster of 2 and two waves of blocks (54.3
+    µs on an H100 against 48.8 for a cluster of 1, tools/exp_w8a8_k13.py)."""
+    split = _cluster_split(sms, -(-N // GEMV_TC_COLS), K // GEMV_TC_STEP, GEMV_TC_STEP,
+                           per_sm=1)
+    return None if split is None else (split[0], split[1] * GEMV_TC_STEP)
+
+
+def w8a8_gemv_route(M: int, K: int, N: int, ptrs) -> str:
+    """The GEMV an M <= 8 call runs (csrc/w8a8_matmul.cu's w8a8_gemv_tc_fits);
+    ptrs: the pointers of x and the weight. "gemv_tc", the tensor-core GEMV,
+    at N % 16 == 0, K % 32 == 0, both pointers 16-byte aligned and a split of
+    K that w8a8_gemv_split finds; else "gemv", the dp4a body."""
+    ok = (0 < M <= GEMV_ROWS and N % 16 == 0 and K % GEMV_TC_STEP == 0
+          and all(p % 16 == 0 for p in ptrs) and w8a8_gemv_split(1, N, K) is not None)
+    return "gemv_tc" if ok else "gemv"
 
 
 def quantize_activations(x: torch.Tensor):
@@ -116,41 +152,73 @@ def _check(x, data, scales, zeros, meta):
     require(data.data_ptr() % 4 == 0, "data must be 4-byte aligned")
 
 
-def _scratch(x, K, N):
-    """The output and the activation quantization's scratch: xq int8
-    [M, Kp], sx f32 [M], sum(xq) int32 [M]."""
-    M = x.numel() // K
-    out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
+def _scratch(x, M, K):
+    """The activation quantization's scratch of the launches that quantize
+    x first: xq int8 [M, Kp], sx f32 [M], sum(xq) int32 [M]."""
     Kp = -(-K // K_ALIGN) * K_ALIGN
-    return (M, out, torch.empty(M * Kp, dtype=torch.int8, device=x.device),
+    return (torch.empty(M * Kp, dtype=torch.int8, device=x.device),
             torch.empty(M, dtype=torch.float32, device=x.device),
             torch.empty(M, dtype=torch.int32, device=x.device))
+
+
+def _launch(x, data, scales, zeros, meta, dp4a: bool):
+    """One call of csrc/w8a8_matmul.cu on card tensors; returns (out, the
+    body it ran). dp4a: the dp4a GEMV at M <= 8 whatever w8a8_gemv_route
+    says."""
+    _check(x, data, scales, zeros, meta)
+    K, N = meta[2:4]
+    M = x.numel() // K
+    out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out, None
+    route = w8a8_route(M, N, (data.data_ptr(), scales.data_ptr()))
+    if route == "gemv" and not dp4a:
+        route = w8a8_gemv_route(M, K, N, (x.data_ptr(), data.data_ptr()))
+    lib = _build.load("w8a8_matmul", _SIG)
+    if route == "gemv_tc":
+        # one launch: x quantized inside, K split over a thread-block cluster
+        cluster, rows = w8a8_gemv_split(_sm_count(x.device.index or 0), N, K)
+        rc = lib.qtpu_w8a8_matmul(
+            x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+            None, None, None, None, rows, cluster, M, K, N, _build.stream_of(x),
+        )
+    else:
+        xq, sx, sumq = _scratch(x, M, K)
+        rows, part = gemv_split(x.device, M, K, N) if M <= GEMV_ROWS else (K, None)
+        rc = lib.qtpu_w8a8_matmul(
+            x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(),
+            None if part is None else part.data_ptr(), rows, 0, M, K, N, _build.stream_of(x),
+        )
+    _build.check(rc, "w8a8_matmul")
+    return out, route
 
 
 def w8a8_matmul(x, data, scales, zeros, meta):
     """y = W8A8(x) for per-channel int8 weights; x [..., K] -> [..., N] in
     x's dtype (bf16 on the card). meta = (8, K, K, N), a 5-tuple's
-    trailing "a8" tag allowed. One call is one launch in the count (the
-    activation quantization, the product and, at M <= 8 with K split, the
-    finishing pass)."""
+    trailing "a8" tag allowed. One call is one launch in the count (on the
+    tensor-core GEMV one CUDA launch; on the other bodies the activation
+    quantization, the product and, at M <= 8 with K split, the finishing
+    pass)."""
     if x.device.type == "cpu":
         return w8a8_matmul_plain(x, data, scales, zeros, meta)
-    _check(x, data, scales, zeros, meta)
-    K, N = meta[2:4]
-    M, out, xq, sx, sumq = _scratch(x, K, N)
-    if M == 0:
+    out, route = _launch(x, data, scales, zeros, meta, dp4a=False)
+    if route is None:
         return out
-    route = w8a8_route(M, N, (data.data_ptr(), scales.data_ptr()))
-    rows, part = gemv_split(x.device, M, K, N) if M <= GEMV_ROWS else (K, None)
-    lib = _build.load("w8a8_matmul", _SIG)
-    rc = lib.qtpu_w8a8_matmul(
-        x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(),
-        None if part is None else part.data_ptr(), rows, M, K, N, _build.stream_of(x),
-    )
-    _build.check(rc, "w8a8_matmul")
     w8a8_matmul.launches += 1
-    count_route(w8a8_matmul, route)
+    count_gemv(w8a8_matmul, route)
+    return out
+
+
+def w8a8_matmul_dp4a(x, data, scales, zeros, meta):
+    """w8a8_matmul with the dp4a GEMV at M <= 8 whatever w8a8_gemv_route
+    says: the tensor-core GEMV's earlier body on the same bytes, for
+    chip_smoke.py's "was" times and bit checks. Card tensors only; counted
+    in its own `.launches`."""
+    require(x.is_cuda, "w8a8_matmul_dp4a runs on the card only")
+    out, _ = _launch(x, data, scales, zeros, meta, dp4a=True)
+    w8a8_matmul_dp4a.launches += 1
     return out
 
 
@@ -162,8 +230,10 @@ def w8a8_matmul_mma(x, data, scales, zeros, meta):
     require(x.is_cuda, "w8a8_matmul_mma runs on the card only")
     _check(x, data, scales, zeros, meta)
     K, N = meta[2:4]
-    M, out, xq, sx, sumq = _scratch(x, K, N)
+    M = x.numel() // K
     require(M > GEMV_ROWS, f"the mma.sync body takes M > {GEMV_ROWS}, got {M}")
+    out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
+    xq, sx, sumq = _scratch(x, M, K)
     lib = _build.load("w8a8_matmul", _SIG)
     rc = lib.qtpu_w8a8_matmul_mma(
         x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
@@ -177,4 +247,7 @@ def w8a8_matmul_mma(x, data, scales, zeros, meta):
 w8a8_matmul.launches = 0
 w8a8_matmul.wgmma_launches = 0
 w8a8_matmul.mma_launches = 0
+w8a8_matmul.gemv_tc_launches = 0
+w8a8_matmul.gemv_launches = 0
 w8a8_matmul_mma.launches = 0
+w8a8_matmul_dp4a.launches = 0

@@ -17,6 +17,14 @@ cooperative kernel (one launch in the count; `supported` says beforehand
 which packings it takes, and anything else raises); a CPU tensor takes
 `layer_boundary_plain`, the f32 composition of qtpu's own test of the TPU
 kernel (tests/test_pallas_kernels.py:504-576), weights dequantized in f32.
+
+Which tiles the matmul phases run is `boundary_route`, the kernel's own
+rule: the tensor-core step of the decode GEMV ("gemv_tc",
+`layer_boundary.gemv_tc_launches`) or the first version's dq_core tiles
+("gemv", `.gemv_launches`) for the calls it does not take.
+`layer_boundary_dq` runs the dq_core tiles whatever the rule says: the
+earlier body on the same bytes, for chip_smoke.py's "was" times; no
+serving or eval path calls it.
 """
 
 from __future__ import annotations
@@ -29,15 +37,25 @@ import torch.nn.functional as Fn
 from qtpu_torch.core.packing import dequantize_parts
 from qtpu_torch.kernels import _build
 from qtpu_torch.kernels._build import F, I, P, require
-from qtpu_torch.kernels.dequant_matmul import check_packed
+from qtpu_torch.kernels.dequant_matmul import (GEMV_TC_BITS, GEMV_TC_COLS, GEMV_TC_GROUPS,
+                                               check_packed, count_gemv)
 
 _SIG = {
-    "qtpu_layer_boundary_grid": [I, I],
-    "qtpu_layer_boundary": [P] * 16 + [P] * 10 + [I] * 5 + [I] * 7 + [F, P],
+    "qtpu_layer_boundary_grid": [I, I, I],
+    "qtpu_layer_boundary": [P] * 16 + [P] * 10 + [I] * 6 + [I] * 7 + [F, P],
 }
 
 MAX_M = 32  # decode rows, as the TPU kernel
 SITE_KEYS = {"data", "scales", "zeros"}
+TILE_ROWS = 8  # rows of a tile: M is cut into ceil(M / 8) row tiles
+DQ_COLS = 32  # output columns of a dq_core tile
+# the tensor-core tiles (csrc/layer_boundary.cu's lb_tc_fits; the GEMV's
+# bits, groups and 128 columns): the most K values of a slice, and a tile's
+# fixed cost (its first loads, the reduction, the partials' write) in steps
+# of a warp
+TC_SLICE = 1024
+TC_TILE_COST = 4
+ROW_CHUNK = 128  # columns of a row-phase item of the tensor-core build (its threads)
 
 
 def supported(metas, sites) -> bool:
@@ -80,38 +98,66 @@ def layer_boundary_plain(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas
     return y2.to(x.dtype), (h2 @ dq(qkv, mq)).to(x.dtype)
 
 
+def boundary_route(metas, ptrs) -> str:
+    """The tiles K13's matmul phases run for these (supported) metas; ptrs:
+    the pointers of attn and of every site's codes, scales and zeros (the
+    wrapper's scratch is 16-byte aligned when D is). "gemv_tc"
+    (csrc/layer_boundary.cu's lb_tc_fits: W4/W8, group 64 or 128, D, 2F and
+    Nq multiples of 16, every pointer 16-byte aligned), else "gemv" (the
+    dq_core tiles)."""
+    (bits, group, _, D), (_, _, _, N2), _, (_, _, _, Nq) = metas
+    ok = (bits in GEMV_TC_BITS and group in GEMV_TC_GROUPS
+          and all(n % 16 == 0 for n in (D, N2, Nq)) and all(p % 16 == 0 for p in ptrs))
+    return "gemv_tc" if ok else "gemv"
+
+
 @lru_cache(maxsize=None)
-def _grid(index: int, bits: int, group: int) -> int:
+def _grid(index: int, bits: int, group: int, tc: bool) -> int:
     lib = _build.load("layer_boundary", _SIG)
     with torch.cuda.device(index):
-        blocks = lib.qtpu_layer_boundary_grid(bits, group)
+        blocks = lib.qtpu_layer_boundary_grid(bits, group, int(tc))
     if blocks <= 0:
         raise RuntimeError(f"layer_boundary: no cooperative grid on this card ({blocks})")
     return blocks
 
 
-def _slices(K: int, group: int, tiles: int, blocks: int):
+def _slices(K: int, group: int, tiles: int, blocks: int, tc: bool = False):
     """How a phase of `tiles` output tiles splits K over a grid of `blocks`:
-    the slice count (of whole groups, each at least 256 K values) whose
-    busiest block has the least work, counted as its rounds of tiles times
-    (groups a tile + 1, the tile's own staging and reduction); the fewest
-    slices among equals. Returns (groups per slice, slices)."""
+    the slice count (of whole groups) whose busiest block has the least
+    work, counted as its rounds of tiles times a tile's cost; the fewest
+    slices among equals. dq_core tiles: slices of at least 256 K values, a
+    tile's cost its groups + 1 (its own staging and reduction). Tensor-core
+    tiles: slices of at most TC_SLICE K values, a tile's cost its steps of 16
+    K values a warp (4 warps) + TC_TILE_COST. Returns (groups per slice,
+    slices)."""
     groups = K // group
+    if tc:
+        first = -(-groups // max(1, TC_SLICE // group))
+        counts = range(first, groups + 1)
+    else:
+        counts = range(1, max(1, min(groups, K // 256)) + 1)
     best = None
-    for n in range(1, max(1, min(groups, K // 256)) + 1):
+    for n in counts:
         per = -(-groups // n)
         slices = -(-groups // per)
-        cost = -(-tiles * slices // blocks) * (per + 1)
+        work = -(-per * group // 64) + TC_TILE_COST if tc else per + 1
+        cost = -(-tiles * slices // blocks) * work
         if best is None or cost < best[0]:
             best = (cost, per, slices)
     return best[1], best[2]
 
 
-def layer_boundary(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps=1e-5):
-    """attn [..., Q], x [..., D] bf16 with at most 32 rows -> (y2 [..., D],
-    qkv [..., Nq])."""
-    if x.device.type == "cpu":
-        return layer_boundary_plain(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps)
+def plan(metas, M: int, blocks: int, tc: bool):
+    """((groups per slice, slices) of the o, gateup, down and qkv phases) for
+    M rows on a grid of `blocks`, with the tiles of the route."""
+    cols = GEMV_TC_COLS if tc else DQ_COLS
+    mt = -(-M // TILE_ROWS)
+    return tuple(_slices(K, g, -(-N // cols) * mt, blocks, tc) for _, g, K, N in metas)
+
+
+def _launch(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps, dq: bool):
+    """One launch of the cooperative kernel on card tensors; returns (y2, qkv,
+    the tiles it ran). dq: the dq_core tiles whatever boundary_route says."""
     require(x.is_cuda, f"unsupported device {x.device}")
     sites = (o, gu, d, qkv)
     require(supported(metas, sites), f"layer_boundary takes chained asymmetric W4/W8 sites "
@@ -133,15 +179,16 @@ def layer_boundary(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps=
     for s, m in zip(sites, metas):
         check_packed(s["data"], s["scales"], s["zeros"], m, x.device)
     require(x.data_ptr() % 8 == 0 and attn.data_ptr() % 8 == 0, "x and attn must be 8-byte aligned")
+    ptrs = [attn.data_ptr()] + [s[k].data_ptr() for s in sites for k in ("data", "scales", "zeros")]
+    route = "gemv" if dq else boundary_route(metas, ptrs)
+    tc = route == "gemv_tc"
     dev = x.device
-    blocks = _grid(dev.index or 0, bits, group)
-    mt = -(-M // 8)
-    per_o, so = _slices(Q, group, -(-D // 32) * mt, blocks)
-    per_gu, sgu = _slices(D, group, -(-2 * F_ // 32) * mt, blocks)
-    per_d, sd = _slices(F_, group, -(-D // 32) * mt, blocks)
-    per_q, sq = _slices(D, group, -(-Nq // 32) * mt, blocks)
-    # f32 scratch: y, part_o, part_gu, part_d, part_q; bf16: h, h2, act
-    n_y, n_o, n_gu, n_d = M * D, so * M * D, sgu * M * 2 * F_, sd * M * D
+    blocks = _grid(dev.index or 0, bits, group, tc)
+    (per_o, so), (per_gu, sgu), (per_d, sd), (per_q, sq) = plan(metas, M, blocks, tc)
+    # f32 scratch: y and the row sums of 128-column chunks, part_o, part_gu,
+    # part_d, part_q; bf16: h, h2, act
+    n_y = M * D + M * -(-D // ROW_CHUNK)
+    n_o, n_gu, n_d = so * M * D, sgu * M * 2 * F_, sd * M * D
     f32 = torch.empty(n_y + n_o + n_gu + n_d + (sq * M * Nq if sq > 1 else 0),
                       dtype=torch.float32, device=dev)
     b16 = torch.empty(2 * M * D + M * F_, dtype=torch.bfloat16, device=dev)
@@ -156,12 +203,36 @@ def layer_boundary(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps=
         fp, bp, bp + 4 * M * D, bp + 2 * M * D,  # y; h, act, h2
         fp + 4 * n_y, fp + 4 * (n_y + n_o), fp + 4 * (n_y + n_o + n_gu),
         fp + 4 * (n_y + n_o + n_gu + n_d) if sq > 1 else None,
-        per_o, per_gu, per_d, per_q, blocks,
+        per_o, per_gu, per_d, per_q, int(tc), blocks,
         M, Q, D, F_, Nq, bits, group, float(eps), _build.stream_of(x),
     )
     _build.check(rc, "layer_boundary")
+    return y2, out, route
+
+
+def layer_boundary(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps=1e-5):
+    """attn [..., Q], x [..., D] bf16 with at most 32 rows -> (y2 [..., D],
+    qkv [..., Nq])."""
+    if x.device.type == "cpu":
+        return layer_boundary_plain(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps)
+    y2, out, route = _launch(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps,
+                             dq=False)
     layer_boundary.launches += 1
+    count_gemv(layer_boundary, route)
+    return y2, out
+
+
+def layer_boundary_dq(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps=1e-5):
+    """layer_boundary on the dq_core tiles whatever boundary_route says: the
+    tensor-core phases' earlier body on the same bytes, for chip_smoke.py's
+    "was" times. Card tensors only; counted in its own `.launches`."""
+    require(x.is_cuda, "layer_boundary_dq runs on the card only")
+    y2, out, _ = _launch(attn, x, mlp_norm, attn_norm_next, o, gu, d, qkv, metas, eps, dq=True)
+    layer_boundary_dq.launches += 1
     return y2, out
 
 
 layer_boundary.launches = 0
+layer_boundary.gemv_tc_launches = 0
+layer_boundary.gemv_launches = 0
+layer_boundary_dq.launches = 0

@@ -92,6 +92,29 @@ def _profiled_route(wrapper, call, reps=4):
     return seen, [e.key for e in prof.key_averages()]
 
 
+def _kernel_counts(call, reps=4, tries=5, tag=None):
+    """{kernel name: launches} that the profiler recorded over `reps` calls
+    of call() in one session. A session whose records are not whole is run
+    again, up to `tries` sessions: no kernel record at all, or (with `tag`)
+    a kernel whose name holds `tag` recorded fewer than `reps` times. On
+    the H100, late in a full run of this file, a session sometimes drops
+    kernel records (the trap _profiled_route's several calls work around)
+    while the launches happen, as the wrappers' counters show."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        if seen and (tag is None or all(c >= reps for n, c in seen.items() if tag in n)):
+            return seen
+    return seen
+
+
 def _same_bits(a, b):
     return bool((a.view(torch.int16) == b.view(torch.int16)).all())
 
@@ -320,7 +343,7 @@ def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
 @pytest.mark.parametrize("M,N,route", [
     (300, 384, "wgmma"),  # the Hopper route
     (300, 388, "mma"),    # N % 16 != 0: the mma.sync body
-    (8, 384, "gemv"),     # decode rows (K9: the tensor-core GEMV)
+    (8, 384, "gemv"),     # decode rows (K9 and K6: the tensor-core GEMV)
     (8, 388, "gemv"),     # decode rows the tensor-core GEMV does not take
 ])
 def test_k9_k6_route_counters_name_the_kernel_that_ran(cuda, M, N, route):
@@ -338,12 +361,12 @@ def test_k9_k6_route_counters_name_the_kernel_that_ran(cuda, M, N, route):
     kernels = {"K9": {"wgmma": "dq_wgmma_kernel", "mma": "moe_mma_kernel",
                       "gemv": "moe_gemv_kernel", "gemv_tc": "dq_gemv_tc_kernel"},
                "K6": {"wgmma": "w8a8_wgmma_kernel", "mma": "w8a8_mma_kernel",
-                      "gemv": "w8a8_gemv_kernel"}}
+                      "gemv": "w8a8_gemv_kernel", "gemv_tc": "w8a8_gemv_tc_kernel"}}
     for name, (wrapper, call) in calls.items():
         call()  # built and warm
         torch.cuda.synchronize()
         seen, keys = _profiled_route(wrapper, call)
-        want = "gemv_tc" if name == "K9" and route == "gemv" and N % 16 == 0 else route
+        want = "gemv_tc" if route == "gemv" and N % 16 == 0 else route
         names = [k for k in keys if any(n in k for n in kernels[name].values())]
         assert seen == want, name
         assert names and all(kernels[name][want] in n for n in names), (name, keys)
@@ -1525,8 +1548,6 @@ def test_k5_hopper_body_matches_plain_and_the_mma_body(cuda, window, S, hd, H, K
 def test_k5_routes_and_their_counters(cuda):
     """A q the Hopper body does not take (4-byte aligned) runs the mma.sync
     body and counts it; the profiler sees the kernel each counter names."""
-    from torch.profiler import ProfilerActivity, profile
-
     from qtpu_torch.kernels import flash_attention as k5
 
     g = _gen()
@@ -1539,14 +1560,13 @@ def test_k5_routes_and_their_counters(cuda):
     for qq, route, kernel in ((q, "wgmma", "flash_wgmma_kernel"), (qm, "mma", "flash_attn_kernel")):
         k5.flash_attention(qq, k, v)
         torch.cuda.synchronize()
-        c0 = getattr(k5.flash_attention, f"{route}_launches")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                out = k5.flash_attention(qq, k, v)
-            torch.cuda.synchronize()
-        assert getattr(k5.flash_attention, f"{route}_launches") == c0 + 4
-        names = [e.key for e in prof.key_averages() if "flash" in e.key]
-        assert names and all(kernel in n for n in names), names
+        c0, n0 = getattr(k5.flash_attention, f"{route}_launches"), k5.flash_attention.launches
+        seen = _kernel_counts(lambda qq=qq: k5.flash_attention(qq, k, v))
+        calls = k5.flash_attention.launches - n0
+        assert calls >= 4 and getattr(k5.flash_attention, f"{route}_launches") == c0 + calls
+        names = [n for n in seen if "flash" in n]
+        assert names and all(kernel in n for n in names), seen
+        out = k5.flash_attention(qq, k, v)
         assert _rel(out, k5.flash_attention_plain(q, k, v)) < 2e-2
 
 
@@ -1572,3 +1592,202 @@ def test_k5_hopper_body_replays_in_a_cuda_graph_without_a_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert _same_bits(out, eager)
+
+
+# --------------------- K6's decode GEMV and K13's phases on the tensor cores
+
+# (K, N) of TinyLlama-1.1B's W8A8 sites (unfused: q/o, k/v, gate/up, down, lm_head)
+K6_SITES = {"q_o": (2048, 2048), "k_v": (2048, 256), "gate_up": (2048, 5632),
+            "down": (5632, 2048), "lm_head": (2048, 32000)}
+
+
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("site", sorted(K6_SITES))
+def test_k6_gemv_tc_bits_equal_the_dp4a_body(cuda, M, site):
+    """K6 at M <= 8 on the tensor-core GEMV (one launch, x quantized
+    inside, K split over a cluster) at every TinyLlama W8A8 site: the route
+    its counters saw is w8a8_gemv_route's, within 2e-2 of the plain version,
+    and the same bits as the dp4a body on the same bytes (the int32 sums are
+    exact and the epilogue's float order is the body's) and as a second
+    call."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    K, N = K6_SITES[site]
+    g = _gen()
+    data, scales, zeros, meta = _w8_site(g, K, N, cuda)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    x[-1] = 0  # an all-zero token: the 1e-8 floor of sx
+    got, route = _route_and_out(k6.w8a8_matmul,
+                                lambda: k6.w8a8_matmul(x, data, scales, zeros, meta))
+    assert route == k6.w8a8_gemv_route(M, K, N, (x.data_ptr(), data.data_ptr())) == "gemv_tc"
+    want = k6.w8a8_matmul_plain(x, data, scales, zeros, meta)
+    was = k6.w8a8_matmul_dp4a(x, data, scales, zeros, meta)
+    torch.cuda.synchronize()
+    assert _k6_err(got, want) < 2e-2 and _rel(got, want) < 2e-2
+    assert _same_bits(got, was)
+    assert _same_bits(got, k6.w8a8_matmul(x, data, scales, zeros, meta))
+    assert not bool(got[-1].any())
+
+
+def test_k6_gemv_tc_on_layer_views_and_row_views(cuda):
+    """Layer views W[l] of stacked [L, K, N] weights and x as rows of a
+    larger batch take the tensor-core GEMV; an x 8 bytes off a 16-byte unit
+    keeps the dp4a body; both give the dp4a body's bits."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    K, N = 2048, 2048
+    sites = [_w8_site(g, K, N, cuda) for _ in range(3)]
+    data, scales, zeros = (torch.stack([s[i] for s in sites]) for i in range(3))
+    meta = sites[0][3]
+    xs = (torch.randn(4, 3, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    flat = torch.empty(6 * K + 4, dtype=torch.bfloat16, device=cuda)
+    flat[4:].copy_(xs[:2].reshape(-1))
+    for layer in (1, 2):
+        d, s_, z = data[layer], scales[layer], zeros[layer]
+        for x, route in ((xs[1:3], "gemv_tc"), (flat[4:].view(2, 3, K), "gemv")):
+            got, seen = _route_and_out(k6.w8a8_matmul, lambda: k6.w8a8_matmul(x, d, s_, z, meta))
+            assert seen == route == k6.w8a8_gemv_route(6, K, N, (x.data_ptr(), d.data_ptr()))
+            was = k6.w8a8_matmul_dp4a(x, d, s_, z, meta)
+            torch.cuda.synchronize()
+            assert got.shape == (2, 3, N) and _same_bits(got, was)
+            assert _k6_err(got, k6.w8a8_matmul_plain(x, d, s_, z, meta)) < 2e-2
+
+
+@pytest.mark.parametrize("K,N,M", [(768, 2304, 8), (3072, 768, 5), (768, 50272, 2),
+                                   (11008, 4096, 8), (14336, 4096, 1), (96, 48, 7)])
+def test_k6_gemv_tc_at_other_widths(cuda, K, N, M):
+    """GPT-2/OPT's and Llama-2-7B's/Mistral-7B's widths (clusters 1 to 8,
+    slices of 96 to 1792 rows, OPT's lm_head a ragged last strip) and a
+    tiny site: the dp4a body's bits."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    data, scales, zeros, meta = _w8_site(g, K, N, cuda)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    got, route = _route_and_out(k6.w8a8_matmul,
+                                lambda: k6.w8a8_matmul(x, data, scales, zeros, meta))
+    was = k6.w8a8_matmul_dp4a(x, data, scales, zeros, meta)
+    torch.cuda.synchronize()
+    assert route == "gemv_tc" and _same_bits(got, was)
+
+
+def test_k6_gemv_tc_replays_in_a_cuda_graph_without_a_host_sync(cuda):
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    d, s_, z, meta = _w8_site(g, 2048, 5632, cuda)
+    x = (torch.randn(8, 2048, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    eager = k6.w8a8_matmul(x, d, s_, z, meta)
+    t0 = k6.w8a8_matmul.gemv_tc_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k6.w8a8_matmul(x, d, s_, z, meta)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = k6.w8a8_matmul(x, d, s_, z, meta)
+        out.zero_()
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert k6.w8a8_matmul.gemv_tc_launches == t0 + 2
+    assert _same_bits(out, eager)
+
+
+def test_k6_gemv_tc_is_one_cuda_launch(cuda):
+    """Over 4 calls the profiler sees one kernel a call on the tensor-core
+    GEMV (no quantization or finishing launch), three on the dp4a body."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    g = _gen()
+    d, s_, z, meta = _w8_site(g, 2048, 2048, cuda)
+    x = (torch.randn(8, 2048, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    for wrapper, kernels in ((k6.w8a8_matmul, {"w8a8_gemv_tc_kernel"}),
+                             (k6.w8a8_matmul_dp4a, {"w8a8_quant_kernel", "w8a8_gemv_kernel",
+                                                    "w8a8_finish_kernel"})):
+        wrapper(x, d, s_, z, meta)
+        torch.cuda.synchronize()
+        seen = _kernel_counts(lambda wrapper=wrapper: wrapper(x, d, s_, z, meta), tag="w8a8")
+        seen = {n: c for n, c in seen.items() if "w8a8" in n}
+        assert {next(k for k in kernels if k + "(" in n or k + "<" in n) for n in seen} == kernels
+        assert all(c == 4 for c in seen.values()), seen
+
+
+@pytest.mark.parametrize("bits,group", [(4, 128), (4, 64), (8, 128), (8, 64)])
+@pytest.mark.parametrize("M", [1, 3, 8, 17, 32])
+def test_k13_tc_phases_match_plain_and_the_dq_body(cuda, bits, group, M):
+    """K13's matmul phases on the tensor-core step (the route its counters
+    saw is boundary_route's): within 2e-2 of the plain version and of the
+    dq_core tiles on the same bytes (relative, on y2 - x and on qkv), and
+    two calls give the same bits."""
+    from qtpu_torch.kernels import layer_boundary as k13
+
+    args = _k13_inputs(_gen(), cuda, bits, group, M)
+    ptrs = [args[0].data_ptr()] + [s[k].data_ptr() for s in args[4:8]
+                                   for k in ("data", "scales", "zeros")]
+    assert k13.boundary_route(args[-1], ptrs) == "gemv_tc"
+    t0 = k13.layer_boundary.gemv_tc_launches
+    y2, qkv = k13.layer_boundary(*args)
+    assert k13.layer_boundary.gemv_tc_launches == t0 + 1
+    want_y2, want_qkv = k13.layer_boundary_plain(*args)
+    was_y2, was_qkv = k13.layer_boundary_dq(*args)
+    torch.cuda.synchronize()
+    x = args[1].float()
+    for ref_y2, ref_qkv in ((want_y2, want_qkv), (was_y2, was_qkv)):
+        assert _rel(y2.float() - x, ref_y2.float() - x) < 2e-2
+        assert _rel(qkv, ref_qkv) < 2e-2
+    again = k13.layer_boundary(*args)
+    assert _same_bits(y2, again[0]) and _same_bits(qkv, again[1])
+
+
+@pytest.mark.parametrize("M", [1, 8, 32])
+def test_k13_tc_phases_at_tinyllama_width(cuda, M):
+    """One TinyLlama-1.1B layer (D 2048, F 5632, qkv 2560), W4 g128: the
+    tensor-core phases within 2e-2 of the plain version and of the dq_core
+    tiles."""
+    from qtpu_torch.kernels import layer_boundary as k13
+
+    args = _k13_inputs(_gen(), cuda, 4, 128, M, D=2048, F=5632, Q=2048, Nq=2560)
+    t0 = k13.layer_boundary.gemv_tc_launches
+    y2, qkv = k13.layer_boundary(*args)
+    want = k13.layer_boundary_plain(*args)
+    was = k13.layer_boundary_dq(*args)
+    torch.cuda.synchronize()
+    assert k13.layer_boundary.gemv_tc_launches == t0 + 1
+    x = args[1].float()
+    for ref in (want, was):
+        assert _rel(y2.float() - x, ref[0].float() - x) < 2e-2 and _rel(qkv, ref[1]) < 2e-2
+
+
+def test_k13_route_counters_name_the_tiles_that_ran(cuda):
+    """An attn 8 bytes off a 16-byte unit keeps the dq_core tiles (and
+    counts them); the profiler sees one boundary_kernel a call, of the
+    build each counter names."""
+    from qtpu_torch.kernels import layer_boundary as k13
+
+    args = list(_k13_inputs(_gen(), cuda, 4, 128, 8))
+    buf = torch.empty(args[0].numel() + 4, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[4:].view(args[0].shape)
+    shifted.copy_(args[0])
+    want = k13.layer_boundary_plain(*args)
+    for attn, route, build in ((args[0], "gemv_tc", "true"), (shifted, "gemv", "false")):
+        call = [attn] + args[1:]
+        k13.layer_boundary(*call)
+        torch.cuda.synchronize()
+        c0, n0 = getattr(k13.layer_boundary, f"{route}_launches"), k13.layer_boundary.launches
+        seen = _kernel_counts(lambda call=call: k13.layer_boundary(*call), tag="boundary_kernel")
+        calls = k13.layer_boundary.launches - n0
+        assert getattr(k13.layer_boundary, f"{route}_launches") == c0 + calls
+        names = {n: c for n, c in seen.items() if "boundary_kernel" in n}
+        assert names and all(f",{build}>" in n.replace(" ", "") for n in names), seen
+        assert sum(names.values()) == 4, names
+        out = k13.layer_boundary(*call)
+        x = args[1].float()
+        assert _rel(out[0].float() - x, want[0].float() - x) < 2e-2
+        assert _rel(out[1], want[1]) < 2e-2

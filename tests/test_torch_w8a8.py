@@ -78,9 +78,10 @@ def test_w8a8_plain_matches_qtpu(M, K, N):
     assert torch.equal(k6.w8a8_matmul(cpu(x), cpu(d), cpu(s), cpu(z), meta + ("a8",)), got)
 
 
-@pytest.mark.parametrize("M", [8, 64])
+@pytest.mark.parametrize("M", [8, 64, 1, 3])
 def test_w8a8_plain_matches_pallas_interpret(M):
-    K, N = 256, 256
+    """M 1 and 3: decode rows at TinyLlama's widest K (the down site's 5632)."""
+    K, N = (256, 256) if M >= 8 else (5632, 256)
     x = _x(M, (M, K))
     (d, s, z), meta = _w8(M + 1, K, N)
     want = pallas_w8a8_matmul(jnp.asarray(x), jnp.asarray(d), jnp.asarray(s), jnp.asarray(z),
