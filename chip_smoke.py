@@ -13,8 +13,14 @@ Phases, each printing one JSON line:
            one layer of an eval block of 2048 tokens; K6 at M = 8, 1024 and
            2048 on every W8A8 site, K7 on every fused codebook site; K8 on
            the serve cell's bf16 cache; K9 on Mixtral-8x7B's expert sites at
-           M = 8 and 1024 and one Qwen2-57B-A14B site, K10 at 4 routed slots,
-           K11 on the serve_moe cell's int8 cache; K1 on GPT-2's 50257-wide
+           M = 8 and 1024 and one Qwen2-57B-A14B site, K10 at 4 routed slots
+           on its tensor-core body (one weight stream per distinct routed
+           expert, the route against gathered_route's rule, two calls giving
+           the same bits) with dq_core's GEMV (moe_gathered_matmul_simt) as
+           "was", K11 on the serve_moe cell's int8 cache; K2 on programmatic
+           dependent launch, 22 launches in a graph and in the order of a W4
+           decode step (K1 qkv, RoPE, K2, K3) against the same kernel
+           launched without the attribute and the earlier kernel; K1 on GPT-2's 50257-wide
            lm_head; K12's three entries at the long_ctx cell's layer (S 32768),
            at Mistral-7B widths with a window of 4096 and at the serve cell's
            cache, beside K11 on a stacked cache of the same long layer; the
@@ -159,8 +165,9 @@ Phases, each printing one JSON line:
            answering 8 requests of prompt 128 and 32 new tokens (K1 on q, k,
            v, o and lm_head, K9 on the expert sites, K11 per layer of a
            decode step), then a 2-slot engine answering 2 requests (decode on
-           K10), launch counts checked; a profile of one prefill and one
-           decode step; then `python -m qtpu_torch.serve --model
+           K10, its 24 launches a step on the tensor-core body), launch
+           counts checked; a profile of one prefill and of decode steps at
+           8 and at 2 slots (K10's share); then `python -m qtpu_torch.serve --model
            tiny-moe-test --kv int8 --batch 1` (its main())
 
 The last lines are the nvidia-smi line, the `kernels` JSON line and
@@ -485,14 +492,21 @@ def phase_kernels(torch, ctx):
           "scale_max_rel_err": scale_err, "tol": "codes within 1 (rounding ties), scales 1e-6"}
     if code_diff > 1 or n_code_diff > 4 or scale_err > 1e-6:
         raise AssertionError(f"K2 disagrees with its plain version: {k2}")
+    # the launches without the programmatic attribute and of the earlier
+    # kernel write the same bits
+    for fn in (k23.cache_band_write_serial, k23.cache_band_write_simt):
+        oc = [t.clone() for t in (k_all, v_all, ks_all, vs_all)]
+        fn(kn, vn, *oc, pos, 3)
+        torch.cuda.synchronize()
+        k2[f"same_bits_{fn.__name__}"] = all(bool((a == b).all()) for a, b in zip(kc, oc))
+        if not k2[f"same_bits_{fn.__name__}"]:
+            raise AssertionError(f"K2's launches write other bits: {fn.__name__} {k2}")
     row_bytes = B * KV * (2 * hd * 2 + 2 * hd + 2 * 4) + B * 4
     k2["bound_ms"], k2["bound_by"] = bound(row_bytes, 0)
-    k2["ms"], k2["timing"] = cuda_ms(
-        torch, [lambda l=l: k23.cache_band_write(kn, vn, *kc, pos, l) for l in range(L)],
-        row_bytes)
     k2["plain_ms"], _ = cuda_ms(
         torch, [lambda l=l: k23.cache_band_write_plain(kn, vn, *pc, pos, l) for l in range(L)],
         row_bytes, reps=L, graph=False)
+    k2.update(_k2_times(torch, gen, dev, cfg, kn, vn, kc, pos))
     k2["library_ms"] = None
     detail["cache_band_write"] = k2
 
@@ -627,7 +641,8 @@ def phase_kernels(torch, ctx):
             "replaces": "qtpu/kernels/pallas_kv_attention.py:1067",
             "max_abs_err": float(code_diff),
             "ms": L * k2["ms"], "plain_ms": L * k2["plain_ms"], "bound_ms": L * k2["bound_ms"],
-            "bound_by": k2["bound_by"], "library_ms": None,
+            "bound_by": k2["bound_by"], "library_ms": None, "was_ms": L * k2["was_ms"],
+            "serial_ms": L * k2["serial_ms"],
         },
         "decode_attention": {
             "route": "cuda", "source": "qtpu_torch/csrc/kv_attention.cu",
@@ -701,8 +716,8 @@ def phase_kernels(torch, ctx):
             "replaces": "qtpu/kernels/pallas_moe_matmul.py:165",
             "max_abs_err": max(r["max_abs_err"] for r in k10r.values()),
             **{key: _moe_step(k10r, key, "gathered") for key in ("ms", "plain_ms", "bound_ms",
-                                                                 "library_ms")},
-            "bound_by": "bytes",
+                                                                 "library_ms", "was_ms")},
+            "bound_by": "bytes", "body": k10r["gate_up"]["route"],
         },
         # K11 at the work of one decode step of the serve_moe cell: MOE_LAYERS calls
         "decode_attention_write": {
@@ -1158,6 +1173,58 @@ K9_CASES = {
 K10_SLOTS = (1, 6, 3, 6)  # the 2-slot engine's 2 tokens x top-2, a repeated expert
 
 
+def _k2_times(torch, gen, dev, cfg, kn, vn, cache, pos):
+    """K2's times on the serve cell's cache, each pair in turns (a, b, b,
+    a) in this run: 22 launches in a CUDA graph, K2 with programmatic
+    dependent launch ("ms"), the same kernel launched without it
+    ("serial_ms") and the earlier kernel ("was_ms"); and the order of a W4
+    decode step, per layer K1 at the fused qkv site (M 8), RoPE on q and k,
+    v made contiguous (the kernel K2 follows), K2 and K3, over the 22
+    layers in a graph, with K2 launched with and without the attribute
+    ("step_ms_pdl", "step_ms_serial")."""
+    from qtpu_torch.kernels import dequant_matmul as k1
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.models.ops import apply_rope, rope_tables
+
+    L = cfg.num_layers
+    B, KV, hd, H = kn.shape[0], cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    launches = {"ms": k23.cache_band_write, "serial_ms": k23.cache_band_write_serial,
+                "was_ms": k23.cache_band_write_simt}
+
+    def turns(calls_of, a, b):
+        t = {a: [], b: []}
+        for key in (a, b, b, a):
+            t[key].append(cuda_ms(torch, calls_of(key), 0, reps=4 * L)[0])
+        return {k: sum(v) / len(v) for k, v in t.items()}
+
+    out = {}
+    for other in ("serial_ms", "was_ms"):
+        out.update(turns(lambda key: [lambda l=l, f=launches[key]: f(kn, vn, *cache, pos, l)
+                                      for l in range(L)], "ms", other))
+    qkv_n = cfg.q_dim + 2 * cfg.kv_dim
+    site = _packed(torch, L, cfg.hidden_size, qkv_n, 4, 128, gen, dev)
+    meta = (4, 128, cfg.hidden_size, qkv_n)
+    x = torch.randn(B, 1, cfg.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+    cos, sin = rope_tables(pos[:, None].clamp(max=cache[0].shape[3] - 1), hd, cfg.rope_theta)
+
+    def layer(l, band):
+        qkv = k1.quantized_matmul(x, site[0][l], site[1][l], site[2][l], meta)
+        q, k, v = qkv.split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+        q = apply_rope(q.reshape(B, 1, H, hd), cos, sin)
+        k = apply_rope(k.reshape(B, 1, KV, hd), cos, sin).contiguous()
+        v = v.reshape(B, 1, KV, hd).contiguous()
+        band(k, v, *cache, pos, l)
+        return k23.decode_attention(q[:, 0].contiguous(), *cache, pos, l)
+
+    step = turns(lambda key: [lambda l=l, f=launches[key]: layer(l, f) for l in range(L)],
+                 "ms", "serial_ms")
+    out["step_ms_pdl"] = L * step["ms"]
+    out["step_ms_serial"] = L * step["serial_ms"]
+    out["timing"] = ("graph; pairs in turns (a, b, b, a); step: K1 qkv, RoPE, v contiguous, "
+                     f"K2, K3 on each of the {L} layers")
+    return out
+
+
 def _expert_site(torch, gen, dev, E, K, N, group=MOE_GROUP):
     """E experts of random [K, N] weights packed RTN W4, [E, ...] leaves."""
     from qtpu_torch.core.packing import quantize_pack
@@ -1242,34 +1309,56 @@ def _k9_rows(torch, gen, dev):
 def _k10_rows(torch, gen, dev):
     """K10 against its plain version at 4 routed slots of Mixtral-8x7B's
     gate/up and down sites (tolerance: max |err| / max |ref| < 2e-2, the
-    Pallas kernel's test), with times: the kernel, the plain version
-    (eager: it reads the expert ids on the host), torch.bmm on the routed
-    experts' bf16 weights gathered beforehand, and the bound (the distinct
-    routed experts' packed bytes)."""
+    Pallas kernel's test), the route its counters saw against
+    gathered_route's rule (the tensor-core body, one weight stream per
+    distinct routed expert) with the cluster split the wrapper picks, two
+    calls giving the same bits, and times: the kernel, dq_core's GEMV on the
+    same bytes ("was", moe_gathered_matmul_simt: one slot a row tile), the
+    plain version (eager: it reads the expert ids on the host), torch.bmm
+    on the routed experts' bf16 weights gathered beforehand, and the bound
+    (the distinct routed experts' packed bytes)."""
     from qtpu_torch.kernels import moe_matmul as k9
+    from qtpu_torch.kernels.dequant_matmul import GEMV_TC_COLS, gemv_tc_split
 
     rows = {}
     eidx = torch.tensor(K10_SLOTS, dtype=torch.int32, device=dev)
     Gs, distinct = len(K10_SLOTS), len(set(K10_SLOTS))
+    w = k9.moe_gathered_matmul
     for name, (K, N) in {"gate_up": (4096, 14336), "down": (14336, 4096)}.items():
         site = _expert_site(torch, gen, dev, 8, K, N)
         meta = (4, MOE_GROUP, K, N)
         x = torch.randn(Gs, K, generator=gen, device=dev).to(torch.bfloat16)
-        got = k9.moe_gathered_matmul(x, eidx, *site, meta)
+        t0 = w.gemv_tc_launches
+        got = w(x, eidx, *site, meta)
         want = k9.moe_gathered_matmul_plain(x, eidx, *site, meta)
+        was = k9.moe_gathered_matmul_simt(x, eidx, *site, meta)
+        again = w(x, eidx, *site, meta)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
+        ptrs = [t.data_ptr() for t in site]
         row = {"Gs": Gs, "experts": list(K10_SLOTS), "K": K, "N": N,
                "err_max_over_max_ref": float(diff.max() / (want.float().abs().max() + 1e-6)),
                "rel_err": rel_err(torch, got, want), "max_abs_err": float(diff.max()),
-               "tol": "max |err| / max |ref| < 2e-2"}
+               "rel_err_vs_was": rel_err(torch, got, was),
+               "tol": "max |err| / max |ref| < 2e-2",
+               "route": "gemv_tc" if w.gemv_tc_launches > t0 else "gemv",
+               "rule": k9.gathered_route(Gs, K, N, 4, MOE_GROUP, ptrs),
+               "split": gemv_tc_split(x.device, K, N, MOE_GROUP,
+                                      tiles=-(-N // GEMV_TC_COLS) * Gs),
+               "same_bits_two_calls": _bits_equal(torch, got, again)}
         if row["err_max_over_max_ref"] >= 2e-2 or not torch.isfinite(got.float()).all():
             raise AssertionError(f"K10 disagrees with its plain version: {name} {row}")
+        if row["route"] != row["rule"] or row["route"] != "gemv_tc":
+            raise AssertionError(f"K10 ran the {row['route']} body, its rule says {row['rule']}")
+        if not row["same_bits_two_calls"]:
+            raise AssertionError(f"K10's two calls differ: {name} {row}")
         wbytes = distinct * (K * N / 2 + (K // MOE_GROUP) * N * 3)
         row["bound_ms"], row["bound_by"] = bound(wbytes + Gs * (K + N) * 2 + Gs * 4,
                                                  2 * Gs * K * N)
-        row["ms"], row["timing"] = cuda_ms(
-            torch, [lambda: k9.moe_gathered_matmul(x, eidx, *site, meta)], wbytes)
+        row["ms"], row["timing"] = cuda_ms(torch, [lambda: w(x, eidx, *site, meta)], wbytes)
+        row["was_ms"], _ = cuda_ms(
+            torch, [lambda: k9.moe_gathered_matmul_simt(x, eidx, *site, meta)], wbytes)
+        row["was"] = "dq_core's SIMT GEMV on the same bytes, moe_gathered_matmul_simt"
         row["plain_ms"], _ = cuda_ms(
             torch, [lambda: k9.moe_gathered_matmul_plain(x, eidx, *site, meta)], wbytes,
             reps=8, graph=False)
@@ -3249,7 +3338,7 @@ ROUTES = {
     "moe_matmul_mma": ("moe_matmul", "moe_matmul", "mma_launches"),
     "w8a8_matmul_wgmma": ("int8_matmul", "w8a8_matmul", "wgmma_launches"),
     "w8a8_matmul_mma": ("int8_matmul", "w8a8_matmul", "mma_launches"),
-    # the decode GEMVs of K1, K7, K9 and K4: the tensor-core body
+    # the decode GEMVs of K1, K7, K9, K10 and K4: the tensor-core body
     # (csrc/dq_gemv_tc.cuh) and dq_core's SIMT body; K5's two bodies
     "dequant_matmul_gemv_tc": ("dequant_matmul", "quantized_matmul", "gemv_tc_launches"),
     "dequant_matmul_gemv": ("dequant_matmul", "quantized_matmul", "gemv_launches"),
@@ -3257,6 +3346,8 @@ ROUTES = {
     "codebook_matmul_gemv": ("codebook_matmul", "codebook_matmul", "gemv_launches"),
     "moe_matmul_gemv_tc": ("moe_matmul", "moe_matmul", "gemv_tc_launches"),
     "moe_matmul_gemv": ("moe_matmul", "moe_matmul", "gemv_launches"),
+    "moe_gathered_matmul_gemv_tc": ("moe_matmul", "moe_gathered_matmul", "gemv_tc_launches"),
+    "moe_gathered_matmul_gemv": ("moe_matmul", "moe_gathered_matmul", "gemv_launches"),
     "fused_mlp_gemv_tc": ("fused_mlp", "fused_mlp", "gemv_tc_launches"),
     "fused_mlp_gemv": ("fused_mlp", "fused_mlp", "gemv_launches"),
     "flash_attention_wgmma": ("flash_attention", "flash_attention", "wgmma_launches"),
@@ -3317,14 +3408,15 @@ def _check_routes(phase, routes, k1=0, k7=0, k9=0, k6=0):
 
 
 def _check_gemv(phase, counts, routes, ragged_k1=0):
-    """Every M <= 8 launch of K1, K7, K9, K4 and K6 of a run (those not on
+    """Every M <= 8 launch of K1, K7, K9, K4 and K6 and every K10 launch of a
+    run (those not on
     the Hopper route or the mma.sync body) took the tensor-core GEMV, but
     ragged_k1 K1 launches at GPT-2's 50257-wide lm_head (dq_core's GEMV);
     every K13 launch took the tensor-core tiles; and every K5 launch took
     its Hopper body. Returns the GEMV launches."""
     seen = {}
-    for kernel in ("dequant_matmul", "codebook_matmul", "moe_matmul", "fused_mlp",
-                   "w8a8_matmul"):
+    for kernel in ("dequant_matmul", "codebook_matmul", "moe_matmul", "moe_gathered_matmul",
+                   "fused_mlp", "w8a8_matmul"):
         gemv = counts[kernel] - routes.get(f"{kernel}_wgmma", 0) - routes.get(f"{kernel}_mma", 0)
         want = {"tc": gemv - (ragged_k1 if kernel == "dequant_matmul" else 0),
                 "simt": ragged_k1 if kernel == "dequant_matmul" else 0}
@@ -3354,8 +3446,8 @@ def _kind(name: str) -> str:
     if "dq_" in name and any(t in name for t in (", 3, ", "dq_finish<3>", "dq_mma_kernel<4, true",
                                                   "dq_wgmma_kernel<4, true")):
         return "K7 codebook_matmul"  # the codebook mode of the shared dequant core
-    if "moe_gemv_kernel" in name and ", 1>" in name:
-        return "K10 moe_gathered_matmul"  # one slot per row tile
+    if "moe_gathered_tc_kernel" in name or ("moe_gemv_kernel" in name and ", 1>" in name):
+        return "K10 moe_gathered_matmul"  # the tensor-core body, or one slot per row tile
     if "decode_attn" in name:  # K3's kernel: decode_attn[_cluster]_kernel<[HD, ]BF, QW>
         flags = [a.strip() for a in name.split("<", 1)[-1].split(">")[0].split(",")]
         flags = [a for a in flags if a in ("true", "false")]
@@ -3960,8 +4052,11 @@ def _moe_engine(torch, params, qmeta, cfg, slots, requests):
     # every K1 and K9 launch of a prefill (128 rows a prompt) took the Hopper route
     _check_routes(f"serve_moe {slots} slots", routes, k1=MOE_PER_STEP["dequant_matmul"] * pre,
                   k9=MOE_PER_STEP["moe"] * pre)
-    # and every decode launch of K1 and K9 the tensor-core GEMV
-    _check_gemv(f"serve_moe {slots} slots", counts, routes)
+    # and every decode launch of K1, K9 and K10 the tensor-core GEMV: at 2
+    # slots all 24 K10 launches of a step
+    seen = _check_gemv(f"serve_moe {slots} slots", counts, routes)
+    if gathered and seen["moe_gathered_matmul"] != {"tc": MOE_PER_STEP["moe"] * steps, "simt": 0}:
+        raise AssertionError(f"serve_moe {slots} slots: K10 launches {seen}")
     return res, eng
 
 
@@ -3973,7 +4068,8 @@ def phase_serve_moe(torch, ctx):
     step K1 33 (q, k, v, o a layer and lm_head) and K9 24 (gate, up, down a
     layer), K11 8 per decode step. A 2-slot engine answers 2 requests: K10
     24 a decode step, K9 only at prefill. Then a profile of one warm prefill
-    of 8 prompts and of one decode step, and the serve CLI's main() with
+    of 8 prompts and of decode steps at 8 and at 2 slots, and the serve
+    CLI's main() with
     --model tiny-moe-test --kv int8 --batch 1."""
     from qtpu_torch.models import moe
     from qtpu_torch.models.config import MIXTRAL_8X7B
@@ -4030,6 +4126,17 @@ def phase_serve_moe(torch, ctx):
                                                 qmeta, arch="moe"), n, classify=_kind)
     emit({"phase": "profile_moe", "what": "decode", "batch": B, "decode_steps": n, **dec,
           "card": ctx["smi"]})
+    del cache
+    # the 2-slot step: decode on K10 (2 tokens x top-2 = 4 routed slots)
+    cache = init_cache(cfg, 2, P + SERVE_NEW + 16, quantized=True, device="cuda")
+    logits, cache = prefill(params, ids[:2], cache, cfg, qmeta, arch="moe")
+    tok, pos = torch.argmax(logits, -1).to(torch.int32), pos[:2]
+    decode_multi(params, tok, pos, cache, None, None, cfg, 4, qmeta, arch="moe")  # warm
+    dec2 = _profiled(torch, lambda: decode_multi(params, tok, pos, cache, None, None, cfg, n,
+                                                 qmeta, arch="moe"), n, classify=_kind)
+    k10 = dec2["device_ms_by_kind"].get("K10 moe_gathered_matmul", 0.0)
+    emit({"phase": "profile_moe", "what": "decode", "batch": 2, "decode_steps": n, **dec2,
+          "k10_share_of_device": k10 / dec2["device_ms_per_step"], "card": ctx["smi"]})
     del cache, params
     torch.cuda.empty_cache()
 
@@ -4080,11 +4187,15 @@ def main(argv=None) -> int:
         # serve_gpt2's two models, eval, quant, serve_w8a8, pot_apot,
         # serve_bf16, serve_moe's two engines), each counted from 0 just
         # before it
+        # gemv_tc_launches: those of them on the tensor-core GEMV (the
+        # decode launches of K1, K4, K6, K7, K9 and every K10 launch)
         paths = ctx.get("path_launches", {}).values()
-        emit({"kernels": [
-            {"name": name, "launches": sum(c.get(name, 0) for c in paths), **row}
-            for name, row in ctx["kernel_rows"].items()
-        ]})
+        rows = []
+        for name, row in ctx["kernel_rows"].items():
+            rows.append({"name": name, "launches": sum(c.get(name, 0) for c in paths), **row})
+            if any(f"{name}_gemv_tc" in c for c in paths):
+                rows[-1]["gemv_tc_launches"] = sum(c.get(f"{name}_gemv_tc", 0) for c in paths)
+        emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": ctx["name"], "count": ctx["count"]}})
     return 0
 

@@ -5,7 +5,8 @@
 // products on mma.sync m16n8k16 (bf16 in, f32 out), K split over a
 // thread-block cluster merged through distributed shared memory. Its block
 // body, gtc_block, also runs the matmul phases of K13 (layer_boundary.cu),
-// one call a tile between that kernel's grid barriers.
+// one call a tile between that kernel's grid barriers, and K10's gathered
+// slots (moe_matmul.cu), through a row map.
 //
 // Computes what dq_core.cuh's dq_tile computes (its note gives the layout
 // and the MODEs), y = sum over groups c of s_c o (x_c @ B_c), with B_c the
@@ -57,7 +58,8 @@
 //    shared memory by cp.async, under the ring's first loads, as bf16 with a
 //    padded row pitch (conflict-free B loads); the norm modes first compute
 //    each row's rms over all of K and stage h = bf16(x / rms * nw) as
-//    dq_core rounds it;
+//    dq_core rounds it; with a row map (RMAP, K10) row m of the block is
+//    row map[m] of x and of the output;
 //  * each group's 8 mma tiles land in a fresh f32 accumulator, which the
 //    group's f32 scale (two a lane a tile: its two columns) folds into the
 //    f32 sum at the group's end;
@@ -226,9 +228,12 @@ __device__ __forceinline__ float* gtc_sums(uint8_t* base) {
 // below runs one per block; K13's phases (layer_boundary.cu) run one per
 // tile of a grid-barrier phase, so a block's shared memory is reused from one
 // call to the next once every thread is past the caller's barrier.
-template <int BITS, int MODE>
+// RMAP: row m of the block is row rmap[m] of x (K10's slots of one expert;
+// shared memory, a.M entries); otherwise row m.
+template <int BITS, int MODE, bool RMAP = false>
 __device__ __forceinline__ void gtc_block(const DqArgs& a, int n0, int kbase, int ksl, int pitch,
-                                          uint8_t* base) {
+                                          uint8_t* base, const int* rmap = nullptr) {
+  static_assert(!RMAP || !Mode<MODE>::kNorm, "the norm modes stage x by row index");
   using L = TcLayout<BITS, MODE>;
   constexpr int PK = 8 / BITS;
   constexpr int T = L::THREADS;
@@ -289,8 +294,12 @@ __device__ __forceinline__ void gtc_block(const DqArgs& a, int n0, int kbase, in
       const int m = i / chunks;
       const int k = 8 * (i - m * chunks);
       const bool ok = m < a.M;
-      gtc_cp16(gtc_smem_u32(xs + m * pitch + k), ok ? a.x + (size_t)m * a.K + kbase + k : a.x,
-               ok);
+      if constexpr (RMAP)
+        gtc_cp16(gtc_smem_u32(xs + m * pitch + k),
+                 ok ? a.x + (size_t)rmap[m] * a.K + kbase + k : a.x, ok);
+      else
+        gtc_cp16(gtc_smem_u32(xs + m * pitch + k), ok ? a.x + (size_t)m * a.K + kbase + k : a.x,
+                 ok);
     }
     gtc_commit();
   }
@@ -519,12 +528,13 @@ bool gemv_tc_fits(const DqArgs& a, int bits, int cluster, int slice_groups) {
          (a.zeros == nullptr || al(a.zeros, 16)) && (a.nw == nullptr || al(a.nw, 8));
 }
 
-// One launch of the body: grid (cluster x ceil(N / 128), E).
-template <int BITS, int MODE, bool EXPERTS>
-int launch_gemv_tc(const DqArgs& a, const TcArgs& t, cudaStream_t st) {
+// One launch of a kernel of this body (kernel(a, t, extra...)): grid
+// (cluster x ceil(N / 128), y), cluster (t.cluster, 1, 1); smem_set: the
+// kernel's record that its shared memory limit is raised, in this library.
+template <int BITS, int MODE, typename Kernel, typename... Extra>
+int launch_tc_cluster(Kernel kernel, bool& smem_set, const DqArgs& a, const TcArgs& t, int y,
+                      cudaStream_t st, Extra... extra) {
   using L = TcLayout<BITS, MODE>;
-  auto kernel = dq_gemv_tc_kernel<BITS, MODE, EXPERTS>;
-  static bool smem_set = false;  // this instance's record, in this library
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                L::smem(kTcXCap));
@@ -532,9 +542,9 @@ int launch_gemv_tc(const DqArgs& a, const TcArgs& t, cudaStream_t st) {
     smem_set = true;
   }
   const long long strips = (a.N + kTcCols - 1) / kTcCols;
-  if (strips * t.cluster > 0x7fffffffLL || t.E < 1 || t.E > 65535) return -1;
+  if (strips * t.cluster > 0x7fffffffLL || y < 1 || y > 65535) return -1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(strips * t.cluster), (unsigned)t.E);
+  cfg.gridDim = dim3((unsigned)(strips * t.cluster), (unsigned)y);
   cfg.blockDim = dim3(L::THREADS);
   cfg.dynamicSmemBytes = L::smem(t.slice_groups * a.group);
   cfg.stream = st;
@@ -545,9 +555,17 @@ int launch_gemv_tc(const DqArgs& a, const TcArgs& t, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, t);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, t, extra...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// One launch of the body: grid (cluster x ceil(N / 128), E).
+template <int BITS, int MODE, bool EXPERTS>
+int launch_gemv_tc(const DqArgs& a, const TcArgs& t, cudaStream_t st) {
+  static bool smem_set = false;  // this instance's record, in this library
+  return launch_tc_cluster<BITS, MODE>(dq_gemv_tc_kernel<BITS, MODE, EXPERTS>, smem_set, a, t,
+                                       t.E, st);
 }
 
 // K1, K7 and K4's phases (one expert): the body at BITS, MODE.

@@ -5,10 +5,18 @@
 // rows per (sequence, kv-head) to symmetric int8 with an f32 scale
 // absmax/127 and write them in place at `pos` into one layer of the stacked
 // [L, B, KV, S, hd] cache. Rows with pos outside [0, S) write nothing.
-// Bound: a few bytes per (b, head); launch latency dominates. Design: one
-// warp per (b, head) reduces the absmax with shuffles and writes hd bytes
-// and one scale; nothing else of the cache is touched (the TPU kernel moved
-// an 8-row band because its DMA unit is a tile).
+// Bound: a few bytes per (b, head); launch latency dominates, so a faster
+// body cannot help. Design: one warp per (b, head), launched with
+// programmatic dependent launch (band_write_pdl_kernel: its launch and the
+// index math and pos read overlap the tail of the kernel before it, which
+// must not write pos; griddepcontrol.wait comes before the k/v rows are
+// read); each lane reads 16 bytes (8 values) of the k or the v row, the
+// warp reduces both rows' absmax with shuffles, and the lane writes its 8
+// codes with two 4-byte stores, lane 0 the two scales; nothing else of the
+// cache is touched (the TPU kernel moved an 8-row band because its DMA unit
+// is a tile). The earlier kernel (band_write_kernel: a plain launch, a
+// warp's scalar pass over k, then v) stays behind qtpu_kv_band_write_simt
+// for chip_smoke.py's "was" time.
 //
 // K3 (qtpu_decode_attention) replaces pallas_decode_attention_stacked
 // (pallas_kv_attention.py:1147): GQA decode attention of one query row per
@@ -111,6 +119,79 @@ __global__ void band_write_kernel(const __nv_bfloat16* __restrict__ k_new,
   const size_t row = ((size_t)b * KV + h) * S + p;
   quantize_row(k_new + src, k_c + row * hd, ks_c + row, hd, threadIdx.x);
   quantize_row(v_new + src, v_c + row * hd, vs_c + row, hd, threadIdx.x);
+}
+
+// The quantized code of value x at scale `scale` (quantize_row's rounding).
+__device__ __forceinline__ uint32_t quantize_code(float x, float scale) {
+  const float q = fminf(fmaxf(rintf(x / scale), -127.f), 127.f);  // round half to even
+  return (uint32_t)(uint8_t)(int8_t)q;
+}
+
+// grid B * KV, block 32; hd % 8 == 0, hd <= 256 (at most 2 16-byte chunks of
+// [k row | v row] a lane), k_new / v_new 16-byte aligned, the cache layer's
+// codes 4-byte aligned. Launched with or without the programmatic attribute
+// (griddepcontrol.wait is then a no-op).
+__global__ void __launch_bounds__(32) band_write_pdl_kernel(
+    const __nv_bfloat16* __restrict__ k_new, const __nv_bfloat16* __restrict__ v_new,
+    int8_t* k_c, int8_t* v_c, float* ks_c, float* vs_c, const int* __restrict__ pos, int KV,
+    int S, int hd) {
+  const int b = blockIdx.x / KV;
+  const int h = blockIdx.x - b * KV;
+  const int lane = threadIdx.x;
+  const int cpr = hd / 8;  // 16-byte chunks a row
+  const size_t src = ((size_t)b * KV + h) * hd;
+  const int p = pos[b];  // written before the kernel ahead of this one
+  const size_t row = ((size_t)b * KV + h) * S + p;
+  // this step's k / v rows come from the kernel before this one: wait for it
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if (p < 0 || p >= S) return;
+  uint4 w[2];
+  float mk = 0.f, mv = 0.f;
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const int c = lane + 32 * it;  // chunk c of [k row | v row]
+    if (c < 2 * cpr) {
+      const bool isv = c >= cpr;
+      w[it] = *reinterpret_cast<const uint4*>((isv ? v_new : k_new) + src + 8 * (isv ? c - cpr : c));
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&w[it]);
+      float m = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h2[j]);
+        m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
+      }
+      if (isv) mv = fmaxf(mv, m);
+      else mk = fmaxf(mk, m);
+    }
+  }
+  const float sk = fmaxf(warp_max(mk) / 127.0f, 1e-8f);
+  const float sv = fmaxf(warp_max(mv) / 127.0f, 1e-8f);
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const int c = lane + 32 * it;
+    if (c < 2 * cpr) {
+      const bool isv = c >= cpr;
+      const float scale = isv ? sv : sk;
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&w[it]);
+      uint32_t word[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 f0 = __bfloat1622float2(h2[2 * j]);
+        const float2 f1 = __bfloat1622float2(h2[2 * j + 1]);
+        word[j] = quantize_code(f0.x, scale) | quantize_code(f0.y, scale) << 8 |
+                  quantize_code(f1.x, scale) << 16 | quantize_code(f1.y, scale) << 24;
+      }
+      uint32_t* dst = reinterpret_cast<uint32_t*>((isv ? v_c : k_c) + row * hd +
+                                                  8 * (isv ? c - cpr : c));
+      dst[0] = word[0];
+      dst[1] = word[1];
+    }
+  }
+  if (lane == 0) {
+    ks_c[row] = sk;
+    vs_c[row] = sv;
+  }
 }
 
 // grid B * KV, block G * 32. BF = false, QW = false: K3 on the int8 cache
@@ -492,11 +573,44 @@ int launch_attn_cluster(const void* q, const void* k_c, const void* v_c, const f
 
 }  // namespace
 
-// k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer [B, KV, S, hd] int8;
-// ks_c/vs_c [B, KV, S] f32; pos [B] int32 on the device.
+// K2. k_new/v_new [B, 1, KV, hd] bf16, 16-byte aligned; k_c/v_c one layer
+// [B, KV, S, hd] int8, 4-byte aligned; ks_c/vs_c [B, KV, S] f32; pos [B]
+// int32 on the device, not written by the kernel launched just before this
+// one; hd % 8 == 0, hd <= 256. pdl != 0: launched with programmatic stream
+// serialization (cudaLaunchKernelEx), so its launch overlaps the tail of
+// the kernel before it in the stream (captured into a CUDA graph as a
+// programmatic edge); pdl 0: a plain launch of the same kernel.
 extern "C" int qtpu_kv_band_write(const void* k_new, const void* v_new, void* k_c,
                                   void* v_c, void* ks_c, void* vs_c, const void* pos,
-                                  int B, int KV, int S, int hd, void* stream) {
+                                  int B, int KV, int S, int hd, int pdl, void* stream) {
+  auto al = [](const void* q, int n) { return reinterpret_cast<uintptr_t>(q) % n == 0; };
+  if (B <= 0 || KV <= 0 || S <= 0 || hd <= 0 || hd % 8 != 0 || hd > 256 || !al(k_new, 16) ||
+      !al(v_new, 16) || !al(k_c, 4) || !al(v_c, 4))
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * KV));
+  cfg.blockDim = dim3(32);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, band_write_pdl_kernel, static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<int8_t*>(k_c),
+      static_cast<int8_t*>(v_c), static_cast<float*>(ks_c), static_cast<float*>(vs_c),
+      static_cast<const int*>(pos), KV, S, hd);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// K2's earlier kernel (a plain launch, scalar loads and stores), kept for
+// chip_smoke.py's "was" time; the same arguments as qtpu_kv_band_write
+// without pdl, any hd.
+extern "C" int qtpu_kv_band_write_simt(const void* k_new, const void* v_new, void* k_c,
+                                       void* v_c, void* ks_c, void* vs_c, const void* pos,
+                                       int B, int KV, int S, int hd, void* stream) {
   if (B <= 0 || KV <= 0 || S <= 0 || hd <= 0) return -1;
   band_write_kernel<<<B * KV, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),

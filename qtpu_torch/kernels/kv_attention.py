@@ -4,7 +4,11 @@
 `cache_band_write` replaces pallas_cache_band_write_stacked and
 `decode_attention` replaces pallas_decode_attention_stacked
 (qtpu/kernels/pallas_kv_attention.py:1067, :1147), on the int8 cache
-([L, B, KV, S, hd] int8, [L, B, KV, S] f32 scales).
+([L, B, KV, S, hd] int8, [L, B, KV, S] f32 scales). K2 is launched with
+programmatic dependent launch (its launch overlaps the tail of the kernel
+before it, which must not write pos); `cache_band_write_serial` launches
+the same kernel without it and `cache_band_write_simt` the earlier kernel,
+for chip_smoke.py's comparison.
 `decode_attention_layer` replaces pallas_decode_attention (:404): K3's
 kernel on one layer [B, KV, S, hd] of a cache, through a zero-copy [1, ...]
 view.
@@ -45,7 +49,8 @@ from qtpu_torch.kernels.dequant_matmul import _sm_count
 from qtpu_torch.serve.kvcache import KVCache, cache_layer_write, dequantize_kv
 
 _SIG = {
-    "qtpu_kv_band_write": [P, P, P, P, P, P, P, I, I, I, I, P],
+    "qtpu_kv_band_write": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "qtpu_kv_band_write_simt": [P, P, P, P, P, P, P, I, I, I, I, P],
     "qtpu_decode_attention": [P] * 7 + [I] * 7 + [P],
     "qtpu_decode_attention_write_bf16": [P] * 7 + [I] * 7 + [P],
     "qtpu_decode_attention_write": [P] * 9 + [I] * 7 + [P],
@@ -167,12 +172,10 @@ def _check_aligned(k, v):
             "k/v cache must be 16-byte aligned")
 
 
-def cache_band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
-    """Quantize this step's k/v rows [B, 1, KV, hd] to int8 and write them in
-    place into layer `layer` of the stacked cache at `pos` [B]; rows with
-    pos outside [0, S) write nothing."""
-    if k_new.device.type == "cpu":
-        return cache_band_write_plain(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer)
+def _band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer, launch: str):
+    """One launch of K2 on card tensors: launch "pdl" (the kernel with
+    programmatic dependent launch), "serial" (the same kernel, a plain
+    launch) or "simt" (the earlier kernel)."""
     require(k_new.is_cuda, f"unsupported device {k_new.device}")
     L, B, KV, S, hd = k_all.shape
     for t in (k_new, v_new):
@@ -181,14 +184,45 @@ def cache_band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
         require(t.is_contiguous() and t.device == k_new.device, "new k/v must be contiguous")
     _check_cache(k_all, v_all, ks_all, vs_all, pos, k_new.device)
     require(0 <= layer < L, f"layer {layer} out of range")
+    args = [k_new.data_ptr(), v_new.data_ptr(), k_all[layer].data_ptr(), v_all[layer].data_ptr(),
+            ks_all[layer].data_ptr(), vs_all[layer].data_ptr(), pos.data_ptr(), B, KV, S, hd]
     lib = _build.load("kv_attention", _SIG)
-    rc = lib.qtpu_kv_band_write(
-        k_new.data_ptr(), v_new.data_ptr(), k_all[layer].data_ptr(), v_all[layer].data_ptr(),
-        ks_all[layer].data_ptr(), vs_all[layer].data_ptr(), pos.data_ptr(),
-        B, KV, S, hd, _build.stream_of(k_new),
-    )
+    if launch == "simt":
+        rc = lib.qtpu_kv_band_write_simt(*args, _build.stream_of(k_new))
+    else:
+        require(hd % 8 == 0 and hd <= 256, f"head_dim {hd} must be a multiple of 8, <= 256")
+        require(k_new.data_ptr() % 16 == 0 and v_new.data_ptr() % 16 == 0,
+                "new k/v must be 16-byte aligned")
+        require(args[2] % 4 == 0 and args[3] % 4 == 0, "k/v cache must be 4-byte aligned")
+        rc = lib.qtpu_kv_band_write(*args, int(launch == "pdl"), _build.stream_of(k_new))
     _build.check(rc, "cache_band_write")
+
+
+def cache_band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
+    """Quantize this step's k/v rows [B, 1, KV, hd] to int8 and write them in
+    place into layer `layer` of the stacked cache at `pos` [B]; rows with
+    pos outside [0, S) write nothing. On the card pos must not be written by
+    the kernel launched just before (programmatic dependent launch)."""
+    if k_new.device.type == "cpu":
+        return cache_band_write_plain(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer)
+    _band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer, "pdl")
     cache_band_write.launches += 1
+
+
+def cache_band_write_serial(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
+    """cache_band_write's kernel launched without programmatic dependent
+    launch, for chip_smoke.py's comparison of the two launches. Card
+    tensors only; counted in its own `.launches`."""
+    _band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer, "serial")
+    cache_band_write_serial.launches += 1
+
+
+def cache_band_write_simt(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer):
+    """cache_band_write on the earlier kernel (a plain launch, scalar loads
+    and stores), for chip_smoke.py's "was" time. Card tensors only; counted
+    in its own `.launches`."""
+    _band_write(k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer, "simt")
+    cache_band_write_simt.launches += 1
 
 
 def _cluster_of(q, B, KV, S, simt):
@@ -511,6 +545,8 @@ def decode_attention_write_banded_stacked(q, k_new, v_new, k_all, v_all, ks_all,
 
 
 cache_band_write.launches = 0
+cache_band_write_serial.launches = 0
+cache_band_write_simt.launches = 0
 decode_attention.launches = 0
 decode_attention_layer.launches = 0
 decode_attention_flash.launches = 0

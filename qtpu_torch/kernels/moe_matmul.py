@@ -29,6 +29,17 @@ an expert axis (csrc/dq_gemv_tc.cuh, one launch over every expert's column
 strips and K slices; `moe_matmul.gemv_tc_launches`) or dq_core's GEMV
 (`.gemv_launches`); `moe_matmul_simt` runs dq_core's GEMV whatever the rule
 says, the earlier body for the "was" times.
+
+K10's body is `gathered_route`, its kernel's rule: at W4/W8, group 64 or
+128, N % 16 == 0 and 16-byte aligned tensors the tensor-core GEMV's block
+body with one weight stream per distinct routed expert (the slots of one
+expert, at most 8 a block, become the columns of the mma's B operand; K
+split over a thread-block cluster sized by `gemv_tc_split` with the upper
+bound ceil(N / 128) x Gs strips, since the host does not know how many
+experts are distinct), counted in `moe_gathered_matmul.gemv_tc_launches`;
+else dq_core's GEMV, one slot a row tile (`.gemv_launches`).
+`moe_gathered_matmul_simt` runs dq_core's GEMV on any call, for the "was"
+times; no model path calls it.
 """
 
 from __future__ import annotations
@@ -44,8 +55,9 @@ from qtpu_torch.kernels.dequant_matmul import (GEMV_TC_COLS, check_packed, count
 _SIG = {
     "qtpu_moe_grouped": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "qtpu_moe_grouped_mma": [P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "qtpu_moe_gathered": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "qtpu_moe_gathered": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
 }
+GATHERED_MAX_SLOTS = 65535  # the grid's y extent: one block row a slot
 
 
 def moe_route(M: int, K: int, N: int, bits: int, group: int, ptrs,
@@ -65,6 +77,20 @@ def moe_route(M: int, K: int, N: int, bits: int, group: int, ptrs,
     strides = ((M * K * 2 if per_expert_input else 0), K * bits // 8 * N, K // group * N * 2,
                K // group * N, M * N * 2)
     return "wgmma" if all(s % 16 == 0 for s in strides) else "mma"
+
+
+def gathered_route(Gs: int, K: int, N: int, bits: int, group: int, ptrs) -> str:
+    """The body qtpu_moe_gathered runs for Gs routed slots of [1, K] x
+    [K, N] over a contiguous [E, ...] leaf, x 16-byte aligned as the wrapper
+    requires; ptrs: the first expert's codes, scales (and zeros if any).
+    "gemv_tc" (csrc/moe_matmul.cu: gathered_tc_fits): K1's gemv_route on one
+    slot's view, at most GATHERED_MAX_SLOTS slots and every stride between
+    two experts (codes, scales, zeros) a multiple of 16 bytes; else "gemv",
+    dq_core's GEMV (W2, other groups, ragged N, unaligned tensors)."""
+    strides = (K * bits // 8 * N, K // group * N * 2, K // group * N)
+    ok = (0 < Gs <= GATHERED_MAX_SLOTS and gemv_route(1, K, N, bits, group, ptrs) == "gemv_tc"
+          and all(s % 16 == 0 for s in strides))
+    return "gemv_tc" if ok else "gemv"
 
 
 def _expert(t, e):
@@ -184,11 +210,9 @@ def moe_matmul_mma(x, data, scales, zeros, meta, per_expert_input=False):
     return out
 
 
-def moe_gathered_matmul(x, expert_idx, data, scales, zeros, meta):
-    """out[i] = x[i] @ dequant(W[expert_idx[i]]) for each slot i of x [Gs, K];
-    expert_idx [Gs] int32 on x's device. Returns [Gs, N] bf16."""
-    if x.device.type == "cpu":
-        return moe_gathered_matmul_plain(x, expert_idx, data, scales, zeros, meta)
+def _gathered(x, expert_idx, data, scales, zeros, meta, simt: bool):
+    """One launch of K10 on card tensors; returns (out, the body it ran, None
+    for Gs = 0). simt: dq_core's GEMV whatever gathered_route says."""
     require(x.is_cuda, f"unsupported device {x.device}")
     bits, group, K, N = meta
     require(x.dtype == torch.bfloat16 and x.dim() == 2 and x.shape[1] == K
@@ -201,17 +225,46 @@ def moe_gathered_matmul(x, expert_idx, data, scales, zeros, meta):
     _check_experts(data, scales, zeros, meta, x.device)
     out = torch.empty(Gs, N, dtype=torch.bfloat16, device=x.device)
     if Gs == 0:
-        return out
-    per, part = split_k(x.device, Gs, K, N, group, tiles=-(-N // 32) * Gs)
+        return out, None
+    ptrs = [t.data_ptr() for t in (data, scales, zeros) if t is not None]
+    route = "gemv" if simt else gathered_route(Gs, K, N, bits, group, ptrs)
+    if route == "gemv_tc":  # one launch, K over a cluster; the strips of Gs slots bound the tiles
+        cluster, per = gemv_tc_split(x.device, K, N, group, tiles=-(-N // GEMV_TC_COLS) * Gs)
+        part = None
+    else:  # dq_core's GEMV, one slot a row tile
+        cluster = 0
+        per, part = split_k(x.device, Gs, K, N, group, tiles=-(-N // 32) * Gs)
     lib = _build.load("moe_matmul", _SIG)
     rc = lib.qtpu_moe_gathered(
         x.data_ptr(), expert_idx.data_ptr(), data.data_ptr(), scales.data_ptr(),
         None if zeros is None else zeros.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), per,
+        None if part is None else part.data_ptr(), per, cluster,
         data.shape[0], Gs, K, N, bits, group, _build.stream_of(x),
     )
     _build.check(rc, "moe_gathered_matmul")
-    moe_gathered_matmul.launches += 1
+    return out, route
+
+
+def moe_gathered_matmul(x, expert_idx, data, scales, zeros, meta):
+    """out[i] = x[i] @ dequant(W[expert_idx[i]]) for each slot i of x [Gs, K];
+    expert_idx [Gs] int32 on x's device; rows whose index lies outside
+    [0, E) hold no result. Returns [Gs, N] bf16."""
+    if x.device.type == "cpu":
+        return moe_gathered_matmul_plain(x, expert_idx, data, scales, zeros, meta)
+    out, route = _gathered(x, expert_idx, data, scales, zeros, meta, simt=False)
+    if route is not None:
+        moe_gathered_matmul.launches += 1
+        count_gemv(moe_gathered_matmul, route)
+    return out
+
+
+def moe_gathered_matmul_simt(x, expert_idx, data, scales, zeros, meta):
+    """moe_gathered_matmul on dq_core's SIMT GEMV (one slot a row tile, a
+    repeated expert streamed once per slot) whatever gathered_route says: the
+    earlier body on the same bytes, for chip_smoke.py's "was" times. Card
+    tensors only; counted in its own `.launches`."""
+    out, _ = _gathered(x, expert_idx, data, scales, zeros, meta, simt=True)
+    moe_gathered_matmul_simt.launches += 1
     return out
 
 
@@ -223,3 +276,6 @@ moe_matmul.gemv_launches = 0
 moe_matmul_mma.launches = 0
 moe_matmul_simt.launches = 0
 moe_gathered_matmul.launches = 0
+moe_gathered_matmul.gemv_tc_launches = 0
+moe_gathered_matmul.gemv_launches = 0
+moe_gathered_matmul_simt.launches = 0

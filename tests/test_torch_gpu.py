@@ -175,6 +175,48 @@ def test_k2_matches_plain(cuda):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_k2_launches_match_plain_and_the_earlier_kernel(cuda, hd):
+    """The kernel with and without programmatic dependent launch writes
+    what the plain write does (test_k2_matches_plain's tolerances) and the
+    earlier kernel's bits exactly; an inactive slot (pos = S) and a negative
+    pos write nothing."""
+    g = _gen()
+    L, B, KV, S = 2, 8, 4, 48
+    cache = _cache(g, L, B, KV, S, hd, cuda)
+    kn = torch.randn(B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
+    vn = (torch.randn(B, 1, KV, hd, generator=g, device=cuda) * 3).to(torch.bfloat16)
+    pos = torch.tensor([0, 5, 17, 31, S - 1, S, -1, 24], dtype=torch.int32, device=cuda)
+    plain = [t.clone() for t in cache]
+    k23.cache_band_write_plain(kn, vn, *plain, pos, 0)
+    writes = {}
+    for fn in (k23.cache_band_write, k23.cache_band_write_serial, k23.cache_band_write_simt):
+        got = [t.clone() for t in cache]
+        n0 = fn.launches
+        fn(kn, vn, *got, pos, 0)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        for x, y in zip(got[:2], plain[:2]):
+            d = (x.int() - y.int()).abs()
+            assert int(d.max()) <= 1 and int((d > 0).sum()) <= 2
+        for x, y in zip(got[2:], plain[2:]):
+            torch.testing.assert_close(x, y, rtol=1e-6, atol=0)
+        writes[fn.__name__] = got
+    for name in ("cache_band_write", "cache_band_write_serial"):
+        assert all(bool((a == b).all()) for a, b in zip(writes[name],
+                                                        writes["cache_band_write_simt"]))
+
+
+def test_k2_raises_on_what_it_does_not_take(cuda):
+    g = _gen()
+    cache = _cache(g, 1, 2, 2, 16, 36, cuda)  # hd 36: not whole 16-byte chunks
+    kn = torch.randn(2, 1, 2, 36, generator=g, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        k23.cache_band_write(kn, kn, *cache, pos, 0)
+    k23.cache_band_write_simt(kn, kn, *cache, pos, 0)  # the earlier kernel takes any hd
+
+
 # (hd, KV, G) of the decode attention cases: G in {1, 8, 32} at hd 64 and 128
 DECODE_HEADS = [(64, 4, 4), (128, 4, 4), (128, 1, 32), (64, 2, 1), (128, 8, 1), (64, 4, 8),
                 (128, 2, 8), (64, 1, 32)]
@@ -745,13 +787,23 @@ def test_k10_matches_plain(cuda, Gs, bits, group):
     x = torch.randn(Gs, K, generator=g, device=cuda).to(torch.bfloat16)
     eidx = torch.tensor([2, 0, 2, 3, 1, 2, 3, 3] * 2, dtype=torch.int32, device=cuda)[:Gs]
     meta = (bits, group, K, N)
-    n0 = k9.moe_gathered_matmul.launches
-    got = k9.moe_gathered_matmul(x, eidx, data[1], scales[1], zeros[1], meta)
+    w = k9.moe_gathered_matmul
+    n0, t0, s0 = w.launches, w.gemv_tc_launches, w.gemv_launches
+    got = w(x, eidx, data[1], scales[1], zeros[1], meta)
     want = k9.moe_gathered_matmul_plain(x, eidx, data[1], scales[1], zeros[1], meta)
+    was = k9.moe_gathered_matmul_simt(x, eidx, data[1], scales[1], zeros[1], meta)
     torch.cuda.synchronize()
-    assert k9.moe_gathered_matmul.launches == n0 + 1
-    err = float((got.float() - want.float()).abs().max() / (want.float().abs().max() + 1e-6))
-    assert err < 2e-2
+    assert w.launches == n0 + 1
+    ptrs = [t[1].data_ptr() for t in (data, scales, zeros)]
+    route = k9.gathered_route(Gs, K, N, bits, group, ptrs)
+    assert route == ("gemv" if bits == 2 else "gemv_tc")
+    assert (w.gemv_tc_launches - t0, w.gemv_launches - s0) == ((1, 0) if route == "gemv_tc"
+                                                               else (0, 1))
+    for ref in (want, was):  # the plain version and dq_core's body on the same bytes
+        err = float((got.float() - ref.float()).abs().max() / (ref.float().abs().max() + 1e-6))
+        assert err < 2e-2
+    if route == "gemv_tc":  # the tensor-core body gives the same bits call after call
+        assert _same_bits(got, w(x, eidx, data[1], scales[1], zeros[1], meta))
 
 
 @pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
@@ -760,10 +812,133 @@ def test_k10_at_full_width(cuda, K, N):
     data, scales, zeros = _experts(g, 8, K, N, 4, 128, cuda)
     x = torch.randn(4, K, generator=g, device=cuda).to(torch.bfloat16)
     eidx = torch.tensor([5, 1, 5, 7], dtype=torch.int32, device=cuda)
+    t0 = k9.moe_gathered_matmul.gemv_tc_launches
     got = k9.moe_gathered_matmul(x, eidx, data, scales, zeros, (4, 128, K, N))
     want = k9.moe_gathered_matmul_plain(x, eidx, data, scales, zeros, (4, 128, K, N))
     torch.cuda.synchronize()
+    assert k9.moe_gathered_matmul.gemv_tc_launches == t0 + 1
     assert _rel(got, want) < 2e-2
+    assert _same_bits(got, k9.moe_gathered_matmul(x, eidx, data, scales, zeros, (4, 128, K, N)))
+
+
+@pytest.mark.parametrize("K,N", [(512, 384), (14336, 4096)])
+@pytest.mark.parametrize("slots", [[2] * 12, [1] * 9 + [0, 3, 0] + [1] * 8])
+def test_k10_many_slots_on_one_expert_take_several_leaders(cuda, K, N, slots):
+    """12 slots on one expert (two leaders: slots 0 and 8), and 17 of 20
+    on one (three leaders), on the tensor-core body: within K1's tolerance
+    of the plain version."""
+    g = _gen()
+    data, scales, zeros = _experts(g, 4, K, N, 4, 128, cuda)
+    x = torch.randn(len(slots), K, generator=g, device=cuda).to(torch.bfloat16)
+    eidx = torch.tensor(slots, dtype=torch.int32, device=cuda)
+    t0 = k9.moe_gathered_matmul.gemv_tc_launches
+    got = k9.moe_gathered_matmul(x, eidx, data, scales, zeros, (4, 128, K, N))
+    want = k9.moe_gathered_matmul_plain(x, eidx, data, scales, zeros, (4, 128, K, N))
+    torch.cuda.synchronize()
+    assert k9.moe_gathered_matmul.gemv_tc_launches == t0 + 1
+    assert _rel(got, want) < 2e-2
+
+
+def test_k10_rows_out_of_range_stay_untouched(cuda):
+    """The tensor-core body (its C entry on an output filled beforehand)
+    leaves the rows of expert ids outside [0, E) as they were and writes the
+    others as the plain version does."""
+    from qtpu_torch.kernels import _build
+
+    g = _gen()
+    E, K, N = 4, 1024, 384
+    data, scales, zeros = _experts(g, E, K, N, 4, 128, cuda)
+    slots = [3, -1, 3, E, 0, 7, 3, -5]
+    x = torch.randn(len(slots), K, generator=g, device=cuda).to(torch.bfloat16)
+    eidx = torch.tensor(slots, dtype=torch.int32, device=cuda)
+    out = torch.full((len(slots), N), 7.0, dtype=torch.bfloat16, device=cuda)
+    cluster, per = k1.gemv_tc_split(cuda, K, N, 128, tiles=-(-N // 128) * len(slots))
+    lib = _build.load("moe_matmul", k9._SIG)
+    rc = lib.qtpu_moe_gathered(x.data_ptr(), eidx.data_ptr(), data.data_ptr(), scales.data_ptr(),
+                               zeros.data_ptr(), out.data_ptr(), None, per, cluster, E,
+                               len(slots), K, N, 4, 128, _build.stream_of(x))
+    torch.cuda.synchronize()
+    assert rc == 0
+    inside = [i for i, e in enumerate(slots) if 0 <= e < E]
+    outside = [i for i in range(len(slots)) if i not in inside]
+    assert bool((out[outside] == 7.0).all())
+    sub = torch.tensor(inside, device=cuda)
+    want = k9.moe_gathered_matmul_plain(x[sub], eidx[sub], data, scales, zeros, (4, 128, K, N))
+    assert _rel(out[sub], want) < 2e-2
+
+
+def test_k10_is_one_cuda_launch(cuda):
+    """Over 4 calls the profiler sees one moe_gathered_tc_kernel a call (no
+    finishing launch); dq_core's body adds its split-K finish."""
+    g = _gen()
+    K, N = 4096, 1024
+    data, scales, zeros = _experts(g, 8, K, N, 4, 128, cuda)
+    x = torch.randn(4, K, generator=g, device=cuda).to(torch.bfloat16)
+    eidx = torch.tensor([1, 6, 3, 6], dtype=torch.int32, device=cuda)
+    m = (4, 128, K, N)
+    for wrapper, kernels in ((k9.moe_gathered_matmul, {"moe_gathered_tc_kernel"}),
+                             (k9.moe_gathered_matmul_simt, {"moe_gemv_kernel", "moe_finish"})):
+        wrapper(x, eidx, data, scales, zeros, m)
+        torch.cuda.synchronize()
+        seen = _kernel_counts(lambda wrapper=wrapper: wrapper(x, eidx, data, scales, zeros, m),
+                              tag="moe_")
+        seen = {n: c for n, c in seen.items() if "moe_" in n}
+        assert {next(k for k in kernels if k + "(" in n or k + "<" in n) for n in seen} == kernels
+        assert all(c == 4 for c in seen.values()), seen
+
+
+def test_k10_and_k2_replay_in_a_cuda_graph_without_a_host_sync(cuda):
+    """K10 on the tensor-core body and K2 on programmatic dependent launch
+    (right after the kernel that writes its k/v rows: the graph's
+    programmatic edge), captured in a CUDA graph: a replay on new inputs
+    gives what eager calls on those inputs give, with no host sync."""
+    g = _gen()
+    K, N = 1024, 512
+    ex = _experts(g, 4, K, N, 4, 128, cuda)
+    x = torch.randn(4, K, generator=g, device=cuda).to(torch.bfloat16)
+    eidx = torch.tensor([2, 0, 2, 3], dtype=torch.int32, device=cuda)
+    m = (4, 128, K, N)
+    L, B, KV, S, hd = 2, 4, 2, 40, 128
+    cache = _cache(g, L, B, KV, S, hd, cuda)
+    src = torch.randn(2, B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16)
+    kv = torch.empty_like(src)
+    pos = torch.tensor([0, 17, S - 1, S], dtype=torch.int32, device=cuda)
+
+    def step():
+        torch.mul(src, 2.0, out=kv)  # the kernel K2 overlaps: it writes K2's inputs
+        k23.cache_band_write(kv[0], kv[1], *cache, pos, 1)
+        return k9.moe_gathered_matmul(x, eidx, *ex, m)
+
+    new = (torch.randn(4, K, generator=g, device=cuda).to(torch.bfloat16),
+           torch.tensor([1, 1, 3, -1], dtype=torch.int32, device=cuda),
+           torch.randn(2, B, 1, KV, hd, generator=g, device=cuda).to(torch.bfloat16))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        for t, v in zip((x, eidx, src), new):
+            t.copy_(v)
+        ref = [t.clone() for t in cache]
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    k23.cache_band_write_plain(2.0 * src[0], 2.0 * src[1], *ref, pos, 1)
+    for a, b in zip(cache[:2], ref[:2]):
+        d = (a.int() - b.int()).abs()
+        assert int(d.max()) <= 1 and int((d > 0).sum()) <= 2
+    for a, b in zip(cache[2:], ref[2:]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    eager = k9.moe_gathered_matmul(x, eidx, *ex, m)
+    torch.cuda.synchronize()
+    assert _same_bits(out[:3], eager[:3])  # slot 3's expert id is out of range
 
 
 def test_k9_k10_raise_on_what_they_do_not_take(cuda):
