@@ -87,7 +87,15 @@ Phases, each printing one JSON line:
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
-           prompt 128 and 32 new tokens; every kernel's launch count is
+           prompt 128 and 32 new tokens, first on CUDA graphs of its decode
+           blocks captured by warmup() (its seconds printed), then on an
+           eager engine (cuda_graphs=False): greedy tokens equal request for
+           request, and for each tokens/s, mean TTFT and a decode step's wall
+           and device ms and busy share (so too in serve_w8a8, serve_bf16,
+           serve_gpt2, serve_moe at 8 and 2 slots, and long_ctx, whose 32
+           steps run again as 2 replays of its 16-step graph against the
+           eager steps' ids; boundary's six engines run on graphs only);
+           on both engines every kernel's launch count is
            checked against its count per prefill and per decode step, and
            every K1 launch of the prefill on the Hopper route (the route
            counters; so too in eval, pot_apot and serve_bf16 for their eval
@@ -169,6 +177,17 @@ Phases, each printing one JSON line:
            counts checked; a profile of one prefill and of decode steps at
            8 and at 2 slots (K10's share); then `python -m qtpu_torch.serve --model
            tiny-moe-test --kv int8 --batch 1` (its main())
+  http     the HTTP front end (qtpu_torch/serve/http.py) over the serve
+           cell's engine after warmup(): 8 threads POST 8 requests of prompt
+           128 and 32 new tokens at once; each response's tokens against the
+           eager engine's, the launches against the serve reckoning, /health
+           (8 requests), 400 on {} and 404 on an unknown path; then `python
+           -m qtpu_torch.serve --model tiny-test --kv int8 --http 0` in a
+           process of its own: its "serving on" line, one request, SIGINT
+
+Launch counters under CUDA graphs: a replay runs no Python, so the engine
+adds to every wrapper's counters, on each replay, what the capture of that
+block counted (qtpu_torch/serve/graphs.py); the reckonings hold unchanged.
 
 The last lines are the nvidia-smi line, the `kernels` JSON line and
 {"ok": true, "device": {...}}. Any failed check raises, and the script then
@@ -187,7 +206,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
-          "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16", "serve_moe")
+          "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16", "serve_moe",
+          "http")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -2591,9 +2611,116 @@ def _tinyllama_w4(torch, ctx):
     return ctx["tinyllama_w4"]
 
 
-def phase_serve(torch, ctx):
+def _block_times(torch, eng, pos_value, n=16):
+    """Time of a decode step of the engine's own decode block (its graph, or
+    eager decode_multi on its static inputs): every slot active at position
+    pos_value, greedy, blocks of n steps. Host wall ms a step over three
+    blocks (each from staging the inputs to reading the ids back), the
+    device ms a step between CUDA events around one block, and a profile of
+    one block (device ms, busy share, launches, kernels by kind)."""
     import numpy as np
 
+    B = eng.max_batch
+    args = (np.arange(B, dtype=np.int32) % eng.cfg.vocab_size,
+            np.full(B, pos_value, np.int32), np.zeros(B, np.float32))
+    eng.run_decode_block(*args, n)  # warm
+    wall = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_decode_block(*args, n)
+        wall.append((time.perf_counter() - t0) / n * 1e3)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    eng.launch_decode_block(*args, n)
+    b.record()
+    b.synchronize()
+    prof = _profiled(torch, lambda: eng.run_decode_block(*args, n), n, classify=_kind)
+    return {"block": n, "wall_ms_per_step": wall, "event_ms_per_step": a.elapsed_time(b) / n,
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "device_busy_share": prof["device_busy_share"], "profile": prof}
+
+
+def _serve_both(torch, ctx, phase, make, prompts, new, expect_of, check=None, step_pos=None,
+                extra=None):
+    """A serving phase's requests (prompts, each with `new` new tokens,
+    greedy) on two engines built by make(cuda_graphs): first the default
+    one, whose decode blocks replay CUDA graphs, after warmup() (its
+    seconds printed); then an eager one (cuda_graphs=False). For each: the
+    launches and routes of the run, counted from 0 just before it, against
+    expect_of(decode_steps, prefill_calls) and check(tag, counts, routes,
+    steps, pre); tokens/s, mean TTFT, and a decode step's wall and device
+    time and busy share (_block_times at step_pos, default the prompt
+    length). Both engines are warmed first (the eager one's warmup() builds
+    and prefills on a scratch cache, and captures nothing). Fails unless both answer every request with `new` ids in the
+    vocabulary and their greedy tokens are equal request for request.
+    Emits one line per engine and a comparison line; returns {mode: line}."""
+    runs, outs = {}, {}
+    for mode in ("graph", "eager"):
+        t0 = time.perf_counter()
+        eng = make(mode == "graph")
+        warm = eng.warmup()
+        if bool(eng.graphs) != (mode == "graph"):
+            raise AssertionError(f"{phase} {mode}: warmup() captured {sorted(eng.graphs)}")
+        vocab = eng.cfg.vocab_size
+        reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t1 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts, routes, m = _counts(), _route_counts(), eng.metrics()
+        steps, pre = m["decode_steps"], m["prefill_calls"]
+        tokens = sum(len(r.output) for r in done)
+        expect = expect_of(steps, pre)
+        res = {"phase": phase, "mode": mode, "graphs": sorted(eng.graphs), "warmup_s": warm,
+               "requests": len(done), "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall, "mean_ttft_s": m.get("mean_ttft_s"),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "decode_steps": steps,
+               "prefill_calls": pre, "launches": counts, "expected_launches": expect,
+               "routes": routes, "metrics": m, **(extra or {})}
+        if len(done) != len(prompts):
+            raise AssertionError(f"{phase} {mode}: {len(done)} of {len(prompts)} requests finished")
+        for r in done:
+            if len(r.output) != new or not all(0 <= t < vocab for t in r.output):
+                raise AssertionError(f"{phase} {mode}: request {r.uid}: {len(r.output)} tokens, "
+                                     f"ids {r.output}")
+        if counts != expect or steps == 0:
+            raise AssertionError(f"{phase} {mode}: kernel launches {counts} != expected {expect}")
+        if check is not None:
+            check(f"{phase} {mode}", counts, routes, steps, pre)
+        res["decode_step"] = _block_times(torch, eng, len(prompts[0]) if step_pos is None
+                                          else step_pos)
+        res["seconds"] = time.perf_counter() - t0
+        emit({**res, "card": ctx["smi"]})
+        runs[mode], outs[mode] = res, [r.output for r in reqs]
+        del eng, done, reqs
+        torch.cuda.empty_cache()
+    same = outs["graph"] == outs["eager"]
+    emit({"phase": f"{phase}_graph_vs_eager", "greedy_tokens_equal": same,
+          **{k: {mode: r[k] for mode, r in runs.items()}
+             for k in ("warmup_s", "tokens_per_s", "mean_ttft_s")},
+          **{k: {mode: r["decode_step"][k] for mode, r in runs.items()}
+             for k in ("wall_ms_per_step", "event_ms_per_step", "device_ms_per_step",
+                       "device_busy_share")},
+          "card": ctx["smi"]})
+    if not same:
+        raise AssertionError(f"{phase}: the graph and eager engines' greedy tokens differ: "
+                             f"{outs['graph']} vs {outs['eager']}")
+    return runs
+
+
+def _serve_prompts(cfg, n, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT, dtype=np.int32) for _ in range(n)]
+
+
+def phase_serve(torch, ctx):
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
     from qtpu_torch.serve.batching import ContinuousBatcher
     from qtpu_torch.serve.decode import decode_multi
@@ -2601,65 +2728,189 @@ def phase_serve(torch, ctx):
     t0 = time.perf_counter()
     params, qmeta = _tinyllama_w4(torch, ctx)
     setup_s = time.perf_counter() - t0
-    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
-    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
-                            kv_dtype="int8", seed=0, device="cuda")
-    rng = np.random.default_rng(0)
-    for _ in range(B):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
-    routes = _route_counts()
-    m = eng.metrics()
-    L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
-    expect = {
-        "dequant_matmul": (2 * L + 1) * steps + (4 * L + 1) * pre,
-        "cache_band_write": L * steps,
-        "decode_attention": L * steps,
-        "fused_mlp": L * steps,
-        "flash_attention": 0,
-        "w8a8_matmul": 0, **NO_CODEBOOK,
-    }
-    tokens = sum(len(r.output) for r in done)
-    res = {"phase": "serve", "model": "TinyLlama-1.1B", "layers": L, "method": "rtn W4 g128",
-           "kv": "int8", "requests": len(done), "tokens": tokens, "wall_s": wall,
-           "tokens_per_s": tokens / wall, "setup_s": setup_s,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "decode_steps": steps, "prefill_calls": pre, "launches": counts,
-           "expected_launches": expect, "routes": routes, "card": ctx["smi"], "metrics": m}
-    emit(res)
-    if len(done) != B:
-        raise AssertionError(f"{len(done)} of {B} requests finished")
-    for r in done:
-        if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
-    if counts != expect or steps == 0:
-        raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    # every prefill launch of K1 (88 + 1 a prefill of 8 x 128 rows) took the Hopper route
-    _check_routes("serve", routes, k1=(4 * L + 1) * pre)
-    # and every decode launch of K1 and K4 took the tensor-core GEMV
-    _check_gemv("serve", counts, routes)
-    ctx.setdefault("path_launches", {})["serve"] = {**counts, **routes}
+    B, P, new, L = SERVE_B, SERVE_PROMPT, SERVE_NEW, cfg.num_layers
 
-    # steady decode after the run: blocks of 16 greedy steps, all slots
-    # live, host wall time per step (after a synchronize)
+    def make(graphs):
+        return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                 kv_dtype="int8", seed=0, device="cuda", cuda_graphs=graphs)
+
+    def expect_of(steps, pre):
+        return {"dequant_matmul": (2 * L + 1) * steps + (4 * L + 1) * pre,
+                "cache_band_write": L * steps, "decode_attention": L * steps,
+                "fused_mlp": L * steps, "flash_attention": 0, "w8a8_matmul": 0, **NO_CODEBOOK}
+
+    def check(tag, counts, routes, steps, pre):
+        # every prefill launch of K1 (88 + 1 a prefill of 8 x 128 rows) took the Hopper route
+        _check_routes(tag, routes, k1=(4 * L + 1) * pre)
+        # and every decode launch of K1 and K4 the tensor-core GEMV
+        _check_gemv(tag, counts, routes)
+
+    runs = _serve_both(torch, ctx, "serve", make, _serve_prompts(cfg, B), new, expect_of, check,
+                       extra={"model": "TinyLlama-1.1B", "layers": L, "method": "rtn W4 g128",
+                              "kv": "int8", "setup_s": setup_s})
+    g = runs["graph"]
+    ctx.setdefault("path_launches", {})["serve"] = {**g["launches"], **g["routes"]}
+
+    # steady eager decode_multi after the run: blocks of 16 greedy steps, all
+    # slots live, host wall time per step (after a synchronize)
+    from qtpu_torch.serve.kvcache import init_cache
+
+    cache = init_cache(cfg, B, P + new + 16, quantized=True, device="cuda")
     tok = torch.zeros(B, dtype=torch.int32, device="cuda")
     pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
     step_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        decode_multi(params, tok, pos, eng.cache, None, None, cfg, 16, qmeta)
+        decode_multi(params, tok, pos, cache, None, None, cfg, 16, qmeta)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) / 16 * 1e3)
     emit({"phase": "serve_decode", "batch": B, "ms_per_step": step_ms,
           "tokens_per_s": [B * 1e3 / t for t in step_ms], "card": ctx["smi"]})
+    del cache
+
+
+def _post(port, path, body=None, method="POST"):
+    """(status, JSON body) of one request to 127.0.0.1:port."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def phase_http(torch, ctx):
+    """The HTTP front end on the card: the serve cell's model (TinyLlama-1.1B,
+    RTN W4 g128 fused, int8 KV, 8 slots) behind ServingFrontend and
+    make_server after warmup(); 8 threads POST 8 requests of prompt 128 and
+    32 new tokens at once. Checks: each response's tokens equal the eager
+    engine's greedy tokens for its prompt; the launches of the run against
+    the serve cell's reckoning per prefill and decode step; /health reports
+    8 requests; {} is answered 400 and an unknown path 404. Then `python -m
+    qtpu_torch.serve --model tiny-test --kv int8 --http 0` in a process of
+    its own: its "serving on" line, one request answered, SIGINT, exit."""
+    import queue
+    import signal
+    import threading
+
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.serve.batching import ContinuousBatcher
+    from qtpu_torch.serve.http import ServingFrontend, make_server
+
+    params, qmeta = _tinyllama_w4(torch, ctx)
+    B, P, new, L = SERVE_B, SERVE_PROMPT, SERVE_NEW, cfg.num_layers
+    prompts = _serve_prompts(cfg, B, seed=1)
+    ref = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                            kv_dtype="int8", device="cuda", cuda_graphs=False)
+    ref_reqs = [ref.submit(p, max_new_tokens=new) for p in prompts]
+    ref.run()
+    want = [r.output for r in ref_reqs]
+    del ref, ref_reqs
+    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                            kv_dtype="int8", device="cuda")
+    warm = eng.warmup()
+    torch.cuda.synchronize()
+    _reset_counts()
+    frontend = ServingFrontend(eng)
+    server = make_server(frontend, 0)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05},
+                               daemon=True)
+    serving.start()
+    answers = [None] * B
+    try:
+        def ask(i):
+            answers[i] = _post(port, "/generate", {"prompt_ids": prompts[i].tolist(),
+                                                   "max_new_tokens": new, "temperature": 0.0})
+
+        clients = [threading.Thread(target=ask, args=(i,)) for i in range(B)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        time.sleep(0.2)  # the engine refreshes /health after its step
+        health = _post(port, "/health", method="GET")
+        bad = _post(port, "/generate", {})[0]
+        unknown = _post(port, "/nope", method="GET")[0]
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=10)
+        frontend.shutdown()
+    counts, routes, m = _counts(), _route_counts(), eng.metrics()
+    steps, pre = m["decode_steps"], m["prefill_calls"]
+    expect = {"dequant_matmul": (2 * L + 1) * steps + (4 * L + 1) * pre,
+              "cache_band_write": L * steps, "decode_attention": L * steps,
+              "fused_mlp": L * steps, "flash_attention": 0, "w8a8_matmul": 0, **NO_CODEBOOK}
+    ok = [a is not None and a[0] == 200 for a in answers]
+    got = [a[1]["tokens"] if okay else None for a, okay in zip(answers, ok)]
+    res = {"phase": "http", "model": "TinyLlama-1.1B", "method": "rtn W4 g128", "kv": "int8",
+           "slots": B, "requests": B, "warmup_s": warm, "graphs": sorted(eng.graphs),
+           "wall_s": wall, "tokens_per_s": sum(len(t or []) for t in got) / wall,
+           "mean_ttft_s": (sum(a[1]["ttft_s"] for a, okay in zip(answers, ok) if okay)
+                           / max(1, sum(ok))),
+           "answered_200": sum(ok), "tokens_equal_eager": [g == w for g, w in zip(got, want)],
+           "health": health, "status_empty_body": bad, "status_unknown_path": unknown,
+           "decode_steps": steps, "prefill_calls": pre, "launches": counts,
+           "expected_launches": expect, "card": ctx["smi"]}
+    emit(res)
+    if not all(ok) or not all(res["tokens_equal_eager"]):
+        raise AssertionError(f"http: responses {answers} against the eager engine's {want}")
+    if health[0] != 200 or health[1].get("requests") != B:
+        raise AssertionError(f"http: /health {health}")
+    if bad != 400 or unknown != 404:
+        raise AssertionError(f"http: {{}} answered {bad}, an unknown path {unknown}")
+    if counts != expect or steps == 0:
+        raise AssertionError(f"http: kernel launches {counts} != expected {expect}")
+    _check_routes("http", routes, k1=(4 * L + 1) * pre)
+    _check_gemv("http", counts, routes)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the CLI's front end in a process of its own
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-u", "-m", "qtpu_torch.serve", "--model", "tiny-test", "--kv", "int8",
+           "--http", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    seen, cli_port, answer = [], None, None
+    try:
+        while cli_port is None and time.perf_counter() - t0 < 300:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    break
+                continue
+            seen.append(line.rstrip())
+            if line.startswith("serving on http://127.0.0.1:"):
+                cli_port = int(line.split(":")[2].split()[0])
+        if cli_port is not None:
+            answer = _post(cli_port, "/generate", {"prompt_ids": [1, 2, 3, 4, 5],
+                                                   "max_new_tokens": 4})
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    emit({"phase": "http_cli", "argv": " ".join(cmd[3:]), "output": seen, "answer": answer,
+          "rc": rc, "seconds": time.perf_counter() - t0})
+    if cli_port is None or answer is None or answer[0] != 200 or len(answer[1]["tokens"]) != 4:
+        raise AssertionError(f"the serve CLI's front end failed: {seen} {answer}")
+    if rc != 0 or not any(x.startswith("engine warmup") for x in seen):
+        raise AssertionError(f"the serve CLI's front end did not warm up or exit cleanly: "
+                             f"rc {rc}, {seen}")
 
 
 def _profiled(torch, fn, n, classify=None):
@@ -2886,10 +3137,12 @@ def phase_long_ctx(torch, ctx):
     t0 = time.perf_counter()
     logits, _ = decode_step(params, tok, pos, cache, cfg, qmeta)
     first = logits.clone()
+    eager_ids = [torch.argmax(logits, -1).to(torch.int32)]
     for _ in range(LONG_STEPS - 1):
-        tok = torch.argmax(logits, -1).to(torch.int32)
+        tok = eager_ids[-1]
         pos = pos + 1
         logits, _ = decode_step(params, tok, pos, cache, cfg, qmeta)
+        eager_ids.append(torch.argmax(logits, -1).to(torch.int32))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
@@ -2923,6 +3176,7 @@ def phase_long_ctx(torch, ctx):
         raise AssertionError(f"K12 disagrees with its plain version inside the step: {res}")
     if err >= 5e-2 or not res["finite"]:
         raise AssertionError(f"the long-context step disagrees with the plain one: {res}")
+    res["graph"] = _long_graph_run(torch, ctx, eng, tok_first, pos_first, eager_ids, expect)
     n = 4
     tok = torch.argmax(logits, -1).to(torch.int32)
     prof = _profiled(torch, lambda: decode_multi(params, tok, pos + 1, cache, None, None, cfg, n,
@@ -2933,6 +3187,49 @@ def phase_long_ctx(torch, ctx):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": ctx["smi"]})
     del eng, cache
     torch.cuda.empty_cache()
+
+
+def _long_graph_run(torch, ctx, eng, tok, pos, eager_ids, expect):
+    """The long_ctx cell's 32 steps again, from the same first token, through
+    the engine's own decode blocks after warmup(): 2 replays of its 16-step
+    CUDA graph on the filled cache (rewriting the rows the eager steps
+    wrote). Checks the greedy ids against the eager steps' and the launches
+    against the same reckoning; then a decode step's wall and device time
+    and busy share on the graph (_block_times)."""
+    import numpy as np
+
+    B = eng.max_batch
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    warm = eng.warmup()
+    peak_warm = torch.cuda.max_memory_allocated() / 2**30
+    ids, p = tok.cpu().numpy(), pos.cpu().numpy()
+    zeros = np.zeros(B, np.float32)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = []
+    for i in range(LONG_STEPS // LONG_BLOCK):
+        blocks.append(eng.run_decode_block(ids, p + i * LONG_BLOCK, zeros, LONG_BLOCK))
+        ids = blocks[-1][:, -1]
+    wall = time.perf_counter() - t0
+    counts, routes = _counts(), _route_counts()
+    got = np.concatenate(blocks, axis=1)
+    want = torch.stack(eager_ids, dim=1).cpu().numpy()
+    res = {"warmup_s": warm, "graphs": sorted(eng.graphs), "wall_s": wall,
+           "peak_mem_gib_eager_steps": peak_eager, "peak_mem_gib_warmup": peak_warm,
+           "tokens_per_s": B * LONG_STEPS / wall, "host_ms_per_step": wall / LONG_STEPS * 1e3,
+           "greedy_tokens_equal": bool(np.array_equal(got, want)), "launches": counts,
+           "decode_step": _block_times(torch, eng, int(p[0]) + LONG_STEPS, LONG_BLOCK)}
+    emit({"phase": "long_ctx_graph", **res, "expected_launches": expect, "card": ctx["smi"]})
+    if counts != expect:
+        raise AssertionError(f"long_ctx graph: kernel launches {counts} != expected {expect}")
+    _check_gemv("long_ctx graph", counts, routes)
+    if not res["greedy_tokens_equal"]:
+        raise AssertionError(f"long_ctx: the graph's greedy ids {got} differ from the eager "
+                             f"steps' {want}")
+    return {k: v for k, v in res.items() if k != "launches"}
 
 
 def _k13_checked_step(torch, params, qmeta, cfg, tok, pos, cache):
@@ -2972,7 +3269,10 @@ def phase_boundary(torch, ctx):
     profile of 4 decode steps (device and host time, K13's share), and one
     decode step from the same prefill whose logits are compared with the
     default branch's (relative error, top-1 agreement; printed), with the
-    engines' greedy tokens' agreement. Checks: the launches; K13 against its
+    engines' greedy tokens' agreement. Each engine runs its decode blocks on
+    CUDA graphs that its warmup() captured under the branch's switch (the
+    graph path only: the serve phase holds graphs to eager on the default
+    branch). Checks: the launches; K13 against its
     plain version on every layer of that step, on the layer's own inputs
     (2e-2 relative on y2 - x and on qkv); finite logits."""
     import numpy as np
@@ -2994,6 +3294,7 @@ def phase_boundary(torch, ctx):
             with _env(env):
                 eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
                                         kv_dtype=kv, seed=0, device="cuda")
+                warm = eng.warmup()  # the branch is frozen into the graphs here
                 rng = np.random.default_rng(0)
                 for _ in range(B):
                     eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32),
@@ -3036,6 +3337,7 @@ def phase_boundary(torch, ctx):
             k13_ms = prof["device_ms_by_kind"].get("K13 layer_boundary", 0.0)
             res = {"phase": "boundary", "model": "TinyLlama-1.1B", "layers": L,
                    "method": "rtn W4 g128", "kv": kv, "branch": mode, "switch": env,
+                   "mode": "graph", "warmup_s": warm,
                    "requests": len(done), "tokens": sum(len(o) for o in outputs), "wall_s": wall,
                    "tokens_per_s": sum(len(o) for o in outputs) / wall,
                    "mean_ttft_s": m.get("mean_ttft_s"), "peak_mem_gib": peak,
@@ -3076,8 +3378,6 @@ def phase_serve_gpt2(torch, ctx):
     attention 12 a decode step, launches checked; a profile of one decode
     step; then `python -m qtpu_torch.serve --model gpt2 --kv int8` (its
     main())."""
-    import numpy as np
-
     from qtpu_torch.models import get_arch
     from qtpu_torch.models.config import GPT2_SMALL, OPT_125M
     from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
@@ -3096,45 +3396,28 @@ def phase_serve_gpt2(torch, ctx):
                                           arch=arch)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
-                                kv_dtype="int8", seed=0, device="cuda")
-        rng = np.random.default_rng(0)
-        for _ in range(B):
-            eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32),
-                       max_new_tokens=new)
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _counts()
-        routes = _route_counts()
-        m = eng.metrics()
-        steps, pre = m["decode_steps"], m["prefill_calls"]
-        expect = {k: 0 for k in WRAPPERS}
-        expect.update({"dequant_matmul": (4 * L + 1) * (steps + pre),
-                       "cache_band_write": L * steps, "decode_attention_layer": L * steps})
-        tokens = sum(len(r.output) for r in done)
-        res = {"phase": "serve_gpt2", "model": arch, "layers": L, "method": "rtn W4 g128",
-               "kv": "int8", "requests": len(done), "tokens": tokens, "wall_s": wall,
-               "tokens_per_s": tokens / wall, "mean_ttft_s": m.get("mean_ttft_s"),
-               "setup_s": setup_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "decode_steps": steps, "prefill_calls": pre, "launches": counts,
-               "expected_launches": expect, "metrics": m}
-        if len(done) != B:
-            raise AssertionError(f"{len(done)} of {B} requests finished")
-        for r in done:
-            if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
-                raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
-        if counts != expect or steps == 0:
-            raise AssertionError(f"kernel launches {counts} != expected {expect}")
-        # every decode launch of K1 took the tensor-core GEMV but GPT-2's
-        # 50257-wide lm_head (dq_core's GEMV, one a decode step)
-        _check_gemv(f"serve_{arch}", counts, routes, ragged_k1=steps if arch == "gpt2" else 0)
-        paths[f"serve_{arch}"] = {**counts, **routes}
-        del eng
+
+        def make(graphs, params=params, qmeta=qmeta, cfg=cfg):
+            return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                     kv_dtype="int8", seed=0, device="cuda", cuda_graphs=graphs)
+
+        def expect_of(steps, pre, L=L):
+            expect = {k: 0 for k in WRAPPERS}
+            expect.update({"dequant_matmul": (4 * L + 1) * (steps + pre),
+                           "cache_band_write": L * steps, "decode_attention_layer": L * steps})
+            return expect
+
+        def check(tag, counts, routes, steps, pre, arch=arch):
+            # every decode launch of K1 took the tensor-core GEMV but GPT-2's
+            # 50257-wide lm_head (dq_core's GEMV, one a decode step)
+            _check_gemv(tag, counts, routes, ragged_k1=steps if arch == "gpt2" else 0)
+
+        runs = _serve_both(torch, ctx, "serve_gpt2", make, _serve_prompts(cfg, B), new, expect_of,
+                           check, extra={"model": arch, "layers": L, "method": "rtn W4 g128",
+                                         "kv": "int8", "setup_s": setup_s})
+        g = runs["graph"]
+        res = {k: g[k] for k in ("phase", "model", "tokens_per_s", "mean_ttft_s", "decode_steps")}
+        paths[f"serve_{arch}"] = {**g["launches"], **g["routes"]}
         cache = init_cache(cfg, B, P + new + 16, quantized=True, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
         ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
@@ -3636,8 +3919,6 @@ def phase_serve_w8a8(torch, ctx):
     prefill call and decode step; a profile of one warm prefill and one
     16-step decode block; then the serve CLI's main() with --method
     smoothquant --a8 --kv int8."""
-    import numpy as np
-
     from qtpu_torch.calib import collect_calibration_stats
     from qtpu_torch.models import llama
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
@@ -3657,48 +3938,32 @@ def phase_serve_w8a8(torch, ctx):
     setup_s = time.perf_counter() - t0
     if any(len(m) != 5 for _, m in qmeta):
         raise AssertionError(f"not every site is W8A8: {qmeta}")
-    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
-    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
-                            kv_dtype="int8", seed=0, device="cuda")
-    rng = np.random.default_rng(0)
-    for _ in range(B):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
-    routes = _route_counts()
-    m = eng.metrics()
-    L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
-    expect = {"dequant_matmul": 0, "cache_band_write": L * steps, "decode_attention": L * steps,
-              "fused_mlp": 0, "flash_attention": 0, "w8a8_matmul": (7 * L + 1) * (steps + pre),
-              **NO_CODEBOOK}
-    tokens = sum(len(r.output) for r in done)
-    emit({"phase": "serve_w8a8", "routes": routes, "model": "TinyLlama-1.1B", "layers": L,
-          "method": "smoothquant W8A8 alpha 0.5", "kv": "int8", "requests": len(done),
-          "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall, "setup_s": setup_s,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "decode_steps": steps,
-          "prefill_calls": pre, "launches": counts, "expected_launches": expect,
-          "card": ctx["smi"], "metrics": m})
-    if len(done) != B:
-        raise AssertionError(f"{len(done)} of {B} requests finished")
-    for r in done:
-        if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
-    if counts != expect or steps == 0:
-        raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    # every K6 launch of a prefill (8 x 128 rows) took the Hopper route, and
-    # every one of a decode step the tensor-core GEMV
-    _check_routes("serve_w8a8", routes, k6=(7 * L + 1) * pre)
-    _check_gemv("serve_w8a8", counts, routes)
-    if routes["w8a8_matmul_gemv_tc"] != (7 * L + 1) * steps:
-        raise AssertionError(f"serve_w8a8: {routes['w8a8_matmul_gemv_tc']} K6 decode launches "
-                             f"on the tensor-core GEMV, not {(7 * L + 1) * steps}")
-    ctx.setdefault("path_launches", {})["serve_w8a8"] = {**counts, **routes}
+    B, P, new, L = SERVE_B, SERVE_PROMPT, SERVE_NEW, cfg.num_layers
+
+    def make(graphs):
+        return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                 kv_dtype="int8", seed=0, device="cuda", cuda_graphs=graphs)
+
+    def expect_of(steps, pre):
+        return {"dequant_matmul": 0, "cache_band_write": L * steps, "decode_attention": L * steps,
+                "fused_mlp": 0, "flash_attention": 0, "w8a8_matmul": (7 * L + 1) * (steps + pre),
+                **NO_CODEBOOK}
+
+    def check(tag, counts, routes, steps, pre):
+        # every K6 launch of a prefill (8 x 128 rows) took the Hopper route,
+        # and every one of a decode step the tensor-core GEMV
+        _check_routes(tag, routes, k6=(7 * L + 1) * pre)
+        _check_gemv(tag, counts, routes)
+        if routes["w8a8_matmul_gemv_tc"] != (7 * L + 1) * steps:
+            raise AssertionError(f"{tag}: {routes['w8a8_matmul_gemv_tc']} K6 decode launches "
+                                 f"on the tensor-core GEMV, not {(7 * L + 1) * steps}")
+
+    runs = _serve_both(torch, ctx, "serve_w8a8", make, _serve_prompts(cfg, B), new, expect_of,
+                       check, extra={"model": "TinyLlama-1.1B", "layers": L,
+                                     "method": "smoothquant W8A8 alpha 0.5", "kv": "int8",
+                                     "setup_s": setup_s})
+    g = runs["graph"]
+    ctx.setdefault("path_launches", {})["serve_w8a8"] = {**g["launches"], **g["routes"]}
 
     cache = init_cache(cfg, B, P + SERVE_NEW + 16, quantized=True, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3716,7 +3981,7 @@ def phase_serve_w8a8(torch, ctx):
                                                 qmeta), n, classify=_kind)
     emit({"phase": "profile_w8a8", "what": "decode", "batch": B, "decode_steps": n, **dec,
           "card": ctx["smi"]})
-    del eng, cache, params
+    del cache, params
     torch.cuda.empty_cache()
 
     _reset_counts()
@@ -3910,8 +4175,6 @@ def phase_serve_bf16(torch, ctx):
     step, no K1-K4); a profile of one warm prefill and one 16-step decode
     block; then the serve CLI's main() with --method apot at its default
     bf16 cache."""
-    import numpy as np
-
     from qtpu_torch.models import llama
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
     from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
@@ -3929,45 +4192,29 @@ def phase_serve_bf16(torch, ctx):
     params, qmeta = ctx.pop("tinyllama_pot")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
-    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
-                            kv_dtype="bfloat16", seed=0, device="cuda")
-    rng = np.random.default_rng(0)
-    for _ in range(B):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
-    routes = _route_counts()
-    m = eng.metrics()
-    L, steps, pre = cfg.num_layers, m["decode_steps"], m["prefill_calls"]
-    expect = {"dequant_matmul": 0, "cache_band_write": 0, "decode_attention": 0, "fused_mlp": 0,
-              "flash_attention": 0, "w8a8_matmul": 0,
-              "codebook_matmul": CB_PER_FORWARD * (steps + pre),
-              "decode_attention_write_bf16": L * steps, **NO_MOE}
-    tokens = sum(len(r.output) for r in done)
-    emit({"phase": "serve_bf16", "routes": routes, "model": "TinyLlama-1.1B", "layers": L,
-          "method": "pot W4 g128", "kv": "bfloat16", "requests": len(done),
-          "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall, "setup_s": setup_s,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "decode_steps": steps,
-          "prefill_calls": pre, "launches": counts, "expected_launches": expect,
-          "card": ctx["smi"], "metrics": m})
-    if len(done) != B:
-        raise AssertionError(f"{len(done)} of {B} requests finished")
-    for r in done:
-        if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
-    if counts != expect or steps == 0:
-        raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    # every prefill launch of K7 (89 a prefill of 8 x 128 rows) took the Hopper route
-    _check_routes("serve_bf16", routes, k7=CB_PER_FORWARD * pre)
-    _check_gemv("serve_bf16", counts, routes)
-    ctx.setdefault("path_launches", {})["serve_bf16"] = {**counts, **routes}
+    B, P, new, L = SERVE_B, SERVE_PROMPT, SERVE_NEW, cfg.num_layers
+
+    def make(graphs):
+        return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                 kv_dtype="bfloat16", seed=0, device="cuda", cuda_graphs=graphs)
+
+    def expect_of(steps, pre):
+        return {"dequant_matmul": 0, "cache_band_write": 0, "decode_attention": 0,
+                "fused_mlp": 0, "flash_attention": 0, "w8a8_matmul": 0,
+                "codebook_matmul": CB_PER_FORWARD * (steps + pre),
+                "decode_attention_write_bf16": L * steps, **NO_MOE}
+
+    def check(tag, counts, routes, steps, pre):
+        # every prefill launch of K7 (89 a prefill of 8 x 128 rows) took the Hopper route
+        _check_routes(tag, routes, k7=CB_PER_FORWARD * pre)
+        _check_gemv(tag, counts, routes)
+
+    runs = _serve_both(torch, ctx, "serve_bf16", make, _serve_prompts(cfg, B), new, expect_of,
+                       check, extra={"model": "TinyLlama-1.1B", "layers": L,
+                                     "method": "pot W4 g128", "kv": "bfloat16",
+                                     "setup_s": setup_s})
+    g = runs["graph"]
+    ctx.setdefault("path_launches", {})["serve_bf16"] = {**g["launches"], **g["routes"]}
 
     cache = init_cache(cfg, B, P + SERVE_NEW + 16, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3985,7 +4232,7 @@ def phase_serve_bf16(torch, ctx):
                                                 qmeta), n, classify=_kind)
     emit({"phase": "profile_bf16", "what": "decode", "batch": B, "decode_steps": n, **dec,
           "card": ctx["smi"]})
-    del eng, cache, params
+    del cache, params
     torch.cuda.empty_cache()
 
     _reset_counts()
@@ -4001,63 +4248,50 @@ MOE_PER_STEP = {"dequant_matmul": 4 * MOE_LAYERS + 1, "moe": 3 * MOE_LAYERS,
                 "attention": MOE_LAYERS}  # per forward of serve_moe's model
 
 
-def _moe_engine(torch, params, qmeta, cfg, slots, requests):
-    """A ContinuousBatcher on the int8 cache with `slots` slots answering
-    `requests` prompts of SERVE_PROMPT tokens with SERVE_NEW new tokens each;
-    returns (its result line, the requests done). Launches are counted from 0
-    just before the run."""
+def _moe_engine(torch, ctx, params, qmeta, cfg, slots, requests):
+    """ContinuousBatchers on the int8 cache with `slots` slots answering
+    `requests` prompts of SERVE_PROMPT tokens with SERVE_NEW new tokens
+    each, on CUDA graphs and eager (_serve_both); returns the graph run's
+    line. Launches are counted from 0 just before each run."""
     import numpy as np
 
     from qtpu_torch.serve.batching import ContinuousBatcher
 
-    P, new = SERVE_PROMPT, SERVE_NEW
-    eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=slots, max_seq_len=P + new,
-                            kv_dtype="int8", seed=0, device="cuda")
-    rng = np.random.default_rng(slots)
-    for _ in range(requests):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32), max_new_tokens=new)
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
-    routes = _route_counts()
-    m = eng.metrics()
-    L, steps, pre = MOE_LAYERS, m["decode_steps"], m["prefill_calls"]
+    P, new, L = SERVE_PROMPT, SERVE_NEW, MOE_LAYERS
     gathered = slots * cfg.num_experts_per_tok < cfg.num_experts
-    expect = {k: 0 for k in WRAPPERS}
-    expect.update({
-        "dequant_matmul": MOE_PER_STEP["dequant_matmul"] * (steps + pre),
-        "moe_matmul": MOE_PER_STEP["moe"] * (pre if gathered else steps + pre),
-        "moe_gathered_matmul": MOE_PER_STEP["moe"] * steps if gathered else 0,
-        "decode_attention_write": L * steps,
-    })
-    tokens = sum(len(r.output) for r in done)
-    res = {"phase": "serve_moe", "model": "Mixtral-8x7B", "layers": L, "method": "rtn W4 g128",
-           "kv": "int8", "slots": slots, "route": "gathered" if gathered else "grouped",
-           "requests": len(done), "tokens": tokens, "wall_s": wall,
-           "tokens_per_s": tokens / wall, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "decode_steps": steps, "prefill_calls": pre, "launches": counts,
-           "expected_launches": expect, "routes": routes, "metrics": m}
-    if len(done) != requests:
-        raise AssertionError(f"{len(done)} of {requests} requests finished")
-    for r in done:
-        if len(r.output) != new or not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.uid}: {len(r.output)} tokens, ids {r.output}")
-    if counts != expect or steps == 0:
-        raise AssertionError(f"kernel launches {counts} != expected {expect}")
-    # every K1 and K9 launch of a prefill (128 rows a prompt) took the Hopper route
-    _check_routes(f"serve_moe {slots} slots", routes, k1=MOE_PER_STEP["dequant_matmul"] * pre,
-                  k9=MOE_PER_STEP["moe"] * pre)
-    # and every decode launch of K1, K9 and K10 the tensor-core GEMV: at 2
-    # slots all 24 K10 launches of a step
-    seen = _check_gemv(f"serve_moe {slots} slots", counts, routes)
-    if gathered and seen["moe_gathered_matmul"] != {"tc": MOE_PER_STEP["moe"] * steps, "simt": 0}:
-        raise AssertionError(f"serve_moe {slots} slots: K10 launches {seen}")
-    return res, eng
+
+    def make(graphs):
+        return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=slots, max_seq_len=P + new,
+                                 kv_dtype="int8", seed=0, device="cuda", cuda_graphs=graphs)
+
+    def expect_of(steps, pre):
+        expect = {k: 0 for k in WRAPPERS}
+        expect.update({
+            "dequant_matmul": MOE_PER_STEP["dequant_matmul"] * (steps + pre),
+            "moe_matmul": MOE_PER_STEP["moe"] * (pre if gathered else steps + pre),
+            "moe_gathered_matmul": MOE_PER_STEP["moe"] * steps if gathered else 0,
+            "decode_attention_write": L * steps,
+        })
+        return expect
+
+    def check(tag, counts, routes, steps, pre):
+        # every K1 and K9 launch of a prefill (128 rows a prompt) took the Hopper route
+        _check_routes(tag, routes, k1=MOE_PER_STEP["dequant_matmul"] * pre,
+                      k9=MOE_PER_STEP["moe"] * pre)
+        # and every decode launch of K1, K9 and K10 the tensor-core GEMV: at 2
+        # slots all 24 K10 launches of a step
+        seen = _check_gemv(tag, counts, routes)
+        if gathered and seen["moe_gathered_matmul"] != {"tc": MOE_PER_STEP["moe"] * steps,
+                                                        "simt": 0}:
+            raise AssertionError(f"{tag}: K10 launches {seen}")
+
+    rng = np.random.default_rng(slots)
+    prompts = [rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32) for _ in range(requests)]
+    runs = _serve_both(torch, ctx, "serve_moe", make, prompts, new, expect_of, check,
+                       extra={"model": "Mixtral-8x7B", "layers": L, "method": "rtn W4 g128",
+                              "kv": "int8", "slots": slots,
+                              "route": "gathered" if gathered else "grouped"})
+    return runs["graph"]
 
 
 def phase_serve_moe(torch, ctx):
@@ -4098,14 +4332,11 @@ def phase_serve_moe(torch, ctx):
              "packed_gib": sum(t.numel() * t.element_size() for site in params["layers"].values()
                                if isinstance(site, dict) for t in site.values()) / 2**30}
     paths = ctx.setdefault("path_launches", {})
-    res, eng = _moe_engine(torch, params, qmeta, cfg, SERVE_B, SERVE_B)
-    emit({**res, **setup, "card": ctx["smi"]})
+    emit({"phase": "serve_moe", "setup": setup, "card": ctx["smi"]})
+    res = _moe_engine(torch, ctx, params, qmeta, cfg, SERVE_B, SERVE_B)
     paths["serve_moe"] = {**res["launches"], **res["routes"]}
-    del eng
-    res2, eng = _moe_engine(torch, params, qmeta, cfg, 2, 2)
-    emit({**res2, "card": ctx["smi"]})
+    res2 = _moe_engine(torch, ctx, params, qmeta, cfg, 2, 2)
     paths["serve_moe_2slots"] = {**res2["launches"], **res2["routes"]}
-    del eng
     torch.cuda.empty_cache()
 
     # where a step's time goes: one warm prefill of 8 prompts, one decode step

@@ -409,7 +409,7 @@ def _advance_length(cache: KVCache, positions, slots) -> None:
     """The cache's filled length of each sequence written at positions [B, T]
     (cache rows `slots` when given), in place."""
     ends = (positions[:, -1] + 1).to(torch.int32)
-    if slots is None:
-        cache.length = torch.maximum(cache.length, ends)
+    if slots is None:  # the same tensor, so a CUDA graph of decode steps updates it
+        torch.maximum(cache.length, ends, out=cache.length)
     else:
         cache.length[slots] = torch.maximum(cache.length[slots], ends)

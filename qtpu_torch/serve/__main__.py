@@ -6,7 +6,7 @@ Usage:
                              [--method none|rtn|awq|smoothquant|gptq|pot|apot] [--a8]
                              [--w-bit 4] [--group 64] [--kv bfloat16|int8]
                              [--requests 4] [--tokens 16] [--batch 4]
-                             [--temperature 0.0] [--device cuda|cpu]
+                             [--temperature 0.0] [--device cuda|cpu] [--http PORT]
 
 The flags and defaults are qtpu's (`python -m qtpu.serve`). GPT-2 and OPT
 (--model gpt2, opt-125m, tiny-gpt2-test, tiny-opt-test) serve with every
@@ -22,8 +22,12 @@ smoothquant and gptq calibrate on qtpu's four random batches of 64 ids
 (numpy default_rng(0..3)); --a8 serves SmoothQuant W8A8 (per-channel int8
 weights, dynamic int8 activations, kernel K6); pot and apot pack W4
 codebook sites (kernel K7). The default bf16 KV cache decodes on kernel
-K8, the int8 cache (--kv int8) on K2/K3. --http comes with the engine
-slice and raises.
+K8, the int8 cache (--kv int8) on K2/K3.
+
+--http PORT serves qtpu's HTTP API instead of the demo run (POST /generate,
+GET /health; serve/http.py): the engine is warmed first (kernel builds, a
+scratch prefill, the CUDA graphs of its decode blocks), then the server
+listens on 127.0.0.1:PORT (0: any free port) until interrupted.
 """
 
 import argparse
@@ -50,11 +54,9 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--http", type=int, default=0, metavar="PORT",
-                    help="serve an HTTP API (not ported yet)")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve an HTTP API instead of the demo run (0: any free port)")
     args = ap.parse_args(argv)
-    if args.http:
-        raise NotImplementedError("the HTTP front end comes with the engine slice")
 
     from qtpu_torch.models import get_arch, get_model_config
     from qtpu_torch.serve.batching import ContinuousBatcher
@@ -94,6 +96,8 @@ def main(argv=None) -> int:
         params, cfg, qmeta=qmeta, max_batch=args.batch, max_seq_len=args.max_seq,
         kv_dtype=args.kv, seed=args.seed, device=args.device,
     )
+    if args.http is not None:
+        return _serve_http(eng, args.http)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size, size=8 + 2 * i, dtype=np.int32)
@@ -108,6 +112,25 @@ def main(argv=None) -> int:
         f"{len(done)} requests, {total_tokens} tokens in {dt:.2f}s "
         f"({total_tokens / dt:.1f} tok/s incl. kernel builds) on {args.device}"
     )
+    return 0
+
+
+def _serve_http(eng, port: int) -> int:
+    from qtpu_torch.serve.http import ServingFrontend, make_server
+
+    # warm before opening the port, so that the first requests see warm TTFT
+    print(f"engine warmup {eng.warmup():.1f}s", flush=True)
+    frontend = ServingFrontend(eng)
+    server = make_server(frontend, port)
+    print(f"serving on http://127.0.0.1:{server.server_address[1]} "
+          "(POST /generate, GET /health)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        frontend.shutdown()
     return 0
 
 

@@ -24,8 +24,24 @@ qtpu, so pick max_seq_len = 2048 k - decode_block (32752 with decode_block
 layout serves the llama and moe arches; gpt2 and opt raise, as qtpu's layer
 scan over the stacked cache does.
 
-qtpu's `warmup()` (compiled-program zoo) and persistent compilation cache
-have no counterpart here yet.
+Decode blocks as qtpu runs them: `decode_block` steps while admissions
+are pending; with nothing queued or prefilling (qtpu's drain mode) a block
+of 64 or 32 where every active slot has at least that many tokens left.
+The block reads the engine's static device inputs `token`, `pos` and
+`temps` [max_batch], into which each block copies its host arrays; only the
+sampled ids come back, in one copy a block.
+
+On a CUDA device (cuda_graphs=True, the default) each (block size, greedy
+or sampling) decode block is a CUDA graph captured on those inputs and the
+live cache, which the graph writes in place, and replayed (serve/graphs.py;
+the sampler's generator registered with the sampling graphs). `warmup()`
+captures them before traffic, as qtpu's warmup() compiles its program zoo;
+otherwise a block is captured at its first use. A graph keeps what the
+step decided at capture: QTPU_BOUNDARY and QTPU_FUSE_NORM_RESID, read on
+each forward, are frozen into an engine's graphs as they stood when it
+captured them. A capture or replay that fails raises; the engine never
+falls back to eager blocks. Prefill stays eager. A CPU engine has nothing
+to capture and runs every block eagerly.
 """
 
 from __future__ import annotations
@@ -37,7 +53,10 @@ import numpy as np
 import torch
 
 from qtpu_torch.serve.decode import decode_multi, mixed_sample, prefill_full
+from qtpu_torch.serve.graphs import capture
 from qtpu_torch.serve.kvcache import init_cache
+
+DRAIN_BLOCKS = (64, 32)  # qtpu's drain-mode decode blocks, largest first
 
 
 @dataclass
@@ -89,6 +108,7 @@ class ContinuousBatcher:
         prefill_parallel: int | None = None,
         device="cuda",
         kv_layout: str | None = None,
+        cuda_graphs: bool = True,
     ):
         self.params = params
         self.cfg = cfg
@@ -99,7 +119,7 @@ class ContinuousBatcher:
         self.eos = eos_token
         self.device = torch.device(device)
         self.decode_block = max(1, decode_block)
-        self.prefill_chunk = max(1, prefill_chunk)
+        self.prefill_chunk = max(16, prefill_chunk)
         self.prefill_parallel = max(
             1, max_batch if prefill_parallel is None else prefill_parallel
         )
@@ -121,6 +141,54 @@ class ContinuousBatcher:
         self._uid = 0
         self.prefill_calls = 0
         self.decode_steps = 0
+        # the decode blocks' static inputs, as qtpu's programs take them
+        self.token = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
+        self.pos = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
+        self.temps = torch.zeros((max_batch,), dtype=torch.float32, device=self.device)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self.graphs = {}  # (block, sampling) -> DecodeGraph
+        self._pool = None  # the graphs' shared memory pool, made at the first capture
+
+    @property
+    def decode_blocks(self) -> list[int]:
+        """The block sizes step() runs: decode_block and the larger drain
+        blocks (those warmup() captures)."""
+        return sorted({self.decode_block} | {b for b in DRAIN_BLOCKS if b > self.decode_block})
+
+    def warmup(self, include_sampling: bool = False) -> float:
+        """Gets the engine ready for traffic, as qtpu's warmup(): builds every
+        kernel library, runs one prefill of min(16, prefill_parallel,
+        max_batch) rows of min(prefill_chunk, max_seq_len) tokens on a
+        scratch cache, and captures the greedy decode graph of each block
+        size (with include_sampling, the sampling ones too). The live cache
+        and the generator's state are left as they were, so a warmed engine
+        answers as a cold one does. Returns wall seconds."""
+        t0 = time.perf_counter()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            from qtpu_torch.kernels import _build
+
+            _build.build()
+        state = self.generator.get_state()
+        P = min(16, self.prefill_parallel, self.max_batch)
+        T = min(self.prefill_chunk, self.max_seq_len)
+        scratch = init_cache(self.cfg, P, self.cache.max_len, quantized=self.cache.quantized,
+                             device=self.device, per_layer=self.cache.per_layer)
+        logits, _ = prefill_full(
+            self.params, torch.zeros((P, T), dtype=torch.int32, device=self.device), scratch,
+            self.cfg, self.qmeta, start=torch.zeros((P,), dtype=torch.int32, device=self.device),
+            arch=self.arch, slots=torch.arange(P, device=self.device),
+        )
+        mixed_sample(logits[:, -1], torch.ones((P,), device=self.device), self.generator)
+        del scratch, logits
+        self.generator.set_state(state)
+        if self.cuda_graphs:
+            for block in self.decode_blocks:
+                for sampling in (False, True) if include_sampling else (False,):
+                    self._graph(block, sampling)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
 
     # ----------------------------------------------------------- client API
     def submit(self, prompt_ids, max_new_tokens: int = 64, temperature: float = 0.0):
@@ -239,13 +307,20 @@ class ContinuousBatcher:
 
     def step(self):
         """One engine step: admissions (one prefill chunk) and a decode
-        block for the running slots."""
+        block for the running slots; with nothing to admit, qtpu's drain
+        mode: the largest of DRAIN_BLOCKS above decode_block that every
+        active slot has tokens left for."""
         self._start_prefill()
         mid_prefill = {pf.slot for pf in self.prefilling}
         active = [i for i in self.active if i not in mid_prefill]
         if not self.prefilling:
             if active:
-                self._decode_block(active, self.decode_block)
+                block = self.decode_block
+                if not self.queue:
+                    remaining = min(self.slots[i].max_new_tokens - len(self.slots[i].output)
+                                    for i in active)
+                    block = next((b for b in DRAIN_BLOCKS if block < b <= remaining), block)
+                self._decode_block(active, block)
             return
         ids, starts, slots, ns, first_cols, ptemps = self._prefill_chunk_arrays()
         firsts = self._prefill(ids, starts, slots, first_cols, ptemps)
@@ -264,17 +339,71 @@ class ContinuousBatcher:
             tokens[i] = req.output[-1]
             pos[i] = len(req.prompt) + len(req.output) - 1
             temps[i] = req.temperature
-        return tokens, pos, temps, bool(np.any(temps > 0.0))
+        return tokens, pos, temps
 
     def _decode_block_tokens(self, active, block):
-        tokens, pos, temps, sampling = self._decode_arrays(active)
-        toks, self.cache = decode_multi(
-            self.params, self._tensor(tokens), self._tensor(pos), self.cache,
-            self._tensor(temps, torch.float32) if sampling else None,
-            self.generator, self.cfg, block, self.qmeta, arch=self.arch,
-        )
+        return self.run_decode_block(*self._decode_arrays(active), block)
+
+    def run_decode_block(self, tokens, pos, temps, block: int):
+        """One decode block of `block` steps from the host arrays tokens, pos
+        [max_batch] (int32; pos = the cache length S for an inactive slot)
+        and temps [max_batch] (f32; all 0: greedy). Returns the sampled ids
+        [max_batch, block], read back in one copy."""
+        return self.launch_decode_block(tokens, pos, temps, block).cpu().numpy()
+
+    def launch_decode_block(self, tokens, pos, temps, block: int):
+        """run_decode_block without the read-back: copies the host arrays
+        into the static inputs and replays the block's graph (eager:
+        decode_multi on them), with no host synchronization once the graph
+        exists. Returns the ids on the device (a graph's static output,
+        valid until its next replay)."""
+        sampling = bool(np.any(temps > 0.0))
+        for dst, src in ((self.token, tokens), (self.pos, pos), (self.temps, temps)):
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(src)), non_blocking=True)
+        if self.cuda_graphs:
+            toks = self._graph(block, sampling).replay()
+        else:
+            toks, self.cache = self._decode_multi(block, sampling)
         self.decode_steps += block
-        return toks.cpu().numpy()
+        return toks
+
+    def _decode_multi(self, block, sampling):
+        return decode_multi(self.params, self.token, self.pos, self.cache,
+                            self.temps if sampling else None, self.generator, self.cfg, block,
+                            self.qmeta, arch=self.arch)
+
+    def _graph(self, block, sampling):
+        """The block's CUDA graph, captured at its first use."""
+        g = self.graphs.get((block, sampling))
+        if g is None:
+            if self._pool is None:
+                self._warm_block()
+                self._pool = torch.cuda.graph_pool_handle()
+            g = capture(lambda: self._decode_multi(block, sampling)[0], self._pool,
+                        self.generator if sampling else None)
+            self.graphs[(block, sampling)] = g
+        return g
+
+    def _warm_block(self):
+        """One eager sampling step on a side stream before the first capture
+        (torch.cuda.graph's warm-up: loads the kernel libraries and sets
+        their attributes outside the capture) with every slot inactive (pos
+        = S, so the cache rows stay unwritten); the cache length, the static
+        inputs and the generator's state are restored after it."""
+        state, length = self.generator.get_state(), self.cache.length.clone()
+        saved = [t.clone() for t in (self.token, self.pos, self.temps)]
+        self.pos.fill_(self.cache.max_len)
+        self.temps.fill_(1.0)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._decode_multi(1, True)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.cache.length.copy_(length)
+        for t, v in zip((self.token, self.pos, self.temps), saved):
+            t.copy_(v)
+        torch.cuda.synchronize(self.device)
+        self.generator.set_state(state)
 
     def _apply_decode_results(self, active, toks_np, block):
         for i in active:

@@ -2,7 +2,9 @@
 
 qtpu's `decode_multi` is one compiled lax.scan with the cache donated; here
 it is a loop of decode steps that update the cache in place, the sampled
-tokens staying on the device until the caller reads the block. Random
+tokens staying on the device until the caller reads the block. Nothing in a
+block synchronizes with the host, so the engine captures a block as one
+CUDA graph (serve/graphs.py) and replays it. Random
 sampling draws from an explicit torch.Generator (qtpu's jax.random keys
 give other numbers from the same seed; greedy decoding is identical).
 """
@@ -47,8 +49,13 @@ def decode_step(params, token, pos, cache, cfg, qmeta=None, arch="llama"):
 
 
 def _categorical(logits, generator):
+    """One draw per row from softmax(logits): torch.multinomial's own
+    algorithm for a single sample (argmax of p / q, q ~ Exp(1) from
+    `generator`), so the same numbers, without its host-side checks of p,
+    which synchronize with the device and cannot run inside a CUDA graph."""
     probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def sample_token(logits, generator=None, temperature=0.0, top_k=0, top_p=0.0):

@@ -1966,3 +1966,163 @@ def test_k13_route_counters_name_the_tiles_that_ran(cuda):
         x = args[1].float()
         assert _rel(out[0].float() - x, want[0].float() - x) < 2e-2
         assert _rel(out[1], want[1]) < 2e-2
+
+
+# ---------------------------------------------------------------- the engine's CUDA graphs
+
+ENGINE_WORK = [(9, 40), (20, 12), (33, 70)]  # (prompt length, max_new_tokens): drain blocks too
+
+
+def _engine_model(width):
+    """RTN W4 fused on the card: TINY_TEST (g64), or 2 layers at TinyLlama-1.1B's
+    widths (g128)."""
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINY_TEST, TINYLLAMA_1_1B
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+
+    cfg = TINY_TEST if width == "tiny" else TINYLLAMA_1_1B.replace(num_layers=2)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    group = 64 if width == "tiny" else 128
+    return (*fuse_packed_sites(*pack_model(params, "rtn", {"w_bit": 4, "q_group_size": group})),
+            cfg)
+
+
+def _engine(model, kv, graphs, seed=0, max_batch=4):
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    params, qmeta, cfg = model
+    per_layer = kv == "int8_per_layer"
+    # per-layer: S = 2040 + 8 = 2048, so its int8 decode runs K12
+    return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=max_batch,
+                             max_seq_len=2040 if per_layer else 128,
+                             kv_dtype="bfloat16" if kv == "bfloat16" else "int8", decode_block=8,
+                             kv_layout="per_layer" if per_layer else None, seed=seed,
+                             device="cuda", cuda_graphs=graphs)
+
+
+def _served(eng, cfg):
+    """The engine's greedy outputs on ENGINE_WORK and the counter deltas
+    (every launch and route counter of the kernel wrappers) of the run."""
+    import numpy as np
+
+    from qtpu_torch.serve.graphs import counter_cells, counter_snapshot
+
+    rng = np.random.default_rng(5)
+    before = counter_snapshot()
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=m) for n, m in ENGINE_WORK]
+    eng.run()
+    torch.cuda.synchronize()
+    delta = {f"{w.__name__}.{a}": b - a0 for (w, a), a0, b
+             in zip(counter_cells(), before, counter_snapshot()) if b != a0}
+    assert all(r.done and len(r.output) == m for r, (_, m) in zip(reqs, ENGINE_WORK))
+    return [r.output for r in reqs], delta
+
+
+@pytest.mark.parametrize("kv", ["int8", "bfloat16", "int8_per_layer"])
+@pytest.mark.parametrize("width", ["tiny", "tinyllama2"])
+def test_graph_and_eager_engines_agree(cuda, width, kv):
+    """The same requests (decode blocks of 8, and drain blocks of 32 and 64)
+    on an engine that replays captured CUDA graphs and on an eager one:
+    the same greedy tokens, and the same launch and route counts."""
+    model = _engine_model(width)
+    eager = _engine(model, kv, graphs=False)
+    graph = _engine(model, kv, graphs=True)
+    assert graph.warmup() > 0.0 and eager.warmup() > 0.0
+    assert set(graph.graphs) == {(8, False), (32, False), (64, False)} and not eager.graphs
+    want, want_n = _served(eager, model[2])
+    got, got_n = _served(graph, model[2])
+    assert got == want
+    assert got_n == want_n and got_n
+    assert graph.decode_steps == eager.decode_steps
+    attention = {"int8": "cache_band_write.launches", "bfloat16":
+                 "decode_attention_write_bf16.launches",
+                 "int8_per_layer": "decode_attention_flash.launches"}[kv]
+    L = model[2].num_layers
+    assert got_n[attention] == L * graph.decode_steps
+
+
+@pytest.mark.parametrize("kv", ["int8", "bfloat16", "int8_per_layer"])
+def test_warmup_leaves_the_cache_and_generator_as_they_were(cuda, kv):
+    import numpy as np
+
+    model = _engine_model("tiny")
+    eng = _engine(model, kv, graphs=True)
+    eng.submit(np.arange(13), max_new_tokens=4)
+    eng.step()  # the prefill: the live cache holds rows
+    c = eng.cache
+    stores = lambda: [t.clone() for f in (c.k, c.v, c.k_scale, c.v_scale, (c.length,))
+                      if f is not None for t in (f if isinstance(f, tuple) else (f,))]
+    before, state = stores(), eng.generator.get_state()
+    eng.warmup(include_sampling=True)
+    torch.cuda.synchronize()
+    assert len(eng.graphs) == 6
+    assert all(torch.equal(a, b) for a, b in zip(before, stores()))
+    assert torch.equal(state, eng.generator.get_state())
+
+
+def test_a_decode_block_replays_without_a_host_sync(cuda):
+    """Staging the host arrays and replaying a whole 16-step block, greedy
+    and sampling (sampler included), under sync debug mode "error"."""
+    import numpy as np
+
+    model = _engine_model("tinyllama2")
+    eng = _engine(model, "int8", graphs=True, max_batch=8)
+    eng.warmup(include_sampling=True)
+    tokens = np.arange(8, dtype=np.int32)
+    pos = np.array([5, 9, 0, 40, 136, 3, 136, 77], np.int32)  # 136 = S: inactive
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")  # any host synchronization raises
+    try:
+        for t in (0.0, 0.7):
+            outs.append(eng.launch_decode_block(tokens, pos, np.full(8, t, np.float32), 16))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(tuple(o.shape) == (8, 16) for o in outs)
+    assert bool(((outs[1] >= 0) & (outs[1] < model[2].vocab_size)).all())
+
+
+def test_sampling_blocks_draw_anew_and_the_seed_repeats_them(cuda):
+    """The sampler's generator is registered with the sampling graphs: two
+    replays of one block from the same inputs draw different tokens, and an
+    engine of the same seed draws the same two blocks again."""
+    import numpy as np
+
+    model = _engine_model("tiny")
+    args = (np.arange(4, dtype=np.int32), np.full(4, 3, np.int32), np.full(4, 1.0, np.float32))
+    runs = []
+    for _ in range(2):
+        eng = _engine(model, "int8", graphs=True, seed=11)
+        runs.append([eng.run_decode_block(*args, 16) for _ in range(2)])
+        assert (16, True) in eng.graphs
+    assert not np.array_equal(runs[0][0], runs[0][1])
+    assert all(np.array_equal(a, b) for a, b in zip(*runs))
+
+
+def test_a_failed_capture_raises_and_nothing_runs_eager(cuda):
+    """A step that synchronizes with the host cannot be captured: the engine
+    raises and keeps no graph (in a process of its own, since a failed
+    capture can leave the thread on the capture stream)."""
+    import subprocess
+    import sys
+
+    code = """
+import numpy as np, torch, pytest
+import qtpu_torch.serve.batching as tb
+from qtpu_torch.models import llama
+from qtpu_torch.models.config import TINY_TEST as cfg
+inner = tb.decode_multi
+def syncing(*a, **k):
+    out = inner(*a, **k)
+    out[0].sum().item()
+    return out
+tb.decode_multi = syncing
+eng = tb.ContinuousBatcher(llama.init_params(cfg, device="cuda"), cfg, max_batch=2,
+                           max_seq_len=64, kv_dtype="int8", device="cuda")
+with pytest.raises(RuntimeError):
+    eng.warmup()
+assert not eng.graphs
+print("raised")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0 and "raised" in out.stdout, out.stdout + out.stderr

@@ -167,15 +167,113 @@ def test_sampling_modes():
     assert mixed_sample(logits, None).tolist() == logits.argmax(-1).tolist()
 
 
-def test_serve_cli_on_cpu(capsys):
+def test_serve_cli_on_cpu(capsys, monkeypatch):
     assert serve_main(["--device", "cpu", "--kv", "int8", "--requests", "2", "--tokens", "3",
                        "--batch", "2"]) == 0
     out = capsys.readouterr().out
     assert "packed model with rtn W4 g64" in out and "2 requests, 6 tokens" in out
-    with pytest.raises(NotImplementedError, match="engine slice"):
-        serve_main(["--device", "cpu", "--http", "8080"])
+    # --http warms the engine and opens the front end (serve_forever stubbed
+    # to return at once; the server and the engine thread are shut down)
+    from qtpu_torch.serve.http import ThreadingHTTPServer
+
+    served = []
+    monkeypatch.setattr(ThreadingHTTPServer, "serve_forever",
+                        lambda self, *a, **k: served.append(self.server_address[1]))
+    assert serve_main(["--device", "cpu", "--http", "0"]) == 0
+    out = capsys.readouterr().out
+    assert "engine warmup" in out and f"serving on http://127.0.0.1:{served[0]}" in out
+    assert served[0] > 0
     packed, qmeta = pack_model(llama.init_params(CFG, device="cpu"), "apot", {"w_bit": 4})
     assert set(packed["layers"]["q_proj"]) == {"data", "scales", "codebook"}
     assert dict(qmeta)["lm_head"] == (4, 128, CFG.hidden_size, CFG.vocab_size)
     with pytest.raises(ValueError, match="w_bit=4 only"):  # codebooks are 4-bit
         pack_model(llama.init_params(CFG, device="cpu"), "pot", {"w_bit": 8})
+
+
+def _engine_outputs(packed, warm, temps):
+    """Outputs of a fresh int8-KV engine (seed 3) on three prompts at the
+    given temperatures, warmed first or not; and the engine."""
+    params, qmeta = packed
+    eng = ContinuousBatcher(params, CFG, qmeta=qmeta, max_batch=2, max_seq_len=96,
+                            kv_dtype="int8", decode_block=4, seed=3, device="cpu")
+    if warm:
+        assert eng.warmup() > 0.0
+    reqs = [eng.submit(np.random.default_rng(30 + i).integers(0, CFG.vocab_size, 6 + i),
+                       max_new_tokens=9, temperature=t) for i, t in enumerate(temps)]
+    eng.run()
+    return [r.output for r in reqs], eng
+
+
+@pytest.mark.parametrize("temps", [(0.0, 0.0, 0.0), (0.0, 0.8, 0.0)])
+def test_warmed_engine_answers_as_a_cold_one(packed, temps):
+    """warmup() runs its prefill on a scratch cache and puts the generator's
+    state back: greedy requests, and one at temperature 0.8 from the same
+    seed, come out the same (as tests/test_serve.py holds qtpu's)."""
+    cold, _ = _engine_outputs(packed, False, temps)
+    warm, _ = _engine_outputs(packed, True, temps)
+    assert warm == cold
+    assert all(len(o) == 9 for o in cold)
+
+
+@pytest.mark.parametrize("kv_layout", ["stacked", "per_layer"])
+def test_warmup_leaves_the_cache_and_generator_as_they_were(packed, kv_layout):
+    params, qmeta = packed
+    eng = ContinuousBatcher(params, CFG, qmeta=qmeta, max_batch=2, max_seq_len=64,
+                            kv_dtype="int8", kv_layout=kv_layout, device="cpu")
+    eng.submit(np.arange(7) % CFG.vocab_size, max_new_tokens=3)
+    eng.step()  # a prefill: the live cache holds rows
+    stores = lambda c: [t.clone() for f in (c.k, c.v, c.k_scale, c.v_scale, (c.length,))
+                        for t in (f if isinstance(f, tuple) else (f,))]
+    before, state = stores(eng.cache), eng.generator.get_state()
+    assert any(bool(t.any()) for t in before)
+    dt = eng.warmup(include_sampling=True)
+    assert dt > 0.0 and not eng.graphs  # a CPU engine captures nothing
+    assert all(torch.equal(a, b) for a, b in zip(before, stores(eng.cache)))
+    assert torch.equal(state, eng.generator.get_state())
+
+
+@pytest.mark.parametrize("chunk,want", [(1, 16), (8, 16), (16, 16), (40, 40), (256, 256)])
+def test_prefill_chunk_is_clamped_as_qtpus(packed, chunk, want):
+    """qtpu's engine takes prefill_chunk = max(16, prefill_chunk)."""
+    from qtpu.serve import ContinuousBatcher as JBatcher
+
+    params, qmeta = packed
+    eng = ContinuousBatcher(params, CFG, qmeta=qmeta, max_batch=2, max_seq_len=64,
+                            prefill_chunk=chunk, device="cpu")
+    jeng = JBatcher({}, J_TINY, max_batch=2, max_seq_len=64, prefill_chunk=chunk)
+    assert eng.prefill_chunk == jeng.prefill_chunk == want
+
+
+def test_drain_mode_blocks_match_qtpu(monkeypatch):
+    """The sizes of the pure-decode blocks (decode_multi calls with nothing
+    prefilling) of the port's engine equal qtpu's on one workload: 8 while a
+    request waits, then 32 and 64 where every active slot has that many
+    tokens left (qtpu/serve/batching.py, step())."""
+    import jax
+
+    import qtpu.serve.batching as jb
+    import qtpu_torch.serve.batching as tb
+    from qtpu.models import init_params as j_init
+
+    work = [(5, 170), (7, 45), (6, 10)]  # (prompt length, max_new_tokens)
+
+    def drive(mod, params, cfg, **kw):
+        eng = mod.ContinuousBatcher(params, cfg, max_batch=2, max_seq_len=200, decode_block=8,
+                                    prefill_chunk=16, **kw)
+        blocks, inner = [], mod.decode_multi
+
+        def recorded(*args, **kwargs):
+            if not isinstance(args[1], jax.core.Tracer) and not eng.prefilling:
+                blocks.append(args[7])
+            return inner(*args, **kwargs)
+
+        monkeypatch.setattr(mod, "decode_multi", recorded)
+        reqs = [eng.submit(np.arange(n) % cfg.vocab_size, max_new_tokens=m) for n, m in work]
+        eng.run()
+        assert all(r.done and len(r.output) == m for r, (_, m) in zip(reqs, work))
+        return blocks
+
+    want = drive(jb, j_init(J_TINY, jax.random.PRNGKey(0)), J_TINY)
+    got = drive(tb, llama.init_params(CFG, seed=0, device="cpu"), CFG, device="cpu")
+    assert got == want
+    assert {8, 32, 64} <= set(got), got
