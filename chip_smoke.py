@@ -184,6 +184,19 @@ Phases, each printing one JSON line:
            (8 requests), 400 on {} and 404 on an unknown path; then `python
            -m qtpu_torch.serve --model tiny-test --kv int8 --http 0` in a
            process of its own: its "serving on" line, one request, SIGINT
+  ckpt     real models in, packed artifacts out, at full width: a
+           TinyLlama-1.1B Hugging Face checkpoint (config.json from the
+           preset, bf16 random weights from seed 0, two safetensors shards
+           and their index) written by this script; config_from_hf against
+           the preset and load_checkpoint to the card against the written
+           tensors, bit for bit (GB/s); `python -m qtpu_torch.bench` (main()
+           in this process) with checkpoint_path, RTN W4 g128, packed_eval,
+           2 fixture blocks of 2048 and save_artifacts, held to eval's rules
+           (K1 on the Hopper route, K5 on its Hopper body); load_quantized
+           to the card against pack_model in this process, bit for bit; 8
+           requests of 128 + 32 greedy tokens on the int8 cache on the
+           loaded artifact and on the in-process params: the same tokens,
+           K1-K4 launches as the serve phase reckons them
 
 Launch counters under CUDA graphs: a replay runs no Python, so the engine
 adds to every wrapper's counters, on each replay, what the capture of that
@@ -207,7 +220,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
           "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16", "serve_moe",
-          "http")
+          "http", "ckpt")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -321,7 +334,13 @@ def _packed(torch, L, K, N, bits, group, gen, dev, symmetric=False):
 
 
 def _bits_equal(torch, a, b) -> bool:
-    return bool((a.view(torch.int16) == b.view(torch.int16)).all())
+    """Same dtype, shape and bits (floats compared as integers: -0.0, NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
+    return torch.equal(a, b)
 
 
 def _route_taken(torch, wrapper, call):
@@ -2720,6 +2739,23 @@ def _serve_prompts(cfg, n, seed=0):
     return [rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT, dtype=np.int32) for _ in range(n)]
 
 
+def _serve_launches(L, steps, pre):
+    """The serve cell's launches (a llama of L layers, RTN W4 fused sites,
+    int8 KV) over `steps` decode steps and `pre` prefill calls: K1 on qkv
+    and o of each layer and the lm_head a step, on 4 sites a layer and the
+    lm_head a prefill; K2, K3 and K4 once a layer a step."""
+    return {"dequant_matmul": (2 * L + 1) * steps + (4 * L + 1) * pre,
+            "cache_band_write": L * steps, "decode_attention": L * steps,
+            "fused_mlp": L * steps, "flash_attention": 0, "w8a8_matmul": 0, **NO_CODEBOOK}
+
+
+def _check_serve_routes(tag, counts, routes, L, pre):
+    # every prefill launch of K1 (88 + 1 a prefill of 8 x 128 rows) took the Hopper route
+    _check_routes(tag, routes, k1=(4 * L + 1) * pre)
+    # and every decode launch of K1 and K4 the tensor-core GEMV
+    _check_gemv(tag, counts, routes)
+
+
 def phase_serve(torch, ctx):
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
     from qtpu_torch.serve.batching import ContinuousBatcher
@@ -2735,15 +2771,10 @@ def phase_serve(torch, ctx):
                                  kv_dtype="int8", seed=0, device="cuda", cuda_graphs=graphs)
 
     def expect_of(steps, pre):
-        return {"dequant_matmul": (2 * L + 1) * steps + (4 * L + 1) * pre,
-                "cache_band_write": L * steps, "decode_attention": L * steps,
-                "fused_mlp": L * steps, "flash_attention": 0, "w8a8_matmul": 0, **NO_CODEBOOK}
+        return _serve_launches(L, steps, pre)
 
     def check(tag, counts, routes, steps, pre):
-        # every prefill launch of K1 (88 + 1 a prefill of 8 x 128 rows) took the Hopper route
-        _check_routes(tag, routes, k1=(4 * L + 1) * pre)
-        # and every decode launch of K1 and K4 the tensor-core GEMV
-        _check_gemv(tag, counts, routes)
+        _check_serve_routes(tag, counts, routes, L, pre)
 
     runs = _serve_both(torch, ctx, "serve", make, _serve_prompts(cfg, B), new, expect_of, check,
                        extra={"model": "TinyLlama-1.1B", "layers": L, "method": "rtn W4 g128",
@@ -4381,6 +4412,279 @@ def phase_serve_moe(torch, ctx):
         raise AssertionError(f"the serve CLI run failed: rc {rc}, launches {cli}")
 
 
+CKPT_TEST_BLOCKS = 2  # the ckpt phase's bench: 2 test blocks of 2048
+CKPT_MODEL_NAME = "TinyLlama-1.1B-local"  # no preset: the checkpoint's config.json rules
+
+
+def _write_safetensors(path, tensors) -> int:
+    """One safetensors file of bf16 CPU tensors: the 8-byte little-endian
+    header length, the JSON header (padded to 8 bytes), the raw bytes.
+    Returns the file's bytes."""
+    import torch
+
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little") + h)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.int16).numpy())
+    return 8 + len(h) + off
+
+
+def _write_hf_llama(torch, d, cfg, seed=0, device="cuda"):
+    """A Hugging Face Llama checkpoint of cfg's shape in directory d:
+    config.json under HF's LlamaConfig keys, bf16 random weights [out, in]
+    (std 0.02; norms 1 + 0.1 N(0, 1)) drawn on `device` from a seeded
+    torch.Generator, in two safetensors shards named by
+    model.safetensors.index.json. Returns ({name: tensor on `device`},
+    the files' bytes)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+
+    def norm(n):
+        return (1 + 0.1 * torch.randn(n, generator=gen, device=device)).to(torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": w(V, D)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t.update({p + "input_layernorm.weight": norm(D),
+                  p + "post_attention_layernorm.weight": norm(D),
+                  p + "self_attn.q_proj.weight": w(cfg.q_dim, D),
+                  p + "self_attn.k_proj.weight": w(cfg.kv_dim, D),
+                  p + "self_attn.v_proj.weight": w(cfg.kv_dim, D),
+                  p + "self_attn.o_proj.weight": w(D, cfg.q_dim),
+                  p + "mlp.gate_proj.weight": w(F, D), p + "mlp.up_proj.weight": w(F, D),
+                  p + "mlp.down_proj.weight": w(D, F)})
+    t["model.norm.weight"] = norm(D)
+    t["lm_head.weight"] = w(V, D)
+    names = list(t)
+    shards = {"model-00001-of-00002.safetensors": names[:len(names) // 2],
+              "model-00002-of-00002.safetensors": names[len(names) // 2:]}
+    nbytes = sum(_write_safetensors(d / f, {n: t[n].cpu() for n in ns})
+                 for f, ns in shards.items())
+    (d / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": sum(x.numel() * 2 for x in t.values())},
+         "weight_map": {n: f for f, ns in shards.items() for n in ns}}))
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": V,
+        "hidden_size": D, "intermediate_size": F, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+        "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": False,
+        "hidden_act": "silu", "torch_dtype": "bfloat16"}))
+    return t, nbytes
+
+
+def _tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tree_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def phase_ckpt(torch, ctx):
+    """Real models in, packed artifacts out, at full width: (a) a
+    TinyLlama-1.1B HF checkpoint written in two safetensors shards; (b)
+    config_from_hf against the preset and load_checkpoint to the card
+    against the written tensors, bit for bit; (c) `python -m
+    qtpu_torch.bench` (main() in this process) on it with checkpoint_path,
+    RTN W4 g128, packed_eval, 2 test blocks of 2048 from the fixture and
+    save_artifacts, held to phase_eval's rules; (d) load_quantized to the
+    card against pack_model of the same params in this process, bit for
+    bit; (e) 8 requests of 128 + 32 greedy tokens on the int8 cache, on the
+    loaded artifact and on the in-process packed params: the same tokens,
+    the launches as the serve phase reckons them."""
+    import dataclasses
+    import tempfile
+
+    from qtpu_torch.bench.__main__ import main as bench_main
+    from qtpu_torch.ckpt import load_quantized, save_quantized
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.models.hf_import import config_from_hf, load_checkpoint
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    L, nb = cfg.num_layers, CKPT_TEST_BLOCKS
+    out = {"phase": "ckpt", "model": "TinyLlama-1.1B", "layers": L}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        hf_dir, art = tmp / "hf", tmp / "artifact"
+        hf_dir.mkdir()
+        # (a) the checkpoint
+        t0 = time.perf_counter()
+        written, ck_bytes = _write_hf_llama(torch, hf_dir, cfg)
+        torch.cuda.synchronize()
+        out["write_s"], out["checkpoint_bytes"] = time.perf_counter() - t0, ck_bytes
+
+        # (b) its config and its import to the card, bit for bit
+        # every field but those only the moe arch reads (norm_topk_prob's
+        # default differs: qtpu's rule reads it as False off Mixtral)
+        got_cfg = config_from_hf(str(hf_dir))
+        moe_only = {"num_experts", "num_experts_per_tok", "norm_topk_prob",
+                    "shared_expert_intermediate_size"}
+        differ = [f.name for f in dataclasses.fields(cfg) if f.name not in moe_only
+                  and getattr(got_cfg, f.name) != getattr(cfg, f.name)]
+        out["config_fields_checked"] = len(dataclasses.fields(cfg)) - len(moe_only)
+        if differ or got_cfg.num_experts != 0:
+            raise AssertionError(f"config_from_hf {got_cfg} != the preset {cfg} on {differ}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, tokenizer = load_checkpoint(str(hf_dir), device="cuda")
+        torch.cuda.synchronize()
+        out["import_s"] = time.perf_counter() - t0
+        out["import_gb_per_s"] = ck_bytes / out["import_s"] / 1e9
+        lay = params["layers"]
+        pairs = [(params["embed"], written["model.embed_tokens.weight"]),
+                 (params["final_norm"], written["model.norm.weight"]),
+                 (params["lm_head"]["w"], written["lm_head.weight"].T)]
+        sites = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+                 "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+                 "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+                 "down_proj": "mlp.down_proj"}
+        for i in range(L):
+            p = f"model.layers.{i}."
+            pairs += [(lay["attn_norm"][i], written[p + "input_layernorm.weight"]),
+                      (lay["mlp_norm"][i], written[p + "post_attention_layernorm.weight"])]
+            pairs += [(lay[s]["w"][i], written[p + hf + ".weight"].T) for s, hf in sites.items()]
+        n_leaves = len(_tree_leaves(params))
+        bad = sum(not (a.is_cuda and _bits_equal(torch, a, b)) for a, b in pairs)
+        out["import_bit_equal"] = {"tensors": len(pairs), "differ": bad, "leaves": n_leaves}
+        if bad or tokenizer is not None or n_leaves != 3 + 2 + 7:
+            raise AssertionError(f"the import differs from the written checkpoint: "
+                                 f"{out['import_bit_equal']}, tokenizer {tokenizer}")
+        del written, pairs
+        torch.cuda.empty_cache()
+
+        # (c) the benchmark on the checkpoint, saving its RTN artifact
+        fixture = f"fixture:{FIXTURE_DIR}"
+        config = {
+            "model_name": CKPT_MODEL_NAME, "checkpoint_path": str(hf_dir),
+            "quantization_methods": ["rtn"],
+            "calibration_dataset": fixture, "n_calibration_samples": 4,
+            "calibration_block_size": 512,
+            "test_dataset": fixture, "n_test_samples": nb, "test_block_size": EVAL_BLOCK,
+            "quantization_config": {"rtn": dict(EVAL_MCFG)}, "packed_eval": True,
+            "save_artifacts": {"dir": str(art), "method": "rtn"},
+            "seed": 0, "device": "cuda", "verbose": True,
+        }
+        cfg_path, res_path = tmp / "config.json", tmp / "results.json"
+        cfg_path.write_text(json.dumps(config))
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = bench_main([str(cfg_path), "--out", str(res_path)])
+        torch.cuda.synchronize()
+        out["bench_s"] = time.perf_counter() - t0
+        counts, routes = _counts(), _route_counts()
+        res = json.loads(res_path.read_text())["results"]
+        raw, rt = res.get("raw", {}), res.get("rtn", {})
+        ppl = {"raw": raw.get("perplexity"), "rtn": rt.get("perplexity"),
+               "packed": rt.get("packed_perplexity")}
+        expect = {"dequant_matmul": (4 * L + 1) * nb, "cache_band_write": 0,
+                  "decode_attention": 0, "fused_mlp": 0,
+                  "flash_attention": 3 * nb * L,  # raw, fake-quant and packed evals
+                  "w8a8_matmul": 0, **NO_CODEBOOK}
+        out.update({"rc": rc, "perplexity": ppl, "model_size_mb": rt.get("model_size_mb"),
+                    "bits_per_byte": rt.get("bits_per_byte"),
+                    "runtime_s": {k: v.get("runtime_seconds") for k, v in res.items()},
+                    "errors": {k: v.get("error") or v.get("packed_error")
+                               for k, v in res.items()},
+                    "launches": counts, "expected_launches": expect, "routes": routes})
+        if rc != 0 or any(out["errors"].values()) or set(res) != {"raw", "rtn"}:
+            raise AssertionError(f"the benchmark on the checkpoint failed: {out['errors']}")
+        if not all(x is not None and math.isfinite(x) for x in ppl.values()):
+            raise AssertionError(f"perplexities not finite: {ppl}")
+        if abs(ppl["packed"] / ppl["rtn"] - 1) >= 1e-2:
+            raise AssertionError(f"packed perplexity not within 1% of fake-quant: {ppl}")
+        if round(out["model_size_mb"], 2) != 68.13 or round(out["bits_per_byte"], 3) != 2.078:
+            raise AssertionError(f"size accounting {out['model_size_mb']} MB, "
+                                 f"{out['bits_per_byte']} bits per byte != 68.13 / 2.078")
+        if counts != expect:
+            raise AssertionError(f"ckpt bench: kernel launches {counts} != expected {expect}")
+        # every K1 launch of a packed eval block (M 2048) took the Hopper
+        # route, every K5 launch its Hopper body
+        _check_routes("ckpt bench", routes, k1=(4 * L + 1) * nb)
+        _check_gemv("ckpt bench", counts, routes)
+        ctx.setdefault("path_launches", {})["ckpt_bench"] = {**counts, **routes}
+
+        # (d) the saved artifact (the run logs a failed save and carries on:
+        # its files are the proof), loaded to the card, against pack_model of
+        # the same params in this process
+        if not ((art / "meta.json").is_file() and (art / "params.npz").is_file()):
+            raise AssertionError(f"the benchmark saved no artifact in {art}")
+        out["artifact_bytes"] = sum(f.stat().st_size for f in art.iterdir())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, qmeta_l, meta = load_quantized(art, device="cuda")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        packed, qmeta = pack_model(params, "rtn", EVAL_MCFG)
+        del params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_quantized(tmp / "resaved", packed, qmeta, meta)
+        out["save_s"] = time.perf_counter() - t0
+        la, lb = _tree_leaves(loaded), _tree_leaves(packed)
+        differ = sorted(k for k in lb if k not in la or not (
+            la[k].is_cuda and _bits_equal(torch, la[k], lb[k])))
+        out["artifact_bit_equal"] = {"leaves": len(lb), "differ": differ,
+                                     "qmeta_equal": qmeta_l == qmeta, "meta": meta}
+        if sorted(la) != sorted(lb) or differ or qmeta_l != qmeta or meta != {
+                "method": "rtn", "model": CKPT_MODEL_NAME, **EVAL_MCFG}:
+            raise AssertionError(f"the loaded artifact differs from pack_model in process: "
+                                 f"{out['artifact_bit_equal']}")
+
+    # (e) greedy serving on the loaded artifact and on the in-process params
+    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    prompts = _serve_prompts(cfg, B)
+    serve, outs = {}, {}
+    for name, tree, qm in (("artifact", loaded, qmeta_l), ("in_process", packed, qmeta)):
+        fp, fq = fuse_packed_sites(tree, qm)
+        eng = ContinuousBatcher(fp, cfg, qmeta=fq, max_batch=B, max_seq_len=P + new,
+                                kv_dtype="int8", seed=0, device="cuda")
+        warm = eng.warmup()
+        reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes, m = _counts(), _route_counts(), eng.metrics()
+        steps, pre = m["decode_steps"], m["prefill_calls"]
+        expect = _serve_launches(L, steps, pre)
+        serve[name] = {"warmup_s": warm, "wall_s": wall,
+                       "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+                       "decode_steps": steps, "prefill_calls": pre, "launches": counts}
+        if counts != expect or steps == 0:
+            raise AssertionError(f"ckpt serve {name}: kernel launches {counts} != {expect}")
+        _check_serve_routes(f"ckpt serve {name}", counts, routes, L, pre)
+        ctx["path_launches"][f"ckpt_serve_{name}"] = {**counts, **routes}
+        outs[name] = [r.output for r in reqs]
+        if any(len(o) != new for o in outs[name]):
+            raise AssertionError(f"ckpt serve {name}: outputs {outs[name]}")
+        del eng, fp
+        torch.cuda.empty_cache()
+    out["serve"] = serve
+    out["greedy_tokens_equal"] = outs["artifact"] == outs["in_process"]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({**out, "card": ctx["smi"]})
+    if not out["greedy_tokens_equal"]:
+        raise AssertionError(f"ckpt: the artifact's greedy tokens differ from the in-process "
+                             f"params': {outs}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4416,8 +4720,8 @@ def main(argv=None) -> int:
     if "kernel_rows" in ctx:
         # launches: the sum over the main paths' runs (serve, long_ctx,
         # serve_gpt2's two models, eval, quant, serve_w8a8, pot_apot,
-        # serve_bf16, serve_moe's two engines), each counted from 0 just
-        # before it
+        # serve_bf16, serve_moe's two engines, ckpt's bench and two
+        # engines), each counted from 0 just before it
         # gemv_tc_launches: those of them on the tensor-core GEMV (the
         # decode launches of K1, K4, K6, K7, K9 and every K10 launch)
         paths = ctx.get("path_launches", {}).values()

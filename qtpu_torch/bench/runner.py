@@ -14,10 +14,16 @@ statistics are collected once and reused; GPTQ with error compensation
 collects them again with the true Hessians when the first collection had
 none (qtpu's rule).
 
+With "checkpoint_path" the model is a local Hugging Face checkpoint
+(params, tokenizer and model config from its directory, on the run's
+device); with "save_artifacts" = {"dir", "method"} the run ends by saving
+that method's packed artifact (qtpu_torch.ckpt), a failed save logged and
+the run carried on, as in qtpu.
+
 What the port does not have yet is refused by `setup` with
 NotImplementedError naming its slice (`refuse_unported`), never recorded
-as a per-method error row: a mesh above one device, checkpoints, artifacts,
-trace profiling and MoE models.
+as a per-method error row: a mesh above one device, trace profiling and
+MoE models (a preset's or a checkpoint's).
 
 CLI:  python -m qtpu_torch.bench <config.json> [--out results.json] [--device cpu]
 """
@@ -34,12 +40,14 @@ import torch
 
 from qtpu_torch.bench.results import BenchmarkResult
 from qtpu_torch.calib import collect_calibration_stats
+from qtpu_torch.ckpt import save_quantized
 from qtpu_torch.configs import load_config, validate_config
 from qtpu_torch.core.dtypes import MiB, resolve_dtype
 from qtpu_torch.core.sizing import count_params, get_model_size
 from qtpu_torch.data import get_calibration_dataset, get_test_dataset
 from qtpu_torch.eval import evaluate_perplexity
 from qtpu_torch.models import get_arch, get_model_config
+from qtpu_torch.models.hf_import import config_from_hf, load_checkpoint
 from qtpu_torch.quant.apply import (
     CALIBRATED_METHODS,
     fold_smooth,
@@ -55,9 +63,10 @@ SERVE_WARM_STEPS = 2
 SERVE_STEPS = 32
 
 
-def refuse_unported(config: dict, device: torch.device) -> None:
+def refuse_unported(config: dict, device: torch.device, arch: str) -> None:
     """Raise NotImplementedError, naming the slice of the port, for what a
-    validated config asks that the port does not do yet."""
+    validated config asks that the port does not do yet, on a model of
+    `arch` (a checkpoint's own, else the preset's of model_name)."""
     mesh = config.get("mesh") or {}
     tp, pp = int(mesh.get("model", 1)), int(mesh.get("pipe", 1))
     dp = int(mesh.get("data", 1))
@@ -68,17 +77,13 @@ def refuse_unported(config: dict, device: torch.device) -> None:
         raise NotImplementedError(
             f"mesh data={dp} x model={tp} x pipe={pp} is not ported yet (sharding slice)"
         )
-    if get_model_config(config["model_name"]).arch == "moe":
+    if arch == "moe":
         raise NotImplementedError(
             "the benchmark on MoE models (routed calibration, expert sizing) is not ported yet "
             "(MoE-methods slice)")
-    for key, what in (
-        ("checkpoint_path", "loading local HF checkpoints (hf_import slice)"),
-        ("save_artifacts", "saving packed artifacts (checkpoints slice)"),
-        ("profile_dir", "trace profiling of the eval (utils slice)"),
-    ):
-        if config.get(key):
-            raise NotImplementedError(f"'{key}': {what} is not ported yet")
+    if config.get("profile_dir"):
+        raise NotImplementedError(
+            "'profile_dir': trace profiling of the eval (utils slice) is not ported yet")
 
 
 class QuantizationBenchmark:
@@ -109,15 +114,22 @@ class QuantizationBenchmark:
     # ------------------------------------------------------------- setup
     def setup(self):
         cfg = self.config
-        refuse_unported(cfg, self.device)
+        ckpt = cfg.get("checkpoint_path")
+        # a local HF checkpoint's model config (and arch) is its own,
+        # whatever the run's model_name
+        self.model_cfg = config_from_hf(ckpt) if ckpt else get_model_config(cfg["model_name"])
+        refuse_unported(cfg, self.device, self.model_cfg.arch)
         self.log(f"Setting up benchmark for {cfg['model_name']} on {self.device}...")
         dtype = resolve_dtype(cfg.get("dtype", "bfloat16"))
-        self.model_cfg = get_model_config(cfg["model_name"])
         self.arch = get_arch(self.model_cfg.arch)
-        self.params = self.arch.init_params(
-            self.model_cfg, seed=cfg.get("seed", 0), device=self.device, dtype=dtype
-        )
-        self.tokenizer = None
+        if ckpt:
+            self.params, self.tokenizer = load_checkpoint(ckpt, self.model_cfg, dtype,
+                                                          device=self.device)
+        else:
+            self.params = self.arch.init_params(
+                self.model_cfg, seed=cfg.get("seed", 0), device=self.device, dtype=dtype
+            )
+            self.tokenizer = None
         self.test_dataset = get_test_dataset(
             self.tokenizer,
             cfg["test_dataset"],
@@ -321,7 +333,29 @@ class QuantizationBenchmark:
             self.benchmark_method(method)
         if self.config.get("serving", {}).get("benchmark", False):
             self.benchmark_serving()
+        art = self.config.get("save_artifacts")
+        if art:
+            try:
+                self.save_artifacts(art["dir"], art.get("method", "rtn"))
+            except Exception as e:  # qtpu's rule: a failed save is logged, the run goes on
+                traceback.print_exc()
+                self.log(f"✗ artifact save failed: {e}")
         self.print_summary()
+
+    def save_artifacts(self, out_dir: str, method: str):
+        """Save the packed artifact of one method (qtpu_torch.ckpt, qtpu's
+        format), so calibration decouples from serving. Configured by
+        config["save_artifacts"] = {"dir": ..., "method": ...}. The sites
+        are saved as pack_model gives them (unfused), as qtpu saves them."""
+        mcfg = self.config["quantization_config"][method]
+        needs_stats = method in ("awq", "smoothquant", "gptq")
+        if needs_stats:
+            self._prepare_activations(need_hessian=False)
+        packed, qmeta = pack_model(self.params, method, mcfg,
+                                   self.stats if needs_stats else None, arch=self.model_cfg.arch)
+        save_quantized(out_dir, packed, qmeta,
+                       {"method": method, "model": self.config["model_name"], **mcfg})
+        self.log(f"Packed {method} artifact saved to {out_dir}")
 
     # ---------------------------------------------------------- reporting
     def print_summary(self):

@@ -231,7 +231,7 @@ def test_synthetic_stream_byte_identical():
     assert [b.tobytes() for b in got] == [b.tobytes() for b in want]
 
 
-def test_pipeline_equals_qtpu():
+def test_pipeline_equals_qtpu(monkeypatch):
     fx = f"fixture:{FIXTURE}"
     args = dict(n_samples=4, block_size=512, vocab_size=32000)
     got = pipeline.get_calibration_dataset(None, fx, None, "validation", **args)
@@ -244,8 +244,22 @@ def test_pipeline_equals_qtpu():
     got = pipeline.get_test_dataset(None, "wikitext", None, "test", 2, 64, 512)
     want = jpipeline.get_test_dataset(None, "wikitext", None, "test", 2, 64, 512)
     assert got.tobytes() == want.tobytes()
-    with pytest.raises(NotImplementedError, match="hf_import slice"):
-        pipeline.get_test_dataset(object(), "wikitext", None, "test", 2, 64, 512)
+    # with a tokenizer, a named dataset comes from `datasets.load_dataset`
+    # (both packages import it on that branch), here an in-memory one
+    datasets = pytest.importorskip("datasets")
+    rows = datasets.Dataset.from_dict({"text": ["ab cde", "", "f gh ijkl"]})
+    monkeypatch.setattr(datasets, "load_dataset", lambda *a, split=None: rows)
+
+    class Words:
+        def __call__(self, text, return_tensors=None):
+            out = type("R", (), {})()
+            out.input_ids = np.asarray([[len(w) for w in text.split()]], np.int64)
+            return out
+
+    got = pipeline.get_test_dataset(Words(), "wikitext", None, "test", 2, 64, 512)
+    want = jpipeline.get_test_dataset(Words(), "wikitext", None, "test", 2, 64, 512)
+    assert got.dtype == np.int32 and got.tolist() == [[2, 3, 1, 2, 4]]
+    assert got.tobytes() == want.tobytes()
 
 
 def test_fixture_files_equal_qtpu(tmp_path):
@@ -382,8 +396,6 @@ def test_runner_sweeps_w_bit():
 @pytest.mark.parametrize("extra,match", [
     ({"profile_dir": "x"}, "utils slice"),
     ({"mesh": {"data": 2, "model": 1, "pipe": 1}}, "sharding slice"),
-    ({"checkpoint_path": "/nonexistent"}, "hf_import slice"),
-    ({"save_artifacts": {"dir": "x", "method": "rtn"}}, "checkpoints slice"),
 ])
 def test_runner_refuses_what_is_not_ported(extra, match):
     bench = QuantizationBenchmark(dict(RUN_CONFIG, **extra))

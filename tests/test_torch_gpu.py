@@ -2126,3 +2126,121 @@ print("raised")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0 and "raised" in out.stdout, out.stdout + out.stderr
+
+
+def _write_hf_llama_2layer(d, cfg, gen):
+    """A 2-layer HF Llama checkpoint of cfg's widths in d: config.json and
+    one bf16 safetensors file, written without the safetensors package (the
+    card's machine has none). Returns {name: tensor on the card}."""
+    import json
+
+    D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = {"model.embed_tokens.weight": (V, D), "model.norm.weight": (D,),
+              "lm_head.weight": (V, D)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        shapes.update({p + "input_layernorm.weight": (D,),
+                       p + "post_attention_layernorm.weight": (D,),
+                       p + "self_attn.q_proj.weight": (cfg.q_dim, D),
+                       p + "self_attn.k_proj.weight": (cfg.kv_dim, D),
+                       p + "self_attn.v_proj.weight": (cfg.kv_dim, D),
+                       p + "self_attn.o_proj.weight": (D, cfg.q_dim),
+                       p + "mlp.gate_proj.weight": (F, D), p + "mlp.up_proj.weight": (F, D),
+                       p + "mlp.down_proj.weight": (D, F)})
+    t = {n: (torch.randn(s, generator=gen, device="cuda") * (0.1 if len(s) == 1 else 0.02)
+             + (1.0 if len(s) == 1 else 0.0)).to(torch.bfloat16) for n, s in shapes.items()}
+    header, off = {}, 0
+    for n, x in t.items():
+        header[n] = {"dtype": "BF16", "shape": list(x.shape),
+                     "data_offsets": [off, off + 2 * x.numel()]}
+        off += 2 * x.numel()
+    h = json.dumps(header).encode()
+    with open(d / "model.safetensors", "wb") as f:
+        f.write(len(h).to_bytes(8, "little") + h)
+        for x in t.values():
+            f.write(x.cpu().view(torch.int16).numpy())
+    (d / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": V, "hidden_size": D, "intermediate_size": F,
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "rms_norm_eps": cfg.norm_eps,
+        "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": False}))
+    return t
+
+
+def test_checkpoint_to_artifact_to_served_tokens(cuda, tmp_path):
+    """A 2-layer TinyLlama-width checkpoint imported to the card bit for
+    bit, packed RTN W4 g128, saved and loaded to the card bit for bit; the
+    loaded artifact's greedy tokens (int8 cache, graphs) equal those of
+    the packed params it was saved from."""
+    import numpy as np
+
+    from qtpu_torch.ckpt import load_quantized, save_quantized
+    from qtpu_torch.models.config import TINYLLAMA_1_1B
+    from qtpu_torch.models.hf_import import config_from_hf, load_checkpoint
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    cfg = TINYLLAMA_1_1B.replace(num_layers=2)
+    written = _write_hf_llama_2layer(tmp_path, cfg, _gen())
+    assert config_from_hf(str(tmp_path)).replace(norm_topk_prob=True) == cfg
+    params, tok = load_checkpoint(str(tmp_path), device="cuda")
+    assert tok is None and params["embed"].is_cuda
+    for i in range(2):
+        for site, hf in (("q_proj", "self_attn.q_proj"), ("down_proj", "mlp.down_proj")):
+            want = written[f"model.layers.{i}.{hf}.weight"].T.contiguous()
+            assert torch.equal(params["layers"][site]["w"][i].view(torch.int16),
+                               want.view(torch.int16))
+    assert torch.equal(params["lm_head"]["w"].view(torch.int16),
+                       written["lm_head.weight"].T.contiguous().view(torch.int16))
+    mcfg = {"w_bit": 4, "q_group_size": 128}
+    packed, qmeta = pack_model(params, "rtn", mcfg)
+    save_quantized(tmp_path / "art", packed, qmeta, {"method": "rtn", **mcfg})
+    loaded, qm, meta = load_quantized(tmp_path / "art", device="cuda")
+    assert qm == qmeta and meta["method"] == "rtn"
+
+    def leaves(tree, pre=""):
+        if isinstance(tree, dict):
+            return {k: v for n, s in tree.items() for k, v in leaves(s, f"{pre}/{n}").items()}
+        return {pre: tree}
+
+    la, lb = leaves(loaded), leaves(packed)
+    assert sorted(la) == sorted(lb)
+    for k in lb:
+        a, b = la[k], lb[k]
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, k
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), k
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, 40 + 8 * i) for i in range(4)]
+    outs = []
+    for tree, q in ((loaded, qm), (packed, qmeta)):
+        fp, fq = fuse_packed_sites(tree, q)
+        eng = ContinuousBatcher(fp, cfg, qmeta=fq, max_batch=4, max_seq_len=128,
+                                kv_dtype="int8", decode_block=8, seed=0, device="cuda")
+        eng.warmup()
+        reqs = [eng.submit(p, max_new_tokens=24) for p in prompts]
+        eng.run()
+        assert all(r.done and len(r.output) == 24 for r in reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_an_imported_head_dim_the_kernels_do_not_take_raises(cuda, tmp_path):
+    """A checkpoint with head_dim 80 imports to the card, and its forward
+    raises through K5's check, naming the shape; no plain version runs in
+    its place."""
+    from qtpu_torch.kernels import flash_attention as k5
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import ModelConfig
+    from qtpu_torch.models.hf_import import load_checkpoint
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=640, intermediate_size=1024, num_layers=1,
+                      num_heads=8, num_kv_heads=8, head_dim=80)
+    _write_hf_llama_2layer(tmp_path, cfg, _gen())
+    params, _ = load_checkpoint(str(tmp_path), device="cuda")
+    assert params["layers"]["q_proj"]["w"].shape == (1, 640, 640)
+    before = k5.flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim 80"):
+        llama.forward(params, torch.arange(16, device="cuda")[None], cfg)
+    assert k5.flash_attention.launches == before
