@@ -25,7 +25,10 @@ Phases, each printing one JSON line:
            at Mistral-7B widths with a window of 4096 and at the serve cell's
            cache, beside K11 on a stacked cache of the same long layer; the
            one-layer decode attention at GPT-2's serve shape; K1 with qtpu's
-           norm_w and resid options at the TinyLlama qkv and o sites; K13 at
+           norm_w and resid options at the TinyLlama qkv and o sites, at M 8
+           on the tensor-core GEMV and at M 16, 32, 64, 1024 and 2048 on the
+           Hopper route (each beside the composed chain it replaces, the
+           plain version and torch.matmul / addmm on the bf16 weight); K13 at
            the TinyLlama layer, M 1, 8, 32, W4 and W8, and at a Llama-2-7B
            layer, M 8, W4, beside the K1 + K4 + K1 chains it replaces; K1 and
            K7 at the five TinyLlama sites at prefill M 1024 and eval M 2048 on
@@ -83,7 +86,13 @@ Phases, each printing one JSON line:
            the CPU runs a second time with the weights in f32, and a
            teacher-forced pass holds each half-layer (attention, MoE MLP) on
            the card, from the CPU run's inputs, to the CPU, to the plain
-           versions on the card and to the f32-weight arithmetic
+           versions on the card and to the f32-weight arithmetic; 2-layer
+           llamas at head dims qtpu runs and some kernels refuse, hd 80
+           (hidden 2560, 32 heads) and 96 (3072), the eval forward and
+           prefill + 4 decode steps on both caches against the CPU, the
+           refused kernels (K5; K3's kernel at hd 80) on their plain versions
+           as the attention route reckons them (plain_attention); every
+           other phase holds that counter at 0
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
@@ -197,6 +206,23 @@ Phases, each printing one JSON line:
            requests of 128 + 32 greedy tokens on the int8 cache on the
            loaded artifact and on the in-process params: the same tokens,
            K1-K4 launches as the serve phase reckons them
+  moe_methods  the MoE methods at Mixtral-8x7B's full width (2 layers; GPTQ
+           and APOT on the first): routed calibration on the fixture, then
+           awq, smoothquant W8A8, gptq (true Hessians, actorder), pot and
+           apot each quantized and packed (seconds printed), packed
+           perplexity within the eval phase's gates of fake-quant, sizes
+           against the reckoning on meta tensors, served 8 x (128 + 32) on 8
+           slots and 2 x (128 + 32) on 2 slots on graphs and eager (greedy
+           tokens equal; every expert site on the kernel its method names:
+           K9 / K10 for AWQ's smoothed sites, K1 with perms for GPTQ, K6 for
+           W8A8, K7 for the codebooks); then `python -m qtpu_torch.bench` on
+           a 1-layer Mixtral-width HF checkpoint this script writes (awq,
+           smoothquant, packed_eval, serving, save_artifacts), the AWQ
+           artifact loaded to the card and served on 2 slots (K10)
+
+Each phase also holds the count of attention calls that took the plain
+route (a head dim a kernel does not take, models/ops.py) to its
+reckoning: 0, but the hd 80 / 96 models of e2e.
 
 Launch counters under CUDA graphs: a replay runs no Python, so the engine
 adds to every wrapper's counters, on each replay, what the capture of that
@@ -220,7 +246,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
           "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16", "serve_moe",
-          "http", "ckpt")
+          "http", "ckpt", "moe_methods")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -820,6 +846,19 @@ def phase_kernels(torch, ctx):
             "bound_by": k1o[row]["bound_by"],
             "library_ms": None if k1o[row]["library_ms"] is None else L * k1o[row]["library_ms"],
         } for opt, row in (("norm_w", "norm_w_qkv"), ("resid", "resid_o"))},
+        # K1's options on the Hopper route at the work of one fuse-branch
+        # prefill (8 x 128 rows): L calls each, norm_w at qkv and resid at o;
+        # was: the composed chain on the kernel; library: torch.matmul on the
+        # bf16 weight with the norm, torch.addmm
+        **{f"dequant_matmul_{opt}_wgmma": {
+            "route": "cuda", "source": "qtpu_torch/csrc/dq_wgmma.cuh",
+            "replaces": "qtpu/kernels/pallas_dequant_matmul.py:385",
+            "max_abs_err": max(r["max_abs_err"] for k, r in k1o.items()
+                               if k.startswith(f"{opt}_") and r.get("route") == "wgmma"),
+            **{key: L * k1o[row][key] for key in ("ms", "plain_ms", "bound_ms", "was_ms",
+                                                  "library_ms")},
+            "bound_by": k1o[row]["bound_by"],
+        } for opt, row in (("norm_w", f"norm_w_qkv_m{B * P}"), ("resid", f"resid_o_m{B * P}"))},
     }
 
     # K1's and K7's Hopper route (csrc/dq_wgmma.cuh) at the work of one
@@ -848,6 +887,13 @@ def phase_kernels(torch, ctx):
                     "over_library": r["ms"] / r["library_ms"],
                     "bound_share": r["bound_ms"] / r["ms"], "was_ms": r.get("was_ms"),
                     "route": r["route"]}
+    # K1's options on the route at every timed M > 8, against their library call
+    for n, r in k1o.items():
+        if r.get("route") == "wgmma":
+            route_sites[f"dequant_{n}"] = {
+                "M": r["M"], "ms": r["ms"], "was_ms": r["was_ms"], "library_ms": r["library_ms"],
+                "over_library": r["ms"] / r["library_ms"], "over_was": r["ms"] / r["was_ms"],
+                "bound_share": r["bound_ms"] / r["ms"], "route": r["route"]}
     # K9 with its expert axis on the route (dq_wgmma.cuh) at every M > 8
     # case, against torch.bmm on the bf16 experts; the work of one serve_moe
     # prefill (8 x 128 rows): MOE_LAYERS x (gate, up, down)
@@ -907,7 +953,7 @@ def phase_kernels(torch, ctx):
                          ("K7", {k: v for k, v in k7r.items() if k.endswith("_decode")}),
                          ("K9", {k: v for k, v in k9r.items() if v["M"] <= 8}),
                          ("K4", {"layer": k4r}),
-                         ("K1_options", {k: v for k, v in k1o.items() if "ms" in v})):
+                         ("K1_options", {k: k1o[k] for k in ("norm_w_qkv", "resid_o")})):
         for name, r in rows.items():
             if "ms" not in r:
                 continue
@@ -1910,8 +1956,9 @@ def _k1_option_rows(torch, gen, dev, cfg):
     """K1 with norm_w at the TinyLlama qkv site and with resid at its o site
     (M 8, W4 g128), each beside K1 alone on the same input, the composed ops
     it replaces (rms_norm + K1; K1 + add) and its plain version; library for
-    resid: torch.addmm on the weight dequantized to bf16. Untimed checks at
-    M 1, 8 and 32, W4 and W8, asymmetric and symmetric, both options."""
+    resid: torch.addmm on the weight dequantized to bf16. The same at M 16,
+    32, 64, 1024 and 2048 on the Hopper route. Untimed checks at M 1, 8, 32
+    and 300, W4 and W8, asymmetric and symmetric, both options."""
     from qtpu_torch.core.packing import dequantize_parts
     from qtpu_torch.kernels.dequant_matmul import quantized_matmul as k1
     from qtpu_torch.kernels.dequant_matmul import quantized_matmul_plain, quantized_matmul_simt
@@ -1970,13 +2017,72 @@ def _k1_option_rows(torch, gen, dev, cfg):
                                                    for i in range(nlib)], K * N * 2)
             row["library_call"] = "torch.addmm on the weight dequantized to bf16"
         rows[name] = row
+    # above 8 rows the options take the Hopper route (csrc/dq_wgmma.cuh's OPT
+    # instances): the fuse branch's decode at 16-64 rows, its prefill (M
+    # 1024) and an eval-sized block (M 2048), each against the plain version,
+    # the composed chain it replaces ("was": rms_norm + K1, K1 + add) and the
+    # library yardstick (torch.matmul on the bf16 weight plus the norm or add)
+    for opt, (K, N), site in (("norm_w", (D, qkv_n), "qkv"), ("resid", (cfg.q_dim, D), "o")):
+        wbytes = _site_bytes(K, N, 4, g)
+        copies = max(1, min(64, math.ceil(2 * L2_BYTES / wbytes)))
+        data, scales, zeros = _packed(torch, copies, K, N, 4, g, gen, dev)
+        meta = (4, g, K, N)
+        nw = (1.0 + 0.1 * torch.randn(copies, K, generator=gen, device=dev)).to(torch.bfloat16)
+        nlib = max(1, min(copies, math.ceil(2 * L2_BYTES / (K * N * 2))))
+        wd = [dequantize_parts(data[i], scales[i], zeros[i], 4, g) for i in range(nlib)]
+        for M in (16, 32, 64, 1024, EVAL_BLOCK):
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            r = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+
+            def kw(i):
+                return {"norm_w": nw[i], "eps": cfg.norm_eps} if opt == "norm_w" else {"resid": r}
+
+            w0 = k1.wgmma_launches
+            got = k1(x, data[0], scales[0], zeros[0], meta, **kw(0))
+            route = "wgmma" if k1.wgmma_launches > w0 else "other"
+            want = quantized_matmul_plain(x, data[0], scales[0], zeros[0], meta, **kw(0))
+            torch.cuda.synchronize()
+            base = r.float() if opt == "resid" else 0.0
+            err = rel_err(torch, got.float() - base, want.float() - base)
+            row = {"M": M, "K": K, "N": N, "bits": 4, "group": g, "option": opt, "site": site,
+                   "route": route, "rel_err": err, "tol_rel": 2e-2,
+                   "max_abs_err": float((got.float() - want.float()).abs().max())}
+            if err >= 2e-2 or route != "wgmma" or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"K1 with {opt} at M {M} on the Hopper route: {row}")
+            nbytes = (wbytes + M * K * 2 + M * N * 2 * (2 if opt == "resid" else 1)
+                      + (K * 2 if opt == "norm_w" else 0))
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * M * K * N)
+            row["ms"], row["timing"] = cuda_ms(
+                torch, [lambda i=i: k1(x, data[i], scales[i], zeros[i], meta, **kw(i))
+                        for i in range(copies)], wbytes)
+            if opt == "norm_w":
+                chain = [lambda i=i: k1(rms_norm(x, nw[i], cfg.norm_eps), data[i], scales[i],
+                                        zeros[i], meta) for i in range(copies)]
+                lib = [lambda i=i: torch.matmul(rms_norm(x, nw[i], cfg.norm_eps), wd[i])
+                       for i in range(nlib)]
+                row["library_call"] = "rms_norm, then torch.matmul on the bf16 weight"
+            else:
+                chain = [lambda i=i: r + k1(x, data[i], scales[i], zeros[i], meta)
+                         for i in range(copies)]
+                lib = [lambda i=i: torch.addmm(r, x, wd[i]) for i in range(nlib)]
+                row["library_call"] = "torch.addmm on the bf16 weight"
+            row["was_ms"], _ = cuda_ms(torch, chain, wbytes)
+            row["was"] = "the composed chain on the kernel: rms_norm + K1 / K1 + add"
+            row["plain_ms"], _ = cuda_ms(
+                torch, [lambda i=i: quantized_matmul_plain(x, data[i], scales[i], zeros[i], meta,
+                                                           **kw(i)) for i in range(copies)],
+                wbytes)
+            row["library_ms"], _ = cuda_ms(torch, lib, K * N * 2)
+            rows[f"{opt}_{site}_m{M}"] = row
+        del data, scales, zeros, wd
+        torch.cuda.empty_cache()
     # the other packings and row counts the options take (untimed)
     K, N = D, qkv_n
     for bits in (4, 8):
         for sym in (False, True):
             data, scales, zeros = _packed(torch, 1, K, N, bits, g, gen, dev, sym)
             z = None if zeros is None else zeros[0]
-            for M in (1, 8, 32):
+            for M in (1, 8, 32, 300):
                 x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
                 nw = (1.0 + 0.1 * torch.randn(K, generator=gen, device=dev)).to(torch.bfloat16)
                 r = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
@@ -2049,6 +2155,82 @@ def phase_e2e(torch, ctx):
     _gpt2_opt_e2e(torch)
     _boundary_e2e(torch)
     ctx["moe_route_flips"] = _moe_e2e(torch)
+    ctx["plain_attention_reckoned"] = _head_dim_e2e(torch)
+
+
+HEAD_DIM_WIDTHS = {80: {"hidden_size": 2560, "intermediate_size": 6912},  # OPT-2.7B's 2560 / 32
+                   96: {"hidden_size": 3072, "intermediate_size": 8192}}
+
+
+def _head_dim_e2e(torch):
+    """2-layer llamas at head_dim 80 (hidden 2560, 32 heads) and 96 (hidden
+    3072, 32 heads), 8 kv heads, RTN W4 g128 fused: the eval forward (B 1,
+    S 128) and a prefill of 32 with 4 decode steps on the int8 and bf16
+    stacked caches, on the card against the CPU, within 3e-2. The kernels
+    that refuse hd run their plain versions on the card (the attention
+    route, models/ops.py): K5 at both, K3's kernel (K3, K8) at hd 80; the
+    others launch (K2, and K3 / K8 at hd 96). Returns the plain-route calls,
+    card and CPU runs both, as reckoned from the shapes."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.models import llama, ops
+    from qtpu_torch.models.config import ModelConfig
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.kvcache import init_cache
+
+    B, T, steps, L = 4, 32, 4, 2
+    total = 0
+    for hd, widths in HEAD_DIM_WIDTHS.items():
+        # vocabulary 8192: the CPU side's lm_head is most of its time, and the
+        # head dims are the point here
+        cfg = ModelConfig(vocab_size=8192, num_layers=L, num_heads=32, num_kv_heads=8,
+                          head_dim=hd, **widths)
+        raw = llama.init_params(cfg, seed=9, device="cuda")
+        params, qmeta = fuse_packed_sites(*pack_model(raw, "rtn",
+                                                      {"w_bit": 4, "q_group_size": 128}))
+        params = map_tree(params, lambda t: t.cpu())
+        takes = k23.decode_supported(hd, cfg.num_heads // cfg.num_kv_heads)
+        ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(8))
+        a0 = ops.plain_attention.launches
+        _reset_counts()
+        fwd = rel_err(torch, llama.forward(raw, ids.cuda(), cfg).float().cpu(),
+                      llama.forward(map_tree(raw, lambda t: t.cpu()), ids, cfg).float())
+        fwd_counts = _counts()
+        del raw
+        fwd_plain = ops.plain_attention.launches - a0
+        ids = ids[:, :T].repeat(B, 1)
+        for kv in ("int8", "bfloat16"):
+            quant = kv == "int8"
+            a0 = ops.plain_attention.launches
+            errs, top1, counts = _card_vs_cpu(
+                torch, params, cfg, qmeta, "llama", ids, steps,
+                lambda dev: init_cache(cfg, B, T + steps + 8, quantized=quant, device=dev))
+            plain = ops.plain_attention.launches - a0
+            want_plain = 0 if takes else 2 * L * steps  # the CPU run and the card run
+            expect = {"cache_band_write": L * steps if quant else 0,
+                      "decode_attention": L * steps if quant and takes else 0,
+                      "decode_attention_write_bf16": L * steps if not quant and takes else 0,
+                      "decode_attention_write": 0, "flash_attention": 0}
+            res = {"phase": "e2e", "model": f"llama hd {hd}", "hidden": cfg.hidden_size,
+                   "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                   "method": "rtn W4 g128", "kv": kv, "layers": L, "B": B, "prompt": T,
+                   "decode_steps": steps, "rel_err_per_step": errs, "top1_agree": top1,
+                   "eval_forward_rel_err": fwd, "plain_attention_launches": plain,
+                   "plain_attention_reckoned": want_plain,
+                   "eval_plain_attention_launches": fwd_plain, "launches": counts,
+                   "expected_launches": expect, "tol_rel": 3e-2}
+            emit(res)
+            if max(errs) >= 3e-2 or fwd >= 3e-2:
+                raise AssertionError(f"card and CPU logits differ at head_dim {hd}: {res}")
+            if plain != want_plain or fwd_plain != 2 * L or fwd_counts["flash_attention"]:
+                raise AssertionError(f"head_dim {hd}: plain-route calls as not reckoned: {res}")
+            if any(counts[k] != v for k, v in expect.items()):
+                raise AssertionError(f"head_dim {hd}: launches {counts} != {expect}")
+            total += plain
+        total += fwd_plain
+        del params
+        torch.cuda.empty_cache()
+    return total
 
 
 class _env:
@@ -2124,7 +2306,10 @@ def _boundary_e2e(torch):
                     torch, params, cfg, qmeta, "llama", ids, steps,
                     lambda dev: init_cache(cfg, B, T + steps + 8, quantized=quant, device=dev))
             expect = {k: steps * v for k, v in _branch_step_launches(mode, kv, L).items()}
-            expect["dequant_matmul"] += 4 * L + 1  # the prefill composes
+            expect["dequant_matmul"] += 4 * L + 1
+            if mode == "fuse":  # the fuse branch takes the prefill too (K13 does not)
+                expect["dequant_matmul_norm_w"] += L
+                expect["dequant_matmul_resid"] += L
             res = {"phase": "e2e", "branch": mode, "switch": BRANCHES[mode],
                    "method": "rtn W4 g128", "kv": kv, "layers": L, "B": B, "prompt": T,
                    "decode_steps": steps, "rel_err_per_step": errs, "top1_agree": top1,
@@ -3320,7 +3505,7 @@ def phase_boundary(torch, ctx):
     ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
     for kv in ("int8", "bfloat16"):
         quant = kv == "int8"
-        ref_logits = ref_outputs = None
+        ref_logits = ref_outputs = ref_tok = ref_prefill = None
         for mode, env in BRANCHES.items():
             with _env(env):
                 eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
@@ -3344,13 +3529,31 @@ def phase_boundary(torch, ctx):
                 steps, pre = m["decode_steps"], m["prefill_calls"]
                 per_step = _branch_step_launches(mode, kv, L)
                 expect = {k: steps * v for k, v in per_step.items()}
-                expect["dequant_matmul"] += (4 * L + 1) * pre  # the engine's prefills compose
+                expect["dequant_matmul"] += (4 * L + 1) * pre
+                if mode == "fuse":  # the engine's prefills take the fuse branch too
+                    expect["dequant_matmul_norm_w"] += L * pre
+                    expect["dequant_matmul_resid"] += L * pre
                 outputs = [r.output for r in sorted(done, key=lambda r: r.uid)]
                 del eng
-                # one decode step from the same prefill, then a profile
+                # one decode step from the same prefill, then a profile; the
+                # prefill's K1 launches with an option, all on the Hopper route
                 cache = init_cache(cfg, B, P + new + 16, quantized=quant, device="cuda")
+                _reset_counts()
                 logits, cache = prefill(params, ids, cache, cfg, qmeta)
-                tok = torch.argmax(logits, -1).to(torch.int32)
+                pc, pr = _counts(), _route_counts()
+                pre_opts = {"dequant_matmul_norm_w_wgmma": pc["dequant_matmul_norm_w"],
+                            "dequant_matmul_resid_wgmma": pc["dequant_matmul_resid"]}
+                want_opts = {k: L if mode == "fuse" else 0 for k in pre_opts}
+                if pre_opts != want_opts or pr["dequant_matmul_wgmma"] != 4 * L + 1:
+                    raise AssertionError(f"{mode} prefill: K1 option launches {pre_opts} "
+                                         f"(want {want_opts}), routes {pr}")
+                paths[f"boundary_{kv}_{mode}_prefill"] = pre_opts
+                # the step takes the default branch's tokens: a branch's own
+                # prefill may flip a near tie of this random model's argmax
+                if ref_tok is None:
+                    ref_tok, ref_prefill = torch.argmax(logits, -1).to(torch.int32), logits.float()
+                prefill_err = rel_err(torch, logits.float(), ref_prefill)
+                tok = ref_tok
                 pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
                 per_layer = None
                 if mode == "boundary":
@@ -3374,6 +3577,7 @@ def phase_boundary(torch, ctx):
                    "mean_ttft_s": m.get("mean_ttft_s"), "peak_mem_gib": peak,
                    "decode_steps": steps, "prefill_calls": pre, "launches": counts,
                    "expected_launches": expect, "launches_per_decode_step": per_step,
+                   "prefill_rel_err_vs_default": prefill_err,
                    "step_rel_err_vs_default": rel_err(torch, step, ref_logits),
                    "step_top1_agree_vs_default": float((step.argmax(-1) == ref_logits.argmax(-1))
                                                        .float().mean()),
@@ -4043,9 +4247,9 @@ def phase_pot_apot(torch, ctx):
     g128 fake-quant and packed eval (K7 on every linear, K5 for the
     attention) and the serving pseudo-method on the POT artifact with the
     bf16 KV cache (K8). Checks perplexities, sizes and every launch count;
-    then each method's quantize and pack time, a profiler split of one warm
-    packed block, and pot/apot codes of layer 0's gate_proj on the card
-    against the CPU."""
+    each method's quantize and pack time, taken inside that run; a profiler
+    split of one warm block of the run's packed artifacts, and pot/apot
+    codes of a gate_proj on the card against the CPU."""
     import tempfile
 
     from qtpu_torch.bench import runner
@@ -4056,7 +4260,7 @@ def phase_pot_apot(torch, ctx):
     from qtpu_torch.models import llama
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
     from qtpu_torch.quant import apot, pot
-    from qtpu_torch.quant.apply import _parity_grid, fuse_packed_sites, pack_model, quantize_model
+    from qtpu_torch.quant.apply import _parity_grid
 
     fixture = f"fixture:{FIXTURE_DIR}"
     methods = list(CODEBOOK_MCFG)
@@ -4070,14 +4274,38 @@ def phase_pot_apot(torch, ctx):
                     "pack_method": "pot"},
         "seed": 0, "device": "cuda", "verbose": True,
     }
+    # each method's quantize and pack timed inside the bench, on the host
+    # around a synchronize (its first of each), its packed artifacts kept
+    times, artifacts = {}, {}
+    real_quantize, real_packed = runner.quantize_model, runner.QuantizationBenchmark._packed
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, time.perf_counter() - t0)
+        return r
+
+    def quantize(params, method, *a, **kw):
+        return timed(f"quantize_{method}", lambda: real_quantize(params, method, *a, **kw))
+
+    def packed(bench, method, mcfg, stats=None):
+        artifacts[method] = timed(f"pack_{method}", lambda: real_packed(bench, method, mcfg, stats))
+        return artifacts[method]
+
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path, out_path = Path(tmp) / "config.json", Path(tmp) / "results.json"
         cfg_path.write_text(json.dumps(config))
         _reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        runner.quantize_model, runner.QuantizationBenchmark._packed = quantize, packed
         t0 = time.perf_counter()
-        rc = bench_main([str(cfg_path), "--out", str(out_path)])
+        try:
+            rc = bench_main([str(cfg_path), "--out", str(out_path)])
+        finally:
+            runner.quantize_model, runner.QuantizationBenchmark._packed = real_quantize, real_packed
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts()
@@ -4138,28 +4366,18 @@ def phase_pot_apot(torch, ctx):
     _check_gemv("pot_apot", counts, routes)
     ctx.setdefault("path_launches", {})["pot_apot"] = {**counts, **routes}
 
-    # each method's quantize and pack, timed on the host around a synchronize;
-    # the POT artifact is kept for serve_bf16
-    params = llama.init_params(cfg, seed=0, device="cuda")
+    # the bench's packed artifacts: warm eval blocks and a profiled one; the
+    # POT artifact is kept for serve_bf16
     ids = load_fixture_test(str(FIXTURE_DIR))
-    times, per_block, profiles = {}, {}, {}
-
-    def timed(name, fn):
+    per_block, profiles = {}, {}
+    for m in CODEBOOK_MCFG:
+        p, qm = artifacts.pop(m)
+        evaluate_perplexity(p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm)  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = fn()
+        evaluate_perplexity(p, ids, cfg, n_samples=3, block_size=EVAL_BLOCK, qmeta=qm)
         torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        return r
-
-    for m, mcfg in CODEBOOK_MCFG.items():
-        q = timed(f"quantize_{m}", lambda: quantize_model(params, m, mcfg))
-        del q
-        p, qm = timed(f"pack_{m}", lambda: fuse_packed_sites(*pack_model(params, m, mcfg)))
-        evaluate_perplexity(p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm)  # warm
-        timed("eval3", lambda: evaluate_perplexity(p, ids, cfg, n_samples=3,
-                                                   block_size=EVAL_BLOCK, qmeta=qm))
-        per_block[m] = times.pop("eval3") / 3
+        per_block[m] = (time.perf_counter() - t0) / 3
         profiles[m] = _profiled(torch, lambda: evaluate_perplexity(
             p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm), 1, classify=_kind)
         if m == "pot":
@@ -4168,10 +4386,11 @@ def phase_pot_apot(torch, ctx):
     emit({"phase": "pot_apot_timing", "seconds": times, "s_per_packed_block": per_block,
           "profile_packed_block": profiles, "card": ctx["smi"]})
 
-    # one full-width site, layer 0's gate_proj [2048, 5632], on the card and
-    # on the CPU: the scale race's decisions are elementwise IEEE operations
-    w = params["layers"]["gate_proj"]["w"][0]
-    del params
+    # one full-width site, layer 0's gate_proj [2048, 5632] of the bench's
+    # model (seed 0), on the card and on the CPU: the scale race's decisions
+    # are elementwise IEEE operations
+    w = llama.init_params(cfg.replace(num_layers=1), seed=0, device="cuda")[
+        "layers"]["gate_proj"]["w"][0]
     torch.cuda.empty_cache()
     K, N = w.shape
     site = {}
@@ -4685,6 +4904,358 @@ def phase_ckpt(torch, ctx):
                              f"params': {outs}")
 
 
+# depth of the methods' Mixtral-width model; the two slow searches, GPTQ's
+# column sweep (its exp_down_in Hessian alone is 8 x 14336^2 x 4 B = 6.58 GB
+# a layer) and APOT's scale race, run on its first layer to keep the smoke
+# within its time
+MOE_METHOD_LAYERS = {"awq": 2, "smoothquant": 2, "gptq": 1, "pot": 2, "apot": 1}
+MOE_METHOD_MCFG = {
+    "awq": {"w_bit": 4, "q_group_size": MOE_GROUP},
+    "smoothquant": {"w_bit": 8, "q_group_size": MOE_GROUP, "alpha": 0.5, "act_quant": True},
+    # actorder: the expert sites carry perms, so they run K1 one launch an expert
+    "gptq": {"w_bit": 4, "q_group_size": MOE_GROUP, "error_compensation": True,
+             "actorder": True},
+    # POT's scale race on the 0.1 grid (APOT's own reference grid at these
+    # sites' sizes), 20 candidates where the 0.01 reference grid has 200
+    "pot": {"w_bit": 4, "q_group_size": MOE_GROUP, "grid_step": 0.1},
+    "apot": {"w_bit": 4, "q_group_size": MOE_GROUP},
+}
+MOE_PPL_GATES = {"pot": 2e-2, "apot": 0.25}  # packed against fake-quant, as in eval / pot_apot
+# the kernel of a method's attention sites and lm_head, and of its expert
+# sites: K9 / K10 for the smoothed affine sites, else that kernel once an expert
+MOE_METHOD_KERNEL = {"awq": "dequant_matmul", "gptq": "dequant_matmul",
+                     "smoothquant": "w8a8_matmul", "pot": "codebook_matmul",
+                     "apot": "codebook_matmul"}
+
+
+def _moe_method_launches(method, L, E, steps, pre, gathered):
+    """Launches of an engine on a MoE model packed by `method` over `steps`
+    decode steps and `pre` prefill calls: per forward the method's kernel
+    on q, k, v, o a layer and the lm_head; the expert sites K9 (grouped) or
+    K10 (gathered, decode only) for AWQ, else that kernel 3E a layer; K11 a
+    layer a decode step."""
+    c = {k: 0 for k in WRAPPERS}
+    kern, fwd = MOE_METHOD_KERNEL[method], steps + pre
+    c[kern] = (4 * L + 1) * fwd
+    if method == "awq":
+        c["moe_matmul"] = 3 * L * (pre if gathered else fwd)
+        c["moe_gathered_matmul"] = 3 * L * steps if gathered else 0
+    else:
+        c[kern] += 3 * E * L * fwd
+    c["decode_attention_write"] = L * steps
+    return c
+
+
+def _write_hf_mixtral(torch, d, cfg, seed=0):
+    """A Hugging Face Mixtral checkpoint of cfg's shape in directory d, one
+    safetensors file: config.json under MixtralConfig's keys, bf16 random
+    weights [out, in] (std 0.02; norms 1 + 0.1 N(0, 1)) drawn on the card
+    from a seeded torch.Generator. Returns the file's bytes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    D, F, V, E = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_experts
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(torch.bfloat16).cpu()
+
+    def norm(n):
+        return (1 + 0.1 * torch.randn(n, generator=gen, device="cuda")).to(torch.bfloat16).cpu()
+
+    t = {"model.embed_tokens.weight": w(V, D)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t.update({p + "input_layernorm.weight": norm(D),
+                  p + "post_attention_layernorm.weight": norm(D),
+                  p + "self_attn.q_proj.weight": w(cfg.q_dim, D),
+                  p + "self_attn.k_proj.weight": w(cfg.kv_dim, D),
+                  p + "self_attn.v_proj.weight": w(cfg.kv_dim, D),
+                  p + "self_attn.o_proj.weight": w(D, cfg.q_dim),
+                  p + "block_sparse_moe.gate.weight": w(E, D)})
+        for e in range(E):
+            q = p + f"block_sparse_moe.experts.{e}."
+            t.update({q + "w1.weight": w(F, D), q + "w3.weight": w(F, D), q + "w2.weight": w(D, F)})
+    t["model.norm.weight"] = norm(D)
+    t["lm_head.weight"] = w(V, D)
+    nbytes = _write_safetensors(d / "model.safetensors", t)
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "vocab_size": V,
+        "hidden_size": D, "intermediate_size": F, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "num_local_experts": E, "num_experts_per_tok": cfg.num_experts_per_tok,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+        "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": False,
+        "hidden_act": "silu", "torch_dtype": "bfloat16"}))
+    return nbytes
+
+
+def _moe_method_engines(torch, ctx, params, qmeta, cfg, method, tag):
+    """8 requests of 128 + 32 on 8 slots (grouped route) and 2 on 2 slots
+    (K10 where the sites allow: AWQ's) on the int8 cache, each on CUDA graphs
+    and eager (_serve_both: greedy tokens equal, launches as
+    _moe_method_launches reckons them); every prefill launch of the method's
+    kernels on the Hopper route, every decode launch on a tensor-core GEMV.
+    Returns {slots: the graph run's line}."""
+    import numpy as np
+
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    P, new, L, E = SERVE_PROMPT, SERVE_NEW, cfg.num_layers, cfg.num_experts
+    kern = MOE_METHOD_KERNEL[method]
+    per_fwd = 4 * L + 1 + (0 if method == "awq" else 3 * E * L)
+    short = {"dequant_matmul": "k1", "codebook_matmul": "k7", "w8a8_matmul": "k6"}[kern]
+    out = {}
+    for slots in (SERVE_B, 2):
+        gathered = method == "awq" and slots * cfg.num_experts_per_tok < E
+
+        def make(graphs, slots=slots):
+            return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=slots,
+                                     max_seq_len=P + new, kv_dtype="int8", seed=0, device="cuda",
+                                     cuda_graphs=graphs)
+
+        def expect_of(steps, pre, gathered=gathered):
+            return _moe_method_launches(method, L, E, steps, pre, gathered)
+
+        def check(name, counts, routes, steps, pre, gathered=gathered):
+            _check_routes(name, routes, **{short: per_fwd * pre},
+                          k9=3 * L * pre if method == "awq" else 0)
+            seen = _check_gemv(name, counts, routes)
+            if gathered and seen["moe_gathered_matmul"] != {"tc": 3 * L * steps, "simt": 0}:
+                raise AssertionError(f"{name}: K10 launches {seen}")
+
+        rng = np.random.default_rng(slots)
+        prompts = [rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32) for _ in range(slots)]
+        runs = _serve_both(torch, ctx, f"moe_methods_{tag}", make, prompts, new, expect_of, check,
+                           extra={"model": "Mixtral-8x7B", "layers": L, "method": tag,
+                                  "kv": "int8", "slots": slots,
+                                  "route": "gathered" if gathered else "grouped"})
+        out[slots] = runs["graph"]
+    return out
+
+
+def phase_moe_methods(torch, ctx):
+    """The MoE methods at Mixtral-8x7B's full width (4096 / 14336, E 8,
+    top-2), its first 2 layers (random per-layer weights from seed 0; GPTQ
+    and APOT on the first of them, MOE_METHOD_LAYERS): calibration on the
+    fixture's 4 blocks of 512 (routed exp_down_in statistics; once more
+    with the true Hessians for GPTQ), then for awq, smoothquant (W8A8), gptq
+    (true Hessians, actorder), pot (the 0.1 grid) and apot:
+    quantize (fake-quant) and pack, the perplexity of each on the eval
+    phase's 4 fixture blocks of 2048 (packed within its gates of the
+    fake-quant of the packed sites, the router dense in both: 1%, POT 2%,
+    APOT 25%; the gap to the fake-quant that also quantizes the router
+    printed), sizes against the reckoning of the
+    same shapes on the CPU (meta tensors), and serving on 8 and 2 slots
+    (_moe_method_engines: the expert
+    sites on K9 / K10 for AWQ's smoothed affine sites, K1 with its perms
+    for GPTQ's, K6 for W8A8, K7 for the codebooks); each method's seconds
+    to calibrate, quantize and pack. Then `python -m qtpu_torch.bench`
+    (main() in this process) on a 1-layer Mixtral-width HF checkpoint with
+    checkpoint_path, awq and smoothquant W8A8, packed_eval, the serving
+    pseudo-method and save_artifacts; the AWQ artifact loaded to the card
+    and served on 2 slots (K10 on its smoothed sites), graphs against
+    eager."""
+    import tempfile
+
+    import numpy as np
+
+    from qtpu_torch.bench.__main__ import main as bench_main
+    from qtpu_torch.calib import collect_calibration_stats
+    from qtpu_torch.ckpt import load_quantized
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.core.sizing import get_model_size
+    from qtpu_torch.data.fixture import load_fixture_test
+    from qtpu_torch.eval import evaluate_perplexity
+    from qtpu_torch.models import moe
+    from qtpu_torch.models.config import MIXTRAL_8X7B
+    from qtpu_torch.quant.apply import pack_model, quantize_model
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    full = MIXTRAL_8X7B.replace(num_layers=max(MOE_METHOD_LAYERS.values()))
+    E = full.num_experts
+    torch.cuda.reset_peak_memory_stats()
+    params_full = moe.init_params(full, seed=0, device="cuda")
+    test_ids = load_fixture_test(str(FIXTURE_DIR))
+    paths = ctx.setdefault("path_launches", {})
+    secs, results, models = {}, {}, {}
+
+    def model(L):
+        """(params, cfg, calibration statistics, raw perplexity) of the
+        first L layers (views of the full model's weights), made once."""
+        if L not in models:
+            cfg = full.replace(num_layers=L)
+            params = dict(params_full, layers=map_tree(params_full["layers"], lambda t: t[:L]))
+            st = timed(f"calibrate_L{L}", lambda: collect_calibration_stats(
+                moe.forward, params, _calib_blocks(cfg), cfg))
+            shape = tuple(st.mean_abs["exp_down_in"].shape)
+            if shape != (CALIB_BLOCKS, L, E, cfg.intermediate_size):
+                raise AssertionError(f"routed calibration statistics of shape {shape}")
+            models[L] = (params, cfg, st, ppl(params, cfg))
+        return models[L]
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    def ppl(p, cfg, qmeta=None):
+        # the eval phase's 4 blocks of 2048 (its gates)
+        return evaluate_perplexity(p, test_ids, cfg, n_samples=EVAL_BLOCKS,
+                                   block_size=EVAL_BLOCK, qmeta=qmeta, arch="moe")
+
+    for method, mcfg in MOE_METHOD_MCFG.items():
+        params, cfg, stats, raw_ppl = model(MOE_METHOD_LAYERS[method])
+        L = cfg.num_layers
+        st = {"awq": stats, "smoothquant": stats}.get(method)
+        if method == "gptq":  # the true Hessians, freed after its pack
+            st = timed("gptq_calibrate_hessian", lambda: collect_calibration_stats(
+                moe.forward, params, _calib_blocks(cfg), cfg, collect_hessian=True))
+        fake = timed(f"{method}_quantize", lambda: quantize_model(params, method, mcfg, st, "moe"))
+        fake_all_ppl = ppl(fake, cfg)
+        # the gate's reference: the fake-quant model of the sites the artifact
+        # packs. pack_model keeps the router dense (PACK_DENSE_SITES) where
+        # quantize_model quantizes it (both as qtpu), and a router moved by
+        # quantization sends tokens to other experts; with it dense the two
+        # models differ only by how the packed sites are computed
+        fake["layers"] = dict(fake["layers"], **{s: params["layers"][s]
+                                                 for s in moe.PACK_DENSE_SITES
+                                                 if s in params["layers"]})
+        fake_ppl = ppl(fake, cfg)
+        del fake
+        packed, qmeta = timed(f"{method}_pack", lambda: pack_model(params, method, mcfg, st,
+                                                                   "moe"))
+        if method == "gptq":
+            del st
+            torch.cuda.empty_cache()
+        _reset_counts()
+        packed_ppl = ppl(packed, cfg, qmeta)
+        counts, routes = _counts(), _route_counts()
+        zero = method not in ("pot", "apot")
+        size = [get_model_size(t, data_width=mcfg["w_bit"], group_size=mcfg["q_group_size"],
+                               use_zero_point=zero)
+                for t in (params, moe.init_params(cfg, device="meta"))]
+        gap = packed_ppl / fake_ppl - 1
+        res = {"phase": "moe_methods", "model": "Mixtral-8x7B", "layers": L, "method": method,
+               "mcfg": mcfg, "raw_ppl": raw_ppl, "fake_ppl": fake_ppl, "packed_ppl": packed_ppl,
+               "packed_vs_fake": gap, "gate": MOE_PPL_GATES.get(method, 1e-2),
+               "fake_ppl_router_quantized": fake_all_ppl,
+               "packed_vs_fake_router_quantized": packed_ppl / fake_all_ppl - 1,
+               "model_size_bits": size[0], "reckoned_size_bits": size[1],
+               "packed_bytes": sum(t.numel() * t.element_size()
+                                   for t in _tree_leaves(packed).values()),
+               "expert_leaves": {k: list(v.shape) for k, v in packed["layers"]["exp_down"].items()},
+               "eval_launches": counts, "eval_routes": routes,
+               "seconds": {k: v for k, v in secs.items() if k.startswith(method)},
+               "card": ctx["smi"]}
+        emit(res)
+        if not all(math.isfinite(v) for v in (raw_ppl, fake_ppl, packed_ppl)):
+            raise AssertionError(f"{method}: perplexities not finite: {res}")
+        if abs(gap) >= res["gate"]:
+            raise AssertionError(f"{method}: packed perplexity off fake-quant: {res}")
+        if size[0] != size[1]:
+            raise AssertionError(f"{method}: sizes differ from the reckoning: {res}")
+        # the packed eval: a forward a block, K5 on each layer's attention
+        want = _moe_method_launches(method, L, E, 0, EVAL_BLOCKS, False)
+        want["flash_attention"] = L * EVAL_BLOCKS
+        if counts != want:
+            raise AssertionError(f"{method}: eval launches {counts} != {want}")
+        engines = _moe_method_engines(torch, ctx, packed, qmeta, cfg, method, method)
+        for slots, r in engines.items():
+            paths[f"moe_methods_{method}_{slots}"] = {**r["launches"], **r["routes"]}
+        results[method] = {"layers": L, "fake_ppl": fake_ppl, "packed_ppl": packed_ppl,
+                           "fake_ppl_router_quantized": fake_all_ppl,
+                           "tokens_per_s": {s: r["tokens_per_s"] for s, r in engines.items()}}
+        del packed
+        torch.cuda.empty_cache()
+    del params_full, models
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_methods_summary", "model": "Mixtral-8x7B", "results": results,
+          "seconds": secs, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "card": ctx["smi"]})
+
+    # the benchmark on a 1-layer Mixtral-width checkpoint, its artifact served
+    bcfg = MIXTRAL_8X7B.replace(num_layers=1)
+    fixture = f"fixture:{FIXTURE_DIR}"
+    bench_methods = {m: MOE_METHOD_MCFG[m] for m in ("awq", "smoothquant")}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        hf_dir, art = tmp / "hf", tmp / "artifact"
+        hf_dir.mkdir()
+        ck_bytes = _write_hf_mixtral(torch, hf_dir, bcfg)
+        config = {
+            "model_name": "Mixtral-8x7B-1-layer-local", "checkpoint_path": str(hf_dir),
+            "quantization_methods": list(bench_methods),
+            "calibration_dataset": fixture, "n_calibration_samples": CALIB_BLOCKS,
+            "calibration_block_size": CALIB_BLOCK,
+            "test_dataset": fixture, "n_test_samples": EVAL_BLOCKS,
+            "test_block_size": EVAL_BLOCK, "quantization_config": bench_methods,
+            "packed_eval": True,
+            "serving": {"benchmark": True, "kv_cache_dtype": "int8", "max_batch_size": 2,
+                        "pack_method": "awq"},
+            "save_artifacts": {"dir": str(art), "method": "awq"},
+            "seed": 0, "device": "cuda", "verbose": False,
+        }
+        cfg_path, out_path = tmp / "config.json", tmp / "results.json"
+        cfg_path.write_text(json.dumps(config))
+        t0 = time.perf_counter()
+        rc = bench_main([str(cfg_path), "--out", str(out_path)])
+        torch.cuda.synchronize()
+        bench_s = time.perf_counter() - t0
+        res = json.loads(out_path.read_text())["results"]
+        errors = {k: v.get("error") or v.get("packed_error") for k, v in res.items()}
+        packed, qmeta, art_meta = load_quantized(str(art), device="cuda")
+        out = {"phase": "moe_methods_bench", "model": "Mixtral-8x7B 1 layer (checkpoint)",
+               "checkpoint_bytes": ck_bytes, "rc": rc, "bench_s": bench_s,
+               "perplexity": {m: {"fake": res.get(m, {}).get("perplexity"),
+                                  "packed": res.get(m, {}).get("packed_perplexity")}
+                              for m in bench_methods},
+               "model_size_mb": {m: res.get(m, {}).get("model_size_mb") for m in bench_methods},
+               "serving_tokens_per_s": res.get("serving", {}).get("tokens_per_second"),
+               "errors": errors, "artifact_method": art_meta.get("method"),
+               "artifact_files": sorted(f.name for f in art.iterdir()), "card": ctx["smi"]}
+        if rc != 0 or any(errors.values()) or set(res) != {"raw", *bench_methods, "serving"}:
+            raise AssertionError(f"the MoE benchmark failed: {out}")
+        # the bench's fake-quant quantizes the router, its artifact keeps it
+        # dense (qtpu's rule): the gap is printed, the gate held above
+        for m, p in out["perplexity"].items():
+            if not all(v is not None and math.isfinite(v) for v in p.values()):
+                raise AssertionError(f"{m}: perplexities not finite: {out}")
+            p["packed_vs_fake"] = p["packed"] / p["fake"] - 1
+        emit(out)
+        if dict(qmeta).get("exp_gate") != (4, MOE_GROUP, bcfg.hidden_size,
+                                           bcfg.intermediate_size):
+            raise AssertionError(f"the artifact's qmeta: {qmeta}")
+        engines = {}
+        for mode in ("graph", "eager"):
+            eng = ContinuousBatcher(packed, bcfg, qmeta=qmeta, max_batch=2,
+                                    max_seq_len=SERVE_PROMPT + SERVE_NEW, kv_dtype="int8",
+                                    seed=0, device="cuda", cuda_graphs=mode == "graph")
+            eng.warmup()
+            rng = np.random.default_rng(2)
+            reqs = [eng.submit(rng.integers(0, bcfg.vocab_size, size=SERVE_PROMPT,
+                                            dtype=np.int32), max_new_tokens=SERVE_NEW)
+                    for _ in range(2)]
+            _reset_counts()
+            eng.run()
+            counts, m = _counts(), eng.metrics()
+            want = _moe_method_launches("awq", 1, E, m["decode_steps"], m["prefill_calls"], True)
+            engines[mode] = [r.output for r in reqs]
+            if counts != want or not all(len(r.output) == SERVE_NEW for r in reqs):
+                raise AssertionError(f"the loaded artifact's {mode} engine: launches {counts} "
+                                     f"!= {want}")
+            paths[f"moe_methods_artifact_{mode}"] = counts
+            del eng
+        emit({"phase": "moe_methods_artifact", "greedy_tokens_equal":
+              engines["graph"] == engines["eager"], "card": ctx["smi"]})
+        if engines["graph"] != engines["eager"]:
+            raise AssertionError(f"the artifact's graph and eager tokens differ: {engines}")
+        del packed
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_methods_done", "seconds": time.perf_counter() - t_phase})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4706,6 +5277,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from qtpu_torch.models import ops
+
     ctx = {}
     phase_device(torch, ctx)
     t_all = time.perf_counter()
@@ -4713,8 +5286,17 @@ def main(argv=None) -> int:
         if p == "device":
             continue
         t0 = time.perf_counter()
+        a0 = ops.plain_attention.launches
         globals()[f"phase_{p}"](torch, ctx)
-        emit({"phase_done": p, "seconds": time.perf_counter() - t0})
+        # attention calls a kernel did not take by its head dim (the plain
+        # route): none but those a phase reckons (e2e's hd 80 and 96 models)
+        plain = ops.plain_attention.launches - a0
+        reckoned = ctx.pop("plain_attention_reckoned", 0)
+        emit({"phase_done": p, "seconds": time.perf_counter() - t0,
+              "plain_attention_launches": plain, "plain_attention_reckoned": reckoned})
+        if plain != reckoned:
+            raise AssertionError(f"{p}: {plain} attention calls took the plain route, "
+                                 f"{reckoned} reckoned")
     emit({"phases": phases, "seconds": time.perf_counter() - t_all})
     print(ctx["smi"], flush=True)
     if "kernel_rows" in ctx:

@@ -20,10 +20,12 @@ device); with "save_artifacts" = {"dir", "method"} the run ends by saving
 that method's packed artifact (qtpu_torch.ckpt), a failed save logged and
 the run carried on, as in qtpu.
 
-What the port does not have yet is refused by `setup` with
-NotImplementedError naming its slice (`refuse_unported`), never recorded
-as a per-method error row: a mesh above one device, trace profiling and
-MoE models (a preset's or a checkpoint's).
+Every method runs on the llama family, GPT-2, OPT and the sparse-MoE
+family (a preset's or a checkpoint's: Mixtral, Qwen2-MoE), the MoE expert
+sites calibrated over the tokens routed to each expert. What the port does
+not have yet is refused by `setup` with NotImplementedError naming its
+slice (`refuse_unported`), never recorded as a per-method error row: a mesh
+above one device and trace profiling.
 
 CLI:  python -m qtpu_torch.bench <config.json> [--out results.json] [--device cpu]
 """
@@ -63,10 +65,9 @@ SERVE_WARM_STEPS = 2
 SERVE_STEPS = 32
 
 
-def refuse_unported(config: dict, device: torch.device, arch: str) -> None:
+def refuse_unported(config: dict, device: torch.device) -> None:
     """Raise NotImplementedError, naming the slice of the port, for what a
-    validated config asks that the port does not do yet, on a model of
-    `arch` (a checkpoint's own, else the preset's of model_name)."""
+    validated config asks that the port does not do yet."""
     mesh = config.get("mesh") or {}
     tp, pp = int(mesh.get("model", 1)), int(mesh.get("pipe", 1))
     dp = int(mesh.get("data", 1))
@@ -77,10 +78,6 @@ def refuse_unported(config: dict, device: torch.device, arch: str) -> None:
         raise NotImplementedError(
             f"mesh data={dp} x model={tp} x pipe={pp} is not ported yet (sharding slice)"
         )
-    if arch == "moe":
-        raise NotImplementedError(
-            "the benchmark on MoE models (routed calibration, expert sizing) is not ported yet "
-            "(MoE-methods slice)")
     if config.get("profile_dir"):
         raise NotImplementedError(
             "'profile_dir': trace profiling of the eval (utils slice) is not ported yet")
@@ -118,7 +115,7 @@ class QuantizationBenchmark:
         # a local HF checkpoint's model config (and arch) is its own,
         # whatever the run's model_name
         self.model_cfg = config_from_hf(ckpt) if ckpt else get_model_config(cfg["model_name"])
-        refuse_unported(cfg, self.device, self.model_cfg.arch)
+        refuse_unported(cfg, self.device)
         self.log(f"Setting up benchmark for {cfg['model_name']} on {self.device}...")
         dtype = resolve_dtype(cfg.get("dtype", "bfloat16"))
         self.arch = get_arch(self.model_cfg.arch)

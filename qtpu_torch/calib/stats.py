@@ -10,8 +10,13 @@ the loop over calibration batches, accumulating on the device:
   hessian[site]:  [L, C, C]          sum of XᵀX in f32 (true-Hessian GPTQ);
                   only with collect_hessian=True, added in place
 
-head_in (the lm_head's input) has no layer axis. At TinyLlama-1.1B width
-the true Hessians take 3.9 GB of f32 (down_in alone 22 x 5632² x 4 B).
+head_in (the lm_head's input) has no layer axis. On MoE models the
+down-projections' input exp_down_in carries the expert axis, each expert's
+statistics over the tokens routed to it (qtpu's `_routed_stats`):
+mean_abs [n_batches, L, E, F], max_abs [L, E, F], hessian [L, E, F, F].
+At TinyLlama-1.1B width the true Hessians take 3.9 GB of f32 (down_in alone
+22 x 5632² x 4 B); at Mixtral-8x7B width exp_down_in's alone take 6.58 GB
+a layer (8 x 14336² x 4 B).
 """
 
 from __future__ import annotations

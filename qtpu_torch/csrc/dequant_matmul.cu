@@ -29,13 +29,17 @@
 //    multiple of 16 (W4: g a multiple of 32); other groups take the GEMV
 //    path tiled over M.
 // The options of the TPU kernel (pallas_dequant_matmul.py:385-470): norm_w,
-// x normalized in the launch's prologue (rms in f32 over all of K, each
-// block for its own rows, then rounded to bf16 as the TPU kernel rounds it),
-// and resid, added to the f32 sums in the epilogue and cast once. They run
-// in the tensor-core GEMV where it takes the call (M <= 8, MODE 4, 2 and 6
-// of dq_gemv_tc.cuh), else in dq_core's GEMV tiled by 8 rows (decode shapes,
-// M <= 32, split K as above), each its own template instance of the core, so
-// the plain builds compile as before.
+// x normalized in the launch (rms in f32 over all of K) and resid, added to
+// the f32 sums in the epilogue and cast once. At M <= 8 they run in the
+// tensor-core GEMV where it takes the call (MODE 4, 2 and 6 of
+// dq_gemv_tc.cuh), else in dq_core's GEMV (split K as above; the norm a
+// prologue, rounded to bf16 as the TPU kernel rounds it). At M > 8 they run
+// on the Hopper route (dq_wgmma.cuh's OPT instances: the norm's row factor
+// in the epilogue, nw folded into each landed x tile; its note gives the
+// design) for the calls wgmma_fits takes, at any M; the mma.sync body takes
+// none (the wrapper's options_supported says so from the shape and the
+// caller composes). Each is its own template instance, so the plain builds
+// compile as before.
 // Ragged M and N edges are masked in the kernels, so no caller pads; at
 // N % 4 != 0 (GPT-2's lm_head, N 50257) the packed rows are unaligned and
 // a separate build of both kernels (VEC = false) reads each thread's 4
@@ -115,15 +119,17 @@ extern "C" int qtpu_dq_matmul(const void* x, const void* data, const void* scale
   }
 }
 
-// qtpu_dq_matmul with the options: y = [resid +] (norm_w ? bf16(rms_norm(x)
-// * norm_w) : x) @ dequant(...), nw [K] and resid [M, N] bf16 (either may be
-// null, not both); M <= 32, N % 4 == 0, nw 8-byte aligned. cluster as in
-// qtpu_dq_matmul (the tensor-core GEMV's MODE 2, 4 or 6 at M <= 8).
+// qtpu_dq_matmul with the options: y = [resid +] (norm_w ? rms_norm(x) *
+// norm_w : x) @ dequant(...), nw [K] and resid [M, N] bf16 (either may be
+// null, not both); N % 4 == 0, nw 8-byte aligned, resid 4-byte aligned.
+// cluster as in qtpu_dq_matmul (the tensor-core GEMV's MODE 2, 4 or 6 at
+// M <= 8); M > 8 takes the Hopper route only (split_groups K / group), -1
+// where wgmma_fits refuses the call.
 extern "C" int qtpu_dq_matmul_opt(const void* x, const void* data, const void* scales,
                                   const void* zeros, const void* nw, const void* resid,
                                   void* out, void* part, int split_groups, int cluster, int M,
                                   int K, int N, int bits, int group, float eps, void* stream) {
-  if (M <= 0 || M > 32 || K <= 0 || N <= 0 || N % 4 != 0 || group <= 0 || group % 4 != 0 ||
+  if (M <= 0 || K <= 0 || N <= 0 || N % 4 != 0 || group <= 0 || group % 4 != 0 ||
       K % group != 0 || (nw == nullptr && resid == nullptr))
     return -1;
   DqArgs a = make_args(x, data, scales, zeros, out, part, split_groups, M, K, N, group);
@@ -135,6 +141,15 @@ extern "C" int qtpu_dq_matmul_opt(const void* x, const void* data, const void* s
     if (nw == nullptr) return gemv_tc<2>(a, bits, cluster, split_groups, st);
     if (resid == nullptr) return gemv_tc<4>(a, bits, cluster, split_groups, st);
     return gemv_tc<6>(a, bits, cluster, split_groups, st);
+  }
+  if (M > 8) {
+    if (!wgmma_fits(a)) return -1;
+    switch (bits) {
+      case 2: return launch_dq_wgmma<2, false, true>(a, st);
+      case 4: return launch_dq_wgmma<4, false, true>(a, st);
+      case 8: return launch_dq_wgmma<8, false, true>(a, st);
+      default: return -1;
+    }
   }
   switch (bits) {
     case 2: return dq_option_dispatch<2>(a, st);

@@ -90,6 +90,24 @@
 //    scales and zeros; a per-expert x is one 2D map over [E M, K] rows (a
 //    3D map would zero-fill past M inside each expert, but the epilogue
 //    masks those rows anyway), a shared x the [M, K] map of K1.
+//  * K1's options (OPT, a template parameter, so the other instances compile
+//    as they did; pallas_dequant_matmul.py:385-447): y = [resid +]
+//    (rms_norm(x) nw) @ W in one launch at any M > 8. resid is an epilogue,
+//    resid[m, n] added to the f32 sum before the one bf16 store. norm_w
+//    splits the norm: nw[k] scales the weight's K index, so it is folded
+//    into the A fragments as they are dequantized (one bf16 multiply of the
+//    exact q - z, two 32-bit loads of nw a K step, all while the previous
+//    stage's wgmma runs), and the row factor r_m = 1 / sqrt(mean(x_m^2) +
+//    eps) is a per-column factor of outT, applied in the epilogue. Its sum
+//    of squares comes from a read-only pass over each landed x tile (the
+//    consumer threads two a row, each half of its 128-byte rows, rows past
+//    M skipped), also under the previous stage's wgmma; at the tile's end
+//    the two threads of a row meet by shuffle and the 128 factors go
+//    through shared memory to the epilogue (one named barrier a tile). x is
+//    read once and never rewritten. The rounding is bf16((q - z) nw) where
+//    the plain version rounds bf16(x r nw): both one bf16 rounding an
+//    element, within K1's usual f32 against bf16 difference (the wrapper's
+//    tolerance, 2e-2 relative).
 // Everything here has internal linkage (an anonymous namespace), so the
 // libraries that include it keep their own kernels and launch records.
 #pragma once
@@ -145,6 +163,11 @@ struct WgArgs {
   // or 0 for an input all experts share) and the elements between outputs
   int E, x_rows;
   long long o_es;
+  // OPT (K1's options): the rms-norm weight [K] and the residual [M, N], each
+  // nullptr when absent, and the norm's eps
+  const __nv_bfloat16* nw;
+  const __nv_bfloat16* resid;
+  float eps;
 };
 
 // K9's tile t of the expert walk (EXPERTS): expert e, column tile nt and
@@ -196,6 +219,12 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
 __device__ __forceinline__ void wg_fence_f32(float* d) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
@@ -295,11 +324,11 @@ __device__ __forceinline__ void wg_dequant(const uint8_t* pk, uint32_t (*a)[4],
 // The thread's A fragments of the block's g-th stage, once its slot has
 // landed: the zeros of its two weight columns nc, nc + 1 from the slot, then
 // wg_dequant.
-template <int BITS, bool CB, int G>
+template <int BITS, bool CB, int G, bool NW = false>
 __device__ __forceinline__ void wg_fragments(const uint8_t* ps, const uint8_t* ss, uint64_t* full,
                                              const uint32_t* tab, const WgArgs& a, int g,
                                              int nc, bool in, const uint32_t* roff,
-                                             uint32_t (*dst)[4]) {
+                                             uint32_t (*dst)[4], int k0 = 0) {
   using L = WgLayout<BITS, G, CB>;
   const int slot = g % L::RING;
   mbar_wait(smem_u32(full + slot), (g / L::RING) & 1);
@@ -313,6 +342,22 @@ __device__ __forceinline__ void wg_fragments(const uint8_t* ps, const uint8_t* s
   wg_dequant<BITS, CB, G>(ps + slot * L::PS, dst, roff, 0x43004300u | (z0 * 0x10001u),
                           0x43004300u | (z1 * 0x10001u), __uint_as_float(0x4B000000u | z0),
                           __uint_as_float(0x4B000000u | z1), tab);
+  if constexpr (NW) {
+    // K1's norm_w (OPT): the fragment of K step t holds group K values
+    // 16 t + 2q, + 1 (registers 0, 1: columns nc, nc + 1) and 16 t + 2q + 8,
+    // + 9 (registers 2, 3); each pair times nw's pair, one bf16 rounding
+    if (a.nw != nullptr) {
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(a.nw + k0) + (threadIdx.x & 3);
+#pragma unroll
+      for (int t = 0; t < L::KSTEPS; ++t) {
+        const uint32_t w01 = __ldg(w + 8 * t), w89 = __ldg(w + 8 * t + 4);
+        dst[t][0] = bf16x2_mul(dst[t][0], w01);
+        dst[t][1] = bf16x2_mul(dst[t][1], w01);
+        dst[t][2] = bf16x2_mul(dst[t][2], w89);
+        dst[t][3] = bf16x2_mul(dst[t][3], w89);
+      }
+    }
+  }
 }
 
 // The loads of group s of the tile at (m0, n0), the block's g-th stage,
@@ -343,6 +388,41 @@ __device__ __forceinline__ void wg_issue(const CUtensorMap* tmx, const CUtensorM
   if (zeros) bulk_load(smem_u32(sz + kWgBN * 2), a.zeros + (size_t)sg * a.N + n0, ncol, bar);
 }
 
+// The 256 consumer threads meet (named barrier 1; the producer never
+// joins it).
+__device__ __forceinline__ void wg_consumers_sync() {
+  asm volatile("barrier.sync 1, 256;\n" ::: "memory");
+}
+
+// OPT's norm_w: consumer thread tid's sum of x^2 over its half of x row
+// tid / 2 of one landed stage (xt: NA swizzled atoms of [128 rows][128
+// bytes]; 16-byte chunk c of a row at position c ^ (row % 8)), 0 for rows
+// at or past `rows` (TMA's zero fill). Read only. The chunks are visited in
+// logical order, so a warp's 32 lanes at one step hit 8 positions of 16
+// bytes: 4 wavefronts, no more than the bytes need.
+template <int G>
+__device__ __forceinline__ float wg_row_sq(const uint8_t* xt, int tid, int rows) {
+  constexpr int CH = G / 16;  // 16-byte chunks a thread: half of a row's G / 8
+  const int row = tid >> 1;
+  float sq = 0.f;
+  if (row >= rows) return sq;
+  const int c0 = (tid & 1) * CH;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = c0 + i;
+    const uint4 v = *reinterpret_cast<const uint4*>(xt + (c >> 3) * kWgBM * 128 + row * 128 +
+                                                    (((c & 7) ^ (row & 7)) << 4));
+    const uint32_t* xv = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv[j]));
+      sq = fmaf(xf.x, xf.x, sq);
+      sq = fmaf(xf.y, xf.y, sq);
+    }
+  }
+  return sq;
+}
+
 // A block is persistent: it walks the 128 x 128 output tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ... (a grid of at most one block an SM), its
 // producer running ahead across tile boundaries, so one tile's epilogue and
@@ -358,12 +438,15 @@ __device__ __forceinline__ void wg_issue(const CUtensorMap* tmx, const CUtensorM
 // [E K / PK, N], x's map [E M, K] rows for per-expert inputs (a tile's
 // rows past M read the next expert's rows or TMA's zeros, and the epilogue
 // masks them) or [M, K] for a shared one, and the output pointer moves by
-// the expert's stride.
-template <int BITS, bool CB, int G, bool EXPERTS>
+// the expert's stride. OPT (K1's options, see the note above): a.nw's
+// rewrite of each stage's x and its row factors in the epilogue, a.resid
+// added there; either may be absent.
+template <int BITS, bool CB, int G, bool EXPERTS, bool OPT = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                     const __grid_constant__ CUtensorMap tmw, WgArgs a) {
   using L = WgLayout<BITS, G, CB>;
+  static_assert(!OPT || (!CB && !EXPERTS), "the options are K1's");
   extern __shared__ uint8_t wg_smem[];  // aligned to 1024 below (an __align__ here would move
                                         // the dynamic shared memory of every kernel in the file)
   uint8_t* xs = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
@@ -448,6 +531,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     uint32_t afr[2][L::KSTEPS][4];
     int g = 0;             // the block's stages so far (ring slot and barrier phase)
     bool staged = false;   // afr[0] holds this tile's first fragments already
+    // OPT with norm_w: the sums of x^2 of the thread's half row, this tile's
+    // and the next one's (its first stage lands while this one ends); the
+    // tile's 128 row factors go through rf (the table's room, unused without
+    // CB)
+    const bool norm = OPT && a.nw != nullptr;
+    float* rf = reinterpret_cast<float*>(tab);
+    float sq = 0.f, sq_next = 0.f;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       int m0 = (tile / ntn) * kWgBM;
       int n0 = (tile % ntn) * kWgBN;
@@ -457,7 +547,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int next = tile + gridDim.x;
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-      if (!staged) wg_fragments<BITS, CB, G>(ps, ss, full, ltab, a, g, nc, in, roff, afr[0]);
+      if (!staged) {
+        wg_fragments<BITS, CB, G, OPT>(ps, ss, full, ltab, a, g, nc, in, roff, afr[0]);
+        if (norm) sq += wg_row_sq<G>(xs + (g % L::RING) * L::XS, tid, a.M - m0);
+      }
       staged = false;
       // two stages an iteration, so each one's fragment buffer is a constant
       // index (a register array indexed at run time would live in local memory)
@@ -477,12 +570,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           // the next stage's fragments while this one runs on the tensor
           // cores: this tile's, or the next tile's first when the stage count
           // is even (its buffer, afr[0], is then free)
+          // (OPT with norm_w: the landed stage's sums of x^2 too, this tile's
+          // or the next one's)
           if (s + 1 < stages) {
-            wg_fragments<BITS, CB, G>(ps, ss, full, ltab, a, g + s + 1, nc, in, roff, afr[h ^ 1]);
+            wg_fragments<BITS, CB, G, OPT>(ps, ss, full, ltab, a, g + s + 1, nc, in, roff,
+                                           afr[h ^ 1], (s + 1) * G);
+            if (norm) sq += wg_row_sq<G>(xs + ((g + s + 1) % L::RING) * L::XS, tid, a.M - m0);
           } else if (h == 1 && next < ntiles) {
-            wg_fragments<BITS, CB, G>(ps, ss, full, ltab, a, g + s + 1, nc, in_tile(next), roff,
-                                      afr[0]);
+            wg_fragments<BITS, CB, G, OPT>(ps, ss, full, ltab, a, g + s + 1, nc, in_tile(next),
+                                           roff, afr[0], 0);
             staged = true;
+            if (norm)
+              sq_next += wg_row_sq<G>(xs + ((g + s + 1) % L::RING) * L::XS, tid,
+                                      a.M - (next / ntn) * kWgBM);
           }
           asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
           wg_fence_f32(grp);
@@ -501,17 +601,58 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
       g += stages;
+      if (norm) {  // the tile's row factors, from the two half rows' sums
+        sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+        if ((tid & 1) == 0) rf[tid >> 1] = 1.0f / sqrtf(sq / (float)a.K + a.eps);
+        wg_consumers_sync();
+        sq = sq_next;
+        sq_next = 0.f;
+      }
       // outT fragment: rows lane / 4 and lane / 4 + 8 (columns nc, nc + 1),
       // columns (x rows) 8 jm + 2 q + {0, 1}: one bf16 pair a store
       if (in) {
+        // OPT: the residual pairs of half the tile's rows, all loaded before
+        // that half's first store (the compiler cannot tell resid from out,
+        // so a load after a store would wait for it: one latency a pair)
 #pragma unroll
-        for (int jm = 0; jm < 16; ++jm) {
+        for (int half = 0; half < 2; ++half) {
+          uint32_t rv[OPT ? 16 : 1];
+          if constexpr (OPT) {
+            if (a.resid != nullptr) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int row = m0 + 8 * jm + 2 * q + e;
-            if (row < a.M)
-              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * a.N + n0 + nc) =
-                  __floats2bfloat162_rn(acc[4 * jm + e], acc[4 * jm + 2 + e]);
+              for (int i = 0; i < 16; ++i) {
+                const int row = m0 + 64 * half + 8 * (i >> 1) + 2 * q + (i & 1);
+                rv[i] = row < a.M ? __ldg(reinterpret_cast<const unsigned int*>(
+                                        a.resid + (size_t)row * a.N + n0 + nc))
+                                  : 0u;
+              }
+            }
+          }
+#pragma unroll
+          for (int jh = 0; jh < 8; ++jh) {
+            const int jm = 8 * half + jh;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int row = m0 + 8 * jm + 2 * q + e;
+              if (row < a.M) {
+                float v0 = acc[4 * jm + e], v1 = acc[4 * jm + 2 + e];
+                if constexpr (OPT) {
+                  if (norm) {
+                    const float r = rf[8 * jm + 2 * q + e];
+                    v0 *= r;
+                    v1 *= r;
+                  }
+                  if (a.resid != nullptr) {
+                    const float2 r2 = __bfloat1622float2(
+                        *reinterpret_cast<const __nv_bfloat162*>(&rv[2 * jh + e]));
+                    v0 += r2.x;
+                    v1 += r2.y;
+                  }
+                }
+                *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * a.N + n0 + nc) =
+                    __floats2bfloat162_rn(v0, v1);
+              }
+            }
           }
         }
       }
@@ -539,7 +680,7 @@ int wg_maps(const DqArgs& a, int E, int x_rows, CUtensorMap* tmx, CUtensorMap* t
 // One launch of the route: K1 and K7 (EXPERTS false, E 1, x_rows 0) or K9's
 // E experts, whose [E, ...] leaves follow one another (x_rows: M for an
 // [E, M, K] input, 0 for a shared [M, K] one).
-template <int BITS, bool CB, int G, bool EXPERTS>
+template <int BITS, bool CB, int G, bool EXPERTS, bool OPT = false>
 int launch_wg(const DqArgs& a, int E, int x_rows, cudaStream_t st) {
   using L = WgLayout<BITS, G, CB>;
   static bool smem_set = false;  // this instance's shared-memory attribute
@@ -547,7 +688,7 @@ int launch_wg(const DqArgs& a, int E, int x_rows, cudaStream_t st) {
   const int rc = wg_maps<BITS, G>(a, E, x_rows, &tmx, &tmw);
   if (rc != 0) return rc;
   if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(dq_wgmma_kernel<BITS, CB, G, EXPERTS>,
+    const cudaError_t e = cudaFuncSetAttribute(dq_wgmma_kernel<BITS, CB, G, EXPERTS, OPT>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                L::SMEM);
     if (e != cudaSuccess) return (int)e;
@@ -564,12 +705,15 @@ int launch_wg(const DqArgs& a, int E, int x_rows, cudaStream_t st) {
   w.E = E;
   w.x_rows = x_rows;
   w.o_es = (long long)a.M * a.N;
+  w.nw = a.nw;
+  w.resid = a.resid;
+  w.eps = a.eps;
   const long long tiles =
       (long long)E * ((a.N + kWgBN - 1) / kWgBN) * ((a.M + kWgBM - 1) / kWgBM);
   if (tiles > INT32_MAX) return -1;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  dq_wgmma_kernel<BITS, CB, G, EXPERTS>
+  dq_wgmma_kernel<BITS, CB, G, EXPERTS, OPT>
       <<<tiles < sms ? (int)tiles : sms, kWgThreads, L::SMEM, st>>>(tmx, tmw, w);
   return (int)cudaGetLastError();
 }
@@ -586,11 +730,12 @@ bool wgmma_fits(const DqArgs& a) {
          aligned(a.data) && aligned(a.scales) && (a.zeros == nullptr || aligned(a.zeros));
 }
 
-// Launches the wgmma route for a call wgmma_fits takes.
-template <int BITS, bool CB>
+// Launches the wgmma route for a call wgmma_fits takes; OPT: K1 with its
+// options (a.nw, a.resid).
+template <int BITS, bool CB, bool OPT = false>
 int launch_dq_wgmma(const DqArgs& a, cudaStream_t st) {
-  return a.group == 64 ? launch_wg<BITS, CB, 64, false>(a, 1, 0, st)
-                       : launch_wg<BITS, CB, 128, false>(a, 1, 0, st);
+  return a.group == 64 ? launch_wg<BITS, CB, 64, false, OPT>(a, 1, 0, st)
+                       : launch_wg<BITS, CB, 128, false, OPT>(a, 1, 0, st);
 }
 
 // Launches K9's E experts on the route, a being the first expert's view

@@ -16,10 +16,17 @@ The options of pallas_quantized_matmul_stacked (qtpu's
 `quantized_matmul_stacked(..., norm_w, resid, eps)`,
 qtpu/kernels/dequant_matmul.py:69): `norm_w` [K], the layer's rms-norm row,
 normalizes x inside the launch; `resid` [..., N] is added to the f32 sums
-before the one cast. They take decode shapes (at most 32 rows, N % 4 == 0);
-their plain version is qtpu's XLA composition (norm in f32, cast, matmul,
-then `resid + y`). `quantized_matmul.norm_launches` and `.resid_launches`
-count the launches with each option (all are in `.launches`).
+before the one cast. `options_supported` says from the shape which calls
+take them, at any row count: at M <= 8 the GEMVs (N % 4 == 0), above it
+the Hopper route (group 64 or 128, N % 16 == 0), where norm_w scales the
+dequantized weight's K rows and the norm's row factor is applied in the
+epilogue (bf16((q - z) * norm_w) where the plain version rounds
+bf16(x * r * norm_w): within 2e-2 relative of it); a caller
+composes where it says no (qtpu composes where its kernel cannot take the
+call). Their plain version is qtpu's XLA composition (norm in f32, cast,
+matmul, then `resid + y`). `quantized_matmul.norm_launches` and
+`.resid_launches` count the launches with each option (all are in
+`.launches`).
 
 Which body a launch runs is `dq_route`, the kernel's own rule on the shape
 and the weight's alignment: the GEMV (M <= 8), the Hopper route (wgmma fed
@@ -48,7 +55,6 @@ from qtpu_torch.kernels._build import F, I, P, require
 _SIG = {"qtpu_dq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
         "qtpu_dq_matmul_opt": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]}
 
-OPTION_MAX_M = 32  # rows the options take (decode shapes: the GEMV kernel tiled by 8 rows)
 WGMMA_GROUPS = (64, 128)  # one whole group a stage of the Hopper route
 MMA_ROWS = 16  # packed rows a stage of the mma.sync body
 # the tensor-core GEMV (csrc/dq_gemv_tc.cuh): its bits and groups, the
@@ -203,8 +209,14 @@ def check_packed(data, scales, zeros, meta, device, ragged_n: bool = False):
 
 
 def options_supported(meta, M: int) -> bool:
-    """Whether the kernel takes norm_w / resid at this meta and row count."""
-    return len(meta) == 4 and meta[3] % 4 == 0 and 0 < M <= OPTION_MAX_M
+    """Whether the kernel takes norm_w / resid at this meta and row count:
+    at M <= 8 the GEMVs (N % 4 == 0), above it the Hopper route (group 64
+    or 128, N % 16 == 0; the tensors 16-byte aligned, as dq_route asks,
+    which the launch checks). The mma.sync body takes no options."""
+    if len(meta) != 4 or M <= 0:
+        return False
+    _, group, _, N = meta
+    return N % 4 == 0 if M <= 8 else group in WGMMA_GROUPS and N % 16 == 0
 
 
 def _launch(x, data, scales, zeros, meta, norm_w, resid, eps, simt: bool):
@@ -225,7 +237,10 @@ def _launch(x, data, scales, zeros, meta, norm_w, resid, eps, simt: bool):
     route = dq_route(M, N, bits, group, ptrs)
     if norm_w is not None or resid is not None:
         require(options_supported(meta, M),
-                f"norm_w/resid take at most {OPTION_MAX_M} rows and N % 4 == 0: M={M}, N={N}")
+                f"norm_w/resid take N % 4 == 0 at M <= 8, group 64 or 128 and N % 16 == 0 "
+                f"above: M={M}, group={group}, N={N}")
+        require(M <= 8 or route == "wgmma",
+                "norm_w/resid at M > 8 take 16-byte aligned packed tensors (the Hopper route)")
         if norm_w is not None:
             require(norm_w.dtype == torch.bfloat16 and tuple(norm_w.shape) == (K,)
                     and norm_w.is_contiguous() and norm_w.device == x.device
@@ -233,9 +248,9 @@ def _launch(x, data, scales, zeros, meta, norm_w, resid, eps, simt: bool):
                     "norm_w must be contiguous 8-byte aligned bf16 [K]")
         if resid is not None:
             require(resid.dtype == torch.bfloat16 and resid.shape == out.shape
-                    and resid.is_contiguous() and resid.device == x.device,
-                    f"resid must be contiguous bf16 {tuple(out.shape)}")
-        route = "gemv"
+                    and resid.is_contiguous() and resid.device == x.device
+                    and resid.data_ptr() % 4 == 0,
+                    f"resid must be contiguous 4-byte aligned bf16 {tuple(out.shape)}")
     if route == "gemv" and not simt:
         route = gemv_route(M, K, N, bits, group, ptrs)
     cluster = 0
@@ -243,7 +258,7 @@ def _launch(x, data, scales, zeros, meta, norm_w, resid, eps, simt: bool):
         # one launch: K split over a thread-block cluster
         cluster, per = gemv_tc_split(x.device, K, N, group)
         part = None
-    elif M <= 8 or norm_w is not None or resid is not None:
+    elif M <= 8:
         # dq_core's GEMV, split over K (with a second launch adding the splits)
         per, part = split_k(x.device, M, K, N, group)
     else:

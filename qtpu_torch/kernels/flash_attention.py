@@ -9,8 +9,9 @@ tile); it takes strided views with a contiguous head dim, and its output is
 a [B, H, S, hd] view of a contiguous [B, S, H, hd] tensor, so a caller
 holding [B, S, H, hd] projections passes `.transpose(1, 2)` views and gets
 [B, S, H * hd] back with no copy. Its limits, H % KV == 0 and head_dim 64 or
-128, raise ValueError. A CPU tensor takes `flash_attention_plain`, the f32
-math of the Pallas kernel.
+128 (`supported`, which a model's route asks before the call), raise
+ValueError. A CPU tensor takes `flash_attention_plain`, the f32 math of the
+Pallas kernel.
 
 Which body a launch runs is `flash_route`, the kernel's own rule
 (flash_wgmma_fits): "wgmma", the Hopper body (wgmma fed by TMA), where q,
@@ -34,6 +35,12 @@ from qtpu_torch.kernels._build import I, L64, P, require
 _SIG = {"qtpu_flash_attention": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P],
         "qtpu_flash_attention_mma": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P]}
 MASKED = -1e30
+HEAD_DIMS = (64, 128)
+
+
+def supported(hd: int) -> bool:
+    """Whether the kernel takes this head dim (its check in `_launch`)."""
+    return hd in HEAD_DIMS
 
 
 def attention_mask(S: int, window: int, device) -> torch.Tensor:
@@ -126,7 +133,7 @@ def _launch(q, k, v, window, entry):
     B, H, S, hd = q.shape
     KV = k.shape[1]
     require(KV > 0 and H % KV == 0, f"H={H} must be a multiple of KV={KV}")
-    require(hd in (64, 128), f"head_dim {hd} must be 64 or 128")
+    require(supported(hd), f"head_dim {hd} must be one of {HEAD_DIMS}")
     _check("q", q, (B, H, S, hd), q.device)
     _check("k", k, (B, KV, S, hd), q.device)
     _check("v", v, (B, KV, S, hd), q.device)

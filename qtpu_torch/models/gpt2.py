@@ -14,8 +14,10 @@ Param layout as in qtpu, layers stacked on a leading axis, linears
 `forward_with_cache` updates the stacked KV cache in place: a decode step
 on the int8 cache runs per layer K1 (c_attn), K2 (the cache write) and the
 one-layer decode attention (`decode_attention_layer`, K3's kernel: qtpu's
-`_cached_attention` reaches pallas_decode_attention there), then K1 on
-attn_out, mlp_fc and mlp_proj; on the bf16 cache K8 writes and attends.
+`_cached_attention` reaches pallas_decode_attention there; its plain
+version at a head dim the kernel does not take, counted by
+`ops.plain_attention`), then K1 on attn_out, mlp_fc and mlp_proj; on the
+bf16 cache K8 writes and attends.
 Prefill writes with `cache_layer_write` and attends with the plain
 `cached_attention`, as qtpu's XLA path does. The per-layer cache layout
 raises: qtpu's layer scan over `cache.k` cannot take it either.
@@ -28,7 +30,13 @@ from typing import Callable
 
 import torch
 
-from qtpu_torch.kernels.kv_attention import cache_band_write, cache_mask, decode_attention_layer
+from qtpu_torch.kernels.kv_attention import (
+    cache_band_write,
+    cache_mask,
+    decode_attention_layer,
+    decode_attention_plain,
+    decode_supported,
+)
 from qtpu_torch.models.config import ModelConfig
 from qtpu_torch.models.llama import (
     CAPTURE_MODES,
@@ -37,7 +45,7 @@ from qtpu_torch.models.llama import (
     _channel_stats,
     _write_and_attend,
 )
-from qtpu_torch.models.ops import causal_attention, gelu_tanh, layer_norm, linear
+from qtpu_torch.models.ops import causal_attention, gelu_tanh, layer_norm, linear, plain_attention
 from qtpu_torch.serve.kvcache import KVCache
 
 LAYER_SITES = ("c_attn", "attn_out", "mlp_fc", "mlp_proj")
@@ -207,7 +215,12 @@ def decoder_forward_with_cache(fam: Family, params, input_ids, positions, cache:
             # qtpu: cache_layer_write, then _cached_attention's
             # pallas_decode_attention on the written layer: K2, then K3's kernel
             cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
-            attn = decode_attention_layer(q[:, 0].contiguous(), *cache.layer(l), start)
+            q1, one = q[:, 0].contiguous(), cache.layer(l)
+            if decode_supported(hd, H // k.shape[2]):
+                attn = decode_attention_layer(q1, *one, start)
+            else:  # the one-layer entry's plain version on a [1, ...] view
+                attn = plain_attention(decode_attention_plain, q1,
+                                       *(t.unsqueeze(0) for t in one), start, 0)
             attn = attn.reshape(B, 1, H * hd)
         else:
             attn = _write_and_attend(q, k, v, cache, l, start, mask, 0, slots)

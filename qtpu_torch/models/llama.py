@@ -26,22 +26,30 @@ sites run K7 in place of K1 (and of K4, which takes affine sites only).
 Prefill runs the packed sites' kernels with plain attention and cache write
 (in qtpu those are XLA code too).
 
-Two decode branches of qtpu, off by default, are read from the environment
-on every call under qtpu's names (set to "1"); they apply to a decode step
-(T = 1, no slots) on the stacked cache with at most 32 rows and plain-packed
-fused sites (qkv_proj, o_proj, gateup_proj, down_proj with 4-field metas),
-and otherwise the step composes as above:
-  QTPU_BOUNDARY        qtpu's `_try_boundary_scan` (llama.py:597-680): layer
-                       0's qkv is K1 with its norm_w option; then per layer
-                       RoPE, `_write_and_attend` (K11 on the int8 cache, K8
-                       on bf16) and K13 (o-proj, residual, MLP, residual and
-                       the next layer's norm and qkv in one launch; the last
-                       layer's qkv is computed and not used). Tried first.
+Two layer-boundary branches of qtpu, off by default, are read from the
+environment on every call under qtpu's names (set to "1"); they apply on
+the stacked cache with bf16 activations and plain-packed fused sites
+(qkv_proj, o_proj, gateup_proj, down_proj with 4-field metas), and
+otherwise the layer composes as above:
+  QTPU_BOUNDARY        qtpu's `_try_boundary_scan` (llama.py:597-680), on a
+                       decode step (T = 1, no slots) of at most 32 rows:
+                       layer 0's qkv is K1 with its norm_w option; then per
+                       layer RoPE, `_write_and_attend` (K11 on the int8
+                       cache, K8 on bf16) and K13 (o-proj, residual, MLP,
+                       residual and the next layer's norm and qkv in one
+                       launch; the last layer's qkv is computed and not
+                       used). Tried first.
   QTPU_FUSE_NORM_RESID qtpu's `_fused_norm_qkv` / `_o_proj_resid`
-                       (llama.py:526-595): K1 with norm_w for qkv and with
-                       resid for o_proj, around K2/K3 (int8) or K8 (bf16) and
-                       K4. qtpu also takes it at prefill; here its options
-                       are decode-only (M <= 32), so prefill composes.
+                       (llama.py:526-595), on every call qtpu takes them on
+                       (its stacked delivery, llama.py:186-230): prefill and
+                       admissions at any row count and decode at any batch,
+                       K1 with norm_w for qkv and with resid for o_proj
+                       (the GEMVs at M <= 8, the Hopper route above), around
+                       the attention and the MLP block. A site whose K1 call
+                       takes no options (`options_supported`: the mma.sync
+                       body's shapes) composes, as qtpu composes where its
+                       kernel raises; the per-layer cache composes (qtpu
+                       unrolls it with l = None, llama.py:708-725).
 qtpu runs both only on a TPU; here they also run on the CPU, through the
 kernels' plain versions, so that they can be tested there.
 """
@@ -64,11 +72,24 @@ from qtpu_torch.kernels.kv_attention import (
     cached_attention,
     decode_attention,
     decode_attention_flash,
+    decode_attention_plain,
     decode_attention_write,
     decode_attention_write_bf16,
+    decode_attention_write_bf16_plain,
+    decode_attention_write_plain,
+    decode_supported,
+    flash_decode_plain,
+    flash_supported,
 )
 from qtpu_torch.models.config import ModelConfig
-from qtpu_torch.models.ops import apply_rope, causal_attention, linear, rms_norm, rope_tables
+from qtpu_torch.models.ops import (
+    apply_rope,
+    causal_attention,
+    linear,
+    plain_attention,
+    rms_norm,
+    rope_tables,
+)
 from qtpu_torch.serve.kvcache import KVCache, cache_layer_write
 
 LAYER_SITES = (
@@ -204,7 +225,10 @@ class _Capture:
         self.capture, self.L, self.stats = capture, num_layers, {}
 
     def add(self, site: str, l: int, x: torch.Tensor):
-        st = _channel_stats(x, self.capture)
+        self.put(site, l, _channel_stats(x, self.capture))
+
+    def put(self, site: str, l: int, st: dict):
+        """Layer l's statistics of a site, computed by the caller."""
         if site not in self.stats:
             self.stats[site] = {k: v.new_empty((self.L, *v.shape)) for k, v in st.items()}
         for k, v in st.items():
@@ -262,18 +286,26 @@ def _write_and_attend(q, k, v, cache: KVCache, l: int, start, mask, window: int,
     cache K8. A per-layer buffer goes to K11/K8 as a [1, ...] view of layer
     0. Prefill, and any call with `slots`, writes with `cache_layer_write`
     and attends with the plain `cached_attention` under `mask`, as qtpu's
-    XLA path does."""
+    XLA path does. A head dim the decode kernel does not take
+    (`flash_supported`, `decode_supported`) runs its plain version
+    (`plain_attention`)."""
     B, T, H, hd = q.shape
     if T == 1 and slots is None:
         q1 = q[:, 0].contiguous()
         k_c, v_c, ks_c, vs_c, li = cache.stacked(l)
+        takes = decode_supported(hd, H // k.shape[2])
         if cache.quantized and cache.per_layer and cache.max_len % FLASH_SBLK == 0:
-            out = decode_attention_flash(q1, k, v, *cache.layer(l), start, window=window)
+            args = (q1, k, v, *cache.layer(l), start)
+            out = (decode_attention_flash(*args, window=window) if flash_supported(hd)
+                   else plain_attention(flash_decode_plain, *args, window=window))
         elif cache.quantized:
-            out = decode_attention_write(q1, k, v, k_c, v_c, ks_c, vs_c, start, li,
-                                         window=window)
+            args = (q1, k, v, k_c, v_c, ks_c, vs_c, start, li)
+            out = (decode_attention_write(*args, window=window) if takes
+                   else plain_attention(decode_attention_write_plain, *args, window=window))
         else:
-            out = decode_attention_write_bf16(q1, k, v, k_c, v_c, start, li, window=window)
+            args = (q1, k, v, k_c, v_c, start, li)
+            out = (decode_attention_write_bf16(*args, window=window) if takes
+                   else plain_attention(decode_attention_write_bf16_plain, *args, window=window))
         return out.reshape(B, 1, H * hd)
     cache_layer_write(cache, l, k, v, start, slots)
     return cached_attention(q, cache.layer(l, slots), mask)
@@ -354,10 +386,10 @@ def _cached_layer(x, layers, qm, l, cache: KVCache, cfg: ModelConfig, cos, sin, 
     if decode and cache.quantized and not cache.per_layer:
         # qtpu's cache-carry decode of the stacked cache: K2 then K3
         cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
-        attn = decode_attention(
-            q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
-            start, l, window=win,
-        ).reshape(B, 1, H * hd)
+        args = (q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
+        attn = (decode_attention(*args, window=win) if decode_supported(hd, H // k.shape[2])
+                else plain_attention(decode_attention_plain, *args, window=win))
+        attn = attn.reshape(B, 1, H * hd)
     else:
         attn = _write_and_attend(q, k, v, cache, l, start, mask, win, slots)
     if fuse[1]:
@@ -376,8 +408,8 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
     per-sequence causal mask. `slots` [B] (int64) names the cache row of
     each batch row, for a batch that covers only some of the cache's
     sequences (the batcher's admissions); such a call takes the prefill
-    path at any T. QTPU_BOUNDARY / QTPU_FUSE_NORM_RESID pick qtpu's decode
-    branches (module docstring). Returns (logits [B, T, V] f32, cache)."""
+    path at any T. QTPU_BOUNDARY / QTPU_FUSE_NORM_RESID pick qtpu's
+    layer-boundary branches (module docstring). Returns (logits [B, T, V] f32, cache)."""
     qmeta_d = dict(qmeta) if qmeta is not None else {}
     qm = qmeta_d.get
     B, T = input_ids.shape
@@ -389,13 +421,13 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
     start = positions[:, 0].to(torch.int32).contiguous()
     mask = None if decode else cache_mask(positions, S, win)
     layers = params["layers"]
-    # qtpu's decode branches: a decode step of the stacked cache, bf16 activations
-    branch = decode and not cache.per_layer and x.dtype == torch.bfloat16
-    if branch and _boundary_applies(layers, qm, cache, B):
+    # qtpu's layer-boundary branches: the stacked cache, bf16 activations
+    branch = not cache.per_layer and x.dtype == torch.bfloat16
+    if branch and decode and _boundary_applies(layers, qm, cache, B):
         x = _boundary_layers(x, layers, qm, cache, cfg, cos, sin, start, win)
     else:
         fuse = branch and os.environ.get("QTPU_FUSE_NORM_RESID") == "1"
-        fuse = tuple(fuse and _fusable(layers, qm, s, B) for s in ("qkv_proj", "o_proj"))
+        fuse = tuple(fuse and _fusable(layers, qm, s, B * T) for s in ("qkv_proj", "o_proj"))
         for l in range(cache.num_layers):
             x = _cached_layer(x, layers, qm, l, cache, cfg, cos, sin, start, mask, win, slots,
                               decode, fuse)

@@ -13,17 +13,23 @@ sh_up [L, D, Fs], sh_down [L, Fs, D]) and its sigmoid gate sh_router
 The expert MLP takes one of two routes, chosen by shape (the CPU takes the
 card's route, through the kernels' plain versions):
   * grouped (qtpu's soft dispatch): every expert runs on every token, one
-    K9 launch per packed site for all E experts of the layer, and the top-k
-    routing weights (zero elsewhere) combine the E outputs in f32;
+    K9 launch per packed affine site for all E experts of the layer, and
+    the top-k routing weights (zero elsewhere) combine the E outputs in f32;
   * gathered: one slot per routed (token, expert) pair, K10 streaming only
     the routed experts, the top-k rows combined in f32 -- a decode step
     (T = 1) with B * top_k < E, no shared expert and packed affine expert
-    sites (qtpu/models/moe.py:234-302).
+    sites, smoothed ones included (qtpu/models/moe.py:234-302).
+An expert site's input "smooth" vectors (AWQ, SmoothQuant) are per expert,
+[L, E, K]: x is scaled per expert (K9 with a per-expert input; K10's rows by
+their expert's vector). Codebook (POT/APOT, K7), actorder-perm (GPTQ, K1)
+and W8A8 (K6) expert sites run one `linear` a expert, as qtpu's
+`_expert_matmul` does (moe.py:129-200), and take the grouped route.
 Both forwards are a Python loop over layers on zero-copy W[l] views, as in
 qtpu_torch.models.llama; `forward_with_cache` writes and attends through
 llama's `_write_and_attend` (K11 on the int8 cache at decode, K8 on the bf16
-cache). Calibration capture, and expert sites packed by another method than
-RTN, come with the MoE-methods slice.
+cache). `forward(capture=...)` returns qtpu's calibration statistics, the
+down-projections' input counted per expert over the tokens routed to it
+(`_routed_stats`).
 """
 
 from __future__ import annotations
@@ -34,7 +40,14 @@ import torch.nn.functional as Fn
 from qtpu_torch.kernels.kv_attention import cache_mask
 from qtpu_torch.kernels.moe_matmul import moe_gathered_matmul, moe_matmul
 from qtpu_torch.models.config import ModelConfig
-from qtpu_torch.models.llama import _advance_length, _qkv, _write_and_attend
+from qtpu_torch.models.llama import (
+    CAPTURE_MODES,
+    _advance_length,
+    _Capture,
+    _channel_stats,
+    _qkv,
+    _write_and_attend,
+)
 from qtpu_torch.models.ops import apply_rope, causal_attention, linear, rms_norm, rope_tables
 from qtpu_torch.serve.kvcache import KVCache
 
@@ -58,8 +71,6 @@ EXPERT_SITES = ("exp_gate", "exp_up", "exp_down")
 EXPERT_INPUT_SITES = ("exp_down_in",)
 # the router ([D, E]) and the shared-expert gate ([D, 1]) stay dense when packed
 PACK_DENSE_SITES = ("router", "sh_router")
-
-MOE_METHODS_SLICE = "MoE-methods slice"
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.bfloat16) -> dict:
@@ -118,24 +129,33 @@ def _at(t, l):
 
 
 def _packed_affine(p: dict, meta) -> bool:
-    """A site that K9 and K10 take: packed, 4-field qmeta, no codebook,
-    actorder perm or input smooth."""
+    """A site that K9 and K10 take: packed, 4-field qmeta, no codebook or
+    actorder perm (an input smooth is applied to x before the kernel)."""
     return ("data" in p and meta is not None and len(meta) == 4
-            and not any(key in p for key in ("codebook", "perm", "smooth")))
+            and not any(key in p for key in ("codebook", "perm")))
 
 
 def _expert_matmul(x, p: dict, meta, per_expert_input: bool, l: int):
     """x [M, K] (shared input) or [E, M, K] (per-expert input) against layer l
-    of an expert site -> [E, M, N]. A dense site runs one einsum over the
-    experts, a packed affine site K9 (one launch for all E experts)."""
-    if "w" in p and "smooth" not in p:
+    of an expert site -> [E, M, N]. A smooth site [L, E, K] scales x per
+    expert first (the input becomes per expert). A dense site runs one
+    einsum over the experts, a packed affine site K9 (one launch for all E
+    experts), a codebook, perm or W8A8 site one `linear` a expert (K7, K1,
+    K6)."""
+    if "smooth" in p:
+        s = p["smooth"][l].to(x.dtype)  # [E, K]
+        x = (x if per_expert_input else x[None]) * s[:, None, :]
+        per_expert_input = True
+        p = {k: v for k, v in p.items() if k != "smooth"}
+    if "w" in p:
         w = p["w"][l].to(x.dtype)
         return torch.einsum("emk,ekn->emn" if per_expert_input else "mk,ekn->emn", x, w)
-    if not _packed_affine(p, meta):
-        raise NotImplementedError(
-            f"expert sites with {sorted(p)} and qmeta {meta} come with the {MOE_METHODS_SLICE}")
-    return moe_matmul(x, p["data"][l], p["scales"][l], _at(p.get("zeros"), l), meta,
-                      per_expert_input)
+    if _packed_affine(p, meta):
+        return moe_matmul(x, p["data"][l], p["scales"][l], _at(p.get("zeros"), l), meta,
+                          per_expert_input)
+    E = p["data"].shape[1]
+    return torch.stack([linear(x[e] if per_expert_input else x,
+                               {k: v[l, e] for k, v in p.items()}, meta) for e in range(E)])
 
 
 def _route(h, layers, cfg: ModelConfig, qm, l):
@@ -161,6 +181,8 @@ def _routing_weights(h, layers, cfg: ModelConfig, qm, l):
 
 
 def _gathered_route(layers, cfg: ModelConfig, qm, B: int, T: int) -> bool:
+    """qtpu's gathered decode (moe.py:293-305): T = 1, B * top_k < E, no
+    shared expert, every expert site packed affine (smoothed or not)."""
     return (T == 1 and B * cfg.num_experts_per_tok < cfg.num_experts
             and "sh_gate" not in layers
             and all(_packed_affine(layers[s], qm(s)) for s in EXPERT_SITES))
@@ -169,7 +191,8 @@ def _gathered_route(layers, cfg: ModelConfig, qm, B: int, T: int) -> bool:
 def _moe_mlp_gathered(h, layers, cfg: ModelConfig, qm, l):
     """Decode-time capacity-gathered expert MLP: one K10 slot per routed
     (token, expert) pair, h [B, 1, D] -> [B, 1, D]. The expert ids stay on
-    the device."""
+    the device. A smoothed site scales each slot's row by its expert's
+    vector, s[eidx]."""
     B, T, D = h.shape
     k = cfg.num_experts_per_tok
     topv, topi = _route(h, layers, cfg, qm, l)  # [B, 1, k]
@@ -178,6 +201,8 @@ def _moe_mlp_gathered(h, layers, cfg: ModelConfig, qm, l):
 
     def gmm(x, site):
         p = layers[site]
+        if "smooth" in p:
+            x = x * p["smooth"][l][eidx.long()].to(x.dtype)
         return moe_gathered_matmul(x, eidx, p["data"][l], p["scales"][l],
                                    _at(p.get("zeros"), l), qm(site))
 
@@ -187,23 +212,44 @@ def _moe_mlp_gathered(h, layers, cfg: ModelConfig, qm, l):
     return out.to(h.dtype).reshape(B, T, D)
 
 
-def _moe_mlp(h, layers, cfg: ModelConfig, qm, l):
+def _routed_stats(act, route_w, capture: str) -> dict:
+    """qtpu's `_routed_stats` (moe.py:217-231): the down-projections' input
+    statistics over the tokens routed to each expert only, what a hook on
+    expert e's down-projection sees. act [E, M, F], route_w [M, E] ->
+    mean_abs / max_abs [E, F] in f32 (hessian [E, F, F], sum of XᵀX of the
+    routed rows)."""
+    m = (route_w > 0).float().T[..., None]  # [E, M, 1]
+    a = act.float().abs() * m
+    cnt = m.sum(dim=1).clamp_min(1.0)  # [E, 1]
+    out = {"mean_abs": a.sum(dim=1) / cnt, "max_abs": a.amax(dim=1)}
+    if capture == "hessian":
+        xm = act.float() * m
+        out["hessian"] = xm.transpose(1, 2) @ xm
+    return out
+
+
+def _moe_mlp(h, layers, cfg: ModelConfig, qm, l, cap=None):
     """Routed expert MLP of layer l: h [B, T, D] -> [B, T, D] (the residual
-    is the caller's)."""
+    is the caller's). cap (a calibration capture) takes the grouped route
+    and records exp_down_in (routed) and sh_down_in."""
     B, T, D = h.shape
-    if _gathered_route(layers, cfg, qm, B, T):
+    if cap is None and _gathered_route(layers, cfg, qm, B, T):
         return _moe_mlp_gathered(h, layers, cfg, qm, l)
     h2 = h.reshape(B * T, D)
     route_w = _routing_weights(h2, layers, cfg, qm, l)  # [M, E]
     g = _expert_matmul(h2, layers["exp_gate"], qm("exp_gate"), False, l)  # [E, M, F]
     u = _expert_matmul(h2, layers["exp_up"], qm("exp_up"), False, l)
     act = Fn.silu(g.float()).to(h.dtype) * u
+    if cap is not None:
+        cap.put("exp_down_in", l, _routed_stats(act, route_w, cap.capture))
     d = _expert_matmul(act, layers["exp_down"], qm("exp_down"), True, l)  # [E, M, D]
     out = torch.einsum("me,emd->md", route_w, d.float()).to(h.dtype)
     if "sh_gate" in layers:  # Qwen2-MoE always-on shared expert, sigmoid-gated
         sg = linear(h2, layers["sh_gate"], qm("sh_gate"), layer=l)
         su = linear(h2, layers["sh_up"], qm("sh_up"), layer=l)
         sact = Fn.silu(sg.float()).to(h.dtype) * su
+        if cap is not None:
+            cap.add("sh_down_in", l, sact)
         sd = linear(sact, layers["sh_down"], qm("sh_down"), layer=l)
         gate = torch.sigmoid(linear(h2, layers["sh_router"], qm("sh_router"), layer=l).float())
         out = out + (gate * sd.float()).to(h.dtype)
@@ -212,11 +258,12 @@ def _moe_mlp(h, layers, cfg: ModelConfig, qm, l):
 
 def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none"):
     """Full-sequence causal forward: input_ids [B, S] -> logits [B, S, V] f32
-    (qtpu's moe `forward` without capture)."""
-    if capture != "none":
-        raise NotImplementedError(
-            f"calibration capture on MoE models (routed expert statistics) comes with the "
-            f"{MOE_METHODS_SLICE}")
+    (qtpu's moe `forward`). capture "stats" / "hessian" also returns the
+    calibration statistics as llama's forward does, with exp_down_in per
+    expert over its routed tokens ([L, E, F]; hessian [L, E, F, F]) and,
+    on Qwen2-MoE, sh_down_in; returns (logits, stats) then."""
+    if capture not in CAPTURE_MODES:
+        raise ValueError(f"capture must be one of {CAPTURE_MODES}, got {capture!r}")
     qm = (dict(qmeta) if qmeta is not None else {}).get
     S = input_ids.shape[1]
     x = params["embed"][input_ids]
@@ -224,14 +271,28 @@ def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "non
                            cfg.rope_theta)
     win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
     layers = params["layers"]
-    for l in range(layers["attn_norm"].shape[0]):
+    L = layers["attn_norm"].shape[0]
+    cap = _Capture(capture, L) if capture != "none" else None
+    for l in range(L):
         h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+        if cap is not None:
+            cap.add("attn_in", l, h)
         q, k, v = _qkv(h, layers, cfg, qm, l)
         attn = causal_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, window=win)
+        if cap is not None:
+            cap.add("o_in", l, attn)
         x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
-        x = x + _moe_mlp(rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps), layers, cfg, qm, l)
+        h = rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps)
+        if cap is not None:
+            cap.add("mlp_in", l, h)
+        x = x + _moe_mlp(h, layers, cfg, qm, l, cap)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return linear(x, params["lm_head"], qm("lm_head")).float()
+    logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    if cap is None:
+        return logits
+    stats = dict(cap.stats)
+    stats["head_in"] = _channel_stats(x, capture)
+    return logits, stats
 
 
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,

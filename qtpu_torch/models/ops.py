@@ -7,7 +7,16 @@ A linear site's params are {"w": dense [K, N]} or packed {"data", "scales",
 "smooth" vector [K] (SmoothQuant / AWQ) and a GPTQ actorder "perm" [K].
 Packed sites go to the K1 dequant-matmul, W8A8 sites (5-tuple metas tagged
 "a8") to K6, POT/APOT sites (packed with a "codebook" of levels) to K7.
-`causal_attention` runs K5 (flash attention) on CUDA tensors.
+`causal_attention` runs K5 (flash attention) on CUDA tensors of the head
+dims it takes.
+
+The attention route, as qtpu's (ops.py:133-157; decode llama.py:318): a
+model asks each attention kernel from the shape whether it takes the call
+(`flash_attention.supported`, `kv_attention.decode_supported` /
+`flash_supported`, beside the kernels' own checks) and otherwise runs that
+kernel's plain version -- qtpu's XLA math -- on the same tensors, card or
+CPU, through `plain_attention`, which counts those calls. Nothing is
+decided by catching a launch's exception.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import torch
 
 from qtpu_torch.kernels.codebook_matmul import codebook_matmul
 from qtpu_torch.kernels.dequant_matmul import quantized_matmul
+from qtpu_torch.kernels import flash_attention as _k5
 from qtpu_torch.kernels.flash_attention import attention_mask, flash_attention
 from qtpu_torch.kernels.int8_matmul import w8a8_matmul
 
@@ -63,21 +73,41 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (x.float() * c + rotated.float() * s).to(x.dtype)
 
 
+def plain_attention(plain, *args, **kw):
+    """plain(*args, **kw): an attention kernel's plain version for a call
+    whose shape the kernel does not take (the route above), counted in
+    `plain_attention.launches`."""
+    plain_attention.launches += 1
+    return plain(*args, **kw)
+
+
+plain_attention.launches = 0
+
+
 def causal_attention(q, k, v, window: int = 0):
     """Full-sequence causal attention with GQA: q [B, S, H, hd], k/v [B, S,
     KV, hd] -> [B, S, H * hd]; with window > 0 query i sees keys (i -
     window, i].
 
-    A CUDA tensor runs K5 at any S on `transpose(1, 2)` views (no repeat of
-    the KV heads, no transpose copy, no mask tensor: the kernel masks by
-    position and `window`). A CPU tensor runs qtpu's XLA math (ops.py:147-157):
-    KV heads repeated, f32 scores, -1e30 where the mask is False,
-    probabilities cast to q's dtype."""
+    A CUDA tensor at a head dim K5 takes runs K5 at any S on `transpose(1,
+    2)` views (no repeat of the KV heads, no transpose copy, no mask tensor:
+    the kernel masks by position and `window`). A CPU tensor, and a head
+    dim K5 does not take (counted by plain_attention), runs qtpu's XLA math
+    (ops.py:147-157): KV heads repeated, f32 scores, -1e30 where the mask is
+    False, probabilities cast to q's dtype."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    if not _k5.supported(hd):
+        return plain_attention(_attention_xla, q, k, v, window)
     if q.device.type != "cpu":
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window)
         return out.transpose(1, 2).reshape(B, S, H * hd)
+    return _attention_xla(q, k, v, window)
+
+
+def _attention_xla(q, k, v, window: int):
+    """qtpu's XLA attention (ops.py:147-157) on q's device."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
     mask = attention_mask(S, window, q.device)[None, None]
     if KV != H:
         k = k.repeat_interleave(H // KV, dim=2)

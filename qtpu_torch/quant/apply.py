@@ -17,9 +17,11 @@ GPTQ's actorder a "perm". POT/APOT pack W4 codebook sites: int4 codes in
 the W4 layout, bf16 scales and an f32 "codebook" of levels. `fold_smooth`
 folds the smooth vectors into the adjacent norms and scales;
 `fuse_packed_sites` concatenates q/k/v into "qkv_proj" and gate/up into
-"gateup_proj" (OPT: q/k/v only). On MoE models (arch "moe", RTN only so far) the expert sites
-are quantized and packed as a flat L*E layer axis into [L, E, ...] leaves,
-and the router stays dense.
+"gateup_proj" (OPT: q/k/v only). On MoE models (arch "moe") every method
+quantizes and packs the expert sites as a flat L*E layer axis into [L, E,
+...] leaves, with qtpu's statistics view of the same layer-major order
+(`_expert_stats_view`); their smooth vectors stay per expert, [L, E, K].
+The router and Qwen2-MoE's shared-expert gate stay dense when packed.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qtpu_torch.calib.stats import CalibStats
 from qtpu_torch.core.packing import pack_int4, quantize_pack
 from qtpu_torch.models import get_arch
 from qtpu_torch.quant.apot import apot_quantize_codes, apot_quantize_tensor
@@ -69,19 +72,56 @@ def _gptq_chunk(K: int, N: int) -> int:
     return max(1, min(8, int(GPTQ_CHUNK_BYTES // (K * K * 16 + K * N * 16))))
 
 
+def _expert_stats_view(stats, E: int, expert_inputs, keep=None):
+    """qtpu's `_expert_stats_view` (apply.py:83-111): the CalibStats of an
+    [L*E]-flattened expert site, in the weights' layer-major order (l0e0,
+    l0e1, ...). Per-expert input sites ([.., L, E, C]) merge L and E;
+    shared-input sites ([.., L, C], one vector for all E experts of a
+    layer) repeat each layer's vector E times; head_in passes through.
+    keep: the input sites to view (default all, as qtpu); the others are
+    left out, so the repeated Hessians of sites no expert reads are not
+    made."""
+    if stats is None:
+        return None
+
+    def fix(d, lead):
+        out = {}
+        for site, a in d.items():
+            if keep is not None and site not in keep:
+                continue
+            if site == "head_in":
+                out[site] = a
+            elif site in expert_inputs:
+                out[site] = a.reshape(*a.shape[:lead], a.shape[lead] * a.shape[lead + 1],
+                                      *a.shape[lead + 2:])
+            else:
+                out[site] = a.repeat_interleave(E, dim=lead)
+        return out
+
+    return CalibStats(mean_abs=fix(stats.mean_abs, 1), max_abs=fix(stats.max_abs, 0),
+                      hessian=None if stats.hessian is None else fix(stats.hessian, 0),
+                      n_batches=stats.n_batches)
+
+
 def _map_sites(params: dict, fn, arch, stats=None) -> dict:
     """Apply fn(site, w_kn, has_layer_axis, stats) to every linear site's
     dense weight; extras the function does not produce (biases) carry over.
     Optional sites the model lacks are skipped. MoE expert sites ([L, E, K,
     N], arch.EXPERT_SITES) are flattened to an [L*E, K, N] layer axis around
-    fn, and every leaf fn produces is reshaped back to [L, E, ...]."""
+    fn, with the matching statistics view (of their own input sites), and
+    every leaf fn produces is reshaped back to [L, E, ...]."""
     expert_sites = set(getattr(arch, "EXPERT_SITES", ()))
+    expert_inputs = set(getattr(arch, "EXPERT_INPUT_SITES", ()))
+    views = {}
 
     def rebuild(site, old, has_l):
         if site in expert_sites:
             w = old["w"]
             L, E = w.shape[:2]
-            out = fn(site, w.reshape(L * E, *w.shape[2:]), True, stats)
+            if E not in views:
+                keep = {_input_site_of(s, arch) for s in expert_sites}
+                views[E] = _expert_stats_view(stats, E, expert_inputs, keep)
+            out = fn(site, w.reshape(L * E, *w.shape[2:]), True, views[E])
             out = {k: v.reshape(L, E, *v.shape[1:]) for k, v in out.items()}
         else:
             out = fn(site, old["w"], has_l, stats)
@@ -130,15 +170,6 @@ def _per_layer(one, w, has_l, out_dtype=None):
     return out
 
 
-def _refuse_moe_method(method: str, arch: str) -> None:
-    """On MoE models only RTN is ported: the calibrated and codebook methods
-    need routed expert statistics (qtpu's `_expert_stats_view`)."""
-    if arch == "moe" and method != "rtn":
-        raise NotImplementedError(
-            f"{method} on MoE models (routed calibration, expert stats views) comes with the "
-            "MoE-methods slice")
-
-
 def _need_stats(method: str, stats, what: str):
     if stats is None:
         raise ValueError(f"{method} {what}requires calibration stats")
@@ -150,7 +181,6 @@ def quantize_model(params: dict, method: str, mcfg: dict, stats=None, arch: str 
     Returns a new params tree; the input is not modified. SmoothQuant's
     sites also carry the per-input-channel "smooth" vector that keeps the
     network equivalent."""
-    _refuse_moe_method(method, arch)
     arch_mod = get_arch(arch)
     w_bit = int(mcfg["w_bit"])
     g = int(mcfg.get("q_group_size", -1))
@@ -314,8 +344,7 @@ def pack_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "l
     actorder the column order stored as "perm" (the activations are
     gathered at serve time). pot/apot (W4 only): codebook sites {"data":
     int4 codes, "scales": bf16 [K/g, N], "codebook": f32 levels}, served by
-    K7."""
-    _refuse_moe_method(method, arch)
+    K7. MoE expert sites pack per expert, their smooth vectors [L, E, K]."""
     arch_mod = get_arch(arch)
     w_bit = int(mcfg["w_bit"])
     g = int(mcfg.get("q_group_size", 128))
@@ -327,11 +356,15 @@ def pack_model(params: dict, method: str, mcfg: dict, stats=None, arch: str = "l
         _need_stats(method, stats, "packing ")
     metas = {}
 
-    # smoothquant: the shared weight-column max of each multi-linear input group
+    # smoothquant: the shared weight-column max of each multi-linear input
+    # group; expert sites keep per-site vectors (their statistics differ per
+    # expert) and the dense sites stay out, as in qtpu
     group_colmax = {}
     if method == "smoothquant":
+        skip = (set(getattr(arch_mod, "EXPERT_SITES", ()))
+                | set(getattr(arch_mod, "PACK_DENSE_SITES", ())) | {"lm_head"})
         for _in, linears in arch_mod.SITE_OF_INPUT.items():
-            members = [n for n in linears if n != "lm_head" and n in params["layers"]]
+            members = [n for n in linears if n not in skip and n in params["layers"]]
             if len(members) < 2:
                 continue
             cm = torch.stack([params["layers"][n]["w"].abs().amax(dim=-1) for n in members])

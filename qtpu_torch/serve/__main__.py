@@ -14,10 +14,12 @@ method: packed linears on K1 (OPT's q/k/v fused), int8-cache decode on K2
 and the one-layer decode attention (K3's kernel), bf16-cache decode on K8.
 The MoE
 models (--model tiny-moe-test, tiny-qwen2-moe-test, mixtral-8x7b,
-qwen2-moe-a14b) serve with --method none or rtn: expert matmuls on kernels
-K9 (grouped) and K10 (gathered, decode with batch x top-k below the expert
-count), int8-cache decode on K11; the other methods raise until the
-MoE-methods slice. awq,
+qwen2-moe-a14b) serve with every method: affine expert sites (rtn, awq,
+gptq without actorder, smoothquant) on kernels K9 (grouped) and K10
+(gathered, decode with batch x top-k below the expert count; smoothed
+rows scaled by their expert's vector), codebook expert sites (pot, apot) on
+K7, W8A8 ones (--a8) on K6, one launch an expert; int8-cache decode on K11.
+awq,
 smoothquant and gptq calibrate on qtpu's four random batches of 64 ids
 (numpy default_rng(0..3)); --a8 serves SmoothQuant W8A8 (per-channel int8
 weights, dynamic int8 activations, kernel K6); pot and apot pack W4
@@ -62,9 +64,6 @@ def main(argv=None) -> int:
     from qtpu_torch.serve.batching import ContinuousBatcher
 
     cfg = get_model_config(args.model)
-    if cfg.arch == "moe" and args.method not in ("none", "rtn"):
-        raise NotImplementedError(
-            f"--method {args.method} on MoE models comes with the MoE-methods slice")
     arch = get_arch(cfg.arch)
     params = arch.init_params(cfg, seed=args.seed, device=args.device)
     qmeta = None

@@ -224,8 +224,8 @@ def test_decode_branch_matches_qtpu(switch, kv, both, monkeypatch):
     rule of tests/test_torch_model.py: the composed path of the port flips a
     near tie of this model too), and the branch's calls per step (boundary:
     K1 with norm_w once, K13 once a layer; fuse: K1 with norm_w and with
-    resid once a layer each). Free-running, the branch picks the same
-    greedy tokens as the port's composed path."""
+    resid once a layer each, and so at the prefill, as in qtpu). Free-running,
+    the branch picks the same greedy tokens as the port's composed path."""
     pj, qj, pt, qt = both
     for s in SWITCHES:
         monkeypatch.delenv(s, raising=False)
@@ -240,7 +240,9 @@ def test_decode_branch_matches_qtpu(switch, kv, both, monkeypatch):
     ct = init_cache(T_TINY, B, S, quantized=quant, device="cpu")
     lj, cj = jllama.forward_with_cache(pj, jnp.asarray(ids), jnp.asarray(positions), cj, CFG, qj)
     lt, ct = tllama.forward_with_cache(pt, cpu(ids), cpu(positions), ct, T_TINY, qt)
-    assert spy.counts() == {"boundary": 0, "norm_w": 0, "resid": 0}  # prefill composes
+    L = CFG.num_layers
+    fuse = switch == "QTPU_FUSE_NORM_RESID"  # the fuse branch prefills too (K13 does not)
+    assert spy.counts() == {"boundary": 0, "norm_w": L * fuse, "resid": L * fuse}
     pos = positions[:, -1] + 1
     checked = 0
     for i in range(steps + 1):
@@ -261,9 +263,8 @@ def test_decode_branch_matches_qtpu(switch, kv, both, monkeypatch):
                                            T_TINY, qt)
         pos = pos + 1
     assert checked >= B * (steps + 1) // 2
-    L = CFG.num_layers
     want = ({"boundary": L * steps, "norm_w": steps, "resid": 0} if switch == "QTPU_BOUNDARY"
-            else {"boundary": 0, "norm_w": L * steps, "resid": L * steps})
+            else {"boundary": 0, "norm_w": L * (steps + 1), "resid": L * (steps + 1)})
     assert spy.counts() == want
     assert torch.equal(_greedy(pt, qt, ids, positions, kv, steps), composed)
 
@@ -295,9 +296,13 @@ def test_composed_path_where_the_branches_do_not_apply(case, monkeypatch):
     """Calls the branches do not take: with both switches at "1" (and with
     "", "0" and "true" for `unset`) the step makes no K13 call and no K1 call
     with an option, and its logits equal the step with the switches unset
-    bit for bit (`unset`: only "1" turns a switch on). per_layer: qtpu's unrolled long-context layout; prefill and
-    slots: not a decode step; b33: over the 32 rows K13 and the K1 options
-    take; pot, w8a8, gptq_perm: sites that are not plain packed."""
+    bit for bit (`unset`: only "1" turns a switch on). per_layer: qtpu's
+    unrolled long-context layout; pot, w8a8, gptq_perm: sites that are not
+    plain packed. prefill and slots (not a decode step) and b33 (over the
+    32 rows K13 takes) are calls K13 does not take and the fuse branch
+    does, at any row count as qtpu's stacked delivery does: one K1 call
+    with norm_w and one with resid a layer, on the CPU's plain versions bit
+    for bit the composed ops."""
     method = {"pot": "pot", "w8a8": "smoothquant", "gptq_perm": "gptq"}.get(case, "rtn")
     pt, qt = _sites(method)
     B = 33 if case == "b33" else 2
@@ -327,16 +332,18 @@ def test_composed_path_where_the_branches_do_not_apply(case, monkeypatch):
         for s in SWITCHES:
             monkeypatch.setenv(s, value)
         assert torch.equal(step(), want)
-    assert spy.counts() == {"boundary": 0, "norm_w": 0, "resid": 0}
+    fused = CFG.num_layers if case in ("prefill", "slots", "b33") else 0
+    assert spy.counts() == {"boundary": 0, "norm_w": fused, "resid": fused}
 
 
 @pytest.mark.parametrize("switch", SWITCHES)
 def test_batcher_decode_steps_take_the_branch(switch, both, monkeypatch):
     """The serving engine: its decode steps (decode_multi, T = 1 without
-    slots) take the branch and its prefills (with slots) compose, as qtpu's
-    engine prefills through the T > 1 path; under the fuse switch the CPU
-    runs the same arithmetic as the composed step, so the tokens equal the
-    engine's without the switch."""
+    slots) take the branch; its prefills (with slots) compose under the
+    boundary switch (K13 takes decode steps only) and take the fuse branch
+    under the fuse switch, as qtpu's stacked delivery does at any T. Under
+    the fuse switch the CPU runs the same arithmetic as the composed step,
+    so the tokens equal the engine's without the switch."""
     from qtpu_torch.serve.batching import ContinuousBatcher
 
     _, _, pt, qt = both
@@ -362,5 +369,6 @@ def test_batcher_decode_steps_take_the_branch(switch, both, monkeypatch):
         assert spy.counts() == {"boundary": L * steps, "norm_w": steps, "resid": 0}
         assert [len(o) for o in got] == [6, 6, 6]
     else:
-        assert spy.counts() == {"boundary": 0, "norm_w": L * steps, "resid": L * steps}
+        calls = L * (steps + m["prefill_calls"])
+        assert spy.counts() == {"boundary": 0, "norm_w": calls, "resid": calls}
         assert got == want

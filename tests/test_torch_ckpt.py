@@ -284,15 +284,22 @@ def test_runner_logs_a_failed_artifact_save_and_carries_on(tmp_path):
 
 
 def test_runner_takes_the_arch_from_the_checkpoint(tmp_path):
-    """A Mixtral checkpoint is refused (MoE-methods slice) under a llama
-    preset's name; a llama checkpoint passes under a MoE preset's name."""
+    """A Mixtral checkpoint runs as a MoE model under a llama preset's name
+    (raw and rtn, its artifact saved with [L, E, ...] expert leaves); a
+    llama checkpoint passes under a MoE preset's name."""
     moe_ckpt = _hf_checkpoint(tmp_path / "mixtral", "mixtral")
     config = dict(_run_config(moe_ckpt, str(tmp_path / "art")), model_name="tiny-test",
                   device="cpu")
-    bench = QuantizationBenchmark(config)
-    with pytest.raises(NotImplementedError, match="MoE-methods slice"):
-        bench.run_all_benchmarks()
-    assert bench.results == {} and not (tmp_path / "art").exists()
+    # group 32: the checkpoint's experts are 96 wide
+    bench = QuantizationBenchmark(dict(config, quantization_config={
+        "rtn": {"w_bit": 4, "q_group_size": 32}}))
+    bench.run_all_benchmarks()
+    assert bench.model_cfg.arch == "moe" and list(bench.results) == ["raw", "rtn"]
+    assert all(r.is_success() for r in bench.results.values())
+    packed, qmeta, _ = load_quantized(str(tmp_path / "art"), device="cpu")
+    assert tuple(packed["layers"]["exp_down"]["data"].shape[:2]) == (
+        bench.model_cfg.num_layers, bench.model_cfg.num_experts)
+    assert "exp_gate" in dict(qmeta) and "router" not in dict(qmeta)
     llama_ckpt = _hf_checkpoint(tmp_path / "llama")
     bench = QuantizationBenchmark(dict(config, model_name="tiny-moe-test",
                                        checkpoint_path=llama_ckpt))

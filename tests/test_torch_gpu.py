@@ -1299,29 +1299,75 @@ def _k1_option_inputs(g, dev, bits, group, sym, M, K=512, N=384):
 
 @pytest.mark.parametrize("option", ["norm_w", "resid", "both"])
 @pytest.mark.parametrize("bits,group,sym", [(4, 128, False), (4, 64, True), (8, 64, False),
-                                            (2, 32, False)])
-@pytest.mark.parametrize("M", [1, 8, 13, 32])
+                                            (2, 32, False), (2, 128, True)])
+@pytest.mark.parametrize("M", [1, 8, 13, 32, 77, 300])
 def test_k1_options_match_plain(cuda, option, bits, group, sym, M):
-    """K1 with qtpu's norm_w / resid options (MODE 4, 2, 6 of the core; split
-    K at every M up to 32) against the plain composition, rel 2e-2."""
+    """K1 with qtpu's norm_w / resid options against the plain composition,
+    rel 2e-2: at M <= 8 the GEMVs (the tensor-core GEMV's MODE 4, 2, 6 or
+    dq_core's split K), above 8 rows the Hopper route's OPT instances, one
+    launch on the wgmma counter. W2 g32 above 8 rows has no body with the
+    options (options_supported says so) and raises."""
     qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, bits, group, sym, M)
     kw = {"norm_w": nw if option != "resid" else None, "resid": r if option != "norm_w" else None}
+    if not k1.options_supported(meta, M):
+        assert M > 8 and group not in k1.WGMMA_GROUPS
+        with pytest.raises(ValueError):
+            k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, **kw)
+        return
     n0 = (k1.quantized_matmul.launches, k1.quantized_matmul.norm_launches,
           k1.quantized_matmul.resid_launches)
-    got = k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, **kw)
+    got, route = _route_and_out(
+        k1.quantized_matmul, lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta,
+                                                         **kw))
     want = k1.quantized_matmul_plain(x, qt.data, qt.scales, qt.zeros, meta, **kw)
     torch.cuda.synchronize()
     assert (k1.quantized_matmul.launches - n0[0], k1.quantized_matmul.norm_launches - n0[1],
             k1.quantized_matmul.resid_launches - n0[2]) == (
         1, int(kw["norm_w"] is not None), int(kw["resid"] is not None))
+    assert (route == "wgmma") == (M > 8)
     base = r.float() if kw["resid"] is not None else 0.0
     assert _rel(got.float() - base, want.float() - base) < 2e-2
 
 
+@pytest.mark.parametrize("site", ["qkv", "o"])
+@pytest.mark.parametrize("M", [1024, 2048])
+def test_k1_options_on_the_hopper_route_at_prefill(cuda, site, M):
+    """K1 with norm_w (qkv) or resid (o) at TinyLlama's prefill and eval
+    shapes on the Hopper route, against the plain composition (rel 2e-2)
+    and the composed chain on the kernel (rms_norm + K1, K1 + add), two
+    calls giving the same bits."""
+    from qtpu_torch.models.ops import rms_norm
+
+    g = _gen()
+    K, N = TINYLLAMA_SITES[site]
+    qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, 4, 128, False)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    meta = (4, 128, K, N)
+    nw = (1.0 + 0.1 * torch.randn(K, generator=g, device=cuda)).to(torch.bfloat16)
+    r = torch.randn(M, N, generator=g, device=cuda).to(torch.bfloat16)
+    kw = {"norm_w": nw, "eps": 1e-5} if site == "qkv" else {"resid": r}
+    call = lambda: k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, **kw)  # noqa: E731
+    got, route = _route_and_out(k1.quantized_matmul, call)
+    want = k1.quantized_matmul_plain(x, qt.data, qt.scales, qt.zeros, meta, **kw)
+    if site == "qkv":
+        chain = k1.quantized_matmul(rms_norm(x, nw, 1e-5), qt.data, qt.scales, qt.zeros, meta)
+    else:
+        chain = r + k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta)
+    torch.cuda.synchronize()
+    assert route == "wgmma"
+    base = r.float() if site == "o" else 0.0
+    assert _rel(got.float() - base, want.float() - base) < 2e-2
+    assert _rel(got.float() - base, chain.float() - base) < 2e-2
+    assert _same_bits(got, call())
+
+
 def test_k1_options_raise_on_what_they_do_not_take(cuda):
-    qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, 4, 64, False, 33)
-    with pytest.raises(ValueError):  # over 32 rows
+    qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, 4, 32, False, 33)
+    with pytest.raises(ValueError):  # over 8 rows at a group the Hopper route does not take
         k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, norm_w=nw)
+    qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, 4, 64, False, 33, N=392)
+    with pytest.raises(ValueError):  # over 8 rows at N % 16 != 0
+        k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, resid=r)
     qt, x, nw, r, meta = _k1_option_inputs(_gen(), cuda, 4, 64, False, 8, N=386)
     with pytest.raises(ValueError):  # N % 4 != 0
         k1.quantized_matmul(x, qt.data, qt.scales, qt.zeros, meta, resid=r)
@@ -2226,21 +2272,67 @@ def test_checkpoint_to_artifact_to_served_tokens(cuda, tmp_path):
     assert outs[0] == outs[1]
 
 
-def test_an_imported_head_dim_the_kernels_do_not_take_raises(cuda, tmp_path):
-    """A checkpoint with head_dim 80 imports to the card, and its forward
-    raises through K5's check, naming the shape; no plain version runs in
-    its place."""
+@pytest.mark.parametrize("kv,per_layer", [("int8", False), ("bfloat16", False),
+                                          ("int8", True)])
+@pytest.mark.parametrize("hd", [80, 96])
+def test_head_dims_qtpu_runs_take_the_plain_attention_route(cuda, tmp_path, hd, kv, per_layer):
+    """A 2-layer checkpoint at head_dim 80 (hidden 640, 8 heads) or 96
+    (hidden 768, 8 heads, 4 kv heads) imported to the card, RTN W4 g128
+    fused: the eval forward, a prefill of 2 x 16 and 3 greedy decode steps
+    on the int8 and bf16 stacked caches and the per-layer int8 cache at S
+    2048 (K12's layout), against the same model on the CPU fed the card's
+    tokens, logits within the 2-layer e2e gate (3e-2). The kernels that do
+    not take hd run their plain versions, counted by plain_attention as
+    reckoned from the shape (K5 at both; K3's kernel at hd 80; K12 at
+    both), and the kernels that take it launch (K3's kernel, K11 or K8 at
+    hd 96)."""
+    from qtpu_torch.convert import map_tree
     from qtpu_torch.kernels import flash_attention as k5
-    from qtpu_torch.models import llama
+    from qtpu_torch.models import llama, ops
     from qtpu_torch.models.config import ModelConfig
     from qtpu_torch.models.hf_import import load_checkpoint
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.kvcache import init_cache
 
-    cfg = ModelConfig(vocab_size=512, hidden_size=640, intermediate_size=1024, num_layers=1,
-                      num_heads=8, num_kv_heads=8, head_dim=80)
+    D, KV = (640, 8) if hd == 80 else (768, 4)
+    cfg = ModelConfig(vocab_size=512, hidden_size=D, intermediate_size=1024, num_layers=2,
+                      num_heads=8, num_kv_heads=KV, head_dim=hd)
     _write_hf_llama_2layer(tmp_path, cfg, _gen())
     params, _ = load_checkpoint(str(tmp_path), device="cuda")
-    assert params["layers"]["q_proj"]["w"].shape == (1, 640, 640)
-    before = k5.flash_attention.launches
-    with pytest.raises(ValueError, match="head_dim 80"):
-        llama.forward(params, torch.arange(16, device="cuda")[None], cfg)
-    assert k5.flash_attention.launches == before
+    packed, qmeta = fuse_packed_sites(*pack_model(params, "rtn", {"w_bit": 4,
+                                                                   "q_group_size": 128}))
+    L, B, P, S = cfg.num_layers, 2, 16, 2048 if per_layer else 64
+    takes = (k23.flash_supported(hd) if per_layer
+             else k23.decode_supported(hd, cfg.num_heads // KV))
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator().manual_seed(5))
+    n0 = (ops.plain_attention.launches, k5.flash_attention.launches)
+    assert _rel(llama.forward(params, ids.cuda(), cfg).cpu(),
+                llama.forward(map_tree(params, lambda t: t.cpu()), ids, cfg)) < 3e-2
+    assert (ops.plain_attention.launches - n0[0], k5.flash_attention.launches - n0[1]) == (
+        2 * L, 0)  # the card's and the CPU's forward: K5 refuses 80 and 96
+    runs, feed = {}, None
+    for dev in ("cuda", "cpu"):
+        p = packed if dev == "cuda" else map_tree(packed, lambda t: t.cpu())
+        cache = init_cache(cfg, B, S, quantized=kv == "int8", device=dev, per_layer=per_layer)
+        pos = torch.arange(P, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        x, out, toks = ids.to(dev), [], []
+        for step in range(4):
+            c0 = (ops.plain_attention.launches, k23.decode_attention.launches,
+                  k23.decode_attention_write.launches, k23.decode_attention_write_bf16.launches,
+                  k23.decode_attention_flash.launches)
+            logits, cache = llama.forward_with_cache(p, x, pos, cache, cfg, qmeta)
+            torch.cuda.synchronize()
+            plain = ops.plain_attention.launches - c0[0]
+            kern = sum(getattr(f, "launches") for f in (
+                k23.decode_attention, k23.decode_attention_write,
+                k23.decode_attention_write_bf16, k23.decode_attention_flash)) - sum(c0[1:])
+            assert plain == (0 if step == 0 or takes else L), (dev, step, plain)
+            assert kern == (L if dev == "cuda" and step > 0 and takes else 0), (dev, step, kern)
+            out.append(logits.float().cpu())
+            tok = logits[:, -1].argmax(-1) if feed is None else feed[step].to(dev)
+            toks.append(tok.cpu())
+            x, pos = tok.to(torch.int32)[:, None], pos[:, -1:] + 1
+        runs[dev] = out
+        feed = toks
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert _rel(a, b) < 3e-2

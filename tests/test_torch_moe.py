@@ -401,27 +401,31 @@ def test_serve_cli_moe_on_cpu(capsys):
 
 
 def test_unported_moe_paths_refuse():
-    """What the MoE-methods slice brings raises, naming it; get_arch gives
-    the ported gpt2 and opt modules and raises KeyError on an unknown arch,
-    as qtpu's does."""
+    """What the port still lacks raises on a MoE model too, naming its
+    slice: the benchmark's mesh (sharding) and profile_dir (utils); an
+    unknown capture mode and a one-expert config raise ValueError, as
+    qtpu's do. get_arch gives the ported gpt2 and opt modules and raises
+    KeyError on an unknown arch, as qtpu's does. (The MoE methods, routed
+    capture and the MoE benchmark are ported: tests/test_torch_moe_methods.py.)"""
     cfg = tconfig.TINY_MOE_TEST
     p = tmoe.init_params(cfg, seed=0, device="cpu")
     assert get_arch("moe") is tmoe
-    for method in ("awq", "gptq", "smoothquant", "pot", "apot"):
-        with pytest.raises(NotImplementedError, match="MoE-methods slice"):
-            tapply.pack_model(p, method, {"w_bit": 4}, arch="moe")
-        with pytest.raises(NotImplementedError, match="MoE-methods slice"):
-            tapply.quantize_model(p, method, {"w_bit": 4}, arch="moe")
-    with pytest.raises(NotImplementedError, match="MoE-methods slice"):
-        serve_main(["--model", "tiny-moe-test", "--device", "cpu", "--method", "awq"])
-    with pytest.raises(NotImplementedError, match="MoE-methods slice"):
-        tmoe.forward(p, torch.zeros(1, 4, dtype=torch.long), cfg, capture="stats")
-    bench = QuantizationBenchmark({"model_name": "tiny-moe-test", "quantization_methods": ["rtn"],
-                                   "quantization_config": {"rtn": RTN4},
-                                   "calibration_dataset": "synthetic",
-                                   "test_dataset": "synthetic", "verbose": False}, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE-methods slice"):
-        bench.setup()
+    base = {"model_name": "tiny-moe-test", "quantization_methods": ["rtn"],
+            "quantization_config": {"rtn": RTN4}, "calibration_dataset": "synthetic",
+            "test_dataset": "synthetic", "verbose": False}
+    for extra, match in (({"mesh": {"data": 2, "model": 1, "pipe": 1}}, "sharding slice"),
+                         ({"mesh": {"data": 1, "model": 2, "pipe": 1}}, "sharding slice"),
+                         ({"profile_dir": "x"}, "utils slice")):
+        bench = QuantizationBenchmark(dict(base, **extra), device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            bench.run_all_benchmarks()
+        assert bench.results == {}
+    with pytest.raises(ValueError, match="capture"):
+        tmoe.forward(p, torch.zeros(1, 4, dtype=torch.long), cfg, capture="grads")
+    from dataclasses import replace
+
+    with pytest.raises(ValueError, match="num_experts"):
+        tmoe.init_params(replace(cfg, num_experts=1), device="cpu")
     for arch in ("gpt2", "opt"):
         assert get_arch(arch).__name__ == f"qtpu_torch.models.{arch}"
     with pytest.raises(KeyError):
