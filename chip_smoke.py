@@ -70,7 +70,12 @@ Phases, each printing one JSON line:
            chain); the serving and eval phases check that every decode
            launch of K1, K7, K9, K4 and K6 took the tensor-core GEMV (but
            GPT-2's 50257-wide lm_head), every K13 launch its tensor-core
-           tiles and every K5 launch its Hopper body
+           tiles and every K5 launch its Hopper body; and every attention
+           kernel at hd 80 and 96 (K5 on an eval block of 32 heads, ragged S
+           and a prefill; the one-layer entry and K8 at OPT-2.7B's MHA
+           decode, K3, K11 and K12's three entries at 32 heads over 8) against
+           its plain version with its times, listed in the kernels line as
+           <kernel>_hd80 / _hd96
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions), RTN W4 on
            the int8 KV cache and POT W4 on the bf16 cache; and a 2-layer
@@ -87,12 +92,12 @@ Phases, each printing one JSON line:
            teacher-forced pass holds each half-layer (attention, MoE MLP) on
            the card, from the CPU run's inputs, to the CPU, to the plain
            versions on the card and to the f32-weight arithmetic; 2-layer
-           llamas at head dims qtpu runs and some kernels refuse, hd 80
-           (hidden 2560, 32 heads) and 96 (3072), the eval forward and
-           prefill + 4 decode steps on both caches against the CPU, the
-           refused kernels (K5; K3's kernel at hd 80) on their plain versions
-           as the attention route reckons them (plain_attention); every
-           other phase holds that counter at 0
+           llamas at hd 80 (hidden 2560, 32 heads) and 96 (3072) and a
+           2-layer OPT-2.7B (hd 80), the eval forward and prefill + 4 decode
+           steps against the CPU on the int8 and bf16 caches (the llamas
+           also on the per-layer int8 cache at S 2048, K12), every attention
+           call on its kernel (K5, K2 + K3 or the one-layer entry, K8, K12
+           as reckoned) and none on the plain route
   serve    the main path at full width: TinyLlama-1.1B (22 layers, random
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
@@ -124,6 +129,14 @@ Phases, each printing one JSON line:
            layer of the first step, that step against the plain functions on
            the card (and the same on the empty cache, the floor), tokens/s, a
            profile (device time, busy share, K12's share), peak memory
+  opt_2_7b OPT-2.7B at full width (facebook/opt-2.7b's widths: 32 layers of
+           32 heads of 80, vocab 50272; random per-layer weights from seed
+           0), RTN W4 g128 fused: the engine at 8 x (128 + 32) on the int8
+           cache (K2 and the one-layer entry 32 a step) and the bf16 cache
+           (K8 32 a step), graphs and eager, tokens equal, tokens/s, TTFT, a
+           step's device time against its byte bound; the raw, fake-quant
+           and packed perplexities on the fixture (4 blocks of 2048, packed
+           within 1% of fake-quant, K5 32 a block on its Hopper body)
   serve_gpt2  GPT2_SMALL and OPT_125M at full width, RTN W4 g128, int8 KV, 8
            requests of prompt 128 and 32 new tokens: tokens/s, TTFT, launches
            (K1 49 a forward, K2 and the one-layer decode attention 12 a decode
@@ -206,8 +219,8 @@ Phases, each printing one JSON line:
            requests of 128 + 32 greedy tokens on the int8 cache on the
            loaded artifact and on the in-process params: the same tokens,
            K1-K4 launches as the serve phase reckons them
-  moe_methods  the MoE methods at Mixtral-8x7B's full width (2 layers; GPTQ
-           and APOT on the first): routed calibration on the fixture, then
+  moe_methods  the MoE methods at Mixtral-8x7B's full width (2 layers; GPTQ,
+           POT and APOT on the first): routed calibration on the fixture, then
            awq, smoothquant W8A8, gptq (true Hessians, actorder), pot and
            apot each quantized and packed (seconds printed), packed
            perplexity within the eval phase's gates of fake-quant, sizes
@@ -221,8 +234,8 @@ Phases, each printing one JSON line:
            artifact loaded to the card and served on 2 slots (K10)
 
 Each phase also holds the count of attention calls that took the plain
-route (a head dim a kernel does not take, models/ops.py) to its
-reckoning: 0, but the hd 80 / 96 models of e2e.
+route (a shape a kernel does not take, models/ops.py: hd % 16 == 8, hd >
+128, G > 32) to its reckoning: 0 in every phase.
 
 Launch counters under CUDA graphs: a replay runs no Python, so the engine
 adds to every wrapper's counters, on each replay, what the capture of that
@@ -245,8 +258,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
-          "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16", "serve_moe",
-          "http", "ckpt", "moe_methods")
+          "opt_2_7b", "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16",
+          "serve_moe", "http", "ckpt", "moe_methods")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -683,6 +696,8 @@ def phase_kernels(torch, ctx):
     detail["dequant_matmul_options"] = k1o
     k13r = _k13_rows(torch, gen, dev)
     detail["layer_boundary"] = k13r
+    hdr = _head_dim_rows(torch, gen, dev)
+    detail["head_dims"] = hdr
     emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
 
     # one entry per kernel, at the work of one decode step (B = 8):
@@ -836,6 +851,20 @@ def phase_kernels(torch, ctx):
             "bound_by": _k6_bound_by(k6r, L, "decode"),
             "library_ms": _k6_block(k6r, "bf16_matmul_ms", L, "decode"),
         },
+        # the attention kernels at head_dim 80 and 96 (csrc: the tile of the
+        # next multiple of 64 on K5's Hopper body; K3's kernel and K12 on
+        # the shared core at hd % 64 of 16, 32 or 48), at the work of one
+        # decode step (K5: one eval block) of a 32-layer model at that head
+        # dim: OPT-2.7B's at 80 (launches: the opt_2_7b phase's and e2e's)
+        **{f"{name}_hd{hd}": {
+            "route": "cuda", "replaces": f"qtpu/kernels/{ATTN_REPLACES[name]}",
+            "source": "qtpu_torch/csrc/" + ("flash_attention.cu" if name == "flash_attention"
+                                            else "kv_flash_decode.cu" if "flash" in name
+                                            or "banded" in name else "kv_attention.cu"),
+            "head_dim": hd, "max_abs_err": r["max_abs_err"],
+            **{key: HD_LAYERS * r[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": r["bound_by"],
+        } for hd, rows in hdr.items() for name, r in rows.items()},
         # K1's options at the work of one decode step of the fuse branch: L
         # calls each, norm_w at the qkv site and resid at the o site (M 8)
         **{f"dequant_matmul_{opt}": {
@@ -1612,6 +1641,251 @@ def _k5_rows(torch, gen, dev, cfg):
     return row
 
 
+# The attention kernels at the head dims qtpu runs beside 64 and 128: (H, KV)
+# of the shapes held and timed at each. MHA: OPT-2.7B's 32 heads of 80 (the
+# opt_2_7b phase's shapes) and 32 heads of 96; GQA: the e2e llamas' 32 heads
+# over 8 kv heads.
+HD_MHA = (32, 32)
+HD_GQA = (32, 8)
+HD_LAYERS = 32  # the rows' step: OPT-2.7B's 32 layers
+# the TPU kernel each attention entry replaces (qtpu/kernels/...)
+ATTN_REPLACES = {
+    "flash_attention": "pallas_flash_attention.py:86",
+    "decode_attention": "pallas_kv_attention.py:1147",
+    "decode_attention_write": "pallas_kv_attention.py:313",
+    "decode_attention_layer": "pallas_kv_attention.py:404",
+    "decode_attention_flash": "pallas_kv_attention.py:804",
+    "decode_attention_write_bf16": "pallas_kv_attention.py:262",
+    "decode_attention_write_banded": "pallas_kv_attention.py:554",
+    "decode_attention_write_banded_stacked": "pallas_kv_attention.py:907",
+}
+
+
+def _k5_hd_row(torch, gen, dev, hd):
+    """K5 at head_dim hd on the Hopper body (the tile of the next multiple
+    of 64): an eval block of a 32-head MHA model (B 1, S 2048; OPT-2.7B's at
+    hd 80) without and with a window of 256, a ragged S of 1000 and a
+    prefill of 8 x 128, each within 2e-2 relative error of the plain version
+    and on the route flash_route names; then times at the eval block:
+    kernel, mma.sync body ("was"), plain version, SDPA(is_causal) and the
+    bound from the true hd's operations."""
+    from qtpu_torch.kernels import flash_attention as k5
+
+    H, KV = HD_MHA
+
+    def qkv(B, S):
+        q = (torch.randn(B, H, S, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        k = (torch.randn(B, KV, S, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        v = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+        return q, k, v
+
+    row = {"H": H, "KV": KV, "hd": hd, "cases": {}}
+    cases = {"eval_block": (1, EVAL_BLOCK, 0), "window256": (1, EVAL_BLOCK, 256),
+             "ragged_s1000": (1, 1000, 0), "prefill_8x128": (8, 128, 0)}
+    for name, (B, S, window) in cases.items():
+        q, k, v = qkv(B, S)
+        w0 = k5.flash_attention.wgmma_launches
+        got = k5.flash_attention(q, k, v, window)
+        route = "wgmma" if k5.flash_attention.wgmma_launches > w0 else "mma"
+        want = k5.flash_attention_plain(q, k, v, window)
+        torch.cuda.synchronize()
+        c = {"B": B, "S": S, "window": window, "rel_err": rel_err(torch, got, want),
+             "max_abs_err": float((got.float() - want.float()).abs().max()), "route": route,
+             "tol_rel": 2e-2}
+        row["cases"][name] = c
+        if c["rel_err"] >= 2e-2 or not torch.isfinite(got.float()).all() or route != "wgmma":
+            raise AssertionError(f"K5 at head_dim {hd} disagrees or left its Hopper body: {c}")
+    row["max_abs_err"] = max(c["max_abs_err"] for c in row["cases"].values())
+    S = EVAL_BLOCK
+    io_bytes = 2 * (2 * H * S * hd + 2 * KV * S * hd)
+    pairs = S * (S + 1) // 2
+    row["bound_ms"], row["bound_by"] = bound(io_bytes, 4 * H * hd * pairs)
+    # the padded tile: P V at N = the next multiple of 64, Q K^T at hd
+    hp = -(-hd // 64) * 64
+    row["padded_ops_over_bound"] = (hd + hp) / (2 * hd)
+    n = max(1, min(8, math.ceil(2 * L2_BYTES / io_bytes)))
+    sets = [qkv(1, S) for _ in range(n)]
+    row["ms"], row["timing"] = cuda_ms(torch, [lambda s=s: k5.flash_attention(*s, 0) for s in sets],
+                                       io_bytes)
+    row["was_ms"], _ = cuda_ms(torch, [lambda s=s: k5.flash_attention_mma(*s, 0) for s in sets],
+                               io_bytes)
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda s=s: k5.flash_attention_plain(*s, 0) for s in sets], io_bytes)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda s=s: sdpa(*s, is_causal=True, enable_gqa=True) for s in sets], io_bytes)
+    row["library_call"] = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    row["tflops"] = 4 * H * hd * pairs / (row["ms"] * 1e-3) / 1e12
+    return row
+
+
+def _decode_hd_row(torch, gen, dev, hd, kind):
+    """One of K3's kernel's entries at head_dim hd against its plain
+    version, at the serve cell's cache (B 8, S 176, one slot inactive at pos
+    = S), without and with a window of 64, 8 layers cycled: kind "layer"
+    (the one-layer entry, OPT-2.7B's int8 decode: MHA), "bf16" (K8, its bf16
+    decode: MHA), "k3" (K3 on the stacked int8 cache: GQA) or "k11" (K11:
+    GQA). The int8 entries within 2e-2 relative error of the plain version
+    and rtol/atol 2e-2 of f32 math, K8 within rtol/atol 3e-2, the writes
+    equal to the plain ones (K8, K11), the cache read only (the others).
+    Times: kernel, plain version (eager), SDPA on the cache (dequantized to
+    bf16 beforehand) and the bound."""
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    B, S, L = SERVE_B, 176, 8
+    H, KV = HD_MHA if kind in ("layer", "bf16") else HD_GQA
+    bf = kind == "bf16"
+    if bf:
+        cache = [torch.randn(L, B, KV, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2)]
+    else:
+        cache = [torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen,
+                               device=dev).to(torch.int8) for _ in range(2)]
+        cache += [torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01
+                  for _ in range(2)]
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, S], dtype=torch.int32, device=dev)
+
+    def call(c, l, window=0, plain=False, qq=q):
+        if kind == "layer":
+            if plain:
+                return k23.decode_attention_plain(qq, *c, pos, l, window=window)
+            return k23.decode_attention_layer(qq, *(t[l] for t in c), pos, window=window)
+        if kind == "k3":
+            fn = k23.decode_attention_plain if plain else k23.decode_attention
+            return fn(qq, *c, pos, l, window=window)
+        fn = {"bf16": (k23.decode_attention_write_bf16, k23.decode_attention_write_bf16_plain),
+              "k11": (k23.decode_attention_write, k23.decode_attention_write_plain)}[kind][plain]
+        return fn(qq, kn, vn, *c, pos, l, window=window)
+
+    row = {"kind": kind, "B": B, "H": H, "KV": KV, "hd": hd, "S": S,
+           "cluster": _cluster(torch, k23, B, KV, S)}
+    for window in (0, 64):
+        kc, pc = [t.clone() for t in cache], [t.clone() for t in cache]
+        got = call(kc, 3, window)
+        want = call(pc, 3, window, plain=True)
+        torch.cuda.synchronize()
+        # the last row (pos = S, an inactive batch slot) is garbage by contract
+        gt, wt = got[:-1].float(), want[:-1].float()
+        r = {"max_abs_err": float((gt - wt).abs().max()), "rel_err": rel_err(torch, gt, wt),
+             "cache_as_plain": all(bool(torch.equal(a, b)) for a, b in zip(kc, pc))}
+        if bf:
+            ok = bool(torch.allclose(gt, wt, rtol=3e-2, atol=3e-2))
+            r["tol"] = "cache equal to the plain write; rtol/atol 3e-2"
+        else:
+            w32 = call(pc, 3, window, plain=True, qq=q.float())[:-1].float()
+            r["max_abs_err_vs_f32"] = float((gt - w32).abs().max())
+            ok = r["rel_err"] < 2e-2 and bool(torch.allclose(gt, w32, rtol=2e-2, atol=2e-2))
+            r["tol"] = ("cache as the plain version leaves it; rel 2e-2 vs plain; "
+                        "rtol/atol 2e-2 vs f32")
+        row[f"window{window}"] = r
+        del kc, pc
+        if not ok or not r["cache_as_plain"] or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{kind} at head_dim {hd} disagrees with its plain version: {row}")
+    row["max_abs_err"] = max(row[f"window{w}"]["max_abs_err"] for w in (0, 64))
+    rows_read = sum(min(int(p), S - 1) + 1 for p in pos.tolist())
+    active = sum(1 for p in pos.tolist() if p < S)
+    per_row = 2 * hd * 2 if bf else 2 * hd + 2 * 4
+    written = 0 if kind in ("layer", "k3") else active * KV * (
+        2 * hd * 2 + (2 * hd * 2 if bf else 2 * hd + 2 * 4))  # new rows read and written
+    nbytes = rows_read * KV * per_row + written + 2 * B * H * hd * 2 + B * 4
+    row["bound_ms"], row["bound_by"] = bound(nbytes, rows_read * H * hd * 4)
+    row["ms"], row["timing"] = cuda_ms(torch, [lambda l=l: call(cache, l) for l in range(L)],
+                                       nbytes)
+    row["plain_ms"], _ = cuda_ms(torch, [lambda l=l: call(cache, l, plain=True) for l in range(L)],
+                                 nbytes, reps=L, graph=False)
+    if bf:
+        kd, vd = cache[0][:4], cache[1][:4]
+    else:
+        kd = dequantize_kv(cache[0][:4], cache[2][:4])
+        vd = dequantize_kv(cache[1][:4], cache[3][:4])
+    mask = k23.cache_mask(pos[:, None], S)[:, None]  # [B, 1, 1, S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l], attn_mask=mask, enable_gqa=True)
+                for l in range(4)], nbytes)
+    row["library_call"] = ("scaled_dot_product_attention(enable_gqa=True) on the cache"
+                           + ("" if bf else " dequantized to bf16"))
+    return row
+
+
+def _k12_hd_rows(torch, gen, dev, hd):
+    """K12's three entries at head_dim hd (the e2e llamas' GQA): the flash
+    entry at B 8, S 32768 (seven sequences in [S - 64, S), one inactive),
+    the stacked one on layer 5 of 8 and the banded one at the serve cell's
+    cache (S 176); each against the plain version (_k12_case), with times:
+    kernel, plain version (eager), SDPA on the cache dequantized to bf16
+    and the bound."""
+    from qtpu_torch.kernels import kv_attention as k12
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, KV = HD_GQA
+    G, rows = H // KV, {}
+    S = LONG_S
+    pos = [S - 64, S - 55, S - 46, S - 37, S - 28, S - 19, S - 1, S + 3]
+    row, (cache, q, kn, vn, pos_t, entry) = _k12_case(torch, gen, dev, SERVE_B, KV, G, hd, S,
+                                                      pos, 0)
+    one = [t[0] for t in cache]
+    row["ms"], row["timing"] = cuda_ms(torch, [lambda: entry(q, kn, vn, *one, pos_t)],
+                                       row["bytes"], reps=20)
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda: k12.flash_decode_plain(q, kn, vn, *one, pos_t)], row["bytes"], reps=3,
+        graph=False)
+    kd, vd = dequantize_kv(one[0], one[2]), dequantize_kv(one[1], one[3])
+    mask = (torch.arange(S, device=dev)[None, :] < pos_t[:, None])[:, None, None, :]
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda: sdpa(q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True)],
+        row["bytes"], reps=20)
+    rows["decode_attention_flash"] = row
+    del cache, one, kd, vd
+    torch.cuda.empty_cache()
+    L, S = 8, 176
+    pos = [128, 130, 135, 140, 150, 160, 170, S]
+    row, (cache, q, kn, vn, pos_t, entry) = _k12_case(torch, gen, dev, SERVE_B, KV, G, hd, S,
+                                                      pos, 0, L=L, layer=5)
+    row["ms"], row["timing"] = cuda_ms(
+        torch, [lambda l=l: entry(q, kn, vn, *cache, pos_t, l) for l in range(L)], row["bytes"])
+    row["plain_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k12.flash_decode_plain(q, kn, vn, *(t[l] for t in cache), pos_t)
+                for l in range(L)], row["bytes"], reps=L, graph=False)
+    kd, vd = dequantize_kv(cache[0][:4], cache[2][:4]), dequantize_kv(cache[1][:4], cache[3][:4])
+    mask = (torch.arange(S, device=dev)[None, :] < pos_t[:, None])[:, None, None, :]
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l], attn_mask=mask, enable_gqa=True)
+                for l in range(4)], row["bytes"])
+    rows["decode_attention_write_banded_stacked"] = row
+    brow, _ = _k12_case(torch, gen, dev, SERVE_B, KV, G, hd, S, pos, 0)
+    banded = k12.decode_attention_write_banded
+    brow["ms"], brow["timing"] = cuda_ms(
+        torch, [lambda l=l: banded(q, kn, vn, *(t[l] for t in cache), pos_t) for l in range(L)],
+        row["bytes"])
+    brow.update(plain_ms=row["plain_ms"], library_ms=row["library_ms"])
+    rows["decode_attention_write_banded"] = brow
+    return rows
+
+
+def _head_dim_rows(torch, gen, dev):
+    """Every attention kernel at head_dim 80 and 96 (kernels phase): K5,
+    the four entries of K3's kernel and K12's three, each against its plain
+    version with its times (_k5_hd_row, _decode_hd_row, _k12_hd_rows).
+    Returns {hd: {kernel: row}}."""
+    out = {}
+    for hd in (80, 96):
+        rows = {"flash_attention": _k5_hd_row(torch, gen, dev, hd)}
+        for name, kind in (("decode_attention_layer", "layer"),
+                           ("decode_attention_write_bf16", "bf16"),
+                           ("decode_attention", "k3"), ("decode_attention_write", "k11")):
+            rows[name] = _decode_hd_row(torch, gen, dev, hd, kind)
+        rows.update(_k12_hd_rows(torch, gen, dev, hd))
+        out[hd] = rows
+        torch.cuda.empty_cache()
+    return out
+
+
 LONG_S = 32768  # the long_ctx cell's cache: max_seq_len 32752 + decode_block 16
 GPT2_LAYERS = 12  # GPT2_SMALL and OPT_125M
 
@@ -1658,7 +1932,10 @@ def _k12_case(torch, gen, dev, B, KV, G, hd, S, pos, window, L=1, layer=0):
         got = entry(q, kn, vn, *(t[0] for t in kc), pos_t, window=window)
     want = k12.flash_decode_plain(q, kn, vn, *(t[layer] for t in pc), pos_t, window=window)
     kw = [t[layer].clone() for t in cache]
-    k12.flash_decode_simt(q, kn, vn, *kw, pos_t, window=window)  # the earlier split body
+    if hd in k12.SIMT_FLASH_HEAD_DIMS:  # the earlier split body
+        k12.flash_decode_simt(q, kn, vn, *kw, pos_t, window=window)
+    else:  # no earlier body at this hd: its write is the plain version's
+        kw = [t[layer] for t in pc]
     torch.cuda.synchronize()
     row = {"entry": entry.__name__, "B": B, "KV": KV, "G": G, "hd": hd, "S": S, "L": L,
            "window": window, "pos": pos,
@@ -2155,82 +2432,114 @@ def phase_e2e(torch, ctx):
     _gpt2_opt_e2e(torch)
     _boundary_e2e(torch)
     ctx["moe_route_flips"] = _moe_e2e(torch)
-    ctx["plain_attention_reckoned"] = _head_dim_e2e(torch)
+    _head_dim_e2e(torch, ctx)
 
 
 HEAD_DIM_WIDTHS = {80: {"hidden_size": 2560, "intermediate_size": 6912},  # OPT-2.7B's 2560 / 32
                    96: {"hidden_size": 3072, "intermediate_size": 8192}}
+# facebook/opt-2.7b's published config.json: vocab 50272, hidden 2560, ffn
+# 10240, 32 layers of 32 heads (hd 80), 2048 positions, pre-LayerNorm (its
+# do_layer_norm_before), ReLU, tied embeddings; word_embed_proj_dim equals
+# the hidden size, so there is no projection
+OPT_2_7B = dict(arch="opt", vocab_size=50272, hidden_size=2560, intermediate_size=10240,
+                num_layers=32, num_heads=32, num_kv_heads=32, head_dim=80, norm_eps=1e-5,
+                max_seq_len=2048, tie_embeddings=True)
+# the attention kernels whose launches the head-dim runs reckon
+ATTN_KERNELS = ("flash_attention", "cache_band_write", "decode_attention",
+                "decode_attention_layer", "decode_attention_write", "decode_attention_write_bf16",
+                "decode_attention_flash")
 
 
-def _head_dim_e2e(torch):
+def _head_dim_e2e(torch, ctx):
     """2-layer llamas at head_dim 80 (hidden 2560, 32 heads) and 96 (hidden
-    3072, 32 heads), 8 kv heads, RTN W4 g128 fused: the eval forward (B 1,
-    S 128) and a prefill of 32 with 4 decode steps on the int8 and bf16
-    stacked caches, on the card against the CPU, within 3e-2. The kernels
-    that refuse hd run their plain versions on the card (the attention
-    route, models/ops.py): K5 at both, K3's kernel (K3, K8) at hd 80; the
-    others launch (K2, and K3 / K8 at hd 96). Returns the plain-route calls,
-    card and CPU runs both, as reckoned from the shapes."""
+    3072, 32 heads), 8 kv heads, and a 2-layer OPT-2.7B (hd 80, MHA), RTN W4
+    g128 fused: the eval forward (B 1, S 128) and a prefill of 32 with 4
+    decode steps on the int8 and bf16 stacked caches (the llamas also on the
+    per-layer int8 cache at S 2048, K12's layout), on the card against the
+    CPU, within 3e-2. Every attention call launches its kernel: K5 a layer
+    of the card's forward; a layer a decode step K2 and K3 (llama) or the
+    one-layer entry (OPT) on the int8 cache, K8 on the bf16 one, K12 on the
+    per-layer one; none takes the plain route
+    (plain_attention stays 0, on the CPU too). The launches by head dim are
+    the path "e2e_head_dims"."""
     from qtpu_torch.convert import map_tree
-    from qtpu_torch.kernels import kv_attention as k23
-    from qtpu_torch.models import llama, ops
+    from qtpu_torch.models import get_arch, ops
     from qtpu_torch.models.config import ModelConfig
     from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
     from qtpu_torch.serve.kvcache import init_cache
 
     B, T, steps, L = 4, 32, 4, 2
-    total = 0
-    for hd, widths in HEAD_DIM_WIDTHS.items():
-        # vocabulary 8192: the CPU side's lm_head is most of its time, and the
-        # head dims are the point here
-        cfg = ModelConfig(vocab_size=8192, num_layers=L, num_heads=32, num_kv_heads=8,
-                          head_dim=hd, **widths)
-        raw = llama.init_params(cfg, seed=9, device="cuda")
-        params, qmeta = fuse_packed_sites(*pack_model(raw, "rtn",
-                                                      {"w_bit": 4, "q_group_size": 128}))
+    path = {}
+    models = [(f"llama hd {hd}", ModelConfig(vocab_size=8192, num_layers=L, num_heads=32,
+                                             num_kv_heads=8, head_dim=hd, **widths))
+              for hd, widths in HEAD_DIM_WIDTHS.items()]
+    # vocabulary 8192 for the llamas: the CPU side's lm_head is most of its
+    # time; OPT-2.7B at its published widths
+    models.append(("OPT-2.7B", ModelConfig(**{**OPT_2_7B, "num_layers": L})))
+    for name, cfg in models:
+        arch, hd = cfg.arch, cfg.head_dim
+        fam = get_arch(arch)
+        raw = fam.init_params(cfg, seed=9, device="cuda")
+        params, qmeta = fuse_packed_sites(*pack_model(raw, "rtn", {"w_bit": 4, "q_group_size": 128},
+                                                      arch=arch), arch=arch)
         params = map_tree(params, lambda t: t.cpu())
-        takes = k23.decode_supported(hd, cfg.num_heads // cfg.num_kv_heads)
         ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(8))
         a0 = ops.plain_attention.launches
         _reset_counts()
-        fwd = rel_err(torch, llama.forward(raw, ids.cuda(), cfg).float().cpu(),
-                      llama.forward(map_tree(raw, lambda t: t.cpu()), ids, cfg).float())
+        on_card = fam.forward(raw, ids.cuda(), cfg).float().cpu()
         fwd_counts = _counts()
-        del raw
+        fwd = rel_err(torch, on_card, fam.forward(map_tree(raw, lambda t: t.cpu()), ids,
+                                                  cfg).float())
+        del raw, on_card
         fwd_plain = ops.plain_attention.launches - a0
+        path[f"flash_attention_hd{hd}"] = path.get(f"flash_attention_hd{hd}", 0) + fwd_counts[
+            "flash_attention"]
         ids = ids[:, :T].repeat(B, 1)
-        for kv in ("int8", "bfloat16"):
+        caches = [("int8", False, T + steps + 8), ("bfloat16", False, T + steps + 8)]
+        if arch == "llama":
+            caches.append(("int8", True, 2048))
+        for kv, per_layer, S in caches:
             quant = kv == "int8"
+            t0 = time.perf_counter()
             a0 = ops.plain_attention.launches
             errs, top1, counts = _card_vs_cpu(
-                torch, params, cfg, qmeta, "llama", ids, steps,
-                lambda dev: init_cache(cfg, B, T + steps + 8, quantized=quant, device=dev))
+                torch, params, cfg, qmeta, arch, ids, steps,
+                lambda dev: init_cache(cfg, B, S, quantized=quant, device=dev,
+                                       per_layer=per_layer))
             plain = ops.plain_attention.launches - a0
-            want_plain = 0 if takes else 2 * L * steps  # the CPU run and the card run
-            expect = {"cache_band_write": L * steps if quant else 0,
-                      "decode_attention": L * steps if quant and takes else 0,
-                      "decode_attention_write_bf16": L * steps if not quant and takes else 0,
-                      "decode_attention_write": 0, "flash_attention": 0}
-            res = {"phase": "e2e", "model": f"llama hd {hd}", "hidden": cfg.hidden_size,
-                   "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-                   "method": "rtn W4 g128", "kv": kv, "layers": L, "B": B, "prompt": T,
-                   "decode_steps": steps, "rel_err_per_step": errs, "top1_agree": top1,
-                   "eval_forward_rel_err": fwd, "plain_attention_launches": plain,
-                   "plain_attention_reckoned": want_plain,
-                   "eval_plain_attention_launches": fwd_plain, "launches": counts,
-                   "expected_launches": expect, "tol_rel": 3e-2}
+            n = L * steps
+            expect = dict.fromkeys(ATTN_KERNELS, 0)
+            if per_layer:
+                expect["decode_attention_flash"] = n
+            elif quant:
+                expect["cache_band_write"] = n
+                expect["decode_attention" if arch == "llama" else "decode_attention_layer"] = n
+            else:
+                expect["decode_attention_write_bf16"] = n
+            got = {k: counts[k] for k in ATTN_KERNELS}
+            res = {"phase": "e2e", "model": name, "arch": arch, "hidden": cfg.hidden_size,
+                   "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": hd,
+                   "method": "rtn W4 g128", "kv": kv + (" per_layer" if per_layer else ""),
+                   "S": S, "layers": L, "B": B, "prompt": T, "decode_steps": steps,
+                   "rel_err_per_step": errs, "top1_agree": top1, "eval_forward_rel_err": fwd,
+                   "plain_attention_launches": plain, "eval_plain_attention_launches": fwd_plain,
+                   "eval_forward_launches": {k: fwd_counts[k] for k in ATTN_KERNELS},
+                   "launches": counts, "expected_launches": expect, "tol_rel": 3e-2,
+                   "seconds": time.perf_counter() - t0}
             emit(res)
             if max(errs) >= 3e-2 or fwd >= 3e-2:
                 raise AssertionError(f"card and CPU logits differ at head_dim {hd}: {res}")
-            if plain != want_plain or fwd_plain != 2 * L or fwd_counts["flash_attention"]:
-                raise AssertionError(f"head_dim {hd}: plain-route calls as not reckoned: {res}")
-            if any(counts[k] != v for k, v in expect.items()):
-                raise AssertionError(f"head_dim {hd}: launches {counts} != {expect}")
-            total += plain
-        total += fwd_plain
+            if plain or fwd_plain or fwd_counts["flash_attention"] != L:
+                raise AssertionError(f"head_dim {hd}: an attention call took the plain route "
+                                     f"or K5 missed the forward: {res}")
+            if got != expect:
+                raise AssertionError(f"head_dim {hd}: launches {got} != {expect}")
+            for k, v in got.items():
+                if v and k != "cache_band_write":
+                    path[f"{k}_hd{hd}"] = path.get(f"{k}_hd{hd}", 0) + v
         del params
         torch.cuda.empty_cache()
-    return total
+    ctx.setdefault("path_launches", {})["e2e_head_dims"] = path
 
 
 class _env:
@@ -2815,13 +3124,18 @@ def _tinyllama_w4(torch, ctx):
     return ctx["tinyllama_w4"]
 
 
+EAGER_PROFILE_STEPS = 4  # an eager block's profile: the profiler's own cost grows with its records
+
+
 def _block_times(torch, eng, pos_value, n=16):
     """Time of a decode step of the engine's own decode block (its graph, or
     eager decode_multi on its static inputs): every slot active at position
     pos_value, greedy, blocks of n steps. Host wall ms a step over three
     blocks (each from staging the inputs to reading the ids back), the
     device ms a step between CUDA events around one block, and a profile of
-    one block (device ms, busy share, launches, kernels by kind)."""
+    one block (device ms, busy share, launches, kernels by kind; an eager
+    engine's over EAGER_PROFILE_STEPS steps, a graph engine's over one
+    replay of its n-step graph)."""
     import numpy as np
 
     B = eng.max_batch
@@ -2840,8 +3154,10 @@ def _block_times(torch, eng, pos_value, n=16):
     eng.launch_decode_block(*args, n)
     b.record()
     b.synchronize()
-    prof = _profiled(torch, lambda: eng.run_decode_block(*args, n), n, classify=_kind)
-    return {"block": n, "wall_ms_per_step": wall, "event_ms_per_step": a.elapsed_time(b) / n,
+    m = n if eng.graphs else EAGER_PROFILE_STEPS
+    prof = _profiled(torch, lambda: eng.run_decode_block(*args, m), m, classify=_kind)
+    return {"block": n, "profiled_steps": m, "wall_ms_per_step": wall,
+            "event_ms_per_step": a.elapsed_time(b) / n,
             "device_ms_per_step": prof["device_ms_per_step"],
             "device_busy_share": prof["device_busy_share"], "profile": prof}
 
@@ -3677,6 +3993,141 @@ def phase_serve_gpt2(torch, ctx):
 
 
 
+def phase_opt_2_7b(torch, ctx):
+    """OPT-2.7B at full width on the card (OPT_2_7B: facebook/opt-2.7b's
+    widths, 32 layers of 32 heads of 80), random per-layer weights from seed
+    0 (5.3 GB bf16), RTN W4 g128 packed with fused q/k/v: the engine at 8 x
+    (128 + 32), greedy, on the int8 cache (K2 and the one-layer entry 32 a
+    decode step) and the bf16 cache (K8 32 a step), each on CUDA graphs and
+    eager (tokens equal), with tokens/s, TTFT and a decode step's device
+    time against its byte bound (the weights a step streams and the cache
+    rows it reads, at 3.35 TB/s); then the bench's three perplexities on the
+    fixture, 4 blocks of 2048: raw, RTN fake-quant and packed (within 1% of
+    fake-quant), K5 32 launches an eval block on its Hopper body, K1 on the
+    Hopper route."""
+    import numpy as np
+
+    from qtpu_torch.data.fixture import load_fixture_test
+    from qtpu_torch.eval import evaluate_perplexity
+    from qtpu_torch.models import opt
+    from qtpu_torch.models.config import ModelConfig
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model, quantize_model
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    cfg = ModelConfig(**OPT_2_7B)
+    L, B, P, new, hd = cfg.num_layers, SERVE_B, SERVE_PROMPT, SERVE_NEW, cfg.head_dim
+    KV = cfg.num_kv_heads
+    paths = ctx.setdefault("path_launches", {})
+    t0 = time.perf_counter()
+    raw = opt.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed, qmeta = fuse_packed_sites(*pack_model(raw, "rtn", EVAL_MCFG, arch="opt"), arch="opt")
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    # the bytes a decode step streams: every weight but the embedding and
+    # position tables, of which it gathers B rows each
+    leaves = _tree_leaves(packed)
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in leaves.items()
+                       if k not in ("/embed", "/pos_embed")) + 2 * B * cfg.hidden_size * 2
+    emit({"phase": "opt_2_7b_model", "config": OPT_2_7B, "init_s": init_s, "pack_s": pack_s,
+          "raw_gb": sum(t.numel() * t.element_size() for t in _tree_leaves(raw).values()) / 1e9,
+          "step_weight_bytes": weight_bytes,
+          "step_weight_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3})
+
+    def step_bound(kv, pos_value):
+        """The byte bound of a decode step with every slot at pos_value."""
+        per_row = 4 * hd if kv == "bfloat16" else 2 * hd + 2 * 4
+        cache = L * B * KV * ((pos_value + 1) * per_row + per_row)  # rows read, the row written
+        return (weight_bytes + cache) / HBM_BYTES_PER_S * 1e3
+
+    serving = {}
+    for kv in ("int8", "bfloat16"):
+        quant = kv == "int8"
+
+        def make(graphs, kv=kv):
+            return ContinuousBatcher(packed, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                     kv_dtype=kv, seed=0, device="cuda", cuda_graphs=graphs)
+
+        def expect_of(steps, pre, quant=quant):
+            expect = dict.fromkeys(WRAPPERS, 0)
+            expect.update({"dequant_matmul": (4 * L + 1) * (steps + pre),
+                           "cache_band_write": L * steps if quant else 0,
+                           "decode_attention_layer": L * steps if quant else 0,
+                           "decode_attention_write_bf16": 0 if quant else L * steps})
+            return expect
+
+        def check(tag, counts, routes, steps, pre):
+            _check_routes(tag, routes, k1=(4 * L + 1) * pre)  # every prefill launch on the route
+            _check_gemv(tag, counts, routes)  # every decode launch on the tensor-core GEMV
+
+        runs = _serve_both(torch, ctx, "opt_2_7b", make, _serve_prompts(cfg, B), new, expect_of,
+                           check, extra={"model": "OPT-2.7B", "layers": L, "head_dim": hd,
+                                         "method": "rtn W4 g128", "kv": kv})
+        g = runs["graph"]
+        attn = "decode_attention_layer" if quant else "decode_attention_write_bf16"
+        paths[f"opt_2_7b_{kv}"] = {**g["launches"], **g["routes"],
+                                   f"{attn}_hd{hd}": g["launches"][attn]}
+        steps = g["decode_steps"]
+        serving[kv] = {
+            mode: {"tokens_per_s": r["tokens_per_s"], "mean_ttft_s": r["mean_ttft_s"],
+                   "warmup_s": r["warmup_s"],
+                   "step_event_ms": r["decode_step"]["event_ms_per_step"],
+                   "step_device_ms": r["decode_step"]["device_ms_per_step"],
+                   "step_busy_share": r["decode_step"]["device_busy_share"]}
+            for mode, r in runs.items()}
+        serving[kv]["step_bound_ms"] = step_bound(kv, P)
+        serving[kv]["step_bound_by"] = "bytes"
+        serving[kv]["launches_per_step"] = {
+            k: (g["launches"][k] - (4 * L + 1) * g["prefill_calls"] * (k == "dequant_matmul"))
+            / steps for k in ("dequant_matmul", "cache_band_write", attn)}
+        serving[kv]["graph_step_over_bound"] = (serving[kv]["graph"]["step_event_ms"]
+                                                / serving[kv]["step_bound_ms"])
+        torch.cuda.empty_cache()
+
+    # the bench's three perplexities on the fixture
+    ids = np.ascontiguousarray(load_fixture_test(str(FIXTURE_DIR)))
+    ppl, per_block, launches = {}, {}, {}
+    fake = quantize_model(raw, "rtn", EVAL_MCFG, arch="opt")
+    for name, (p, qm) in (("raw", (raw, None)), ("rtn", (fake, None)),
+                          ("packed", (packed, qmeta))):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppl[name] = evaluate_perplexity(p, ids, cfg, n_samples=EVAL_BLOCKS, block_size=EVAL_BLOCK,
+                                        qmeta=qm, arch="opt")
+        per_block[name] = (time.perf_counter() - t0) / EVAL_BLOCKS
+        launches[name] = {**_counts(), **_route_counts()}
+        if name == "packed":
+            paths["opt_2_7b_eval"] = {**launches[name],
+                                      f"flash_attention_hd{hd}": launches[name]["flash_attention"]}
+    del fake
+    per_eval_block = {n: {k: c[k] / EVAL_BLOCKS for k in ("flash_attention", "dequant_matmul",
+                                                           "flash_attention_wgmma",
+                                                           "dequant_matmul_wgmma")}
+                      for n, c in launches.items()}
+    res = {"phase": "opt_2_7b", "model": "OPT-2.7B", "layers": L, "head_dim": hd,
+           "method": "rtn W4 g128", "serving": serving, "perplexity": ppl,
+           "packed_over_fake": ppl["packed"] / ppl["rtn"], "s_per_eval_block": per_block,
+           "launches_per_eval_block": per_eval_block, "card": ctx["smi"]}
+    emit(res)
+    if not all(math.isfinite(v) for v in ppl.values()):
+        raise AssertionError(f"OPT-2.7B perplexities not finite: {ppl}")
+    if abs(ppl["packed"] / ppl["rtn"] - 1) >= 1e-2:
+        raise AssertionError(f"OPT-2.7B packed perplexity not within 1% of fake-quant: {ppl}")
+    want_block = {"flash_attention": L, "flash_attention_wgmma": L}
+    for name, c in per_eval_block.items():
+        if any(c[k] != v for k, v in want_block.items()):
+            raise AssertionError(f"OPT-2.7B {name} eval: K5 launches {c} != {want_block} a block")
+    packed_block = per_eval_block["packed"]
+    if (packed_block["dequant_matmul"], packed_block["dequant_matmul_wgmma"]) != (4 * L + 1,) * 2:
+        raise AssertionError(f"OPT-2.7B packed eval: K1 launches {packed_block} a block")
+    _check_gemv("opt_2_7b eval", launches["packed"], launches["packed"])
+    del raw, packed
+    torch.cuda.empty_cache()
+
+
 FIXTURE_DIR = Path(__file__).resolve().parent / "fixtures" / "public_bytes"
 EVAL_BLOCKS = 4
 EVAL_MCFG = {"w_bit": 4, "q_group_size": 128}
@@ -3999,11 +4450,11 @@ def _calib_blocks(cfg, n=CALIB_BLOCKS):
 
 def phase_quant(torch, ctx):
     """The calibrated methods at full width through `python -m
-    qtpu_torch.bench` (main() in this process), then their costs: the
-    calibration, AWQ's and SmoothQuant's quantize, each method's pack
-    (GPTQ's sweep runs once here), warm packed eval blocks with a profiler
-    split, and a 2-layer packed eval on the card against
-    the CPU on the same packed bytes."""
+    qtpu_torch.bench` (main() in this process), with their costs taken
+    inside that run: the calibrations, each method's quantize and pack;
+    then warm blocks of the run's packed artifacts with a profiler split,
+    and a 2-layer packed eval on the card against the CPU on the same packed
+    bytes."""
     import tempfile
 
     import numpy as np
@@ -4016,7 +4467,7 @@ def phase_quant(torch, ctx):
     from qtpu_torch.eval import evaluate_perplexity
     from qtpu_torch.models import llama
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
-    from qtpu_torch.quant.apply import fold_smooth, fuse_packed_sites, pack_model, quantize_model
+    from qtpu_torch.quant.apply import fold_smooth, fuse_packed_sites, pack_model
 
     fixture = f"fixture:{FIXTURE_DIR}"
     methods = list(QUANT_MCFG)
@@ -4030,14 +4481,46 @@ def phase_quant(torch, ctx):
                     "pack_method": "smoothquant"},
         "seed": 0, "device": "cuda", "verbose": True,
     }
+    # the calibrations and each method's quantize and pack timed inside the
+    # bench, on the host around a synchronize (the first of each), its
+    # packed artifacts kept
+    times, artifacts = {}, {}
+    real = (runner.collect_calibration_stats, runner.quantize_model,
+            runner.QuantizationBenchmark._packed)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, time.perf_counter() - t0)
+        return r
+
+    def calibrate(*a, **kw):
+        return timed("calibrate_hessian" if kw.get("collect_hessian") else "calibrate",
+                     lambda: real[0](*a, **kw))
+
+    def quantize(params, method, *a, **kw):
+        return timed(f"quantize_{method}", lambda: real[1](params, method, *a, **kw))
+
+    def packed(bench, method, mcfg, stats=None):
+        artifacts[method] = timed(f"pack_{method}", lambda: real[2](bench, method, mcfg, stats))
+        return artifacts[method]
+
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path, out_path = Path(tmp) / "config.json", Path(tmp) / "results.json"
         cfg_path.write_text(json.dumps(config))
         _reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        (runner.collect_calibration_stats, runner.quantize_model,
+         runner.QuantizationBenchmark._packed) = (calibrate, quantize, packed)
         t0 = time.perf_counter()
-        rc = bench_main([str(cfg_path), "--out", str(out_path)])
+        try:
+            rc = bench_main([str(cfg_path), "--out", str(out_path)])
+        finally:
+            (runner.collect_calibration_stats, runner.quantize_model,
+             runner.QuantizationBenchmark._packed) = real
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts()
@@ -4088,36 +4571,21 @@ def phase_quant(torch, ctx):
     _check_gemv("quant", counts, routes)
     ctx.setdefault("path_launches", {})["quant"] = {**counts, **routes}
 
-    # the costs, each timed on the host around a synchronize
+    # warm blocks of the bench's packed artifacts, each timed on the host
+    # around a synchronize, and a profiled one
     ids = load_fixture_test(str(FIXTURE_DIR))
-    params = llama.init_params(cfg, seed=0, device="cuda")
-    calib = _calib_blocks(cfg)
-    times = {}
-
-    def timed(name, fn):
+    per_block, profiles = {}, {}
+    for m in QUANT_MCFG:
+        p, qm = artifacts.pop(m)
+        evaluate_perplexity(p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm)  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = fn()
+        evaluate_perplexity(p, ids, cfg, n_samples=3, block_size=EVAL_BLOCK, qmeta=qm)
         torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        return r
-
-    stats = timed("calibrate_hessian", lambda: collect_calibration_stats(
-        llama.forward, params, calib, cfg, collect_hessian=True))
-    packed, per_block, profiles = {}, {}, {}
-    for m, mcfg in QUANT_MCFG.items():
-        if m != "gptq":  # GPTQ's column sweep is timed once, in its pack
-            timed(f"quantize_{m}", lambda: quantize_model(params, m, mcfg, stats))
-        packed[m] = timed(f"pack_{m}", lambda: fuse_packed_sites(
-            *fold_smooth(*pack_model(params, m, mcfg, stats))))
-        p, qm = packed[m]
-        evaluate_perplexity(p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm)  # warm
-        timed("eval3", lambda: evaluate_perplexity(p, ids, cfg, n_samples=3,
-                                                   block_size=EVAL_BLOCK, qmeta=qm))
-        per_block[m] = times.pop("eval3") / 3
+        per_block[m] = (time.perf_counter() - t0) / 3
         profiles[m] = _profiled(torch, lambda: evaluate_perplexity(
             p, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qm), 1, classify=_kind)
-    del stats, packed, params
+        del p, qm
     torch.cuda.empty_cache()
     emit({"phase": "quant_timing", "seconds": times, "s_per_packed_block": per_block,
           "profile_packed_block": profiles, "card": ctx["smi"]})
@@ -4904,11 +5372,11 @@ def phase_ckpt(torch, ctx):
                              f"params': {outs}")
 
 
-# depth of the methods' Mixtral-width model; the two slow searches, GPTQ's
+# depth of the methods' Mixtral-width model; the slow searches, GPTQ's
 # column sweep (its exp_down_in Hessian alone is 8 x 14336^2 x 4 B = 6.58 GB
-# a layer) and APOT's scale race, run on its first layer to keep the smoke
-# within its time
-MOE_METHOD_LAYERS = {"awq": 2, "smoothquant": 2, "gptq": 1, "pot": 2, "apot": 1}
+# a layer) and POT's and APOT's scale races, run on its first layer to keep
+# the smoke within its time
+MOE_METHOD_LAYERS = {"awq": 2, "smoothquant": 2, "gptq": 1, "pot": 1, "apot": 1}
 MOE_METHOD_MCFG = {
     "awq": {"w_bit": 4, "q_group_size": MOE_GROUP},
     "smoothquant": {"w_bit": 8, "q_group_size": MOE_GROUP, "alpha": 0.5, "act_quant": True},
@@ -5033,8 +5501,8 @@ def _moe_method_engines(torch, ctx, params, qmeta, cfg, method, tag):
 
 def phase_moe_methods(torch, ctx):
     """The MoE methods at Mixtral-8x7B's full width (4096 / 14336, E 8,
-    top-2), its first 2 layers (random per-layer weights from seed 0; GPTQ
-    and APOT on the first of them, MOE_METHOD_LAYERS): calibration on the
+    top-2), its first 2 layers (random per-layer weights from seed 0; GPTQ,
+    POT and APOT on the first of them, MOE_METHOD_LAYERS): calibration on the
     fixture's 4 blocks of 512 (routed exp_down_in statistics; once more
     with the true Hessians for GPTQ), then for awq, smoothquant (W8A8), gptq
     (true Hessians, actorder), pot (the 0.1 grid) and apot:
@@ -5288,8 +5756,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         a0 = ops.plain_attention.launches
         globals()[f"phase_{p}"](torch, ctx)
-        # attention calls a kernel did not take by its head dim (the plain
-        # route): none but those a phase reckons (e2e's hd 80 and 96 models)
+        # attention calls a kernel did not take by its shape (the plain
+        # route): none but those a phase reckons (none at all today)
         plain = ops.plain_attention.launches - a0
         reckoned = ctx.pop("plain_attention_reckoned", 0)
         emit({"phase_done": p, "seconds": time.perf_counter() - t0,
@@ -5301,9 +5769,11 @@ def main(argv=None) -> int:
     print(ctx["smi"], flush=True)
     if "kernel_rows" in ctx:
         # launches: the sum over the main paths' runs (serve, long_ctx,
-        # serve_gpt2's two models, eval, quant, serve_w8a8, pot_apot,
-        # serve_bf16, serve_moe's two engines, ckpt's bench and two
-        # engines), each counted from 0 just before it
+        # serve_gpt2's two models, opt_2_7b's two engines and packed eval,
+        # eval, quant, serve_w8a8, pot_apot, serve_bf16, serve_moe's two
+        # engines, ckpt's bench and two engines, and e2e's head-dim models
+        # for the <kernel>_hd80 / _hd96 rows), each counted from 0 just
+        # before it
         # gemv_tc_launches: those of them on the tensor-core GEMV (the
         # decode launches of K1, K4, K6, K7, K9 and every K10 launch)
         paths = ctx.get("path_launches", {}).values()

@@ -36,6 +36,11 @@
 // strides for batch, head and position; the head dim must be contiguous),
 // so the caller's [B, S, H, hd] projections need no copy.
 //
+// Head dims: any multiple of 16 from 32 to 128 (qtpu's kernel takes any hd;
+// the published configs of the families the port imports use 64, 80, 96
+// and 128). The mma.sync body is written in k-steps of 16 and 8-column
+// tiles, so each hd is an instance of it.
+//
 // The Hopper body (flash_wgmma_kernel, the one calls take where
 // flash_wgmma_fits holds: q, k and v 16-byte aligned with strides of whole
 // 16-byte units). mma.sync reaches a fraction of the card's bf16 rate; only
@@ -44,10 +49,19 @@
 //    warpgroups of 64 rows each, and a producer warpgroup whose one thread
 //    loads Q once and keeps the K and V tiles of 128 keys in flight by TMA
 //    (4D tensor maps over the strided [B, H|KV, S, hd] views, the 128-byte
-//    swizzle, 64 head-dim columns a box) in a ring of 2 (hd 128) or 3 (hd 64)
-//    stages, refilled as soon as both warpgroups release a stage (an
-//    mbarrier of 8 warp arrivals); setmaxnreg gives the consumers 232
+//    swizzle, 64 head-dim columns a box) in a ring of 2 (hd > 64) or 3
+//    (hd <= 64) stages, refilled as soon as both warpgroups release a stage
+//    (an mbarrier of 8 warp arrivals); setmaxnreg gives the consumers 232
 //    registers and the producer 40, as on the route;
+//  * an hd that is not a multiple of 64 (32, 48, 80, 96, 112) is held in
+//    the tile of the next multiple, HP = 64 or 128: the tensor maps' inner
+//    dimension is the true hd, so TMA fills the columns past it with zeros
+//    and reads no byte more from memory; S = Q K^T runs hd / 16 k-steps (no
+//    padded work), P V runs at N = HP (wgmma's MN-major 128-byte swizzled
+//    B operand comes in 64-column atoms), and only the true columns of O
+//    are rescaled and stored. At hd 80 that is 128 / 80 = 1.6x the PV
+//    products and (80 + 128) / 160 = 1.3x the tensor-core work of the
+//    bound; the scale is 1 / sqrt(hd) of the true hd;
 //  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
 //    K-major as TMA lays them (wg_desc); the scores are in the accumulator
 //    layout of mma.sync's C, so the online softmax (log2 domain, the mask
@@ -340,10 +354,11 @@ constexpr int kWProducerRegs = 40;
 
 template <int HD>
 struct FaLayout {
-  static constexpr int NC = HD / 64;          // 64-column (128-byte) chunks of a row
+  static constexpr int NC = (HD + 63) / 64;   // 64-column (128-byte) chunks of a row
+  static constexpr int HP = 64 * NC;          // the padded head dim: P V's N
   static constexpr int QB = NC * kWBQ * 128;  // Q tile
   static constexpr int TB = NC * kWBK * 128;  // a K or V tile
-  static constexpr int RING = HD == 64 ? 3 : 2;
+  static constexpr int RING = NC == 1 ? 3 : 2;
   static constexpr int SMEM = 1024 + QB + RING * 2 * TB + 8 * (1 + 2 * RING);
 };
 
@@ -454,9 +469,9 @@ __device__ __forceinline__ void fa_wgmma_rs_n128_t(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
-template <int HD>
+template <int HP>
 __device__ __forceinline__ void fa_pv(float* o, const uint32_t* p, uint64_t db, int acc) {
-  if constexpr (HD == 64) fa_wgmma_rs_n64_t(o, p, db, acc);
+  if constexpr (HP == 64) fa_wgmma_rs_n64_t(o, p, db, acc);
   else fa_wgmma_rs_n128_t(o, p, db, acc);
 }
 
@@ -557,9 +572,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int t = lane & 3;
   const int q0w = q0 + 64 * wg;
   const int row0 = q0w + 16 * ((tid >> 5) & 3) + (lane >> 2);  // c0/c1's row; row0 + 8: c2/c3's
-  float o[HD / 2];
+  float o[L::HP / 2];  // columns past hd stay unused
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < L::HP / 2; ++i) o[i] = 0.f;
   float m[2] = {kMasked, kMasked};
   float l[2] = {0.f, 0.f};  // this lane's share of the row sums
   const uint32_t qa = qtpu::smem_u32(qs) + wg * 64 * 128;
@@ -656,10 +671,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < kWBK / 16; ++kk)
-      fa_pv<HD>(o, pf[kk], fa_desc_mn(vb + kk * 16 * 128, kWBK * 128), 1);
+      fa_pv<L::HP>(o, pf[kk], fa_desc_mn(vb + kk * 16 * 128, kWBK * 128), 1);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fa_fence<HD / 2>(o);
+    fa_fence<L::HP / 2>(o);
     qtpu::wg_fence_u32<kWBK / 4>(&pf[0][0]);
     qtpu::warp_arrive(qtpu::smem_u32(empty + slot));  // K and V of the stage are consumed
   }
@@ -715,12 +730,15 @@ int fa_map(CUtensorMap* map, FaMaps* order, const void* base, int B, int heads, 
   return r == CUDA_SUCCESS ? 0 : (qtpu::kWgEncodeError | (int)r);
 }
 
+// The head dims both bodies take: multiples of 16 from 32 to 128.
+bool head_dim_ok(int hd) { return hd % 16 == 0 && hd >= 32 && hd <= 128; }
+
 // The Hopper body's rule: q, k and v 16-byte aligned with strides of whole
-// 16-byte units below 2^39 elements (TMA's), hd 64 or 128. Mirrored by
-// flash_route in qtpu_torch/kernels/flash_attention.py.
+// 16-byte units below 2^39 elements (TMA's), at a head dim head_dim_ok
+// takes. Mirrored by flash_route in qtpu_torch/kernels/flash_attention.py.
 bool flash_wgmma_fits(const void* q, const void* k, const void* v, const long long* strides9,
                       int hd) {
-  if ((hd != 64 && hd != 128) || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16))
+  if (!head_dim_ok(hd) || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16))
     return false;
   for (int i = 0; i < 9; ++i)
     if (strides9[i] % 8 != 0 || strides9[i] <= 0 || strides9[i] >= (1LL << 39)) return false;
@@ -750,6 +768,28 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, const FlashA
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_flash_mma(const FlashArgs& a, int B, int H, cudaStream_t st) {
+  constexpr int smem = smem_bytes<HD>();
+  static bool smem_set = false;
+  if (smem > 48 * 1024 && !smem_set) {  // above the 48 KB a block gets without asking
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  dim3 grid((a.S + kBQ - 1) / kBQ, H, B);
+  flash_attn_kernel<HD><<<grid, kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_flash(const void* q, const void* k, const void* v, const FlashArgs& a, int B, int H,
+                 int KV, bool wgmma, cudaStream_t st) {
+  return wgmma ? launch_flash_wgmma<HD>(q, k, v, a, B, H, KV, st)
+               : launch_flash_mma<HD>(a, B, H, st);
+}
+
 }  // namespace
 
 namespace {
@@ -762,8 +802,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
                     long long v_sb, long long v_sh, long long v_ss,
                     long long o_sb, long long o_sh, long long o_ss,
                     int B, int H, int KV, int S, int hd, int window, bool wgmma, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || (hd != 64 && hd != 128) ||
-      B > 65535 || H > 65535)
+  if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || !head_dim_ok(hd) || B > 65535 ||
+      H > 65535)
     return -1;
   if (!aligned(k, 16) || !aligned(v, 16) || !aligned(q, 4) || !aligned(o, 4)) return -1;
   const long long kv_strides[6] = {k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
@@ -786,26 +826,23 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   a.window = window;
   a.scale_log2 = kLog2e / sqrtf((float)hd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wgmma)
-    return hd == 64 ? launch_flash_wgmma<64>(q, k, v, a, B, H, KV, st)
-                    : launch_flash_wgmma<128>(q, k, v, a, B, H, KV, st);
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  if (hd == 64) {
-    flash_attn_kernel<64><<<grid, kThreads, smem_bytes<64>(), st>>>(a);
-  } else {
-    // above the 48 KB a block gets without asking
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_attn_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<128>());
-    if (attr != cudaSuccess) return (int)attr;
-    flash_attn_kernel<128><<<grid, kThreads, smem_bytes<128>(), st>>>(a);
+  switch (hd) {
+    case 32: return launch_flash<32>(q, k, v, a, B, H, KV, wgmma, st);
+    case 48: return launch_flash<48>(q, k, v, a, B, H, KV, wgmma, st);
+    case 64: return launch_flash<64>(q, k, v, a, B, H, KV, wgmma, st);
+    case 80: return launch_flash<80>(q, k, v, a, B, H, KV, wgmma, st);
+    case 96: return launch_flash<96>(q, k, v, a, B, H, KV, wgmma, st);
+    case 112: return launch_flash<112>(q, k, v, a, B, H, KV, wgmma, st);
+    case 128: return launch_flash<128>(q, k, v, a, B, H, KV, wgmma, st);
+    default: return -1;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // o = attention(q, k, v) with the strides given in elements (the head dim
-// is contiguous in all four). q/o need even strides and 4-byte alignment;
+// is contiguous in all four; hd a multiple of 16 from 32 to 128). q/o need
+// even strides and 4-byte alignment;
 // k/v strides that are multiples of 8 and 16-byte alignment (16-byte row
 // loads). The Hopper body runs where flash_wgmma_fits holds (q too 16-byte
 // aligned with strides that are multiples of 8), the mma.sync body

@@ -290,7 +290,7 @@ __global__ void decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     } else {
-      // 16-byte loads: the chunk's rows are contiguous, hd % 32 == 0
+      // 16-byte loads: the chunk's rows are contiguous, hd % 16 == 0
       const int4* ksrc = reinterpret_cast<const int4*>(static_cast<const int8_t*>(k_cache) +
                                                        (row0 + s0) * hd);
       const int4* vsrc = reinterpret_cast<const int4*>(static_cast<const int8_t*>(v_cache) +
@@ -372,7 +372,7 @@ int launch_attn(const void* q, const void* k_c, const void* v_c, const float* ks
                 const float* vs_c, const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
                 const void* pos, void* out, int B, int KV, int G, int S, int hd, int window,
                 void* stream) {
-  if (B <= 0 || KV <= 0 || G <= 0 || G > 32 || S <= 0 || hd % 32 != 0 || hd > kMaxHd)
+  if (B <= 0 || KV <= 0 || G <= 0 || G > 32 || S <= 0 || hd % 16 != 0 || hd > kMaxHd)
     return -1;
   static size_t smem_set = 48 * 1024;
   const size_t smem =
@@ -407,7 +407,8 @@ __device__ __forceinline__ void kvd_slice(int p, int S, int window, int rank, in
 }
 
 // grid CL * B * KV in clusters of CL, block kvd::kThreads. Modes as
-// decode_attn_kernel's.
+// decode_attn_kernel's. HD: a multiple of 16 from 32 to 128 (the instances
+// of launch_attn_cluster).
 template <int HD, bool BF, bool QW>
 __global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
     const __nv_bfloat16* __restrict__ q, const void* k_cache, const void* v_cache,
@@ -563,8 +564,11 @@ int launch_attn_cluster(const void* q, const void* k_c, const void* v_c, const f
     return launch_cluster<HD, BF, QW>(q, k_c, v_c, ks_c, vs_c, k_new, v_new, pos, out, B, KV, \
                                       G, S, window, cluster, st);
     QTPU_KV_CASE(32)
+    QTPU_KV_CASE(48)
     QTPU_KV_CASE(64)
+    QTPU_KV_CASE(80)
     QTPU_KV_CASE(96)
+    QTPU_KV_CASE(112)
     QTPU_KV_CASE(128)
 #undef QTPU_KV_CASE
     default: return -1;
@@ -619,7 +623,8 @@ extern "C" int qtpu_kv_band_write_simt(const void* k_new, const void* v_new, voi
   return (int)cudaGetLastError();
 }
 
-// q [B, H, hd] bf16 (H = KV * G); cache layer as in qtpu_kv_band_write;
+// q [B, H, hd] bf16 (H = KV * G, G <= 32, hd a multiple of 16 from 32 to
+// 128); cache layer as in qtpu_kv_band_write, 16-byte aligned;
 // out [B, H, hd] bf16. window 0 = full causal. cluster: the blocks of one
 // (sequence, kv-head), 1 to 8. Returns a cudaError_t (0 on success), -1 for
 // arguments the kernel does not take, -2 when no cluster of that size fits.

@@ -33,11 +33,19 @@
 // j / 2 + 4 (j % 2), +8 in the second n-tile), so that a lane's four value
 // rows of p . v are rows t, t + 4, t + 8, t + 12 and its output columns lie
 // in one contiguous run of hd / 8 bytes of each. Row pitches are padded so
-// that these reads spread over the banks (k: hd + 16 bytes; v: hd + 32 at
-// hd 64 and 128).
+// that these reads spread over the banks (k: hd + 16 bytes at hd % 32 == 0,
+// hd + 32 at 48, 80, 112; v: hd + 32 but at hd 32 and 96).
+//
+// Head dims: any multiple of 16 from 32 to 128. A row's bytes are 64-byte
+// blocks (4 k-steps, 16 bytes a lane) and a tail of hd % 64 bytes (0, 1, 2
+// or 3 k-steps, 4, 8 or 12 bytes a lane). A lane's run of hd / 8 value bytes
+// starts 4-byte aligned when hd % 32 == 0; at hd 48, 80 and 112 it may start
+// 2 bytes in, and is read as whole words from the word below, shifted
+// (load_run).
 //
 // Shared memory a block (Layout::SMEM): hd 64: 3 x 11.5 KB = 34.5 KB; hd
-// 128: 3 x 19.5 KB = 58.5 KB; bf16 cache hd 64: 54 KB (K8).
+// 80: 3 x 13.5 KB = 40.5 KB; hd 128: 3 x 19.5 KB = 58.5 KB; bf16 cache hd
+// 64: 54 KB (K8).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,7 +66,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int HD, bool BF>
 struct Layout {
   static constexpr int ROW = BF ? 2 * HD : HD;  // bytes of a cache row
-  static constexpr int KLD = ROW + 16;          // k row pitch in the ring
+  // k row pitch in the ring
+  static constexpr int KLD = BF || HD % 32 == 0 ? ROW + 16 : ROW + 32;
   static constexpr int VLD = BF ? ROW + 16 : (HD == 32 || HD == 96 ? HD : HD + 32);
   static constexpr int V_OFF = kRows * KLD;
   static constexpr int KS_OFF = V_OFF + kRows * VLD;   // int8: k scales of the chunk
@@ -142,13 +151,14 @@ __device__ __forceinline__ uint32_t top_halves(float lo, float hi) {
 }
 
 // The head-dim offset of byte j of k-step kk held by quad lane t (int8): a
-// 64-byte block of a row gives each lane 16 contiguous bytes (4 k-steps), a
-// trailing 32-byte block 8 (2 k-steps).
+// 64-byte block of a row gives each lane 16 contiguous bytes (4 k-steps), the
+// trailing block of hd % 64 bytes (16, 32 or 48) a quarter of it (1, 2 or 3
+// k-steps).
 template <int HD>
 __device__ __forceinline__ int kdim(int kk, int t) {
   constexpr int FULL = 4 * (HD / 64);  // k-steps in full 64-byte blocks
   return kk < FULL ? 64 * (kk / 4) + 16 * t + 4 * (kk % 4)
-                   : 64 * (HD / 64) + 8 * t + 4 * (kk - FULL);
+                   : 64 * (HD / 64) + (HD % 64 / 4) * t + 4 * (kk - FULL);
 }
 
 // A cache row's bytes [off, off + N) into N / 4 words (N = 4, 8, 12 or 16)
@@ -163,6 +173,29 @@ __device__ __forceinline__ void load_words(uint32_t* w, const unsigned char* p) 
   } else {
 #pragma unroll
     for (int i = 0; i < N / 4; ++i) w[i] = reinterpret_cast<const uint32_t*>(p)[i];
+  }
+}
+
+// A lane's run of VB value bytes at p (2-byte aligned) into (VB + 3) / 4
+// words, byte i of the run at byte i % 4 of word i / 4: load_words where p is
+// 4-byte aligned (VB % 4 == 0); else the words from the one below p, shifted
+// down by 16 bits where p is 2 bytes past it (VB = 6, 10, 14: the run and its
+// 2-byte offset fit those words).
+template <int VB>
+__device__ __forceinline__ void load_run(uint32_t* w, const unsigned char* p) {
+  if constexpr (VB % 4 == 0) {
+    load_words<VB>(w, p);
+  } else {
+    constexpr int RW = (VB + 3) / 4;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(a & ~static_cast<uintptr_t>(3));
+    const uint32_t sh = (a & 2) ? 16u : 0u;
+    uint32_t x[RW + 1];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) x[i] = src[i];
+    x[RW] = 0u;
+#pragma unroll
+    for (int i = 0; i < RW; ++i) w[i] = __funnelshift_r(x[i], x[i + 1], sh);
   }
 }
 
@@ -325,7 +358,8 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
           uint32_t kw[KST];
 #pragma unroll
           for (int b = 0; b < HD / 64; ++b) load_words<16>(kw + 4 * b, kr + 64 * b + 16 * t);
-          if constexpr (HD % 64 != 0) load_words<8>(kw + 4 * (HD / 64), kr + 64 * (HD / 64) + 8 * t);
+          if constexpr (HD % 64 != 0)
+            load_words<HD % 64 / 4>(kw + 4 * (HD / 64), kr + 64 * (HD / 64) + (HD % 64 / 4) * t);
 #pragma unroll
           for (int kk = 0; kk < KST; ++kk) {
             const uint32_t ux = kw[kk] ^ 0x80808080u;
@@ -411,12 +445,12 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
         }
       } else {
         // rows t + 4 i, bytes [VB g, VB g + VB): output column VB g + n of n-tile n
-        uint32_t vw[4][VB / 4];
+        uint32_t vw[4][(VB + 3) / 4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          load_words<VB>(vw[i], vt + (t + 4 * i) * Lay::VLD + VB * g);
+          load_run<VB>(vw[i], vt + (t + 4 * i) * Lay::VLD + VB * g);
 #pragma unroll
-          for (int w = 0; w < VB / 4; ++w) vw[i][w] ^= 0x80808080u;
+          for (int w = 0; w < (VB + 3) / 4; ++w) vw[i][w] ^= 0x80808080u;
         }
 #pragma unroll
         for (int n = 0; n < NO; ++n) {

@@ -251,28 +251,33 @@ __device__ __forceinline__ void quantize_row(const __nv_bfloat16* src, int8_t* d
 
 // grid B * KV, block G * 32: merges the nsplit slices of each head with the
 // new token's column, writes out [B, H, HD] bf16, then the new rows at pos.
+// A lane owns VPL adjacent dims where HD % 32 == 0 (dim and mine fold to
+// that layout with no test, at compile time), else dims lane, lane + 32, ...
+// below HD.
 template <int HD>
 __global__ void __launch_bounds__(kMaxG * 32) flash_combine_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
     const __nv_bfloat16* __restrict__ v_new, int8_t* k_c, int8_t* v_c, float* ks_c,
     float* vs_c, const int* __restrict__ pos, const float* __restrict__ part,
     __nv_bfloat16* __restrict__ out, int KV, int G, int S, int nsplit, float sm_scale) {
-  constexpr int VPL = HD / 32;
+  constexpr int VPL = (HD + 31) / 32;
   const int b = blockIdx.x / KV;
   const int kvh = blockIdx.x - b * KV;
   const int g = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int p = pos[b];
   const size_t nrow = ((size_t)b * KV + kvh) * HD;  // this head's new k/v row
   const size_t qoff = (((size_t)b * KV + kvh) * G + g) * HD;
+  auto dim = [lane](int t) { return HD % 32 == 0 ? VPL * lane + t : lane + 32 * t; };
+  auto mine = [lane](int t) { return HD % 32 == 0 || lane + 32 * t < HD; };
 
   float kn[VPL], vn[VPL];
   float dot = 0.f;
 #pragma unroll
   for (int t = 0; t < VPL; ++t) {
-    const int d = VPL * lane + t;
-    kn[t] = __bfloat162float(k_new[nrow + d]);
-    vn[t] = __bfloat162float(v_new[nrow + d]);
-    dot = fmaf(__bfloat162float(q[qoff + d]), kn[t], dot);
+    const int d = dim(t);
+    kn[t] = mine(t) ? __bfloat162float(k_new[nrow + d]) : 0.f;
+    vn[t] = mine(t) ? __bfloat162float(v_new[nrow + d]) : 0.f;
+    if (mine(t)) dot = fmaf(__bfloat162float(q[qoff + d]), kn[t], dot);
   }
   const float s_new = p < S ? warp_sum(dot) * sm_scale : -INFINITY;
 
@@ -294,12 +299,14 @@ __global__ void __launch_bounds__(kMaxG * 32) flash_combine_kernel(
       const float w = expf(mz - mx);
       l = fmaf(sl[HD + 1], w, l);
 #pragma unroll
-      for (int t = 0; t < VPL; ++t) acc[t] = fmaf(sl[VPL * lane + t], w, acc[t]);
+      for (int t = 0; t < VPL; ++t)
+        if (mine(t)) acc[t] = fmaf(sl[dim(t)], w, acc[t]);
     }
   }
   const float inv = l > 0.f ? 1.0f / l : 0.f;
 #pragma unroll
-  for (int t = 0; t < VPL; ++t) out[qoff + VPL * lane + t] = __float2bfloat16(acc[t] * inv);
+  for (int t = 0; t < VPL; ++t)
+    if (mine(t)) out[qoff + dim(t)] = __float2bfloat16(acc[t] * inv);
 
   // the new rows at pos (warps 0 and 1; warp 0 alone when G = 1)
   if (p < 0 || p >= S) return;
@@ -394,11 +401,12 @@ int launch_simt(const void* q, const void* k_new, const void* v_new, void* k_c, 
 
 }  // namespace
 
-// q [B, H, hd] bf16 (H = KV * G); k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one
-// layer [B, KV, S, hd] int8 and ks_c/vs_c [B, KV, S] f32, written at pos;
-// pos [B] int32; part an f32 scratch of B * KV * nsplit * G * (hd + 2);
-// out [B, H, hd] bf16. window 0 = full causal. Returns a cudaError_t (0 on
-// success), or -1 for arguments the kernel does not take.
+// q [B, H, hd] bf16 (H = KV * G, G <= 32, hd a multiple of 16 from 32 to
+// 128); k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer [B, KV, S, hd]
+// int8 and ks_c/vs_c [B, KV, S] f32, written at pos; pos [B] int32; part
+// an f32 scratch of B * KV * nsplit * G * (hd + 2); out [B, H, hd] bf16.
+// window 0 = full causal. Returns a cudaError_t (0 on success), or -1 for
+// arguments the kernel does not take.
 extern "C" int qtpu_flash_decode(const void* q, const void* k_new, const void* v_new, void* k_c,
                                  void* v_c, void* ks_c, void* vs_c, const void* pos, void* part,
                                  void* out, int B, int KV, int G, int S, int hd, int window,
@@ -408,18 +416,25 @@ extern "C" int qtpu_flash_decode(const void* q, const void* k_new, const void* v
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B, KV, G,
-                               S, window, nsplit, st);
-    case 64: return launch<64>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B, KV, G,
-                               S, window, nsplit, st);
-    case 128: return launch<128>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B, KV, G,
-                                 S, window, nsplit, st);
+#define QTPU_FLASH_CASE(HD)                                                                  \
+  case HD:                                                                                   \
+    return launch<HD>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B, KV, G, S,    \
+                      window, nsplit, st);
+    QTPU_FLASH_CASE(32)
+    QTPU_FLASH_CASE(48)
+    QTPU_FLASH_CASE(64)
+    QTPU_FLASH_CASE(80)
+    QTPU_FLASH_CASE(96)
+    QTPU_FLASH_CASE(112)
+    QTPU_FLASH_CASE(128)
+#undef QTPU_FLASH_CASE
     default: return -1;
   }
 }
 
 // qtpu_flash_decode on the earlier split body, for chip_smoke.py's "was"
-// times; the same arguments.
+// times; the same arguments, at hd 32, 64 or 128 (its lanes own hd / 32
+// adjacent dims).
 extern "C" int qtpu_flash_decode_simt(const void* q, const void* k_new, const void* v_new,
                                       void* k_c, void* v_c, void* ks_c, void* vs_c,
                                       const void* pos, void* part, void* out, int B, int KV,
@@ -446,7 +461,11 @@ extern "C" int qtpu_flash_decode_simt(const void* q, const void* k_new, const vo
 extern "C" int qtpu_flash_split_blocks_per_sm(int hd) {
   switch (hd) {
     case 32: return split_blocks_per_sm<32>();
+    case 48: return split_blocks_per_sm<48>();
     case 64: return split_blocks_per_sm<64>();
+    case 80: return split_blocks_per_sm<80>();
+    case 96: return split_blocks_per_sm<96>();
+    case 112: return split_blocks_per_sm<112>();
     case 128: return split_blocks_per_sm<128>();
     default: return -1;
   }

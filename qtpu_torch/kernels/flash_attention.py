@@ -8,10 +8,10 @@ CUDA tensor launches the kernel at any S (the kernel masks its ragged last
 tile); it takes strided views with a contiguous head dim, and its output is
 a [B, H, S, hd] view of a contiguous [B, S, H, hd] tensor, so a caller
 holding [B, S, H, hd] projections passes `.transpose(1, 2)` views and gets
-[B, S, H * hd] back with no copy. Its limits, H % KV == 0 and head_dim 64 or
-128 (`supported`, which a model's route asks before the call), raise
-ValueError. A CPU tensor takes `flash_attention_plain`, the f32 math of the
-Pallas kernel.
+[B, S, H * hd] back with no copy. Its limits, H % KV == 0 and a head_dim
+that is a multiple of 16 from 32 to 128 (`supported`, which a model's route
+asks before the call), raise ValueError. A CPU tensor takes
+`flash_attention_plain`, the f32 math of the Pallas kernel.
 
 Which body a launch runs is `flash_route`, the kernel's own rule
 (flash_wgmma_fits): "wgmma", the Hopper body (wgmma fed by TMA), where q,
@@ -35,11 +35,12 @@ from qtpu_torch.kernels._build import I, L64, P, require
 _SIG = {"qtpu_flash_attention": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P],
         "qtpu_flash_attention_mma": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P]}
 MASKED = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)  # both bodies (csrc: head_dim_ok)
 
 
 def supported(hd: int) -> bool:
-    """Whether the kernel takes this head dim (its check in `_launch`)."""
+    """Whether the kernel takes this head dim (its check in `_launch`): a
+    multiple of 16 from 32 to 128."""
     return hd in HEAD_DIMS
 
 
@@ -97,8 +98,8 @@ def flash_route(hd: int, ptrs, strides) -> str:
     the data pointers of q, k and v, strides their batch, head and position
     strides in elements. "wgmma" where every pointer is 16-byte aligned and
     every stride a positive multiple of 8 below 2^39 (TMA's tensor maps), at
-    head_dim 64 or 128; else "mma"."""
-    ok = (hd in (64, 128) and all(p % 16 == 0 for p in ptrs)
+    a head_dim the kernel takes; else "mma"."""
+    ok = (supported(hd) and all(p % 16 == 0 for p in ptrs)
           and all(s % 8 == 0 and 0 < s < 1 << 39 for s in strides))
     return "wgmma" if ok else "mma"
 
@@ -133,7 +134,7 @@ def _launch(q, k, v, window, entry):
     B, H, S, hd = q.shape
     KV = k.shape[1]
     require(KV > 0 and H % KV == 0, f"H={H} must be a multiple of KV={KV}")
-    require(supported(hd), f"head_dim {hd} must be one of {HEAD_DIMS}")
+    require(supported(hd), f"head_dim {hd} must be a multiple of 16, 32 <= hd <= 128")
     _check("q", q, (B, H, S, hd), q.device)
     _check("k", k, (B, KV, S, hd), q.device)
     _check("v", v, (B, KV, S, hd), q.device)

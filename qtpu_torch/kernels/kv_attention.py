@@ -35,10 +35,10 @@ csrc/kv_decode_core.cuh (mma.sync over int8 chunks in a cp.async ring). The
 chip_smoke.py's "was" times: card tensors only, counted in their own
 `.launches`; no model path calls them.
 The head dims each kernel takes are `decode_supported` (K3's kernel: a
-multiple of 32 up to 128, at most 32 q heads a kv head) and
-`flash_supported` (K12: 32, 64 or 128), the checks its entries make; a
-model's route asks them before the call and runs the plain version on the
-card tensors the kernel does not take.
+multiple of 16 from 32 to 128, at most 32 q heads a kv head) and
+`flash_supported` (K12: the same head dims), the checks its entries make;
+a model's route asks them before the call and runs the plain version on the
+card tensors the kernel does not take (hd % 16 == 8, hd > 128, G > 32).
 """
 
 from __future__ import annotations
@@ -71,18 +71,20 @@ DECODE_CHUNK = 64  # cache rows of a chunk of the shared core (kvd::kRows)
 MAX_CLUSTER = 8  # the portable thread-block cluster size
 
 
-FLASH_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)  # the instances of K3's kernel and of K12
+HEAD_DIM_RULE = "a multiple of 16, 32 <= hd <= 128"
+SIMT_FLASH_HEAD_DIMS = (32, 64, 128)  # K12's earlier split body (its lanes own hd / 32 dims)
 
 
 def decode_supported(hd: int, group: int) -> bool:
     """Whether K3's kernel (K3, K8, K11, the one-layer entry) takes head dim
     hd with `group` q heads a kv head (the checks of `_k3`, `_check_decode`)."""
-    return hd % 32 == 0 and hd <= 128 and 0 < group <= 32
+    return hd in HEAD_DIMS and 0 < group <= 32
 
 
 def flash_supported(hd: int) -> bool:
     """Whether K12 takes head dim hd (the check of `_flash`)."""
-    return hd in FLASH_HEAD_DIMS
+    return hd in HEAD_DIMS
 
 
 def decode_cluster(sm_count: int, B: int, KV: int, S: int) -> int:
@@ -255,7 +257,7 @@ def _k3(q, k_all, v_all, ks_all, vs_all, pos, layer, window, simt=False):
     require(q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[0] == B
             and q.shape[2] == hd and q.is_contiguous(), "q must be contiguous bf16 [B, H, hd]")
     require(H % KV == 0 and H // KV <= 32, f"H={H} must be a multiple of KV={KV}, G <= 32")
-    require(decode_supported(hd, H // KV), f"head_dim {hd} must be a multiple of 32, <= 128")
+    require(decode_supported(hd, H // KV), f"head_dim {hd} must be {HEAD_DIM_RULE}")
     _check_cache(k_all, v_all, ks_all, vs_all, pos, q.device)
     _check_aligned(k_all, v_all)
     require(0 <= layer < L, f"layer {layer} out of range")
@@ -329,7 +331,7 @@ def _check_decode(q, k_new, v_new, k_all, pos, layer):
     require(q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[0] == B
             and q.shape[2] == hd and q.is_contiguous(), "q must be contiguous bf16 [B, H, hd]")
     require(H % KV == 0 and H // KV <= 32, f"H={H} must be a multiple of KV={KV}, G <= 32")
-    require(decode_supported(hd, H // KV), f"head_dim {hd} must be a multiple of 32, <= 128")
+    require(decode_supported(hd, H // KV), f"head_dim {hd} must be {HEAD_DIM_RULE}")
     require(0 <= layer < L, f"layer {layer} out of range")
     for t in (k_new, v_new):
         require(t.dtype == torch.bfloat16 and tuple(t.shape) == (B, 1, KV, hd),
@@ -502,7 +504,9 @@ def _flash(entry, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window, simt=False
     _check_aligned(k_c, v_c)
     B, KV, S, hd = k_c.shape
     G = q.shape[1] // KV
-    require(flash_supported(hd), f"head_dim {hd} must be one of {FLASH_HEAD_DIMS}")
+    require(flash_supported(hd), f"head_dim {hd} must be {HEAD_DIM_RULE}")
+    require(not simt or hd in SIMT_FLASH_HEAD_DIMS,
+            f"the earlier split body takes head_dim {SIMT_FLASH_HEAD_DIMS}, not {hd}")
     require(window >= 0, "window must be >= 0")
     sms = _sm_count(q.device.index or 0)
     if simt:  # the earlier body's own split: about four blocks an SM, 256 rows a slice
@@ -536,7 +540,7 @@ def decode_attention_flash(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0)
 
 def flash_decode_simt(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window=0):
     """K12 on one layer at any S % 8 == 0, on the earlier split body with its
-    own split count (card tensors only)."""
+    own split count, at SIMT_FLASH_HEAD_DIMS (card tensors only)."""
     require(k_c.shape[2] % 8 == 0, "decode attention needs S % 8 == 0")
     return _flash(flash_decode_simt, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window,
                   simt=True)

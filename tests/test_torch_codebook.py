@@ -253,10 +253,21 @@ def test_k8_plain_matches_qtpu_write_and_attention():
     """K8's plain version: the cache after the write equals qtpu's
     cache_layer_write exactly (an inactive slot writes nothing), the output
     is within the Pallas test's 3e-2 of qtpu's interpret-mode kernel."""
+    _k8_case(64)
+
+
+@pytest.mark.parametrize("hd", [48, 80, 96, 112])
+def test_k8_plain_matches_qtpu_write_and_attention_at_head_dims(hd):
+    """The same at the head dims K8 takes besides 32, 64 and 128
+    (OPT-2.7B's bf16 decode at 80)."""
+    _k8_case(hd)
+
+
+def _k8_case(hd):
     from qtpu.kernels.pallas_kv_attention import pallas_decode_attention_write_bf16
 
     rng = np.random.default_rng(6)
-    L, B, H, KV, hd, S = 2, 4, 8, 4, 64, 64
+    L, B, H, KV, S = 2, 4, 8, 4, 64
 
     def bf(*shape):
         return rng.standard_normal(shape).astype(np.float32).astype(BF16)

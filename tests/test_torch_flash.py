@@ -2,7 +2,8 @@
 
 `flash_attention_plain` is held to `pallas_flash_attention` run in
 interpret mode at the shapes tests/test_pallas_kernels.py uses, with its
-tolerance (rtol = atol = 2e-2, f32 inputs). The port's CPU
+tolerance (rtol = atol = 2e-2, f32 inputs), at head_dim 64 and at the other
+head dims the kernel takes (48, 80, 96, 112). The port's CPU
 `causal_attention` is held to qtpu's XLA attention at a ragged S (no
 multiple of 128), where qtpu itself leaves the Pallas kernel. The kernel
 against its plain version on the card is in tests/test_torch_gpu.py.
@@ -30,15 +31,28 @@ def _qkv(B, H, KV, S, hd, seed, dtype=np.float32):
     return q, k, v
 
 
-@pytest.mark.parametrize("KV", [2, 8])
-@pytest.mark.parametrize("window", [0, 200])
-def test_plain_matches_pallas_interpret(KV, window):
-    q, k, v = _qkv(2, 8, KV, 256, 64, seed=3)
+def _plain_vs_pallas(KV, window, hd):
+    q, k, v = _qkv(2, 8, KV, 256, hd, seed=3)
     want = pallas_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                   window=window, interpret=True)
     got = k5.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
                                    torch.from_numpy(v), window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("KV", [2, 8])
+@pytest.mark.parametrize("window", [0, 200])
+def test_plain_matches_pallas_interpret(KV, window):
+    _plain_vs_pallas(KV, window, 64)
+
+
+@pytest.mark.parametrize("hd", [48, 80, 96, 112])
+@pytest.mark.parametrize("KV", [2, 8])
+@pytest.mark.parametrize("window", [0, 200])
+def test_plain_matches_pallas_interpret_at_head_dims(KV, window, hd):
+    """The head dims K5 takes besides 64 and 128 (OPT-2.7B's 80 among
+    them), at the same shapes and tolerance."""
+    _plain_vs_pallas(KV, window, hd)
 
 
 def test_wrapper_on_cpu_takes_the_plain_version_on_strided_views():

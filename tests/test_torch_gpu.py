@@ -217,9 +217,12 @@ def test_k2_raises_on_what_it_does_not_take(cuda):
     k23.cache_band_write_simt(kn, kn, *cache, pos, 0)  # the earlier kernel takes any hd
 
 
-# (hd, KV, G) of the decode attention cases: G in {1, 8, 32} at hd 64 and 128
+# (hd, KV, G) of the decode attention cases: G in {1, 8, 32} at hd 64 and 128,
+# and the other head dims the kernels take (32 to 128 in steps of 16; OPT-2.7B
+# is MHA at 80)
 DECODE_HEADS = [(64, 4, 4), (128, 4, 4), (128, 1, 32), (64, 2, 1), (128, 8, 1), (64, 4, 8),
-                (128, 2, 8), (64, 1, 32)]
+                (128, 2, 8), (64, 1, 32), (32, 4, 4), (48, 2, 4), (80, 8, 1), (80, 4, 8),
+                (80, 1, 32), (96, 8, 4), (112, 2, 1)]
 # S of 2 and 3 64-row chunks beside the ragged ones
 DECODE_S = [40, 128, 192, 200]
 
@@ -495,7 +498,7 @@ def _bf16_qkv(g, B, H, KV, S, hd, dev):
 
 @pytest.mark.parametrize("window", [0, 40])
 @pytest.mark.parametrize("S", [1, 77, 256])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 32, 48, 80, 96, 112])
 @pytest.mark.parametrize("G", [1, 4, 8])
 def test_k5_matches_plain(cuda, window, S, hd, G):
     from qtpu_torch.kernels import flash_attention as k5
@@ -537,7 +540,7 @@ def test_k5_raises_on_what_it_does_not_take(cuda):
     q, k, v = _bf16_qkv(g, 1, 6, 4, 32, 64, cuda)  # H % KV != 0
     with pytest.raises(ValueError, match="multiple"):
         k5.flash_attention(q, k, v)
-    q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 96, cuda)
+    q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 72, cuda)  # a multiple of 8, not of 16
     with pytest.raises(ValueError, match="head_dim"):
         k5.flash_attention(q, k, v)
     q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 64, cuda)
@@ -959,7 +962,9 @@ def test_k9_k10_raise_on_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("window", [0, 16, 48])
 @pytest.mark.parametrize("S", [40, 128, 176, 192, 200])
 @pytest.mark.parametrize("hd,KV,G", [(64, 4, 4), (128, 8, 4), (64, 2, 1), (128, 1, 32),
-                                     (128, 8, 1), (64, 4, 8), (128, 2, 8), (64, 1, 32)])
+                                     (128, 8, 1), (64, 4, 8), (128, 2, 8), (64, 1, 32),
+                                     (48, 2, 4), (80, 8, 1), (80, 4, 4), (80, 1, 32), (96, 8, 4),
+                                     (112, 2, 8)])
 def test_k11_matches_plain(cuda, window, S, hd, KV, G):
     """The codes and scales K11 writes equal the plain write's (an inactive
     slot at pos = S writes nothing); the output within rtol/atol 2e-2 of f32
@@ -1049,7 +1054,9 @@ def _flash_inputs(g, B, KV, G, hd, dev):
 @pytest.mark.parametrize("window", [0, 100, 3000, 64])
 @pytest.mark.parametrize("S,hd,KV,G", [(2048, 64, 4, 8), (4096, 128, 8, 4), (2048, 32, 2, 1),
                                        (2048, 64, 1, 32), (2048, 64, 2, 1), (2048, 128, 2, 1),
-                                       (2048, 128, 2, 8), (2048, 128, 1, 32)])
+                                       (2048, 128, 2, 8), (2048, 128, 1, 32), (2048, 48, 2, 4),
+                                       (2048, 80, 8, 1), (4096, 80, 4, 8), (2048, 80, 1, 32),
+                                       (2048, 96, 8, 4), (2048, 112, 2, 1)])
 def test_k12_flash_matches_plain(cuda, window, S, hd, KV, G):
     """K12's flash entry on a per-layer buffer: the codes and scales it
     writes equal the plain version's (an inactive slot at pos >= S writes
@@ -1105,8 +1112,8 @@ def test_k12_banded_entries_match_plain(cuda, S):
 
 def test_k12_raises_on_what_it_does_not_take(cuda):
     g = _gen()
-    k, v, ks, vs = (t[0] for t in _cache(g, 1, 2, 2, 2048, 96, cuda))
-    q, kn, vn = _flash_inputs(g, 2, 2, 2, 96, cuda)
+    k, v, ks, vs = (t[0] for t in _cache(g, 1, 2, 2, 2048, 72, cuda))
+    q, kn, vn = _flash_inputs(g, 2, 2, 2, 72, cuda)
     pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         k23.decode_attention_flash(q, kn, vn, k, v, ks, vs, pos)
@@ -1121,7 +1128,8 @@ def test_k12_raises_on_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("window", [0, 64, 1])
 @pytest.mark.parametrize("S", [176, 128, 192])
 @pytest.mark.parametrize("hd,KV,G", [(64, 12, 1), (64, 4, 8), (128, 8, 4), (128, 2, 1),
-                                     (128, 2, 8), (64, 1, 32), (128, 1, 32)])
+                                     (128, 2, 8), (64, 1, 32), (128, 1, 32), (80, 32, 1),
+                                     (48, 4, 8), (96, 8, 4), (112, 2, 1), (32, 4, 4)])
 def test_row9_layer_entry_matches_plain(cuda, window, S, hd, KV, G):
     """decode_attention_layer on one layer [B, KV, S, hd] (GPT-2's MHA at
     hd 64 and G 1 first): read-only, within 2e-2 of the plain version and
@@ -1745,10 +1753,13 @@ def test_gemv_tc_replays_in_a_cuda_graph_without_a_host_sync(cuda):
 
 @pytest.mark.parametrize("window", [0, 4096, 300])
 @pytest.mark.parametrize("S", [2048, 1000, 4100])
-@pytest.mark.parametrize("hd,H,KV", [(64, 32, 4), (128, 32, 8), (64, 12, 12)])
+@pytest.mark.parametrize("hd,H,KV", [(64, 32, 4), (128, 32, 8), (64, 12, 12), (80, 32, 32),
+                                     (96, 32, 8), (48, 16, 4), (112, 16, 2), (32, 16, 16)])
 def test_k5_hopper_body_matches_plain_and_the_mma_body(cuda, window, S, hd, H, KV):
     """K5 on wgmma fed by TMA at the eval widths (TinyLlama, Mistral-7B
-    with its 4096 window, GPT-2), ragged S: the route counter, the plain
+    with its 4096 window, GPT-2, OPT-2.7B at hd 80, and the other head dims
+    it takes in the tile of the next multiple of 64), ragged S: the route
+    counter, the plain
     version (relative 2e-2) and the f32 math (rtol/atol 2e-2, the Pallas
     kernel's test), and the mma.sync body within 1e-2."""
     from qtpu_torch.kernels import flash_attention as k5
@@ -2275,17 +2286,17 @@ def test_checkpoint_to_artifact_to_served_tokens(cuda, tmp_path):
 @pytest.mark.parametrize("kv,per_layer", [("int8", False), ("bfloat16", False),
                                           ("int8", True)])
 @pytest.mark.parametrize("hd", [80, 96])
-def test_head_dims_qtpu_runs_take_the_plain_attention_route(cuda, tmp_path, hd, kv, per_layer):
+def test_head_dims_qtpu_runs_launch_the_attention_kernels(cuda, tmp_path, hd, kv, per_layer):
     """A 2-layer checkpoint at head_dim 80 (hidden 640, 8 heads) or 96
     (hidden 768, 8 heads, 4 kv heads) imported to the card, RTN W4 g128
     fused: the eval forward, a prefill of 2 x 16 and 3 greedy decode steps
     on the int8 and bf16 stacked caches and the per-layer int8 cache at S
     2048 (K12's layout), against the same model on the CPU fed the card's
-    tokens, logits within the 2-layer e2e gate (3e-2). The kernels that do
-    not take hd run their plain versions, counted by plain_attention as
-    reckoned from the shape (K5 at both; K3's kernel at hd 80; K12 at
-    both), and the kernels that take it launch (K3's kernel, K11 or K8 at
-    hd 96)."""
+    tokens, logits within the 2-layer e2e gate (3e-2). Every attention call
+    launches its kernel (K5 a layer a forward on the card; K3's kernel, K11
+    or K8 on the stacked caches, K12 on the per-layer one, a layer a decode
+    step) and none takes the plain route (`plain_attention` stays 0, on the
+    CPU too)."""
     from qtpu_torch.convert import map_tree
     from qtpu_torch.kernels import flash_attention as k5
     from qtpu_torch.models import llama, ops
@@ -2302,14 +2313,12 @@ def test_head_dims_qtpu_runs_take_the_plain_attention_route(cuda, tmp_path, hd, 
     packed, qmeta = fuse_packed_sites(*pack_model(params, "rtn", {"w_bit": 4,
                                                                    "q_group_size": 128}))
     L, B, P, S = cfg.num_layers, 2, 16, 2048 if per_layer else 64
-    takes = (k23.flash_supported(hd) if per_layer
-             else k23.decode_supported(hd, cfg.num_heads // KV))
     ids = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator().manual_seed(5))
     n0 = (ops.plain_attention.launches, k5.flash_attention.launches)
     assert _rel(llama.forward(params, ids.cuda(), cfg).cpu(),
                 llama.forward(map_tree(params, lambda t: t.cpu()), ids, cfg)) < 3e-2
     assert (ops.plain_attention.launches - n0[0], k5.flash_attention.launches - n0[1]) == (
-        2 * L, 0)  # the card's and the CPU's forward: K5 refuses 80 and 96
+        0, L)  # the card's forward launches K5; the CPU's runs its plain version uncounted
     runs, feed = {}, None
     for dev in ("cuda", "cpu"):
         p = packed if dev == "cuda" else map_tree(packed, lambda t: t.cpu())
@@ -2326,8 +2335,8 @@ def test_head_dims_qtpu_runs_take_the_plain_attention_route(cuda, tmp_path, hd, 
             kern = sum(getattr(f, "launches") for f in (
                 k23.decode_attention, k23.decode_attention_write,
                 k23.decode_attention_write_bf16, k23.decode_attention_flash)) - sum(c0[1:])
-            assert plain == (0 if step == 0 or takes else L), (dev, step, plain)
-            assert kern == (L if dev == "cuda" and step > 0 and takes else 0), (dev, step, kern)
+            assert plain == 0, (dev, step, plain)
+            assert kern == (L if dev == "cuda" and step > 0 else 0), (dev, step, kern)
             out.append(logits.float().cpu())
             tok = logits[:, -1].argmax(-1) if feed is None else feed[step].to(dev)
             toks.append(tok.cpu())
@@ -2336,3 +2345,59 @@ def test_head_dims_qtpu_runs_take_the_plain_attention_route(cuda, tmp_path, hd, 
         feed = toks
     for a, b in zip(runs["cuda"], runs["cpu"]):
         assert _rel(a, b) < 3e-2
+
+
+@pytest.mark.parametrize("kv", ["int8", "bfloat16"])
+def test_head_dim_72_takes_the_counted_plain_route(cuda, kv):
+    """hd 72 (a multiple of 8, not of 16) is a shape the attention kernels
+    do not take: a 2-layer llama (hidden 576, 8 heads, 4 kv heads) runs K5's
+    plain version in the eval forward and K3's / K8's in each decode step on
+    the card, each call counted by `plain_attention` (a layer a forward or
+    step), no attention kernel launching; logits within 3e-2 of the CPU's,
+    fed the card's tokens. The kernels' own entries raise on it."""
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.kernels import flash_attention as k5
+    from qtpu_torch.models import llama, ops
+    from qtpu_torch.models.config import ModelConfig
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.kvcache import init_cache
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=576, intermediate_size=1024, num_layers=2,
+                      num_heads=8, num_kv_heads=4, head_dim=72)
+    L, B, P = cfg.num_layers, 2, 16
+    raw = llama.init_params(cfg, seed=3, device="cpu")
+    packed, qmeta = fuse_packed_sites(*pack_model(raw, "rtn", {"w_bit": 4, "q_group_size": 64}))
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator().manual_seed(6))
+    attn = (k5.flash_attention, k23.decode_attention, k23.decode_attention_write_bf16,
+            k23.cache_band_write)
+    c0 = [ops.plain_attention.launches] + [f.launches for f in attn]
+    got = llama.forward(map_tree(raw, lambda t: t.cuda()), ids.cuda(), cfg)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu(), llama.forward(raw, ids, cfg)) < 3e-2
+    assert ops.plain_attention.launches - c0[0] == 2 * L  # the card's forward and the CPU's
+    runs, feed = {}, None
+    for dev in ("cuda", "cpu"):
+        p = packed if dev == "cpu" else map_tree(packed, lambda t: t.cuda())
+        cache = init_cache(cfg, B, 32, quantized=kv == "int8", device=dev)
+        pos = torch.arange(P, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        x, out, toks = ids.to(dev), [], []
+        for step in range(3):
+            n0 = ops.plain_attention.launches
+            logits, cache = llama.forward_with_cache(p, x, pos, cache, cfg, qmeta)
+            assert ops.plain_attention.launches - n0 == (L if step > 0 else 0), (dev, step)
+            out.append(logits.float().cpu())
+            tok = logits[:, -1].argmax(-1) if feed is None else feed[step].to(dev)
+            toks.append(tok.cpu())
+            x, pos = tok.to(torch.int32)[:, None], pos[:, -1:] + 1
+        runs[dev] = out
+        feed = toks
+    torch.cuda.synchronize()
+    launched = [f.launches - n for f, n in zip(attn, c0[1:])]
+    assert launched == [0, 0, 0, 2 * L if kv == "int8" else 0]  # K2 writes the int8 rows
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert _rel(a, b) < 3e-2
+    q = torch.randn(B, 8, 72, device=cuda).to(torch.bfloat16)
+    cache = init_cache(cfg, B, 32, quantized=True, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        k23.decode_attention(q, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                             torch.zeros(B, dtype=torch.int32, device=cuda), 0)

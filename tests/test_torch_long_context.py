@@ -6,6 +6,11 @@ numpy-made inputs:
                           pallas_decode_attention_write_banded_stacked
                           (interpret mode)
   decode_attention_layer  vs qtpu pallas_decode_attention (interpret mode)
+  K3 decode_attention     vs qtpu pallas_decode_attention_stacked
+                          (interpret mode)
+
+each at qtpu's test shapes and at the head dims the port's kernels take
+besides 32, 64 and 128 (48, 80, 96, 112: OPT-2.7B's 80 among them),
 
 and the per-layer KV layout: the cache itself, per-layer against stacked
 decoding, the continuous batcher with kv_layout="per_layer", and a prefill
@@ -26,6 +31,7 @@ import torch
 from qtpu.kernels.pallas_kv_attention import (
     pallas_decode_attention,
     pallas_decode_attention_flash,
+    pallas_decode_attention_stacked,
     pallas_decode_attention_write_banded,
     pallas_decode_attention_write_banded_stacked,
 )
@@ -97,13 +103,26 @@ def _check_cache(got, pallas, cache, kn, vn, pos):
             np.testing.assert_allclose(g, np.asarray(p), rtol=1e-6)
 
 
+NEW_HEAD_DIMS = [48, 80, 96, 112]
+
+
 @pytest.mark.parametrize("window", [0, 700])
 def test_k12_plain_matches_pallas_flash(window):
     """qtpu's own flash test shape (tests/test_pallas_kernels.py:685-723):
     B 2, KV 2, G 4, hd 32, S 4096, one sequence at pos 1234 and one
     inactive at pos S + 3; and a window that starts inside the first
     2048-row block."""
-    B, KV, G, hd, S = 2, 2, 4, 32, 4096
+    _k12_flash_case(window, 32)
+
+
+@pytest.mark.parametrize("hd", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("window", [0, 700])
+def test_k12_plain_matches_pallas_flash_at_head_dims(window, hd):
+    _k12_flash_case(window, hd)
+
+
+def _k12_flash_case(window, hd):
+    B, KV, G, S = 2, 2, 4, 4096
     q, kn, vn, cache = _inputs(1, B, KV, G, hd, S)
     pos = np.array([1234, S + 3], np.int32)
     o_j, *c_j = pallas_decode_attention_flash(
@@ -128,7 +147,17 @@ def test_k12_flash_entry_refuses_ragged_s():
 def test_k12_plain_matches_pallas_banded(window):
     """pallas_decode_attention_write_banded at qtpu's test shape (S 256,
     positions 7, 100, 255 and an inactive S + 5)."""
-    B, KV, G, hd, S = 4, 2, 4, 32, 256
+    _k12_banded_case(window, 32)
+
+
+@pytest.mark.parametrize("hd", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("window", [0, 16])
+def test_k12_plain_matches_pallas_banded_at_head_dims(window, hd):
+    _k12_banded_case(window, hd)
+
+
+def _k12_banded_case(window, hd):
+    B, KV, G, S = 4, 2, 4, 256
     q, kn, vn, cache = _inputs(0, B, KV, G, hd, S)
     pos = np.array([7, 100, 255, S + 5], np.int32)
     o_j, *c_j = pallas_decode_attention_write_banded(
@@ -145,7 +174,16 @@ def test_k12_plain_matches_pallas_banded(window):
 def test_k12_plain_matches_pallas_banded_stacked(layer):
     """The stacked entry writes layer `layer` only; the others keep their
     bytes."""
-    Lc, B, KV, G, hd, S = 3, 2, 2, 4, 32, 256
+    _k12_banded_stacked_case(layer, 32)
+
+
+@pytest.mark.parametrize("hd", NEW_HEAD_DIMS)
+def test_k12_plain_matches_pallas_banded_stacked_at_head_dims(hd):
+    _k12_banded_stacked_case(2, hd)
+
+
+def _k12_banded_stacked_case(layer, hd):
+    Lc, B, KV, G, S = 3, 2, 2, 4, 256
     q, kn, vn, cache = _inputs(7, B, KV, G, hd, S, L=Lc)
     pos = np.array([40, S + 5], np.int32)
     o_j, *c_j = pallas_decode_attention_write_banded_stacked(
@@ -168,16 +206,47 @@ def test_row9_plain_matches_pallas_decode_attention(window):
     """decode_attention_layer (pallas_decode_attention's function: s <= pos,
     the window, read-only) at GPT-2's MHA head width and at GQA."""
     for B, KV, G, hd, S in ((3, 4, 1, 64, 176), (2, 2, 4, 32, 256)):
-        q, _, _, cache = _inputs(3, B, KV, G, hd, S)
-        pos = np.array([130, 17, S][:B], np.int32)
-        o_j = pallas_decode_attention(jnp.asarray(q), *map(jnp.asarray, cache), jnp.asarray(pos),
-                                      window=window, interpret=True)
-        c_t = [cpu(a) for a in cache]
-        out = k12.decode_attention_layer(cpu(q), *c_t, cpu(pos), window=window)
-        for got, orig in zip(c_t, cache):  # read-only
-            np.testing.assert_array_equal(to_numpy(got), orig)
-        assert _rel_max(to_numpy(out), o_j) < OUT_TOL
+        _row9_case(window, B, KV, G, hd, S)
     assert k12.decode_attention_layer.launches == 0
+
+
+@pytest.mark.parametrize("hd", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("window", [0, 48])
+def test_row9_plain_matches_pallas_decode_attention_at_head_dims(window, hd):
+    """The same at MHA (OPT-2.7B's G 1 at hd 80) and at GQA."""
+    for B, KV, G, S in ((3, 4, 1, 176), (2, 2, 4, 256)):
+        _row9_case(window, B, KV, G, hd, S)
+
+
+def _row9_case(window, B, KV, G, hd, S):
+    q, _, _, cache = _inputs(3, B, KV, G, hd, S)
+    pos = np.array([130, 17, S][:B], np.int32)
+    o_j = pallas_decode_attention(jnp.asarray(q), *map(jnp.asarray, cache), jnp.asarray(pos),
+                                  window=window, interpret=True)
+    c_t = [cpu(a) for a in cache]
+    out = k12.decode_attention_layer(cpu(q), *c_t, cpu(pos), window=window)
+    for got, orig in zip(c_t, cache):  # read-only
+        np.testing.assert_array_equal(to_numpy(got), orig)
+    assert _rel_max(to_numpy(out), o_j) < OUT_TOL
+
+
+@pytest.mark.parametrize("hd", [32] + NEW_HEAD_DIMS)
+@pytest.mark.parametrize("window", [0, 48])
+def test_k3_plain_matches_pallas_decode_attention_stacked(window, hd):
+    """K3's plain version (`decode_attention` on layer 1 of a stacked
+    cache of 3, read-only) against pallas_decode_attention_stacked, one
+    sequence at pos 130 and one inactive at pos S."""
+    Lc, B, KV, G, S = 3, 2, 2, 4, 256
+    q, _, _, cache = _inputs(5, B, KV, G, hd, S, L=Lc)
+    pos = np.array([130, S], np.int32)
+    o_j = pallas_decode_attention_stacked(jnp.asarray(q), *map(jnp.asarray, cache),
+                                          jnp.asarray(pos), 1, window=window, interpret=True)
+    c_t = [cpu(a) for a in cache]
+    out = k12.decode_attention(cpu(q), *c_t, cpu(pos), 1, window=window)
+    for got, orig in zip(c_t, cache):  # read-only
+        np.testing.assert_array_equal(to_numpy(got), orig)
+    assert _rel_max(to_numpy(out), o_j) < OUT_TOL
+    assert k12.decode_attention.launches == 0
 
 
 def test_per_layer_cache_layout_matches_qtpu():

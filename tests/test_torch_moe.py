@@ -27,6 +27,7 @@ from qtpu.kernels.pallas_moe_matmul import (
     pallas_moe_gathered_matmul,
     pallas_moe_quantized_matmul,
 )
+from qtpu.models import llama as jllama
 from qtpu.models import moe as jmoe
 from qtpu.models.config import TINY_MOE_TEST as J_MOE
 from qtpu.models.config import TINY_QWEN2_MOE_TEST as J_QWEN
@@ -134,8 +135,24 @@ def test_k11_plain_matches_pallas_decode_attention_write(window):
     scales within the kernel's own test's 1e-6 (it may round absmax / 127
     another way); an inactive slot at pos = S writes nothing and the other
     layer is untouched; the output within qtpu's 2e-2."""
+    _k11_case(window, 64)
+
+
+@pytest.mark.parametrize("hd", [48, 80, 96, 112])
+@pytest.mark.parametrize("window", [0, 48])
+def test_k11_plain_matches_pallas_decode_attention_write_at_head_dims(window, hd):
+    """The same at the head dims K11 takes besides 32, 64 and 128, but for
+    the plain version against the f32 math: it is qtpu's XLA math
+    (probabilities and output in bf16), held instead to qtpu's
+    `_cached_attention` within 1e-3 relative (an ulp where a sum's order
+    differs), as in every case. At hd 112 both miss the f32 math by up to
+    4.6e-2 at 6-13 of 1344 outputs near 0."""
+    _k11_case(window, hd, plain_vs_f32=False)
+
+
+def _k11_case(window, hd, plain_vs_f32=True):
     rng = np.random.default_rng(9)
-    L, B, H, KV, hd, S, l = 2, 3, 4, 2, 64, 64, 1
+    L, B, H, KV, S, l = 2, 3, 4, 2, 64, 1
     q = _normal(rng, (B, H, hd)).astype(BF16)
     kn, vn = (_normal(rng, (B, 1, KV, hd)).astype(BF16) for _ in range(2))
     kc, vc = (rng.integers(-127, 128, (L, B, KV, S, hd), dtype=np.int8) for _ in range(2))
@@ -164,9 +181,13 @@ def test_k11_plain_matches_pallas_decode_attention_write(window):
     ref = k11.cached_attention(cpu(q).float()[:, None], [c[l] for c in cache], mask)
     ref = ref.reshape(B, H, hd).numpy()
     got, pallas = to_numpy(out).astype(np.float32), np.asarray(out_j, np.float32)
-    for o in (got, pallas):
+    for o in (got, pallas) if plain_vs_f32 else (pallas,):
         np.testing.assert_allclose(o, ref, rtol=2e-2, atol=2e-2)
     assert _rel(got, pallas) < 2e-2
+    xla = jllama._cached_attention(jnp.asarray(q)[:, None],
+                                   tuple(jnp.asarray(to_numpy(c[l])) for c in cache),
+                                   jnp.asarray(mask.numpy()), J_MOE)
+    assert _rel(got, np.asarray(xla, np.float32).reshape(B, H, hd)) < 1e-3
     assert k11.decode_attention_write.launches == 0
 
 

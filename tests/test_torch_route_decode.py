@@ -208,6 +208,14 @@ def test_the_eval_views_take_the_hopper_body(cfg):
     assert k5.flash_route(cfg.head_dim, ptrs, strides) == "wgmma"
 
 
+@pytest.mark.parametrize("hd", [32, 48, 80, 96, 112])
+def test_the_other_head_dims_take_the_hopper_body(hd):
+    """The head dims K5 holds in the tile of the next multiple of 64 (hd 80:
+    OPT-2.7B's eval views, 32 heads of 80) take its Hopper body too."""
+    ptrs, strides = _bshd_views(1, 2048, 32, 32, hd)
+    assert k5.supported(hd) and k5.flash_route(hd, ptrs, strides) == "wgmma"
+
+
 def test_a_fused_qkv_split_takes_the_hopper_body():
     # q, k, v split from one [B, S, (H + 2 KV) hd] projection: rows of (H + 2 KV) hd
     B, S, H, KV, hd = 2, 300, 8, 2, 64
