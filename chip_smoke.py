@@ -91,9 +91,9 @@ Phases, each printing one JSON line:
            the CPU runs a second time with the weights in f32, and a
            teacher-forced pass holds each half-layer (attention, MoE MLP) on
            the card, from the CPU run's inputs, to the CPU, to the plain
-           versions on the card and to the f32-weight arithmetic; 2-layer
+           versions on the card and to the f32-weight arithmetic; 1-layer
            llamas at hd 80 (hidden 2560, 32 heads) and 96 (3072) and a
-           2-layer OPT-2.7B (hd 80), the eval forward and prefill + 4 decode
+           1-layer OPT-2.7B (hd 80), the eval forward and prefill + 4 decode
            steps against the CPU on the int8 and bf16 caches (the llamas
            also on the per-layer int8 cache at S 2048, K12), every attention
            call on its kernel (K5, K2 + K3 or the one-layer entry, K8, K12
@@ -102,13 +102,17 @@ Phases, each printing one JSON line:
            per-layer weights from a seed), RTN W4 g128 with fused sites, a
            ContinuousBatcher with the int8 KV cache answering 8 requests of
            prompt 128 and 32 new tokens, first on CUDA graphs of its decode
-           blocks captured by warmup() (its seconds printed), then on an
-           eager engine (cuda_graphs=False): greedy tokens equal request for
-           request, and for each tokens/s, mean TTFT and a decode step's wall
-           and device ms and busy share (so too in serve_w8a8, serve_bf16,
-           serve_gpt2, serve_moe at 8 and 2 slots, and long_ctx, whose 32
-           steps run again as 2 replays of its 16-step graph against the
-           eager steps' ids; boundary's six engines run on graphs only);
+           blocks and of qtpu's prefill buckets, captured by warmup() (its
+           seconds, the memory it adds and the buckets captured printed),
+           then on an eager engine (cuda_graphs=False): greedy tokens equal
+           request for request (and sampled ones at temperature 0.8, in
+           serve), and for each tokens/s, mean TTFT, a decode step's and
+           each bucket's prefill wall and device ms and busy share (serve:
+           every warm bucket on graphs; so too in serve_w8a8, serve_bf16,
+           serve_gpt2, opt_2_7b, serve_moe at 8 and 2 slots, http and ckpt,
+           and long_ctx, whose 32 steps run again as 2 replays of its
+           16-step graph against the eager steps' ids; boundary's six
+           engines run on graphs, the default and fuse branches also eager);
            on both engines every kernel's launch count is
            checked against its count per prefill and per decode step, and
            every K1 launch of the prefill on the Hopper route (the route
@@ -177,8 +181,9 @@ Phases, each printing one JSON line:
            smoothquant --a8 --kv int8` (its main())
   pot_apot the POT/APOT path at full width through `python -m
            qtpu_torch.bench` (main() in this process): TinyLlama-1.1B, the
-           fixture's 4 test blocks of 2048, POT and APOT W4 g128 fake-quant
-           and packed (K7) perplexity, sizes, and the serving pseudo-method
+           fixture's 4 test blocks of 2048, POT (on the 0.1 grid) and APOT
+           W4 g128 fake-quant and packed (K7) perplexity, sizes, and the
+           serving pseudo-method
            on the POT artifact with the bf16 KV cache (K8), launch counts
            checked; then each method's quantize and pack time, a profiler
            split of a packed block, and pot/apot codes of one full-width
@@ -232,6 +237,16 @@ Phases, each printing one JSON line:
            a 1-layer Mixtral-width HF checkpoint this script writes (awq,
            smoothquant, packed_eval, serving, save_artifacts), the AWQ
            artifact loaded to the card and served on 2 slots (K10)
+  utils    qtpu_torch.utils on the card: the bench on tiny-test with
+           profile_dir (a Chrome trace an eval, the packed one naming K1's
+           and K5's kernels), Timer against CUDA events (within 5%),
+           checked() raising on a NaN made inside a function
+  synth    tiled_packed_llama(TinyLlama-1.1B) on the card (one layer's
+           bytes, tiled over 22 as stride-0 views) served against a
+           materialized copy (tokens equal, bytes against the reckoning),
+           and qtpu_torch.native (built with g++, without OpenMP where the
+           compiler has no runtime for it): available(), the flags, bytes
+           equal to the torch packers at TinyLlama's site widths, GB/s
 
 Each phase also holds the count of attention calls that took the plain
 route (a shape a kernel does not take, models/ops.py: hd % 16 == 8, hd >
@@ -239,7 +254,8 @@ route (a shape a kernel does not take, models/ops.py: hd % 16 == 8, hd >
 
 Launch counters under CUDA graphs: a replay runs no Python, so the engine
 adds to every wrapper's counters, on each replay, what the capture of that
-block counted (qtpu_torch/serve/graphs.py); the reckonings hold unchanged.
+block or prefill bucket counted (qtpu_torch/serve/graphs.py); the
+reckonings hold unchanged.
 
 The last lines are the nvidia-smi line, the `kernels` JSON line and
 {"ok": true, "device": {...}}. Any failed check raises, and the script then
@@ -259,7 +275,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
           "opt_2_7b", "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16",
-          "serve_moe", "http", "ckpt", "moe_methods")
+          "serve_moe", "http", "ckpt", "moe_methods", "utils", "synth")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -2451,8 +2467,8 @@ ATTN_KERNELS = ("flash_attention", "cache_band_write", "decode_attention",
 
 
 def _head_dim_e2e(torch, ctx):
-    """2-layer llamas at head_dim 80 (hidden 2560, 32 heads) and 96 (hidden
-    3072, 32 heads), 8 kv heads, and a 2-layer OPT-2.7B (hd 80, MHA), RTN W4
+    """1-layer llamas at head_dim 80 (hidden 2560, 32 heads) and 96 (hidden
+    3072, 32 heads), 8 kv heads, and a 1-layer OPT-2.7B (hd 80, MHA), RTN W4
     g128 fused: the eval forward (B 1, S 128) and a prefill of 32 with 4
     decode steps on the int8 and bf16 stacked caches (the llamas also on the
     per-layer int8 cache at S 2048, K12's layout), on the card against the
@@ -2468,7 +2484,7 @@ def _head_dim_e2e(torch, ctx):
     from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
     from qtpu_torch.serve.kvcache import init_cache
 
-    B, T, steps, L = 4, 32, 4, 2
+    B, T, steps, L = 4, 32, 4, 1  # one layer: the smoke's time limit
     path = {}
     models = [(f"llama hd {hd}", ModelConfig(vocab_size=8192, num_layers=L, num_heads=32,
                                              num_kv_heads=8, head_dim=hd, **widths))
@@ -3162,8 +3178,55 @@ def _block_times(torch, eng, pos_value, n=16):
             "device_busy_share": prof["device_busy_share"], "profile": prof}
 
 
+def _prefill_times(torch, eng, buckets):
+    """Each (P, Tb) bucket's prefill on the engine (its graph, or eager):
+    rows at start 0 in slots 0..P-1, ids arange, greedy. Host wall ms over
+    three calls (from staging the arrays to reading the ids back), and the
+    kernels of one more call (a CUDA-only profile: kernel ms and launches);
+    busy = kernel ms over the median wall ms."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for P, Tb in sorted(buckets):
+        args = ((np.arange(P * Tb, dtype=np.int32) % eng.cfg.vocab_size).reshape(P, Tb),
+                np.zeros(P, np.int32), np.arange(P, dtype=np.int64), np.full(P, Tb - 1, np.int32),
+                np.zeros(P, np.float32))
+        wall = []  # the bucket ran in the phase (or was captured by warmup())
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run_prefill(*args).cpu()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.run_prefill(*args).cpu()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        dev = sum(e.self_device_time_total for e in rows) / 1e3
+        out[f"{P}x{Tb}"] = {"wall_ms": wall, "device_ms": dev, "busy": dev / sorted(wall)[1],
+                            "launches": sum(e.count for e in rows)}
+    return out
+
+
+def _warm_engine(torch, eng, phase, mode):
+    """warmup() with the peak memory it adds (the graphs' pool at its high
+    mark, the scratch prefill's cache on an eager engine); fails unless a
+    graph engine captured every bucket of qtpu's warm set and an eager one
+    captured nothing. Returns {warmup_s, warmup_peak_gib, prefill_graphs}."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    warm = eng.warmup()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    graphs = mode == "graph"
+    if bool(eng.graphs) != graphs or (set(eng.prefill_graphs) == set(eng.prefill_buckets)) != graphs:
+        raise AssertionError(f"{phase} {mode}: warmup() captured {sorted(eng.graphs)} and "
+                             f"prefill buckets {sorted(eng.prefill_graphs)} of {eng.prefill_buckets}")
+    return {"warmup_s": warm, "warmup_peak_gib": peak, "prefill_graphs": len(eng.prefill_graphs)}
+
+
 def _serve_both(torch, ctx, phase, make, prompts, new, expect_of, check=None, step_pos=None,
-                extra=None):
+                extra=None, all_buckets=False, sampled=False, time_prefill=True):
     """A serving phase's requests (prompts, each with `new` new tokens,
     greedy) on two engines built by make(cuda_graphs): first the default
     one, whose decode blocks replay CUDA graphs, after warmup() (its
@@ -3175,14 +3238,20 @@ def _serve_both(torch, ctx, phase, make, prompts, new, expect_of, check=None, st
     length). Both engines are warmed first (the eager one's warmup() builds
     and prefills on a scratch cache, and captures nothing). Fails unless both answer every request with `new` ids in the
     vocabulary and their greedy tokens are equal request for request.
+    Prefill runs qtpu's buckets: a graph engine's warmup() captures each of
+    its warm set (_warm_engine), and each bucket the run used is timed on
+    both engines (_prefill_times; all_buckets: every one of the warm set on
+    the graph engine; time_prefill=False: none).
+    With `sampled`, the same prompts run again at temperature 0.8 on each
+    engine after its greedy run (the generators of one seed in step) and
+    must give equal tokens on both.
     Emits one line per engine and a comparison line; returns {mode: line}."""
-    runs, outs = {}, {}
+    runs, outs, samp = {}, {}, {}
     for mode in ("graph", "eager"):
         t0 = time.perf_counter()
         eng = make(mode == "graph")
-        warm = eng.warmup()
-        if bool(eng.graphs) != (mode == "graph"):
-            raise AssertionError(f"{phase} {mode}: warmup() captured {sorted(eng.graphs)}")
+        warm_info = _warm_engine(torch, eng, phase, mode)
+        warm = warm_info["warmup_s"]
         vocab = eng.cfg.vocab_size
         reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
         torch.cuda.synchronize()
@@ -3212,25 +3281,67 @@ def _serve_both(torch, ctx, phase, make, prompts, new, expect_of, check=None, st
             raise AssertionError(f"{phase} {mode}: kernel launches {counts} != expected {expect}")
         if check is not None:
             check(f"{phase} {mode}", counts, routes, steps, pre)
+        res.update(warm_info)
+        res["prefill_buckets_run"] = {f"{p}x{t}": n for (p, t), n in sorted(eng.prefill_shapes.items())}
+        if sampled:
+            sreqs = [eng.submit(p, max_new_tokens=new, temperature=0.8) for p in prompts]
+            eng.run()
+            samp[mode] = [r.output for r in sreqs]
         res["decode_step"] = _block_times(torch, eng, len(prompts[0]) if step_pos is None
                                           else step_pos)
+        res["prefill"] = _prefill_times(
+            torch, eng, () if not time_prefill else eng.prefill_buckets
+            if all_buckets and mode == "graph" else eng.prefill_shapes)
         res["seconds"] = time.perf_counter() - t0
         emit({**res, "card": ctx["smi"]})
         runs[mode], outs[mode] = res, [r.output for r in reqs]
         del eng, done, reqs
         torch.cuda.empty_cache()
     same = outs["graph"] == outs["eager"]
-    emit({"phase": f"{phase}_graph_vs_eager", "greedy_tokens_equal": same,
-          **{k: {mode: r[k] for mode, r in runs.items()}
-             for k in ("warmup_s", "tokens_per_s", "mean_ttft_s")},
-          **{k: {mode: r["decode_step"][k] for mode, r in runs.items()}
-             for k in ("wall_ms_per_step", "event_ms_per_step", "device_ms_per_step",
-                       "device_busy_share")},
-          "card": ctx["smi"]})
+    line = {"phase": f"{phase}_graph_vs_eager", "greedy_tokens_equal": same,
+            **{k: {mode: r[k] for mode, r in runs.items()}
+               for k in ("warmup_s", "warmup_peak_gib", "prefill_graphs", "tokens_per_s",
+                         "mean_ttft_s")},
+            **{k: {mode: r["decode_step"][k] for mode, r in runs.items()}
+               for k in ("wall_ms_per_step", "event_ms_per_step", "device_ms_per_step",
+                         "device_busy_share")},
+            "prefill": {b: {mode: {k: r["prefill"][b][k] for k in ("wall_ms", "device_ms", "busy")}
+                            for mode, r in runs.items() if b in r["prefill"]}
+                        for b in runs["graph"]["prefill"]},
+            "card": ctx["smi"]}
+    if sampled:
+        line["sampled_tokens_equal"] = samp["graph"] == samp["eager"]
+    emit(line)
     if not same:
         raise AssertionError(f"{phase}: the graph and eager engines' greedy tokens differ: "
                              f"{outs['graph']} vs {outs['eager']}")
+    if sampled and samp["graph"] != samp["eager"]:
+        raise AssertionError(f"{phase}: the graph and eager engines' sampled tokens differ: "
+                             f"{samp['graph']} vs {samp['eager']}")
     return runs
+
+
+def _eager_twin(torch, phase, eng, prompts, new, want):
+    """The eager engine of a phase whose engine serves on graphs: warmed,
+    the same greedy requests, its TTFT, tokens/s and the prefill times of
+    the buckets it ran; fails unless its tokens equal the graph engine's
+    (`want`, request for request)."""
+    info = _warm_engine(torch, eng, phase, "eager")
+    reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = [r.output for r in reqs]
+    res = {**info, "tokens_per_s": sum(len(o) for o in got) / wall,
+           "mean_ttft_s": eng.metrics().get("mean_ttft_s"),
+           "prefill": _prefill_times(torch, eng, eng.prefill_shapes),
+           "greedy_tokens_equal_graph": got == want}
+    if got != want:
+        raise AssertionError(f"{phase}: the eager engine's greedy tokens {got} differ from the "
+                             f"graph engine's {want}")
+    return res
 
 
 def _serve_prompts(cfg, n, seed=0):
@@ -3279,7 +3390,7 @@ def phase_serve(torch, ctx):
 
     runs = _serve_both(torch, ctx, "serve", make, _serve_prompts(cfg, B), new, expect_of, check,
                        extra={"model": "TinyLlama-1.1B", "layers": L, "method": "rtn W4 g128",
-                              "kv": "int8", "setup_s": setup_s})
+                              "kv": "int8", "setup_s": setup_s}, all_buckets=True, sampled=True)
     g = runs["graph"]
     ctx.setdefault("path_launches", {})["serve"] = {**g["launches"], **g["routes"]}
 
@@ -3339,13 +3450,20 @@ def phase_http(torch, ctx):
     prompts = _serve_prompts(cfg, B, seed=1)
     ref = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
                             kv_dtype="int8", device="cuda", cuda_graphs=False)
+    eager = _warm_engine(torch, ref, "http", "eager")
     ref_reqs = [ref.submit(p, max_new_tokens=new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ref.run()
+    torch.cuda.synchronize()
     want = [r.output for r in ref_reqs]
+    eager.update(tokens_per_s=sum(len(o) for o in want) / (time.perf_counter() - t0),
+                 mean_ttft_s=ref.metrics().get("mean_ttft_s"),
+                 prefill=_prefill_times(torch, ref, ref.prefill_shapes))
     del ref, ref_reqs
     eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
                             kv_dtype="int8", device="cuda")
-    warm = eng.warmup()
+    warm_info = _warm_engine(torch, eng, "http", "graph")
     torch.cuda.synchronize()
     _reset_counts()
     frontend = ServingFrontend(eng)
@@ -3384,7 +3502,9 @@ def phase_http(torch, ctx):
     ok = [a is not None and a[0] == 200 for a in answers]
     got = [a[1]["tokens"] if okay else None for a, okay in zip(answers, ok)]
     res = {"phase": "http", "model": "TinyLlama-1.1B", "method": "rtn W4 g128", "kv": "int8",
-           "slots": B, "requests": B, "warmup_s": warm, "graphs": sorted(eng.graphs),
+           "slots": B, "requests": B, **warm_info, "graphs": sorted(eng.graphs),
+           "prefill_buckets_run": {f"{p}x{t}": n for (p, t), n in sorted(eng.prefill_shapes.items())},
+           "prefill": _prefill_times(torch, eng, eng.prefill_shapes), "eager": eager,
            "wall_s": wall, "tokens_per_s": sum(len(t or []) for t in got) / wall,
            "mean_ttft_s": (sum(a[1]["ttft_s"] for a, okay in zip(answers, ok) if okay)
                            / max(1, sum(ok))),
@@ -3749,7 +3869,17 @@ def _long_graph_run(torch, ctx, eng, tok, pos, eager_ids, expect):
     counts, routes = _counts(), _route_counts()
     got = np.concatenate(blocks, axis=1)
     want = torch.stack(eager_ids, dim=1).cpu().numpy()
+    if set(eng.prefill_graphs) != set(eng.prefill_buckets):
+        raise AssertionError(f"long_ctx: warmup() captured prefill buckets "
+                             f"{sorted(eng.prefill_graphs)} of {eng.prefill_buckets}")
+    P, Tb = max(eng.prefill_buckets)
+    H, V = eng.cfg.num_heads, eng.cfg.vocab_size
     res = {"warmup_s": warm, "graphs": sorted(eng.graphs), "wall_s": wall,
+           "prefill_graphs": len(eng.prefill_graphs),
+           # the largest bucket's f32 buffers as reckoned: the plain cached_attention's
+           # scores [P, H, Tb, S] and the logits [P, Tb, V]
+           "reckoned_gb": {"bucket": f"{P}x{Tb}", "scores": P * H * Tb * eng.cache.max_len * 4 / 1e9,
+                           "logits": P * Tb * V * 4 / 1e9},
            "peak_mem_gib_eager_steps": peak_eager, "peak_mem_gib_warmup": peak_warm,
            "tokens_per_s": B * LONG_STEPS / wall, "host_ms_per_step": wall / LONG_STEPS * 1e3,
            "greedy_tokens_equal": bool(np.array_equal(got, want)), "launches": counts,
@@ -3801,10 +3931,12 @@ def phase_boundary(torch, ctx):
     profile of 4 decode steps (device and host time, K13's share), and one
     decode step from the same prefill whose logits are compared with the
     default branch's (relative error, top-1 agreement; printed), with the
-    engines' greedy tokens' agreement. Each engine runs its decode blocks on
-    CUDA graphs that its warmup() captured under the branch's switch (the
-    graph path only: the serve phase holds graphs to eager on the default
-    branch). Checks: the launches; K13 against its
+    engines' greedy tokens' agreement. Each engine runs its decode blocks and
+    prefill buckets on CUDA graphs that its warmup() captured under the
+    branch's switch; the default and fuse branches also answer on an eager
+    engine (_eager_twin: the same tokens, TTFT, tok/s, the bucket's prefill
+    times; the boundary branch's prefill is the default one). Checks: the
+    launches; K13 against its
     plain version on every layer of that step, on the layer's own inputs
     (2e-2 relative on y2 - x and on qkv); finite logits."""
     import numpy as np
@@ -3819,18 +3951,23 @@ def phase_boundary(torch, ctx):
     paths = ctx.setdefault("path_launches", {})
     gen = torch.Generator(device="cuda").manual_seed(0)
     ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32) for _ in range(B)]
     for kv in ("int8", "bfloat16"):
         quant = kv == "int8"
         ref_logits = ref_outputs = ref_tok = ref_prefill = None
         for mode, env in BRANCHES.items():
             with _env(env):
-                eng = ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
-                                        kv_dtype=kv, seed=0, device="cuda")
-                warm = eng.warmup()  # the branch is frozen into the graphs here
-                rng = np.random.default_rng(0)
-                for _ in range(B):
-                    eng.submit(rng.integers(0, cfg.vocab_size, size=P, dtype=np.int32),
-                               max_new_tokens=new)
+                def make(graphs):
+                    return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=B,
+                                             max_seq_len=P + new, kv_dtype=kv, seed=0,
+                                             device="cuda", cuda_graphs=graphs)
+
+                eng = make(True)
+                # the branch is frozen into the decode and prefill graphs here
+                warm_info = _warm_engine(torch, eng, f"boundary {kv} {mode}", "graph")
+                for p in prompts:
+                    eng.submit(p, max_new_tokens=new)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 _reset_counts()
@@ -3850,7 +3987,12 @@ def phase_boundary(torch, ctx):
                     expect["dequant_matmul_norm_w"] += L * pre
                     expect["dequant_matmul_resid"] += L * pre
                 outputs = [r.output for r in sorted(done, key=lambda r: r.uid)]
+                graph_prefill = _prefill_times(torch, eng, eng.prefill_shapes)
                 del eng
+                # the eager twin of each branch whose prefill is its own: the
+                # boundary branch's prefill is the default one (K13 is decode only)
+                eager = None if mode == "boundary" else _eager_twin(
+                    torch, f"boundary {kv} {mode}", make(False), prompts, new, outputs)
                 # one decode step from the same prefill, then a profile; the
                 # prefill's K1 launches with an option, all on the Hopper route
                 cache = init_cache(cfg, B, P + new + 16, quantized=quant, device="cuda")
@@ -3887,7 +4029,7 @@ def phase_boundary(torch, ctx):
             k13_ms = prof["device_ms_by_kind"].get("K13 layer_boundary", 0.0)
             res = {"phase": "boundary", "model": "TinyLlama-1.1B", "layers": L,
                    "method": "rtn W4 g128", "kv": kv, "branch": mode, "switch": env,
-                   "mode": "graph", "warmup_s": warm,
+                   "mode": "graph", **warm_info, "prefill": graph_prefill, "eager": eager,
                    "requests": len(done), "tokens": sum(len(o) for o in outputs), "wall_s": wall,
                    "tokens_per_s": sum(len(o) for o in outputs) / wall,
                    "mean_ttft_s": m.get("mean_ttft_s"), "peak_mem_gib": peak,
@@ -4696,7 +4838,10 @@ def phase_serve_w8a8(torch, ctx):
         raise AssertionError(f"the serve CLI run failed: rc {rc}, launches {cli}")
 
 
-CODEBOOK_MCFG = {"pot": {"w_bit": 4, "q_group_size": 128},
+# POT's scale race on the 0.1 grid, as moe_methods runs it: 20 candidates
+# where the 0.01 reference grid has 200 (its quantize and pack took 61 s of
+# the smoke at 22 layers; NVIDIA H100 80GB HBM3, 700.00 W, and its host)
+CODEBOOK_MCFG = {"pot": {"w_bit": 4, "q_group_size": 128, "grid_step": 0.1},
                  "apot": {"w_bit": 4, "q_group_size": 128, "k": 2}}
 CB_PER_FORWARD = 4 * 22 + 1  # K7 calls per forward of the fused TinyLlama: 4 sites a layer + lm_head
 
@@ -4711,8 +4856,8 @@ def _tinyllama_params_count(cfg) -> int:
 def phase_pot_apot(torch, ctx):
     """The POT/APOT path at full width through `python -m qtpu_torch.bench`
     (main() in this process): TinyLlama-1.1B (22 layers, random weights
-    from seed 0), the fixture's 4 test blocks of 2048, POT and APOT W4
-    g128 fake-quant and packed eval (K7 on every linear, K5 for the
+    from seed 0), the fixture's 4 test blocks of 2048, POT (0.1 grid) and
+    APOT W4 g128 fake-quant and packed eval (K7 on every linear, K5 for the
     attention) and the serving pseudo-method on the POT artifact with the
     bf16 KV cache (K8). Checks perplexities, sizes and every launch count;
     each method's quantize and pack time, taken inside that run; a profiler
@@ -5338,9 +5483,13 @@ def phase_ckpt(torch, ctx):
     serve, outs = {}, {}
     for name, tree, qm in (("artifact", loaded, qmeta_l), ("in_process", packed, qmeta)):
         fp, fq = fuse_packed_sites(tree, qm)
-        eng = ContinuousBatcher(fp, cfg, qmeta=fq, max_batch=B, max_seq_len=P + new,
-                                kv_dtype="int8", seed=0, device="cuda")
-        warm = eng.warmup()
+
+        def make(graphs):
+            return ContinuousBatcher(fp, cfg, qmeta=fq, max_batch=B, max_seq_len=P + new,
+                                     kv_dtype="int8", seed=0, device="cuda", cuda_graphs=graphs)
+
+        eng = make(True)
+        warm_info = _warm_engine(torch, eng, f"ckpt {name}", "graph")
         reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
         torch.cuda.synchronize()
         _reset_counts()
@@ -5351,8 +5500,9 @@ def phase_ckpt(torch, ctx):
         counts, routes, m = _counts(), _route_counts(), eng.metrics()
         steps, pre = m["decode_steps"], m["prefill_calls"]
         expect = _serve_launches(L, steps, pre)
-        serve[name] = {"warmup_s": warm, "wall_s": wall,
+        serve[name] = {**warm_info, "wall_s": wall,
                        "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+                       "mean_ttft_s": m.get("mean_ttft_s"),
                        "decode_steps": steps, "prefill_calls": pre, "launches": counts}
         if counts != expect or steps == 0:
             raise AssertionError(f"ckpt serve {name}: kernel launches {counts} != {expect}")
@@ -5361,7 +5511,14 @@ def phase_ckpt(torch, ctx):
         outs[name] = [r.output for r in reqs]
         if any(len(o) != new for o in outs[name]):
             raise AssertionError(f"ckpt serve {name}: outputs {outs[name]}")
-        del eng, fp
+        if name == "artifact":  # the loaded artifact on an eager engine too
+            serve[name]["prefill"] = _prefill_times(torch, eng, eng.prefill_shapes)
+            del eng
+            serve[name]["eager"] = _eager_twin(torch, "ckpt artifact", make(False), prompts, new,
+                                               outs[name])
+        else:
+            del eng
+        del fp
         torch.cuda.empty_cache()
     out["serve"] = serve
     out["greedy_tokens_equal"] = outs["artifact"] == outs["in_process"]
@@ -5494,7 +5651,8 @@ def _moe_method_engines(torch, ctx, params, qmeta, cfg, method, tag):
         runs = _serve_both(torch, ctx, f"moe_methods_{tag}", make, prompts, new, expect_of, check,
                            extra={"model": "Mixtral-8x7B", "layers": L, "method": tag,
                                   "kv": "int8", "slots": slots,
-                                  "route": "gathered" if gathered else "grouped"})
+                                  "route": "gathered" if gathered else "grouped"},
+                           time_prefill=False)
         out[slots] = runs["graph"]
     return out
 
@@ -5722,6 +5880,198 @@ def phase_moe_methods(torch, ctx):
         del packed
     torch.cuda.empty_cache()
     emit({"phase": "moe_methods_done", "seconds": time.perf_counter() - t_phase})
+
+
+def phase_utils(torch, ctx):
+    """qtpu_torch.utils on the card: the bench's eval under profile_dir
+    (`python -m qtpu_torch.bench`'s main() in this process, tiny-test with
+    RTN W4 g128 and packed_eval) writes a Chrome trace per eval, and the
+    packed eval's names K1's and K5's kernels; Timer's host seconds against
+    its own CUDA events and against a second pair of events recorded around
+    it (~80 ms of warm matmuls), within 5%; checked() raising on a NaN made mid-function on the
+    card (and not on a clean K1 call); debug_nans scoped."""
+    import tempfile
+
+    from qtpu_torch.bench.__main__ import main as bench_main
+    from qtpu_torch.core.packing import quantize_pack
+    from qtpu_torch.kernels.dequant_matmul import quantized_matmul
+    from qtpu_torch.utils import debug, timing
+
+    out = {"phase": "utils"}
+    config = {"model_name": "tiny-test", "quantization_methods": ["rtn"],
+              "calibration_dataset": "synthetic", "test_dataset": "synthetic",
+              "n_calibration_samples": 2, "calibration_block_size": 256, "n_test_samples": 2,
+              "test_block_size": 256, "quantization_config": {"rtn": {"w_bit": 4,
+                                                                     "q_group_size": 128}},
+              "packed_eval": True, "serving": {"benchmark": False}, "seed": 0,
+              "device": "cuda", "verbose": False}
+    with tempfile.TemporaryDirectory() as tmp:
+        config["profile_dir"] = str(Path(tmp) / "prof")
+        cfg_path = Path(tmp) / "config.json"
+        cfg_path.write_text(json.dumps(config))
+        t0 = time.perf_counter()
+        rc = bench_main([str(cfg_path), "--out", str(Path(tmp) / "results.json")])
+        out["bench_s"] = time.perf_counter() - t0
+        traces = sorted(Path(config["profile_dir"]).glob("trace-*.json"),
+                        key=lambda f: f.stat().st_mtime)
+        out["traces"] = [f.stat().st_size for f in traces]
+        names = {e.get("name", "") for e in json.loads(traces[-1].read_text())["traceEvents"]
+                 if e.get("cat") == "kernel"} if traces else set()
+    out["bench_rc"] = rc
+    out["packed_trace_kernels"] = sorted({_kind(n) for n in names})
+    k1 = any(_kind(n) == "K1 dequant_matmul" for n in names)
+    k5 = any(_kind(n) == "K5 flash_attention" for n in names)
+
+    a = torch.randn(4096, 4096, device="cuda")
+
+    def work(a):
+        for _ in range(30):  # ~80 ms of f32 matmuls on the card
+            a = torch.tanh(a @ a * 1e-2)
+        return a
+
+    a = work(a)  # warm: kernels chosen, clocks up
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    with timing.Timer(True) as t:  # fences on the current device, records its own events
+        a = work(a)
+    e1.record()
+    torch.cuda.synchronize()
+    ev = e0.elapsed_time(e1) / 1e3
+    out["timer"] = {"host_s": t.elapsed, "timer_events_s": t.device_elapsed, "events_s": ev,
+                    "vs_own_events": t.elapsed / t.device_elapsed - 1, "vs_events": t.elapsed / ev - 1}
+
+    def inner_nan(x):
+        return torch.nan_to_num(torch.sqrt(x - 1.0))  # NaN made where x < 1, none left after
+
+    x = torch.rand(1024, device="cuda")
+    try:
+        debug.checked(inner_nan)(x)
+        caught = False
+    except FloatingPointError:
+        caught = True
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qt = quantize_pack(torch.randn(2048, 2560, generator=g, device="cuda") * 0.02, 4, 128)
+    xb = torch.randn(8, 2048, generator=g, device="cuda").to(torch.bfloat16)
+    y = debug.checked(quantized_matmul)(xb, qt.data, qt.scales, qt.zeros, (4, 128, 2048, 2560))
+    with debug.debug_nans():
+        with debug.debug_nans(False):
+            torch.sqrt(x - 1.0)
+        try:
+            torch.sqrt(x - 1.0)
+            scoped = False
+        except FloatingPointError:
+            scoped = True
+    out.update(checked_caught_inner_nan=caught, inner_nan_output_finite=bool(
+        torch.isfinite(inner_nan(x)).all()), checked_k1_clean=bool(torch.isfinite(y).all()),
+        debug_nans_scoped=scoped, card=ctx["smi"])
+    emit(out)
+    if rc != 0 or len(traces) != 3 or not (k1 and k5):
+        raise AssertionError(f"utils: the bench under profile_dir: rc {rc}, {len(traces)} traces, "
+                             f"kernels {out['packed_trace_kernels']}")
+    if max(abs(out["timer"]["vs_own_events"]), abs(out["timer"]["vs_events"])) >= 0.05:
+        raise AssertionError(f"utils: Timer against CUDA events: {out['timer']}")
+    if not (caught and out["inner_nan_output_finite"] and out["checked_k1_clean"] and scoped):
+        raise AssertionError(f"utils: the finite checks: {out}")
+
+
+def phase_synth(torch, ctx):
+    """qtpu_torch.bench.synth and qtpu_torch.native on the card's machine.
+    tiled_packed_llama(TinyLlama-1.1B) on the card (one random weight per
+    site from a seeded generator, RTN W4 g128, fused on one layer and tiled
+    over 22 as stride-0 views): the bytes it allocates against one layer's
+    and 22 layers' reckoning, and the serve traffic (8 x (128 + 32), greedy,
+    graph engines capturing at first use, so these tokens/s and TTFT carry
+    the captures) on it and on a materialized copy (every layer's bytes its
+    own), tokens equal. Then the native host packer: available(), its
+    bytes at TinyLlama's site widths equal to qtpu_torch.core.packing's and
+    its block_pack's to data.pipeline's, and its pack rates in GB/s."""
+    import numpy as np
+
+    from qtpu_torch import native
+    from qtpu_torch.bench.synth import tiled_packed_llama
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.core import packing
+    from qtpu_torch.data import pipeline
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    D, F, V, Q, KV, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.q_dim,
+                         cfg.kv_dim, cfg.num_layers)
+    sites = {"qkv": (D, Q + 2 * KV), "o": (Q, D), "gateup": (D, 2 * F), "down": (F, D)}
+    layer = sum(k * n // 2 + 3 * (k // 128) * n for k, n in sites.values()) + 4 * D
+    outer = V * D * 2 + D * V // 2 + 3 * (D // 128) * V + 2 * D
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, qmeta = tiled_packed_llama(cfg)
+    torch.cuda.synchronize()
+    out = {"phase": "synth", "model": "TinyLlama-1.1B", "build_s": time.perf_counter() - t0,
+           "allocated_bytes": torch.cuda.memory_allocated() - m0,
+           "reckoned_bytes": {"one_layer": layer, "all_layers": L * layer, "embed_and_head": outer}}
+    dense = map_tree(params, lambda t: t.contiguous())
+    torch.cuda.synchronize()
+    out["materialized_bytes"] = torch.cuda.memory_allocated() - m0 - out["allocated_bytes"]
+    B, P, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    prompts = _serve_prompts(cfg, B, seed=2)
+    toks = {}
+    for name, tree in (("synth", params), ("materialized", dense)):
+        # graphs captured at first use (the run's bucket and block): no warmup()
+        eng = ContinuousBatcher(tree, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                kv_dtype="int8", seed=0, device="cuda")
+        reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks[name] = [r.output for r in reqs]
+        out[name] = {"tokens_per_s": sum(len(o) for o in toks[name]) / wall,
+                     "mean_ttft_s": eng.metrics().get("mean_ttft_s"),
+                     "graphs": [sorted(eng.graphs), sorted(eng.prefill_graphs)]}
+        del eng
+    out["greedy_tokens_equal"] = toks["synth"] == toks["materialized"]
+    del dense
+    torch.cuda.empty_cache()
+
+    # the native host packer at TinyLlama's site widths (unfused, as qtpu packs them)
+    rng = np.random.default_rng(0)
+    nat = {"available": native.available(), "build": native.build_info(), "sites": {}}
+    for name, (K, N) in {"q": (D, Q), "k": (D, KV), "o": (Q, D), "gate": (D, F), "down": (F, D),
+                         "lm_head": (D, V)}.items():
+        w = (rng.standard_normal((K, N), dtype=np.float32) * 0.02)
+        t0 = time.perf_counter()
+        data, scales, zeros = native.quantize_pack(w, 4, 128)
+        sec = time.perf_counter() - t0
+        qt = packing.quantize_pack(torch.from_numpy(w), 4, 128)
+        q = packing.unpack_int4(qt.data, 128).numpy()
+        t1 = time.perf_counter()
+        packed = native.pack_int4(q, 128)
+        psec = time.perf_counter() - t1
+        nat["sites"][name] = {
+            "K": K, "N": N, "quantize_pack_gb_per_s": w.nbytes / sec / 1e9,
+            "pack_int4_gb_per_s": q.nbytes / psec / 1e9,
+            "bytes_equal": bool(np.array_equal(data, qt.data.numpy())
+                                and np.array_equal(zeros, qt.zeros.numpy())
+                                and torch.equal(torch.from_numpy(scales).bfloat16(), qt.scales)
+                                and np.array_equal(packed, qt.data.numpy()))}
+    samples = [rng.integers(0, V, size=n, dtype=np.int32) for n in (700, 2048, 5000, 300)]
+    got, want = native.block_pack(samples, 2048), pipeline.block_pack(samples, 2048)
+    nat["block_pack_equal"] = len(got) == len(want) and all(
+        np.array_equal(a, b) for a, b in zip(got, want))
+    out["native"] = nat
+    out["card"] = ctx["smi"]
+    emit(out)
+    if not out["greedy_tokens_equal"]:
+        raise AssertionError(f"synth: tokens differ from the materialized copy's: {toks}")
+    if out["allocated_bytes"] > layer + outer + (64 << 20) \
+            or out["materialized_bytes"] < (L - 1) * layer:
+        raise AssertionError(f"synth: {out['allocated_bytes']} bytes allocated "
+                             f"({out['materialized_bytes']} materialized), reckoned "
+                             f"{out['reckoned_bytes']}")
+    if not (nat["available"] and nat["block_pack_equal"]
+            and all(v["bytes_equal"] for v in nat["sites"].values())):
+        raise AssertionError(f"synth: the native packer: {nat}")
 
 
 def main(argv=None) -> int:

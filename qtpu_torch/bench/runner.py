@@ -25,13 +25,16 @@ family (a preset's or a checkpoint's: Mixtral, Qwen2-MoE), the MoE expert
 sites calibrated over the tokens routed to each expert. What the port does
 not have yet is refused by `setup` with NotImplementedError naming its
 slice (`refuse_unported`), never recorded as a per-method error row: a mesh
-above one device and trace profiling.
+above one device. With "profile_dir" every perplexity eval runs inside a
+torch.profiler session (qtpu_torch.utils.timing.profile_trace) that writes
+its Chrome trace into that directory, as qtpu's jax.profiler trace.
 
 CLI:  python -m qtpu_torch.bench <config.json> [--out results.json] [--device cpu]
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 import traceback
@@ -78,9 +81,6 @@ def refuse_unported(config: dict, device: torch.device) -> None:
         raise NotImplementedError(
             f"mesh data={dp} x model={tp} x pipe={pp} is not ported yet (sharding slice)"
         )
-    if config.get("profile_dir"):
-        raise NotImplementedError(
-            "'profile_dir': trace profiling of the eval (utils slice) is not ported yet")
 
 
 class QuantizationBenchmark:
@@ -174,16 +174,23 @@ class QuantizationBenchmark:
         result.bits_per_byte = size_bits / orig if orig > 0 else None
 
     def _eval(self, params, qmeta=None) -> float:
-        return evaluate_perplexity(
-            params,
-            self.test_dataset,
-            self.model_cfg,
-            n_samples=self.config.get("n_test_samples", 40),
-            block_size=self.config.get("test_block_size", 2048),
-            qmeta=qmeta,
-            arch=self.model_cfg.arch,
-            verbose=self.verbose,
-        )
+        profile_dir = self.config.get("profile_dir")
+        ctx = contextlib.nullcontext()
+        if profile_dir:
+            from qtpu_torch.utils.timing import profile_trace
+
+            ctx = profile_trace(profile_dir)  # a Chrome trace of the eval
+        with ctx:
+            return evaluate_perplexity(
+                params,
+                self.test_dataset,
+                self.model_cfg,
+                n_samples=self.config.get("n_test_samples", 40),
+                block_size=self.config.get("test_block_size", 2048),
+                qmeta=qmeta,
+                arch=self.model_cfg.arch,
+                verbose=self.verbose,
+            )
 
     # ------------------------------------------------------- method runs
     def benchmark_raw_model(self):

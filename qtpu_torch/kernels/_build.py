@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface and loaded with `ctypes`. The build
-directory is `build/qtpu_torch/` at the root of the checkout; a library's
+directory is `build/qtpu_torch/` at the root of the checkout (QTPU_COMPILE_CACHE
+moves it: qtpu_torch.utils.compcache); a library's
 file name carries a hash of its sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Several sources build in
 parallel, one `nvcc` process each (`build`).
@@ -15,11 +16,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qtpu_torch"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qtpu_torch"
+BUILD_DIR = DEFAULT_BUILD_DIR  # moved by qtpu_torch.utils.compcache (QTPU_COMPILE_CACHE)
 SOURCES = ("dequant_matmul", "kv_attention", "fused_mlp", "flash_attention", "w8a8_matmul",
            "codebook_matmul", "moe_matmul", "kv_flash_decode", "layer_boundary")
 NVCC_FLAGS = (
@@ -80,6 +83,47 @@ def build(names=SOURCES) -> dict:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-shared", "-Wall")  # qtpu/native's
+
+
+def host_compiler() -> str:
+    """The host C++ compiler ($CXX, else g++ or c++); raises when there is none."""
+    for cand in (os.environ.get("CXX", ""), "g++", "c++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++ or c++) found")
+
+
+def build_host(name: str) -> tuple[Path, tuple]:
+    """The shared library of the host source csrc/<name>.cpp and the flags it
+    was built with: HOST_FLAGS, or the same without -fopenmp where the
+    compiler has no OpenMP runtime (the source's pragmas then compile to
+    its serial loops, the same bytes). Built at first use to a temporary
+    file of its own, then renamed, so that processes building it at once
+    never load a half-written one. Raises with the compiler's output when
+    no build succeeds."""
+    src = CSRC / f"{name}.cpp"
+    failed = []
+    for flags in (HOST_FLAGS, tuple(f for f in HOST_FLAGS if f != "-fopenmp")):
+        h = hashlib.sha256(" ".join(flags).encode())
+        h.update(src.read_bytes())
+        lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+        if lib.is_file():
+            return lib, flags
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=BUILD_DIR)
+        os.close(fd)
+        out = subprocess.run([host_compiler(), *flags, "-o", tmp, str(src)],
+                             capture_output=True, text=True)
+        if out.returncode == 0:
+            os.replace(tmp, lib)
+            return lib, flags
+        os.unlink(tmp)
+        failed.append(f"{' '.join(flags)}:\n{out.stdout}{out.stderr}")
+    raise RuntimeError(f"{name}: host build failed\n" + "\n".join(failed))
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

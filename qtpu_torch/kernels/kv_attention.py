@@ -137,7 +137,7 @@ def cached_attention(q, layer_kv, mask):
         K = K.repeat_interleave(H // KV, dim=1)
         V = V.repeat_interleave(H // KV, dim=1)
     scores = torch.einsum("bqhd,bhkd->bhqk", q.float(), K.float()) / math.sqrt(hd)
-    scores = torch.where(mask[:, None], scores, torch.full_like(scores, -1e30))
+    scores.masked_fill_(~mask[:, None], -1e30)  # in place: [B, H, T, S] f32 is the largest buffer
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bhkd->bqhd", probs.float(), V.float()).to(q.dtype)
     return out.reshape(B, T, H * hd).contiguous()

@@ -12,9 +12,17 @@ Invariants per active slot i with request r:
                  prefill logits at the last real prompt position)
   input token =  r.output[-1], at position prompt_len + len(output) - 1
 Inactive slots decode with pos = S (the cache length), which the cache
-write skips. A prefill call holds only the admitted requests, as many rows
-as there are, padded to the longest remaining chunk; it writes their K/V
-straight into their slots of the live cache.
+write skips.
+
+A prefill call runs qtpu's bucketed shapes (qtpu's `_prefill_chunk_arrays`):
+P rows, 1 for one in-flight prefill, else min(_bucket(n), prefill_parallel,
+max_batch); Tb tokens, prefill_chunk while any row has more than a chunk
+left, else min(_bucket(longest remainder), prefill_chunk). Pad rows name
+distinct slots that are not prefilling (a decoding slot among them) with
+start = S, so the cache write leaves their rows as they are; a row whose
+bucket runs past the cache end is written at S - Tb, as qtpu's
+dynamic_update_slice clamps it. The call writes the rows' K/V straight into
+their slots of the live cache.
 
 kv_layout="per_layer" keeps the cache as L per-layer buffers (qtpu's
 long-context layout), whose int8 decode runs K12 when the cache length S is a
@@ -34,14 +42,24 @@ sampled ids come back, in one copy a block.
 On a CUDA device (cuda_graphs=True, the default) each (block size, greedy
 or sampling) decode block is a CUDA graph captured on those inputs and the
 live cache, which the graph writes in place, and replayed (serve/graphs.py;
-the sampler's generator registered with the sampling graphs). `warmup()`
-captures them before traffic, as qtpu's warmup() compiles its program zoo;
-otherwise a block is captured at its first use. A graph keeps what the
-step decided at capture: QTPU_BOUNDARY and QTPU_FUSE_NORM_RESID, read on
-each forward, are frozen into an engine's graphs as they stood when it
+the sampler's generator registered with the sampling graphs). So is each
+(P, Tb) prefill bucket: the embedding, every layer with its cache write
+through `slots`, the first-column gather and mixed_sample (the generator
+registered), on static ids, starts, slots, first_cols and ptemps of that
+bucket. qtpu fuses a prefill and a decode block into one program
+(`_fused_step`, a relay-dispatch workaround); here they are two graphs
+replayed back to back. All graphs share one memory pool, so a graph captured
+later may reuse, in its replay, memory that holds an earlier one's output:
+a prefill graph writes its sampled ids into a buffer of its own outside the
+pool, which the decode block replayed after it cannot touch. `warmup()`
+captures qtpu's warm set before traffic, as qtpu's warmup() compiles its
+program zoo (the decode blocks, then `prefill_buckets`); any other block or
+bucket is captured at its first use. A graph keeps what the step decided at
+capture: QTPU_BOUNDARY and QTPU_FUSE_NORM_RESID, read on each forward, are
+frozen into an engine's decode and prefill graphs as they stood when it
 captured them. A capture or replay that fails raises; the engine never
-falls back to eager blocks. Prefill stays eager. A CPU engine has nothing
-to capture and runs every block eagerly.
+falls back to eager. A CPU engine, or one with cuda_graphs=False, has
+nothing to capture and runs the same shapes eagerly.
 """
 
 from __future__ import annotations
@@ -55,8 +73,10 @@ import torch
 from qtpu_torch.serve.decode import decode_multi, mixed_sample, prefill_full
 from qtpu_torch.serve.graphs import capture
 from qtpu_torch.serve.kvcache import init_cache
+from qtpu_torch.utils.compcache import enable_compilation_cache
 
 DRAIN_BLOCKS = (64, 32)  # qtpu's drain-mode decode blocks, largest first
+WARM_TOKENS = (16, 32, 64, 128, 256, 512)  # qtpu's warm chunk lengths, before the chunk itself
 
 
 @dataclass
@@ -92,6 +112,25 @@ class _Prefill:
     done: int = 0
 
 
+def _bucket(n: int) -> int:
+    """qtpu's admission bucket: the least 16 * 2^k >= n."""
+    b = 16
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclass
+class _PrefillGraph:
+    """A captured (P, Tb) prefill: its static inputs (ids, starts, slots,
+    first_cols, ptemps), the sampled ids it writes (outside the graphs'
+    pool) and the graph."""
+
+    inputs: tuple
+    firsts: torch.Tensor
+    graph: object
+
+
 class ContinuousBatcher:
     def __init__(
         self,
@@ -110,6 +149,8 @@ class ContinuousBatcher:
         kv_layout: str | None = None,
         cuda_graphs: bool = True,
     ):
+        # qtpu's cold-start switch: here QTPU_COMPILE_CACHE places the kernels' build
+        enable_compilation_cache()
         self.params = params
         self.cfg = cfg
         self.arch = cfg.arch
@@ -146,7 +187,9 @@ class ContinuousBatcher:
         self.pos = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
         self.temps = torch.zeros((max_batch,), dtype=torch.float32, device=self.device)
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
-        self.graphs = {}  # (block, sampling) -> DecodeGraph
+        self.graphs = {}  # (block, sampling) -> CapturedGraph
+        self.prefill_graphs = {}  # (P, Tb) -> _PrefillGraph
+        self.prefill_shapes = {}  # (P, Tb) -> prefill calls run at that shape
         self._pool = None  # the graphs' shared memory pool, made at the first capture
 
     @property
@@ -155,37 +198,49 @@ class ContinuousBatcher:
         blocks (those warmup() captures)."""
         return sorted({self.decode_block} | {b for b in DRAIN_BLOCKS if b > self.decode_block})
 
+    @property
+    def prefill_buckets(self) -> list[tuple[int, int]]:
+        """qtpu's warm set of (P, Tb) prefill shapes (its warmup()): P in {1,
+        min(16, prefill_parallel, max_batch)}, Tb in {min(_bucket(x),
+        min(prefill_chunk, max_seq_len))} over WARM_TOKENS and the chunk."""
+        cap = min(self.prefill_chunk, self.max_seq_len)
+        tbs = sorted({min(_bucket(x), cap) for x in (*WARM_TOKENS, self.prefill_chunk)})
+        ps = sorted({1, min(16, self.prefill_parallel, self.max_batch)})
+        return [(p, t) for p in ps for t in tbs]
+
     def warmup(self, include_sampling: bool = False) -> float:
         """Gets the engine ready for traffic, as qtpu's warmup(): builds every
-        kernel library, runs one prefill of min(16, prefill_parallel,
-        max_batch) rows of min(prefill_chunk, max_seq_len) tokens on a
-        scratch cache, and captures the greedy decode graph of each block
-        size (with include_sampling, the sampling ones too). The live cache
-        and the generator's state are left as they were, so a warmed engine
-        answers as a cold one does. Returns wall seconds."""
+        kernel library, then on a graph engine captures the greedy decode
+        graph of each block size (with include_sampling, the sampling ones
+        too) and the prefill graph of each of `prefill_buckets`; an eager
+        engine runs the largest of those buckets once on a scratch cache.
+        The live cache and the generator's state are left as they were, so
+        a warmed engine answers as a cold one does. Returns wall seconds."""
         t0 = time.perf_counter()
         cuda = self.device.type == "cuda"
         if cuda:
             from qtpu_torch.kernels import _build
 
             _build.build()
-        state = self.generator.get_state()
-        P = min(16, self.prefill_parallel, self.max_batch)
-        T = min(self.prefill_chunk, self.max_seq_len)
-        scratch = init_cache(self.cfg, P, self.cache.max_len, quantized=self.cache.quantized,
-                             device=self.device, per_layer=self.cache.per_layer)
-        logits, _ = prefill_full(
-            self.params, torch.zeros((P, T), dtype=torch.int32, device=self.device), scratch,
-            self.cfg, self.qmeta, start=torch.zeros((P,), dtype=torch.int32, device=self.device),
-            arch=self.arch, slots=torch.arange(P, device=self.device),
-        )
-        mixed_sample(logits[:, -1], torch.ones((P,), device=self.device), self.generator)
-        del scratch, logits
-        self.generator.set_state(state)
-        if self.cuda_graphs:
+        if self.cuda_graphs:  # each capture runs its shape eagerly first
             for block in self.decode_blocks:
                 for sampling in (False, True) if include_sampling else (False,):
                     self._graph(block, sampling)
+            for P, Tb in self.prefill_buckets:
+                self._prefill_graph(P, Tb)
+        else:
+            state = self.generator.get_state()
+            P, T = max(self.prefill_buckets)
+            scratch = init_cache(self.cfg, P, self.cache.max_len, quantized=self.cache.quantized,
+                                 device=self.device, per_layer=self.cache.per_layer)
+            logits, _ = prefill_full(
+                self.params, torch.zeros((P, T), dtype=torch.int32, device=self.device), scratch,
+                self.cfg, self.qmeta, start=torch.zeros((P,), dtype=torch.int32, device=self.device),
+                arch=self.arch, slots=torch.arange(P, device=self.device),
+            )
+            mixed_sample(logits[:, -1], torch.ones((P,), device=self.device), self.generator)
+            del scratch, logits
+            self.generator.set_state(state)
         if cuda:
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -239,44 +294,81 @@ class ContinuousBatcher:
             self.prefilling.append(_Prefill(req=req, slot=free, done=0))
 
     def _prefill_chunk_arrays(self):
-        """This step's admission arrays, one row per in-flight prefill:
-        (ids [P, T], starts [P], slots [P], ns tokens consumed per row,
-        first_cols [P], ptemps [P]). T is the longest remaining prompt,
-        capped at prefill_chunk and so that no row runs past the cache end;
-        shorter rows are padded with token 0 at positions that decode
-        overwrites before it reads them."""
+        """This step's bucketed admission arrays (qtpu's): (ids [P, Tb],
+        starts [P], slots [P] (int64), ns tokens consumed per live row,
+        first_cols [P], ptemps [P]). Live rows come first; pad rows take
+        distinct slots that are not prefilling, with start = S and token 0."""
         pfs = self.prefilling
-        T = min(max(len(pf.req.prompt) - pf.done for pf in pfs), self.prefill_chunk,
-                min(self.cache.max_len - pf.done for pf in pfs))
-        P = len(pfs)
-        ids = np.zeros((P, T), np.int32)
-        starts = np.zeros((P,), np.int32)
+        P = _bucket(len(pfs)) if len(pfs) > 1 else 1
+        P = min(P, self.prefill_parallel, self.max_batch)
+        chunk = self.prefill_chunk
+        rems = [len(pf.req.prompt) - pf.done for pf in pfs]
+        Tb = min(_bucket(max(rems)), chunk) if all(r <= chunk for r in rems) else chunk
+        ids = np.zeros((P, Tb), np.int32)
+        starts = np.full((P,), self.cache.max_len, np.int32)  # pad rows: masked
         first_cols = np.zeros((P,), np.int32)
         ptemps = np.zeros((P,), np.float32)
         ns = []
         for r, pf in enumerate(pfs):
-            n = min(len(pf.req.prompt) - pf.done, T)
+            n = min(len(pf.req.prompt) - pf.done, Tb)
             ids[r, :n] = pf.req.prompt[pf.done : pf.done + n]
             starts[r] = pf.done
-            first_cols[r] = n - 1
+            first_cols[r] = max(n - 1, 0)
             ptemps[r] = pf.req.temperature
             ns.append(n)
-        slots = np.asarray([pf.slot for pf in pfs], np.int64)
+        live = {pf.slot for pf in pfs}
+        spare = [i for i in range(self.max_batch) if i not in live]
+        slots = np.asarray([pf.slot for pf in pfs] + spare[: P - len(pfs)], np.int64)
         return ids, starts, slots, ns, first_cols, ptemps
 
-    def _prefill(self, ids, starts, slots, first_cols, ptemps):
-        """Prefill the admission rows into their slots of the live cache and
-        sample each row's next token."""
-        logits, self.cache = prefill_full(
-            self.params, self._tensor(ids), self.cache, self.cfg, self.qmeta,
-            start=self._tensor(starts), arch=self.arch,
-            slots=self._tensor(slots, torch.int64),
-        )
+    def run_prefill(self, ids, starts, slots, first_cols, ptemps):
+        """One prefill call from host arrays (those of _prefill_chunk_arrays):
+        the bucket's graph replayed, or eager. Returns the sampled ids [P] on
+        the device, valid until the bucket's next replay."""
+        P, Tb = ids.shape
+        if Tb > self.cache.max_len:  # qtpu's dynamic_update_slice refuses an update wider than S
+            raise ValueError(f"a prefill of {Tb} tokens is wider than the cache ({self.cache.max_len})")
+        host = (ids, starts, slots, first_cols, ptemps)
+        if self.cuda_graphs:
+            g = self._prefill_graph(P, Tb)
+            for dst, src in zip(g.inputs, host):
+                dst.copy_(torch.from_numpy(np.ascontiguousarray(src)), non_blocking=True)
+            g.graph.replay()
+            firsts = g.firsts
+        else:
+            dtypes = (torch.int32, torch.int32, torch.int64, torch.int64, torch.float32)
+            firsts = self._prefill_forward(*(self._tensor(a, d) for a, d in zip(host, dtypes)))
         self.prefill_calls += 1
-        cols = self._tensor(first_cols, torch.int64)
-        row_logits = logits[torch.arange(len(slots), device=self.device), cols]
-        temps = self._tensor(ptemps, torch.float32)
-        return mixed_sample(row_logits, temps, self.generator)
+        self.prefill_shapes[(P, Tb)] = self.prefill_shapes.get((P, Tb), 0) + 1
+        return firsts
+
+    def _prefill_forward(self, ids, starts, slots, first_cols, ptemps):
+        """Prefill the rows into their slots of the live cache and sample each
+        row's next token at its first_col (all device tensors)."""
+        logits, self.cache = prefill_full(self.params, ids, self.cache, self.cfg, self.qmeta,
+                                          start=starts, arch=self.arch, slots=slots)
+        row_logits = logits[torch.arange(ids.shape[0], device=self.device), first_cols]
+        return mixed_sample(row_logits, ptemps, self.generator)
+
+    def _prefill_graph(self, P, Tb):
+        """The (P, Tb) prefill's CUDA graph, captured at its first use on
+        static inputs made as pad rows (slots 0..P-1, start = S) after one
+        eager run of them."""
+        g = self.prefill_graphs.get((P, Tb))
+        if g is None:
+            self._ensure_pool()
+            dev = self.device
+            inputs = (torch.zeros((P, Tb), dtype=torch.int32, device=dev),
+                      torch.full((P,), self.cache.max_len, dtype=torch.int32, device=dev),
+                      torch.arange(P, dtype=torch.int64, device=dev),
+                      torch.zeros((P,), dtype=torch.int64, device=dev),
+                      torch.zeros((P,), dtype=torch.float32, device=dev))
+            firsts = torch.zeros((P,), dtype=torch.int32, device=dev)  # outside the pool
+            self._side_run(lambda: self._prefill_forward(*inputs))
+            graph = capture(lambda: firsts.copy_(self._prefill_forward(*inputs)), self._pool,
+                            self.generator)
+            g = self.prefill_graphs[(P, Tb)] = _PrefillGraph(inputs, firsts, graph)
+        return g
 
     def _apply_prefill_results(self, ns, firsts):
         """Advance the in-flight admissions by this chunk; requests whose
@@ -323,7 +415,7 @@ class ContinuousBatcher:
                 self._decode_block(active, block)
             return
         ids, starts, slots, ns, first_cols, ptemps = self._prefill_chunk_arrays()
-        firsts = self._prefill(ids, starts, slots, first_cols, ptemps)
+        firsts = self.run_prefill(ids, starts, slots, first_cols, ptemps)
         toks = self._decode_block_tokens(active, self.decode_block) if active else None
         self._apply_prefill_results(ns, firsts.cpu().numpy())
         if active:
@@ -376,32 +468,38 @@ class ContinuousBatcher:
         """The block's CUDA graph, captured at its first use."""
         g = self.graphs.get((block, sampling))
         if g is None:
-            if self._pool is None:
-                self._warm_block()
-                self._pool = torch.cuda.graph_pool_handle()
+            self._ensure_pool()
             g = capture(lambda: self._decode_multi(block, sampling)[0], self._pool,
                         self.generator if sampling else None)
             self.graphs[(block, sampling)] = g
         return g
 
-    def _warm_block(self):
-        """One eager sampling step on a side stream before the first capture
-        (torch.cuda.graph's warm-up: loads the kernel libraries and sets
-        their attributes outside the capture) with every slot inactive (pos
-        = S, so the cache rows stay unwritten); the cache length, the static
-        inputs and the generator's state are restored after it."""
-        state, length = self.generator.get_state(), self.cache.length.clone()
+    def _ensure_pool(self):
+        """Before the engine's first capture: one eager sampling decode step
+        with every slot inactive (pos = S, so the cache rows stay unwritten;
+        the static inputs restored after it), then the graphs' shared pool."""
+        if self._pool is not None:
+            return
         saved = [t.clone() for t in (self.token, self.pos, self.temps)]
         self.pos.fill_(self.cache.max_len)
         self.temps.fill_(1.0)
+        self._side_run(lambda: self._decode_multi(1, True))
+        for t, v in zip((self.token, self.pos, self.temps), saved):
+            t.copy_(v)
+        self._pool = torch.cuda.graph_pool_handle()
+
+    def _side_run(self, fn):
+        """fn() eagerly on a side stream before a capture (torch.cuda.graph's
+        warm-up: loads the kernel libraries and sets their attributes outside
+        the capture); the cache length and the generator's state are
+        restored after it."""
+        state, length = self.generator.get_state(), self.cache.length.clone()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._decode_multi(1, True)
+            fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.cache.length.copy_(length)
-        for t, v in zip((self.token, self.pos, self.temps), saved):
-            t.copy_(v)
         torch.cuda.synchronize(self.device)
         self.generator.set_state(state)
 

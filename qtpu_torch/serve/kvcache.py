@@ -122,7 +122,8 @@ def cache_layer_write(cache: KVCache, l: int, new_k, new_v, start, slots=None) -
         pairs = ((cache.k, write_k), (cache.v, write_v),
                  (cache.k_scale, sk), (cache.v_scale, sv))
     else:
-        pairs = ((cache.k, new_k.to(cache.k.dtype)), (cache.v, new_v.to(cache.v.dtype)))
+        dt = cache.k[l].dtype  # a stacked tensor's or layer l's own buffer's
+        pairs = ((cache.k, new_k.to(dt)), (cache.v, new_v.to(dt)))
     B, T = new_k.shape[:2]
     S = cache.max_len
     start = start.to(torch.int64)

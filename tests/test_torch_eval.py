@@ -394,7 +394,7 @@ def test_runner_sweeps_w_bit():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"profile_dir": "x"}, "utils slice"),
+    ({"mesh": {"data": 1, "model": 2, "pipe": 1}}, "sharding slice"),
     ({"mesh": {"data": 2, "model": 1, "pipe": 1}}, "sharding slice"),
 ])
 def test_runner_refuses_what_is_not_ported(extra, match):

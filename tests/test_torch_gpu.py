@@ -70,49 +70,46 @@ def _rule(route, M, K, N, bits, group, ptrs):
     return k1.gemv_route(M, K, N, bits, group, ptrs) if route == "gemv" else route
 
 
-def _profiled_route(wrapper, call, reps=4):
-    """The route the wrapper's counters saw over `reps` calls of call() (the
-    same one each time, else "mixed") and the names of everything the
-    profiler recorded over them, in one session. Several calls: on the H100,
-    late in a full run of this file, a session sometimes delivers the
-    runtime calls (cudaLaunchKernel, "Activity Buffer Request") but not the
-    record of its first kernel."""
-    from torch.profiler import ProfilerActivity, profile
+def _graph_kernels(call, reps=1) -> dict:
+    """{kernel name (demangled): launches} of `reps` calls of call(), read
+    from the kernel nodes of a CUDA graph captured over them
+    (qtpu_torch.serve.graphs.kernel_nodes). The profiler's kernel records
+    arrive from CUPTI's activity buffers after the session, and late in a
+    long run of this file a session came back without some of them while
+    the launches happened; a captured graph holds one node per launch,
+    whatever the profiler delivers. call() runs once eagerly first (its
+    libraries loaded, its attributes set) and must not sync."""
+    from qtpu_torch.serve.graphs import kernel_nodes
 
-    w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
-    t0 = getattr(wrapper, "gemv_tc_launches", 0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
         for _ in range(reps):
             call()
-        torch.cuda.synchronize()
-    dw, dm = wrapper.wgmma_launches - w0, wrapper.mma_launches - m0
-    dt = getattr(wrapper, "gemv_tc_launches", 0) - t0
-    seen = {(reps, 0, 0): "wgmma", (0, reps, 0): "mma", (0, 0, reps): "gemv_tc",
-            (0, 0, 0): "gemv"}.get((dw, dm, dt), "mixed")
-    return seen, [e.key for e in prof.key_averages()]
-
-
-def _kernel_counts(call, reps=4, tries=5, tag=None):
-    """{kernel name: launches} that the profiler recorded over `reps` calls
-    of call() in one session. A session whose records are not whole is run
-    again, up to `tries` sessions: no kernel record at all, or (with `tag`)
-    a kernel whose name holds `tag` recorded fewer than `reps` times. On
-    the H100, late in a full run of this file, a session sometimes drops
-    kernel records (the trap _profiled_route's several calls work around)
-    while the launches happen, as the wrappers' counters show."""
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.cuda.synchronize()
     seen = {}
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                call()
-            torch.cuda.synchronize()
-        seen = {e.key: e.count for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
-        if seen and (tag is None or all(c >= reps for n, c in seen.items() if tag in n)):
-            return seen
+    for name in kernel_nodes(g):
+        seen[name] = seen.get(name, 0) + 1
     return seen
+
+
+def _profiled_route(wrapper, call, reps=4):
+    """The route the wrapper's counters saw over `reps` calls of call() (the
+    same one each time, else "mixed") and the names of the kernels those
+    calls launched (the nodes of a CUDA graph captured over them,
+    _graph_kernels; the warm-up call is not counted)."""
+    call()
+    torch.cuda.synchronize()
+    w0, m0 = wrapper.wgmma_launches, wrapper.mma_launches
+    t0 = getattr(wrapper, "gemv_tc_launches", 0)
+    names = _graph_kernels(call, reps)
+    w1, m1, t1 = wrapper.wgmma_launches, wrapper.mma_launches, getattr(wrapper, "gemv_tc_launches", 0)
+    dw, dm, dt = w1 - w0, m1 - m0, t1 - t0
+    n = reps + 1  # the helper's own warm-up call counts too
+    seen = {(n, 0, 0): "wgmma", (0, n, 0): "mma", (0, 0, n): "gemv_tc",
+            (0, 0, 0): "gemv"}.get((dw, dm, dt), "mixed")
+    return seen, list(names)
 
 
 def _same_bits(a, b):
@@ -368,7 +365,7 @@ def test_hopper_route_replays_in_a_cuda_graph(cuda):
     (8, 388, 128, "gemv"),     # decode rows it does not take (N % 16 != 0): dq_core
 ])
 def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
-    """The wrapper's route counters agree with the kernel the profiler saw."""
+    """The wrapper's route counters agree with the kernel its calls launched."""
     g = _gen()
     K = 512
     qt = quantize_pack(torch.randn(K, N, generator=g, device=cuda) * 0.02, 4, group)
@@ -392,7 +389,7 @@ def test_route_counters_name_the_kernel_that_ran(cuda, M, N, group, route):
     (8, 388, "gemv"),     # decode rows the tensor-core GEMV does not take
 ])
 def test_k9_k6_route_counters_name_the_kernel_that_ran(cuda, M, N, route):
-    """The route counters of K9 and K6 agree with the kernel the profiler saw."""
+    """The route counters of K9 and K6 agree with the kernel their calls launched."""
     from qtpu_torch.kernels import int8_matmul as k6
 
     g = _gen()
@@ -871,7 +868,7 @@ def test_k10_rows_out_of_range_stay_untouched(cuda):
 
 
 def test_k10_is_one_cuda_launch(cuda):
-    """Over 4 calls the profiler sees one moe_gathered_tc_kernel a call (no
+    """A graph of 4 calls holds one moe_gathered_tc_kernel a call (no
     finishing launch); dq_core's body adds its split-K finish."""
     g = _gen()
     K, N = 4096, 1024
@@ -883,8 +880,7 @@ def test_k10_is_one_cuda_launch(cuda):
                              (k9.moe_gathered_matmul_simt, {"moe_gemv_kernel", "moe_finish"})):
         wrapper(x, eidx, data, scales, zeros, m)
         torch.cuda.synchronize()
-        seen = _kernel_counts(lambda wrapper=wrapper: wrapper(x, eidx, data, scales, zeros, m),
-                              tag="moe_")
+        seen = _graph_kernels(lambda wrapper=wrapper: wrapper(x, eidx, data, scales, zeros, m), 4)
         seen = {n: c for n, c in seen.items() if "moe_" in n}
         assert {next(k for k in kernels if k + "(" in n or k + "<" in n) for n in seen} == kernels
         assert all(c == 4 for c in seen.values()), seen
@@ -1779,7 +1775,7 @@ def test_k5_hopper_body_matches_plain_and_the_mma_body(cuda, window, S, hd, H, K
 
 def test_k5_routes_and_their_counters(cuda):
     """A q the Hopper body does not take (4-byte aligned) runs the mma.sync
-    body and counts it; the profiler sees the kernel each counter names."""
+    body and counts it; its launches are the kernel each counter names."""
     from qtpu_torch.kernels import flash_attention as k5
 
     g = _gen()
@@ -1793,7 +1789,7 @@ def test_k5_routes_and_their_counters(cuda):
         k5.flash_attention(qq, k, v)
         torch.cuda.synchronize()
         c0, n0 = getattr(k5.flash_attention, f"{route}_launches"), k5.flash_attention.launches
-        seen = _kernel_counts(lambda qq=qq: k5.flash_attention(qq, k, v))
+        seen = _graph_kernels(lambda qq=qq: k5.flash_attention(qq, k, v), 4)
         calls = k5.flash_attention.launches - n0
         assert calls >= 4 and getattr(k5.flash_attention, f"{route}_launches") == c0 + calls
         names = [n for n in seen if "flash" in n]
@@ -1933,7 +1929,7 @@ def test_k6_gemv_tc_replays_in_a_cuda_graph_without_a_host_sync(cuda):
 
 
 def test_k6_gemv_tc_is_one_cuda_launch(cuda):
-    """Over 4 calls the profiler sees one kernel a call on the tensor-core
+    """A graph of 4 calls holds one kernel a call on the tensor-core
     GEMV (no quantization or finishing launch), three on the dp4a body."""
     from qtpu_torch.kernels import int8_matmul as k6
 
@@ -1945,7 +1941,7 @@ def test_k6_gemv_tc_is_one_cuda_launch(cuda):
                                                     "w8a8_finish_kernel"})):
         wrapper(x, d, s_, z, meta)
         torch.cuda.synchronize()
-        seen = _kernel_counts(lambda wrapper=wrapper: wrapper(x, d, s_, z, meta), tag="w8a8")
+        seen = _graph_kernels(lambda wrapper=wrapper: wrapper(x, d, s_, z, meta), 4)
         seen = {n: c for n, c in seen.items() if "w8a8" in n}
         assert {next(k for k in kernels if k + "(" in n or k + "<" in n) for n in seen} == kernels
         assert all(c == 4 for c in seen.values()), seen
@@ -1999,7 +1995,7 @@ def test_k13_tc_phases_at_tinyllama_width(cuda, M):
 
 def test_k13_route_counters_name_the_tiles_that_ran(cuda):
     """An attn 8 bytes off a 16-byte unit keeps the dq_core tiles (and
-    counts them); the profiler sees one boundary_kernel a call, of the
+    counts them); a graph of 4 calls holds one boundary_kernel a call, of the
     build each counter names."""
     from qtpu_torch.kernels import layer_boundary as k13
 
@@ -2013,7 +2009,7 @@ def test_k13_route_counters_name_the_tiles_that_ran(cuda):
         k13.layer_boundary(*call)
         torch.cuda.synchronize()
         c0, n0 = getattr(k13.layer_boundary, f"{route}_launches"), k13.layer_boundary.launches
-        seen = _kernel_counts(lambda call=call: k13.layer_boundary(*call), tag="boundary_kernel")
+        seen = _graph_kernels(lambda call=call: k13.layer_boundary(*call), 4)
         calls = k13.layer_boundary.launches - n0
         assert getattr(k13.layer_boundary, f"{route}_launches") == c0 + calls
         names = {n: c for n, c in seen.items() if "boundary_kernel" in n}
@@ -2401,3 +2397,212 @@ def test_head_dim_72_takes_the_counted_plain_route(cuda, kv):
     with pytest.raises(ValueError, match="head_dim"):
         k23.decode_attention(q, cache.k, cache.v, cache.k_scale, cache.v_scale,
                              torch.zeros(B, dtype=torch.int32, device=cuda), 0)
+
+
+# ------------------------------------------------- the engine's prefill buckets as CUDA graphs
+
+def _bucket_engine(model, kv, graphs, seed=0):
+    """max_batch 4, chunk 64: qtpu's warm set P {1, 4} x Tb {16, 32, 64}."""
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    params, qmeta, cfg = model
+    per_layer = kv == "int8_per_layer"
+    return ContinuousBatcher(params, cfg, qmeta=qmeta, max_batch=4,
+                             max_seq_len=2040 if per_layer else 200,
+                             kv_dtype="bfloat16" if kv == "bfloat16" else "int8", decode_block=8,
+                             prefill_chunk=64, kv_layout="per_layer" if per_layer else None,
+                             seed=seed, device="cuda", cuda_graphs=graphs)
+
+
+# waves of (prompt length, max_new_tokens, temperature), each run to its end:
+# singles at Tb 16, 32, 64 and a chunked one (64 + 64), then waves of 4
+# admitted together at Tb 16, 32 and 64, greedy and sampled rows mixed
+BUCKET_WAVES = [[(10, 5, 0.0)], [(30, 4, 0.8)], [(60, 6, 0.0)], [(100, 3, 0.7)],
+                [(12, 9, 0.0), (14, 3, 0.8), (9, 5, 0.0), (15, 4, 1.0)],
+                [(20, 4, 0.0), (25, 6, 0.9), (31, 3, 0.0), (18, 7, 0.0)],
+                [(50, 3, 0.5), (60, 4, 0.0), (40, 5, 0.0), (63, 3, 0.8)]]
+
+
+def _served_waves(eng, cfg):
+    import numpy as np
+
+    from qtpu_torch.serve.graphs import counter_cells, counter_snapshot
+
+    rng = np.random.default_rng(8)
+    before, outs = counter_snapshot(), []
+    for wave in BUCKET_WAVES:
+        reqs = [eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=m, temperature=t)
+                for n, m, t in wave]
+        eng.run()
+        assert all(r.done and len(r.output) == r.max_new_tokens for r in reqs)
+        outs.append([r.output for r in reqs])
+    torch.cuda.synchronize()
+    delta = {f"{w.__name__}.{a}": b - a0 for (w, a), a0, b
+             in zip(counter_cells(), before, counter_snapshot()) if b != a0}
+    return outs, delta
+
+
+@pytest.mark.parametrize("kv", ["int8", "bfloat16", "int8_per_layer"])
+def test_prefill_graphs_cross_every_bucket_as_eager_does(cuda, kv):
+    """warmup() captures qtpu's warm set of prefill buckets; a staggered
+    workload that runs every one of them gives the same greedy and sampled
+    tokens (one seed) on the graph engine as on an eager one, with the same
+    launch and route counts. The graphs share one pool with the decode
+    graphs captured before them, so the sampled ids of a prefill must
+    survive the decode block replayed after it."""
+    model = _engine_model("tinyllama2")
+    graph = _bucket_engine(model, kv, graphs=True, seed=4)
+    eager = _bucket_engine(model, kv, graphs=False, seed=4)
+    assert graph.warmup() > 0.0 and eager.warmup() > 0.0
+    warm = set(graph.prefill_buckets)
+    assert warm == {(p, t) for p in (1, 4) for t in (16, 32, 64)}
+    assert set(graph.prefill_graphs) == warm and not eager.prefill_graphs
+    want, want_n = _served_waves(eager, model[2])
+    got, got_n = _served_waves(graph, model[2])
+    assert set(graph.prefill_shapes) == set(eager.prefill_shapes) == warm
+    assert graph.prefill_shapes == eager.prefill_shapes
+    assert got == want
+    assert got_n == want_n and got_n
+    assert graph.prefill_calls == eager.prefill_calls and graph.decode_steps == eager.decode_steps
+    assert set(graph.prefill_graphs) == warm  # nothing captured after warmup()
+
+
+def test_a_bucket_outside_the_warm_set_is_captured_at_first_use(cuda):
+    import numpy as np
+
+    model = _engine_model("tiny")
+    eng = _bucket_engine(model, "int8", graphs=True)
+    eng.warmup()
+    P, Tb = 2, 16  # not in qtpu's warm set, a shape run_prefill still takes
+    S = eng.cache.max_len
+    ids = np.arange(P * Tb, dtype=np.int32).reshape(P, Tb) % model[2].vocab_size
+    firsts = eng.run_prefill(ids, np.array([0, S], np.int32), np.array([0, 1], np.int64),
+                             np.array([Tb - 1, 0], np.int32), np.zeros(P, np.float32))
+    assert (P, Tb) in eng.prefill_graphs and tuple(firsts.shape) == (P,)
+
+
+def test_a_prefill_replays_without_a_host_sync(cuda):
+    """Staging a bucket's host arrays and replaying its graph, with the
+    sampler, under sync debug mode "error"."""
+    import numpy as np
+
+    model = _engine_model("tinyllama2")
+    eng = _bucket_engine(model, "int8", graphs=True)
+    eng.warmup()
+    S = eng.cache.max_len
+    ids = np.arange(4 * 32, dtype=np.int32).reshape(4, 32)
+    args = (ids, np.array([0, 0, S, S], np.int32), np.arange(4, dtype=np.int64),
+            np.array([31, 7, 0, 0], np.int32), np.array([0.0, 0.9, 0.0, 0.0], np.float32))
+    torch.cuda.set_sync_debug_mode("error")  # any host synchronization raises
+    try:
+        firsts = eng.run_prefill(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(((firsts >= 0) & (firsts < model[2].vocab_size)).all())
+
+
+def test_a_failed_prefill_capture_raises_and_nothing_runs_eager(cuda):
+    """A prefill that synchronizes with the host cannot be captured: warmup()
+    raises after the decode graphs and keeps no prefill graph (in a process
+    of its own, as the decode test)."""
+    import subprocess
+    import sys
+
+    code = """
+import numpy as np, torch, pytest
+import qtpu_torch.serve.batching as tb
+from qtpu_torch.models import llama
+from qtpu_torch.models.config import TINY_TEST as cfg
+inner = tb.prefill_full
+def syncing(*a, **k):
+    out = inner(*a, **k)
+    out[0].sum().item()
+    return out
+tb.prefill_full = syncing
+eng = tb.ContinuousBatcher(llama.init_params(cfg, device="cuda"), cfg, max_batch=2,
+                           max_seq_len=64, kv_dtype="int8", device="cuda")
+with pytest.raises(RuntimeError):
+    eng.warmup()
+assert eng.graphs and not eng.prefill_graphs
+print("raised")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0 and "raised" in out.stdout, out.stdout + out.stderr
+
+
+def test_synth_weights_are_one_layer_on_the_card(cuda):
+    """tiled_packed_llama at TinyLlama's widths (4 layers) allocates about one
+    layer's packed weights plus the embedding and lm_head, and a forward on
+    it equals one on a materialized copy (every layer's bytes its own)."""
+    from qtpu_torch.bench.synth import tiled_packed_llama
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B
+
+    cfg = TINYLLAMA_1_1B.replace(num_layers=4)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    params, qmeta = tiled_packed_llama(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - m0
+    D, F, V, Q, KV = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.q_dim,
+                      cfg.kv_dim)
+    layer = sum(k * n // 2 + 3 * (k // 128) * n for k, n in
+                ((D, Q + 2 * KV), (Q, D), (D, 2 * F), (F, D)))
+    outer = V * D * 2 + D * V // 2 + 3 * (D // 128) * V
+    assert held < layer + outer + (4 << 20), (held, layer, outer)
+    dense = map_tree(params, lambda t: t.contiguous())
+    ids = torch.randint(0, V, (2, 64), device=cuda)
+    a = llama.forward(params, ids, cfg, qmeta)
+    b = llama.forward(dense, ids, cfg, qmeta)
+    assert _rel(a, b) < 1e-3 and bool(torch.isfinite(a).all())
+
+
+def test_native_packer_on_the_card_machine(cuda):
+    """The host library builds on the card's machine and packs TinyLlama's
+    site widths as qtpu_torch.core.packing does."""
+    import numpy as np
+
+    from qtpu_torch import native
+
+    assert native.available()
+    w = (np.random.default_rng(0).standard_normal((2048, 5632)) * 0.02).astype(np.float32)
+    data, scales, zeros = native.quantize_pack(w, 4, 128)
+    qt = quantize_pack(torch.from_numpy(w), 4, 128)
+    assert np.array_equal(data, qt.data.numpy()) and np.array_equal(zeros, qt.zeros.numpy())
+    assert torch.equal(torch.from_numpy(scales).bfloat16(), qt.scales)
+
+
+def test_utils_on_the_card(cuda, tmp_path):
+    """Timer's host seconds agree with its CUDA events on a long device
+    span; checked() catches a NaN made mid-function on the card; a
+    profile_trace of a K1 call names its kernel."""
+    import json
+
+    from qtpu_torch.utils import debug, timing
+
+    a = torch.randn(4096, 4096, device=cuda)
+    with timing.Timer(a) as t:
+        for _ in range(20):
+            a = torch.tanh(a @ a * 1e-2)
+    assert abs(t.elapsed - t.device_elapsed) < 0.05 * t.device_elapsed, (t.elapsed, t.device_elapsed)
+
+    def inner_nan(x):
+        y = torch.sqrt(x - 1.0)  # NaN where x < 1
+        return torch.nan_to_num(y)
+
+    x = torch.rand(64, device=cuda)
+    assert bool(torch.isfinite(inner_nan(x)).all())
+    with pytest.raises(FloatingPointError):
+        debug.checked(inner_nan)(x)
+    g = _gen()
+    qt = quantize_pack(torch.randn(512, 384, generator=g, device=cuda) * 0.02, 4, 128)
+    xb = torch.randn(300, 512, generator=g, device=cuda).to(torch.bfloat16)
+    k1.quantized_matmul(xb, qt.data, qt.scales, qt.zeros, (4, 128, 512, 384))
+    with timing.profile_trace(str(tmp_path)):
+        k1.quantized_matmul(xb, qt.data, qt.scales, qt.zeros, (4, 128, 512, 384))
+        torch.cuda.synchronize()
+    (f,) = tmp_path.glob("trace-*.json")
+    names = {e.get("name", "") for e in json.loads(f.read_text())["traceEvents"]}
+    assert any("dq_wgmma_kernel" in n for n in names)

@@ -423,7 +423,8 @@ def test_serve_cli_moe_on_cpu(capsys):
 
 def test_unported_moe_paths_refuse():
     """What the port still lacks raises on a MoE model too, naming its
-    slice: the benchmark's mesh (sharding) and profile_dir (utils); an
+    slice: the benchmark's mesh (sharding; profile_dir runs since the utils
+    slice, tests/test_torch_utils.py); an
     unknown capture mode and a one-expert config raise ValueError, as
     qtpu's do. get_arch gives the ported gpt2 and opt modules and raises
     KeyError on an unknown arch, as qtpu's does. (The MoE methods, routed
@@ -435,8 +436,7 @@ def test_unported_moe_paths_refuse():
             "quantization_config": {"rtn": RTN4}, "calibration_dataset": "synthetic",
             "test_dataset": "synthetic", "verbose": False}
     for extra, match in (({"mesh": {"data": 2, "model": 1, "pipe": 1}}, "sharding slice"),
-                         ({"mesh": {"data": 1, "model": 2, "pipe": 1}}, "sharding slice"),
-                         ({"profile_dir": "x"}, "utils slice")):
+                         ({"mesh": {"data": 1, "model": 2, "pipe": 1}}, "sharding slice")):
         bench = QuantizationBenchmark(dict(base, **extra), device="cpu")
         with pytest.raises(NotImplementedError, match=match):
             bench.run_all_benchmarks()
