@@ -247,6 +247,15 @@ Phases, each printing one JSON line:
            and qtpu_torch.native (built with g++, without OpenMP where the
            compiler has no runtime for it): available(), the flags, bytes
            equal to the torch packers at TinyLlama's site widths, GB/s
+  shard    sharding (qtpu_torch.sharding): the tensor-parallel code in a
+           1-rank NCCL world bit for bit the unsharded path; the kernels at
+           TinyLlama's TP 2 shard shapes and on 4 Mixtral experts, timed;
+           a 2-process gloo world sharing the card (NCCL refuses two ranks
+           on one card; what gloo takes no card tensor for is staged
+           through host memory, counted): TP 2 serve and eval, DP 2 eval
+           and calibration, pipe 2 eval, ring attention at seq 2 (S 8192,
+           8 layers), MoE EP 2 at Mixtral-8x7B widths, each held to the
+           one-rank run
 
 Each phase also holds the count of attention calls that took the plain
 route (a shape a kernel does not take, models/ops.py: hd % 16 == 8, hd >
@@ -275,7 +284,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
           "opt_2_7b", "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16",
-          "serve_moe", "http", "ckpt", "moe_methods", "utils", "synth")
+          "serve_moe", "http", "ckpt", "moe_methods", "utils", "synth", "shard")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -678,6 +687,21 @@ def phase_kernels(torch, ctx):
         raise AssertionError(f"K4 disagrees with its plain version: {k4r}")
     if k4r["route"] != k4r["rule"] or k4r["route"] != "gemv_tc":
         raise AssertionError(f"K4 ran the {k4r['route']} body, its rule says {k4r['rule']}")
+    # the no-residual mode (a tensor-parallel rank past the group's first)
+    t0 = k4.fused_mlp.gemv_tc_launches
+    got_nr = k4.fused_mlp(x, nw[7], gu[0][7], gu[1][7], gu[2][7], dn[0][7], dn[1][7], dn[2][7],
+                          mgu, md, eps=cfg.norm_eps, resid=False)
+    want_nr = k4.fused_mlp_plain(x, nw[7], gu[0][7], gu[1][7], gu[2][7], dn[0][7], dn[1][7],
+                                 dn[2][7], mgu, md, eps=cfg.norm_eps, resid=False)
+    torch.cuda.synchronize()
+    k4r["no_resid"] = {"rel_err": rel_err(torch, got_nr, want_nr),
+                       "max_abs_err": float((got_nr.float() - want_nr.float()).abs().max()),
+                       "rel_err_vs_resid_mode_minus_x": rel_err(torch, got_nr, got.float() - x.float()),
+                       "route": "gemv_tc" if k4.fused_mlp.gemv_tc_launches > t0 else "gemv",
+                       "tol_rel": 3e-2}
+    if (k4r["no_resid"]["rel_err"] >= 3e-2 or k4r["no_resid"]["route"] != "gemv_tc"
+            or not torch.isfinite(got_nr.float()).all()):
+        raise AssertionError(f"K4's no-residual mode disagrees: {k4r['no_resid']}")
     mlp_w = (D * 2 * F + F * D) / 2 + (D // g) * 2 * F * 3 + (F // g) * D * 3
     mlp_bytes = mlp_w + 2 * B * D * 2 + D * 2
     k4r["bound_ms"], k4r["bound_by"] = bound(mlp_bytes, 2 * B * (D * 2 * F + F * D))
@@ -2863,8 +2887,15 @@ class _F32Arithmetic:
             setattr(mod, attr, fn)
 
 
+# e2e's Mixtral depth: at 2 layers e2e took 186 s of a 948 s smoke on one
+# card machine, and the smoke took 1231 s on a slower one, over its 1200 s
+# limit; serve_moe, moe_methods and the shard phase route over 8, 2 and 2
+# layers on the card
+MOE_E2E_LAYERS = 1
+
+
 def _moe_e2e(torch):
-    """2 layers at Mixtral-8x7B widths, RTN W4 g128, packed on the card:
+    """MOE_E2E_LAYERS at Mixtral-8x7B widths, RTN W4 g128, packed on the card:
     prefill + 4 decode steps on the card (K1, K9 or K10, K11 or K8) against
     the CPU, which runs the same packed bytes dequantized once to bf16 (the
     plain versions' x @ dequant(W), the experts as one einsum), teacher-forced
@@ -2884,7 +2915,7 @@ def _moe_e2e(torch):
     from qtpu_torch.serve.decode import decode_step, prefill
     from qtpu_torch.serve.kvcache import init_cache
 
-    cfg = MIXTRAL_8X7B.replace(num_layers=2)
+    cfg = MIXTRAL_8X7B.replace(num_layers=MOE_E2E_LAYERS)
     T, steps = 16, 4
     route, flips_by_kv = moe._route, {}
     packed, qmeta = pack_model(moe.init_params(cfg, seed=7, device="cuda"), "rtn",
@@ -5175,7 +5206,7 @@ def phase_serve_moe(torch, ctx):
     from qtpu_torch.serve.decode import decode_multi, prefill
     from qtpu_torch.serve.kvcache import init_cache
 
-    if "moe_route_flips" in ctx:  # from the 2-layer Mixtral-width e2e
+    if "moe_route_flips" in ctx:  # from the Mixtral-width e2e
         emit({"phase": "serve_moe", "e2e_route_flips_per_layer": ctx["moe_route_flips"]})
     cfg = MIXTRAL_8X7B.replace(num_layers=MOE_LAYERS)
     torch.cuda.synchronize()
@@ -6072,6 +6103,552 @@ def phase_synth(torch, ctx):
     if not (nat["available"] and nat["block_pack_equal"]
             and all(v["bytes_equal"] for v in nat["sites"].values())):
         raise AssertionError(f"synth: the native packer: {nat}")
+
+
+# ---------------------------------------------------------------- sharding
+SHARD_STEPS = 32  # decode steps of the TP 2 serve run
+SHARD_EVAL_BLOCKS = 2
+SHARD_SEQ = 8192  # the ring attention's sequence, split over seq 2
+# the ring's depth: two bf16 runs of this random model drift apart with
+# depth (the ring 0.029-0.031 from the K5 forward at all 22 layers); at this
+# depth the ring is held to the K5 forward within SHARD_TOL
+SHARD_RING_LAYERS = 8
+SHARD_MOE_LAYERS = 2
+SHARD_TOL = 3e-2  # logits of a sharded run against the one-rank run (relative)
+SHARD_GAP = 5e-2  # greedy tokens differing where the top-2 gap is below this: near-ties
+# a token differing where the gap is at or above this is a fault: twice 0.15,
+# the largest difference of one logit between the TP 2 and one-rank runs
+# (0.143, measured on the card at this depth and seed)
+SHARD_FLIP_GAP = 0.3
+# K1 sites of TinyLlama-1.1B at TP 2: (K, N) of one rank's shard
+SHARD_K1_SITES = {"qkv": (2048, 1280), "o": (1024, 2048), "gateup": (2048, 5632),
+                  "down": (2816, 2048), "lm_head": (2048, 16000)}
+
+
+def _shard_inputs(torch, cfg):
+    """The shard phase's token ids, from seeds (the same in every process)."""
+    from qtpu_torch.data.synthetic import synthetic_token_stream
+
+    V = cfg.vocab_size
+    g = torch.Generator().manual_seed(11)
+    return {"prompt": torch.randint(0, V, (SERVE_B, SERVE_PROMPT), generator=g),
+            "stream": synthetic_token_stream(V, SHARD_EVAL_BLOCKS * EVAL_BLOCK + 1, seed=12),
+            "calib": [torch.randint(0, V, (1, CALIB_BLOCK), generator=g).numpy()
+                      for _ in range(CALIB_BLOCKS)],
+            "seq": torch.randint(0, V, (1, SHARD_SEQ), generator=g),
+            "moe": {B: torch.randint(0, V, (B, 16), generator=g) for B in (8, 2)}}
+
+
+def _shard_serve(torch, cfg, packed, qmeta, prompt, tp=None, feed=None, timed=False):
+    """Prefill + SHARD_STEPS greedy decode steps (teacher-forced on `feed`,
+    the one-rank run's tokens, when given) on the int8 cache. Returns the
+    logits [B, steps + 1, V] on the host, the tokens, the launches and
+    routes of the prefill and of the decode steps, and (timed) each decode
+    step's device ms with the collectives' ms."""
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+    from qtpu_torch.sharding import collectives as coll
+
+    dev = prompt.device
+    B, T = prompt.shape
+    cache = init_cache(cfg, B, T + SHARD_STEPS + 16, quantized=True, device=dev)
+    _reset_counts()
+    logits, cache = prefill(packed, prompt, cache, cfg, qmeta, tp=tp)
+    torch.cuda.synchronize()
+    out = {"prefill": {"counts": _counts(), "routes": _route_counts()}}
+    outs, toks, steps_ms = [logits.float().cpu()], [], []
+    pos = torch.full((B,), T, dtype=torch.int32, device=dev)
+    _reset_counts()
+    coll.STATS.reset()
+    coll.STATS.timing = timed
+    for i in range(SHARD_STEPS):
+        tok = torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[:, i].to(dev)
+        toks.append(tok.cpu())
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        logits, cache = decode_step(packed, tok, pos, cache, cfg, qmeta, tp=tp)
+        e1.record()
+        outs.append(logits.float().cpu())
+        if timed:
+            torch.cuda.synchronize()
+            steps_ms.append(e0.elapsed_time(e1))
+        pos = pos + 1
+    torch.cuda.synchronize()
+    coll.STATS.timing = False
+    out["decode"] = {"counts": _counts(), "routes": _route_counts()}
+    out["logits"] = torch.stack(outs, 1)
+    out["tokens"] = torch.stack(toks, 1)
+    out["step_ms"] = steps_ms
+    out["collectives"] = coll.STATS.as_dict()
+    return out
+
+
+def _token_check(got_logits, ref_logits, ref_tokens):
+    """Greedy tokens of a sharded run against the one-rank run's, by the
+    one-rank top-2 gap: a token differing under SHARD_GAP is a near-tie,
+    one differing at a gap of SHARD_GAP or more is counted
+    (`differ_gap_over_5e-2`), one differing at SHARD_FLIP_GAP or more, a
+    fixed bound past the two bf16 runs' measured noise, is a fault
+    (`differ_clear`)."""
+    got = got_logits[:, :-1].argmax(-1)
+    top2 = ref_logits[:, :-1].topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    noise = (got_logits[:, :-1] - ref_logits[:, :-1]).abs().amax(-1)
+    near = gap < SHARD_GAP
+    differ = got != ref_tokens
+    at = differ.nonzero().tolist()
+    return {"tokens": int(differ.numel()), "differ": int(differ.sum()),
+            "differ_near_tie": int((differ & near).sum()),
+            "differ_gap_over_5e-2": int((differ & ~near).sum()),
+            "differ_clear": int((differ & (gap >= SHARD_FLIP_GAP)).sum()),
+            "near_ties": int(near.sum()),
+            "differing": [{"row": r, "step": i, "gap": float(gap[r, i]),
+                           "row_max_abs_diff": float(noise[r, i])} for r, i in at],
+            "max_abs_diff": float(noise.max())}
+
+
+def _shard_kernel_rows(torch, ctx):
+    """The kernels at TinyLlama's TP 2 shard shapes (K1's five sites at M 8
+    and 1024, K2 / K3 on 2 KV heads of G 8, K4 at F 2816 with and without
+    the residual, K5 at H 16 / KV 2 / S 2048) and K9 / K10 on 4 of
+    Mixtral-8x7B's experts (a rank's at EP 2): each against its plain
+    version, with its time, the plain version's, the library call's and the
+    bound from this run's shapes."""
+    from qtpu_torch.kernels import flash_attention as k5
+    from qtpu_torch.kernels import fused_mlp as k4
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.kernels import moe_matmul as k9
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dev = torch.device("cuda")
+    rows = {}
+    for name, (K, N) in SHARD_K1_SITES.items():
+        for M in (SERVE_B, SERVE_B * SERVE_PROMPT):
+            r = _k1_case(torch, ctx, gen, dev, M, K, N, 4, 128)
+            rows[f"K1_{name}_M{M}"] = {k: r[k] for k in ("M", "K", "N", "route", "rel_err", "ms",
+                                                          "plain_ms", "library_ms", "bound_ms",
+                                                          "bound_by")}
+    B, KV, H, hd, S, L = SERVE_B, 2, 16, 64, 176, 22
+    kc = [torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen, device=dev).to(torch.int8)
+          for _ in range(2)]
+    sc = [torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01 for _ in range(2)]
+    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, 175], dtype=torch.int32, device=dev)
+    kn, vn = (torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    row_bytes = B * KV * (2 * hd * 2 + 2 * hd + 2 * 4) + B * 4
+    r = {"B": B, "KV": KV, "S": S}
+    r["bound_ms"], r["bound_by"] = bound(row_bytes, 0)
+    r["ms"], _ = cuda_ms(torch, [lambda l=l: k23.cache_band_write(kn, vn, *kc, *sc, pos, l)
+                                 for l in range(L)], row_bytes)
+    r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: k23.cache_band_write_plain(kn, vn, *kc, *sc,
+                                                                               pos, l)
+                                       for l in range(L)], row_bytes, reps=L, graph=False)
+    r["library_ms"] = None
+    rows["K2_kv2"] = r
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    got = k23.decode_attention(q, *kc, *sc, pos, 3)
+    want = k23.decode_attention_plain(q, *kc, *sc, pos, 3)
+    rows_read = sum(int(p) + 1 for p in pos.tolist())
+    att_bytes = rows_read * KV * (2 * hd + 2 * 4) + 2 * B * H * hd * 2 + B * 4
+    r = {"B": B, "H": H, "KV": KV, "S": S, "rel_err": rel_err(torch, got, want)}
+    r["bound_ms"], r["bound_by"] = bound(att_bytes, rows_read * H * hd * 4)
+    r["ms"], _ = cuda_ms(torch, [lambda l=l: k23.decode_attention(q, *kc, *sc, pos, l)
+                                 for l in range(L)], att_bytes)
+    r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: k23.decode_attention_plain(q, *kc, *sc, pos, l)
+                                       for l in range(L)], att_bytes)
+    kd, vd = dequantize_kv(kc[0][:4], sc[0][:4]), dequantize_kv(kc[1][:4], sc[1][:4])
+    mask = k23.cache_mask(pos[:, None], S)[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    r["library_ms"], _ = cuda_ms(torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l],
+                                                          attn_mask=mask, enable_gqa=True)
+                                         for l in range(4)], att_bytes)
+    rows["K3_kv2"] = r
+    if r["rel_err"] >= 2e-2:
+        raise AssertionError(f"K3 at the shard shape disagrees with its plain version: {r}")
+    D, F, g = 2048, 2816, 128
+    gu = _packed(torch, L, D, 2 * F, 4, g, gen, dev)
+    dn = _packed(torch, L, F, D, 4, g, gen, dev)
+    nw = torch.ones(L, D, dtype=torch.bfloat16, device=dev)
+    x = torch.randn(B, 1, D, generator=gen, device=dev).to(torch.bfloat16)
+    metas = ((4, g, D, 2 * F), (4, g, F, D))
+    mlp_w = (D * 2 * F + F * D) / 2 + (D // g) * 2 * F * 3 + (F // g) * D * 3
+    for resid in (True, False):
+        def mlp(fn, l, resid=resid):
+            return fn(x, nw[l], gu[0][l], gu[1][l], gu[2][l], dn[0][l], dn[1][l], dn[2][l],
+                      *metas, resid=resid)
+
+        r = {"F": F, "resid": resid,
+             "rel_err": rel_err(torch, mlp(k4.fused_mlp, 0), mlp(k4.fused_mlp_plain, 0))}
+        r["bound_ms"], r["bound_by"] = bound(mlp_w + 2 * B * D * (3 if resid else 2),
+                                             2 * B * (D * 2 * F + F * D))
+        r["ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp, l) for l in range(L)], mlp_w)
+        r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp_plain, l)
+                                           for l in range(L)], mlp_w)
+        r["library_ms"] = None
+        rows[f"K4_f{F}{'' if resid else '_no_resid'}"] = r
+        if r["rel_err"] >= 3e-2:
+            raise AssertionError(f"K4 at the shard shape disagrees with its plain version: {r}")
+    S5 = EVAL_BLOCK
+    qkv = [(torch.randn(1, n, S5, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+           for n in (H, KV, KV)]
+    io_bytes = 2 * (2 * H * S5 * hd + 2 * KV * S5 * hd)
+    pairs = S5 * (S5 + 1) // 2
+    w0 = k5.flash_attention.wgmma_launches
+    r = {"H": H, "KV": KV, "S": S5,
+         "rel_err": rel_err(torch, k5.flash_attention(*qkv, 0), k5.flash_attention_plain(*qkv, 0)),
+         "route": "wgmma" if k5.flash_attention.wgmma_launches > w0 else "mma"}
+    r["bound_ms"], r["bound_by"] = bound(io_bytes, 4 * H * hd * pairs)
+    r["ms"], _ = cuda_ms(torch, [lambda: k5.flash_attention(*qkv, 0)], io_bytes)
+    r["plain_ms"], _ = cuda_ms(torch, [lambda: k5.flash_attention_plain(*qkv, 0)], io_bytes)
+    r["library_ms"], _ = cuda_ms(torch, [lambda: sdpa(*qkv, is_causal=True, enable_gqa=True)],
+                                 io_bytes)
+    rows["K5_h16_kv2"] = r
+    if r["rel_err"] >= 2e-2 or r["route"] != "wgmma":
+        raise AssertionError(f"K5 at the shard shape: {r}")
+    E = 4
+    for name, (K, N) in {"gate_up": (4096, 14336), "down": (14336, 4096)}.items():
+        site = _expert_site(torch, gen, dev, E, K, N)
+        meta = (4, MOE_GROUP, K, N)
+        wd = _dequant_experts(torch, site)
+        wbytes = E * (K * N / 2 + (K // MOE_GROUP) * N * 3)
+        xm = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
+        r = {"E": E, "M": B, "K": K, "N": N,
+             "rel_err": rel_err(torch, k9.moe_matmul(xm, *site, meta),
+                                k9.moe_matmul_plain(xm, *site, meta))}
+        r["bound_ms"], r["bound_by"] = bound(wbytes + B * K * 2 + E * B * N * 2, 2 * E * B * K * N)
+        r["ms"], _ = cuda_ms(torch, [lambda: k9.moe_matmul(xm, *site, meta)], wbytes)
+        r["plain_ms"], _ = cuda_ms(torch, [lambda: k9.moe_matmul_plain(xm, *site, meta)], wbytes)
+        r["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xm.expand(E, B, K), wd)],
+                                     wd.numel() * 2)
+        rows[f"K9_e4_{name}"] = r
+        eidx = torch.tensor((1, 3, 0, 3), dtype=torch.int32, device=dev)  # 2 slots x top-2
+        Gs, distinct = 4, 3
+        xg = torch.randn(Gs, K, generator=gen, device=dev).to(torch.bfloat16)
+        t0 = k9.moe_gathered_matmul.gemv_tc_launches
+        r = {"E": E, "Gs": Gs, "K": K, "N": N,
+             "rel_err": rel_err(torch, k9.moe_gathered_matmul(xg, eidx, *site, meta),
+                                k9.moe_gathered_matmul_plain(xg, eidx, *site, meta)),
+             "route": "gemv_tc" if k9.moe_gathered_matmul.gemv_tc_launches > t0 else "gemv"}
+        gbytes = distinct * (K * N / 2 + (K // MOE_GROUP) * N * 3)
+        r["bound_ms"], r["bound_by"] = bound(gbytes + Gs * (K + N) * 2 + Gs * 4, 2 * Gs * K * N)
+        r["ms"], _ = cuda_ms(torch, [lambda: k9.moe_gathered_matmul(xg, eidx, *site, meta)],
+                             gbytes)
+        r["plain_ms"], _ = cuda_ms(
+            torch, [lambda: k9.moe_gathered_matmul_plain(xg, eidx, *site, meta)], gbytes,
+            reps=8, graph=False)
+        wsel = wd[eidx.long()]
+        r["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xg[:, None], wsel)],
+                                     wsel.numel() * 2)
+        rows[f"K10_e4_{name}"] = r
+        for key in (f"K9_e4_{name}", f"K10_e4_{name}"):
+            if rows[key]["rel_err"] >= 2e-2:
+                raise AssertionError(f"{key} disagrees with its plain version: {rows[key]}")
+        del site, wd, wsel
+    for r in rows.values():
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["over_library"] = r["ms"] / r["library_ms"] if r.get("library_ms") else None
+    return rows
+
+
+def _shard_one_rank(torch, ctx, inputs, d):
+    """(a) The TP code in a 1-rank NCCL world against the unsharded path, bit
+    for bit; and the one-rank references the 2-rank worlds are held to
+    (saved to d/ref.pt): the serve run, the eval's perplexity, the
+    calibration statistics."""
+    import torch.distributed as dist
+
+    from qtpu_torch.calib import collect_calibration_stats
+    from qtpu_torch.eval.perplexity import evaluate_perplexity
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.sharding.mesh import local_group, make_mesh
+    from qtpu_torch.sharding.multihost import initialize_multihost
+
+    packed, qmeta = _tinyllama_w4(torch, ctx)
+    prompt = inputs["prompt"].cuda()
+    ref = _shard_serve(torch, cfg, packed, qmeta, prompt, timed=True)
+    t0 = time.perf_counter()
+    ppl = evaluate_perplexity(packed, inputs["stream"], cfg, SHARD_EVAL_BLOCKS, EVAL_BLOCK,
+                              qmeta=qmeta)
+    eval_s = time.perf_counter() - t0
+    dense = llama.init_params(cfg, seed=0, device="cuda")
+    stats = collect_calibration_stats(llama.forward, dense, inputs["calib"], cfg)
+    del dense
+    initialize_multihost(f"file://{d}/nccl_init", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(data=1, model=1)
+        one = _shard_serve(torch, cfg, packed, qmeta, prompt, tp=local_group(mesh, "model"),
+                           timed=True)
+        ppl_one = evaluate_perplexity(packed, inputs["stream"], cfg, SHARD_EVAL_BLOCKS,
+                                      EVAL_BLOCK, qmeta=qmeta, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    res = {"bit_equal_logits": bool(torch.equal(one["logits"], ref["logits"])),
+           "bit_equal_tokens": bool(torch.equal(one["tokens"], ref["tokens"])),
+           "ppl_unsharded": ppl, "ppl_nccl_1rank": ppl_one, "eval_s": eval_s,
+           "step_ms_unsharded": sum(ref["step_ms"]) / SHARD_STEPS,
+           "step_ms_nccl_1rank": sum(one["step_ms"]) / SHARD_STEPS,
+           "collectives_nccl_1rank": one["collectives"]}
+    if not (res["bit_equal_logits"] and res["bit_equal_tokens"] and ppl_one == ppl):
+        raise AssertionError(f"shard: the 1-rank NCCL TP run is not bit-equal: {res}")
+    torch.save({"logits": ref["logits"], "tokens": ref["tokens"], "ppl": ppl,
+                "stats": {"mean_abs": {k: v.cpu() for k, v in stats.mean_abs.items()},
+                          "max_abs": {k: v.cpu() for k, v in stats.max_abs.items()}}},
+               f"{d}/ref.pt")
+    return res
+
+
+def _shard_child(rank, world, d):
+    """(b) One rank of the 2-process gloo world sharing the card: TP 2
+    serve and eval, DP 2 eval and calibration, pipe 2 eval, ring attention
+    at seq 2, MoE EP 2. Writes d/rank<r>.json; the parent applies the gates."""
+    import torch
+
+    from qtpu_torch.calib.sharded import collect_calibration_stats_sharded
+    from qtpu_torch.eval.perplexity import evaluate_perplexity
+    from qtpu_torch.models import llama, moe, ops
+    from qtpu_torch.models.config import MIXTRAL_8X7B
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.quant.apply import pack_model
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+    from qtpu_torch.sharding import collectives as coll
+    from qtpu_torch.sharding.mesh import build_mesh, local_group, make_mesh
+    from qtpu_torch.sharding.pipeline import make_pipe_mesh
+    from qtpu_torch.sharding.ring_attention import seq_sharded_forward, seq_sharded_nll
+    from qtpu_torch.sharding.specs import shard_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = _shard_inputs(torch, cfg)
+    ref = torch.load(f"{d}/ref.pt")
+    res = {"rank": rank}
+    packed, qmeta = _tinyllama_w4(torch, {})
+    a0 = ops.plain_attention.launches
+
+    # TP 2 serve, teacher-forced on the one-rank run's tokens
+    mesh = make_mesh(data=1, model=2)
+    tp = local_group(mesh, "model")
+    lp, lq, lc = shard_model(packed, qmeta, cfg, mesh)
+    run = _shard_serve(torch, lc, lp, lq, inputs["prompt"].cuda(), tp=tp, feed=ref["tokens"],
+                       timed=True)
+    res["tp2_serve"] = {
+        "rel_err_per_step": [rel_err(torch, run["logits"][:, i], ref["logits"][:, i])
+                             for i in range(SHARD_STEPS + 1)],
+        "tokens": _token_check(run["logits"], ref["logits"], ref["tokens"]),
+        "prefill_counts": run["prefill"]["counts"], "prefill_routes": run["prefill"]["routes"],
+        "decode_counts": run["decode"]["counts"], "decode_routes": run["decode"]["routes"],
+        "step_ms": sum(run["step_ms"]) / SHARD_STEPS,
+        "collectives_per_step": {k: v / SHARD_STEPS for k, v in run["collectives"].items()},
+        "kv_heads_per_rank": lc.num_kv_heads}
+    del lp, run
+
+    def timed_eval(mesh_):
+        coll.STATS.reset()
+        coll.STATS.timing = True
+        _reset_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ppl = evaluate_perplexity(packed, inputs["stream"], cfg, SHARD_EVAL_BLOCKS, EVAL_BLOCK,
+                                  qmeta=qmeta, mesh=mesh_)
+        e1.record()
+        torch.cuda.synchronize()
+        coll.STATS.timing = False
+        return {"ppl": ppl, "rel_to_one_rank": ppl / ref["ppl"] - 1, "counts": _counts(),
+                "routes": _route_counts(), "ms_per_block": e0.elapsed_time(e1) / SHARD_EVAL_BLOCKS,
+                "collectives": coll.STATS.as_dict()}
+
+    res["tp2_eval"] = timed_eval(mesh)
+    res["dp2_eval"] = timed_eval(make_mesh(data=2, model=1))
+    res["pipe2_eval"] = timed_eval(make_pipe_mesh(2))
+    dense = llama.init_params(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    st = collect_calibration_stats_sharded(llama.forward, dense, inputs["calib"], cfg,
+                                           make_mesh(data=2, model=1))
+    del dense
+    diff = 0.0
+    for kind in ("mean_abs", "max_abs"):
+        for site, want in ref["stats"][kind].items():
+            got = getattr(st, kind)[site].cpu()
+            diff = max(diff, float(((got - want).abs() / want.abs().clamp(min=1e-30)).max()))
+    res["dp2_calib"] = {"max_rel_diff": diff, "seconds": time.perf_counter() - t0,
+                        "rows": len(inputs["calib"])}
+    del st
+
+    # ring attention at seq 2 on the first SHARD_RING_LAYERS layers: the
+    # rank's half of the logits and the NLL
+    seq = build_mesh((2,), ("seq",))
+    g = local_group(seq, "seq")
+    ids = inputs["seq"].cuda()
+    rcfg = cfg.replace(num_layers=SHARD_RING_LAYERS)
+    rp = {**packed, "layers": {s: {k: None if v is None else v[:SHARD_RING_LAYERS]
+                                    for k, v in p.items()} if isinstance(p, dict)
+                               else p[:SHARD_RING_LAYERS] for s, p in packed["layers"].items()}}
+    coll.STATS.reset()
+    coll.STATS.timing = True
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    got = seq_sharded_forward(rp, ids, rcfg, g, qmeta=qmeta)
+    e1.record()
+    torch.cuda.synchronize()
+    coll.STATS.timing = False
+    nll = float(seq_sharded_nll(rp, ids, rcfg, g, qmeta=qmeta))
+    Sl = SHARD_SEQ // 2
+    # the one-rank forward through the same ring code (no group: one rank
+    # holds the whole sequence): what splitting the sequence changes
+    ring1 = seq_sharded_forward(rp, ids, rcfg, None, qmeta=qmeta)[:, rank * Sl:(rank + 1) * Sl]
+    full = llama.forward(rp, ids, rcfg, qmeta=qmeta)  # the one-rank forward on K5
+    want = full[:, rank * Sl:(rank + 1) * Sl]
+    nll_one = float(torch.nn.functional.cross_entropy(full[0, :-1], ids[0, 1:]))
+    res["seq2_ring"] = {"S": SHARD_SEQ, "layers": SHARD_RING_LAYERS,
+                        "rel_err_vs_k5_forward": rel_err(torch, got, want),
+                        "max_abs_err_vs_k5_forward": float((got - want).abs().max()),
+                        "nll": nll, "nll_one_rank_k5": nll_one,
+                        "nll_rel_diff": abs(nll / nll_one - 1), "ms": e0.elapsed_time(e1),
+                        "rel_err_vs_one_rank_ring": rel_err(torch, got, ring1),
+                        "collectives": coll.STATS.as_dict()}
+    del got, full, want, packed, rp, ring1
+
+    # MoE EP 2 at Mixtral-8x7B widths: a prefill and one decode step, the
+    # EP run routed to the one-rank run's experts (a near-tied router may
+    # flip under other sum orders: counted, unforced, in route_flips)
+    mcfg = MIXTRAL_8X7B.replace(num_layers=SHARD_MOE_LAYERS)
+    mp, mq = pack_model(moe.init_params(mcfg, seed=7, device="cuda"), "rtn",
+                        {"w_bit": 4, "q_group_size": MOE_GROUP}, arch="moe")
+    torch.cuda.empty_cache()
+    lp, lq, lc = shard_model(mp, mq, mcfg, mesh)
+    route = moe._route
+
+    def moe_run(p, q, c, ids, tp_, log, forced=None):
+        moe._route = _route_tap(moe, route, log, forced)
+        try:
+            B, T = ids.shape
+            cache = init_cache(c, B, T + 16, quantized=True, device="cuda")
+            logits, cache = prefill(p, ids, cache, c, q, arch="moe", tp=tp_)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            _reset_counts()
+            logits, cache = decode_step(p, tok, torch.full((B,), T, dtype=torch.int32,
+                                                           device="cuda"), cache, c, q,
+                                        arch="moe", tp=tp_)
+            torch.cuda.synchronize()
+            return logits.float().cpu(), _counts(), _route_counts()
+        finally:
+            moe._route = route
+
+    res["moe_ep2"] = {}
+    for B, ids in inputs["moe"].items():
+        ids = ids.cuda()
+        one_log, ep_log, free_log = [], [], []
+        want, _, _ = moe_run(mp, mq, mcfg, ids, None, one_log)
+        got, counts, routes = moe_run(lp, lq, lc, ids, tp, ep_log,
+                                      forced=[t for _, t in one_log])
+        free, _, _ = moe_run(lp, lq, lc, ids, tp, free_log)
+        res["moe_ep2"][B] = {
+            "rel_err": rel_err(torch, got, want), "rel_err_unforced": rel_err(torch, free, want),
+            "route_flips_unforced": _route_flips(one_log, free_log, SHARD_MOE_LAYERS),
+            "route": "gathered" if B * mcfg.num_experts_per_tok < mcfg.num_experts else "grouped",
+            "experts_per_rank": lp["layers"]["exp_gate"]["data"].shape[1],
+            "decode_counts": counts, "decode_routes": routes}
+    res["plain_attention"] = ops.plain_attention.launches - a0
+    res["staging"] = {"gloo_card_ops": sorted(coll.GLOO_CARD_OPS)}
+    with open(f"{d}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def phase_shard(torch, ctx):
+    """Sharding on the card. (a) The TP code in a 1-rank NCCL world, bit for
+    bit the unsharded path (serve and eval). (b) A 2-process gloo world
+    sharing the card (NCCL refuses two ranks on one card; the collectives
+    stage through host memory what gloo takes no card tensor for) at
+    TinyLlama-1.1B's full width, RTN W4 g128 fused, int8 KV, random weights
+    from seed 0: TP 2 serve (prefill 8 x 128, 32 decode steps,
+    teacher-forced; launches per rank and step K1 45, K2-K4 22, every decode
+    launch on the tensor-core GEMV), TP 2 eval (2 blocks of 2048, K5 22 a
+    block on its Hopper body, K1 on the Hopper route), DP 2 eval and
+    calibration, pipe 2 eval (11 layers a stage), ring attention at seq 2
+    (S 8192, the first SHARD_RING_LAYERS layers) and MoE EP 2 (Mixtral-8x7B
+    widths, 2 layers, 8 slots on K9 and 2 on K10); and the kernels at the
+    shard shapes, timed. Gates: logits within 3e-2 (relative) of the
+    one-rank run (the ring's of the one-rank forward on K5 and of the
+    one-rank forward through the ring code, its NLL within 1e-3 of K5's;
+    MoE EP routed to the one-rank run's experts, and also unforced where no
+    token routes otherwise); greedy tokens equal where the top-2 gap is
+    SHARD_FLIP_GAP or more (the differences under 5e-2 and over it counted
+    and printed); TP perplexity within 1%, DP / pipe perplexity and DP
+    statistics within 1e-5; no plain attention. Any difference between two
+    bf16 runs of this random 22-layer model, the f32 order of a sum
+    included, grows to 2-3% of the logits (PERF.md section 6)."""
+    import tempfile
+
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.sharding.multihost import spawn
+
+    L = cfg.num_layers
+    inputs = _shard_inputs(torch, cfg)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        one = _shard_one_rank(torch, ctx, inputs, d)
+        one["seconds"] = time.perf_counter() - t0
+        emit({"phase": "shard_one_rank_nccl", "card": ctx["smi"], **one})
+        t0 = time.perf_counter()
+        rows = _shard_kernel_rows(torch, ctx)
+        emit({"phase": "shard_kernels", "card": ctx["smi"], "seconds": time.perf_counter() - t0,
+              "rows": rows})
+        t0 = time.perf_counter()
+        spawn(_shard_child, 2, (d,), init_file=f"{d}/gloo_init", device="cuda",
+              timeout_s=300)
+        ranks = [json.load(open(f"{d}/rank{r}.json")) for r in range(2)]
+        world_s = time.perf_counter() - t0
+    for r in ranks:
+        emit({"phase": "shard_rank", "card": ctx["smi"], "world_s": world_s, **r})
+    fails = []
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        s = r["tp2_serve"]
+        if max(s["rel_err_per_step"]) >= SHARD_TOL:
+            fails.append(f"{tag} tp2 serve logits {max(s['rel_err_per_step'])}")
+        if s["tokens"]["differ_clear"]:
+            fails.append(f"{tag} tp2 greedy tokens differ off near-ties: {s['tokens']}")
+        dc = s["decode_counts"]
+        want = {"dequant_matmul": 45 * SHARD_STEPS, "cache_band_write": L * SHARD_STEPS,
+                "decode_attention": L * SHARD_STEPS, "fused_mlp": L * SHARD_STEPS}
+        if {k: dc[k] for k in want} != want:
+            fails.append(f"{tag} tp2 decode launches {({k: dc[k] for k in want})} != {want}")
+        try:
+            _check_gemv(f"shard {tag} tp2 decode", dc, s["decode_routes"])
+            _check_routes(f"shard {tag} tp2 prefill", s["prefill_routes"], k1=4 * L + 1)
+            e = r["tp2_eval"]
+            _check_routes(f"shard {tag} tp2 eval", e["routes"],
+                          k1=(4 * L + 1) * SHARD_EVAL_BLOCKS)
+            _check_gemv(f"shard {tag} tp2 eval", e["counts"], e["routes"])
+        except AssertionError as ex:
+            fails.append(str(ex))
+        if r["tp2_eval"]["counts"]["flash_attention"] != L * SHARD_EVAL_BLOCKS:
+            fails.append(f"{tag} tp2 eval K5 launches {r['tp2_eval']['counts']}")
+        if abs(r["tp2_eval"]["rel_to_one_rank"]) >= 1e-2:
+            fails.append(f"{tag} tp2 eval ppl {r['tp2_eval']}")
+        for key in ("dp2_eval", "pipe2_eval"):
+            if abs(r[key]["rel_to_one_rank"]) >= 1e-5:
+                fails.append(f"{tag} {key} ppl {r[key]['ppl']} vs one rank")
+        if r["dp2_calib"]["max_rel_diff"] >= 1e-5:
+            fails.append(f"{tag} dp2 calibration {r['dp2_calib']}")
+        ring = r["seq2_ring"]
+        if (ring["rel_err_vs_k5_forward"] >= SHARD_TOL
+                or ring["rel_err_vs_one_rank_ring"] >= SHARD_TOL or ring["nll_rel_diff"] >= 1e-3):
+            fails.append(f"{tag} ring {ring}")
+        for B, m in r["moe_ep2"].items():
+            if m["rel_err"] >= SHARD_TOL:
+                fails.append(f"{tag} moe ep2 B {B}: {m['rel_err']}")
+            if not any(m["route_flips_unforced"]) and m["rel_err_unforced"] >= SHARD_TOL:
+                fails.append(f"{tag} moe ep2 B {B} unforced, routed alike: "
+                             f"{m['rel_err_unforced']}")
+            k = "moe_gathered_matmul" if m["route"] == "gathered" else "moe_matmul"
+            if m["decode_counts"][k] != 3 * SHARD_MOE_LAYERS or m["experts_per_rank"] != 4:
+                fails.append(f"{tag} moe ep2 B {B} launches {m['decode_counts']}")
+        if r["plain_attention"]:
+            fails.append(f"{tag} plain attention {r['plain_attention']}")
+    if fails:
+        raise AssertionError("shard: " + "; ".join(fails))
 
 
 def main(argv=None) -> int:

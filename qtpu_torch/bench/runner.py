@@ -22,14 +22,25 @@ the run carried on, as in qtpu.
 
 Every method runs on the llama family, GPT-2, OPT and the sparse-MoE
 family (a preset's or a checkpoint's: Mixtral, Qwen2-MoE), the MoE expert
-sites calibrated over the tokens routed to each expert. What the port does
-not have yet is refused by `setup` with NotImplementedError naming its
-slice (`refuse_unported`), never recorded as a per-method error row: a mesh
-above one device. With "profile_dir" every perplexity eval runs inside a
-torch.profiler session (qtpu_torch.utils.timing.profile_trace) that writes
-its Chrome trace into that directory, as qtpu's jax.profiler trace.
+sites calibrated over the tokens routed to each expert. With "profile_dir"
+every perplexity eval runs inside a torch.profiler session
+(qtpu_torch.utils.timing.profile_trace) that writes its Chrome trace into
+that directory, as qtpu's jax.profiler trace.
+
+"mesh" = {"data", "model", "pipe"} (qtpu's `_setup_mesh`) builds a mesh
+from the initialized torch.distributed world: ('data', 'model') or, with
+pipe > 1, ('data', 'pipe'[, 'model']). Every rank holds the whole params
+(the same seed, the same quantization); calibration shards its rows over
+`data` (qtpu_torch.calib.sharded), every perplexity eval shards its blocks
+over `data` and its params over `model` (or runs the GPipe schedule over
+`pipe`), and the serving run gives each data rank its rows of the batch
+on its tensor-parallel shards. With fewer ranks than the mesh asks, or
+layers that do not split over pipe, qtpu's message is logged and the run
+goes on single-device (qtpu's own rule). Only the primary rank writes the
+results and the artifact.
 
 CLI:  python -m qtpu_torch.bench <config.json> [--out results.json] [--device cpu]
+      torchrun --nproc-per-node N -m qtpu_torch.bench <config.json>
 """
 
 from __future__ import annotations
@@ -60,27 +71,13 @@ from qtpu_torch.quant.apply import (
     pack_model,
     quantize_model,
 )
+from qtpu_torch.sharding.multihost import is_primary
 
 METHODS = ("awq", "gptq", "pot", "apot", "smoothquant", "rtn")
 # benchmark_serving: one warm run of prefill + SERVE_WARM_STEPS decode
 # steps, then the timed run of prefill + SERVE_STEPS steps
 SERVE_WARM_STEPS = 2
 SERVE_STEPS = 32
-
-
-def refuse_unported(config: dict, device: torch.device) -> None:
-    """Raise NotImplementedError, naming the slice of the port, for what a
-    validated config asks that the port does not do yet."""
-    mesh = config.get("mesh") or {}
-    tp, pp = int(mesh.get("model", 1)), int(mesh.get("pipe", 1))
-    dp = int(mesh.get("data", 1))
-    if dp == -1:
-        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-        dp = max(1, n_dev // max(tp * pp, 1))
-    if dp * tp * pp > 1:
-        raise NotImplementedError(
-            f"mesh data={dp} x model={tp} x pipe={pp} is not ported yet (sharding slice)"
-        )
 
 
 class QuantizationBenchmark:
@@ -92,12 +89,14 @@ class QuantizationBenchmark:
             self.config["device"] = str(device)
         self.device = torch.device(self.config["device"])
         self.verbose = self.config.get("verbose", True) if verbose is None else verbose
+        self.verbose = self.verbose and is_primary()  # one rank prints
         self.model_cfg = None
         self.params = None
         self.tokenizer = None
         self.calib_samples = None
         self.stats = None
         self.test_dataset = None
+        self.mesh = None
         self.results: dict[str, BenchmarkResult] = {}
 
     def log(self, msg: str):
@@ -115,7 +114,6 @@ class QuantizationBenchmark:
         # a local HF checkpoint's model config (and arch) is its own,
         # whatever the run's model_name
         self.model_cfg = config_from_hf(ckpt) if ckpt else get_model_config(cfg["model_name"])
-        refuse_unported(cfg, self.device)
         self.log(f"Setting up benchmark for {cfg['model_name']} on {self.device}...")
         dtype = resolve_dtype(cfg.get("dtype", "bfloat16"))
         self.arch = get_arch(self.model_cfg.arch)
@@ -145,7 +143,39 @@ class QuantizationBenchmark:
             block_size=cfg.get("calibration_block_size", 512),
             vocab_size=self.model_cfg.vocab_size,
         )
+        self._setup_mesh()
         self.log("Setup complete!")
+
+    def _setup_mesh(self):
+        """qtpu's `_setup_mesh`: the mesh of config["mesh"] over the
+        initialized world, when it asks for more than one rank and the
+        world has them."""
+        from qtpu_torch.sharding.mesh import make_mesh, world_size
+        from qtpu_torch.sharding.pipeline import make_pipe_mesh
+
+        self.mesh = None
+        mcfg = self.config.get("mesh") or {}
+        dp, tp = int(mcfg.get("data", 1)), int(mcfg.get("model", 1))
+        pp = int(mcfg.get("pipe", 1))
+        n_dev = world_size()
+        if dp == -1:
+            dp = max(1, n_dev // max(tp * pp, 1))
+        if dp * tp * pp <= 1:
+            return
+        if dp * tp * pp > n_dev:
+            self.log(f"mesh {dp}x{tp}x{pp} needs {dp * tp * pp} devices, have "
+                     f"{n_dev} — running single-device")
+            return
+        if pp > 1:
+            if self.model_cfg.num_layers % pp:
+                self.log(f"mesh: {self.model_cfg.num_layers} layers do not split over "
+                         f"pipe={pp} — running single-device")
+                return
+            self.mesh = make_pipe_mesh(pp, data=dp, model=tp)
+            self.log(f"mesh: data={dp} x pipe={pp} x model={tp}")
+            return
+        self.mesh = make_mesh(data=dp, model=tp)
+        self.log(f"mesh: data={dp} x model={tp}")
 
     def _prepare_activations(self, need_hessian: bool):
         """Calibration statistics over the calibration blocks, collected
@@ -155,6 +185,14 @@ class QuantizationBenchmark:
             return
         self.log("\nCollecting activation statistics...")
         self.stats = None  # free the old statistics before the new ones
+        if self.mesh is not None:
+            from qtpu_torch.calib.sharded import collect_calibration_stats_sharded
+
+            self.stats = collect_calibration_stats_sharded(
+                self.arch.forward, self.params, self.calib_samples, self.model_cfg, self.mesh,
+                collect_hessian=need_hessian,
+            )
+            return
         self.stats = collect_calibration_stats(
             self.arch.forward, self.params, self.calib_samples, self.model_cfg,
             collect_hessian=need_hessian, verbose=self.verbose,
@@ -189,6 +227,7 @@ class QuantizationBenchmark:
                 block_size=self.config.get("test_block_size", 2048),
                 qmeta=qmeta,
                 arch=self.model_cfg.arch,
+                mesh=self.mesh,
                 verbose=self.verbose,
             )
 
@@ -280,9 +319,13 @@ class QuantizationBenchmark:
         pseudo-method's tokens_per_second: batch / the mean time of one
         decode step over SERVE_STEPS steps after a prefill, timed on the
         host around device synchronizations, after one warm run. Enabled by
-        config["serving"]["benchmark"] = true."""
+        config["serving"]["benchmark"] = true. Under a ('data', 'model')
+        mesh each data rank decodes its rows of the batch on its
+        tensor-parallel shards (eager steps), and the rate is the batch's."""
         from qtpu_torch.serve.decode import decode_step, prefill
         from qtpu_torch.serve.kvcache import init_cache
+        from qtpu_torch.sharding.mesh import axis_rank, axis_size, local_group
+        from qtpu_torch.sharding.specs import shard_model
 
         scfg = self.config.get("serving", {})
         method = method or scfg.get("pack_method", "rtn")
@@ -301,16 +344,27 @@ class QuantizationBenchmark:
             prompt = torch.from_numpy(
                 np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
             ).to(self.device)
+            mesh = self.mesh if self.mesh is not None and "pipe" not in self.mesh.mesh_dim_names \
+                else None
+            tp = local_group(mesh, "model")
+            if mesh is not None:  # this data rank's rows, this model rank's shards
+                dp, d = axis_size(mesh, "data"), axis_rank(mesh, "data")
+                if B % dp:
+                    raise ValueError(f"serving batch {B} does not split over data={dp}")
+                prompt = prompt[d * (B // dp):(d + 1) * (B // dp)]
+                packed, qmeta, cfg = shard_model(packed, qmeta, cfg, mesh)
+            Bl = prompt.shape[0]
 
             def run(n_steps):
-                cache = init_cache(cfg, B, P + 64, quantized=quant_kv, device=self.device)
-                logits, cache = prefill(packed, prompt, cache, cfg, qmeta, arch=arch)
+                cache = init_cache(cfg, Bl, P + 64, quantized=quant_kv, device=self.device)
+                logits, cache = prefill(packed, prompt, cache, cfg, qmeta, arch=arch, tp=tp)
                 tok = torch.argmax(logits, -1).to(torch.int32)
-                pos = torch.full((B,), P, dtype=torch.int32, device=self.device)
+                pos = torch.full((Bl,), P, dtype=torch.int32, device=self.device)
                 self._sync()
                 t0 = time.perf_counter()
                 for _ in range(n_steps):
-                    logits, cache = decode_step(packed, tok, pos, cache, cfg, qmeta, arch=arch)
+                    logits, cache = decode_step(packed, tok, pos, cache, cfg, qmeta, arch=arch,
+                                                tp=tp)
                     tok = torch.argmax(logits, -1).to(torch.int32)
                     pos = pos + 1
                 self._sync()
@@ -338,7 +392,7 @@ class QuantizationBenchmark:
         if self.config.get("serving", {}).get("benchmark", False):
             self.benchmark_serving()
         art = self.config.get("save_artifacts")
-        if art:
+        if art and is_primary():
             try:
                 self.save_artifacts(art["dir"], art.get("method", "rtn"))
             except Exception as e:  # qtpu's rule: a failed save is logged, the run goes on
@@ -395,6 +449,9 @@ class QuantizationBenchmark:
         }
 
     def save_results(self, output_path: str = "benchmark_results.json"):
+        """The results JSON; on the primary rank only."""
+        if not is_primary():
+            return
         results_dict = {
             "timestamp": datetime.now().isoformat(),
             "config": self.config,

@@ -3,9 +3,8 @@
 The same JSON schema and defaults as qtpu (the reference's config.json plus
 qtpu's mesh / serving / output keys), with one key of the port's own:
 "device" ("cuda" unless the config or the CLI says "cpu"). `presets.json`
-is a copy of qtpu's. Which of a config's methods and options the port runs
-is the runner's check (qtpu_torch.bench.runner.refuse_unported), so every
-preset still loads and validates here.
+is a copy of qtpu's. Every preset loads and validates here; a mesh larger
+than the world runs single-device, as in qtpu (qtpu_torch.bench.runner).
 
 CLI:  python -m qtpu_torch.configs list | <preset-name> [--out PATH]
 """

@@ -1,5 +1,8 @@
 // K4: packed SwiGLU MLP block, y = x + (silu(h @ Wg) * (h @ Wu)) @ Wd with
-// h = rms_norm(x) * nw, for decode shapes (M <= 32), asymmetric W4/W8.
+// h = rms_norm(x) * nw, for decode shapes (M <= 32), asymmetric W4/W8; with
+// resid = 0 the no-residual mode, y = (silu(h @ Wg) * (h @ Wu)) @ Wd (phase
+// B as K1's plain MODE 0: a tensor-parallel rank whose partial sum is
+// all-reduced, the residual added on one rank only).
 //
 // Replaces the TPU kernel pallas_fused_mlp_stacked
 // (qtpu/kernels/pallas_fused_mlp.py:221) and its unstacked twin
@@ -28,10 +31,10 @@
 using namespace qtpu;
 
 template <int BITS>
-static int mlp_dispatch(const DqArgs& a, const DqArgs& b, cudaStream_t st) {
+static int mlp_dispatch(const DqArgs& a, const DqArgs& b, bool resid, cudaStream_t st) {
   int e = launch_dq<BITS, 8, 8, 1>(a, st);
   if (e != 0) return e;
-  return launch_dq<BITS, 8, 8, 2>(b, st);
+  return resid ? launch_dq<BITS, 8, 8, 2>(b, st) : launch_dq<BITS, 8, 8, 0>(b, st);
 }
 
 // x [M, K] bf16, nw [K] bf16; gate/up packed [K/PK, 2F] with scales/zeros
@@ -41,15 +44,15 @@ static int mlp_dispatch(const DqArgs& a, const DqArgs& b, cudaStream_t st) {
 // slices * 2 * M * F), phase B split_b groups of F (part_b of slices * M * K).
 // cluster_a, cluster_b > 0: both phases on the tensor-core GEMV, K split
 // into that many slices of split_a / split_b groups (parts unused); both 0:
-// dq_core's GEMV. Returns a cudaError_t, or -1 for arguments the kernel does
-// not take.
+// dq_core's GEMV. resid = 0: phase B leaves the residual out. Returns a
+// cudaError_t, or -1 for arguments the kernel does not take.
 extern "C" int qtpu_fused_mlp(const void* x, const void* nw, const void* gu_data,
                               const void* gu_scales, const void* gu_zeros,
                               const void* d_data, const void* d_scales,
                               const void* d_zeros, void* act, void* out, void* part_a,
                               int split_a, void* part_b, int split_b, int cluster_a,
                               int cluster_b, int M, int K, int F, int bits, int group,
-                              float eps, void* stream) {
+                              int resid, float eps, void* stream) {
   if (M <= 0 || M > 32 || K % 4 != 0 || F % 4 != 0 || group <= 0 || group % 4 != 0 ||
       K % group != 0 || F % group != 0 || gu_zeros == nullptr || d_zeros == nullptr)
     return -1;
@@ -73,7 +76,7 @@ extern "C" int qtpu_fused_mlp(const void* x, const void* nw, const void* gu_data
   b.data = static_cast<const int8_t*>(d_data);
   b.scales = static_cast<const __nv_bfloat16*>(d_scales);
   b.zeros = static_cast<const uint8_t*>(d_zeros);
-  b.resid = static_cast<const __nv_bfloat16*>(x);
+  b.resid = resid ? static_cast<const __nv_bfloat16*>(x) : nullptr;
   b.out = static_cast<__nv_bfloat16*>(out);
   b.part = static_cast<float*>(part_b);
   b.M = M;
@@ -88,11 +91,13 @@ extern "C" int qtpu_fused_mlp(const void* x, const void* nw, const void* gu_data
         !gemv_tc_fits(b, bits, cluster_b, split_b))
       return -1;
     const int e = gemv_tc<1>(a, bits, cluster_a, split_a, st);
-    return e != 0 ? e : gemv_tc<2>(b, bits, cluster_b, split_b, st);
+    if (e != 0) return e;
+    return resid ? gemv_tc<2>(b, bits, cluster_b, split_b, st)
+                 : gemv_tc<0>(b, bits, cluster_b, split_b, st);
   }
   switch (bits) {
-    case 4: return mlp_dispatch<4>(a, b, st);
-    case 8: return mlp_dispatch<8>(a, b, st);
+    case 4: return mlp_dispatch<4>(a, b, resid != 0, st);
+    case 8: return mlp_dispatch<8>(a, b, resid != 0, st);
     default: return -1;
   }
 }

@@ -1,7 +1,10 @@
 """K4: one call for a whole packed SwiGLU MLP block (csrc/fused_mlp.cu).
 
 y = x + (silu(h @ Wg) * (h @ Wu)) @ Wd, h = rms_norm(x) * norm_w, with gate
-and up taken from the fused gateup site ([Kp, 2F], columns [gate | up]).
+and up taken from the fused gateup site ([Kp, 2F], columns [gate | up]);
+with resid=False the no-residual mode, y = (silu(h @ Wg) * (h @ Wu)) @ Wd
+(a tensor-parallel rank other than the group's first, whose partial sum is
+all-reduced with the residual added once).
 Replaces pallas_fused_mlp_stacked and pallas_fused_mlp
 (qtpu/kernels/pallas_fused_mlp.py:221, :111): a layer of the stacked
 weights is passed as its W[l] view. A CUDA tensor runs the kernel's two
@@ -25,7 +28,8 @@ from qtpu_torch.kernels.dequant_matmul import (check_packed, count_gemv, gemv_ro
                                                gemv_tc_split, quantized_matmul_plain, split_k)
 from qtpu_torch.models.ops import rms_norm
 
-_SIG = {"qtpu_fused_mlp": [P, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, F, P]}
+_SIG = {"qtpu_fused_mlp": [P, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, I, F,
+                           P]}
 
 MAX_M = 32
 
@@ -55,13 +59,14 @@ def supported(meta_gu, meta_d, gu, dn) -> bool:
 
 
 def fused_mlp_plain(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
-                    meta_gu, meta_d, eps=1e-5):
+                    meta_gu, meta_d, eps=1e-5, resid=True):
     F_ = meta_d[2]
     h = rms_norm(x, norm_w, eps)
     gu = quantized_matmul_plain(h, gu_data, gu_scales, gu_zeros, meta_gu)
     gate, up = gu[..., :F_], gu[..., F_:]
     act = Fn.silu(gate.float()).to(x.dtype) * up
-    return x + quantized_matmul_plain(act, d_data, d_scales, d_zeros, meta_d)
+    y = quantized_matmul_plain(act, d_data, d_scales, d_zeros, meta_d)
+    return x + y if resid else y
 
 
 def mlp_route(M: int, meta_gu, meta_d, gu_ptrs, d_ptrs) -> str:
@@ -76,13 +81,14 @@ def mlp_route(M: int, meta_gu, meta_d, gu_ptrs, d_ptrs) -> str:
 
 
 def fused_mlp(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
-              meta_gu, meta_d, eps=1e-5):
-    """x [..., K] bf16 with at most 32 rows -> x + MLP(x), same shape."""
+              meta_gu, meta_d, eps=1e-5, resid=True):
+    """x [..., K] bf16 with at most 32 rows -> x + MLP(x) (MLP(x) with
+    resid=False), same shape."""
     if x.device.type == "cpu":
         return fused_mlp_plain(x, norm_w, gu_data, gu_scales, gu_zeros,
-                               d_data, d_scales, d_zeros, meta_gu, meta_d, eps)
+                               d_data, d_scales, d_zeros, meta_gu, meta_d, eps, resid)
     out, route = _launch(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
-                         meta_gu, meta_d, eps, simt=False)
+                         meta_gu, meta_d, eps, simt=False, resid=resid)
     fused_mlp.launches += 1
     count_gemv(fused_mlp, route)
     return out
@@ -94,13 +100,13 @@ def fused_mlp_simt(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_
     body on the same bytes, for chip_smoke.py's "was" times. Card tensors
     only; counted in its own `.launches`."""
     out, _ = _launch(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
-                     meta_gu, meta_d, eps, simt=True)
+                     meta_gu, meta_d, eps, simt=True, resid=True)
     fused_mlp_simt.launches += 1
     return out
 
 
 def _launch(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
-            meta_gu, meta_d, eps, simt: bool):
+            meta_gu, meta_d, eps, simt: bool, resid: bool):
     """K4's two phases on card tensors; returns (out, the body they ran)."""
     require(x.is_cuda, f"unsupported device {x.device}")
     bits, group, K, _ = meta_gu
@@ -140,7 +146,7 @@ def _launch(x, norm_w, gu_data, gu_scales, gu_zeros, d_data, d_scales, d_zeros,
         act.data_ptr(), out.data_ptr(),
         None if part_a is None else part_a.data_ptr(), per_a,
         None if part_b is None else part_b.data_ptr(), per_b, cl_a, cl_b,
-        M, K, F_, bits, group, float(eps), _build.stream_of(x),
+        M, K, F_, bits, group, int(resid), float(eps), _build.stream_of(x),
     )
     _build.check(rc, "fused_mlp")
     return out, route

@@ -21,6 +21,10 @@ bf16 cache K8 writes and attends.
 Prefill writes with `cache_layer_write` and attends with the plain
 `cached_attention`, as qtpu's XLA path does. The per-layer cache layout
 raises: qtpu's layer scan over `cache.k` cannot take it either.
+Tensor parallelism as in models/llama.py: both forwards take a `tp` group
+with the rank's local shards and config; the attention output and the
+MLP's second linear are row-parallel (`ops.row_linear`, the bias added on
+the group's rank 0 only), the lm_head's logits all-gathered.
 """
 
 from __future__ import annotations
@@ -45,11 +49,23 @@ from qtpu_torch.models.llama import (
     _channel_stats,
     _write_and_attend,
 )
-from qtpu_torch.models.ops import causal_attention, gelu_tanh, layer_norm, linear, plain_attention
+from qtpu_torch.models.ops import (
+    causal_attention,
+    gather_logits,
+    gelu_tanh,
+    layer_norm,
+    linear,
+    plain_attention,
+    row_linear,
+)
 from qtpu_torch.serve.kvcache import KVCache
+from qtpu_torch.sharding import collectives as coll
 
 LAYER_SITES = ("c_attn", "attn_out", "mlp_fc", "mlp_proj")
 INPUT_SITES = ("attn_in", "o_in", "mlp_in", "proj_in", "head_in")
+# the sites whose input dim K splits under tensor parallelism
+# (qtpu/models/gpt2.py:36)
+ROW_PARALLEL_SITES = ("attn_out", "mlp_proj")
 SITE_OF_INPUT = {
     "attn_in": ("c_attn",),
     "o_in": ("attn_out",),
@@ -143,27 +159,30 @@ def _embed(params, input_ids, positions, offset):
     return params["embed"][input_ids] + pe[idx]
 
 
-def _mlp(fam: Family, x, layers, l, cfg, qm, tap=None):
+def _mlp(fam: Family, x, layers, l, cfg, qm, tap=None, tp=None):
     h = layer_norm(x, layers["ln2_w"][l], layers["ln2_b"][l], cfg.norm_eps)
     if tap is not None:
         tap("mlp_in", h)
     a = fam.act(linear(h, layers[fam.fc_site], qm(fam.fc_site), layer=l))
     if tap is not None:
         tap(fam.proj_input, a)
-    return x + linear(a, layers[fam.proj_site], qm(fam.proj_site), layer=l)
+    return row_linear(a, x, layers[fam.proj_site], qm(fam.proj_site), layer=l, tp=tp)
 
 
-def _logits(params, x, cfg, qm):
+def _logits(params, x, cfg, qm, tp=None):
     x = layer_norm(x, params["final_norm_w"], params["final_norm_b"], cfg.norm_eps)
-    return x, linear(x, params["lm_head"], qm("lm_head")).float()
+    return x, gather_logits(linear(x, params["lm_head"], qm("lm_head")).float(), tp)
 
 
 def decoder_forward(fam: Family, params, input_ids, cfg: ModelConfig, qmeta=None,
-                    capture="none"):
+                    capture="none", tp=None):
     """The full-sequence forward of the LayerNorm decoders (GPT-2, OPT),
     qtpu's `forward`."""
     if capture not in CAPTURE_MODES:
         raise ValueError(f"capture must be one of {CAPTURE_MODES}, got {capture!r}")
+    if capture != "none" and coll.size(tp) > 1:
+        raise ValueError("capture takes the whole params: calibration shards rows over "
+                         "`data` (qtpu_torch.calib.sharded), not the model")
     qm = (dict(qmeta) if qmeta is not None else {}).get
     S = input_ids.shape[1]
     positions = torch.arange(S, device=input_ids.device)
@@ -180,9 +199,9 @@ def decoder_forward(fam: Family, params, input_ids, cfg: ModelConfig, qmeta=None
         attn = causal_attention(q, k, v)
         if tap is not None:
             tap("o_in", attn)
-        x = x + linear(attn, layers[fam.o_site], qm(fam.o_site), layer=l)
-        x = _mlp(fam, x, layers, l, cfg, qm, tap)
-    x, logits = _logits(params, x, cfg, qm)
+        x = row_linear(attn, x, layers[fam.o_site], qm(fam.o_site), layer=l, tp=tp)
+        x = _mlp(fam, x, layers, l, cfg, qm, tap, tp)
+    x, logits = _logits(params, x, cfg, qm, tp)
     if cap is None:
         return logits
     stats = dict(cap.stats)
@@ -191,7 +210,7 @@ def decoder_forward(fam: Family, params, input_ids, cfg: ModelConfig, qmeta=None
 
 
 def decoder_forward_with_cache(fam: Family, params, input_ids, positions, cache: KVCache,
-                               cfg: ModelConfig, qmeta=None, slots=None):
+                               cfg: ModelConfig, qmeta=None, slots=None, tp=None):
     """Incremental forward of the LayerNorm decoders, llama's contract:
     input_ids/positions [B, T]; K/V written in place at positions[:, 0]
     (cache rows `slots` when given). Returns (logits [B, T, V] f32, cache)."""
@@ -224,9 +243,9 @@ def decoder_forward_with_cache(fam: Family, params, input_ids, positions, cache:
             attn = attn.reshape(B, 1, H * hd)
         else:
             attn = _write_and_attend(q, k, v, cache, l, start, mask, 0, slots)
-        x = x + linear(attn, layers[fam.o_site], qm(fam.o_site), layer=l)
-        x = _mlp(fam, x, layers, l, cfg, qm)
-    _, logits = _logits(params, x, cfg, qm)
+        x = row_linear(attn, x, layers[fam.o_site], qm(fam.o_site), layer=l, tp=tp)
+        x = _mlp(fam, x, layers, l, cfg, qm, tp=tp)
+    _, logits = _logits(params, x, cfg, qm, tp)
     _advance_length(cache, positions, slots)
     return logits, cache
 
@@ -235,13 +254,13 @@ GPT2 = Family(qkv=_qkv, act=_act, o_site="attn_out", fc_site="mlp_fc", proj_site
               proj_input="proj_in", pos_offset=0)
 
 
-def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none"):
+def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none", tp=None):
     """input_ids [B, S] -> logits [B, S, V] f32 (with capture: (logits,
     stats), the input sites of INPUT_SITES)."""
-    return decoder_forward(GPT2, params, input_ids, cfg, qmeta, capture)
+    return decoder_forward(GPT2, params, input_ids, cfg, qmeta, capture, tp)
 
 
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,
-                       qmeta=None, slots=None):
+                       qmeta=None, slots=None, tp=None):
     return decoder_forward_with_cache(GPT2, params, input_ids, positions, cache, cfg, qmeta,
-                                      slots)
+                                      slots, tp)

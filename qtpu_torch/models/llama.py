@@ -52,6 +52,24 @@ otherwise the layer composes as above:
                        unrolls it with l = None, llama.py:708-725).
 qtpu runs both only on a TPU; here they also run on the CPU, through the
 kernels' plain versions, so that they can be tested there.
+
+Tensor parallelism: both forwards take a `tp` process group with the rank's
+local shards (qtpu_torch.sharding.specs.shard_params) and the rank's
+ModelConfig (`local_config`: heads, KV heads and the MLP width divided by
+tp). q/k/v and gate/up are column-parallel, o_proj and down_proj
+row-parallel (ROW_PARALLEL_SITES): `ops.row_linear` all-reduces their
+partial products in f32 and adds the residual once (`ops.reduce_add`); K4
+runs in its no-residual mode on every rank and K1 without its resid option
+(the fuse branch), their partials summed the same way; a group of one rank
+adds the residual in line, as the unsharded path does; the lm_head's
+logits are all-gathered. The residual stream and the norms
+are replicated. K13's boundary branch spans a row-parallel site, the
+residual, the MLP and the next qkv, so no all-reduce fits inside it:
+QTPU_BOUNDARY=1 with tp of more than one rank raises ValueError.
+`forward`'s `attn_impl` (q, k, v, window) -> [B, S, H*hd] replaces the
+attention and builds no mask (qtpu's override; ring attention uses it with
+`pos_offset`, the global position of the rank's first token, and
+`seq_len`, the whole sequence's length).
 """
 
 from __future__ import annotations
@@ -85,11 +103,16 @@ from qtpu_torch.models.config import ModelConfig
 from qtpu_torch.models.ops import (
     apply_rope,
     causal_attention,
+    gather_logits,
     linear,
     plain_attention,
+    reduce_add,
     rms_norm,
+    row_linear,
     rope_tables,
+    split_sum,
 )
+from qtpu_torch.sharding import collectives as coll
 from qtpu_torch.serve.kvcache import KVCache, cache_layer_write
 
 LAYER_SITES = (
@@ -106,6 +129,9 @@ SITE_OF_INPUT = {
     "head_in": ("lm_head",),
 }
 CAPTURE_MODES = ("none", "stats", "hessian")
+# the sites whose input dim K splits under tensor parallelism (the
+# all-reduce side, qtpu/models/llama.py:66); the rest split their output N
+ROW_PARALLEL_SITES = ("o_proj", "down_proj")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.bfloat16) -> dict:
@@ -182,19 +208,25 @@ def _gate_up(h, layers, cfg: ModelConfig, qm, l):
     )
 
 
-def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool, tap=None):
+def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool, tap=None, tp=None):
     """norm -> SwiGLU -> residual. A decode step with packed fused
     gateup/down sites that K4 takes runs K4; the rest composes the ops.
-    tap(site, tensor), when given, sees the MLP's two linear inputs."""
+    tap(site, tensor), when given, sees the MLP's two linear inputs. Under
+    tp the down projection's partial sums are all-reduced, the residual
+    added once."""
     gu, dn = layers.get("gateup_proj"), layers.get("down_proj")
     mgu, md = qm("gateup_proj"), qm("down_proj")
     if decode and x.shape[0] * x.shape[1] <= _k4.MAX_M and _k4.supported(mgu, md, gu, dn):
-        return _k4.fused_mlp(
+        split = split_sum(tp)
+        y = _k4.fused_mlp(
             x, layers["mlp_norm"][l],
             gu["data"][l], gu["scales"][l], gu["zeros"][l],
             dn["data"][l], dn["scales"][l], dn["zeros"][l],
-            mgu, md, eps=cfg.norm_eps,
+            mgu, md, eps=cfg.norm_eps, resid=not split,
         )
+        if split:  # every rank's partial in the no-residual mode
+            return reduce_add(x, y, tp)
+        return y if tp is None else coll.all_reduce(y, tp)
     h = rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps)
     if tap is not None:
         tap("mlp_in", h)
@@ -202,7 +234,7 @@ def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool, tap=None):
     act = Fn.silu(gate.float()).to(x.dtype) * up
     if tap is not None:
         tap("down_in", act)
-    return x + linear(act, layers["down_proj"], qm("down_proj"), layer=l)
+    return row_linear(act, x, layers["down_proj"], qm("down_proj"), layer=l, tp=tp)
 
 
 def _channel_stats(x: torch.Tensor, capture: str) -> dict:
@@ -235,10 +267,14 @@ class _Capture:
             self.stats[site][k][l] = v
 
 
-def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none"):
+def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none", tp=None,
+            attn_impl=None, pos_offset: int = 0, seq_len: int | None = None):
     """Full-sequence causal forward: input_ids [B, S] -> logits [B, S, V]
-    f32 (qtpu's `forward` without an attention override). Sliding-window
-    attention applies when the window binds at this S, as in qtpu.
+    f32 (qtpu's `forward`). Sliding-window attention applies when the window
+    binds at this S, as in qtpu. tp: the tensor-parallel group (module
+    docstring); attn_impl(q, k, v, window): the attention override, with
+    the tokens at global positions pos_offset + [0, S) of a sequence of
+    seq_len (default S) tokens, whose length decides the window.
 
     capture="stats" also returns {input site: {"mean_abs", "max_abs"}},
     [L, C] per layer site and [C] for head_in, taken where qtpu takes them
@@ -247,33 +283,46 @@ def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "non
     head_in [C, C]). Returns (logits, stats) then."""
     if capture not in CAPTURE_MODES:
         raise ValueError(f"capture must be one of {CAPTURE_MODES}, got {capture!r}")
+    if capture != "none" and coll.size(tp) > 1:
+        raise ValueError("capture takes the whole params: calibration shards rows over "
+                         "`data` (qtpu_torch.calib.sharded), not the model")
     qm = (dict(qmeta) if qmeta is not None else {}).get
     S = input_ids.shape[1]
     x = params["embed"][input_ids]
-    cos, sin = rope_tables(torch.arange(S, device=input_ids.device), cfg.head_dim,
+    cos, sin = rope_tables(torch.arange(S, device=input_ids.device) + pos_offset, cfg.head_dim,
                            cfg.rope_theta)
-    win = cfg.sliding_window if 0 < cfg.sliding_window < S else 0
+    win = cfg.sliding_window if 0 < cfg.sliding_window < (seq_len or S) else 0
     layers = params["layers"]
     L = layers["attn_norm"].shape[0]
     cap = _Capture(capture, L) if capture != "none" else None
     for l in range(L):
-        tap = None if cap is None else (lambda site, t, l=l: cap.add(site, l, t))
-        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
-        if tap is not None:
-            tap("attn_in", h)
-        q, k, v = _qkv(h, layers, cfg, qm, l)
-        attn = causal_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, window=win)
-        if tap is not None:
-            tap("o_in", attn)
-        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
-        x = _mlp_block(x, layers, l, cfg, qm, decode=False, tap=tap)
+        x = layer_forward(x, layers, l, cfg, qm, (cos, sin), win, tp, attn_impl, cap)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    logits = gather_logits(linear(x, params["lm_head"], qm("lm_head")).float(), tp)
     if cap is None:
         return logits
     stats = dict(cap.stats)
     stats["head_in"] = _channel_stats(x, capture)
     return logits, stats
+
+
+def layer_forward(x, layers, l, cfg: ModelConfig, qm, rope, win: int, tp=None, attn_impl=None,
+                  cap=None):
+    """Layer l of the full-sequence forward on x [B, S, D] (rope: the
+    cos/sin tables of its positions); the pipeline's stages run it too."""
+    cos, sin = rope
+    tap = None if cap is None else (lambda site, t: cap.add(site, l, t))
+    h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+    if tap is not None:
+        tap("attn_in", h)
+    q, k, v = _qkv(h, layers, cfg, qm, l)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    attn = (causal_attention(q, k, v, window=win) if attn_impl is None
+            else attn_impl(q, k, v, win))
+    if tap is not None:
+        tap("o_in", attn)
+    x = row_linear(attn, x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
+    return _mlp_block(x, layers, l, cfg, qm, decode=False, tap=tap, tp=tp)
 
 
 def _write_and_attend(q, k, v, cache: KVCache, l: int, start, mask, window: int, slots=None):
@@ -367,7 +416,7 @@ def _boundary_layers(x, layers, qm, cache: KVCache, cfg: ModelConfig, cos, sin, 
 
 
 def _cached_layer(x, layers, qm, l, cache: KVCache, cfg: ModelConfig, cos, sin, start, mask,
-                  win, slots, decode: bool, fuse):
+                  win, slots, decode: bool, fuse, tp=None):
     """Layer l of forward_with_cache, composed: norm and qkv (K1 with norm_w
     when fuse[0]), RoPE, cache write and attention, o_proj and the residual
     (K1 with resid when fuse[1]), the MLP block."""
@@ -394,14 +443,17 @@ def _cached_layer(x, layers, qm, l, cache: KVCache, cfg: ModelConfig, cos, sin, 
         attn = _write_and_attend(q, k, v, cache, l, start, mask, win, slots)
     if fuse[1]:
         p = _at(layers["o_proj"], l)
-        x = quantized_matmul(attn, p["data"], p["scales"], p["zeros"], qm("o_proj"), resid=x)
+        split = split_sum(tp)
+        y = quantized_matmul(attn, p["data"], p["scales"], p["zeros"], qm("o_proj"),
+                             resid=None if split else x)
+        x = reduce_add(x, y, tp) if split else (y if tp is None else coll.all_reduce(y, tp))
     else:
-        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
-    return _mlp_block(x, layers, l, cfg, qm, decode)
+        x = row_linear(attn, x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
+    return _mlp_block(x, layers, l, cfg, qm, decode, tp=tp)
 
 
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,
-                       qmeta=None, slots=None):
+                       qmeta=None, slots=None, tp=None):
     """Incremental forward for serving: prefill (T = prompt length) and
     decode (T = 1). input_ids/positions [B, T] (int); writes K/V into
     `cache` in place at positions[:, 0] and attends over the cache with a
@@ -409,7 +461,9 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
     each batch row, for a batch that covers only some of the cache's
     sequences (the batcher's admissions); such a call takes the prefill
     path at any T. QTPU_BOUNDARY / QTPU_FUSE_NORM_RESID pick qtpu's
-    layer-boundary branches (module docstring). Returns (logits [B, T, V] f32, cache)."""
+    layer-boundary branches (module docstring). tp: the tensor-parallel
+    group, with the rank's local params, config and cache (its KV heads).
+    Returns (logits [B, T, V] f32, cache)."""
     qmeta_d = dict(qmeta) if qmeta is not None else {}
     qm = qmeta_d.get
     B, T = input_ids.shape
@@ -424,15 +478,19 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
     # qtpu's layer-boundary branches: the stacked cache, bf16 activations
     branch = not cache.per_layer and x.dtype == torch.bfloat16
     if branch and decode and _boundary_applies(layers, qm, cache, B):
+        if coll.size(tp) > 1:
+            raise ValueError("QTPU_BOUNDARY=1 under tensor parallelism: K13 spans a "
+                             "row-parallel site, the residual and the MLP, so no all-reduce "
+                             "fits inside it (not ported for tensor parallelism)")
         x = _boundary_layers(x, layers, qm, cache, cfg, cos, sin, start, win)
     else:
         fuse = branch and os.environ.get("QTPU_FUSE_NORM_RESID") == "1"
         fuse = tuple(fuse and _fusable(layers, qm, s, B * T) for s in ("qkv_proj", "o_proj"))
         for l in range(cache.num_layers):
             x = _cached_layer(x, layers, qm, l, cache, cfg, cos, sin, start, mask, win, slots,
-                              decode, fuse)
+                              decode, fuse, tp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    logits = gather_logits(linear(x, params["lm_head"], qm("lm_head")).float(), tp)
     _advance_length(cache, positions, slots)
     return logits, cache
 

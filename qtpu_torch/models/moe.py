@@ -30,6 +30,14 @@ llama's `_write_and_attend` (K11 on the int8 cache at decode, K8 on the bf16
 cache). `forward(capture=...)` returns qtpu's calibration statistics, the
 down-projections' input counted per expert over the tokens routed to it
 (`_routed_stats`).
+Tensor and expert parallelism (qtpu/sharding/specs.py:51-62): under a `tp`
+group the attention is llama's Megatron split, each rank holds E / tp of
+the experts (qtpu_torch.sharding.specs.shard_params splits the expert axis)
+and a Qwen2-MoE shared expert's columns / rows, the router stays whole. K9
+and K10 run on the rank's experts (the routing weights of the others
+dropped; a gathered slot routed elsewhere weighs 0), and the routed
+combine with the shared expert's partial sum is all-reduced in f32, the
+residual added after it.
 """
 
 from __future__ import annotations
@@ -48,8 +56,17 @@ from qtpu_torch.models.llama import (
     _qkv,
     _write_and_attend,
 )
-from qtpu_torch.models.ops import apply_rope, causal_attention, linear, rms_norm, rope_tables
+from qtpu_torch.models.ops import (
+    apply_rope,
+    causal_attention,
+    gather_logits,
+    linear,
+    rms_norm,
+    row_linear,
+    rope_tables,
+)
 from qtpu_torch.serve.kvcache import KVCache
+from qtpu_torch.sharding import collectives as coll
 
 LAYER_SITES = (
     "q_proj", "k_proj", "v_proj", "o_proj", "router", "exp_gate", "exp_up", "exp_down",
@@ -65,6 +82,9 @@ SITE_OF_INPUT = {
     "sh_down_in": ("sh_down",),
     "head_in": ("lm_head",),
 }
+# the sites whose input dim K splits under tensor parallelism
+# (qtpu/models/moe.py:69); the expert sites split their expert axis
+ROW_PARALLEL_SITES = ("o_proj", "sh_down")
 # sites with a [L, E, ...] expert axis: the quantizers see a flat L*E layer axis
 EXPERT_SITES = ("exp_gate", "exp_up", "exp_down")
 # input sites whose calibration stats carry a per-expert axis
@@ -188,15 +208,30 @@ def _gathered_route(layers, cfg: ModelConfig, qm, B: int, T: int) -> bool:
             and all(_packed_affine(layers[s], qm(s)) for s in EXPERT_SITES))
 
 
-def _moe_mlp_gathered(h, layers, cfg: ModelConfig, qm, l):
+def _local_experts(layers, tp):
+    """(first expert, count) of the rank's experts."""
+    p = layers["exp_gate"]
+    E_loc = next(v for v in p.values() if v is not None).shape[1]
+    return coll.rank(tp) * E_loc, E_loc
+
+
+def _moe_mlp_gathered(h, layers, cfg: ModelConfig, qm, l, tp=None):
     """Decode-time capacity-gathered expert MLP: one K10 slot per routed
     (token, expert) pair, h [B, 1, D] -> [B, 1, D]. The expert ids stay on
     the device. A smoothed site scales each slot's row by its expert's
-    vector, s[eidx]."""
+    vector, s[eidx]. Under tp a slot routed to another rank's expert runs
+    on the rank's first expert and weighs 0; the f32 combine is
+    all-reduced."""
     B, T, D = h.shape
     k = cfg.num_experts_per_tok
     topv, topi = _route(h, layers, cfg, qm, l)  # [B, 1, k]
     eidx = topi.reshape(B * k).to(torch.int32)
+    if tp is not None:
+        e0, E_loc = _local_experts(layers, tp)
+        eidx = eidx - e0
+        mine = (eidx >= 0) & (eidx < E_loc)
+        eidx = torch.where(mine, eidx, torch.zeros_like(eidx))
+        topv = topv * mine.reshape(topv.shape)
     xrows = h.reshape(B, D).repeat_interleave(k, dim=0)  # [Gs, D]
 
     def gmm(x, site):
@@ -209,6 +244,8 @@ def _moe_mlp_gathered(h, layers, cfg: ModelConfig, qm, l):
     act = Fn.silu(gmm(xrows, "exp_gate").float()).to(h.dtype) * gmm(xrows, "exp_up")
     d = gmm(act, "exp_down")  # [Gs, D]
     out = (topv.reshape(B, k, 1) * d.float().reshape(B, k, D)).sum(dim=1)
+    if tp is not None:
+        out = coll.all_reduce(out, tp)
     return out.to(h.dtype).reshape(B, T, D)
 
 
@@ -228,22 +265,28 @@ def _routed_stats(act, route_w, capture: str) -> dict:
     return out
 
 
-def _moe_mlp(h, layers, cfg: ModelConfig, qm, l, cap=None):
+def _moe_mlp(h, layers, cfg: ModelConfig, qm, l, cap=None, tp=None):
     """Routed expert MLP of layer l: h [B, T, D] -> [B, T, D] (the residual
     is the caller's). cap (a calibration capture) takes the grouped route
-    and records exp_down_in (routed) and sh_down_in."""
+    and records exp_down_in (routed) and sh_down_in. tp: the expert-parallel
+    group (module docstring)."""
     B, T, D = h.shape
     if cap is None and _gathered_route(layers, cfg, qm, B, T):
-        return _moe_mlp_gathered(h, layers, cfg, qm, l)
+        return _moe_mlp_gathered(h, layers, cfg, qm, l, tp)
     h2 = h.reshape(B * T, D)
     route_w = _routing_weights(h2, layers, cfg, qm, l)  # [M, E]
+    if tp is not None:
+        e0, E_loc = _local_experts(layers, tp)
+        route_w = route_w[:, e0:e0 + E_loc]
     g = _expert_matmul(h2, layers["exp_gate"], qm("exp_gate"), False, l)  # [E, M, F]
     u = _expert_matmul(h2, layers["exp_up"], qm("exp_up"), False, l)
     act = Fn.silu(g.float()).to(h.dtype) * u
     if cap is not None:
         cap.put("exp_down_in", l, _routed_stats(act, route_w, cap.capture))
     d = _expert_matmul(act, layers["exp_down"], qm("exp_down"), True, l)  # [E, M, D]
-    out = torch.einsum("me,emd->md", route_w, d.float()).to(h.dtype)
+    out = torch.einsum("me,emd->md", route_w, d.float())
+    if tp is None:
+        out = out.to(h.dtype)
     if "sh_gate" in layers:  # Qwen2-MoE always-on shared expert, sigmoid-gated
         sg = linear(h2, layers["sh_gate"], qm("sh_gate"), layer=l)
         su = linear(h2, layers["sh_up"], qm("sh_up"), layer=l)
@@ -252,18 +295,43 @@ def _moe_mlp(h, layers, cfg: ModelConfig, qm, l, cap=None):
             cap.add("sh_down_in", l, sact)
         sd = linear(sact, layers["sh_down"], qm("sh_down"), layer=l)
         gate = torch.sigmoid(linear(h2, layers["sh_router"], qm("sh_router"), layer=l).float())
-        out = out + (gate * sd.float()).to(h.dtype)
+        shared = gate * sd.float()
+        out = out + (shared if tp is not None else shared.to(h.dtype))
+    if tp is not None:  # the rank's experts' and shared-expert slice's partial sum
+        out = coll.all_reduce(out, tp).to(h.dtype)
     return out.reshape(B, T, D)
 
 
-def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none"):
+def layer_forward(x, layers, l, cfg: ModelConfig, qm, rope, win: int, tp=None, cap=None):
+    """Layer l of the full-sequence forward on x [B, S, D] (rope: the
+    cos/sin tables of its positions); the pipeline's stages run it too."""
+    cos, sin = rope
+    h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
+    if cap is not None:
+        cap.add("attn_in", l, h)
+    q, k, v = _qkv(h, layers, cfg, qm, l)
+    attn = causal_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, window=win)
+    if cap is not None:
+        cap.add("o_in", l, attn)
+    x = row_linear(attn, x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
+    h = rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps)
+    if cap is not None:
+        cap.add("mlp_in", l, h)
+    return x + _moe_mlp(h, layers, cfg, qm, l, cap, tp)
+
+
+def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none", tp=None):
     """Full-sequence causal forward: input_ids [B, S] -> logits [B, S, V] f32
     (qtpu's moe `forward`). capture "stats" / "hessian" also returns the
     calibration statistics as llama's forward does, with exp_down_in per
     expert over its routed tokens ([L, E, F]; hessian [L, E, F, F]) and,
-    on Qwen2-MoE, sh_down_in; returns (logits, stats) then."""
+    on Qwen2-MoE, sh_down_in; returns (logits, stats) then. tp: the
+    tensor/expert-parallel group (module docstring)."""
     if capture not in CAPTURE_MODES:
         raise ValueError(f"capture must be one of {CAPTURE_MODES}, got {capture!r}")
+    if capture != "none" and coll.size(tp) > 1:
+        raise ValueError("capture takes the whole params: calibration shards rows over "
+                         "`data` (qtpu_torch.calib.sharded), not the model")
     qm = (dict(qmeta) if qmeta is not None else {}).get
     S = input_ids.shape[1]
     x = params["embed"][input_ids]
@@ -274,20 +342,9 @@ def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "non
     L = layers["attn_norm"].shape[0]
     cap = _Capture(capture, L) if capture != "none" else None
     for l in range(L):
-        h = rms_norm(x, layers["attn_norm"][l], cfg.norm_eps)
-        if cap is not None:
-            cap.add("attn_in", l, h)
-        q, k, v = _qkv(h, layers, cfg, qm, l)
-        attn = causal_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, window=win)
-        if cap is not None:
-            cap.add("o_in", l, attn)
-        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
-        h = rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps)
-        if cap is not None:
-            cap.add("mlp_in", l, h)
-        x = x + _moe_mlp(h, layers, cfg, qm, l, cap)
+        x = layer_forward(x, layers, l, cfg, qm, (cos, sin), win, tp, cap)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    logits = gather_logits(linear(x, params["lm_head"], qm("lm_head")).float(), tp)
     if cap is None:
         return logits
     stats = dict(cap.stats)
@@ -296,7 +353,7 @@ def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "non
 
 
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,
-                       qmeta=None, slots=None):
+                       qmeta=None, slots=None, tp=None):
     """Incremental forward for serving, the contract of llama's
     `forward_with_cache`: input_ids/positions [B, T]; writes K/V into `cache`
     in place at positions[:, 0] (rows `slots` of the cache when given) and
@@ -318,9 +375,10 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin).contiguous()
         attn = _write_and_attend(q, k, v.contiguous(), cache, l, start, mask, win, slots)
-        x = x + linear(attn, layers["o_proj"], qm("o_proj"), layer=l)
-        x = x + _moe_mlp(rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps), layers, cfg, qm, l)
+        x = row_linear(attn, x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
+        x = x + _moe_mlp(rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps), layers, cfg, qm, l,
+                         tp=tp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = linear(x, params["lm_head"], qm("lm_head")).float()
+    logits = gather_logits(linear(x, params["lm_head"], qm("lm_head")).float(), tp)
     _advance_length(cache, positions, slots)
     return logits, cache

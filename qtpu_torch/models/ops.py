@@ -30,6 +30,7 @@ from qtpu_torch.kernels.dequant_matmul import quantized_matmul
 from qtpu_torch.kernels import flash_attention as _k5
 from qtpu_torch.kernels.flash_attention import attention_mask, flash_attention
 from qtpu_torch.kernels.int8_matmul import w8a8_matmul
+from qtpu_torch.sharding import collectives as coll
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -141,3 +142,42 @@ def linear(x: torch.Tensor, p: dict, site_meta=None, layer=None) -> torch.Tensor
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def lead(tp) -> bool:
+    """Whether this rank adds what a row-parallel sum takes once (the
+    bias): rank 0 of the group, or every rank without one."""
+    return coll.rank(tp) == 0
+
+
+def split_sum(tp) -> bool:
+    """Whether a row-parallel site's output is a sum of partials over more
+    than one rank (a group of one runs the unsharded arithmetic)."""
+    return coll.size(tp) > 1
+
+
+def reduce_add(resid: torch.Tensor, y: torch.Tensor, tp) -> torch.Tensor:
+    """resid + the group's sum of the partial outputs y: the partials
+    all-reduced in f32 and the residual added once, rounded once to
+    resid's dtype (a bf16 sum would round the residual stream twice a
+    site)."""
+    return (resid.float() + coll.all_reduce(y.float(), tp)).to(resid.dtype)
+
+
+def row_linear(x: torch.Tensor, resid: torch.Tensor, p: dict, site_meta=None, layer=None,
+               tp=None) -> torch.Tensor:
+    """resid + linear(x, p) over a row-parallel site. Under tp the rank's
+    partial product (the bias on rank 0 only) goes through `reduce_add`
+    (qtpu's psum); a group of one adds in line, then all-reduces."""
+    if not split_sum(tp):
+        y = resid + linear(x, p, site_meta, layer=layer)
+        return y if tp is None else coll.all_reduce(y, tp)
+    if not lead(tp) and "b" in p:
+        p = {k: v for k, v in p.items() if k != "b"}
+    return reduce_add(resid, linear(x, p, site_meta, layer=layer), tp)
+
+
+def gather_logits(logits: torch.Tensor, tp=None) -> torch.Tensor:
+    """The column-parallel lm_head's local [..., V / tp] logits gathered
+    into [..., V] in rank order."""
+    return logits if tp is None else coll.all_gather(logits, tp, dim=-1)

@@ -14,6 +14,9 @@ from qtpu_torch.models.ops import linear
 from qtpu_torch.serve.kvcache import KVCache
 
 LAYER_SITES = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
+# the sites whose input dim K splits under tensor parallelism
+# (qtpu/models/opt.py:34)
+ROW_PARALLEL_SITES = ("out_proj", "fc2")
 INPUT_SITES = ("attn_in", "o_in", "mlp_in", "fc2_in", "head_in")
 SITE_OF_INPUT = {
     "attn_in": ("q_proj", "k_proj", "v_proj"),
@@ -53,12 +56,13 @@ OPT = Family(qkv=_qkv, act=torch.relu, o_site="out_proj", fc_site="fc1", proj_si
              proj_input="fc2_in", pos_offset=POS_OFFSET)
 
 
-def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none"):
+def forward(params, input_ids, cfg: ModelConfig, qmeta=None, capture: str = "none", tp=None):
     """input_ids [B, S] -> logits [B, S, V] f32 (with capture: (logits,
     stats), the input sites of INPUT_SITES)."""
-    return decoder_forward(OPT, params, input_ids, cfg, qmeta, capture)
+    return decoder_forward(OPT, params, input_ids, cfg, qmeta, capture, tp)
 
 
 def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelConfig,
-                       qmeta=None, slots=None):
-    return decoder_forward_with_cache(OPT, params, input_ids, positions, cache, cfg, qmeta, slots)
+                       qmeta=None, slots=None, tp=None):
+    return decoder_forward_with_cache(OPT, params, input_ids, positions, cache, cfg, qmeta, slots,
+                                      tp)

@@ -7,6 +7,13 @@ block synchronizes with the host, so the engine captures a block as one
 CUDA graph (serve/graphs.py) and replays it. Random
 sampling draws from an explicit torch.Generator (qtpu's jax.random keys
 give other numbers from the same seed; greedy decoding is identical).
+
+Tensor-parallel serving (qtpu's TP decode, tests/test_sharding.py:111-143):
+every entry takes a `tp` group with the rank's local params, config and
+cache (init_cache with the local config holds the rank's KV heads); the
+logits come back whole on every rank, so each rank samples the same
+tokens. Under tp the steps run eager: a collective inside a captured CUDA
+graph is not in this port.
 """
 
 from __future__ import annotations
@@ -26,25 +33,26 @@ def _positions(B, T, start, device):
     return start[:, None] + torch.arange(T, dtype=torch.int32, device=device)[None, :]
 
 
-def prefill(params, ids, cache, cfg, qmeta=None, start=None, arch="llama"):
+def prefill(params, ids, cache, cfg, qmeta=None, start=None, arch="llama", tp=None):
     """Process a [B, T] prompt; returns (last-position logits [B, V], cache).
     start: [B] per-sequence offsets (default zeros)."""
-    logits, cache = prefill_full(params, ids, cache, cfg, qmeta, start, arch)
+    logits, cache = prefill_full(params, ids, cache, cfg, qmeta, start, arch, tp=tp)
     return logits[:, -1, :], cache
 
 
-def prefill_full(params, ids, cache, cfg, qmeta=None, start=None, arch="llama", slots=None):
+def prefill_full(params, ids, cache, cfg, qmeta=None, start=None, arch="llama", slots=None,
+                 tp=None):
     """Like prefill but returns the logits at every position [B, T, V].
     slots: [B] cache rows of the batch rows (default: row b is cache row b)."""
     B, T = ids.shape
     positions = _positions(B, T, start, ids.device)
-    return _fwc(arch)(params, ids, positions, cache, cfg, qmeta, slots=slots)
+    return _fwc(arch)(params, ids, positions, cache, cfg, qmeta, slots=slots, tp=tp)
 
 
-def decode_step(params, token, pos, cache, cfg, qmeta=None, arch="llama"):
+def decode_step(params, token, pos, cache, cfg, qmeta=None, arch="llama", tp=None):
     """One token per sequence: token [B], pos [B] absolute positions.
     Returns (logits [B, V], cache)."""
-    logits, cache = _fwc(arch)(params, token[:, None], pos[:, None], cache, cfg, qmeta)
+    logits, cache = _fwc(arch)(params, token[:, None], pos[:, None], cache, cfg, qmeta, tp=tp)
     return logits[:, 0, :], cache
 
 
@@ -87,7 +95,7 @@ def mixed_sample(logits, temps, generator=None):
 
 
 def decode_multi(params, token, pos, cache, temps, generator, cfg, n_steps: int,
-                 qmeta=None, arch: str = "llama"):
+                 qmeta=None, arch: str = "llama", tp=None):
     """n_steps decode steps; token/pos [B] (pos = the position of `token`),
     temps [B] or None (all greedy). Inactive slots pass pos >= S so their
     cache writes do nothing. Returns (tokens [B, n_steps], cache):
@@ -95,7 +103,7 @@ def decode_multi(params, token, pos, cache, temps, generator, cfg, n_steps: int,
     toks = []
     tok, p = token, pos
     for _ in range(n_steps):
-        logits, cache = decode_step(params, tok, p, cache, cfg, qmeta, arch=arch)
+        logits, cache = decode_step(params, tok, p, cache, cfg, qmeta, arch=arch, tp=tp)
         tok = mixed_sample(logits, temps, generator)
         p = p + 1
         toks.append(tok)
@@ -104,18 +112,18 @@ def decode_multi(params, token, pos, cache, temps, generator, cfg, n_steps: int,
 
 def greedy_generate(params, prompt_ids, cache, cfg, n_tokens: int, qmeta=None,
                     temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-                    generator=None, arch: str = "llama"):
+                    generator=None, arch: str = "llama", tp=None):
     """Prefill a [B, T] prompt, then run n_tokens decode steps. Returns
     (tokens [B, n_tokens], cache); tokens[:, 0] is sampled from the prefill
     logits, as in qtpu."""
     B, T = prompt_ids.shape
-    logits, cache = prefill(params, prompt_ids, cache, cfg, qmeta, arch=arch)
+    logits, cache = prefill(params, prompt_ids, cache, cfg, qmeta, arch=arch, tp=tp)
     tok = sample_token(logits, generator, temperature, top_k, top_p)
     pos = torch.full((B,), T, dtype=torch.int32, device=prompt_ids.device)
     toks = []
     for _ in range(n_tokens):
         toks.append(tok)
-        logits, cache = decode_step(params, tok, pos, cache, cfg, qmeta, arch=arch)
+        logits, cache = decode_step(params, tok, pos, cache, cfg, qmeta, arch=arch, tp=tp)
         tok = sample_token(logits, generator, temperature, top_k, top_p)
         pos = pos + 1
     return torch.stack(toks, dim=1), cache

@@ -333,10 +333,18 @@ def test_perplexity_matches_qtpu():
 
 
 def test_perplexity_refuses_a_mesh():
-    p = tllama.init_params(tconfig.TINY_TEST, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        evaluate_perplexity(p, np.zeros((1, 128), np.int32), tconfig.TINY_TEST, 1, 64,
-                            mesh=object())
+    """A mesh with a pipe dim runs the GPipe schedule on the llama family
+    and moe only, as qtpu's pipeline_nll; the sharded and pipelined evals
+    themselves are tested in tests/test_torch_sharding.py and
+    tests/test_torch_pipeline.py."""
+    from types import SimpleNamespace
+
+    from qtpu_torch.models import gpt2 as tgpt2
+
+    p = tgpt2.init_params(tconfig.TINY_GPT2_TEST, device="cpu")
+    with pytest.raises(NotImplementedError, match="llama family"):
+        evaluate_perplexity(p, np.zeros((1, 128), np.int32), tconfig.TINY_GPT2_TEST, 1, 64,
+                            arch="gpt2", mesh=SimpleNamespace(mesh_dim_names=("data", "pipe")))
 
 
 # ---------------------------------------------------------------- runner
@@ -394,14 +402,18 @@ def test_runner_sweeps_w_bit():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"mesh": {"data": 1, "model": 2, "pipe": 1}}, "sharding slice"),
-    ({"mesh": {"data": 2, "model": 1, "pipe": 1}}, "sharding slice"),
-])
-def test_runner_refuses_what_is_not_ported(extra, match):
-    bench = QuantizationBenchmark(dict(RUN_CONFIG, **extra))
-    with pytest.raises(NotImplementedError, match=match):
-        bench.run_all_benchmarks()
-    assert bench.results == {}
+    ({"mesh": {"data": 1, "model": 2, "pipe": 1}}, "mesh 1x2x1 needs 2 devices, have 1"),
+    ({"mesh": {"data": 2, "model": 1, "pipe": 1}}, "mesh 2x1x1 needs 2 devices, have 1"),
+], ids=["extra0-sharding slice", "extra1-sharding slice"])
+def test_runner_refuses_what_is_not_ported(extra, match, capsys):
+    """A mesh above the world's ranks (one process here) is logged with
+    qtpu's message and the run goes on single-device, as qtpu's
+    `_setup_mesh` does; sharded runs: tests/test_torch_sharding.py."""
+    bench = QuantizationBenchmark(dict(RUN_CONFIG, **extra, verbose=True,
+                                       serving={"benchmark": False}))
+    bench.run_all_benchmarks()
+    assert f"{match} — running single-device" in capsys.readouterr().out
+    assert bench.mesh is None and all(r.is_success() for r in bench.results.values())
 
 
 def test_configs_equal_qtpu_apart_from_device():

@@ -2606,3 +2606,112 @@ def test_utils_on_the_card(cuda, tmp_path):
     (f,) = tmp_path.glob("trace-*.json")
     names = {e.get("name", "") for e in json.loads(f.read_text())["traceEvents"]}
     assert any("dq_wgmma_kernel" in n for n in names)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("D,F", [(512, 1024), (2048, 2816)])
+def test_k4_no_residual_matches_plain(cuda, bits, M, D, F):
+    """K4's no-residual mode (a tensor-parallel rank other than the group's
+    first; F 2816 is TinyLlama's MLP at TP 2) against its plain version, on
+    the body its rule names, and beside the residual mode minus x."""
+    g = _gen()
+    gu = quantize_pack(torch.randn(D, 2 * F, generator=g, device=cuda) * 0.05, bits, 128)
+    dn = quantize_pack(torch.randn(F, D, generator=g, device=cuda) * 0.05, bits, 128)
+    nw = (1.0 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(torch.bfloat16)
+    x = torch.randn(M, 1, D, generator=g, device=cuda).to(torch.bfloat16)
+    args = (x, nw, gu.data, gu.scales, gu.zeros, dn.data, dn.scales, dn.zeros,
+            (bits, 128, D, 2 * F), (bits, 128, F, D))
+    t0 = k4.fused_mlp.gemv_tc_launches
+    got = k4.fused_mlp(*args, resid=False)
+    tc = k4.fused_mlp.gemv_tc_launches - t0
+    want = k4.fused_mlp_plain(*args, resid=False)
+    with_x = k4.fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert tc == (1 if M <= 8 else 0)
+    assert _rel(got, want) < 3e-2
+    assert _rel(got, with_x.float() - x.float()) < 1e-2
+
+
+def _tp_model(dev, layers=2):
+    """A TinyLlama-width llama of `layers` layers, RTN W4 g128, fused."""
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+
+    cfg = TINYLLAMA_1_1B.replace(num_layers=layers)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    packed, qmeta = pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 128})
+    packed, qmeta = fuse_packed_sites(packed, qmeta)
+    return cfg, packed, qmeta
+
+
+def _tp_serve(cfg, packed, qmeta, mesh, tp, prompt, steps):
+    """Prefill + `steps` greedy decode steps; the logits of every step."""
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+    from qtpu_torch.sharding.specs import shard_model
+
+    if mesh is not None:
+        packed, qmeta, cfg = shard_model(packed, qmeta, cfg, mesh)
+    B, T = prompt.shape
+    cache = init_cache(cfg, B, T + steps + 8, quantized=True, device=prompt.device)
+    logits, cache = prefill(packed, prompt, cache, cfg, qmeta, tp=tp)
+    out = [logits]
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    pos = torch.full((B,), T, dtype=torch.int32, device=prompt.device)
+    for _ in range(steps):
+        logits, cache = decode_step(packed, tok, pos, cache, cfg, qmeta, tp=tp)
+        out.append(logits)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        pos = pos + 1
+    return torch.stack(out, 1)
+
+
+def test_tp_one_rank_nccl_forward_is_bit_equal(cuda, tmp_path):
+    """The tensor-parallel code in a 1-rank NCCL world (all-reduces and the
+    logits' all-gather on one rank) gives the unsharded path's bits."""
+    import torch.distributed as dist
+
+    from qtpu_torch.sharding.mesh import local_group, make_mesh
+    from qtpu_torch.sharding.multihost import initialize_multihost
+
+    cfg, packed, qmeta = _tp_model(cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 64), generator=_gen(), device=cuda)
+    want = _tp_serve(cfg, packed, qmeta, None, None, prompt, 3)
+    initialize_multihost(f"file://{tmp_path / 'init'}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(data=1, model=1)
+        got = _tp_serve(cfg, packed, qmeta, mesh, local_group(mesh, "model"), prompt, 3)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)
+
+
+def _tp2_card_worker(rank, world, d):
+    from qtpu_torch.sharding.mesh import local_group, make_mesh
+
+    dev = torch.device("cuda", 0)
+    cfg, packed, qmeta = _tp_model(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 64), generator=_gen(), device=dev)
+    mesh = make_mesh(data=1, model=2)
+    got = _tp_serve(cfg, packed, qmeta, mesh, local_group(mesh, "model"), prompt, 1)
+    out = {"got": got.cpu()}
+    if rank == 0:
+        out["want"] = _tp_serve(cfg, packed, qmeta, None, None, prompt, 1).cpu()
+    torch.save(out, f"{d}/rank{rank}.pt")
+
+
+def test_tp2_gloo_decode_step_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one card):
+    a TP 2 prefill and decode step of a 2-layer TinyLlama-width W4 model
+    within 3e-2 of the one-rank run, both ranks with the same logits."""
+    from qtpu_torch.sharding.multihost import spawn
+
+    spawn(_tp2_card_worker, 2, (str(tmp_path),), init_file=str(tmp_path / "init"),
+          device="cuda", timeout_s=300)
+    r0 = torch.load(tmp_path / "rank0.pt")
+    r1 = torch.load(tmp_path / "rank1.pt")
+    assert torch.equal(r0["got"], r1["got"])
+    assert _rel(r0["got"], r0["want"]) < 3e-2

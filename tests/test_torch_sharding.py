@@ -1,0 +1,553 @@
+"""The port's tensor and data parallelism against qtpu's on the CPU: the
+('data', 'model') mesh, qtpu's per-leaf specs, shard_params (fused sites
+split per member, packed row-parallel sites at group boundaries, the
+raises), the TP/DP forward of llama, GPT-2 and OPT (raw, packed, GPTQ
+actorder), TP/DP prefill and decode, sharded perplexity, the runner's mesh
+config, and MoE expert parallelism.
+
+One world of 4 gloo processes (data 2 x model 2, spawned once for the
+module, `init_method` a file under tmp_path) computes every case; each case
+is a test of its own. The children import no jax: the parent runs qtpu on
+the conftest's 8 virtual CPU devices and hands them numpy-made inputs
+through a file. `run_world` and `case` are shared with the other sharding
+test files.
+
+Tolerances (qtpu's own tests/test_sharding.py bounds): logits within
+rtol = atol = 2e-2 for llama, 3e-2 for GPT-2 / OPT and MoE EP, against
+qtpu's sharded forward and the port's unsharded one; greedy tokens equal
+where the top-2 gap exceeds 5e-2; DP perplexity within 1e-5 relative of
+the serial one.
+"""
+
+import traceback
+
+import numpy as np
+import pytest
+import torch
+
+from qtpu_torch.models import get_arch
+from qtpu_torch.models import config as tconfig
+from qtpu_torch.sharding.multihost import spawn
+
+WORLD = 4
+GAP = 5e-2  # greedy tokens compared where the top-2 logit gap exceeds this
+
+
+# ------------------------------------------------------------ the worlds
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread in the test process, as in the spawned ranks:
+    beside parallel test workers and the ranks, threads that spin waiting
+    for each other slow every process on the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _child(rank, world, worker, d):
+    torch.set_num_threads(1)
+    payload = torch.load(f"{d}/payload.pt", weights_only=False)
+    out = {}
+    for name, fn in worker(rank, world, payload).items():
+        try:
+            out[name] = fn()
+        except Exception:  # recorded, so each case fails on its own
+            out[name] = {"error": traceback.format_exc()}
+    torch.save(out, f"{d}/rank{rank}.pt")
+
+
+def run_world(tmp_path_factory, worker, payload, n=WORLD):
+    """worker(rank, world, payload) -> {case: thunk}, run in n spawned gloo
+    processes; returns each rank's {case: result}."""
+    d = tmp_path_factory.mktemp(worker.__name__)
+    torch.save(payload, d / "payload.pt")
+    spawn(_child, n, (worker, str(d)), init_file=str(d / "init"), timeout_s=300)
+    return [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(n)]
+
+
+def case(results, name, rank=0):
+    r = results[rank][name]
+    assert not (isinstance(r, dict) and "error" in r), r.get("error") if isinstance(r, dict) else r
+    return r
+
+
+def rows(results, name, ranks=(0, 2)):
+    """The data ranks' local rows (model coordinate 0), concatenated."""
+    return np.concatenate([np.asarray(case(results, name, r)) for r in ranks], axis=0)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------- the children
+def _tp_forward(params, qmeta, cfg, mesh, ids):
+    from qtpu_torch.sharding.mesh import axis_rank, axis_size, local_group
+    from qtpu_torch.sharding.specs import shard_model
+
+    dp, d = axis_size(mesh, "data"), axis_rank(mesh, "data")
+    B = ids.shape[0] // dp
+    lp, lq, lc = shard_model(params, qmeta, cfg, mesh)
+    return get_arch(cfg.arch).forward(lp, ids[d * B:(d + 1) * B], lc, qmeta=lq,
+                                      tp=local_group(mesh, "model"))
+
+
+def _tp_decode(params, qmeta, cfg, mesh, prompt, steps=3):
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+    from qtpu_torch.sharding.mesh import axis_rank, axis_size, local_group
+    from qtpu_torch.sharding.specs import shard_model
+
+    dp, d = axis_size(mesh, "data"), axis_rank(mesh, "data")
+    B = prompt.shape[0] // dp
+    prompt = prompt[d * B:(d + 1) * B]
+    tp = local_group(mesh, "model")
+    lp, lq, lc = shard_model(params, qmeta, cfg, mesh)
+    cache = init_cache(lc, B, 32, quantized=True, device="cpu")
+    logits, cache = prefill(lp, prompt, cache, lc, lq, arch=cfg.arch, tp=tp)
+    outs = [logits]
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    pos = torch.full((B,), prompt.shape[1], dtype=torch.int32)
+    for _ in range(steps):
+        logits, cache = decode_step(lp, tok, pos, cache, lc, lq, arch=cfg.arch, tp=tp)
+        outs.append(logits)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        pos = pos + 1
+    return {"logits": torch.stack(outs, 1), "kv_shape": tuple(cache.k.shape)}
+
+
+def _mesh_cases():
+    from qtpu_torch.sharding.mesh import make_mesh
+
+    m = make_mesh(data=2, model=2)
+    m2 = make_mesh(model=2)
+    m4 = make_mesh(data=-1, model=4)
+    out = {"2x2": (m.size(0), m.size(1)), "model2": (m2.size(0), m2.size(1)),
+           "model4": (m4.size(0), m4.size(1))}
+    try:
+        make_mesh(data=3, model=2)
+    except ValueError as e:
+        out["too_big"] = str(e)
+    return out
+
+
+def _boundary_raises(p):
+    import os
+
+    from qtpu_torch.serve.decode import decode_step
+    from qtpu_torch.serve.kvcache import init_cache
+    from qtpu_torch.sharding.mesh import local_group, make_mesh
+    from qtpu_torch.sharding.specs import shard_model
+
+    mesh = make_mesh(data=2, model=2)
+    lp, lq, lc = shard_model(p["llama_fused"], p["fused_qmeta"], p["cfgs"]["llama"], mesh)
+    cache = init_cache(lc, 2, 32, quantized=True, device="cpu")
+    os.environ["QTPU_BOUNDARY"] = "1"
+    try:
+        decode_step(lp, torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+                    cache, lc, lq, tp=local_group(mesh, "model"))
+    except ValueError as e:
+        return str(e)
+    finally:
+        del os.environ["QTPU_BOUNDARY"]
+    return "no raise"
+
+
+def _ppl(p, mesh_shape):
+    from qtpu_torch.eval.perplexity import evaluate_perplexity
+    from qtpu_torch.sharding.mesh import make_mesh
+
+    mesh = make_mesh(*mesh_shape)
+    return evaluate_perplexity(p["llama_packed"], p["stream"], p["cfgs"]["llama"], n_samples=6,
+                               block_size=64, qmeta=p["packed_qmeta"], mesh=mesh)
+
+
+def _runner(p):
+    from qtpu_torch.bench import QuantizationBenchmark
+
+    bench = QuantizationBenchmark(dict(p["run_config"], mesh={"data": 2, "model": 2}),
+                                  device="cpu")
+    bench.run_all_benchmarks()
+    return {k: v.to_dict() for k, v in bench.results.items()}, bench.mesh is not None
+
+
+def _moe_routes(p):
+    """The expert MLP of layer 0 on the same h, sharded over the experts,
+    against the unsharded one: the grouped route (B 4, T 8 and T 1) and the
+    gathered one (B 1, T 1)."""
+    from qtpu_torch.models import moe
+    from qtpu_torch.sharding.mesh import local_group, make_mesh
+    from qtpu_torch.sharding.specs import shard_model
+
+    mesh = make_mesh(data=2, model=2)
+    cfg, packed, qmeta = p["cfgs"]["moe"], p["moe_packed"], p["moe_qmeta"]
+    lp, lq, lc = shard_model(packed, qmeta, cfg, mesh)
+    tp = local_group(mesh, "model")
+    g = torch.Generator().manual_seed(5)
+    out = {}
+    for B, T in ((4, 8), (4, 1), (1, 1)):
+        h = (torch.randn(B, T, cfg.hidden_size, generator=g) * 0.5).to(torch.bfloat16)
+        want = moe._moe_mlp(h, packed["layers"], cfg, dict(qmeta).get, 0)
+        got = moe._moe_mlp(h, lp["layers"], lc, dict(lq).get, 0, tp=tp)
+        out[(B, T)] = (got.float(), want.float(),
+                       moe._gathered_route(packed["layers"], cfg, dict(qmeta).get, B, T))
+    return out
+
+
+def sharding_worker(rank, world, p):
+    from qtpu_torch.sharding.mesh import make_mesh
+
+    cfgs, ids = p["cfgs"], p["ids"]
+    mesh = make_mesh(data=2, model=2)
+    cases = {"mesh": _mesh_cases}
+    for arch in ("llama", "gpt2", "opt"):
+        cases[f"fwd_{arch}"] = (lambda a=arch: _tp_forward(p[a], None, cfgs[a], mesh, ids))
+    cases["fwd_packed"] = lambda: _tp_forward(p["llama_packed"], p["packed_qmeta"],
+                                              cfgs["llama"], mesh, ids)
+    cases["fwd_actorder"] = lambda: _tp_forward(p["llama_actorder"], p["actorder_qmeta"],
+                                                cfgs["llama"], mesh, ids)
+    cases["decode"] = lambda: _tp_decode(p["llama_fused"], p["fused_qmeta"], cfgs["llama"],
+                                         mesh, ids[:4, :16])
+    cases["decode_opt"] = lambda: _tp_decode(p["opt_fused"], p["opt_qmeta"], cfgs["opt"],
+                                             mesh, ids[:4, :16])
+    cases["boundary"] = lambda: _boundary_raises(p)
+    cases["ppl_dp"] = lambda: _ppl(p, (4, 1))
+    cases["ppl_tp"] = lambda: _ppl(p, (2, 2))
+    cases["fwd_moe"] = lambda: _tp_forward(p["moe"], None, cfgs["moe"], mesh, ids)
+    cases["moe_routes"] = lambda: _moe_routes(p)
+    cases["runner"] = lambda: _runner(p)
+    return cases
+
+
+# ------------------------------------------------------------ the parent
+RUN_CONFIG = {
+    "model_name": "tiny-test",
+    "quantization_methods": ["rtn", "awq"],
+    "quantization_config": {"rtn": {"w_bit": 4, "q_group_size": 64},
+                            "awq": {"w_bit": 4, "q_group_size": 64}},
+    "calibration_dataset": "synthetic", "test_dataset": "synthetic",
+    "n_calibration_samples": 4, "calibration_block_size": 32,
+    "n_test_samples": 4, "test_block_size": 64, "packed_eval": True,
+    "serving": {"benchmark": True, "max_batch_size": 4}, "verbose": False,
+}
+
+
+def _jax_params(arch, jcfg, key, dtype=None):
+    import jax
+
+    from qtpu.models import get_arch as jget
+
+    kw = {} if dtype is None else {"dtype": dtype}
+    p = jget(arch).init_params(jcfg, jax.random.PRNGKey(key), **kw)
+    return p, jax.tree_util.tree_map(np.asarray, p)
+
+
+@pytest.fixture(scope="module")
+def qtpu_refs():
+    """qtpu's params and sharded results (data 2 x model 2 on the virtual
+    CPU devices) and the port's inputs: the packed bytes are the port's
+    (pack_model, fuse_packed_sites; RTN equals qtpu's bit for bit,
+    tests/test_torch_eval.py), fed to both packages through numpy."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from qtpu.models import config as jconfig
+    from qtpu.models import get_arch as jget
+    from qtpu.serve import init_cache
+    from qtpu.serve.decode import decode_step, prefill
+    from qtpu.sharding import make_mesh, shard_params
+    from qtpu_torch.calib import collect_calibration_stats
+    from qtpu_torch.convert import params_to_numpy, params_to_torch
+    from qtpu_torch.data.synthetic import synthetic_token_stream
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+
+    jcfgs = {"llama": jconfig.TINY_TEST, "gpt2": jconfig.TINY_GPT2_TEST,
+             "opt": jconfig.TINY_OPT_TEST, "moe": jconfig.TINY_MOE_TEST}
+    cfgs = {"llama": tconfig.TINY_TEST, "gpt2": tconfig.TINY_GPT2_TEST,
+            "opt": tconfig.TINY_OPT_TEST, "moe": tconfig.TINY_MOE_TEST}
+    mesh = make_mesh(data=2, model=2)
+    ids = np.random.default_rng(1).integers(0, 512, (8, 64)).astype(np.int32)
+    jids = jax.device_put(jnp.asarray(ids), NamedSharding(mesh, P("data", None)))
+    payload = {"cfgs": cfgs, "ids": torch.from_numpy(ids).long(), "run_config": RUN_CONFIG}
+    want = {}
+
+    def to_jax(tree):
+        return jax.tree_util.tree_map(jnp.asarray, params_to_numpy(tree))
+
+    def sharded(arch, tree, qmeta=None):
+        sp = shard_params(to_jax(tree), mesh, arch=arch)
+        with jax.sharding.set_mesh(mesh):
+            return np.asarray(jget(arch).forward(sp, jids, jcfgs[arch], qmeta=qmeta))
+
+    for arch in ("llama", "gpt2", "opt"):
+        payload[arch] = params_to_torch(_jax_params(arch, jcfgs[arch], 0)[1], device="cpu")
+        want[f"fwd_{arch}"] = sharded(arch, payload[arch])
+    # f32: in bf16 a near-tied router may pick another expert under other sum orders
+    payload["moe"] = params_to_torch(_jax_params("moe", jcfgs["moe"], 0, jnp.float32)[1], "cpu")
+    want["fwd_moe"] = sharded("moe", payload["moe"])
+    moe_bf16 = params_to_torch(_jax_params("moe", jcfgs["moe"], 3)[1], "cpu")
+    payload["moe_packed"], payload["moe_qmeta"] = pack_model(
+        moe_bf16, "rtn", {"w_bit": 4, "q_group_size": 64}, arch="moe")
+
+    llama = payload["llama"]
+    rtn = {"w_bit": 4, "q_group_size": 64}
+    payload["llama_packed"], payload["packed_qmeta"] = pack_model(llama, "rtn", rtn)
+    want["fwd_packed"] = sharded("llama", payload["llama_packed"], payload["packed_qmeta"])
+    calib = [np.random.default_rng(40 + i).integers(0, 512, (1, 32)) for i in range(2)]
+    stats = collect_calibration_stats(get_arch("llama").forward, llama, calib, cfgs["llama"])
+    payload["llama_actorder"], payload["actorder_qmeta"] = pack_model(
+        llama, "gptq", {**rtn, "actorder": True, "actorder_shards": 2, "nsamples": 8}, stats)
+    want["fwd_actorder"] = sharded("llama", payload["llama_actorder"], payload["actorder_qmeta"])
+
+    for arch, name, qname in (("llama", "llama_fused", "fused_qmeta"),
+                              ("opt", "opt_fused", "opt_qmeta")):
+        fp, fq = fuse_packed_sites(*pack_model(payload[arch], "rtn", rtn, arch=arch), arch=arch)
+        payload[name], payload[qname] = fp, fq
+        sp = shard_params(to_jax(fp), mesh, arch=arch)
+        prompt = jnp.asarray(ids[:4, :16])
+        with jax.sharding.set_mesh(mesh):
+            cache = init_cache(jcfgs[arch], 4, 32)
+            logits, cache = prefill(sp, prompt, cache, jcfgs[arch], qmeta=fq, arch=arch)
+            outs = [np.asarray(logits)]
+            tok = jnp.argmax(logits, axis=-1)
+            pos = jnp.full((4,), 16, jnp.int32)
+            for _ in range(3):
+                logits, cache = decode_step(sp, tok, pos, cache, jcfgs[arch], qmeta=fq,
+                                            arch=arch)
+                outs.append(np.asarray(logits))
+                tok = jnp.argmax(logits, axis=-1)
+                pos = pos + 1
+        want["decode" if arch == "llama" else "decode_opt"] = np.stack(outs, 1)
+    payload["stream"] = synthetic_token_stream(512, 6 * 64 + 3, seed=7)
+    return payload, want
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory, qtpu_refs):
+    payload, _ = qtpu_refs
+    return run_world(tmp_path_factory, sharding_worker, payload)
+
+
+def _port(payload, arch, name=None, qmeta=None):
+    cfg = payload["cfgs"][arch]
+    return get_arch(cfg.arch).forward(payload[name or arch], payload["ids"], cfg,
+                                      qmeta=qmeta).numpy()
+
+
+# ------------------------------------------------------------ the tests
+def test_mesh_shapes_and_a_mesh_larger_than_the_world(world):
+    got = case(world, "mesh")
+    assert got["2x2"] == (2, 2) and got["model2"] == (2, 2) and got["model4"] == (1, 4)
+    assert "needs 6 devices, have 4" in got["too_big"]
+
+
+def test_mesh_larger_than_a_one_process_world_raises():
+    from qtpu_torch.sharding.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        make_mesh(data=2, model=1)
+
+
+@pytest.mark.parametrize("arch", ["llama", "moe", "gpt2", "opt"])
+def test_param_specs_equal_qtpus(qtpu_refs, arch):
+    """The table shard_params applies is qtpu's but for the port's two
+    departures: the embedding whole, a row-parallel actorder perm split
+    with K."""
+    import jax
+
+    from qtpu.sharding.specs import param_specs as jax_specs
+    from qtpu_torch.quant.apply import pack_model
+    from qtpu_torch.sharding.specs import param_specs
+
+    payload, _ = qtpu_refs
+    cfg = payload["cfgs"][arch]
+    trees = [payload[arch]]
+    if arch != "gpt2":
+        trees.append(pack_model(payload[arch], "rtn", {"w_bit": 4, "q_group_size": 64},
+                                arch=arch)[0])
+    if arch == "llama":
+        trees.append(payload["llama_actorder"])
+    row_sites = get_arch(arch).ROW_PARALLEL_SITES
+    for tree in trees:
+        npt = jax.tree_util.tree_map(lambda t: np.zeros(t.shape, np.float32), tree)
+        want = jax.tree_util.tree_map(tuple, jax_specs(npt, arch),
+                                      is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec))
+        want["embed"] = (None, None)
+        for site in row_sites:
+            if "perm" in want["layers"].get(site, {}):
+                want["layers"][site]["perm"] = (None, "model")
+        got = param_specs(tree, arch)
+        flat_w = jax.tree_util.tree_leaves(want, is_leaf=lambda s: isinstance(s, tuple))
+        flat_g = jax.tree_util.tree_leaves(got, is_leaf=lambda s: isinstance(s, tuple))
+        pad = [tuple(w) + (None,) * (len(g) - len(w)) for w, g in zip(flat_w, flat_g)]
+        assert pad == flat_g, cfg
+
+
+def test_fused_sites_split_per_member(qtpu_refs):
+    """A rank's qkv_proj / gateup_proj shard is [q_r | k_r | v_r] /
+    [gate_r | up_r] of the unfused sites' shards, byte for byte."""
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.sharding.specs import shard_params
+
+    payload, _ = qtpu_refs
+    cfg = payload["cfgs"]["llama"]
+    packed, qmeta = pack_model(payload["llama"], "rtn", {"w_bit": 4, "q_group_size": 64})
+    fused, _ = fuse_packed_sites(packed, qmeta)
+    for r in range(2):
+        loose = shard_params(packed, 2, rank=r, cfg=cfg)["layers"]
+        tight = shard_params(fused, 2, rank=r, cfg=cfg)["layers"]
+        for fname, parts in (("qkv_proj", ("q_proj", "k_proj", "v_proj")),
+                             ("gateup_proj", ("gate_proj", "up_proj"))):
+            for key in ("data", "scales", "zeros"):
+                want = torch.cat([loose[s][key] for s in parts], dim=-1)
+                assert torch.equal(tight[fname][key], want), (fname, key, r)
+
+
+def test_row_parallel_packed_shard_equals_packing_the_k_slice(qtpu_refs):
+    """W4's group-halves layout keeps a group's bytes in contiguous rows, so
+    a row-parallel shard of the packed site equals packing the dense K
+    slice."""
+    from qtpu_torch.core.packing import quantize_pack
+    from qtpu_torch.quant.apply import pack_model
+    from qtpu_torch.sharding.specs import shard_params
+
+    payload, _ = qtpu_refs
+    p = payload["llama"]
+    packed, _ = pack_model(p, "rtn", {"w_bit": 4, "q_group_size": 64})
+    for r in range(2):
+        got = shard_params(packed, 2, rank=r, cfg=payload["cfgs"]["llama"])["layers"]
+        for site in ("o_proj", "down_proj"):
+            w = p["layers"][site]["w"][0]
+            K = w.shape[0]
+            want = quantize_pack(w[r * K // 2:(r + 1) * K // 2], 4, 64)
+            for key in ("data", "scales", "zeros"):
+                assert torch.equal(got[site][key][0], getattr(want, key)), (site, key, r)
+
+
+def test_undividable_dims_raise(qtpu_refs):
+    from qtpu_torch.quant.apply import pack_model
+    from qtpu_torch.sharding.specs import local_config, shard_params
+
+    payload, _ = qtpu_refs
+    cfg = payload["cfgs"]["llama"]
+    with pytest.raises(ValueError, match="num_kv_heads"):  # KV 2 over tp 4
+        local_config(cfg, 4)
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        shard_params(payload["llama"], 4, rank=0, cfg=cfg)
+    packed, _ = pack_model(payload["llama"], "rtn", {"w_bit": 4, "q_group_size": 256})
+    with pytest.raises(ValueError, match="off a group boundary"):  # o_proj K 256 / 2 < 256
+        shard_params(packed, 2, rank=0, cfg=cfg)
+    with pytest.raises(ValueError, match="vocab_size"):
+        local_config(cfg.replace(vocab_size=50257), 2)  # GPT-2's vocabulary
+
+
+def test_boundary_branch_under_tp_raises(world):
+    assert "QTPU_BOUNDARY" in case(world, "boundary")
+
+
+@pytest.mark.parametrize("arch,tol", [("llama", 2e-2), ("gpt2", 3e-2), ("opt", 3e-2)])
+def test_tp_dp_forward_matches_qtpu_and_unsharded(world, qtpu_refs, arch, tol):
+    payload, want = qtpu_refs
+    got = rows(world, f"fwd_{arch}")
+    _close(got, want[f"fwd_{arch}"], tol)
+    _close(got, _port(payload, arch), tol)
+    # the model ranks agree
+    np.testing.assert_array_equal(case(world, f"fwd_{arch}", 1), case(world, f"fwd_{arch}", 0))
+
+
+@pytest.mark.parametrize("name,qkey", [("packed", "packed_qmeta"), ("actorder", "actorder_qmeta")])
+def test_tp_dp_packed_forward_matches_qtpu(world, qtpu_refs, name, qkey):
+    payload, want = qtpu_refs
+    got = rows(world, f"fwd_{name}")
+    _close(got, want[f"fwd_{name}"], 2e-2)
+    _close(got, _port(payload, "llama", f"llama_{name}", payload[qkey]), 2e-2)
+
+
+@pytest.mark.parametrize("arch,tol", [("llama", 2e-2), ("opt", 3e-2)])
+def test_tp_dp_decode_matches_qtpu(world, qtpu_refs, arch, tol):
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    payload, want = qtpu_refs
+    name = "decode" if arch == "llama" else "decode_opt"
+    got = np.concatenate([case(world, name, r)["logits"].numpy() for r in (0, 2)])
+    cfg = payload["cfgs"][arch]
+    assert case(world, name)["kv_shape"][2] == cfg.num_kv_heads // 2  # the rank's KV heads
+    _close(got, want[name], tol)
+    # the port unsharded, teacher-forced on the sharded run's tokens
+    params = payload["llama_fused" if arch == "llama" else "opt_fused"]
+    qmeta = payload["fused_qmeta" if arch == "llama" else "opt_qmeta"]
+    prompt = payload["ids"][:4, :16]
+    cache = init_cache(cfg, 4, 32, quantized=True, device="cpu")
+    logits, cache = prefill(params, prompt, cache, cfg, qmeta, arch=arch)
+    ref = [logits.numpy()]
+    pos = torch.full((4,), 16, dtype=torch.int32)
+    for i in range(3):
+        tok = torch.from_numpy(got[:, i].argmax(-1)).to(torch.int32)
+        logits, cache = decode_step(params, tok, pos, cache, cfg, qmeta, arch=arch)
+        ref.append(logits.numpy())
+        pos = pos + 1
+    ref = np.stack(ref, 1)
+    _close(got, ref, tol)
+    top2 = np.sort(ref, -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > GAP
+    assert (got.argmax(-1) == ref.argmax(-1))[clear].all()
+
+
+def test_dp_perplexity_equals_serial(world, qtpu_refs):
+    from qtpu_torch.eval.perplexity import evaluate_perplexity
+
+    payload, _ = qtpu_refs
+    serial = evaluate_perplexity(payload["llama_packed"], payload["stream"],
+                                 payload["cfgs"]["llama"], n_samples=6, block_size=64,
+                                 qmeta=payload["packed_qmeta"])
+    got = [case(world, "ppl_dp", r) for r in range(WORLD)]
+    assert len(set(got)) == 1
+    assert abs(got[0] / serial - 1) < 1e-5, (got[0], serial)
+    tp = case(world, "ppl_tp")
+    assert abs(tp / serial - 1) < 1e-2, (tp, serial)
+
+
+def test_runner_mesh_config_runs_sharded(world):
+    from qtpu_torch.bench import QuantizationBenchmark
+
+    results, meshed = case(world, "runner")
+    assert meshed
+    bench = QuantizationBenchmark(dict(RUN_CONFIG), device="cpu")
+    bench.run_all_benchmarks()
+    assert set(results) == set(bench.results) == {"raw", "rtn", "awq", "serving"}
+    for name in ("raw", "rtn", "awq"):
+        want = bench.results[name].to_dict()
+        assert results[name]["error"] is None, results[name]
+        assert abs(results[name]["perplexity"] / want["perplexity"] - 1) < 1e-2, name
+        if name != "raw":
+            assert abs(results[name]["packed_perplexity"] / want["packed_perplexity"] - 1) < 1e-2
+    assert results["serving"]["tokens_per_second"] > 0
+
+
+def test_runner_mesh_above_the_world_runs_single_device(capsys):
+    from qtpu_torch.bench import QuantizationBenchmark
+
+    cfg = dict(RUN_CONFIG, quantization_methods=[], serving={"benchmark": False},
+               verbose=True, mesh={"data": 2, "model": 2})
+    bench = QuantizationBenchmark(cfg, device="cpu")
+    bench.run_all_benchmarks()
+    assert bench.mesh is None and bench.results["raw"].is_success()
+    assert "needs 4 devices, have 1 — running single-device" in capsys.readouterr().out
+
+
+def test_moe_expert_parallel_forward_matches_qtpu(world, qtpu_refs):
+    payload, want = qtpu_refs
+    got = rows(world, "fwd_moe")
+    _close(got, want["fwd_moe"], 3e-2)
+    _close(got, _port(payload, "moe"), 3e-2)
+
+
+@pytest.mark.parametrize("shape", [(4, 8), (4, 1), (1, 1)])
+def test_moe_expert_parallel_routes(world, shape):
+    got, want, gathered = case(world, "moe_routes")[shape]
+    assert gathered == (shape == (1, 1))  # K10's route at one slot, K9's otherwise
+    _close(got, want, 3e-2)
