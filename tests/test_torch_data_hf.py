@@ -14,6 +14,7 @@ import pytest
 import qtpu.native
 from qtpu.data import pipeline as jpipe
 from qtpu_torch.data import pipeline as tpipe
+from test_torch_native import _qtpu_native_so, qtpu_library  # noqa: F401  (fixtures)
 
 datasets = pytest.importorskip("datasets")
 
@@ -75,10 +76,10 @@ def test_prepare_calibration_samples_refuses_an_empty_dataset():
 
 
 @pytest.mark.parametrize("native", [True, False])
-def test_block_pack_equals_qtpu(monkeypatch, native):
-    if native and not qtpu.native.available():
-        pytest.skip("qtpu's native library did not load here")
-    if not native:
+def test_block_pack_equals_qtpu(monkeypatch, native, request):
+    if native:  # qtpu's library, built for this process alone
+        request.getfixturevalue("qtpu_library")
+    else:
         monkeypatch.setattr(qtpu.native, "_load", lambda: None)
     rng = np.random.default_rng(5)
     for block in (1, 3, 16, 64):

@@ -2,8 +2,12 @@
 the CPU: its bytes equal qtpu's qtpu.native and the port's own packers
 (qtpu_torch.core.packing, qtpu_torch.data.pipeline.block_pack), its numpy
 fallback gives the same, and processes building it at once each load a
-whole library."""
+whole library. qtpu's library is built by `qtpu_library` into a directory
+of this test process's own, so the comparison never depends on another
+process's in-place `make` of qtpu/native."""
 
+import ctypes
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +24,40 @@ from qtpu_torch.kernels import _build
 
 # TinyLlama-1.1B's site widths (K, N), K cut to 256 rows (two groups of 128)
 SITES = [(256, 2048), (256, 256), (256, 5632), (256, 2048)]
+# qtpu/native/Makefile's CXXFLAGS
+QTPU_NATIVE_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-shared", "-Wall")
+
+
+@pytest.fixture(scope="session")
+def _qtpu_native_so(tmp_path_factory):
+    """qtpu's unchanged qtpu/native/qtpu_native.cpp built with its Makefile's
+    flags into a temporary file of this process's own, renamed into place:
+    qtpu's loader runs `make` in its package directory, which several test
+    processes may do at once, and a process that loads the file while
+    another writes it takes qtpu's numpy fallback without a word."""
+    src = Path(jnative.__file__).with_name("qtpu_native.cpp")
+    out = tmp_path_factory.mktemp("qtpu_native") / "libqtpu_native.so"
+    tmp = out.with_name(f".{out.name}.{os.getpid()}")
+    r = subprocess.run([_build.host_compiler(), *QTPU_NATIVE_FLAGS, "-o", str(tmp), str(src)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, f"qtpu's native library did not build:\n{r.stderr}"
+    os.replace(tmp, out)
+    return out
+
+
+@pytest.fixture
+def qtpu_library(_qtpu_native_so, monkeypatch):
+    """qtpu.native loaded from _qtpu_native_so as qtpu's own loader loads
+    it (the same checks), for this test only. It fails where the library
+    does not load; it never skips."""
+    lib = ctypes.CDLL(str(_qtpu_native_so))
+    lib.qtpu_version.restype = ctypes.c_int
+    lib.qtpu_block_pack.restype = ctypes.c_int64
+    assert lib.qtpu_version() == 1
+    monkeypatch.setattr(jnative, "_lib", lib)
+    monkeypatch.setattr(jnative, "_tried", True)
+    assert jnative.available()
+    return lib
 
 
 @pytest.fixture(params=["native", "fallback"])
@@ -33,7 +71,7 @@ def path(request, monkeypatch):
 
 
 @pytest.mark.parametrize("g", [32, 64, 128])
-def test_pack_int4_bytes_equal(path, g):
+def test_pack_int4_bytes_equal(path, g, qtpu_library):
     q = np.random.default_rng(g).integers(0, 16, (256, 96), dtype=np.uint8)
     got = native.pack_int4(q, g)
     assert got.dtype == np.int8 and got.shape == (128, 96)
@@ -46,7 +84,7 @@ def test_pack_int4_bytes_equal(path, g):
 
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("site", range(len(SITES)))
-def test_quantize_pack_bytes_equal(path, bits, site):
+def test_quantize_pack_bytes_equal(path, bits, site, qtpu_library):
     K, N = SITES[site]
     w = (np.random.default_rng(site).standard_normal((K, N)) * 0.02).astype(np.float32)
     data, scales, zeros = native.quantize_pack(w, bits, 128)
@@ -62,7 +100,7 @@ def test_quantize_pack_bytes_equal(path, bits, site):
         np.testing.assert_array_equal(scales, js)
 
 
-def test_block_pack_equals_the_numpy_packer(path):
+def test_block_pack_equals_the_numpy_packer(path, qtpu_library):
     rng = np.random.default_rng(3)
     samples = [rng.integers(0, 32000, size=n, dtype=np.int32) for n in (5, 170, 40, 3, 999)]
     for block in (16, 128, 2048):
