@@ -255,7 +255,22 @@ Phases, each printing one JSON line:
            through host memory, counted): TP 2 serve and eval, DP 2 eval
            and calibration, pipe 2 eval, ring attention at seq 2 (S 8192,
            8 layers), MoE EP 2 at Mixtral-8x7B widths, each held to the
-           one-rank run
+           one-rank run; an 8-process gloo world: TinyLlama W4 g64 at TP 8,
+           twice its 4 KV heads (each rank holds the KV head its q heads
+           read), 8 decode steps against a one-rank run
+  extras   qtpu's last entry points at full width: every measurement of
+           `python -m qtpu_torch.bench.extra` (bench_extra.py's keys:
+           Llama-2-7B W4 decode at B 8, TinyLlama W4 prefill at 2 x 2048
+           and 1 x 8192, decode over a 16k per-layer cache, W8 and W8A8, B
+           32, the batcher cold and warm, the 8x1B MoE at B 8, 1, 2 and 1
+           on the grouped route) once with the fewest blocks qtpu's
+           estimator takes, each rate's launches held to their reckoning;
+           the 7B and 16k runs' first decode block against the plain
+           functions on the card; graft.entry()'s forward against its plain
+           run; scaling_sweep at (1, 1) and (2, 1) on 2 gloo ranks sharing
+           the card; graft.dryrun_multichip(4) on 4, its TP logits against
+           the one-rank forward. The kernels phase holds each kernel at the
+           shapes these measurements give it (its `kernels_extras` line)
 
 Each phase also holds the count of attention calls that took the plain
 route (a shape a kernel does not take, models/ops.py: hd % 16 == 8, hd >
@@ -284,7 +299,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
           "opt_2_7b", "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16",
-          "serve_moe", "http", "ckpt", "moe_methods", "utils", "synth", "shard")
+          "serve_moe", "http", "ckpt", "moe_methods", "utils", "synth", "shard", "extras")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
@@ -1045,6 +1060,10 @@ def phase_kernels(torch, ctx):
                       "codebook": "torch.matmul on the dequantized weight",
                       "moe": "torch.bmm on the experts dequantized to bf16",
                       "w8a8": "torch._int_mm on x_q and the column-major int8 weight"}})
+    t0 = time.perf_counter()
+    extra_detail = _extras_kernel_rows(torch, ctx)
+    emit({"phase": "kernels_extras", "card": ctx["smi"], "seconds": time.perf_counter() - t0,
+          "detail": extra_detail})
 
 
 EVAL_BLOCK = 2048  # test_block_size of the eval phase
@@ -3155,20 +3174,21 @@ def _route_flips(a, b, L):
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
 
 
-def _tinyllama_w4(torch, ctx):
+def _tinyllama_w4(torch, ctx, group=128):
     """TinyLlama-1.1B, all 22 layers, random per-layer weights drawn on the
-    card from seed 0, packed RTN W4 g128 with fused qkv/gateup sites; built
-    once per run and kept in ctx for the phases that follow."""
-    if "tinyllama_w4" not in ctx:
+    card from seed 0, packed RTN W4 g128 (or `group`) with fused qkv/gateup
+    sites; built once per run and kept in ctx for the phases that follow."""
+    key = "tinyllama_w4" if group == 128 else f"tinyllama_w4_g{group}"
+    if key not in ctx:
         from qtpu_torch.models import llama
         from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
         from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
 
         params = llama.init_params(cfg, seed=0, device="cuda")
-        params, qmeta = pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 128})
-        ctx["tinyllama_w4"] = fuse_packed_sites(params, qmeta)
+        params, qmeta = pack_model(params, "rtn", {"w_bit": 4, "q_group_size": group})
+        ctx[key] = fuse_packed_sites(params, qmeta)
         torch.cuda.synchronize()
-    return ctx["tinyllama_w4"]
+    return ctx[key]
 
 
 EAGER_PROFILE_STEPS = 4  # an eager block's profile: the profiler's own cost grows with its records
@@ -6114,6 +6134,9 @@ SHARD_SEQ = 8192  # the ring attention's sequence, split over seq 2
 # depth the ring is held to the K5 forward within SHARD_TOL
 SHARD_RING_LAYERS = 8
 SHARD_MOE_LAYERS = 2
+SHARD_TP8_STEPS = 8  # decode steps of the TP 8 serve run (8 ranks on the card)
+# TP 8's group: down_proj's K 5632 / 8 = 704 rows is 11 groups of 64, 5.5 of 128
+SHARD_TP8_GROUP = 64
 SHARD_TOL = 3e-2  # logits of a sharded run against the one-rank run (relative)
 SHARD_GAP = 5e-2  # greedy tokens differing where the top-2 gap is below this: near-ties
 # a token differing where the gap is at or above this is a fault: twice 0.15,
@@ -6139,8 +6162,9 @@ def _shard_inputs(torch, cfg):
             "moe": {B: torch.randint(0, V, (B, 16), generator=g) for B in (8, 2)}}
 
 
-def _shard_serve(torch, cfg, packed, qmeta, prompt, tp=None, feed=None, timed=False):
-    """Prefill + SHARD_STEPS greedy decode steps (teacher-forced on `feed`,
+def _shard_serve(torch, cfg, packed, qmeta, prompt, tp=None, feed=None, timed=False,
+                 steps=SHARD_STEPS):
+    """Prefill + `steps` (SHARD_STEPS) greedy decode steps (teacher-forced on `feed`,
     the one-rank run's tokens, when given) on the int8 cache. Returns the
     logits [B, steps + 1, V] on the host, the tokens, the launches and
     routes of the prefill and of the decode steps, and (timed) each decode
@@ -6151,7 +6175,7 @@ def _shard_serve(torch, cfg, packed, qmeta, prompt, tp=None, feed=None, timed=Fa
 
     dev = prompt.device
     B, T = prompt.shape
-    cache = init_cache(cfg, B, T + SHARD_STEPS + 16, quantized=True, device=dev)
+    cache = init_cache(cfg, B, T + steps + 16, quantized=True, device=dev)
     _reset_counts()
     logits, cache = prefill(packed, prompt, cache, cfg, qmeta, tp=tp)
     torch.cuda.synchronize()
@@ -6161,7 +6185,7 @@ def _shard_serve(torch, cfg, packed, qmeta, prompt, tp=None, feed=None, timed=Fa
     _reset_counts()
     coll.STATS.reset()
     coll.STATS.timing = timed
-    for i in range(SHARD_STEPS):
+    for i in range(steps):
         tok = torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[:, i].to(dev)
         toks.append(tok.cpu())
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -6214,12 +6238,6 @@ def _shard_kernel_rows(torch, ctx):
     Mixtral-8x7B's experts (a rank's at EP 2): each against its plain
     version, with its time, the plain version's, the library call's and the
     bound from this run's shapes."""
-    from qtpu_torch.kernels import flash_attention as k5
-    from qtpu_torch.kernels import fused_mlp as k4
-    from qtpu_torch.kernels import kv_attention as k23
-    from qtpu_torch.kernels import moe_matmul as k9
-    from qtpu_torch.serve.kvcache import dequantize_kv
-
     gen = torch.Generator(device="cuda").manual_seed(21)
     dev = torch.device("cuda")
     rows = {}
@@ -6229,122 +6247,14 @@ def _shard_kernel_rows(torch, ctx):
             rows[f"K1_{name}_M{M}"] = {k: r[k] for k in ("M", "K", "N", "route", "rel_err", "ms",
                                                           "plain_ms", "library_ms", "bound_ms",
                                                           "bound_by")}
-    B, KV, H, hd, S, L = SERVE_B, 2, 16, 64, 176, 22
-    kc = [torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen, device=dev).to(torch.int8)
-          for _ in range(2)]
-    sc = [torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01 for _ in range(2)]
-    pos = torch.tensor([128, 130, 135, 140, 150, 160, 170, 175], dtype=torch.int32, device=dev)
-    kn, vn = (torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
-              for _ in range(2))
-    row_bytes = B * KV * (2 * hd * 2 + 2 * hd + 2 * 4) + B * 4
-    r = {"B": B, "KV": KV, "S": S}
-    r["bound_ms"], r["bound_by"] = bound(row_bytes, 0)
-    r["ms"], _ = cuda_ms(torch, [lambda l=l: k23.cache_band_write(kn, vn, *kc, *sc, pos, l)
-                                 for l in range(L)], row_bytes)
-    r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: k23.cache_band_write_plain(kn, vn, *kc, *sc,
-                                                                               pos, l)
-                                       for l in range(L)], row_bytes, reps=L, graph=False)
-    r["library_ms"] = None
-    rows["K2_kv2"] = r
-    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
-    got = k23.decode_attention(q, *kc, *sc, pos, 3)
-    want = k23.decode_attention_plain(q, *kc, *sc, pos, 3)
-    rows_read = sum(int(p) + 1 for p in pos.tolist())
-    att_bytes = rows_read * KV * (2 * hd + 2 * 4) + 2 * B * H * hd * 2 + B * 4
-    r = {"B": B, "H": H, "KV": KV, "S": S, "rel_err": rel_err(torch, got, want)}
-    r["bound_ms"], r["bound_by"] = bound(att_bytes, rows_read * H * hd * 4)
-    r["ms"], _ = cuda_ms(torch, [lambda l=l: k23.decode_attention(q, *kc, *sc, pos, l)
-                                 for l in range(L)], att_bytes)
-    r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: k23.decode_attention_plain(q, *kc, *sc, pos, l)
-                                       for l in range(L)], att_bytes)
-    kd, vd = dequantize_kv(kc[0][:4], sc[0][:4]), dequantize_kv(kc[1][:4], sc[1][:4])
-    mask = k23.cache_mask(pos[:, None], S)[:, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    r["library_ms"], _ = cuda_ms(torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l],
-                                                          attn_mask=mask, enable_gqa=True)
-                                         for l in range(4)], att_bytes)
-    rows["K3_kv2"] = r
-    if r["rel_err"] >= 2e-2:
-        raise AssertionError(f"K3 at the shard shape disagrees with its plain version: {r}")
-    D, F, g = 2048, 2816, 128
-    gu = _packed(torch, L, D, 2 * F, 4, g, gen, dev)
-    dn = _packed(torch, L, F, D, 4, g, gen, dev)
-    nw = torch.ones(L, D, dtype=torch.bfloat16, device=dev)
-    x = torch.randn(B, 1, D, generator=gen, device=dev).to(torch.bfloat16)
-    metas = ((4, g, D, 2 * F), (4, g, F, D))
-    mlp_w = (D * 2 * F + F * D) / 2 + (D // g) * 2 * F * 3 + (F // g) * D * 3
+    rows["K2_kv2"], rows["K3_kv2"] = _k23_rows(torch, gen, dev, SERVE_B, 2, 16, 64, 176, 22)
     for resid in (True, False):
-        def mlp(fn, l, resid=resid):
-            return fn(x, nw[l], gu[0][l], gu[1][l], gu[2][l], dn[0][l], dn[1][l], dn[2][l],
-                      *metas, resid=resid)
-
-        r = {"F": F, "resid": resid,
-             "rel_err": rel_err(torch, mlp(k4.fused_mlp, 0), mlp(k4.fused_mlp_plain, 0))}
-        r["bound_ms"], r["bound_by"] = bound(mlp_w + 2 * B * D * (3 if resid else 2),
-                                             2 * B * (D * 2 * F + F * D))
-        r["ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp, l) for l in range(L)], mlp_w)
-        r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp_plain, l)
-                                           for l in range(L)], mlp_w)
-        r["library_ms"] = None
-        rows[f"K4_f{F}{'' if resid else '_no_resid'}"] = r
-        if r["rel_err"] >= 3e-2:
-            raise AssertionError(f"K4 at the shard shape disagrees with its plain version: {r}")
-    S5 = EVAL_BLOCK
-    qkv = [(torch.randn(1, n, S5, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-           for n in (H, KV, KV)]
-    io_bytes = 2 * (2 * H * S5 * hd + 2 * KV * S5 * hd)
-    pairs = S5 * (S5 + 1) // 2
-    w0 = k5.flash_attention.wgmma_launches
-    r = {"H": H, "KV": KV, "S": S5,
-         "rel_err": rel_err(torch, k5.flash_attention(*qkv, 0), k5.flash_attention_plain(*qkv, 0)),
-         "route": "wgmma" if k5.flash_attention.wgmma_launches > w0 else "mma"}
-    r["bound_ms"], r["bound_by"] = bound(io_bytes, 4 * H * hd * pairs)
-    r["ms"], _ = cuda_ms(torch, [lambda: k5.flash_attention(*qkv, 0)], io_bytes)
-    r["plain_ms"], _ = cuda_ms(torch, [lambda: k5.flash_attention_plain(*qkv, 0)], io_bytes)
-    r["library_ms"], _ = cuda_ms(torch, [lambda: sdpa(*qkv, is_causal=True, enable_gqa=True)],
-                                 io_bytes)
-    rows["K5_h16_kv2"] = r
-    if r["rel_err"] >= 2e-2 or r["route"] != "wgmma":
-        raise AssertionError(f"K5 at the shard shape: {r}")
-    E = 4
-    for name, (K, N) in {"gate_up": (4096, 14336), "down": (14336, 4096)}.items():
-        site = _expert_site(torch, gen, dev, E, K, N)
-        meta = (4, MOE_GROUP, K, N)
-        wd = _dequant_experts(torch, site)
-        wbytes = E * (K * N / 2 + (K // MOE_GROUP) * N * 3)
-        xm = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
-        r = {"E": E, "M": B, "K": K, "N": N,
-             "rel_err": rel_err(torch, k9.moe_matmul(xm, *site, meta),
-                                k9.moe_matmul_plain(xm, *site, meta))}
-        r["bound_ms"], r["bound_by"] = bound(wbytes + B * K * 2 + E * B * N * 2, 2 * E * B * K * N)
-        r["ms"], _ = cuda_ms(torch, [lambda: k9.moe_matmul(xm, *site, meta)], wbytes)
-        r["plain_ms"], _ = cuda_ms(torch, [lambda: k9.moe_matmul_plain(xm, *site, meta)], wbytes)
-        r["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xm.expand(E, B, K), wd)],
-                                     wd.numel() * 2)
-        rows[f"K9_e4_{name}"] = r
-        eidx = torch.tensor((1, 3, 0, 3), dtype=torch.int32, device=dev)  # 2 slots x top-2
-        Gs, distinct = 4, 3
-        xg = torch.randn(Gs, K, generator=gen, device=dev).to(torch.bfloat16)
-        t0 = k9.moe_gathered_matmul.gemv_tc_launches
-        r = {"E": E, "Gs": Gs, "K": K, "N": N,
-             "rel_err": rel_err(torch, k9.moe_gathered_matmul(xg, eidx, *site, meta),
-                                k9.moe_gathered_matmul_plain(xg, eidx, *site, meta)),
-             "route": "gemv_tc" if k9.moe_gathered_matmul.gemv_tc_launches > t0 else "gemv"}
-        gbytes = distinct * (K * N / 2 + (K // MOE_GROUP) * N * 3)
-        r["bound_ms"], r["bound_by"] = bound(gbytes + Gs * (K + N) * 2 + Gs * 4, 2 * Gs * K * N)
-        r["ms"], _ = cuda_ms(torch, [lambda: k9.moe_gathered_matmul(xg, eidx, *site, meta)],
-                             gbytes)
-        r["plain_ms"], _ = cuda_ms(
-            torch, [lambda: k9.moe_gathered_matmul_plain(xg, eidx, *site, meta)], gbytes,
-            reps=8, graph=False)
-        wsel = wd[eidx.long()]
-        r["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xg[:, None], wsel)],
-                                     wsel.numel() * 2)
-        rows[f"K10_e4_{name}"] = r
-        for key in (f"K9_e4_{name}", f"K10_e4_{name}"):
-            if rows[key]["rel_err"] >= 2e-2:
-                raise AssertionError(f"{key} disagrees with its plain version: {rows[key]}")
-        del site, wd, wsel
+        rows[f"K4_f2816{'' if resid else '_no_resid'}"] = _k4_row(torch, gen, dev, SERVE_B,
+                                                                   2048, 2816, 22, resid)
+    rows["K5_h16_kv2"] = _k5_row(torch, gen, dev, 1, 16, 2, 64, EVAL_BLOCK)
+    moe = _k9_k10_rows(torch, gen, dev, 4, {"gate_up": (4096, 14336), "down": (14336, 4096)},
+                       SERVE_B, [(1, 3, 0, 3)])  # 2 slots x top-2
+    rows.update({k.replace("_gs4", "").replace("_", "_e4_", 1): v for k, v in moe.items()})
     for r in rows.values():
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["over_library"] = r["ms"] / r["library_ms"] if r.get("library_ms") else None
@@ -6555,6 +6465,41 @@ def _shard_child(rank, world, d):
         json.dump(res, f)
 
 
+def _shard_tp8_child(rank, world, d):
+    """One rank of an 8-process gloo world sharing the card: TinyLlama-1.1B
+    W4 g64 (SHARD_TP8_GROUP) at TP 8, twice its 4 KV heads (each rank holds
+    the KV head its 4 q heads read): prefill and SHARD_TP8_STEPS decode
+    steps teacher-forced on the one-rank run's tokens (d/ref_tp8.pt).
+    Writes d/tp8_rank<r>.json."""
+    import torch
+
+    from qtpu_torch.models import ops
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.sharding.mesh import local_group, make_mesh
+    from qtpu_torch.sharding.specs import shard_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = _shard_inputs(torch, cfg)
+    ref = torch.load(f"{d}/ref_tp8.pt")
+    mesh = make_mesh(data=1, model=8)
+    lp, lq, lc = shard_model(*_tinyllama_w4(torch, {}, SHARD_TP8_GROUP), cfg, mesh)
+    torch.cuda.empty_cache()
+    a0 = ops.plain_attention.launches
+    n = SHARD_TP8_STEPS
+    run = _shard_serve(torch, lc, lp, lq, inputs["prompt"].cuda(), tp=local_group(mesh, "model"),
+                       feed=ref["tokens"], timed=True, steps=n)
+    res = {"rank": rank, "kv_heads_per_rank": lc.num_kv_heads, "q_heads_per_rank": lc.num_heads,
+           "rel_err_per_step": [rel_err(torch, run["logits"][:, i], ref["logits"][:, i])
+                                for i in range(n + 1)],
+           "tokens": _token_check(run["logits"], ref["logits"][:, :n + 1], ref["tokens"][:, :n]),
+           "decode_counts": run["decode"]["counts"], "decode_routes": run["decode"]["routes"],
+           "step_ms": sum(run["step_ms"]) / n,
+           "collectives_per_step": {k: v / n for k, v in run["collectives"].items()},
+           "plain_attention": ops.plain_attention.launches - a0}
+    with open(f"{d}/tp8_rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
 def phase_shard(torch, ctx):
     """Sharding on the card. (a) The TP code in a 1-rank NCCL world, bit for
     bit the unsharded path (serve and eval). (b) A 2-process gloo world
@@ -6567,17 +6512,19 @@ def phase_shard(torch, ctx):
     block on its Hopper body, K1 on the Hopper route), DP 2 eval and
     calibration, pipe 2 eval (11 layers a stage), ring attention at seq 2
     (S 8192, the first SHARD_RING_LAYERS layers) and MoE EP 2 (Mixtral-8x7B
-    widths, 2 layers, 8 slots on K9 and 2 on K10); and the kernels at the
-    shard shapes, timed. Gates: logits within 3e-2 (relative) of the
-    one-rank run (the ring's of the one-rank forward on K5 and of the
-    one-rank forward through the ring code, its NLL within 1e-3 of K5's;
-    MoE EP routed to the one-rank run's experts, and also unforced where no
-    token routes otherwise); greedy tokens equal where the top-2 gap is
-    SHARD_FLIP_GAP or more (the differences under 5e-2 and over it counted
-    and printed); TP perplexity within 1%, DP / pipe perplexity and DP
-    statistics within 1e-5; no plain attention. Any difference between two
-    bf16 runs of this random 22-layer model, the f32 order of a sum
-    included, grows to 2-3% of the logits (PERF.md section 6)."""
+    widths, 2 layers, 8 slots on K9 and 2 on K10); (c) an 8-process gloo
+    world on the card: TinyLlama-1.1B W4 g64 at TP 8, twice its 4 KV heads
+    (one KV head a rank), SHARD_TP8_STEPS decode steps against a one-rank
+    run of the same model; and the kernels at the shard shapes, timed. Gates:
+    logits within 3e-2 (relative) of the one-rank run (the ring's of the
+    one-rank forward on K5 and of the one-rank forward through the ring code,
+    its NLL within 1e-3 of K5's; MoE EP routed to the one-rank run's experts,
+    and also unforced where no token routes otherwise); greedy tokens equal
+    where the top-2 gap is SHARD_FLIP_GAP or more (the differences under 5e-2
+    and over it counted and printed); TP perplexity within 1%, DP / pipe
+    perplexity and DP statistics within 1e-5; no plain attention. Any
+    difference between two bf16 runs of this random 22-layer model, the f32
+    order of a sum included, grows to 2-3% of the logits (PERF.md section 6)."""
     import tempfile
 
     from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
@@ -6599,6 +6546,17 @@ def phase_shard(torch, ctx):
               timeout_s=300)
         ranks = [json.load(open(f"{d}/rank{r}.json")) for r in range(2)]
         world_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        packed64, qmeta64 = _tinyllama_w4(torch, {}, SHARD_TP8_GROUP)
+        ref8 = _shard_serve(torch, cfg, packed64, qmeta64, inputs["prompt"].cuda(),
+                            steps=SHARD_TP8_STEPS)
+        torch.save({"logits": ref8["logits"], "tokens": ref8["tokens"]}, f"{d}/ref_tp8.pt")
+        del packed64, qmeta64, ref8
+        torch.cuda.empty_cache()
+        spawn(_shard_tp8_child, 8, (d,), init_file=f"{d}/gloo8_init", device="cuda",
+              timeout_s=300)
+        tp8 = [json.load(open(f"{d}/tp8_rank{r}.json")) for r in range(8)]
+        tp8_s = time.perf_counter() - t0
     for r in ranks:
         emit({"phase": "shard_rank", "card": ctx["smi"], "world_s": world_s, **r})
     fails = []
@@ -6647,8 +6605,746 @@ def phase_shard(torch, ctx):
                 fails.append(f"{tag} moe ep2 B {B} launches {m['decode_counts']}")
         if r["plain_attention"]:
             fails.append(f"{tag} plain attention {r['plain_attention']}")
+    emit({"phase": "shard_tp8", "card": ctx["smi"], "world_s": tp8_s, "ranks": tp8})
+    n = SHARD_TP8_STEPS
+    for r in tp8:
+        tag = f"tp8 rank {r['rank']}"
+        if (r["kv_heads_per_rank"], r["q_heads_per_rank"]) != (1, 4):
+            fails.append(f"{tag} heads a rank {r['q_heads_per_rank']} / {r['kv_heads_per_rank']}")
+        if max(r["rel_err_per_step"]) >= SHARD_TOL:
+            fails.append(f"{tag} logits {max(r['rel_err_per_step'])}")
+        if r["tokens"]["differ_clear"]:
+            fails.append(f"{tag} greedy tokens differ off near-ties: {r['tokens']}")
+        dc = r["decode_counts"]
+        want = {"dequant_matmul": 45 * n, "cache_band_write": L * n, "decode_attention": L * n,
+                "fused_mlp": L * n}
+        if {k: dc[k] for k in want} != want:
+            fails.append(f"{tag} decode launches {({k: dc[k] for k in want})} != {want}")
+        try:
+            _check_gemv(f"shard {tag} decode", dc, r["decode_routes"])
+        except AssertionError as ex:
+            fails.append(str(ex))
+        if r["plain_attention"]:
+            fails.append(f"{tag} plain attention {r['plain_attention']}")
+    ctx.setdefault("path_launches", {})["shard_tp8"] = {
+        "decode_attention_kv1": tp8[0]["decode_counts"]["decode_attention"]}
     if fails:
         raise AssertionError("shard: " + "; ".join(fails))
+
+
+
+# ---------------------------------------------------------------- extras
+# the shapes qtpu_torch.bench.extra gives the kernels (bench_extra.py's
+# measurements): each kernel there against its plain version in the kernels
+# phase, its launches counted in the extras phase's run of that measurement
+EXTRA_TOL = 3e-2  # logits of a kernels' run against the plain functions' run (relative)
+EXTRA_PLAIN_LAYERS = 2  # the depth at which the first decode blocks are held to the plain run
+
+
+def _k23_rows(torch, gen, dev, B, KV, H, hd, S, L):
+    """K2 and K3 on a stacked int8 cache of L layers [B, KV, S, hd], B
+    sequences at positions spread over [S - 48, S - 1], layers cycled: K2's
+    codes and scales against its plain write (codes within 1, scales 1e-6),
+    K3 within 2e-2 of its plain version; times of both, their plain
+    versions, SDPA(enable_gqa) on the cache dequantized to bf16 for K3 and
+    the bounds."""
+    from qtpu_torch.kernels import kv_attention as k23
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kc = [torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen, device=dev).to(torch.int8)
+          for _ in range(2)]
+    sc = [torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01 for _ in range(2)]
+    pos = torch.tensor([S - 48 + (47 * i) // max(1, B - 1) for i in range(B)], dtype=torch.int32,
+                       device=dev)
+    kn, vn = (torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    a, b = [t.clone() for t in kc + sc], [t.clone() for t in kc + sc]
+    k23.cache_band_write(kn, vn, *a, pos, 3)
+    k23.cache_band_write_plain(kn, vn, *b, pos, 3)
+    torch.cuda.synchronize()
+    code = max(int((x.int() - y.int()).abs().max()) for x, y in zip(a[:2], b[:2]))
+    scale = max(float((x - y).abs().max()) for x, y in zip(a[2:], b[2:]))
+    del a, b
+    row_bytes = B * KV * (2 * hd * 2 + 2 * hd + 2 * 4) + B * 4
+    k2 = {"B": B, "KV": KV, "S": S, "hd": hd, "max_abs_err": float(code), "scale_err": scale}
+    if code > 1 or scale > 1e-6:
+        raise AssertionError(f"K2 disagrees with its plain write: {k2}")
+    k2["bound_ms"], k2["bound_by"] = bound(row_bytes, 0)
+    k2["ms"], _ = cuda_ms(torch, [lambda l=l: k23.cache_band_write(kn, vn, *kc, *sc, pos, l)
+                                  for l in range(L)], row_bytes)
+    k2["plain_ms"], _ = cuda_ms(torch, [lambda l=l: k23.cache_band_write_plain(kn, vn, *kc, *sc,
+                                                                                pos, l)
+                                        for l in range(L)], row_bytes, reps=L, graph=False)
+    k2["library_ms"] = None
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    got = k23.decode_attention(q, *kc, *sc, pos, 3)
+    want = k23.decode_attention_plain(q, *kc, *sc, pos, 3)
+    torch.cuda.synchronize()
+    rows_read = sum(int(p) + 1 for p in pos.tolist())
+    att_bytes = rows_read * KV * (2 * hd + 2 * 4) + 2 * B * H * hd * 2 + B * 4
+    k3 = {"B": B, "H": H, "KV": KV, "S": S, "hd": hd, "rel_err": rel_err(torch, got, want),
+          "max_abs_err": float((got.float() - want.float()).abs().max())}
+    if k3["rel_err"] >= 2e-2 or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"K3 disagrees with its plain version: {k3}")
+    k3["bound_ms"], k3["bound_by"] = bound(att_bytes, rows_read * H * hd * 4)
+    k3["ms"], _ = cuda_ms(torch, [lambda l=l: k23.decode_attention(q, *kc, *sc, pos, l)
+                                  for l in range(L)], att_bytes)
+    k3["plain_ms"], _ = cuda_ms(torch, [lambda l=l: k23.decode_attention_plain(q, *kc, *sc, pos, l)
+                                        for l in range(L)], att_bytes)
+    n = min(4, L)
+    kd, vd = dequantize_kv(kc[0][:n], sc[0][:n]), dequantize_kv(kc[1][:n], sc[1][:n])
+    mask = k23.cache_mask(pos[:, None], S)[:, None]
+    k3["library_ms"], _ = cuda_ms(torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l],
+                                                           attn_mask=mask, enable_gqa=True)
+                                          for l in range(n)], att_bytes)
+    return k2, k3
+
+
+def _k4_row(torch, gen, dev, B, D, F, L, resid=True):
+    """K4 (W4 g128, M = B) against its plain version (relative 3e-2), the
+    body its route counters saw, times of the kernel and the plain version
+    over enough layers to exceed the L2, and the bound."""
+    from qtpu_torch.kernels import fused_mlp as k4
+
+    g = 128
+    mlp_w = (D * 2 * F + F * D) / 2 + (D // g) * 2 * F * 3 + (F // g) * D * 3
+    n = max(2, min(L, math.ceil(2 * L2_BYTES / mlp_w)))
+    gu = _packed(torch, n, D, 2 * F, 4, g, gen, dev)
+    dn = _packed(torch, n, F, D, 4, g, gen, dev)
+    nw = torch.ones(n, D, dtype=torch.bfloat16, device=dev)
+    x = torch.randn(B, 1, D, generator=gen, device=dev).to(torch.bfloat16)
+    metas = ((4, g, D, 2 * F), (4, g, F, D))
+
+    def mlp(fn, l):
+        return fn(x, nw[l], gu[0][l], gu[1][l], gu[2][l], dn[0][l], dn[1][l], dn[2][l], *metas,
+                  resid=resid)
+
+    t0 = k4.fused_mlp.gemv_tc_launches
+    got = mlp(k4.fused_mlp, 0)
+    r = {"M": B, "D": D, "F": F, "resid": resid,
+         "route": "gemv_tc" if k4.fused_mlp.gemv_tc_launches > t0 else "gemv",
+         "rel_err": rel_err(torch, got, mlp(k4.fused_mlp_plain, 0))}
+    r["max_abs_err"] = float((got.float() - mlp(k4.fused_mlp_plain, 0).float()).abs().max())
+    if r["rel_err"] >= 3e-2:
+        raise AssertionError(f"K4 disagrees with its plain version: {r}")
+    r["bound_ms"], r["bound_by"] = bound(mlp_w + 2 * B * D * (3 if resid else 2),
+                                         2 * B * (D * 2 * F + F * D))
+    r["ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp, l) for l in range(n)], mlp_w)
+    r["plain_ms"], _ = cuda_ms(torch, [lambda l=l: mlp(k4.fused_mlp_plain, l) for l in range(n)],
+                               mlp_w)
+    r["library_ms"] = None
+    return r
+
+
+def _k5_row(torch, gen, dev, B, H, KV, hd, S):
+    """K5 (causal) against its plain version, held one KV group of heads at
+    a time (the plain scores of all 32 heads at S 8192 are 8.6 GB of f32);
+    its body (the Hopper one); times of the kernel, of the plain version
+    over the groups, of SDPA and the bound."""
+    from qtpu_torch.kernels import flash_attention as k5
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = (torch.randn(B, H, S, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    k = (torch.randn(B, KV, S, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    v = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    G = H // KV
+    w0 = k5.flash_attention.wgmma_launches
+    got = k5.flash_attention(q, k, v, 0)
+    route = "wgmma" if k5.flash_attention.wgmma_launches > w0 else "mma"
+
+    def plain():
+        return [k5.flash_attention_plain(q[:, j * G:(j + 1) * G], k[:, j:j + 1], v[:, j:j + 1], 0)
+                for j in range(KV)]
+
+    want = torch.cat(plain(), 1)
+    torch.cuda.synchronize()
+    r = {"B": B, "H": H, "KV": KV, "hd": hd, "S": S, "route": route,
+         "rel_err": rel_err(torch, got, want),
+         "max_abs_err": float((got.float() - want.float()).abs().max()),
+         "plain": "one KV group of heads a call"}
+    del want
+    if r["rel_err"] >= 2e-2 or route != "wgmma" or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"K5 at the extras' shape: {r}")
+    io_bytes = 2 * B * (2 * H * S * hd + 2 * KV * S * hd)
+    pairs = S * (S + 1) // 2
+    r["bound_ms"], r["bound_by"] = bound(io_bytes, 4 * B * H * hd * pairs)
+    r["ms"], _ = cuda_ms(torch, [lambda: k5.flash_attention(q, k, v, 0)], io_bytes)
+    r["plain_ms"], _ = cuda_ms(torch, [plain], io_bytes, reps=2, graph=False)
+    r["library_ms"], _ = cuda_ms(torch, [lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)],
+                                 io_bytes)
+    return r
+
+
+def _k11_extra_row(torch, gen, dev, B, H, KV, hd, S, L):
+    """K11 (write and attend on a stacked int8 cache) against its plain
+    version: codes and scales written equal, output within 2e-2; times of
+    the kernel, the plain version, SDPA on the dequantized cache, bound."""
+    from qtpu_torch.kernels import kv_attention as k11
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    cache = [torch.randint(-127, 128, (L, B, KV, S, hd), generator=gen, device=dev).to(torch.int8)
+             for _ in range(2)]
+    cache += [torch.rand(L, B, KV, S, generator=gen, device=dev) * 0.05 + 0.01 for _ in range(2)]
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    kn, vn = (torch.randn(B, 1, KV, hd, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    pos = torch.tensor([S - 48 + (47 * i) // max(1, B - 1) for i in range(B)], dtype=torch.int32,
+                       device=dev)
+    kc, pc = [t.clone() for t in cache], [t.clone() for t in cache]
+    got = k11.decode_attention_write(q, kn, vn, *kc, pos, 2)
+    want = k11.decode_attention_write_plain(q, kn, vn, *pc, pos, 2)
+    torch.cuda.synchronize()
+    r = {"B": B, "H": H, "KV": KV, "S": S, "rel_err": rel_err(torch, got, want),
+         "max_abs_err": float((got.float() - want.float()).abs().max()),
+         "cache_equal": all(bool(torch.equal(a, b)) for a, b in zip(kc, pc))}
+    del kc, pc
+    if not r["cache_equal"] or r["rel_err"] >= 2e-2:
+        raise AssertionError(f"K11 disagrees with its plain version: {r}")
+    rows_read = sum(int(p) + 1 for p in pos.tolist())
+    nbytes = (rows_read * KV * (2 * hd + 2 * 4) + B * KV * (2 * hd * 2 + 2 * hd + 2 * 4)
+              + 2 * B * H * hd * 2 + B * 4)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, rows_read * H * hd * 4)
+    r["ms"], _ = cuda_ms(torch, [lambda l=l: k11.decode_attention_write(q, kn, vn, *cache, pos, l)
+                                 for l in range(L)], nbytes)
+    r["plain_ms"], _ = cuda_ms(
+        torch, [lambda l=l: k11.decode_attention_write_plain(q, kn, vn, *cache, pos, l)
+                for l in range(L)], nbytes, reps=L, graph=False)
+    n = min(4, L)
+    kd, vd = dequantize_kv(cache[0][:n], cache[2][:n]), dequantize_kv(cache[1][:n], cache[3][:n])
+    mask = k11.cache_mask(pos[:, None], S)[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    r["library_ms"], _ = cuda_ms(torch, [lambda l=l: sdpa(q[:, :, None], kd[l], vd[l],
+                                                          attn_mask=mask, enable_gqa=True)
+                                         for l in range(n)], nbytes)
+    return r
+
+
+def _k12_s16k_row(torch, gen, dev):
+    """K12's flash entry at the s16k measurement's layer (TinyLlama, B 4,
+    per-layer cache of S 16384, every sequence at 16000 + 128 + the block):
+    against its plain version (_k12_case), timed with the plain version and
+    SDPA on the dequantized layer."""
+    from qtpu_torch.kernels import kv_attention as k12
+    from qtpu_torch.serve.kvcache import dequantize_kv
+
+    S, B = 16384, 4
+    pos = [16128 + 3 * i for i in range(B)]
+    row, (cache, q, kn, vn, pos_t, entry) = _k12_case(torch, gen, dev, B, 4, 8, 64, S, pos, 0)
+    one = [t[0] for t in cache]
+    row["ms"], _ = cuda_ms(torch, [lambda: entry(q, kn, vn, *one, pos_t)], row["bytes"], reps=20)
+    row["plain_ms"], _ = cuda_ms(torch, [lambda: k12.flash_decode_plain(q, kn, vn, *one, pos_t)],
+                                 row["bytes"], reps=3, graph=False)
+    kd, vd = dequantize_kv(one[0], one[2]), dequantize_kv(one[1], one[3])
+    mask = (torch.arange(S, device=dev)[None, :] < pos_t[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"], _ = cuda_ms(
+        torch, [lambda: sdpa(q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True)],
+        row["bytes"], reps=20)
+    return row
+
+
+def _k9_k10_rows(torch, gen, dev, E, sites, M9, eidx):
+    """K9 (grouped, M9 rows on every expert) and K10 (gathered, the slots of
+    eidx) at each (K, N) expert site of `sites` against their plain
+    versions (relative 2e-2); times of both, their plain versions,
+    torch.bmm on the bf16 experts (K10: the routed experts gathered), and
+    the bounds (K10 from the distinct routed experts)."""
+    from qtpu_torch.kernels import moe_matmul as k9
+
+    rows = {}
+    for name, (K, N) in sites.items():
+        site = _expert_site(torch, gen, dev, E, K, N)
+        meta = (4, MOE_GROUP, K, N)
+        wd = _dequant_experts(torch, site)
+        wbytes = E * (K * N / 2 + (K // MOE_GROUP) * N * 3)
+        xm = torch.randn(M9, K, generator=gen, device=dev).to(torch.bfloat16)
+        got = k9.moe_matmul(xm, *site, meta)
+        want = k9.moe_matmul_plain(xm, *site, meta)
+        r = {"E": E, "M": M9, "K": K, "N": N, "rel_err": rel_err(torch, got, want),
+             "max_abs_err": float((got.float() - want.float()).abs().max())}
+        r["bound_ms"], r["bound_by"] = bound(wbytes + M9 * K * 2 + E * M9 * N * 2,
+                                             2 * E * M9 * K * N)
+        r["ms"], _ = cuda_ms(torch, [lambda: k9.moe_matmul(xm, *site, meta)], wbytes)
+        r["plain_ms"], _ = cuda_ms(torch, [lambda: k9.moe_matmul_plain(xm, *site, meta)], wbytes)
+        r["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xm.expand(E, M9, K), wd)],
+                                     wd.numel() * 2)
+        rows[f"K9_{name}"] = r
+        for slots in eidx:
+            ei = torch.tensor(slots, dtype=torch.int32, device=dev)
+            Gs, distinct = len(slots), len(set(slots))
+            xg = torch.randn(Gs, K, generator=gen, device=dev).to(torch.bfloat16)
+            t0 = k9.moe_gathered_matmul.gemv_tc_launches
+            got = k9.moe_gathered_matmul(xg, ei, *site, meta)
+            want = k9.moe_gathered_matmul_plain(xg, ei, *site, meta)
+            r = {"E": E, "Gs": Gs, "K": K, "N": N, "rel_err": rel_err(torch, got, want),
+                 "max_abs_err": float((got.float() - want.float()).abs().max()),
+                 "route": "gemv_tc" if k9.moe_gathered_matmul.gemv_tc_launches > t0 else "gemv"}
+            gbytes = distinct * (K * N / 2 + (K // MOE_GROUP) * N * 3)
+            r["bound_ms"], r["bound_by"] = bound(gbytes + Gs * (K + N) * 2 + Gs * 4,
+                                                 2 * Gs * K * N)
+            r["ms"], _ = cuda_ms(torch, [lambda: k9.moe_gathered_matmul(xg, ei, *site, meta)],
+                                 gbytes)
+            r["plain_ms"], _ = cuda_ms(
+                torch, [lambda: k9.moe_gathered_matmul_plain(xg, ei, *site, meta)], gbytes,
+                reps=8, graph=False)
+            wsel = wd[ei.long()]
+            r["library_ms"], _ = cuda_ms(torch, [lambda: torch.bmm(xg[:, None], wsel)],
+                                         wsel.numel() * 2)
+            rows[f"K10_{name}_gs{Gs}"] = r
+            del wsel
+        for key in [k for k in rows if name in k]:
+            if rows[key]["rel_err"] >= 2e-2:
+                raise AssertionError(f"{key} disagrees with its plain version: {rows[key]}")
+        del site, wd
+    return rows
+
+
+def _k1_sum(rows, sites, L, key):
+    """The work of one step or block of K1 at those sites: L x the layer's
+    sites + lm_head."""
+    return L * sum(rows[s][key] for s in sites if s != "lm_head") + rows["lm_head"][key]
+
+
+# (row of the kernels line, wrapper counter, extras measurement that runs it)
+EXTRA_ROWS = {
+    "dequant_matmul_llama2_7b": ("dequant_matmul", "llama2_7b_w4_decode_tokens_per_s"),
+    "dequant_matmul_m32": ("dequant_matmul", "tinyllama_w4_decode_tokens_per_s_b32"),
+    "dequant_matmul_m8192": ("dequant_matmul", "tinyllama_w4_prefill_tokens_per_s_s8192"),
+    "dequant_matmul_w8": ("dequant_matmul", "tinyllama_w8_decode_tokens_per_s_staged"),
+    "cache_band_write_b32": ("cache_band_write", "tinyllama_w4_decode_tokens_per_s_b32"),
+    "cache_band_write_llama2_7b": ("cache_band_write", "llama2_7b_w4_decode_tokens_per_s"),
+    "decode_attention_b32": ("decode_attention", "tinyllama_w4_decode_tokens_per_s_b32"),
+    "decode_attention_llama2_7b": ("decode_attention", "llama2_7b_w4_decode_tokens_per_s"),
+    "decode_attention_kv1": ("decode_attention", "shard_tp8"),
+    "fused_mlp_llama2_7b": ("fused_mlp", "llama2_7b_w4_decode_tokens_per_s"),
+    "fused_mlp_m32": ("fused_mlp", "tinyllama_w4_decode_tokens_per_s_b32"),
+    "flash_attention_s8192": ("flash_attention", "tinyllama_w4_prefill_tokens_per_s_s8192"),
+    "flash_attention_s2048_b2": ("flash_attention", "tinyllama_w4_prefill_tokens_per_s_s2048"),
+    "decode_attention_write_moe_b8": ("decode_attention_write", "moe_8x1b_w4_decode_tokens_per_s"),
+    "decode_attention_write_moe_b2": ("decode_attention_write",
+                                      "moe_8x1b_w4_decode_tokens_per_s_b2"),
+    "decode_attention_write_moe_b1": ("decode_attention_write",
+                                      "moe_8x1b_w4_decode_tokens_per_s_b1"),
+    "decode_attention_flash_s16k": ("decode_attention_flash",
+                                    "tinyllama_w4_decode_tokens_per_s_s16k_cache"),
+    "moe_matmul_8x1b_m8": ("moe_matmul", "moe_8x1b_w4_decode_tokens_per_s"),
+    "moe_matmul_8x1b_m1": ("moe_matmul", "moe_8x1b_w4_decode_tokens_per_s_b1_dense"),
+    "moe_gathered_matmul_8x1b_b1": ("moe_gathered_matmul", "moe_8x1b_w4_decode_tokens_per_s_b1"),
+    "moe_gathered_matmul_8x1b_b2": ("moe_gathered_matmul", "moe_8x1b_w4_decode_tokens_per_s_b2"),
+}
+KERNEL_SOURCE = {
+    "dequant_matmul": ("dequant_matmul.cu", "pallas_dequant_matmul.py:385"),
+    "cache_band_write": ("kv_attention.cu", "pallas_kv_attention.py:1067"),
+    "decode_attention": ("kv_attention.cu", "pallas_kv_attention.py:1147"),
+    "fused_mlp": ("fused_mlp.cu", "pallas_fused_mlp.py:221"),
+    "flash_attention": ("flash_attention.cu", "pallas_flash_attention.py:86"),
+    "decode_attention_write": ("kv_attention.cu", "pallas_kv_attention.py:313"),
+    "decode_attention_flash": ("kv_flash_decode.cu", "pallas_kv_attention.py:804"),
+    "moe_matmul": ("moe_matmul.cu", "pallas_moe_matmul.py:40"),
+    "moe_gathered_matmul": ("moe_matmul.cu", "pallas_moe_matmul.py:165"),
+}
+
+
+def _extras_kernel_rows(torch, ctx):
+    """The kernels at the shapes of qtpu_torch.bench.extra's measurements
+    (Llama-2-7B at B 8, TinyLlama at B 32, prefill at S 8192 and 2 x 2048,
+    W8 at B 8, the 16k per-layer cache at B 4, the 8x1B MoE at B 8 / 2 / 1,
+    and K3 at one KV head a rank, TinyLlama's tp 8), each
+    against its plain version with its times and bound. Returns the detail;
+    adds one entry a shape to the kernels line (EXTRA_ROWS), at the work of
+    one decode step (prefill: one forward) of its measurement."""
+    from qtpu_torch.bench.extra import MOE_8X1B
+    from qtpu_torch.models.config import LLAMA2_7B as c7
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as ct
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    dev = torch.device("cuda")
+    detail, line = {}, {}
+
+    def k1(tag, cfg, M, bits, sites):
+        D, Q, KVd, F = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
+        shapes = {"qkv": (D, Q + 2 * KVd), "o": (Q, D), "gateup": (D, 2 * F), "down": (F, D),
+                  "lm_head": (D, cfg.vocab_size)}
+        rows = {s: _k1_case(torch, ctx, gen, dev, M, *shapes[s], bits, 128) for s in sites}
+        detail[f"K1_{tag}"] = rows
+        return rows
+
+    def put(name, rows_or_row, n=1, k1_sites=None, L=1):
+        kernel = EXTRA_ROWS[name][0]
+        src, rep = KERNEL_SOURCE[kernel]
+        if k1_sites is not None:
+            num = {key: _k1_sum(rows_or_row, k1_sites, L, key)
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            err = max(r["max_abs_err"] for r in rows_or_row.values())
+            by = max(rows_or_row.values(), key=lambda r: r["bound_ms"])["bound_by"]
+        else:
+            r = rows_or_row
+            num = {key: None if r.get(key) is None else n * r[key]
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            err, by = r["max_abs_err"], r["bound_by"]
+        line[name] = {"route": "cuda", "source": f"qtpu_torch/csrc/{src}",
+                      "replaces": f"qtpu/kernels/{rep}", "max_abs_err": err, **num,
+                      "bound_by": by, "measurement": EXTRA_ROWS[name][1]}
+
+    step = ("qkv", "o", "lm_head")
+    rows = k1("llama2_7b_m8", c7, 8, 4, ("qkv", "o", "gateup", "down", "lm_head"))
+    put("dequant_matmul_llama2_7b", rows, k1_sites=step, L=c7.num_layers)
+    put("dequant_matmul_m32", k1("tinyllama_m32", ct, 32, 4, step), k1_sites=step,
+        L=ct.num_layers)
+    block = ("qkv", "o", "gateup", "down", "lm_head")
+    put("dequant_matmul_m8192", k1("tinyllama_m8192", ct, 8192, 4, block), k1_sites=block,
+        L=ct.num_layers)
+    put("dequant_matmul_w8", k1("tinyllama_w8_m8", ct, 8, 8, step), k1_sites=step,
+        L=ct.num_layers)
+    L7, Lt = c7.num_layers, ct.num_layers
+    for tag, (B, KV, H, hd, L) in {"b32": (32, 4, 32, 64, Lt), "llama2_7b": (8, 32, 32, 128, L7),
+                                   "kv1": (8, 1, 4, 64, Lt)}.items():
+        k2, k3 = _k23_rows(torch, gen, dev, B, KV, H, hd, 176, L)
+        detail[f"K2_{tag}"], detail[f"K3_{tag}"] = k2, k3
+        if tag != "kv1":
+            put(f"cache_band_write_{tag}", k2, L)
+        put(f"decode_attention_{tag}", k3, L)
+    for tag, (B, c, L) in {"llama2_7b": (8, c7, L7), "m32": (32, ct, Lt)}.items():
+        D, F = c.hidden_size, c.intermediate_size
+        detail[f"K4_{tag}"] = r = _k4_row(torch, gen, dev, B, D, F, L)
+        put(f"fused_mlp_{tag}", r, L)
+    for tag, (B, S) in {"s8192": (1, 8192), "s2048_b2": (2, 2048)}.items():
+        detail[f"K5_{tag}"] = r = _k5_row(torch, gen, dev, B, 32, 4, 64, S)
+        put(f"flash_attention_{tag}", r, Lt)
+        torch.cuda.empty_cache()
+    for B in (8, 2, 1):
+        detail[f"K11_moe_b{B}"] = r = _k11_extra_row(torch, gen, dev, B, 32, 4, 64, 176, Lt)
+        put(f"decode_attention_write_moe_b{B}", r, Lt)
+    detail["K12_s16k"] = r = _k12_s16k_row(torch, gen, dev)
+    put("decode_attention_flash_s16k", r, Lt)
+    torch.cuda.empty_cache()
+    D, F, E = (MOE_8X1B[k] for k in ("hidden_size", "intermediate_size", "num_experts"))
+    sites = {"gate_up": (D, F), "down": (F, D)}
+    moe = {}
+    for M9, slots in ((8, [(1, 5), (0, 3, 3, 6)]), (1, [])):
+        moe[M9] = _k9_k10_rows(torch, gen, dev, E, sites, M9, slots)
+        detail[f"K9_K10_8x1b_m{M9}"] = moe[M9]
+
+    def moe_step(rows, prefix, suffix=""):
+        r = {key: Lt * (2 * rows[f"{prefix}_gate_up{suffix}"][key]
+                        + rows[f"{prefix}_down{suffix}"][key])
+             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        r["max_abs_err"] = max(rows[f"{prefix}_{s}{suffix}"]["max_abs_err"]
+                               for s in ("gate_up", "down"))
+        r["bound_by"] = rows[f"{prefix}_down{suffix}"]["bound_by"]
+        return r
+
+    put("moe_matmul_8x1b_m8", moe_step(moe[8], "K9"))
+    put("moe_matmul_8x1b_m1", moe_step(moe[1], "K9"))
+    put("moe_gathered_matmul_8x1b_b1", moe_step(moe[8], "K10", "_gs2"))
+    put("moe_gathered_matmul_8x1b_b2", moe_step(moe[8], "K10", "_gs4"))
+    ctx["kernel_rows"].update(line)
+    return detail
+
+
+PLAIN_OF = {  # (model module, wrapper name) -> (kernel module, plain version)
+    ("ops", "quantized_matmul"): ("dequant_matmul", "quantized_matmul_plain"),
+    ("llama", "quantized_matmul"): ("dequant_matmul", "quantized_matmul_plain"),
+    ("ops", "flash_attention"): ("flash_attention", "flash_attention_plain"),
+    ("ops", "w8a8_matmul"): ("int8_matmul", "w8a8_matmul_plain"),
+    ("ops", "codebook_matmul"): ("codebook_matmul", "codebook_matmul_plain"),
+    ("llama", "cache_band_write"): ("kv_attention", "cache_band_write_plain"),
+    ("llama", "decode_attention"): ("kv_attention", "decode_attention_plain"),
+    ("llama", "decode_attention_flash"): ("kv_attention", "flash_decode_plain"),
+    ("llama", "decode_attention_write"): ("kv_attention", "decode_attention_write_plain"),
+    ("llama", "decode_attention_write_bf16"): ("kv_attention",
+                                                "decode_attention_write_bf16_plain"),
+    ("moe", "moe_matmul"): ("moe_matmul", "moe_matmul_plain"),
+    ("moe", "moe_gathered_matmul"): ("moe_matmul", "moe_gathered_matmul_plain"),
+}
+
+
+class _PlainKernels:
+    """Within it the models call every kernel's plain version on the card
+    (PLAIN_OF, and K4's module attribute): the same steps without a kernel.
+    On leaving, it checks that no wrapper counted a launch."""
+
+    def __enter__(self):
+        import importlib
+
+        from qtpu_torch.kernels import fused_mlp as k4
+
+        self.before = _counts()
+        self.saved = []
+        for (mod, name), (kmod, plain) in PLAIN_OF.items():
+            m = importlib.import_module(f"qtpu_torch.models.{mod}")
+            self.saved.append((m, name, getattr(m, name)))
+            setattr(m, name, getattr(importlib.import_module(f"qtpu_torch.kernels.{kmod}"), plain))
+        self.saved.append((k4, "fused_mlp", k4.fused_mlp))
+        k4.fused_mlp = k4.fused_mlp_plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+        moved = {k: v - self.before[k] for k, v in _counts().items() if v != self.before[k]}
+        if moved and exc[0] is None:
+            raise AssertionError(f"the plain run launched kernels: {moved}")
+
+
+def _forced_block(torch, packed, qmeta, cfg, rec):
+    """decode_tps's first run up to its first block, eagerly and
+    teacher-forced on its recorded tokens: the logits each token was drawn
+    from, [B, 1 + block, V] (the prefill's first), on the host."""
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    prompt, arch, pad = rec["prompt"], rec["arch"], rec["cache_pad"]
+    (B, P), dev = prompt.shape, prompt.device
+    toks = torch.cat([rec["prefill_token"][:, None], rec["first_block"]], 1)
+    cache = init_cache(cfg, B, rec["S"], quantized=True, device=dev, per_layer=rec["per_layer"])
+    start = torch.full((B,), pad, dtype=torch.int32, device=dev) if pad else None
+    logits, cache = prefill(packed, prompt, cache, cfg, qmeta, start=start, arch=arch)
+    outs = [logits.float().cpu()]
+    for i in range(toks.shape[1] - 1):
+        pos = torch.full((B,), pad + P + i, dtype=torch.int32, device=dev)
+        logits, cache = decode_step(packed, toks[:, i].contiguous(), pos, cache, cfg, qmeta,
+                                    arch=arch)
+        outs.append(logits.float().cpu())
+    return torch.stack(outs, 1), toks.cpu()
+
+
+def _cut(packed, n):
+    """The first n layers of a params tree (views)."""
+    return {**packed, "layers": {s: {k: None if v is None else v[:n] for k, v in p.items()}
+                                 if isinstance(p, dict) else p[:n]
+                                 for s, p in packed["layers"].items()}}
+
+
+def _f32(packed):
+    """The params with their dense leaves (embedding, norms) in f32, so the
+    plain functions run the model in f32 on the same packed bytes."""
+    return {k: ({s: p if isinstance(p, dict) else p.float() for s, p in v.items()}
+                if k == "layers" else v if isinstance(v, dict) else v.float())
+            for k, v in packed.items()}
+
+
+def _block_vs_plain(torch, rec):
+    """The recorded first block of a decode_tps run (CUDA graphs) against
+    the same steps run eagerly on the kernels, whose argmax must be its
+    tokens bit for bit; then, on the first EXTRA_PLAIN_LAYERS layers fed
+    the same tokens, the kernels against the plain functions on the card:
+    logits within EXTRA_TOL each step and the kernels' tokens equal to the
+    plain run's where its top-2 gap is SHARD_FLIP_GAP or more (e2e's
+    2-layer gate). Printed, not gated: the same at 4 layers and at full
+    depth, and at 4 layers both runs against the plain functions in f32 on
+    the same bytes. These models repeat one random layer (synth), and a
+    bf16 difference grows through the repeats: the 7B's prefill logits
+    8.5e-2 apart at 32 layers and 3.2e-2 at 4 (my chip call 4), each kernel
+    within 5e-3 of its plain version at these shapes."""
+    packed, qmeta = rec["model"]
+    cfg = rec["cfg"]
+    got, toks = _forced_block(torch, packed, qmeta, cfg, rec)
+    out = {"steps": toks.shape[1], "B": toks.shape[0],
+           "graph_tokens_are_eager_argmax": bool(torch.equal(got.argmax(-1).to(toks.dtype),
+                                                             toks))}
+
+    def per_step(a, b):
+        return [rel_err(torch, a[:, i], b[:, i]) for i in range(a.shape[1])]
+
+    L = cfg.num_layers
+    for n in sorted({min(d, L) for d in (EXTRA_PLAIN_LAYERS, 4, L)}):
+        cut, ccfg = _cut(packed, n), cfg.replace(num_layers=n)
+        kern = got if n == L else _forced_block(torch, cut, qmeta, ccfg, rec)[0]
+        with _PlainKernels():
+            plain, _ = _forced_block(torch, cut, qmeta, ccfg, rec)
+            f32 = (_forced_block(torch, _f32(cut), qmeta, ccfg, rec)[0] if n == min(4, L)
+                   else None)
+        r = {"rel_err_per_step": per_step(kern, plain)}
+        if f32 is not None:
+            r["kernels_vs_f32"] = max(per_step(kern, f32))
+            r["plain_vs_f32"] = max(per_step(plain, f32))
+        if n == min(EXTRA_PLAIN_LAYERS, L):
+            pad = torch.cat([plain, plain[:, -1:]], 1)  # _token_check drops the last logits
+            r["tokens"] = _token_check(pad, pad, kern.argmax(-1))
+        out[f"layers_{n}"] = r
+    gated = out[f"layers_{min(EXTRA_PLAIN_LAYERS, L)}"]
+    if (not out["graph_tokens_are_eager_argmax"] or max(gated["rel_err_per_step"]) >= EXTRA_TOL
+            or gated["tokens"]["differ_clear"]):
+        raise AssertionError(f"extras: the first decode block against the plain run: {out}")
+    return out
+
+
+def _extras_reckon(key, rec, plan, L, L7):
+    """What each kernel launches over one measurement's decode_tps or
+    prefill_tps calls: 3 runs (n_small, n_large, n_small) of a prefill and
+    their blocks, and the warm-up block before the capture."""
+    if "prefill" in key:
+        iters = plan.prefill[0 if key.endswith("s2048") else 1][2]
+        n = iters + 3  # run(1), run(iters + 1), run(1)
+        return {"dequant_matmul": n * (4 * L + 1), "flash_attention": n * L}
+    steps = plan.block * (2 * plan.n_small + plan.n_large[_plan_key(key)] + 1)
+    Lm = L7 if "7b" in key else L
+    out = {"prefills": 3, "steps": steps}
+    if "moe" in key:
+        c = rec["cfg"]
+        gathered = rec["B"] * c.num_experts_per_tok < c.num_experts and not key.endswith("_dense")
+        out.update(dequant_matmul=(3 + steps) * (4 * Lm + 1),
+                   decode_attention_write=steps * Lm,
+                   moe_matmul=3 * 3 * Lm + (0 if gathered else steps * 3 * Lm),
+                   moe_gathered_matmul=steps * 3 * Lm if gathered else 0)
+    elif "w8a8" in key:
+        out.update(w8a8_matmul=(3 + steps) * (7 * Lm + 1), dequant_matmul=0, fused_mlp=0,
+                   cache_band_write=steps * Lm, decode_attention=steps * Lm)
+    elif "s16k" in key:
+        out.update(dequant_matmul=3 * (4 * Lm + 1) + steps * (2 * Lm + 1),
+                   fused_mlp=steps * Lm, decode_attention_flash=steps * Lm,
+                   cache_band_write=0, decode_attention=0)
+    else:
+        out.update(dequant_matmul=3 * (4 * Lm + 1) + steps * (2 * Lm + 1),
+                   fused_mlp=steps * Lm, cache_band_write=steps * Lm,
+                   decode_attention=steps * Lm)
+    return out
+
+
+def _plan_key(key):
+    for tag, n in (("llama2_7b", "7b"), ("s16k", "s16k"), ("w8", "w8"), ("b32", "b32"),
+                   ("moe", "moe")):
+        if tag in key:
+            return n
+    raise KeyError(key)
+
+
+EXTRA_PLAIN_CHECKS = ("llama2_7b_w4_decode_tokens_per_s",
+                      "tinyllama_w4_decode_tokens_per_s_s16k_cache")
+
+
+def phase_extras(torch, ctx):
+    """qtpu's last entry points on the card at full width. (1) Every
+    measurement of qtpu_torch.bench.extra (bench_extra.py's keys: Llama-2-7B
+    W4 at B 8, TinyLlama W4 prefill at 2 x 2048 and 1 x 8192, decode over a
+    16k per-layer cache at B 4, W8 and W8A8 at B 8, B 32, the batcher cold
+    and warm, the 8x1B MoE at B 8, 1, 2 and 1 forced onto the grouped
+    route) once, with the fewest blocks qtpu's estimator takes (n_small 1,
+    n_large 2, prefill 2 forwards against 1): each rate on a line of its
+    own with the launches of each kernel, held to the reckoning of its runs
+    (K12 in s16k, K9 at B 8 and b1_dense, K10 at B 1 and 2, K6 and no K1 in
+    W8A8, K5 in prefill on its Hopper body, K4 at M 32 on dq_core's GEMV
+    since the tensor-core one takes M <= 8). (2) The first decode block of
+    the 7B run and of the s16k run (graphs) against the same steps eagerly
+    on the kernels (bit for bit) and, on their first EXTRA_PLAIN_LAYERS
+    layers, on the plain functions on the card (_block_vs_plain: 4 layers,
+    f32 and the full depth printed, not gated). (3) graft.entry()'s forward on
+    the kernels against the plain functions. (4) scaling_sweep at (1, 1) and
+    (2, 1) on TinyLlama W4, the two ranks gloo processes sharing the card (a
+    functional run: its efficiency means nothing). (5)
+    graft.dryrun_multichip(4): 4 gloo ranks on the card, the TP logits against
+    the one-rank forward."""
+    from qtpu_torch.bench import extra, graft
+    from qtpu_torch.bench.scaling import scaling_sweep
+    from qtpu_torch.bench.synth import tiled_packed_llama
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import LLAMA2_7B, TINY_TEST
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.quant.apply import pack_model
+
+    L, L7 = cfg.num_layers, LLAMA2_7B.num_layers
+    plan = extra.Plan().quick()
+    records, rates, paths = {}, {}, ctx.setdefault("path_launches", {})
+    for keys, thunk in extra.measurements(plan, "cuda", records):
+        _reset_counts()
+        t0 = time.perf_counter()
+        vals = thunk()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, routes = _counts(), _route_counts()
+        rates.update(vals)
+        emit({"phase": "extras_rate", "card": ctx["smi"], **vals, "seconds": secs,
+              "launches": {k: v for k, v in counts.items() if v},
+              "routes": {k: v for k, v in routes.items() if v}})
+        paths[f"extras_{keys[0]}"] = {**counts, **routes}
+        for name, (kernel, key) in EXTRA_ROWS.items():
+            if key in keys:
+                paths[f"extras_{keys[0]}"][name] = counts[kernel]
+        if keys[0].startswith("batcher"):  # 12 slots: K1 on the Hopper route, K4 on dq_core's
+            path = ("dequant_matmul", "cache_band_write", "decode_attention", "fused_mlp")
+            if (not all(counts[k] for k in path)
+                    or any(v for k, v in counts.items() if k not in path)
+                    or routes["dequant_matmul_wgmma"] != counts["dequant_matmul"]):
+                raise AssertionError(f"extras: the batcher's launches {counts}, {routes}")
+            continue
+        if len(keys) == 2:  # W8 and W8A8 ran in one thunk: held to their sum
+            want = {}
+            for k in keys:
+                for kernel, n in _extras_reckon(k, records[k], plan, L, L7).items():
+                    if kernel not in ("prefills", "steps"):
+                        want[kernel] = want.get(kernel, 0) + n
+        else:
+            want = {k: v for k, v in _extras_reckon(keys[0], records.get(keys[0], {}), plan,
+                                                     L, L7).items()
+                    if k not in ("prefills", "steps")}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"extras {keys}: launches {got} != reckoned {want}")
+        if "prefill" in keys[0]:
+            _check_routes(f"extras {keys[0]}", routes, k1=want["dequant_matmul"])
+            _check_gemv(f"extras {keys[0]}", counts, routes)
+        elif "b32" in keys[0]:  # M 32: K1 on the Hopper route, K4 on dq_core's GEMV
+            if routes["fused_mlp_gemv"] != counts["fused_mlp"] or routes["fused_mlp_gemv_tc"]:
+                raise AssertionError(f"extras b32: K4's bodies {routes}")
+        else:
+            _check_gemv(f"extras {keys[0]}", counts, routes)
+    emit({"phase": "extras_rates", "card": ctx["smi"], "plan": "quick (n_small 1, n_large 2)",
+          **rates})
+
+    t0 = time.perf_counter()
+    plain = {k: _block_vs_plain(torch, records[k]) for k in EXTRA_PLAIN_CHECKS}
+    emit({"phase": "extras_vs_plain", "card": ctx["smi"], "seconds": time.perf_counter() - t0,
+          **plain})
+    records.clear()
+    torch.cuda.empty_cache()
+
+    fn, (packed, ids) = graft.entry()
+    _reset_counts()
+    got = fn(packed, ids)
+    torch.cuda.synchronize()
+    counts, routes = _counts(), _route_counts()
+    with _PlainKernels():
+        want = fn(packed, ids)
+    r = {"rel_err": rel_err(torch, got, want), "shape": list(got.shape),
+         "launches": {k: v for k, v in counts.items() if v}}
+    emit({"phase": "extras_entry", "card": ctx["smi"], **r})
+    if r["rel_err"] >= EXTRA_TOL or counts["flash_attention"] != L:
+        raise AssertionError(f"extras: graft.entry's forward {r}")
+    _check_routes("extras entry", routes, k1=4 * L + 1)
+    _check_gemv("extras entry", counts, routes)
+    paths["extras_entry"] = {**counts, **routes}
+    del packed, got, want
+
+    t0 = time.perf_counter()
+    packed, qmeta = tiled_packed_llama(cfg, 4, 128)
+    recs = {}
+    rows = scaling_sweep(packed, cfg, qmeta, mesh_shapes=((1, 1), (2, 1)), records=recs)
+    one, two = recs[(1, 1)][0], recs[(2, 1)]
+    scal = {"rows": rows, "seconds": time.perf_counter() - t0,
+            "rank0_tokens_equal_one_rank": bool(torch.equal(two[0]["tokens"], one["tokens"])),
+            "note": "two gloo ranks sharing one card: a functional run, its efficiency "
+                    "means nothing"}
+    emit({"phase": "extras_scaling", "card": ctx["smi"], **scal})
+    if (len(rows) != 2 or rows[0]["scaling_efficiency"] != 1.0
+            or not all(r["tokens_per_second"] > 0 for r in rows)
+            or not scal["rank0_tokens_equal_one_rank"]):
+        raise AssertionError(f"extras: the scaling sweep {scal}")
+    del packed
+
+    t0 = time.perf_counter()
+    res = graft.dryrun_multichip(4)
+    params = llama.init_params(TINY_TEST, seed=0, device="cuda")
+    pk, pq = pack_model(params, "rtn", {"w_bit": 4, "q_group_size": 64})
+    ids = res[0]["ids"].cuda()
+    want = llama.forward(pk, ids, TINY_TEST, qmeta=pq).float().cpu()
+    got = torch.cat([res[0]["tp_logits"], res[2]["tp_logits"]])
+    dry = {"line": res[0]["line"], "seconds": time.perf_counter() - t0,
+           "tp_rel_err_vs_one_rank": rel_err(torch, got, want)}
+    emit({"phase": "extras_dryrun", "card": ctx["smi"], **dry})
+    if dry["tp_rel_err_vs_one_rank"] >= SHARD_TOL or "over seq=4" not in dry["line"]:
+        raise AssertionError(f"extras: the dry run {dry}")
 
 
 def main(argv=None) -> int:
@@ -6698,9 +7394,10 @@ def main(argv=None) -> int:
         # launches: the sum over the main paths' runs (serve, long_ctx,
         # serve_gpt2's two models, opt_2_7b's two engines and packed eval,
         # eval, quant, serve_w8a8, pot_apot, serve_bf16, serve_moe's two
-        # engines, ckpt's bench and two engines, and e2e's head-dim models
-        # for the <kernel>_hd80 / _hd96 rows), each counted from 0 just
-        # before it
+        # engines, ckpt's bench and two engines, e2e's head-dim models for
+        # the <kernel>_hd80 / _hd96 rows, the extras' measurements and
+        # entry() for the rows of EXTRA_ROWS and shard's TP 8 rank 0 for
+        # decode_attention_kv1), each counted from 0 just before it
         # gemv_tc_launches: those of them on the tensor-core GEMV (the
         # decode launches of K1, K4, K6, K7, K9 and every K10 launch)
         paths = ctx.get("path_launches", {}).values()

@@ -18,7 +18,9 @@ card's route, through the kernels' plain versions):
   * gathered: one slot per routed (token, expert) pair, K10 streaming only
     the routed experts, the top-k rows combined in f32 -- a decode step
     (T = 1) with B * top_k < E, no shared expert and packed affine expert
-    sites, smoothed ones included (qtpu/models/moe.py:234-302).
+    sites, smoothed ones included (qtpu/models/moe.py:234-302); qtpu's
+    switch QTPU_MOE_GATHERED (default "1", read on every call) set to
+    anything else sends such steps to the grouped route.
 An expert site's input "smooth" vectors (AWQ, SmoothQuant) are per expert,
 [L, E, K]: x is scaled per expert (K9 with a per-expert input; K10's rows by
 their expert's vector). Codebook (POT/APOT, K7), actorder-perm (GPTQ, K1)
@@ -41,6 +43,8 @@ residual added after it.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as Fn
@@ -202,8 +206,10 @@ def _routing_weights(h, layers, cfg: ModelConfig, qm, l):
 
 def _gathered_route(layers, cfg: ModelConfig, qm, B: int, T: int) -> bool:
     """qtpu's gathered decode (moe.py:293-305): T = 1, B * top_k < E, no
-    shared expert, every expert site packed affine (smoothed or not)."""
+    shared expert, every expert site packed affine (smoothed or not), and
+    QTPU_MOE_GATHERED unset or "1"."""
     return (T == 1 and B * cfg.num_experts_per_tok < cfg.num_experts
+            and os.environ.get("QTPU_MOE_GATHERED", "1") == "1"
             and "sh_gate" not in layers
             and all(_packed_affine(layers[s], qm(s)) for s in EXPERT_SITES))
 

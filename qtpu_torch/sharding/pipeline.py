@@ -85,7 +85,7 @@ def pipeline_nll(params, batches, cfg, mesh, n_stages: int | None = None, qmeta=
         raise ValueError(f"n_stages={n_stages} but the mesh has pipe={P}")
     pipe, tp = local_group(mesh, "pipe"), local_group(mesh, "model")
     n_tp = axis_size(mesh, "model")
-    lc, lq = local_config(cfg, n_tp), shard_qmeta(qmeta, n_tp, arch)
+    lc, lq = local_config(cfg, n_tp), shard_qmeta(qmeta, n_tp, arch, cfg)
     tp = tp if n_tp > 1 else None
     mod = get_arch(arch)
     qm = (dict(lq) if lq is not None else {}).get

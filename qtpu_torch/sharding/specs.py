@@ -24,16 +24,23 @@ itself:
   * a packed row-parallel site splits K at group boundaries (W4's
     group-halves and W2's group-quarters keep a group's bytes in
     contiguous rows), so (K / tp) % group must be 0;
-  * where tp does not divide a dim the port needs divided (heads, KV heads,
-    the MLP width, a fused member, the vocabulary, the experts, K / tp by
-    the group) it raises ValueError naming the dim: GSPMD would pad or
-    replicate there;
+  * where tp exceeds the KV heads and is a multiple of their count, each
+    rank holds the one KV head its q heads read (replicated over the
+    tp / KV ranks that share it): k_proj / v_proj and the k and v members
+    of a fused site are cut by KV head, not in tp slices of kv_dim (qtpu's
+    GSPMD splits kv_dim and reshards); the rank's cache holds one KV head;
+  * where tp does not divide a dim the port needs divided (heads, KV heads
+    that tp is not a multiple of, the MLP width, a fused member, the
+    vocabulary, the experts, K / tp by the group) it raises ValueError
+    naming the dim: GSPMD would pad or replicate there (qtpu's device_put
+    raises on the vocabulary too);
   * a GPTQ actorder perm of a row-parallel site must be shard-local
     (actorder_shards == tp): each rank permutes its own slice of x.
 
 `local_config` is the rank's ModelConfig (heads, KV heads and MLP widths
-divided by tp), so the model code that splits by cfg.q_dim and
-cfg.intermediate_size runs unchanged; `shard_qmeta` the rank's qmeta.
+divided by tp; one KV head where tp exceeds them), so the model code that
+splits by cfg.q_dim and cfg.intermediate_size runs unchanged; `shard_qmeta`
+the rank's qmeta.
 """
 
 from __future__ import annotations
@@ -92,16 +99,31 @@ def _need(n: int, tp: int, what: str) -> None:
         raise ValueError(f"tp={tp} does not divide {what} ({n})")
 
 
+def kv_parts(cfg, tp: int) -> int:
+    """Into how many parts the KV heads split over tp ranks: tp where tp
+    divides them, their count where tp is a multiple of it (each rank then
+    holds one KV head, rank r the head r * KV // tp that its q heads
+    read); else ValueError naming num_kv_heads."""
+    KV = cfg.num_kv_heads
+    if KV % tp == 0:
+        return tp
+    if tp % KV:
+        raise ValueError(f"tp={tp} does not divide num_kv_heads ({KV}) and is not a "
+                         "multiple of it")
+    return KV
+
+
 def local_config(cfg, tp: int):
-    """The ModelConfig of one of tp ranks: heads, KV heads, the MLP width
-    (and a shared expert's) divided by tp; the expert count stays (the
-    router sees every expert; each rank holds E / tp of them)."""
+    """The ModelConfig of one of tp ranks: heads, KV heads (one where tp
+    exceeds them, kv_parts), the MLP width (and a shared expert's) divided
+    by tp; the expert count stays (the router sees every expert; each rank
+    holds E / tp of them)."""
     if tp == 1:
         return cfg
     _need(cfg.num_heads, tp, "num_heads")
-    _need(cfg.num_kv_heads, tp, "num_kv_heads")
+    kvp = kv_parts(cfg, tp)
     _need(cfg.vocab_size, tp, "vocab_size")
-    kw = {"num_heads": cfg.num_heads // tp, "num_kv_heads": cfg.num_kv_heads // tp}
+    kw = {"num_heads": cfg.num_heads // tp, "num_kv_heads": cfg.num_kv_heads // kvp}
     if cfg.arch == "moe":
         _need(cfg.num_experts, tp, "num_experts")
         if cfg.shared_expert_intermediate_size:
@@ -113,24 +135,34 @@ def local_config(cfg, tp: int):
     return dataclasses.replace(cfg, **kw)
 
 
-def _segments(name: str, cfg, n: int) -> list:
-    """The member widths of a fused column-parallel site along N."""
+KV_SITES = ("k_proj", "v_proj")  # column-parallel sites of kv_dim outputs
+
+
+def _segments(name: str, cfg, n: int, tp: int) -> list:
+    """The members of a column-parallel site along N, each as (width, parts):
+    a member splits into `parts` equal slices, rank r taking slice
+    r * parts // tp (parts < tp: KV heads replicated over tp / parts ranks)."""
     if name == "qkv_proj" or name == "c_attn":
         if cfg is None:
             raise ValueError(f"sharding the fused site {name} needs the model config")
-        return [cfg.q_dim, cfg.kv_dim, cfg.kv_dim]
+        kvp = kv_parts(cfg, tp)
+        return [(cfg.q_dim, tp), (cfg.kv_dim, kvp), (cfg.kv_dim, kvp)]
+    if name in KV_SITES:
+        if cfg is None:
+            raise ValueError(f"sharding {name} needs the model config (its KV heads)")
+        return [(n, kv_parts(cfg, tp))]
     if name == "gateup_proj":
-        return [n // 2, n // 2]
-    return [n]
+        return [(n // 2, tp), (n // 2, tp)]
+    return [(n, tp)]
 
 
-def _take(t: torch.Tensor, dim: int, widths: list, r: int, tp: int, what: str) -> torch.Tensor:
-    """Rank r's slice of each member of `widths` along dim, concatenated."""
+def _take(t: torch.Tensor, dim: int, members: list, r: int, tp: int, what: str) -> torch.Tensor:
+    """Rank r's slice of each (width, parts) member along dim, concatenated."""
     out, off = [], 0
-    for w in widths:
-        _need(w, tp, what)
-        s = w // tp
-        out.append(t.narrow(dim, off + r * s, s))
+    for w, parts in members:
+        _need(w, parts, what)
+        s = w // parts
+        out.append(t.narrow(dim, off + (r * parts // tp) * s, s))
         off += w
     return (out[0] if len(out) == 1 else torch.cat(out, dim=dim)).contiguous()
 
@@ -168,14 +200,14 @@ def shard_params(params: dict, mesh, arch: str = "llama", rank: int | None = Non
         dim = spec.index("model") - len(spec)
         n = v.shape[dim]
         if name in expert_sites:
-            return _take(v, dim, [n], r, tp, f"{name} experts")
+            return _take(v, dim, [(n, tp)], r, tp, f"{name} experts")
         if name not in row_sites:
-            return _take(v, dim, _segments(name, cfg, n), r, tp, f"{name} N")
+            return _take(v, dim, _segments(name, cfg, n, tp), r, tp, f"{name} N")
         if k in ("data", "scales", "zeros") and groups % tp:
             raise ValueError(f"row-parallel site {name}: K/tp is off a group boundary "
                              f"({groups} groups over tp={tp})")
         if k != "perm":
-            return _take(v, dim, [n], r, tp, f"{name}.{k}")
+            return _take(v, dim, [(n, tp)], r, tp, f"{name}.{k}")
         Kl = n // tp
         loc = v.narrow(-1, r * Kl, Kl) - r * Kl
         if bool(((loc < 0) | (loc >= Kl)).any()):
@@ -203,9 +235,10 @@ def shard_params(params: dict, mesh, arch: str = "llama", rank: int | None = Non
     return out
 
 
-def shard_qmeta(qmeta, tp: int, arch: str = "llama"):
-    """The rank's qmeta: K / tp on row-parallel sites, N / tp on
-    column-parallel ones, expert and dense sites unchanged."""
+def shard_qmeta(qmeta, tp: int, arch: str, cfg):
+    """The rank's qmeta: K / tp on row-parallel sites, the rank's share of
+    N on column-parallel ones (by member, _segments: one KV head a rank
+    where tp exceeds them), expert and dense sites unchanged."""
     if qmeta is None or tp == 1:
         return qmeta
     mod = _arch(arch)
@@ -217,7 +250,10 @@ def shard_qmeta(qmeta, tp: int, arch: str = "llama"):
             out[name] = m
             continue
         m = list(m)
-        m[2 if name in row_sites else 3] //= tp
+        if name in row_sites:
+            m[2] //= tp
+        else:
+            m[3] = sum(w // parts for w, parts in _segments(name, cfg, m[3], tp))
         out[name] = tuple(m)
     return tuple(sorted(out.items()))
 
@@ -230,4 +266,4 @@ def shard_model(params: dict, qmeta, cfg, mesh, rank: int | None = None):
     arch = cfg.arch
     tp = axis_size(mesh, "model") if not isinstance(mesh, int) else mesh
     local = shard_params(params, mesh, arch, rank=rank, cfg=cfg, qmeta=qmeta)
-    return local, shard_qmeta(qmeta, tp, arch), local_config(cfg, tp)
+    return local, shard_qmeta(qmeta, tp, arch, cfg), local_config(cfg, tp)

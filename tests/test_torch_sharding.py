@@ -3,7 +3,9 @@
 split per member, packed row-parallel sites at group boundaries, the
 raises), the TP/DP forward of llama, GPT-2 and OPT (raw, packed, GPTQ
 actorder), TP/DP prefill and decode, sharded perplexity, the runner's mesh
-config, and MoE expert parallelism.
+config, MoE expert parallelism, and tp 4 over 2 KV heads (each rank holds
+the KV head its q heads read) on TINY_TEST, a 4-layer model of TinyLlama's
+8 q heads a KV head and TINY_MOE_TEST with its experts split beside.
 
 One world of 4 gloo processes (data 2 x model 2, spawned once for the
 module, `init_method` a file under tmp_path) computes every case; each case
@@ -19,6 +21,7 @@ where the top-2 gap exceeds 5e-2; DP perplexity within 1e-5 relative of
 the serial one.
 """
 
+import dataclasses
 import traceback
 
 import numpy as np
@@ -196,6 +199,26 @@ def _moe_routes(p):
     return out
 
 
+# tp 4 over 2 KV heads: (payload params, its qmeta or None, cfg key)
+TP4 = {"llama": ("llama", None, "llama"), "llama_fused": ("llama_fused", "fused_qmeta", "llama"),
+       "tl": ("tl", None, "tl"), "tl_fused": ("tl_fused", "tl_qmeta", "tl"),
+       "moe": ("moe", None, "moe"), "moe_packed": ("moe_packed32", "moe_qmeta32", "moe")}
+TP4_DECODE = ("llama_fused", "tl_fused", "moe_packed")
+TP4_ROWS = 4  # the batch of the tp 4 runs
+
+
+def _tp4_cases(p, cases):
+    from qtpu_torch.sharding.mesh import make_mesh
+
+    mesh4 = make_mesh(data=1, model=4)
+    ids = p["ids"][:TP4_ROWS]
+    for key, (name, qname, ckey) in TP4.items():
+        args = (p[name], p[qname] if qname else None, p["cfgs"][ckey], mesh4)
+        cases[f"tp4_fwd_{key}"] = lambda a=args: _tp_forward(*a, ids)
+        if key in TP4_DECODE:
+            cases[f"tp4_decode_{key}"] = lambda a=args: _tp_decode(*a, ids[:, :16])
+
+
 def sharding_worker(rank, world, p):
     from qtpu_torch.sharding.mesh import make_mesh
 
@@ -218,6 +241,7 @@ def sharding_worker(rank, world, p):
     cases["fwd_moe"] = lambda: _tp_forward(p["moe"], None, cfgs["moe"], mesh, ids)
     cases["moe_routes"] = lambda: _moe_routes(p)
     cases["runner"] = lambda: _runner(p)
+    _tp4_cases(p, cases)
     return cases
 
 
@@ -232,6 +256,10 @@ RUN_CONFIG = {
     "n_test_samples": 4, "test_block_size": 64, "packed_eval": True,
     "serving": {"benchmark": True, "max_batch_size": 4}, "verbose": False,
 }
+
+
+# a 4-layer model of TinyLlama-1.1B's 8 q heads a KV head, narrow
+TL_SHAPED = {"num_heads": 16, "num_kv_heads": 2, "head_dim": 16, "num_layers": 4}
 
 
 def _jax_params(arch, jcfg, key, dtype=None):
@@ -265,9 +293,11 @@ def qtpu_refs():
     from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
 
     jcfgs = {"llama": jconfig.TINY_TEST, "gpt2": jconfig.TINY_GPT2_TEST,
-             "opt": jconfig.TINY_OPT_TEST, "moe": jconfig.TINY_MOE_TEST}
+             "opt": jconfig.TINY_OPT_TEST, "moe": jconfig.TINY_MOE_TEST,
+             "tl": dataclasses.replace(jconfig.TINY_TEST, **TL_SHAPED)}
     cfgs = {"llama": tconfig.TINY_TEST, "gpt2": tconfig.TINY_GPT2_TEST,
-            "opt": tconfig.TINY_OPT_TEST, "moe": tconfig.TINY_MOE_TEST}
+            "opt": tconfig.TINY_OPT_TEST, "moe": tconfig.TINY_MOE_TEST,
+            "tl": tconfig.TINY_TEST.replace(**TL_SHAPED)}
     mesh = make_mesh(data=2, model=2)
     ids = np.random.default_rng(1).integers(0, 512, (8, 64)).astype(np.int32)
     jids = jax.device_put(jnp.asarray(ids), NamedSharding(mesh, P("data", None)))
@@ -322,6 +352,23 @@ def qtpu_refs():
                 pos = pos + 1
         want["decode" if arch == "llama" else "decode_opt"] = np.stack(outs, 1)
     payload["stream"] = synthetic_token_stream(512, 6 * 64 + 3, seed=7)
+
+    # tp 4 over 2 KV heads: qtpu's GSPMD splits kv_dim in four and reshards
+    payload["tl"] = params_to_torch(_jax_params("llama", jcfgs["tl"], 4)[1], device="cpu")
+    payload["tl_fused"], payload["tl_qmeta"] = fuse_packed_sites(
+        *pack_model(payload["tl"], "rtn", rtn))
+    # packed from the f32 MoE params: a bf16 router's near-ties flip routes
+    # under other sum orders (as for payload["moe"] above)
+    payload["moe_packed32"], payload["moe_qmeta32"] = pack_model(payload["moe"], "rtn", rtn,
+                                                                 arch="moe")
+    mesh4 = make_mesh(data=1, model=4, devices=jax.devices()[:4])
+    ids4 = jax.device_put(jnp.asarray(ids[:TP4_ROWS]), NamedSharding(mesh4, P(None, None)))
+    for key, (name, qname, ckey) in TP4.items():
+        arch = cfgs[ckey].arch
+        sp = shard_params(to_jax(payload[name]), mesh4, arch=arch)
+        with jax.sharding.set_mesh(mesh4):
+            want[f"tp4_fwd_{key}"] = np.asarray(jget(arch).forward(
+                sp, ids4, jcfgs[ckey], qmeta=payload[qname] if qname else None))
     return payload, want
 
 
@@ -433,10 +480,11 @@ def test_undividable_dims_raise(qtpu_refs):
 
     payload, _ = qtpu_refs
     cfg = payload["cfgs"]["llama"]
-    with pytest.raises(ValueError, match="num_kv_heads"):  # KV 2 over tp 4
-        local_config(cfg, 4)
+    kv3 = cfg.replace(num_heads=6, num_kv_heads=3)  # tp 2 neither divides 3 nor is a multiple
     with pytest.raises(ValueError, match="num_kv_heads"):
-        shard_params(payload["llama"], 4, rank=0, cfg=cfg)
+        local_config(kv3, 2)
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        shard_params(payload["llama"], 2, rank=0, cfg=kv3)
     packed, _ = pack_model(payload["llama"], "rtn", {"w_bit": 4, "q_group_size": 256})
     with pytest.raises(ValueError, match="off a group boundary"):  # o_proj K 256 / 2 < 256
         shard_params(packed, 2, rank=0, cfg=cfg)
@@ -551,3 +599,88 @@ def test_moe_expert_parallel_routes(world, shape):
     got, want, gathered = case(world, "moe_routes")[shape]
     assert gathered == (shape == (1, 1))  # K10's route at one slot, K9's otherwise
     _close(got, want, 3e-2)
+
+
+# ------------------------------------------- tp 4 over 2 KV heads
+def test_tp_over_the_kv_heads_holds_each_ranks_kv_head(qtpu_refs):
+    """At tp 4 over 2 KV heads rank r holds KV head r // 2, whole, in k_proj
+    / v_proj and in the k and v members of the fused qkv_proj (data,
+    scales and zeros alike); its config and qmeta say one KV head."""
+    from qtpu_torch.sharding.specs import local_config, shard_params, shard_qmeta
+
+    payload, _ = qtpu_refs
+    cfg = payload["cfgs"]["tl"]
+    hd, Q, KVd = cfg.head_dim, cfg.q_dim, cfg.kv_dim
+    lc = local_config(cfg, 4)
+    assert (lc.num_heads, lc.num_kv_heads) == (4, 1)
+    fused, fq = payload["tl_fused"], payload["tl_qmeta"]
+    lq = dict(shard_qmeta(fq, 4, "llama", cfg))
+    assert lq["qkv_proj"][3] == Q // 4 + 2 * hd
+    for r in range(4):
+        h = r // 2
+        raw = shard_params(payload["tl"], 4, rank=r, cfg=cfg)["layers"]
+        for site in ("k_proj", "v_proj"):
+            whole = payload["tl"]["layers"][site]["w"]
+            assert torch.equal(raw[site]["w"], whole[..., h * hd:(h + 1) * hd])
+        got = shard_params(fused, 4, rank=r, cfg=cfg)["layers"]["qkv_proj"]
+        for key in ("data", "scales", "zeros"):
+            whole = fused["layers"]["qkv_proj"][key]
+            want = torch.cat([whole[..., r * Q // 4:(r + 1) * Q // 4],
+                              whole[..., Q + h * hd:Q + (h + 1) * hd],
+                              whole[..., Q + KVd + h * hd:Q + KVd + (h + 1) * hd]], -1)
+            assert torch.equal(got[key], want), (key, r)
+
+
+@pytest.mark.parametrize("key", list(TP4))
+def test_tp_over_the_kv_heads_forward_matches_qtpu_and_unsharded(world, qtpu_refs, key):
+    """The forward at tp 4 over 2 KV heads (raw and packed W4; MoE with one
+    expert a rank) against qtpu's tp 4 forward and the port's one-rank one:
+    2e-2 (llama), 3e-2 (MoE); every rank gives the same logits."""
+    payload, want = qtpu_refs
+    name, qname, ckey = TP4[key]
+    tol = 3e-2 if ckey == "moe" else 2e-2
+    got = case(world, f"tp4_fwd_{key}")
+    cfg = payload["cfgs"][ckey]
+    qmeta = payload[qname] if qname else None
+    one = get_arch(cfg.arch).forward(payload[name], payload["ids"][:TP4_ROWS], cfg,
+                                     qmeta=qmeta).numpy()
+    _close(got, want[f"tp4_fwd_{key}"], tol)
+    _close(got, one, tol)
+    for r in range(1, WORLD):
+        np.testing.assert_array_equal(case(world, f"tp4_fwd_{key}", r), got)
+
+
+@pytest.mark.parametrize("key", TP4_DECODE)
+def test_tp_over_the_kv_heads_decode_matches_one_rank(world, qtpu_refs, key):
+    """Prefill and 3 greedy decode steps at tp 4 over 2 KV heads on the int8
+    cache (one KV head a rank) against the port's one-rank run
+    teacher-forced on the sharded tokens: logits within 2e-2 (llama), 3e-2
+    (MoE); greedy tokens equal where the top-2 gap exceeds 5e-2."""
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    payload, _ = qtpu_refs
+    name, qname, ckey = TP4[key]
+    cfg = payload["cfgs"][ckey]
+    tol = 3e-2 if ckey == "moe" else 2e-2
+    res = case(world, f"tp4_decode_{key}")
+    assert res["kv_shape"][2] == 1  # one KV head a rank
+    got = res["logits"].numpy()
+    params, qmeta = payload[name], payload[qname]
+    prompt = payload["ids"][:TP4_ROWS, :16]
+    cache = init_cache(cfg, TP4_ROWS, 32, quantized=True, device="cpu")
+    logits, cache = prefill(params, prompt, cache, cfg, qmeta, arch=cfg.arch)
+    ref = [logits.numpy()]
+    pos = torch.full((TP4_ROWS,), 16, dtype=torch.int32)
+    for i in range(3):
+        tok = torch.from_numpy(got[:, i].argmax(-1)).to(torch.int32)
+        logits, cache = decode_step(params, tok, pos, cache, cfg, qmeta, arch=cfg.arch)
+        ref.append(logits.numpy())
+        pos = pos + 1
+    ref = np.stack(ref, 1)
+    _close(got, ref, tol)
+    top2 = np.sort(ref, -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > GAP
+    assert (got.argmax(-1) == ref.argmax(-1))[clear].all()
+    for r in range(1, WORLD):
+        np.testing.assert_array_equal(case(world, f"tp4_decode_{key}", r)["logits"].numpy(), got)
