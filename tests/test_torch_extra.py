@@ -32,6 +32,7 @@ from qtpu_torch.convert import params_to_numpy
 from qtpu_torch.models import moe
 from qtpu_torch.models.config import TINY_MOE_TEST, TINY_TEST
 from qtpu_torch.serve import decode
+from test_torch_quant import one_torch_thread  # noqa: F401  (a fixture)
 
 LOGIT_TOL = 2e-2  # relative Frobenius error of the f32 logits (tests/test_torch_moe.py)
 GAP = 5e-2  # tokens compared where qtpu's top-2 logit gap exceeds this

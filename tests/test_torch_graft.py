@@ -19,6 +19,7 @@ from qtpu.models.config import TINY_TEST as J_TINY
 from qtpu_torch.bench import graft
 from qtpu_torch.convert import params_to_numpy
 from qtpu_torch.models.config import TINY_TEST, TINYLLAMA_1_1B
+from test_torch_quant import one_torch_thread  # noqa: F401  (a fixture)
 
 LOGIT_TOL = 2e-2
 TP_TOL = 2e-2

@@ -23,6 +23,7 @@ from qtpu_torch.convert import params_to_numpy
 from qtpu_torch.models import llama
 from qtpu_torch.models.config import TINY_TEST
 from qtpu_torch.quant.apply import pack_model
+from test_torch_quant import one_torch_thread  # noqa: F401  (a fixture)
 
 SHAPES = ((1, 1), (2, 1), (2, 2), (1, 4))
 B, PROMPT, STEPS = 2, 16, 4  # qtpu's test: batch_per_data_shard 2, prompt 16, 4 steps
