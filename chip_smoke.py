@@ -4520,6 +4520,15 @@ ROUTES = {
     "w8a8_matmul_gemv": ("int8_matmul", "w8a8_matmul", "gemv_launches"),
     "layer_boundary_gemv_tc": ("layer_boundary", "layer_boundary", "gemv_tc_launches"),
     "layer_boundary_gemv": ("layer_boundary", "layer_boundary", "gemv_launches"),
+    # K6's modes for a row-parallel W8A8 site under TP: the absmax pass, and
+    # the launches (also in w8a8_matmul's) that quantize with a given
+    # absmax, in all and by route
+    "w8a8_absmax": ("int8_matmul", "w8a8_absmax"),
+    "w8a8_epilogue": ("int8_matmul", "w8a8_epilogue"),
+    "w8a8_matmul_absmax_in": ("int8_matmul", "w8a8_matmul", "absmax_in_launches"),
+    **{f"w8a8_matmul_absmax_in_{r}": ("int8_matmul", "w8a8_matmul",
+                                      f"absmax_in_{r}_launches")
+       for r in ("gemv_tc", "gemv", "wgmma", "mma")},
 }
 # the kernels of the layer-boundary branches (K13, K1's options), which only
 # the boundary phase's switches turn on
@@ -5583,8 +5592,9 @@ def phase_ckpt(torch, ctx):
 # depth of the methods' Mixtral-width model; the slow searches, GPTQ's
 # column sweep (its exp_down_in Hessian alone is 8 x 14336^2 x 4 B = 6.58 GB
 # a layer) and POT's and APOT's scale races, run on its first layer to keep
-# the smoke within its time
-MOE_METHOD_LAYERS = {"awq": 2, "smoothquant": 2, "gptq": 1, "pot": 1, "apot": 1}
+# the smoke within its time, and since the shard phase's uneven cuts awq and
+# smoothquant too (they ran 2 layers before)
+MOE_METHOD_LAYERS = {"awq": 1, "smoothquant": 1, "gptq": 1, "pot": 1, "apot": 1}
 MOE_METHOD_MCFG = {
     "awq": {"w_bit": 4, "q_group_size": MOE_GROUP},
     "smoothquant": {"w_bit": 8, "q_group_size": MOE_GROUP, "alpha": 0.5, "act_quant": True},
@@ -5708,14 +5718,35 @@ def _moe_method_engines(torch, ctx, params, qmeta, cfg, method, tag):
     return out
 
 
+def _gptq_dense(torch, p, meta):
+    """The dense [..., K, N] bf16 weight of a GPTQ-packed site (stacked
+    [L] or [L, E] leading axes): its codes dequantized, the actorder perm's
+    row order undone (linear gathers x by perm, so row i of the packed
+    weight is row perm[i] of the dense one)."""
+    from qtpu_torch.core.packing import dequantize_parts
+
+    bits, group, K, N = meta[:4]
+    lead = p["data"].shape[:-2]
+    data = p["data"].reshape(-1, *p["data"].shape[-2:])
+    scales = p["scales"].reshape(-1, *p["scales"].shape[-2:])
+    zeros = p["zeros"].reshape(-1, *p["zeros"].shape[-2:])
+    w = torch.stack([dequantize_parts(d, sc, z, bits, group)
+                     for d, sc, z in zip(data, scales, zeros)])
+    if "perm" in p:
+        perm = p["perm"].reshape(-1, K).long()
+        w = torch.zeros_like(w).scatter_(1, perm[:, :, None].expand(-1, -1, N), w)
+    return w.reshape(*lead, K, N)
+
+
 def phase_moe_methods(torch, ctx):
     """The MoE methods at Mixtral-8x7B's full width (4096 / 14336, E 8,
-    top-2), its first 2 layers (random per-layer weights from seed 0; GPTQ,
-    POT and APOT on the first of them, MOE_METHOD_LAYERS): calibration on the
+    top-2), its first layer (random per-layer weights from seed 0;
+    MOE_METHOD_LAYERS): calibration on the
     fixture's 4 blocks of 512 (routed exp_down_in statistics; once more
     with the true Hessians for GPTQ), then for awq, smoothquant (W8A8), gptq
     (true Hessians, actorder), pot (the 0.1 grid) and apot:
-    quantize (fake-quant) and pack, the perplexity of each on the eval
+    quantize (fake-quant; GPTQ: its packed codes dequantized, `_gptq_dense`,
+    so its column sweep runs once) and pack, the perplexity of each on the eval
     phase's 4 fixture blocks of 2048 (packed within its gates of the
     fake-quant of the packed sites, the router dense in both: 1%, POT 2%,
     APOT 25%; the gap to the fake-quant that also quantizes the router
@@ -5789,20 +5820,37 @@ def phase_moe_methods(torch, ctx):
         if method == "gptq":  # the true Hessians, freed after its pack
             st = timed("gptq_calibrate_hessian", lambda: collect_calibration_stats(
                 moe.forward, params, _calib_blocks(cfg), cfg, collect_hessian=True))
-        fake = timed(f"{method}_quantize", lambda: quantize_model(params, method, mcfg, st, "moe"))
-        fake_all_ppl = ppl(fake, cfg)
-        # the gate's reference: the fake-quant model of the sites the artifact
-        # packs. pack_model keeps the router dense (PACK_DENSE_SITES) where
-        # quantize_model quantizes it (both as qtpu), and a router moved by
-        # quantization sends tokens to other experts; with it dense the two
-        # models differ only by how the packed sites are computed
-        fake["layers"] = dict(fake["layers"], **{s: params["layers"][s]
-                                                 for s in moe.PACK_DENSE_SITES
-                                                 if s in params["layers"]})
-        fake_ppl = ppl(fake, cfg)
-        del fake
+        fake_all_ppl = None
+        if method != "gptq":
+            fake = timed(f"{method}_quantize",
+                         lambda: quantize_model(params, method, mcfg, st, "moe"))
+            fake_all_ppl = ppl(fake, cfg)
+            # the gate's reference: the fake-quant model of the sites the
+            # artifact packs. pack_model keeps the router dense
+            # (PACK_DENSE_SITES) where quantize_model quantizes it (both as
+            # qtpu), and a router moved by quantization sends tokens to other
+            # experts; with it dense the two models differ only by how the
+            # packed sites are computed
+            fake["layers"] = dict(fake["layers"], **{s: params["layers"][s]
+                                                     for s in moe.PACK_DENSE_SITES
+                                                     if s in params["layers"]})
+            fake_ppl = ppl(fake, cfg)
+            del fake
         packed, qmeta = timed(f"{method}_pack", lambda: pack_model(params, method, mcfg, st,
                                                                    "moe"))
+        if method == "gptq":
+            # GPTQ's column sweep runs once, in its pack (40 s a sweep here):
+            # the reference is its codes dequantized, perms undone, in plain
+            # math; quantize_model's GPTQ on the MoE is held to qtpu's on the
+            # CPU (tests/test_torch_moe_methods.py)
+            fake = dict(params, layers=dict(params["layers"]))
+            for site, p in packed["layers"].items():
+                if isinstance(p, dict) and "data" in p:
+                    fake["layers"][site] = {"w": _gptq_dense(torch, p, dict(qmeta)[site])}
+            fake["lm_head"] = {"w": _gptq_dense(torch, packed["lm_head"],
+                                                dict(qmeta)["lm_head"])}
+            fake_ppl = ppl(fake, cfg)
+            del fake
         if method == "gptq":
             del st
             torch.cuda.empty_cache()
@@ -5818,7 +5866,8 @@ def phase_moe_methods(torch, ctx):
                "mcfg": mcfg, "raw_ppl": raw_ppl, "fake_ppl": fake_ppl, "packed_ppl": packed_ppl,
                "packed_vs_fake": gap, "gate": MOE_PPL_GATES.get(method, 1e-2),
                "fake_ppl_router_quantized": fake_all_ppl,
-               "packed_vs_fake_router_quantized": packed_ppl / fake_all_ppl - 1,
+               "packed_vs_fake_router_quantized": (None if fake_all_ppl is None
+                                                   else packed_ppl / fake_all_ppl - 1),
                "model_size_bits": size[0], "reckoned_size_bits": size[1],
                "packed_bytes": sum(t.numel() * t.element_size()
                                    for t in _tree_leaves(packed).values()),
@@ -6126,15 +6175,18 @@ def phase_synth(torch, ctx):
 
 
 # ---------------------------------------------------------------- sharding
-SHARD_STEPS = 32  # decode steps of the TP 2 serve run
+# the shard phase's depths, cut to keep the smoke within its time since the
+# uneven cuts joined it (before: 32 TP 2 steps, 8 TP 8 steps, ring and MoE
+# EP at 8 and 2 layers; PERF.md section 4)
+SHARD_STEPS = 8  # decode steps of the TP 2 serve runs
 SHARD_EVAL_BLOCKS = 2
 SHARD_SEQ = 8192  # the ring attention's sequence, split over seq 2
 # the ring's depth: two bf16 runs of this random model drift apart with
 # depth (the ring 0.029-0.031 from the K5 forward at all 22 layers); at this
 # depth the ring is held to the K5 forward within SHARD_TOL
-SHARD_RING_LAYERS = 8
-SHARD_MOE_LAYERS = 2
-SHARD_TP8_STEPS = 8  # decode steps of the TP 8 serve run (8 ranks on the card)
+SHARD_RING_LAYERS = 4
+SHARD_MOE_LAYERS = 1
+SHARD_TP8_STEPS = 4  # decode steps of the TP 8 serve runs (8 ranks on the card)
 # TP 8's group: down_proj's K 5632 / 8 = 704 rows is 11 groups of 64, 5.5 of 128
 SHARD_TP8_GROUP = 64
 SHARD_TOL = 3e-2  # logits of a sharded run against the one-rank run (relative)
@@ -6146,6 +6198,16 @@ SHARD_FLIP_GAP = 0.3
 # K1 sites of TinyLlama-1.1B at TP 2: (K, N) of one rank's shard
 SHARD_K1_SITES = {"qkv": (2048, 1280), "o": (1024, 2048), "gateup": (2048, 5632),
                   "down": (2816, 2048), "lm_head": (2048, 16000)}
+# K6's two modes at TinyLlama's TP 2 row-parallel W8A8 sites: (K, N) of a
+# rank's shard, and the M of decode (1, 8), a TP 8 batch's and a prefill
+SHARD_K6_SITES = {"o": (1024, 2048), "down": (2816, 2048)}
+SHARD_K6_M = (1, 8, 32, 1024)
+# the uneven TP runs: Qwen2-7B's widths (QWEN2_7B) at TP 8, cut to this
+# depth, its prompt (8 rows of this many tokens) and raw eval block cut
+# short so that 8 ranks' gathered logits (vocabulary 152064) stay small
+SHARD_QWEN7_LAYERS = 2
+SHARD_QWEN7_PROMPT = 32
+SHARD_QWEN7_EVAL = 256
 
 
 def _shard_inputs(torch, cfg):
@@ -6255,10 +6317,271 @@ def _shard_kernel_rows(torch, ctx):
     moe = _k9_k10_rows(torch, gen, dev, 4, {"gate_up": (4096, 14336), "down": (14336, 4096)},
                        SERVE_B, [(1, 3, 0, 3)])  # 2 slots x top-2
     rows.update({k.replace("_gs4", "").replace("_", "_e4_", 1): v for k, v in moe.items()})
+    rows.update(_k6_mode_rows(torch, gen, dev))
     for r in rows.values():
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["over_library"] = r["ms"] / r["library_ms"] if r.get("library_ms") else None
     return rows
+
+
+def _k6_mode_rows(torch, gen, dev):
+    """K6's two modes for a row-parallel W8A8 site under TP at TinyLlama's
+    TP 2 shard shapes (SHARD_K6_SITES) and SHARD_K6_M: absmax out
+    (w8a8_absmax) bit for bit the plain absmax; absmax in with the row's
+    own absmax bit for bit the usual mode, on the route w8a8_matmul takes
+    and on the earlier body (dp4a at M <= 8, mma.sync above); its partial
+    mode (a rank's int32 sums) the same on both bodies and, rescaled by
+    w8a8_epilogue, the usual mode's bits; with a foreign absmax (the own one doubled) within K6's band of its
+    plain version (max |err| / max |ref| and relative error < 2e-2). Times: each
+    mode, its plain version, the usual mode (absmax in's "was") and the
+    library call (absmax out: torch.linalg.vector_norm(ord=inf); absmax in:
+    torch.matmul on the weight dequantized to bf16 beforehand, as K6's
+    rows); bounds from the shapes (absmax out: x's bytes read and the f32
+    row maxima written; absmax in: K6's)."""
+    from qtpu_torch.core.packing import dequantize_parts, quantize_pack
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    rows = {}
+    for site, (K, N) in SHARD_K6_SITES.items():
+        meta = (8, K, K, N)
+        wbytes = K * N + 3 * N
+        copies = max(1, min(64, math.ceil(2 * L2_BYTES / wbytes)))
+        qts = [quantize_pack(torch.randn(K, N, generator=gen, device=dev) * 0.02, 8, K)
+               for _ in range(copies)]
+        nlib = max(1, min(copies, math.ceil(2 * L2_BYTES / (K * N * 2))))
+        w_bf = [dequantize_parts(qt.data, qt.scales, qt.zeros, 8, K) for qt in qts[:nlib]]
+        q0 = qts[0]
+        for M in SHARD_K6_M:
+            xs = [(torch.randn(M, K, generator=gen, device=dev) * 2).to(torch.bfloat16)
+                  for _ in range(max(1, min(64, math.ceil(2 * L2_BYTES / (M * K * 2)))))]
+            x = xs[0]
+            amax = k6.w8a8_absmax(x)
+            plain_amax = k6.absmax_plain(x)
+            route = k6.w8a8_route(M, N, (q0.data.data_ptr(), q0.scales.data_ptr()))
+            if route == "gemv":
+                route = k6.w8a8_gemv_route(M, K, N, (x.data_ptr(), q0.data.data_ptr()))
+            earlier = k6.w8a8_matmul_dp4a if M <= 8 else k6.w8a8_matmul_mma
+            args = (x, q0.data, q0.scales, q0.zeros, meta)
+            usual, fed = k6.w8a8_matmul(*args), k6.w8a8_matmul(*args, absmax=amax)
+            body, body_fed = earlier(*args), earlier(*args, absmax=amax)
+            total = k6.w8a8_matmul(*args, absmax=amax, partial=True)
+            total_body = earlier(*args, absmax=amax, partial=True)
+            rescaled = k6.w8a8_epilogue(total, amax, q0.scales)
+            foreign = amax * 2
+            got = k6.w8a8_matmul(*args, absmax=foreign)
+            want = k6.w8a8_matmul_plain(*args, absmax=foreign)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            out = {"M": M, "K": K, "N": N, "route": route,
+                   "absmax_bits_equal_plain": _bits_equal(torch, amax, plain_amax),
+                   "own_absmax_bits_equal_usual": _bits_equal(torch, fed, usual),
+                   "own_absmax_bits_equal_usual_earlier_body": _bits_equal(torch, body_fed, body),
+                   "partial_rescaled_bits_equal_usual": _bits_equal(torch, rescaled, usual),
+                   "partial_bits_equal_earlier_body": _bits_equal(torch, total_body, total),
+                   "foreign_err_max_over_max_ref": float(diff.max() / (want.float().abs().max()
+                                                                        + 1e-6)),
+                   "foreign_rel_err": rel_err(torch, got, want),
+                   "max_abs_err": float(diff.max()), "tol": 2e-2}
+            if not (out["absmax_bits_equal_plain"] and out["own_absmax_bits_equal_usual"]
+                    and out["own_absmax_bits_equal_usual_earlier_body"]
+                    and out["partial_rescaled_bits_equal_usual"]
+                    and out["partial_bits_equal_earlier_body"]
+                    and out["foreign_err_max_over_max_ref"] < 2e-2
+                    and out["foreign_rel_err"] < 2e-2 and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"K6's TP modes at {site} M {M}: {out}")
+            xbytes = M * K * 2
+            a_row = {"M": M, "K": K, "route": "absmax_out", "max_abs_err": 0.0}
+            a_row["bound_ms"], a_row["bound_by"] = bound(xbytes + M * 4, M * K)
+            a_row["ms"], _ = cuda_ms(torch, [lambda t=t: k6.w8a8_absmax(t) for t in xs], xbytes)
+            a_row["plain_ms"], _ = cuda_ms(torch, [lambda t=t: k6.absmax_plain(t) for t in xs],
+                                           xbytes)
+            a_row["library_ms"], _ = cuda_ms(
+                torch, [lambda t=t: torch.linalg.vector_norm(t, float("inf"), dim=-1)
+                        for t in xs], xbytes)
+            rows[f"K6_absmax_out_{site}_M{M}"] = a_row
+            # absmax in as the TP path runs it: the partial mode's int32 sums
+            i_row = {k: out[k] for k in out}
+            i_row["bound_ms"], i_row["bound_by"] = bound(xbytes + wbytes + M * N * 4 + M * 4,
+                                                         2 * M * K * N, INT8_OP_PER_S)
+            i_row["ms"], _ = cuda_ms(
+                torch, [lambda q=q: k6.w8a8_matmul(x, q.data, q.scales, q.zeros, meta,
+                                                   absmax=amax, partial=True) for q in qts],
+                wbytes)
+            i_row["plain_ms"], _ = cuda_ms(
+                torch, [lambda q=q: k6.w8a8_matmul_plain(x, q.data, q.scales, q.zeros, meta,
+                                                         absmax=amax, partial=True)
+                        for q in qts], wbytes)
+            i_row["was_ms"], _ = cuda_ms(
+                torch, [lambda q=q: k6.w8a8_matmul(x, q.data, q.scales, q.zeros, meta)
+                        for q in qts], wbytes)
+            i_row["was"] = "the usual mode (x's own absmax, bf16 out) on the same bytes"
+            i_row["library_ms"], _ = cuda_ms(
+                torch, [lambda w=w: torch.matmul(x, w) for w in w_bf], K * N * 2)
+            rows[f"K6_absmax_in_{site}_M{M}"] = i_row
+            # the rescale of the group's summed int32 sums (K6's epilogue)
+            tbytes = M * N * 4
+            e_row = {"M": M, "N": N, "route": "epilogue",
+                     "max_abs_err": float((rescaled.float() - k6.w8a8_epilogue_plain(
+                         total, amax, q0.scales).float()).abs().max())}
+            e_row["bound_ms"], e_row["bound_by"] = bound(tbytes + M * 4 + N * 2 + M * N * 2,
+                                                         2 * M * N, 67e12)
+            e_row["ms"], _ = cuda_ms(torch, [lambda: k6.w8a8_epilogue(total, amax, q0.scales)],
+                                     tbytes)
+            e_row["plain_ms"], _ = cuda_ms(
+                torch, [lambda: k6.w8a8_epilogue_plain(total, amax, q0.scales)], tbytes)
+            e_row["library_ms"] = None
+            rows[f"K6_epilogue_{site}_M{M}"] = e_row
+            del xs
+        del qts, w_bf
+    return rows
+
+
+def _k6_mode_kernel_rows(rows, L):
+    """The kernels line's rows of K6's TP modes (absmax out, absmax in with
+    the partial mode, the epilogue) at the work of one TP 2 W8A8 decode
+    step of a rank (M 8): L x (o_proj + down_proj)."""
+    out = {}
+    for mode, name in (("absmax_out", "w8a8_absmax"), ("absmax_in", "w8a8_matmul_absmax_in"),
+                       ("epilogue", "w8a8_epilogue")):
+        rs = [rows[f"K6_{mode}_{s}_M8"] for s in SHARD_K6_SITES]
+        out[name] = {
+            "route": "cuda", "source": "qtpu_torch/csrc/w8a8_matmul.cu",
+            "replaces": "qtpu/kernels/pallas_int8_matmul.py:58",
+            "max_abs_err": max(r["max_abs_err"] for k, r in rows.items()
+                               if k.startswith(f"K6_{mode}_")),
+            **{k: L * sum(r[k] for r in rs) for k in ("ms", "plain_ms", "bound_ms")},
+            "library_ms": (None if rs[0]["library_ms"] is None
+                           else L * sum(r["library_ms"] for r in rs)),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rs) else "operations"}
+    return out
+
+
+def _tinyllama_sq_w8a8(torch):
+    """TinyLlama-1.1B, all 22 layers, random weights from seed 0, SmoothQuant
+    W8A8 (act_quant, alpha 0.5) calibrated on the fixture's blocks, smooth
+    vectors folded where a norm takes them (serve_w8a8's packing): every
+    site W8A8, o_proj and down_proj keep their smooth vectors."""
+    from qtpu_torch.calib import collect_calibration_stats
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import TINYLLAMA_1_1B as cfg
+    from qtpu_torch.quant.apply import fold_smooth, fuse_packed_sites, pack_model
+
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    stats = collect_calibration_stats(llama.forward, params, _calib_blocks(cfg), cfg)
+    packed = fuse_packed_sites(*fold_smooth(*pack_model(params, "smoothquant", SQ_A8, stats)))
+    del params, stats
+    torch.cuda.empty_cache()
+    return packed
+
+
+def _qwen_w4(torch, cfg, group):
+    """(dense params, packed params, qmeta) of a Qwen2 model: random weights
+    on the card from seed 0, RTN W4 at `group`, fused qkv / gateup sites."""
+    from qtpu_torch.models import llama
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+
+    dense = llama.init_params(cfg, seed=0, device="cuda")
+    packed, qmeta = fuse_packed_sites(*pack_model(dense, "rtn",
+                                                  {"w_bit": 4, "q_group_size": group}))
+    return dense, packed, qmeta
+
+
+def _uneven_models(torch):
+    """The TP 2 world's uneven runs: name -> (cfg, packed params, qmeta):
+    TinyLlama SmoothQuant W8A8 (row-parallel W8A8 sites) and Qwen2-0.5B W4
+    g128 (14 heads split 7 + 7 cut o_proj's 7 groups: the gathered
+    attention output; down_proj's 38 groups 19 + 19)."""
+    from qtpu_torch.models.config import QWEN2_0_5B, TINYLLAMA_1_1B
+
+    _, qp, qq = _qwen_w4(torch, QWEN2_0_5B, 128)
+    torch.cuda.empty_cache()
+    return {"tinyllama_w8a8": (TINYLLAMA_1_1B, *_tinyllama_sq_w8a8(torch)),
+            "qwen2_0_5b_w4_g128": (QWEN2_0_5B, qp, qq)}
+
+
+def _shard_uneven_refs(torch, inputs, d):
+    """The one-rank runs the uneven worlds are held to (saved to
+    d/ref_uneven.pt): the TP 2 world's models served (prefill + SHARD_STEPS
+    steps) and evaluated (one block); Qwen2-7B's widths at
+    SHARD_QWEN7_LAYERS layers, W4 g64 served (SHARD_QWEN7_PROMPT-token
+    prompt, SHARD_TP8_STEPS steps) and its raw forward on an eval block of
+    SHARD_QWEN7_EVAL tokens."""
+    from qtpu_torch.eval.perplexity import evaluate_perplexity
+    from qtpu_torch.models.config import QWEN2_7B
+
+    out, models, secs = {}, {}, {}
+    t0 = time.perf_counter()
+    built = _uneven_models(torch)
+    secs["build_tp2_models"] = time.perf_counter() - t0
+    for name, (cfg, packed, qmeta) in built.items():
+        run = _shard_serve(torch, cfg, packed, qmeta, inputs["prompt"].cuda())
+        ppl = evaluate_perplexity(packed, inputs["stream"], cfg, 1, EVAL_BLOCK, qmeta=qmeta)
+        out[name] = {"logits": run["logits"], "tokens": run["tokens"], "ppl": ppl}
+        models[name] = (cfg, _tree_to(packed, "cpu"), qmeta)
+        del packed
+        built[name] = None
+        torch.cuda.empty_cache()
+    # the packed models for the TP 2 ranks (calibrating and packing them
+    # there again would cost each rank as much as it cost here)
+    t0 = time.perf_counter()
+    torch.save(models, f"{d}/uneven_tp2.pt")
+    secs["save_tp2_models"] = time.perf_counter() - t0
+    del models
+    cfg7 = QWEN2_7B.replace(num_layers=SHARD_QWEN7_LAYERS)
+    t0 = time.perf_counter()
+    dense, packed, qmeta = _qwen_w4(torch, cfg7, 64)
+    secs["build_qwen2_7b"] = time.perf_counter() - t0
+    prompt = inputs["prompt"][:, :SHARD_QWEN7_PROMPT].cuda()
+    run = _shard_serve(torch, cfg7, packed, qmeta, prompt, steps=SHARD_TP8_STEPS)
+    from qtpu_torch.models import llama
+
+    raw = llama.forward(dense, _qwen7_eval_ids(torch, inputs), cfg7)
+    out["qwen2_7b"] = {"logits": run["logits"], "tokens": run["tokens"],
+                       "raw_logits": raw[0].float().cpu()}
+    # the model for the TP 8 ranks, which shard it on the host and move only
+    # their shards to the card (8 ranks packing it there run the card out of
+    # memory)
+    t0 = time.perf_counter()
+    torch.save({"dense": _tree_to(dense, "cpu"), "packed": _tree_to(packed, "cpu"),
+                "qmeta": qmeta}, f"{d}/qwen2_7b.pt")
+    secs["save_qwen2_7b"] = time.perf_counter() - t0
+    del dense, packed, raw
+    torch.cuda.empty_cache()
+    torch.save(out, f"{d}/ref_uneven.pt")
+    return {**{k: {"ppl": v.get("ppl")} for k, v in out.items()}, "part_seconds": secs}
+
+
+def _tree_to(tree, device):
+    """A params tree (nested dicts, None leaves kept) on `device`."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
+
+
+def _qwen7_eval_ids(torch, inputs):
+    return torch.from_numpy(inputs["stream"][:, :SHARD_QWEN7_EVAL]).long().cuda()
+
+
+def _uneven_run(torch, name, local, tp, prompt, ref, steps):
+    """One uneven TP run of a rank on its shard (shard_model's local params,
+    qmeta and config: its heads, KV heads, MLP width and o_gather), served
+    teacher-forced on the one-rank run's tokens: its logits and greedy
+    tokens against that run's, its launches per decode step and its
+    collectives."""
+    lp, lq, lc = local
+    run = _shard_serve(torch, lc, lp, lq, prompt, tp=tp, feed=ref["tokens"], timed=True,
+                       steps=steps)
+    return {"model": name, "q_heads": lc.num_heads, "kv_heads": lc.num_kv_heads,
+            "mlp_width": lc.intermediate_size, "o_gather": list(lc.o_gather[1:]),
+            "rel_err_per_step": [rel_err(torch, run["logits"][:, i], ref["logits"][:, i])
+                                 for i in range(steps + 1)],
+            "tokens": _token_check(run["logits"], ref["logits"][:, :steps + 1],
+                                   ref["tokens"][:, :steps]),
+            "prefill_counts": run["prefill"]["counts"],
+            "prefill_routes": run["prefill"]["routes"],
+            "decode_counts": run["decode"]["counts"], "decode_routes": run["decode"]["routes"],
+            "step_ms": sum(run["step_ms"]) / steps,
+            "collectives_per_step": {k: v / steps for k, v in run["collectives"].items()}}
 
 
 def _shard_one_rank(torch, ctx, inputs, d):
@@ -6276,6 +6599,7 @@ def _shard_one_rank(torch, ctx, inputs, d):
     from qtpu_torch.sharding.multihost import initialize_multihost
 
     packed, qmeta = _tinyllama_w4(torch, ctx)
+    torch.save((_tree_to(packed, "cpu"), qmeta), f"{d}/tinyllama_w4.pt")  # for the 2 ranks
     prompt = inputs["prompt"].cuda()
     ref = _shard_serve(torch, cfg, packed, qmeta, prompt, timed=True)
     t0 = time.perf_counter()
@@ -6333,7 +6657,8 @@ def _shard_child(rank, world, d):
     inputs = _shard_inputs(torch, cfg)
     ref = torch.load(f"{d}/ref.pt")
     res = {"rank": rank}
-    packed, qmeta = _tinyllama_w4(torch, {})
+    packed, qmeta = torch.load(f"{d}/tinyllama_w4.pt", map_location="cuda",
+                               weights_only=False)
     a0 = ops.plain_attention.launches
 
     # TP 2 serve, teacher-forced on the one-rank run's tokens
@@ -6459,6 +6784,26 @@ def _shard_child(rank, world, d):
             "route": "gathered" if B * mcfg.num_experts_per_tok < mcfg.num_experts else "grouped",
             "experts_per_rank": lp["layers"]["exp_gate"]["data"].shape[1],
             "decode_counts": counts, "decode_routes": routes}
+    del mp, mq, lp, lq
+    torch.cuda.empty_cache()
+
+    # the uneven runs (TinyLlama W8A8, Qwen2-0.5B W4 g128): served and one
+    # eval block, against the one-rank runs (d/ref_uneven.pt)
+    uref = torch.load(f"{d}/ref_uneven.pt")
+    res["uneven_tp2"] = {}
+    models = torch.load(f"{d}/uneven_tp2.pt", map_location="cuda", weights_only=False)
+    for name, (ucfg, packed, qmeta) in models.items():
+        r = _uneven_run(torch, name, shard_model(packed, qmeta, ucfg, mesh), tp,
+                        inputs["prompt"].cuda(), uref[name], SHARD_STEPS)
+        _reset_counts()
+        ppl = evaluate_perplexity(packed, inputs["stream"], ucfg, 1, EVAL_BLOCK, qmeta=qmeta,
+                                  mesh=mesh)
+        r["eval"] = {"ppl": ppl, "rel_to_one_rank": ppl / uref[name]["ppl"] - 1,
+                     "counts": _counts(), "routes": _route_counts()}
+        res["uneven_tp2"][name] = r
+        del packed
+        models[name] = None
+        torch.cuda.empty_cache()
     res["plain_attention"] = ops.plain_attention.launches - a0
     res["staging"] = {"gloo_card_ops": sorted(coll.GLOO_CARD_OPS)}
     with open(f"{d}/rank{rank}.json", "w") as f:
@@ -6482,7 +6827,11 @@ def _shard_tp8_child(rank, world, d):
     inputs = _shard_inputs(torch, cfg)
     ref = torch.load(f"{d}/ref_tp8.pt")
     mesh = make_mesh(data=1, model=8)
-    lp, lq, lc = shard_model(*_tinyllama_w4(torch, {}, SHARD_TP8_GROUP), cfg, mesh)
+    model = torch.load(f"{d}/tinyllama_w4_g64.pt", map_location="cpu", mmap=True,
+                       weights_only=False)
+    lp, lq, lc = shard_model(model["packed"], model["qmeta"], cfg, mesh)
+    lp = _tree_to(lp, "cuda")
+    del model
     torch.cuda.empty_cache()
     a0 = ops.plain_attention.launches
     n = SHARD_TP8_STEPS
@@ -6494,10 +6843,105 @@ def _shard_tp8_child(rank, world, d):
            "tokens": _token_check(run["logits"], ref["logits"][:, :n + 1], ref["tokens"][:, :n]),
            "decode_counts": run["decode"]["counts"], "decode_routes": run["decode"]["routes"],
            "step_ms": sum(run["step_ms"]) / n,
-           "collectives_per_step": {k: v / n for k, v in run["collectives"].items()},
-           "plain_attention": ops.plain_attention.launches - a0}
+           "collectives_per_step": {k: v / n for k, v in run["collectives"].items()}}
+    del lp, run
+    torch.cuda.empty_cache()
+
+    # Qwen2-7B's widths at TP 8 (28 heads: 4 + 3 a KV group), W4 g64 served
+    # and its raw forward on an eval block, against the one-rank runs
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import QWEN2_7B
+
+    uref = torch.load(f"{d}/ref_uneven.pt")["qwen2_7b"]
+    cfg7 = QWEN2_7B.replace(num_layers=SHARD_QWEN7_LAYERS)
+    model = torch.load(f"{d}/qwen2_7b.pt", map_location="cpu", mmap=True, weights_only=False)
+    lp, lq, lc = shard_model(model["packed"], model["qmeta"], cfg7, mesh)
+    tp = local_group(mesh, "model")
+    res["qwen2_7b"] = _uneven_run(torch, "qwen2_7b_w4_g64", (_tree_to(lp, "cuda"), lq, lc), tp,
+                                  inputs["prompt"][:, :SHARD_QWEN7_PROMPT].cuda(), uref, n)
+    ld, _, dc = shard_model(model["dense"], None, cfg7, mesh)
+    ld = _tree_to(ld, "cuda")
+    del model, lp
+    torch.cuda.empty_cache()
+    _reset_counts()
+    raw = llama.forward(ld, _qwen7_eval_ids(torch, inputs), dc, tp=tp)
+    torch.cuda.synchronize()
+    res["qwen2_7b"]["raw_eval"] = {"tokens": SHARD_QWEN7_EVAL, "counts": _counts(),
+                                   "routes": _route_counts(),
+                                   "rel_err": rel_err(torch, raw[0].float().cpu(),
+                                                      uref["raw_logits"])}
+    res["plain_attention"] = ops.plain_attention.launches - a0
     with open(f"{d}/tp8_rank{rank}.json", "w") as f:
         json.dump(res, f)
+
+
+def _uneven_tp2_fails(tag, runs, L):
+    """The gates of a TP 2 rank's uneven runs: logits within SHARD_TOL of
+    the one-rank run at every step, no token differing at a top-2 gap of
+    SHARD_FLIP_GAP or more, the eval's perplexity within 1% of the one-rank
+    run's, the launches a decode step reckons (W8A8: K6 7 L + 1, of which
+    the 2 L row-parallel sites in the absmax-in and partial modes on the
+    tensor-core GEMV, after as many absmax passes and before as many
+    epilogues; Qwen2-0.5B: K1 2 L + 1 with o_proj's
+    gathered input, K2-K4 L), every other decode launch on the tensor-core
+    GEMV, every prefill and eval launch on the Hopper route."""
+    fails = []
+    for name, r in runs.items():
+        t = f"{tag} {name}"
+        if max(r["rel_err_per_step"]) >= SHARD_TOL:
+            fails.append(f"{t} logits {max(r['rel_err_per_step'])}")
+        if r["tokens"]["differ_clear"]:
+            fails.append(f"{t} greedy tokens differ off near-ties: {r['tokens']}")
+        if abs(r["eval"]["rel_to_one_rank"]) >= 1e-2:
+            fails.append(f"{t} eval ppl {r['eval']}")
+        a8 = name == "tinyllama_w8a8"
+        Lm = L if a8 else 24  # Qwen2-0.5B's layers
+        if a8:
+            want = {"w8a8_matmul": 7 * L + 1, "w8a8_absmax": 2 * L,
+                    "w8a8_matmul_absmax_in": 2 * L, "w8a8_matmul_absmax_in_gemv_tc": 2 * L,
+                    "w8a8_epilogue": 2 * L, "cache_band_write": L, "decode_attention": L}
+        else:
+            want = {"dequant_matmul": 2 * Lm + 1, "cache_band_write": Lm,
+                    "decode_attention": Lm, "fused_mlp": Lm}
+        want = {k: v * SHARD_STEPS for k, v in want.items()}
+        dc = {**r["decode_counts"], **r["decode_routes"]}
+        if {k: dc[k] for k in want} != want:
+            fails.append(f"{t} decode launches {({k: dc[k] for k in want})} != {want}")
+        try:
+            _check_gemv(f"shard {t} decode", r["decode_counts"], r["decode_routes"])
+            n1, n6 = (0, 7 * L + 1) if a8 else (4 * Lm + 1, 0)
+            _check_routes(f"shard {t} prefill", r["prefill_routes"], k1=n1, k6=n6)
+            _check_routes(f"shard {t} eval", r["eval"]["routes"], k1=n1, k6=n6)
+        except AssertionError as ex:
+            fails.append(str(ex))
+    return fails
+
+
+def _qwen7_tp8_fails(tag, r, n):
+    """The gates of a TP 8 rank's Qwen2-7B run: 4 or 3 q heads and one KV
+    head, logits within SHARD_TOL of the one-rank run, tokens as TP 2's,
+    K1 2 L + 1, K2-K4 L a step on the tensor-core GEMV, the raw eval block
+    within SHARD_TOL with K5 L launches."""
+    fails, t, L = [], f"{tag} qwen2_7b", SHARD_QWEN7_LAYERS
+    if r["q_heads"] not in (3, 4) or r["kv_heads"] != 1:
+        fails.append(f"{t} heads {r['q_heads']} / {r['kv_heads']}")
+    if max(r["rel_err_per_step"]) >= SHARD_TOL:
+        fails.append(f"{t} logits {max(r['rel_err_per_step'])}")
+    if r["tokens"]["differ_clear"]:
+        fails.append(f"{t} greedy tokens differ off near-ties: {r['tokens']}")
+    dc = r["decode_counts"]
+    want = {"dequant_matmul": (2 * L + 1) * n, "cache_band_write": L * n,
+            "decode_attention": L * n, "fused_mlp": L * n}
+    if {k: dc[k] for k in want} != want:
+        fails.append(f"{t} decode launches {({k: dc[k] for k in want})} != {want}")
+    try:
+        _check_gemv(f"shard {t} decode", dc, r["decode_routes"])
+    except AssertionError as ex:
+        fails.append(str(ex))
+    raw = r["raw_eval"]
+    if raw["rel_err"] >= SHARD_TOL or raw["counts"]["flash_attention"] != L:
+        fails.append(f"{t} raw eval {raw['rel_err']} K5 {raw['counts']['flash_attention']}")
+    return fails
 
 
 def phase_shard(torch, ctx):
@@ -6506,16 +6950,21 @@ def phase_shard(torch, ctx):
     sharing the card (NCCL refuses two ranks on one card; the collectives
     stage through host memory what gloo takes no card tensor for) at
     TinyLlama-1.1B's full width, RTN W4 g128 fused, int8 KV, random weights
-    from seed 0: TP 2 serve (prefill 8 x 128, 32 decode steps,
+    from seed 0: TP 2 serve (prefill 8 x 128, SHARD_STEPS decode steps,
     teacher-forced; launches per rank and step K1 45, K2-K4 22, every decode
     launch on the tensor-core GEMV), TP 2 eval (2 blocks of 2048, K5 22 a
     block on its Hopper body, K1 on the Hopper route), DP 2 eval and
     calibration, pipe 2 eval (11 layers a stage), ring attention at seq 2
     (S 8192, the first SHARD_RING_LAYERS layers) and MoE EP 2 (Mixtral-8x7B
-    widths, 2 layers, 8 slots on K9 and 2 on K10); (c) an 8-process gloo
-    world on the card: TinyLlama-1.1B W4 g64 at TP 8, twice its 4 KV heads
-    (one KV head a rank), SHARD_TP8_STEPS decode steps against a one-rank
-    run of the same model; and the kernels at the shard shapes, timed. Gates:
+    widths, 2 layers, 8 slots on K9 and 2 on K10), and the uneven cuts
+    (`_uneven_models`: TinyLlama SmoothQuant W8A8, its row-parallel sites on
+    K6's TP modes; Qwen2-0.5B W4 g128 with o_proj's gathered input), each
+    served and one eval block; (c) an 8-process gloo world on the card:
+    TinyLlama-1.1B W4 g64 at TP 8, twice its 4 KV heads (one KV head a
+    rank), SHARD_TP8_STEPS decode steps against a one-rank run of the same
+    model, and Qwen2-7B's widths (4 + 3 heads a KV group) at
+    SHARD_QWEN7_LAYERS layers, served and its raw eval block; and the
+    kernels at the shard shapes (K6's TP modes too), timed. Gates:
     logits within 3e-2 (relative) of the one-rank run (the ring's of the
     one-rank forward on K5 and of the one-rank forward through the ring code,
     its NLL within 1e-3 of K5's; MoE EP routed to the one-rank run's experts,
@@ -6538,27 +6987,36 @@ def phase_shard(torch, ctx):
         one["seconds"] = time.perf_counter() - t0
         emit({"phase": "shard_one_rank_nccl", "card": ctx["smi"], **one})
         t0 = time.perf_counter()
+        uneven = _shard_uneven_refs(torch, inputs, d)
+        emit({"phase": "shard_uneven_one_rank", "card": ctx["smi"],
+              "seconds": time.perf_counter() - t0, **uneven})
+        t0 = time.perf_counter()
         rows = _shard_kernel_rows(torch, ctx)
         emit({"phase": "shard_kernels", "card": ctx["smi"], "seconds": time.perf_counter() - t0,
               "rows": rows})
+        ctx.setdefault("kernel_rows", {}).update(_k6_mode_kernel_rows(rows, L))
         t0 = time.perf_counter()
         spawn(_shard_child, 2, (d,), init_file=f"{d}/gloo_init", device="cuda",
               timeout_s=300)
         ranks = [json.load(open(f"{d}/rank{r}.json")) for r in range(2)]
         world_s = time.perf_counter() - t0
+        for r in ranks:
+            emit({"phase": "shard_rank", "card": ctx["smi"], "world_s": world_s, **r})
         t0 = time.perf_counter()
         packed64, qmeta64 = _tinyllama_w4(torch, {}, SHARD_TP8_GROUP)
         ref8 = _shard_serve(torch, cfg, packed64, qmeta64, inputs["prompt"].cuda(),
                             steps=SHARD_TP8_STEPS)
         torch.save({"logits": ref8["logits"], "tokens": ref8["tokens"]}, f"{d}/ref_tp8.pt")
+        # the model for the 8 ranks, which shard it on the host (8 ranks
+        # drawing and packing it on one card cost more than the file)
+        torch.save({"packed": _tree_to(packed64, "cpu"), "qmeta": qmeta64},
+                   f"{d}/tinyllama_w4_g64.pt")
         del packed64, qmeta64, ref8
         torch.cuda.empty_cache()
         spawn(_shard_tp8_child, 8, (d,), init_file=f"{d}/gloo8_init", device="cuda",
               timeout_s=300)
         tp8 = [json.load(open(f"{d}/tp8_rank{r}.json")) for r in range(8)]
         tp8_s = time.perf_counter() - t0
-    for r in ranks:
-        emit({"phase": "shard_rank", "card": ctx["smi"], "world_s": world_s, **r})
     fails = []
     for r in ranks:
         tag = f"rank {r['rank']}"
@@ -6605,6 +7063,10 @@ def phase_shard(torch, ctx):
                 fails.append(f"{tag} moe ep2 B {B} launches {m['decode_counts']}")
         if r["plain_attention"]:
             fails.append(f"{tag} plain attention {r['plain_attention']}")
+        fails += _uneven_tp2_fails(tag, r["uneven_tp2"], L)
+    w8 = ranks[0]["uneven_tp2"]["tinyllama_w8a8"]["decode_routes"]
+    ctx.setdefault("path_launches", {})["shard_w8a8"] = {
+        k: w8[k] for k in ("w8a8_absmax", "w8a8_matmul_absmax_in", "w8a8_epilogue")}
     emit({"phase": "shard_tp8", "card": ctx["smi"], "world_s": tp8_s, "ranks": tp8})
     n = SHARD_TP8_STEPS
     for r in tp8:
@@ -6626,6 +7088,7 @@ def phase_shard(torch, ctx):
             fails.append(str(ex))
         if r["plain_attention"]:
             fails.append(f"{tag} plain attention {r['plain_attention']}")
+        fails += _qwen7_tp8_fails(tag, r["qwen2_7b"], n)
     ctx.setdefault("path_launches", {})["shard_tp8"] = {
         "decode_attention_kv1": tp8[0]["decode_counts"]["decode_attention"]}
     if fails:

@@ -53,6 +53,18 @@
 //    2048-wide sites fill the SMs and each slice's xq fits the stage; the
 //    slices' int32 sums are added exactly by w8a8_finish_kernel, which
 //    applies the epilogue.
+//  * a row-parallel site under tensor parallelism (a rank holds a slice of
+//    K, the per-token scale spans all of it): w8a8_quant_kernel's
+//    absmax-out mode (qtpu_w8a8_absmax) writes each token's |x| max of the
+//    slice, the caller all-reduces it (MAX), and every body quantizes with
+//    it through a.amax_in (the quantize kernel; the tensor-core GEMV in
+//    place of its cluster's maxima). Fed the rank's own absmax, the bits
+//    are the usual mode's. In the partial mode (a.out_total) every body
+//    writes the int32 acc + Σxq (128 - z) of the rank's K slice; the caller
+//    sums it over the group (exact) and w8a8_epilogue_kernel rescales it,
+//    so the ranks' bits are one rank's whole product's (a rank's product
+//    rounded to bf16 and then summed put the 22-layer TinyLlama W8A8 at TP
+//    2 0.12 from its one-rank logits on an H100; f32 partials 0.078).
 //
 // The tensor-core GEMV (w8a8_gemv_tc_kernel) follows dq_gemv_tc.cuh (K1's
 // decode GEMV) and shares its cp.async helpers. Bound at decode: the K N
@@ -139,19 +151,30 @@ struct W8A8Args {
   float* sx;                    // [M] scratch
   int* sumq;                    // [M] scratch
   int* part;                    // gemv split K: int32 [splits, M, N], else nullptr
+  const float* amax_in;         // [M] the per-token absmax to quantize with, else nullptr
+  float* amax_out;              // [M] absmax out: the quantize kernel writes it, nothing else
+  int* out_total;               // [M, N] partial mode: acc + Σxq (128 - z) in place of out, or nullptr
   int M, K, Kp, N;
   int split_rows;               // gemv: K rows per blockIdx.y
 };
 
 // y = float(acc + Σxq (128 - z)) s sx, in this float order everywhere.
-__device__ __forceinline__ __nv_bfloat16 w8a8_y(int acc, int sumq, float sx, __nv_bfloat16 s,
-                                                uint8_t z) {
+__device__ __forceinline__ float w8a8_y(int acc, int sumq, float sx, __nv_bfloat16 s,
+                                        uint8_t z) {
   const int total = acc + sumq * (128 - (int)z);
-  return __float2bfloat16(((float)total * __bfloat162float(s)) * sx);
+  return ((float)total * __bfloat162float(s)) * sx;
 }
 
-__device__ __forceinline__ __nv_bfloat16 w8a8_out(const W8A8Args& a, int m, int n, int acc) {
-  return w8a8_y(acc, a.sumq[m], a.sx[m], a.scales[n], a.zeros[n]);
+// Output element i of row m, column n from its int32 sum acc and the row's
+// Σxq: y in bf16, or in the partial mode (a.out_total, a tensor-parallel
+// rank's K slice) the integer acc + Σxq (128 - z), which the group sums
+// exactly before w8a8_epilogue_kernel applies the rescale.
+__device__ __forceinline__ void w8a8_store(const W8A8Args& a, size_t i, int n, int acc, int sumq,
+                                           float sx) {
+  if (a.out_total != nullptr)
+    a.out_total[i] = acc + sumq * (128 - (int)a.zeros[n]);
+  else
+    a.out[i] = __float2bfloat16(w8a8_y(acc, sumq, sx, a.scales[n], a.zeros[n]));
 }
 
 // 4 rows of 4 bytes (r[i] = row i, bytes = columns) -> 4 columns of 4 bytes
@@ -188,7 +211,11 @@ __device__ __forceinline__ int quant1(float v, float s) {
 }
 
 // One block per token row; 16-byte loads of 8 activations where the row
-// is 16-byte aligned, else one activation per thread and step.
+// is 16-byte aligned, else one activation per thread and step. Two modes
+// for a row-parallel site under tensor parallelism: with a.amax_out the
+// row's |x| max is written there and nothing else (the absmax pass over
+// the rank's K slice); with a.amax_in the row is quantized with that
+// absmax (the all-reduced one) in place of its own.
 __global__ void __launch_bounds__(kThreads) w8a8_quant_kernel(W8A8Args a) {
   __shared__ float smax[kThreads / 32];
   __shared__ int ssum[kThreads / 32];
@@ -199,14 +226,22 @@ __global__ void __launch_bounds__(kThreads) w8a8_quant_kernel(W8A8Args a) {
   const bool vec = a.K % 8 == 0 && reinterpret_cast<uintptr_t>(xr) % 16 == 0;
   const int nvec = vec ? a.K / 8 : 0;  // 8-wide chunks; the rest one by one
   float amax = 0.f;
-  for (int c = tid; c < nvec; c += kThreads) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr) + c);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+  if (a.amax_in != nullptr) {
+    amax = a.amax_in[row];
+  } else {
+    for (int c = tid; c < nvec; c += kThreads) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr) + c);
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(h[i])));
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(h[i])));
+    }
+    for (int k = 8 * nvec + tid; k < a.K; k += kThreads) amax = fmaxf(amax, fabsf(__bfloat162float(xr[k])));
+    amax = block_reduce<float, 0>(amax, smax);
+    if (a.amax_out != nullptr) {
+      if (tid == 0) a.amax_out[row] = amax;
+      return;
+    }
   }
-  for (int k = 8 * nvec + tid; k < a.K; k += kThreads) amax = fmaxf(amax, fabsf(__bfloat162float(xr[k])));
-  amax = block_reduce<float, 0>(amax, smax);
   const float s = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-8f);
   int sum = 0;
   for (int c = tid; c < nvec; c += kThreads) {
@@ -346,7 +381,8 @@ __global__ void __launch_bounds__(kThreads) w8a8_mma_kernel(W8A8Args a) {
       for (int e = 0; e < 4; ++e) {
         const int row = m0 + wm + mi * 16 + g + (e >= 2 ? 8 : 0);
         const int col = n0 + wn + ni * 8 + 2 * t + (e & 1);
-        if (row < a.M && col < a.N) a.out[(size_t)row * a.N + col] = w8a8_out(a, row, col, acc[mi][ni][e]);
+        if (row < a.M && col < a.N)
+          w8a8_store(a, (size_t)row * a.N + col, col, acc[mi][ni][e], a.sumq[row], a.sx[row]);
       }
 }
 
@@ -432,7 +468,7 @@ __global__ void __launch_bounds__(kGemvThreads) w8a8_gemv_kernel(W8A8Args a) {
     int s = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w][m][cc];
-    if (a.part == nullptr) a.out[(size_t)m * a.N + col] = w8a8_out(a, m, col, s);
+    if (a.part == nullptr) w8a8_store(a, (size_t)m * a.N + col, col, s, a.sumq[m], a.sx[m]);
     else a.part[((size_t)blockIdx.y * a.M + m) * a.N + col] = s;
   }
 }
@@ -444,7 +480,8 @@ __global__ void __launch_bounds__(kThreads) w8a8_finish_kernel(W8A8Args a, int s
        o += (size_t)gridDim.x * kThreads) {
     int s = 0;
     for (int z = 0; z < splits; ++z) s += a.part[(size_t)z * mn + o];
-    a.out[o] = w8a8_out(a, (int)(o / a.N), (int)(o % a.N), s);
+    const int m = (int)(o / a.N);
+    w8a8_store(a, o, (int)(o % a.N), s, a.sumq[m], a.sx[m]);
   }
 }
 
@@ -572,30 +609,35 @@ __global__ void __launch_bounds__(kW8TcThreads, 4) w8a8_gemv_tc_kernel(W8A8Args 
   gtc_wait<kW8TcRing - 1>();  // x's group (not the ring's)
   __syncthreads();
 
-  // ---- sx: the rows' absmax over the slice, then over the cluster
-  for (int m = warp; m < 8; m += kTcWarps) {
-    float amax = 0.f;
-    const uint4* xr = reinterpret_cast<const uint4*>(xb + m * slice);
-    for (int c = lane; c < chunks; c += 32) {
-      const uint4 v = xr[c];
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+  // ---- sx: the rows' absmax over the slice, then over the cluster; or,
+  // given (a.amax_in, tensor parallelism's all-reduced absmax), from it
+  if (a.amax_in != nullptr) {
+    if (tid < 8) rsx[tid] = fmaxf(__fmul_rn(tid < a.M ? a.amax_in[tid] : 0.f, 1.0f / 127.0f), 1e-8f);
+  } else {
+    for (int m = warp; m < 8; m += kTcWarps) {
+      float amax = 0.f;
+      const uint4* xr = reinterpret_cast<const uint4*>(xb + m * slice);
+      for (int c = lane; c < chunks; c += 32) {
+        const uint4 v = xr[c];
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(h[i])));
+        for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(h[i])));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      if (lane == 0) rmax[m] = amax;
     }
+    cl.sync();  // every block's maxima are in its shared memory
+    if (tid < 8) {
+      float mx[kTcMaxCluster];  // the blocks' maxima, loaded together
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if (lane == 0) rmax[m] = amax;
-  }
-  cl.sync();  // every block's maxima are in its shared memory
-  if (tid < 8) {
-    float mx[kTcMaxCluster];  // the blocks' maxima, loaded together
+      for (int z = 0; z < kTcMaxCluster; ++z)
+        mx[z] = z < cluster ? cl.map_shared_rank(rmax, z)[tid] : 0.f;
+      float amax = 0.f;
 #pragma unroll
-    for (int z = 0; z < kTcMaxCluster; ++z)
-      mx[z] = z < cluster ? cl.map_shared_rank(rmax, z)[tid] : 0.f;
-    float amax = 0.f;
-#pragma unroll
-    for (int z = 0; z < kTcMaxCluster; ++z) amax = fmaxf(amax, mx[z]);
-    rsx[tid] = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-8f);
+      for (int z = 0; z < kTcMaxCluster; ++z) amax = fmaxf(amax, mx[z]);
+      rsx[tid] = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-8f);
+    }
   }
   __syncthreads();
   // ---- xq of the slice (quant1, as w8a8_quant_kernel) and its rows' Σxq
@@ -680,7 +722,7 @@ __global__ void __launch_bounds__(kW8TcThreads, 4) w8a8_gemv_tc_kernel(W8A8Args 
       total += part[z];
       sumq += sq[z];
     }
-    a.out[(size_t)m * a.N + n] = w8a8_y(total, sumq, rsx[m], a.scales[n], a.zeros[n]);
+    w8a8_store(a, (size_t)m * a.N + n, n, total, sumq, rsx[m]);
   }
   cl.sync();  // no block leaves while another reads its shared memory
 }
@@ -941,12 +983,15 @@ __global__ void __launch_bounds__(kQgThreads, 1)
             if (row < a.M) {
               const int sq = a.sumq[row];
               const float sx = a.sx[row];
-              const __nv_bfloat16 y0 =
-                  __float2bfloat16(((float)(acc[4 * jm + e] + sq * z0) * sc0) * sx);
-              const __nv_bfloat16 y1 =
-                  __float2bfloat16(((float)(acc[4 * jm + 2 + e] + sq * z1) * sc1) * sx);
-              *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)row * a.N + col) =
-                  __halves2bfloat162(y0, y1);
+              const int t0 = acc[4 * jm + e] + sq * z0;
+              const int t1 = acc[4 * jm + 2 + e] + sq * z1;
+              if (a.out_total != nullptr)
+                *reinterpret_cast<int2*>(a.out_total + (size_t)row * a.N + col) =
+                    make_int2(t0, t1);
+              else
+                *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)row * a.N + col) =
+                    __halves2bfloat162(__float2bfloat16(((float)t0 * sc0) * sx),
+                                       __float2bfloat16(((float)t1 * sc1) * sx));
             }
           }
         }
@@ -991,13 +1036,16 @@ int launch_w8a8_wgmma(const W8A8Args& a, cudaStream_t st) {
 }
 
 W8A8Args w8a8_args(const void* x, const void* data, const void* scales, const void* zeros,
-                   void* out, void* xq, void* sx, void* sumq, int M, int K, int N) {
+                   void* out, void* xq, void* sx, void* sumq, const void* amax, int partial,
+                   int M, int K, int N) {
   W8A8Args a{};
+  a.amax_in = static_cast<const float*>(amax);
+  if (partial) a.out_total = static_cast<int*>(out);
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.data = static_cast<const int8_t*>(data);
   a.scales = static_cast<const __nv_bfloat16*>(scales);
   a.zeros = static_cast<const uint8_t*>(zeros);
-  a.out = static_cast<__nv_bfloat16*>(out);
+  if (!partial) a.out = static_cast<__nv_bfloat16*>(out);
   a.xq = static_cast<int8_t*>(xq);
   a.sx = static_cast<float*>(sx);
   a.sumq = static_cast<int*>(sumq);
@@ -1017,7 +1065,11 @@ int launch_w8a8_mma(const W8A8Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// y[M, N] = W8A8(x[M, K], data[K, N], scales[N], zeros[N]) on `stream`.
+// y[M, N] = W8A8(x[M, K], data[K, N], scales[N], zeros[N]) on `stream`;
+// amax: f32 [M], each token's |x| max to quantize with (absmax in), or
+// nullptr for x's own; partial: out is int32 [M, N], acc + Σxq (128 - z)
+// before the rescale (a tensor-parallel rank's K slice; the group sums it,
+// then qtpu_w8a8_epilogue rescales).
 // cluster > 0 (M <= 8): the tensor-core GEMV in one launch, K split over a
 // thread-block cluster of `cluster` blocks of split_rows K rows each
 // (w8a8_gemv_tc_fits must hold; no scratch is read). Otherwise xq: int8
@@ -1030,10 +1082,10 @@ int launch_w8a8_mma(const W8A8Args& a, cudaStream_t st) {
 // driver refused), or -1 for arguments the kernels do not take.
 extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* scales,
                                 const void* zeros, void* out, void* xq, void* sx, void* sumq,
-                                void* part, int split_rows, int cluster, int M, int K, int N,
-                                void* stream) {
+                                void* part, const void* amax, int partial, int split_rows,
+                                int cluster, int M, int K, int N, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
-  W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, M, K, N);
+  W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, amax, partial, M, K, N);
   a.split_rows = split_rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cluster > 0)
@@ -1062,12 +1114,55 @@ extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* sca
 // says: the earlier body, kept so that the same bytes can be timed on both.
 extern "C" int qtpu_w8a8_matmul_mma(const void* x, const void* data, const void* scales,
                                     const void* zeros, void* out, void* xq, void* sx, void* sumq,
-                                    int M, int K, int N, void* stream) {
+                                    const void* amax, int partial, int M, int K, int N,
+                                    void* stream) {
   if (M <= kGemvRows || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
-  const W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, M, K, N);
+  const W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, amax, partial, M, K,
+                               N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   w8a8_quant_kernel<<<M, kThreads, 0, st>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_w8a8_mma(a, st);
+}
+
+// The absmax-out mode: amax[m] = max_k |x[m, k]| (f32) of x[M, K] on
+// `stream`, one block a row of w8a8_quant_kernel, nothing else written.
+extern "C" int qtpu_w8a8_absmax(const void* x, void* amax, int M, int K, void* stream) {
+  if (M <= 0 || K <= 0) return -1;
+  W8A8Args a = w8a8_args(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, 0, M, K, 0);
+  a.amax_out = static_cast<float*>(amax);
+  w8a8_quant_kernel<<<M, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The partial mode's rescale, once the group has summed the int32 totals:
+// out[m, n] = bf16((float(total[m, n]) s[n]) sx[m]), sx from the
+// (all-reduced) absmax as the quantize kernel takes it: w8a8_y's arithmetic,
+// so the bits are one rank's whole product's.
+__global__ void __launch_bounds__(kThreads) w8a8_epilogue_kernel(const int* total,
+                                                                 const float* amax,
+                                                                 const __nv_bfloat16* scales,
+                                                                 __nv_bfloat16* out, int M,
+                                                                 int N) {
+  const size_t mn = (size_t)M * N;
+  for (size_t o = blockIdx.x * (size_t)kThreads + threadIdx.x; o < mn;
+       o += (size_t)gridDim.x * kThreads) {
+    const int m = (int)(o / N);
+    const float sx = fmaxf(__fmul_rn(amax[m], 1.0f / 127.0f), 1e-8f);
+    out[o] = __float2bfloat16(((float)total[o] * __bfloat162float(scales[o % N])) * sx);
+  }
+}
+
+extern "C" int qtpu_w8a8_epilogue(const void* total, const void* amax, const void* scales,
+                                  void* out, int M, int N, void* stream) {
+  if (M <= 0 || N <= 0) return -1;
+  const size_t mn = (size_t)M * N;
+  const int blocks = (int)((mn + kThreads - 1) / kThreads < 1024 ? (mn + kThreads - 1) / kThreads
+                                                                  : 1024);
+  w8a8_epilogue_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(total), static_cast<const float*>(amax),
+      static_cast<const __nv_bfloat16*>(scales), static_cast<__nv_bfloat16*>(out), M, N);
+  return (int)cudaGetLastError();
 }

@@ -148,6 +148,9 @@ def _launch(q, k, v, window, entry):
         return out, None
     lib = _build.load("flash_attention", _SIG)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    if KV == 1:  # one KV head (a TP rank's): its stride is any, so k and v
+        # get the batch's and their tensor maps sort their dims alike
+        strides[4], strides[7] = strides[3], strides[6]
     route = flash_route(hd, [t.data_ptr() for t in (q, k, v)], strides[:9])
     rc = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,

@@ -31,6 +31,23 @@ by `gemv_split`, a finishing launch; `.gemv_launches`).
 `w8a8_matmul_dp4a` runs the dp4a GEMV whatever `w8a8_gemv_route` says: the
 earlier body on the same bytes, for chip_smoke.py's "was" times and bit
 checks; no serving or eval path calls it.
+
+Two modes serve a row-parallel site under tensor parallelism, whose
+per-token scale spans the whole K while a rank holds a slice of it (the
+TPU kernel takes the absmax inside its body, pallas_int8_matmul.py:40-43):
+`w8a8_absmax` (*absmax out*: the quantize kernel writes each token's |x|
+max of the rank's slice and nothing else; counted in its `.launches`), and
+`w8a8_matmul(..., absmax=)` (*absmax in*: every body quantizes x with the
+given per-token absmax, the all-reduced one, in place of its own; counted
+in `.absmax_in_launches` and by route in `.absmax_in_<route>_launches`).
+With the rank's own absmax fed back the result is the usual mode's, bit for
+bit. `partial=True` writes, in place of y, the rank's int32 sums acc +
+Σxq (128 - z) over its K slice; the group sums them exactly and
+`w8a8_epilogue` (K6's rescale in a launch of its own, `.launches`) gives
+every rank one rank's whole product, bit for bit, as qtpu's GSPMD reduces
+before the rescale. Their plain versions are `absmax_plain`,
+`quantize_activations` / `w8a8_matmul_plain` with a given absmax and
+partial, and `w8a8_epilogue_plain`.
 """
 
 from __future__ import annotations
@@ -42,8 +59,10 @@ from qtpu_torch.kernels._build import I, P, require
 from qtpu_torch.kernels.dequant_matmul import GEMV_TC_COLS, _sm_count, count_gemv
 from qtpu_torch.kernels.dequant_matmul import gemv_split as _cluster_split
 
-_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-        "qtpu_w8a8_matmul_mma": [P, P, P, P, P, P, P, P, I, I, I, P]}
+_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "qtpu_w8a8_matmul_mma": [P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+        "qtpu_w8a8_absmax": [P, P, I, I, P],
+        "qtpu_w8a8_epilogue": [P, P, P, P, I, I, P]}
 
 GEMV_ROWS = 8  # M <= 8 runs the GEMV kernel, larger M the tensor-core one
 GEMV_COLS = 256  # output columns per GEMV block (4 warps)
@@ -89,28 +108,51 @@ def w8a8_gemv_route(M: int, K: int, N: int, ptrs) -> str:
     return "gemv_tc" if ok else "gemv"
 
 
-def quantize_activations(x: torch.Tensor):
-    """Per-token (last-axis) symmetric int8: returns (x_q int8, sx f32 [..., 1])."""
+def absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Each token's max |x| over the last axis, f32 [..., 1]: w8a8_absmax's
+    plain version."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_activations(x: torch.Tensor, absmax=None):
+    """Per-token (last-axis) symmetric int8: returns (x_q int8, sx f32
+    [..., 1]); absmax (f32 [..., 1]) in place of x's own, as under
+    tensor parallelism."""
     xf = x.float()
-    absmax = xf.abs().amax(dim=-1, keepdim=True)
-    sx = torch.clamp(absmax * (1.0 / 127.0), min=1e-8)
+    if absmax is None:
+        absmax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp(absmax.reshape(*xf.shape[:-1], 1) * (1.0 / 127.0), min=1e-8)
     x_q = torch.clamp(torch.round(xf / sx), -127, 127)
     return x_q.to(torch.int8), sx
 
 
-def w8a8_matmul_plain(x, data, scales, zeros, meta):
+def w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=None, partial=False):
     """qtpu's `_w8a8_matmul_ref`: the integer product exact in float64
     (torch.matmul has no int32 path on the card and a slow one on the CPU;
-    every partial sum is an integer below 2^53), the rescale in f32."""
+    every partial sum is an integer below 2^53), the rescale in f32.
+    absmax: each token's |x| max to quantize with (quantize_activations);
+    partial: the int32 sums before the rescale (w8a8_epilogue_plain's
+    input)."""
     bits, group, K, N = meta[:4]
     if bits != 8 or group != K:
         raise ValueError("w8a8 path needs per-channel (group=K) int8 weights")
-    x_q, sx = quantize_activations(x)
-    acc = (x_q.double() @ (data.double() + 128)).float()
+    x_q, sx = quantize_activations(x, absmax)
+    acc = x_q.double() @ (data.double() + 128)
+    zw = zeros.to(torch.int32).reshape(1, N)
+    if partial:
+        sum_q = x_q.to(torch.int64).sum(dim=-1, keepdim=True)
+        return (acc.to(torch.int64) - sum_q * zw).to(torch.int32)
+    acc = acc.float()
     sum_xq = x_q.to(torch.int32).sum(dim=-1, keepdim=True).float()
     sw = scales.float().reshape(1, N)
-    zw = zeros.to(torch.int32).float().reshape(1, N)
-    return ((acc - sum_xq * zw) * sw * sx).to(x.dtype)
+    return ((acc - sum_xq * zw.float()) * sw * sx).to(x.dtype)
+
+
+def w8a8_epilogue_plain(total, absmax, scales, dtype=torch.bfloat16):
+    """The partial mode's rescale: (float(total) s) sx in f32, sx from the
+    per-token absmax as quantize_activations takes it, cast to dtype."""
+    sx = torch.clamp(absmax.reshape(*total.shape[:-1], 1) * (1.0 / 127.0), min=1e-8)
+    return ((total.float() * scales.float().reshape(-1)) * sx).to(dtype)
 
 
 def gemv_rows(M: int, K: int, N: int, sms: int) -> int:
@@ -131,6 +173,11 @@ def gemv_split(device, M: int, K: int, N: int):
     part = (torch.empty(slices * M * N, dtype=torch.int32, device=device)
             if slices > 1 else None)
     return rows, part
+
+
+def _check_absmax(x, absmax, M):
+    require(absmax.dtype == torch.float32 and absmax.numel() == M and absmax.is_contiguous()
+            and absmax.device == x.device, "absmax must be contiguous f32 [..., 1] on x's card")
 
 
 def _check(x, data, scales, zeros, meta):
@@ -161,16 +208,25 @@ def _scratch(x, M, K):
             torch.empty(M, dtype=torch.int32, device=x.device))
 
 
-def _launch(x, data, scales, zeros, meta, dp4a: bool):
+def _out(x, N, partial: bool):
+    dtype = torch.int32 if partial else torch.bfloat16
+    return torch.empty(*x.shape[:-1], N, dtype=dtype, device=x.device)
+
+
+def _launch(x, data, scales, zeros, meta, dp4a: bool, absmax=None, partial=False):
     """One call of csrc/w8a8_matmul.cu on card tensors; returns (out, the
     body it ran). dp4a: the dp4a GEMV at M <= 8 whatever w8a8_gemv_route
-    says."""
+    says; absmax: the per-token absmax to quantize with (absmax in);
+    partial: int32 sums before the rescale in place of y."""
     _check(x, data, scales, zeros, meta)
     K, N = meta[2:4]
     M = x.numel() // K
-    out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
+    out = _out(x, N, partial)
     if M == 0:
         return out, None
+    if absmax is not None:
+        _check_absmax(x, absmax, M)
+    amax = None if absmax is None else absmax.data_ptr()
     route = w8a8_route(M, N, (data.data_ptr(), scales.data_ptr()))
     if route == "gemv" and not dp4a:
         route = w8a8_gemv_route(M, K, N, (x.data_ptr(), data.data_ptr()))
@@ -180,7 +236,8 @@ def _launch(x, data, scales, zeros, meta, dp4a: bool):
         cluster, rows = w8a8_gemv_split(_sm_count(x.device.index or 0), N, K)
         rc = lib.qtpu_w8a8_matmul(
             x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-            None, None, None, None, rows, cluster, M, K, N, _build.stream_of(x),
+            None, None, None, None, amax, int(partial), rows, cluster, M, K, N,
+            _build.stream_of(x),
         )
     else:
         xq, sx, sumq = _scratch(x, M, K)
@@ -188,41 +245,95 @@ def _launch(x, data, scales, zeros, meta, dp4a: bool):
         rc = lib.qtpu_w8a8_matmul(
             x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
             xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(),
-            None if part is None else part.data_ptr(), rows, 0, M, K, N, _build.stream_of(x),
+            None if part is None else part.data_ptr(), amax, int(partial), rows, 0, M, K, N,
+            _build.stream_of(x),
         )
     _build.check(rc, "w8a8_matmul")
     return out, route
 
 
-def w8a8_matmul(x, data, scales, zeros, meta):
+def w8a8_matmul(x, data, scales, zeros, meta, absmax=None, partial=False):
     """y = W8A8(x) for per-channel int8 weights; x [..., K] -> [..., N] in
-    x's dtype (bf16 on the card). meta = (8, K, K, N), a 5-tuple's
-    trailing "a8" tag allowed. One call is one launch in the count (on the
-    tensor-core GEMV one CUDA launch; on the other bodies the activation
-    quantization, the product and, at M <= 8 with K split, the finishing
-    pass)."""
+    x's dtype (bf16 on the card), or with partial the int32 sums before the
+    rescale (w8a8_epilogue's input). meta = (8, K, K, N), a 5-tuple's
+    trailing "a8" tag allowed. absmax (f32 [..., 1]): each token's |x| max
+    to quantize with in place of x's own (the absmax-in mode). One call is
+    one launch in the count (on the tensor-core GEMV one CUDA launch; on the
+    other bodies the activation quantization, the product and, at M <= 8
+    with K split, the finishing pass)."""
     if x.device.type == "cpu":
-        return w8a8_matmul_plain(x, data, scales, zeros, meta)
-    out, route = _launch(x, data, scales, zeros, meta, dp4a=False)
+        return w8a8_matmul_plain(x, data, scales, zeros, meta, absmax, partial)
+    out, route = _launch(x, data, scales, zeros, meta, dp4a=False, absmax=absmax,
+                         partial=partial)
     if route is None:
         return out
     w8a8_matmul.launches += 1
     count_gemv(w8a8_matmul, route)
+    if absmax is not None:
+        w8a8_matmul.absmax_in_launches += 1
+        name = f"absmax_in_{route}_launches"
+        setattr(w8a8_matmul, name, getattr(w8a8_matmul, name) + 1)
     return out
 
 
-def w8a8_matmul_dp4a(x, data, scales, zeros, meta):
+def w8a8_epilogue(total, absmax, scales, dtype=torch.bfloat16):
+    """The rescale of the partial mode's int32 sums, once a group has summed
+    them: total [..., N] int32, absmax f32 [..., 1] (the all-reduced one),
+    scales bf16 [1, N] -> [..., N] bf16 (K6's epilogue in a launch of its
+    own); `w8a8_epilogue_plain` on a CPU tensor."""
+    if total.device.type == "cpu":
+        return w8a8_epilogue_plain(total, absmax, scales, dtype)
+    require(dtype == torch.bfloat16, "K6's epilogue writes bf16")
+    require(total.dtype == torch.int32 and total.is_contiguous(), "total must be int32")
+    N = total.shape[-1]
+    M = total.numel() // max(N, 1)
+    _check_absmax(total, absmax, M)
+    require(scales.dtype == torch.bfloat16 and scales.numel() == N and scales.is_contiguous(),
+            "scales must be contiguous bf16 [1, N]")
+    out = torch.empty(total.shape, dtype=torch.bfloat16, device=total.device)
+    if M == 0:
+        return out
+    lib = _build.load("w8a8_matmul", _SIG)
+    rc = lib.qtpu_w8a8_epilogue(total.data_ptr(), absmax.data_ptr(), scales.data_ptr(),
+                                out.data_ptr(), M, N, _build.stream_of(total))
+    _build.check(rc, "w8a8_epilogue")
+    w8a8_epilogue.launches += 1
+    return out
+
+
+def w8a8_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Each token's max |x| over the last axis, f32 [..., 1] (the absmax-out
+    mode of K6's quantize kernel: one block a token row, nothing else
+    written); `absmax_plain` on a CPU tensor."""
+    if x.device.type == "cpu":
+        return absmax_plain(x)
+    require(x.is_cuda, f"unsupported device {x.device}")
+    require(x.dtype == torch.bfloat16 and x.is_contiguous(), "x must be contiguous bf16")
+    K = x.shape[-1]
+    M = x.numel() // max(K, 1)
+    out = torch.empty(*x.shape[:-1], 1, dtype=torch.float32, device=x.device)
+    if M == 0:
+        return out
+    require(K > 0, "w8a8_absmax takes K > 0")
+    lib = _build.load("w8a8_matmul", _SIG)
+    rc = lib.qtpu_w8a8_absmax(x.data_ptr(), out.data_ptr(), M, K, _build.stream_of(x))
+    _build.check(rc, "w8a8_absmax")
+    w8a8_absmax.launches += 1
+    return out
+
+
+def w8a8_matmul_dp4a(x, data, scales, zeros, meta, absmax=None, partial=False):
     """w8a8_matmul with the dp4a GEMV at M <= 8 whatever w8a8_gemv_route
     says: the tensor-core GEMV's earlier body on the same bytes, for
     chip_smoke.py's "was" times and bit checks. Card tensors only; counted
     in its own `.launches`."""
     require(x.is_cuda, "w8a8_matmul_dp4a runs on the card only")
-    out, _ = _launch(x, data, scales, zeros, meta, dp4a=True)
+    out, _ = _launch(x, data, scales, zeros, meta, dp4a=True, absmax=absmax, partial=partial)
     w8a8_matmul_dp4a.launches += 1
     return out
 
 
-def w8a8_matmul_mma(x, data, scales, zeros, meta):
+def w8a8_matmul_mma(x, data, scales, zeros, meta, absmax=None, partial=False):
     """w8a8_matmul on the mma.sync body at M > 8 whatever w8a8_route says:
     the Hopper route's earlier body on the same bytes, for chip_smoke.py's
     comparisons (its "was" times, the route's bits against these). Card
@@ -232,12 +343,16 @@ def w8a8_matmul_mma(x, data, scales, zeros, meta):
     K, N = meta[2:4]
     M = x.numel() // K
     require(M > GEMV_ROWS, f"the mma.sync body takes M > {GEMV_ROWS}, got {M}")
-    out = torch.empty(*x.shape[:-1], N, dtype=torch.bfloat16, device=x.device)
+    if absmax is not None:
+        _check_absmax(x, absmax, M)
+    out = _out(x, N, partial)
     xq, sx, sumq = _scratch(x, M, K)
     lib = _build.load("w8a8_matmul", _SIG)
     rc = lib.qtpu_w8a8_matmul_mma(
         x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(), M, K, N, _build.stream_of(x),
+        xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(),
+        None if absmax is None else absmax.data_ptr(), int(partial), M, K, N,
+        _build.stream_of(x),
     )
     _build.check(rc, "w8a8_matmul_mma")
     w8a8_matmul_mma.launches += 1
@@ -249,5 +364,10 @@ w8a8_matmul.wgmma_launches = 0
 w8a8_matmul.mma_launches = 0
 w8a8_matmul.gemv_tc_launches = 0
 w8a8_matmul.gemv_launches = 0
+w8a8_matmul.absmax_in_launches = 0
+for _r in ("wgmma", "mma", "gemv_tc", "gemv"):
+    setattr(w8a8_matmul, f"absmax_in_{_r}_launches", 0)
+w8a8_absmax.launches = 0
+w8a8_epilogue.launches = 0
 w8a8_matmul_mma.launches = 0
 w8a8_matmul_dp4a.launches = 0

@@ -55,6 +55,8 @@ from qtpu_torch.models.ops import (
     gelu_tanh,
     layer_norm,
     linear,
+    mlp_input,
+    o_input,
     plain_attention,
     row_linear,
 )
@@ -166,7 +168,8 @@ def _mlp(fam: Family, x, layers, l, cfg, qm, tap=None, tp=None):
     a = fam.act(linear(h, layers[fam.fc_site], qm(fam.fc_site), layer=l))
     if tap is not None:
         tap(fam.proj_input, a)
-    return row_linear(a, x, layers[fam.proj_site], qm(fam.proj_site), layer=l, tp=tp)
+    return row_linear(mlp_input(a, cfg, tp), x, layers[fam.proj_site], qm(fam.proj_site),
+                      layer=l, tp=tp)
 
 
 def _logits(params, x, cfg, qm, tp=None):
@@ -199,7 +202,8 @@ def decoder_forward(fam: Family, params, input_ids, cfg: ModelConfig, qmeta=None
         attn = causal_attention(q, k, v)
         if tap is not None:
             tap("o_in", attn)
-        x = row_linear(attn, x, layers[fam.o_site], qm(fam.o_site), layer=l, tp=tp)
+        x = row_linear(o_input(attn, cfg, tp), x, layers[fam.o_site], qm(fam.o_site), layer=l,
+                       tp=tp)
         x = _mlp(fam, x, layers, l, cfg, qm, tap, tp)
     x, logits = _logits(params, x, cfg, qm, tp)
     if cap is None:
@@ -230,7 +234,7 @@ def decoder_forward_with_cache(fam: Family, params, input_ids, positions, cache:
         h = layer_norm(x, layers["ln1_w"][l], layers["ln1_b"][l], cfg.norm_eps)
         q, k, v = fam.qkv(h, layers, cfg, qm, l)
         k, v = k.contiguous(), v.contiguous()
-        if decode and cache.quantized:
+        if decode and cache.quantized and H:
             # qtpu: cache_layer_write, then _cached_attention's
             # pallas_decode_attention on the written layer: K2, then K3's kernel
             cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
@@ -243,7 +247,8 @@ def decoder_forward_with_cache(fam: Family, params, input_ids, positions, cache:
             attn = attn.reshape(B, 1, H * hd)
         else:
             attn = _write_and_attend(q, k, v, cache, l, start, mask, 0, slots)
-        x = row_linear(attn, x, layers[fam.o_site], qm(fam.o_site), layer=l, tp=tp)
+        x = row_linear(o_input(attn, cfg, tp), x, layers[fam.o_site], qm(fam.o_site), layer=l,
+                       tp=tp)
         x = _mlp(fam, x, layers, l, cfg, qm, tp=tp)
     _, logits = _logits(params, x, cfg, qm, tp)
     _advance_length(cache, positions, slots)

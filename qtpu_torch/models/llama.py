@@ -55,10 +55,15 @@ kernels' plain versions, so that they can be tested there.
 
 Tensor parallelism: both forwards take a `tp` process group with the rank's
 local shards (qtpu_torch.sharding.specs.shard_params) and the rank's
-ModelConfig (`local_config`: heads, KV heads and the MLP width divided by
-tp). q/k/v and gate/up are column-parallel, o_proj and down_proj
+ModelConfig (`local_config`: its heads, KV heads and MLP width, in parts
+that need not be equal; a rank may hold no head, and then attends to
+nothing). q/k/v and gate/up are column-parallel, o_proj and down_proj
 row-parallel (ROW_PARALLEL_SITES): `ops.row_linear` all-reduces their
-partial products in f32 and adds the residual once (`ops.reduce_add`); K4
+partial products in f32 and adds the residual once (`ops.reduce_add`);
+o_proj's input is the rank's attention output, or where its rows are
+whole groups its heads do not cover the group's gathered output
+(`ops.o_input`); a W8A8 row-parallel site quantizes on the all-reduced
+per-token absmax (`ops.linear`); K4
 runs in its no-residual mode on every rank and K1 without its resid option
 (the fuse branch), their partials summed the same way; a group of one rank
 adds the residual in line, as the unsharded path does; the lm_head's
@@ -105,6 +110,8 @@ from qtpu_torch.models.ops import (
     causal_attention,
     gather_logits,
     linear,
+    mlp_input,
+    o_input,
     plain_attention,
     reduce_add,
     rms_norm,
@@ -216,7 +223,8 @@ def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool, tap=None, tp=No
     added once."""
     gu, dn = layers.get("gateup_proj"), layers.get("down_proj")
     mgu, md = qm("gateup_proj"), qm("down_proj")
-    if decode and x.shape[0] * x.shape[1] <= _k4.MAX_M and _k4.supported(mgu, md, gu, dn):
+    if (decode and x.shape[0] * x.shape[1] <= _k4.MAX_M and cfg.intermediate_size
+            and _k4.supported(mgu, md, gu, dn)):
         split = split_sum(tp)
         y = _k4.fused_mlp(
             x, layers["mlp_norm"][l],
@@ -234,7 +242,8 @@ def _mlp_block(x, layers, l, cfg: ModelConfig, qm, decode: bool, tap=None, tp=No
     act = Fn.silu(gate.float()).to(x.dtype) * up
     if tap is not None:
         tap("down_in", act)
-    return row_linear(act, x, layers["down_proj"], qm("down_proj"), layer=l, tp=tp)
+    return row_linear(mlp_input(act, cfg, tp), x, layers["down_proj"], qm("down_proj"), layer=l,
+                      tp=tp)
 
 
 def _channel_stats(x: torch.Tensor, capture: str) -> dict:
@@ -321,7 +330,7 @@ def layer_forward(x, layers, l, cfg: ModelConfig, qm, rope, win: int, tp=None, a
             else attn_impl(q, k, v, win))
     if tap is not None:
         tap("o_in", attn)
-    x = row_linear(attn, x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
+    x = row_linear(o_input(attn, cfg, tp), x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
     return _mlp_block(x, layers, l, cfg, qm, decode=False, tap=tap, tp=tp)
 
 
@@ -339,6 +348,8 @@ def _write_and_attend(q, k, v, cache: KVCache, l: int, start, mask, window: int,
     (`flash_supported`, `decode_supported`) runs its plain version
     (`plain_attention`)."""
     B, T, H, hd = q.shape
+    if H == 0:  # a tensor-parallel rank that holds no head writes and reads nothing
+        return q.new_zeros(B, T, 0)
     if T == 1 and slots is None:
         q1 = q[:, 0].contiguous()
         k_c, v_c, ks_c, vs_c, li = cache.stacked(l)
@@ -432,7 +443,7 @@ def _cached_layer(x, layers, qm, l, cache: KVCache, cfg: ModelConfig, cos, sin, 
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin).contiguous()
     v = v.contiguous()
-    if decode and cache.quantized and not cache.per_layer:
+    if decode and cache.quantized and not cache.per_layer and H:
         # qtpu's cache-carry decode of the stacked cache: K2 then K3
         cache_band_write(k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
         args = (q[:, 0].contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale, start, l)
@@ -441,6 +452,7 @@ def _cached_layer(x, layers, qm, l, cache: KVCache, cfg: ModelConfig, cos, sin, 
         attn = attn.reshape(B, 1, H * hd)
     else:
         attn = _write_and_attend(q, k, v, cache, l, start, mask, win, slots)
+    attn = o_input(attn, cfg, tp)
     if fuse[1]:
         p = _at(layers["o_proj"], l)
         split = split_sum(tp)

@@ -64,10 +64,14 @@ from qtpu_torch.models.ops import (
     apply_rope,
     causal_attention,
     gather_logits,
+    is_a8,
     linear,
+    mlp_input,
+    o_input,
     rms_norm,
     row_linear,
     rope_tables,
+    split_sum,
 )
 from qtpu_torch.serve.kvcache import KVCache
 from qtpu_torch.sharding import collectives as coll
@@ -293,18 +297,26 @@ def _moe_mlp(h, layers, cfg: ModelConfig, qm, l, cap=None, tp=None):
     out = torch.einsum("me,emd->md", route_w, d.float())
     if tp is None:
         out = out.to(h.dtype)
+    whole = None  # a shared expert's product every rank already holds whole
     if "sh_gate" in layers:  # Qwen2-MoE always-on shared expert, sigmoid-gated
         sg = linear(h2, layers["sh_gate"], qm("sh_gate"), layer=l)
         su = linear(h2, layers["sh_up"], qm("sh_up"), layer=l)
         sact = Fn.silu(sg.float()).to(h.dtype) * su
         if cap is not None:
             cap.add("sh_down_in", l, sact)
-        sd = linear(sact, layers["sh_down"], qm("sh_down"), layer=l)
+        # a W8A8 sh_down comes back whole from linear under tp (ops._a8_split)
+        sd = linear(mlp_input(sact, cfg, tp), layers["sh_down"], qm("sh_down"), layer=l, tp=tp)
         gate = torch.sigmoid(linear(h2, layers["sh_router"], qm("sh_router"), layer=l).float())
         shared = gate * sd.float()
-        out = out + (shared if tp is not None else shared.to(h.dtype))
-    if tp is not None:  # the rank's experts' and shared-expert slice's partial sum
-        out = coll.all_reduce(out, tp).to(h.dtype)
+        if tp is None:
+            out = out + shared.to(h.dtype)
+        elif is_a8(qm("sh_down")) and split_sum(tp):
+            whole = shared
+        else:
+            out = out + shared
+    if tp is not None:  # the rank's experts' (and shared-expert slice's) partial sum
+        out = coll.all_reduce(out, tp)
+        out = (out if whole is None else out + whole).to(h.dtype)
     return out.reshape(B, T, D)
 
 
@@ -319,7 +331,7 @@ def layer_forward(x, layers, l, cfg: ModelConfig, qm, rope, win: int, tp=None, c
     attn = causal_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, window=win)
     if cap is not None:
         cap.add("o_in", l, attn)
-    x = row_linear(attn, x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
+    x = row_linear(o_input(attn, cfg, tp), x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
     h = rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps)
     if cap is not None:
         cap.add("mlp_in", l, h)
@@ -381,7 +393,8 @@ def forward_with_cache(params, input_ids, positions, cache: KVCache, cfg: ModelC
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin).contiguous()
         attn = _write_and_attend(q, k, v.contiguous(), cache, l, start, mask, win, slots)
-        x = row_linear(attn, x, layers["o_proj"], qm("o_proj"), layer=l, tp=tp)
+        x = row_linear(o_input(attn, cfg, tp), x, layers["o_proj"], qm("o_proj"), layer=l,
+                       tp=tp)
         x = x + _moe_mlp(rms_norm(x, layers["mlp_norm"][l], cfg.norm_eps), layers, cfg, qm, l,
                          tp=tp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

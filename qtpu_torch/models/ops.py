@@ -7,6 +7,11 @@ A linear site's params are {"w": dense [K, N]} or packed {"data", "scales",
 "smooth" vector [K] (SmoothQuant / AWQ) and a GPTQ actorder "perm" [K].
 Packed sites go to the K1 dequant-matmul, W8A8 sites (5-tuple metas tagged
 "a8") to K6, POT/APOT sites (packed with a "codebook" of levels) to K7.
+Under tensor parallelism a W8A8 row-parallel site runs K6's absmax pass on
+the rank's K slice, an all-reduce MAX over the group, and K6 quantizing with
+that per-token absmax in its partial mode (int32 sums), an all-reduce SUM and
+K6's rescale: qtpu's GSPMD takes the absmax over the whole K and reduces
+before the rescale, and so the ranks' bits are one rank's.
 `causal_attention` runs K5 (flash attention) on CUDA tensors of the head
 dims it takes.
 
@@ -29,7 +34,7 @@ from qtpu_torch.kernels.codebook_matmul import codebook_matmul
 from qtpu_torch.kernels.dequant_matmul import quantized_matmul
 from qtpu_torch.kernels import flash_attention as _k5
 from qtpu_torch.kernels.flash_attention import attention_mask, flash_attention
-from qtpu_torch.kernels.int8_matmul import w8a8_matmul
+from qtpu_torch.kernels.int8_matmul import w8a8_absmax, w8a8_epilogue, w8a8_matmul
 from qtpu_torch.sharding import collectives as coll
 
 
@@ -97,6 +102,8 @@ def causal_attention(q, k, v, window: int = 0):
     (ops.py:147-157): KV heads repeated, f32 scores, -1e30 where the mask is
     False, probabilities cast to q's dtype."""
     B, S, H, hd = q.shape
+    if H == 0:  # a tensor-parallel rank that holds no head
+        return q.new_zeros(B, S, 0)
     if not _k5.supported(hd):
         return plain_attention(_attention_xla, q, k, v, window)
     if q.device.type != "cpu":
@@ -120,9 +127,39 @@ def _attention_xla(q, k, v, window: int):
     return out.reshape(B, S, H * hd)
 
 
-def linear(x: torch.Tensor, p: dict, site_meta=None, layer=None) -> torch.Tensor:
+def is_a8(site_meta) -> bool:
+    """A W8A8 site: a 5-tuple meta tagged "a8"."""
+    return site_meta is not None and len(site_meta) == 5 and site_meta[4] == "a8"
+
+
+def _a8_split(x: torch.Tensor, p: dict, site_meta, tp) -> torch.Tensor:
+    """A row-parallel W8A8 site's whole product x @ W on every rank of tp,
+    the rank holding a K slice of x and W: K6's absmax pass over the slice
+    and an all-reduce MAX (the per-token scale spans all of K), K6's int32
+    sums on that absmax (its partial mode) and an all-reduce SUM (exact:
+    the zero correction is linear in K), then K6's rescale. The bits are one
+    rank's whole product's: qtpu's GSPMD reduces before the rescale too. A
+    rank without rows joins both all-reduces with zeros."""
+    N = p["data"].shape[-1]
+    if x.shape[-1]:
+        amax = coll.all_reduce(w8a8_absmax(x), tp, op="max")
+        total = w8a8_matmul(x, p["data"], p["scales"], p["zeros"], site_meta[:4], absmax=amax,
+                            partial=True)
+    else:
+        amax = coll.all_reduce(x.new_zeros(*x.shape[:-1], 1, dtype=torch.float32), tp,
+                               op="max")
+        total = torch.zeros(*x.shape[:-1], N, dtype=torch.int32, device=x.device)
+    return w8a8_epilogue(coll.all_reduce(total, tp), amax, p["scales"], x.dtype)
+
+
+def linear(x: torch.Tensor, p: dict, site_meta=None, layer=None, tp=None) -> torch.Tensor:
     """y = maybe_smooth(x)[..., perm] @ W (+ b), qtpu's `ops.linear`. layer
-    selects one layer of stacked [L, ...] params as zero-copy views."""
+    selects one layer of stacked [L, ...] params as zero-copy views. tp: the
+    group of a row-parallel site's K split: a W8A8 site, whose per-token
+    scale spans all of K, then returns its whole product on every rank
+    (`_a8_split`); other sites return the rank's partial product.
+    Column-parallel sites pass none. A rank that holds none of a site's rows
+    or columns (an uneven split) gives zeros, launching nothing."""
     if layer is not None:
         p = {k: v[layer] for k, v in p.items()}
     if "smooth" in p:
@@ -131,11 +168,16 @@ def linear(x: torch.Tensor, p: dict, site_meta=None, layer=None) -> torch.Tensor
         # actorder GPTQ: weights stored in Hessian-diagonal order, the
         # activations gathered into the same order (g_idx style)
         x = x.index_select(-1, p["perm"])
-    if "w" in p:
+    N = (p["w"] if "w" in p else p["data"]).shape[-1]
+    if is_a8(site_meta) and split_sum(tp):
+        y = _a8_split(x, p, site_meta, tp)
+    elif x.shape[-1] == 0 or N == 0:
+        y = torch.zeros(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
+    elif "w" in p:
         y = x @ p["w"].to(x.dtype)
     elif "codebook" in p:
         y = codebook_matmul(x, p["data"], p["scales"], p["codebook"], site_meta)
-    elif site_meta is not None and len(site_meta) == 5 and site_meta[4] == "a8":
+    elif is_a8(site_meta):
         y = w8a8_matmul(x, p["data"], p["scales"], p["zeros"], site_meta[:4])
     else:
         y = quantized_matmul(x, p["data"], p["scales"], p.get("zeros"), site_meta)
@@ -168,13 +210,46 @@ def row_linear(x: torch.Tensor, resid: torch.Tensor, p: dict, site_meta=None, la
                tp=None) -> torch.Tensor:
     """resid + linear(x, p) over a row-parallel site. Under tp the rank's
     partial product (the bias on rank 0 only) goes through `reduce_add`
-    (qtpu's psum); a group of one adds in line, then all-reduces."""
+    (qtpu's psum); a group of one adds in line, then all-reduces. A W8A8
+    site's whole product comes back from `linear` on every rank (its sums
+    reduced before the rescale), and is added as one rank adds it: a
+    difference of the rounding here would move the next sites' per-token
+    int8 codes (summing bf16 partials put the 22-layer TinyLlama W8A8 at
+    TP 2 0.12 from its one-rank logits on an H100)."""
     if not split_sum(tp):
         y = resid + linear(x, p, site_meta, layer=layer)
         return y if tp is None else coll.all_reduce(y, tp)
+    if is_a8(site_meta):
+        return resid + linear(x, p, site_meta, layer=layer, tp=tp)
     if not lead(tp) and "b" in p:
         p = {k: v for k, v in p.items() if k != "b"}
     return reduce_add(resid, linear(x, p, site_meta, layer=layer), tp)
+
+
+def _gathered(x: torch.Tensor, gather, tp) -> torch.Tensor:
+    """x itself, or with gather = (every rank's width, first, end) every
+    rank's x all-gathered along the last dim and [first, end) taken."""
+    if not gather:
+        return x
+    sizes, k0, k1 = gather
+    full = coll.all_gather(x.contiguous(), tp, dim=-1, sizes=sizes)
+    return full if (k0, k1) == (0, full.shape[-1]) else full[..., k0:k1].contiguous()
+
+
+def o_input(attn: torch.Tensor, cfg, tp) -> torch.Tensor:
+    """The attention's row-parallel site's input on this rank: the
+    attention output of its heads, or (`cfg.o_gather` of
+    sharding.specs.LocalConfig) every rank's output all-gathered and the
+    whole groups its rows hold taken, or all of it for an actorder perm
+    that crosses the ranks' rows."""
+    return _gathered(attn, getattr(cfg, "o_gather", ()), tp)
+
+
+def mlp_input(act: torch.Tensor, cfg, tp) -> torch.Tensor:
+    """The MLP's row-parallel site's input on this rank: its columns of the
+    activation, or, for an actorder perm that crosses the ranks' rows
+    (`cfg.mlp_gather`), every rank's columns all-gathered."""
+    return _gathered(act, getattr(cfg, "mlp_gather", ()), tp)
 
 
 def gather_logits(logits: torch.Tensor, tp=None) -> torch.Tensor:

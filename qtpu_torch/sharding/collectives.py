@@ -109,10 +109,20 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     return t
 
 
-def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    """The group's tensors concatenated along `dim`, in group-rank order."""
+def all_gather(t: torch.Tensor, group, dim: int = -1, sizes=None) -> torch.Tensor:
+    """The group's tensors concatenated along `dim`, in group-rank order.
+    sizes: every rank's length along `dim` where they differ (each part
+    padded to the longest for the gather and cut back after)."""
     if group is None:
         return t
+    if sizes is not None:
+        m = max(sizes)
+        if t.shape[dim] < m:
+            pad = list(t.shape)
+            pad[dim] = m - t.shape[dim]
+            t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+        parts = all_gather(t, group, dim).split(m, dim=dim)
+        return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim=dim)
     staged = _staged("all_gather", t, group)
     with _timed(t, staged):
         src = _to_host(t) if staged else t.contiguous()

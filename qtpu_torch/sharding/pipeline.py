@@ -60,10 +60,16 @@ def shard_params_pipeline(params: dict, mesh, arch: str = "llama", cfg=None, qme
 
     out = dict(params)
     out["layers"] = {k: cut(v) for k, v in layers.items()}
-    if axis_size(mesh, "model") > 1:
-        from qtpu_torch.sharding.specs import shard_params
+    tp = axis_size(mesh, "model")
+    if tp > 1:
+        from qtpu_torch.sharding import specs
 
-        out = shard_params(out, mesh, arch, cfg=cfg, qmeta=qmeta)
+        groups = specs.row_groups(arch, out, qmeta)
+        if specs.plan(cfg, tp, groups, specs.row_perms(arch, out)) != specs.plan(cfg, tp, groups):
+            raise ValueError("a pipeline's stages take GPTQ actorder perms that stay inside "
+                             "each tensor-parallel rank's rows (pipeline_nll's local configs "
+                             "see no perms)")
+        out = specs.shard_params(out, mesh, arch, cfg=cfg, qmeta=qmeta)
     return out
 
 
@@ -84,8 +90,9 @@ def pipeline_nll(params, batches, cfg, mesh, n_stages: int | None = None, qmeta=
     if n_stages is not None and n_stages != P:
         raise ValueError(f"n_stages={n_stages} but the mesh has pipe={P}")
     pipe, tp = local_group(mesh, "pipe"), local_group(mesh, "model")
-    n_tp = axis_size(mesh, "model")
-    lc, lq = local_config(cfg, n_tp), shard_qmeta(qmeta, n_tp, arch, cfg)
+    n_tp, r_tp = axis_size(mesh, "model"), axis_rank(mesh, "model")
+    lc = local_config(cfg, n_tp, r_tp, qmeta)
+    lq = shard_qmeta(qmeta, n_tp, arch, cfg, r_tp)
     tp = tp if n_tp > 1 else None
     mod = get_arch(arch)
     qm = (dict(lq) if lq is not None else {}).get

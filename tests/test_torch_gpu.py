@@ -513,13 +513,16 @@ def test_k5_matches_plain(cuda, window, S, hd, G):
     torch.testing.assert_close(got.float(), want32, rtol=2e-2, atol=2e-2)
 
 
-def test_k5_on_the_views_causal_attention_passes(cuda):
+@pytest.mark.parametrize("H,KV,hd", [(8, 2, 64), (7, 1, 64), (4, 1, 128), (3, 1, 128)])
+def test_k5_on_the_views_causal_attention_passes(cuda, H, KV, hd):
     """[B, S, H, hd] projections split from one fused qkv output (v is a
-    strided view) give what the CPU path gives."""
+    strided view) give what the CPU path gives; one KV head too (a TP rank
+    of Qwen2-0.5B at tp 2, of Qwen2-7B at tp 8), whose k and v views differ
+    in their head stride alone."""
     from qtpu_torch.models.ops import causal_attention
 
     g = _gen()
-    B, S, H, KV, hd = 2, 300, 8, 2, 64
+    B, S = 2, 300
     qkv = torch.randn(B, S, (H + 2 * KV) * hd, generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = torch.split(qkv, [H * hd, KV * hd, KV * hd], dim=-1)
     q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
@@ -1855,6 +1858,63 @@ def test_k6_gemv_tc_bits_equal_the_dp4a_body(cuda, M, site):
     assert _same_bits(got, was)
     assert _same_bits(got, k6.w8a8_matmul(x, data, scales, zeros, meta))
     assert not bool(got[-1].any())
+
+
+# K6's two modes at TinyLlama's TP 2 row-parallel shapes (a rank's K slice):
+# o_proj K 1024, down_proj K 2816, N 2048
+K6_TP2_SITES = {"o": (1024, 2048), "down": (2816, 2048)}
+
+
+@pytest.mark.parametrize("M", [1, 8, 32, 1024])
+@pytest.mark.parametrize("site", sorted(K6_TP2_SITES))
+def test_k6_absmax_modes(cuda, M, site):
+    """absmax out equals the plain absmax bit for bit (a max is order-free);
+    absmax in with the row's own absmax gives the usual mode's bits on the
+    route w8a8_matmul takes and on the earlier body (dp4a at M <= 8,
+    mma.sync above), each counted by mode and route; with a foreign absmax
+    (twice the own one) it stays within K6's band of the plain version; the
+    partial mode's int32 sums are the plain version's on both bodies, and
+    their rescale (w8a8_epilogue) gives the usual mode's bits."""
+    from qtpu_torch.kernels import int8_matmul as k6
+
+    K, N = K6_TP2_SITES[site]
+    g = _gen()
+    data, scales, zeros, meta = _w8_site(g, K, N, cuda)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    x[-1] = 0
+    a0, i0 = k6.w8a8_absmax.launches, k6.w8a8_matmul.absmax_in_launches
+    amax = k6.w8a8_absmax(x)
+    torch.cuda.synchronize()
+    assert k6.w8a8_absmax.launches == a0 + 1
+    assert torch.equal(amax, k6.absmax_plain(x))
+    usual = k6.w8a8_matmul(x, data, scales, zeros, meta)
+    route = ("gemv_tc" if M <= 8 else
+             k6.w8a8_route(M, N, (data.data_ptr(), scales.data_ptr())))
+    r0 = getattr(k6.w8a8_matmul, f"absmax_in_{route}_launches")
+    fed = k6.w8a8_matmul(x, data, scales, zeros, meta, absmax=amax)
+    earlier = (k6.w8a8_matmul_dp4a if M <= 8 else k6.w8a8_matmul_mma)
+    torch.cuda.synchronize()
+    assert k6.w8a8_matmul.absmax_in_launches == i0 + 1
+    assert getattr(k6.w8a8_matmul, f"absmax_in_{route}_launches") == r0 + 1
+    assert _same_bits(fed, usual)
+    assert _same_bits(earlier(x, data, scales, zeros, meta, absmax=amax),
+                      earlier(x, data, scales, zeros, meta))
+    # the partial mode (a TP rank's int32 sums) and the rescale: the usual bits
+    e0 = k6.w8a8_epilogue.launches
+    total = k6.w8a8_matmul(x, data, scales, zeros, meta, absmax=amax, partial=True)
+    total_was = earlier(x, data, scales, zeros, meta, absmax=amax, partial=True)
+    y = k6.w8a8_epilogue(total, amax, scales)
+    torch.cuda.synchronize()
+    assert k6.w8a8_epilogue.launches == e0 + 1 and total.dtype == torch.int32
+    assert torch.equal(total, total_was)
+    assert torch.equal(total, k6.w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=amax,
+                                                   partial=True))
+    assert _same_bits(y, usual)
+    foreign = amax * 2
+    got = k6.w8a8_matmul(x, data, scales, zeros, meta, absmax=foreign)
+    want = k6.w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=foreign)
+    torch.cuda.synchronize()
+    assert _k6_err(got, want) < 2e-2 and _rel(got, want) < 2e-2
 
 
 def test_k6_gemv_tc_on_layer_views_and_row_views(cuda):

@@ -167,3 +167,54 @@ def test_linear_codebook_site_raises_naming_its_slice():
     want = jops.linear(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, meta)
     got = ops.linear(cpu(x), {k: cpu(v) for k, v in p.items()}, meta)
     assert _err(to_numpy(got), want) < TOL
+
+
+# ------------------------------------------- tensor parallelism's two modes
+@pytest.mark.parametrize("shape", [(1, 1024), (8, 2816), (3, 5, 384), (32, 1024)])
+def test_absmax_out_plain_is_quantize_activations_absmax(shape):
+    """absmax out's plain version is the absmax quantize_activations scales
+    by; fed back (absmax in), x_q and sx are bit for bit the usual ones."""
+    x = cpu(_x(7 + len(shape), shape))
+    amax = k6.absmax_plain(x)
+    assert amax.dtype == torch.float32 and tuple(amax.shape) == (*shape[:-1], 1)
+    xq, sx = k6.quantize_activations(x)
+    assert torch.equal(sx, torch.clamp(amax * (1.0 / 127.0), min=1e-8))
+    assert torch.equal(k6.w8a8_absmax(x), amax)  # the wrapper's CPU route
+    xq2, sx2 = k6.quantize_activations(x, amax)
+    assert torch.equal(xq2, xq) and torch.equal(sx2, sx)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1024, 2048), (8, 2816, 256), (32, 1024, 384)])
+def test_absmax_in_plain_with_the_own_absmax_is_the_usual_path(M, K, N):
+    """w8a8_matmul_plain (and the wrapper on the CPU) with x's own absmax
+    equals the usual path bit for bit."""
+    x = cpu(_x(M + K, (M, K)))
+    (d, s, z), meta = _w8(N, K, N)
+    d, s, z = cpu(d), cpu(s), cpu(z)
+    want = k6.w8a8_matmul_plain(x, d, s, z, meta)
+    amax = k6.absmax_plain(x)
+    assert torch.equal(k6.w8a8_matmul_plain(x, d, s, z, meta, absmax=amax), want)
+    assert torch.equal(k6.w8a8_matmul(x, d, s, z, meta + ("a8",), absmax=amax), want)
+
+
+@pytest.mark.parametrize("parts", [(512, 512), (1024, 768, 1024)])
+def test_k_slices_on_the_all_reduced_absmax_sum_to_the_whole(parts):
+    """A row-parallel W8A8 site's K cut in uneven slices: the max of the
+    slices' absmax is the whole row's, the slices' int32 sums on it (the
+    partial mode) add up to the whole K's exactly (the zero correction is
+    linear in K), and the rescale of that sum is the unsharded product."""
+    K, N, M = sum(parts), 256, 4
+    x = cpu(_x(K, (M, K)))
+    (d, s, z), meta = _w8(K + 1, K, N)
+    d, s, z = cpu(d), cpu(s), cpu(z)
+    cuts = np.cumsum((0,) + parts)
+    xs = [x[:, a:b].contiguous() for a, b in zip(cuts, cuts[1:])]
+    amax = torch.stack([k6.absmax_plain(t) for t in xs]).amax(0)
+    assert torch.equal(amax, k6.absmax_plain(x))
+    total = sum(k6.w8a8_matmul(t, d[a:b], s, z, (8, b - a, b - a, N), absmax=amax, partial=True)
+                for t, a, b in zip(xs, cuts, cuts[1:]))
+    whole = k6.w8a8_matmul_plain(x, d, s, z, meta, partial=True)
+    assert total.dtype == torch.int32 and torch.equal(total, whole)
+    got = k6.w8a8_epilogue(total, amax, s)
+    want = k6.w8a8_matmul_plain(x, d, s, z, meta)
+    assert got.dtype == torch.bfloat16 and _err(to_numpy(got), to_numpy(want)) < 1e-2
