@@ -58,11 +58,11 @@
 //    absmax-out mode (qtpu_w8a8_absmax) writes each token's |x| max of the
 //    slice, the caller all-reduces it (MAX), and every body quantizes with
 //    it through a.amax_in (the quantize kernel; the tensor-core GEMV in
-//    place of its cluster's maxima). Fed the rank's own absmax, the bits
-//    are the usual mode's. In the partial mode (a.out_total) every body
-//    writes the int32 acc + Σxq (128 - z) of the rank's K slice; the caller
-//    sums it over the group (exact) and w8a8_epilogue_kernel rescales it,
-//    so the ranks' bits are one rank's whole product's (a rank's product
+//    place of its cluster's maxima) and writes, in place of y, the int32
+//    acc + Σxq (128 - z) of the rank's K slice (a.out_total). The caller
+//    sums that over the group (exact) and w8a8_epilogue_kernel rescales it,
+//    so the ranks' bits are one rank's whole product's; fed the rank's own
+//    absmax, the rescaled sums are the usual mode's bits (a rank's product
 //    rounded to bf16 and then summed put the 22-layer TinyLlama W8A8 at TP
 //    2 0.12 from its one-rank logits on an H100; f32 partials 0.078).
 //
@@ -153,7 +153,7 @@ struct W8A8Args {
   int* part;                    // gemv split K: int32 [splits, M, N], else nullptr
   const float* amax_in;         // [M] the per-token absmax to quantize with, else nullptr
   float* amax_out;              // [M] absmax out: the quantize kernel writes it, nothing else
-  int* out_total;               // [M, N] partial mode: acc + Σxq (128 - z) in place of out, or nullptr
+  int* out_total;               // [M, N] with amax_in: acc + Σxq (128 - z) in place of out
   int M, K, Kp, N;
   int split_rows;               // gemv: K rows per blockIdx.y
 };
@@ -166,7 +166,7 @@ __device__ __forceinline__ float w8a8_y(int acc, int sumq, float sx, __nv_bfloat
 }
 
 // Output element i of row m, column n from its int32 sum acc and the row's
-// Σxq: y in bf16, or in the partial mode (a.out_total, a tensor-parallel
+// Σxq: y in bf16, or with a given absmax (a.out_total, a tensor-parallel
 // rank's K slice) the integer acc + Σxq (128 - z), which the group sums
 // exactly before w8a8_epilogue_kernel applies the rescale.
 __device__ __forceinline__ void w8a8_store(const W8A8Args& a, size_t i, int n, int acc, int sumq,
@@ -1036,16 +1036,16 @@ int launch_w8a8_wgmma(const W8A8Args& a, cudaStream_t st) {
 }
 
 W8A8Args w8a8_args(const void* x, const void* data, const void* scales, const void* zeros,
-                   void* out, void* xq, void* sx, void* sumq, const void* amax, int partial,
-                   int M, int K, int N) {
+                   void* out, void* xq, void* sx, void* sumq, const void* amax, int M, int K,
+                   int N) {
   W8A8Args a{};
   a.amax_in = static_cast<const float*>(amax);
-  if (partial) a.out_total = static_cast<int*>(out);
+  if (amax != nullptr) a.out_total = static_cast<int*>(out);
+  else a.out = static_cast<__nv_bfloat16*>(out);
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.data = static_cast<const int8_t*>(data);
   a.scales = static_cast<const __nv_bfloat16*>(scales);
   a.zeros = static_cast<const uint8_t*>(zeros);
-  if (!partial) a.out = static_cast<__nv_bfloat16*>(out);
   a.xq = static_cast<int8_t*>(xq);
   a.sx = static_cast<float*>(sx);
   a.sumq = static_cast<int*>(sumq);
@@ -1066,10 +1066,10 @@ int launch_w8a8_mma(const W8A8Args& a, cudaStream_t st) {
 }  // namespace
 
 // y[M, N] = W8A8(x[M, K], data[K, N], scales[N], zeros[N]) on `stream`;
-// amax: f32 [M], each token's |x| max to quantize with (absmax in), or
-// nullptr for x's own; partial: out is int32 [M, N], acc + Σxq (128 - z)
-// before the rescale (a tensor-parallel rank's K slice; the group sums it,
-// then qtpu_w8a8_epilogue rescales).
+// amax: nullptr (x's own per-token absmax, out bf16 y), or f32 [M], each
+// token's |x| max to quantize with (absmax in: a tensor-parallel rank's K
+// slice), and then out is int32 [M, N], acc + Σxq (128 - z) before the
+// rescale (the group sums it, then qtpu_w8a8_epilogue rescales).
 // cluster > 0 (M <= 8): the tensor-core GEMV in one launch, K split over a
 // thread-block cluster of `cluster` blocks of split_rows K rows each
 // (w8a8_gemv_tc_fits must hold; no scratch is read). Otherwise xq: int8
@@ -1082,10 +1082,10 @@ int launch_w8a8_mma(const W8A8Args& a, cudaStream_t st) {
 // driver refused), or -1 for arguments the kernels do not take.
 extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* scales,
                                 const void* zeros, void* out, void* xq, void* sx, void* sumq,
-                                void* part, const void* amax, int partial, int split_rows,
-                                int cluster, int M, int K, int N, void* stream) {
+                                void* part, const void* amax, int split_rows, int cluster,
+                                int M, int K, int N, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
-  W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, amax, partial, M, K, N);
+  W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, amax, M, K, N);
   a.split_rows = split_rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cluster > 0)
@@ -1114,11 +1114,9 @@ extern "C" int qtpu_w8a8_matmul(const void* x, const void* data, const void* sca
 // says: the earlier body, kept so that the same bytes can be timed on both.
 extern "C" int qtpu_w8a8_matmul_mma(const void* x, const void* data, const void* scales,
                                     const void* zeros, void* out, void* xq, void* sx, void* sumq,
-                                    const void* amax, int partial, int M, int K, int N,
-                                    void* stream) {
+                                    const void* amax, int M, int K, int N, void* stream) {
   if (M <= kGemvRows || K <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0) return -1;
-  const W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, amax, partial, M, K,
-                               N);
+  const W8A8Args a = w8a8_args(x, data, scales, zeros, out, xq, sx, sumq, amax, M, K, N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   w8a8_quant_kernel<<<M, kThreads, 0, st>>>(a);
   const cudaError_t e = cudaGetLastError();
@@ -1131,13 +1129,13 @@ extern "C" int qtpu_w8a8_matmul_mma(const void* x, const void* data, const void*
 extern "C" int qtpu_w8a8_absmax(const void* x, void* amax, int M, int K, void* stream) {
   if (M <= 0 || K <= 0) return -1;
   W8A8Args a = w8a8_args(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, 0, M, K, 0);
+                         nullptr, M, K, 0);
   a.amax_out = static_cast<float*>(amax);
   w8a8_quant_kernel<<<M, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The partial mode's rescale, once the group has summed the int32 totals:
+// The rescale of the absmax-in mode's int32 sums, once the group has summed them:
 // out[m, n] = bf16((float(total[m, n]) s[n]) sx[m]), sx from the
 // (all-reduced) absmax as the quantize kernel takes it: w8a8_y's arithmetic,
 // so the bits are one rank's whole product's.

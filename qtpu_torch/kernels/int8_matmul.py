@@ -38,16 +38,15 @@ TPU kernel takes the absmax inside its body, pallas_int8_matmul.py:40-43):
 `w8a8_absmax` (*absmax out*: the quantize kernel writes each token's |x|
 max of the rank's slice and nothing else; counted in its `.launches`), and
 `w8a8_matmul(..., absmax=)` (*absmax in*: every body quantizes x with the
-given per-token absmax, the all-reduced one, in place of its own; counted
-in `.absmax_in_launches` and by route in `.absmax_in_<route>_launches`).
-With the rank's own absmax fed back the result is the usual mode's, bit for
-bit. `partial=True` writes, in place of y, the rank's int32 sums acc +
-Σxq (128 - z) over its K slice; the group sums them exactly and
+given per-token absmax, the all-reduced one, in place of its own, and
+writes in place of y the rank's int32 sums acc + Σxq (128 - z) over its K
+slice; counted in `.absmax_in_launches` and by route in
+`.absmax_in_<route>_launches`). The group sums them exactly and
 `w8a8_epilogue` (K6's rescale in a launch of its own, `.launches`) gives
 every rank one rank's whole product, bit for bit, as qtpu's GSPMD reduces
-before the rescale. Their plain versions are `absmax_plain`,
-`quantize_activations` / `w8a8_matmul_plain` with a given absmax and
-partial, and `w8a8_epilogue_plain`.
+before the rescale; with the rank's own absmax fed back, the rescaled sums
+are the usual mode's bits. Their plain versions are `absmax_plain`,
+`w8a8_matmul_plain` with a given absmax, and `w8a8_epilogue_plain`.
 """
 
 from __future__ import annotations
@@ -59,8 +58,8 @@ from qtpu_torch.kernels._build import I, P, require
 from qtpu_torch.kernels.dequant_matmul import GEMV_TC_COLS, _sm_count, count_gemv
 from qtpu_torch.kernels.dequant_matmul import gemv_split as _cluster_split
 
-_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-        "qtpu_w8a8_matmul_mma": [P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+_SIG = {"qtpu_w8a8_matmul": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "qtpu_w8a8_matmul_mma": [P, P, P, P, P, P, P, P, P, I, I, I, P],
         "qtpu_w8a8_absmax": [P, P, I, I, P],
         "qtpu_w8a8_epilogue": [P, P, P, P, I, I, P]}
 
@@ -126,20 +125,19 @@ def quantize_activations(x: torch.Tensor, absmax=None):
     return x_q.to(torch.int8), sx
 
 
-def w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=None, partial=False):
+def w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=None):
     """qtpu's `_w8a8_matmul_ref`: the integer product exact in float64
     (torch.matmul has no int32 path on the card and a slow one on the CPU;
-    every partial sum is an integer below 2^53), the rescale in f32.
-    absmax: each token's |x| max to quantize with (quantize_activations);
-    partial: the int32 sums before the rescale (w8a8_epilogue_plain's
-    input)."""
+    every partial sum is an integer below 2^53), the rescale in f32. With
+    absmax (each token's |x| max to quantize with, quantize_activations)
+    the int32 sums before the rescale (w8a8_epilogue_plain's input)."""
     bits, group, K, N = meta[:4]
     if bits != 8 or group != K:
         raise ValueError("w8a8 path needs per-channel (group=K) int8 weights")
     x_q, sx = quantize_activations(x, absmax)
     acc = x_q.double() @ (data.double() + 128)
     zw = zeros.to(torch.int32).reshape(1, N)
-    if partial:
+    if absmax is not None:
         sum_q = x_q.to(torch.int64).sum(dim=-1, keepdim=True)
         return (acc.to(torch.int64) - sum_q * zw).to(torch.int32)
     acc = acc.float()
@@ -149,7 +147,7 @@ def w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=None, partial=False):
 
 
 def w8a8_epilogue_plain(total, absmax, scales, dtype=torch.bfloat16):
-    """The partial mode's rescale: (float(total) s) sx in f32, sx from the
+    """The absmax-in mode's rescale: (float(total) s) sx in f32, sx from the
     per-token absmax as quantize_activations takes it, cast to dtype."""
     sx = torch.clamp(absmax.reshape(*total.shape[:-1], 1) * (1.0 / 127.0), min=1e-8)
     return ((total.float() * scales.float().reshape(-1)) * sx).to(dtype)
@@ -208,20 +206,21 @@ def _scratch(x, M, K):
             torch.empty(M, dtype=torch.int32, device=x.device))
 
 
-def _out(x, N, partial: bool):
-    dtype = torch.int32 if partial else torch.bfloat16
+def _out(x, N, absmax):
+    """y in bf16, or with a given absmax the int32 sums."""
+    dtype = torch.bfloat16 if absmax is None else torch.int32
     return torch.empty(*x.shape[:-1], N, dtype=dtype, device=x.device)
 
 
-def _launch(x, data, scales, zeros, meta, dp4a: bool, absmax=None, partial=False):
+def _launch(x, data, scales, zeros, meta, dp4a: bool, absmax=None):
     """One call of csrc/w8a8_matmul.cu on card tensors; returns (out, the
     body it ran). dp4a: the dp4a GEMV at M <= 8 whatever w8a8_gemv_route
-    says; absmax: the per-token absmax to quantize with (absmax in);
-    partial: int32 sums before the rescale in place of y."""
+    says; absmax: the per-token absmax to quantize with (absmax in: int32
+    sums before the rescale in place of y)."""
     _check(x, data, scales, zeros, meta)
     K, N = meta[2:4]
     M = x.numel() // K
-    out = _out(x, N, partial)
+    out = _out(x, N, absmax)
     if M == 0:
         return out, None
     if absmax is not None:
@@ -236,8 +235,7 @@ def _launch(x, data, scales, zeros, meta, dp4a: bool, absmax=None, partial=False
         cluster, rows = w8a8_gemv_split(_sm_count(x.device.index or 0), N, K)
         rc = lib.qtpu_w8a8_matmul(
             x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-            None, None, None, None, amax, int(partial), rows, cluster, M, K, N,
-            _build.stream_of(x),
+            None, None, None, None, amax, rows, cluster, M, K, N, _build.stream_of(x),
         )
     else:
         xq, sx, sumq = _scratch(x, M, K)
@@ -245,26 +243,25 @@ def _launch(x, data, scales, zeros, meta, dp4a: bool, absmax=None, partial=False
         rc = lib.qtpu_w8a8_matmul(
             x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
             xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(),
-            None if part is None else part.data_ptr(), amax, int(partial), rows, 0, M, K, N,
+            None if part is None else part.data_ptr(), amax, rows, 0, M, K, N,
             _build.stream_of(x),
         )
     _build.check(rc, "w8a8_matmul")
     return out, route
 
 
-def w8a8_matmul(x, data, scales, zeros, meta, absmax=None, partial=False):
+def w8a8_matmul(x, data, scales, zeros, meta, absmax=None):
     """y = W8A8(x) for per-channel int8 weights; x [..., K] -> [..., N] in
-    x's dtype (bf16 on the card), or with partial the int32 sums before the
-    rescale (w8a8_epilogue's input). meta = (8, K, K, N), a 5-tuple's
-    trailing "a8" tag allowed. absmax (f32 [..., 1]): each token's |x| max
-    to quantize with in place of x's own (the absmax-in mode). One call is
+    x's dtype (bf16 on the card). meta = (8, K, K, N), a 5-tuple's trailing
+    "a8" tag allowed. absmax (f32 [..., 1]), the absmax-in mode: each
+    token's |x| max to quantize with in place of x's own, and the result is
+    the int32 sums before the rescale (w8a8_epilogue's input). One call is
     one launch in the count (on the tensor-core GEMV one CUDA launch; on the
     other bodies the activation quantization, the product and, at M <= 8
     with K split, the finishing pass)."""
     if x.device.type == "cpu":
-        return w8a8_matmul_plain(x, data, scales, zeros, meta, absmax, partial)
-    out, route = _launch(x, data, scales, zeros, meta, dp4a=False, absmax=absmax,
-                         partial=partial)
+        return w8a8_matmul_plain(x, data, scales, zeros, meta, absmax)
+    out, route = _launch(x, data, scales, zeros, meta, dp4a=False, absmax=absmax)
     if route is None:
         return out
     w8a8_matmul.launches += 1
@@ -277,7 +274,7 @@ def w8a8_matmul(x, data, scales, zeros, meta, absmax=None, partial=False):
 
 
 def w8a8_epilogue(total, absmax, scales, dtype=torch.bfloat16):
-    """The rescale of the partial mode's int32 sums, once a group has summed
+    """The rescale of the absmax-in mode's int32 sums, once a group has summed
     them: total [..., N] int32, absmax f32 [..., 1] (the all-reduced one),
     scales bf16 [1, N] -> [..., N] bf16 (K6's epilogue in a launch of its
     own); `w8a8_epilogue_plain` on a CPU tensor."""
@@ -322,18 +319,18 @@ def w8a8_absmax(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def w8a8_matmul_dp4a(x, data, scales, zeros, meta, absmax=None, partial=False):
+def w8a8_matmul_dp4a(x, data, scales, zeros, meta, absmax=None):
     """w8a8_matmul with the dp4a GEMV at M <= 8 whatever w8a8_gemv_route
     says: the tensor-core GEMV's earlier body on the same bytes, for
     chip_smoke.py's "was" times and bit checks. Card tensors only; counted
     in its own `.launches`."""
     require(x.is_cuda, "w8a8_matmul_dp4a runs on the card only")
-    out, _ = _launch(x, data, scales, zeros, meta, dp4a=True, absmax=absmax, partial=partial)
+    out, _ = _launch(x, data, scales, zeros, meta, dp4a=True, absmax=absmax)
     w8a8_matmul_dp4a.launches += 1
     return out
 
 
-def w8a8_matmul_mma(x, data, scales, zeros, meta, absmax=None, partial=False):
+def w8a8_matmul_mma(x, data, scales, zeros, meta, absmax=None):
     """w8a8_matmul on the mma.sync body at M > 8 whatever w8a8_route says:
     the Hopper route's earlier body on the same bytes, for chip_smoke.py's
     comparisons (its "was" times, the route's bits against these). Card
@@ -345,14 +342,13 @@ def w8a8_matmul_mma(x, data, scales, zeros, meta, absmax=None, partial=False):
     require(M > GEMV_ROWS, f"the mma.sync body takes M > {GEMV_ROWS}, got {M}")
     if absmax is not None:
         _check_absmax(x, absmax, M)
-    out = _out(x, N, partial)
+    out = _out(x, N, absmax)
     xq, sx, sumq = _scratch(x, M, K)
     lib = _build.load("w8a8_matmul", _SIG)
     rc = lib.qtpu_w8a8_matmul_mma(
         x.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
         xq.data_ptr(), sx.data_ptr(), sumq.data_ptr(),
-        None if absmax is None else absmax.data_ptr(), int(partial), M, K, N,
-        _build.stream_of(x),
+        None if absmax is None else absmax.data_ptr(), M, K, N, _build.stream_of(x),
     )
     _build.check(rc, "w8a8_matmul_mma")
     w8a8_matmul_mma.launches += 1

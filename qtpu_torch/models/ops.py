@@ -9,7 +9,7 @@ Packed sites go to the K1 dequant-matmul, W8A8 sites (5-tuple metas tagged
 "a8") to K6, POT/APOT sites (packed with a "codebook" of levels) to K7.
 Under tensor parallelism a W8A8 row-parallel site runs K6's absmax pass on
 the rank's K slice, an all-reduce MAX over the group, and K6 quantizing with
-that per-token absmax in its partial mode (int32 sums), an all-reduce SUM and
+that per-token absmax (its absmax-in mode: int32 sums), an all-reduce SUM and
 K6's rescale: qtpu's GSPMD takes the absmax over the whole K and reduces
 before the rescale, and so the ranks' bits are one rank's.
 `causal_attention` runs K5 (flash attention) on CUDA tensors of the head
@@ -136,15 +136,14 @@ def _a8_split(x: torch.Tensor, p: dict, site_meta, tp) -> torch.Tensor:
     """A row-parallel W8A8 site's whole product x @ W on every rank of tp,
     the rank holding a K slice of x and W: K6's absmax pass over the slice
     and an all-reduce MAX (the per-token scale spans all of K), K6's int32
-    sums on that absmax (its partial mode) and an all-reduce SUM (exact:
+    sums on that absmax (its absmax-in mode) and an all-reduce SUM (exact:
     the zero correction is linear in K), then K6's rescale. The bits are one
     rank's whole product's: qtpu's GSPMD reduces before the rescale too. A
     rank without rows joins both all-reduces with zeros."""
     N = p["data"].shape[-1]
     if x.shape[-1]:
         amax = coll.all_reduce(w8a8_absmax(x), tp, op="max")
-        total = w8a8_matmul(x, p["data"], p["scales"], p["zeros"], site_meta[:4], absmax=amax,
-                            partial=True)
+        total = w8a8_matmul(x, p["data"], p["scales"], p["zeros"], site_meta[:4], absmax=amax)
     else:
         amax = coll.all_reduce(x.new_zeros(*x.shape[:-1], 1, dtype=torch.float32), tp,
                                op="max")

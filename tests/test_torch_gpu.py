@@ -1869,12 +1869,12 @@ K6_TP2_SITES = {"o": (1024, 2048), "down": (2816, 2048)}
 @pytest.mark.parametrize("site", sorted(K6_TP2_SITES))
 def test_k6_absmax_modes(cuda, M, site):
     """absmax out equals the plain absmax bit for bit (a max is order-free);
-    absmax in with the row's own absmax gives the usual mode's bits on the
-    route w8a8_matmul takes and on the earlier body (dp4a at M <= 8,
-    mma.sync above), each counted by mode and route; with a foreign absmax
-    (twice the own one) it stays within K6's band of the plain version; the
-    partial mode's int32 sums are the plain version's on both bodies, and
-    their rescale (w8a8_epilogue) gives the usual mode's bits."""
+    absmax in (a TP rank's int32 sums) with the row's own absmax gives the
+    plain version's sums on the route w8a8_matmul takes and on the earlier
+    body (dp4a at M <= 8, mma.sync above), counted by mode and route, and
+    their rescale (w8a8_epilogue) the usual mode's bits and its plain
+    version's; with a foreign absmax (twice the own one) the sums are the
+    plain version's and the rescale stays within K6's band of it."""
     from qtpu_torch.kernels import int8_matmul as k6
 
     K, N = K6_TP2_SITES[site]
@@ -1891,29 +1891,26 @@ def test_k6_absmax_modes(cuda, M, site):
     route = ("gemv_tc" if M <= 8 else
              k6.w8a8_route(M, N, (data.data_ptr(), scales.data_ptr())))
     r0 = getattr(k6.w8a8_matmul, f"absmax_in_{route}_launches")
-    fed = k6.w8a8_matmul(x, data, scales, zeros, meta, absmax=amax)
+    e0 = k6.w8a8_epilogue.launches
+    total = k6.w8a8_matmul(x, data, scales, zeros, meta, absmax=amax)
     earlier = (k6.w8a8_matmul_dp4a if M <= 8 else k6.w8a8_matmul_mma)
+    total_was = earlier(x, data, scales, zeros, meta, absmax=amax)
+    y = k6.w8a8_epilogue(total, amax, scales)
     torch.cuda.synchronize()
     assert k6.w8a8_matmul.absmax_in_launches == i0 + 1
     assert getattr(k6.w8a8_matmul, f"absmax_in_{route}_launches") == r0 + 1
-    assert _same_bits(fed, usual)
-    assert _same_bits(earlier(x, data, scales, zeros, meta, absmax=amax),
-                      earlier(x, data, scales, zeros, meta))
-    # the partial mode (a TP rank's int32 sums) and the rescale: the usual bits
-    e0 = k6.w8a8_epilogue.launches
-    total = k6.w8a8_matmul(x, data, scales, zeros, meta, absmax=amax, partial=True)
-    total_was = earlier(x, data, scales, zeros, meta, absmax=amax, partial=True)
-    y = k6.w8a8_epilogue(total, amax, scales)
-    torch.cuda.synchronize()
     assert k6.w8a8_epilogue.launches == e0 + 1 and total.dtype == torch.int32
     assert torch.equal(total, total_was)
-    assert torch.equal(total, k6.w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=amax,
-                                                   partial=True))
+    assert torch.equal(total, k6.w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=amax))
     assert _same_bits(y, usual)
+    assert _same_bits(y, k6.w8a8_epilogue_plain(total, amax, scales))
     foreign = amax * 2
-    got = k6.w8a8_matmul(x, data, scales, zeros, meta, absmax=foreign)
-    want = k6.w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=foreign)
+    got_total = k6.w8a8_matmul(x, data, scales, zeros, meta, absmax=foreign)
+    want_total = k6.w8a8_matmul_plain(x, data, scales, zeros, meta, absmax=foreign)
+    got = k6.w8a8_epilogue(got_total, foreign, scales)
+    want = k6.w8a8_epilogue_plain(want_total, foreign, scales)
     torch.cuda.synchronize()
+    assert torch.equal(got_total, want_total)
     assert _k6_err(got, want) < 2e-2 and _rel(got, want) < 2e-2
 
 

@@ -15,6 +15,8 @@ Tolerances, each with its reason:
     the dense model (tests/test_torch_quant.py) -- both from qtpu's stats;
   * GPTQ: at most 2% of weights a code step off qtpu's and 3e-2 relative
     error (torch.linalg's Cholesky sums in another order, tests/test_torch_gptq.py);
+    the port's packed codes dequantized against its own fake-quant weights
+    within one bf16 ulp (one rounding of the same f32 value);
   * POT/APOT: groups that differ are ties of the scale race or in XLA's
     floor(log2) window (tests/test_torch_pot.py's rule);
   * logits: 2e-2 relative (bf16 layers, other sum orders), 3e-2 where the
@@ -400,6 +402,36 @@ def test_pack_model_on_expert_sites_matches_qtpu(moe, case):
                     .reshape(N, K // G).T.reshape(-1))
             wg = _cols(wk, G)
             _check_groups(wg, _cols(deq[0], G), _cols(deq[1], G), _window_groups(wg), same)
+
+
+@pytest.mark.parametrize("case", ["gptq", "gptq_actorder"])
+def test_gptq_packed_codes_dequantized_are_quantize_models_weights(moe, case):
+    """The reference of chip_smoke.py's moe_methods gate for GPTQ: pack_model's
+    codes dequantized, actorder perms undone (chip_smoke._gptq_dense), are
+    quantize_model's GPTQ weights at every site pack_model packs, within one
+    bf16 ulp, on the true Hessians the smoke calibrates (the same column
+    sweep on the same stats; the fake weight is made in f32 and rounded
+    once, as dequantize_parts rounds it)."""
+    import chip_smoke
+
+    *_, pt, js = moe
+    method, mcfg = _method(case), MCFG[case]
+    st = _tstats(js, True)
+    fake = tapply.quantize_model(pt, method, mcfg, st, "moe")
+    packed, qmeta = tapply.pack_model(pt, method, mcfg, st, "moe")
+    meta = dict(qmeta)
+    sites = {s: v for s, v in _sites(packed).items() if "data" in v}
+    assert set(sites) >= set(tmoe.EXPERT_SITES) | {"lm_head"}
+    if case == "gptq_actorder":
+        assert all("perm" in v for s, v in sites.items() if s != "lm_head")
+    for s, v in sites.items():
+        got = chip_smoke._gptq_dense(torch, v, meta[s])
+        want = (fake["lm_head"] if s == "lm_head" else fake["layers"][s])["w"]
+        assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, s
+        gap = (got.float() - want.float()).abs()
+        top = torch.maximum(got.float().abs(), want.float().abs())
+        ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 8)
+        assert bool((gap <= ulp).all()), (s, float(gap.max()), float((gap > 0).float().mean()))
 
 
 @pytest.mark.parametrize("case", ["awq", "smoothquant_a8", "gptq_actorder", "pot", "apot"])

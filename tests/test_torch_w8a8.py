@@ -186,22 +186,25 @@ def test_absmax_out_plain_is_quantize_activations_absmax(shape):
 
 @pytest.mark.parametrize("M,K,N", [(1, 1024, 2048), (8, 2816, 256), (32, 1024, 384)])
 def test_absmax_in_plain_with_the_own_absmax_is_the_usual_path(M, K, N):
-    """w8a8_matmul_plain (and the wrapper on the CPU) with x's own absmax
-    equals the usual path bit for bit."""
+    """w8a8_matmul_plain (and the wrapper on the CPU) with x's own absmax:
+    int32 sums whose rescale (w8a8_epilogue) is the usual path bit for
+    bit."""
     x = cpu(_x(M + K, (M, K)))
     (d, s, z), meta = _w8(N, K, N)
     d, s, z = cpu(d), cpu(s), cpu(z)
     want = k6.w8a8_matmul_plain(x, d, s, z, meta)
     amax = k6.absmax_plain(x)
-    assert torch.equal(k6.w8a8_matmul_plain(x, d, s, z, meta, absmax=amax), want)
-    assert torch.equal(k6.w8a8_matmul(x, d, s, z, meta + ("a8",), absmax=amax), want)
+    total = k6.w8a8_matmul_plain(x, d, s, z, meta, absmax=amax)
+    assert total.dtype == torch.int32
+    assert torch.equal(k6.w8a8_matmul(x, d, s, z, meta + ("a8",), absmax=amax), total)
+    assert torch.equal(k6.w8a8_epilogue(total, amax, s), want)
 
 
 @pytest.mark.parametrize("parts", [(512, 512), (1024, 768, 1024)])
 def test_k_slices_on_the_all_reduced_absmax_sum_to_the_whole(parts):
     """A row-parallel W8A8 site's K cut in uneven slices: the max of the
     slices' absmax is the whole row's, the slices' int32 sums on it (the
-    partial mode) add up to the whole K's exactly (the zero correction is
+    absmax-in mode) add up to the whole K's exactly (the zero correction is
     linear in K), and the rescale of that sum is the unsharded product."""
     K, N, M = sum(parts), 256, 4
     x = cpu(_x(K, (M, K)))
@@ -211,9 +214,9 @@ def test_k_slices_on_the_all_reduced_absmax_sum_to_the_whole(parts):
     xs = [x[:, a:b].contiguous() for a, b in zip(cuts, cuts[1:])]
     amax = torch.stack([k6.absmax_plain(t) for t in xs]).amax(0)
     assert torch.equal(amax, k6.absmax_plain(x))
-    total = sum(k6.w8a8_matmul(t, d[a:b], s, z, (8, b - a, b - a, N), absmax=amax, partial=True)
+    total = sum(k6.w8a8_matmul(t, d[a:b], s, z, (8, b - a, b - a, N), absmax=amax)
                 for t, a, b in zip(xs, cuts, cuts[1:]))
-    whole = k6.w8a8_matmul_plain(x, d, s, z, meta, partial=True)
+    whole = k6.w8a8_matmul_plain(x, d, s, z, meta, absmax=amax)
     assert total.dtype == torch.int32 and torch.equal(total, whole)
     got = k6.w8a8_epilogue(total, amax, s)
     want = k6.w8a8_matmul_plain(x, d, s, z, meta)

@@ -10,7 +10,7 @@ together, and the share of bf16 outputs that differ is printed.
   * decode attention (K3) on 32 heads against 2 x 16;
   * a column-parallel W8A8 site (K6, N 2048 against 2 x 1024), M 8 and 1024;
   * a row-parallel W8A8 site (K6, K 2048 against 2 x 1024: the absmax
-    all-reduced, the partial mode's int32 sums added, then the epilogue),
+    all-reduced, the absmax-in mode's int32 sums added, then the epilogue),
     M 8 and 1024.
 
     python3 tools/exp_tp_w8a8.py
@@ -90,8 +90,8 @@ def main() -> None:
         amax = torch.maximum(*(k6.w8a8_absmax(x[:, a:a + K // 2].contiguous())
                                for a in (0, K // 2)))
         parts = [k6.w8a8_matmul(x[:, a:a + K // 2].contiguous(), qt.data[a:a + K // 2],
-                                qt.scales, qt.zeros, (8, K // 2, K // 2, N), absmax=amax,
-                                partial=True) for a in (0, K // 2)]
+                                qt.scales, qt.zeros, (8, K // 2, K // 2, N), absmax=amax)
+                 for a in (0, K // 2)]
         out[f"row_site_m{M}_differ"] = _differ(
             full, k6.w8a8_epilogue(parts[0] + parts[1], amax, qt.scales))
     torch.cuda.synchronize()
