@@ -75,7 +75,16 @@ Phases, each printing one JSON line:
            and a prefill; the one-layer entry and K8 at OPT-2.7B's MHA
            decode, K3, K11 and K12's three entries at 32 heads over 8) against
            its plain version with its times, listed in the kernels line as
-           <kernel>_hd80 / _hd96
+           <kernel>_hd80 / _hd96; the same at Falcon3-7B's shapes (hd 256:
+           K5 on its eval block, 12 q heads over 4 kv heads; the decode
+           entries at B 8, G 3; K12 at S 32768) as <kernel>_hd256, and over
+           the kernels' domain (DOMAIN_SHAPES: hd 8, 24, 40, 72 and 136 at
+           32 q heads over 8; G 48 and 64 on one kv head at hd 64 and 128;
+           K12's flash entry at S 4096) as <kernel>_<tag>; K1 at
+           Falcon3-7B's five sites at M 8, 1024 and 2048 and K4 at its MLP
+           (F 23040, M 8) against their plain versions with their times, as
+           dequant_matmul_falcon3, dequant_matmul_wgmma_falcon3 and
+           fused_mlp_falcon3
   e2e      a 2-layer model at TinyLlama widths: prefill + 4 decode steps on
            the card against the same on the CPU (plain versions), RTN W4 on
            the int8 KV cache and POT W4 on the bf16 cache; and a 2-layer
@@ -147,6 +156,25 @@ Phases, each printing one JSON line:
            (K1 49 a forward, K2 and the one-layer decode attention 12 a decode
            step), a profile of a decode step; then `python -m qtpu_torch.serve
            --model gpt2 --kv int8` (its main())
+  falcon3  Falcon3-7B-Base at full width (FALCON3_7B: tiiuae/Falcon3-7B-Base's
+           config.json, 12 q heads and 4 kv heads of 256; FALCON3_LAYERS of
+           its 28 layers; random per-layer weights from seed 0), RTN W4 g128
+           fused: the engine at 8 x (128 + 32) on CUDA graphs on the int8
+           cache (K2 and K3 a layer a step) and the bf16 cache (K8), each
+           held to the port's plain run of the same bytes (the prefill and
+           FALCON3_STEPS decode steps teacher-forced on the engine's tokens,
+           every kernel swapped for its plain version on the card): logits
+           within 3e-2 of the plain run's at 2 layers, and at the served
+           depth within 3e-2 of the plain functions' f32 run on the same
+           bytes or no farther from it than the plain bf16 run is, tokens
+           past SHARD_FLIP_GAP, each kernel family alone against the plain
+           run printed; one eval block of 2048 on the fixture through K5 at
+           hd 256 (its Hopper body), its perplexity within 1% of the plain
+           forward's and its logits held the same way; the per-layer int8
+           cache at S 32768 (FALCON3_LONG_LAYERS layers, filled with seeded
+           random codes) through K12, 4 decode steps against the plain run
+           (3e-2); every attention call on its kernel, none on the plain
+           route
   boundary qtpu's layer-boundary decode branches at full width: TinyLlama-1.1B
            (8 of its 22 layers, CUT_LAYERS) RTN W4 g128 fused, 8 slots,
            8 requests of 128 + 32, on the stacked int8 and bf16 caches, each
@@ -276,8 +304,8 @@ Phases, each printing one JSON line:
            shapes these measurements give it (its `kernels_extras` line)
 
 Each phase also holds the count of attention calls that took the plain
-route (a shape a kernel does not take, models/ops.py: hd % 16 == 8, hd >
-128, G > 32) to its reckoning: 0 in every phase.
+route (a shape a kernel does not take, models/ops.py: hd % 8 != 0, hd >
+256) to its reckoning: 0 in every phase.
 
 Launch counters under CUDA graphs: a replay runs no Python, so the engine
 adds to every wrapper's counters, on each replay, what the capture of that
@@ -302,7 +330,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "e2e", "serve", "profile", "long_ctx", "serve_gpt2",
-          "opt_2_7b", "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16",
+          "opt_2_7b", "falcon3", "boundary", "eval", "quant", "serve_w8a8", "pot_apot", "serve_bf16",
           "serve_moe", "http", "ckpt", "moe_methods", "utils", "synth", "shard", "extras")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
@@ -768,6 +796,8 @@ def phase_kernels(torch, ctx):
     detail["layer_boundary"] = k13r
     hdr = _head_dim_rows(torch, gen, dev)
     detail["head_dims"] = hdr
+    f3 = _falcon3_matmul_rows(torch, ctx, gen, dev)
+    detail["falcon3_matmuls"] = f3
     emit({"phase": "kernels", "card": ctx["smi"], "detail": detail})
 
     # one entry per kernel, at the work of one decode step (B = 8):
@@ -923,18 +953,26 @@ def phase_kernels(torch, ctx):
         },
         # the attention kernels at head_dim 80 and 96 (csrc: the tile of the
         # next multiple of 64 on K5's Hopper body; K3's kernel and K12 on
-        # the shared core at hd % 64 of 16, 32 or 48), at the work of one
-        # decode step (K5: one eval block) of a 32-layer model at that head
-        # dim: OPT-2.7B's at 80 (launches: the opt_2_7b phase's and e2e's)
-        **{f"{name}_hd{hd}": {
+        # the shared core at hd % 64 of 16, 32 or 48), at Falcon3-7B's
+        # shapes (hd 256, G 3) and over their domain (DOMAIN_SHAPES: hd 8
+        # to 136, G 48 and 64), at the work of one decode step (K5: one eval
+        # block) of a 32-layer model at that head dim (28 at hd 256,
+        # Falcon3-7B's): OPT-2.7B's at 80 (launches: the opt_2_7b phase's
+        # and e2e's; at hd 256 the falcon3 phase's; none at the domain's)
+        **{f"{name}_{tag}": {
             "route": "cuda", "replaces": f"qtpu/kernels/{ATTN_REPLACES[name]}",
             "source": "qtpu_torch/csrc/" + ("flash_attention.cu" if name == "flash_attention"
                                             else "kv_flash_decode.cu" if "flash" in name
                                             or "banded" in name else "kv_attention.cu"),
-            "head_dim": hd, "max_abs_err": r["max_abs_err"],
-            **{key: HD_LAYERS * r[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "head_dim": r["hd"], "heads": r.get("H", r["KV"] * r.get("G", 1)),
+            "kv_heads": r["KV"],
+            "max_abs_err": r["max_abs_err"],
+            **{key: (FALCON3_7B["num_layers"] if tag == "hd256" else HD_LAYERS) * r[key]
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": r["bound_by"],
-        } for hd, rows in hdr.items() for name, r in rows.items()},
+        } for tag, rows in hdr.items() for name, r in rows.items()},
+        # K1 and K4 at Falcon3-7B's widths (launches: the falcon3 phase's)
+        **_falcon3_kernel_rows(f3),
         # K1's options at the work of one decode step of the fuse branch: L
         # calls each, norm_w at the qkv site and resid at the o site (M 8)
         **{f"dequant_matmul_{opt}": {
@@ -1735,17 +1773,18 @@ ATTN_REPLACES = {
 }
 
 
-def _k5_hd_row(torch, gen, dev, hd):
+def _k5_hd_row(torch, gen, dev, hd, heads=HD_MHA, cases=None):
     """K5 at head_dim hd on the Hopper body (the tile of the next multiple
     of 64): an eval block of a 32-head MHA model (B 1, S 2048; OPT-2.7B's at
-    hd 80) without and with a window of 256, a ragged S of 1000 and a
-    prefill of 8 x 128, each within 2e-2 relative error of the plain version
-    and on the route flash_route names; then times at the eval block:
-    kernel, mma.sync body ("was"), plain version, SDPA(is_causal) and the
-    bound from the true hd's operations."""
+    hd 80; `heads` (H, KV) another model's) without and with a window of 256,
+    a ragged S of 1000 and a prefill of 8 x 128 (`cases`: those named),
+    each within 2e-2 relative error of the plain version and on the route
+    flash_route names; then times at the eval block: kernel, mma.sync body
+    ("was"), plain version, SDPA(is_causal) and the bound from the true hd's
+    operations."""
     from qtpu_torch.kernels import flash_attention as k5
 
-    H, KV = HD_MHA
+    H, KV = heads
 
     def qkv(B, S):
         q = (torch.randn(B, H, S, hd, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
@@ -1754,9 +1793,11 @@ def _k5_hd_row(torch, gen, dev, hd):
         return q, k, v
 
     row = {"H": H, "KV": KV, "hd": hd, "cases": {}}
-    cases = {"eval_block": (1, EVAL_BLOCK, 0), "window256": (1, EVAL_BLOCK, 256),
+    every = {"eval_block": (1, EVAL_BLOCK, 0), "window256": (1, EVAL_BLOCK, 256),
              "ragged_s1000": (1, 1000, 0), "prefill_8x128": (8, 128, 0)}
-    for name, (B, S, window) in cases.items():
+    for name, (B, S, window) in every.items():
+        if cases is not None and name not in cases:
+            continue
         q, k, v = qkv(B, S)
         w0 = k5.flash_attention.wgmma_launches
         got = k5.flash_attention(q, k, v, window)
@@ -1793,13 +1834,13 @@ def _k5_hd_row(torch, gen, dev, hd):
     return row
 
 
-def _decode_hd_row(torch, gen, dev, hd, kind):
+def _decode_hd_row(torch, gen, dev, hd, kind, heads=None):
     """One of K3's kernel's entries at head_dim hd against its plain
     version, at the serve cell's cache (B 8, S 176, one slot inactive at pos
     = S), without and with a window of 64, 8 layers cycled: kind "layer"
     (the one-layer entry, OPT-2.7B's int8 decode: MHA), "bf16" (K8, its bf16
     decode: MHA), "k3" (K3 on the stacked int8 cache: GQA) or "k11" (K11:
-    GQA). The int8 entries within 2e-2 relative error of the plain version
+    GQA); `heads` (H, KV): another model's, for every kind. The int8 entries within 2e-2 relative error of the plain version
     and rtol/atol 2e-2 of f32 math, K8 within rtol/atol 3e-2, the writes
     equal to the plain ones (K8, K11), the cache read only (the others).
     Times: kernel, plain version (eager), SDPA on the cache (dequantized to
@@ -1808,7 +1849,7 @@ def _decode_hd_row(torch, gen, dev, hd, kind):
     from qtpu_torch.serve.kvcache import dequantize_kv
 
     B, S, L = SERVE_B, 176, 8
-    H, KV = HD_MHA if kind in ("layer", "bf16") else HD_GQA
+    H, KV = heads or (HD_MHA if kind in ("layer", "bf16") else HD_GQA)
     bf = kind == "bf16"
     if bf:
         cache = [torch.randn(L, B, KV, S, hd, generator=gen, device=dev).to(torch.bfloat16)
@@ -1886,10 +1927,11 @@ def _decode_hd_row(torch, gen, dev, hd, kind):
     return row
 
 
-def _k12_hd_rows(torch, gen, dev, hd):
-    """K12's three entries at head_dim hd (the e2e llamas' GQA): the flash
-    entry at B 8, S 32768 (seven sequences in [S - 64, S), one inactive),
-    the stacked one on layer 5 of 8 and the banded one at the serve cell's
+def _k12_hd_rows(torch, gen, dev, hd, heads=HD_GQA, S=None, flash_only=False):
+    """K12's three entries at head_dim hd (the e2e llamas' GQA; `heads` (H,
+    KV) another model's): the flash entry at B 8, S 32768 (or S; seven
+    sequences in [S - 64, S), one inactive), and unless flash_only the
+    stacked one on layer 5 of 8 and the banded one at the serve cell's
     cache (S 176); each against the plain version (_k12_case), with times:
     kernel, plain version (eager), SDPA on the cache dequantized to bf16
     and the bound."""
@@ -1897,9 +1939,9 @@ def _k12_hd_rows(torch, gen, dev, hd):
     from qtpu_torch.serve.kvcache import dequantize_kv
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    H, KV = HD_GQA
+    H, KV = heads
     G, rows = H // KV, {}
-    S = LONG_S
+    S = S or LONG_S
     pos = [S - 64, S - 55, S - 46, S - 37, S - 28, S - 19, S - 1, S + 3]
     row, (cache, q, kn, vn, pos_t, entry) = _k12_case(torch, gen, dev, SERVE_B, KV, G, hd, S,
                                                       pos, 0)
@@ -1917,6 +1959,8 @@ def _k12_hd_rows(torch, gen, dev, hd):
     rows["decode_attention_flash"] = row
     del cache, one, kd, vd
     torch.cuda.empty_cache()
+    if flash_only:
+        return rows
     L, S = 8, 176
     pos = [128, 130, 135, 140, 150, 160, 170, S]
     row, (cache, q, kn, vn, pos_t, entry) = _k12_case(torch, gen, dev, SERVE_B, KV, G, hd, S,
@@ -1942,22 +1986,94 @@ def _k12_hd_rows(torch, gen, dev, hd):
     return rows
 
 
+# the attention kernels' whole domain (hd a multiple of 8 from 8 to 256, any
+# G) in the kernels phase: tag -> (hd, (H, KV)); hd 8-136 at the e2e llamas'
+# GQA (G 4), G 48 and 64 on one kv head; hd 256 at Falcon3-7B's heads (G 3)
+DOMAIN_SHAPES = {"hd8": (8, HD_GQA), "hd24": (24, HD_GQA), "hd40": (40, HD_GQA),
+                 "hd72": (72, HD_GQA), "hd136": (136, HD_GQA), "g48_hd64": (64, (48, 1)),
+                 "g64_hd64": (64, (64, 1)), "g48_hd128": (128, (48, 1)),
+                 "g64_hd128": (128, (64, 1))}
+FALCON3_HEADS = (12, 4)  # Falcon3-7B: 12 q heads, 4 kv heads of 256
+DOMAIN_K12_S = 4096  # K12's flash entry at the domain shapes (S % 2048 == 0)
+
+
 def _head_dim_rows(torch, gen, dev):
-    """Every attention kernel at head_dim 80 and 96 (kernels phase): K5,
-    the four entries of K3's kernel and K12's three, each against its plain
-    version with its times (_k5_hd_row, _decode_hd_row, _k12_hd_rows).
-    Returns {hd: {kernel: row}}."""
+    """Every attention kernel at head_dim 80 and 96 (kernels phase), at
+    Falcon3-7B's shapes (hd 256, G 3: the flash entry of K12 at S 32768)
+    and over the domain (DOMAIN_SHAPES: K5 at the eval block causal and
+    windowed, K12's flash entry at S 4096): K5, the four entries of K3's
+    kernel and K12's entries, each against its plain version with its times
+    (_k5_hd_row, _decode_hd_row, _k12_hd_rows). Returns {tag: {kernel:
+    row}}, tags "hd80", "hd96", "hd256" and DOMAIN_SHAPES'."""
     out = {}
-    for hd in (80, 96):
-        rows = {"flash_attention": _k5_hd_row(torch, gen, dev, hd)}
+    shapes = {"hd80": (80, None), "hd96": (96, None), "hd256": (256, FALCON3_HEADS),
+              **DOMAIN_SHAPES}
+    for tag, (hd, heads) in shapes.items():
+        domain = tag in DOMAIN_SHAPES
+        rows = {"flash_attention": _k5_hd_row(
+            torch, gen, dev, hd, heads or HD_MHA,
+            cases=("eval_block", "window256") if domain else None)}
         for name, kind in (("decode_attention_layer", "layer"),
                            ("decode_attention_write_bf16", "bf16"),
                            ("decode_attention", "k3"), ("decode_attention_write", "k11")):
-            rows[name] = _decode_hd_row(torch, gen, dev, hd, kind)
-        rows.update(_k12_hd_rows(torch, gen, dev, hd))
-        out[hd] = rows
+            rows[name] = _decode_hd_row(torch, gen, dev, hd, kind, heads)
+        rows.update(_k12_hd_rows(torch, gen, dev, hd, heads or HD_GQA,
+                                 S=DOMAIN_K12_S if domain else LONG_S, flash_only=domain))
+        out[tag] = rows
         torch.cuda.empty_cache()
     return out
+
+
+def _falcon3_matmul_rows(torch, ctx, gen, dev):
+    """K1 at Falcon3-7B's sites (FALCON3_7B, W4 g128: qkv, o, gateup, down,
+    lm_head) at decode (M 8), the serve prefill (M 1024) and the eval block
+    (M 2048), and K4 at its MLP (D 3072, F 23040, M 8), each against its
+    plain version at its band (K1 2e-2, K4 3e-2) with its times and bound
+    (_k1_case, _k4_row). Returns {"<site>_<m>": row, "fused_mlp": row}."""
+    c = FALCON3_7B
+    D, F, hd = c["hidden_size"], c["intermediate_size"], c["head_dim"]
+    q, kv = c["num_heads"] * hd, c["num_kv_heads"] * hd
+    sites = {"qkv": (D, q + 2 * kv), "o": (q, D), "gateup": (D, 2 * F), "down": (F, D),
+             "lm_head": (D, c["vocab_size"])}
+    rows = {}
+    for m, M in (("decode", SERVE_B), ("prefill", SERVE_B * SERVE_PROMPT), ("eval", EVAL_BLOCK)):
+        for site, (K, N) in sites.items():
+            rows[f"{site}_{m}"] = _k1_case(torch, ctx, gen, dev, M, K, N, 4, 128)
+            torch.cuda.empty_cache()
+    rows["fused_mlp"] = _k4_row(torch, gen, dev, SERVE_B, D, F, c["num_layers"])
+    return rows
+
+
+def _falcon3_kernel_rows(rows):
+    """The kernels line's rows of _falcon3_matmul_rows, at Falcon3-7B's 28
+    layers: K1 at the work of one decode step (L x (qkv + o) + lm_head, M
+    8), K1 on the Hopper route at one eval block (L x (qkv, o, gateup, down)
+    + lm_head, M 2048) and K4 at one decode step (L calls, M 8)."""
+    L = FALCON3_7B["num_layers"]
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    k1 = {"route": "cuda", "replaces": "qtpu/kernels/pallas_dequant_matmul.py:385"}
+    k4 = rows["fused_mlp"]
+
+    def total(key, m, sites):
+        return L * sum(rows[f"{s}_{m}"][key] for s in sites) + rows[f"lm_head_{m}"][key]
+
+    return {
+        "dequant_matmul_falcon3": {
+            **k1, "source": "qtpu_torch/csrc/dequant_matmul.cu",
+            "max_abs_err": max(rows[f"{s}_decode"]["max_abs_err"] for s in ("qkv", "o", "lm_head")),
+            **{key: total(key, "decode", ("qkv", "o")) for key in keys}, "bound_by": "bytes"},
+        "dequant_matmul_wgmma_falcon3": {
+            **k1, "source": "qtpu_torch/csrc/dq_wgmma.cuh",
+            "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
+                               if n.endswith(("_prefill", "_eval"))),
+            **{key: total(key, "eval", ("qkv", "o", "gateup", "down")) for key in keys},
+            "bound_by": "operations"},
+        "fused_mlp_falcon3": {
+            "route": "cuda", "source": "qtpu_torch/csrc/fused_mlp.cu",
+            "replaces": "qtpu/kernels/pallas_fused_mlp.py:221", "max_abs_err": k4["max_abs_err"],
+            **{key: L * k4[key] for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": k4["bound_by"], "library_ms": None},
+    }
 
 
 LONG_S = 32768  # the long_ctx cell's cache: max_seq_len 32752 + decode_block 16
@@ -2006,9 +2122,9 @@ def _k12_case(torch, gen, dev, B, KV, G, hd, S, pos, window, L=1, layer=0):
         got = entry(q, kn, vn, *(t[0] for t in kc), pos_t, window=window)
     want = k12.flash_decode_plain(q, kn, vn, *(t[layer] for t in pc), pos_t, window=window)
     kw = [t[layer].clone() for t in cache]
-    if hd in k12.SIMT_FLASH_HEAD_DIMS:  # the earlier split body
+    if hd in k12.SIMT_FLASH_HEAD_DIMS and G <= 32:  # the earlier split body
         k12.flash_decode_simt(q, kn, vn, *kw, pos_t, window=window)
-    else:  # no earlier body at this hd: its write is the plain version's
+    else:  # no earlier body at this shape: its write is the plain version's
         kw = [t[layer] for t in pc]
     torch.cuda.synchronize()
     row = {"entry": entry.__name__, "B": B, "KV": KV, "G": G, "hd": hd, "S": S, "L": L,
@@ -2525,6 +2641,16 @@ OPT_2_7B = dict(arch="opt", vocab_size=50272, hidden_size=2560, intermediate_siz
                 num_layers=32, num_heads=32, num_kv_heads=32, head_dim=80, norm_eps=1e-5,
                 max_seq_len=2048, tie_embeddings=True)
 OPT_2_7B_LAYERS = 8  # the opt_2_7b phase's depth: its 32 layers cut for the smoke's time
+# tiiuae/Falcon3-7B-Base's published config.json (LlamaForCausalLM, model_type
+# "llama"): vocab 131072, hidden 3072, ffn 23040, 28 layers of 12 q heads and
+# 4 kv heads of 256 (G 3, an explicit head_dim), rope_theta 1000042, RMSNorm
+# eps 1e-6, 32768 positions, untied embeddings, no attention bias; what
+# config_from_hf gives for it in both packages (norm_topk_prob aside, an
+# MoE-only field it reads as False off a llama)
+FALCON3_7B = dict(arch="llama", vocab_size=131072, hidden_size=3072, intermediate_size=23040,
+                  num_layers=28, num_heads=12, num_kv_heads=4, head_dim=256,
+                  rope_theta=1000042.0, norm_eps=1e-6, max_seq_len=32768, tie_embeddings=False,
+                  attention_bias=False, sliding_window=0)
 # the attention kernels whose launches the head-dim runs reckon
 ATTN_KERNELS = ("flash_attention", "cache_band_write", "decode_attention",
                 "decode_attention_layer", "decode_attention_write", "decode_attention_write_bf16",
@@ -4360,6 +4486,310 @@ def phase_opt_2_7b(torch, ctx):
 FIXTURE_DIR = Path(__file__).resolve().parent / "fixtures" / "public_bytes"
 EVAL_BLOCKS = 4
 EVAL_MCFG = {"w_bit": 4, "q_group_size": 128}
+# the falcon3 phase's depth, 16 of Falcon3-7B's 28 layers: at all 28 (33.5 s)
+# the smoke's phases ran 1002 s on an H100 80GB HBM3 host, past their 1000 s
+FALCON3_LAYERS = 16
+FALCON3_LONG_LAYERS = 2  # its long-context run's depth (the per-layer cache at S 32768)
+FALCON3_STEPS = 8  # decode steps of its teacher-forced holds against the plain run
+FALCON3_TOL = 3e-2  # kernels' logits against the plain run's (relative): e2e's gate
+# the depth the logits are held to the plain run's at FALCON3_TOL (e2e's and
+# the extras' 2 layers): a bf16 difference grows through the random layers
+# (at all 28 the kernels' logits 0.08 from the plain run's, and any one
+# kernel family alone 0.04-0.08; the plain run's 0.09 from the f32 math, the
+# kernels' 0.08, on an H100 80GB HBM3 at 700 W), so at the served depth the
+# kernels' logits are held to the f32 math instead (_f32_held)
+FALCON3_PLAIN_LAYERS = 2
+# the kernels run alone, each family with the rest on their plain versions:
+# how far each moves the logits from the plain run's at the served depth
+FALCON3_FAMILIES = {
+    "int8": {"K1": ("dequant_matmul",), "K4": ("fused_mlp",),
+             "K2+K3": ("cache_band_write", "decode_attention")},
+    "bfloat16": {"K1": ("dequant_matmul",), "K4": ("fused_mlp",),
+                 "K8": ("decode_attention_write_bf16",)},
+    "eval": {"K1": ("dequant_matmul",), "K5": ("flash_attention",)},
+}
+
+
+def _per_step(torch, a, b):
+    return [rel_err(torch, a[:, i], b[:, i]) for i in range(a.shape[1])]
+
+
+def _f32_held(gate, kern_vs_f32, plain_vs_f32):
+    """The served depth's gate: the kernels' logits within FALCON3_TOL of
+    the f32 math on the same bytes, or no farther from it than the plain
+    bf16 run's are."""
+    return {"kernels_vs_f32": kern_vs_f32, "plain_vs_f32": plain_vs_f32,
+            "held": kern_vs_f32 < max(FALCON3_TOL, plain_vs_f32), "gate": gate}
+
+
+def _falcon3_forced(torch, packed, qmeta, cfg, prompts, toks, kv, kernels=None):
+    """The engine's greedy run teacher-forced on its tokens `toks` [B, n],
+    eagerly: the prefill of `prompts` and FALCON3_STEPS decode steps on a
+    fresh `kv` cache, with the kernels (kernels None) or with only the
+    kernels named in `kernels` (WRAPPERS' names) and every other kernel's
+    plain version on the card. Returns the logits [B, 1 + steps, V] on the
+    host (the prefill's first) and the launches."""
+    import numpy as np
+
+    from qtpu_torch.serve.decode import decode_step, prefill
+    from qtpu_torch.serve.kvcache import init_cache
+
+    ids = torch.tensor(np.stack(prompts), device="cuda")
+    B, P = ids.shape
+    _reset_counts()
+    with contextlib.nullcontext() if kernels is None else _PlainKernels(kernels):
+        cache = init_cache(cfg, B, P + FALCON3_STEPS + 16, quantized=kv == "int8",
+                           device="cuda")
+        logits, cache = prefill(packed, ids, cache, cfg, qmeta)
+        outs = [logits.float().cpu()]
+        for i in range(FALCON3_STEPS):
+            pos = torch.full((B,), P + i, dtype=torch.int32, device="cuda")
+            tok = torch.as_tensor(toks[:, i], dtype=torch.int32, device="cuda")
+            logits, cache = decode_step(packed, tok, pos, cache, cfg, qmeta)
+            outs.append(logits.float().cpu())
+    return torch.stack(outs, 1), _counts()
+
+
+def _falcon3_serve_holds(torch, packed, qmeta, cfg, prompts, toks, kv):
+    """The engine's run on the `kv` cache held to the plain run of the same
+    bytes (_falcon3_forced): at the served depth the logits of the kernels,
+    of the plain bf16 run and of the plain functions in f32 (_f32), each
+    kernel family alone against the plain run (FALCON3_FAMILIES), the
+    engine's tokens against the plain run's argmax past SHARD_FLIP_GAP and
+    against the kernels' forced argmax; at FALCON3_PLAIN_LAYERS the kernels'
+    logits against the plain run's. Returns (readings, failures)."""
+    import numpy as np
+
+    L, n = cfg.num_layers, FALCON3_PLAIN_LAYERS
+    kern, kc = _falcon3_forced(torch, packed, qmeta, cfg, prompts, toks, kv)
+    plain, _ = _falcon3_forced(torch, packed, qmeta, cfg, prompts, toks, kv, kernels=())
+    f32, _ = _falcon3_forced(torch, _f32(packed), qmeta, cfg, prompts, toks, kv, kernels=())
+    pad = torch.cat([plain, plain[:, -1:]], 1)  # _token_check drops the last logits
+    r = {"kernels_vs_plain": _per_step(torch, kern, plain),
+         "served": _f32_held("per step, max", max(_per_step(torch, kern, f32)),
+                             max(_per_step(torch, plain, f32))),
+         "alone_vs_plain": {
+             fam: max(_per_step(torch, _falcon3_forced(torch, packed, qmeta, cfg, prompts, toks,
+                                                       kv, kernels=names)[0], plain))
+             for fam, names in FALCON3_FAMILIES[kv].items()},
+         "tokens": _token_check(pad, pad, torch.as_tensor(toks[:, :FALCON3_STEPS + 1])),
+         "engine_tokens_are_forced_argmax": bool(np.array_equal(
+             kern.argmax(-1).numpy(), toks[:, :FALCON3_STEPS + 1])),
+         "forced_launches": {k: v for k, v in kc.items() if v}}
+    del kern, plain, f32
+    cut, ccfg = _cut(packed, n), cfg.replace(num_layers=n)
+    r[f"kernels_vs_plain_{n}_layers"] = _per_step(
+        torch, _falcon3_forced(torch, cut, qmeta, ccfg, prompts, toks, kv)[0],
+        _falcon3_forced(torch, cut, qmeta, ccfg, prompts, toks, kv, kernels=())[0])
+    attn = "decode_attention" if kv == "int8" else "decode_attention_write_bf16"
+    fails = []
+    if max(r[f"kernels_vs_plain_{n}_layers"]) >= FALCON3_TOL:
+        fails.append(f"{kv}: the kernels' logits against the plain run's at {n} layers "
+                     f"{r[f'kernels_vs_plain_{n}_layers']}")
+    if not r["served"]["held"]:
+        fails.append(f"{kv}: the kernels' logits against the f32 math at {L} layers "
+                     f"{r['served']}")
+    if r["tokens"]["differ_clear"] or not r["engine_tokens_are_forced_argmax"]:
+        fails.append(f"{kv}: the engine's tokens {r['tokens']}, forced argmax "
+                     f"{r['engine_tokens_are_forced_argmax']}")
+    if kc[attn] != L * FALCON3_STEPS:
+        fails.append(f"{kv}: the forced run launched {attn} {kc[attn]} times")
+    return r, fails
+
+
+def _falcon3_eval_holds(torch, packed, qmeta, cfg, blk):
+    """One eval block `blk` [1, EVAL_BLOCK] through the model's forward (K5
+    a layer, K1 on the Hopper route), held like the serving runs: at the
+    served depth the logits and the per-token NLL of the kernels against
+    the plain run's, the logits against the f32 math (_f32_held) and each
+    family alone against the plain run; at FALCON3_PLAIN_LAYERS the logits
+    against the plain run's (FALCON3_TOL). Returns (readings, failures)."""
+    from qtpu_torch.models import llama
+
+    def fwd(p, c, kernels=None):
+        with contextlib.nullcontext() if kernels is None else _PlainKernels(kernels):
+            return llama.forward(p, blk, c, qmeta=qmeta)
+
+    def nll(logits):
+        return torch.nn.functional.cross_entropy(logits[0, :-1], blk[0, 1:].long(),
+                                                 reduction="none")
+
+    n = FALCON3_PLAIN_LAYERS
+    plain = fwd(packed, cfg, ())
+    f32 = fwd(_f32(packed), cfg, ())
+    plain_vs_f32 = rel_err(torch, plain, f32)
+    kern = fwd(packed, cfg)
+    r = {"kernels_vs_plain": rel_err(torch, kern, plain),
+         "nll_kernels_vs_plain": rel_err(torch, nll(kern), nll(plain)),
+         "served": _f32_held("logits", rel_err(torch, kern, f32), plain_vs_f32)}
+    del kern, f32
+    r["alone_vs_plain"] = {fam: rel_err(torch, fwd(packed, cfg, names), plain)
+                           for fam, names in FALCON3_FAMILIES["eval"].items()}
+    del plain
+    cut, ccfg = _cut(packed, n), cfg.replace(num_layers=n)
+    r[f"kernels_vs_plain_{n}_layers"] = rel_err(torch, fwd(cut, ccfg), fwd(cut, ccfg, ()))
+    fails = []
+    if r[f"kernels_vs_plain_{n}_layers"] >= FALCON3_TOL or not r["served"]["held"]:
+        fails.append(f"eval: the block's logits {r}")
+    return r, fails
+
+
+def _falcon3_long(torch, packed, qmeta, cfg, plain=False):
+    """FALCON3_LONG_LAYERS layers of the model on the per-layer int8 cache
+    at S 32768 (LONG_S: K12's layout), B 8, every row filled with seeded
+    random codes and scales (0.01-0.06), then 4 decode steps of seeded
+    tokens at S - 80 + i, with the kernels (K12 a layer a step) or their
+    plain versions. Returns the logits [B, 4, V] on the host and the
+    launches."""
+    from qtpu_torch.serve.decode import decode_step
+    from qtpu_torch.serve.kvcache import init_cache
+
+    B, S, steps = SERVE_B, LONG_S, 4
+    g = torch.Generator(device="cuda").manual_seed(5)
+    _reset_counts()
+    with _PlainKernels() if plain else contextlib.nullcontext():
+        cache = init_cache(cfg, B, S, quantized=True, device="cuda", per_layer=True)
+        for t in (*cache.k, *cache.v):
+            t.random_(-127, 128, generator=g)
+        for t in (*cache.k_scale, *cache.v_scale):
+            t.uniform_(0.01, 0.06, generator=g)
+        outs = []
+        for i in range(steps):
+            tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device="cuda",
+                                dtype=torch.int32)
+            pos = torch.full((B,), S - 80 + i, dtype=torch.int32, device="cuda")
+            logits, cache = decode_step(packed, tok, pos, cache, cfg, qmeta)
+            outs.append(logits.float().cpu())
+        del cache
+    return torch.stack(outs, 1), _counts()
+
+
+def phase_falcon3(torch, ctx):
+    """Falcon3-7B-Base at full width on the card (FALCON3_7B: the published
+    config.json's widths, 12 q heads and 4 kv heads of 256; FALCON3_LAYERS
+    of its 28 layers), random per-layer weights from seed 0, RTN W4 g128
+    packed with fused q/k/v: the engine at 8 x (128 + 32), greedy, on CUDA
+    graphs on the int8 cache (K2 and K3 a layer a decode step) and the bf16
+    cache (K8), launches and routes as reckoned, tokens/s and TTFT, each held
+    to the plain run of the same bytes and to the f32 math
+    (_falcon3_serve_holds); one eval block of 2048 on the fixture through K5
+    (its Hopper body, a layer): the perplexity against the plain forward's
+    (1%) and the block's logits held the same way (_falcon3_eval_holds); K12
+    on the per-layer cache at S 32768 (_falcon3_long) against the plain run
+    (FALCON3_TOL)."""
+    import numpy as np
+
+    from qtpu_torch.convert import map_tree
+    from qtpu_torch.data.fixture import load_fixture_test
+    from qtpu_torch.eval import evaluate_perplexity
+    from qtpu_torch.models import llama
+    from qtpu_torch.models.config import ModelConfig
+    from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
+    from qtpu_torch.serve.batching import ContinuousBatcher
+
+    cfg = ModelConfig(**{**FALCON3_7B, "num_layers": FALCON3_LAYERS})
+    L, B, P, new, hd = cfg.num_layers, SERVE_B, SERVE_PROMPT, SERVE_NEW, cfg.head_dim
+    paths = ctx.setdefault("path_launches", {})
+    t0 = time.perf_counter()
+    raw = llama.init_params(cfg, seed=0, device="cuda")
+    packed, qmeta = fuse_packed_sites(*pack_model(raw, "rtn", EVAL_MCFG))
+    del raw
+    torch.cuda.synchronize()
+    parts = {"setup": time.perf_counter() - t0}
+    emit({"phase": "falcon3_model", "config": FALCON3_7B, "layers": L, "setup_s": parts["setup"],
+          "packed_gb": sum(t.numel() * t.element_size()
+                           for t in _tree_leaves(packed).values()) / 1e9})
+    prompts = _serve_prompts(cfg, B)
+    res = {"phase": "falcon3", "model": "Falcon3-7B-Base", "layers": L, "head_dim": hd,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "method": "rtn W4 g128",
+           "serving": {}, "card": ctx["smi"]}
+    fails = []
+    for kv in ("int8", "bfloat16"):
+        t0 = time.perf_counter()
+        quant = kv == "int8"
+        eng = ContinuousBatcher(packed, cfg, qmeta=qmeta, max_batch=B, max_seq_len=P + new,
+                                kv_dtype=kv, seed=0, device="cuda", cuda_graphs=True)
+        warm = _warm_engine(torch, eng, "falcon3", "graph")
+        reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t1 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts, routes, m = _counts(), _route_counts(), eng.metrics()
+        steps, pre = m["decode_steps"], m["prefill_calls"]
+        expect = _serve_launches(L, steps, pre)
+        if not quant:
+            expect.update(cache_band_write=0, decode_attention=0,
+                          decode_attention_write_bf16=L * steps)
+        toks = np.array([r.output for r in reqs])
+        if toks.shape != (B, new) or counts != expect or steps == 0:
+            raise AssertionError(f"falcon3 {kv}: tokens {toks.shape}, launches {counts} != "
+                                 f"expected {expect}")
+        _check_serve_routes(f"falcon3 {kv}", counts, routes, L, pre)
+        attn = "decode_attention" if quant else "decode_attention_write_bf16"
+        paths[f"falcon3_{kv}"] = {**counts, **routes, f"{attn}_hd{hd}": counts[attn],
+                                  "dequant_matmul_falcon3": counts["dequant_matmul"],
+                                  "dequant_matmul_wgmma_falcon3": routes["dequant_matmul_wgmma"],
+                                  "fused_mlp_falcon3": counts["fused_mlp"]}
+        del eng
+        torch.cuda.empty_cache()
+        holds, bad = _falcon3_serve_holds(torch, packed, qmeta, cfg, prompts, toks, kv)
+        fails += bad
+        serving = {"tokens_per_s": B * new / wall, "mean_ttft_s": m.get("mean_ttft_s"),
+                   "decode_steps": steps, "prefill_calls": pre, **warm,
+                   "launches": {k: v for k, v in counts.items() if v}, **holds,
+                   "seconds": time.perf_counter() - t0}
+        res["serving"][kv] = serving
+        emit({"phase": f"falcon3_{kv}", **serving, "card": ctx["smi"]})
+        parts[kv] = serving["seconds"]
+
+    # one eval block of 2048 through K5 at hd 256, against the plain forward
+    t0 = time.perf_counter()
+    ids = np.ascontiguousarray(load_fixture_test(str(FIXTURE_DIR)))
+    _reset_counts()
+    ppl = evaluate_perplexity(packed, ids, cfg, n_samples=1, block_size=EVAL_BLOCK, qmeta=qmeta)
+    ec = {**_counts(), **_route_counts()}
+    with _PlainKernels():
+        ppl_plain = evaluate_perplexity(packed, ids, cfg, n_samples=1, block_size=EVAL_BLOCK,
+                                        qmeta=qmeta)
+    paths["falcon3_eval"] = {**ec, f"flash_attention_hd{hd}": ec["flash_attention"],
+                             "dequant_matmul_wgmma_falcon3": ec["dequant_matmul_wgmma"]}
+    blk = torch.as_tensor(ids[:, :EVAL_BLOCK]).cuda()  # the block evaluate_perplexity took
+    holds, bad = _falcon3_eval_holds(torch, packed, qmeta, cfg, blk)
+    fails += bad
+    res["eval"] = {"block": EVAL_BLOCK, "perplexity": ppl, "plain_perplexity": ppl_plain,
+                   "ratio": ppl / ppl_plain, **holds,
+                   "launches": {k: v for k, v in ec.items() if v}}
+    if abs(ppl / ppl_plain - 1) >= 1e-2 or not math.isfinite(ppl):
+        fails.append(f"eval: perplexity {ppl} against the plain forward's {ppl_plain}")
+    want = {"flash_attention": L, "flash_attention_wgmma": L, "dequant_matmul": 4 * L + 1,
+            "dequant_matmul_wgmma": 4 * L + 1}
+    if any(ec[k] != v for k, v in want.items()):
+        fails.append(f"eval: launches {ec} against {want}")
+    parts["eval"] = time.perf_counter() - t0
+
+    # K12 at S 32768 on the first FALCON3_LONG_LAYERS layers
+    t0 = time.perf_counter()
+    Ll = FALCON3_LONG_LAYERS
+    lcfg = cfg.replace(num_layers=Ll)
+    cut = dict(packed, layers=map_tree(packed["layers"], lambda t: t[:Ll]))
+    kern, lc = _falcon3_long(torch, cut, qmeta, lcfg)
+    plain, _ = _falcon3_long(torch, cut, qmeta, lcfg, plain=True)
+    errs = _per_step(torch, kern, plain)
+    paths["falcon3_long"] = {**lc, f"decode_attention_flash_hd{hd}": lc["decode_attention_flash"]}
+    res["long"] = {"S": LONG_S, "layers": Ll, "B": B, "rel_err_per_step": errs,
+                   "launches": {k: v for k, v in lc.items() if v}}
+    if max(errs) >= FALCON3_TOL or lc["decode_attention_flash"] != Ll * 4:
+        fails.append(f"long: K12 against the plain run {errs}, launches {lc}")
+    parts["long"] = time.perf_counter() - t0
+    res["seconds"] = parts
+    emit(res)
+    del packed, cut
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("falcon3: " + "; ".join(fails))
 
 
 def phase_eval(torch, ctx):
@@ -7581,28 +8011,37 @@ PLAIN_OF = {  # (model module, wrapper name) -> (kernel module, plain version)
 
 class _PlainKernels:
     """Within it the models call every kernel's plain version on the card
-    (PLAIN_OF, and K4's module attribute): the same steps without a kernel.
-    On leaving, it checks that no wrapper counted a launch."""
+    (PLAIN_OF, and K4's module attribute): the same steps without a kernel,
+    but for the kernels of `keep` (WRAPPERS' names), which run as usual.
+    On leaving, it checks that no other wrapper counted a launch."""
+
+    def __init__(self, keep=()):
+        self.keep = set(keep)
 
     def __enter__(self):
         import importlib
 
         from qtpu_torch.kernels import fused_mlp as k4
 
+        kept = {WRAPPERS[k][1] for k in self.keep}
         self.before = _counts()
         self.saved = []
         for (mod, name), (kmod, plain) in PLAIN_OF.items():
+            if name in kept:
+                continue
             m = importlib.import_module(f"qtpu_torch.models.{mod}")
             self.saved.append((m, name, getattr(m, name)))
             setattr(m, name, getattr(importlib.import_module(f"qtpu_torch.kernels.{kmod}"), plain))
-        self.saved.append((k4, "fused_mlp", k4.fused_mlp))
-        k4.fused_mlp = k4.fused_mlp_plain
+        if "fused_mlp" not in self.keep:
+            self.saved.append((k4, "fused_mlp", k4.fused_mlp))
+            k4.fused_mlp = k4.fused_mlp_plain
         return self
 
     def __exit__(self, *exc):
         for m, name, fn in self.saved:
             setattr(m, name, fn)
-        moved = {k: v - self.before[k] for k, v in _counts().items() if v != self.before[k]}
+        moved = {k: v - self.before[k] for k, v in _counts().items()
+                 if v != self.before[k] and k not in self.keep}
         if moved and exc[0] is None:
             raise AssertionError(f"the plain run launched kernels: {moved}")
 

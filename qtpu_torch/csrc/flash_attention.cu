@@ -36,10 +36,12 @@
 // strides for batch, head and position; the head dim must be contiguous),
 // so the caller's [B, S, H, hd] projections need no copy.
 //
-// Head dims: any multiple of 16 from 32 to 128 (qtpu's kernel takes any hd;
-// the published configs of the families the port imports use 64, 80, 96
-// and 128). The mma.sync body is written in k-steps of 16 and 8-column
-// tiles, so each hd is an instance of it.
+// Head dims: any multiple of 8 from 8 to 256 (qtpu's kernel takes any hd;
+// Falcon3's published configs use 256). The mma.sync body is written in
+// k-steps of 16 and 8-column tiles, so each hd is an instance of it: at hd %
+// 16 == 8 the last k-step's upper 8 columns are zero in q's fragment and in
+// K's (the row's 8-column pad, zeroed in registers), and the last P V pair
+// of tiles drops the pad's.
 //
 // The Hopper body (flash_wgmma_kernel, the one calls take where
 // flash_wgmma_fits holds: q, k and v 16-byte aligned with strides of whole
@@ -47,22 +49,30 @@
 // wgmma reaches it. The body follows K1's route (dq_wgmma.cuh, tma.cuh):
 //  * a block owns 128 query rows of one (batch, q head), two consumer
 //    warpgroups of 64 rows each, and a producer warpgroup whose one thread
-//    loads Q once and keeps the K and V tiles of 128 keys in flight by TMA
+//    loads Q once and keeps the K and V tiles of 128 keys (64 above hd
+//    128) in flight by TMA
 //    (4D tensor maps over the strided [B, H|KV, S, hd] views, the 128-byte
 //    swizzle, 64 head-dim columns a box) in a ring of 2 (hd > 64) or 3
 //    (hd <= 64) stages, refilled as soon as both warpgroups release a stage
 //    (an mbarrier of 8 warp arrivals); setmaxnreg gives the consumers 232
 //    registers and the producer 40, as on the route;
-//  * an hd that is not a multiple of 64 (32, 48, 80, 96, 112) is held in
-//    the tile of the next multiple, HP = 64 or 128: the tensor maps' inner
-//    dimension is the true hd, so TMA fills the columns past it with zeros
-//    and reads no byte more from memory; S = Q K^T runs hd / 16 k-steps (no
-//    padded work), P V runs at N = HP (wgmma's MN-major 128-byte swizzled
-//    B operand comes in 64-column atoms), and only the true columns of O
-//    are rescaled and stored. At hd 80 that is 128 / 80 = 1.6x the PV
+//  * an hd that is not a multiple of 64 is held in the tile of the next
+//    multiple, HP = 64 to 256: the tensor maps' inner dimension is the true
+//    hd (a row of hd * 2 bytes, a multiple of 16 at every hd % 8 == 0), so
+//    TMA fills the columns past it with zeros and reads no byte more from
+//    memory; S = Q K^T runs ceil(hd / 16) k-steps (at hd % 16 == 8 the last
+//    one's upper half is those zeros), P V runs at N = HP (wgmma's MN-major
+//    128-byte swizzled B operand comes in 64-column atoms: N 128 over each
+//    pair of chunks, N 64 over a last odd one), and only the true columns of
+//    O are rescaled and stored. At hd 80 that is 128 / 80 = 1.6x the PV
 //    products and (80 + 128) / 160 = 1.3x the tensor-core work of the
 //    bound; the scale is 1 / sqrt(hd) of the true hd;
-//  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
+//  * above hd 128 (three or four chunks) a K / V tile is 64 keys (FaLayout::
+//    BK): Q's 64 KB and a 2-stage ring of 128-key tiles would not fit in
+//    shared memory, and O's 128 accumulators a thread at hd 256 leave room
+//    for S's 32, not 64;
+//  * S = Q K^T is wgmma m64n128k16 (m64n64k16 on 64-key tiles) with both
+//    operands in shared memory,
 //    K-major as TMA lays them (wg_desc); the scores are in the accumulator
 //    layout of mma.sync's C, so the online softmax (log2 domain, the mask
 //    only on tiles that cross the diagonal or the window's edge, -1e30, f32
@@ -83,6 +93,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -171,7 +182,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_attn_kernel(FlashArgs a) {
   constexpr int LD = HD + 8;      // padded row of a K or V tile, in bf16
   constexpr int TILE = kBK * LD;  // one buffer
-  constexpr int KST = HD / 16;    // k-steps of Q K^T
+  constexpr int KST = (HD + 15) / 16;  // k-steps of Q K^T (the last half empty at hd % 16 == 8)
   constexpr int NS = kBK / 8;     // 8-key tiles of S
   constexpr int NO = HD / 8;      // 8-column tiles of O
   constexpr int CH = HD / 8;      // 16-byte chunks per K/V row
@@ -223,7 +234,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(FlashArgs a) {
       const int row = row0 + 8 * r;
       const __nv_bfloat16* src = qp + (long long)row * a.q_ss + col;
       qf[kk][r] = row < a.S ? ld_pair(src) : 0u;
-      qf[kk][r + 2] = row < a.S ? ld_pair(src + 8) : 0u;
+      qf[kk][r + 2] = row < a.S && col + 8 < HD ? ld_pair(src + 8) : 0u;
     }
   }
 
@@ -259,6 +270,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(FlashArgs a) {
       for (int n = 0; n < NS; n += 2) {
         uint32_t bf[4];
         ldsm_x4(bf, kb + (n * 8 + (lm / 2) * 8 + lr) * LD + kk * 16 + (lm % 2) * 8);
+        if (HD % 16 != 0 && kk == KST - 1) bf[1] = bf[3] = 0u;  // the row's pad, past hd
         mma_bf16(s[n], qf[kk], bf);
         mma_bf16(s[n + 1], qf[kk], bf + 2);
       }
@@ -318,7 +330,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(FlashArgs a) {
         uint32_t bf[4];
         ldsm_x4_trans(bf, vb + (kk * 16 + (lm % 2) * 8 + lr) * LD + (n + lm / 2) * 8);
         mma_bf16(o[n], pa, bf);
-        mma_bf16(o[n + 1], pa, bf + 2);
+        if (n + 1 < NO) mma_bf16(o[n + 1], pa, bf + 2);  // else the row's pad
       }
     }
     __syncthreads();  // buffer buf is consumed before the next load into it
@@ -356,8 +368,12 @@ template <int HD>
 struct FaLayout {
   static constexpr int NC = (HD + 63) / 64;   // 64-column (128-byte) chunks of a row
   static constexpr int HP = 64 * NC;          // the padded head dim: P V's N
+  // keys a tile: 128, or 64 above hd 128 (three or four chunks: 128-key
+  // tiles would outgrow shared memory, and S's 64 accumulators beside O's
+  // 96-128 the consumers' registers)
+  static constexpr int BK = NC > 2 ? 64 : kWBK;
   static constexpr int QB = NC * kWBQ * 128;  // Q tile
-  static constexpr int TB = NC * kWBK * 128;  // a K or V tile
+  static constexpr int TB = NC * BK * 128;    // a K or V tile
   static constexpr int RING = NC == 1 ? 3 : 2;
   static constexpr int SMEM = 1024 + QB + RING * 2 * TB + 8 * (1 + 2 * RING);
 };
@@ -422,6 +438,25 @@ __device__ __forceinline__ void fa_wgmma_ss_n128(float* d, uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void fa_wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, " "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void fa_wgmma_rs_n64_t(float* d, const uint32_t* a, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -469,10 +504,24 @@ __device__ __forceinline__ void fa_wgmma_rs_n128_t(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
-template <int HP>
-__device__ __forceinline__ void fa_pv(float* o, const uint32_t* p, uint64_t db, int acc) {
-  if constexpr (HP == 64) fa_wgmma_rs_n64_t(o, p, db, acc);
-  else fa_wgmma_rs_n128_t(o, p, db, acc);
+// S = Q K^T of one k-step over a tile of BK keys
+template <int BK>
+__device__ __forceinline__ void fa_qk(float* s, uint64_t da, uint64_t db, int acc) {
+  if constexpr (BK == 64) fa_wgmma_ss_n64(s, da, db, acc);
+  else fa_wgmma_ss_n128(s, da, db, acc);
+}
+
+// O += P V of 16 keys at row `key` of a V tile of BK keys in NC 64-column
+// chunks: N 128 over each pair of chunks, N 64 over a last odd one (O's
+// accumulators of chunk c start at 32 c)
+template <int NC, int BK>
+__device__ __forceinline__ void fa_pv(float* o, const uint32_t* p, uint32_t vb, int key) {
+#pragma unroll
+  for (int c = 0; c < NC; c += 2) {
+    const uint64_t db = fa_desc_mn(vb + c * BK * 128 + key * 128, BK * 128);
+    if (c + 1 < NC) fa_wgmma_rs_n128_t(o + 32 * c, p, db, 1);
+    else fa_wgmma_rs_n64_t(o + 32 * c, p, db, 1);
+  }
 }
 
 // exp2 on the special function unit (denormal results flushed to 0)
@@ -510,7 +559,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
   extern __shared__ uint8_t fa_smem[];  // aligned to 1024 by hand (an __align__ here would move
                                         // the dynamic shared memory of the mma.sync body)
   uint8_t* qs = fa_smem + ((1024 - (qtpu::smem_u32(fa_smem) & 1023)) & 1023);
-  uint8_t* ks = qs + L::QB;              // [RING][NC][128 keys][128 B]
+  uint8_t* ks = qs + L::QB;              // [RING][NC][BK keys][128 B]
   uint8_t* vs = ks + L::RING * L::TB;    // the same for V
   uint64_t* bars = reinterpret_cast<uint64_t*>(vs + L::RING * L::TB);
   uint64_t* qbar = bars;
@@ -525,8 +574,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int kvh = h / a.G;
   const int q0 = qblk * kWBQ;
   const int last_q = min(q0 + kWBQ, a.S) - 1;
-  const int kt_end = last_q / kWBK;
-  const int kt_begin = a.window > 0 ? max(q0 - a.window + 1, 0) / kWBK : 0;
+  const int kt_end = last_q / L::BK;
+  const int kt_begin = a.window > 0 ? max(q0 - a.window + 1, 0) / L::BK : 0;
 
   if (tid == 0) {
     qtpu::mbar_init(qtpu::smem_u32(qbar), 1);
@@ -556,10 +605,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
         qtpu::mbar_expect_tx(fb, 2 * L::TB);
 #pragma unroll
         for (int c = 0; c < L::NC; ++c) {
-          fa_load(qtpu::smem_u32(ks + slot * L::TB + c * kWBK * 128), &tmk, ko, fb, 64 * c,
-                  kt * kWBK, kvh, b);
-          fa_load(qtpu::smem_u32(vs + slot * L::TB + c * kWBK * 128), &tmv, ko, fb, 64 * c,
-                  kt * kWBK, kvh, b);
+          fa_load(qtpu::smem_u32(ks + slot * L::TB + c * L::BK * 128), &tmk, ko, fb, 64 * c,
+                  kt * L::BK, kvh, b);
+          fa_load(qtpu::smem_u32(vs + slot * L::TB + c * L::BK * 128), &tmv, ko, fb, 64 * c,
+                  kt * L::BK, kvh, b);
         }
       }
     }
@@ -587,34 +636,36 @@ __global__ void __launch_bounds__(kWThreads, 1)
     qtpu::mbar_wait(qtpu::smem_u32(full + slot), (i / L::RING) & 1);
     const uint32_t kb = qtpu::smem_u32(ks + slot * L::TB);
     const uint32_t vb = qtpu::smem_u32(vs + slot * L::TB);
-    const int k0 = kt * kWBK;
+    const int k0 = kt * L::BK;
 
-    float s[64];  // no initial value: the first product ignores it (scale-d 0)
+    float s[L::BK / 2];  // no initial value: the first product ignores it (scale-d 0)
     fa_bar_sync(1 + wg);  // this warpgroup's turn on the tensor cores
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    // (hd + 15) / 16 k-steps: at hd % 16 == 8 the last one's upper 8
+    // columns are TMA's zeros in both Q and K
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kWBK * 128 + (kk % 4) * 32;
-      fa_wgmma_ss_n128(s, qtpu::wg_desc(qa + (kk / 4) * kWBQ * 128 + (kk % 4) * 32),
-                       qtpu::wg_desc(kb + off), kk > 0);
+    for (int kk = 0; kk < (HD + 15) / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::BK * 128 + (kk % 4) * 32;
+      fa_qk<L::BK>(s, qtpu::wg_desc(qa + (kk / 4) * kWBQ * 128 + (kk % 4) * 32),
+                   qtpu::wg_desc(kb + off), kk > 0);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     // the other warpgroup's turn (warpgroup 1 owes none after its last tile:
     // each barrier completes as often as it is waited on)
     if (wg == 0 || kt < kt_end) fa_bar_arrive(2 - wg);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fa_fence<64>(s);
+    fa_fence<L::BK / 2>(s);
 
     // the mask where the tile crosses the diagonal or the window's edge for
     // a row of this warpgroup (keys past S lie past the diagonal): those
     // tiles are scaled into the log2 domain and masked here; the others stay
     // raw, their maximum scaled once (the scale is positive) and each
     // probability one FFMA and one exp2. Row maxima in two partial chains each.
-    const bool masked = k0 + kWBK - 1 > q0w || (a.window > 0 && k0 <= q0w + 63 - a.window);
+    const bool masked = k0 + L::BK - 1 > q0w || (a.window > 0 && k0 <= q0w + 63 - a.window);
     float sc = a.scale_log2;
     if (masked) {
 #pragma unroll
-      for (int j = 0; j < kWBK / 8; ++j) {
+      for (int j = 0; j < L::BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = row0 + (e >= 2 ? 8 : 0);
@@ -628,7 +679,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     }
     float mx[2][2] = {{kMasked, kMasked}, {kMasked, kMasked}};
 #pragma unroll
-    for (int j = 0; j < kWBK / 8; ++j)
+    for (int j = 0; j < L::BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) mx[j & 1][e >> 1] = fmaxf(mx[j & 1][e >> 1], s[4 * j + e]);
     float mn[2], nmn[2], alpha[2];
@@ -642,10 +693,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
       m[r] = mn[r];
       nmn[r] = -mn[r];
     }
-    uint32_t pf[kWBK / 16][4];
+    uint32_t pf[L::BK / 16][4];
     float ls[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // the tile's row sums, two partial chains
 #pragma unroll
-    for (int j = 0; j < kWBK / 8; ++j) {
+    for (int j = 0; j < L::BK / 8; ++j) {
       float pv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -670,12 +721,11 @@ __global__ void __launch_bounds__(kWThreads, 1)
     }
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < kWBK / 16; ++kk)
-      fa_pv<L::HP>(o, pf[kk], fa_desc_mn(vb + kk * 16 * 128, kWBK * 128), 1);
+    for (int kk = 0; kk < L::BK / 16; ++kk) fa_pv<L::NC, L::BK>(o, pf[kk], vb, 16 * kk);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fa_fence<L::HP / 2>(o);
-    qtpu::wg_fence_u32<kWBK / 4>(&pf[0][0]);
+    qtpu::wg_fence_u32<L::BK / 4>(&pf[0][0]);
     qtpu::warp_arrive(qtpu::smem_u32(empty + slot));  // K and V of the stage are consumed
   }
 
@@ -730,8 +780,8 @@ int fa_map(CUtensorMap* map, FaMaps* order, const void* base, int B, int heads, 
   return r == CUDA_SUCCESS ? 0 : (qtpu::kWgEncodeError | (int)r);
 }
 
-// The head dims both bodies take: multiples of 16 from 32 to 128.
-bool head_dim_ok(int hd) { return hd % 16 == 0 && hd >= 32 && hd <= 128; }
+// The head dims both bodies take: multiples of 8 from 8 to 256.
+bool head_dim_ok(int hd) { return hd % 8 == 0 && hd >= 8 && hd <= 256; }
 
 // The Hopper body's rule: q, k and v 16-byte aligned with strides of whole
 // 16-byte units below 2^39 elements (TMA's), at a head dim head_dim_ok
@@ -753,8 +803,8 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, const FlashA
   CUtensorMap tmq, tmk, tmv;
   FaMaps qo{}, ko{}, vo{};
   int rc = fa_map(&tmq, &qo, q, B, H, a.S, HD, a.q_sb, a.q_sh, a.q_ss, kWBQ);
-  if (rc == 0) rc = fa_map(&tmk, &ko, k, B, KV, a.S, HD, a.k_sb, a.k_sh, a.k_ss, kWBK);
-  if (rc == 0) rc = fa_map(&tmv, &vo, v, B, KV, a.S, HD, a.v_sb, a.v_sh, a.v_ss, kWBK);
+  if (rc == 0) rc = fa_map(&tmk, &ko, k, B, KV, a.S, HD, a.k_sb, a.k_sh, a.k_ss, L::BK);
+  if (rc == 0) rc = fa_map(&tmv, &vo, v, B, KV, a.S, HD, a.v_sb, a.v_sh, a.v_ss, L::BK);
   if (rc != 0) return rc;
   if (ko.pos_s != vo.pos_s || ko.pos_h != vo.pos_h || ko.pos_b != vo.pos_b) return -1;
   if (!smem_set) {
@@ -790,10 +840,6 @@ int launch_flash(const void* q, const void* k, const void* v, const FlashArgs& a
                : launch_flash_mma<HD>(a, B, H, st);
 }
 
-}  // namespace
-
-namespace {
-
 // The mma.sync body, or the Hopper body (wgmma: the caller has checked
 // flash_wgmma_fits), on the arguments qtpu_flash_attention takes.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -825,15 +871,12 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   a.G = H / KV;
   a.window = window;
   a.scale_log2 = kLog2e / sqrtf((float)hd);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch_flash<32>(q, k, v, a, B, H, KV, wgmma, st);
-    case 48: return launch_flash<48>(q, k, v, a, B, H, KV, wgmma, st);
-    case 64: return launch_flash<64>(q, k, v, a, B, H, KV, wgmma, st);
-    case 80: return launch_flash<80>(q, k, v, a, B, H, KV, wgmma, st);
-    case 96: return launch_flash<96>(q, k, v, a, B, H, KV, wgmma, st);
-    case 112: return launch_flash<112>(q, k, v, a, B, H, KV, wgmma, st);
-    case 128: return launch_flash<128>(q, k, v, a, B, H, KV, wgmma, st);
+#define QTPU_FA_CASE(HD) \
+  case HD: return launch_flash<HD>(q, k, v, a, B, H, KV, wgmma, st);
+    QTPU_HEAD_DIMS(QTPU_FA_CASE)
+#undef QTPU_FA_CASE
     default: return -1;
   }
 }
@@ -841,7 +884,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // o = attention(q, k, v) with the strides given in elements (the head dim
-// is contiguous in all four; hd a multiple of 16 from 32 to 128). q/o need
+// is contiguous in all four; hd a multiple of 8 from 8 to 256). q/o need
 // even strides and 4-byte alignment;
 // k/v strides that are multiples of 8 and 16-byte alignment (16-byte row
 // loads). The Hopper body runs where flash_wgmma_fits holds (q too 16-byte
@@ -873,3 +916,4 @@ extern "C" int qtpu_flash_attention_mma(
   return flash_attention(q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                          o_sb, o_sh, o_ss, B, H, KV, S, hd, window, false, stream);
 }
+

@@ -62,7 +62,9 @@
 // in the same launch (no scratch, no second launch). The block whose slice
 // holds pos is the one that writes the new row (K8, K11) and stages it from
 // k_new / v_new (K8) or from its own shared memory (K11); no other block
-// reads row pos. The earlier body, decode_attn_kernel (one block per
+// reads row pos. A kv-head with more than 32 q heads (kvd::kMaxG) is split
+// over a second grid axis of head groups, each group's clusters reading the
+// same rows (group 0 writes the new row). The earlier body, decode_attn_kernel (one block per
 // (sequence, kv-head), f32 staging, scalar FMAs), stays behind the `_simt`
 // entries for chip_smoke.py's "was" times; no model path reaches it.
 #include <cooperative_groups.h>
@@ -75,9 +77,10 @@
 
 namespace {
 
-constexpr int kChunk = 128;  // cache rows per staged chunk
-// Shared memory is 4 * (G*hd + kChunk*(2*hd + 1) + 2*kChunk + G*kChunk) bytes:
-// 161 KB at hd = 128 and G = 32, within the card's 227 KB; hd = 256 would not fit.
+constexpr int kChunk = 128;  // cache rows per staged chunk (the earlier body)
+// The earlier body's shared memory is 4 * (G*hd + kChunk*(2*hd + 1) + 2*kChunk +
+// G*kChunk) bytes: 161 KB at hd = 128 and G = 32, within the card's 227 KB; hd
+// = 256 would not fit, so it keeps hd % 16 == 0, hd <= 128, G <= 32.
 constexpr int kMaxHd = 128;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -406,15 +409,19 @@ __device__ __forceinline__ void kvd_slice(int p, int S, int window, int rank, in
   *end = max(*beg, min(hi + 1, *beg + per));
 }
 
-// grid CL * B * KV in clusters of CL, block kvd::kThreads. Modes as
-// decode_attn_kernel's. HD: a multiple of 16 from 32 to 128 (the instances
-// of launch_attn_cluster).
+// grid (CL * B * KV, head groups) in clusters of CL along x, block
+// kvd::kThreads. Modes as decode_attn_kernel's. HD: a multiple of 8 from 8
+// to 256 (the instances of cluster_part). A (sequence, kv-head)'s G
+// heads are split over gridDim.y blocks of GB <= 32 heads (the last may hold
+// fewer; kvd::head_groups): each group's clusters read the same rows, and
+// only group 0's writer block writes the new row (every group's stages it).
 template <int HD, bool BF, bool QW>
 __global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
     const __nv_bfloat16* __restrict__ q, const void* k_cache, const void* v_cache,
     const float* ks_c, const float* vs_c, const __nv_bfloat16* __restrict__ k_new,
     const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ pos,
-    __nv_bfloat16* __restrict__ out, int KV, int G, int S, int window, float qk_scale, int CL) {
+    __nv_bfloat16* __restrict__ out, int KV, int G, int GB, int S, int window, float qk_scale,
+    int CL) {
   extern __shared__ float sm[];
   unsigned char* base = kvd::align16(sm);
   __shared__ __align__(16) int8_t newq[2][HD];
@@ -424,14 +431,17 @@ __global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
   const int rank = (int)cluster.block_rank();
   const int head = blockIdx.x / CL;
   const int b = head / KV, kvh = head - b * KV;
+  const int h0 = blockIdx.y * GB;       // this block's first head of the kv-head
+  const int Gb = min(GB, G - h0);       // and its heads
   const int tid = threadIdx.x;
   const int p = pos[b];
   int s_beg, s_end;
   kvd_slice(p, S, window, rank, CL, &s_beg, &s_end);
   const bool writer = (BF || QW) && p >= 0 && p < S && s_beg <= p && p < s_end;
+  const bool writes = writer && blockIdx.y == 0;  // the one block that writes row pos
   const size_t row0 = ((size_t)b * KV + kvh) * S;  // first row of this (b, head)
   const size_t nrow = ((size_t)b * KV + kvh) * HD;  // this head's new k/v row
-  const size_t qoff = ((size_t)b * KV * G + (size_t)kvh * G) * HD;
+  const size_t qoff = ((size_t)b * KV * G + (size_t)kvh * G + h0) * HD;
   constexpr int ROW = kvd::Layout<HD, BF>::ROW;
   kvd::Rows r;
   r.k = static_cast<const unsigned char*>(k_cache) + row0 * ROW;
@@ -440,11 +450,13 @@ __global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
   r.vs = BF ? nullptr : vs_c + row0;
   r.fresh = writer ? p : -1;
   if (BF && writer) {
-    __nv_bfloat16* kw = static_cast<__nv_bfloat16*>(const_cast<void*>(k_cache));
-    __nv_bfloat16* vw = static_cast<__nv_bfloat16*>(const_cast<void*>(v_cache));
-    for (int d = tid; d < HD; d += kvd::kThreads) {
-      kw[(row0 + p) * HD + d] = k_new[nrow + d];
-      vw[(row0 + p) * HD + d] = v_new[nrow + d];
+    if (writes) {
+      __nv_bfloat16* kw = static_cast<__nv_bfloat16*>(const_cast<void*>(k_cache));
+      __nv_bfloat16* vw = static_cast<__nv_bfloat16*>(const_cast<void*>(v_cache));
+      for (int d = tid; d < HD; d += kvd::kThreads) {
+        kw[(row0 + p) * HD + d] = k_new[nrow + d];
+        vw[(row0 + p) * HD + d] = v_new[nrow + d];
+      }
     }
     r.fresh_k = reinterpret_cast<const unsigned char*>(k_new + nrow);
     r.fresh_v = reinterpret_cast<const unsigned char*>(v_new + nrow);
@@ -460,6 +472,7 @@ __global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
     const int w = tid / 32;
     if (w < 2) quantize_row((w == 0 ? k_new : v_new) + nrow, newq[w], &newsc[w], HD, tid % 32);
     __syncthreads();
+    if (!writes) return;
     int8_t* kw = static_cast<int8_t*>(const_cast<void*>(k_cache));
     int8_t* vw = static_cast<int8_t*>(const_cast<void*>(v_cache));
     for (int d = tid; d < HD; d += kvd::kThreads) {
@@ -471,11 +484,12 @@ __global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
       const_cast<float*>(vs_c)[row0 + p] = newsc[1];
     }
   };
-  kvd::attend<HD, BF>(base, q + qoff, G, r, s_beg, s_end, qk_scale, quantize);
+  kvd::attend<HD, BF>(base, q + qoff, Gb, r, s_beg, s_end, qk_scale, quantize);
   float* bacc = reinterpret_cast<float*>(base + kvd::Layout<HD, BF>::BLOCK_OFF);
+  constexpr int M_AT = kvd::kMaxG * HD, L_AT = M_AT + kvd::kMaxG;  // the block's m and l
   if (CL == 1) {  // one block: its own (m, l, acc) is the result
-    for (int i = tid; i < G * HD; i += kvd::kThreads) {
-      const float lsum = bacc[kvd::kMaxG * HD + kvd::kMaxG + i / HD];
+    for (int i = tid; i < Gb * HD; i += kvd::kThreads) {
+      const float lsum = bacc[L_AT + i / HD];
       out[qoff + i] = __float2bfloat16(lsum > 0.f ? bacc[i] / lsum : 0.f);
     }
     return;
@@ -484,22 +498,22 @@ __global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
   // the cluster's slices merged through distributed shared memory: rank
   // `rank` writes every CL-th run of kThreads output elements
   cluster.sync();  // every block's (m, l, acc) is in its shared memory
-  for (int i = rank * kvd::kThreads + tid; i < G * HD; i += CL * kvd::kThreads) {
+  for (int i = rank * kvd::kThreads + tid; i < Gb * HD; i += CL * kvd::kThreads) {
     const int h = i / HD, d = i - h * HD;
     float mmax = -INFINITY;
     for (int z = 0; z < CL; ++z) {
       const float* rb = cluster.map_shared_rank(bacc, z);
-      mmax = fmaxf(mmax, rb[kvd::kMaxG * HD + h]);
+      mmax = fmaxf(mmax, rb[M_AT + h]);
     }
     float acc = 0.f, lsum = 0.f;
     if (mmax != -INFINITY) {
       for (int z = 0; z < CL; ++z) {
         const float* rb = cluster.map_shared_rank(bacc, z);
-        const float mz = rb[kvd::kMaxG * HD + h];
+        const float mz = rb[M_AT + h];
         if (mz == -INFINITY) continue;  // an empty slice
         const float f = exp2f(mz - mmax);
         acc = fmaf(rb[h * HD + d], f, acc);
-        lsum = fmaf(rb[kvd::kMaxG * HD + kvd::kMaxG + h], f, lsum);
+        lsum = fmaf(rb[L_AT + h], f, lsum);
       }
     }
     out[qoff + i] = __float2bfloat16(lsum > 0.f ? acc / lsum : 0.f);
@@ -507,12 +521,26 @@ __global__ void __launch_bounds__(kvd::kThreads) decode_attn_cluster_kernel(
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
+// One call of K3's kernel, in any of its modes.
+struct KvCall {
+  const void* q;
+  const void* k_c;
+  const void* v_c;
+  const float* ks_c;
+  const float* vs_c;
+  const __nv_bfloat16* k_new;
+  const __nv_bfloat16* v_new;
+  const void* pos;
+  void* out;
+  int B, KV, G, S, window, cluster;
+  cudaStream_t st;
+};
+
 template <int HD, bool BF, bool QW>
-int launch_cluster(const void* q, const void* k_c, const void* v_c, const float* ks_c,
-                   const float* vs_c, const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
-                   const void* pos, void* out, int B, int KV, int G, int S, int window,
-                   int cluster, cudaStream_t st) {
+int launch_cluster(const KvCall& c) {
   auto kernel = decode_attn_cluster_kernel<HD, BF, QW>;
+  const int groups = kvd::head_groups(c.G), GB = kvd::group_heads(c.G);
+  if (groups > 65535) return -1;
   constexpr int smem = kvd::Layout<HD, BF>::SMEM;
   static bool smem_set = false;  // this instance's record, in this library
   if (!smem_set) {
@@ -522,29 +550,29 @@ int launch_cluster(const void* q, const void* k_c, const void* v_c, const float*
     smem_set = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(cluster * B * KV));
+  cfg.gridDim = dim3((unsigned)(c.cluster * c.B * c.KV), (unsigned)groups);
   cfg.blockDim = dim3(kvd::kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
+  cfg.stream = c.st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.x = c.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   static bool fits[9] = {};  // cluster sizes checked co-resident, this instance
-  if (!fits[cluster]) {
+  if (!fits[c.cluster]) {
     int n = 0;
     cudaError_t e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
     if (e != cudaSuccess) return (int)e;
     if (n == 0) return -2;  // no cluster of this size fits on the card
-    fits[cluster] = true;
+    fits[c.cluster] = true;
   }
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(q), k_c, v_c, ks_c, vs_c, k_new, v_new,
-      static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(out), KV, G, S, window,
-      kvd::kLog2e / sqrtf((float)HD), cluster);
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(c.q), c.k_c, c.v_c, c.ks_c, c.vs_c,
+      c.k_new, c.v_new, static_cast<const int*>(c.pos), static_cast<__nv_bfloat16*>(c.out),
+      c.KV, c.G, GB, c.S, c.window, kvd::kLog2e / sqrtf((float)HD), c.cluster);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -554,22 +582,15 @@ int launch_attn_cluster(const void* q, const void* k_c, const void* v_c, const f
                         const float* vs_c, const __nv_bfloat16* k_new,
                         const __nv_bfloat16* v_new, const void* pos, void* out, int B, int KV,
                         int G, int S, int hd, int window, int cluster, void* stream) {
-  if (B <= 0 || KV <= 0 || G <= 0 || G > kvd::kMaxG || S <= 0 || cluster < 1 || cluster > 8 ||
+  if (B <= 0 || KV <= 0 || G <= 0 || S <= 0 || hd <= 0 || cluster < 1 || cluster > 8 ||
       (long long)cluster * B * KV > 0x7fffffffLL)
     return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const KvCall c{q, k_c, v_c, ks_c, vs_c, k_new, v_new, pos, out, B, KV, G, S, window, cluster,
+                 static_cast<cudaStream_t>(stream)};
   switch (hd) {
-#define QTPU_KV_CASE(HD)                                                                    \
-  case HD:                                                                                  \
-    return launch_cluster<HD, BF, QW>(q, k_c, v_c, ks_c, vs_c, k_new, v_new, pos, out, B, KV, \
-                                      G, S, window, cluster, st);
-    QTPU_KV_CASE(32)
-    QTPU_KV_CASE(48)
-    QTPU_KV_CASE(64)
-    QTPU_KV_CASE(80)
-    QTPU_KV_CASE(96)
-    QTPU_KV_CASE(112)
-    QTPU_KV_CASE(128)
+#define QTPU_KV_CASE(HD) \
+  case HD: return launch_cluster<HD, BF, QW>(c);
+    QTPU_HEAD_DIMS(QTPU_KV_CASE)
 #undef QTPU_KV_CASE
     default: return -1;
   }
@@ -623,8 +644,8 @@ extern "C" int qtpu_kv_band_write_simt(const void* k_new, const void* v_new, voi
   return (int)cudaGetLastError();
 }
 
-// q [B, H, hd] bf16 (H = KV * G, G <= 32, hd a multiple of 16 from 32 to
-// 128); cache layer as in qtpu_kv_band_write, 16-byte aligned;
+// q [B, H, hd] bf16 (H = KV * G, any G, hd a multiple of 8 from 8 to 256);
+// cache layer as in qtpu_kv_band_write, 16-byte aligned;
 // out [B, H, hd] bf16. window 0 = full causal. cluster: the blocks of one
 // (sequence, kv-head), 1 to 8. Returns a cudaError_t (0 on success), -1 for
 // arguments the kernel does not take, -2 when no cluster of that size fits.
@@ -668,7 +689,8 @@ extern "C" int qtpu_decode_attention_write(const void* q, const void* k_new, con
 
 // The earlier body of the three entries above (one block per (sequence,
 // kv-head), chunks staged as f32, scalar FMAs), kept for chip_smoke.py's
-// "was" times; the same arguments without the cluster.
+// "was" times; the same arguments without the cluster, at hd % 16 == 0,
+// hd <= 128 and G <= 32.
 extern "C" int qtpu_decode_attention_simt(const void* q, const void* k_c, const void* v_c,
                                           const void* ks_c, const void* vs_c, const void* pos,
                                           void* out, int B, int KV, int G, int S, int hd,
@@ -700,3 +722,4 @@ extern "C" int qtpu_decode_attention_write_simt(const void* q, const void* k_new
                                   static_cast<const __nv_bfloat16*>(v_new), pos, out, B, KV, G, S,
                                   hd, window, stream);
 }
+

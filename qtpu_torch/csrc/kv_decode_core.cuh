@@ -1,20 +1,21 @@
 // The decode-attention core shared by K3's kernel (csrc/kv_attention.cu:
 // K3, K8, K11 and the one-layer entry) and K12's split body
-// (csrc/kv_flash_decode.cu): one block attends the G query heads of one
+// (csrc/kv_flash_decode.cu): one block attends G query heads of one
 // (sequence, kv-head) over one slice [s_beg, s_end) of its cache rows and
-// leaves its unnormalized (m, l, acc) in shared memory.
+// leaves their unnormalized (m, l, acc) in shared memory.
 //
 // Bound: the bytes of the slice (int8 k and v codes and their two f32
 // scales a row, or bf16 k and v). What the design does about it:
 //  * an asynchronous ring of raw chunks: kRows rows of k and v at one byte a
 //    code (two a value on the bf16 cache) plus the scales, filled by 16-byte
-//    cp.async.cg copies (the scales by 4-byte cp.async.ca, as a slice may
-//    start at any row), kStages stages: the first three chunks are issued
-//    at once, then two are in flight while a third is computed. Rows past
-//    the slice are zero-filled, never read;
+//    cp.async.cg copies (8-byte cp.async.ca where an int8 row is hd % 16 ==
+//    8 bytes and so only 8-byte aligned; the scales by 4-byte cp.async.ca,
+//    as a slice may start at any row), kStages stages: the first three
+//    chunks are issued at once, then two are in flight while a third is
+//    computed. Rows past the slice are zero-filled, never read;
 //  * q . k and p . v on the tensor cores: mma.sync m16n8k16 bf16 -> f32.
-//    A of q . k is the G query rows (rows G..15 zero; G > 16 takes two
-//    m-tiles), loaded once into registers; B is the key codes converted
+//    A of q . k is the query rows of one m-tile (16 heads; rows past G
+//    zero), loaded once into registers; B is the key codes converted
 //    int8 -> bf16 in registers (exact for |c| <= 128: f32 magic 2^23 + c
 //    through byte_perm, whose top half is the bf16). k_scale / sqrt(hd) is
 //    applied to each score column after the product, in f32. A of p . v is
@@ -36,22 +37,35 @@
 // that these reads spread over the banks (k: hd + 16 bytes at hd % 32 == 0,
 // hd + 32 at 48, 80, 112; v: hd + 32 but at hd 32 and 96).
 //
-// Head dims: any multiple of 16 from 32 to 128. A row's bytes are 64-byte
-// blocks (4 k-steps, 16 bytes a lane) and a tail of hd % 64 bytes (0, 1, 2
-// or 3 k-steps, 4, 8 or 12 bytes a lane). A lane's run of hd / 8 value bytes
-// starts 4-byte aligned when hd % 32 == 0; at hd 48, 80 and 112 it may start
-// 2 bytes in, and is read as whole words from the word below, shifted
-// (load_run).
+// Head dims: any multiple of 8 from 8 to 256. A row's bytes are 64-byte
+// blocks (4 k-steps, 16 bytes a lane) and a tail of hd % 64 bytes, hd % 64 / 4
+// a lane: 1 to 4 k-steps of 4 bytes a lane, the last one's missing half
+// (hd % 16 == 8: 2 bytes a lane) zero in q's A fragment (a bf16 row's
+// missing 8 columns: zero in q and in B). A lane's run of hd / 8 value bytes
+// starts 4-byte aligned when hd % 32 == 0; elsewhere 2 or 1 bytes in, and is
+// read as whole words from the word below, shifted (load_run).
 //
-// Shared memory a block (Layout::SMEM): hd 64: 3 x 11.5 KB = 34.5 KB; hd
-// 80: 3 x 13.5 KB = 40.5 KB; hd 128: 3 x 19.5 KB = 58.5 KB; bf16 cache hd
-// 64: 54 KB (K8).
+// Warps: a block's G <= 32 heads are MT = 1 or 2 m-tiles of 16 query rows;
+// above hd 128 each head's output columns are split over CS = 2 warps (their
+// n-tiles, so a warp holds at most 64 accumulators: both compute the same
+// scores). The 4 warps are MT x CS units, each with 4 / (MT CS) warps over a
+// chunk's key blocks. The kernels split a larger G over a grid axis (head
+// groups of at most kMaxG heads, head_groups), each block re-reading the
+// rows: a third and fourth m-tile in the block measured 4.8% slower at hd 64,
+// G 8 (MT no longer 1 or 2 at compile time, PERF.md section 6).
+//
+// Shared memory a block (Layout::SMEM: the ring or the merge, whichever is
+// larger): hd 64: 3 x 11.5 KB = 34.5 KB; hd 80: 3 x 13.5 KB = 40.5 KB; hd
+// 128: 3 x 19.5 KB = 58.5 KB; hd 256: 3 x 35.5 KB = 106.5 KB; bf16 cache hd
+// 64: 54 KB (K8), hd 256: 3 x 66 KB = 198 KB.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "head_dims.cuh"
 
 namespace kvd {
 namespace {
@@ -60,25 +74,32 @@ constexpr int kRows = 64;    // cache rows a chunk
 constexpr int kStages = 3;   // ring stages
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxG = 32;    // query heads a kv-head
+constexpr int kMaxG = 32;    // query heads a block (head groups take more)
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD, bool BF>
 struct Layout {
   static constexpr int ROW = BF ? 2 * HD : HD;  // bytes of a cache row
+  // bytes a cp.async of a row: an int8 row of hd % 16 == 8 bytes is only
+  // 8-byte aligned in the cache
+  static constexpr int PIECE = ROW % 16 == 0 ? 16 : 8;
+  static constexpr int RP = (ROW + 15) / 16 * 16;
   // k row pitch in the ring
-  static constexpr int KLD = BF || HD % 32 == 0 ? ROW + 16 : ROW + 32;
-  static constexpr int VLD = BF ? ROW + 16 : (HD == 32 || HD == 96 ? HD : HD + 32);
+  static constexpr int KLD = BF || HD % 32 == 0 ? RP + 16 : RP + 32;
+  static constexpr int VLD = BF ? ROW + 16 : (HD == 32 || HD == 96 ? HD : RP + 32);
   static constexpr int V_OFF = kRows * KLD;
   static constexpr int KS_OFF = V_OFF + kRows * VLD;   // int8: k scales of the chunk
   static constexpr int VS_OFF = KS_OFF + (BF ? 0 : 4 * kRows);
   static constexpr int STAGE = VS_OFF + (BF ? 0 : 4 * kRows);
   static constexpr int RING = kStages * STAGE;
-  // once the ring is drained: each warp's output [16][HD + 8] in fragment
+  // warps splitting a head's output columns, the n-tiles (8 columns) each holds
+  static constexpr int CS = HD > 128 ? 2 : 1;
+  static constexpr int NOW = (HD / 8 + CS - 1) / CS;
+  // once the ring is drained: each warp's output [16][OLD] in fragment
   // order (rows padded so that its float2 stores spread over the banks),
   // m[16], l[16]; then the block's acc [kMaxG][HD], m[kMaxG], l[kMaxG]; then
   // each warp's weight in each head's merge [kMaxG][kWarps]
-  static constexpr int OLD = HD + 8;
+  static constexpr int OLD = 8 * NOW + 8;
   static constexpr int WARP_PART = 4 * (16 * OLD + 32);
   static constexpr int BLOCK_OFF = kWarps * WARP_PART;
   static constexpr int BLOCK_PART = 4 * (kMaxG * HD + 2 * kMaxG);
@@ -87,6 +108,14 @@ struct Layout {
   static constexpr int USED = RING > MERGE ? RING : MERGE;
   static constexpr int SMEM = USED + 16;  // + 16: the base is aligned by hand
 };
+
+// Blocks (head groups) a kernel splits the G heads of a kv-head over, and
+// the heads of each but the last (ceil(G / groups) <= kMaxG).
+__host__ __device__ constexpr int head_groups(int G) { return (G + kMaxG - 1) / kMaxG; }
+
+__host__ __device__ constexpr int group_heads(int G) {
+  return (G + head_groups(G) - 1) / head_groups(G);
+}
 
 __device__ __forceinline__ unsigned char* align16(void* p) {
   return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 15) &
@@ -101,6 +130,19 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 8 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0));
+}
+
+// PIECE (16 or 8) bytes global -> shared, asynchronously; zero-filled when !valid
+template <int PIECE>
+__device__ __forceinline__ void cp_async_piece(void* dst, const void* src, bool valid) {
+  if constexpr (PIECE == 16) cp_async16(dst, src, valid);
+  else cp_async8(dst, src, valid);
 }
 
 // 4 bytes global -> shared, asynchronously; zero-filled when !valid
@@ -152,13 +194,21 @@ __device__ __forceinline__ uint32_t top_halves(float lo, float hi) {
 
 // The head-dim offset of byte j of k-step kk held by quad lane t (int8): a
 // 64-byte block of a row gives each lane 16 contiguous bytes (4 k-steps), the
-// trailing block of hd % 64 bytes (16, 32 or 48) a quarter of it (1, 2 or 3
-// k-steps).
+// trailing block of hd % 64 bytes a quarter of it (hd % 64 / 4 bytes, 2 to
+// 14: 1 to 4 k-steps, the last one half empty where hd % 16 == 8).
 template <int HD>
 __device__ __forceinline__ int kdim(int kk, int t) {
   constexpr int FULL = 4 * (HD / 64);  // k-steps in full 64-byte blocks
   return kk < FULL ? 64 * (kk / 4) + 16 * t + 4 * (kk % 4)
                    : 64 * (HD / 64) + (HD % 64 / 4) * t + 4 * (kk - FULL);
+}
+
+// Whether the q pair `half` of k-step kk lies inside the row (int8 order):
+// false only in the tail's last k-step where hd % 16 == 8.
+template <int HD>
+__device__ __forceinline__ constexpr bool kpair_in(int kk, int half) {
+  constexpr int FULL = 4 * (HD / 64);
+  return kk < FULL || 4 * (kk - FULL) + 2 * half < HD % 64 / 4;
 }
 
 // A cache row's bytes [off, off + N) into N / 4 words (N = 4, 8, 12 or 16)
@@ -176,28 +226,36 @@ __device__ __forceinline__ void load_words(uint32_t* w, const unsigned char* p) 
   }
 }
 
-// A lane's run of VB value bytes at p (2-byte aligned) into (VB + 3) / 4
-// words, byte i of the run at byte i % 4 of word i / 4: load_words where p is
-// 4-byte aligned (VB % 4 == 0); else the words from the one below p, shifted
-// down by 16 bits where p is 2 bytes past it (VB = 6, 10, 14: the run and its
-// 2-byte offset fit those words).
-template <int VB>
+// A lane's run of N bytes at p (A-byte aligned: 4, 2 or 1) into (N + 3) / 4
+// words, byte i of the run at byte i % 4 of word i / 4 (the bytes past the run
+// in the last word are whatever follows it in the row): whole words where p
+// is 4-byte aligned; else the words from the one below p, shifted down by 8
+// bits for each byte p lies past it (the run and its offset fit the words
+// read: (4 - A + N + 3) / 4 of them).
+template <int N, int A>
 __device__ __forceinline__ void load_run(uint32_t* w, const unsigned char* p) {
-  if constexpr (VB % 4 == 0) {
-    load_words<VB>(w, p);
+  constexpr int RW = (N + 3) / 4;
+  if constexpr (A == 4 && N % 4 == 0) {
+    load_words<N>(w, p);
+  } else if constexpr (A == 4) {
+#pragma unroll
+    for (int i = 0; i < RW; ++i) w[i] = reinterpret_cast<const uint32_t*>(p)[i];
   } else {
-    constexpr int RW = (VB + 3) / 4;
+    constexpr int XW = (4 - A + N + 3) / 4;
     const uintptr_t a = reinterpret_cast<uintptr_t>(p);
     const uint32_t* src = reinterpret_cast<const uint32_t*>(a & ~static_cast<uintptr_t>(3));
-    const uint32_t sh = (a & 2) ? 16u : 0u;
-    uint32_t x[RW + 1];
+    const uint32_t sh = A == 2 ? ((a & 2) ? 16u : 0u) : 8u * static_cast<uint32_t>(a & 3);
+    uint32_t x[XW + 1];
 #pragma unroll
-    for (int i = 0; i < RW; ++i) x[i] = src[i];
-    x[RW] = 0u;
+    for (int i = 0; i < XW; ++i) x[i] = src[i];
+    x[XW] = 0u;
 #pragma unroll
     for (int i = 0; i < RW; ++i) w[i] = __funnelshift_r(x[i], x[i + 1], sh);
   }
 }
+
+// The alignment (4, 2 or 1 bytes) of offsets that are multiples of n
+__host__ __device__ constexpr int align_of(int n) { return n % 4 == 0 ? 4 : n % 2 == 0 ? 2 : 1; }
 
 // One (sequence, kv-head) of a cache layer: row 0's k and v (int8 codes or
 // bf16 values) and scales (int8 only), and the row `fresh` (-1: none) that
@@ -217,8 +275,8 @@ struct Rows {
   const float* fresh_scales;
 };
 
-// The G query rows q [G][HD] (bf16, global memory) against rows
-// [s_beg, s_end) of `r`, by the block's kThreads threads; pre() runs, by
+// The G query rows q [G][HD] (bf16, global memory; G <= kMaxG) against
+// rows [s_beg, s_end) of `r`, by the block's kThreads threads; pre() runs, by
 // every thread, once the ring's first chunks are on their way (K11 quantizes
 // its new row there). Leaves in sm + BLOCK_OFF the block's acc [G][HD],
 // m [G] and l [G] (unnormalized, m in the log2 domain; m = -inf, l = 0 and
@@ -228,15 +286,23 @@ template <int HD, bool BF, class Pre>
 __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, int G,
                        const Rows& r, int s_beg, int s_end, float qk_scale, Pre pre) {
   using Lay = Layout<HD, BF>;
-  constexpr int KST = HD / 16;  // k-steps of q . k
-  constexpr int NO = HD / 8;    // 8-column tiles of the output
-  constexpr int VB = HD / 8;    // bytes of a value row a lane reads (int8)
-  constexpr int PIECES = Lay::ROW / 16;
+  constexpr int KST = (HD + 15) / 16;  // k-steps of q . k (the last one half empty at hd % 16 == 8)
+  constexpr int NO = HD / 8;           // 8-column tiles of the output
+  constexpr int VB = HD / 8;           // bytes of a value row a lane reads (int8)
+  constexpr int CS = Lay::CS;
+  constexpr int NOW = Lay::NOW;        // the output n-tiles of one warp
+  constexpr int PIECES = Lay::ROW / Lay::PIECE;
+  constexpr int TAIL = HD % 64 / 4;    // int8: bytes of the row's tail a lane holds
+  // the alignment of a lane's value run (int8): VB g + cs NOW bytes into a row
+  constexpr int RA = align_of(VB) < align_of(CS > 1 ? NOW : 4) ? align_of(VB)
+                                                              : align_of(CS > 1 ? NOW : 4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: row and matrix of this lane
   const int MT = G > 16 ? 2 : 1;            // m-tiles of 16 query rows
-  const int mt = warp % MT, kq = warp / MT, KW = kWarps / MT;
+  const int units = MT * CS;                // (m-tile, column slice) pairs
+  const int mt = warp % MT, cs = CS > 1 ? (warp / MT) % CS : 0;
+  const int kq = warp / units, KW = kWarps / units;
   const int nchunks = s_end > s_beg ? (s_end - s_beg + kRows - 1) / kRows : 0;
 
   auto issue = [&](int c) {
@@ -245,17 +311,17 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
     for (int i = tid; i < kRows * PIECES; i += kThreads) {
       const int row = i / PIECES, piece = i - row * PIECES;
       const int s = s0 + row;
-      unsigned char* dk = st + row * Lay::KLD + 16 * piece;
-      unsigned char* dv = st + Lay::V_OFF + row * Lay::VLD + 16 * piece;
+      unsigned char* dk = st + row * Lay::KLD + Lay::PIECE * piece;
+      unsigned char* dv = st + Lay::V_OFF + row * Lay::VLD + Lay::PIECE * piece;
       if (s == r.fresh && !BF) {  // K11's new row: written once the chunk has landed
       } else if (s == r.fresh) {  // K8's new row, from k_new / v_new
         cp_async16(dk, r.fresh_k + 16 * piece, true);
         cp_async16(dv, r.fresh_v + 16 * piece, true);
       } else {
         const bool ok = s < s_end;
-        const size_t off = (size_t)(ok ? s : s_beg) * Lay::ROW + 16 * piece;
-        cp_async16(dk, r.k + off, ok);
-        cp_async16(dv, r.v + off, ok);
+        const size_t off = (size_t)(ok ? s : s_beg) * Lay::ROW + Lay::PIECE * piece;
+        cp_async_piece<Lay::PIECE>(dk, r.k + off, ok);
+        cp_async_piece<Lay::PIECE>(dv, r.v + off, ok);
       }
     }
     if (!BF) {
@@ -275,25 +341,27 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
     cp_async_commit();
   };
 
-  // A fragments of q for this warp's m-tile, rows G..15 (or 16 + G..31) zero
+  // A fragments of q for this warp's m-tile, rows past G zero, and the
+  // columns past hd (the last k-step's upper half at hd % 16 == 8)
   uint32_t qf[KST][4];
 #pragma unroll
   for (int kk = 0; kk < KST; ++kk) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int d = BF ? 16 * kk + 2 * t + 8 * half : kdim<HD>(kk, t) + 2 * half;
+      const bool in = BF ? 16 * kk + 8 * half < HD : kpair_in<HD>(kk, half);
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = 16 * mt + g + 8 * rr;
         qf[kk][rr + 2 * half] =
-            row < G ? *reinterpret_cast<const uint32_t*>(q + (size_t)row * HD + d) : 0u;
+            in && row < G ? *reinterpret_cast<const uint32_t*>(q + (size_t)row * HD + d) : 0u;
       }
     }
   }
 
-  float o[NO][4];
+  float o[NOW][4];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+  for (int n = 0; n < NOW; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
@@ -323,9 +391,13 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
       const int row = r.fresh - s0;
       if (tid < 2 * PIECES) {
         const int which = tid / PIECES, piece = tid - which * PIECES;
-        *reinterpret_cast<int4*>(st + (which ? Lay::V_OFF + row * Lay::VLD : row * Lay::KLD) +
-                                 16 * piece) =
-            *reinterpret_cast<const int4*>((which ? r.fresh_v : r.fresh_k) + 16 * piece);
+        unsigned char* dst = st + (which ? Lay::V_OFF + row * Lay::VLD : row * Lay::KLD) +
+                             Lay::PIECE * piece;
+        const unsigned char* src = (which ? r.fresh_v : r.fresh_k) + Lay::PIECE * piece;
+        if constexpr (Lay::PIECE == 16)
+          *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+        else
+          *reinterpret_cast<int2*>(dst) = *reinterpret_cast<const int2*>(src);
       } else if (tid < 2 * PIECES + 2) {
         const int which = tid - 2 * PIECES;
         reinterpret_cast<float*>(st + (which ? Lay::VS_OFF : Lay::KS_OFF))
@@ -348,6 +420,7 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
         for (int kk = 0; kk < KST; ++kk) {
           uint32_t bf[4];
           ldsm_x4(bf, kt + ((lm >> 1) * 8 + lr) * Lay::KLD + 32 * kk + 16 * (lm & 1));
+          if (HD % 16 != 0 && kk == KST - 1) bf[1] = bf[3] = 0u;  // columns past hd: the pad
           mma_bf16(kk & 1 ? s2[0] : s[0], qf[kk], bf);
           mma_bf16(kk & 1 ? s2[1] : s[1], qf[kk], bf + 2);
         }
@@ -358,8 +431,8 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
           uint32_t kw[KST];
 #pragma unroll
           for (int b = 0; b < HD / 64; ++b) load_words<16>(kw + 4 * b, kr + 64 * b + 16 * t);
-          if constexpr (HD % 64 != 0)
-            load_words<HD % 64 / 4>(kw + 4 * (HD / 64), kr + 64 * (HD / 64) + (HD % 64 / 4) * t);
+          if constexpr (TAIL != 0)
+            load_run<TAIL, align_of(TAIL)>(kw + 4 * (HD / 64), kr + 64 * (HD / 64) + TAIL * t);
 #pragma unroll
           for (int kk = 0; kk < KST; ++kk) {
             const uint32_t ux = kw[kk] ^ 0x80808080u;
@@ -427,7 +500,7 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
           s[h][e] = p * vsc[h][e & 1];
         }
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
+      for (int n = 0; n < NOW; ++n) {
         o[n][0] *= alpha[0];
         o[n][1] *= alpha[0];
         o[n][2] *= alpha[1];
@@ -436,24 +509,31 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
       const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
                               pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
       if constexpr (BF) {
+        // n-tiles n0 + n of the output, in pairs (the pair past an odd NO
+        // reads the row's 16-byte pad and is dropped)
+        const int n0 = cs * NOW;
 #pragma unroll
-        for (int n = 0; n < NO; n += 2) {
+        for (int n = 0; n < NOW; n += 2) {
+          if (CS > 1 && n0 + n >= NO) break;
           uint32_t bf[4];
-          ldsm_x4_trans(bf, vt + ((lm & 1) * 8 + lr) * Lay::VLD + 16 * (n + (lm >> 1)));
+          ldsm_x4_trans(bf, vt + ((lm & 1) * 8 + lr) * Lay::VLD + 16 * (n0 + n + (lm >> 1)));
           mma_bf16(o[n], pa, bf);
-          mma_bf16(o[n + 1], pa, bf + 2);
+          if (n + 1 < NOW && (CS == 1 || n0 + n + 1 < NO)) mma_bf16(o[n + 1], pa, bf + 2);
         }
       } else {
-        // rows t + 4 i, bytes [VB g, VB g + VB): output column VB g + n of n-tile n
-        uint32_t vw[4][(VB + 3) / 4];
+        // rows t + 4 i, bytes [VB g + cs NOW, + NOW): output column VB g + cs NOW + n
+        // of n-tile cs NOW + n
+        constexpr int RW = (NOW + 3) / 4;
+        uint32_t vw[4][RW];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          load_run<VB>(vw[i], vt + (t + 4 * i) * Lay::VLD + VB * g);
+          load_run<NOW, RA>(vw[i], vt + (t + 4 * i) * Lay::VLD + VB * g + cs * NOW);
 #pragma unroll
-          for (int w = 0; w < (VB + 3) / 4; ++w) vw[i][w] ^= 0x80808080u;
+          for (int w = 0; w < RW; ++w) vw[i][w] ^= 0x80808080u;
         }
 #pragma unroll
-        for (int n = 0; n < NO; ++n) {
+        for (int n = 0; n < NOW; ++n) {
+          if (CS > 1 && cs * NOW + n >= NO) break;
           float f[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -470,8 +550,8 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
   cp_async_wait<0>();
   __syncthreads();  // the ring is drained: its memory now holds the merge
 
-  // each warp's rows: output [16][OLD] in fragment order (n-tile n, column
-  // c at 8 n + c), m, l
+  // each warp's rows: output [16][OLD] in fragment order (its n-tile n,
+  // column c at 8 n + c), m, l
   float* wo = reinterpret_cast<float*>(sm + warp * Lay::WARP_PART);
   float* wm = wo + 16 * Lay::OLD;
   float* wl = wm + 16;
@@ -481,7 +561,7 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
     const int row = g + 8 * rr;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
+    for (int n = 0; n < NOW; ++n)
       *reinterpret_cast<float2*>(wo + row * Lay::OLD + 8 * n + 2 * t) =
           make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
     if (t == 0) {
@@ -491,7 +571,9 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
   }
   __syncthreads();
   // the block's heads: the warps of a head's m-tile merged; first each
-  // head's max, sum and the warps' weights, then the outputs
+  // head's max, sum (from the warps of column slice 0: a slice's warps share
+  // the scores) and the warps' weights, then the outputs, each column from
+  // the warps of its slice
   float* bacc = reinterpret_cast<float*>(sm + Lay::BLOCK_OFF);
   float* bm = bacc + kMaxG * HD;
   float* bl = bm + kMaxG;
@@ -510,7 +592,7 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
       const bool mine = w % MT == head >> 4 && mw != -INFINITY;
       const float f = mine ? exp2f(mw - mmax) : 0.f;
       wgt[head * kWarps + w] = f;
-      lsum = fmaf(p[16 * Lay::OLD + 16 + row], f, lsum);
+      if (CS == 1 || (w / MT) % CS == 0) lsum = fmaf(p[16 * Lay::OLD + 16 + row], f, lsum);
     }
     bm[head] = mmax;
     bl[head] = lsum;
@@ -518,12 +600,16 @@ __device__ void attend(unsigned char* sm, const __nv_bfloat16* __restrict__ q, i
   __syncthreads();
   for (int i = tid; i < G * HD; i += kThreads) {
     const int head = i / HD, d = i - head * HD;
-    const int at = (head & 15) * Lay::OLD + (BF ? d : 8 * (d % VB) + d / VB);
+    const int n = BF ? d >> 3 : d % VB;   // n-tile and column of dim d
+    const int col = BF ? d & 7 : d / VB;
+    const int c = CS > 1 ? n / NOW : 0;   // its column slice
+    const int at = (head & 15) * Lay::OLD + 8 * (n - c * NOW) + col;
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float f = wgt[head * kWarps + w];
-      if (f != 0.f) acc = fmaf(reinterpret_cast<const float*>(sm + w * Lay::WARP_PART)[at], f, acc);
+      if (f != 0.f && (CS == 1 || (w / MT) % CS == c))
+        acc = fmaf(reinterpret_cast<const float*>(sm + w * Lay::WARP_PART)[at], f, acc);
     }
     bacc[head * HD + d] = acc;
   }

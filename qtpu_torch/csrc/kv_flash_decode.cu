@@ -40,6 +40,9 @@
 //  2. flash_combine_kernel, grid B * KV: merges the slices, adds the new
 //     token's column from k_new / v_new, normalizes, and writes the new rows'
 //     codes and scales at pos.
+// Head dims: every multiple of 8 from 8 to 256, any G (the shared core's; a
+// kv-head with more q heads than a block takes is split over head groups on
+// the grid's y axis, each group's blocks reading the same slice).
 // No block of either launch reads row pos of the cache: the strict mask
 // keeps it out of every slice, so the write in launch 2 cannot race a read
 // (and launch 2 follows launch 1 on the stream in any case). Not carried
@@ -55,7 +58,7 @@
 namespace {
 
 constexpr int kChunk = 64;  // cache rows per staged chunk (two per lane)
-constexpr int kMaxG = 32;   // query heads per kv-head: one warp each
+constexpr int kMaxG = 32;   // warps of a combine block; the earlier split body: one a head
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -196,19 +199,25 @@ __global__ void __launch_bounds__(kMaxG * 32) flash_split_kernel(
   }
 }
 
-// grid (nsplit, KV, B), block kvd::kThreads: flash_split_kernel's slices and
-// scratch on the shared core. qk_scale = log2(e) / sqrt(hd); the scratch's m
-// is in natural-log units, as flash_combine_kernel reads it.
+
+// grid (nsplit, KV * groups, B), block kvd::kThreads: flash_split_kernel's
+// slices and scratch on the shared core, each block GB <= 32 of a kv-head's
+// G heads (head group blockIdx.y % groups; the last may hold fewer). qk_scale =
+// log2(e) / sqrt(hd); the scratch's m is in natural-log units, as
+// flash_combine_kernel reads it.
 template <int HD>
 __global__ void __launch_bounds__(kvd::kThreads) flash_split_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_c,
     const int8_t* __restrict__ v_c, const float* __restrict__ ks_c,
     const float* __restrict__ vs_c, const int* __restrict__ pos, float* __restrict__ part,
-    int KV, int G, int S, int window, float qk_scale) {
+    int KV, int G, int GB, int S, int window, float qk_scale) {
   extern __shared__ __align__(16) float sm[];
   unsigned char* base = kvd::align16(sm);
   const int z = blockIdx.x, nsplit = gridDim.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int groups = gridDim.y / KV;
+  const int kvh = blockIdx.y / groups, h0 = (blockIdx.y - kvh * groups) * GB;
+  const int Gb = min(GB, G - h0);
+  const int b = blockIdx.z;
   int lo, hi;
   kept_rows(pos[b], S, window, &lo, &hi);
   const int n = max(0, hi - lo);
@@ -222,13 +231,13 @@ __global__ void __launch_bounds__(kvd::kThreads) flash_split_mma_kernel(
   r.ks = ks_c + row0;
   r.vs = vs_c + row0;
   r.fresh = -1;  // the strict mask keeps row pos out of every slice
-  kvd::attend<HD, false>(base, q + ((size_t)b * KV * G + (size_t)kvh * G) * HD, G, r, s_beg,
-                         s_end, qk_scale, [] {});
+  kvd::attend<HD, false>(base, q + ((size_t)b * KV * G + (size_t)kvh * G + h0) * HD, Gb, r,
+                         s_beg, s_end, qk_scale, [] {});
   const float* bacc = reinterpret_cast<const float*>(base + kvd::Layout<HD, false>::BLOCK_OFF);
   const float* bm = bacc + kvd::kMaxG * HD;
   const float* bl = bm + kvd::kMaxG;
-  float* dst = part + (((size_t)b * KV + kvh) * nsplit + z) * G * (HD + 2);
-  for (int i = threadIdx.x; i < G * (HD + 2); i += kvd::kThreads) {
+  float* dst = part + ((((size_t)b * KV + kvh) * nsplit + z) * G + h0) * (HD + 2);
+  for (int i = threadIdx.x; i < Gb * (HD + 2); i += kvd::kThreads) {
     const int h = i / (HD + 2), j = i - h * (HD + 2);
     dst[i] = j < HD ? bacc[h * HD + j] : j == HD ? bm[h] / kvd::kLog2e : bl[h];
   }
@@ -249,11 +258,11 @@ __device__ __forceinline__ void quantize_row(const __nv_bfloat16* src, int8_t* d
   if (lane == 0) *scale_out = scale;
 }
 
-// grid B * KV, block G * 32: merges the nsplit slices of each head with the
-// new token's column, writes out [B, H, HD] bf16, then the new rows at pos.
-// A lane owns VPL adjacent dims where HD % 32 == 0 (dim and mine fold to
-// that layout with no test, at compile time), else dims lane, lane + 32, ...
-// below HD.
+// grid B * KV, block min(G, 32) * 32: merges the nsplit slices of each head
+// (warp w takes heads w, w + 32, ...) with the new token's column, writes out
+// [B, H, HD] bf16, then the new rows at pos. A lane owns VPL adjacent dims
+// where HD % 32 == 0 (dim and mine fold to that layout with no test, at
+// compile time), else dims lane, lane + 32, ... below HD.
 template <int HD>
 __global__ void __launch_bounds__(kMaxG * 32) flash_combine_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
@@ -263,55 +272,57 @@ __global__ void __launch_bounds__(kMaxG * 32) flash_combine_kernel(
   constexpr int VPL = (HD + 31) / 32;
   const int b = blockIdx.x / KV;
   const int kvh = blockIdx.x - b * KV;
-  const int g = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
   const int p = pos[b];
   const size_t nrow = ((size_t)b * KV + kvh) * HD;  // this head's new k/v row
-  const size_t qoff = (((size_t)b * KV + kvh) * G + g) * HD;
   auto dim = [lane](int t) { return HD % 32 == 0 ? VPL * lane + t : lane + 32 * t; };
   auto mine = [lane](int t) { return HD % 32 == 0 || lane + 32 * t < HD; };
+  for (int g = w; g < G; g += nw) {
+    const size_t qoff = (((size_t)b * KV + kvh) * G + g) * HD;
 
-  float kn[VPL], vn[VPL];
-  float dot = 0.f;
+    float kn[VPL], vn[VPL];
+    float dot = 0.f;
 #pragma unroll
-  for (int t = 0; t < VPL; ++t) {
-    const int d = dim(t);
-    kn[t] = mine(t) ? __bfloat162float(k_new[nrow + d]) : 0.f;
-    vn[t] = mine(t) ? __bfloat162float(v_new[nrow + d]) : 0.f;
-    if (mine(t)) dot = fmaf(__bfloat162float(q[qoff + d]), kn[t], dot);
-  }
-  const float s_new = p < S ? warp_sum(dot) * sm_scale : -INFINITY;
-
-  const float* src = part + (((size_t)b * KV + kvh) * nsplit * G + g) * (HD + 2);
-  const size_t stride = (size_t)G * (HD + 2);  // one slice to the next
-  float mx = s_new;
-  for (int z = 0; z < nsplit; ++z) mx = fmaxf(mx, src[z * stride + HD]);
-  float acc[VPL];
-  float l = 0.f;
-  const float e_new = mx == -INFINITY ? 0.f : expf(s_new - mx);
-#pragma unroll
-  for (int t = 0; t < VPL; ++t) acc[t] = e_new * vn[t];
-  l = e_new;
-  if (mx != -INFINITY) {
-    for (int z = 0; z < nsplit; ++z) {
-      const float* sl = src + z * stride;
-      const float mz = sl[HD];
-      if (mz == -INFINITY) continue;  // an empty slice
-      const float w = expf(mz - mx);
-      l = fmaf(sl[HD + 1], w, l);
-#pragma unroll
-      for (int t = 0; t < VPL; ++t)
-        if (mine(t)) acc[t] = fmaf(sl[dim(t)], w, acc[t]);
+    for (int t = 0; t < VPL; ++t) {
+      const int d = dim(t);
+      kn[t] = mine(t) ? __bfloat162float(k_new[nrow + d]) : 0.f;
+      vn[t] = mine(t) ? __bfloat162float(v_new[nrow + d]) : 0.f;
+      if (mine(t)) dot = fmaf(__bfloat162float(q[qoff + d]), kn[t], dot);
     }
-  }
-  const float inv = l > 0.f ? 1.0f / l : 0.f;
+    const float s_new = p < S ? warp_sum(dot) * sm_scale : -INFINITY;
+
+    const float* src = part + (((size_t)b * KV + kvh) * nsplit * G + g) * (HD + 2);
+    const size_t stride = (size_t)G * (HD + 2);  // one slice to the next
+    float mx = s_new;
+    for (int z = 0; z < nsplit; ++z) mx = fmaxf(mx, src[z * stride + HD]);
+    float acc[VPL];
+    float l = 0.f;
+    const float e_new = mx == -INFINITY ? 0.f : expf(s_new - mx);
 #pragma unroll
-  for (int t = 0; t < VPL; ++t)
-    if (mine(t)) out[qoff + dim(t)] = __float2bfloat16(acc[t] * inv);
+    for (int t = 0; t < VPL; ++t) acc[t] = e_new * vn[t];
+    l = e_new;
+    if (mx != -INFINITY) {
+      for (int z = 0; z < nsplit; ++z) {
+        const float* sl = src + z * stride;
+        const float mz = sl[HD];
+        if (mz == -INFINITY) continue;  // an empty slice
+        const float wz = expf(mz - mx);
+        l = fmaf(sl[HD + 1], wz, l);
+#pragma unroll
+        for (int t = 0; t < VPL; ++t)
+          if (mine(t)) acc[t] = fmaf(sl[dim(t)], wz, acc[t]);
+      }
+    }
+    const float inv = l > 0.f ? 1.0f / l : 0.f;
+#pragma unroll
+    for (int t = 0; t < VPL; ++t)
+      if (mine(t)) out[qoff + dim(t)] = __float2bfloat16(acc[t] * inv);
+  }
 
   // the new rows at pos (warps 0 and 1; warp 0 alone when G = 1)
   if (p < 0 || p >= S) return;
   const size_t row = ((size_t)b * KV + kvh) * S + p;
-  for (int r = g; r < 2; r += G) {
+  for (int r = w; r < 2; r += nw) {
     if (r == 0)
       quantize_row(k_new + nrow, k_c + row * HD, ks_c + row, HD, lane);
     else
@@ -344,28 +355,59 @@ int split_blocks_per_sm() {
   return e == cudaSuccess ? n : -(int)e;
 }
 
+// One call of K12.
+struct KvfCall {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* k_c;
+  void* v_c;
+  void* ks_c;
+  void* vs_c;
+  const void* pos;
+  void* part;
+  void* out;
+  int B, KV, G, S, window, nsplit;
+  cudaStream_t st;
+};
+
 template <int HD>
-int launch(const void* q, const void* k_new, const void* v_new, void* k_c, void* v_c, void* ks_c,
-           void* vs_c, const void* pos, void* part, void* out, int B, int KV, int G, int S,
-           int window, int nsplit, cudaStream_t st) {
+int launch(const KvfCall& c) {
+  const int G = c.G;
+  const int groups = kvd::head_groups(G), GB = kvd::group_heads(G);
+  if ((long long)c.KV * groups > 65535) return -1;
   constexpr int smem = kvd::Layout<HD, false>::SMEM;
   cudaError_t e0 = allow_split_smem<HD>();
   if (e0 != cudaSuccess) return (int)e0;
   const float sm_scale = 1.0f / sqrtf((float)HD);
-  flash_split_mma_kernel<HD><<<dim3(nsplit, KV, B), kvd::kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_c),
-      static_cast<const int8_t*>(v_c), static_cast<const float*>(ks_c),
-      static_cast<const float*>(vs_c), static_cast<const int*>(pos), static_cast<float*>(part),
-      KV, G, S, window, kvd::kLog2e * sm_scale);
+  flash_split_mma_kernel<HD><<<dim3(c.nsplit, c.KV * groups, c.B), kvd::kThreads, smem, c.st>>>(
+      static_cast<const __nv_bfloat16*>(c.q), static_cast<const int8_t*>(c.k_c),
+      static_cast<const int8_t*>(c.v_c), static_cast<const float*>(c.ks_c),
+      static_cast<const float*>(c.vs_c), static_cast<const int*>(c.pos),
+      static_cast<float*>(c.part), c.KV, G, GB, c.S, c.window, kvd::kLog2e * sm_scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_combine_kernel<HD><<<B * KV, G * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new), static_cast<int8_t*>(k_c),
-      static_cast<int8_t*>(v_c), static_cast<float*>(ks_c), static_cast<float*>(vs_c),
-      static_cast<const int*>(pos), static_cast<const float*>(part),
-      static_cast<__nv_bfloat16*>(out), KV, G, S, nsplit, sm_scale);
+  flash_combine_kernel<HD><<<c.B * c.KV, (G < kMaxG ? G : kMaxG) * 32, 0, c.st>>>(
+      static_cast<const __nv_bfloat16*>(c.q), static_cast<const __nv_bfloat16*>(c.k_new),
+      static_cast<const __nv_bfloat16*>(c.v_new), static_cast<int8_t*>(c.k_c),
+      static_cast<int8_t*>(c.v_c), static_cast<float*>(c.ks_c), static_cast<float*>(c.vs_c),
+      static_cast<const int*>(c.pos), static_cast<const float*>(c.part),
+      static_cast<__nv_bfloat16*>(c.out), c.KV, G, c.S, c.nsplit, sm_scale);
   return (int)cudaGetLastError();
+}
+
+// What 0 launches K12 (`call` a KvfCall) at head dim hd, what 1 returns
+// the split body's blocks an SM there; -1 for an hd it does not take.
+int flash_at(int what, int hd, const void* call) {
+  switch (hd) {
+#define QTPU_FLASH_CASE(HD)                                                                 \
+  case HD:                                                                                  \
+    return what == 0 ? launch<HD>(*static_cast<const KvfCall*>(call))                       \
+                     : split_blocks_per_sm<HD>();
+    QTPU_HEAD_DIMS(QTPU_FLASH_CASE)
+#undef QTPU_FLASH_CASE
+    default: return -1;
+  }
 }
 
 // The earlier split body (flash_split_kernel) with the same combine.
@@ -401,8 +443,8 @@ int launch_simt(const void* q, const void* k_new, const void* v_new, void* k_c, 
 
 }  // namespace
 
-// q [B, H, hd] bf16 (H = KV * G, G <= 32, hd a multiple of 16 from 32 to
-// 128); k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer [B, KV, S, hd]
+// q [B, H, hd] bf16 (H = KV * G, any G, hd a multiple of 8 from 8 to
+// 256); k_new/v_new [B, 1, KV, hd] bf16; k_c/v_c one layer [B, KV, S, hd]
 // int8 and ks_c/vs_c [B, KV, S] f32, written at pos; pos [B] int32; part
 // an f32 scratch of B * KV * nsplit * G * (hd + 2); out [B, H, hd] bf16.
 // window 0 = full causal. Returns a cudaError_t (0 on success), or -1 for
@@ -411,25 +453,12 @@ extern "C" int qtpu_flash_decode(const void* q, const void* k_new, const void* v
                                  void* v_c, void* ks_c, void* vs_c, const void* pos, void* part,
                                  void* out, int B, int KV, int G, int S, int hd, int window,
                                  int nsplit, void* stream) {
-  if (B <= 0 || KV <= 0 || G <= 0 || G > kMaxG || S <= 0 || window < 0 || nsplit <= 0 ||
-      nsplit > 65535)
+  if (B <= 0 || KV <= 0 || G <= 0 || S <= 0 || hd <= 0 || window < 0 || nsplit <= 0 ||
+      nsplit > 65535 || B > 65535)
     return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-#define QTPU_FLASH_CASE(HD)                                                                  \
-  case HD:                                                                                   \
-    return launch<HD>(q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B, KV, G, S,    \
-                      window, nsplit, st);
-    QTPU_FLASH_CASE(32)
-    QTPU_FLASH_CASE(48)
-    QTPU_FLASH_CASE(64)
-    QTPU_FLASH_CASE(80)
-    QTPU_FLASH_CASE(96)
-    QTPU_FLASH_CASE(112)
-    QTPU_FLASH_CASE(128)
-#undef QTPU_FLASH_CASE
-    default: return -1;
-  }
+  const KvfCall c{q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, part, out, B, KV, G, S, window,
+                  nsplit, static_cast<cudaStream_t>(stream)};
+  return flash_at(0, hd, &c);
 }
 
 // qtpu_flash_decode on the earlier split body, for chip_smoke.py's "was"
@@ -459,14 +488,7 @@ extern "C" int qtpu_flash_decode_simt(const void* q, const void* k_new, const vo
 // head_dim hd: what K12's split rule (flash_splits) sizes its grid by; a
 // negative cudaError_t on failure, -1 for an hd it does not take.
 extern "C" int qtpu_flash_split_blocks_per_sm(int hd) {
-  switch (hd) {
-    case 32: return split_blocks_per_sm<32>();
-    case 48: return split_blocks_per_sm<48>();
-    case 64: return split_blocks_per_sm<64>();
-    case 80: return split_blocks_per_sm<80>();
-    case 96: return split_blocks_per_sm<96>();
-    case 112: return split_blocks_per_sm<112>();
-    case 128: return split_blocks_per_sm<128>();
-    default: return -1;
-  }
+  if (hd <= 0) return -1;
+  return flash_at(1, hd, nullptr);
 }
+

@@ -6,7 +6,8 @@ directory is `build/qtpu_torch/` at the root of the checkout (QTPU_COMPILE_CACHE
 moves it: qtpu_torch.utils.compcache); a library's
 file name carries a hash of its sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Several sources build in
-parallel, one `nvcc` process each (`build`).
+parallel, one `nvcc` process each (`build`); that of a source of
+SPLIT_COMPILE runs its optimizer and ptxas over several threads.
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# the attention sources, 32 instances a kernel and mode (one per head dim):
+# nvcc's optimizer and ptxas over several threads (--split-compile=0), the
+# same kernels' times at half the wall of one thread; the other sources
+# keep the machine code they have without it
+SPLIT_COMPILE = ("kv_attention", "kv_flash_decode", "flash_attention")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -47,8 +53,12 @@ def nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + (("--split-compile=0",) if name in SPLIT_COMPILE else ())
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -67,7 +77,7 @@ def build(names=SOURCES) -> dict:
             report[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, lib, time.perf_counter())

@@ -9,8 +9,9 @@ tile); it takes strided views with a contiguous head dim, and its output is
 a [B, H, S, hd] view of a contiguous [B, S, H, hd] tensor, so a caller
 holding [B, S, H, hd] projections passes `.transpose(1, 2)` views and gets
 [B, S, H * hd] back with no copy. Its limits, H % KV == 0 and a head_dim
-that is a multiple of 16 from 32 to 128 (`supported`, which a model's route
-asks before the call), raise ValueError. A CPU tensor takes
+that is a multiple of 8 from 8 to 256 (`supported`, which a model's route
+asks before the call: qtpu's Pallas kernel takes those and more, its K2 stops
+at 256), raise ValueError. A CPU tensor takes
 `flash_attention_plain`, the f32 math of the Pallas kernel.
 
 Which body a launch runs is `flash_route`, the kernel's own rule
@@ -18,6 +19,7 @@ Which body a launch runs is `flash_route`, the kernel's own rule
 k and v are 16-byte aligned with strides of whole 16-byte units; "mma", the
 mma.sync body, for the rest (a q at 4-byte alignment or odd multiples of 2
 elements). `flash_attention.wgmma_launches` and `.mma_launches` count them.
+The Hopper body's key tiles are 128 keys, 64 above hd 128.
 `flash_attention_mma` runs the mma.sync body whatever the rule says: the
 earlier body on the same bytes, for chip_smoke.py's "was" times; no eval
 path calls it.
@@ -35,12 +37,12 @@ from qtpu_torch.kernels._build import I, L64, P, require
 _SIG = {"qtpu_flash_attention": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P],
         "qtpu_flash_attention_mma": [P, P, P, P] + [L64] * 12 + [I] * 6 + [P]}
 MASKED = -1e30
-HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)  # both bodies (csrc: head_dim_ok)
+HEAD_DIMS = tuple(range(8, 264, 8))  # both bodies (csrc: head_dim_ok, QTPU_HEAD_DIMS)
 
 
 def supported(hd: int) -> bool:
     """Whether the kernel takes this head dim (its check in `_launch`): a
-    multiple of 16 from 32 to 128."""
+    multiple of 8 from 8 to 256."""
     return hd in HEAD_DIMS
 
 
@@ -74,7 +76,7 @@ def _check(name, t, shape, device):
 
 
 WGMMA_BQ = 128  # query rows a block of the Hopper body (two warpgroups of 64)
-WGMMA_BK = 128  # keys a tile of the Hopper body
+WGMMA_BK = 128  # keys a tile of the Hopper body up to hd 128 (64 above: FaLayout::BK)
 
 
 def flash_tiles(q0: int, S: int, window: int, bq: int = WGMMA_BQ, bk: int = WGMMA_BK):
@@ -134,7 +136,7 @@ def _launch(q, k, v, window, entry):
     B, H, S, hd = q.shape
     KV = k.shape[1]
     require(KV > 0 and H % KV == 0, f"H={H} must be a multiple of KV={KV}")
-    require(supported(hd), f"head_dim {hd} must be a multiple of 16, 32 <= hd <= 128")
+    require(supported(hd), f"head_dim {hd} must be a multiple of 8, 8 <= hd <= 256")
     _check("q", q, (B, H, S, hd), q.device)
     _check("k", k, (B, KV, S, hd), q.device)
     _check("v", v, (B, KV, S, hd), q.device)

@@ -35,10 +35,15 @@ csrc/kv_decode_core.cuh (mma.sync over int8 chunks in a cp.async ring). The
 chip_smoke.py's "was" times: card tensors only, counted in their own
 `.launches`; no model path calls them.
 The head dims each kernel takes are `decode_supported` (K3's kernel: a
-multiple of 16 from 32 to 128, at most 32 q heads a kv head) and
-`flash_supported` (K12: the same head dims), the checks its entries make;
-a model's route asks them before the call and runs the plain version on the
-card tensors the kernel does not take (hd % 16 == 8, hd > 128, G > 32).
+multiple of 8 from 8 to 256, any number of q heads a kv head) and
+`flash_supported` (K12: the same), the checks its entries make: every shape
+qtpu hands a Pallas kernel (its K2 stops at 256). A model's route asks them
+before the call and runs the plain version only on card tensors outside
+that (hd % 8 != 0, hd > 256). A block of the shared core takes at most
+32 q heads (`BLOCK_HEADS`); more are split over head groups on a grid axis
+(`head_groups`), each group reading the same rows.
+The `_simt` bodies keep their narrow domains (K3's: hd % 16 == 0, hd <= 128,
+G <= 32; K12's: SIMT_FLASH_HEAD_DIMS): no default route runs them.
 """
 
 from __future__ import annotations
@@ -71,20 +76,38 @@ DECODE_CHUNK = 64  # cache rows of a chunk of the shared core (kvd::kRows)
 MAX_CLUSTER = 8  # the portable thread-block cluster size
 
 
-HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)  # the instances of K3's kernel and of K12
-HEAD_DIM_RULE = "a multiple of 16, 32 <= hd <= 128"
+HEAD_DIMS = tuple(range(8, 264, 8))  # the instances of K3's kernel and of K12 (QTPU_HEAD_DIMS)
+HEAD_DIM_RULE = "a multiple of 8, 8 <= hd <= 256"
 SIMT_FLASH_HEAD_DIMS = (32, 64, 128)  # K12's earlier split body (its lanes own hd / 32 dims)
 
 
 def decode_supported(hd: int, group: int) -> bool:
     """Whether K3's kernel (K3, K8, K11, the one-layer entry) takes head dim
     hd with `group` q heads a kv head (the checks of `_k3`, `_check_decode`)."""
-    return hd in HEAD_DIMS and 0 < group <= 32
+    return hd in HEAD_DIMS and group > 0
 
 
 def flash_supported(hd: int) -> bool:
     """Whether K12 takes head dim hd (the check of `_flash`)."""
     return hd in HEAD_DIMS
+
+
+def simt_supported(hd: int, group: int) -> bool:
+    """Whether K3's earlier body (the `_simt` entries of K3, K8, K11) takes
+    the shape: hd % 16 == 0, hd <= 128, at most 32 q heads a kv head."""
+    return hd % 16 == 0 and 0 < hd <= 128 and 0 < group <= 32
+
+
+BLOCK_HEADS = 32  # q heads one block of the shared decode core takes (kvd::kMaxG)
+
+
+def head_groups(group: int) -> tuple:
+    """(blocks, heads a block) K3's kernel and K12's split body split the
+    `group` q heads of a kv head over (kvd::head_groups, group_heads): as
+    few blocks as BLOCK_HEADS allows, the heads spread evenly, the last
+    block holding the rest."""
+    n = -(-group // BLOCK_HEADS)
+    return n, -(-group // n)
 
 
 def decode_cluster(sm_count: int, B: int, KV: int, S: int) -> int:
@@ -187,8 +210,8 @@ def _check_cache(k_all, v_all, ks_all, vs_all, pos, device):
 
 
 def _check_aligned(k, v):
-    """The decode attention core copies cache rows in 16-byte pieces: hd % 16
-    == 0 (the callers' head_dim checks) and 16-byte aligned k / v."""
+    """The decode attention core copies cache rows in 16-byte pieces (8-byte
+    ones where an int8 row is hd % 16 == 8 bytes): 16-byte aligned k / v."""
     require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
             "k/v cache must be 16-byte aligned")
 
@@ -256,8 +279,10 @@ def _k3(q, k_all, v_all, ks_all, vs_all, pos, layer, window, simt=False):
     H = q.shape[1]
     require(q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[0] == B
             and q.shape[2] == hd and q.is_contiguous(), "q must be contiguous bf16 [B, H, hd]")
-    require(H % KV == 0 and H // KV <= 32, f"H={H} must be a multiple of KV={KV}, G <= 32")
+    require(H % KV == 0, f"H={H} must be a multiple of KV={KV}")
     require(decode_supported(hd, H // KV), f"head_dim {hd} must be {HEAD_DIM_RULE}")
+    require(not simt or simt_supported(hd, H // KV),
+            f"the earlier body takes hd % 16 == 0 <= 128 and G <= 32, not hd {hd}, G {H // KV}")
     _check_cache(k_all, v_all, ks_all, vs_all, pos, q.device)
     _check_aligned(k_all, v_all)
     require(0 <= layer < L, f"layer {layer} out of range")
@@ -321,17 +346,19 @@ def decode_attention_write_bf16_plain(q, k_new, v_new, k_all, v_all, pos, layer,
     return _write_attend_plain(q, k_new, v_new, cache, layer, pos, window)
 
 
-def _check_decode(q, k_new, v_new, k_all, pos, layer):
+def _check_decode(q, k_new, v_new, k_all, pos, layer, simt=False):
     """Shape, type and device checks of the decode write + attention
-    kernels (K8, K11) on everything but the cache's dtype. Returns
-    (L, B, KV, S, hd, H)."""
+    kernels (K8, K11, K12) on everything but the cache's dtype; simt: K3's
+    earlier body's narrower domain. Returns (L, B, KV, S, hd, H)."""
     require(q.is_cuda, f"unsupported device {q.device}")
     L, B, KV, S, hd = k_all.shape
     H = q.shape[1]
     require(q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[0] == B
             and q.shape[2] == hd and q.is_contiguous(), "q must be contiguous bf16 [B, H, hd]")
-    require(H % KV == 0 and H // KV <= 32, f"H={H} must be a multiple of KV={KV}, G <= 32")
+    require(H % KV == 0, f"H={H} must be a multiple of KV={KV}")
     require(decode_supported(hd, H // KV), f"head_dim {hd} must be {HEAD_DIM_RULE}")
+    require(not simt or simt_supported(hd, H // KV),
+            f"the earlier body takes hd % 16 == 0 <= 128 and G <= 32, not hd {hd}, G {H // KV}")
     require(0 <= layer < L, f"layer {layer} out of range")
     for t in (k_new, v_new):
         require(t.dtype == torch.bfloat16 and tuple(t.shape) == (B, 1, KV, hd),
@@ -357,7 +384,7 @@ def decode_attention_write_bf16(q, k_new, v_new, k_all, v_all, pos, layer, windo
 
 
 def _k8(q, k_new, v_new, k_all, v_all, pos, layer, window, simt=False):
-    L, B, KV, S, hd, H = _check_decode(q, k_new, v_new, k_all, pos, layer)
+    L, B, KV, S, hd, H = _check_decode(q, k_new, v_new, k_all, pos, layer, simt)
     for t in (k_all, v_all):
         require(t.dtype == torch.bfloat16 and tuple(t.shape) == (L, B, KV, S, hd),
                 "cache must be bf16 [L, B, KV, S, hd]")
@@ -408,7 +435,7 @@ def decode_attention_write(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, l
 
 
 def _k11(q, k_new, v_new, k_all, v_all, ks_all, vs_all, pos, layer, window, simt=False):
-    _check_decode(q, k_new, v_new, k_all, pos, layer)
+    _check_decode(q, k_new, v_new, k_all, pos, layer, simt)
     _check_cache(k_all, v_all, ks_all, vs_all, pos, q.device)
     _check_aligned(k_all, v_all)
     out = torch.empty_like(q)
@@ -505,8 +532,9 @@ def _flash(entry, q, k_new, v_new, k_c, v_c, ks_c, vs_c, pos, window, simt=False
     B, KV, S, hd = k_c.shape
     G = q.shape[1] // KV
     require(flash_supported(hd), f"head_dim {hd} must be {HEAD_DIM_RULE}")
-    require(not simt or hd in SIMT_FLASH_HEAD_DIMS,
-            f"the earlier split body takes head_dim {SIMT_FLASH_HEAD_DIMS}, not {hd}")
+    require(not simt or (hd in SIMT_FLASH_HEAD_DIMS and G <= 32),
+            f"the earlier split body takes head_dim {SIMT_FLASH_HEAD_DIMS} and G <= 32, "
+            f"not {hd}, G {G}")
     require(window >= 0, "window must be >= 0")
     sms = _sm_count(q.device.index or 0)
     if simt:  # the earlier body's own split: about four blocks an SM, 256 rows a slice

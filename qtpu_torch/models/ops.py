@@ -82,7 +82,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def plain_attention(plain, *args, **kw):
     """plain(*args, **kw): an attention kernel's plain version for a call
     whose shape the kernel does not take (the route above), counted in
-    `plain_attention.launches`."""
+    `plain_attention.launches`. The kernels take every shape qtpu hands a
+    Pallas kernel (hd a multiple of 8 from 8 to 256, any G), so on the card
+    this runs only outside that: hd % 8 != 0, or hd > 256 (where the port's
+    K2, like qtpu's route into its kernels, stops)."""
     plain_attention.launches += 1
     return plain(*args, **kw)
 
@@ -95,10 +98,11 @@ def causal_attention(q, k, v, window: int = 0):
     KV, hd] -> [B, S, H * hd]; with window > 0 query i sees keys (i -
     window, i].
 
-    A CUDA tensor at a head dim K5 takes runs K5 at any S on `transpose(1,
-    2)` views (no repeat of the KV heads, no transpose copy, no mask tensor:
-    the kernel masks by position and `window`). A CPU tensor, and a head
-    dim K5 does not take (counted by plain_attention), runs qtpu's XLA math
+    A CUDA tensor at a head dim K5 takes (a multiple of 8 from 8 to 256) runs
+    K5 at any S on `transpose(1, 2)` views (no repeat of the KV heads, no
+    transpose copy, no mask tensor: the kernel masks by position and
+    `window`). A CPU tensor, and a head dim K5 does not take (counted by
+    plain_attention), runs qtpu's XLA math
     (ops.py:147-157): KV heads repeated, f32 scores, -1e30 where the mask is
     False, probabilities cast to q's dtype."""
     B, S, H, hd = q.shape

@@ -215,11 +215,14 @@ def test_k2_raises_on_what_it_does_not_take(cuda):
 
 
 # (hd, KV, G) of the decode attention cases: G in {1, 8, 32} at hd 64 and 128,
-# and the other head dims the kernels take (32 to 128 in steps of 16; OPT-2.7B
-# is MHA at 80)
+# the other head dims the kernels took first (32 to 128 in steps of 16;
+# OPT-2.7B is MHA at 80), and their whole domain's edges: hd 40 and 136 (hd %
+# 16 == 8), hd 256 (Falcon3-7B's decode: KV 4, G 3) and G 48 (one block of
+# three m-tiles) and G 48 at hd 256 (two head groups)
 DECODE_HEADS = [(64, 4, 4), (128, 4, 4), (128, 1, 32), (64, 2, 1), (128, 8, 1), (64, 4, 8),
                 (128, 2, 8), (64, 1, 32), (32, 4, 4), (48, 2, 4), (80, 8, 1), (80, 4, 8),
-                (80, 1, 32), (96, 8, 4), (112, 2, 1)]
+                (80, 1, 32), (96, 8, 4), (112, 2, 1), (40, 2, 4), (136, 2, 4), (256, 4, 3),
+                (64, 1, 48), (256, 1, 48)]
 # S of 2 and 3 64-row chunks beside the ragged ones
 DECODE_S = [40, 128, 192, 200]
 
@@ -250,12 +253,18 @@ def test_k3_matches_plain(cuda, window, S, hd, KV, G):
 
 
 def test_k3_raises_on_head_dim_over_128(cuda):
+    """hd 256 is in the kernel's domain now (its tests above); past 256 it
+    raises, and so does the earlier body past 128."""
     g = _gen()
+    cache = _cache(g, 1, 2, 1, 16, 264, cuda)
+    q = torch.randn(2, 1, 264, generator=g, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="<= 256"):
+        k23.decode_attention(q, *cache, pos, 0)
     cache = _cache(g, 1, 2, 1, 16, 256, cuda)
     q = torch.randn(2, 1, 256, generator=g, device=cuda).to(torch.bfloat16)
-    pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="<= 128"):
-        k23.decode_attention(q, *cache, pos, 0)
+    with pytest.raises(ValueError, match="earlier body"):
+        k23.decode_attention_simt(q, *cache, pos, 0)
 
 
 @pytest.mark.parametrize("bits", [4, 8])
@@ -495,8 +504,8 @@ def _bf16_qkv(g, B, H, KV, S, hd, dev):
 
 @pytest.mark.parametrize("window", [0, 40])
 @pytest.mark.parametrize("S", [1, 77, 256])
-@pytest.mark.parametrize("hd", [64, 128, 32, 48, 80, 96, 112])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128, 32, 48, 80, 96, 112, 8, 40, 136, 256])
+@pytest.mark.parametrize("G", [1, 4, 8, 24])
 def test_k5_matches_plain(cuda, window, S, hd, G):
     from qtpu_torch.kernels import flash_attention as k5
 
@@ -540,7 +549,10 @@ def test_k5_raises_on_what_it_does_not_take(cuda):
     q, k, v = _bf16_qkv(g, 1, 6, 4, 32, 64, cuda)  # H % KV != 0
     with pytest.raises(ValueError, match="multiple"):
         k5.flash_attention(q, k, v)
-    q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 72, cuda)  # a multiple of 8, not of 16
+    q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 36, cuda)  # not a multiple of 8
+    with pytest.raises(ValueError, match="head_dim"):
+        k5.flash_attention(q, k, v)
+    q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 264, cuda)  # past 256
     with pytest.raises(ValueError, match="head_dim"):
         k5.flash_attention(q, k, v)
     q, k, v = _bf16_qkv(g, 1, 4, 2, 32, 64, cuda)
@@ -963,7 +975,8 @@ def test_k9_k10_raise_on_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("hd,KV,G", [(64, 4, 4), (128, 8, 4), (64, 2, 1), (128, 1, 32),
                                      (128, 8, 1), (64, 4, 8), (128, 2, 8), (64, 1, 32),
                                      (48, 2, 4), (80, 8, 1), (80, 4, 4), (80, 1, 32), (96, 8, 4),
-                                     (112, 2, 8)])
+                                     (112, 2, 8), (40, 2, 4), (136, 2, 4), (256, 4, 3),
+                                     (64, 1, 48), (256, 1, 48)])
 def test_k11_matches_plain(cuda, window, S, hd, KV, G):
     """The codes and scales K11 writes equal the plain write's (an inactive
     slot at pos = S writes nothing); the output within rtol/atol 2e-2 of f32
@@ -1055,7 +1068,9 @@ def _flash_inputs(g, B, KV, G, hd, dev):
                                        (2048, 64, 1, 32), (2048, 64, 2, 1), (2048, 128, 2, 1),
                                        (2048, 128, 2, 8), (2048, 128, 1, 32), (2048, 48, 2, 4),
                                        (2048, 80, 8, 1), (4096, 80, 4, 8), (2048, 80, 1, 32),
-                                       (2048, 96, 8, 4), (2048, 112, 2, 1)])
+                                       (2048, 96, 8, 4), (2048, 112, 2, 1), (4096, 40, 2, 4),
+                                       (4096, 136, 2, 4), (4096, 256, 4, 3), (4096, 64, 1, 48),
+                                       (2048, 256, 1, 48), (2048, 8, 2, 4)])
 def test_k12_flash_matches_plain(cuda, window, S, hd, KV, G):
     """K12's flash entry on a per-layer buffer: the codes and scales it
     writes equal the plain version's (an inactive slot at pos >= S writes
@@ -1111,8 +1126,8 @@ def test_k12_banded_entries_match_plain(cuda, S):
 
 def test_k12_raises_on_what_it_does_not_take(cuda):
     g = _gen()
-    k, v, ks, vs = (t[0] for t in _cache(g, 1, 2, 2, 2048, 72, cuda))
-    q, kn, vn = _flash_inputs(g, 2, 2, 2, 72, cuda)
+    k, v, ks, vs = (t[0] for t in _cache(g, 1, 2, 2, 2048, 36, cuda))
+    q, kn, vn = _flash_inputs(g, 2, 2, 2, 36, cuda)
     pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         k23.decode_attention_flash(q, kn, vn, k, v, ks, vs, pos)
@@ -1124,11 +1139,97 @@ def test_k12_raises_on_what_it_does_not_take(cuda):
         k23.decode_attention_flash(q, kn, vn, k, v, ks, vs, pos.long())
 
 
+# The attention kernels over their whole domain: every head dim that is a
+# multiple of 8 from 8 to 256 at 8 q heads over 2 kv heads, and 3 to 100 q
+# heads a kv head at hd 40, 64, 128 and 256 (past 32 a decode block's heads
+# go to a grid axis of head groups); rel 2e-2 against the plain versions.
+def _domain_k5(g, dev, hd, H, KV, S, window):
+    """K5 on its Hopper body (one launch) and its mma.sync body."""
+    from qtpu_torch.kernels import flash_attention as k5
+
+    q, k, v = _bf16_qkv(g, 1, H, KV, S, hd, dev)
+    w0 = k5.flash_attention.wgmma_launches
+    got = k5.flash_attention(q, k, v, window)
+    launched = k5.flash_attention.wgmma_launches - w0
+    was = k5.flash_attention_mma(q, k, v, window)
+    want = k5.flash_attention_plain(q, k, v, window)
+    torch.cuda.synchronize()
+    assert launched == 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < 2e-2 and _rel(was, want) < 2e-2
+
+
+def _domain_decode(g, dev, hd, KV, G, S, window):
+    """K3, the one-layer entry, K11 (int8) and K8 (bf16) on layer 1 of 2 at
+    B 8, positions from 0 to S (an inactive slot, whose row is not held);
+    the writes equal the plain ones."""
+    L, B, H = 2, 8, KV * G
+    pos = torch.tensor([0, 9, S // 2, min(63, S - 1), min(64, S - 1), min(65, S - 1), S - 1, S],
+                       dtype=torch.int32, device=dev)
+    q, kn, vn = _flash_inputs(g, B, KV, G, hd, dev)
+    c = _cache(g, L, B, KV, S, hd, dev)
+    want = k23.decode_attention_plain(q, *c, pos, 1, window=window)
+    got = k23.decode_attention(q, *c, pos, 1, window=window)
+    assert _rel(got[:-1], want[:-1]) < 2e-2
+    got = k23.decode_attention_layer(q, *(t[1] for t in c), pos, window=window)
+    assert _rel(got[:-1], want[:-1]) < 2e-2
+    kc, pc = [t.clone() for t in c], [t.clone() for t in c]
+    got = k23.decode_attention_write(q, kn, vn, *kc, pos, 1, window=window)
+    want = k23.decode_attention_write_plain(q, kn, vn, *pc, pos, 1, window=window)
+    assert _rel(got[:-1], want[:-1]) < 2e-2
+    assert all(torch.equal(a, b) for a, b in zip(kc, pc))
+    kb = torch.randn(L, B, KV, S, hd, generator=g, device=dev).to(torch.bfloat16)
+    vb = torch.randn(L, B, KV, S, hd, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc, kp, vp = kb.clone(), vb.clone(), kb.clone(), vb.clone()
+    got = k23.decode_attention_write_bf16(q, kn, vn, kc, vc, pos, 1, window=window)
+    want = k23.decode_attention_write_bf16_plain(q, kn, vn, kp, vp, pos, 1, window=window)
+    torch.cuda.synchronize()
+    assert _rel(got[:-1], want[:-1]) < 2e-2
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)
+
+
+def _domain_k12(g, dev, hd, KV, G, S, window):
+    """K12's flash entry on a per-layer buffer at B 8, an inactive slot past
+    S included; the writes equal the plain ones."""
+    B = 8
+    k, v, ks, vs = (t[0] for t in _cache(g, 1, B, KV, S, hd, dev))
+    q, kn, vn = _flash_inputs(g, B, KV, G, hd, dev)
+    pos = torch.tensor([0, 37, 64, 65, S // 2, S // 2 + 1, S - 1, S + 3], dtype=torch.int32,
+                       device=dev)
+    kc = [t.clone() for t in (k, v, ks, vs)]
+    pc = [t.clone() for t in (k, v, ks, vs)]
+    got = k23.decode_attention_flash(q, kn, vn, *kc, pos, window=window)
+    want = k23.flash_decode_plain(q, kn, vn, *pc, pos, window=window)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 2e-2
+    assert all(torch.equal(a, b) for a, b in zip(kc, pc))
+
+
+@pytest.mark.parametrize("hd", range(8, 264, 8))
+def test_attention_kernels_take_every_head_dim(cuda, hd):
+    g = _gen()
+    for window in (0, 100):
+        _domain_k5(g, cuda, hd, 8, 2, 300, window)
+        _domain_k12(g, cuda, hd, 2, 4, 2048, window)
+    for window in (0, 16):
+        _domain_decode(g, cuda, hd, 2, 4, 200, window)
+
+
+@pytest.mark.parametrize("G", [3, 17, 33, 48, 64, 100])
+@pytest.mark.parametrize("hd", [40, 64, 128, 256])
+def test_attention_kernels_take_any_group(cuda, hd, G):
+    g = _gen()
+    _domain_k5(g, cuda, hd, G, 1, 300, 0)
+    _domain_decode(g, cuda, hd, 1, G, 200, 0)
+    _domain_k12(g, cuda, hd, 1, G, 2048, 0)
+
+
 @pytest.mark.parametrize("window", [0, 64, 1])
 @pytest.mark.parametrize("S", [176, 128, 192])
 @pytest.mark.parametrize("hd,KV,G", [(64, 12, 1), (64, 4, 8), (128, 8, 4), (128, 2, 1),
                                      (128, 2, 8), (64, 1, 32), (128, 1, 32), (80, 32, 1),
-                                     (48, 4, 8), (96, 8, 4), (112, 2, 1), (32, 4, 4)])
+                                     (48, 4, 8), (96, 8, 4), (112, 2, 1), (32, 4, 4),
+                                     (40, 2, 4), (136, 2, 4), (256, 4, 3), (64, 1, 48)])
 def test_row9_layer_entry_matches_plain(cuda, window, S, hd, KV, G):
     """decode_attention_layer on one layer [B, KV, S, hd] (GPT-2's MHA at
     hd 64 and G 1 first): read-only, within 2e-2 of the plain version and
@@ -1753,7 +1854,8 @@ def test_gemv_tc_replays_in_a_cuda_graph_without_a_host_sync(cuda):
 @pytest.mark.parametrize("window", [0, 4096, 300])
 @pytest.mark.parametrize("S", [2048, 1000, 4100])
 @pytest.mark.parametrize("hd,H,KV", [(64, 32, 4), (128, 32, 8), (64, 12, 12), (80, 32, 32),
-                                     (96, 32, 8), (48, 16, 4), (112, 16, 2), (32, 16, 16)])
+                                     (96, 32, 8), (48, 16, 4), (112, 16, 2), (32, 16, 16),
+                                     (256, 12, 4), (40, 16, 4), (136, 8, 2), (64, 48, 1)])
 def test_k5_hopper_body_matches_plain_and_the_mma_body(cuda, window, S, hd, H, KV):
     """K5 on wgmma fed by TMA at the eval widths (TinyLlama, Mistral-7B
     with its 4096 window, GPT-2, OPT-2.7B at hd 80, and the other head dims
@@ -2338,10 +2440,12 @@ def test_checkpoint_to_artifact_to_served_tokens(cuda, tmp_path):
 
 @pytest.mark.parametrize("kv,per_layer", [("int8", False), ("bfloat16", False),
                                           ("int8", True)])
-@pytest.mark.parametrize("hd", [80, 96])
+@pytest.mark.parametrize("hd", [80, 96, 256, 40])
 def test_head_dims_qtpu_runs_launch_the_attention_kernels(cuda, tmp_path, hd, kv, per_layer):
-    """A 2-layer checkpoint at head_dim 80 (hidden 640, 8 heads) or 96
-    (hidden 768, 8 heads, 4 kv heads) imported to the card, RTN W4 g128
+    """A 2-layer checkpoint at head_dim 80 (hidden 640, 8 heads), 96
+    (hidden 768, 8 heads, 4 kv heads), 256 (hidden 512, 2 heads, 1 kv head:
+    Falcon3's head dim) or 40 (hidden 640, 16 heads, 4 kv heads) imported to
+    the card, RTN W4 g128
     fused: the eval forward, a prefill of 2 x 16 and 3 greedy decode steps
     on the int8 and bf16 stacked caches and the per-layer int8 cache at S
     2048 (K12's layout), against the same model on the CPU fed the card's
@@ -2358,9 +2462,9 @@ def test_head_dims_qtpu_runs_launch_the_attention_kernels(cuda, tmp_path, hd, kv
     from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
     from qtpu_torch.serve.kvcache import init_cache
 
-    D, KV = (640, 8) if hd == 80 else (768, 4)
+    D, H, KV = {80: (640, 8, 8), 96: (768, 8, 4), 256: (512, 2, 1), 40: (640, 16, 4)}[hd]
     cfg = ModelConfig(vocab_size=512, hidden_size=D, intermediate_size=1024, num_layers=2,
-                      num_heads=8, num_kv_heads=KV, head_dim=hd)
+                      num_heads=H, num_kv_heads=KV, head_dim=hd)
     _write_hf_llama_2layer(tmp_path, cfg, _gen())
     params, _ = load_checkpoint(str(tmp_path), device="cuda")
     packed, qmeta = fuse_packed_sites(*pack_model(params, "rtn", {"w_bit": 4,
@@ -2400,14 +2504,16 @@ def test_head_dims_qtpu_runs_launch_the_attention_kernels(cuda, tmp_path, hd, kv
         assert _rel(a, b) < 3e-2
 
 
-@pytest.mark.parametrize("kv", ["int8", "bfloat16"])
-def test_head_dim_72_takes_the_counted_plain_route(cuda, kv):
-    """hd 72 (a multiple of 8, not of 16) is a shape the attention kernels
-    do not take: a 2-layer llama (hidden 576, 8 heads, 4 kv heads) runs K5's
-    plain version in the eval forward and K3's / K8's in each decode step on
-    the card, each call counted by `plain_attention` (a layer a forward or
-    step), no attention kernel launching; logits within 3e-2 of the CPU's,
-    fed the card's tokens. The kernels' own entries raise on it."""
+@pytest.mark.parametrize("kv", ["int8_per_layer", "bfloat16"])
+def test_head_dim_past_256_takes_the_counted_plain_route(cuda, kv):
+    """hd 264 (a multiple of 8 past 256) is a shape the attention kernels do
+    not take: a 2-layer llama (hidden 2112, 8 heads, 4 kv heads) runs K5's
+    plain version in the eval forward and K12's (the per-layer int8 cache at
+    S 2048) or K8's (bf16) in each decode step on the card, each call counted
+    by `plain_attention` (a layer a forward or step), no attention kernel
+    launching; logits within 3e-2 of the CPU's, fed the card's tokens. The
+    kernels' own entries raise on it (K2's too: the stacked int8 cache's
+    decode does not run there)."""
     from qtpu_torch.convert import map_tree
     from qtpu_torch.kernels import flash_attention as k5
     from qtpu_torch.models import llama, ops
@@ -2415,13 +2521,14 @@ def test_head_dim_72_takes_the_counted_plain_route(cuda, kv):
     from qtpu_torch.quant.apply import fuse_packed_sites, pack_model
     from qtpu_torch.serve.kvcache import init_cache
 
-    cfg = ModelConfig(vocab_size=512, hidden_size=576, intermediate_size=1024, num_layers=2,
-                      num_heads=8, num_kv_heads=4, head_dim=72)
-    L, B, P = cfg.num_layers, 2, 16
+    hd, per_layer = 264, kv == "int8_per_layer"
+    cfg = ModelConfig(vocab_size=512, hidden_size=8 * hd, intermediate_size=1024, num_layers=2,
+                      num_heads=8, num_kv_heads=4, head_dim=hd)
+    L, B, P, S = cfg.num_layers, 2, 16, 2048 if per_layer else 32
     raw = llama.init_params(cfg, seed=3, device="cpu")
     packed, qmeta = fuse_packed_sites(*pack_model(raw, "rtn", {"w_bit": 4, "q_group_size": 64}))
     ids = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator().manual_seed(6))
-    attn = (k5.flash_attention, k23.decode_attention, k23.decode_attention_write_bf16,
+    attn = (k5.flash_attention, k23.decode_attention_flash, k23.decode_attention_write_bf16,
             k23.cache_band_write)
     c0 = [ops.plain_attention.launches] + [f.launches for f in attn]
     got = llama.forward(map_tree(raw, lambda t: t.cuda()), ids.cuda(), cfg)
@@ -2431,7 +2538,8 @@ def test_head_dim_72_takes_the_counted_plain_route(cuda, kv):
     runs, feed = {}, None
     for dev in ("cuda", "cpu"):
         p = packed if dev == "cpu" else map_tree(packed, lambda t: t.cuda())
-        cache = init_cache(cfg, B, 32, quantized=kv == "int8", device=dev)
+        cache = init_cache(cfg, B, S, quantized=kv != "bfloat16", device=dev,
+                           per_layer=per_layer)
         pos = torch.arange(P, dtype=torch.int32, device=dev)[None].repeat(B, 1)
         x, out, toks = ids.to(dev), [], []
         for step in range(3):
@@ -2446,10 +2554,10 @@ def test_head_dim_72_takes_the_counted_plain_route(cuda, kv):
         feed = toks
     torch.cuda.synchronize()
     launched = [f.launches - n for f, n in zip(attn, c0[1:])]
-    assert launched == [0, 0, 0, 2 * L if kv == "int8" else 0]  # K2 writes the int8 rows
+    assert launched == [0, 0, 0, 0]
     for a, b in zip(runs["cuda"], runs["cpu"]):
         assert _rel(a, b) < 3e-2
-    q = torch.randn(B, 8, 72, device=cuda).to(torch.bfloat16)
+    q = torch.randn(B, 8, hd, device=cuda).to(torch.bfloat16)
     cache = init_cache(cfg, B, 32, quantized=True, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         k23.decode_attention(q, cache.k, cache.v, cache.k_scale, cache.v_scale,

@@ -157,6 +157,37 @@ def test_import_equals_qtpu_and_hf(saved, family, fmt):
     np.testing.assert_allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
 
 
+# tiiuae/Falcon3-7B-Base's published config.json: a LlamaForCausalLM with an
+# explicit head_dim of 256
+FALCON3_7B_HF = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False, "attention_dropout": 0.0,
+    "bos_token_id": 11, "eos_token_id": 11, "head_dim": 256, "hidden_act": "silu",
+    "hidden_size": 3072, "initializer_range": 0.02, "intermediate_size": 23040,
+    "max_position_embeddings": 32768, "mlp_bias": False, "model_type": "llama",
+    "num_attention_heads": 12, "num_hidden_layers": 28, "num_key_value_heads": 4,
+    "pretraining_tp": 1, "rms_norm_eps": 1e-06, "rope_scaling": None, "rope_theta": 1000042,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 131072}
+
+
+def test_falcon3_7b_config_equals_qtpus_and_the_smokes(tmp_path):
+    """Falcon3-7B-Base's config.json gives one config in both packages:
+    head_dim 256 (its explicit key, here also hidden / heads), q_dim 3072, G 3;
+    chip_smoke.FALCON3_7B (the falcon3 phase's model, cut in depth there)
+    equals it field for field, norm_topk_prob aside (MoE-only: config_from_hf
+    reads it as False off a llama, ModelConfig's default is True)."""
+    import chip_smoke
+
+    (tmp_path / "config.json").write_text(json.dumps(FALCON3_7B_HF))
+    ct, cj = thf.config_from_hf(str(tmp_path)), jhf.config_from_hf(str(tmp_path))
+    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+    assert (ct.arch, ct.head_dim, ct.q_dim, ct.kv_dim) == ("llama", 256, 3072, 1024)
+    assert ct.num_heads // ct.num_kv_heads == 3
+    smoke = ModelConfig(**chip_smoke.FALCON3_7B)
+    assert dataclasses.asdict(smoke) == dataclasses.asdict(
+        ct.replace(norm_topk_prob=smoke.norm_topk_prob))
+
+
 def test_bf16_checkpoint_loads_its_own_bits(tmp_path):
     """A checkpoint stored in bf16, as published checkpoints are, loads to
     the stored bits, transposed, and to qtpu's; its .bin twin loads through
